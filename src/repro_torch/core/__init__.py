@@ -1,0 +1,68 @@
+"""repro_torch.core — recycled Krylov solvers on flat PyTorch tensors.
+
+The front doors are ``solve`` / ``solve_sequence`` driven by one
+``SolveSpec`` and carrying a ``RecycleState`` (``core/api.py``); ``cg``,
+``defcg`` and ``RecycleManager`` are the lower-level entry points.
+"""
+
+from repro_torch.core.api import (
+    SequenceSolveResult,
+    SolveReport,
+    SolveResult,
+    SolveSpec,
+    solve,
+    solve_sequence,
+)
+from repro_torch.core.engine import SolveInfo, SolveStatus
+from repro_torch.core.operators import (
+    DenseMatrixOperator,
+    KernelSystemOperator,
+    LinearOperator,
+    apply_to_basis,
+    from_callable,
+    from_matrix,
+)
+from repro_torch.core.recycle import (
+    MAX_RECOVERY_RUNGS,
+    RecycleManager,
+    RecycleState,
+    harmonic_ritz_flat,
+)
+from repro_torch.core.solvers import (
+    DEFAULT_WAW_JITTER,
+    CGResult,
+    RecycleData,
+    cg,
+    cholesky_solve,
+    defcg,
+)
+from repro_torch.core.strategies import HarmonicRitz, RecycleStrategy
+
+__all__ = [
+    "CGResult",
+    "DEFAULT_WAW_JITTER",
+    "DenseMatrixOperator",
+    "HarmonicRitz",
+    "KernelSystemOperator",
+    "LinearOperator",
+    "MAX_RECOVERY_RUNGS",
+    "RecycleData",
+    "RecycleManager",
+    "RecycleState",
+    "RecycleStrategy",
+    "SequenceSolveResult",
+    "SolveInfo",
+    "SolveReport",
+    "SolveResult",
+    "SolveSpec",
+    "SolveStatus",
+    "apply_to_basis",
+    "cg",
+    "cholesky_solve",
+    "defcg",
+    "from_callable",
+    "from_matrix",
+    "harmonic_ritz_flat",
+    "solve",
+    "solve_sequence",
+]

@@ -1,0 +1,318 @@
+"""One front door for every solve: ``SolveSpec`` + ``RecycleState``.
+
+The counterpart of ``repro.core.api`` for the SPD methods: :func:`solve`
+(one system) and :func:`solve_sequence` (N related systems), configured by
+the same frozen :class:`SolveSpec` (same fields, same defaults, same
+validation) and carrying the same :class:`RecycleState`.
+
+What this slice of the port leaves out raises, naming the ROADMAP item
+that brings it: preconditioners (``M``, ``precond != "none"``; queue 1
+item 8), the recovery ladder and stagnation detector (item 10), LSMR
+(item 11), ``solve_batch`` (item 12), ``mesh=`` (item 13) and
+checkpointed sequences (item 10).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import recycle as recycle_mod
+from repro_torch.core import solvers as solvers_mod
+from repro_torch.core.engine import SolveInfo
+from repro_torch.core.recycle import RecycleState, SequenceResult
+from repro_torch.core.solvers import DEFAULT_WAW_JITTER
+from repro_torch.core.strategies import HarmonicRitz, RecycleStrategy
+
+_METHODS = ("cg", "defcg", "lsmr", "deflsmr")
+_LSQ_METHODS = ("lsmr", "deflsmr")
+_SELECTS = ("largest", "smallest")
+_REFRESH_MODES = ("exact", "stale")
+_PRECONDS = ("none", "jacobi", "nystrom", "custom")
+
+
+def _not_ported(what: str, item: int) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet: ROADMAP queue 1 item {item}"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class SolveSpec:
+    """Declarative solver configuration — the reference's fields and
+    defaults (see ``repro.core.api.SolveSpec`` for their meaning)."""
+
+    method: str = "defcg"
+    k: int = 8
+    ell: int = 12
+    tol: float = 1e-5
+    atol: float = 0.0
+    maxiter: int = 1000
+    select: str = "largest"
+    waw_jitter: float = DEFAULT_WAW_JITTER
+    refresh_aw: str = "exact"
+    precond: str = "none"
+    precond_rank: int = 16
+    precond_sigma: float = 1.0
+    strategy: RecycleStrategy = HarmonicRitz()
+    recovery_rungs: int = 3
+    recovery_shift: float = 1e-6
+    stagnation_window: int = 0
+    lsq_shift: float = 0.0
+
+    def __post_init__(self):
+        if self.method not in _METHODS:
+            raise ValueError(f"method must be one of {_METHODS}, got {self.method!r}")
+        if self.select not in _SELECTS:
+            raise ValueError(f"select must be one of {_SELECTS}, got {self.select!r}")
+        if self.refresh_aw not in _REFRESH_MODES:
+            raise ValueError(
+                f"refresh_aw must be one of {_REFRESH_MODES}, got {self.refresh_aw!r}"
+            )
+        if self.precond not in _PRECONDS:
+            raise ValueError(
+                f"precond must be one of {_PRECONDS}, got {self.precond!r}"
+            )
+        if self.method in ("defcg", "deflsmr") and self.k < 1:
+            raise ValueError(f"{self.method} needs k >= 1, got k={self.k}")
+        if self.lsq_shift < 0:
+            raise ValueError(f"lsq_shift must be >= 0, got {self.lsq_shift}")
+        if self.lsq_shift != 0.0 and self.method not in _LSQ_METHODS:
+            raise ValueError(
+                f"lsq_shift is the ridge λ of the least-squares methods "
+                f"{_LSQ_METHODS}; method={self.method!r} ignores it"
+            )
+        if self.method in _LSQ_METHODS and self.precond != "none":
+            raise ValueError(
+                f"method={self.method!r} has no preconditioner path; "
+                "use precond='none'"
+            )
+        if self.ell < 0 or self.maxiter < 1 or self.precond_rank < 1:
+            raise ValueError("ell >= 0, maxiter >= 1, precond_rank >= 1 required")
+        if self.tol < 0 or self.atol < 0 or self.waw_jitter < 0:
+            raise ValueError("tol, atol and waw_jitter must be non-negative")
+        if not 0 <= self.recovery_rungs <= recycle_mod.MAX_RECOVERY_RUNGS:
+            raise ValueError(
+                f"recovery_rungs must be in [0, "
+                f"{recycle_mod.MAX_RECOVERY_RUNGS}], got {self.recovery_rungs}"
+            )
+        if self.recovery_shift < 0 or self.stagnation_window < 0:
+            raise ValueError(
+                "recovery_shift and stagnation_window must be non-negative"
+            )
+        if not isinstance(self.strategy, RecycleStrategy):
+            raise ValueError(
+                "strategy must be a repro_torch.core.strategies.RecycleStrategy "
+                f"instance, got {self.strategy!r}"
+            )
+
+
+class SolveReport(NamedTuple):
+    """Failure-handling diagnostics of a solve (int32 tensors)."""
+
+    status: torch.Tensor
+    rung: torch.Tensor
+    guard_firings: torch.Tensor
+    matvecs: torch.Tensor
+
+
+def _make_report(info: SolveInfo, rung) -> SolveReport:
+    def i32(v):
+        return torch.as_tensor(v).to(torch.int32)
+
+    return SolveReport(
+        status=i32(info.status),
+        rung=i32(rung),
+        guard_firings=i32(info.guard_fired),
+        matvecs=i32(info.matvecs),
+    )
+
+
+class SolveResult(NamedTuple):
+    """What :func:`solve` returns: solution, diagnostics, next state."""
+
+    x: torch.Tensor
+    info: SolveInfo
+    state: Optional[RecycleState]
+    report: Optional[SolveReport] = None
+
+
+class SequenceSolveResult(NamedTuple):
+    """Per-system stacked outputs of :func:`solve_sequence` + final state."""
+
+    x: torch.Tensor
+    info: SolveInfo
+    theta: Optional[torch.Tensor]
+    state: RecycleState
+    report: Optional[SolveReport] = None
+
+
+def _check_spd_spec(spec: SolveSpec, M) -> None:
+    if spec.method in _LSQ_METHODS:
+        raise _not_ported(f"method={spec.method!r} (LSMR)", 11)
+    if M is not None or spec.precond != "none":
+        raise _not_ported("preconditioning (M, precond != 'none')", 8)
+
+
+def solve(
+    A,
+    b: torch.Tensor,
+    spec: Optional[SolveSpec] = None,
+    state: Optional[RecycleState] = None,
+    *,
+    x0: Optional[torch.Tensor] = None,
+    M=None,
+    record_residuals: bool = False,
+    mesh=None,
+) -> SolveResult:
+    """Solve one SPD system ``A x = b`` per ``spec``, carrying ``state``.
+
+    ``method="defcg"`` returns the next :class:`RecycleState` (``state=None``
+    bootstraps cold, in ``b``'s dtype and device); ``method="cg"`` passes
+    ``state`` through untouched.  ``info.matvecs`` includes the refresh the
+    strategy spent.
+    """
+    spec = SolveSpec() if spec is None else spec
+    if mesh is not None:
+        raise _not_ported("the sharded engine (mesh=)", 13)
+    _check_spd_spec(spec, M)
+
+    if spec.method == "cg":
+        res = solvers_mod.cg(
+            A, b, x0,
+            tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter,
+            record_residuals=record_residuals,
+            stagnation_window=spec.stagnation_window,
+        )
+        return SolveResult(
+            x=res.x, info=res.info, state=state,
+            report=_make_report(res.info, 0),
+        )
+
+    n = b.shape[0]
+    if state is None:
+        state = RecycleState.zeros(spec.k, n, dtype=b.dtype, device=b.device)
+    if state.W.ndim != 2 or tuple(state.W.shape) != (spec.k, n):
+        raise ValueError(
+            f"state.W has shape {tuple(state.W.shape)}; spec(k={spec.k}) over "
+            f"this system needs ({spec.k}, {n}) — state and spec must agree"
+        )
+    x, info, w2, aw2, theta, drift2, rung = recycle_mod._one_recycled_solve(
+        A,
+        b,
+        x0,
+        state.W,
+        state.AW,
+        state.drift,
+        k=spec.k,
+        ell=spec.ell,
+        tol=spec.tol,
+        atol=spec.atol,
+        maxiter=spec.maxiter,
+        select=spec.select,
+        waw_jitter=spec.waw_jitter,
+        refresh_aw=spec.refresh_aw,
+        strategy=spec.strategy,
+        record_residuals=record_residuals,
+        recovery_rungs=spec.recovery_rungs,
+        stagnation_window=spec.stagnation_window,
+    )
+    new_state = RecycleState(
+        W=w2,
+        AW=aw2,
+        theta=state.theta if theta is None else theta,
+        systems_solved=state.systems_solved + 1,
+        drift=drift2.to(state.drift.dtype),
+    )
+    return SolveResult(
+        x=x, info=info, state=new_state, report=_make_report(info, rung)
+    )
+
+
+def _finish_sequence(
+    seq: SequenceResult,
+    spec: SolveSpec,
+    state0: Optional[RecycleState],
+    num_systems: int,
+) -> SequenceSolveResult:
+    device = seq.W.device
+    solved0 = (
+        state0.systems_solved if state0 is not None
+        else torch.zeros((), dtype=torch.int32, device=device)
+    )
+    if seq.theta is not None:
+        theta = seq.theta[-1]
+    elif state0 is not None:
+        theta = state0.theta
+    else:
+        theta = torch.zeros((spec.k,), dtype=seq.W.dtype, device=device)
+    state = RecycleState(
+        W=seq.W,
+        AW=seq.AW,
+        theta=theta,
+        systems_solved=solved0 + num_systems,
+        drift=seq.drift,
+    )
+    return SequenceSolveResult(
+        x=seq.x,
+        info=seq.info,
+        theta=seq.theta,
+        state=state,
+        report=_make_report(seq.info, seq.rung),
+    )
+
+
+def solve_sequence(
+    systems: Any,
+    b_seq: torch.Tensor,
+    spec: Optional[SolveSpec] = None,
+    state0: Optional[RecycleState] = None,
+    *,
+    make_operator: Optional[Callable[[Any], Any]] = None,
+    make_preconditioner: Optional[Callable[[Any], Any]] = None,
+    carry_x: bool = False,
+    divergence_fallback: bool = True,
+    checkpoint=None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+) -> SequenceSolveResult:
+    """Solve a sequence of related systems, spec-driven.
+
+    ``systems[i]`` mapped through ``make_operator`` is the i-th operator,
+    ``b_seq`` is ``(num_systems, n)``; the returned ``state`` seeds the
+    next call.
+    """
+    spec = SolveSpec() if spec is None else spec
+    if checkpoint is not None or checkpoint_every or resume:
+        raise _not_ported("checkpointed, resumable sequences", 10)
+    if spec.method == "deflsmr":
+        raise _not_ported("method='deflsmr' (LSMR)", 11)
+    if spec.method != "defcg":
+        raise ValueError(
+            "solve_sequence recycles a deflation basis — it needs "
+            f"spec.method='defcg', got {spec.method!r}"
+        )
+    _check_spd_spec(spec, make_preconditioner)
+    seq = recycle_mod.solve_sequence(
+        systems,
+        b_seq,
+        state0.W if state0 is not None else None,
+        state0.AW if state0 is not None else None,
+        k=spec.k,
+        ell=spec.ell,
+        make_operator=make_operator,
+        tol=spec.tol,
+        atol=spec.atol,
+        maxiter=spec.maxiter,
+        select=spec.select,
+        waw_jitter=spec.waw_jitter,
+        refresh_aw=spec.refresh_aw,
+        carry_x=carry_x,
+        strategy=spec.strategy,
+        drift0=state0.drift if state0 is not None else None,
+        recovery_rungs=(spec.recovery_rungs if divergence_fallback else 0),
+        stagnation_window=spec.stagnation_window,
+    )
+    return _finish_sequence(seq, spec, state0, b_seq.shape[0])

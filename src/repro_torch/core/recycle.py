@@ -1,0 +1,439 @@
+"""Krylov subspace recycling across a sequence of SPD systems.
+
+The counterpart of ``repro.core.recycle`` (the paper's §2.3): the
+:class:`RecycleState` carried from system to system, the per-system step
+shared by every front door (:func:`_one_recycled_solve`), the sequence
+engine (:func:`solve_sequence`, a Python loop over systems where the
+reference scans), and the host-driven :class:`RecycleManager`.
+
+The escalating recovery ladder (reference ``recycle.py:420-605``) comes
+with ROADMAP queue 1 item 10.  Until then a solve that ends where the
+reference would climb its first rung raises :class:`NotImplementedError`;
+finding out costs one host read per solve.  A clean solve reports rung 0,
+as the reference does.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import operators as ops_mod
+from repro_torch.core.engine import SolveInfo
+from repro_torch.core.solvers import DEFAULT_WAW_JITTER, CGResult, defcg
+from repro_torch.core.strategies import (
+    HarmonicRitz,
+    RecycleStrategy,
+    harmonic_ritz_flat_core,
+)
+
+# Highest rung the reference's recovery ladder can climb.
+MAX_RECOVERY_RUNGS = 3
+
+_NO_LADDER = (
+    "the solve ended broken or unconverged with a carried basis, where the "
+    "reference climbs its recovery ladder; the ladder is not ported yet: "
+    "ROADMAP queue 1 item 10"
+)
+
+
+@dataclasses.dataclass
+class RecycleState:
+    """Recycled-subspace state — the carry of every solve path.
+
+    Attributes:
+      W: flat ``(k, n)`` recycled basis rows (zero rows are empty slots).
+      AW: ``(k, n)`` A-products of ``W`` under the operator that made them.
+      theta: ``(k,)`` harmonic Ritz values (0 = clamped slot).
+      systems_solved: 0-d int32 tensor — how many solves fed this state.
+      drift: 0-d tensor — the strategy's carried drift measurement.
+    """
+
+    W: torch.Tensor
+    AW: torch.Tensor
+    theta: torch.Tensor
+    systems_solved: torch.Tensor
+    drift: torch.Tensor
+
+    @classmethod
+    def zeros(cls, k: int, n: int, *, dtype: torch.dtype,
+              device) -> "RecycleState":
+        """A cold (empty) state: the first solve runs plain CG + record."""
+        return cls(
+            W=torch.zeros((k, n), dtype=dtype, device=device),
+            AW=torch.zeros((k, n), dtype=dtype, device=device),
+            theta=torch.zeros((k,), dtype=dtype, device=device),
+            systems_solved=torch.zeros((), dtype=torch.int32, device=device),
+            drift=torch.zeros((), dtype=dtype, device=device),
+        )
+
+
+def harmonic_ritz_flat(
+    Z: torch.Tensor,
+    AZ: torch.Tensor,
+    k: int,
+    *,
+    valid: Optional[torch.Tensor] = None,
+    select: str = "largest",
+    jitter: float = 1e-10,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Harmonic Ritz over flat ``(m, n)`` row bases: ``(W, AW, theta)``."""
+    W, AW, theta, _ = harmonic_ritz_flat_core(
+        Z, AZ, k, valid=valid, select=select, jitter=jitter
+    )
+    return W, AW, theta
+
+
+def _one_recycled_solve(
+    A,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor],
+    w: torch.Tensor,
+    aw_carry: torch.Tensor,
+    drift: torch.Tensor,
+    *,
+    k: int,
+    ell: int,
+    tol: float,
+    atol: float,
+    maxiter: int,
+    select: str,
+    waw_jitter: float,
+    refresh_aw: str,
+    strategy: RecycleStrategy,
+    record_residuals: bool = False,
+    recovery_rungs: int = 0,
+    stagnation_window: int = 0,
+):
+    """ONE system of the recycled def-CG step, on flat state.
+
+    ``strategy.prepare`` picks the ``AW`` that deflates this system and
+    its cost; ``strategy.transition`` turns the recorded window into the
+    next ``(W, AW, θ, drift)``.  Returns ``(x, info, w_next, aw_next,
+    theta, drift_next, rung)``; ``theta`` is ``None`` when ``ell == 0``.
+    """
+    aw_used, refresh_matvecs, exact_aw, stale_guard = strategy.prepare(
+        lambda ww: ops_mod.apply_to_basis(A, ww),
+        w,
+        aw_carry,
+        drift,
+        k=k,
+        refresh_aw=refresh_aw,
+        tol=tol,
+    )
+    result = defcg(
+        A,
+        b,
+        x0,
+        W=w,
+        AW=aw_used,
+        ell=ell,
+        tol=tol,
+        atol=atol,
+        maxiter=maxiter,
+        record_residuals=record_residuals,
+        waw_jitter=waw_jitter,
+        exact_aw=exact_aw,
+        stale_guard=stale_guard,
+        stagnation_window=stagnation_window,
+    )
+    if result.recycle is not None and result.recycle.aw_used is not None:
+        aw_used = result.recycle.aw_used
+    info = result.info._replace(matvecs=result.info.matvecs + refresh_matvecs)
+    if ell > 0:
+        w_next, aw_next, theta, drift_next = strategy.transition(
+            w, aw_used, result.recycle, k=k, select=select
+        )
+    else:
+        w_next, aw_next, theta, drift_next = w, aw_used, None, drift
+
+    rung0 = torch.zeros((), dtype=torch.int32, device=b.device)
+    if recovery_rungs <= 0:
+        return result.x, info, w_next, aw_next, theta, drift_next, rung0
+
+    had_basis = torch.any(w != 0)
+    bad = info.breakdown | ~info.converged
+    if bool(bad & (had_basis | info.breakdown)):
+        raise NotImplementedError(_NO_LADDER)
+    # The reference's terminal retirement, a no-op on a clean solve.
+    x = result.x
+    x_safe = torch.zeros_like(x) if x0 is None else x0.to(x.dtype)
+    x_safe = torch.where(torch.isfinite(x_safe), x_safe, 0.0)
+    x = torch.where(torch.all(torch.isfinite(x)), x, x_safe)
+    retire = (
+        info.breakdown
+        | ~torch.all(torch.isfinite(w_next))
+        | ~torch.all(torch.isfinite(aw_next))
+    )
+    w_next = torch.where(retire, 0.0, w_next)
+    aw_next = torch.where(retire, 0.0, aw_next)
+    if theta is not None:
+        theta = torch.where(retire, 0.0, theta)
+    drift_next = torch.where(retire, torch.zeros_like(drift_next), drift_next)
+    return x, info, w_next, aw_next, theta, drift_next, rung0
+
+
+class SequenceResult(NamedTuple):
+    """Stacked outputs of :func:`solve_sequence` (leading axis = system)."""
+
+    x: torch.Tensor
+    info: SolveInfo
+    theta: Optional[torch.Tensor]
+    W: torch.Tensor
+    AW: torch.Tensor
+    drift: Optional[torch.Tensor] = None
+    rung: Optional[torch.Tensor] = None
+
+
+def _stack_infos(infos) -> SolveInfo:
+    def stack(field):
+        vals = [getattr(i, field) for i in infos]
+        if vals[0] is None:
+            return None
+        return torch.stack([torch.as_tensor(v) for v in vals])
+
+    return SolveInfo(*(stack(f) for f in SolveInfo._fields))
+
+
+def solve_sequence(
+    systems: Any,
+    b_seq: torch.Tensor,
+    W0: Optional[torch.Tensor] = None,
+    AW0: Optional[torch.Tensor] = None,
+    *,
+    k: int,
+    ell: int,
+    make_operator: Optional[Callable[[Any], Any]] = None,
+    tol: float = 1e-5,
+    atol: float = 0.0,
+    maxiter: int = 1000,
+    select: str = "largest",
+    waw_jitter: float = DEFAULT_WAW_JITTER,
+    refresh_aw: str = "exact",
+    carry_x: bool = False,
+    strategy: Optional[RecycleStrategy] = None,
+    drift0: Optional[torch.Tensor] = None,
+    recovery_rungs: int = MAX_RECOVERY_RUNGS,
+    stagnation_window: int = 0,
+) -> SequenceResult:
+    """Solve a sequence of related SPD systems, carrying ``(W, AW)``.
+
+    ``systems[i]`` (a tensor with a leading system axis, or a list) is
+    mapped through ``make_operator`` to the i-th operator; ``b_seq`` is
+    ``(num_systems, n)``.  Per-system semantics are
+    :func:`_one_recycled_solve`'s, shared with the single-system front
+    door.  Outputs are stacked as the reference's scan stacks them.
+    """
+    if refresh_aw not in ("exact", "stale"):
+        raise ValueError(f"unknown refresh_aw={refresh_aw!r}")
+    if refresh_aw == "stale" and W0 is not None and AW0 is None:
+        raise ValueError("refresh_aw='stale' with W0 requires AW0")
+    strategy = HarmonicRitz() if strategy is None else strategy
+    make_op = make_operator if make_operator is not None else (lambda s: s)
+    n = b_seq.shape[1]
+    dtype, device = b_seq.dtype, b_seq.device
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    w = zeros(k, n) if W0 is None else W0.to(dtype)
+    aw = zeros(k, n) if (AW0 is None or W0 is None) else AW0.to(dtype)
+    x_prev = zeros(n)
+    drift = zeros() if drift0 is None else drift0.to(dtype)
+
+    xs, infos, thetas, rungs = [], [], [], []
+    for i in range(b_seq.shape[0]):
+        x, info, w, aw, theta, drift, rung = _one_recycled_solve(
+            make_op(systems[i]),
+            b_seq[i],
+            x_prev if carry_x else None,
+            w,
+            aw,
+            drift,
+            k=k,
+            ell=ell,
+            tol=tol,
+            atol=atol,
+            maxiter=maxiter,
+            select=select,
+            waw_jitter=waw_jitter,
+            refresh_aw=refresh_aw,
+            strategy=strategy,
+            recovery_rungs=recovery_rungs,
+            stagnation_window=stagnation_window,
+        )
+        x_prev = x
+        xs.append(x)
+        infos.append(info)
+        thetas.append(theta)
+        rungs.append(rung)
+    return SequenceResult(
+        x=torch.stack(xs),
+        info=_stack_infos(infos),
+        theta=None if thetas[0] is None else torch.stack(thetas),
+        W=w,
+        AW=aw,
+        drift=drift,
+        rung=torch.stack(rungs),
+    )
+
+
+@dataclasses.dataclass
+class RecycleManager:
+    """Carries the recycled subspace across a sequence of SPD systems.
+
+    Call :meth:`solve` once per system: def-CG(k, ell) with the current
+    basis (plain CG + recording for the first system), then the
+    strategy's transition extracts the next basis.  ``refresh_aw="exact"``
+    recomputes ``A⁽ⁱ⁾W`` per system (one multi-RHS pass, k matvecs,
+    charged); ``"stale"`` reuses the extraction's products.  A solve that
+    ends broken or unconverged with a carried basis is re-solved clean,
+    and the failed attempt's matvecs are charged, as in the reference.
+    """
+
+    k: int
+    ell: int
+    select: str = "largest"
+    tol: float = 1e-5
+    maxiter: int = 1000
+    waw_jitter: float = DEFAULT_WAW_JITTER
+    refresh_aw: str = "exact"
+    strategy: RecycleStrategy = HarmonicRitz()
+    state: Optional[RecycleState] = None
+    systems_solved: int = 0
+    _has_aw: bool = False
+
+    @property
+    def W(self) -> Optional[torch.Tensor]:
+        return None if self.state is None else self.state.W
+
+    @property
+    def AW(self) -> Optional[torch.Tensor]:
+        if self.state is None or not self._has_aw:
+            return None
+        return self.state.AW
+
+    @property
+    def theta(self) -> Optional[torch.Tensor]:
+        return None if self.state is None else self.state.theta
+
+    def seed(self, W: torch.Tensor, AW: Optional[torch.Tensor] = None) -> None:
+        """Seed the recycle space a priori with a flat ``(m, n)`` basis,
+        ``1 <= m <= k`` (and optionally its A-products)."""
+        m = W.shape[0]
+        if W.ndim != 2 or not 1 <= m <= self.k:
+            raise ValueError(
+                f"seed basis has {m} vectors; RecycleManager(k={self.k}) "
+                f"can carry between 1 and {self.k}"
+            )
+        if AW is not None and AW.shape != W.shape:
+            raise ValueError(
+                f"seed AW shape {tuple(AW.shape)} does not match W shape "
+                f"{tuple(W.shape)}"
+            )
+        self.state = RecycleState(
+            W=W,
+            AW=torch.zeros_like(W) if AW is None else AW,
+            theta=torch.zeros((m,), dtype=W.dtype, device=W.device),
+            systems_solved=torch.tensor(
+                self.systems_solved, dtype=torch.int32, device=W.device
+            ),
+            drift=torch.zeros((), dtype=W.dtype, device=W.device),
+        )
+        self._has_aw = AW is not None
+
+    def solve(
+        self,
+        A,
+        b: torch.Tensor,
+        x0: Optional[torch.Tensor] = None,
+        *,
+        tol: Optional[float] = None,
+        maxiter: Optional[int] = None,
+        record_residuals: bool = False,
+        M=None,
+    ) -> CGResult:
+        tol = self.tol if tol is None else tol
+        maxiter = self.maxiter if maxiter is None else maxiter
+        w_flat = self.W
+        aw_flat = self.AW
+        drift = self.state.drift if self.state is not None else 0.0
+        needs_fresh = w_flat is not None and (
+            aw_flat is None
+            or self.strategy.manager_wants_refresh(self.refresh_aw, drift, tol)
+        )
+        if needs_fresh:
+            aw_flat = ops_mod.apply_to_basis(A, w_flat)
+
+        exact_aw = needs_fresh or w_flat is None
+        result = defcg(
+            A,
+            b,
+            x0,
+            W=w_flat,
+            AW=aw_flat,
+            ell=self.ell,
+            tol=tol,
+            maxiter=maxiter,
+            record_residuals=record_residuals,
+            waw_jitter=self.waw_jitter,
+            exact_aw=exact_aw,
+            M=M,
+            stale_guard=(
+                None if exact_aw else self.strategy.in_solve_guard(tol)
+            ),
+        )
+        if result.recycle is not None and result.recycle.aw_used is not None:
+            aw_flat = result.recycle.aw_used
+        refresh_cost = w_flat.shape[0] if needs_fresh else 0
+
+        if w_flat is not None and (
+            bool(result.info.breakdown) or not bool(result.info.converged)
+        ):
+            # A stale or ill-conditioned basis can poison the recurrences:
+            # drop it and re-solve clean, charging the failed attempt.
+            failed_matvecs = result.info.matvecs
+            self.state = None
+            self._has_aw = False
+            w_flat = aw_flat = None
+            result = defcg(
+                A, b, x0,
+                ell=self.ell, tol=tol, maxiter=maxiter,
+                record_residuals=record_residuals,
+            )
+            result = result._replace(
+                info=result.info._replace(
+                    matvecs=result.info.matvecs + failed_matvecs + refresh_cost
+                )
+            )
+        elif refresh_cost:
+            result = result._replace(
+                info=result.info._replace(
+                    matvecs=result.info.matvecs + refresh_cost
+                )
+            )
+        self.systems_solved += 1
+        self._refresh(result, w_flat, aw_flat)
+        return result
+
+    def _refresh(self, result: CGResult, w_flat, aw_flat) -> None:
+        rec = result.recycle
+        if rec is None or int(rec.stored) == 0:
+            # Nothing recorded (x0 was already exact): keep the basis.
+            return
+        k = min(self.k, rec.P.shape[0] + (0 if w_flat is None else w_flat.shape[0]))
+        W_new, AW_new, theta, drift = self.strategy.transition(
+            w_flat, aw_flat, rec, k=k, select=self.select
+        )
+        self.state = RecycleState(
+            W=W_new,
+            AW=AW_new,
+            theta=theta,
+            systems_solved=torch.tensor(
+                self.systems_solved, dtype=torch.int32, device=W_new.device
+            ),
+            drift=drift,
+        )
+        self._has_aw = True

@@ -1,0 +1,356 @@
+"""CG and deflated CG (the paper's Algorithm 1) on flat tensors.
+
+The counterpart of ``repro.core.solvers``: the same iteration, the same
+state, the same accounting, on the masked-step harness of
+:mod:`repro_torch.core.engine`.  The non-matvec vector work of an
+iteration is two fused kernels (:mod:`repro_torch.kernels.ops`), and the
+first ``ell`` search directions and their products are recorded by the
+second of them straight into ``(ell + 1, n)`` buffers: row ``ell`` is the
+spare row frozen steps write to, so rows past ``stored`` stay zero as the
+reference's masked scan outputs do.
+
+Deflation (Alg. 1 lines 3 and 11):
+
+    x0  = x_{-1} + W (WᵀAW)⁻¹ Wᵀ r_{-1}          # Wᵀ r0 = 0
+    p0  = r0 − Wᵀμ0,        WᵀAW μ0 = (AW)ᵀ r0
+    p_j = β p_{j-1} + r_j − Wᵀμ_j,  WᵀAW μ_j = (AW)ᵀ r_j
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core import operators as ops_mod
+from repro_torch.core import pytree as pt
+from repro_torch.core.engine import SolveInfo, SolveStatus
+from repro_torch.kernels import ops as kops
+
+# The one waw_jitter default (the reference's value; see repro.core.solvers).
+DEFAULT_WAW_JITTER = 1e-12
+
+# Noise floor of drift-guard thresholds, in units of the working eps.
+DRIFT_NOISE_FLOOR_EPS = 500.0
+
+_NO_PRECONDITIONER = (
+    "preconditioned CG/def-CG (M) is not ported yet: ROADMAP queue 1 item 8"
+)
+_NO_STAGNATION = (
+    "the stagnation detector (stagnation_window > 0) is not ported yet: "
+    "ROADMAP queue 1 item 10"
+)
+
+
+class RecycleData(NamedTuple):
+    """Recorded Krylov quantities — the solver→strategy window handoff."""
+
+    P: torch.Tensor  # (ell, n) search directions
+    AP: torch.Tensor  # (ell, n) their A-products
+    stored: torch.Tensor  # valid rows (may be < ell on early convergence)
+    alpha: Optional[torch.Tensor] = None  # (ell,) step sizes along P[j]
+    beta: Optional[torch.Tensor] = None  # (ell,) direction coefficients
+    aw_used: Optional[torch.Tensor] = None  # AW after an in-solve refresh
+
+
+class CGResult(NamedTuple):
+    x: torch.Tensor
+    info: SolveInfo
+    recycle: Optional[RecycleData] = None
+
+
+def _trace_write(trace, j, rnorm, active):
+    """Slot ``j + 1`` of the residual trace, kept on frozen steps."""
+    slot = (j + 1).reshape(1).to(torch.int64)
+    old = trace.index_select(0, slot)
+    trace.index_copy_(0, slot, torch.where(active, rnorm.reshape(1), old))
+
+
+def _info(j, matvecs, rnorm, threshold, trace, fail, maxiter, guard_fired=False):
+    converged = rnorm <= threshold
+    return SolveInfo(
+        iterations=j,
+        converged=converged,
+        residual_norm=rnorm,
+        matvecs=matvecs + j,
+        residual_norms=None if trace is None else trace[: maxiter + 1],
+        breakdown=fail > 0,
+        status=engine.exit_status(converged, fail),
+        guard_fired=torch.tensor(guard_fired, device=rnorm.device),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Conjugate gradients (the paper's CG baseline)
+# ---------------------------------------------------------------------------
+
+
+def cg(
+    A,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    *,
+    tol: float = 1e-5,
+    atol: float = 0.0,
+    maxiter: int = 1000,
+    M=None,
+    record_residuals: bool = False,
+    stagnation_window: int = 0,
+) -> CGResult:
+    """Conjugate gradients for SPD ``A`` (unpreconditioned in this slice)."""
+    if M is not None:
+        raise NotImplementedError(_NO_PRECONDITIONER)
+    if stagnation_window > 0:
+        raise NotImplementedError(_NO_STAGNATION)
+    x = torch.zeros_like(b) if x0 is None else x0
+    r = b - A(x)
+    p = r
+    rz = pt.tree_dot(r, r)
+    rnorm0 = pt.tree_norm(r)
+    threshold, _ = engine.tolerances(b, tol, atol)
+    trace0 = engine.trace_init(rnorm0, maxiter, record_residuals)
+    diverged_at = 1e8 * torch.maximum(rnorm0, pt.tree_norm(b))
+
+    def active_fn(state):
+        j, rnorm, fail = state[0], state[5], state[7]
+        return (j < maxiter) & (rnorm > threshold) & (fail == 0)
+
+    def step(state, active, row):
+        del row  # CG records no window
+        j, x, r, p, rz, rnorm, trace, fail = state
+        ap = A(p)
+        d = pt.tree_dot(p, ap)
+        bad, code = engine.classify_breakdown(d, rnorm, diverged_at)
+        fail = torch.where(active & (fail == 0), code, fail)
+        ap = torch.where(bad, 0.0, ap)
+        alpha = torch.where(bad | ~active, 0.0, rz / torch.where(bad, 1.0, d))
+        x, r, rr, _ = kops.fused_cg_update(x, r, p, ap, alpha)
+        beta = rr / torch.where(rz == 0.0, 1.0, rz)
+        p_new, _, _ = kops.fused_deflate_direction(r, p, beta)
+        p = torch.where(active, p_new, p)
+        rz = torch.where(active, rr, rz)
+        rnorm_new = torch.sqrt(rr)
+        fail = torch.where(
+            (fail == 0) & active & ~torch.isfinite(rnorm_new),
+            SolveStatus.BREAKDOWN_NONFINITE,
+            fail,
+        ).to(torch.int32)
+        rnorm = torch.where(active, rnorm_new, rnorm)
+        if trace is not None:
+            _trace_write(trace, j, rnorm, active)
+        j = j + active.to(j.dtype)
+        return (j, x, r, p, rz, rnorm, trace, fail)
+
+    j0 = torch.zeros((), dtype=torch.int32, device=b.device)
+    state = (j0, x, r, p, rz, rnorm0, trace0, engine.initial_fail(rnorm0))
+    state = engine.run_recording_loop(step, active_fn, state, ell=0)
+    j, x, _, _, _, rnorm, trace, fail = state
+    return CGResult(x=x, info=_info(j, 1, rnorm, threshold, trace, fail, maxiter))
+
+
+# ---------------------------------------------------------------------------
+# Deflated conjugate gradients — paper Algorithm 1
+# ---------------------------------------------------------------------------
+
+
+def _chol_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    if rhs.ndim == 1:
+        return torch.cholesky_solve(rhs[:, None], chol)[:, 0]
+    return torch.cholesky_solve(rhs, chol)
+
+
+def deflated_initial_guess(x_prev, r_prev, W, AW, waw_chol):
+    """Line 3 of Alg. 1: ``x0 = x_{-1} + W (WᵀAW)⁻¹ Wᵀ r_{-1}``, with
+    ``r0 = r_{-1} − AWᵀc`` updated through ``AW`` (no extra matvec)."""
+    c = _chol_solve(waw_chol, pt.basis_dot(W, r_prev))
+    x0 = x_prev + pt.basis_combine(W, c)
+    r0 = r_prev - pt.basis_combine(AW, c)
+    return x0, r0
+
+
+def defcg(
+    A,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    W: Optional[torch.Tensor] = None,
+    AW: Optional[torch.Tensor] = None,
+    *,
+    ell: int = 0,
+    tol: float = 1e-5,
+    atol: float = 0.0,
+    maxiter: int = 1000,
+    record_residuals: bool = False,
+    waw_jitter: float = DEFAULT_WAW_JITTER,
+    exact_aw: bool = True,
+    M=None,
+    stale_guard: Optional[float] = None,
+    stagnation_window: int = 0,
+) -> CGResult:
+    """Deflated CG — ``def-CG(k, ell)`` with k the rows of ``W``.
+
+    ``W``/``AW`` are flat ``(k, n)`` tensors; ``W=None`` runs plain CG that
+    still records the first ``ell`` directions (a cold sequence start).
+    ``AW`` is computed here (k matvecs, charged) when not given.
+    ``exact_aw=False`` re-derives the initial residual with one true
+    matvec, and ``stale_guard`` then arms the in-solve drift guard, whose
+    refresh decision is one host read of the setup.  The ``recycle``
+    field of the result holds the flat ``(ell, n)`` window.
+    """
+    if M is not None:
+        raise NotImplementedError(_NO_PRECONDITIONER)
+    if stagnation_window > 0:
+        raise NotImplementedError(_NO_STAGNATION)
+    threshold, _ = engine.tolerances(b, tol, atol)
+    matvecs = 0
+    guard_fired = False
+    x = torch.zeros_like(b) if x0 is None else x0
+    n = b.shape[0]
+    dtype, device = b.dtype, b.device
+
+    deflating = W is not None
+    aw = waw_inv = None
+    if deflating:
+        k = W.shape[0]
+        if AW is None:
+            aw = ops_mod.apply_to_basis(A, W)
+            matvecs += k
+        else:
+            aw = AW
+
+        def factor_waw(aw_f):
+            waw = pt.gram(W, aw_f)
+            waw = 0.5 * (waw + waw.T)
+            dj = torch.diagonal(waw)
+            tr = torch.sum(dj)
+            eye = torch.eye(k, dtype=waw.dtype, device=device)
+            if waw_jitter:
+                scale = torch.where(tr > 0, tr / k, 1.0)
+                waw = waw + waw_jitter * scale * eye
+            # Exactly-zero columns (clamped extraction slots) are
+            # regularized unconditionally: Wᵀr = 0 there, so any positive
+            # diagonal gives the same deflation (c_i = μ_i = 0).
+            waw = waw + torch.diag(
+                torch.where(dj == 0.0, torch.clamp(tr / k, min=1.0), 0.0)
+            )
+            return torch.linalg.cholesky_ex(waw)[0]
+
+        def post_guess(aw_f, chol, z):
+            mu0 = _chol_solve(chol, pt.basis_dot(aw_f, z))
+            p0 = z - pt.basis_combine(W, mu0)
+            winv = _chol_solve(chol, torch.eye(k, dtype=aw_f.dtype, device=device))
+            return p0, winv
+
+        chol = factor_waw(aw)
+        x_in = x
+        r_init = b - A(x_in)
+        matvecs += 1
+        x, r = deflated_initial_guess(x_in, r_init, W, aw, chol)
+        if not exact_aw:
+            r_short = r
+            r = b - A(x)
+            matvecs += 1
+            if stale_guard is not None:
+                # ‖r_true − r_short‖ = ‖(A·W − AW)c‖: the staleness of AW
+                # along the deflated component, already paid for.
+                drift_obs = pt.tree_norm(r - r_short) / torch.clamp(
+                    pt.tree_norm(r_init), min=torch.finfo(dtype).tiny
+                )
+                guard_eff = max(
+                    stale_guard, DRIFT_NOISE_FLOOR_EPS * torch.finfo(dtype).eps
+                )
+                if bool(drift_obs > guard_eff):
+                    aw = ops_mod.apply_to_basis(A, W)
+                    chol = factor_waw(aw)
+                    x, r = deflated_initial_guess(x_in, r_init, W, aw, chol)
+                    matvecs += k
+                    guard_fired = True
+        p, waw_inv = post_guess(aw, chol, r)
+    else:
+        r = b - A(x)
+        matvecs += 1
+        p = r
+
+    rnorm0 = pt.tree_norm(r)
+    rs0 = pt.tree_dot(r, r)
+    trace0 = engine.trace_init(rnorm0, maxiter, record_residuals)
+    diverged_at = 1e8 * torch.maximum(rnorm0, pt.tree_norm(b))
+
+    if ell > 0:
+        p_buf = torch.zeros((ell + 1, n), dtype=dtype, device=device)
+        ap_buf = torch.zeros((ell + 1, n), dtype=dtype, device=device)
+        a_rows = torch.zeros((ell + 1,), dtype=dtype, device=device)
+        b_rows = torch.zeros((ell + 1,), dtype=dtype, device=device)
+
+    def active_fn(state):
+        j, rnorm, fail = state[0], state[5], state[7]
+        return (j < maxiter) & (rnorm > threshold) & (fail == 0)
+
+    def step(state, active, row):
+        """One masked def-CG iteration; ``active=False`` freezes the state."""
+        j, x, r, p, rs, rnorm, trace, fail = state
+        ap = A(p)
+        d = pt.tree_dot(p, ap)
+        bad, code = engine.classify_breakdown(d, rnorm, diverged_at)
+        fail = torch.where((fail == 0) & active, code, fail)
+        # Sanitize a poisoned A·p before the fused passes touch it.
+        ap = torch.where(bad, 0.0, ap)
+        alpha = torch.where(bad | ~active, 0.0, rs / torch.where(bad, 1.0, d))
+        x, r, rs_new, awr = kops.fused_cg_update(x, r, p, ap, alpha, aw)
+        mu = waw_inv @ awr if deflating else None
+        beta = rs_new / torch.where(rs == 0.0, 1.0, rs)
+        if row is None:
+            p_new, _, _ = kops.fused_deflate_direction(r, p, beta, W, mu)
+        else:
+            # Frozen steps record into the spare row ``ell``.
+            slot = torch.where(active, row, ell).to(torch.int64)
+            p_new, _, _ = kops.fused_deflate_direction(
+                r, p, beta, W, mu, ap, slot, p_buf, ap_buf
+            )
+            a_rows.index_copy_(0, slot.reshape(1), alpha.reshape(1))
+            b_rows.index_copy_(0, slot.reshape(1), beta.reshape(1))
+        # Freeze p on breakdown too: a poisoned basis can make p_new
+        # non-finite through μ even with a sanitized A·p.
+        p = torch.where(active & ~bad, p_new, p)
+        rnorm_new = torch.sqrt(rs_new)
+        fail = torch.where(
+            (fail == 0) & active & ~torch.isfinite(rnorm_new),
+            SolveStatus.BREAKDOWN_NONFINITE,
+            fail,
+        ).to(torch.int32)
+        rnorm = torch.where(active, rnorm_new, rnorm)
+        if trace is not None:
+            _trace_write(trace, j, rnorm, active)
+        j = j + active.to(j.dtype)
+        return (j, x, r, p, rs_new, rnorm, trace, fail)
+
+    j0 = torch.zeros((), dtype=torch.int32, device=device)
+    state = (j0, x, r, p, rs0, rnorm0, trace0, engine.initial_fail(rnorm0))
+    state = engine.run_recording_loop(step, active_fn, state, ell=ell)
+    j, x, _, _, _, rnorm, trace, fail = state
+
+    info = _info(j, matvecs, rnorm, threshold, trace, fail, maxiter, guard_fired)
+    recycle = None
+    if ell > 0:
+        recycle = RecycleData(
+            P=p_buf[:ell],
+            AP=ap_buf[:ell],
+            stored=torch.clamp(j, max=ell),
+            alpha=a_rows[:ell],
+            beta=b_rows[:ell],
+            aw_used=(
+                aw if (deflating and not exact_aw and stale_guard is not None)
+                else None
+            ),
+        )
+    return CGResult(x=x, info=info, recycle=recycle)
+
+
+# ---------------------------------------------------------------------------
+# Dense baseline (paper Table 1's Cholesky column)
+# ---------------------------------------------------------------------------
+
+
+def cholesky_solve(mat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact SPD solve via Cholesky — the paper's cubic-cost baseline."""
+    return _chol_solve(torch.linalg.cholesky(mat), b)

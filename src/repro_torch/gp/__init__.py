@@ -1,0 +1,19 @@
+"""repro_torch.gp — GP classification, the paper's experiment."""
+
+from repro_torch.gp.kernels import RBFKernel
+from repro_torch.gp.laplace import (
+    LaplaceResult,
+    NewtonTrace,
+    laplace_gpc,
+    logistic_quantities,
+    predict_latent,
+)
+
+__all__ = [
+    "RBFKernel",
+    "LaplaceResult",
+    "NewtonTrace",
+    "laplace_gpc",
+    "logistic_quantities",
+    "predict_latent",
+]

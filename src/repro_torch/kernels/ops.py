@@ -1,0 +1,104 @@
+"""Public kernel entry points, dispatched by device.
+
+Every op takes a keyword-only ``backend ∈ {"auto", "cuda", "plain",
+"reference"}``:
+
+* ``cuda``      — the hand-written Hopper kernel (raises off the card);
+* ``plain``     — the plain PyTorch version beside the kernel;
+* ``reference`` — the oracle in :mod:`repro_torch.kernels.ref`;
+* ``auto``      — ``cuda`` for CUDA tensors, ``plain`` for CPU tensors.
+
+Nothing falls back: a CUDA tensor under ``auto`` launches the kernel or
+the call raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import cg_fused, ref
+
+_BACKENDS = ("auto", "cuda", "plain", "reference")
+
+
+def _resolve(backend: str, t: torch.Tensor) -> str:
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend={backend!r}; expected one of {_BACKENDS}")
+    if backend == "auto":
+        return "cuda" if t.device.type == "cuda" else "plain"
+    if backend == "cuda" and t.device.type != "cuda":
+        raise ValueError(f"backend='cuda' needs CUDA tensors, got a {t.device} tensor")
+    return backend
+
+
+def fused_cg_update(
+    x: torch.Tensor,
+    r: torch.Tensor,
+    p: torch.Tensor,
+    ap: torch.Tensor,
+    alpha,
+    aw: Optional[torch.Tensor] = None,
+    *,
+    backend: str = "auto",
+):
+    """``(x + α p, r − α ap, ‖r_new‖², AW @ r_new | None)`` in one pass."""
+    backend = _resolve(backend, x)
+    if backend == "cuda":
+        return cg_fused.fused_cg_update_cuda(x, r, p, ap, alpha, aw)
+    if backend == "plain":
+        return cg_fused.fused_cg_update_plain(x, r, p, ap, alpha, aw)
+    return ref.fused_cg_update(x, r, p, ap, alpha, aw)
+
+
+def fused_deflate_direction(
+    r: torch.Tensor,
+    p: torch.Tensor,
+    beta,
+    w: Optional[torch.Tensor] = None,
+    mu: Optional[torch.Tensor] = None,
+    ap: Optional[torch.Tensor] = None,
+    idx=None,
+    p_buf: Optional[torch.Tensor] = None,
+    ap_buf: Optional[torch.Tensor] = None,
+    *,
+    backend: str = "auto",
+):
+    """``p ← β p + r − μᵀ W`` fused with the guarded recording write.
+
+    With ``p_buf``/``ap_buf`` the incoming ``(p, ap)`` go to row ``idx``
+    (callers point ``idx`` at a spare row to suppress the write).  The
+    ``cuda`` and ``plain`` backends write the buffers in place; the
+    ``reference`` oracle returns written copies.  Returns
+    ``(p_new, p_buf, ap_buf)``.
+    """
+    backend = _resolve(backend, r)
+    args = (r, p, beta, w, mu, ap, idx, p_buf, ap_buf)
+    if backend == "cuda":
+        return cg_fused.fused_deflate_direction_cuda(*args)
+    if backend == "plain":
+        return cg_fused.fused_deflate_direction_plain(*args)
+    return ref.fused_deflate_direction(*args)
+
+
+def self_gram(s: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:
+    """``S Sᵀ`` for a stacked flat basis ``S`` of shape ``(m, n)``."""
+    backend = _resolve(backend, s)
+    if backend == "cuda":
+        return cg_fused.self_gram_cuda(s)
+    if backend == "plain":
+        return cg_fused.self_gram_plain(s)
+    return ref.self_gram(s)
+
+
+def recombine_blocks(
+    s: torch.Tensor, u: torch.Tensor, *, backend: str = "auto"
+) -> torch.Tensor:
+    """``[uᵀ·S_top; uᵀ·S_bot]`` — the next ``W`` and ``AW`` in one pass."""
+    backend = _resolve(backend, s)
+    if backend == "cuda":
+        return cg_fused.recombine_blocks_cuda(s, u)
+    if backend == "plain":
+        return cg_fused.recombine_blocks_plain(s, u)
+    return ref.recombine_blocks(s, u)

@@ -1,0 +1,101 @@
+"""The paper's workload in the PyTorch port against the JAX reference.
+
+``laplace_gpc`` on the dense-K path (``dense_matvec=True``, the paper's own
+setup) at n = 200 for every solver of this slice: the final log p(y|f)
+within 1e-8 relative and the per-Newton iteration counts within the
+reference's own ±1 slack.  The solver tolerance is 1e-10: at the 1e-5 of
+the paper's runs the GP systems are rounding-sensitive past iteration ~10
+(see ROADMAP queue 3), so the two packages can stop one iteration apart
+and their log p then differ at the solver tolerance.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro.core import RecycleManager as JManager  # noqa: E402
+from repro.core import SolveSpec as JSpec  # noqa: E402
+from repro.data.digits import make_infinite_digits as j_digits  # noqa: E402
+from repro.gp import RBFKernel as JKernel  # noqa: E402
+from repro.gp import laplace_gpc as j_laplace  # noqa: E402
+from repro_torch.core import RecycleManager as TManager  # noqa: E402
+from repro_torch.core import SolveSpec as TSpec  # noqa: E402
+from repro_torch.data import make_infinite_digits as t_digits  # noqa: E402
+from repro_torch.gp import RBFKernel as TKernel  # noqa: E402
+from repro_torch.gp import laplace_gpc as t_laplace  # noqa: E402
+
+N = 200
+TOL = 1e-10
+
+
+@pytest.fixture(scope="module")
+def digits():
+    return t_digits(N, seed=0, noise=0.10)
+
+
+def test_digits_copy_matches_reference():
+    for a, b in zip(t_digits(64, seed=3, noise=0.1), j_digits(64, seed=3, noise=0.1)):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_rbf_gram_matches_reference(digits):
+    x = digits[0].astype(np.float64)
+    want = np.asarray(JKernel(3.0, 3.0).gram(jnp.asarray(x)))
+    got = TKernel(3.0, 3.0).gram(torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-13)
+
+
+def _solver_args(solver, spec_cls, manager_cls):
+    if solver == "defcg":
+        return {"solver": "defcg", "recycle": manager_cls(k=8, ell=12)}
+    if solver == "spec":
+        return {"spec": spec_cls(k=8, ell=12, tol=TOL)}
+    return {"solver": solver}
+
+
+@pytest.mark.parametrize("solver", ["cholesky", "cg", "defcg", "spec"])
+def test_laplace_gpc_matches_reference(digits, solver):
+    x, y = digits
+    kw = dict(solver_tol=TOL, newton_tol=1.0, dense_matvec=True)
+    ref = j_laplace(
+        jnp.asarray(x, jnp.float64), jnp.asarray(y, jnp.float64),
+        JKernel(3.0, 3.0), **_solver_args(solver, JSpec, JManager), **kw,
+    )
+    got = t_laplace(
+        torch.as_tensor(x, dtype=torch.float64),
+        torch.as_tensor(y, dtype=torch.float64),
+        TKernel(3.0, 3.0), **_solver_args(solver, TSpec, TManager), **kw,
+    )
+    assert abs(got.logp - ref.logp) <= 1e-8 * abs(ref.logp)
+    assert got.converged == ref.converged
+    assert len(got.trace.solver_iterations) == len(ref.trace.solver_iterations)
+    diffs = np.abs(np.subtract(got.trace.solver_iterations,
+                               ref.trace.solver_iterations))
+    assert diffs.max() <= 1, (got.trace.solver_iterations,
+                              ref.trace.solver_iterations)
+    np.testing.assert_allclose(got.f.numpy(), np.asarray(ref.f), rtol=1e-7, atol=1e-8)
+
+
+def test_defcg_saves_iterations_after_the_first_system(digits):
+    x, y = digits
+    xt = torch.as_tensor(x, dtype=torch.float64)
+    yt = torch.as_tensor(y, dtype=torch.float64)
+    runs = {
+        s: t_laplace(xt, yt, TKernel(3.0, 3.0), solver_tol=1e-5, dense_matvec=True,
+                     **_solver_args(s, TSpec, TManager))
+        for s in ("cholesky", "cg", "defcg")
+    }
+    chol = runs["cholesky"].logp
+    for s in ("cg", "defcg"):
+        assert abs(runs[s].logp - chol) <= 1e-5 * abs(chol)
+    assert (sum(runs["defcg"].trace.solver_iterations[1:])
+            < sum(runs["cg"].trace.solver_iterations[1:]))
+
+
+def test_matrix_free_path_is_the_next_slice(digits):
+    x = torch.as_tensor(digits[0][:8], dtype=torch.float64)
+    y = torch.ones(8, dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="K3"):
+        t_laplace(x, y, TKernel(3.0, 3.0), solver="cg")
