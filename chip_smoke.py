@@ -11,14 +11,19 @@ Phases, each of which fails the script when it fails:
               and power limit (``nvidia-smi``) and compute capability.
 2. build    — builds the port's CUDA sources (``src/repro_torch/csrc``) with
               ``nvcc``, one process per source, all started together.
-3. kernels  — holds every kernel of the main path against its plain PyTorch
-              version on the card, in f64 (1e-12 relative) and f32 (2e-4),
-              at the main path's shapes and at a ragged small n; times each
-              (CUDA events, median of 25 launches, L2 flushed before each)
-              beside its plain version, the one PyTorch call that computes
-              the same function where there is one, and its bound.
-4. check    — a small Newton sequence (n = 400) on the card against the
-              same sequence run on the CPU through the plain versions.
+3. kernels  — holds every kernel of the main paths against its plain PyTorch
+              version on the card, in f64 (1e-12 relative) and f32 (2e-4;
+              the RBF Gram matvec 2e-4 relative / 5e-4 absolute), at the
+              main paths' shapes (n = 36 551 and the cut n = 16 384 of the
+              preconditioned sequences) and at a ragged small n; times each (CUDA
+              events, median of 25 launches, 3 for the RBF Gram matvec, L2
+              flushed before each) beside its plain version, the one
+              PyTorch call that computes the same function where there is
+              one, and its bound.
+4. check    — small Newton sequences (n = 400) on the card against the same
+              sequences run on the CPU through the plain versions: the
+              dense-K solvers, and the matrix-free Jacobi-preconditioned
+              front door (log p to 1e-10, iterations within one).
 5. main     — the paper's GP-classification Newton sequence at n = 36 551
               (Table 1's n; ``benchmarks/common.py`` settings: digits seed 0,
               noise 0.10, θ = 3, λ = 3, f64, dense K built on the card),
@@ -32,8 +37,25 @@ Phases, each of which fails the script when it fails:
               (counted apart) and must agree with Cholesky's log p to 1e-6.
               ``scripts/paper_tol_witness.py`` shows on the CPU that the
               reference has the same gap at tol 1e-5, growing with n.
+6. scale    — one RBF Gram matvec each in f32 and f64 at n = 131 072,
+              d = 784, where a dense K would need 69 GB (f32) or 137 GB.
+7. main-mf  — the matrix-free Newton sequence (K never formed; every K
+              product is the RBF Gram matvec kernel) on the same n = 36 551
+              data, f64, solver tol 1e-5: def-CG(8, 12) through
+              RecycleManager, and the SolveSpec front door with
+              precond="jacobi" and precond="nystrom" (rank 16, generator
+              seed 0).  The two preconditioned sequences run at n = 16 384
+              when the kernel's measured f64 time passes 0.25 s per call.
+              Every kernel must launch in this run, no plain version may
+              run on the card, and every log p must be finite; each is set
+              beside a Cholesky log p of the same data.
+8. agree    — at n = 4 000, matrix-free def-CG against dense def-CG, both
+              f64: at solver tol 1e-10 iterations within one per system,
+              at solver tol 1e-12 log p to 1e-10.
 
-It prints a ``{"kernels": [...]}`` JSON line and, last, the
+Each main path (5 and 7) is driven with the launch counters set to 0
+just before it and read just after; the ``{"kernels": [...]}`` JSON line
+gives each kernel's launches summed over the two.  Last comes the
 ``{"ok": true, "device": {...}}`` line; the full report also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -56,22 +78,41 @@ RAGGED_N = 1000
 K, ELL = 8, 12
 M = K + ELL  # window rows after system 1: Z = [W, P]
 TOL = {"float64": 1e-12, "float32": 2e-4}
+RBF_TOL_F32 = (2e-4, 5e-4)  # relative, absolute: tests/test_kernels.py
 REPS = 25
+RBF_REPS = 3  # one f64 call at the paper's n takes a quarter second
 
-# Card peaks (NVIDIA data sheets; dense, non-tensor-core FP64/FP32 — the
-# kernels run on the CUDA cores).  Keyed by a substring of the card name.
+# configs/gpc_mnist.py's widths: d = 784, θ = λ = 3, block 1024; the
+# Nyström sketch of SolveSpec's default rank.
+D, THETA, LENGTHSCALE, BLOCK, PRECOND_RANK = 784, 3.0, 3.0, 1024, 16
+RBF_RS = (1, K, PRECOND_RANK + 8)  # a CG step, the A·W refresh, the sketch
+SCALE_N = 131072
+AGREE_N = 4000
+CUT_N = 16384  # the preconditioned sequences' n when the kernel is slow
+CUT_MS = 250.0
+
+# Card peaks (NVIDIA data sheets; dense).  "float64"/"float32" are the
+# CUDA-core rates the SIMT kernels run at; "float64_tensor" is the FP64
+# tensor-core rate, the least time of the RBF Gram matvec's f64 GEMM-shaped
+# work.  Keyed by a substring of the card name.
 PEAKS = {
-    "H100": {"bytes": 3.35e12, "float64": 34e12, "float32": 67e12},
+    "H100": {"bytes": 3.35e12, "float64": 34e12, "float32": 67e12,
+             "float64_tensor": 67e12},
 }
 
-# Which TPU kernel each port kernel replaces (repro/kernels/cg_fused.py).
+# Which TPU kernel each port kernel replaces, and the port's source.
 REPLACES = {
     "fused_cg_update": "src/repro/kernels/cg_fused.py:122",
     "fused_deflate_direction": "src/repro/kernels/cg_fused.py:426",
+    "rbf_matvec": "src/repro/kernels/rbf_matvec.py:77",
     "self_gram": "src/repro/kernels/cg_fused.py:558",
     "recombine_blocks": "src/repro/kernels/cg_fused.py:639",
+    "fused_rz_reduce": "src/repro/kernels/cg_fused.py:252",
 }
-SOURCE = "src/repro_torch/csrc/cg_fused.cu"
+SOURCES = dict.fromkeys(REPLACES, "src/repro_torch/csrc/cg_fused.cu")
+SOURCES["rbf_matvec"] = "src/repro_torch/csrc/rbf_matvec.cu"
+DENSE_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "self_gram",
+                      "recombine_blocks")
 
 
 def log(msg=""):
@@ -85,9 +126,9 @@ def peaks_for(name: str) -> dict:
     raise RuntimeError(f"no peak table for card {name!r}")
 
 
-def device_ms(torch, fn) -> float:
+def device_ms(torch, fn, reps=REPS) -> float:
     """Median device time of one ``fn()``: CUDA events around each of
-    ``REPS`` calls queued behind a spin kernel (so host launch overhead is
+    ``reps`` calls queued behind a spin kernel (so host launch overhead is
     not timed), with a 96 MiB write before each to evict the 50 MB L2 —
     the def-CG loop reads the 10.7 GB dense K between two calls."""
     flush = torch.empty(96 << 20, dtype=torch.uint8, device="cuda")
@@ -97,8 +138,8 @@ def device_ms(torch, fn) -> float:
         flush.zero_()
         fn()
     torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(REPS)]
+    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
+    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     torch.cuda._sleep(100_000_000)
     for s, e in zip(starts, ends):
         flush.zero_()
@@ -198,6 +239,12 @@ def kernel_calls(cf, t):
         "self_gram": [
             ("S", lambda: (cf.self_gram_cuda(t["s"]),), lambda: (cf.self_gram_plain(t["s"]),)),
         ],
+        "fused_rz_reduce": [
+            ("aw", lambda: cf.fused_rz_reduce_cuda(t["r"], t["p"], t["aw"]),
+             lambda: cf.fused_rz_reduce_plain(t["r"], t["p"], t["aw"])),
+            ("no-aw", lambda: cf.fused_rz_reduce_cuda(t["r"], t["p"]),
+             lambda: cf.fused_rz_reduce_plain(t["r"], t["p"])),
+        ],
         "recombine_blocks": [
             ("S,u", lambda: (cf.recombine_blocks_cuda(t["s"], t["u"]),),
              lambda: (cf.recombine_blocks_plain(t["s"], t["u"]),)),
@@ -217,6 +264,8 @@ def work(name, n, itemsize):
         return (m2 * n + m2 * m2) * itemsize, m2 * (m2 + 1) * n
     if name == "recombine_blocks":
         return (2 * M * n + M * K + 2 * K * n) * itemsize, 4 * K * M * n
+    if name == "fused_rz_reduce":
+        return ((2 + K) * n + K + 1) * itemsize, 2 * (1 + K) * n
     raise KeyError(name)
 
 
@@ -225,7 +274,7 @@ def phase_kernels(torch, cf, peaks):
     report = {}
     for dtype in (torch.float64, torch.float32):
         dname = str(dtype).split(".")[-1]
-        for n in (PAPER_N, RAGGED_N):
+        for n in (PAPER_N, CUT_N, RAGGED_N):
             t = kernel_inputs(torch, n, dtype, seed=n)
             for name, calls in kernel_calls(cf, t).items():
                 for label, kern, plain in calls:
@@ -242,6 +291,8 @@ def phase_kernels(torch, cf, peaks):
     library = {
         "self_gram": lambda: t["s"] @ t["s"].T,
         "recombine_blocks": lambda: torch.matmul(ut, t["s"].view(2, M, PAPER_N)),
+        # rᵀz alone: the no-AW arm (timed beside it below).
+        "fused_rz_reduce": lambda: torch.dot(t["r"], t["p"]),
     }
     calls = kernel_calls(cf, t)
     for name, entry in report.items():
@@ -260,14 +311,128 @@ def phase_kernels(torch, cf, peaks):
                 t["r"], t["p"], t["beta"], t["w"], t["mu"], t["ap"], t["idx"],
                 t["p_buf"], t["ap_buf"]))
             extra += f" recording arm {entry['recording_arm_ms']:.4f} ms"
+        if name == "fused_rz_reduce":
+            entry["no_aw_ms"] = device_ms(torch, calls[name][1][1])
+            extra += f" no-AW arm {entry['no_aw_ms']:.4f} ms"
         log(f"[timing] {name:24s} f64 n={PAPER_N}: kernel {entry['ms']:.4f} ms, plain "
             f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']} ms, bound "
             f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}){extra}")
     return report
 
 
+def rbf_inputs(torch, n, d, r, dtype, seed):
+    """Pixel-like data in [0, 1) (the digits' range) and Gaussian V."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.rand((n, d), generator=g, device="cuda", dtype=dtype)
+    v = torch.randn((n, r), generator=g, device="cuda", dtype=dtype)
+    return x, v
+
+
+def rbf_work(n, d, r, itemsize):
+    """(bytes moved, operations) of one RBF Gram matvec: X and V read once,
+    Y written once.  K(X, X) is symmetric, so the least work forms each
+    pair once: the cross term X·Xᵀ is a SYRK of n(n+1)·d flops, and the
+    distances and exp (about 8 operations a pair) come to ~4n²; K·V still
+    takes 2n²r, since a tile K_ij feeds both Y_i += K_ij·V_j and
+    Y_j += K_ijᵀ·V_i.  The kernel does not use the symmetry yet (it forms
+    every tile) and is held to this bound all the same."""
+    return (n * d + 2 * n * r) * itemsize, n * (n + 1) * d + 2 * n * n * r + 4 * n * n
+
+
+def phase_rbf(torch, rbf, peaks):
+    """The RBF Gram matvec against its plain version in f64 and f32 at the
+    paper's n, the cut n of the preconditioned sequences and a ragged n,
+    then timed at the main path's shapes.  The f32 bound is taken at the
+    FP32 vector rate, not the TF32 tensor-core rate: TF32's 10-bit
+    mantissa cannot hold ‖xᵢ‖² + ‖xⱼ‖² − 2xᵢ·xⱼ to the f32 tolerance, so
+    no f32 kernel of this accuracy can run at that rate."""
+    report = {"max_abs_err": 0.0}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for n, d in ((PAPER_N, D), (CUT_N, D), (RAGGED_N, 50)):
+            for r in RBF_RS:
+                x, v = rbf_inputs(torch, n, d, r, dtype, seed=n + r)
+                got = rbf.rbf_matvec_cuda(x, v, THETA, LENGTHSCALE)
+                want = rbf.rbf_matvec_plain(x, v, THETA, LENGTHSCALE, BLOCK)
+                torch.cuda.synchronize()
+                what = f"rbf_matvec {dname} n={n} d={d} r={r}"
+                if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{what}: bad output shape or non-finite values")
+                err = float((got - want).abs().max())
+                if dtype == torch.float64:
+                    scale = max(1.0, float(want.abs().max()))
+                    if err / scale > TOL["float64"]:
+                        raise AssertionError(f"{what}: relative error {err / scale:.3e}")
+                    if n == PAPER_N:
+                        report["max_abs_err"] = max(report["max_abs_err"], err)
+                else:
+                    rtol, atol = RBF_TOL_F32
+                    if bool(((got - want).abs() > atol + rtol * want.abs()).any()):
+                        raise AssertionError(f"{what}: error {err:.3e} past {RBF_TOL_F32}")
+                log(f"[kernels] rbf_matvec {dname} n={n:6d} d={d} r={r:2d}: max abs err "
+                    f"{err:.3e} (max |y| {float(want.abs().max()):.3e})")
+
+    timings = {}
+    for dtype, rs in ((torch.float64, RBF_RS), (torch.float32, (1,))):
+        dname = str(dtype).split(".")[-1]
+        itemsize = 8 if dtype == torch.float64 else 4
+        peak = peaks["float64_tensor"] if dtype == torch.float64 else peaks["float32"]
+        for r in rs:
+            x, v = rbf_inputs(torch, PAPER_N, D, r, dtype, seed=r)
+            kms = device_ms(torch, lambda: rbf.rbf_matvec_cuda(x, v, THETA, LENGTHSCALE),
+                            RBF_REPS)
+            pms = device_ms(torch, lambda: rbf.rbf_matvec_plain(x, v, THETA, LENGTHSCALE, BLOCK),
+                            RBF_REPS)
+            nbytes, ops = rbf_work(PAPER_N, D, r, itemsize)
+            t_bytes, t_ops = nbytes / peaks["bytes"], ops / peak
+            timings[f"{dname} r={r}"] = t = {
+                "ms": kms, "plain_ms": pms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                "tflop_s": ops / kms / 1e9,
+            }
+            log(f"[timing] rbf_matvec {dname} n={PAPER_N} d={D} r={r:2d}: kernel {kms:.2f} ms "
+                f"({t['tflop_s']:.2f} TFLOP/s), plain {pms:.2f} ms, bound {t['bound_ms']:.2f} ms "
+                f"({t['bound_by']}), library null")
+    main = timings["float64 r=1"]
+    report.update(ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+                  bound_ms=main["bound_ms"], bound_by=main["bound_by"], timings=timings)
+    x, v = rbf_inputs(torch, PAPER_N, D, 1, torch.float64, seed=1)
+    report["profiled_kernels_ms"] = profile_kernels(
+        torch, lambda: rbf.rbf_matvec_cuda(x, v, THETA, LENGTHSCALE), reps=2)
+    log(f"[timing] rbf_matvec profiler {report['profiled_kernels_ms']}")
+    return report
+
+
+def phase_scale(torch, rbf):
+    """One Gram matvec each in f32 and f64 at n = 131 072, where a dense K
+    does not fit the card."""
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[-1]
+        itemsize = 8 if dtype == torch.float64 else 4
+        x, v = rbf_inputs(torch, SCALE_N, D, 1, dtype, seed=7)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        y = rbf.rbf_matvec_cuda(x, v, THETA, LENGTHSCALE)
+        end.record()
+        torch.cuda.synchronize()
+        if y.shape != (SCALE_N, 1) or not bool(torch.isfinite(y).all()):
+            raise AssertionError(f"[scale] {dname}: bad output")
+        ms = start.elapsed_time(end)
+        out[dname] = {"ms": ms, "dense_k_gb": SCALE_N * SCALE_N * itemsize / 1e9}
+        log(f"[scale] rbf_matvec {dname} n={SCALE_N} d={D}: {ms:.1f} ms "
+            f"(a dense K would need {out[dname]['dense_k_gb']:.0f} GB)")
+        del x, v, y
+    return out
+
+
 def laplace_runs(torch, launches, x, y, k_dense, solver_tol, log_prefix,
-                 solvers=("cholesky", "cg", "defcg", "spec")):
+                 solvers=("cholesky", "cg", "defcg", "spec"), dense=True):
+    """One ``laplace_gpc`` Newton sequence per solver: ``cholesky``, ``cg``,
+    ``defcg`` (RecycleManager), ``spec`` (the front door), or ``jacobi`` /
+    ``nystrom`` (the front door, preconditioned).  ``dense`` applies K as
+    the dense ``k_dense @ v``; otherwise through the RBF Gram matvec."""
     from repro_torch.core import RecycleManager, SolveSpec
     from repro_torch.gp import RBFKernel, laplace_gpc
 
@@ -276,14 +441,18 @@ def laplace_runs(torch, launches, x, y, k_dense, solver_tol, log_prefix,
         kw = {"solver": solver}
         if solver == "defcg":
             kw["recycle"] = RecycleManager(k=K, ell=ELL)
-        if solver == "spec":
-            kw = {"spec": SolveSpec(k=K, ell=ELL, tol=solver_tol)}
+        if solver in ("spec", "jacobi", "nystrom"):
+            precond = "none" if solver == "spec" else solver
+            kw = {"spec": SolveSpec(k=K, ell=ELL, tol=solver_tol, precond=precond,
+                                    precond_rank=PRECOND_RANK)}
+            if solver == "nystrom":
+                kw["precond_generator"] = torch.Generator().manual_seed(0)
         before = dict(launches)
         t0 = time.perf_counter()
         res = laplace_gpc(
-            x, y, RBFKernel(theta=3.0, lengthscale=3.0),
-            solver_tol=solver_tol, newton_tol=1.0,
-            k_dense=k_dense, dense_matvec=True, **kw,
+            x, y, RBFKernel(theta=THETA, lengthscale=LENGTHSCALE),
+            solver_tol=solver_tol, newton_tol=1.0, block=BLOCK,
+            k_dense=k_dense, dense_matvec=dense, **kw,
         )
         if x.is_cuda:
             torch.cuda.synchronize()
@@ -331,6 +500,7 @@ def main() -> int:
     from repro_torch.gp import RBFKernel
     from repro_torch.kernels import _build
     from repro_torch.kernels import cg_fused as cf
+    from repro_torch.kernels import rbf_matvec as rbf
 
     report = {}
     # -- 1. device ----------------------------------------------------------
@@ -359,6 +529,7 @@ def main() -> int:
 
     # -- 3. kernels ---------------------------------------------------------
     kernels = phase_kernels(torch, cf, peaks)
+    kernels["rbf_matvec"] = rbf_k = phase_rbf(torch, rbf, peaks)
 
     # -- 4. small check: card against CPU ------------------------------------
     xs, ys = make_infinite_digits(400, seed=1, noise=0.10)
@@ -376,6 +547,25 @@ def main() -> int:
         ):
             raise AssertionError(f"[check] {solver}: iterations {run['iterations']} vs {cpu['iterations']}")
     report["check"] = small
+    # The matrix-free, Jacobi-preconditioned front door: RBF Gram matvec
+    # and fused_rz_reduce kernels on the card, their plain versions on the
+    # CPU.
+    small_mf = {}
+    for dev in ("cuda", "cpu"):
+        x = torch.as_tensor(xs, dtype=torch.float64, device=dev)
+        y = torch.as_tensor(ys, dtype=torch.float64, device=dev)
+        small_mf[dev] = laplace_runs(torch, cf.LAUNCHES, x, y, None, 1e-10,
+                                     f"[check-mf {dev}]", solvers=("jacobi",), dense=False)
+    run, cpu = small_mf["cuda"]["jacobi"], small_mf["cpu"]["jacobi"]
+    if abs(run["logp"] - cpu["logp"]) > 1e-10 * abs(cpu["logp"]):
+        raise AssertionError(f"[check-mf] card logp {run['logp']} vs CPU {cpu['logp']}")
+    if len(run["iterations"]) != len(cpu["iterations"]) or any(
+        abs(a - b) > 1 for a, b in zip(run["iterations"], cpu["iterations"])
+    ):
+        raise AssertionError(f"[check-mf] iterations {run['iterations']} vs {cpu['iterations']}")
+    if not (run["launches"]["rbf_matvec"] and run["launches"]["fused_rz_reduce"]):
+        raise AssertionError(f"[check-mf] kernels not launched: {run['launches']}")
+    report["check_mf"] = small_mf
 
     # -- 5. main path -------------------------------------------------------
     t0 = time.perf_counter()
@@ -385,7 +575,7 @@ def main() -> int:
     y = torch.as_tensor(yn, dtype=torch.float64, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    k_dense = RBFKernel(theta=3.0, lengthscale=3.0).gram(x)
+    k_dense = RBFKernel(theta=THETA, lengthscale=LENGTHSCALE).gram(x)
     torch.cuda.synchronize()
     gram_s = time.perf_counter() - t0
     log(f"[main] n={PAPER_N}: digits {data_s:.1f} s (CPU), dense K {gram_s:.3f} s")
@@ -440,7 +630,7 @@ def main() -> int:
     def_after = sum(runs["defcg"]["iterations"][1:])
     if not def_after < cg_after:
         raise AssertionError(f"[main] def-CG {def_after} iterations after system 1, CG {cg_after}")
-    if not all(launches[k] > 0 for k in launches):
+    if not all(launches[k] > 0 for k in DENSE_PATH_KERNELS):
         raise AssertionError(f"[main] a kernel never launched: {launches}")
     if any(plain_on_cuda.values()) or any(tight_plain.values()):
         raise AssertionError(
@@ -474,12 +664,103 @@ def main() -> int:
               "gemv_ms": gemv_ms, "gram_s": gram_s, "digits_s": data_s,
               "frozen_step_matvecs": frozen, "solve_ms_per_k_pass": per_pass},
     )
+    log(f"[main] RBF Gram matvec f64 r=1: {rbf_k['ms']:.2f} ms against the dense GEMV "
+        f"K @ v {gemv_ms:.4f} ms ({rbf_k['ms'] / gemv_ms:.0f}x)")
+    chol_logp = runs["cholesky"]["logp"]
+    del k_dense
+    torch.cuda.empty_cache()
+
+    # -- 6. scale: past what a dense K allows --------------------------------
+    report["scale"] = phase_scale(torch, rbf)
+
+    # -- 7. the matrix-free main path -----------------------------------------
+    cut = rbf_k["ms"] > CUT_MS
+    pre_n = CUT_N if cut else PAPER_N
+    if cut:
+        xc, yc = (torch.as_tensor(a, dtype=torch.float64, device="cuda")
+                  for a in make_infinite_digits(CUT_N, seed=0, noise=0.10))
+        log(f"[main-mf] the kernel takes {rbf_k['ms']:.1f} ms > {CUT_MS} ms per call: "
+            f"the preconditioned sequences run at n = {CUT_N}")
+    else:
+        xc, yc = x, y
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    mf = laplace_runs(torch, cf.LAUNCHES, x, y, None, 1e-5, "[main-mf]",
+                      solvers=("defcg",), dense=False)
+    mf.update(laplace_runs(torch, cf.LAUNCHES, xc, yc, None, 1e-5, f"[main-mf n={pre_n}]",
+                           solvers=("jacobi", "nystrom"), dense=False))
+    mf_launches = dict(cf.LAUNCHES)
+    mf_plain = dict(cf.PLAIN_ON_CUDA)
+    mf_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[main-mf] launches {mf_launches}; plain versions on the card {mf_plain}; "
+        f"peak memory {mf_peak_gb:.2f} GB")
+    if not all(mf_launches.values()):
+        raise AssertionError(f"[main-mf] a kernel never launched: {mf_launches}")
+    if any(mf_plain.values()):
+        raise AssertionError(f"[main-mf] plain versions ran on the card: {mf_plain}")
+    if cut:  # Cholesky on the cut data (dense K, no kernel), counted apart
+        kc = RBFKernel(theta=THETA, lengthscale=LENGTHSCALE).gram(xc)
+        chol_cut = laplace_runs(torch, cf.LAUNCHES, xc, yc, kc, 1e-5,
+                                f"[main-mf n={pre_n}]", solvers=("cholesky",))["cholesky"]
+        del kc
+        torch.cuda.empty_cache()
+    for solver, run in mf.items():
+        if not all(math.isfinite(v) for v in run["logp_trace"]):
+            raise AssertionError(f"[main-mf] {solver}: non-finite log p {run['logp_trace']}")
+        n_run = PAPER_N if solver == "defcg" else pre_n
+        ref = chol_logp if n_run == PAPER_N else chol_cut["logp"]
+        steps = run["newton_steps"]
+        # K3 calls inside the timed solves: all but b and f of each step.
+        passes = run["launches"]["rbf_matvec"] - 2 * steps
+        run.update(n=n_run, k3_passes=passes,
+                   solve_ms_per_k3_pass=1e3 * run["cumulative_solve_s"][-1] / passes,
+                   cholesky_logp=ref, delta_vs_cholesky=abs(run["logp"] - ref) / abs(ref),
+                   frozen_steps=sum(frozen_steps(i, ELL, engine.CHUNK)
+                                    for i in run["iterations"]))
+        log(f"[main-mf] {solver:8s} n={n_run}: newton {steps}, iterations {run['iterations']}, "
+            f"matvecs {run['matvecs']}, solve {run['cumulative_solve_s'][-1]:.2f} s, "
+            f"{passes} K3 passes at {run['solve_ms_per_k3_pass']:.1f} ms each "
+            f"({run['frozen_steps']} frozen steps), logp {run['logp']:.10f} vs cholesky "
+            f"{ref:.10f} (δ {run['delta_vs_cholesky']:.2e})")
+    report["main_mf"] = {"runs": mf, "launches": mf_launches, "plain_on_cuda": mf_plain,
+                         "peak_memory_gb": mf_peak_gb, "preconditioned_n": pre_n,
+                         "cut": cut}
+
+    # -- 8. agreement: matrix-free against dense where both fit --------------
+    # At solver tol 1e-10 the iterations must agree within one per system.
+    # The log p is held to 1e-10 at solver tol 1e-12: at 1e-10 the cold
+    # first system of the two paths can stop an iteration apart, and the log
+    # p gap is then of the solver tolerance's size, in the reference's own
+    # dense and matrix-free paths too (scripts/matrix_free_witness.py).
+    xa, ya = (torch.as_tensor(a, dtype=torch.float64, device="cuda")
+              for a in make_infinite_digits(AGREE_N, seed=0, noise=0.10))
+    ka = RBFKernel(theta=THETA, lengthscale=LENGTHSCALE).gram(xa)
+    report["agree"] = agree = {"n": AGREE_N}
+    for tol in (1e-10, 1e-12):
+        dense_run = laplace_runs(torch, cf.LAUNCHES, xa, ya, ka, tol, f"[agree dense {tol:g}]",
+                                 solvers=("defcg",))["defcg"]
+        mf_run = laplace_runs(torch, cf.LAUNCHES, xa, ya, None, tol, f"[agree mf {tol:g}]",
+                              solvers=("defcg",), dense=False)["defcg"]
+        rel = abs(mf_run["logp"] - dense_run["logp"]) / abs(dense_run["logp"])
+        its_m, its_d = mf_run["iterations"], dense_run["iterations"]
+        agree[f"{tol:g}"] = {"dense": dense_run, "matrix_free": mf_run, "logp_rel": rel}
+        log(f"[agree] n={AGREE_N} tol {tol:g}: logp matrix-free {mf_run['logp']:.12f} vs dense "
+            f"{dense_run['logp']:.12f} (rel {rel:.2e}); iterations {its_m} vs {its_d}")
+        if len(its_m) != len(its_d):
+            raise AssertionError(f"[agree] tol {tol:g}: Newton steps differ")
+        if tol == 1e-10 and any(abs(a - b) > 1 for a, b in zip(its_m, its_d)):
+            raise AssertionError(f"[agree] tol {tol:g}: iterations differ by more than one")
+        if tol == 1e-12 and rel > 1e-10:
+            raise AssertionError(f"[agree] tol {tol:g}: log p differs by {rel:.2e}")
+
+    totals = {name: launches[name] + mf_launches[name] for name in cf.LAUNCHES}
     kernel_line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": k["max_abs_err"], "ms": k["ms"],
-         "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"], "bound_by": k["bound_by"],
-         "library_ms": k["library_ms"]}
-        for name, k in kernels.items()
+        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+         "launches": totals[name], "max_abs_err": kernels[name]["max_abs_err"],
+         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
+         "bound_ms": kernels[name]["bound_ms"], "bound_by": kernels[name]["bound_by"],
+         "library_ms": kernels[name]["library_ms"]}
+        for name in cf.LAUNCHES
     ]}
     report["kernels"] = kernels
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

@@ -1,15 +1,16 @@
 """Carry the reference's state into the port and back.
 
 The reference holds no weights: what a sequence carries from one solve to
-the next is its ``RecycleState`` plus the ``SolveSpec`` it runs under.
-With these helpers a sequence started in ``repro`` continues in
-``repro_torch`` (and back) and gives the same numbers.  Arrays cross as
-numpy, so neither package imports the other.
+the next is its ``RecycleState`` plus the ``SolveSpec`` it runs under, and
+a Nyström sketch ``(U, Λ)`` where it preconditions.  With these helpers a
+sequence started in ``repro`` continues in ``repro_torch`` (and back) and
+gives the same numbers.  Arrays cross as numpy, so neither package
+imports the other.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +44,19 @@ def recycle_state_to_numpy(state: RecycleState) -> Dict[str, np.ndarray]:
         name: getattr(state, name).detach().cpu().numpy()
         for name in ("W", "AW", "theta", "systems_solved", "drift")
     }
+
+
+def nystrom_sketch_from_numpy(
+    U, lam, *, dtype: torch.dtype, device="cuda"
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A reference Nyström sketch (``randomized_nystrom``'s ``(U, lam)``:
+    ``(rank, n)`` rows in descending eigenvalue order) on ``device``, ready
+    for :func:`repro_torch.core.nystrom_preconditioner` or
+    :func:`repro_torch.core.kernel_nystrom_preconditioner`."""
+    return (
+        torch.as_tensor(np.array(U), dtype=dtype, device=device),
+        torch.as_tensor(np.array(lam), dtype=dtype, device=device),
+    )
 
 
 def spec_from_fields(fields: dict) -> SolveSpec:

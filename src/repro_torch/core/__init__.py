@@ -10,6 +10,7 @@ from repro_torch.core.api import (
     SolveReport,
     SolveResult,
     SolveSpec,
+    make_preconditioner,
     solve,
     solve_sequence,
 )
@@ -18,9 +19,19 @@ from repro_torch.core.operators import (
     DenseMatrixOperator,
     KernelSystemOperator,
     LinearOperator,
+    RBFKernelSystemOperator,
     apply_to_basis,
     from_callable,
     from_matrix,
+)
+from repro_torch.core.preconditioners import (
+    JacobiPreconditioner,
+    NystromPreconditioner,
+    WoodburyKernelPreconditioner,
+    jacobi,
+    kernel_nystrom_preconditioner,
+    nystrom_preconditioner,
+    randomized_nystrom,
 )
 from repro_torch.core.recycle import (
     MAX_RECOVERY_RUNGS,
@@ -36,16 +47,24 @@ from repro_torch.core.solvers import (
     cholesky_solve,
     defcg,
 )
-from repro_torch.core.strategies import HarmonicRitz, RecycleStrategy
+from repro_torch.core.strategies import (
+    HarmonicRitz,
+    MGeometryHarmonic,
+    RecycleStrategy,
+)
 
 __all__ = [
     "CGResult",
     "DEFAULT_WAW_JITTER",
     "DenseMatrixOperator",
     "HarmonicRitz",
+    "JacobiPreconditioner",
     "KernelSystemOperator",
     "LinearOperator",
     "MAX_RECOVERY_RUNGS",
+    "MGeometryHarmonic",
+    "NystromPreconditioner",
+    "RBFKernelSystemOperator",
     "RecycleData",
     "RecycleManager",
     "RecycleState",
@@ -56,6 +75,7 @@ __all__ = [
     "SolveResult",
     "SolveSpec",
     "SolveStatus",
+    "WoodburyKernelPreconditioner",
     "apply_to_basis",
     "cg",
     "cholesky_solve",
@@ -63,6 +83,11 @@ __all__ = [
     "from_callable",
     "from_matrix",
     "harmonic_ritz_flat",
+    "jacobi",
+    "kernel_nystrom_preconditioner",
+    "make_preconditioner",
+    "nystrom_preconditioner",
+    "randomized_nystrom",
     "solve",
     "solve_sequence",
 ]

@@ -5,9 +5,11 @@ The counterpart of ``repro.core.api`` for the SPD methods: :func:`solve`
 the same frozen :class:`SolveSpec` (same fields, same defaults, same
 validation) and carrying the same :class:`RecycleState`.
 
-What this slice of the port leaves out raises, naming the ROADMAP item
-that brings it: preconditioners (``M``, ``precond != "none"``; queue 1
-item 8), the recovery ladder and stagnation detector (item 10), LSMR
+Preconditioners go in as ``M`` (:func:`solve`) or as a per-system
+factory (:func:`solve_sequence`), built for ``spec.precond`` by
+:func:`make_preconditioner`.  What the port leaves out so far raises,
+naming the ROADMAP item that brings it: ``MGeometryHarmonic`` (queue 1
+item 9), the recovery ladder and stagnation detector (item 10), LSMR
 (item 11), ``solve_batch`` (item 12), ``mesh=`` (item 13) and
 checkpointed sequences (item 10).
 """
@@ -19,12 +21,17 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import preconditioners as precond_mod
 from repro_torch.core import recycle as recycle_mod
 from repro_torch.core import solvers as solvers_mod
 from repro_torch.core.engine import SolveInfo
 from repro_torch.core.recycle import RecycleState, SequenceResult
 from repro_torch.core.solvers import DEFAULT_WAW_JITTER
-from repro_torch.core.strategies import HarmonicRitz, RecycleStrategy
+from repro_torch.core.strategies import (
+    HarmonicRitz,
+    MGeometryHarmonic,
+    RecycleStrategy,
+)
 
 _METHODS = ("cg", "defcg", "lsmr", "deflsmr")
 _LSQ_METHODS = ("lsmr", "deflsmr")
@@ -149,11 +156,52 @@ class SequenceSolveResult(NamedTuple):
     report: Optional[SolveReport] = None
 
 
-def _check_spd_spec(spec: SolveSpec, M) -> None:
+def make_preconditioner(
+    A,
+    spec: SolveSpec,
+    template: torch.Tensor,
+    *,
+    diag: Optional[torch.Tensor] = None,
+    generator: Optional[torch.Generator] = None,
+):
+    """Build the ``M`` apply for ``spec.precond`` (None for ``"none"``).
+
+    ``"jacobi"`` needs ``diag`` (the operator diagonal); ``"nystrom"``
+    needs ``generator`` (a :class:`torch.Generator` for the sketch's
+    probes) and spends ``spec.precond_rank + 8`` matvecs on the sketch, an
+    a-priori cost that amortizes across every solve reusing the apply.
+    """
+    if spec.precond == "none":
+        return None
+    if spec.precond == "jacobi":
+        if diag is None:
+            raise ValueError("precond='jacobi' needs diag=<operator diagonal>")
+        return precond_mod.jacobi(diag)
+    if spec.precond == "nystrom":
+        if generator is None:
+            raise ValueError("precond='nystrom' needs generator=<torch.Generator>")
+        U, lam = precond_mod.randomized_nystrom(
+            A, template, rank=spec.precond_rank, generator=generator
+        )
+        return precond_mod.nystrom_preconditioner(U, lam, spec.precond_sigma)
+    raise ValueError(
+        "precond='custom' supplies its own apply — pass it as M instead"
+    )
+
+
+def _check_m(spec: SolveSpec, M) -> None:
+    if spec.precond != "none" and M is None:
+        raise ValueError(
+            f"spec.precond={spec.precond!r} but no M was passed — build one "
+            "with repro_torch.core.make_preconditioner(A, spec, template, ...)"
+        )
+
+
+def _check_spd_spec(spec: SolveSpec) -> None:
     if spec.method in _LSQ_METHODS:
         raise _not_ported(f"method={spec.method!r} (LSMR)", 11)
-    if M is not None or spec.precond != "none":
-        raise _not_ported("preconditioning (M, precond != 'none')", 8)
+    if isinstance(spec.strategy, MGeometryHarmonic):
+        raise _not_ported("strategy=MGeometryHarmonic", 9)
 
 
 def solve(
@@ -172,17 +220,19 @@ def solve(
     ``method="defcg"`` returns the next :class:`RecycleState` (``state=None``
     bootstraps cold, in ``b``'s dtype and device); ``method="cg"`` passes
     ``state`` through untouched.  ``info.matvecs`` includes the refresh the
-    strategy spent.
+    strategy spent.  ``M`` is the preconditioner apply for ``spec.precond``
+    (see :func:`make_preconditioner`).
     """
     spec = SolveSpec() if spec is None else spec
     if mesh is not None:
         raise _not_ported("the sharded engine (mesh=)", 13)
-    _check_spd_spec(spec, M)
+    _check_m(spec, M)
+    _check_spd_spec(spec)
 
     if spec.method == "cg":
         res = solvers_mod.cg(
             A, b, x0,
-            tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter,
+            tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter, M=M,
             record_residuals=record_residuals,
             stagnation_window=spec.stagnation_window,
         )
@@ -215,6 +265,7 @@ def solve(
         waw_jitter=spec.waw_jitter,
         refresh_aw=spec.refresh_aw,
         strategy=spec.strategy,
+        M=M,
         record_residuals=record_residuals,
         recovery_rungs=spec.recovery_rungs,
         stagnation_window=spec.stagnation_window,
@@ -282,7 +333,8 @@ def solve_sequence(
 
     ``systems[i]`` mapped through ``make_operator`` is the i-th operator,
     ``b_seq`` is ``(num_systems, n)``; the returned ``state`` seeds the
-    next call.
+    next call.  ``make_preconditioner`` maps each operator to its ``M``
+    apply; a spec with ``precond != "none"`` needs it.
     """
     spec = SolveSpec() if spec is None else spec
     if checkpoint is not None or checkpoint_every or resume:
@@ -294,7 +346,13 @@ def solve_sequence(
             "solve_sequence recycles a deflation basis — it needs "
             f"spec.method='defcg', got {spec.method!r}"
         )
-    _check_spd_spec(spec, make_preconditioner)
+    if spec.precond != "none" and make_preconditioner is None:
+        raise ValueError(
+            f"spec.precond={spec.precond!r} but no make_preconditioner was "
+            "passed — the sequence path builds M per system, so supply a "
+            "factory mapping each operator to its preconditioner apply"
+        )
+    _check_spd_spec(spec)
     seq = recycle_mod.solve_sequence(
         systems,
         b_seq,
@@ -303,6 +361,7 @@ def solve_sequence(
         k=spec.k,
         ell=spec.ell,
         make_operator=make_operator,
+        make_preconditioner=make_preconditioner,
         tol=spec.tol,
         atol=spec.atol,
         maxiter=spec.maxiter,

@@ -1,8 +1,9 @@
 """Symmetric positive-definite linear operators on flat tensors.
 
-The solvers touch ``A`` only through ``A @ v``.  This slice ports the
-operators the dense-K GP path needs: a callable wrapper, a dense matrix,
-and the paper's Newton-system operator ``A = I + H½ K H½``.
+The solvers touch ``A`` only through ``A @ v``.  This slice ports a
+callable wrapper, a dense matrix, and the paper's Newton-system operator
+``A = I + H½ K H½``, both over any ``K`` product and over the matrix-free
+RBF Gram kernel.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import dataclasses
 from typing import Callable, Optional
 
 import torch
+
+from repro_torch.kernels import ops as kops
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
 
@@ -101,3 +104,35 @@ class KernelSystemOperator:
 
     def __matmul__(self, v: torch.Tensor) -> torch.Tensor:
         return self.matvec(v)
+
+
+class RBFKernelSystemOperator(KernelSystemOperator):
+    """``A v = v + H½ · K(X, X) (H½ · v)`` with ``K`` never formed.
+
+    :class:`KernelSystemOperator` over the RBF Gram kernel, holding its
+    data (``x``, ``sqrt_h``) and hyperparameters as attributes: every
+    product is one call of the fused Gram matvec
+    (:func:`repro_torch.kernels.ops.rbf_matvec`, the K3 kernel on the
+    card), so :meth:`basis_matvec` refreshes a whole ``(m, n)`` basis in
+    one multi-RHS call.
+    """
+
+    def __init__(
+        self,
+        x: torch.Tensor,  # (n, d) training inputs
+        sqrt_h: torch.Tensor,  # (n,) H½ diagonal
+        theta: float = 1.0,
+        lengthscale: float = 1.0,
+        block: int = 1024,
+        backend: str = "auto",
+    ):
+        self.x, self.theta, self.lengthscale = x, theta, lengthscale
+        self.block, self.backend = block, backend
+        super().__init__(self._rbf_matvec, sqrt_h)
+
+    def _rbf_matvec(self, u: torch.Tensor) -> torch.Tensor:
+        """``K(X, X) @ u`` — (n,) or column-stacked (n, r)."""
+        return kops.rbf_matvec(
+            self.x, u, self.theta, self.lengthscale,
+            backend=self.backend, block=self.block,
+        )

@@ -103,6 +103,7 @@ def _one_recycled_solve(
     waw_jitter: float,
     refresh_aw: str,
     strategy: RecycleStrategy,
+    M=None,
     record_residuals: bool = False,
     recovery_rungs: int = 0,
     stagnation_window: int = 0,
@@ -111,7 +112,9 @@ def _one_recycled_solve(
 
     ``strategy.prepare`` picks the ``AW`` that deflates this system and
     its cost; ``strategy.transition`` turns the recorded window into the
-    next ``(W, AW, θ, drift)``.  Returns ``(x, info, w_next, aw_next,
+    next ``(W, AW, θ, drift)``.  ``M`` preconditions the solve (the
+    split-preconditioned def-CG of :func:`repro_torch.core.solvers.defcg`).
+    Returns ``(x, info, w_next, aw_next,
     theta, drift_next, rung)``; ``theta`` is ``None`` when ``ell == 0``.
     """
     aw_used, refresh_matvecs, exact_aw, stale_guard = strategy.prepare(
@@ -136,6 +139,7 @@ def _one_recycled_solve(
         record_residuals=record_residuals,
         waw_jitter=waw_jitter,
         exact_aw=exact_aw,
+        M=M,
         stale_guard=stale_guard,
         stagnation_window=stagnation_window,
     )
@@ -206,6 +210,7 @@ def solve_sequence(
     k: int,
     ell: int,
     make_operator: Optional[Callable[[Any], Any]] = None,
+    make_preconditioner: Optional[Callable[[Any], Any]] = None,
     tol: float = 1e-5,
     atol: float = 0.0,
     maxiter: int = 1000,
@@ -222,7 +227,8 @@ def solve_sequence(
 
     ``systems[i]`` (a tensor with a leading system axis, or a list) is
     mapped through ``make_operator`` to the i-th operator; ``b_seq`` is
-    ``(num_systems, n)``.  Per-system semantics are
+    ``(num_systems, n)``.  ``make_preconditioner`` maps each operator to
+    its ``M`` apply (``None``: unpreconditioned).  Per-system semantics are
     :func:`_one_recycled_solve`'s, shared with the single-system front
     door.  Outputs are stacked as the reference's scan stacks them.
     """
@@ -245,8 +251,9 @@ def solve_sequence(
 
     xs, infos, thetas, rungs = [], [], [], []
     for i in range(b_seq.shape[0]):
+        A = make_op(systems[i])
         x, info, w, aw, theta, drift, rung = _one_recycled_solve(
-            make_op(systems[i]),
+            A,
             b_seq[i],
             x_prev if carry_x else None,
             w,
@@ -261,6 +268,7 @@ def solve_sequence(
             waw_jitter=waw_jitter,
             refresh_aw=refresh_aw,
             strategy=strategy,
+            M=make_preconditioner(A) if make_preconditioner is not None else None,
             recovery_rungs=recovery_rungs,
             stagnation_window=stagnation_window,
         )
@@ -291,6 +299,7 @@ class RecycleManager:
     charged); ``"stale"`` reuses the extraction's products.  A solve that
     ends broken or unconverged with a carried basis is re-solved clean,
     and the failed attempt's matvecs are charged, as in the reference.
+    ``solve(..., M=...)`` preconditions both attempts.
     """
 
     k: int
@@ -401,7 +410,7 @@ class RecycleManager:
             result = defcg(
                 A, b, x0,
                 ell=self.ell, tol=tol, maxiter=maxiter,
-                record_residuals=record_residuals,
+                record_residuals=record_residuals, M=M,
             )
             result = result._replace(
                 info=result.info._replace(

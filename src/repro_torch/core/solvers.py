@@ -3,11 +3,11 @@
 The counterpart of ``repro.core.solvers``: the same iteration, the same
 state, the same accounting, on the masked-step harness of
 :mod:`repro_torch.core.engine`.  The non-matvec vector work of an
-iteration is two fused kernels (:mod:`repro_torch.kernels.ops`), and the
-first ``ell`` search directions and their products are recorded by the
-second of them straight into ``(ell + 1, n)`` buffers: row ``ell`` is the
-spare row frozen steps write to, so rows past ``stored`` stay zero as the
-reference's masked scan outputs do.
+iteration is two fused kernels (:mod:`repro_torch.kernels.ops`), three
+when preconditioned, and the first ``ell`` search directions and their
+products are recorded by the last of them straight into ``(ell + 1, n)``
+buffers: row ``ell`` is the spare row frozen steps write to, so rows past
+``stored`` stay zero as the reference's masked scan outputs do.
 
 Deflation (Alg. 1 lines 3 and 11):
 
@@ -34,9 +34,6 @@ DEFAULT_WAW_JITTER = 1e-12
 # Noise floor of drift-guard thresholds, in units of the working eps.
 DRIFT_NOISE_FLOOR_EPS = 500.0
 
-_NO_PRECONDITIONER = (
-    "preconditioned CG/def-CG (M) is not ported yet: ROADMAP queue 1 item 8"
-)
 _NO_STAGNATION = (
     "the stagnation detector (stagnation_window > 0) is not ported yet: "
     "ROADMAP queue 1 item 10"
@@ -98,15 +95,20 @@ def cg(
     record_residuals: bool = False,
     stagnation_window: int = 0,
 ) -> CGResult:
-    """Conjugate gradients for SPD ``A`` (unpreconditioned in this slice)."""
-    if M is not None:
-        raise NotImplementedError(_NO_PRECONDITIONER)
+    """(Preconditioned) conjugate gradients for SPD ``A``.
+
+    ``M`` is an SPD preconditioner apply ``r ↦ M⁻¹ r``; ``None`` gives
+    plain CG, the paper's baseline.  The loop carries ``rᵀz``: without a
+    preconditioner that is the ``‖r‖²`` the fused update pass emits; with
+    one it is a plain dot, as in the reference.
+    """
     if stagnation_window > 0:
         raise NotImplementedError(_NO_STAGNATION)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - A(x)
-    p = r
-    rz = pt.tree_dot(r, r)
+    z = r if M is None else M(r)
+    p = z
+    rz = pt.tree_dot(r, z)
     rnorm0 = pt.tree_norm(r)
     threshold, _ = engine.tolerances(b, tol, atol)
     trace0 = engine.trace_init(rnorm0, maxiter, record_residuals)
@@ -126,10 +128,15 @@ def cg(
         ap = torch.where(bad, 0.0, ap)
         alpha = torch.where(bad | ~active, 0.0, rz / torch.where(bad, 1.0, d))
         x, r, rr, _ = kops.fused_cg_update(x, r, p, ap, alpha)
-        beta = rr / torch.where(rz == 0.0, 1.0, rz)
-        p_new, _, _ = kops.fused_deflate_direction(r, p, beta)
+        if M is None:
+            z, rz_new = r, rr
+        else:
+            z = M(r)
+            rz_new = pt.tree_dot(r, z)
+        beta = rz_new / torch.where(rz == 0.0, 1.0, rz)
+        p_new, _, _ = kops.fused_deflate_direction(z, p, beta)
         p = torch.where(active, p_new, p)
-        rz = torch.where(active, rr, rz)
+        rz = torch.where(active, rz_new, rz)
         rnorm_new = torch.sqrt(rr)
         fail = torch.where(
             (fail == 0) & active & ~torch.isfinite(rnorm_new),
@@ -196,9 +203,14 @@ def defcg(
     matvec, and ``stale_guard`` then arms the in-solve drift guard, whose
     refresh decision is one host read of the setup.  The ``recycle``
     field of the result holds the flat ``(ell, n)`` window.
+
+    ``M`` (an SPD apply ``r ↦ M⁻¹ r``) runs the split-preconditioned
+    def-CG of the reference: the loop carries ``rᵀz`` (``z = M⁻¹r``) and
+    deflates in the preconditioned inner product, ``μ = (WᵀAW)⁻¹(AW)ᵀz``.
+    The update pass then emits ``‖r‖²`` only, ``z = M(r)`` follows, and
+    ``(rᵀz, (AW)ᵀz)`` come from one ``fused_rz_reduce`` pass; convergence is
+    still tested on the true residual ``‖r‖``.
     """
-    if M is not None:
-        raise NotImplementedError(_NO_PRECONDITIONER)
     if stagnation_window > 0:
         raise NotImplementedError(_NO_STAGNATION)
     threshold, _ = engine.tolerances(b, tol, atol)
@@ -236,6 +248,7 @@ def defcg(
             return torch.linalg.cholesky_ex(waw)[0]
 
         def post_guess(aw_f, chol, z):
+            # Deflation in the preconditioned inner product: μ from (AW)ᵀz.
             mu0 = _chol_solve(chol, pt.basis_dot(aw_f, z))
             p0 = z - pt.basis_combine(W, mu0)
             winv = _chol_solve(chol, torch.eye(k, dtype=aw_f.dtype, device=device))
@@ -265,14 +278,18 @@ def defcg(
                     x, r = deflated_initial_guess(x_in, r_init, W, aw, chol)
                     matvecs += k
                     guard_fired = True
-        p, waw_inv = post_guess(aw, chol, r)
     else:
         r = b - A(x)
         matvecs += 1
-        p = r
+    z = r if M is None else M(r)
+    if deflating:
+        p, waw_inv = post_guess(aw, chol, z)
+    else:
+        p = z
 
     rnorm0 = pt.tree_norm(r)
-    rs0 = pt.tree_dot(r, r)
+    # The carried recurrence scalar: rᵀz (‖r‖² without a preconditioner).
+    rs0 = pt.tree_dot(r, z)
     trace0 = engine.trace_init(rnorm0, maxiter, record_residuals)
     diverged_at = 1e8 * torch.maximum(rnorm0, pt.tree_norm(b))
 
@@ -296,23 +313,33 @@ def defcg(
         # Sanitize a poisoned A·p before the fused passes touch it.
         ap = torch.where(bad, 0.0, ap)
         alpha = torch.where(bad | ~active, 0.0, rs / torch.where(bad, 1.0, d))
-        x, r, rs_new, awr = kops.fused_cg_update(x, r, p, ap, alpha, aw)
+        if M is None:
+            # rᵀr IS the recurrence scalar, and the deflation GEMV rides
+            # in the update pass.
+            x, r, rs_new, awr = kops.fused_cg_update(x, r, p, ap, alpha, aw)
+            rr, zvec = rs_new, r
+        else:
+            # z = M⁻¹r exists only after the update: rᵀz and (AW)ᵀz go in
+            # a second fused pass.
+            x, r, rr, _ = kops.fused_cg_update(x, r, p, ap, alpha)
+            zvec = M(r)
+            rs_new, awr = kops.fused_rz_reduce(r, zvec, aw)
         mu = waw_inv @ awr if deflating else None
         beta = rs_new / torch.where(rs == 0.0, 1.0, rs)
         if row is None:
-            p_new, _, _ = kops.fused_deflate_direction(r, p, beta, W, mu)
+            p_new, _, _ = kops.fused_deflate_direction(zvec, p, beta, W, mu)
         else:
             # Frozen steps record into the spare row ``ell``.
             slot = torch.where(active, row, ell).to(torch.int64)
             p_new, _, _ = kops.fused_deflate_direction(
-                r, p, beta, W, mu, ap, slot, p_buf, ap_buf
+                zvec, p, beta, W, mu, ap, slot, p_buf, ap_buf
             )
             a_rows.index_copy_(0, slot.reshape(1), alpha.reshape(1))
             b_rows.index_copy_(0, slot.reshape(1), beta.reshape(1))
         # Freeze p on breakdown too: a poisoned basis can make p_new
         # non-finite through μ even with a sanitized A·p.
         p = torch.where(active & ~bad, p_new, p)
-        rnorm_new = torch.sqrt(rs_new)
+        rnorm_new = torch.sqrt(rr)
         fail = torch.where(
             (fail == 0) & active & ~torch.isfinite(rnorm_new),
             SolveStatus.BREAKDOWN_NONFINITE,

@@ -6,7 +6,9 @@ the Euclidean geometry, with the refresh policy of ``spec.refresh_aw``.
 The extraction reads the recorded window once through the ``self_gram``
 kernel and rebuilds the next ``W`` and ``AW`` through the
 ``recombine_blocks`` kernel; everything between is ``(2m, 2m)`` algebra.
-``WindowedRecombine`` and ``MGeometryHarmonic`` come with a later slice.
+``WindowedRecombine`` and ``MGeometryHarmonic`` come with ROADMAP queue 1
+item 9; until then :class:`MGeometryHarmonic` exists so that a spec can
+name it, and :func:`repro_torch.core.solve` refuses it.
 """
 
 from __future__ import annotations
@@ -210,3 +212,9 @@ class HarmonicRitz(RecycleStrategy):
     def manager_wants_refresh(self, refresh_aw, drift, tol):
         del drift, tol
         return refresh_aw == "exact"
+
+
+@dataclasses.dataclass(frozen=True)
+class MGeometryHarmonic(RecycleStrategy):
+    """Harmonic extraction in the preconditioner's geometry — not ported
+    yet (ROADMAP queue 1 item 9): the front door refuses it."""

@@ -3,11 +3,12 @@
 // Each kernel replaces one Pallas TPU kernel of src/repro/kernels/cg_fused.py:
 //
 //   fused_cg_update          <- fused_cg_update_pallas          (cg_fused.py:122)
+//   fused_rz_reduce          <- fused_rz_reduce_pallas          (cg_fused.py:252)
 //   fused_deflate_direction  <- fused_deflate_direction_pallas  (cg_fused.py:426)
 //   self_gram                <- self_gram_pallas                (cg_fused.py:558)
 //   recombine_blocks         <- recombine_blocks_pallas         (cg_fused.py:639)
 //
-// All four are bound by device-memory bytes on the H100 (a few flops per
+// All five are bound by device-memory bytes on the H100 (a few flops per
 // element read), so each reads every input element once and writes every
 // output element once.  The Pallas kernels carry reductions across a
 // sequential grid in SMEM; here blocks run in no order, so every reduction is
@@ -71,6 +72,31 @@ __device__ __forceinline__ void pair_ij(int q, int m2, int* i, int* j) {
   *j = row + q;
 }
 
+// The k + 1 per-thread sums acc[0..k] of a block, summed over the block in a
+// fixed order and written to row blockIdx.x of a (blocks, k + 1) partials
+// buffer.
+template <typename T>
+__device__ __forceinline__ void store_block_partials(const T (&acc)[kMaxK + 1],
+                                                     int k,
+                                                     T* __restrict__ partials) {
+  __shared__ T warp_part[kMaxK + 1][kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int j = 0; j <= kMaxK; ++j) {
+    if (j <= k) {
+      const T v = warp_sum(acc[j]);
+      if (lane == 0) warp_part[j][warp] = v;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x <= k) {
+    T s = T(0);
+    for (int w = 0; w < kWarps; ++w) s += warp_part[threadIdx.x][w];
+    partials[(int64_t)blockIdx.x * (k + 1) + threadIdx.x] = s;
+  }
+}
+
 // ---------------------------------------------------------------------------
 // fused_cg_update: x + a p, r - a ap, |r_new|^2, AW r_new
 // ---------------------------------------------------------------------------
@@ -99,22 +125,33 @@ __global__ void __launch_bounds__(kThreads) cg_update_partial(
     }
   }
 
-  __shared__ T warp_part[kMaxK + 1][kWarps];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  store_block_partials(acc, k, partials);
+}
+
+// ---------------------------------------------------------------------------
+// fused_rz_reduce: r^T z, AW z (the preconditioned def-CG iteration's second
+// pass: z = M^-1 r exists only after the residual update)
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) rz_reduce_partial(
+    const T* __restrict__ r, const T* __restrict__ z,
+    const T* __restrict__ aw, int k, int64_t n, T* __restrict__ partials) {
+  T acc[kMaxK + 1];
 #pragma unroll
-  for (int j = 0; j <= kMaxK; ++j) {
-    if (j <= k) {
-      const T v = warp_sum(acc[j]);
-      if (lane == 0) warp_part[j][warp] = v;
+  for (int j = 0; j <= kMaxK; ++j) acc[j] = T(0);
+
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const T zi = z[i];
+    acc[0] += r[i] * zi;
+#pragma unroll
+    for (int j = 0; j < kMaxK; ++j) {
+      if (j < k) acc[j + 1] += aw[(int64_t)j * n + i] * zi;
     }
   }
-  __syncthreads();
-  if (threadIdx.x <= k) {
-    T s = T(0);
-    for (int w = 0; w < kWarps; ++w) s += warp_part[threadIdx.x][w];
-    partials[(int64_t)blockIdx.x * (k + 1) + threadIdx.x] = s;
-  }
+  store_block_partials(acc, k, partials);
 }
 
 // Column c of a (rows, width) partials buffer, summed in a fixed order.
@@ -319,6 +356,22 @@ int launch_cg_update(const void* x, const void* r, const void* p,
 }
 
 template <typename T>
+int launch_rz_reduce(const void* r, const void* z, const void* aw, int k,
+                     int64_t n, void* partials, int nblocks, void* rz,
+                     void* awz, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  rz_reduce_partial<T><<<nblocks, kThreads, 0, st>>>(
+      static_cast<const T*>(r), static_cast<const T*>(z),
+      static_cast<const T*>(aw), k, n, static_cast<T*>(partials));
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_columns<T><<<k + 1, kThreads, 0, st>>>(
+      static_cast<const T*>(partials), nblocks, k + 1, static_cast<T*>(rz),
+      static_cast<T*>(awz));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
 int launch_deflate(const void* r, const void* p, const void* beta,
                    const void* w, const void* mu, int k, int64_t n, void* po,
                    const void* ap, const void* idx, void* p_buf, void* ap_buf,
@@ -367,6 +420,12 @@ int launch_recombine(const void* s, const void* u, int m, int k, int64_t n,
       void* stream) {                                                          \
     return launch_cg_update<T>(x, r, p, ap, alpha, aw, k, n, xo, ro,           \
                                partials, nblocks, rr, awr, stream);            \
+  }                                                                            \
+  extern "C" int fused_rz_reduce_##SUFFIX(                                     \
+      const void* r, const void* z, const void* aw, int k, int64_t n,          \
+      void* partials, int nblocks, void* rz, void* awz, void* stream) {        \
+    return launch_rz_reduce<T>(r, z, aw, k, n, partials, nblocks, rz, awz,     \
+                               stream);                                        \
   }                                                                            \
   extern "C" int fused_deflate_direction_##SUFFIX(                             \
       const void* r, const void* p, const void* beta, const void* w,           \

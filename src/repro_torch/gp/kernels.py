@@ -1,11 +1,14 @@
-"""GP kernel functions (the counterpart of ``repro.gp.kernels``)."""
+"""GP kernel functions and the matrix-free Gram operator (the counterpart
+of ``repro.gp.kernels``)."""
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
 
+from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as kref
 
 
@@ -30,9 +33,19 @@ class RBFKernel:
             -0.5 * torch.clamp(d2, min=0.0) / self.lengthscale**2
         )
 
-    def matvec_fn(self, x: torch.Tensor, **_):
-        """The matrix-free Gram matvec comes with the next slice."""
-        raise NotImplementedError("matrix-free RBF matvec: ROADMAP K3")
+    def matvec_fn(
+        self, x: torch.Tensor, *, backend: str = "auto", block: int = 1024
+    ) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Matrix-free ``v ↦ K v`` over the fused kernel (K never built);
+        ``v`` may be (n,) or column-stacked (n, r)."""
+
+        def mv(v: torch.Tensor) -> torch.Tensor:
+            return kops.rbf_matvec(
+                x, v, self.theta, self.lengthscale, backend=backend, block=block
+            )
+
+        return mv
 
     def matvec_cost_flops(self, n: int, d: int) -> float:
+        """Flops of one fused Gram matvec (distance matmul dominates)."""
         return 2.0 * n * n * d + 6.0 * n * n

@@ -6,10 +6,11 @@ The counterpart of ``repro.gp.laplace``: Newton's method on
     A⁽ⁱ⁾ = I + H½ K H½,       b⁽ⁱ⁾ = H½ K (H f + ∇ log p(y|f)),
 
 by ``cholesky``, ``cg``, ``defcg`` (a :class:`RecycleManager` carrying the
-deflation basis across Newton steps) or the ``spec`` front door.  This
-slice runs the paper's own setup: K materialized once and applied as a
-dense ``K @ v`` (``dense_matvec=True``); the matrix-free path comes with
-the RBF matvec kernel.
+deflation basis across Newton steps) or the ``spec`` front door, which
+also preconditions (``spec.precond`` = ``"jacobi"`` or ``"nystrom"``).
+``K`` is applied either as the paper's dense ``K @ v`` over a materialized
+K (``dense_matvec=True``) or matrix-free through the fused RBF Gram
+matvec (the default; K is never formed).
 """
 
 from __future__ import annotations
@@ -21,8 +22,19 @@ from typing import List, Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core import KernelSystemOperator, RecycleManager, SolveSpec
+from repro_torch.core import (
+    KernelSystemOperator,
+    RBFKernelSystemOperator,
+    RecycleManager,
+    SolveSpec,
+)
 from repro_torch.core.api import solve
+from repro_torch.core.operators import LinearOperator
+from repro_torch.core.preconditioners import (
+    jacobi,
+    kernel_nystrom_preconditioner,
+    randomized_nystrom,
+)
 from repro_torch.core.solvers import cg, cholesky_solve
 from repro_torch.gp.kernels import RBFKernel
 
@@ -67,8 +79,11 @@ def laplace_gpc(
     solver_maxiter: int = 2000,
     recycle: Optional[RecycleManager] = None,
     spec: Optional[SolveSpec] = None,
+    precond_generator: Optional[torch.Generator] = None,
     newton_tol: float = 1.0,
     max_newton: int = 30,
+    backend: str = "auto",
+    block: int = 1024,
     record_residuals: bool = False,
     k_dense: Optional[torch.Tensor] = None,
     dense_matvec: bool = False,
@@ -78,38 +93,53 @@ def laplace_gpc(
     Args:
       solver: "cholesky" | "cg" | "defcg" (ignored when ``spec`` given).
       recycle: RecycleManager for solver="defcg" (created if None).
-      spec: a :class:`SolveSpec` with ``precond="none"``: every Newton
-        system goes through :func:`repro_torch.core.solve` with a
-        :class:`RecycleState` carried across iterations.
+      spec: a :class:`SolveSpec`: every Newton system goes through
+        :func:`repro_torch.core.solve` with a :class:`RecycleState` carried
+        across iterations and the spec's preconditioner.
+        ``precond="jacobi"`` uses ``diag(A) = 1 + h·k(x, x)`` per system;
+        ``precond="nystrom"`` sketches the invariant kernel ``K ≈ UᵀΛU``
+        once (``precond_rank + 8`` kernel matvecs, charged to the first
+        system) and rebinds it to each system's ``H½`` by a rank-r
+        Woodbury solve.  ``"custom"`` is refused: drive
+        :func:`repro_torch.core.solve` directly for a custom ``M``.
+      precond_generator: the :class:`torch.Generator` of the Nyström
+        sketch's probes (a CPU generator seeded 0 if absent).
       newton_tol: stop when ΔΨ < newton_tol.
-      k_dense: pre-materialized K (built here, on ``x``'s device, if
-        absent).
-      dense_matvec: must be True in this slice — the iterative solvers
-        apply K as a dense ``K @ v``.
+      backend, block: the fused Gram matvec's kernel selector and the
+        plain version's row block (:func:`repro_torch.kernels.ops.rbf_matvec`).
+      k_dense: pre-materialized K.  The Cholesky path needs it (built here
+        if absent); with ``dense_matvec=True`` the iterative solvers apply
+        it as a dense ``K @ v`` (the paper's own setup), otherwise they
+        use the fused matrix-free Gram matvec and K is never formed.
 
     Solver time in the trace is host wall time around each solve, ended
     by a device synchronize on CUDA.
     """
-    if not dense_matvec:
-        raise NotImplementedError("matrix-free RBF matvec: ROADMAP K3")
     n = x.shape[0]
     f = torch.zeros(n, dtype=x.dtype, device=x.device)
     if spec is not None:
-        if spec.precond != "none":
-            raise NotImplementedError(
-                "laplace_gpc with a preconditioned spec is not ported yet: "
-                "ROADMAP queue 1 item 8"
+        if spec.precond == "custom":
+            raise ValueError(
+                "laplace_gpc builds the preconditioner itself and has no M "
+                "parameter — use spec.precond='jacobi'/'nystrom'/'none', or "
+                "drive repro_torch.core.solve directly for a custom M"
             )
         solver = "spec"
-    if k_dense is None:
+    if (solver == "cholesky" or dense_matvec) and k_dense is None:
         k_dense = kernel.gram(x)
+    if dense_matvec:
 
-    def k_mv(v):
-        return k_dense @ v
+        def k_mv(v):
+            return k_dense @ v
+
+    else:
+        k_mv = kernel.matvec_fn(x, backend=backend, block=block)
 
     if solver == "defcg" and recycle is None:
         recycle = RecycleManager(k=8, ell=12, tol=solver_tol, maxiter=solver_maxiter)
     solve_state = None
+    k_sketch = None  # once-per-call Nyström sketch (U, lam) of K
+    sketch_matvecs = 0
 
     trace = NewtonTrace()
     psi_prev = float("-inf")
@@ -133,10 +163,41 @@ def laplace_gpc(
             del amat
             info = None
         else:
-            a_op = KernelSystemOperator(k_mv, sqrt_h)
+            a_op = (
+                KernelSystemOperator(k_mv, sqrt_h) if dense_matvec
+                else RBFKernelSystemOperator(
+                    x, sqrt_h, kernel.theta, kernel.lengthscale,
+                    block=block, backend=backend,
+                )
+            )
             if solver == "spec":
+                M = None
+                if spec.precond == "jacobi":
+                    # diag(A) = 1 + h_i k(x_i, x_i), exact and host-free.
+                    diag_k = (
+                        torch.diagonal(k_dense) if dense_matvec
+                        else torch.full((n,), kernel.theta**2, dtype=x.dtype,
+                                        device=x.device)
+                    )
+                    M = jacobi(1.0 + hdiag * diag_k)
+                elif spec.precond == "nystrom":
+                    if k_sketch is None:
+                        gen = (
+                            precond_generator if precond_generator is not None
+                            else torch.Generator().manual_seed(0)
+                        )
+                        # K on all rank + 8 probes as one multi-RHS call.
+                        k_sketch = randomized_nystrom(
+                            LinearOperator(k_mv, matmat=k_mv),
+                            torch.zeros(n, dtype=x.dtype, device=x.device),
+                            rank=spec.precond_rank, generator=gen,
+                        )
+                        sketch_matvecs = spec.precond_rank + 8
+                    M = kernel_nystrom_preconditioner(
+                        k_sketch[0], k_sketch[1], sqrt_h
+                    )
                 res = solve(
-                    a_op, b, spec, solve_state, x0=x_prev,
+                    a_op, b, spec, solve_state, x0=x_prev, M=M,
                     record_residuals=record_residuals,
                 )
                 solve_state = res.state
@@ -171,7 +232,10 @@ def laplace_gpc(
         trace.cumulative_time.append(solve_time)
         if info is not None:
             trace.solver_iterations.append(int(info.iterations))
-            trace.solver_matvecs.append(int(info.matvecs))
+            # The one-off Nyström sketch is charged to the system that
+            # built it.
+            trace.solver_matvecs.append(int(info.matvecs) + sketch_matvecs)
+            sketch_matvecs = 0
             if record_residuals and info.residual_norms is not None:
                 trace.residual_traces.append(info.residual_norms)
         else:

@@ -1,4 +1,4 @@
-"""The def-CG hot path on the H100: four hand-written CUDA kernels.
+"""The def-CG hot path on the H100: five hand-written CUDA kernels.
 
 Each kernel replaces one Pallas TPU kernel of ``repro/kernels/cg_fused.py``;
 its CUDA source is ``csrc/cg_fused.cu`` (f32 and f64 instantiations, plain
@@ -10,6 +10,12 @@ C interface, built by :mod:`repro_torch.kernels._build`):
   One grid-stride pass reads each element once and keeps the k + 1 sums in
   registers; per-block partials go to a ``(blocks, k + 1)`` scratch that a
   second one-block-per-column kernel sums in a fixed order.
+* ``fused_rz_reduce`` replaces ``fused_rz_reduce_pallas`` (cg_fused.py:252):
+  ``(rᵀz, (AW)·z)`` in one pass, the preconditioned iteration's second
+  sweep (``z = M⁻¹r`` exists only after the residual update).
+  Bytes-bound, (2 + k)·n elements for 2(1 + k)·n flops; the same
+  grid-stride pass and fixed-order two-stage reduction as the ``(AW)·r``
+  arm of ``fused_cg_update``.
 * ``fused_deflate_direction`` replaces ``fused_deflate_direction_pallas``
   (cg_fused.py:426), both arms: ``p ← βp + r − μᵀW`` and, when buffers are
   given, the incoming ``(p, ap)`` written into row ``idx`` of the
@@ -36,28 +42,21 @@ Beside each kernel wrapper (``*_cuda``) sits its plain PyTorch version
 :mod:`repro_torch.kernels.ref` plus the counter below, and writes the
 recording buffers in place as the kernel does.  The wrapper launches
 only on CUDA tensors and raises on anything it does not take; dispatch by
-device lives in :mod:`repro_torch.kernels.ops`.  ``LAUNCHES`` counts kernel
-launches per wrapper; ``PLAIN_ON_CUDA`` counts plain versions run on CUDA
-tensors, so a run can show which path the card took.
+device lives in :mod:`repro_torch.kernels.ops`.  The counters
+``LAUNCHES`` and ``PLAIN_ON_CUDA`` are those of
+:mod:`repro_torch.kernels._runtime`, shared with ``rbf_matvec``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _runtime, ref
 
-LAUNCHES = {
-    "fused_cg_update": 0,
-    "fused_deflate_direction": 0,
-    "self_gram": 0,
-    "recombine_blocks": 0,
-}
-PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
+LAUNCHES = _runtime.LAUNCHES
+PLAIN_ON_CUDA = _runtime.PLAIN_ON_CUDA
 
 THREADS = 256
 GRID_CAP = 264  # two resident blocks per SM on a 132-SM H100
@@ -65,29 +64,23 @@ MAX_K = 16
 MAX_GRAM_ROWS = 64
 GRAM_TILE = 32
 
-_SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_L = ctypes.c_int64
+_P, _I, _L = _runtime.PTR, _runtime.INT, _runtime.INT64
 _SIGNATURES = {
-    "fused_cg_update": [_P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _P],
-    "fused_deflate_direction": [_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _I, _P],
-    "self_gram": [_P, _I, _L, _L, _I, _P, _P, _P],
-    "recombine_blocks": [_P, _P, _I, _I, _L, _P, _I, _P],
+    "fused_cg_update": (_P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P),
+    "fused_rz_reduce": (_P, _P, _P, _I, _L, _P, _I, _P, _P),
+    "fused_deflate_direction": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _I),
+    "self_gram": (_P, _I, _L, _L, _I, _P, _P),
+    "recombine_blocks": (_P, _P, _I, _I, _L, _P, _I),
 }
+_cdiv = _runtime.cdiv
+_ptr = _runtime.ptr
+_check = _runtime.check
+_scalar = _runtime.scalar
+_note_plain = _runtime.note_plain
 
 
-@functools.lru_cache(maxsize=None)
-def _entry(name: str, dtype: torch.dtype):
-    lib = _build.load("cg_fused")
-    fn = getattr(lib, f"{name}_{_SUFFIX[dtype]}")
-    fn.argtypes = _SIGNATURES[name]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
+def _launch(name: str, like: torch.Tensor, *args) -> None:
+    _runtime.launch("cg_fused", name, _SIGNATURES[name], like, *args)
 
 
 def _grid(n: int) -> int:
@@ -99,46 +92,6 @@ def _gram_grid(n: int):
     blocks = min(_cdiv(n, GRAM_TILE), GRID_CAP)
     cols = _cdiv(_cdiv(n, blocks), GRAM_TILE) * GRAM_TILE
     return _cdiv(n, cols), cols
-
-
-def _ptr(t: Optional[torch.Tensor]):
-    return None if t is None else t.data_ptr()
-
-
-def _check(name: str, like: torch.Tensor, **tensors) -> None:
-    """Device, dtype, shape and layout checks shared by the wrappers."""
-    if like.device.type != "cuda":
-        raise ValueError(f"{name}: CUDA kernel called on a {like.device} tensor")
-    if like.dtype not in _SUFFIX:
-        raise TypeError(f"{name}: dtype {like.dtype} not supported (f32, f64)")
-    for key, (t, shape) in tensors.items():
-        if t.device != like.device:
-            raise ValueError(f"{name}: {key} on {t.device}, expected {like.device}")
-        if t.dtype != like.dtype:
-            raise TypeError(f"{name}: {key} is {t.dtype}, expected {like.dtype}")
-        if tuple(t.shape) != tuple(shape):
-            raise ValueError(f"{name}: {key} has shape {tuple(t.shape)}, expected {tuple(shape)}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: {key} must be contiguous")
-
-
-def _scalar(v, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(())
-
-
-def _launch(name: str, dtype: torch.dtype, device: torch.device, *args) -> None:
-    fn = _entry(name, dtype)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = fn(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
-
-
-def _note_plain(name: str, t: torch.Tensor) -> None:
-    if t.device.type == "cuda":
-        PLAIN_ON_CUDA[name] += 1
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +121,7 @@ def fused_cg_update_cuda(x, r, p, ap, alpha, aw=None):
     partials = torch.empty((blocks, k + 1), dtype=x.dtype, device=x.device)
     rr = torch.empty((), dtype=x.dtype, device=x.device)
     awr = torch.empty((k,), dtype=x.dtype, device=x.device) if k else None
-    _launch("fused_cg_update", x.dtype, x.device,
+    _launch("fused_cg_update", x,
             _ptr(x), _ptr(r), _ptr(p), _ptr(ap), _ptr(alpha), _ptr(aw), k, n,
             _ptr(xo), _ptr(ro), _ptr(partials), blocks, _ptr(rr), _ptr(awr))
     return xo, ro, rr, awr
@@ -178,6 +131,36 @@ def fused_cg_update_plain(x, r, p, ap, alpha, aw=None):
     """Plain PyTorch version of :func:`fused_cg_update_cuda`."""
     _note_plain("fused_cg_update", x)
     return ref.fused_cg_update(x, r, p, ap, alpha, aw)
+
+
+# ---------------------------------------------------------------------------
+# fused_rz_reduce
+# ---------------------------------------------------------------------------
+
+
+def fused_rz_reduce_cuda(r, z, aw=None):
+    """``(rᵀz, AW @ z | None)`` on the card, both on the device."""
+    n = r.shape[0]
+    k = 0 if aw is None else aw.shape[0]
+    shapes = {"r": (r, (n,)), "z": (z, (n,))}
+    if aw is not None:
+        shapes["aw"] = (aw, (k, n))
+    _check("fused_rz_reduce", r, **shapes)
+    if n == 0 or k > MAX_K:
+        raise ValueError(f"fused_rz_reduce: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}")
+    blocks = _grid(n)
+    partials = torch.empty((blocks, k + 1), dtype=r.dtype, device=r.device)
+    rz = torch.empty((), dtype=r.dtype, device=r.device)
+    awz = torch.empty((k,), dtype=r.dtype, device=r.device) if k else None
+    _launch("fused_rz_reduce", r,
+            _ptr(r), _ptr(z), _ptr(aw), k, n, _ptr(partials), blocks, _ptr(rz), _ptr(awz))
+    return rz, awz
+
+
+def fused_rz_reduce_plain(r, z, aw=None):
+    """Plain PyTorch version of :func:`fused_rz_reduce_cuda`."""
+    _note_plain("fused_rz_reduce", r)
+    return ref.fused_rz_reduce(r, z, aw)
 
 
 # ---------------------------------------------------------------------------
@@ -212,7 +195,7 @@ def fused_deflate_direction_cuda(
             f"fused_deflate_direction: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}"
         )
     po = torch.empty_like(p)
-    _launch("fused_deflate_direction", r.dtype, r.device,
+    _launch("fused_deflate_direction", r,
             _ptr(r), _ptr(p), _ptr(beta), _ptr(w), _ptr(mu), k, n, _ptr(po),
             _ptr(ap if record else None), _ptr(idx if record else None),
             _ptr(p_buf), _ptr(ap_buf), _grid(n))
@@ -247,7 +230,7 @@ def self_gram_cuda(s: torch.Tensor) -> torch.Tensor:
     blocks, cols = _gram_grid(n)
     partials = torch.empty((blocks, m2 * (m2 + 1) // 2), dtype=s.dtype, device=s.device)
     out = torch.empty((m2, m2), dtype=s.dtype, device=s.device)
-    _launch("self_gram", s.dtype, s.device,
+    _launch("self_gram", s,
             _ptr(s), m2, n, cols, blocks, _ptr(partials), _ptr(out))
     return out
 
@@ -275,7 +258,7 @@ def recombine_blocks_cuda(s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
             f"got n={n}, m={m}, k={k}"
         )
     out = torch.empty((2 * k, n), dtype=s.dtype, device=s.device)
-    _launch("recombine_blocks", s.dtype, s.device,
+    _launch("recombine_blocks", s,
             _ptr(s), _ptr(u), m, k, n, _ptr(out), _grid(n))
     return out
 

@@ -19,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cg_fused, ref
+from repro_torch.kernels import rbf_matvec as rbf_mod
 
 _BACKENDS = ("auto", "cuda", "plain", "reference")
 
@@ -31,6 +32,27 @@ def _resolve(backend: str, t: torch.Tensor) -> str:
     if backend == "cuda" and t.device.type != "cuda":
         raise ValueError(f"backend='cuda' needs CUDA tensors, got a {t.device} tensor")
     return backend
+
+
+def rbf_matvec(
+    x: torch.Tensor,
+    v: torch.Tensor,
+    theta: float,
+    lengthscale: float,
+    *,
+    backend: str = "auto",
+    block: int = 1024,
+) -> torch.Tensor:
+    """``K(X, X) @ v`` for the RBF kernel without forming K (except the
+    ``reference`` oracle).  ``v`` may be ``(n,)`` or ``(n, r)`` (multi-RHS,
+    e.g. the ``A·W`` refresh of a k-vector basis in one pass).  ``block``
+    is the plain version's row block; the kernel's tiles are fixed."""
+    backend = _resolve(backend, x)
+    if backend == "cuda":
+        return rbf_mod.rbf_matvec_cuda(x, v, theta, lengthscale)
+    if backend == "plain":
+        return rbf_mod.rbf_matvec_plain(x, v, theta, lengthscale, block)
+    return ref.rbf_matvec(x, v, theta, lengthscale)
 
 
 def fused_cg_update(
@@ -50,6 +72,24 @@ def fused_cg_update(
     if backend == "plain":
         return cg_fused.fused_cg_update_plain(x, r, p, ap, alpha, aw)
     return ref.fused_cg_update(x, r, p, ap, alpha, aw)
+
+
+def fused_rz_reduce(
+    r: torch.Tensor,
+    z: torch.Tensor,
+    aw: Optional[torch.Tensor] = None,
+    *,
+    backend: str = "auto",
+):
+    """``(rᵀz, AW @ z | None)`` in one pass: the preconditioned def-CG
+    iteration's second sweep (``z = M⁻¹r`` exists only after the residual
+    update, so it cannot ride in :func:`fused_cg_update`)."""
+    backend = _resolve(backend, r)
+    if backend == "cuda":
+        return cg_fused.fused_rz_reduce_cuda(r, z, aw)
+    if backend == "plain":
+        return cg_fused.fused_rz_reduce_plain(r, z, aw)
+    return ref.fused_rz_reduce(r, z, aw)
 
 
 def fused_deflate_direction(

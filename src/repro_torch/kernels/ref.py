@@ -23,6 +23,13 @@ def rbf_gram(x: torch.Tensor, theta: float, lengthscale: float) -> torch.Tensor:
     return k.mul_(-0.5 / lengthscale**2).exp_().mul_(theta**2)
 
 
+def rbf_matvec(
+    x: torch.Tensor, v: torch.Tensor, theta: float, lengthscale: float
+) -> torch.Tensor:
+    """``K(X,X) @ v`` by materializing K — oracle for the fused kernel."""
+    return rbf_gram(x, theta, lengthscale) @ v
+
+
 def fused_cg_update(x, r, p, ap, alpha, aw=None):
     """``(x + α p, r − α ap, ‖r_new‖², AW @ r_new | None)``."""
     x_new = x + alpha * p
@@ -30,6 +37,14 @@ def fused_cg_update(x, r, p, ap, alpha, aw=None):
     rr = torch.dot(r_new, r_new)
     awr = aw @ r_new if aw is not None else None
     return x_new, r_new, rr, awr
+
+
+def fused_rz_reduce(r, z, aw=None):
+    """``(rᵀz, AW @ z | None)`` — the PCG recurrence scalar and the
+    deflation GEMV in the preconditioned inner product."""
+    rz = torch.dot(r, z)
+    awz = aw @ z if aw is not None else None
+    return rz, awz
 
 
 def fused_deflate_direction(

@@ -7,7 +7,8 @@ with an H100 run them with
 
 (``--noconftest``: the suite's conftest imports JAX, which the GPU
 machine does not need to have).  Tolerances: f64 1e-12 relative, f32
-2e-4 (the Pallas tolerance of ``tests/test_cg_fused.py``).
+2e-4 (the Pallas tolerance of ``tests/test_cg_fused.py``); the f32 RBF
+Gram matvec 2e-4 relative / 5e-4 absolute (``tests/test_kernels.py``).
 """
 
 import pytest
@@ -15,6 +16,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import cg_fused  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import rbf_matvec as rbf  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -56,6 +59,49 @@ def test_fused_cg_update(device, dtype, n, k):
             assert g is None
         else:
             _assert_close(g, w, dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", SIZES)
+@pytest.mark.parametrize("k", [0, 1, 8, 16])
+def test_fused_rz_reduce(device, dtype, n, k):
+    rnd = _gen(device, dtype, 3 * n + k)
+    r, z = rnd(n), rnd(n)
+    aw = rnd(k, n) if k else None
+    got = cg_fused.fused_rz_reduce_cuda(r, z, aw)
+    want = cg_fused.fused_rz_reduce_plain(r, z, aw)
+    _assert_close(got[0], want[0], dtype)
+    if k:
+        _assert_close(got[1], want[1], dtype)
+    else:
+        assert got[1] is None
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ndr", [(4000, 784, 1), (4000, 784, 8), (1000, 50, 24),
+                                 (1000, 50, 33), (257, 13, 3), (1, 5, 1)])
+def test_rbf_matvec(device, dtype, ndr):
+    n, d, r = ndr
+    rnd = _gen(device, dtype, n + d + r)
+    x, v = rnd(n, d), rnd(n, r)
+    got = rbf.rbf_matvec_cuda(x, v, 3.0, 3.0 * d**0.5 / 6.0)
+    want = rbf.rbf_matvec_plain(x, v, 3.0, 3.0 * d**0.5 / 6.0)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=5e-4)
+    else:
+        _assert_close(got, want, dtype)
+    assert torch.equal(got, rbf.rbf_matvec_cuda(x, v, 3.0, 3.0 * d**0.5 / 6.0))
+
+
+def test_rbf_matvec_vector_and_transposed_rhs(device):
+    rnd = _gen(device, torch.float64, 5)
+    x, v = rnd(700, 30), rnd(700)
+    got = kops.rbf_matvec(x, v, 1.5, 2.0)
+    assert got.shape == (700,)
+    _assert_close(got, rbf.rbf_matvec_plain(x, v, 1.5, 2.0), torch.float64)
+    basis = rnd(8, 700)
+    _assert_close(kops.rbf_matvec(x, basis.T, 1.5, 2.0),
+                  rbf.rbf_matvec_plain(x, basis.T, 1.5, 2.0), torch.float64)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

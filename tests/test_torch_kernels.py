@@ -132,6 +132,70 @@ def test_recombine_blocks_matches_reference(arm, mkn):
     _close(got, want, tol, f"{arm} recombine {mkn}")
 
 
+@pytest.mark.parametrize("arm", sorted(JAX_ARMS))
+@pytest.mark.parametrize("case", CASES)
+def test_fused_rz_reduce_matches_reference(arm, case):
+    impl, dtype, tol = JAX_ARMS[arm]
+    n, k = case
+    (r, z, _, _), aw, _ = _inputs(n, k, dtype, 5 * n + (k or 0))
+    want = jops.fused_rz_reduce(
+        jnp.asarray(r), jnp.asarray(z), None if aw is None else jnp.asarray(aw),
+        impl=impl,
+    )
+    got = tops.fused_rz_reduce(
+        torch.from_numpy(r), torch.from_numpy(z),
+        None if aw is None else torch.from_numpy(aw),
+    )
+    _close(got[0], want[0], tol, f"{arm} rz n={n} k={k}")
+    if k is None:
+        assert got[1] is None
+    else:
+        _close(got[1], want[1], tol, f"{arm} awz n={n} k={k}")
+
+
+# RBF Gram matvec: f64 against the reference's chunked arm and oracle at
+# 1e-12; f32 against the Pallas kernel in interpret mode at the 2e-4 / 5e-4
+# of tests/test_kernels.py.  r = 1 goes in as a vector.
+RBF_ARMS = {
+    "f64-chunked": ("chunked", np.float64),
+    "f64-reference": ("reference", np.float64),
+    "f32-interpret": ("interpret", np.float32),
+}
+
+
+@pytest.mark.parametrize("arm", sorted(RBF_ARMS))
+@pytest.mark.parametrize("ndr", [(300, 13, 1), (257, 784, 3), (300, 784, 1), (257, 13, 3)])
+def test_rbf_matvec_matches_reference(arm, ndr):
+    impl, dtype = RBF_ARMS[arm]
+    n, d, r = ndr
+    rng = np.random.default_rng(n + d + r)
+    x = rng.standard_normal((n, d)).astype(dtype)
+    v = rng.standard_normal(n if r == 1 else (n, r)).astype(dtype)
+    theta, ls = 1.3, 0.1 * d**0.5 + 1.0
+    want = np.asarray(jops.rbf_matvec(jnp.asarray(x), jnp.asarray(v), theta, ls,
+                                      impl=impl, block=128))
+    got = tops.rbf_matvec(torch.from_numpy(x), torch.from_numpy(v), theta, ls, block=100)
+    assert got.shape == want.shape and got.dtype == torch.from_numpy(x).dtype
+    if dtype == np.float32:
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-4, atol=5e-4)
+    else:
+        _close(got, want, 1e-12, f"{arm} rbf {ndr}")
+
+
+def test_rbf_matvec_blocks_give_the_same_rows():
+    """The plain version's row block changes only which rows share a GEMM."""
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((333, 20)))
+    v = torch.from_numpy(rng.standard_normal((333, 4)))
+    ys = [tops.rbf_matvec(x, v, 2.0, 1.5, block=b) for b in (1, 64, 1024)]
+    for y in ys[1:]:
+        torch.testing.assert_close(y, ys[0], rtol=1e-13, atol=1e-13)
+    torch.testing.assert_close(
+        ys[0], tops.rbf_matvec(x, v, 2.0, 1.5, backend="reference"),
+        rtol=1e-12, atol=1e-12,
+    )
+
+
 @pytest.mark.parametrize("backend", ["plain", "reference"])
 def test_backends_agree_in_f64(backend):
     rng = np.random.default_rng(5)
@@ -163,6 +227,10 @@ def test_cuda_backend_on_cpu_tensor_raises():
         tops.fused_cg_update(v, v, v, v, 0.5, backend="cuda")
     with pytest.raises(ValueError, match="CUDA"):
         tops.self_gram(v[None], backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.fused_rz_reduce(v, v, backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.rbf_matvec(v[:, None], v, 1.0, 1.0, backend="cuda")
     with pytest.raises(ValueError, match="backend"):
         tops.self_gram(v[None], backend="pallas")
 

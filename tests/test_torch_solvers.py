@@ -269,8 +269,9 @@ def test_state_carries_over_from_reference(fig2_trace):
 def test_unported_paths_raise():
     A = tc.from_matrix(torch.eye(6, dtype=torch.float64))
     b = torch.ones(6, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tc.solve(A, b, tc.SolveSpec(), M=lambda v: v)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tc.solve(A, b, tc.SolveSpec(precond="jacobi", strategy=tc.MGeometryHarmonic()),
+                 M=lambda v: v)
     with pytest.raises(NotImplementedError, match="item 13"):
         tc.solve(A, b, tc.SolveSpec(), mesh=object())
     with pytest.raises(NotImplementedError, match="item 11"):
