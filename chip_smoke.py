@@ -19,7 +19,11 @@ Phases, each of which fails the script when it fails:
               events, median of 25 launches, 3 for the RBF Gram matvec, L2
               flushed before each) beside its plain version, the one
               PyTorch call that computes the same function where there is
-              one, and its bound.
+              one, and its bound.  The LSMR update (K7) is held at the
+              least-squares path's n = 16 384, the Gauss-Newton parameter
+              count 32 768, lsq_bench's 2²⁰ and a ragged n, and the two
+              extraction kernels at the least-squares windows' 96, 112 and
+              128 stacked rows (timed at 112 rows, n = 16 384).
 4. check    — small Newton sequences (n = 400) on the card against the same
               sequences run on the CPU through the plain versions: the
               dense-K solvers, and the matrix-free Jacobi-preconditioned
@@ -52,10 +56,30 @@ Phases, each of which fails the script when it fails:
 8. agree    — at n = 4 000, matrix-free def-CG against dense def-CG, both
               f64: at solver tol 1e-10 iterations within one per system,
               at solver tol 1e-12 log p to 1e-10.
+9. check-lsq — ``benchmarks/lsq_bench.py``'s own problem (m = 180, n = 120,
+              12 systems, logspace and flat spectra, drift 0.02, λ = 1e-4,
+              tol 1e-8, deflsmr(8, 48)) on the card against the CPU: cold
+              iterations within one (or 5 %) per system, recycled within
+              10 % (ROADMAP P5), every x within 1e-6 relative; and six
+              ``hf_step``s at ``tests/test_optim.py``'s size in each mode
+              (Gauss-Newton and GGN), loss to 1e-10 and iterations equal.
+10. main-lsq — the least-squares main path: lsq_bench's drifting ridge
+              sequence at m = 24 576, n = 16 384 (f64, 3.2 GB a system, A_0
+              built on the card), cold LSMR per system and deflsmr(8, 48)
+              through the front door, over 12 systems.  Every system must
+              converge, the last x must match a Cholesky solve of AᵀA + λI
+              to 1e-5, and the LSMR update and both extraction kernels must
+              launch.  Then, counted apart, ``torch.profiler`` over 16 LSMR
+              iterations gives the launches per iteration.
+11. main-gn  — Gauss-Newton training: ``hf_step(solver="gauss_newton")`` on
+              a teacher-student tanh residual, 65 536 samples, d = 1024, 32
+              outputs (32 768 parameters), f64, 10 steps with recycling and
+              10 without; the loss must fall and stay finite, and the LSMR
+              update must launch.
 
-Each main path (5 and 7) is driven with the launch counters set to 0
-just before it and read just after; the ``{"kernels": [...]}`` JSON line
-gives each kernel's launches summed over the two.  Last comes the
+Each main path (5, 7, 10 and 11) is driven with the launch counters set to
+0 just before it and read just after; the ``{"kernels": [...]}`` JSON line
+gives each kernel's launches summed over the four.  Last comes the
 ``{"ok": true, "device": {...}}`` line; the full report also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -93,12 +117,32 @@ CUT_MS = 250.0
 
 # Card peaks (NVIDIA data sheets; dense).  "float64"/"float32" are the
 # CUDA-core rates the SIMT kernels run at; "float64_tensor" is the FP64
-# tensor-core rate, the least time of the RBF Gram matvec's f64 GEMM-shaped
-# work.  Keyed by a substring of the card name.
+# tensor-core rate, the least time of f64 GEMM-shaped work (the RBF Gram
+# matvec, the extraction's S Sᵀ and uᵀS).  Keyed by a substring of the
+# card name.
 PEAKS = {
     "H100": {"bytes": 3.35e12, "float64": 34e12, "float32": 67e12,
              "float64_tensor": 67e12},
 }
+GEMM_SHAPED = ("self_gram", "recombine_blocks")
+
+# benchmarks/lsq_bench.py's drifting ridge sequence (λ = 1e-4, tol 1e-8,
+# deflsmr(8, 48), exact NW refresh, drift 0.02), at its own size for the
+# card-against-CPU check and at m = 24 576, n = 16 384 (its m/n = 1.5) for
+# the least-squares main path; maxiter 4000 there (the bench's 600 is for
+# n = 120).
+LSQ_DAMP, LSQ_TOL, LSQ_K, LSQ_ELL, LSQ_DRIFT = 1e-4, 1e-8, 8, 48, 0.02
+LSQ_BENCH = {"m": 180, "n": 120, "num": 12, "maxiter": 600}
+LSQ_MAIN = {"m": 24576, "n": 16384, "num": 12, "maxiter": 4000}
+# Gauss-Newton training: tests/test_optim.py's teacher-student residual
+# tanh(x @ w) − y widened to 65 536 samples, d = 1024, 32 outputs, f64.
+GN = {"samples": 65536, "d": 1024, "out": 32, "steps": 10}
+# K7 sizes: the least-squares main path's n, the GN parameter count,
+# lsq_bench's microbench n, a ragged n.
+K7_NS = (LSQ_MAIN["n"], GN["d"] * GN["out"], 1 << 20, RAGGED_N)
+# Stacked window rows the extraction kernels must take: def-CG's 2(k + ℓ)
+# = 40, and the least-squares windows (lsq_bench 2·56 = 112).
+GRAM_ROWS = (96, 112, 128)
 
 # Which TPU kernel each port kernel replaces, and the port's source.
 REPLACES = {
@@ -108,11 +152,15 @@ REPLACES = {
     "self_gram": "src/repro/kernels/cg_fused.py:558",
     "recombine_blocks": "src/repro/kernels/cg_fused.py:639",
     "fused_rz_reduce": "src/repro/kernels/cg_fused.py:252",
+    "lsmr_update": "src/repro/kernels/cg_fused.py:336",
 }
 SOURCES = dict.fromkeys(REPLACES, "src/repro_torch/csrc/cg_fused.cu")
 SOURCES["rbf_matvec"] = "src/repro_torch/csrc/rbf_matvec.cu"
 DENSE_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "self_gram",
                       "recombine_blocks")
+MF_PATH_KERNELS = DENSE_PATH_KERNELS + ("rbf_matvec", "fused_rz_reduce")
+LSQ_PATH_KERNELS = ("lsmr_update", "self_gram", "recombine_blocks")
+GN_PATH_KERNELS = ("lsmr_update",)
 
 
 def log(msg=""):
@@ -266,7 +314,16 @@ def work(name, n, itemsize):
         return (2 * M * n + M * K + 2 * K * n) * itemsize, 4 * K * M * n
     if name == "fused_rz_reduce":
         return ((2 + K) * n + K + 1) * itemsize, 2 * (1 + K) * n
+    if name == "lsmr_update":  # x, h̄, h, v and c0..c2 in; x', h̄', h' out
+        return (7 * n + 3) * itemsize, 6 * n
     raise KeyError(name)
+
+
+def ops_peak(peaks, name, dname):
+    """The card's peak rate for ``name``'s operations in ``dname``."""
+    if dname == "float64" and name in GEMM_SHAPED:
+        return peaks["float64_tensor"]
+    return peaks[dname]
 
 
 def phase_kernels(torch, cf, peaks):
@@ -301,7 +358,7 @@ def phase_kernels(torch, cf, peaks):
         entry["ms"] = device_ms(torch, kern)
         entry["plain_ms"] = device_ms(torch, plain)
         entry["library_ms"] = device_ms(torch, library[name]) if name in library else None
-        t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["float64"]
+        t_bytes, t_ops = nbytes / peaks["bytes"], ops / ops_peak(peaks, name, "float64")
         entry["bound_ms"] = 1e3 * max(t_bytes, t_ops)
         entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         entry["profiled_kernels_ms"] = profile_kernels(torch, kern)
@@ -480,6 +537,416 @@ def laplace_runs(torch, launches, x, y, k_dense, solver_tol, log_prefix,
     return runs
 
 
+def phase_lsmr_kernels(torch, cf, peaks):
+    """K7 (``lsmr_update``) in f64 and f32 against its plain version at
+    K7_NS, timed at each in f64 and at 2²⁰ in f32; then the extraction
+    kernels (K4, K5) at the least-squares window rows, K4 and K5 timed at
+    112 rows and n = 16 384, beside their bounds and the one PyTorch call
+    that computes each."""
+    report = {"max_abs_err": 0.0, "timings": {}}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        itemsize = 8 if dtype == torch.float64 else 4
+        for n in K7_NS:
+            g = torch.Generator(device="cuda").manual_seed(n)
+            x, hbar, h, v = (torch.randn(n, generator=g, device="cuda", dtype=dtype)
+                             for _ in range(4))
+            c = [torch.randn((), generator=g, device="cuda", dtype=dtype) for _ in range(3)]
+            got = cf.lsmr_update_cuda(x, hbar, h, v, *c)
+            want = cf.lsmr_update_plain(x, hbar, h, v, *c)
+            torch.cuda.synchronize()
+            err = compare(torch, got, want, dname, f"lsmr_update {dname} n={n}")
+            log(f"[kernels] lsmr_update {dname} n={n:7d}: max abs err {err:.3e}")
+            if dtype == torch.float64 and n == LSQ_MAIN["n"]:
+                report["max_abs_err"] = err
+            if n == RAGGED_N or (dtype == torch.float32 and n != 1 << 20):
+                continue
+            nbytes, ops = work("lsmr_update", n, itemsize)
+            t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks[dname]
+            t = {"ms": device_ms(torch, lambda: cf.lsmr_update_cuda(x, hbar, h, v, *c)),
+                 "plain_ms": device_ms(torch, lambda: cf.lsmr_update_plain(x, hbar, h, v, *c)),
+                 "bound_ms": 1e3 * max(t_bytes, t_ops),
+                 "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            report["timings"][f"{dname} n={n}"] = t
+            log(f"[timing] lsmr_update {dname} n={n}: kernel {t['ms']:.4f} ms, plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), "
+                f"library null")
+    main = report["timings"][f"float64 n={LSQ_MAIN['n']}"]
+    report.update(main, library_ms=None)
+
+    gram = {}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for rows in GRAM_ROWS:
+            for n in (LSQ_MAIN["n"], RAGGED_N):
+                g = torch.Generator(device="cuda").manual_seed(rows + n)
+                s_ = torch.randn(rows, n, generator=g, device="cuda", dtype=dtype)
+                u = torch.randn(rows // 2, K, generator=g, device="cuda", dtype=dtype)
+                e1 = compare(torch, (cf.self_gram_cuda(s_),), (cf.self_gram_plain(s_),),
+                             dname, f"self_gram rows={rows} n={n}")
+                e2 = compare(torch, (cf.recombine_blocks_cuda(s_, u),),
+                             (cf.recombine_blocks_plain(s_, u),), dname,
+                             f"recombine_blocks rows={rows} n={n}")
+                log(f"[kernels] self_gram / recombine_blocks {dname} rows={rows} n={n:6d}: "
+                    f"max abs err {e1:.3e} / {e2:.3e}")
+    rows, n = 2 * (LSQ_K + LSQ_ELL), LSQ_MAIN["n"]
+    g = torch.Generator(device="cuda").manual_seed(3)
+    s_ = torch.randn(rows, n, generator=g, device="cuda", dtype=torch.float64)
+    u = torch.randn(rows // 2, LSQ_K, generator=g, device="cuda", dtype=torch.float64)
+    ut = u.T.contiguous()
+    for name, kern, plain, lib, nbytes, ops in (
+        ("self_gram", lambda: cf.self_gram_cuda(s_), lambda: cf.self_gram_plain(s_),
+         lambda: s_ @ s_.T, (rows * n + rows * rows) * 8, rows * (rows + 1) * n),
+        ("recombine_blocks", lambda: cf.recombine_blocks_cuda(s_, u),
+         lambda: cf.recombine_blocks_plain(s_, u),
+         lambda: torch.matmul(ut, s_.view(2, rows // 2, n)),
+         (rows * n + rows // 2 * LSQ_K + 2 * LSQ_K * n) * 8, 2 * LSQ_K * rows * n),
+    ):
+        t_bytes, t_ops = nbytes / peaks["bytes"], ops / ops_peak(peaks, name, "float64")
+        gram[name] = t = {"rows": rows, "n": n, "ms": device_ms(torch, kern),
+                          "plain_ms": device_ms(torch, plain),
+                          "library_ms": device_ms(torch, lib),
+                          "bound_ms": 1e3 * max(t_bytes, t_ops),
+                          "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        log(f"[timing] {name} f64 rows={rows} n={n}: kernel {t['ms']:.4f} ms, plain "
+            f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    report["lsq_windows"] = gram
+    return report
+
+
+def drifting_lsq(torch, num, m, n, device, decay="logspace", seed=0):
+    """``benchmarks/lsq_bench.py``'s drifting ridge sequence: singular
+    values logspace(0, −3, n) (``decay="flat"``: |N(0, 1)| + 0.5) under
+    random orthogonal factors, then A_{i+1} = A_i + drift·‖A_i‖_F/√(mn)·G.
+    Yields ``(A_i, b_i)`` one system at a time.  On the CPU it is the
+    bench's numpy recipe exactly (full (m, m) QR); on the card (logspace
+    only) the left factor is the reduced QR of an (m, n) Gaussian, the
+    same distribution without the (m, m) factor, drawn from a torch
+    generator."""
+    import numpy as np
+
+    if device == "cpu":
+        rng = np.random.default_rng(seed)
+        U, _ = np.linalg.qr(rng.standard_normal((m, m)))
+        V, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        s = np.logspace(0, -3, n) if decay == "logspace" else np.abs(rng.standard_normal(n)) + 0.5
+        base = U[:, :n] @ np.diag(s) @ V.T
+        for _ in range(num):
+            b = rng.standard_normal(m)
+            yield torch.from_numpy(base), torch.from_numpy(b)
+            base = base + LSQ_DRIFT * np.linalg.norm(base) / np.sqrt(m * n) * \
+                rng.standard_normal((m, n))
+        return
+    f64 = torch.float64
+    g = torch.Generator(device=device).manual_seed(seed)
+    U = torch.linalg.qr(torch.randn(m, n, generator=g, device=device, dtype=f64)).Q
+    V = torch.linalg.qr(torch.randn(n, n, generator=g, device=device, dtype=f64)).Q
+    U.mul_(torch.logspace(0, -3, n, device=device, dtype=f64))
+    base = U @ V.T
+    del U, V
+    for _ in range(num):
+        b = torch.randn(m, generator=g, device=device, dtype=f64)
+        yield base, b
+        step = torch.randn(m, n, generator=g, device=device, dtype=f64)
+        base = step.mul_(LSQ_DRIFT * float(torch.linalg.norm(base)) / math.sqrt(m * n)).add_(base)
+
+
+def lsq_runs(torch, systems, maxiter, log_prefix):
+    """Cold LSMR per system and deflsmr(8, 48) over the sequence, both
+    through the SolveSpec front door, each timed on the host clock ended
+    by a synchronize."""
+    from repro_torch.core import DenseMatrixOperator, SolveSpec, solve, solve_sequence
+
+    sync = torch.cuda.synchronize if systems[0][0].is_cuda else (lambda: None)
+    spec = dict(tol=LSQ_TOL, maxiter=maxiter, lsq_shift=LSQ_DAMP)
+    cold, t0 = [], time.perf_counter()
+    for A, b in systems:
+        res = solve(DenseMatrixOperator(A), b, SolveSpec(method="lsmr", **spec))
+        cold.append((res.x, res.info))
+    sync()
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seq = solve_sequence([A for A, _ in systems], [b for _, b in systems],
+                         SolveSpec(method="deflsmr", k=LSQ_K, ell=LSQ_ELL, refresh_aw="exact",
+                                   **spec),
+                         make_operator=DenseMatrixOperator)
+    sync()
+    rec_s = time.perf_counter() - t0
+    out = {
+        "cold": {"iterations": [int(i.iterations) for _, i in cold],
+                 "matvecs": [int(i.matvecs) for _, i in cold],
+                 "converged": [bool(i.converged) for _, i in cold], "wall_s": cold_s},
+        "recycled": {"iterations": [int(i) for i in seq.info.iterations],
+                     "matvecs": [int(i) for i in seq.info.matvecs],
+                     "converged": [bool(c) for c in seq.info.converged], "wall_s": rec_s},
+    }
+    for name, run in out.items():
+        log(f"{log_prefix} {name:8s} iterations {run['iterations']} (sum "
+            f"{sum(run['iterations'])}), matvecs {sum(run['matvecs'])}, wall {run['wall_s']:.2f} s")
+    return out, [x for x, _ in cold], seq
+
+
+def _close_counts(got, want, frac):
+    return all(abs(a - b) <= max(1, math.ceil(frac * b)) for a, b in zip(got, want))
+
+
+def phase_check_lsq(torch, cf):
+    """lsq_bench's own problem (m = 180, n = 120, 12 systems, logspace and
+    flat) on the card against the CPU (plain versions), and six
+    ``hf_step``s in each mode (tests/test_optim.py's size) likewise."""
+    import numpy as np
+
+    out = {}
+    cfg = LSQ_BENCH
+    for decay in ("logspace", "flat"):
+        cpu = list(drifting_lsq(torch, cfg["num"], cfg["m"], cfg["n"], "cpu", decay))
+        card = [(A.cuda(), b.cuda()) for A, b in cpu]
+        res = {}
+        for dev, systems in (("cuda", card), ("cpu", cpu)):
+            res[dev] = lsq_runs(torch, systems, cfg["maxiter"], f"[check-lsq {decay} {dev}]")
+        (rc, xc, sc), (rh, xh, sh) = res["cuda"], res["cpu"]
+        # Cold solves stop within one iteration (or 5 %) of the CPU's; the
+        # recycled ones within 10 %: past ~10 iterations each device's
+        # rounding grows through the recurrence (ROADMAP P5).
+        for name, frac in (("cold", 0.05), ("recycled", 0.10)):
+            if not all(rc[name]["converged"]):
+                raise AssertionError(f"[check-lsq] {decay} {name}: a card solve did not converge")
+            if not _close_counts(rc[name]["iterations"], rh[name]["iterations"], frac):
+                raise AssertionError(f"[check-lsq] {decay} {name}: iterations "
+                                     f"{rc[name]['iterations']} vs CPU {rh[name]['iterations']}")
+        xs = [(a, b) for a, b in zip(xc, xh)] + [(a, b) for a, b in zip(sc.x, sh.x)]
+        worst = max(float(torch.linalg.norm(a.cpu() - b) / torch.linalg.norm(b)) for a, b in xs)
+        log(f"[check-lsq] {decay}: worst x gap card vs CPU {worst:.2e} (relative)")
+        if worst > 1e-6:
+            raise AssertionError(f"[check-lsq] {decay}: x gap {worst:.2e} > 1e-6")
+        if decay == "logspace" and not sum(rc["recycled"]["matvecs"]) < sum(rc["cold"]["matvecs"]):
+            raise AssertionError("[check-lsq] recycling did not save products on the card")
+        out[decay] = {"cuda": rc, "cpu": rh, "worst_x_gap": worst}
+
+    # hf_step at tests/test_optim.py's size in both modes, card against CPU:
+    # Gauss-Newton ((def)LSMR on the Jacobian: K7, K4, K5) and GGN (def-CG
+    # on the damped GGN through torch.func: K1, K2, K4, K5).
+    from repro_torch import convert
+    from repro_torch.optim import HFConfig, hf_init, hf_step, squared_loss_hvp
+
+    rng = np.random.default_rng(0)
+    xs, wt = rng.standard_normal((64, 8)), rng.standard_normal((8, 3))
+    w0 = rng.standard_normal((8, 3)) * 0.1
+
+    def model_fn(p, bt):
+        return torch.tanh(bt["x"] @ p["w"])
+
+    def loss_fn(outputs, bt):
+        return torch.mean(torch.square(outputs - bt["y"]))
+
+    def residual_fn(p, bt):
+        return model_fn(p, bt) - bt["y"]
+
+    for solver in ("gauss_newton", "ggn"):
+        hcfg = HFConfig(k=4, ell=8, cg_tol=1e-10, cg_maxiter=200, init_damping=0.1,
+                        solver=solver)
+        fns = (dict(residual_fn=residual_fn) if solver == "gauss_newton" else
+               dict(model_fn=model_fn, loss_fn=loss_fn, loss_hvp=squared_loss_hvp))
+        # One bootstrap basis for both devices, carried across by convert.
+        boot = convert.hf_state_to_numpy(
+            hf_init({"w": torch.tensor(w0)}, hcfg, torch.Generator().manual_seed(0)))
+        gn = {}
+        for dev in ("cuda", "cpu"):
+            batch = {"x": torch.tensor(xs, device=dev),
+                     "y": torch.tanh(torch.tensor(xs @ wt, device=dev))}
+            params = {"w": torch.tensor(w0, device=dev)}
+            state = convert.hf_state_from_numpy(**boot, dtype=torch.float64, device=dev)
+            losses, its = [], []
+            for _ in range(6):
+                params, state, m = hf_step(params, state, batch, cfg=hcfg, **fns)
+                losses.append(float(m["loss"]))
+                its.append(int(m["cg_iterations"]))
+            gn[dev] = {"loss": losses, "iterations": its}
+        tag = f"[check-gn {solver}]"
+        log(f"{tag} card loss {gn['cuda']['loss']} iterations {gn['cuda']['iterations']}; "
+            f"CPU iterations {gn['cpu']['iterations']}")
+        for a, b in zip(gn["cuda"]["loss"], gn["cpu"]["loss"]):
+            if abs(a - b) > 1e-10 * abs(b):
+                raise AssertionError(f"{tag} loss {gn['cuda']['loss']} vs CPU {gn['cpu']['loss']}")
+        if gn["cuda"]["iterations"] != gn["cpu"]["iterations"]:
+            raise AssertionError(f"{tag} iterations {gn['cuda']['iterations']} vs CPU "
+                                 f"{gn['cpu']['iterations']}")
+        out["gn" if solver == "gauss_newton" else "ggn"] = gn
+    return out
+
+
+def profile_lsmr_steps(torch, A, b, W=None, NW=None, steps=16):
+    """``torch.profiler`` over ``steps`` LSMR iterations (tol 0, so every
+    step is live): device kernels launched per iteration, and device time
+    per iteration split into the two GEMVs and everything else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import DenseMatrixOperator, lsmr
+
+    op = DenseMatrixOperator(A)
+    lsmr(op, b, W=W, NW=NW, damp=LSQ_DAMP, tol=0.0, maxiter=steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        lsmr(op, b, W=W, NW=NW, damp=LSQ_DAMP, tol=0.0, maxiter=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, gemv_us, other_us, names = 0, 0.0, 0.0, {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if not (_is_device(evt) and us > 0):
+            continue
+        launches += evt.count
+        key = evt.key.lower()
+        if "gemv" in key or "gemm" in key:
+            gemv_us += us
+        else:
+            other_us += us
+        names[evt.key[:50]] = evt.count
+    return {"steps": steps, "launches_per_iteration": launches / steps,
+            "gemv_ms_per_iteration": gemv_us / steps / 1e3,
+            "other_ms_per_iteration": other_us / steps / 1e3,
+            "wall_ms_per_iteration_profiled": 1e3 * wall / steps, "kernels": names}
+
+
+def phase_main_lsq(torch, cf, peaks):
+    """The least-squares main path at m = 24 576, n = 16 384 (f64, 3.2 GB a
+    system): cold LSMR per system and deflsmr(8, 48) over the drifting
+    sequence, through the front door.  Every system must converge, the
+    last x must match a Cholesky solve of AᵀA + λI, and K7, K4 and K5 must
+    launch while no plain version runs.  The caller zeroes the counters."""
+    m, n = LSQ_MAIN["m"], LSQ_MAIN["n"]
+    from repro_torch.core import engine
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    systems = list(drifting_lsq(torch, LSQ_MAIN["num"], m, n, "cuda"))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    A0, b0 = systems[0]
+    gemv_ms = device_ms(torch, lambda: A0 @ b0[:n])
+    gemv_t_ms = device_ms(torch, lambda: A0.T @ b0)
+    bound_ms = 2 * m * n * 8 / peaks["bytes"] * 1e3
+    log(f"[main-lsq] m={m} n={n}: {len(systems)} systems built on the card in {build_s:.1f} s; "
+        f"GEMV A v {gemv_ms:.4f} ms, Aᵀ u {gemv_t_ms:.4f} ms (bound of the pair "
+        f"{bound_ms:.4f} ms)")
+
+    runs, xs_cold, seq = lsq_runs(torch, systems, LSQ_MAIN["maxiter"], "[main-lsq]")
+    for name, run in runs.items():
+        if not all(run["converged"]):
+            raise AssertionError(f"[main-lsq] {name}: a system did not converge")
+        ell = 0 if name == "cold" else LSQ_ELL
+        frozen = sum(frozen_steps(i, ell, engine.CHUNK) for i in run["iterations"])
+        its = sum(run["iterations"])
+        run.update(frozen_products=2 * frozen,
+                   ms_per_iteration=1e3 * run["wall_s"] / its,
+                   ms_per_step_run=1e3 * run["wall_s"] / (its + frozen))
+        log(f"[main-lsq] {name:8s} {its} iterations, {sum(run['matvecs'])} A/Aᵀ products "
+            f"counted, {2 * frozen} frozen products (computed, discarded), "
+            f"{run['ms_per_iteration']:.3f} ms per iteration "
+            f"({run['ms_per_step_run']:.3f} ms per step run; GEMV pair bound {bound_ms:.3f} ms)")
+    A, b = systems[-1]
+    N = A.T @ A
+    N.diagonal().add_(LSQ_DAMP)
+    x_ref = torch.cholesky_solve((A.T @ b)[:, None], torch.linalg.cholesky(N))[:, 0]
+    del N
+    gaps = {name: float(torch.linalg.norm(x - x_ref) / torch.linalg.norm(x_ref))
+            for name, x in (("cold", xs_cold[-1]), ("recycled", seq.x[-1]))}
+    log(f"[main-lsq] last system against Cholesky of AᵀA + λI: relative gap {gaps}")
+    if max(gaps.values()) > 1e-5:
+        raise AssertionError(f"[main-lsq] last x off the ridge solution: {gaps}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    saved = 1 - sum(runs["recycled"]["matvecs"]) / sum(runs["cold"]["matvecs"])
+    log(f"[main-lsq] recycled vs cold A/Aᵀ products: {saved:+.1%} saved; peak memory "
+        f"{peak_gb:.1f} GB")
+    report = {"m": m, "n": n, "num": len(systems), "runs": runs,
+              "gemv_ms": gemv_ms, "gemv_t_ms": gemv_t_ms, "gemv_pair_bound_ms": bound_ms,
+              "cholesky_gap": gaps, "products_saved": saved, "peak_memory_gb": peak_gb,
+              "build_systems_s": build_s}
+    return report, systems, seq.state
+
+
+def phase_main_gn(torch):
+    """Gauss-Newton training (``hf_step`` with ``solver="gauss_newton"``) on
+    the teacher-student residual at 65 536 samples, d = 1024, 32 outputs
+    (32 768 parameters), f64, 10 steps with recycling and 10 without.  The
+    loss must fall and stay finite.  The caller zeroes the counters."""
+    from repro_torch.optim import HFConfig, hf_init, hf_step
+
+    f64 = torch.float64
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(GN["samples"], GN["d"], generator=g, device="cuda", dtype=f64)
+    x.mul_(math.sqrt(8.0 / GN["d"]))  # pre-activations at the test's scale
+    y = torch.tanh(x @ torch.randn(GN["d"], GN["out"], generator=g, device="cuda", dtype=f64))
+    w0 = torch.randn(GN["d"], GN["out"], generator=g, device="cuda", dtype=f64) * 0.1
+    batch = {"x": x, "y": y}
+
+    def residual_fn(p, bt):
+        return torch.tanh(bt["x"] @ p["w"]) - bt["y"]
+
+    out = {}
+    for recycle in (True, False):
+        cfg = HFConfig(k=4, ell=8, cg_tol=1e-6, cg_maxiter=200, init_damping=0.1,
+                       solver="gauss_newton", recycle=recycle)
+        params = {"w": w0.clone()}
+        state = hf_init(params, cfg, torch.Generator(device="cuda").manual_seed(1))
+        rows = []
+        for _ in range(GN["steps"]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, state, mt = hf_step(params, state, batch, residual_fn=residual_fn, cfg=cfg)
+            torch.cuda.synchronize()
+            rows.append({"loss": float(mt["loss"]), "new_loss": float(mt["new_loss"]),
+                         "damping": float(mt["damping"]), "accepted": bool(mt["accepted"]),
+                         "iterations": int(mt["cg_iterations"]),
+                         "matvecs": int(mt["cg_matvecs"]), "wall_s": time.perf_counter() - t0})
+        name = "recycled" if recycle else "cold"
+        its = sum(r["iterations"] for r in rows)
+        wall = sum(r["wall_s"] for r in rows)
+        out[name] = {"steps": rows, "iterations": its, "wall_s": wall,
+                     "ms_per_iteration": 1e3 * wall / max(its, 1)}
+        log(f"[main-gn] {name:8s} loss {rows[0]['loss']:.4e} -> {rows[-1]['new_loss']:.4e}; "
+            f"LSMR iterations per step {[r['iterations'] for r in rows]}; "
+            f"{wall:.2f} s, {out[name]['ms_per_iteration']:.3f} ms per LSMR iteration "
+            f"(step included)")
+        losses = [r["loss"] for r in rows] + [rows[-1]["new_loss"]]
+        if not all(math.isfinite(v) for v in losses) or not losses[-1] < losses[0]:
+            raise AssertionError(f"[main-gn] {name}: loss did not fall: {losses}")
+        out[name]["final_state"] = (params, state, cfg)
+    return out, batch, residual_fn
+
+
+def profile_gn_step(torch, params, state, batch, residual_fn, cfg):
+    """``torch.profiler`` over one Gauss-Newton step: device kernels
+    launched, device time by kernel class, and the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.optim import hf_step
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = hf_step(params, state, batch, residual_fn=residual_fn, cfg=cfg)
+        its = int(m["cg_iterations"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches, gemm_us, other_us = 0, 0.0, 0.0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if not (_is_device(evt) and us > 0):
+            continue
+        launches += evt.count
+        if "gemm" in evt.key.lower() or "gemv" in evt.key.lower():
+            gemm_us += us
+        else:
+            other_us += us
+    busy = (gemm_us + other_us) / 1e3
+    return {"iterations": its, "launches": launches, "gemm_ms": gemm_us / 1e3,
+            "other_ms": other_us / 1e3, "wall_ms_profiled": 1e3 * wall,
+            "device_busy_share": busy / (1e3 * wall)}
+
+
 def frozen_steps(iterations, ell, chunk):
     """Masked steps the harness runs past convergence (host reads every
     ``chunk`` steps after the ``ell`` recording steps)."""
@@ -530,6 +997,7 @@ def main() -> int:
     # -- 3. kernels ---------------------------------------------------------
     kernels = phase_kernels(torch, cf, peaks)
     kernels["rbf_matvec"] = rbf_k = phase_rbf(torch, rbf, peaks)
+    kernels["lsmr_update"] = phase_lsmr_kernels(torch, cf, peaks)
 
     # -- 4. small check: card against CPU ------------------------------------
     xs, ys = make_infinite_digits(400, seed=1, noise=0.10)
@@ -694,7 +1162,7 @@ def main() -> int:
     mf_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main-mf] launches {mf_launches}; plain versions on the card {mf_plain}; "
         f"peak memory {mf_peak_gb:.2f} GB")
-    if not all(mf_launches.values()):
+    if not all(mf_launches[k] for k in MF_PATH_KERNELS):
         raise AssertionError(f"[main-mf] a kernel never launched: {mf_launches}")
     if any(mf_plain.values()):
         raise AssertionError(f"[main-mf] plain versions ran on the card: {mf_plain}")
@@ -753,7 +1221,61 @@ def main() -> int:
         if tol == 1e-12 and rel > 1e-10:
             raise AssertionError(f"[agree] tol {tol:g}: log p differs by {rel:.2e}")
 
-    totals = {name: launches[name] + mf_launches[name] for name in cf.LAUNCHES}
+    del ka, xa, ya, x, y, xc, yc
+    torch.cuda.empty_cache()
+
+    # -- 9. least squares at lsq_bench's size: card against CPU --------------
+    report["check_lsq"] = phase_check_lsq(torch, cf)
+
+    # -- 10. the least-squares main path ----------------------------------------
+    zero_counts()
+    lsq, lsq_systems, lsq_state = phase_main_lsq(torch, cf, peaks)
+    lsq_launches = dict(cf.LAUNCHES)
+    lsq_plain = dict(cf.PLAIN_ON_CUDA)
+    log(f"[main-lsq] launches {lsq_launches}; plain versions on the card {lsq_plain}")
+    if not all(lsq_launches[k] for k in LSQ_PATH_KERNELS):
+        raise AssertionError(f"[main-lsq] a kernel never launched: {lsq_launches}")
+    if any(lsq_plain.values()):
+        raise AssertionError(f"[main-lsq] plain versions ran on the card: {lsq_plain}")
+    # Launches per LSMR iteration (eager PyTorch: every scalar op is one),
+    # counted apart from the main path's run.
+    lsq["profile"] = {
+        "cold": profile_lsmr_steps(torch, *lsq_systems[0]),
+        "deflated": profile_lsmr_steps(torch, *lsq_systems[-1], W=lsq_state.W, NW=lsq_state.AW),
+    }
+    for name, prof in lsq["profile"].items():
+        log(f"[main-lsq] profile {name}: {prof['launches_per_iteration']:.1f} launches per "
+            f"iteration; device {prof['gemv_ms_per_iteration']:.4f} ms GEMV + "
+            f"{prof['other_ms_per_iteration']:.4f} ms other per iteration; wall "
+            f"{prof['wall_ms_per_iteration_profiled']:.4f} ms per iteration under the profiler")
+    report["main_lsq"] = lsq
+    del lsq_systems, lsq_state
+    torch.cuda.empty_cache()
+
+    # -- 11. Gauss-Newton training ---------------------------------------------
+    zero_counts()
+    report["main_gn"], gn_batch, gn_residual = phase_main_gn(torch)
+    gn_launches = dict(cf.LAUNCHES)
+    gn_plain = dict(cf.PLAIN_ON_CUDA)
+    log(f"[main-gn] launches {gn_launches}; plain versions on the card {gn_plain}")
+    if not all(gn_launches[k] for k in GN_PATH_KERNELS):
+        raise AssertionError(f"[main-gn] a kernel never launched: {gn_launches}")
+    if any(gn_plain.values()):
+        raise AssertionError(f"[main-gn] plain versions ran on the card: {gn_plain}")
+    report["main_gn"]["launches"] = gn_launches
+    # One more step of the recycled run under the profiler, counted apart.
+    gn_params, gn_state, gn_cfg = report["main_gn"]["recycled"].pop("final_state")
+    prof = profile_gn_step(torch, gn_params, gn_state, gn_batch, gn_residual, gn_cfg)
+    report["main_gn"]["cold"].pop("final_state")
+    report["main_gn"]["profile"] = prof
+    log(f"[main-gn] profile of one more recycled step: {prof['iterations']} LSMR iterations, "
+        f"{prof['launches']} device launches, device {prof['gemm_ms']:.2f} ms GEMM + "
+        f"{prof['other_ms']:.2f} ms other, wall {prof['wall_ms_profiled']:.2f} ms under the "
+        f"profiler (device busy {prof['device_busy_share']:.0%})")
+
+    totals = {name: launches[name] + mf_launches[name] + lsq_launches[name] + gn_launches[name]
+              for name in cf.LAUNCHES}
+    report["launch_totals"] = totals
     kernel_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
          "launches": totals[name], "max_abs_err": kernels[name]["max_abs_err"],

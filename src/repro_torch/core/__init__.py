@@ -2,7 +2,8 @@
 
 The front doors are ``solve`` / ``solve_sequence`` driven by one
 ``SolveSpec`` and carrying a ``RecycleState`` (``core/api.py``); ``cg``,
-``defcg`` and ``RecycleManager`` are the lower-level entry points.
+``defcg``, ``RecycleManager``, ``lsmr`` and ``solve_sequence_lsmr`` are
+the lower-level entry points.
 """
 
 from repro_torch.core.api import (
@@ -15,11 +16,15 @@ from repro_torch.core.api import (
     solve_sequence,
 )
 from repro_torch.core.engine import SolveInfo, SolveStatus
+from repro_torch.core.lsmr import lsmr, solve_sequence_lsmr
 from repro_torch.core.operators import (
     DenseMatrixOperator,
+    GaussNewtonOperator,
+    GGNOperator,
     KernelSystemOperator,
     LinearOperator,
     RBFKernelSystemOperator,
+    adjoint_matvec,
     apply_to_basis,
     from_callable,
     from_matrix,
@@ -57,6 +62,8 @@ __all__ = [
     "CGResult",
     "DEFAULT_WAW_JITTER",
     "DenseMatrixOperator",
+    "GGNOperator",
+    "GaussNewtonOperator",
     "HarmonicRitz",
     "JacobiPreconditioner",
     "KernelSystemOperator",
@@ -76,6 +83,7 @@ __all__ = [
     "SolveSpec",
     "SolveStatus",
     "WoodburyKernelPreconditioner",
+    "adjoint_matvec",
     "apply_to_basis",
     "cg",
     "cholesky_solve",
@@ -85,9 +93,11 @@ __all__ = [
     "harmonic_ritz_flat",
     "jacobi",
     "kernel_nystrom_preconditioner",
+    "lsmr",
     "make_preconditioner",
     "nystrom_preconditioner",
     "randomized_nystrom",
     "solve",
     "solve_sequence",
+    "solve_sequence_lsmr",
 ]

@@ -1,17 +1,20 @@
 """One front door for every solve: ``SolveSpec`` + ``RecycleState``.
 
-The counterpart of ``repro.core.api`` for the SPD methods: :func:`solve`
-(one system) and :func:`solve_sequence` (N related systems), configured by
-the same frozen :class:`SolveSpec` (same fields, same defaults, same
-validation) and carrying the same :class:`RecycleState`.
+The counterpart of ``repro.core.api``: :func:`solve` (one system) and
+:func:`solve_sequence` (N related systems), configured by the same frozen
+:class:`SolveSpec` (same fields, same defaults, same validation) and
+carrying the same :class:`RecycleState`.  ``method`` picks the SPD
+solvers (``cg``, ``defcg``) or the least-squares ones (``lsmr``,
+``deflsmr``: rectangular ``A``, ridge ``λ = spec.lsq_shift``; for
+``deflsmr`` the state's ``AW`` slot carries ``NW = (AᵀA + λI)W``).
 
 Preconditioners go in as ``M`` (:func:`solve`) or as a per-system
 factory (:func:`solve_sequence`), built for ``spec.precond`` by
 :func:`make_preconditioner`.  What the port leaves out so far raises,
 naming the ROADMAP item that brings it: ``MGeometryHarmonic`` (queue 1
-item 9), the recovery ladder and stagnation detector (item 10), LSMR
-(item 11), ``solve_batch`` (item 12), ``mesh=`` (item 13) and
-checkpointed sequences (item 10).
+item 9), the recovery ladder and stagnation detector (item 10),
+``solve_batch`` (item 12), ``mesh=`` (item 13) and checkpointed
+sequences (item 10).
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import lsmr as lsmr_mod
 from repro_torch.core import preconditioners as precond_mod
 from repro_torch.core import recycle as recycle_mod
 from repro_torch.core import solvers as solvers_mod
@@ -197,11 +201,49 @@ def _check_m(spec: SolveSpec, M) -> None:
         )
 
 
-def _check_spd_spec(spec: SolveSpec) -> None:
-    if spec.method in _LSQ_METHODS:
-        raise _not_ported(f"method={spec.method!r} (LSMR)", 11)
+def _check_strategy(spec: SolveSpec) -> None:
     if isinstance(spec.strategy, MGeometryHarmonic):
         raise _not_ported("strategy=MGeometryHarmonic", 9)
+
+
+def _solve_lsq(A, b, spec: SolveSpec, state, x0, record_residuals) -> SolveResult:
+    """``solve`` for ``method="lsmr"``/``"deflsmr"``: ``min ‖Ax − b‖² +
+    spec.lsq_shift·‖x‖²``; ``info.residual_norm`` is the normal residual
+    ``‖Âᵀr̂‖``.  Plain ``lsmr`` passes ``state`` through untouched."""
+    if spec.method == "lsmr":
+        res = lsmr_mod.lsmr(
+            A, b, x0,
+            damp=spec.lsq_shift, tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter,
+            record_residuals=record_residuals, stagnation_window=spec.stagnation_window,
+        )
+        return SolveResult(x=res.x, info=res.info, state=state,
+                           report=_make_report(res.info, 0))
+    # deflsmr: the basis lives in the DOMAIN, whose size b cannot reveal.
+    n = state.W.shape[1] if state is not None else lsmr_mod.domain_size(A, x0)
+    if state is None:
+        state = RecycleState.zeros(spec.k, n, dtype=b.dtype, device=b.device)
+    if state.W.ndim != 2 or tuple(state.W.shape) != (spec.k, n) or (
+        x0 is not None and x0.shape[0] != n
+    ):
+        raise ValueError(
+            f"state.W has shape {tuple(state.W.shape)}; spec(k={spec.k}) over "
+            f"this system's domain needs ({spec.k}, {n}) — state and spec must agree"
+        )
+    x, info, w2, nw2, theta, rung = lsmr_mod._one_recycled_lsmr(
+        A, b, x0, state.W, state.AW,
+        k=spec.k, ell=spec.ell, damp=spec.lsq_shift, tol=spec.tol, atol=spec.atol,
+        maxiter=spec.maxiter, select=spec.select, waw_jitter=spec.waw_jitter,
+        refresh_aw=spec.refresh_aw, record_residuals=record_residuals,
+        stagnation_window=spec.stagnation_window,
+    )
+    new_state = RecycleState(
+        W=w2,
+        AW=nw2,  # the AW slot carries NW = (AᵀA + λI)W for deflsmr
+        theta=state.theta if theta is None else theta,
+        systems_solved=state.systems_solved + 1,
+        drift=state.drift,
+    )
+    return SolveResult(x=x, info=info, state=new_state, report=_make_report(info, rung))
 
 
 def solve(
@@ -215,19 +257,26 @@ def solve(
     record_residuals: bool = False,
     mesh=None,
 ) -> SolveResult:
-    """Solve one SPD system ``A x = b`` per ``spec``, carrying ``state``.
+    """Solve one system per ``spec``, carrying ``state``.
 
-    ``method="defcg"`` returns the next :class:`RecycleState` (``state=None``
-    bootstraps cold, in ``b``'s dtype and device); ``method="cg"`` passes
-    ``state`` through untouched.  ``info.matvecs`` includes the refresh the
-    strategy spent.  ``M`` is the preconditioner apply for ``spec.precond``
-    (see :func:`make_preconditioner`).
+    ``method="defcg"``/``"deflsmr"`` return the next :class:`RecycleState`
+    (``state=None`` bootstraps cold, in ``b``'s dtype and device);
+    ``method="cg"``/``"lsmr"`` pass ``state`` through untouched.  The
+    least-squares methods take a rectangular ``A`` (adjoint through its
+    ``rmatvec``): ``b`` lives in its range, ``x0`` and the solution in its
+    domain.  ``info.matvecs`` includes the refresh the strategy spent.
+    ``M`` is the preconditioner apply for ``spec.precond`` (see
+    :func:`make_preconditioner`); the least-squares methods take none.
     """
     spec = SolveSpec() if spec is None else spec
     if mesh is not None:
         raise _not_ported("the sharded engine (mesh=)", 13)
     _check_m(spec, M)
-    _check_spd_spec(spec)
+    if spec.method in _LSQ_METHODS:
+        if M is not None:
+            raise ValueError(f"method={spec.method!r} takes no preconditioner apply")
+        return _solve_lsq(A, b, spec, state, x0, record_residuals)
+    _check_strategy(spec)
 
     if spec.method == "cg":
         res = solvers_mod.cg(
@@ -332,19 +381,19 @@ def solve_sequence(
     """Solve a sequence of related systems, spec-driven.
 
     ``systems[i]`` mapped through ``make_operator`` is the i-th operator,
-    ``b_seq`` is ``(num_systems, n)``; the returned ``state`` seeds the
-    next call.  ``make_preconditioner`` maps each operator to its ``M``
-    apply; a spec with ``precond != "none"`` needs it.
+    ``b_seq[i]`` its right-hand side; the returned ``state`` seeds the
+    next call.  ``spec.method`` is ``"defcg"`` or ``"deflsmr"`` (then
+    ``A`` may be rectangular and the state's ``AW`` slot holds ``NW``).
+    ``make_preconditioner`` maps each operator to its ``M`` apply; a spec
+    with ``precond != "none"`` needs it.
     """
     spec = SolveSpec() if spec is None else spec
     if checkpoint is not None or checkpoint_every or resume:
         raise _not_ported("checkpointed, resumable sequences", 10)
-    if spec.method == "deflsmr":
-        raise _not_ported("method='deflsmr' (LSMR)", 11)
-    if spec.method != "defcg":
+    if spec.method not in ("defcg", "deflsmr"):
         raise ValueError(
             "solve_sequence recycles a deflation basis — it needs "
-            f"spec.method='defcg', got {spec.method!r}"
+            f"spec.method='defcg' or 'deflsmr', got {spec.method!r}"
         )
     if spec.precond != "none" and make_preconditioner is None:
         raise ValueError(
@@ -352,7 +401,27 @@ def solve_sequence(
             "passed — the sequence path builds M per system, so supply a "
             "factory mapping each operator to its preconditioner apply"
         )
-    _check_spd_spec(spec)
+    if spec.method == "deflsmr":
+        seq = lsmr_mod.solve_sequence_lsmr(
+            systems,
+            b_seq,
+            state0.W if state0 is not None else None,
+            state0.AW if state0 is not None else None,
+            k=spec.k,
+            ell=spec.ell,
+            damp=spec.lsq_shift,
+            make_operator=make_operator,
+            tol=spec.tol,
+            atol=spec.atol,
+            maxiter=spec.maxiter,
+            select=spec.select,
+            waw_jitter=spec.waw_jitter,
+            refresh_aw=spec.refresh_aw,
+            carry_x=carry_x,
+            stagnation_window=spec.stagnation_window,
+        )
+        return _finish_sequence(seq, spec, state0, len(b_seq))
+    _check_strategy(spec)
     seq = recycle_mod.solve_sequence(
         systems,
         b_seq,
@@ -374,4 +443,4 @@ def solve_sequence(
         recovery_rungs=(spec.recovery_rungs if divergence_fallback else 0),
         stagnation_window=spec.stagnation_window,
     )
-    return _finish_sequence(seq, spec, state0, b_seq.shape[0])
+    return _finish_sequence(seq, spec, state0, len(b_seq))

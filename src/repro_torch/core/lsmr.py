@@ -1,0 +1,457 @@
+"""Recycled LSMR: regularized least squares (the counterpart of
+``repro.core.lsmr``).
+
+LSMR (Fong & Saunders 2011) solves
+
+    min_x ‖A x − b‖² + λ‖x‖²,        A: (m, n) rectangular,
+
+by Golub–Kahan bidiagonalization of the augmented operator
+``Â = [A; √λ·I]``, ``b̂ = [b; 0]``.  The initial residual
+``r̂₀ = [b − A x₀; −√λ x₀]`` is carried as an explicit ``(u_m, u_n)``
+block pair, so a warm start converges to the TRUE ridge solution, not a
+proximal one; ``λ = 0`` drops the bottom block.
+
+Recycling lives in the normal-equations geometry: LSMR is MINRES on
+``N dx = Âᵀ r̂₀`` with ``N = AᵀA + λI`` (SPD), so a basis ``W`` with
+products ``NW`` plays the role ``(W, AW)`` plays for def-CG:
+
+* warm start ``x₀' = x_prev + W (WᵀNW)⁻¹ Wᵀ s₀``, ``s₀ = Âᵀ r̂(x_prev)``;
+* right projection ``Q v = v − W (WᵀNW)⁻¹ (NW)ᵀ v`` on every product
+  (two k×n GEMVs, no extra A/Aᵀ product);
+* the window ``(v_j, N̂ v_j)`` with ``N̂ v_j = α_j g_j + β_{j+1} g_{j+1}``
+  comes free from the recurrence and feeds the SAME harmonic-Ritz
+  extraction def-CG uses (``self_gram`` and ``recombine_blocks``).
+
+The loop is the port's masked-step harness (:mod:`repro_torch.core.engine`):
+every scalar lives on the device, the host reads the convergence test once
+per ``CHUNK`` steps, and a frozen step's two products are computed and
+discarded (the reference hides them behind ``cond``).  The three vector
+recurrences of an iteration are ONE ``lsmr_update`` kernel launch.
+
+Matvec accounting counts ``A`` and ``Aᵀ`` applications each as 1: the
+initial ``Âᵀu₁`` costs 1 (+1 ``A`` with a warm start), every iteration 2.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Optional
+
+import torch
+
+from repro_torch.core import engine
+from repro_torch.core import operators as ops_mod
+from repro_torch.core.engine import SolveStatus
+from repro_torch.core.recycle import SequenceResult, _stack_infos
+from repro_torch.core.solvers import (
+    _NO_STAGNATION,
+    DEFAULT_WAW_JITTER,
+    CGResult,
+    RecycleData,
+    SolveInfo,
+    _chol_solve,
+    _trace_write,
+    factor_waw_gram,
+)
+from repro_torch.core.strategies import extract_next_basis_core
+from repro_torch.kernels import ops as kops
+
+
+def _sym_ortho(a, b):
+    """Stable Givens pair ``(c, s, r)`` with ``r = √(a² + b²)``; ``r = 0``
+    (exact termination, latched as converged) gives ``(0, 0, 0)``."""
+    r = torch.sqrt(a * a + b * b)
+    safe = torch.where(r == 0.0, 1.0, r)
+    return a / safe, b / safe, r
+
+
+def _safe(v):
+    return torch.where(v == 0.0, 1.0, v)
+
+
+def domain_size(A, x0: Optional[torch.Tensor] = None) -> int:
+    """``n`` of ``A``'s domain, from ``x0`` or from what the operator
+    knows (``domain_size`` of a dense matrix, a GGN or Gauss-Newton
+    operator) — never from an extra product."""
+    if x0 is not None:
+        return x0.shape[0]
+    n = getattr(A, "domain_size", None)
+    if n is None:
+        raise ValueError(
+            "the domain size of this operator is unknown: pass x0 (or a "
+            "recycle state), or give the operator a domain_size"
+        )
+    return n
+
+
+def lsmr(
+    A,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor] = None,
+    W: Optional[torch.Tensor] = None,
+    NW: Optional[torch.Tensor] = None,
+    *,
+    damp: float = 0.0,
+    ell: int = 0,
+    tol: float = 1e-6,
+    atol: float = 0.0,
+    maxiter: int = 1000,
+    record_residuals: bool = False,
+    waw_jitter: float = DEFAULT_WAW_JITTER,
+    stagnation_window: int = 0,
+) -> CGResult:
+    """(Deflated) LSMR for ``min ‖Ax − b‖² + damp·‖x‖²`` on flat tensors.
+
+    ``A`` is a rectangular operator whose adjoint resolves through
+    :func:`repro_torch.core.operators.adjoint_matvec`; ``b`` is ``(m,)``
+    and ``x0`` (the warm start, handled exactly) ``(n,)``.  ``W``/``NW``
+    are an optional flat ``(k, n)`` deflation basis and its products
+    ``(AᵀA + damp·I)·W`` (the ``deflsmr`` method; zero rows deflate as
+    exact no-ops).  ``ell`` leading ``(v, N̂v)`` pairs are recorded for the
+    extraction at no extra product.  Convergence is declared on the
+    normal residual ``‖Âᵀr̂‖ ≤ max(tol·‖Âᵀr̂₀‖, atol)``, reported as
+    ``info.residual_norm``.  Returns a :class:`CGResult` whose ``recycle``
+    holds the flat ``(v, N̂v)`` window.
+    """
+    if damp < 0.0:
+        raise ValueError(f"damp must be >= 0, got {damp}")
+    if stagnation_window > 0:
+        raise NotImplementedError(_NO_STAGNATION)
+    has_shift = damp > 0.0
+    sqrt_damp = float(damp) ** 0.5
+    At = ops_mod.adjoint_matvec(A)
+    dtype, device = b.dtype, b.device
+
+    deflating = W is not None
+    if deflating:
+        k = W.shape[0]
+        nw = NW if NW is not None else torch.zeros_like(W)
+        chol = factor_waw_gram(W, nw, waw_jitter)
+        winv = _chol_solve(chol, torch.eye(k, dtype=W.dtype, device=device))
+
+        def q_apply(vv):  # right projection: N-orthogonalize against W
+            return vv - (winv @ (nw @ vv)) @ W
+
+        def qt_apply(gg):  # its transpose, on adjoint products
+            return gg - (winv @ (W @ gg)) @ nw
+    else:
+        q_apply = qt_apply = lambda z: z  # noqa: E731
+
+    # -- initial augmented residual r̂₀ = [b − A x₀; −√λ x₀] ----------------
+    init_mv = 1  # the Âᵀu₁ below
+    if x0 is not None:
+        r_m = b - A(x0)
+        init_mv += 1
+        beta_sq = torch.dot(r_m, r_m)
+        if has_shift:
+            u_n0 = -sqrt_damp * x0
+            beta_sq = beta_sq + torch.dot(u_n0, u_n0)
+    else:
+        r_m = b
+        beta_sq = torch.dot(r_m, r_m)
+    beta1 = torch.sqrt(beta_sq)
+    u_m0 = r_m / _safe(beta1)
+    g0 = At(u_m0)
+    x_flat = torch.zeros_like(g0) if x0 is None else x0
+    if has_shift:
+        # A cold start's bottom block is zero: its size is the domain's,
+        # which the first adjoint product reveals.
+        u_n0 = torch.zeros_like(g0) if x0 is None else u_n0 / _safe(beta1)
+        g0 = g0 + sqrt_damp * u_n0
+    else:
+        u_n0 = None
+    g0 = qt_apply(g0)
+    alpha1 = torch.sqrt(torch.dot(g0, g0))
+    v0 = g0 / _safe(alpha1)
+    n = v0.shape[0]
+
+    normar0 = alpha1 * beta1
+    threshold = torch.clamp(tol * normar0, min=atol)
+    diverged_at = 1e8 * normar0
+    trace0 = engine.trace_init(normar0, maxiter, record_residuals)
+    fail0 = engine.initial_fail(normar0)
+    one = torch.ones((), dtype=dtype, device=device)
+
+    if ell > 0:
+        # Row ``ell`` is the spare row frozen recording steps write to, so
+        # rows past ``stored`` stay zero (the reference zero-masks them).
+        v_buf = torch.zeros((ell + 1, n), dtype=dtype, device=device)
+        nv_buf = torch.zeros((ell + 1, n), dtype=dtype, device=device)
+
+    def active_fn(state):
+        j, zetabar, fail = state[0], state[7], state[16]
+        return (j < maxiter) & (torch.abs(zetabar) > threshold) & (fail == 0)
+
+    def step(state, active, row):
+        """One masked LSMR iteration; ``active=False`` freezes the state."""
+        (j, x, u_m, u_n, v, g, alpha, zetabar, alphabar, rho, rhobar,
+         cbar, sbar, h, hbar, trace, fail) = state
+
+        # -- bidiagonalization: β u⁺ = Â(Qv) − α u ---------------------------
+        qv = q_apply(v)
+        u_m_new = A(qv) - alpha * u_m
+        beta_sq_ = torch.dot(u_m_new, u_m_new)
+        if has_shift:
+            u_n_new = sqrt_damp * qv - alpha * u_n
+            beta_sq_ = beta_sq_ + torch.dot(u_n_new, u_n_new)
+        beta_new = torch.sqrt(beta_sq_)
+        sb = _safe(beta_new)
+        u_m_new = u_m_new / sb
+        if has_shift:
+            u_n_new = u_n_new / sb
+
+        # -- α v⁺ = Qᵀ(Âᵀu⁺) − β v -------------------------------------------
+        g_new = At(u_m_new)
+        if has_shift:
+            g_new = g_new + sqrt_damp * u_n_new
+        g_new = qt_apply(g_new)
+        w_vec = g_new - beta_new * v
+        alpha_new = torch.sqrt(torch.dot(w_vec, w_vec))
+        v_new = w_vec / _safe(alpha_new)
+
+        if row is not None:
+            # The window row, free from the recurrence:
+            #   N̂ v_j = α_j·B̂ᵀu_j + β_{j+1}·B̂ᵀu_{j+1}.
+            slot = torch.where(active, row, ell).to(torch.int64).reshape(1)
+            v_buf.index_copy_(0, slot, v[None])
+            nv_buf.index_copy_(0, slot, (alpha * g + beta_new * g_new)[None])
+
+        # -- the two Givens rotations (Fong & Saunders 2011, §2.2; λ lives
+        # in Â itself, so there is no λ-rotation) ----------------------------
+        c, s, rho_new = _sym_ortho(alphabar, beta_new)
+        thetanew = s * alpha_new
+        alphabar_new = c * alpha_new
+        thetabar = sbar * rho_new
+        cbar_new, sbar_new, rhobar_new = _sym_ortho(cbar * rho_new, thetanew)
+        zeta = cbar_new * zetabar
+        zetabar_new = -sbar_new * zetabar
+
+        # -- the three vector recurrences in one kernel ------------------------
+        c0 = thetabar * rho_new / (rho * rhobar)
+        c1 = zeta / (_safe(rho_new) * _safe(rhobar_new))
+        c2 = thetanew / _safe(rho_new)
+        x_new, hbar_new, h_new = kops.lsmr_update(x, hbar, h, v_new, c0, c1, c2)
+
+        # Exact termination: a zero β or α drives Âᵀr̂ to zero — latch it.
+        exact = (beta_new == 0.0) | (alpha_new == 0.0)
+        zetabar_new = torch.where(exact, 0.0, zetabar_new)
+        normar_new = torch.abs(zetabar_new)
+
+        live = (fail == 0) & active
+        fail = torch.where(
+            live & ~torch.isfinite(normar_new), SolveStatus.BREAKDOWN_NONFINITE, fail
+        ).to(torch.int32)
+        fail = torch.where(
+            (fail == 0) & active & (normar_new > diverged_at), SolveStatus.STAGNATED, fail
+        ).to(torch.int32)
+        if trace is not None:
+            _trace_write(trace, j, normar_new, active)
+
+        def sel(new, cur):
+            return torch.where(active, new, cur)
+
+        return (
+            j + active.to(j.dtype),
+            sel(x_new, x),
+            sel(u_m_new, u_m),
+            sel(u_n_new, u_n) if has_shift else None,
+            sel(v_new, v),
+            sel(g_new, g),
+            sel(alpha_new, alpha),
+            sel(zetabar_new, zetabar),
+            sel(alphabar_new, alphabar),
+            sel(rho_new, rho),
+            sel(rhobar_new, rhobar),
+            sel(cbar_new, cbar),
+            sel(sbar_new, sbar),
+            sel(h_new, h),
+            sel(hbar_new, hbar),
+            trace,
+            fail,
+        )
+
+    j0 = torch.zeros((), dtype=torch.int32, device=device)
+    state = (
+        j0, x_flat, u_m0, u_n0, v0, g0, alpha1, normar0, alpha1, one, one, one,
+        torch.zeros((), dtype=dtype, device=device), v0, torch.zeros_like(v0),
+        trace0, fail0,
+    )
+    state = engine.run_recording_loop(step, active_fn, state, ell=ell)
+    j, x, zetabar, trace, fail = state[0], state[1], state[7], state[15], state[16]
+    normar = torch.abs(zetabar)
+    if deflating:
+        # The Krylov correction lives in the Q-subspace: one exit-time
+        # projection of the accumulated update.
+        x = x_flat + q_apply(x - x_flat)
+
+    converged = normar <= threshold
+    info = SolveInfo(
+        iterations=j,
+        converged=converged,
+        residual_norm=normar,
+        matvecs=init_mv + 2 * j,
+        residual_norms=None if trace is None else trace[: maxiter + 1],
+        breakdown=fail > 0,
+        status=engine.exit_status(converged, fail),
+    )
+    recycle = None
+    if ell > 0:
+        recycle = RecycleData(P=v_buf[:ell], AP=nv_buf[:ell], stored=torch.clamp(j, max=ell))
+    return CGResult(x=x, info=info, recycle=recycle)
+
+
+# ---------------------------------------------------------------------------
+# Recycled least-squares sequences
+# ---------------------------------------------------------------------------
+
+
+def _normal_basis_flat(A, w: torch.Tensor, damp: float) -> torch.Tensor:
+    """``(AᵀA + damp·I) @ W`` for a flat ``(k, n)`` basis: one multi-RHS
+    forward pass and one adjoint pass (2k accounted matvecs)."""
+    aw = ops_mod.apply_to_basis(A, w)
+    adjoint = A.T if hasattr(A, "T") else ops_mod.adjoint_matvec(A)
+    nw = ops_mod.apply_to_basis(adjoint, aw)
+    if damp > 0.0:
+        nw = nw + damp * w
+    return nw
+
+
+def _one_recycled_lsmr(
+    A,
+    b: torch.Tensor,
+    x0: Optional[torch.Tensor],
+    w: torch.Tensor,
+    nw_carry: torch.Tensor,
+    *,
+    k: int,
+    ell: int,
+    damp: float,
+    tol: float,
+    atol: float,
+    maxiter: int,
+    select: str,
+    waw_jitter: float,
+    refresh_aw: str,
+    record_residuals: bool = False,
+    stagnation_window: int = 0,
+):
+    """ONE system of the recycled LSMR step, on flat state — shared by
+    :func:`repro_torch.core.solve` and :func:`solve_sequence_lsmr`.
+
+    1. ``refresh_aw="exact"`` re-derives ``NW = (AᵀA + λI)W`` under this
+       system's operator (2k matvecs, charged); ``"stale"`` reuses the
+       carried products;
+    2. deflated warm start ``x₀' = x_prev + W (WᵀNW)⁻¹ Wᵀ s₀`` (2 matvecs;
+       an exact no-op on a cold basis);
+    3. the deflated solve (:func:`lsmr`);
+    4. extraction of the next ``(W, NW)`` from the ``(v, N̂v)`` window.
+
+    A broken or non-finite outcome retires the basis (zeroed carry: the
+    sequence re-bootstraps cold) and falls back to the finite warm start.
+    Returns ``(x, info, w_next, nw_next, theta, rung)``; ``theta`` is None
+    when ``ell == 0`` and ``rung`` is always 0 (LSMR has no ladder).
+    """
+    refresh_charge = 0
+    if refresh_aw == "exact":
+        nw_used = _normal_basis_flat(A, w, damp)
+        refresh_charge = 2 * k
+    else:
+        nw_used = nw_carry
+
+    # Deflated warm start in x-space (s₀ = Aᵀ(b − A x_prev) − λ x_prev).
+    x_prev = torch.zeros((w.shape[1],), dtype=b.dtype, device=b.device) if x0 is None else x0
+    s0 = ops_mod.adjoint_matvec(A)(b - A(x_prev))
+    if damp > 0.0:
+        s0 = s0 - damp * x_prev
+    chol = factor_waw_gram(w, nw_used, waw_jitter)
+    x0p = x_prev + _chol_solve(chol, w @ s0) @ w
+
+    result = lsmr(
+        A, b, x0p, W=w, NW=nw_used, damp=damp, ell=ell, tol=tol, atol=atol,
+        maxiter=maxiter, record_residuals=record_residuals, waw_jitter=waw_jitter,
+        stagnation_window=stagnation_window,
+    )
+    info = result.info._replace(matvecs=result.info.matvecs + refresh_charge + 2)
+    if ell > 0:
+        rec = result.recycle
+        w2, nw2, theta, _ = extract_next_basis_core(
+            w, nw_used, rec.P, rec.AP, rec.stored, k, select=select
+        )
+    else:
+        w2, nw2, theta = w, nw_used, None
+
+    # Terminal retirement: never hand a poisoned basis (or non-finite
+    # coordinates) to the next system.
+    x_safe = torch.where(torch.isfinite(x_prev), x_prev, 0.0)
+    x = torch.where(torch.all(torch.isfinite(result.x)), result.x, x_safe)
+    retire = info.breakdown | ~torch.all(torch.isfinite(w2)) | ~torch.all(torch.isfinite(nw2))
+    w2 = torch.where(retire, 0.0, w2)
+    nw2 = torch.where(retire, 0.0, nw2)
+    if theta is not None:
+        theta = torch.where(retire, 0.0, theta)
+    rung = torch.zeros((), dtype=torch.int32, device=b.device)
+    return x, info, w2, nw2, theta, rung
+
+
+def solve_sequence_lsmr(
+    systems: Any,
+    b_seq: Any,
+    W0: Optional[torch.Tensor] = None,
+    NW0: Optional[torch.Tensor] = None,
+    *,
+    k: int,
+    ell: int,
+    damp: float = 0.0,
+    make_operator: Optional[Callable[[Any], Any]] = None,
+    tol: float = 1e-6,
+    atol: float = 0.0,
+    maxiter: int = 1000,
+    select: str = "largest",
+    waw_jitter: float = DEFAULT_WAW_JITTER,
+    refresh_aw: str = "exact",
+    carry_x: bool = False,
+    stagnation_window: int = 0,
+) -> SequenceResult:
+    """Recycled LSMR across a sequence of least-squares problems.
+
+    ``systems[i]`` (a stacked tensor or a list) mapped through
+    ``make_operator`` is the i-th operator and ``b_seq[i]`` its ``(m,)``
+    right-hand side.  The flat ``(W, NW)`` basis (and, with ``carry_x``,
+    the solution as the next warm start) is carried from system to
+    system.  Returns a :class:`SequenceResult` whose ``AW`` slot holds
+    the normal-operator products ``NW``.
+    """
+    if refresh_aw not in ("exact", "stale"):
+        raise ValueError(f"unknown refresh_aw={refresh_aw!r}")
+    make_op = make_operator if make_operator is not None else (lambda s: s)
+    n = W0.shape[1] if W0 is not None else domain_size(make_op(systems[0]))
+    dtype, device = b_seq[0].dtype, b_seq[0].device
+
+    w = torch.zeros((k, n), dtype=dtype, device=device) if W0 is None else W0.to(dtype)
+    nw = (
+        torch.zeros((k, n), dtype=dtype, device=device)
+        if (NW0 is None or W0 is None) else NW0.to(dtype)
+    )
+    x_prev = torch.zeros((n,), dtype=dtype, device=device)
+
+    xs, infos, thetas, rungs = [], [], [], []
+    for i in range(len(b_seq)):
+        x, info, w, nw, theta, rung = _one_recycled_lsmr(
+            make_op(systems[i]), b_seq[i], x_prev if carry_x else None, w, nw,
+            k=k, ell=ell, damp=damp, tol=tol, atol=atol, maxiter=maxiter,
+            select=select, waw_jitter=waw_jitter, refresh_aw=refresh_aw,
+            stagnation_window=stagnation_window,
+        )
+        x_prev = x
+        xs.append(x)
+        infos.append(info)
+        thetas.append(theta)
+        rungs.append(rung)
+    return SequenceResult(
+        x=torch.stack(xs),
+        info=_stack_infos(infos),
+        theta=None if thetas[0] is None else torch.stack(thetas),
+        W=w,
+        AW=nw,
+        drift=torch.zeros((), dtype=dtype, device=device),
+        rung=torch.stack(rungs),
+    )

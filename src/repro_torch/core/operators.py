@@ -1,18 +1,23 @@
-"""Symmetric positive-definite linear operators on flat tensors.
+"""Linear operators on flat tensors.
 
-The solvers touch ``A`` only through ``A @ v``.  This slice ports a
-callable wrapper, a dense matrix, and the paper's Newton-system operator
-``A = I + H½ K H½``, both over any ``K`` product and over the matrix-free
-RBF Gram kernel.
+The SPD solvers touch ``A`` only through ``A @ v``; LSMR touches a
+rectangular ``A`` through ``A v`` and ``Aᵀ u``.  The port has a callable
+wrapper (symmetric, or rectangular with an adjoint), a dense matrix, the
+paper's Newton-system operator ``A = I + H½ K H½`` over any ``K`` product
+and over the matrix-free RBF Gram kernel, and the two operators of
+Hessian-free training: the damped GGN ``JᵀH_LJ + λI`` and the
+Gauss-Newton Jacobian ``J`` of a residual map.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional
+import warnings
+from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.core import pytree as pt
 from repro_torch.kernels import ops as kops
 
 Matvec = Callable[[torch.Tensor], torch.Tensor]
@@ -20,7 +25,8 @@ Matvec = Callable[[torch.Tensor], torch.Tensor]
 
 @dataclasses.dataclass
 class LinearOperator:
-    """A symmetric linear operator ``v ↦ A v``.
+    """A linear operator ``v ↦ A v`` — symmetric by default, rectangular
+    when an adjoint is supplied.
 
     Attributes:
       matvec: the matvec closure on ``(n,)`` tensors.
@@ -28,17 +34,28 @@ class LinearOperator:
       matmat: optional multi-RHS closure ``V ↦ A V`` over column-stacked
         ``(n, r)`` tensors; :func:`apply_to_basis` then refreshes a whole
         basis in one operator application.
+      rmatvec: optional adjoint closure ``u ↦ Aᵀ u``.  ``None`` declares
+        the operator symmetric (every SPD path assumes it), and :attr:`T`
+        is then the operator itself.
     """
 
     matvec: Matvec
     matvec_cost_flops: Optional[float] = None
     matmat: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    rmatvec: Optional[Matvec] = None
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
         return self.matvec(v)
 
     def __matmul__(self, v: torch.Tensor) -> torch.Tensor:
         return self.matvec(v)
+
+    @property
+    def T(self) -> "LinearOperator":
+        """The adjoint ``u ↦ Aᵀ u`` (the operator itself when symmetric)."""
+        if self.rmatvec is None:
+            return self
+        return LinearOperator(self.rmatvec, self.matvec_cost_flops, None, self.matvec)
 
     def basis_matvec(self, basis: torch.Tensor) -> torch.Tensor:
         """``A`` on every row of an ``(m, n)`` basis."""
@@ -48,20 +65,33 @@ class LinearOperator:
 
 
 class DenseMatrixOperator(LinearOperator):
-    """An explicit ``(n, n)`` matrix as an operator."""
+    """An explicit ``(m, n)`` matrix as an operator.
+
+    ``matvec`` maps ``(n,) → (m,)``; :attr:`rmatvec` and :attr:`T` apply
+    ``matᵀ`` (a transposed view, no copy), which is what LSMR consumes.
+    Square SPD use is unchanged: the SPD solvers never call ``rmatvec``.
+    """
 
     def __init__(self, mat: torch.Tensor):
         self.mat = mat
-        n = mat.shape[-1]
+        m, n = mat.shape[-2], mat.shape[-1]
+        self.domain_size = n
 
         def mv(v):
             return mat @ v
 
-        super().__init__(mv, matvec_cost_flops=2.0 * n * n, matmat=mv)
+        def rmv(u):
+            return mat.transpose(-2, -1) @ u
+
+        super().__init__(mv, matvec_cost_flops=2.0 * m * n, matmat=mv, rmatvec=rmv)
+
+    @property
+    def T(self) -> "DenseMatrixOperator":
+        return DenseMatrixOperator(self.mat.transpose(-2, -1))
 
 
 def from_matrix(mat: torch.Tensor) -> DenseMatrixOperator:
-    """Explicit dense SPD matrix as an operator over flat ``(n,)`` vectors."""
+    """Explicit dense matrix as an operator over flat ``(n,)`` vectors."""
     return DenseMatrixOperator(mat)
 
 
@@ -136,3 +166,125 @@ class RBFKernelSystemOperator(KernelSystemOperator):
             self.x, u, self.theta, self.lengthscale,
             backend=self.backend, block=self.block,
         )
+
+
+# ---------------------------------------------------------------------------
+# Hessian-free training: the damped GGN and the Gauss-Newton Jacobian
+# ---------------------------------------------------------------------------
+
+
+def _flat_fn(fn: Callable[[Any], Any], unravel, flatten_out: bool):
+    """``fn`` of the flat parameter vector (``fn ∘ unravel``); its output
+    raveled (:func:`repro_torch.core.pytree.ravel`) when ``flatten_out``."""
+    if flatten_out:
+        return lambda p: pt.ravel(fn(unravel(p)))
+    return lambda p: fn(unravel(p))
+
+
+@dataclasses.dataclass
+class GGNOperator:
+    """Damped generalized Gauss-Newton matvec ``(Jᵀ H_L J + λ I) v``.
+
+    ``model_fn(params) -> outputs`` is the network up to its final
+    outputs and ``loss_hvp(outputs, tangent_out)`` applies the loss
+    Hessian; ``params`` is a tensor or a dict of tensors.  The operator
+    acts on FLAT ``(n,)`` vectors in :func:`repro_torch.core.pytree.ravel`
+    order (dict keys sorted, as JAX ravels them), so a recycled basis
+    means the same coordinates as the reference's.  One matvec is one
+    ``torch.func.jvp``, one loss-Hessian apply and one ``torch.func.vjp``.
+    ``damping`` may be a 0-d tensor of another dtype (the f32 LM damping
+    of :func:`repro_torch.optim.hf_step`); ``damping · v`` promotes as the
+    reference's ``tree_axpy`` does.
+    """
+
+    model_fn: Callable[[Any], Any]
+    loss_hvp: Callable[[Any, Any], Any]
+    params: Any
+    damping: Any = 0.0
+
+    def __post_init__(self):
+        self._p, unravel = pt.ravel_vector(self.params)
+        self._f = _flat_fn(self.model_fn, unravel, flatten_out=False)
+        self.domain_size = self._p.shape[0]
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        outputs, jv = torch.func.jvp(self._f, (self._p,), (v,))
+        _, vjp_fn = torch.func.vjp(self._f, self._p)
+        (gv,) = vjp_fn(self.loss_hvp(outputs, jv))
+        return gv + self.damping * v
+
+    def basis_matvec(self, basis: torch.Tensor) -> torch.Tensor:
+        """The GGN on every row of an ``(m, n)`` basis: the model is
+        linearized ONCE (``torch.func.linearize``) and one ``vjp`` closure
+        serves every row — two forward passes in all, not 2m."""
+        with warnings.catch_warnings():
+            # linearize traces the tangent map with make_fx, whose constant
+            # folding warns about the captured batch tensors; harmless.
+            warnings.simplefilter("ignore", UserWarning)
+            outputs, jvp_fn = torch.func.linearize(self._f, self._p)
+        _, vjp_fn = torch.func.vjp(self._f, self._p)
+        rows = [vjp_fn(self.loss_hvp(outputs, jvp_fn(v)))[0] for v in basis]
+        return torch.stack(rows) + self.damping * basis
+
+    def __call__(self, v):
+        return self.matvec(v)
+
+    def __matmul__(self, v):
+        return self.matvec(v)
+
+
+@dataclasses.dataclass
+class GaussNewtonOperator:
+    """The Jacobian ``J`` of a residual map as a rectangular operator.
+
+    ``residual_fn(params) -> residuals`` (a tensor of any shape, or a dict
+    of them); the operator maps flat ``(n,)`` parameter vectors to flat
+    ``(m,)`` residual vectors, both in :func:`pt.ravel` order, through the
+    two products LSMR consumes:
+
+    * ``matvec(v) = J v`` — one ``torch.func.jvp``;
+    * ``rmatvec(u) = Jᵀ u`` — one ``torch.func.vjp``.
+
+    Solving ``min ‖J δ + r‖² + λ‖δ‖²`` with :func:`repro_torch.core.lsmr`
+    is the true Gauss-Newton step: conditioning κ(J), not κ(J)² as in the
+    normal-equations operator :class:`GGNOperator` hands to CG.
+    """
+
+    residual_fn: Callable[[Any], Any]
+    params: Any
+
+    def __post_init__(self):
+        self._p, unravel = pt.ravel_vector(self.params)
+        self._f = _flat_fn(self.residual_fn, unravel, flatten_out=True)
+        self.domain_size = self._p.shape[0]
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.func.jvp(self._f, (self._p,), (v,))[1]
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        _, vjp_fn = torch.func.vjp(self._f, self._p)
+        return vjp_fn(u)[0]
+
+    def residuals(self) -> torch.Tensor:
+        """``r(params)``, flat — the right-hand side is ``−r`` for a GN step."""
+        return self._f(self._p)
+
+    @property
+    def T(self) -> LinearOperator:
+        return LinearOperator(self.rmatvec, rmatvec=self.matvec)
+
+    def __call__(self, v):
+        return self.matvec(v)
+
+    def __matmul__(self, v):
+        return self.matvec(v)
+
+
+def adjoint_matvec(op) -> Matvec:
+    """The ``u ↦ Aᵀ u`` closure of ``op``: its ``rmatvec`` where it has
+    one; otherwise the operator is symmetric by this repo's contract and
+    its adjoint is its own matvec."""
+    rmv = getattr(op, "rmatvec", None)
+    if rmv is not None:
+        return rmv
+    return op.matvec if hasattr(op, "matvec") else op

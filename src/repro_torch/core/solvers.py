@@ -167,6 +167,26 @@ def _chol_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return torch.cholesky_solve(rhs, chol)
 
 
+def factor_waw_gram(W: torch.Tensor, AW: torch.Tensor, jitter: float) -> torch.Tensor:
+    """Lower Cholesky factor of the symmetrized ``WᵀAW`` (``(k, k)``).
+
+    Relative diagonal jitter, plus unconditional regularization of
+    exactly-zero columns (clamped extraction slots, cold states): ``Wᵀr = 0``
+    there, so any positive diagonal gives the same deflation (``c_i = μ_i
+    = 0``).  LSMR factors ``WᵀNW`` with the same policy.
+    """
+    k = W.shape[0]
+    waw = pt.gram(W, AW)
+    waw = 0.5 * (waw + waw.T)
+    dj = torch.diagonal(waw)
+    tr = torch.sum(dj)
+    if jitter:
+        scale = torch.where(tr > 0, tr / k, 1.0)
+        waw = waw + jitter * scale * torch.eye(k, dtype=waw.dtype, device=waw.device)
+    waw = waw + torch.diag(torch.where(dj == 0.0, torch.clamp(tr / k, min=1.0), 0.0))
+    return torch.linalg.cholesky_ex(waw)[0]
+
+
 def deflated_initial_guess(x_prev, r_prev, W, AW, waw_chol):
     """Line 3 of Alg. 1: ``x0 = x_{-1} + W (WᵀAW)⁻¹ Wᵀ r_{-1}``, with
     ``r0 = r_{-1} − AWᵀc`` updated through ``AW`` (no extra matvec)."""
@@ -230,23 +250,6 @@ def defcg(
         else:
             aw = AW
 
-        def factor_waw(aw_f):
-            waw = pt.gram(W, aw_f)
-            waw = 0.5 * (waw + waw.T)
-            dj = torch.diagonal(waw)
-            tr = torch.sum(dj)
-            eye = torch.eye(k, dtype=waw.dtype, device=device)
-            if waw_jitter:
-                scale = torch.where(tr > 0, tr / k, 1.0)
-                waw = waw + waw_jitter * scale * eye
-            # Exactly-zero columns (clamped extraction slots) are
-            # regularized unconditionally: Wᵀr = 0 there, so any positive
-            # diagonal gives the same deflation (c_i = μ_i = 0).
-            waw = waw + torch.diag(
-                torch.where(dj == 0.0, torch.clamp(tr / k, min=1.0), 0.0)
-            )
-            return torch.linalg.cholesky_ex(waw)[0]
-
         def post_guess(aw_f, chol, z):
             # Deflation in the preconditioned inner product: μ from (AW)ᵀz.
             mu0 = _chol_solve(chol, pt.basis_dot(aw_f, z))
@@ -254,7 +257,7 @@ def defcg(
             winv = _chol_solve(chol, torch.eye(k, dtype=aw_f.dtype, device=device))
             return p0, winv
 
-        chol = factor_waw(aw)
+        chol = factor_waw_gram(W, aw, waw_jitter)
         x_in = x
         r_init = b - A(x_in)
         matvecs += 1
@@ -274,7 +277,7 @@ def defcg(
                 )
                 if bool(drift_obs > guard_eff):
                     aw = ops_mod.apply_to_basis(A, W)
-                    chol = factor_waw(aw)
+                    chol = factor_waw_gram(W, aw, waw_jitter)
                     x, r = deflated_initial_guess(x_in, r_init, W, aw, chol)
                     matvecs += k
                     guard_fired = True

@@ -7,8 +7,9 @@
 //   fused_deflate_direction  <- fused_deflate_direction_pallas  (cg_fused.py:426)
 //   self_gram                <- self_gram_pallas                (cg_fused.py:558)
 //   recombine_blocks         <- recombine_blocks_pallas         (cg_fused.py:639)
+//   lsmr_update              <- lsmr_update_pallas              (cg_fused.py:336)
 //
-// All five are bound by device-memory bytes on the H100 (a few flops per
+// All six are bound by device-memory bytes on the H100 (a few flops per
 // element read), so each reads every input element once and writes every
 // output element once.  The Pallas kernels carry reductions across a
 // sequential grid in SMEM; here blocks run in no order, so every reduction is
@@ -29,10 +30,14 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 16;          // deflation basis rows (k)
-constexpr int kMaxGramRows = 64;   // rows of the stacked window S = [Z; AZ]
+constexpr int kMaxGramRows = 128;  // rows of the stacked window S = [Z; AZ]
+constexpr int kSmallGramRows = 64; // def-CG's windows: 2(k + ell) <= 64
 constexpr int kGramTile = 32;      // columns of S staged in shared memory
-constexpr int kMaxPairsPerThread =
-    (kMaxGramRows * (kMaxGramRows + 1) / 2 + kThreads - 1) / kThreads;
+
+// Upper-triangle pairs each thread owns for a window of `rows` rows.
+__host__ __device__ constexpr int pairs_per_thread(int rows) {
+  return (rows * (rows + 1) / 2 + kThreads - 1) / kThreads;
+}
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -215,26 +220,33 @@ __global__ void __launch_bounds__(kThreads) deflate_direction(
 // ---------------------------------------------------------------------------
 
 // Block b owns columns [b*cols, (b+1)*cols) and writes the upper triangle of
-// its partial gram (m2*(m2+1)/2 entries) to partials[b].
-template <typename T>
+// its partial gram (m2*(m2+1)/2 entries) to partials[b].  Instantiated for up
+// to kRows rows: 64 (def-CG's windows; 9 pairs a thread) and 128 (the
+// least-squares windows; 8 256 pairs, 33 a thread).  Each thread's (i, j)
+// is packed into one int so its pair indices and sums stay in registers;
+// the (128, 33) tile takes 33.8 KB of static shared memory in f64.  The
+// 64-row instance keeps its register count, and so its occupancy: at 40
+// rows the 128-row instance is 1.2x slower in f64 and 1.6x in f32
+// (tools/self_gram_instances.py).
+template <typename T, int kRows>
 __global__ void __launch_bounds__(kThreads) self_gram_partial(
     const T* __restrict__ s, int m2, int64_t n, int64_t cols,
     T* __restrict__ partials) {
-  __shared__ T tile[kMaxGramRows][kGramTile + 1];
+  constexpr int kPairs = pairs_per_thread(kRows);
+  __shared__ T tile[kRows][kGramTile + 1];
   const int npairs = m2 * (m2 + 1) / 2;
 
-  int pi[kMaxPairsPerThread];
-  int pj[kMaxPairsPerThread];
-  T acc[kMaxPairsPerThread];
+  int pij[kPairs];  // (i << 8) | j, or -1 past npairs
+  T acc[kPairs];
 #pragma unroll
-  for (int q = 0; q < kMaxPairsPerThread; ++q) {
+  for (int q = 0; q < kPairs; ++q) {
     const int idx = threadIdx.x + q * kThreads;
     acc[q] = T(0);
+    pij[q] = -1;
     if (idx < npairs) {
-      pair_ij(idx, m2, &pi[q], &pj[q]);
-    } else {
-      pi[q] = -1;
-      pj[q] = -1;
+      int i, j;
+      pair_ij(idx, m2, &i, &j);
+      pij[q] = (i << 8) | j;
     }
   }
 
@@ -249,12 +261,14 @@ __global__ void __launch_bounds__(kThreads) self_gram_partial(
     }
     __syncthreads();
 #pragma unroll
-    for (int q = 0; q < kMaxPairsPerThread; ++q) {
-      if (pi[q] >= 0) {
+    for (int q = 0; q < kPairs; ++q) {
+      if (pij[q] >= 0) {
+        const T* ri = tile[pij[q] >> 8];
+        const T* rj = tile[pij[q] & 0xff];
         T a = acc[q];
 #pragma unroll 8
         for (int col = 0; col < kGramTile; ++col) {
-          a += tile[pi[q]][col] * tile[pj[q]][col];
+          a += ri[col] * rj[col];
         }
         acc[q] = a;
       }
@@ -262,7 +276,7 @@ __global__ void __launch_bounds__(kThreads) self_gram_partial(
     __syncthreads();
   }
 #pragma unroll
-  for (int q = 0; q < kMaxPairsPerThread; ++q) {
+  for (int q = 0; q < kPairs; ++q) {
     const int idx = threadIdx.x + q * kThreads;
     if (idx < npairs) partials[(int64_t)blockIdx.x * npairs + idx] = acc[q];
   }
@@ -333,6 +347,38 @@ __global__ void __launch_bounds__(kThreads) recombine_blocks(
 }
 
 // ---------------------------------------------------------------------------
+// lsmr_update: hbar' = h - c0 hbar, x' = x + c1 hbar', h' = v - c2 h
+// ---------------------------------------------------------------------------
+
+// One LSMR iteration's three vector recurrences (lsmr_update_pallas,
+// cg_fused.py:336).  Bound by bytes: it reads x, hbar, h, v once and writes
+// x', hbar', h' once (7n elements for 6n flops), so one grid-stride pass
+// keeps hbar' in a register between its two uses.  c0, c1, c2 are 0-d device
+// tensors computed by the Givens recurrences on the card: the kernel reads
+// them through pointers and the loop never waits on the host.  No reduction,
+// so blocks share nothing and the grid can fill every SM.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) lsmr_update(
+    const T* __restrict__ x, const T* __restrict__ hbar,
+    const T* __restrict__ h, const T* __restrict__ v,
+    const T* __restrict__ c0_ptr, const T* __restrict__ c1_ptr,
+    const T* __restrict__ c2_ptr, int64_t n, T* __restrict__ xo,
+    T* __restrict__ hbo, T* __restrict__ ho) {
+  const T c0 = *c0_ptr;
+  const T c1 = *c1_ptr;
+  const T c2 = *c2_ptr;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const T hi = h[i];
+    const T hb = hi - c0 * hbar[i];
+    xo[i] = x[i] + c1 * hb;
+    hbo[i] = hb;
+    ho[i] = v[i] - c2 * hi;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host launchers
 // ---------------------------------------------------------------------------
 
@@ -390,8 +436,13 @@ template <typename T>
 int launch_self_gram(const void* s, int m2, int64_t n, int64_t cols,
                      int nblocks, void* partials, void* out, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  self_gram_partial<T><<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(s), m2, n, cols, static_cast<T*>(partials));
+  if (m2 <= kSmallGramRows) {
+    self_gram_partial<T, kSmallGramRows><<<nblocks, kThreads, 0, st>>>(
+        static_cast<const T*>(s), m2, n, cols, static_cast<T*>(partials));
+  } else {
+    self_gram_partial<T, kMaxGramRows><<<nblocks, kThreads, 0, st>>>(
+        static_cast<const T*>(s), m2, n, cols, static_cast<T*>(partials));
+  }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int npairs = m2 * (m2 + 1) / 2;
@@ -407,6 +458,21 @@ int launch_recombine(const void* s, const void* u, int m, int k, int64_t n,
   recombine_blocks<T><<<nblocks, kThreads, 0, st>>>(
       static_cast<const T*>(s), static_cast<const T*>(u), m, k, n,
       static_cast<T*>(out));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_lsmr_update(const void* x, const void* hbar, const void* h,
+                       const void* v, const void* c0, const void* c1,
+                       const void* c2, int64_t n, void* xo, void* hbo,
+                       void* ho, int nblocks, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  lsmr_update<T><<<nblocks, kThreads, 0, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(hbar),
+      static_cast<const T*>(h), static_cast<const T*>(v),
+      static_cast<const T*>(c0), static_cast<const T*>(c1),
+      static_cast<const T*>(c2), n, static_cast<T*>(xo),
+      static_cast<T*>(hbo), static_cast<T*>(ho));
   return (int)cudaGetLastError();
 }
 
@@ -445,6 +511,13 @@ int launch_recombine(const void* s, const void* u, int m, int k, int64_t n,
                                            int m, int k, int64_t n, void* out, \
                                            int nblocks, void* stream) {        \
     return launch_recombine<T>(s, u, m, k, n, out, nblocks, stream);           \
+  }                                                                            \
+  extern "C" int lsmr_update_##SUFFIX(                                         \
+      const void* x, const void* hbar, const void* h, const void* v,           \
+      const void* c0, const void* c1, const void* c2, int64_t n, void* xo,     \
+      void* hbo, void* ho, int nblocks, void* stream) {                        \
+    return launch_lsmr_update<T>(x, hbar, h, v, c0, c1, c2, n, xo, hbo, ho,    \
+                                 nblocks, stream);                             \
   }
 
 REPRO_CG_FUSED_ENTRY_POINTS(float, f32)

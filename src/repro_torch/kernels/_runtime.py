@@ -5,7 +5,7 @@ to a kernel, and the ctypes call itself.  ``LAUNCHES`` counts kernel
 launches per wrapper (one per wrapper call that reaches the card);
 ``PLAIN_ON_CUDA`` counts plain PyTorch versions run on CUDA tensors, so a
 run can show which path the card took.  Both are keyed by the kernel's
-name, in the order of the TPU kernels they replace (K1 … K6).
+name, in the order of the TPU kernels they replace (K1 … K7).
 """
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ LAUNCHES = {
     "self_gram": 0,
     "recombine_blocks": 0,
     "fused_rz_reduce": 0,
+    "lsmr_update": 0,
 }
 PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
 

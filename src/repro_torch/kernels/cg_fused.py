@@ -1,4 +1,4 @@
-"""The def-CG hot path on the H100: five hand-written CUDA kernels.
+"""The def-CG and LSMR hot paths on the H100: six hand-written CUDA kernels.
 
 Each kernel replaces one Pallas TPU kernel of ``repro/kernels/cg_fused.py``;
 its CUDA source is ``csrc/cg_fused.cu`` (f32 and f64 instantiations, plain
@@ -23,7 +23,7 @@ C interface, built by :mod:`repro_torch.kernels._build`):
   elements (+3n recording); μ sits in shared memory, ``β`` and ``idx`` are
   read from device memory so the loop never waits on the host.
 * ``self_gram`` replaces ``self_gram_pallas`` (cg_fused.py:558): ``S Sᵀ``
-  of the stacked window ``S = [Z; AZ]`` (2m ≤ 64 rows).  Bytes-bound: it
+  of the stacked window ``S = [Z; AZ]`` (2m ≤ 128 rows).  Bytes-bound: it
   reads 2m·n elements for m(2m+1)·2n flops.  Each block stages a
   (2m, 32)-column tile in shared memory and accumulates its share of the
   upper triangle in registers; a second kernel sums the per-block
@@ -32,6 +32,12 @@ C interface, built by :mod:`repro_torch.kernels._build`):
   (cg_fused.py:639): ``[uᵀZ; uᵀAZ]``.  Bytes-bound, 2(m + k)·n elements;
   ``u`` sits in shared memory and each thread owns output columns, so the
   output tiles are disjoint and nothing is reduced across blocks.
+* ``lsmr_update`` replaces ``lsmr_update_pallas`` (cg_fused.py:336): one
+  LSMR iteration's ``h̄' = h − c0·h̄``, ``x' = x + c1·h̄'``, ``h' = v − c2·h``.
+  Bytes-bound, 7n elements for 6n flops: one grid-stride pass reads
+  ``x, h̄, h, v`` once and writes the three outputs once; ``c0, c1, c2``
+  are 0-d device tensors read through pointers.  Nothing is reduced, so
+  its grid fills every SM.
 
 All reductions are deterministic (no float atomics) and accumulate in the
 working dtype: f64 kernels in f64, f32 kernels in f32.  Ragged tails are
@@ -61,8 +67,9 @@ PLAIN_ON_CUDA = _runtime.PLAIN_ON_CUDA
 THREADS = 256
 GRID_CAP = 264  # two resident blocks per SM on a 132-SM H100
 MAX_K = 16
-MAX_GRAM_ROWS = 64
+MAX_GRAM_ROWS = 128
 GRAM_TILE = 32
+LSMR_GRID_CAP = 132 * 8  # eight resident 256-thread blocks per SM
 
 _P, _I, _L = _runtime.PTR, _runtime.INT, _runtime.INT64
 _SIGNATURES = {
@@ -71,6 +78,7 @@ _SIGNATURES = {
     "fused_deflate_direction": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _I),
     "self_gram": (_P, _I, _L, _L, _I, _P, _P),
     "recombine_blocks": (_P, _P, _I, _I, _L, _P, _I),
+    "lsmr_update": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I),
 }
 _cdiv = _runtime.cdiv
 _ptr = _runtime.ptr
@@ -222,7 +230,7 @@ def fused_deflate_direction_plain(
 
 
 def self_gram_cuda(s: torch.Tensor) -> torch.Tensor:
-    """``S Sᵀ`` for ``S`` of shape ``(m2, n)``, m2 ≤ 64, on the card."""
+    """``S Sᵀ`` for ``S`` of shape ``(m2, n)``, m2 ≤ 128, on the card."""
     m2, n = s.shape
     _check("self_gram", s, s=(s, (m2, n)))
     if n == 0 or not 1 <= m2 <= MAX_GRAM_ROWS:
@@ -267,3 +275,33 @@ def recombine_blocks_plain(s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`recombine_blocks_cuda`."""
     _note_plain("recombine_blocks", s)
     return ref.recombine_blocks(s, u)
+
+
+# ---------------------------------------------------------------------------
+# lsmr_update
+# ---------------------------------------------------------------------------
+
+
+def lsmr_update_cuda(x, hbar, h, v, c0, c1, c2):
+    """``(x + c1·h̄', h̄' = h − c0·h̄, v − c2·h)`` on the card.
+
+    ``c0, c1, c2`` are 0-d tensors on the device (Python numbers are
+    copied there).  Returns ``(x_new, hbar_new, h_new)``.
+    """
+    n = x.shape[0]
+    c0, c1, c2 = (_scalar(c, x) for c in (c0, c1, c2))
+    _check("lsmr_update", x, x=(x, (n,)), hbar=(hbar, (n,)), h=(h, (n,)),
+           v=(v, (n,)), c0=(c0, ()), c1=(c1, ()), c2=(c2, ()))
+    if n == 0:
+        raise ValueError("lsmr_update: need n >= 1")
+    xo, hbo, ho = (torch.empty_like(x) for _ in range(3))
+    _launch("lsmr_update", x,
+            _ptr(x), _ptr(hbar), _ptr(h), _ptr(v), _ptr(c0), _ptr(c1), _ptr(c2), n,
+            _ptr(xo), _ptr(hbo), _ptr(ho), min(_cdiv(n, THREADS), LSMR_GRID_CAP))
+    return xo, hbo, ho
+
+
+def lsmr_update_plain(x, hbar, h, v, c0, c1, c2):
+    """Plain PyTorch version of :func:`lsmr_update_cuda`."""
+    _note_plain("lsmr_update", x)
+    return ref.lsmr_update(x, hbar, h, v, c0, c1, c2)

@@ -142,3 +142,25 @@ def recombine_blocks(
     if backend == "plain":
         return cg_fused.recombine_blocks_plain(s, u)
     return ref.recombine_blocks(s, u)
+
+
+def lsmr_update(
+    x: torch.Tensor,
+    hbar: torch.Tensor,
+    h: torch.Tensor,
+    v: torch.Tensor,
+    c0,
+    c1,
+    c2,
+    *,
+    backend: str = "auto",
+):
+    """``(x + c1·(h − c0·h̄), h − c0·h̄, v − c2·h)`` in one pass: the LSMR
+    iteration's coupled vector recurrences.  ``c0, c1, c2`` are the
+    pre-reduced Givens scalars (0-d device tensors in the solver loop)."""
+    backend = _resolve(backend, x)
+    if backend == "cuda":
+        return cg_fused.lsmr_update_cuda(x, hbar, h, v, c0, c1, c2)
+    if backend == "plain":
+        return cg_fused.lsmr_update_plain(x, hbar, h, v, c0, c1, c2)
+    return ref.lsmr_update(x, hbar, h, v, c0, c1, c2)

@@ -63,6 +63,22 @@ def fused_deflate_direction(
     return p_new, p_buf, ap_buf
 
 
+def lsmr_update(x, hbar, h, v, c0, c1, c2):
+    """One LSMR iteration's three vector recurrences (Fong & Saunders 2011,
+    rotation scalars pre-reduced by the caller)::
+
+        hbar_new = h − c0·hbar      (c0 = θ̄ρ / (ρ_old ρ̄_old))
+        x_new    = x + c1·hbar_new  (c1 = ζ / (ρρ̄))
+        h_new    = v − c2·h         (c2 = θ_new / ρ)
+
+    Returns ``(x_new, hbar_new, h_new)``.
+    """
+    hbar_new = h - c0 * hbar
+    x_new = x + c1 * hbar_new
+    h_new = v - c2 * h
+    return x_new, hbar_new, h_new
+
+
 def self_gram(s: torch.Tensor) -> torch.Tensor:
     """``S Sᵀ`` for a stacked flat basis ``S`` of shape ``(m, n)``."""
     return s @ s.T

@@ -9,6 +9,8 @@ with an H100 run them with
 machine does not need to have).  Tolerances: f64 1e-12 relative, f32
 2e-4 (the Pallas tolerance of ``tests/test_cg_fused.py``); the f32 RBF
 Gram matvec 2e-4 relative / 5e-4 absolute (``tests/test_kernels.py``).
+``self_gram`` and ``recombine_blocks`` are held up to 128 stacked rows,
+the windows of the least-squares path (lsq_bench's k + ℓ = 56 gives 112).
 """
 
 import pytest
@@ -125,7 +127,7 @@ def test_fused_deflate_direction(device, dtype, n, k, buffered):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("rows", [40, 24, 64, 1])
+@pytest.mark.parametrize("rows", [40, 24, 64, 1, 96, 112, 128])
 def test_self_gram(device, dtype, n, rows):
     s = _gen(device, dtype, n + rows)(rows, n)
     got = cg_fused.self_gram_cuda(s)
@@ -135,13 +137,37 @@ def test_self_gram(device, dtype, n, rows):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("mk", [(20, 8), (12, 8), (32, 16), (3, 1)])
+@pytest.mark.parametrize("mk", [(20, 8), (12, 8), (32, 16), (3, 1), (48, 8), (56, 8), (64, 16)])
 def test_recombine_blocks(device, dtype, n, mk):
     m, k = mk
     rnd = _gen(device, dtype, n + m + k)
     s, u = rnd(2 * m, n), rnd(m, k)
     got = cg_fused.recombine_blocks_cuda(s, u)
     _assert_close(got, cg_fused.recombine_blocks_plain(s, u), dtype)
+
+
+def test_gram_window_limit(device):
+    """Stacked windows past 128 rows are refused, not mis-summed."""
+    s = _gen(device, torch.float64, 1)(130, 100)
+    with pytest.raises(ValueError, match="128"):
+        cg_fused.self_gram_cuda(s)
+    with pytest.raises(ValueError, match="128"):
+        cg_fused.recombine_blocks_cuda(s, s[:65, :8].contiguous())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 1000, 16384, 1 << 20])
+def test_lsmr_update(device, dtype, n):
+    rnd = _gen(device, dtype, 11 * n)
+    x, hbar, h, v = (rnd(n) for _ in range(4))
+    c0, c1, c2 = rnd(()), rnd(()), rnd(())
+    got = cg_fused.lsmr_update_cuda(x, hbar, h, v, c0, c1, c2)
+    want = cg_fused.lsmr_update_plain(x, hbar, h, v, c0, c1, c2)
+    for g, w in zip(got, want):
+        _assert_close(g, w, dtype)
+    before = cg_fused.LAUNCHES["lsmr_update"]
+    kops.lsmr_update(x, hbar, h, v, 0.5, -0.25, 2.0)
+    assert cg_fused.LAUNCHES["lsmr_update"] == before + 1
 
 
 def test_reductions_repeat_exactly(device):

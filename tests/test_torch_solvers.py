@@ -274,8 +274,6 @@ def test_unported_paths_raise():
                  M=lambda v: v)
     with pytest.raises(NotImplementedError, match="item 13"):
         tc.solve(A, b, tc.SolveSpec(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        tc.solve(A, b, tc.SolveSpec(method="lsmr"))
     with pytest.raises(NotImplementedError, match="item 10"):
         tc.solve(A, b, tc.SolveSpec(stagnation_window=5))
     with pytest.raises(NotImplementedError, match="item 10"):
