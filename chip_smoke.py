@@ -23,7 +23,12 @@ Phases, each of which fails the script when it fails:
               least-squares path's n = 16 384, the Gauss-Newton parameter
               count 32 768, lsq_bench's 2²⁰ and a ragged n, and the two
               extraction kernels at the least-squares windows' 96, 112 and
-              128 stacked rows (timed at 112 rows, n = 16 384).
+              128 stacked rows (timed at 112 rows, n = 16 384).  The
+              rectangular Gram matvec (K8) is held at d = 784, r = 1 and 8,
+              on the sharded blocks (m, n) = (4 096, 16 384) and (2 048,
+              16 384) of 4 and 8 ranks, (9 138, 36 552) and a ragged
+              (1 000, 3 001), and timed beside the dense GEMV over the
+              materialized block.
 4. check    — small Newton sequences (n = 400) on the card against the same
               sequences run on the CPU through the plain versions: the
               dense-K solvers, and the matrix-free Jacobi-preconditioned
@@ -77,9 +82,31 @@ Phases, each of which fails the script when it fails:
               10 without; the loss must fall and stay finite, and the LSMR
               update must launch.
 
-Each main path (5, 7, 10 and 11) is driven with the launch counters set to
-0 just before it and read just after; the ``{"kernels": [...]}`` JSON line
-gives each kernel's launches summed over the four.  Last comes the
+12. check-shard — the sharded engine (``solve(..., mesh=)``) on small
+              systems against the unsharded port, both on the card, on one
+              NCCL rank and on 4 gloo ranks: the dense n = 64 system of
+              ``tests/test_sharded_engine.py`` (cg, def-CG(4, 6), LSMR), the
+              RBF operator at n = 256 (def-CG, K8 products) and lsq_bench's
+              flat 180 × 120 (LSMR); the bars of ``tests/test_torch_sharded.py``
+              and its collective contract (one all-reduce and one all-gather
+              per cg / def-CG iteration, two of each per LSMR iteration).
+13. main-shard — the sharded main path: the matrix-free GP Newton systems
+              on the digits data at n = 16 384 (the cut n of 7), d = 784,
+              f64, solved unsharded by def-CG(8, 12) through the front door at
+              tol 1e-5 (the control), then replayed through ``solve(...,
+              mesh=)`` on 4 gloo ranks sharing the one card (NCCL refuses two
+              ranks on one GPU), carrying the RecycleState.  Each system's
+              iterations within one of the control's, x within
+              2·tol·‖b‖ + 1e-10·‖b‖ of it, fewer iterations after system 1,
+              K8 launched on every rank while K3 and every plain version stay
+              at 0.  Four ranks share one card: this is no scaling number.
+              The 4-rank cases of 12 and the replay of 13 run in one spawn
+              (starting ranks on the card takes tens of seconds).
+
+Each main path (5, 7, 10, 11 and 13) is driven with the launch counters set
+to 0 just before it and read just after (13: on every rank); the
+``{"kernels": [...]}`` JSON line gives each kernel's launches summed over
+the five (13: over its ranks).  Last comes the
 ``{"ok": true, "device": {...}}`` line; the full report also goes to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -143,6 +170,14 @@ K7_NS = (LSQ_MAIN["n"], GN["d"] * GN["out"], 1 << 20, RAGGED_N)
 # Stacked window rows the extraction kernels must take: def-CG's 2(k + ℓ)
 # = 40, and the least-squares windows (lsq_bench 2·56 = 112).
 GRAM_ROWS = (96, 112, 128)
+# The sharded main path: the matrix-free Newton systems on the digits data
+# at the cut n = 16 384, d = 784, replayed over 4 gloo ranks on the one card
+# (NCCL refuses two ranks on one GPU); check-shard also runs 1 NCCL rank.
+SHARD_N, SHARD_RANKS, SHARD_TOL, SHARD_TIMEOUT_S = CUT_N, 4, 1e-5, 300.0
+# K8's (m, n): the main-shard blocks at 4 and 8 ranks, the paper's n at 4
+# ranks (36 552 = 4 · 9 138), a ragged block; r: a product, the A·W refresh.
+K8_SHAPES = ((SHARD_N // 4, SHARD_N), (SHARD_N // 8, SHARD_N), (9138, 36552), (1000, 3001))
+K8_RS = (1, K)
 
 # Which TPU kernel each port kernel replaces, and the port's source.
 REPLACES = {
@@ -153,14 +188,17 @@ REPLACES = {
     "recombine_blocks": "src/repro/kernels/cg_fused.py:639",
     "fused_rz_reduce": "src/repro/kernels/cg_fused.py:252",
     "lsmr_update": "src/repro/kernels/cg_fused.py:336",
+    "rbf_matvec_rect": "src/repro/kernels/rbf_matvec.py:134",
 }
 SOURCES = dict.fromkeys(REPLACES, "src/repro_torch/csrc/cg_fused.cu")
-SOURCES["rbf_matvec"] = "src/repro_torch/csrc/rbf_matvec.cu"
+SOURCES["rbf_matvec"] = SOURCES["rbf_matvec_rect"] = "src/repro_torch/csrc/rbf_matvec.cu"
 DENSE_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "self_gram",
                       "recombine_blocks")
 MF_PATH_KERNELS = DENSE_PATH_KERNELS + ("rbf_matvec", "fused_rz_reduce")
 LSQ_PATH_KERNELS = ("lsmr_update", "self_gram", "recombine_blocks")
 GN_PATH_KERNELS = ("lsmr_update",)
+SHARD_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "fused_rz_reduce",
+                      "self_gram", "recombine_blocks", "rbf_matvec_rect")
 
 
 def log(msg=""):
@@ -482,6 +520,88 @@ def phase_scale(torch, rbf):
             f"(a dense K would need {out[dname]['dense_k_gb']:.0f} GB)")
         del x, v, y
     return out
+
+
+def rect_work(m, n, d, r, itemsize):
+    """(bytes moved, operations) of one K8 call: X_rows, X_cols and V read
+    once, Y written once; the rectangular block has no symmetry, so every
+    pair counts: 2mn·d for the cross term, 2mn·r for K·V, ~8mn for the
+    distances and exp."""
+    return ((m + n) * d + n * r + m * r) * itemsize, 2 * m * n * d + 2 * m * n * r + 8 * m * n
+
+
+def phase_rect_kernels(torch, rbf, peaks):
+    """K8 (``rbf_matvec_rect``) against its plain version in f64 (1e-12
+    relative) and f32 (K3's bars) at K8_SHAPES, d = 784, r = 1 and 8; then
+    timed (CUDA events, median of 3, L2 flushed) at the shapes of 4 and 8
+    ranks and the paper's n, beside the dense GEMV over the materialized
+    (m, n) block.  Bound: ``rect_work`` at the FP64 tensor-core rate (f32:
+    the FP32 vector rate, as K3)."""
+    report = {"max_abs_err": 0.0, "timings": {}}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for m, n in K8_SHAPES:
+            for r in K8_RS:
+                g = torch.Generator(device="cuda").manual_seed(m + n + r)
+                xr = torch.rand((m, D), generator=g, device="cuda", dtype=dtype)
+                xc = torch.rand((n, D), generator=g, device="cuda", dtype=dtype)
+                v = torch.randn((n, r), generator=g, device="cuda", dtype=dtype)
+                got = rbf.rbf_matvec_rect_cuda(xr, xc, v, THETA, LENGTHSCALE)
+                want = rbf.rbf_matvec_rect_plain(xr, xc, v, THETA, LENGTHSCALE, BLOCK)
+                torch.cuda.synchronize()
+                what = f"rbf_matvec_rect {dname} m={m} n={n} r={r}"
+                if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+                    raise AssertionError(f"{what}: bad output shape or non-finite values")
+                err = float((got - want).abs().max())
+                if dtype == torch.float64:
+                    scale = max(1.0, float(want.abs().max()))
+                    if err / scale > TOL["float64"]:
+                        raise AssertionError(f"{what}: relative error {err / scale:.3e}")
+                    if (m, n) == K8_SHAPES[0]:
+                        report["max_abs_err"] = max(report["max_abs_err"], err)
+                else:
+                    rtol, atol = RBF_TOL_F32
+                    if bool(((got - want).abs() > atol + rtol * want.abs()).any()):
+                        raise AssertionError(f"{what}: error {err:.3e} past {RBF_TOL_F32}")
+                log(f"[kernels] rbf_matvec_rect {dname} m={m:5d} n={n:5d} r={r}: max abs err "
+                    f"{err:.3e} (max |y| {float(want.abs().max()):.3e})")
+
+    timed = [(torch.float64, shape, r) for shape in K8_SHAPES[:3] for r in (1,)]
+    timed += [(torch.float64, K8_SHAPES[0], K), (torch.float32, K8_SHAPES[0], 1)]
+    for dtype, (m, n), r in timed:
+        dname = str(dtype).split(".")[-1]
+        itemsize = 8 if dtype == torch.float64 else 4
+        peak = peaks["float64_tensor"] if dtype == torch.float64 else peaks["float32"]
+        g = torch.Generator(device="cuda").manual_seed(r)
+        xr = torch.rand((m, D), generator=g, device="cuda", dtype=dtype)
+        xc = torch.rand((n, D), generator=g, device="cuda", dtype=dtype)
+        v = torch.randn((n, r), generator=g, device="cuda", dtype=dtype)
+        kms = device_ms(torch, lambda: rbf.rbf_matvec_rect_cuda(xr, xc, v, THETA, LENGTHSCALE),
+                        RBF_REPS)
+        pms = device_ms(torch, lambda: rbf.rbf_matvec_rect_plain(xr, xc, v, THETA, LENGTHSCALE,
+                                                                 BLOCK), RBF_REPS)
+        nbytes, ops = rect_work(m, n, D, r, itemsize)
+        t_bytes, t_ops = nbytes / peaks["bytes"], ops / peak
+        t = {"ms": kms, "plain_ms": pms, "bound_ms": 1e3 * max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "tflop_s": ops / kms / 1e9}
+        if r == 1:  # the dense GEMV over the materialized (m, n) block
+            xrs, xcs = xr / LENGTHSCALE, xc / LENGTHSCALE
+            kb = (xrs @ xcs.T).mul_(-2.0).add_(xrs.pow(2).sum(1)[:, None]
+                                               + xcs.pow(2).sum(1)[None, :])
+            kb.clamp_(min=0.0).mul_(-0.5).exp_().mul_(THETA**2)
+            t["block_gemv_ms"] = device_ms(torch, lambda: kb @ v[:, 0])
+            del kb, xrs, xcs
+        report["timings"][f"{dname} m={m} n={n} r={r}"] = t
+        log(f"[timing] rbf_matvec_rect {dname} m={m} n={n} d={D} r={r}: kernel {kms:.2f} ms "
+            f"({t['tflop_s']:.2f} TFLOP/s), plain {pms:.2f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['bound_by']}), library null"
+            + (f", dense GEMV over the materialized block {t['block_gemv_ms']:.4f} ms"
+               if "block_gemv_ms" in t else ""))
+    main = report["timings"][f"float64 m={K8_SHAPES[0][0]} n={K8_SHAPES[0][1]} r=1"]
+    report.update(ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
+                  bound_ms=main["bound_ms"], bound_by=main["bound_by"])
+    return report
 
 
 def laplace_runs(torch, launches, x, y, k_dense, solver_tol, log_prefix,
@@ -947,6 +1067,396 @@ def profile_gn_step(torch, params, state, batch, residual_fn, cfg):
             "device_busy_share": busy / (1e3 * wall)}
 
 
+def _sync(torch, device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _zero_counts():
+    from repro_torch.kernels import _runtime
+
+    for key in _runtime.LAUNCHES:
+        _runtime.LAUNCHES[key] = _runtime.PLAIN_ON_CUDA[key] = 0
+
+
+def _every_rank(value):
+    """``value`` from every rank, in rank order (not a counted collective)."""
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, value)
+    return out
+
+
+def dense_spd(n, cond, seed):
+    """``tests/conftest.py:make_spd`` (log-spaced spectrum, random basis)
+    and the next draw as b, from ``numpy.random.default_rng(seed)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    return (q * np.logspace(0, np.log10(cond), n)) @ q.T, rng.standard_normal(n)
+
+
+def shard_check_rank(dense, rbf_in, lsq, device="cuda"):
+    """check-shard on one rank: each small system sharded over the group
+    and unsharded on this rank's device; the sharded solves' launches and
+    plain versions on the card per rank; the collective contract."""
+    import torch
+
+    from repro_torch.core import (DenseMatrixOperator, RBFKernelSystemOperator, RecycleState,
+                                  SolveSpec, solve)
+    from repro_torch.kernels import _runtime
+    from repro_torch.launch import COLLECTIVES, make_solve_mesh
+
+    mesh = make_solve_mesh(device=device)
+    dev = mesh.device
+
+    def t(a):
+        return torch.as_tensor(a, dtype=torch.float64, device=dev)
+
+    _zero_counts()
+    sharded_launches = dict.fromkeys(_runtime.LAUNCHES, 0)
+    sharded_plain = dict.fromkeys(_runtime.LAUNCHES, 0)
+
+    def sharded(*args, **kw):
+        before = (dict(_runtime.LAUNCHES), dict(_runtime.PLAIN_ON_CUDA))
+        res = solve(*args, mesh=mesh, **kw)
+        for key in sharded_launches:
+            sharded_launches[key] += _runtime.LAUNCHES[key] - before[0][key]
+            sharded_plain[key] += _runtime.PLAIN_ON_CUDA[key] - before[1][key]
+        return res
+
+    def pair(name, A, b, spec, state=None):
+        got, want = sharded(A, b, spec, state), solve(A, b, spec, state)
+        row = {"x_gap": float((got.x - want.x).abs().max()),
+               "x_norm": float(torch.linalg.norm(want.x)),
+               "iterations": (int(got.info.iterations), int(want.info.iterations)),
+               "matvecs": (int(got.info.matvecs), int(want.info.matvecs)),
+               "status": (int(got.info.status), int(want.info.status)),
+               "converged": bool(got.info.converged) and bool(want.info.converged),
+               "rank_iterations": _every_rank(int(got.info.iterations))}
+        if spec.method == "defcg":
+            W = mesh.gather_state(got.state)
+            signs = torch.sign(torch.sum(W.W * want.state.W, dim=1))[:, None]
+            row["basis_gap"] = max(float((W.W * signs - want.state.W).abs().max()),
+                                   float((W.AW * signs - want.state.AW).abs().max()),
+                                   float((W.theta - want.state.theta).abs().max()))
+        out[name] = row
+
+    out = {}
+    A, b = DenseMatrixOperator(t(dense[0])), t(dense[1])
+    cold = RecycleState.zeros(4, b.shape[0], dtype=torch.float64, device=dev)
+    for method in ("cg", "defcg", "lsmr"):
+        pair(f"dense-{method}", A, b, SolveSpec(method=method, k=4, ell=6, tol=1e-12,
+                                                 maxiter=300), cold)
+    A_rbf = RBFKernelSystemOperator(t(rbf_in[0]), t(rbf_in[1]), theta=1.3, lengthscale=1.1,
+                                    block=64)
+    b_rbf = t(rbf_in[2])
+    pair("rbf-defcg", A_rbf, b_rbf, SolveSpec(method="defcg", k=4, ell=6, tol=1e-9,
+                                              maxiter=400),
+         RecycleState.zeros(4, b_rbf.shape[0], dtype=torch.float64, device=dev))
+    pair("lsq-lsmr", DenseMatrixOperator(t(lsq[0])), t(lsq[1]),
+         SolveSpec(method="lsmr", tol=LSQ_TOL, maxiter=LSQ_BENCH["maxiter"], lsq_shift=LSQ_DAMP))
+
+    # The contract by difference: tol 0, N and N + 8 live iterations.
+    contract = {}
+    for method in ("cg", "defcg", "lsmr"):
+        counts = []
+        for maxiter in (8, 16):
+            before = dict(COLLECTIVES)
+            res = sharded(A, b, SolveSpec(method=method, k=4, ell=6, tol=0.0, maxiter=maxiter),
+                          cold)
+            counts.append((int(res.info.iterations),
+                           {k: COLLECTIVES[k] - before[k] for k in before}))
+        contract[method] = counts
+    out["contract"] = contract
+    out["launches"] = _every_rank(sharded_launches)
+    out["plain_on_cuda"] = _every_rank(sharded_plain)
+    out["mesh"] = {"size": mesh.size, "backend": mesh.backend, "device": str(dev)}
+    return out
+
+
+def check_shard_inputs(torch):
+    """check-shard's systems as numpy, and the x bar of its LSMR case."""
+    import numpy as np
+
+    dense = dense_spd(64, 50.0, 0)
+    rng = np.random.default_rng(1)
+    rbf_in = (rng.standard_normal((256, 3)), 0.5 + rng.random(256), rng.standard_normal(256))
+    A, b = next(drifting_lsq(torch, 1, LSQ_BENCH["m"], LSQ_BENCH["n"], "cpu", "flat"))
+    lsq = (A.numpy(), b.numpy())
+    lam_min = float(np.linalg.svd(lsq[0], compute_uv=False).min()) ** 2 + LSQ_DAMP
+    lsq_bound = 2 * LSQ_TOL * float(np.linalg.norm(lsq[0].T @ lsq[1])) / lam_min
+    return (dense, rbf_in, lsq), lsq_bound
+
+
+def judge_check_shard(torch, tag, out, lsq_bound, device):
+    """check-shard's bars, as the CPU tests hold them: x to 1e-10,
+    cg/def-CG iterations within 1 and matvecs within 2, LSMR within 5 and
+    10, statuses equal, def-CG bases sign-aligned to 1e-10, every rank the
+    same count; lsq's x to twice LSMR's stopping bound
+    tol·‖Aᵀb‖/λ_min(AᵀA + λI) (ROADMAP P6).  The collective contract: tol
+    0, N and N + 8 iterations differ by exactly 8 all-reduces and
+    all-gathers (cg, def-CG), 16 of each (LSMR).  On the card every rank
+    launched K8 and neither K3 nor a plain version."""
+    for name, row in out.items():
+        if not isinstance(row, dict) or "x_gap" not in row:
+            continue
+        slack = 5 if name.endswith("lsmr") else 1
+        mv_slack = 1 if name.startswith("rbf") else 2 * slack
+        (its_s, its_u), (mv_s, mv_u) = row["iterations"], row["matvecs"]
+        x_bar = lsq_bound if name == "lsq-lsmr" else 1e-10
+        log(f"{tag} {name:11s} x gap {row['x_gap']:.2e} (bar {x_bar:.1e}); iterations "
+            f"{its_s} vs {its_u}; matvecs {mv_s} vs {mv_u}; per rank {row['rank_iterations']}"
+            + (f"; basis gap {row['basis_gap']:.2e}" if "basis_gap" in row else ""))
+        bad = (row["x_gap"] > x_bar or abs(its_s - its_u) > slack
+               or abs(mv_s - mv_u) > mv_slack or row["status"][0] != row["status"][1]
+               or not row["converged"] or len(set(row["rank_iterations"])) != 1
+               or row.get("basis_gap", 0.0) > 1e-10)
+        if bad:
+            raise AssertionError(f"{tag} {name}: sharded vs unsharded {row}")
+    for method, ((its_a, ca), (its_b, cb)) in out["contract"].items():
+        per = 2 if method == "lsmr" else 1
+        diff = {k: cb[k] - ca[k] for k in ca}
+        log(f"{tag} contract {method}: {its_a} → {its_b} iterations add {diff}")
+        if (its_a, its_b) != (8, 16) or diff != {"all_reduce": 8 * per, "all_gather": 8 * per}:
+            raise AssertionError(f"{tag} collective contract broken for {method}: {diff}")
+    for rank, (launched, plain) in enumerate(zip(out["launches"], out["plain_on_cuda"])):
+        if torch.device(device).type == "cuda" and (
+                any(plain.values()) or not launched["rbf_matvec_rect"] or launched["rbf_matvec"]):
+            raise AssertionError(f"{tag} rank {rank}: launches {launched}, plain {plain}")
+    log(f"{tag} rank 0 sharded launches {out['launches'][0]}")
+    return out
+
+
+def shard_world_rank(check_args, main_args=None):
+    """One rank of a shard world: check-shard's cases, then, when given,
+    main-shard's replay (one spawn for both: starting ranks on the card
+    takes tens of seconds)."""
+    out = {"check": shard_check_rank(*check_args)}
+    if main_args is not None:
+        out["main"] = shard_main_rank(*main_args)
+    return out
+
+
+def shard_main_rank(x_path, systems, device="cuda"):
+    """main-shard on one rank: replay the recorded Newton systems through
+    ``solve(..., mesh=)``, carrying the RecycleState; counts zeroed just
+    before and read just after.  Then, apart from the counts: one K8 call
+    per rank at once (the card shared by the ranks), and the host time of
+    a collective on CUDA tensors (which gloo stages through host memory
+    itself) and on host tensors: the difference is the staging."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import RBFKernelSystemOperator, SolveSpec, solve
+    from repro_torch.kernels import _runtime, ops as kops
+    from repro_torch.launch import COLLECTIVES, make_solve_mesh
+
+    mesh = make_solve_mesh(device=device)
+    dev = mesh.device
+    x = torch.from_numpy(np.load(x_path)).to(dev)
+    spec = SolveSpec(k=K, ell=ELL, tol=SHARD_TOL)
+
+    def t(a):
+        return None if a is None else torch.from_numpy(a).to(dev)
+
+    state, rows = None, []
+    _sync(torch, dev)
+    _zero_counts()
+    before = dict(COLLECTIVES)
+    for sysm in systems:
+        op = RBFKernelSystemOperator(x, t(sysm["sqrt_h"]), THETA, LENGTHSCALE, block=BLOCK)
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        res = solve(op, t(sysm["b"]), spec, state, x0=t(sysm["x0"]), mesh=mesh)
+        _sync(torch, dev)
+        state = res.state
+        rows.append({"iterations": int(res.info.iterations), "matvecs": int(res.info.matvecs),
+                     "converged": bool(res.info.converged),
+                     "wall_s": time.perf_counter() - t0,
+                     "x": res.x.cpu().numpy() if mesh.rank == 0 else None})
+    launches, plain = dict(_runtime.LAUNCHES), dict(_runtime.PLAIN_ON_CUDA)
+    collectives = {k: COLLECTIVES[k] - before[k] for k in before}
+
+    def host_ms(fn, reps):
+        dist.barrier()
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        _sync(torch, dev)
+        return 1e3 * (time.perf_counter() - t0) / reps
+
+    n_loc = x.shape[0] // mesh.size
+    x_loc = x[mesh.block(x.shape[0])]
+    packed = torch.zeros(2 * K + 4, dtype=torch.float64, device=dev)  # def-CG's merged psum
+    vec = torch.zeros(n_loc, dtype=torch.float64, device=dev)
+    packed_h, vec_h = packed.cpu(), vec.cpu()  # gloo takes these as they are
+    staging = {
+        "all_reduce_ms": host_ms(lambda: mesh.all_reduce(packed), 50),
+        "all_reduce_host_ms": host_ms(lambda: mesh.all_reduce(packed_h), 50),
+        "all_gather_ms": host_ms(lambda: mesh.all_gather(vec), 50),
+        "all_gather_host_ms": host_ms(lambda: mesh.all_gather(vec_h), 50),
+        "x_gather_ms": host_ms(lambda: mesh.all_gather(x_loc), 3),
+    }
+    k8_ms = None
+    if dev.type == "cuda":  # every rank launches one K8 call at once
+        u = torch.randn(x.shape[0], dtype=torch.float64, device=dev)
+        kops.rbf_matvec_rect(x_loc, x, u, THETA, LENGTHSCALE)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        dist.barrier()
+        torch.cuda.synchronize(dev)
+        start.record()
+        kops.rbf_matvec_rect(x_loc, x, u, THETA, LENGTHSCALE)
+        end.record()
+        torch.cuda.synchronize(dev)
+        k8_ms = start.elapsed_time(end)
+    return {"rows": rows, "launches": _every_rank(launches), "plain_on_cuda": _every_rank(plain),
+            "rank_iterations": _every_rank([r["iterations"] for r in rows]),
+            "collectives": collectives, "staging": _every_rank(staging),
+            "k8_shared_ms": _every_rank(k8_ms), "backend": mesh.backend, "size": mesh.size}
+
+
+def shard_control(torch, device, n):
+    """main-shard's control: the unsharded matrix-free def-CG(8, 12) Newton
+    loop of ``laplace_gpc`` through the front door at tol 1e-5 (K3
+    products) on the digits data, each Newton system's H½, b and warm
+    start recorded.  Returns the data and the systems as numpy."""
+    from repro_torch.core import RBFKernelSystemOperator, SolveSpec, solve
+    from repro_torch.data import make_infinite_digits
+    from repro_torch.gp import RBFKernel
+    from repro_torch.gp.laplace import logistic_quantities
+
+    xs_np, ys_np = make_infinite_digits(n, seed=0, noise=0.10)
+    x = torch.as_tensor(xs_np, dtype=torch.float64, device=device)
+    y = torch.as_tensor(ys_np, dtype=torch.float64, device=device)
+    k_mv = RBFKernel(theta=THETA, lengthscale=LENGTHSCALE).matvec_fn(x, block=BLOCK)
+    spec = SolveSpec(k=K, ell=ELL, tol=SHARD_TOL)
+    f = torch.zeros(n, dtype=torch.float64, device=device)
+    state, x_prev, psi_prev, control = None, None, float("-inf"), []
+    for _ in range(30):
+        _, grad, hdiag = logistic_quantities(f, y)
+        sqrt_h = torch.sqrt(hdiag)
+        bg = hdiag * f + grad
+        b = sqrt_h * k_mv(bg)
+        op = RBFKernelSystemOperator(x, sqrt_h, THETA, LENGTHSCALE, block=BLOCK)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        res = solve(op, b, spec, state, x0=x_prev)
+        _sync(torch, device)
+        control.append({"sqrt_h": sqrt_h.cpu().numpy(), "b": b.cpu().numpy(),
+                        "x0": None if x_prev is None else x_prev.cpu().numpy(),
+                        "x": res.x.cpu().numpy(), "iterations": int(res.info.iterations),
+                        "matvecs": int(res.info.matvecs), "wall_s": time.perf_counter() - t0})
+        state, x_prev = res.state, res.x
+        a_vec = bg - sqrt_h * res.x
+        f = k_mv(a_vec)
+        logp_new, _, _ = logistic_quantities(f, y)
+        psi = float(logp_new - 0.5 * torch.dot(a_vec, f))
+        if abs(psi - psi_prev) < 1.0:
+            break
+        psi_prev = psi
+    log(f"[main-shard] control n={n}: {len(control)} Newton systems, def-CG iterations "
+        f"{[c['iterations'] for c in control]}, solve {sum(c['wall_s'] for c in control):.2f} s")
+    return xs_np, control
+
+
+def judge_main_shard(torch, out, control, device, n, ranks):
+    """main-shard's bars: each system's sharded iterations within 1 of the
+    control's, ‖x_shard − x_ref‖ ≤ 2·tol·‖b‖ + 1e-10·‖b‖ (both solves stop
+    at ‖r‖ ≤ tol·‖b‖ and λ_min(I + H½KH½) ≥ 1), later systems fewer
+    iterations than the cold first, every rank the same counts, and on
+    every rank K8 launched while K3 and the plain versions did not."""
+    import numpy as np
+
+    from repro_torch.core import engine
+
+    rows = out["rows"]
+    for i, (row, c) in enumerate(zip(rows, control)):
+        b_norm = float(np.linalg.norm(c["b"]))
+        gap = float(np.linalg.norm(row["x"] - c["x"]))
+        row.update(control_iterations=c["iterations"], control_matvecs=c["matvecs"],
+                   control_wall_s=c["wall_s"], x_gap=gap, x_bar=(2 * SHARD_TOL + 1e-10) * b_norm)
+        del row["x"]
+        log(f"[main-shard] system {i + 1}: sharded {row['iterations']} iterations, "
+            f"{row['matvecs']} matvecs, {row['wall_s']:.2f} s; control {c['iterations']}, "
+            f"{c['matvecs']}, {c['wall_s']:.2f} s; ‖Δx‖ {gap:.2e} (bar {row['x_bar']:.2e})")
+        if abs(row["iterations"] - c["iterations"]) > 1 or gap > row["x_bar"] or not row["converged"]:
+            raise AssertionError(f"[main-shard] system {i + 1} off the control: {row}")
+    its = [r["iterations"] for r in rows]
+    if len(rows) != len(control) or not all(i < its[0] for i in its[1:]):
+        raise AssertionError(f"[main-shard] recycling did not cut iterations: {its}")
+    if any(len(set(col)) != 1 for col in zip(*out["rank_iterations"])):
+        raise AssertionError(f"[main-shard] ranks disagree: {out['rank_iterations']}")
+    for rank, (launched, plain) in enumerate(zip(out["launches"], out["plain_on_cuda"])):
+        if torch.device(device).type == "cuda" and (
+                any(plain.values()) or launched["rbf_matvec"]
+                or not all(launched[k] for k in SHARD_PATH_KERNELS)):
+            raise AssertionError(f"[main-shard] rank {rank}: launches {launched}, plain {plain}")
+    out["launches_summed"] = {k: sum(r[k] for r in out["launches"]) for k in out["launches"][0]}
+    wall = sum(r["wall_s"] for r in rows)
+    products = sum(r["matvecs"] for r in rows)
+    frozen = sum(frozen_steps(i, ELL, engine.CHUNK) for i in its)
+    out.update(n=n, ranks=ranks, wall_s=wall, control_wall_s=sum(c["wall_s"] for c in control),
+               products_counted=products, frozen_products=frozen,
+               ms_per_product=1e3 * wall / (products + frozen))
+    log(f"[main-shard] {ranks} {out['backend']} ranks on one card (no scaling number: they "
+        f"share it): {len(rows)} systems, iterations {its}, {wall:.2f} s (control "
+        f"{out['control_wall_s']:.2f} s), {out['ms_per_product']:.1f} ms per sharded product "
+        f"({products} counted + {frozen} frozen); K8 per rank, all ranks at once, "
+        f"{out['k8_shared_ms']} ms; K8 launches per rank "
+        f"{[r['rbf_matvec_rect'] for r in out['launches']]}; collectives per rank "
+        f"{out['collectives']}; host ms per collective (rank 0) {out['staging'][0]}")
+    return out
+
+
+def phase_shard(torch, device="cuda", n=SHARD_N, ranks=SHARD_RANKS, nccl=True):
+    """check-shard on one NCCL rank, then main-shard's control, then one
+    spawn of ``ranks`` gloo ranks that runs check-shard's cases and
+    main-shard's replay.  Returns ``{"check_shard": ..., "main_shard": ...}``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from repro_torch.launch import run_ranks
+
+    check_args, lsq_bound = check_shard_inputs(torch)
+    check_args = (*check_args, device)
+    report = {"check_shard": {}}
+    if nccl:
+        t0 = time.perf_counter()
+        out = run_ranks(shard_world_rank, 1, backend="nccl", device=device,
+                        args=(check_args,), timeout_s=SHARD_TIMEOUT_S)
+        tag = "[check-shard nccl x1]"
+        report["check_shard"]["nccl1"] = judge_check_shard(torch, tag, out["check"], lsq_bound,
+                                                           device)
+        log(f"{tag} spawn and cases {time.perf_counter() - t0:.1f} s")
+
+    xs_np, control = shard_control(torch, device, n)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_shard_")
+    try:
+        x_path = os.path.join(workdir, "x.npy")
+        np.save(x_path, xs_np.astype(np.float64))
+        systems = [{k: c[k] for k in ("sqrt_h", "b", "x0")} for c in control]
+        t0 = time.perf_counter()
+        out = run_ranks(shard_world_rank, ranks, backend="gloo", device=device,
+                        args=(check_args, (x_path, systems, device)), timeout_s=SHARD_TIMEOUT_S)
+        spawn_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    tag = f"[check-shard gloo x{ranks}]"
+    report["check_shard"][f"gloo{ranks}"] = judge_check_shard(torch, tag, out["check"],
+                                                              lsq_bound, device)
+    report["main_shard"] = judge_main_shard(torch, out["main"], control, device, n, ranks)
+    report["main_shard"]["spawn_wall_s"] = spawn_s
+    log(f"[main-shard] one spawn of {ranks} gloo ranks for both phases: {spawn_s:.1f} s")
+    return report
+
+
 def frozen_steps(iterations, ell, chunk):
     """Masked steps the harness runs past convergence (host reads every
     ``chunk`` steps after the ``ell`` recording steps)."""
@@ -998,6 +1508,7 @@ def main() -> int:
     kernels = phase_kernels(torch, cf, peaks)
     kernels["rbf_matvec"] = rbf_k = phase_rbf(torch, rbf, peaks)
     kernels["lsmr_update"] = phase_lsmr_kernels(torch, cf, peaks)
+    kernels["rbf_matvec_rect"] = phase_rect_kernels(torch, rbf, peaks)
 
     # -- 4. small check: card against CPU ------------------------------------
     xs, ys = make_infinite_digits(400, seed=1, noise=0.10)
@@ -1051,15 +1562,10 @@ def main() -> int:
     gemv_ms = device_ms(torch, lambda: k_dense @ ones)
     log(f"[main] dense GEMV K @ v: {gemv_ms:.4f} ms")
 
-    def zero_counts():
-        for key in cf.LAUNCHES:
-            cf.LAUNCHES[key] = 0
-            cf.PLAIN_ON_CUDA[key] = 0
-
     # The main path: the paper's solver tol 1e-5.  Its counts alone go into
     # the kernels line.
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
+    _zero_counts()
     runs = laplace_runs(torch, cf.LAUNCHES, x, y, k_dense, 1e-5, "[main]")
     launches = dict(cf.LAUNCHES)
     plain_on_cuda = dict(cf.PLAIN_ON_CUDA)
@@ -1067,7 +1573,7 @@ def main() -> int:
     log(f"[main] launches {launches}; plain versions on the card {plain_on_cuda}; "
         f"peak memory {peak_gb:.2f} GB")
     # The agreement check at solver tol 1e-10, counted on its own.
-    zero_counts()
+    _zero_counts()
     tight = laplace_runs(torch, cf.LAUNCHES, x, y, k_dense, 1e-10, "[main tol=1e-10]",
                          solvers=("cg", "defcg", "spec"))
     tight_launches = dict(cf.LAUNCHES)
@@ -1152,7 +1658,7 @@ def main() -> int:
     else:
         xc, yc = x, y
     torch.cuda.reset_peak_memory_stats()
-    zero_counts()
+    _zero_counts()
     mf = laplace_runs(torch, cf.LAUNCHES, x, y, None, 1e-5, "[main-mf]",
                       solvers=("defcg",), dense=False)
     mf.update(laplace_runs(torch, cf.LAUNCHES, xc, yc, None, 1e-5, f"[main-mf n={pre_n}]",
@@ -1228,7 +1734,7 @@ def main() -> int:
     report["check_lsq"] = phase_check_lsq(torch, cf)
 
     # -- 10. the least-squares main path ----------------------------------------
-    zero_counts()
+    _zero_counts()
     lsq, lsq_systems, lsq_state = phase_main_lsq(torch, cf, peaks)
     lsq_launches = dict(cf.LAUNCHES)
     lsq_plain = dict(cf.PLAIN_ON_CUDA)
@@ -1253,7 +1759,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 11. Gauss-Newton training ---------------------------------------------
-    zero_counts()
+    _zero_counts()
     report["main_gn"], gn_batch, gn_residual = phase_main_gn(torch)
     gn_launches = dict(cf.LAUNCHES)
     gn_plain = dict(cf.PLAIN_ON_CUDA)
@@ -1273,8 +1779,16 @@ def main() -> int:
         f"{prof['other_ms']:.2f} ms other, wall {prof['wall_ms_profiled']:.2f} ms under the "
         f"profiler (device busy {prof['device_busy_share']:.0%})")
 
+    torch.cuda.empty_cache()
+
+    # -- 12./13. the sharded engine: check-shard and main-shard ---------------
+    report.update(phase_shard(torch))
+    shard_launches = report["main_shard"]["launches_summed"]
+    log(f"[main-shard] launches summed over ranks {shard_launches}; K8 alone (kernels "
+        f"phase) {kernels['rbf_matvec_rect']['ms']:.2f} ms per call")
+
     totals = {name: launches[name] + mf_launches[name] + lsq_launches[name] + gn_launches[name]
-              for name in cf.LAUNCHES}
+              + shard_launches[name] for name in cf.LAUNCHES}
     report["launch_totals"] = totals
     kernel_line = {"kernels": [
         {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

@@ -5,7 +5,8 @@ the next is its ``RecycleState`` plus the ``SolveSpec`` it runs under, a
 Nyström sketch ``(U, Λ)`` where it preconditions, and the Hessian-free
 optimizer's ``HFState`` (its recycle state, previous step and LM damping).
 With these helpers a sequence started in ``repro`` continues in
-``repro_torch`` (and back) and gives the same numbers.  Arrays cross as
+``repro_torch`` (and back) and gives the same numbers; a state given whole
+splits into a rank's share for the sharded engine.  Arrays cross as
 numpy, so neither package imports the other.
 """
 
@@ -41,6 +42,24 @@ def recycle_state_from_numpy(
             int(np.asarray(systems_solved)), dtype=torch.int32, device=device
         ),
         drift=tensor(drift).reshape(()),
+    )
+
+
+def recycle_state_shard_from_numpy(
+    W, AW, theta, systems_solved, drift, *, rank: int, world_size: int,
+    dtype: torch.dtype, device="cuda",
+) -> RecycleState:
+    """Rank ``rank``'s share of a reference :class:`RecycleState` given
+    whole: its columns ``[rank·n/p, (rank+1)·n/p)`` of ``W`` and ``AW``
+    (the layout of :class:`repro_torch.launch.SolveMesh`), the k-sized and
+    scalar leaves replicated.  Ready for ``solve(..., mesh=)`` on that rank."""
+    W, AW = np.asarray(W), np.asarray(AW)
+    n = W.shape[1]
+    if n % world_size:
+        raise ValueError(f"W has {n} columns, not divisible by {world_size} ranks")
+    cols = slice(rank * (n // world_size), (rank + 1) * (n // world_size))
+    return recycle_state_from_numpy(
+        W[:, cols], AW[:, cols], theta, systems_solved, drift, dtype=dtype, device=device
     )
 
 

@@ -13,8 +13,9 @@ factory (:func:`solve_sequence`), built for ``spec.precond`` by
 :func:`make_preconditioner`.  What the port leaves out so far raises,
 naming the ROADMAP item that brings it: ``MGeometryHarmonic`` (queue 1
 item 9), the recovery ladder and stagnation detector (item 10),
-``solve_batch`` (item 12), ``mesh=`` (item 13) and checkpointed
-sequences (item 10).
+``solve_batch`` (item 12) and checkpointed sequences (item 10).
+``solve(..., mesh=)`` runs the sharded engine
+(:mod:`repro_torch.core.sharded`) over the ranks of a solve mesh.
 """
 
 from __future__ import annotations
@@ -267,10 +268,28 @@ def solve(
     domain.  ``info.matvecs`` includes the refresh the strategy spent.
     ``M`` is the preconditioner apply for ``spec.precond`` (see
     :func:`make_preconditioner`); the least-squares methods take none.
+
+    ``mesh`` (a :class:`repro_torch.launch.SolveMesh`, from
+    :func:`repro_torch.launch.make_solve_mesh`) runs the solve split by
+    columns over the mesh's ranks (:func:`repro_torch.core.sharded.solve_sharded`):
+    every rank passes the same global ``A``, ``b`` and ``x0``; ``x`` comes
+    back whole on every rank, the returned state holds this rank's
+    columns (``SolveMesh.gather_state`` makes it whole).  ``cg``,
+    ``defcg`` and ``lsmr`` only, no preconditioner, no recovery ladder;
+    one all-reduce per cg / def-CG iteration, two per LSMR iteration.
     """
     spec = SolveSpec() if spec is None else spec
     if mesh is not None:
-        raise _not_ported("the sharded engine (mesh=)", 13)
+        if M is not None:
+            raise ValueError(
+                "the sharded engine has no preconditioner path — M must "
+                "be None when mesh= is given"
+            )
+        from repro_torch.core import sharded as sharded_mod
+
+        return sharded_mod.solve_sharded(
+            A, b, spec, state, mesh=mesh, x0=x0, record_residuals=record_residuals,
+        )
     _check_m(spec, M)
     if spec.method in _LSQ_METHODS:
         if M is not None:

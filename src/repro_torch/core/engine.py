@@ -119,3 +119,26 @@ def run_recording_loop(
         for _ in range(CHUNK):
             state = step(state, active_fn(state), None)
     return state
+
+
+def psum_merged(parts, mesh):
+    """Batch several small reductions into ONE ``all_reduce``.
+
+    ``parts`` are per-rank partial reductions (0-d or 1-d tensors, e.g.
+    ``[pᵀap, rᵀap, apᵀap, AW@ap]``): packed into one flat buffer of their
+    common dtype, summed over ``mesh``'s ranks by one collective
+    (:meth:`repro_torch.launch.SolveMesh.all_reduce`, which counts it), and
+    unpacked to their own shapes and dtypes.  Every in-loop reduction of
+    the sharded engine rides this one call: one all-reduce per cg / def-CG
+    iteration, two per LSMR iteration (DESIGN.md §5).
+    """
+    dtype = parts[0].dtype
+    for p in parts[1:]:
+        dtype = torch.promote_types(dtype, p.dtype)
+    flats = [p.reshape(-1).to(dtype) for p in parts]
+    red = mesh.all_reduce(torch.cat(flats))
+    out, off = [], 0
+    for p, f in zip(parts, flats):
+        out.append(red[off : off + f.numel()].reshape(p.shape).to(p.dtype))
+        off += f.numel()
+    return out

@@ -6,6 +6,8 @@ the Euclidean geometry, with the refresh policy of ``spec.refresh_aw``.
 The extraction reads the recorded window once through the ``self_gram``
 kernel and rebuilds the next ``W`` and ``AW`` through the
 ``recombine_blocks`` kernel; everything between is ``(2m, 2m)`` algebra.
+Under the sharded engine (``psum_axis``, a solve mesh) the n-reductions
+are taken per rank and all-reduced, and the rest stays as it is.
 ``WindowedRecombine`` and ``MGeometryHarmonic`` come with ROADMAP queue 1
 item 9; until then :class:`MGeometryHarmonic` exists so that a spec can
 name it, and :func:`repro_torch.core.solve` refuses it.
@@ -18,6 +20,7 @@ from typing import Callable, Optional, Tuple
 
 import torch
 
+from repro_torch.core import engine
 from repro_torch.core.solvers import RecycleData
 from repro_torch.kernels import ops as kops
 
@@ -57,6 +60,7 @@ def harmonic_ritz_flat_core(
     valid: Optional[torch.Tensor] = None,
     select: str = "largest",
     jitter: float = 1e-10,
+    psum_axis=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Masked flat harmonic-Ritz extraction over ``(m, n)`` row bases.
 
@@ -65,6 +69,13 @@ def harmonic_ritz_flat_core(
     ``recombine_blocks`` over the same ``S`` gives ``[W'; AW']``.
     Returns ``(W, AW, theta, fasym)`` of shapes ``(k, n), (k, n), (k,), ()``
     where ``fasym`` is the relative asymmetry of the equilibrated ``F``.
+
+    ``psum_axis`` is the solve mesh (:class:`repro_torch.launch.SolveMesh`)
+    the n columns are split over: the stacked gram and the row norms of
+    the new ``W`` — the only n-reductions here — are taken per rank and
+    all-reduced; the ``(2m, 2m)`` eigenproblems run replicated and the
+    recombination stays per rank (n is then this rank's columns).
+    ``None`` is the unsharded path, unchanged.
     """
     m = Z.shape[0]
     if k > m:
@@ -76,6 +87,8 @@ def harmonic_ritz_flat_core(
 
     S2 = torch.cat([Z, AZ], dim=0)  # (2m, n): gram + recombination
     full = kops.self_gram(S2)
+    if psum_axis is not None:
+        (full,) = engine.psum_merged([full], psum_axis)
     zz = torch.diagonal(full[:m, :m])
     F_raw = full[m:, :m]
     G = full[m:, m:]
@@ -118,6 +131,8 @@ def harmonic_ritz_flat_core(
     W, AW = WA[:k], WA[k:]
 
     wsq = torch.sum(W * W, dim=1)
+    if psum_axis is not None:
+        (wsq,) = engine.psum_merged([wsq], psum_axis)
     wn = torch.sqrt(torch.clamp(wsq, min=torch.finfo(u.dtype).tiny))
     col_scale = torch.where(slot_ok, 1.0 / wn, 0.0).to(W.dtype)
     return W * col_scale[:, None], AW * col_scale[:, None], theta, fasym
@@ -133,9 +148,12 @@ def extract_next_basis_core(
     *,
     select: str = "largest",
     jitter: float = 1e-10,
+    psum_axis=None,
 ):
     """One cross-system extraction over ``Z = [W, P]`` with a device-side
-    validity mask: W rows where nonzero, P rows below ``stored``."""
+    validity mask: W rows where nonzero, P rows below ``stored``.
+    ``psum_axis`` (see :func:`harmonic_ritz_flat_core`) all-reduces the W
+    rows' norms with the gram's reductions."""
     ell = p_flat.shape[0]
     p_valid = torch.arange(ell, device=p_flat.device) < stored
     if w_flat is None:
@@ -143,10 +161,12 @@ def extract_next_basis_core(
     else:
         Z = torch.cat([w_flat, p_flat], dim=0)
         AZ = torch.cat([aw_flat, ap_flat], dim=0)
-        w_valid = torch.sum(w_flat * w_flat, dim=1) > 0
-        valid = torch.cat([w_valid, p_valid])
+        wsq = torch.sum(w_flat * w_flat, dim=1)
+        if psum_axis is not None:
+            (wsq,) = engine.psum_merged([wsq], psum_axis)
+        valid = torch.cat([wsq > 0, p_valid])
     return harmonic_ritz_flat_core(
-        Z, AZ, k, valid=valid, select=select, jitter=jitter
+        Z, AZ, k, valid=valid, select=select, jitter=jitter, psum_axis=psum_axis
     )
 
 

@@ -1,13 +1,19 @@
-// Hand-written Hopper (sm_90a) kernel for the matrix-free RBF Gram matvec.
+// Hand-written Hopper (sm_90a) kernels for the matrix-free RBF Gram matvec.
 //
-// Replaces rbf_matvec_pallas (src/repro/kernels/rbf_matvec.py:77):
+// rbf_matvec_* replaces rbf_matvec_pallas (src/repro/kernels/rbf_matvec.py:77):
 //
 //   Y = theta^2 * exp(-1/2 |x_i - x_j|^2 / lambda^2) V      (X: (n, d), V: (n, r))
 //
-// with the Gram tiles formed and consumed on chip, never stored.  The entry
-// point takes separate row and column data (rows (m, d), columns (n, d)), so
-// the rectangular form of rbf_matvec_rect_pallas (rbf_matvec.py:134) is the
-// same kernel with two pointers.
+// with the Gram tiles formed and consumed on chip, never stored.
+// rbf_matvec_rect_* replaces rbf_matvec_rect_pallas (rbf_matvec.py:134), the
+// per-rank product of the sharded RBF operator: rows X_rows (m, d) of this
+// rank against every column X_cols (n, d), Y (m, r) = K(X_rows, X_cols) V.
+// As in Pallas, where the rectangular kernel is _rbf_matvec_kernel unchanged
+// on another grid, both entry points launch the same kernels below; the
+// rectangular one always computes the column norms over X_cols apart from
+// the row norms, and its grid is (ceil(m / 64) row tiles) x (splits).  With
+// m = n / 8 (eight ranks) there are few row tiles, so the launcher's split
+// count grows to keep about 2048 blocks in flight.
 //
 // What bounds it: operations.  One call does 2 m n d flops for the cross
 // term X_i X_j^T, ~8 m n for the distances and exp, and 2 m n r for the
@@ -16,6 +22,8 @@
 // columns are the same X, K is symmetric and the function needs each pair
 // only once (an off-diagonal tile K_ij serves both Y_i and Y_j): about
 // 1.05 TFLOP, the work its bound counts.  This kernel forms every tile.
+// The rectangular block has no symmetry: its bound is the full
+// 2 m n d + 2 m n r + 8 m n (1.06e11 at m = 4 096, n = 16 384, d = 784).
 //
 // Design (a simple SIMT kernel that is right first; no tensor cores: TF32
 // would lose the digits that |x_i|^2 + |x_j|^2 - 2 x_i.x_j cancels, and the
@@ -287,3 +295,21 @@ int launch_rbf_matvec(const void* x_rows, const void* x_cols, void* sq_rows,
 
 REPRO_RBF_MATVEC_ENTRY_POINT(float, f32)
 REPRO_RBF_MATVEC_ENTRY_POINT(double, f64)
+
+// K8: the same launch on (m rows x n columns).  The caller passes distinct
+// norm buffers for X_rows (m) and X_cols (n), so both passes of the norm
+// pre-kernel run.
+#define REPRO_RBF_MATVEC_RECT_ENTRY_POINT(T, SUFFIX)                           \
+  extern "C" int rbf_matvec_rect_##SUFFIX(                                     \
+      const void* x_rows, const void* x_cols, void* sq_rows, void* sq_cols,    \
+      int64_t m, int64_t n, int d, const void* v, int r, double inv_ls,        \
+      double theta2, int splits, int64_t cols_per_split, void* partials,       \
+      void* y, void* stream) {                                                 \
+    if (sq_rows == sq_cols) return (int)cudaErrorInvalidValue;                 \
+    return launch_rbf_matvec<T>(x_rows, x_cols, sq_rows, sq_cols, m, n, d, v,  \
+                                r, inv_ls, theta2, splits, cols_per_split,     \
+                                partials, y, stream);                          \
+  }
+
+REPRO_RBF_MATVEC_RECT_ENTRY_POINT(float, f32)
+REPRO_RBF_MATVEC_RECT_ENTRY_POINT(double, f64)

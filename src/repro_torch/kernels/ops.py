@@ -55,6 +55,29 @@ def rbf_matvec(
     return ref.rbf_matvec(x, v, theta, lengthscale)
 
 
+def rbf_matvec_rect(
+    x_rows: torch.Tensor,
+    x_cols: torch.Tensor,
+    v: torch.Tensor,
+    theta: float,
+    lengthscale: float,
+    *,
+    backend: str = "auto",
+    block: int = 1024,
+) -> torch.Tensor:
+    """Rectangular Gram matvec ``K(X_rows, X_cols) @ v`` without forming
+    the (m, n) block (except the ``reference`` oracle): the per-rank
+    product of the sharded RBF operator, this rank's rows against all
+    columns.  ``x_rows`` is (m, d), ``x_cols`` (n, d), ``v`` (n,) or
+    (n, r); the result (m,) or (m, r)."""
+    backend = _resolve(backend, x_rows)
+    if backend == "cuda":
+        return rbf_mod.rbf_matvec_rect_cuda(x_rows, x_cols, v, theta, lengthscale)
+    if backend == "plain":
+        return rbf_mod.rbf_matvec_rect_plain(x_rows, x_cols, v, theta, lengthscale, block)
+    return ref.rbf_matvec_rect(x_rows, x_cols, v, theta, lengthscale)
+
+
 def fused_cg_update(
     x: torch.Tensor,
     r: torch.Tensor,

@@ -30,6 +30,21 @@ def rbf_matvec(
     return rbf_gram(x, theta, lengthscale) @ v
 
 
+def rbf_matvec_rect(
+    x_rows: torch.Tensor,
+    x_cols: torch.Tensor,
+    v: torch.Tensor,
+    theta: float,
+    lengthscale: float,
+) -> torch.Tensor:
+    """``K(X_rows, X_cols) @ v`` by materializing the rectangular Gram
+    block — oracle for the sharded operator's row-block kernel."""
+    xr = x_rows / lengthscale
+    xc = x_cols / lengthscale
+    d2 = torch.sum(xr * xr, 1)[:, None] + torch.sum(xc * xc, 1)[None, :] - 2.0 * (xr @ xc.T)
+    return (theta**2) * torch.exp(-0.5 * torch.clamp(d2, min=0.0)) @ v
+
+
 def fused_cg_update(x, r, p, ap, alpha, aw=None):
     """``(x + α p, r − α ap, ‖r_new‖², AW @ r_new | None)``."""
     x_new = x + alpha * p

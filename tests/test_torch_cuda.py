@@ -11,15 +11,22 @@ machine does not need to have).  Tolerances: f64 1e-12 relative, f32
 Gram matvec 2e-4 relative / 5e-4 absolute (``tests/test_kernels.py``).
 ``self_gram`` and ``recombine_blocks`` are held up to 128 stacked rows,
 the windows of the least-squares path (lsq_bench's k + ℓ = 56 gives 112).
+``rbf_matvec_rect`` (K8) is held at ``chip_smoke.py``'s shapes (the
+sharded main path's per-rank blocks at 4 and 8 ranks, the paper's n at
+4 ranks, a ragged block), and one sharded def-CG solve runs on one rank
+over NCCL against the unsharded solve on the card.
 """
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+import torch_sharded_cases as cases  # noqa: E402
 from repro_torch.kernels import cg_fused  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rbf_matvec as rbf  # noqa: E402
+from repro_torch.launch import run_ranks  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -104,6 +111,53 @@ def test_rbf_matvec_vector_and_transposed_rhs(device):
     basis = rnd(8, 700)
     _assert_close(kops.rbf_matvec(x, basis.T, 1.5, 2.0),
                   rbf.rbf_matvec_plain(x, basis.T, 1.5, 2.0), torch.float64)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mnd", [(4096, 16384, 784), (2048, 16384, 784),
+                                 (9138, 36552, 784), (1000, 3001, 784), (1, 5, 3)])
+@pytest.mark.parametrize("r", [1, 8])
+def test_rbf_matvec_rect(device, dtype, mnd, r):
+    m, n, d = mnd
+    rnd = _gen(device, dtype, m + n + r)
+    xr, xc, v = rnd(m, d), rnd(n, d), rnd(n, r)
+    ls = 3.0 * d**0.5 / 6.0
+    k3 = cg_fused.LAUNCHES["rbf_matvec"]
+    k8 = cg_fused.LAUNCHES["rbf_matvec_rect"]
+    got = rbf.rbf_matvec_rect_cuda(xr, xc, v, 3.0, ls)
+    assert cg_fused.LAUNCHES["rbf_matvec_rect"] == k8 + 1
+    assert cg_fused.LAUNCHES["rbf_matvec"] == k3
+    want = rbf.rbf_matvec_rect_plain(xr, xc, v, 3.0, ls)
+    assert got.shape == (m, r)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=5e-4)
+    else:
+        _assert_close(got, want, dtype)
+    assert torch.equal(got, rbf.rbf_matvec_rect_cuda(xr, xc, v, 3.0, ls))
+
+
+def test_rbf_matvec_rect_square_case_is_k3(device):
+    """With the same X for rows and columns K8 computes K3's product."""
+    rnd = _gen(device, torch.float64, 2)
+    x, v = rnd(700, 30), rnd(700, 3)
+    _assert_close(kops.rbf_matvec_rect(x, x, v, 1.5, 2.0), kops.rbf_matvec(x, v, 1.5, 2.0),
+                  torch.float64)
+
+
+def test_sharded_defcg_on_one_nccl_rank(device):
+    """The RBF system at n = 256 by sharded def-CG on one NCCL rank: every
+    product through K8, no K3 and no plain version on the card, x to 1e-10
+    of the unsharded solve on the card."""
+    rng = np.random.default_rng(1)
+    x, sqrt_h, b = rng.standard_normal((256, 3)), 0.5 + rng.random(256), rng.standard_normal(256)
+    out = run_ranks(cases.rbf_case, 1, backend="nccl", device="cuda",
+                    args=(x, sqrt_h, b, "cuda"), timeout_s=120)
+    assert out["converged"]
+    np.testing.assert_allclose(out["x"], out["unsharded_x"], rtol=0, atol=1e-10)
+    (launches,), (plain,) = out["launches"], out["plain_on_cuda"]
+    assert launches["rbf_matvec_rect"] > 0 and launches["rbf_matvec"] == 0
+    assert launches["fused_cg_update"] > 0 and launches["self_gram"] > 0
+    assert not any(plain.values())
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

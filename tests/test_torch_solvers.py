@@ -272,7 +272,8 @@ def test_unported_paths_raise():
     with pytest.raises(NotImplementedError, match="item 9"):
         tc.solve(A, b, tc.SolveSpec(precond="jacobi", strategy=tc.MGeometryHarmonic()),
                  M=lambda v: v)
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # mesh= runs the sharded engine now; what is not a solve mesh is refused.
+    with pytest.raises(ValueError, match="SolveMesh"):
         tc.solve(A, b, tc.SolveSpec(), mesh=object())
     with pytest.raises(NotImplementedError, match="item 10"):
         tc.solve(A, b, tc.SolveSpec(stagnation_window=5))
