@@ -103,16 +103,47 @@ Phases, each of which fails the script when it fails:
               The 4-rank cases of 12 and the replay of 13 run in one spawn
               (starting ranks on the card takes tens of seconds).
 
-Each main path (5, 7, 10, 11 and 13) is driven with the launch counters set
-to 0 just before it and read just after (13: on every rank); the
-``{"kernels": [...]}`` JSON line gives each kernel's launches summed over
-the five (13: over its ranks).  Last comes the
+14. check-lm — flash attention (K9) and the SSD scan (K10) against their
+              plain versions on the card, f32 (2e-4 / 5e-4) and bf16 (2e-2 /
+              5e-2; the SSD scan relative to its output's scale), at
+              ``tests/test_kernels.py``'s shapes, qwen1.5-0.5b's prefill
+              (4 × 16 heads × 4 096, dh 64, causal), a GQA shape at dh 128
+              (32 over 8 heads), a ragged causal block with an offset, and
+              mamba2-1.3b's prefill (4 × 4 096, 64 heads × 64, n 128, chunk
+              128) with and without state in and out; two launches of each
+              must agree bit for bit.
+15. main-lm-attn — qwen1.5-0.5b serves at full width (24 layers, d 1024,
+              vocab 151 936; f32 weights from a generator seeded 0, bf16
+              compute): 4 prompts of 4 096 tokens from ``TokenPipeline``,
+              ``prefill`` and 32 greedy ``decode_step``s.  Then, counted
+              apart: the same through the plain versions (fed the same
+              tokens), held on the prefill and first decode logits at the
+              bf16 bar relative to the logits' scale; an f32 control of
+              both, held element by element at the f32 bar (bf16 rounding
+              noise alone moves some logits past the bf16 bar element by
+              element: ROADMAP P7); a teacher-forced decode of the first 64
+              tokens against ``forward_hidden`` at 2e-2, held in f32;
+              ``torch.profiler`` over one prefill and over 8 decode steps.
+16. main-lm-ssm — the same for mamba2-1.3b (48 layers, d 2048, 64 SSD
+              heads × 64, state 128, vocab 50 280).
+17. timing  — K9 at qwen1.5's prefill shape and at prefill_32k's 32 768
+              tokens (b 1), K10 at mamba2's: kernel, plain version,
+              ``scaled_dot_product_attention`` as K9's yardstick (never on
+              the path), and the bound (bf16 operations at 989 TFLOP/s
+              against bytes read once at 3.35 TB/s).
+
+Each main path (5, 7, 10, 11, 13, 15 and 16) is driven with the launch
+counters set to 0 just before it and read just after (13: on every rank);
+the ``{"kernels": [...]}`` JSON line gives each kernel's launches summed
+over the seven (13: over its ranks).  Last comes the
 ``{"ok": true, "device": {...}}`` line; the full report also goes to
 ``chiprun_out/chip_smoke.json``.
+``--lm-only`` runs phases 1, 2 and 14–17 alone and prints no ok line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -149,7 +180,7 @@ CUT_MS = 250.0
 # card name.
 PEAKS = {
     "H100": {"bytes": 3.35e12, "float64": 34e12, "float32": 67e12,
-             "float64_tensor": 67e12},
+             "float64_tensor": 67e12, "bfloat16_tensor": 989e12},
 }
 GEMM_SHAPED = ("self_gram", "recombine_blocks")
 
@@ -178,6 +209,32 @@ SHARD_N, SHARD_RANKS, SHARD_TOL, SHARD_TIMEOUT_S = CUT_N, 4, 1e-5, 300.0
 # ranks (36 552 = 4 · 9 138), a ragged block; r: a product, the A·W refresh.
 K8_SHAPES = ((SHARD_N // 4, SHARD_N), (SHARD_N // 8, SHARD_N), (9138, 36552), (1000, 3001))
 K8_RS = (1, K)
+# The model zoo's serving paths at full width (configs/qwen1_5_0_5b.py,
+# configs/mamba2_1_3b.py): 4 prompts of 4 096 tokens, 32 greedy decode
+# steps, teacher-forced decode of the first 64 tokens.
+LM_PATHS = {
+    "main-lm-attn": {"arch": "qwen1.5-0.5b", "batch": 4, "prompt": 4096, "decode": 32,
+                     "teacher": 64, "kernel": "flash_attention_kernel"},
+    "main-lm-ssm": {"arch": "mamba2-1.3b", "batch": 4, "prompt": 4096, "decode": 32,
+                    "teacher": 64, "kernel": "ssd_scan_kernel"},
+}
+LM_PATH_KERNELS = {"main-lm-attn": ("flash_attention",), "main-lm-ssm": ("ssd_scan",)}
+LM_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (2e-2, 5e-2)}  # tests/test_kernels.py
+# K9 (b, h, hkv, sq, sk, dh, causal, q_offset): tests/test_kernels.py's
+# ATTN_CASES, qwen1.5-0.5b's prefill, a GQA shape at dh = 128, a ragged
+# causal block with an offset; timed at the prefill and at prefill_32k's
+# length (configs/registry.py SHAPES) with b = 1.
+ATTN_MAIN = (4, 16, 16, 4096, 4096, 64, True, 0)
+ATTN_LONG = (1, 16, 16, 32768, 32768, 64, True, 0)
+ATTN_CHECK = ((2, 4, 2, 64, 64, 32, False, 0), (1, 8, 2, 96, 96, 64, True, 0),
+              (2, 4, 4, 1, 133, 64, True, 132), (1, 2, 1, 40, 200, 16, False, 0),
+              (1, 16, 2, 33, 33, 128, True, 0), ATTN_MAIN, (1, 32, 8, 2048, 2048, 128, True, 0),
+              (2, 4, 1, 70, 150, 64, True, 80))
+LONG_REPS = 3
+# K10 (b, l, h, p, g, n, chunk): SSD_CASES and mamba2-1.3b's prefill.
+SSD_MAIN = (4, 4096, 64, 64, 1, 128, 128)
+SSD_CHECK = ((1, 64, 2, 16, 1, 16, 32), (2, 100, 4, 8, 2, 24, 32), (1, 37, 2, 4, 2, 8, 16),
+             (2, 128, 8, 32, 1, 64, 64), SSD_MAIN)
 
 # Which TPU kernel each port kernel replaces, and the port's source.
 REPLACES = {
@@ -189,9 +246,13 @@ REPLACES = {
     "fused_rz_reduce": "src/repro/kernels/cg_fused.py:252",
     "lsmr_update": "src/repro/kernels/cg_fused.py:336",
     "rbf_matvec_rect": "src/repro/kernels/rbf_matvec.py:134",
+    "flash_attention": "src/repro/kernels/flash_attention.py:116",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:92",
 }
 SOURCES = dict.fromkeys(REPLACES, "src/repro_torch/csrc/cg_fused.cu")
 SOURCES["rbf_matvec"] = SOURCES["rbf_matvec_rect"] = "src/repro_torch/csrc/rbf_matvec.cu"
+SOURCES["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
+SOURCES["ssd_scan"] = "src/repro_torch/csrc/ssd_scan.cu"
 DENSE_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "self_gram",
                       "recombine_blocks")
 MF_PATH_KERNELS = DENSE_PATH_KERNELS + ("rbf_matvec", "fused_rz_reduce")
@@ -1457,6 +1518,410 @@ def phase_shard(torch, device="cuda", n=SHARD_N, ranks=SHARD_RANKS, nccl=True):
     return report
 
 
+# ---------------------------------------------------------------------------
+# The model zoo's serving path: check-lm, main-lm-attn, main-lm-ssm, timing
+# ---------------------------------------------------------------------------
+
+
+def logit_gap(got, want, tol):
+    """Max and mean abs gap of two tensors, the share of elements past
+    ``atol + rtol·|want|``, and the share past it on values divided by the
+    scale ``max(1, max |want|)`` (how the kernel tests hold the SSD scan's
+    outputs)."""
+    rtol, atol = tol
+    want = want.float()
+    err = (got.float() - want).abs()
+    scale = max(1.0, float(want.abs().max()))
+    return {"max_abs": float(err.max()), "mean_abs": float(err.mean()), "scale": scale,
+            "outside": float((err > atol + rtol * want.abs()).float().mean()),
+            "outside_scaled": float((err / scale > atol + rtol * want.abs() / scale)
+                                    .float().mean())}
+
+
+def lm_close(torch, got, want, dname, what, scaled=False):
+    """Max abs error of ``got`` against ``want``; raises past the tolerance
+    of ``tests/test_kernels.py`` for ``dname`` (elementwise rtol/atol, or
+    on values divided by the output's scale for the SSD scan)."""
+    if got.shape != want.shape or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: bad output shape or non-finite values")
+    gap = logit_gap(got, want, LM_TOL[dname])
+    if gap["outside_scaled" if scaled else "outside"] > 0:
+        raise AssertionError(f"{what}: max abs error {gap['max_abs']:.3e} (scale "
+                             f"{gap['scale']:.3e}) past rtol/atol {LM_TOL[dname]}")
+    return gap["max_abs"]
+
+
+def attn_inputs(torch, b, h, hkv, sq, sk, dh, dtype, seed, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(b, n, s, dh, generator=g, device=device).to(dtype)
+                 for n, s in ((h, sq), (hkv, sk), (hkv, sk)))
+
+
+def ssd_inputs(torch, b, l, h, p, g, n, dtype, seed, device="cuda"):
+    """x, dt, a, B, C, D and a state: the ranges of ``tests/test_kernels.py``."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device=device)
+
+    dt = 0.01 + 0.39 * torch.rand(b, l, h, generator=gen, device=device)
+    a = -(0.3 + 1.7 * torch.rand(h, generator=gen, device=device))
+    return (rnd(b, l, h, p).to(dtype), dt, a, rnd(b, l, g, n).to(dtype),
+            rnd(b, l, g, n).to(dtype), rnd(h), rnd(b, h, p, n))
+
+
+def phase_check_lm(torch, device="cuda"):
+    """K9 and K10 against their plain versions on the card, at the kernel
+    tests' shapes and the serving paths' own, f32 and bf16, plus a
+    bit-for-bit repeat; returns the worst abs error at the main shapes."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).split(".")[-1]
+        for case in ATTN_CHECK:
+            b, h, hkv, sq, sk, dh, causal, off = case
+            q, k, v = attn_inputs(torch, b, h, hkv, sq, sk, dh, dtype, seed=sum(case[:6]),
+                                  device=device)
+            got = fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+            want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off)
+            _sync(torch, device)
+            err = lm_close(torch, got, want, dname, f"flash_attention {case} {dname}")
+            log(f"[check-lm] flash_attention {case} {dname}: max abs err {err:.3e}")
+            if case == ATTN_MAIN:
+                worst["flash_attention"] = max(worst["flash_attention"], err)
+        for case in SSD_CHECK:
+            b, l, h, p, g, n, chunk = case
+            x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, b, l, h, p, g, n, dtype, seed=sum(case),
+                                                 device=device)
+            for state in (False, True):
+                kw = dict(chunk=chunk, initial_state=h0 if state else None, return_state=state)
+                got = ss.ssd_scan_cuda(x, dt, a, bm, cm, d, **kw)
+                want = ss.ssd_plain(x, dt, a, bm, cm, d, **kw)
+                _sync(torch, device)
+                got, want = (got, want) if state else ((got,), (want,))
+                errs = [lm_close(torch, gv, wv, dname, f"ssd_scan {case} {dname} state={state}",
+                                 scaled=True) for gv, wv in zip(got, want)]
+                log(f"[check-lm] ssd_scan {case} {dname} state={state}: max abs err "
+                    + ", ".join(f"{e:.3e}" for e in errs) + (" (y, final state)" if state else ""))
+                if case == SSD_MAIN:
+                    worst["ssd_scan"] = max(worst["ssd_scan"], *errs)
+    # Two launches on the same inputs agree bit for bit (no atomics).
+    q, k, v = attn_inputs(torch, *ATTN_MAIN[:6], torch.bfloat16, seed=1, device=device)
+    x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, *SSD_MAIN[:6], torch.bfloat16, seed=1,
+                                         device=device)
+    repeats = {
+        "flash_attention": lambda: (fa.flash_attention_cuda(q, k, v, causal=True),),
+        "ssd_scan": lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, d, initial_state=h0,
+                                             return_state=True),
+    }
+    for name, fn in repeats.items():
+        if not all(torch.equal(u, w) for u, w in zip(fn(), fn())):
+            raise AssertionError(f"[check-lm] {name}: two launches differ")
+        log(f"[check-lm] {name}: two launches bitwise equal")
+    return worst
+
+
+def lm_serve(torch, model, cfg, tokens, backend, decode_steps, feed=None):
+    """Prefill ``tokens`` (b, s) and take ``decode_steps`` greedy decode
+    steps through the serving entry points; host clock around each part,
+    ended by a synchronize.  With ``feed`` (b, decode_steps + 1) the decode
+    steps take its tokens instead of their own argmax (which is still
+    recorded in ``greedy``), so two runs can be compared step for step."""
+    from repro_torch import models
+    from repro_torch.launch import make_prefill_step, make_serve_step
+
+    b, s = tokens.shape
+    prefill = make_prefill_step(cfg, s + decode_steps, backend=backend)
+    serve = make_serve_step(cfg, backend=backend)
+    state = models.init_decode_state(cfg, b, s + decode_steps, device=tokens.device)
+    _sync(torch, tokens.device)
+    t0 = time.perf_counter()
+    state, last = prefill(model, {"tokens": tokens}, state)
+    _sync(torch, tokens.device)
+    prefill_s = time.perf_counter() - t0
+    tok = last[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
+    greedy, first = [tok], None
+    t0 = time.perf_counter()
+    for i in range(decode_steps):
+        logits, state = serve(model, tok if feed is None else feed[:, i : i + 1], state)
+        if first is None:
+            first = logits
+        tok = logits[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
+        greedy.append(tok)
+    _sync(torch, tokens.device)
+    decode_s = time.perf_counter() - t0
+    return {"prefill_s": prefill_s, "decode_s": decode_s, "last": last, "first": first,
+            "greedy": torch.cat(greedy, dim=1), "state": state}
+
+
+def profile_serving(torch, fn, kernel, device="cuda"):
+    """``torch.profiler`` over one call of ``fn``: device time of
+    ``kernel`` (the CUDA kernel's symbol contains the name) and of all
+    device work, launches, and wall time under the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(torch, device)
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    total_us = kernel_us = 0.0
+    launches = kernel_launches = 0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if not (_is_device(evt) and us > 0):
+            continue
+        total_us += us
+        launches += evt.count
+        if kernel in evt.key:
+            kernel_us += us
+            kernel_launches += evt.count
+    return {"device_ms": total_us / 1e3, "kernel_ms": kernel_us / 1e3,
+            "kernel_launches": kernel_launches, "launches": launches,
+            "wall_ms_profiled": wall_ms,
+            "kernel_share_of_device": kernel_us / total_us if total_us else None,
+            "device_idle_share": 1.0 - total_us / 1e3 / wall_ms if total_us else None}
+
+
+def phase_main_lm(torch, key, device="cuda"):
+    """One serving main path (``LM_PATHS[key]``) at full width: random f32
+    weights from a generator seeded 0, bf16 compute, the prompts of
+    ``TokenPipeline(vocab, batch, prompt, seed=0)``, prefill and greedy
+    decode through the kernels; then the same through the plain versions
+    and a teacher-forced decode against ``forward_hidden``, counted apart.
+    Returns (report, launches of the main run)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _runtime
+    from repro_torch.models.layers import lm_head_weights
+
+    spec = LM_PATHS[key]
+    tag = f"[{key}]"
+    cfg = get_config(spec["arch"])
+    t0 = time.perf_counter()
+    model = models.init(torch.Generator(device=device).manual_seed(0), cfg, device=device)
+    _sync(torch, device)
+    init_s = time.perf_counter() - t0
+    batch = TokenPipeline(cfg.vocab_size, spec["batch"], spec["prompt"], seed=0).make_batch(0)
+    tokens = torch.as_tensor(batch["tokens"].astype("int64"), device=device)
+    lm_serve(torch, model, cfg, tokens[:, :256], "auto", 2)  # warm-up (cuBLAS, module loads)
+
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    run = lm_serve(torch, model, cfg, tokens, "auto", spec["decode"])
+    launches = dict(_runtime.LAUNCHES)
+    plain_on_cuda = dict(_runtime.PLAIN_ON_CUDA)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
+    n_tok = tokens.numel()
+    report = {
+        "arch": cfg.name, "batch": spec["batch"], "prompt": spec["prompt"],
+        "decode_steps": spec["decode"], "layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": sum(p.numel() for p in model.parameters()), "init_s": init_s,
+        "prefill_ms": 1e3 * run["prefill_s"], "prefill_tokens_per_s": n_tok / run["prefill_s"],
+        "decode_ms_per_step": 1e3 * run["decode_s"] / spec["decode"],
+        "peak_memory_gb": peak_gb, "launches": launches, "plain_on_cuda": plain_on_cuda,
+    }
+    for name, val in (("last", run["last"]), ("first", run["first"])):
+        if not bool(torch.isfinite(val).all()):
+            raise AssertionError(f"{tag} non-finite {name} logits")
+    log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{report['params'] / 1e9:.3f} B params ({cfg.param_dtype}), {cfg.dtype} compute; prompts "
+        f"{spec['batch']} x {spec['prompt']}: prefill {report['prefill_ms']:.1f} ms "
+        f"({report['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{report['decode_ms_per_step']:.2f} ms per step ({spec['batch']} tokens), peak "
+        f"memory {peak_gb:.2f} GB; launches {launches}; plain on the card {plain_on_cuda}")
+
+    # The same run through the plain versions, counted apart, fed the
+    # kernels' greedy tokens so that every decode step reads the same
+    # token: near-tied logits of random weights flip an argmax now and then.
+    # The f32 control: the same weights and tokens at dtype float32, where
+    # bf16 rounding cannot hide a kernel fault.
+    plain = lm_serve(torch, model, cfg, tokens, "plain", spec["decode"], feed=run["greedy"])
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    k32 = lm_serve(torch, model, cfg32, tokens, "auto", 1, feed=run["greedy"])
+    p32 = lm_serve(torch, model, cfg32, tokens, "plain", 1, feed=run["greedy"])
+    same = int((run["greedy"] == plain["greedy"]).sum())
+    report.update(plain_prefill_ms=1e3 * plain["prefill_s"],
+                  plain_decode_ms_per_step=1e3 * plain["decode_s"] / spec["decode"],
+                  greedy_tokens_equal=f"{same} of {run['greedy'].numel()}",
+                  max_abs_logit=float(p32["last"].abs().max()))
+    # What is held: in f32 the kernels against the plain versions element
+    # by element at the f32 bar; in bf16 at the bf16 bar on logits divided
+    # by their scale.  Element by element the bf16 pair sits at the
+    # model's own bf16 rounding noise, which the last two pairs measure
+    # against f32 (ROADMAP P7).
+    failures = []
+    pairs = (("bf16 kernels vs plain", run, plain, "bfloat16", "outside_scaled"),
+             ("f32 kernels vs plain", k32, p32, "float32", "outside"),
+             ("bf16 kernels vs f32 plain", run, p32, "bfloat16", None),
+             ("bf16 plain vs f32 plain", plain, p32, "bfloat16", None))
+    for label, got, want, dname, held in pairs:
+        for name in ("last", "first"):
+            gap = logit_gap(got[name], want[name], LM_TOL[dname])
+            report.setdefault("logit_gaps", {})[f"{label}, {name}"] = gap
+            log(f"{tag} {label}, {'prefill' if name == 'last' else 'first decode'} logits: "
+                f"max abs {gap['max_abs']:.3e}, mean abs {gap['mean_abs']:.3e}; past rtol/atol "
+                f"{LM_TOL[dname]}: {gap['outside']:.2e} of the logits, "
+                f"{gap['outside_scaled']:.2e} relative to the scale {gap['scale']:.3f}"
+                + (f" (held: {held})" if held else " (reported)"))
+            if held and gap[held] > 0:
+                failures.append(f"{label}, {name}")
+    log(f"{tag} max |logit| {report['max_abs_logit']:.3f}; greedy tokens equal {same} of "
+        f"{run['greedy'].numel()}; plain prefill {report['plain_prefill_ms']:.1f} ms")
+    del plain, k32, p32
+
+    # Teacher-forced decode of the first tokens against forward_hidden:
+    # the cache / state invariant of tests/test_archs_smoke.py at its
+    # 2e-2, held in f32; in bf16 reported (the forward's f32 scores and
+    # the decode read's bf16 ones round apart by the bf16 noise above).
+    head = tokens[:, : spec["teacher"]]
+    for c in (cfg, cfg32):
+        hidden, _ = models.forward_hidden(model, {"tokens": head}, c)
+        full = (hidden @ lm_head_weights(model.embed, c)).float()
+        state = models.init_decode_state(c, head.shape[0], head.shape[1], device=device)
+        steps = []
+        for t in range(head.shape[1]):
+            logits, state = models.decode_step(model, head[:, t : t + 1], state, c)
+            steps.append(logits[:, 0])
+        gap = logit_gap(torch.stack(steps, dim=1), full, (2e-2, 2e-2))
+        report.setdefault("teacher_forced", {})[c.dtype] = gap
+        held = c.dtype == "float32"
+        log(f"{tag} teacher-forced decode of {spec['teacher']} tokens vs forward_hidden, "
+            f"{c.dtype}: max abs {gap['max_abs']:.3e}, mean abs {gap['mean_abs']:.3e}; past "
+            f"2e-2 + 2e-2·|logit|: {gap['outside']:.2e} of the logits"
+            + (" (held)" if held else " (reported)"))
+        if held and gap["outside"] > 0:
+            failures.append(f"teacher-forced {c.dtype}")
+    if failures:
+        raise AssertionError(f"{tag} logits past their bars: {failures}")
+
+    # Profiles of one prefill and of decode steps, counted apart.
+    prof_prefill = profile_serving(
+        torch, lambda: lm_serve(torch, model, cfg, tokens, "auto", 0), spec["kernel"], device)
+    prof_decode = profile_serving(
+        torch, lambda: lm_serve(torch, model, cfg, tokens[:, :16], "auto", 8), spec["kernel"],
+        device)
+    report["profile_prefill"], report["profile_decode_8"] = prof_prefill, prof_decode
+    share = lambda v: "not measured" if v is None else f"{v:.1%}"  # noqa: E731
+    log(f"{tag} profile prefill: {prof_prefill['kernel_launches']} {spec['kernel']} launches, "
+        f"{prof_prefill['kernel_ms']:.1f} of {prof_prefill['device_ms']:.1f} ms device time "
+        f"({share(prof_prefill['kernel_share_of_device'])}), {prof_prefill['launches']} device "
+        f"launches, wall {prof_prefill['wall_ms_profiled']:.1f} ms under the profiler, device "
+        f"idle {share(prof_prefill['device_idle_share'])}")
+    log(f"{tag} profile 16-token prefill + 8 decode steps: {prof_decode['launches']} device "
+        f"launches, device {prof_decode['device_ms']:.1f} ms in {prof_decode['wall_ms_profiled']:.1f} "
+        f"ms wall, device idle {share(prof_decode['device_idle_share'])}")
+    del model, run
+    if on_card:
+        torch.cuda.empty_cache()
+    return report, launches
+
+
+def attn_work(b, h, hkv, sq, sk, dh, causal, itemsize):
+    """(bytes, operations): q, k, v read once and o written once;
+    4·b·h·sq·sk·dh flops, halved under causal masking."""
+    nbytes = (2 * b * h * sq * dh + 2 * b * hkv * sk * dh) * itemsize
+    ops = 4 * b * h * sq * sk * dh
+    return nbytes, ops / 2 if causal else ops
+
+
+def ssd_work(b, l, h, p, g, n, c, itemsize):
+    """(bytes, operations): x, B, C, y in the working dtype and dt in f32,
+    once each; 2c²(n + p) + 4c·p·n flops per chunk and head."""
+    nbytes = (2 * b * l * h * p + 2 * b * l * g * n) * itemsize + 4 * b * l * h
+    chunks = -(-l // c)
+    return nbytes, b * h * chunks * (2 * c * c * (n + p) + 4 * c * p * n)
+
+
+def phase_timing_lm(torch, peaks, worst, device="cuda"):
+    """K9 at qwen1.5-0.5b's prefill shape and at prefill_32k's length (b 1),
+    K10 at mamba2-1.3b's: kernel, plain version, the library yardstick
+    (``scaled_dot_product_attention`` for K9; none computes the SSD scan)
+    and the bound, bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    out = {}
+    for label, case, reps in (("main", ATTN_MAIN, REPS), ("32k", ATTN_LONG, LONG_REPS)):
+        b, h, hkv, sq, sk, dh, causal, _ = case
+        q, k, v = attn_inputs(torch, b, h, hkv, sq, sk, dh, torch.bfloat16, seed=2,
+                              device=device)
+        nbytes, ops = attn_work(b, h, hkv, sq, sk, dh, causal, 2)
+        t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["bfloat16_tensor"]
+        out[label] = t = {
+            "shape": case,
+            "ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=causal), reps),
+            "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                                  reps),
+            "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), reps),
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        t["tflop_s"] = ops / t["ms"] / 1e9
+        log(f"[timing] flash_attention {case} bf16: kernel {t['ms']:.3f} ms "
+            f"({t['tflop_s']:.1f} TFLOP/s), plain {t['plain_ms']:.3f} ms, "
+            f"scaled_dot_product_attention {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+            f"({t['bound_by']})")
+    k9 = dict(out["main"], max_abs_err=worst["flash_attention"], at_32k=out["32k"])
+
+    b, l, h, p, g, n, c = SSD_MAIN
+    x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, b, l, h, p, g, n, torch.bfloat16, seed=2,
+                                         device=device)
+    nbytes, ops = ssd_work(b, l, h, p, g, n, c, 2)
+    t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["bfloat16_tensor"]
+    k10 = {
+        "shape": SSD_MAIN, "max_abs_err": worst["ssd_scan"],
+        "ms": device_ms(torch, lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, d, chunk=c)),
+        "plain_ms": device_ms(torch, lambda: ss.ssd_plain(x, dt, a, bm, cm, d, chunk=c), 5),
+        "library_ms": None,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    k10["stateful_ms"] = device_ms(torch, lambda: ss.ssd_scan_cuda(
+        x, dt, a, bm, cm, d, chunk=c, initial_state=h0, return_state=True))
+    k10["tflop_s"] = ops / k10["ms"] / 1e9
+    log(f"[timing] ssd_scan {SSD_MAIN} bf16: kernel {k10['ms']:.3f} ms ({k10['tflop_s']:.1f} "
+        f"TFLOP/s; with state in and out {k10['stateful_ms']:.3f} ms), plain "
+        f"{k10['plain_ms']:.3f} ms, library null (no PyTorch call computes the scan), bound "
+        f"{k10['bound_ms']:.4f} ms ({k10['bound_by']})")
+    return {"flash_attention": k9, "ssd_scan": k10}
+
+
+def phase_lm(torch, peaks, report, device="cuda"):
+    """check-lm, main-lm-attn, main-lm-ssm and the timing of K9 and K10.
+    Each main path runs with the counters set to 0 just before it and read
+    just after; its kernel must have launched and no plain version may
+    have run on the card.  Returns (K9/K10 kernel entries, launches per
+    path)."""
+    worst = phase_check_lm(torch, device)
+    report["check_lm"] = worst
+    launches = {}
+    for key in LM_PATHS:
+        report[key], launches[key] = phase_main_lm(torch, key, device)
+        if not all(launches[key][k] for k in LM_PATH_KERNELS[key]):
+            raise AssertionError(f"[{key}] a kernel never launched: {launches[key]}")
+        if any(report[key]["plain_on_cuda"].values()):
+            raise AssertionError(f"[{key}] plain versions ran on the card: "
+                                 f"{report[key]['plain_on_cuda']}")
+    return phase_timing_lm(torch, peaks, worst, device), launches
+
+
+def kernel_entry(name, entry, launches):
+    return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches, "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
+            "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+            "bound_by": entry["bound_by"], "library_ms": entry["library_ms"]}
+
+
 def frozen_steps(iterations, ell, chunk):
     """Masked steps the harness runs past convergence (host reads every
     ``chunk`` steps after the ``ell`` recording steps)."""
@@ -1466,7 +1931,7 @@ def frozen_steps(iterations, ell, chunk):
     return steps - iterations
 
 
-def main() -> int:
+def main(argv) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -1503,6 +1968,13 @@ def main() -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line and "0 bytes spill" not in line:
                 log(f"[build] {src}: {line.strip()}")
+
+    if "--lm-only" in argv:  # the model zoo's phases alone: no ok line
+        lm_kernels, lm_launches = phase_lm(torch, peaks, report)
+        totals = {k: sum(launches[k] for launches in lm_launches.values()) for k in lm_kernels}
+        log(json.dumps({"kernels": [kernel_entry(k, e, totals[k])
+                                    for k, e in lm_kernels.items()]}))
+        return 0
 
     # -- 3. kernels ---------------------------------------------------------
     kernels = phase_kernels(torch, cf, peaks)
@@ -1787,17 +2259,16 @@ def main() -> int:
     log(f"[main-shard] launches summed over ranks {shard_launches}; K8 alone (kernels "
         f"phase) {kernels['rbf_matvec_rect']['ms']:.2f} ms per call")
 
+    # -- 14.–17. the model zoo's serving paths --------------------------------
+    lm_kernels, lm_launches = phase_lm(torch, peaks, report)
+    kernels.update(lm_kernels)
+
     totals = {name: launches[name] + mf_launches[name] + lsq_launches[name] + gn_launches[name]
-              + shard_launches[name] for name in cf.LAUNCHES}
+              + shard_launches[name] + sum(lm[name] for lm in lm_launches.values())
+              for name in cf.LAUNCHES}
     report["launch_totals"] = totals
-    kernel_line = {"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-         "launches": totals[name], "max_abs_err": kernels[name]["max_abs_err"],
-         "ms": kernels[name]["ms"], "plain_ms": kernels[name]["plain_ms"],
-         "bound_ms": kernels[name]["bound_ms"], "bound_by": kernels[name]["bound_by"],
-         "library_ms": kernels[name]["library_ms"]}
-        for name in cf.LAUNCHES
-    ]}
+    kernel_line = {"kernels": [kernel_entry(name, kernels[name], totals[name])
+                               for name in cf.LAUNCHES]}
     report["kernels"] = kernels
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
     with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
@@ -1809,4 +2280,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -1,13 +1,14 @@
 """Carry the reference's state into the port and back.
 
-The reference holds no weights: what a sequence carries from one solve to
-the next is its ``RecycleState`` plus the ``SolveSpec`` it runs under, a
-Nyström sketch ``(U, Λ)`` where it preconditions, and the Hessian-free
-optimizer's ``HFState`` (its recycle state, previous step and LM damping).
-With these helpers a sequence started in ``repro`` continues in
-``repro_torch`` (and back) and gives the same numbers; a state given whole
-splits into a rank's share for the sharded engine.  Arrays cross as
-numpy, so neither package imports the other.
+What a solve sequence carries from one solve to the next is its
+``RecycleState`` plus the ``SolveSpec`` it runs under, a Nyström sketch
+``(U, Λ)`` where it preconditions, and the Hessian-free optimizer's
+``HFState`` (its recycle state, previous step and LM damping).  With these
+helpers a sequence started in ``repro`` continues in ``repro_torch`` (and
+back) and gives the same numbers; a state given whole splits into a
+rank's share for the sharded engine.  The model zoo's parameters cross
+with :func:`model_params_from_numpy` and :func:`model_params_to_numpy`.
+Arrays cross as numpy, so neither package imports the other.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ import torch
 
 from repro_torch.core.api import SolveSpec
 from repro_torch.core.recycle import RecycleState
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import Model
 from repro_torch.optim.hessian_free import HFState
 
 
@@ -138,3 +141,79 @@ def hf_state_to_numpy(state: HFState) -> dict:
         "step": tree(state.step),
         "last_cg_iters": tree(state.last_cg_iters),
     }
+
+
+# The reference's leaf names carry a sharding suffix (``_cs`` column-,
+# ``_rs`` row-, ``_hs`` head-, ``_vs`` vocab-sharded); the port's are the
+# names without it.  Leaves absent here (``wk``, ``wv``, ``bk``, ``bv`` at
+# tensor-parallel degree 1, the norms' ``scale``/``bias``, ``q_norm``,
+# ``k_norm``, ``down_bias``) have the same name in both.
+_LEAF_SUFFIX = {
+    "wq": "_cs", "wo": "_rs", "bq": "_hs",
+    "gate": "_cs", "up": "_cs", "down": "_rs", "up_bias": "_hs",
+    "in_proj": "_cs", "conv_w": "_rs", "conv_b": "_hs", "a_log": "_hs",
+    "dt_bias": "_hs", "d_skip": "_hs", "gate_norm": "_hs", "out_proj": "_rs",
+    "table": "_vs", "lm_head": "_cs",
+}
+_PORT_NAME = {name + sfx: name for name, sfx in _LEAF_SUFFIX.items()}
+
+
+def _port_leaf(ref_name: str) -> str:
+    if ref_name in _PORT_NAME:
+        return _PORT_NAME[ref_name]
+    if ref_name in _LEAF_SUFFIX or ref_name[-3:] in ("_cs", "_rs", "_hs", "_vs"):
+        raise KeyError(f"unknown reference parameter {ref_name!r}")
+    return ref_name
+
+
+def model_params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Model:
+    """A :class:`repro_torch.models.transformer.Model` on ``device`` holding
+    the reference's parameters: ``tree`` is ``repro.models.init``'s
+    parameter tree as nested dicts and lists of numpy arrays.  The leading
+    period axis of ``tree["periods"]["blocks"][i]`` is unstacked: layer
+    ``j·period + i`` is period ``j``, block ``i``."""
+    period = cfg.period()
+    state = {}
+    for group in ("embed", "final_norm"):
+        for leaf, arr in tree[group].items():
+            state[f"{group}.{_port_leaf(leaf)}"] = np.asarray(arr)
+    for i, block in enumerate(tree["periods"]["blocks"]):
+        for sub, leaves in block.items():
+            for leaf, arr in leaves.items():
+                arr = np.asarray(arr)
+                for j in range(cfg.n_layers // period):
+                    state[f"blocks.{j * period + i}.{sub}.{_port_leaf(leaf)}"] = arr[j]
+    model = Model(None, cfg, "meta")
+    expected = set(model.state_dict())
+    if set(state) != expected:
+        raise KeyError(f"parameter trees differ: missing {sorted(expected - set(state))}, "
+                       f"unexpected {sorted(set(state) - expected)}")
+    model.load_state_dict(
+        {k: torch.as_tensor(np.array(v), device=device) for k, v in state.items()},
+        assign=True,
+    )
+    return model.requires_grad_(False)
+
+
+def model_params_to_numpy(model: Model) -> dict:
+    """The inverse: the reference's parameter tree (nested dicts and lists
+    of numpy arrays, blocks stacked over periods) from a port model."""
+
+    def ref_leaf(name):
+        return name + _LEAF_SUFFIX.get(name, "")
+
+    def arrays(module):
+        return {ref_leaf(k): v.detach().cpu().numpy() for k, v in module.named_parameters()}
+
+    cfg = model.cfg
+    period = cfg.period()
+    blocks = []
+    for i in range(period):
+        layers = [model.blocks[j * period + i] for j in range(cfg.n_layers // period)]
+        stacked = {}
+        for sub, first in layers[0].named_children():
+            per_layer = [arrays(getattr(layer, sub)) for layer in layers]
+            stacked[sub] = {k: np.stack([p[k] for p in per_layer]) for k in per_layer[0]}
+        blocks.append(stacked)
+    return {"embed": arrays(model.embed), "periods": {"blocks": blocks},
+            "final_norm": arrays(model.final_norm)}

@@ -5,7 +5,9 @@ to a kernel, and the ctypes call itself.  ``LAUNCHES`` counts kernel
 launches per wrapper (one per wrapper call that reaches the card);
 ``PLAIN_ON_CUDA`` counts plain PyTorch versions run on CUDA tensors, so a
 run can show which path the card took.  Both are keyed by the kernel's
-name, in the order of the TPU kernels they replace (K1 … K8).
+name, in the order of the TPU kernels they replace (K1 … K10).  The
+Krylov kernels (K1–K8) take f32 and f64; the model kernels (K9, K10) f32
+and bf16, each wrapper naming its own with ``check(..., dtypes=)``.
 """
 
 from __future__ import annotations
@@ -27,10 +29,13 @@ LAUNCHES = {
     "fused_rz_reduce": 0,
     "lsmr_update": 0,
     "rbf_matvec_rect": 0,
+    "flash_attention": 0,
+    "ssd_scan": 0,
 }
 PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
 
-SUFFIX = {torch.float32: "f32", torch.float64: "f64"}
+SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
+KRYLOV_DTYPES = (torch.float32, torch.float64)
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
 INT64 = ctypes.c_int64
@@ -53,12 +58,15 @@ def ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def check(name: str, like: torch.Tensor, **tensors) -> None:
-    """Device, dtype, shape and layout checks shared by the wrappers."""
+def check(name: str, like: torch.Tensor, dtypes=KRYLOV_DTYPES, **tensors) -> None:
+    """Device, dtype, shape and layout checks shared by the wrappers:
+    ``like`` on the card in one of ``dtypes``, every named ``(tensor,
+    shape)`` on its device, in its dtype, of that shape and contiguous."""
     if like.device.type != "cuda":
         raise ValueError(f"{name}: CUDA kernel called on a {like.device} tensor")
-    if like.dtype not in SUFFIX:
-        raise TypeError(f"{name}: dtype {like.dtype} not supported (f32, f64)")
+    if like.dtype not in dtypes:
+        names = ", ".join(SUFFIX[d] for d in dtypes)
+        raise TypeError(f"{name}: dtype {like.dtype} not supported ({names})")
     for key, (t, shape) in tensors.items():
         if t.device != like.device:
             raise ValueError(f"{name}: {key} on {t.device}, expected {like.device}")

@@ -19,7 +19,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import cg_fused, ref
+from repro_torch.kernels import flash_attention as attn_mod
 from repro_torch.kernels import rbf_matvec as rbf_mod
+from repro_torch.kernels import ssd_scan as ssd_mod
 
 _BACKENDS = ("auto", "cuda", "plain", "reference")
 
@@ -187,3 +189,73 @@ def lsmr_update(
     if backend == "plain":
         return cg_fused.lsmr_update_plain(x, hbar, h, v, c0, c1, c2)
     return ref.lsmr_update(x, hbar, h, v, c0, c1, c2)
+
+
+def attention(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *,
+    causal: bool = False,
+    scale: Optional[float] = None,
+    q_offset: int = 0,
+    backend: str = "auto",
+    block_q: int = 512,
+    block_k: int = 1024,
+) -> torch.Tensor:
+    """GQA softmax attention (see :func:`ref.mha_attention`): ``q`` (b, h,
+    sq, dh) against ``k``/``v`` (b, hkv, sk, dh).  ``block_q``/``block_k``
+    are the plain version's blocks; the kernel's tiles are fixed."""
+    backend = _resolve(backend, q)
+    if backend == "cuda":
+        return attn_mod.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
+                                             q_offset=q_offset)
+    if backend == "plain":
+        return attn_mod.flash_attention_plain(q, k, v, causal=causal, scale=scale,
+                                              q_offset=q_offset, block_q=block_q,
+                                              block_k=block_k)
+    return ref.mha_attention(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+
+
+def ssd(
+    x: torch.Tensor,
+    dt: torch.Tensor,
+    a: torch.Tensor,
+    bmat: torch.Tensor,
+    cmat: torch.Tensor,
+    d: Optional[torch.Tensor] = None,
+    *,
+    backend: str = "auto",
+    chunk: int = 128,
+    initial_state: Optional[torch.Tensor] = None,
+    return_state: bool = False,
+):
+    """Mamba2 SSD scan over ``x`` (b, l, h, p); optionally seeded with and
+    returning the (b, h, p, n) f32 state (the serving path's prefill).  The
+    ``reference`` oracle has no state, so with one it runs the plain
+    version, as the reference's own oracle arm falls back to its chunked
+    scan."""
+    backend = _resolve(backend, x)
+    kw = dict(chunk=chunk, initial_state=initial_state, return_state=return_state)
+    if backend == "cuda":
+        return ssd_mod.ssd_scan_cuda(x, dt, a, bmat, cmat, d, **kw)
+    if backend == "plain" or return_state or initial_state is not None:
+        return ssd_mod.ssd_plain(x, dt, a, bmat, cmat, d, **kw)
+    return ref.ssd_reference(x, dt, a, bmat, cmat, d)
+
+
+def ssd_decode_step(hstate, x_t, dt_t, a, b_t, c_t, d=None):
+    """One SSD decode step, ``O(h·p·n)``: the state (b, h, p, n) advances by
+    the token ``x_t`` (b, h, p) with ``dt_t`` (b, h), ``b_t``/``c_t``
+    (b, g, n).  Plain PyTorch, as the reference's step is plain jnp.
+    Returns ``(new_state, y_t)``."""
+    hpg = x_t.shape[1] // b_t.shape[1]
+    decay = torch.exp(a[None, :] * dt_t)  # (b, h)
+    bth = b_t.repeat_interleave(hpg, dim=1)
+    cth = c_t.repeat_interleave(hpg, dim=1)
+    upd = torch.einsum("bhp,bhn->bhpn", x_t * dt_t[..., None], bth)
+    new = hstate * decay[..., None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", new, cth)
+    if d is not None:
+        y = y + x_t * d[None, :, None]
+    return new, y.to(x_t.dtype)

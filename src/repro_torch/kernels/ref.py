@@ -1,6 +1,6 @@
 """Plain-torch oracles: the semantic definitions the kernels must match.
 
-One per oracle of ``repro.kernels.ref`` that this slice of the port uses.
+One per oracle of ``repro.kernels.ref`` that the port uses so far.
 They are simple, materialise everything, and are functional: the
 recording buffers of :func:`fused_deflate_direction` are copied, not
 written in place.
@@ -104,3 +104,46 @@ def recombine_blocks(s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     m = u.shape[0]
     ua = u.to(s.dtype)
     return torch.cat([ua.T @ s[:m], ua.T @ s[m:]], dim=0)
+
+
+def mha_attention(q, k, v, *, causal=False, scale=None, q_offset=0):
+    """Softmax attention with grouped KV heads, the (sq × sk) scores
+    materialized.  ``q`` (b, h, sq, dh), ``k``/``v`` (b, hkv, sk, dh); query
+    row ``i`` sits at absolute position ``q_offset + i`` for the causal mask."""
+    b, h, sq, dh = q.shape
+    group = h // k.shape[1]
+    scale = dh**-0.5 if scale is None else scale
+    kk = k.repeat_interleave(group, dim=1)
+    vv = v.repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, kk).float() * scale
+    if causal:
+        qpos = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+        logits = torch.where(kpos <= qpos, logits, -torch.inf)
+    probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(v.dtype), vv)
+
+
+def ssd_reference(x, dt, a, bmat, cmat, d=None):
+    """The exact sequential SSD recurrence (arXiv 2405.21060), per head::
+
+        h_t = exp(a·dt_t)·h_{t−1} + dt_t·B_t x_tᵀ,    y_t = C_t h_t (+ D x_t)
+
+    with ``g`` B/C groups shared by the ``h`` heads.  ``x`` (b, l, h, p),
+    ``dt`` (b, l, h), ``a`` (h,), ``bmat``/``cmat`` (b, l, g, n)."""
+    b, l, h, p = x.shape
+    hpg = h // bmat.shape[2]
+    state = torch.zeros((b, h, p, bmat.shape[3]), dtype=x.dtype, device=x.device)
+    ys = []
+    for t in range(l):
+        decay = torch.exp(a[None, :] * dt[:, t])  # (b, h)
+        bth = bmat[:, t].repeat_interleave(hpg, dim=1)  # (b, h, n)
+        cth = cmat[:, t].repeat_interleave(hpg, dim=1)
+        upd = dt[:, t, :, None] * x[:, t]  # (b, h, p)
+        state = state * decay[..., None, None] + torch.einsum("bhp,bhn->bhpn", upd, bth)
+        ys.append(torch.einsum("bhpn,bhn->bhp", state, cth))
+    y = torch.stack(ys, dim=1)
+    if d is not None:
+        y = y + x * d[None, None, :, None]
+    return y

@@ -1,0 +1,202 @@
+"""Model assembly: decoder-only LMs over attention and SSD blocks.
+
+The port of ``repro.models.transformer``'s serving path.  The stack is a
+``ModuleList`` of ``n_layers`` blocks, each run in turn (the reference
+stacks its parameters per period and scans them; layer ``j·period + i``
+here is period ``j``, block ``i`` there).  Three modes share the block
+code:
+
+* :func:`forward_hidden` — full sequence, no cache;
+* :func:`prefill` — full sequence with cache write-back (serving);
+* :func:`decode_step` — one token against the carried caches.
+
+Every entry point takes ``backend`` (``auto`` | ``cuda`` | ``plain`` |
+``reference``, see :mod:`repro_torch.kernels.ops`) and hands it to the
+kernels: on CUDA tensors ``auto`` runs the flash-attention (K9) and SSD
+scan (K10) kernels, on CPU tensors their plain versions.  MoE FFNs and
+encoder–decoder models raise ``NotImplementedError`` until their slices;
+the loss (``lm_loss``) comes with training.
+"""
+
+from __future__ import annotations
+
+from typing import List, NamedTuple, Optional, Union
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.models import attention as attn
+from repro_torch.models import mamba as ssm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (
+    compute_dtype,
+    embed_apply,
+    embed_init,
+    lm_head_weights,
+    mlp_apply,
+    mlp_init,
+    norm_apply,
+    norm_init,
+    sinusoidal_positions,
+)
+
+Cache = Union[attn.KVCache, ssm.SSMState]
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.is_encdec:
+        raise NotImplementedError(f"{cfg.name}: encoder-decoder models come with their slice")
+    moe = [k for k in cfg.ffn_kinds() if k.startswith("moe")]
+    if moe:
+        raise NotImplementedError(f"{cfg.name}: MoE FFNs come with their slice")
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+class Block(nn.Module):
+    """``mixer_norm`` + ``attn`` or ``ssm``, then ``ffn_norm`` + ``mlp``."""
+
+    def __init__(self, generator, cfg: ModelConfig, mixer: str, ffn: str, device):
+        super().__init__()
+        self.mixer_norm = norm_init(cfg, device=device)
+        if mixer == "attn":
+            self.attn = attn.attn_init(generator, cfg, device=device)
+        else:
+            self.ssm = ssm.mamba_init(generator, cfg, device=device)
+        if ffn != "none":
+            self.ffn_norm = norm_init(cfg, device=device)
+            self.mlp = mlp_init(generator, cfg, device=device)
+
+
+def _block_apply(block: Block, x, cfg: ModelConfig, *, causal=True, cache=None,
+                 positions=None, backend="auto"):
+    """One residual block; returns ``(x, new_cache)``."""
+    h = norm_apply(block.mixer_norm, x, cfg)
+    if hasattr(block, "attn"):
+        out, new_cache = attn.attn_apply(block.attn, h, cfg, causal=causal, cache=cache,
+                                         positions=positions, backend=backend)
+    else:
+        out, new_cache = ssm.mamba_apply(block.ssm, h, cfg, state=cache, backend=backend)
+    x = x + out
+    if hasattr(block, "mlp"):
+        x = x + mlp_apply(block.mlp, norm_apply(block.ffn_norm, x, cfg), cfg)
+    return x, new_cache
+
+
+class Model(nn.Module):
+    """``embed``, ``blocks`` (one per layer) and ``final_norm``, built for
+    ``cfg`` (kept as ``self.cfg``)."""
+
+    def __init__(self, generator, cfg: ModelConfig, device):
+        super().__init__()
+        _check_supported(cfg)
+        self.cfg = cfg
+        self.embed = embed_init(generator, cfg, device=device)
+        self.blocks = nn.ModuleList(
+            Block(generator, cfg, mixer, ffn, device)
+            for mixer, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds())
+        )
+        self.final_norm = norm_init(cfg, device=device)
+
+
+def init(generator: torch.Generator, cfg: ModelConfig, *, device="cuda") -> Model:
+    """The model's parameters in ``cfg.param_dtype`` on ``device``, drawn
+    from ``generator`` (a generator on that device) with the reference's
+    distributions (its numbers differ: see :mod:`repro_torch.convert` to
+    carry the reference's parameters over)."""
+    return Model(generator, cfg, device)
+
+
+def _stack_apply(params: Model, x, cfg: ModelConfig, *, causal=True, caches=None,
+                 backend="auto"):
+    new_caches = []
+    for i, block in enumerate(params.blocks):
+        x, nc = _block_apply(block, x, cfg, causal=causal,
+                             cache=None if caches is None else caches[i], backend=backend)
+        new_caches.append(nc)
+    return x, (new_caches if caches is not None else None)
+
+
+def _tokens(tokens, device) -> torch.Tensor:
+    if isinstance(tokens, np.ndarray):
+        return torch.as_tensor(tokens.astype(np.int64), device=device)
+    return tokens.to(device)
+
+
+def _decoder_inputs(params: Model, batch, cfg: ModelConfig):
+    """Token ids, or precomputed embeddings for ``input_mode ==
+    "embeddings"``; numpy inputs go to the model's device."""
+    device = params.embed.table.device
+    if cfg.input_mode == "embeddings" and "embeds" in batch:
+        return torch.as_tensor(batch["embeds"], device=device).to(compute_dtype(cfg))
+    return embed_apply(params.embed, _tokens(batch["tokens"], device), cfg)
+
+
+def _add_positions(x, cfg: ModelConfig, start: int = 0):
+    """Absolute sinusoidal positions for models without RoPE."""
+    if cfg.rope:
+        return x
+    return x + sinusoidal_positions(x.shape[1], x.shape[2], x.dtype, start=start,
+                                    device=x.device)[None]
+
+
+def forward_hidden(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
+    """Full-sequence decoder forward; returns ``(hidden (B, S, D), aux)``
+    with ``aux`` the (zero) MoE loss, as the reference returns it."""
+    x = _add_positions(_decoder_inputs(params, batch, cfg), cfg)
+    x, _ = _stack_apply(params, x, cfg, causal=True, backend=backend)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return norm_apply(params.final_norm, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving
+# ---------------------------------------------------------------------------
+
+
+class DecodeState(NamedTuple):
+    caches: List[Cache]  # one KVCache or SSMState per layer
+    memory: Optional[object]  # cross-attention K/V (encoder-decoder only)
+    length: int
+
+
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> DecodeState:
+    _check_supported(cfg)
+    caches = [
+        attn.init_cache(cfg, batch, max_len, device=device) if kind == "attn"
+        else ssm.init_ssm_state(cfg, batch, device=device)
+        for kind in cfg.layer_kinds()
+    ]
+    return DecodeState(caches=caches, memory=None, length=0)
+
+
+def _logits(params: Model, x, cfg: ModelConfig):
+    h = norm_apply(params.final_norm, x, cfg)
+    return (h @ lm_head_weights(params.embed, cfg)).float()
+
+
+def prefill(params: Model, batch, state: DecodeState, cfg: ModelConfig, *, backend="auto"):
+    """Consume the prompt, filling the caches; returns ``(state,
+    last_logits (B, 1, padded vocab))``."""
+    x = _add_positions(_decoder_inputs(params, batch, cfg), cfg)
+    x, caches = _stack_apply(params, x, cfg, causal=True, caches=state.caches,
+                             backend=backend)
+    logits = _logits(params, x[:, -1:, :], cfg)
+    return DecodeState(caches=caches, memory=state.memory,
+                       length=state.length + x.shape[1]), logits
+
+
+def decode_step(params: Model, tokens, state: DecodeState, cfg: ModelConfig, *, backend="auto"):
+    """One serving step: new token(s) (B, s) → logits (B, s, padded vocab);
+    the caches advance in place and the state's length by ``s``."""
+    x = embed_apply(params.embed, _tokens(tokens, params.embed.table.device), cfg)
+    x = _add_positions(x, cfg, start=state.length)
+    x, caches = _stack_apply(params, x, cfg, causal=True, caches=state.caches,
+                             backend=backend)
+    logits = _logits(params, x, cfg)
+    return logits, DecodeState(caches=caches, memory=state.memory,
+                               length=state.length + x.shape[1])

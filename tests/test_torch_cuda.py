@@ -14,7 +14,12 @@ the windows of the least-squares path (lsq_bench's k + ℓ = 56 gives 112).
 ``rbf_matvec_rect`` (K8) is held at ``chip_smoke.py``'s shapes (the
 sharded main path's per-rank blocks at 4 and 8 ranks, the paper's n at
 4 ranks, a ragged block), and one sharded def-CG solve runs on one rank
-over NCCL against the unsharded solve on the card.
+over NCCL against the unsharded solve on the card.  ``flash_attention``
+(K9) and ``ssd_scan`` (K10) are held against their plain versions in f32
+(2e-4 / 5e-4) and bf16 (2e-2 / 5e-2), the tolerances of
+``tests/test_kernels.py`` (relative to the output's scale for the SSD
+scan), on GQA, causal decode with ``q_offset``, ragged lengths and the
+serving path's shapes; both must repeat bit for bit.
 """
 
 import numpy as np
@@ -24,6 +29,8 @@ torch = pytest.importorskip("torch")
 
 import torch_sharded_cases as cases  # noqa: E402
 from repro_torch.kernels import cg_fused  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import rbf_matvec as rbf  # noqa: E402
 from repro_torch.launch import run_ranks  # noqa: E402
@@ -233,3 +240,106 @@ def test_reductions_repeat_exactly(device):
     assert torch.equal(a[2], b[2]) and torch.equal(a[3], b[3])
     s = rnd(40, 36551)
     assert torch.equal(cg_fused.self_gram_cuda(s), cg_fused.self_gram_cuda(s))
+
+
+LM_TOL = {torch.float32: dict(rtol=2e-4, atol=5e-4), torch.bfloat16: dict(rtol=2e-2, atol=5e-2)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # b, h, hkv, sq, sk, dh, causal, q_offset: tests/test_kernels.py's
+    # ATTN_CASES, a GQA dh = 128 shape, a ragged causal block with an
+    # offset, qwen1.5-0.5b's heads at a short prompt.
+    (2, 4, 2, 64, 64, 32, False, 0),
+    (1, 8, 2, 96, 96, 64, True, 0),
+    (2, 4, 4, 1, 133, 64, True, 132),
+    (1, 2, 1, 40, 200, 16, False, 0),
+    (1, 16, 2, 33, 33, 128, True, 0),
+    (1, 32, 8, 300, 300, 128, True, 0),
+    (2, 4, 1, 70, 150, 64, True, 80),
+    (4, 16, 16, 512, 512, 64, True, 0),
+])
+def test_flash_attention(device, dtype, case):
+    b, h, hkv, sq, sk, dh, causal, off = case
+    rnd = _gen(device, torch.float32, sq + sk + dh)
+    q, k, v = (rnd(b, n, s, dh).to(dtype) for n, s in ((h, sq), (hkv, sk), (hkv, sk)))
+    before = cg_fused.LAUNCHES["flash_attention"]
+    got = fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+    assert cg_fused.LAUNCHES["flash_attention"] == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off, block_q=32, block_k=32)
+    torch.testing.assert_close(got.float(), want.float(), **LM_TOL[dtype])
+    oracle = kops.attention(q.float(), k.float(), v.float(), causal=causal, q_offset=off,
+                            backend="reference")
+    torch.testing.assert_close(got.float(), oracle, **LM_TOL[dtype])
+    assert torch.equal(got, fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # b, l, h, p, g, n, chunk: tests/test_kernels.py's SSD_CASES, a ragged
+    # l at mamba2-1.3b's head and state widths, and its prefill heads.
+    (1, 64, 2, 16, 1, 16, 32),
+    (2, 100, 4, 8, 2, 24, 32),
+    (1, 37, 2, 4, 2, 8, 16),
+    (2, 128, 8, 32, 1, 64, 64),
+    (1, 300, 4, 64, 1, 128, 128),
+    (2, 512, 64, 64, 1, 128, 128),
+])
+@pytest.mark.parametrize("state", [False, True])
+def test_ssd_scan(device, dtype, case, state):
+    b, l, h, p, g, n, chunk = case
+    gen = torch.Generator(device=device).manual_seed(l + h + n)
+    x = torch.randn(b, l, h, p, generator=gen, device=device).to(dtype)
+    dt = 0.01 + 0.39 * torch.rand(b, l, h, generator=gen, device=device)
+    a = -(0.3 + 1.7 * torch.rand(h, generator=gen, device=device))
+    bmat, cmat = (torch.randn(b, l, g, n, generator=gen, device=device).to(dtype)
+                  for _ in range(2))
+    d = torch.randn(h, generator=gen, device=device)
+    h0 = torch.randn(b, h, p, n, generator=gen, device=device) if state else None
+    kw = dict(chunk=chunk, initial_state=h0, return_state=state)
+    got = ss.ssd_scan_cuda(x, dt, a, bmat, cmat, d, **kw)
+    want = ss.ssd_plain(x, dt, a, bmat, cmat, d, **kw)
+    got, want = (got, want) if state else ((got,), (want,))
+    for gv, wv in zip(got, want):
+        assert gv.shape == wv.shape and gv.dtype == wv.dtype
+        scale = max(1.0, float(wv.float().abs().max()))
+        torch.testing.assert_close(gv.float() / scale, wv.float() / scale, **LM_TOL[dtype])
+    again = ss.ssd_scan_cuda(x, dt, a, bmat, cmat, d, **kw)
+    for gv, av in zip(got, again if state else (again,)):
+        assert torch.equal(gv, av)
+
+
+def test_ssd_scan_matches_sequential_oracle(device):
+    gen = torch.Generator(device=device).manual_seed(7)
+    b, l, h, p, g, n = 2, 100, 4, 8, 2, 24
+    x = torch.randn(b, l, h, p, generator=gen, device=device)
+    dt = 0.01 + 0.39 * torch.rand(b, l, h, generator=gen, device=device)
+    a = -(0.3 + 1.7 * torch.rand(h, generator=gen, device=device))
+    bmat, cmat = (torch.randn(b, l, g, n, generator=gen, device=device) for _ in range(2))
+    got = kops.ssd(x, dt, a, bmat, cmat, chunk=32)
+    want = kops.ssd(x, dt, a, bmat, cmat, backend="reference")
+    scale = max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got / scale, want / scale, rtol=4e-4, atol=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-1.3b"])
+def test_smoke_model_serving_on_card(device, arch):
+    """A SMOKE model's forward, prefill and decode through the kernels
+    against the same model run through the plain versions on the card."""
+    from repro_torch import models
+    from repro_torch.configs import get_smoke_config
+
+    cfg = get_smoke_config(arch)
+    model = models.init(torch.Generator(device=device).manual_seed(0), cfg, device=device)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=device,
+                           generator=torch.Generator(device=device).manual_seed(1))
+    runs = {}
+    for backend in ("cuda", "plain"):
+        hidden, _ = models.forward_hidden(model, {"tokens": tokens}, cfg, backend=backend)
+        state = models.init_decode_state(cfg, 2, 48, device=device)
+        state, last = models.prefill(model, {"tokens": tokens}, state, cfg, backend=backend)
+        step, state = models.decode_step(model, tokens[:, :1], state, cfg, backend=backend)
+        runs[backend] = (hidden, last, step)
+    for got, want in zip(runs["cuda"], runs["plain"]):
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=5e-4)
