@@ -23,7 +23,8 @@ Phases, each of which fails the script when it fails:
               least-squares path's n = 16 384, the Gauss-Newton parameter
               count 32 768, lsq_bench's 2²⁰ and a ragged n, and the two
               extraction kernels at the least-squares windows' 96, 112 and
-              128 stacked rows (timed at 112 rows, n = 16 384).  The
+              128 stacked rows (timed at 112 rows, n = 16 384; ``self_gram``
+              exactly symmetric and repeating bit for bit).  The
               rectangular Gram matvec (K8) is held at d = 784, r = 1 and 8,
               on the sharded blocks (m, n) = (4 096, 16 384) and (2 048,
               16 384) of 4 and 8 ranks, (9 138, 36 552) and a ragged
@@ -130,7 +131,9 @@ Phases, each of which fails the script when it fails:
               tokens (b 1), K10 at mamba2's: kernel, plain version,
               ``scaled_dot_product_attention`` as K9's yardstick (never on
               the path), and the bound (bf16 operations at 989 TFLOP/s
-              against bytes read once at 3.35 TB/s).
+              against bytes read once at 3.35 TB/s); K9 also in f32 at
+              the prefill shape.  K9's and K4's timing lines print the
+              previous designs' times (``PREVIOUS_MS``) beside this run's.
 
 Each main path (5, 7, 10, 11, 13, 15 and 16) is driven with the launch
 counters set to 0 just before it and read just after (13: on every rank);
@@ -214,7 +217,7 @@ K8_RS = (1, K)
 # steps, teacher-forced decode of the first 64 tokens.
 LM_PATHS = {
     "main-lm-attn": {"arch": "qwen1.5-0.5b", "batch": 4, "prompt": 4096, "decode": 32,
-                     "teacher": 64, "kernel": "flash_attention_kernel"},
+                     "teacher": 64, "kernel": "flash_attention_"},
     "main-lm-ssm": {"arch": "mamba2-1.3b", "batch": 4, "prompt": 4096, "decode": 32,
                     "teacher": 64, "kernel": "ssd_scan_kernel"},
 }
@@ -231,6 +234,12 @@ ATTN_CHECK = ((2, 4, 2, 64, 64, 32, False, 0), (1, 8, 2, 96, 96, 64, True, 0),
               (1, 16, 2, 33, 33, 128, True, 0), ATTN_MAIN, (1, 32, 8, 2048, 2048, 128, True, 0),
               (2, 4, 1, 70, 150, 64, True, 80))
 LONG_REPS = 3
+# The times of the designs K9 (bf16) and K4 replaced, printed beside this
+# run's (PERF.md §6: chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W):
+# K9's SIMT kernel in bf16, K4's two-instance partial pass with one reduce
+# block per pair.
+PREVIOUS_MS = {"flash_attention main": 6.243, "flash_attention 32k": 92.68,
+               "self_gram 40x36551": 0.0441, "self_gram 112x16384": 0.1187}
 # K10 (b, l, h, p, g, n, chunk): SSD_CASES and mamba2-1.3b's prefill.
 SSD_MAIN = (4, 4096, 64, 64, 1, 128, 128)
 SSD_CHECK = ((1, 64, 2, 16, 1, 16, 32), (2, 100, 4, 8, 2, 24, 32), (1, 37, 2, 4, 2, 8, 16),
@@ -470,6 +479,8 @@ def phase_kernels(torch, cf, peaks):
         if name == "fused_rz_reduce":
             entry["no_aw_ms"] = device_ms(torch, calls[name][1][1])
             extra += f" no-AW arm {entry['no_aw_ms']:.4f} ms"
+        if name == "self_gram":
+            extra += f" previous design {PREVIOUS_MS.get(f'self_gram {2 * M}x{PAPER_N}')} ms"
         log(f"[timing] {name:24s} f64 n={PAPER_N}: kernel {entry['ms']:.4f} ms, plain "
             f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']} ms, bound "
             f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}){extra}")
@@ -763,13 +774,18 @@ def phase_lsmr_kernels(torch, cf, peaks):
                 g = torch.Generator(device="cuda").manual_seed(rows + n)
                 s_ = torch.randn(rows, n, generator=g, device="cuda", dtype=dtype)
                 u = torch.randn(rows // 2, K, generator=g, device="cuda", dtype=dtype)
-                e1 = compare(torch, (cf.self_gram_cuda(s_),), (cf.self_gram_plain(s_),),
+                g_ = cf.self_gram_cuda(s_)
+                e1 = compare(torch, (g_,), (cf.self_gram_plain(s_),),
                              dname, f"self_gram rows={rows} n={n}")
+                if not (torch.equal(g_, g_.T) and torch.equal(g_, cf.self_gram_cuda(s_))):
+                    raise AssertionError(f"self_gram {dname} rows={rows} n={n}: not exactly "
+                                         "symmetric, or two launches differ")
                 e2 = compare(torch, (cf.recombine_blocks_cuda(s_, u),),
                              (cf.recombine_blocks_plain(s_, u),), dname,
                              f"recombine_blocks rows={rows} n={n}")
                 log(f"[kernels] self_gram / recombine_blocks {dname} rows={rows} n={n:6d}: "
-                    f"max abs err {e1:.3e} / {e2:.3e}")
+                    f"max abs err {e1:.3e} / {e2:.3e}; self_gram exactly symmetric, two "
+                    "launches bitwise equal")
     rows, n = 2 * (LSQ_K + LSQ_ELL), LSQ_MAIN["n"]
     g = torch.Generator(device="cuda").manual_seed(3)
     s_ = torch.randn(rows, n, generator=g, device="cuda", dtype=torch.float64)
@@ -789,7 +805,9 @@ def phase_lsmr_kernels(torch, cf, peaks):
                           "library_ms": device_ms(torch, lib),
                           "bound_ms": 1e3 * max(t_bytes, t_ops),
                           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        log(f"[timing] {name} f64 rows={rows} n={n}: kernel {t['ms']:.4f} ms, plain "
+        previous = (f" (previous design {PREVIOUS_MS.get(f'self_gram {rows}x{n}')} ms)"
+                    if name == "self_gram" else "")
+        log(f"[timing] {name} f64 rows={rows} n={n}: kernel {t['ms']:.4f} ms{previous}, plain "
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
     report["lsq_windows"] = gram
@@ -1588,7 +1606,11 @@ def phase_check_lm(torch, device="cuda"):
             want = fa.flash_attention_plain(q, k, v, causal=causal, q_offset=off)
             _sync(torch, device)
             err = lm_close(torch, got, want, dname, f"flash_attention {case} {dname}")
-            log(f"[check-lm] flash_attention {case} {dname}: max abs err {err:.3e}")
+            if not torch.equal(got, fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)):
+                raise AssertionError(f"[check-lm] flash_attention {case} {dname}: two launches "
+                                     "differ")
+            log(f"[check-lm] flash_attention {case} {dname}: max abs err {err:.3e}, two "
+                "launches bitwise equal")
             if case == ATTN_MAIN:
                 worst["flash_attention"] = max(worst["flash_attention"], err)
         for case in SSD_CHECK:
@@ -1608,18 +1630,13 @@ def phase_check_lm(torch, device="cuda"):
                 if case == SSD_MAIN:
                     worst["ssd_scan"] = max(worst["ssd_scan"], *errs)
     # Two launches on the same inputs agree bit for bit (no atomics).
-    q, k, v = attn_inputs(torch, *ATTN_MAIN[:6], torch.bfloat16, seed=1, device=device)
     x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, *SSD_MAIN[:6], torch.bfloat16, seed=1,
                                          device=device)
-    repeats = {
-        "flash_attention": lambda: (fa.flash_attention_cuda(q, k, v, causal=True),),
-        "ssd_scan": lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, d, initial_state=h0,
-                                             return_state=True),
-    }
-    for name, fn in repeats.items():
-        if not all(torch.equal(u, w) for u, w in zip(fn(), fn())):
-            raise AssertionError(f"[check-lm] {name}: two launches differ")
-        log(f"[check-lm] {name}: two launches bitwise equal")
+    fn = lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, d, initial_state=h0,  # noqa: E731
+                                  return_state=True)
+    if not all(torch.equal(u, w) for u, w in zip(fn(), fn())):
+        raise AssertionError("[check-lm] ssd_scan: two launches differ")
+    log("[check-lm] ssd_scan: two launches bitwise equal")
     return worst
 
 
@@ -1868,10 +1885,22 @@ def phase_timing_lm(torch, peaks, worst, device="cuda"):
         }
         t["tflop_s"] = ops / t["ms"] / 1e9
         log(f"[timing] flash_attention {case} bf16: kernel {t['ms']:.3f} ms "
-            f"({t['tflop_s']:.1f} TFLOP/s), plain {t['plain_ms']:.3f} ms, "
+            f"({t['tflop_s']:.1f} TFLOP/s; the previous SIMT kernel "
+            f"{PREVIOUS_MS.get('flash_attention ' + label)} ms), plain {t['plain_ms']:.3f} ms, "
             f"scaled_dot_product_attention {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']})")
-    k9 = dict(out["main"], max_abs_err=worst["flash_attention"], at_32k=out["32k"])
+    # The f32 arithmetic (CUDA cores, the f32 control runs) at the prefill shape.
+    b, h, hkv, sq, sk, dh, causal, _ = ATTN_MAIN
+    q, k, v = attn_inputs(torch, b, h, hkv, sq, sk, dh, torch.float32, seed=2, device=device)
+    out["f32"] = t = {"ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v,
+                                                                               causal=causal)),
+                      "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+                          q, k, v, is_causal=causal))}
+    log(f"[timing] flash_attention {ATTN_MAIN} f32: kernel {t['ms']:.3f} ms, "
+        f"scaled_dot_product_attention {t['library_ms']:.3f} ms")
+    del q, k, v
+    k9 = dict(out["main"], max_abs_err=worst["flash_attention"], at_32k=out["32k"],
+              f32=out["f32"])
 
     b, l, h, p, g, n, c = SSD_MAIN
     x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, b, l, h, p, g, n, torch.bfloat16, seed=2,

@@ -31,13 +31,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 16;          // deflation basis rows (k)
 constexpr int kMaxGramRows = 128;  // rows of the stacked window S = [Z; AZ]
-constexpr int kSmallGramRows = 64; // def-CG's windows: 2(k + ell) <= 64
-constexpr int kGramTile = 32;      // columns of S staged in shared memory
-
-// Upper-triangle pairs each thread owns for a window of `rows` rows.
-__host__ __device__ constexpr int pairs_per_thread(int rows) {
-  return (rows * (rows + 1) / 2 + kThreads - 1) / kThreads;
-}
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T v) {
@@ -62,19 +55,6 @@ __device__ __forceinline__ T block_sum(T v) {
     for (int w = 0; w < kWarps; ++w) s += warp_part[w];
   }
   return s;
-}
-
-// Row q of the upper triangle (i <= j) of an m2 x m2 matrix, row-major.
-__device__ __forceinline__ void pair_ij(int q, int m2, int* i, int* j) {
-  int row = 0;
-  int len = m2;
-  while (q >= len) {
-    q -= len;
-    ++row;
-    --len;
-  }
-  *i = row;
-  *j = row + q;
 }
 
 // The k + 1 per-thread sums acc[0..k] of a block, summed over the block in a
@@ -216,89 +196,242 @@ __global__ void __launch_bounds__(kThreads) deflate_direction(
 }
 
 // ---------------------------------------------------------------------------
-// self_gram: S S^T for S of shape (m2, n)
+// self_gram: S S^T for S of shape (m2, n), m2 <= 128
 // ---------------------------------------------------------------------------
+//
+// G's upper triangle in 16 x 16 super-tiles (I <= J): 36 at 128 rows, 28 at
+// 112, 6 at 40; rows past m2 are zero rows (they add nothing).  Two passes:
+//
+//   self_gram_partial: block b owns columns [b*cols, (b+1)*cols), one block
+//     per SM.  It streams them through shared memory in chunks of
+//     kGramCols columns, kGramStages deep, by cp.async (8-byte copies in
+//     f64: n may be odd, so rows are only 8-byte aligned).  Warp w owns
+//     super-tiles w, w + 8, ... (SLOTS of them, a template parameter: 1 at
+//     40 rows, 4 at 112, 5 at 128; a slot past the last super-tile
+//     computes super-tile 0 and stores nothing), and every lane holds the
+//     same accumulator layout: (rows g, g + 8) x (cols 2t, 2t + 1) of the
+//     left and the right 8 columns, lane = 4g + t.
+//       f64: two FP64 tensor-core products (DMMA, mma.sync m16n8k4) per
+//     super-tile and 4 columns; A = S[16I.., c..c+3] (lane: rows g and
+//     g + 8, column t) and B = S[16J.., c..c+3]^T (lane: row g, column t)
+//     are read from shared memory once per super-tile: four 8-byte loads
+//     for two products.  The row stride of kGramCols + 4 doubles keeps
+//     those loads free of bank conflicts.
+//       f32: no TF32 (it would move the sums by ~1e-3): 8 FMAs per column
+//     on 6 values read from shared memory, in the same layout.
+//     The block writes the 8 x 8 tiles of the upper triangle it holds to
+//     partials[b] as (tiles, 8, 8), row-major in a tile (the lower-left
+//     8 x 8 of a diagonal super-tile is dropped).
+//   self_gram_reduce: 32 consecutive tile elements a block; warp w sums the
+//     partials of blocks w, w + 8, ... in order (reads of 256 contiguous
+//     bytes), then warp 0 adds the 8 warp sums in order and writes G[i][j]
+//     and G[j][i] from the one value (i <= j), so G is exactly symmetric.
+//
+// No atomics: runs repeat bit for bit.  Bound by bytes (m2 n elements read
+// once; the f64 products need ~m2^2 n flops on 67 TFLOP/s of FP64 tensor
+// cores, the smaller time at these widths).  The partials (one block per SM:
+// 7 MB at 112 rows) stay in the 50 MB L2 between the passes.  What still
+// separates it from its bound: the second launch and the gap before it,
+// and two 8-byte shared-memory loads per DMMA in the partial pass.
 
-// Block b owns columns [b*cols, (b+1)*cols) and writes the upper triangle of
-// its partial gram (m2*(m2+1)/2 entries) to partials[b].  Instantiated for up
-// to kRows rows: 64 (def-CG's windows; 9 pairs a thread) and 128 (the
-// least-squares windows; 8 256 pairs, 33 a thread).  Each thread's (i, j)
-// is packed into one int so its pair indices and sums stay in registers;
-// the (128, 33) tile takes 33.8 KB of static shared memory in f64.  The
-// 64-row instance keeps its register count, and so its occupancy: at 40
-// rows the 128-row instance is 1.2x slower in f64 and 1.6x in f32
-// (tools/self_gram_instances.py).
-template <typename T, int kRows>
-__global__ void __launch_bounds__(kThreads) self_gram_partial(
-    const T* __restrict__ s, int m2, int64_t n, int64_t cols,
-    T* __restrict__ partials) {
-  constexpr int kPairs = pairs_per_thread(kRows);
-  __shared__ T tile[kRows][kGramTile + 1];
-  const int npairs = m2 * (m2 + 1) / 2;
+constexpr int kGramCols = 32;
+constexpr int kGramStages = 3;
+constexpr int kGramMaxSlots = ((kMaxGramRows / 16) * (kMaxGramRows / 16 + 1) / 2 + kWarps - 1) /
+                              kWarps;
 
-  int pij[kPairs];  // (i << 8) | j, or -1 past npairs
-  T acc[kPairs];
-#pragma unroll
-  for (int q = 0; q < kPairs; ++q) {
-    const int idx = threadIdx.x + q * kThreads;
-    acc[q] = T(0);
-    pij[q] = -1;
-    if (idx < npairs) {
-      int i, j;
-      pair_ij(idx, m2, &i, &j);
-      pij[q] = (i << 8) | j;
-    }
+template <typename T>
+__host__ __device__ constexpr int gram_ld() {
+  return sizeof(T) == 8 ? kGramCols + 4 : kGramCols + 1;
+}
+
+template <typename T>
+size_t gram_smem_bytes(int m2) {
+  return sizeof(T) * kGramStages * gram_ld<T>() * 16 * ((m2 + 15) / 16);
+}
+
+// (I, J) of tile t of the row-major upper triangle of an r x r tile grid.
+__device__ __forceinline__ void tile_ij(int t, int r, int* i, int* j) {
+  int row = 0;
+  while (t >= r - row) {
+    t -= r - row;
+    ++row;
   }
+  *i = row;
+  *j = row + t;
+}
 
-  const int64_t c0 = (int64_t)blockIdx.x * cols;
-  const int64_t c1 = c0 + cols < n ? c0 + cols : n;
-  for (int64_t t0 = c0; t0 < c1; t0 += kGramTile) {
-    for (int e = threadIdx.x; e < m2 * kGramTile; e += kThreads) {
-      const int row = e / kGramTile;
-      const int col = e - row * kGramTile;
-      const int64_t c = t0 + col;
-      tile[row][col] = c < c1 ? s[(int64_t)row * n + c] : T(0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int q = 0; q < kPairs; ++q) {
-      if (pij[q] >= 0) {
-        const T* ri = tile[pij[q] >> 8];
-        const T* rj = tile[pij[q] & 0xff];
-        T a = acc[q];
-#pragma unroll 8
-        for (int col = 0; col < kGramTile; ++col) {
-          a += ri[col] * rj[col];
-        }
-        acc[q] = a;
-      }
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int q = 0; q < kPairs; ++q) {
-    const int idx = threadIdx.x + q * kThreads;
-    if (idx < npairs) partials[(int64_t)blockIdx.x * npairs + idx] = acc[q];
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+               "n"(BYTES), "r"(valid ? BYTES : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Columns [c, c + kGramCols) of S into a stage; zeros past c1 and m2.
+template <typename T>
+__device__ __forceinline__ void gram_load_chunk(T* stage, const T* __restrict__ s, int m2,
+                                                int m2p, int64_t n, int64_t c, int64_t c1) {
+  constexpr int LD = gram_ld<T>();
+  for (int e = threadIdx.x; e < m2p * kGramCols; e += kThreads) {
+    const int row = e / kGramCols;
+    const int col = e - row * kGramCols;
+    const bool valid = row < m2 && c + col < c1;
+    cp_async<sizeof(T)>(stage + row * LD + col, valid ? s + (int64_t)row * n + c + col : s,
+                        valid);
   }
 }
 
-// One block per upper-triangle entry: sum the partials in block order and
-// write the entry to both (i, j) and (j, i).
+// acc[h][v0 + 2 v1] += rows (g + 8 v1) x cols (8h + 2t + v0) of the
+// super-tile at rows ri, cols rj over the kGramCols columns of a stage.
+template <int SLOTS>
+__device__ __forceinline__ void gram_step(const double* stage, const int (&ri)[SLOTS],
+                                          const int (&rj)[SLOTS], double (&acc)[SLOTS][2][4]) {
+  constexpr int LD = gram_ld<double>();
+  const int lane = threadIdx.x & 31;
+  const double* base = stage + (lane >> 2) * LD + (lane & 3);
+#pragma unroll
+  for (int kc = 0; kc < kGramCols; kc += 4) {
+#pragma unroll
+    for (int q = 0; q < SLOTS; ++q) {
+      const double a0 = base[ri[q] * LD + kc], a1 = base[(ri[q] + 8) * LD + kc];
+      const double b0 = base[rj[q] * LD + kc], b1 = base[(rj[q] + 8) * LD + kc];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        asm("mma.sync.aligned.m16n8k4.row.col.f64.f64.f64.f64 {%0,%1,%2,%3}, {%4,%5}, {%6}, "
+            "{%0,%1,%2,%3};\n"
+            : "+d"(acc[q][h][0]), "+d"(acc[q][h][1]), "+d"(acc[q][h][2]), "+d"(acc[q][h][3])
+            : "d"(a0), "d"(a1), "d"(h ? b1 : b0));
+      }
+    }
+  }
+}
+
+template <int SLOTS>
+__device__ __forceinline__ void gram_step(const float* stage, const int (&ri)[SLOTS],
+                                          const int (&rj)[SLOTS], float (&acc)[SLOTS][2][4]) {
+  constexpr int LD = gram_ld<float>();
+  const int lane = threadIdx.x & 31;
+  const float* rows_a = stage + (lane >> 2) * LD;
+  const float* rows_b = stage + 2 * (lane & 3) * LD;
+#pragma unroll 4
+  for (int k = 0; k < kGramCols; ++k) {
+#pragma unroll
+    for (int q = 0; q < SLOTS; ++q) {
+      float a[2], b[4];
+#pragma unroll
+      for (int v = 0; v < 2; ++v) a[v] = rows_a[(ri[q] + 8 * v) * LD + k];
+#pragma unroll
+      for (int x = 0; x < 4; ++x) b[x] = rows_b[(rj[q] + 8 * (x >> 1) + (x & 1)) * LD + k];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int v = 0; v < 4; ++v)
+          acc[q][h][v] = fmaf(a[v >> 1], b[2 * h + (v & 1)], acc[q][h][v]);
+    }
+  }
+}
+
+template <typename T, int SLOTS>
+__global__ void __launch_bounds__(kThreads) self_gram_partial(
+    const T* __restrict__ s, int m2, int64_t n, int64_t cols, T* __restrict__ partials) {
+  extern __shared__ __align__(16) unsigned char gram_smem[];
+  T* stages = reinterpret_cast<T*>(gram_smem);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int r16 = (m2 + 15) / 16, r8 = (m2 + 7) / 8;
+  const int m2p = 16 * r16;
+  const int nsuper = r16 * (r16 + 1) / 2;
+  const int stage_elems = m2p * gram_ld<T>();
+  const int64_t c0 = (int64_t)blockIdx.x * cols;
+  const int64_t c1 = c0 + cols < n ? c0 + cols : n;
+  const int nchunks = (int)((c1 - c0 + kGramCols - 1) / kGramCols);
+
+  int ri[SLOTS], rj[SLOTS];
+  T acc[SLOTS][2][4];
+#pragma unroll
+  for (int q = 0; q < SLOTS; ++q) {
+    const int st = warp + kWarps * q;
+    int i, j;
+    tile_ij(st < nsuper ? st : 0, r16, &i, &j);
+    ri[q] = 16 * i;
+    rj[q] = 16 * j;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[q][h][v] = T(0);
+  }
+
+#pragma unroll
+  for (int st = 0; st < kGramStages - 1; ++st) {
+    if (st < nchunks)
+      gram_load_chunk(stages + st * stage_elems, s, m2, m2p, n, c0 + st * kGramCols, c1);
+    cp_async_commit();
+  }
+  for (int ch = 0; ch < nchunks; ++ch) {
+    cp_async_wait<kGramStages - 2>();
+    __syncthreads();  // chunk ch has landed; chunk ch - 1's stage is free
+    const int next = ch + kGramStages - 1;
+    if (next < nchunks)
+      gram_load_chunk(stages + (next % kGramStages) * stage_elems, s, m2, m2p, n,
+                      c0 + (int64_t)next * kGramCols, c1);
+    cp_async_commit();
+    gram_step(stages + (ch % kGramStages) * stage_elems, ri, rj, acc);
+  }
+  cp_async_wait<0>();
+
+  T* out = partials + (int64_t)blockIdx.x * (r8 * (r8 + 1) / 2) * 64 + (lane >> 2) * 8 +
+           2 * (lane & 3);
+#pragma unroll
+  for (int q = 0; q < SLOTS; ++q) {
+    if (warp + kWarps * q >= nsuper) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int v = 0; v < 2; ++v) {
+        const int ti = ri[q] / 8 + v, tj = rj[q] / 8 + h;  // the 8 x 8 tile
+        if (ti > tj || tj >= r8) continue;
+        const int t = ti * r8 - ti * (ti - 1) / 2 + (tj - ti);
+        out[t * 64] = acc[q][h][2 * v];
+        out[t * 64 + 1] = acc[q][h][2 * v + 1];
+      }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) self_gram_reduce(
     const T* __restrict__ partials, int nparts, int m2, T* __restrict__ out) {
-  const int q = blockIdx.x;
-  const int npairs = m2 * (m2 + 1) / 2;
+  __shared__ T warp_sum_s[kWarps][32];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int r8 = (m2 + 7) / 8;
+  const int width = r8 * (r8 + 1) / 2 * 64;
+  const int e = blockIdx.x * 32 + lane;
+  const int r = (e >> 3) & 7, c = e & 7;
+  int ti = 0, tj = 0;
+  if (e < width) tile_ij(e >> 6, r8, &ti, &tj);
+  const int i = 8 * ti + r, j = 8 * tj + c;
+  const bool used = e < width && j < m2 && (ti != tj || r <= c);
   T v = T(0);
-  for (int b = threadIdx.x; b < nparts; b += blockDim.x) {
-    v += partials[(int64_t)b * npairs + q];
+  if (used) {
+#pragma unroll 4
+    for (int b = warp; b < nparts; b += kWarps) v += partials[(int64_t)b * width + e];
   }
-  v = block_sum(v);
-  if (threadIdx.x == 0) {
-    int i, j;
-    pair_ij(q, m2, &i, &j);
-    out[i * m2 + j] = v;
-    out[j * m2 + i] = v;
+  warp_sum_s[warp][lane] = v;
+  __syncthreads();
+  if (warp == 0 && used) {
+    T sum = T(0);
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) sum += warp_sum_s[w][lane];
+    out[i * m2 + j] = sum;
+    out[j * m2 + i] = sum;
   }
 }
 
@@ -432,21 +565,38 @@ int launch_deflate(const void* r, const void* p, const void* beta,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int SLOTS>
+cudaError_t launch_gram_partial(const void* s, int m2, int64_t n, int64_t cols, int nblocks,
+                                void* partials, cudaStream_t st) {
+  // The opt-in above 48 KB, once per process at the largest size.
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      self_gram_partial<T, SLOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)gram_smem_bytes<T>(kMaxGramRows));
+  if (opt_in != cudaSuccess) return opt_in;
+  self_gram_partial<T, SLOTS><<<nblocks, kThreads, gram_smem_bytes<T>(m2), st>>>(
+      static_cast<const T*>(s), m2, n, cols, static_cast<T*>(partials));
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_self_gram(const void* s, int m2, int64_t n, int64_t cols,
                      int nblocks, void* partials, void* out, void* stream) {
+  if (m2 < 1 || m2 > kMaxGramRows || n < 1 || cols % kGramCols)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (m2 <= kSmallGramRows) {
-    self_gram_partial<T, kSmallGramRows><<<nblocks, kThreads, 0, st>>>(
-        static_cast<const T*>(s), m2, n, cols, static_cast<T*>(partials));
-  } else {
-    self_gram_partial<T, kMaxGramRows><<<nblocks, kThreads, 0, st>>>(
-        static_cast<const T*>(s), m2, n, cols, static_cast<T*>(partials));
+  const int r16 = (m2 + 15) / 16;
+  cudaError_t err;
+  static_assert(kGramMaxSlots == 5, "one case per slot count");
+  switch ((r16 * (r16 + 1) / 2 + kWarps - 1) / kWarps) {
+    case 1: err = launch_gram_partial<T, 1>(s, m2, n, cols, nblocks, partials, st); break;
+    case 2: err = launch_gram_partial<T, 2>(s, m2, n, cols, nblocks, partials, st); break;
+    case 3: err = launch_gram_partial<T, 3>(s, m2, n, cols, nblocks, partials, st); break;
+    case 4: err = launch_gram_partial<T, 4>(s, m2, n, cols, nblocks, partials, st); break;
+    default: err = launch_gram_partial<T, 5>(s, m2, n, cols, nblocks, partials, st); break;
   }
-  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int npairs = m2 * (m2 + 1) / 2;
-  self_gram_reduce<T><<<npairs, kThreads, 0, st>>>(
+  const int r8 = (m2 + 7) / 8;
+  self_gram_reduce<T><<<r8 * (r8 + 1), kThreads, 0, st>>>(
       static_cast<const T*>(partials), nblocks, m2, static_cast<T*>(out));
   return (int)cudaGetLastError();
 }

@@ -1,7 +1,8 @@
-// Hand-written Hopper (sm_90a) kernel for GQA softmax attention (K9).
+// Hand-written Hopper (sm_90a) kernels for GQA softmax attention (K9).
 //
 // flash_attention_* replaces flash_attention_pallas
-// (src/repro/kernels/flash_attention.py:116, body _flash_kernel :33):
+// (src/repro/kernels/flash_attention.py:116, body _flash_kernel :33,
+// pallas_call :158):
 //
 //   O = softmax(scale * Q K^T + mask) V     Q (b, h, sq, dh), K, V (b, hkv, sk, dh)
 //
@@ -15,20 +16,60 @@
 // What bounds it: operations.  A call does 4 b h sq sk dh flops (half under
 // causal masking) on (b h sq + 2 b hkv sk) dh elements read and b h sq dh
 // written: at qwen1.5-0.5b's prefill (b 4, h = hkv = 16, s 4096, dh 64,
-// causal) 69 GFLOP on 50 MB, far above the card's ~295 flops per byte.
-// Its bound is the tensor cores' 989 TFLOP/s (bf16); this first kernel uses
-// none: it runs the f32 arithmetic of the Pallas body on the CUDA cores, so
-// it sits well above that bound (PERF.md).
+// causal) 137.4 GFLOP on 50 MB, far above the card's ~295 flops per byte,
+// so its bound is the tensor cores' 989 TFLOP/s (bf16): 0.139 ms.
 //
-// Design (simple and right first; mma.sync / wgmma tiles are later work):
+// Two kernels, by dtype:
 //
+// bf16: flash_attention_tc, on the tensor cores (FA2-style mma.sync).
+//   * One 128-thread block (4 warps) per (batch*head, 64-row query tile);
+//     each warp owns 16 query rows.  Grid (b*h, query tiles), the last
+//     query tile first: under causal masking the heaviest tiles launch in
+//     the first wave and the light ones fill the tail.
+//   * Q (64 x dh), then K and V tiles of 64 keys, go to shared memory by
+//     cp.async (16 bytes a copy, zeros past sq / sk, so ragged edges need
+//     no padded copies); K/V are double-buffered: tile t + 1 loads while
+//     tile t computes.  Rows of dh bf16 are XOR-swizzled in 16-byte chunks
+//     (chunk ^ row-group) so that every ldmatrix phase reads 8 rows from 8
+//     distinct bank groups.
+//   * Each warp loads its Q fragments once (ldmatrix.x4) and keeps them in
+//     registers.  Per KV tile: S = Q K^T by
+//     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (K fragments by
+//     ldmatrix.x4), 16 x 64 f32 scores in registers (32 per thread); on
+//     tiles that reach past sk or the diagonal, scale by scale*log2(e) and
+//     mask by position; online softmax in registers: row max over the quad
+//     by two xor shuffles, p = 2^(s*c - m) by one FMA (c = scale*log2(e)
+//     folded in, or 1 on a masked tile) and one ex2.approx.ftz (results
+//     below 2^-126 flush to 0), the normaliser summed per
+//     thread and over the quad once at the end, the accumulator rescaled
+//     by 2^(m_prev - m_new).  Then O += P V by the same mma: the score
+//     accumulators, packed to bf16 pairs, are the A fragments as they lie
+//     (the m16n8 C layout is the m16k16 A layout), V fragments by
+//     ldmatrix.x4.trans.
+//   * Numerics: P is rounded to bf16 before P V, as in every tensor-core
+//     flash kernel (the Pallas body keeps p in f32); l sums the f32 p.
+//     flash_attention_plain rounds P the same way for bf16 inputs, so the
+//     two differ by summation order (and ex2.approx against exp) alone.
+//   * Budget per block: shared memory 640 dh bytes (Q + 2 x (K + V)):
+//     10 KB at dh 16, 20 KB at 32, 40 KB at 64, 80 KB at 128 (opt-in above
+//     48 KB).  Registers per thread: 32 scores, dh/2 output accumulators,
+//     dh/4 Q fragment words (build log: ptxas -v).
+//   * What still separates it from its bound: mma.sync reaches about two
+//     thirds of the wgmma rate, and the exponentials (one MUFU op per
+//     score) and the rescales run on the CUDA cores between the two
+//     products of a warp instead of overlapping with another warpgroup's
+//     products (FA3's ping-pong); the loads are cp.async, not TMA.
+//
+// f32: flash_attention_simt, the f32 arithmetic of the Pallas body on the
+//   CUDA cores (no tensor cores, no TF32), kept for f32 callers and as the
+//   f32 control of chip_smoke.py:
 //   * One 256-thread block per (batch*head, 64-row query tile); blocks are
 //     independent, so each output element is written by one block, without
 //     atomics, and two launches agree bit for bit.
 //   * The query tile sits in shared memory as f32 for the whole block.  Key
-//     and value tiles of 64 rows are staged through shared memory as f32
-//     (bf16 widened on load), zeros past sk: the kernel masks the ragged
-//     edges and the Pallas wrapper's padded copies are not made.
+//     and value tiles of 64 rows are staged through shared memory as f32,
+//     zeros past sk: the kernel masks the ragged edges and the Pallas
+//     wrapper's padded copies are not made.
 //   * Under causal masking the block visits only key tiles that start at or
 //     before its last query row (the tiles above the diagonal are skipped,
 //     as the TPU kernel skips them); in visited tiles every element is
@@ -40,8 +81,11 @@
 //     xor shuffles), update m and l, and leave exp(m_prev - m_new) per row;
 //     then each thread rescales and adds P V to its rows ty + 16a and
 //     columns tx + 16c of the f32 accumulator held in registers.
-//   * dh is a template parameter (16, 32, 64, 128), T float or bf16.  At
-//     dh = 128 a block holds 115 KB of shared memory (opt-in above 48 KB).
+//   * dh is a template parameter (16, 32, 64, 128).  At dh = 128 a block
+//     holds 115 KB of shared memory (opt-in above 48 KB).
+//
+// Both kernels visit the KV tiles in a fixed order and write each output
+// tile from one block: two launches agree bit for bit.
 //
 // Plain C interface: the entry point returns cudaGetLastError() (0 = ok) and
 // launches on the stream it is given.  The output is allocated by the caller.
@@ -49,6 +93,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -78,7 +124,7 @@ constexpr size_t smem_bytes() {
 
 template <typename T, int DH>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
                        const T* __restrict__ v, T* __restrict__ o, int h, int group,
                        int sq, int sk, float scale, int causal, long long q_offset) {
   constexpr int LD = DH + 1;
@@ -230,26 +276,325 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int DH>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int b, int h,
-                 int hkv, int sq, int sk, double scale, int causal, int64_t q_offset,
-                 cudaStream_t stream) {
+int launch_simt(const void* q, const void* k, const void* v, void* o, int b, int h,
+                int hkv, int sq, int sk, double scale, int causal, int64_t q_offset,
+                cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<T, DH>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_simt<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
-  flash_attention_kernel<T, DH><<<grid, kThreads, smem, stream>>>(
+  flash_attention_simt<T, DH><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), h, h / hkv, sq, sk, (float)scale, causal, (long long)q_offset);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kBQ = 16 * kWarps;  // query rows per block, 16 per warp
+constexpr int kBK = 64;           // keys per staged tile
+constexpr int kNT = kBK / 8;      // 8-key column tiles of S
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int DH>
+constexpr size_t smem_bytes() {
+  return sizeof(bf16) * DH * (kBQ + 2 * 2 * kBK);  // Q, then K and V twice
+}
+
+// Element offset of 16-byte chunk `chunk` of row `row` in a tile of DH-wide
+// rows: the chunk index is XORed with the row's group, so the 8 rows an
+// ldmatrix phase reads (8 consecutive rows, one chunk each) fall in 8
+// distinct 16-byte bank groups whatever DH.
+template <int DH>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  constexpr int kChunks = DH / 8;
+  constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;  // rows per 128 bytes
+  constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+  return row * DH + ((chunk ^ ((row / kRowsPerLine) & kMask)) << 3);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) of a (rows, DH) bf16 matrix into a swizzled tile;
+// rows at or past `rows` are zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* __restrict__ src, int r0,
+                                          int rows) {
+  constexpr int kChunks = DH / 8;
+#pragma unroll
+  for (int i = 0; i < (ROWS * kChunks + kThreads - 1) / kThreads; ++i) {
+    const int e = threadIdx.x + i * kThreads;
+    if (ROWS * kChunks % kThreads && e >= ROWS * kChunks) break;
+    const int r = e / kChunks, c = e % kChunks;
+    const bool valid = r0 + r < rows;
+    cp_async16(tile + swz<DH>(r, c), src + (size_t)(valid ? r0 + r : 0) * DH + c * 8, valid);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// d += a b for a 16 x 16 bf16 A (row), a 16 x 8 bf16 B (col), f32 d.
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned pack(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+// 2^x by one MUFU.EX2 (exp2f adds a range fix-up for results below 2^-126,
+// which only flush to zero here: p < 2^-126 adds nothing next to the row
+// max's p = 1).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Fragment layouts (lane = 4 g + t): an m16n8 f32 accumulator holds
+// (row g, cols 2t, 2t+1) in d[0..1] and (row g + 8, same cols) in d[2..3];
+// an m16k16 A fragment holds (row g, cols 2t..) in a[0], (row g + 8) in
+// a[1], cols 8 + 2t.. in a[2] and a[3]; a k16n8 B fragment holds
+// (k 2t, 2t+1; col g) in b0 and k + 8 in b1.
+template <int DH>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                   const bf16* __restrict__ v, bf16* __restrict__ o, int h, int group,
+                   int sq, int sk, float scale_log2, int causal, long long q_offset) {
+  constexpr int KS = DH / 16;  // k-steps of Q K^T
+  constexpr int NO = DH / 8;   // 8-wide column tiles of O
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* ks = qs + kBQ * DH;     // two K tiles
+  bf16* vs = ks + 2 * kBK * DH;  // two V tiles
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int mi = lane >> 3, mr = lane & 7;  // ldmatrix: matrix and row this lane addresses
+  const int bh = blockIdx.x;
+  const int bi = bh / h, head = bh % h;
+  const int kvh = bi * (h / group) + head / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;
+  const bf16* qp = q + (size_t)bh * sq * DH;
+  const bf16* kp = k + (size_t)kvh * sk * DH;
+  const bf16* vp = v + (size_t)kvh * sk * DH;
+
+  const long long q_first = q_offset + q0;              // absolute position of row 0
+  const long long w_first = q_first + 16 * warp;        // ... of this warp's row 0
+  const int q_rows = sq - q0 < kBQ ? sq - q0 : kBQ;
+  int n_tiles = (sk + kBK - 1) / kBK;
+  if (causal) {
+    const long long last = q_first + q_rows - 1;
+    const long long visit = last < 0 ? 0 : last / kBK + 1;
+    if (visit < n_tiles) n_tiles = (int)visit;
+  }
+
+  load_tile<DH, kBQ>(qs, qp, q0, sq);
+  if (n_tiles > 0) {
+    load_tile<DH, kBK>(ks, kp, 0, sk);
+    load_tile<DH, kBK>(vs, vp, 0, sk);
+  }
+  cp_async_commit();
+
+  unsigned qf[KS][4];
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float m_run[2] = {kNegInf, kNegInf};  // rows g and g + 8, log2 units
+  float l_run[2] = {0.f, 0.f};          // this thread's share of the normaliser
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t & 1;
+    if (t + 1 < n_tiles) {
+      load_tile<DH, kBK>(ks + (stage ^ 1) * kBK * DH, kp, (t + 1) * kBK, sk);
+      load_tile<DH, kBK>(vs + (stage ^ 1) * kBK * DH, vp, (t + 1) * kBK, sk);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // everything but tile t + 1 has landed
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk)
+        ldsm_x4(qf[kk], qs + swz<DH>(16 * warp + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+    }
+    const bf16* kt = ks + stage * kBK * DH;
+    const bf16* vt = vs + stage * kBK * DH;
+
+    float s[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+      for (int jp = 0; jp < kNT / 2; ++jp) {  // 16 keys: two column tiles
+        unsigned b[4];
+        ldsm_x4(b, kt + swz<DH>(16 * jp + mr + (mi >> 1) * 8, 2 * kk + (mi & 1)));
+        mma(s[2 * jp], qf[kk], b[0], b[1]);
+        mma(s[2 * jp + 1], qf[kk], b[2], b[3]);
+      }
+    }
+
+    const int k0 = t * kBK;
+    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > w_first);
+    float sc = scale_log2;  // folded into the exponent's FMA below
+    if (edge) {             // ... or applied here, before the mask
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[n][e] * scale_log2;
+          const int kpos = k0 + 8 * n + 2 * t4 + (e & 1);
+          const long long qpos = w_first + g + 8 * (e >> 1);
+          if (kpos >= sk || (causal && kpos > qpos)) x = kNegInf;
+          s[n][e] = x;
+        }
+      }
+      sc = 1.f;
+    }
+
+    float m_new[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      m_new[0] = fmaxf(m_new[0], fmaxf(s[n][0], s[n][1]));
+      m_new[1] = fmaxf(m_new[1], fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m_new[r] = fmaxf(m_run[r], quad_max(m_new[r]) * sc);
+      const float corr = ex2(m_run[r] - m_new[r]);
+      m_run[r] = m_new[r];
+      l_run[r] *= corr;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        acc[n][2 * r] *= corr;
+        acc[n][2 * r + 1] *= corr;
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float p = ex2(fmaf(s[n][e], sc, -m_new[e >> 1]));
+        s[n][e] = p;
+        l_run[e >> 1] += p;
+      }
+    }
+
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {  // 16 keys a step
+      const unsigned a[4] = {pack(s[2 * kk][0], s[2 * kk][1]), pack(s[2 * kk][2], s[2 * kk][3]),
+                             pack(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < DH / 16; ++dp) {  // 16 output columns: two tiles
+        unsigned b[4];
+        ldsm_x4_trans(b, vt + swz<DH>(16 * kk + mr + (mi & 1) * 8, 2 * dp + (mi >> 1)));
+        mma(acc[2 * dp], a, b[0], b[1]);
+        mma(acc[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+    __syncthreads();  // this stage is consumed before tile t + 2 overwrites it
+  }
+  cp_async_wait<0>();
+
+  bf16* op = o + (size_t)bh * sq * DH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float l = quad_sum(l_run[r]);
+    if (l == 0.f) l = 1.f;  // a row with no visited key gives zeros
+    const int row = q0 + 16 * warp + g + 8 * r;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(op + (size_t)row * DH + 8 * n + 2 * t4) =
+          __floats2bfloat162_rn(acc[n][2 * r] / l, acc[n][2 * r + 1] / l);
+  }
+}
+
+template <int DH>
+int launch(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv,
+           int sq, int sk, double scale, int causal, int64_t q_offset, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<DH>();
+  static const cudaError_t opt_in = cudaFuncSetAttribute(  // once per process
+      flash_attention_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  const dim3 grid(b * h, (sq + kBQ - 1) / kBQ);
+  flash_attention_tc<DH><<<grid, kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<bf16*>(o), h, h / hkv, sq, sk, (float)(scale * 1.4426950408889634), causal,
+      (long long)q_offset);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <typename T, int DH>
+int launch_flash(const void* q, const void* k, const void* v, void* o, int b, int h,
+                 int hkv, int sq, int sk, double scale, int causal, int64_t q_offset,
+                 cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return tc::launch<DH>(q, k, v, o, b, h, hkv, sq, sk, scale, causal, q_offset, stream);
+  else
+    return launch_simt<T, DH>(q, k, v, o, b, h, hkv, sq, sk, scale, causal, q_offset, stream);
 }
 
 template <typename T>
 int dispatch_flash(const void* q, const void* k, const void* v, void* o, int b, int h,
                    int hkv, int sq, int sk, int dh, double scale, int causal,
                    int64_t q_offset, void* stream) {
-  if (b <= 0 || h <= 0 || hkv <= 0 || h % hkv || sq <= 0 || sk <= 0 || b * h > 65535)
+  if (b <= 0 || h <= 0 || hkv <= 0 || h % hkv || sq <= 0 || sk <= 0 || b * h > 65535 ||
+      (sq + kBQ - 1) / kBQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {

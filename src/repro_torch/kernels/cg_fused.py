@@ -24,10 +24,12 @@ C interface, built by :mod:`repro_torch.kernels._build`):
   read from device memory so the loop never waits on the host.
 * ``self_gram`` replaces ``self_gram_pallas`` (cg_fused.py:558): ``S Sᵀ``
   of the stacked window ``S = [Z; AZ]`` (2m ≤ 128 rows).  Bytes-bound: it
-  reads 2m·n elements for m(2m+1)·2n flops.  Each block stages a
-  (2m, 32)-column tile in shared memory and accumulates its share of the
-  upper triangle in registers; a second kernel sums the per-block
-  partials in block order and mirrors them.
+  reads 2m·n elements for m(2m+1)·2n flops.  One block per SM streams its
+  column range through shared memory (cp.async, three stages) and adds
+  its share of each 8 × 8 tile of the upper triangle in registers: on the
+  FP64 tensor cores (DMMA) in f64, by 4 × 4 FMA micro-tiles in f32; a
+  second kernel sums the per-block tiles in a fixed order, coalesced, and
+  writes both halves from one value.
 * ``recombine_blocks`` replaces ``recombine_blocks_pallas``
   (cg_fused.py:639): ``[uᵀZ; uᵀAZ]``.  Bytes-bound, 2(m + k)·n elements;
   ``u`` sits in shared memory and each thread owns output columns, so the
@@ -68,7 +70,8 @@ THREADS = 256
 GRID_CAP = 264  # two resident blocks per SM on a 132-SM H100
 MAX_K = 16
 MAX_GRAM_ROWS = 128
-GRAM_TILE = 32
+GRAM_COLS = 32  # columns of S a shared-memory stage of self_gram holds
+GRAM_GRID = 132  # self_gram's partial pass: one block per SM
 LSMR_GRID_CAP = 132 * 8  # eight resident 256-thread blocks per SM
 
 _P, _I, _L = _runtime.PTR, _runtime.INT, _runtime.INT64
@@ -97,8 +100,8 @@ def _grid(n: int) -> int:
 
 def _gram_grid(n: int):
     """``(blocks, columns per block)`` of the self-gram partial pass."""
-    blocks = min(_cdiv(n, GRAM_TILE), GRID_CAP)
-    cols = _cdiv(_cdiv(n, blocks), GRAM_TILE) * GRAM_TILE
+    blocks = min(_cdiv(n, GRAM_COLS), GRAM_GRID)
+    cols = _cdiv(_cdiv(n, blocks), GRAM_COLS) * GRAM_COLS
     return _cdiv(n, cols), cols
 
 
@@ -236,7 +239,8 @@ def self_gram_cuda(s: torch.Tensor) -> torch.Tensor:
     if n == 0 or not 1 <= m2 <= MAX_GRAM_ROWS:
         raise ValueError(f"self_gram: need n >= 1 and 1 <= rows <= {MAX_GRAM_ROWS}, got {m2}")
     blocks, cols = _gram_grid(n)
-    partials = torch.empty((blocks, m2 * (m2 + 1) // 2), dtype=s.dtype, device=s.device)
+    r8 = _cdiv(m2, 8)  # 8 x 8 tiles of the upper triangle, 64 values each
+    partials = torch.empty((blocks, r8 * (r8 + 1) // 2 * 64), dtype=s.dtype, device=s.device)
     out = torch.empty((m2, m2), dtype=s.dtype, device=s.device)
     _launch("self_gram", s,
             _ptr(s), m2, n, cols, blocks, _ptr(partials), _ptr(out))

@@ -14,12 +14,19 @@ whose header says what bounds it and how its tiles are laid out; the
 kernel masks ragged edges instead of padding copies, and each output tile
 is written by one block, so two launches agree bit for bit.
 
+bf16 inputs run on the tensor cores (``mma.sync`` m16n8k16, f32
+accumulators); f32 inputs run the Pallas body's f32 arithmetic on the
+CUDA cores (no TF32).  The two arithmetics differ in one place: in bf16
+the probabilities ``p`` are rounded to bf16 before ``p @ v``, as every
+tensor-core flash kernel does, while the Pallas body keeps ``p`` in f32.
+
 Beside it sits its plain PyTorch version, ``flash_attention_plain``: the
 blocked online-softmax loop of ``repro/kernels/ops.py:_attention_chunked``
-(score memory ``block_q × block_k``, linear in ``sk``) with the Pallas
-kernel's arithmetic, every product and sum in f32 on inputs widened from
-``q.dtype``, so that the two differ by summation order alone: the CPU
-path and the card's yardstick.  (The reference's chunked loop rounds the
+(score memory ``block_q × block_k``, linear in ``sk``) with the kernel's
+arithmetic: every product and sum in f32 on inputs widened from
+``q.dtype``, and ``p`` rounded to ``q.dtype`` before ``p @ v`` (a no-op
+in f32), so that the two differ by summation order alone: the CPU path
+and the card's yardstick.  (The reference's chunked loop rounds the
 scores and ``p @ v`` to ``q.dtype``, since its einsums return that dtype.)
 """
 
@@ -85,7 +92,7 @@ def flash_attention_plain(
     """Plain PyTorch version of :func:`flash_attention_cuda`: query blocks
     of ``block_q`` rows against key blocks of ``block_k``, carrying the
     ``(m, l, acc)`` online-softmax state; all arithmetic in f32, as the
-    kernel's."""
+    kernel's, with ``p`` rounded to ``q.dtype`` before ``p @ v``."""
     _runtime.note_plain("flash_attention", q)
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
@@ -114,7 +121,10 @@ def flash_attention_plain(
             p = torch.exp(s - m_new)
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1, keepdim=True)
-            acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vj)
+            # P rounds to the inputs' dtype before P V, as the kernel's
+            # tensor-core product takes it (a no-op in f32).
+            pv = torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), vj)
+            acc = acc * corr + pv
             m = m_new
         l = torch.where(l == 0.0, 1.0, l)
         out[:, :, q0 : q0 + bq] = (acc / l).to(q.dtype)

@@ -112,6 +112,8 @@ def attn_apply(
       causally within ``x`` (a fresh cache starts at length 0);
     * cache decode (``s == 1``): writes, then reads the valid prefix.
 
+    Writing past the cache's ``max_len`` raises ``ValueError`` (the
+    reference clamps the write and overwrites its last slot).
     ``cfg.attn_impl == "reference"`` runs the materializing oracle in place
     of the kernel; otherwise ``backend`` selects (see ``kernels.ops``).
     """
@@ -132,6 +134,10 @@ def attn_apply(
         ctx = kops.attention(q, k, v, causal=causal, **blocks)
     else:
         start = cache.length
+        if start + s > cache.k.shape[2]:
+            raise ValueError(
+                f"KV cache overflow: {start} cached + {s} new tokens > max_len {cache.k.shape[2]}"
+            )
         cache.k[:, :, start : start + s] = k.to(cache.k.dtype)
         cache.v[:, :, start : start + s] = v.to(cache.v.dtype)
         new_cache = KVCache(k=cache.k, v=cache.v, length=start + s)

@@ -10,7 +10,8 @@ machine does not need to have).  Tolerances: f64 1e-12 relative, f32
 2e-4 (the Pallas tolerance of ``tests/test_cg_fused.py``); the f32 RBF
 Gram matvec 2e-4 relative / 5e-4 absolute (``tests/test_kernels.py``).
 ``self_gram`` and ``recombine_blocks`` are held up to 128 stacked rows,
-the windows of the least-squares path (lsq_bench's k + ℓ = 56 gives 112).
+the windows of the least-squares path (lsq_bench's k + ℓ = 56 gives 112);
+``self_gram`` must also be exactly symmetric and repeat bit for bit.
 ``rbf_matvec_rect`` (K8) is held at ``chip_smoke.py``'s shapes (the
 sharded main path's per-rank blocks at 4 and 8 ranks, the paper's n at
 4 ranks, a ragged block), and one sharded def-CG solve runs on one rank
@@ -187,13 +188,16 @@ def test_fused_deflate_direction(device, dtype, n, k, buffered):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("n", SIZES)
-@pytest.mark.parametrize("rows", [40, 24, 64, 1, 96, 112, 128])
+@pytest.mark.parametrize("n", SIZES + [31, 33])
+@pytest.mark.parametrize("rows", [40, 24, 64, 1, 96, 112, 128, 7, 8, 9])
 def test_self_gram(device, dtype, n, rows):
+    # rows 7, 8, 9 and n 31, 33: either side of the 8-row tiles and the
+    # 32-column shared-memory stages.
     s = _gen(device, dtype, n + rows)(rows, n)
     got = cg_fused.self_gram_cuda(s)
     _assert_close(got, cg_fused.self_gram_plain(s), dtype)
     assert torch.equal(got, got.T)
+    assert torch.equal(got, cg_fused.self_gram_cuda(s))
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -258,6 +262,16 @@ LM_TOL = {torch.float32: dict(rtol=2e-4, atol=5e-4), torch.bfloat16: dict(rtol=2
     (1, 32, 8, 300, 300, 128, True, 0),
     (2, 4, 1, 70, 150, 64, True, 80),
     (4, 16, 16, 512, 512, 64, True, 0),
+    # sk not a multiple of the 64-key tile, over 3+ tiles (the KV pipeline
+    # wraps), plain and causal; one query at q_offset = sk - 1; causal with
+    # sq != sk; GQA group 4 at dh 16 and 128; more blocks than one wave.
+    (1, 4, 2, 50, 200, 64, False, 0),
+    (2, 4, 2, 200, 200, 32, True, 0),
+    (2, 8, 2, 1, 777, 128, True, 776),
+    (1, 4, 4, 100, 300, 64, True, 200),
+    (2, 8, 2, 130, 130, 16, True, 0),
+    (1, 16, 4, 257, 257, 128, True, 0),
+    (8, 32, 8, 1024, 1024, 64, True, 0),
 ])
 def test_flash_attention(device, dtype, case):
     b, h, hkv, sq, sk, dh, causal, off = case

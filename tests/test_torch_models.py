@@ -150,6 +150,55 @@ def test_attention_blocks_change_nothing_but_rounding():
     _close(big, small, rtol=1e-5, atol=1e-5)
 
 
+def _plain_with_f32_p(q, k, v, causal, q_offset, block):
+    """The plain version's loop with ``p`` kept in f32 for ``p @ v`` (the
+    Pallas body's arithmetic, and the plain version before the
+    tensor-core kernel rounded ``p``)."""
+    b, h, sq, dh = q.shape
+    group, sk = h // k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    for q0 in range(0, sq, block):
+        qi = q[:, :, q0 : q0 + block].float()
+        qpos = q_offset + q0 + torch.arange(qi.shape[2])[:, None]
+        m = torch.full((b, h, qi.shape[2], 1), tfa.NEG_INF)
+        l = torch.zeros((b, h, qi.shape[2], 1))
+        acc = torch.zeros((b, h, qi.shape[2], dh))
+        for k0 in range(0, sk, block):
+            kj = k[:, :, k0 : k0 + block].float().repeat_interleave(group, dim=1)
+            vj = v[:, :, k0 : k0 + block].float().repeat_interleave(group, dim=1)
+            s = torch.einsum("bhqd,bhkd->bhqk", qi, kj) * dh**-0.5
+            kpos = k0 + torch.arange(kj.shape[2])[None, :]
+            mask = (kpos < sk) & (kpos <= qpos) if causal else kpos < sk
+            s = torch.where(mask, s, tfa.NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bhqk,bhkd->bhqd", p, vj)
+            m = m_new
+        out[:, :, q0 : q0 + block] = (acc / torch.where(l == 0.0, 1.0, l)).to(q.dtype)
+    return out
+
+
+@pytest.mark.parametrize("case", ATTN_CASES)
+def test_attention_plain_rounds_p_only_in_bf16(case):
+    """The plain version rounds ``p`` to bf16 before ``p @ v`` for bf16
+    inputs, as the tensor-core kernel does, and stays within the bf16 bar
+    of the Pallas interpret arm (which keeps ``p`` in f32); in f32 it is
+    bit for bit the loop without that rounding."""
+    causal, off = case[6], case[7]
+    (_, _, _), (q, k, v) = _attn_inputs(case, F32)
+    got = tfa.flash_attention_plain(q, k, v, causal=causal, q_offset=off, block_q=32,
+                                    block_k=32)
+    assert torch.equal(got, _plain_with_f32_p(q, k, v, causal, off, 32))
+    (jq, jk, jv), (q, k, v) = _attn_inputs(case, BF16)
+    got = tfa.flash_attention_plain(q, k, v, causal=causal, q_offset=off, block_q=32,
+                                    block_k=32)
+    want = jops.attention(jq, jk, jv, causal=causal, q_offset=off, impl="interpret",
+                          block_q=32, block_k=32)
+    _close(got, want, **_tol(BF16))
+
+
 def test_kernel_wrappers_refuse_cpu_tensors():
     q = torch.zeros(1, 2, 4, 16)
     with pytest.raises(ValueError, match="CUDA"):
@@ -423,6 +472,32 @@ def test_decode_steps_match_reference(runs, arch, impl):
     assert run["length"] == S + DECODE
     for got, want in zip(run["steps"], ref["steps"]):
         _close(got, want, **TIGHT)
+
+
+def test_kv_cache_overflow_raises(runs):
+    """A prefill or decode step past the cache's ``max_len`` raises instead
+    of silently dropping keys (the reference clamps the write); the step
+    that fills the cache's last slot still matches the reference."""
+    arch = "qwen1.5-0.5b"
+    model, cfg = runs[arch]["model"], runs[arch]["cfg"]
+    tokens = _tokens(cfg)
+    jcfg = dataclasses.replace(jregistry.get_smoke_config(arch), attn_impl="chunked")
+    params = jax.tree_util.tree_map(jnp.asarray, runs[arch]["tree"])
+    jtok = jnp.asarray(tokens)
+    jstate = jmodels.init_decode_state(jcfg, B, S + 1)
+    jstate, _ = jmodels.prefill(params, {"tokens": jtok}, jstate, jcfg)
+    want, _ = jmodels.decode_step(params, jtok[:, :1], jstate, jcfg)
+
+    state = tmodels.init_decode_state(cfg, B, S + 1, device="cpu")
+    state, _ = tmodels.prefill(model, {"tokens": tokens}, state, cfg)
+    got, state = tmodels.decode_step(model, tokens[:, :1], state, cfg)
+    assert state.length == S + 1
+    _close(got, want, **TIGHT)
+    with pytest.raises(ValueError, match=rf"{S + 1} cached \+ 1 new tokens > max_len {S + 1}"):
+        tmodels.decode_step(model, tokens[:, 1:2], state, cfg)
+    short = tmodels.init_decode_state(cfg, B, S - 1, device="cpu")
+    with pytest.raises(ValueError, match=rf"0 cached \+ {S} new tokens > max_len {S - 1}"):
+        tmodels.prefill(model, {"tokens": tokens}, short, cfg)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
