@@ -19,7 +19,11 @@ Phases, each of which fails the script when it fails:
               events, median of 25 launches, 3 for the RBF Gram matvec, L2
               flushed before each) beside its plain version, the one
               PyTorch call that computes the same function where there is
-              one, and its bound.  The LSMR update (K7) is held at the
+              one, and its bound.  The RBF Gram matvec (K3) must repeat bit
+              for bit at the paper's n.  K6's timed
+              arm is its AW arm (no single PyTorch call: library null); its
+              no-AW arm is timed beside ``torch.dot(r, z)``.  The LSMR
+              update (K7) is held at the
               least-squares path's n = 16 384, the Gauss-Newton parameter
               count 32 768, lsq_bench's 2²⁰ and a ragged n, and the two
               extraction kernels at the least-squares windows' 96, 112 and
@@ -132,8 +136,9 @@ Phases, each of which fails the script when it fails:
               ``scaled_dot_product_attention`` as K9's yardstick (never on
               the path), and the bound (bf16 operations at 989 TFLOP/s
               against bytes read once at 3.35 TB/s); K9 also in f32 at
-              the prefill shape.  K9's and K4's timing lines print the
-              previous designs' times (``PREVIOUS_MS``) beside this run's.
+              the prefill shape.  The redesigned kernels' timing lines (K3,
+              K4, K5, K8, K9) print the previous designs' times
+              (``PREVIOUS_MS``) beside this run's.
 
 Each main path (5, 7, 10, 11, 13, 15 and 16) is driven with the launch
 counters set to 0 just before it and read just after (13: on every rank);
@@ -234,12 +239,17 @@ ATTN_CHECK = ((2, 4, 2, 64, 64, 32, False, 0), (1, 8, 2, 96, 96, 64, True, 0),
               (1, 16, 2, 33, 33, 128, True, 0), ATTN_MAIN, (1, 32, 8, 2048, 2048, 128, True, 0),
               (2, 4, 1, 70, 150, 64, True, 80))
 LONG_REPS = 3
-# The times of the designs K9 (bf16) and K4 replaced, printed beside this
-# run's (PERF.md §6: chip_smoke.py on an NVIDIA H100 80GB HBM3 at 700 W):
-# K9's SIMT kernel in bf16, K4's two-instance partial pass with one reduce
-# block per pair.
+# The times of the designs the redesigned kernels replaced, printed beside
+# this run's (PERF.md §6: chip_smoke.py on an NVIDIA H100 80GB HBM3 at
+# 700 W): K9's SIMT kernel in bf16, K4's two-instance partial pass with one
+# reduce block per pair, K5's thread-per-column kernel, K3's SIMT kernel
+# over every 64 × 64 tile and K8 on it.
 PREVIOUS_MS = {"flash_attention main": 6.243, "flash_attention 32k": 92.68,
-               "self_gram 40x36551": 0.0441, "self_gram 112x16384": 0.1187}
+               "self_gram 40x36551": 0.0441, "self_gram 112x16384": 0.1187,
+               "recombine_blocks 40x36551": 0.0201, "recombine_blocks 112x16384": 0.0387,
+               "rbf_matvec float64 r=1": 262.21, "rbf_matvec float64 r=8": 264.86,
+               "rbf_matvec float64 r=24": 274.49, "rbf_matvec float32 r=1": 172.03,
+               "rbf_matvec_rect float64 m=4096 n=16384 r=1": 11.37}
 # K10 (b, l, h, p, g, n, chunk): SSD_CASES and mamba2-1.3b's prefill.
 SSD_MAIN = (4, 4096, 64, 64, 1, 128, 128)
 SSD_CHECK = ((1, 64, 2, 16, 1, 16, 32), (2, 100, 4, 8, 2, 24, 32), (1, 37, 2, 4, 2, 8, 16),
@@ -453,11 +463,12 @@ def phase_kernels(torch, cf, peaks):
 
     t = kernel_inputs(torch, PAPER_N, f64, seed=1)
     ut = t["u"].T
+    # One PyTorch call computing the timed arm's function, where one exists.
+    # K6's timed arm is the AW arm (rᵀz and (AW)ᵀz from unstacked inputs:
+    # no single call); its no-AW arm is timed beside torch.dot below.
     library = {
         "self_gram": lambda: t["s"] @ t["s"].T,
         "recombine_blocks": lambda: torch.matmul(ut, t["s"].view(2, M, PAPER_N)),
-        # rᵀz alone: the no-AW arm (timed beside it below).
-        "fused_rz_reduce": lambda: torch.dot(t["r"], t["p"]),
     }
     calls = kernel_calls(cf, t)
     for name, entry in report.items():
@@ -478,9 +489,11 @@ def phase_kernels(torch, cf, peaks):
             extra += f" recording arm {entry['recording_arm_ms']:.4f} ms"
         if name == "fused_rz_reduce":
             entry["no_aw_ms"] = device_ms(torch, calls[name][1][1])
-            extra += f" no-AW arm {entry['no_aw_ms']:.4f} ms"
-        if name == "self_gram":
-            extra += f" previous design {PREVIOUS_MS.get(f'self_gram {2 * M}x{PAPER_N}')} ms"
+            entry["no_aw_library_ms"] = device_ms(torch, lambda: torch.dot(t["r"], t["p"]))
+            extra += (f" no-AW arm {entry['no_aw_ms']:.4f} ms beside torch.dot(r, z) "
+                      f"{entry['no_aw_library_ms']:.4f} ms")
+        if name in ("self_gram", "recombine_blocks"):
+            extra += f" previous design {PREVIOUS_MS.get(f'{name} {2 * M}x{PAPER_N}')} ms"
         log(f"[timing] {name:24s} f64 n={PAPER_N}: kernel {entry['ms']:.4f} ms, plain "
             f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']} ms, bound "
             f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}){extra}")
@@ -501,8 +514,9 @@ def rbf_work(n, d, r, itemsize):
     pair once: the cross term X·Xᵀ is a SYRK of n(n+1)·d flops, and the
     distances and exp (about 8 operations a pair) come to ~4n²; K·V still
     takes 2n²r, since a tile K_ij feeds both Y_i += K_ij·V_j and
-    Y_j += K_ijᵀ·V_i.  The kernel does not use the symmetry yet (it forms
-    every tile) and is held to this bound all the same."""
+    Y_j += K_ijᵀ·V_i.  The kernel forms each unordered pair of 128-row
+    tiles once, so its cross term is n(n + 128)·d, within 0.4 % of this
+    at the paper's n."""
     return (n * d + 2 * n * r) * itemsize, n * (n + 1) * d + 2 * n * n * r + 4 * n * n
 
 
@@ -532,6 +546,8 @@ def phase_rbf(torch, rbf, peaks):
                         raise AssertionError(f"{what}: relative error {err / scale:.3e}")
                     if n == PAPER_N:
                         report["max_abs_err"] = max(report["max_abs_err"], err)
+                        if not torch.equal(got, rbf.rbf_matvec_cuda(x, v, THETA, LENGTHSCALE)):
+                            raise AssertionError(f"{what}: two launches differ")
                 else:
                     rtol, atol = RBF_TOL_F32
                     if bool(((got - want).abs() > atol + rtol * want.abs()).any()):
@@ -558,8 +574,9 @@ def phase_rbf(torch, rbf, peaks):
                 "tflop_s": ops / kms / 1e9,
             }
             log(f"[timing] rbf_matvec {dname} n={PAPER_N} d={D} r={r:2d}: kernel {kms:.2f} ms "
-                f"({t['tflop_s']:.2f} TFLOP/s), plain {pms:.2f} ms, bound {t['bound_ms']:.2f} ms "
-                f"({t['bound_by']}), library null")
+                f"({t['tflop_s']:.2f} TFLOP/s; previous design "
+                f"{PREVIOUS_MS.get(f'rbf_matvec {dname} r={r}')} ms), plain {pms:.2f} ms, bound "
+                f"{t['bound_ms']:.2f} ms ({t['bound_by']}), library null")
     main = timings["float64 r=1"]
     report.update(ms=main["ms"], plain_ms=main["plain_ms"], library_ms=None,
                   bound_ms=main["bound_ms"], bound_by=main["bound_by"], timings=timings)
@@ -664,9 +681,12 @@ def phase_rect_kernels(torch, rbf, peaks):
             kb.clamp_(min=0.0).mul_(-0.5).exp_().mul_(THETA**2)
             t["block_gemv_ms"] = device_ms(torch, lambda: kb @ v[:, 0])
             del kb, xrs, xcs
-        report["timings"][f"{dname} m={m} n={n} r={r}"] = t
+        key = f"{dname} m={m} n={n} r={r}"
+        report["timings"][key] = t
         log(f"[timing] rbf_matvec_rect {dname} m={m} n={n} d={D} r={r}: kernel {kms:.2f} ms "
-            f"({t['tflop_s']:.2f} TFLOP/s), plain {pms:.2f} ms, bound {t['bound_ms']:.3f} ms "
+            f"({t['tflop_s']:.2f} TFLOP/s; previous design "
+            f"{PREVIOUS_MS.get('rbf_matvec_rect ' + key)} ms), plain {pms:.2f} ms, bound "
+            f"{t['bound_ms']:.3f} ms "
             f"({t['bound_by']}), library null"
             + (f", dense GEMV over the materialized block {t['block_gemv_ms']:.4f} ms"
                if "block_gemv_ms" in t else ""))
@@ -805,8 +825,7 @@ def phase_lsmr_kernels(torch, cf, peaks):
                           "library_ms": device_ms(torch, lib),
                           "bound_ms": 1e3 * max(t_bytes, t_ops),
                           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-        previous = (f" (previous design {PREVIOUS_MS.get(f'self_gram {rows}x{n}')} ms)"
-                    if name == "self_gram" else "")
+        previous = f" (previous design {PREVIOUS_MS.get(f'{name} {rows}x{n}')} ms)"
         log(f"[timing] {name} f64 rows={rows} n={n}: kernel {t['ms']:.4f} ms{previous}, plain "
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']})")

@@ -438,45 +438,174 @@ __global__ void __launch_bounds__(kThreads) self_gram_reduce(
 // ---------------------------------------------------------------------------
 // recombine_blocks: [u^T S_top; u^T S_bot] for S (2m, n), u (m, k)
 // ---------------------------------------------------------------------------
+//
+// Bound by bytes: it reads 2m n + m k elements and writes 2k n for 4 k m n
+// flops (m = 56, k = 8, n = 16 384: 16.8 MB, 5.0 us at 3.35 TB/s; the
+// flops take 0.4 us on the FP64 tensor cores).  So the design is about
+// bytes in flight.  The grid does not grow with n: as many blocks as fit
+// on an SM (one at 2m = 112 rows, three at 40), on every SM, own the
+// 32-column chunks b, b + grid, ... of S and stream them through shared
+// memory, kRecStages deep, by cp.async: 16-byte copies when every row of S
+// is 16-byte aligned, element copies otherwise (n is odd on the main path,
+// 36 551).  A stage holds the m + 4 ceil(m / 4) rows the products read
+// (rows past 2m zero-filled) with a row stride of kRecCols + 4.  A column
+// belongs to one block and every output is written once: nothing is
+// reduced across blocks, and runs repeat bit for bit.
+//   f64: u^T stays in registers for the whole kernel as the A fragments of
+// mma.sync m8n8k4 (DMMA; rows j of u^T, 8 per M tile, so k = 8 fills one
+// tile and k = 16 two), A[j][i] = u[4q + t][j] for lane = 4j + t.  Warp w
+// takes columns 8 (w % 4) .. + 7 of a chunk and half w / 4 (the top or the
+// bottom block): each 4-row step of the stage is one B fragment
+// (S[h m + 4q + t][c + j], conflict-free with the stride 36) and one DMMA
+// per M tile into the 8 x 8 output tile, stored after quad shuffles in
+// whole 32-byte sectors.
+//   f32: FMAs, no TF32.  Thread (col, half, group of 4 j) runs down the
+// stage's rows with u from shared memory.
+
+constexpr int kRecCols = 32;
+constexpr int kRecStages = 6;
+constexpr int kRecMaxBlocksPerSm = 3;
+constexpr int kRecLd = kRecCols + 4;
+constexpr int kRecMaxQ = kMaxGramRows / 8;  // 4-row steps of one half
+
+__host__ __device__ constexpr int rec_rows(int m) { return m + 4 * ((m + 3) / 4); }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) recombine_blocks(
-    const T* __restrict__ s, const T* __restrict__ u, int m, int k, int64_t n,
-    T* __restrict__ out) {
-  __shared__ T us[(kMaxGramRows / 2) * kMaxK];
-  for (int e = threadIdx.x; e < m * k; e += blockDim.x) us[e] = u[e];
-  __syncthreads();
+size_t recombine_smem_bytes(int m) {
+  return sizeof(T) * ((size_t)kRecStages * rec_rows(m) * kRecLd + (size_t)m * kMaxK);
+}
 
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t c = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; c < n;
-       c += stride) {
-    T top[kMaxK];
-    T bot[kMaxK];
+// Columns [c, c + kRecCols) of S's first 2m rows into a stage; zeros past
+// n and 2m.  BYTES a copy: 16 when every row of S is 16-byte aligned.
+template <typename T, int BYTES>
+__device__ __forceinline__ void rec_load_chunk_w(T* stage, const T* __restrict__ s, int m,
+                                                 int64_t n, int64_t c) {
+  constexpr int kPer = BYTES / (int)sizeof(T);
+  constexpr int kCopies = kRecCols / kPer;
+  const int rows = rec_rows(m);
+  for (int e = threadIdx.x; e < rows * kCopies; e += kThreads) {
+    const int row = e / kCopies;
+    const int col = (e - row * kCopies) * kPer;
+    const bool valid = row < 2 * m && c + col < n;
+    cp_async<BYTES>(stage + row * kRecLd + col, valid ? s + (int64_t)row * n + c + col : s,
+                    valid);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void rec_load_chunk(T* stage, const T* s, int m, int64_t n,
+                                               int64_t c, bool vec) {
+  if (vec) {
+    rec_load_chunk_w<T, 16>(stage, s, m, n, c);
+  } else {
+    rec_load_chunk_w<T, (int)sizeof(T)>(stage, s, m, n, c);
+  }
+}
+
+template <typename T, int KT>
+__global__ void __launch_bounds__(kThreads) recombine_blocks(
+    const T* __restrict__ s, const T* __restrict__ u, int m, int k, int64_t n, int vec,
+    T* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char rec_smem[];
+  T* stages = reinterpret_cast<T*>(rec_smem);
+  T* us = stages + kRecStages * rec_rows(m) * kRecLd;  // u, (m, kMaxK), zero past k
+  const int stage_elems = rec_rows(m) * kRecLd;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t nchunks = (n + kRecCols - 1) / kRecCols;
+  const int mine = (int)((nchunks - blockIdx.x + gridDim.x - 1) / gridDim.x);
+
+  for (int e = threadIdx.x; e < m * kMaxK; e += kThreads) {
+    const int i = e / kMaxK, j = e - i * kMaxK;
+    us[e] = j < k ? u[i * k + j] : T(0);
+  }
+  __syncthreads();
+  const int nq = (m + 3) / 4;
+  const int g = lane >> 2, t = lane & 3;
+  constexpr bool kDmma = sizeof(T) == 8;  // f64 on the FP64 tensor cores
+  // DMMA: the A fragments of u^T (zero past m and k), for the whole kernel.
+  T afrag[KT][kRecMaxQ];
+  if constexpr (kDmma) {
 #pragma unroll
-    for (int j = 0; j < kMaxK; ++j) {
-      top[j] = T(0);
-      bot[j] = T(0);
-    }
-    for (int i = 0; i < m; ++i) {
-      const T zt = s[(int64_t)i * n + c];
-      const T zb = s[(int64_t)(m + i) * n + c];
+    for (int mt = 0; mt < KT; ++mt)
 #pragma unroll
-      for (int j = 0; j < kMaxK; ++j) {
-        if (j < k) {
-          const T uij = us[i * k + j];
-          top[j] += uij * zt;
-          bot[j] += uij * zb;
+      for (int q = 0; q < kRecMaxQ; ++q) {
+        const int i = 4 * q + t;
+        afrag[mt][q] = i < m ? us[i * kMaxK + 8 * mt + g] : T(0);
+      }
+  }
+
+#pragma unroll
+  for (int st = 0; st < kRecStages - 1; ++st) {
+    if (st < mine)
+      rec_load_chunk(stages + st * stage_elems, s, m, n,
+                     (blockIdx.x + (int64_t)st * gridDim.x) * kRecCols, vec);
+    cp_async_commit();
+  }
+  for (int it = 0; it < mine; ++it) {
+    cp_async_wait<kRecStages - 2>();
+    __syncthreads();  // chunk it has landed; chunk it - 1's stage is free
+    const int next = it + kRecStages - 1;
+    if (next < mine)
+      rec_load_chunk(stages + (next % kRecStages) * stage_elems, s, m, n,
+                     (blockIdx.x + (int64_t)next * gridDim.x) * kRecCols, vec);
+    cp_async_commit();
+    const T* stage = stages + (it % kRecStages) * stage_elems;
+    const int64_t c0 = (blockIdx.x + (int64_t)it * gridDim.x) * kRecCols;
+    if constexpr (kDmma) {
+      const int half = warp >> 2;
+      for (int col = 8 * (warp & 3); col < kRecCols; col += 32) {
+        const T* b_base = stage + (half * m + t) * kRecLd + col + g;
+        double acc[KT][2];
+#pragma unroll
+        for (int mt = 0; mt < KT; ++mt) acc[mt][0] = acc[mt][1] = 0.0;
+#pragma unroll
+        for (int q = 0; q < kRecMaxQ; ++q) {
+          if (q < nq) {
+            const double b = b_base[4 * q * kRecLd];
+#pragma unroll
+            for (int mt = 0; mt < KT; ++mt)
+              asm("mma.sync.aligned.m8n8k4.row.col.f64.f64.f64.f64 {%0,%1}, {%2}, {%3}, "
+                  "{%0,%1};\n"
+                  : "+d"(acc[mt][0]), "+d"(acc[mt][1])
+                  : "d"(afrag[mt][q]), "d"(b));
+          }
+        }
+        // Lane (j, t) holds columns 2t, 2t + 1 of row j; two rounds of quad
+        // shuffles hand it columns t and 4 + t, so each store fills whole
+        // 32-byte sectors of eight rows.
+#pragma unroll
+        for (int mt = 0; mt < KT; ++mt) {
+          const int j = 8 * mt + g;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int src = (lane & ~3) + 2 * h + (t >> 1);
+            const double v0 = __shfl_sync(0xffffffffu, acc[mt][0], src);
+            const double v1 = __shfl_sync(0xffffffffu, acc[mt][1], src);
+            const int64_t c = c0 + col + 4 * h + t;
+            if (j < k && c < n) out[(int64_t)(half * k + j) * n + c] = (t & 1) ? v1 : v0;
+          }
         }
       }
-    }
+    } else {
+      const int half = (threadIdx.x >> 5) & 1;
+      const int j0 = 4 * (threadIdx.x >> 6);
+      for (int col = threadIdx.x & 31; col < kRecCols && j0 < k; col += 32) {
+        T acc[4] = {T(0), T(0), T(0), T(0)};
+        const T* srow = stage + half * m * kRecLd + col;
+        for (int i = 0; i < m; ++i) {
+          const T z = srow[i * kRecLd];
+          const T* ui = us + i * kMaxK + j0;
 #pragma unroll
-    for (int j = 0; j < kMaxK; ++j) {
-      if (j < k) {
-        out[(int64_t)j * n + c] = top[j];
-        out[(int64_t)(k + j) * n + c] = bot[j];
+          for (int jj = 0; jj < 4; ++jj) acc[jj] += ui[jj] * z;
+        }
+        const int64_t c = c0 + col;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (j0 + jj < k && c < n) out[(int64_t)(half * k + j0 + jj) * n + c] = acc[jj];
       }
     }
   }
+  cp_async_wait<0>();
 }
 
 // ---------------------------------------------------------------------------
@@ -601,14 +730,46 @@ int launch_self_gram(const void* s, int m2, int64_t n, int64_t cols,
   return (int)cudaGetLastError();
 }
 
+template <typename T, int KT>
+cudaError_t launch_recombine_kt(const void* s, const void* u, int m, int k, int64_t n,
+                                void* out, int nblocks, cudaStream_t st) {
+  const auto kernel = recombine_blocks<T, KT>;
+  // The opt-in above 48 KB, once per process at the largest size; then as
+  // many blocks as fit on an SM (up to kRecMaxBlocksPerSm) on every SM,
+  // counted once per window height.
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)recombine_smem_bytes<T>(kMaxGramRows / 2));
+  if (opt_in != cudaSuccess) return opt_in;
+  static int resident[kMaxGramRows / 2 + 1] = {};
+  const size_t smem = recombine_smem_bytes<T>(m);
+  if (resident[m] == 0) {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+    if (err != cudaSuccess) return err;
+    resident[m] = sms * (per_sm < kRecMaxBlocksPerSm ? (per_sm > 0 ? per_sm : 1)
+                                                     : kRecMaxBlocksPerSm);
+  }
+  const int grid = nblocks < resident[m] ? nblocks : resident[m];
+  const int vec = (uintptr_t)s % 16 == 0 && (n * (int64_t)sizeof(T)) % 16 == 0;
+  kernel<<<grid, kThreads, smem, st>>>(static_cast<const T*>(s), static_cast<const T*>(u), m,
+                                       k, n, vec, static_cast<T*>(out));
+  return cudaGetLastError();
+}
+
 template <typename T>
 int launch_recombine(const void* s, const void* u, int m, int k, int64_t n,
                      void* out, int nblocks, void* stream) {
+  if (m < 0 || 2 * m > kMaxGramRows || k < 1 || k > kMaxK || n < 1 || nblocks < 1)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  recombine_blocks<T><<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(s), static_cast<const T*>(u), m, k, n,
-      static_cast<T*>(out));
-  return (int)cudaGetLastError();
+  const cudaError_t err =
+      k > 8 ? launch_recombine_kt<T, 2>(s, u, m, k, n, out, nblocks, st)
+            : launch_recombine_kt<T, 1>(s, u, m, k, n, out, nblocks, st);
+  return (int)err;
 }
 
 template <typename T>

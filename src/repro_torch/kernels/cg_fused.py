@@ -31,9 +31,12 @@ C interface, built by :mod:`repro_torch.kernels._build`):
   second kernel sums the per-block tiles in a fixed order, coalesced, and
   writes both halves from one value.
 * ``recombine_blocks`` replaces ``recombine_blocks_pallas``
-  (cg_fused.py:639): ``[uᵀZ; uᵀAZ]``.  Bytes-bound, 2(m + k)·n elements;
-  ``u`` sits in shared memory and each thread owns output columns, so the
-  output tiles are disjoint and nothing is reduced across blocks.
+  (cg_fused.py:639): ``[uᵀZ; uᵀAZ]``.  Bytes-bound, 2(m + k)·n elements.
+  As many blocks as fit on each SM (one at 112 rows, three at 40) stream
+  their 32-column chunks of ``S`` through shared memory (cp.async, six
+  stages); in f64 ``uᵀ`` stays in registers as the A fragments of FP64
+  tensor-core products (DMMA), in f32 FMAs.  A column belongs to one
+  block, so nothing is reduced across blocks.
 * ``lsmr_update`` replaces ``lsmr_update_pallas`` (cg_fused.py:336): one
   LSMR iteration's ``h̄' = h − c0·h̄``, ``x' = x + c1·h̄'``, ``h' = v − c2·h``.
   Bytes-bound, 7n elements for 6n flops: one grid-stride pass reads
@@ -72,6 +75,7 @@ MAX_K = 16
 MAX_GRAM_ROWS = 128
 GRAM_COLS = 32  # columns of S a shared-memory stage of self_gram holds
 GRAM_GRID = 132  # self_gram's partial pass: one block per SM
+REC_COLS = 32  # columns of S a shared-memory stage of recombine_blocks holds
 LSMR_GRID_CAP = 132 * 8  # eight resident 256-thread blocks per SM
 
 _P, _I, _L = _runtime.PTR, _runtime.INT, _runtime.INT64
@@ -271,7 +275,7 @@ def recombine_blocks_cuda(s: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
         )
     out = torch.empty((2 * k, n), dtype=s.dtype, device=s.device)
     _launch("recombine_blocks", s,
-            _ptr(s), _ptr(u), m, k, n, _ptr(out), _grid(n))
+            _ptr(s), _ptr(u), m, k, n, _ptr(out), _cdiv(n, REC_COLS))
     return out
 
 

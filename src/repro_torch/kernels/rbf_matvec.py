@@ -8,22 +8,30 @@ consumed on chip.  ``rbf_matvec_rect_cuda`` replaces
 per-rank product of the sharded RBF operator: this rank's rows
 ``X_rows`` (m, d) against all columns ``X_cols`` (n, d).  As the Pallas
 K8 is ``_rbf_matvec_kernel`` unchanged on another grid, K8 here is the
-same CUDA kernel launched on (m rows × n columns) through its own entry
+same CUDA tile kernel in its rectangular mode, through its own entry
 point, wrapper and launch counter.  The CUDA source is
 ``csrc/rbf_matvec.cu`` (f32 and f64 instantiations, plain C interface,
 built by :mod:`repro_torch.kernels._build`), whose header says what bounds
-it (operations: the kernel forms every tile, 2mn·d flops for
-(m + n)·d + n·r elements read; the square product needs only the
-n(n+1)·d that K's symmetry leaves, the rectangular block all of 2mn·d)
-and how its tiles are laid out.  ``1/λ`` and ``θ²`` go to the kernel as
-scalars, so no scaled copy of ``X`` is made per call; the f64 kernel
-accumulates in f64, the f32 kernel in f32.
+it (operations: the cross term ``X_I X_Jᵀ`` of 128 × 128 tiles, on the
+FP64 tensor cores in f64 and by FMAs in f32) and how its tiles and
+stages are laid out.  ``1/λ²`` folds into the epilogue and ``θ²`` into
+the staged ``V``, so no scaled copy of ``X`` is made per call; the f64
+kernel accumulates in f64, the f32 kernel in f32.
 
-The kernel walks the column tiles of each 64-row tile in ``splits``
-ranges, each written once to a ``(splits, m, min(r, 32))`` scratch that a
-second kernel sums in a fixed order; :func:`_split_grid` picks ``splits``
-so that about :data:`TARGET_BLOCKS` blocks fill the card, which matters
-for K8, whose m is n over the number of ranks.
+The square product uses K's symmetry: with ``T`` row tiles, row tile I
+forms the tiles ``(I, (I + o) mod T)`` for ``o < L_I``
+(:func:`sym_lengths`), so each unordered pair once; an off-diagonal tile
+adds ``K_IJ V_J`` to ``Y_I`` and ``K_IJᵀ V_I`` to ``Y_J``.  Each row's list
+is cut into ``nseg`` balanced segments, one block each; a block's ``Y_I``
+goes to a ``(nseg, n, r_chunk)`` scratch and each transposed product to a
+``(L − 1, n, r_chunk)`` scratch at ``Y_J``'s rows, and a second kernel
+sums both in a fixed order (row parts by segment, then column parts by
+offset).  ``r_chunk = min(r, MAX_R)``, so the column scratch grows as
+``n² r_chunk / 256`` elements: :func:`_symmetric` keeps the symmetric
+mode while it fits :data:`SCRATCH_BYTES` and otherwise runs the square
+product on the full grid, the rectangular mode, which needs none.
+:func:`_split_grid` picks ``nseg`` (the rectangular mode's splits of the
+column tiles) for the fewest waves of equal blocks on the card's SMs.
 
 Beside each wrapper sits its plain PyTorch version, ``rbf_matvec_plain``
 and ``rbf_matvec_rect_plain``: the row-blocked products of
@@ -36,6 +44,8 @@ CPU path and the card's yardstick.  The counters are those of
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from repro_torch.kernels import _runtime
@@ -43,22 +53,49 @@ from repro_torch.kernels import _runtime
 LAUNCHES = _runtime.LAUNCHES
 PLAIN_ON_CUDA = _runtime.PLAIN_ON_CUDA
 
-TILE = 64  # rows and columns of the kernel's Gram tile
-MAX_R = 32  # right-hand sides per kernel pass; wider V runs in chunks
-TARGET_BLOCKS = 2048  # ~15 waves of 256-thread blocks on 132 SMs
+TILE = 128  # rows and columns of the kernel's Gram tile
+ROW_GROUP = 16  # row tiles of consecutive blocks
+MAX_R = 16  # right-hand sides per kernel pass (kMaxR); wider V runs in chunks
+SCRATCH_BYTES = 10**9  # the symmetric mode's column scratch, at most
+BLOCK_OVERHEAD = 0.25  # a block's fixed cost, in tiles, for _split_grid
 
 _P, _I, _L, _D = _runtime.PTR, _runtime.INT, _runtime.INT64, _runtime.DOUBLE
-_SIGNATURE = (_P, _P, _P, _P, _L, _L, _I, _P, _I, _D, _D, _I, _L, _P, _P)
+_SIGNATURES = {
+    "rbf_matvec": (_P, _P, _L, _I, _P, _I, _D, _D, _I, _I, _P, _P, _P),
+    "rbf_matvec_rect": (_P, _P, _P, _P, _L, _L, _I, _P, _I, _D, _D, _I, _P, _P),
+}
 
 
-def _split_grid(m: int, n: int):
-    """``(splits, columns per split)``: each of the ``ceil(m / 64)`` row
-    tiles walks ``n`` columns in ``splits`` ranges of whole tiles."""
-    cdiv = _runtime.cdiv
-    col_tiles = cdiv(n, TILE)
-    want = max(1, min(col_tiles, cdiv(TARGET_BLOCKS, cdiv(m, TILE))))
-    cols = cdiv(col_tiles, want) * TILE
-    return cdiv(n, cols), cols
+def sym_lengths(t: int) -> list:
+    """``L_I``, the tiles row tile I forms in the symmetric schedule over
+    ``t`` row tiles: ``(t + 1) // 2`` each when ``t`` is odd; when even,
+    ``t // 2 + 1`` for the first half and ``t // 2`` for the rest."""
+    if t % 2:
+        return [(t + 1) // 2] * t
+    return [t // 2 + 1 if i < t // 2 else t // 2 for i in range(t)]
+
+
+def _split_grid(row_tiles: int, lengths: list, sms: int) -> int:
+    """Segments per row tile: the count (at most the shortest row) whose
+    blocks fill the card in the fewest waves of the longest segment."""
+    def cost(s):
+        waves = _runtime.cdiv(row_tiles * s, sms)
+        return waves * (_runtime.cdiv(max(lengths), s) + BLOCK_OVERHEAD)
+
+    return min(range(1, min(lengths) + 1), key=lambda s: (cost(s), s))
+
+
+def _symmetric(n: int, lengths: list, r: int, itemsize: int) -> bool:
+    """Whether the square product of ``n`` rows and ``r`` right-hand sides
+    runs in the symmetric mode: while its column scratch ``(L − 1, n,
+    min(r, MAX_R))`` fits :data:`SCRATCH_BYTES` (at 1 GB, in f64, up to n ≈
+    44 700 for r ≥ 16 and n ≈ 178 800 for r = 1)."""
+    return (max(lengths) - 1) * n * min(r, MAX_R) * itemsize <= SCRATCH_BYTES
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(
@@ -66,8 +103,10 @@ def _launch(
     theta: float, lengthscale: float,
 ) -> torch.Tensor:
     """``K(X_rows, X_cols) @ v`` through entry point ``name`` of
-    ``csrc/rbf_matvec.cu``.  The square entry (K3) takes one norm buffer
-    for both sides; K8's takes two, even when handed the same X."""
+    ``csrc/rbf_matvec.cu``.  The square entry (K3) runs the symmetric
+    schedule where its scratch fits (:func:`_symmetric`), else the full
+    grid, with one norm buffer; K8's the full grid with two, even when
+    handed the same X."""
     squeeze = v.ndim == 1
     v2 = (v[:, None] if squeeze else v).contiguous()  # (n, r) row-major
     m, d = x_rows.shape
@@ -77,20 +116,30 @@ def _launch(
                    v=(v2, (n, r)))
     if m == 0 or n == 0 or d == 0 or r == 0:
         raise ValueError(f"{name}: need m, n, d, r >= 1, got m={m}, n={n}, d={d}, r={r}")
-    splits, cols = _split_grid(m, n)
-    sq_rows = torch.empty((m,), dtype=x_rows.dtype, device=x_rows.device)
-    sq_cols = sq_rows if name == "rbf_matvec" else torch.empty(
-        (n,), dtype=x_rows.dtype, device=x_rows.device)
-    partials = torch.empty((splits, m, min(r, MAX_R)), dtype=x_rows.dtype,
-                           device=x_rows.device)
-    y = torch.empty((m, r), dtype=x_rows.dtype, device=x_rows.device)
+    square = name == "rbf_matvec"
+    cdiv = _runtime.cdiv
+    row_tiles, col_tiles = cdiv(m, TILE), cdiv(n, TILE)
+    lengths = sym_lengths(col_tiles)
+    sym = square and _symmetric(n, lengths, r, x_rows.element_size())
+    if not sym:
+        lengths = [col_tiles]
+    nseg = _split_grid(row_tiles, lengths, _sms(x_rows.device.index or 0))
+    rc = min(r, MAX_R)
+    new = functools.partial(torch.empty, dtype=x_rows.dtype, device=x_rows.device)
+    sq_rows = new((m,))
+    rowpart = new((nseg, m, rc))
+    y = new((m, r))
     p = _runtime.ptr
-    _runtime.launch(
-        "rbf_matvec", name, _SIGNATURE, x_rows,
-        p(x_rows), p(x_cols), p(sq_rows), p(sq_cols), m, n, d, p(v2), r,
-        1.0 / float(lengthscale), float(theta) ** 2, splits, cols,
-        p(partials), p(y),
-    )
+    scalars = (1.0 / float(lengthscale), float(theta) ** 2)
+    if square:
+        colpart = new((max(lengths) - 1, n, rc)) if sym and max(lengths) > 1 else None
+        args = (p(x_rows), p(sq_rows), n, d, p(v2), r, *scalars, int(sym), nseg, p(rowpart),
+                p(colpart), p(y))
+    else:
+        sq_cols = new((n,))
+        args = (p(x_rows), p(x_cols), p(sq_rows), p(sq_cols), m, n, d, p(v2), r, *scalars,
+                nseg, p(rowpart), p(y))
+    _runtime.launch("rbf_matvec", name, _SIGNATURES[name], x_rows, *args)
     return y[:, 0] if squeeze else y
 
 

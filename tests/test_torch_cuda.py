@@ -96,7 +96,8 @@ def test_fused_rz_reduce(device, dtype, n, k):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("ndr", [(4000, 784, 1), (4000, 784, 8), (1000, 50, 24),
-                                 (1000, 50, 33), (257, 13, 3), (1, 5, 1)])
+                                 (1000, 50, 33), (257, 13, 3), (1, 5, 1),
+                                 (36551, 784, 1), (36551, 784, 8), (36551, 784, 24)])
 def test_rbf_matvec(device, dtype, ndr):
     n, d, r = ndr
     rnd = _gen(device, dtype, n + d + r)
@@ -108,6 +109,70 @@ def test_rbf_matvec(device, dtype, ndr):
     else:
         _assert_close(got, want, dtype)
     assert torch.equal(got, rbf.rbf_matvec_cuda(x, v, 3.0, 3.0 * d**0.5 / 6.0))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("r", [1, 8, 33])
+@pytest.mark.parametrize("d", [3, 13, 784])
+@pytest.mark.parametrize("n", [1, 63, 64, 65, 127, 128, 129, 256, 257, 300])
+def test_rbf_matvec_tile_edges(device, dtype, n, d, r):
+    """Either side of the 128-row tiles, the 16/32-feature stages (d = 3,
+    13: element copies; 784: 16-byte copies) and the 16-column V chunks;
+    the symmetric K3 against its plain version and K8's full grid on the
+    same X, and bitwise repeats."""
+    rnd = _gen(device, dtype, 7 * n + d + r)
+    x, v = rnd(n, d), rnd(n, r)
+    ls = 3.0 * d**0.5 / 6.0
+    got = rbf.rbf_matvec_cuda(x, v, 3.0, ls)
+    want = rbf.rbf_matvec_plain(x, v, 3.0, ls)
+    full = rbf.rbf_matvec_rect_cuda(x, x, v, 3.0, ls)
+    for out in (got, full):
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, want, rtol=2e-4, atol=5e-4)
+        else:
+            _assert_close(out, want, dtype)
+    assert torch.equal(got, rbf.rbf_matvec_cuda(x, v, 3.0, ls))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("budget", [0, 1 << 40])
+@pytest.mark.parametrize("ndr", [(300, 784, 1), (1000, 50, 33), (257, 13, 8)])
+def test_rbf_matvec_either_side_of_the_scratch_budget(device, dtype, budget, ndr, monkeypatch):
+    """With no room for the column scratch K3 runs the square product on
+    the full grid; with room, symmetric.  Both against the plain version,
+    bit for bit on a repeat, and through K3's counter alone."""
+    n, d, r = ndr
+    monkeypatch.setattr(rbf, "SCRATCH_BYTES", budget)
+    lengths = rbf.sym_lengths(-(-n // rbf.TILE))
+    assert rbf._symmetric(n, lengths, r, 8) is (budget > 0)
+    rnd = _gen(device, dtype, 3 * n + d + r)
+    x, v = rnd(n, d), rnd(n, r)
+    ls = 3.0 * d**0.5 / 6.0
+    k3, k8 = cg_fused.LAUNCHES["rbf_matvec"], cg_fused.LAUNCHES["rbf_matvec_rect"]
+    got = rbf.rbf_matvec_cuda(x, v, 3.0, ls)
+    assert cg_fused.LAUNCHES["rbf_matvec"] == k3 + 1
+    assert cg_fused.LAUNCHES["rbf_matvec_rect"] == k8
+    want = rbf.rbf_matvec_plain(x, v, 3.0, ls)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=5e-4)
+    else:
+        _assert_close(got, want, dtype)
+    assert torch.equal(got, rbf.rbf_matvec_cuda(x, v, 3.0, ls))
+
+
+@pytest.mark.parametrize("r", [1, 24])
+def test_rbf_matvec_at_the_scale_phase_n(device, r):
+    """n = 131 072, d = 784, f64: r = 1 runs symmetric and r = 24 on the
+    full grid (its column scratch would be 8.6 GB); both against the plain
+    version and bit for bit on a repeat."""
+    n, d = 131072, 784
+    assert rbf._symmetric(n, rbf.sym_lengths(n // rbf.TILE), r, 8) is (r == 1)
+    rnd = _gen(device, torch.float64, r)
+    x, v = rnd(n, d), rnd(n, r)
+    ls = 3.0 * d**0.5 / 6.0
+    got = rbf.rbf_matvec_cuda(x, v, 3.0, ls)
+    _assert_close(got, rbf.rbf_matvec_plain(x, v, 3.0, ls), torch.float64)
+    assert torch.equal(got, rbf.rbf_matvec_cuda(x, v, 3.0, ls))
 
 
 def test_rbf_matvec_vector_and_transposed_rhs(device):
@@ -209,6 +274,22 @@ def test_recombine_blocks(device, dtype, n, mk):
     s, u = rnd(2 * m, n), rnd(m, k)
     got = cg_fused.recombine_blocks_cuda(s, u)
     _assert_close(got, cg_fused.recombine_blocks_plain(s, u), dtype)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mkn", [(56, 8, 16384), (20, 8, 36551), (56, 8, 16383), (20, 8, 36553),
+                                 (1, 1, 36551), (1, 16, 16383), (64, 1, 36551),
+                                 (64, 16, 16385), (56, 16, 36551), (1, 8, 31)])
+def test_recombine_blocks_main_shapes(device, dtype, mkn):
+    """The least-squares window (2·56 rows × 16 384) and def-CG's (2·20 ×
+    36 551), odd n, k ∈ {1, 8, 16} and m ∈ {1, 20, 56, 64}: against the
+    plain version, and two launches bit for bit."""
+    m, k, n = mkn
+    rnd = _gen(device, dtype, m + 3 * k + n)
+    s, u = rnd(2 * m, n), rnd(m, k)
+    got = cg_fused.recombine_blocks_cuda(s, u)
+    _assert_close(got, cg_fused.recombine_blocks_plain(s, u), dtype)
+    assert torch.equal(got, cg_fused.recombine_blocks_cuda(s, u))
 
 
 def test_gram_window_limit(device):
