@@ -115,8 +115,13 @@ Phases, each of which fails the script when it fails:
               (4 × 16 heads × 4 096, dh 64, causal), a GQA shape at dh 128
               (32 over 8 heads), a ragged causal block with an offset, and
               mamba2-1.3b's prefill (4 × 4 096, 64 heads × 64, n 128, chunk
-              128) with and without state in and out; two launches of each
-              must agree bit for bit.
+              128) with and without state in and out, and once more at
+              mamba2's widths with x, B and C the ``torch.split`` views the
+              Mamba mixer passes (ragged l = 1 000); the SSD scan's f32
+              final state is held at the f32 bar in both dtypes (bf16 runs
+              feed the kernel's non-bf16 factors as hi + lo pairs, which
+              keep f32 accuracy); two launches of each must agree bit for
+              bit.
 15. main-lm-attn — qwen1.5-0.5b serves at full width (24 layers, d 1024,
               vocab 151 936; f32 weights from a generator seeded 0, bf16
               compute): 4 prompts of 4 096 tokens from ``TokenPipeline``,
@@ -128,16 +133,18 @@ Phases, each of which fails the script when it fails:
               noise alone moves some logits past the bf16 bar element by
               element: ROADMAP P7); a teacher-forced decode of the first 64
               tokens against ``forward_hidden`` at 2e-2, held in f32;
-              ``torch.profiler`` over one prefill and over 8 decode steps.
+              ``torch.profiler`` over one prefill (with its top device
+              operations by time) and over 8 decode steps.
 16. main-lm-ssm — the same for mamba2-1.3b (48 layers, d 2048, 64 SSD
               heads × 64, state 128, vocab 50 280).
 17. timing  — K9 at qwen1.5's prefill shape and at prefill_32k's 32 768
               tokens (b 1), K10 at mamba2's: kernel, plain version,
               ``scaled_dot_product_attention`` as K9's yardstick (never on
               the path), and the bound (bf16 operations at 989 TFLOP/s
-              against bytes read once at 3.35 TB/s); K9 also in f32 at
+              against bytes read once at 3.35 TB/s; K10's operations are
+              those ``ssd_work`` counts as needed); K9 also in f32 at
               the prefill shape.  The redesigned kernels' timing lines (K3,
-              K4, K5, K8, K9) print the previous designs' times
+              K4, K5, K8, K9, K10) print the previous designs' times
               (``PREVIOUS_MS``) beside this run's.
 
 Each main path (5, 7, 10, 11, 13, 15 and 16) is driven with the launch
@@ -224,10 +231,11 @@ LM_PATHS = {
     "main-lm-attn": {"arch": "qwen1.5-0.5b", "batch": 4, "prompt": 4096, "decode": 32,
                      "teacher": 64, "kernel": "flash_attention_"},
     "main-lm-ssm": {"arch": "mamba2-1.3b", "batch": 4, "prompt": 4096, "decode": 32,
-                    "teacher": 64, "kernel": "ssd_scan_kernel"},
+                    "teacher": 64, "kernel": "ssd_scan_"},
 }
 LM_PATH_KERNELS = {"main-lm-attn": ("flash_attention",), "main-lm-ssm": ("ssd_scan",)}
 LM_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (2e-2, 5e-2)}  # tests/test_kernels.py
+TOP_OPS = 12  # device operations listed from each profiled prefill
 # K9 (b, h, hkv, sq, sk, dh, causal, q_offset): tests/test_kernels.py's
 # ATTN_CASES, qwen1.5-0.5b's prefill, a GQA shape at dh = 128, a ragged
 # causal block with an offset; timed at the prefill and at prefill_32k's
@@ -243,8 +251,9 @@ LONG_REPS = 3
 # this run's (PERF.md §6: chip_smoke.py on an NVIDIA H100 80GB HBM3 at
 # 700 W): K9's SIMT kernel in bf16, K4's two-instance partial pass with one
 # reduce block per pair, K5's thread-per-column kernel, K3's SIMT kernel
-# over every 64 × 64 tile and K8 on it.
-PREVIOUS_MS = {"flash_attention main": 6.243, "flash_attention 32k": 92.68,
+# over every 64 × 64 tile and K8 on it, K10's one block per (batch, head)
+# walking its chunks in order on the CUDA cores.
+PREVIOUS_MS = {"ssd_scan main": 9.389, "flash_attention main": 6.243, "flash_attention 32k": 92.68,
                "self_gram 40x36551": 0.0441, "self_gram 112x16384": 0.1187,
                "recombine_blocks 40x36551": 0.0201, "recombine_blocks 112x16384": 0.0387,
                "rbf_matvec float64 r=1": 262.21, "rbf_matvec float64 r=8": 264.86,
@@ -254,6 +263,8 @@ PREVIOUS_MS = {"flash_attention main": 6.243, "flash_attention 32k": 92.68,
 SSD_MAIN = (4, 4096, 64, 64, 1, 128, 128)
 SSD_CHECK = ((1, 64, 2, 16, 1, 16, 32), (2, 100, 4, 8, 2, 24, 32), (1, 37, 2, 4, 2, 8, 16),
              (2, 128, 8, 32, 1, 64, 64), SSD_MAIN)
+# K10 on the views models/mamba.py hands it (x, B, C split from one tensor).
+SSD_STRIDED = (2, 1000, 64, 64, 1, 128, 128)
 
 # Which TPU kernel each port kernel replaces, and the port's source.
 REPLACES = {
@@ -1594,8 +1605,10 @@ def attn_inputs(torch, b, h, hkv, sq, sk, dh, dtype, seed, device="cuda"):
                  for n, s in ((h, sq), (hkv, sk), (hkv, sk)))
 
 
-def ssd_inputs(torch, b, l, h, p, g, n, dtype, seed, device="cuda"):
-    """x, dt, a, B, C, D and a state: the ranges of ``tests/test_kernels.py``."""
+def ssd_inputs(torch, b, l, h, p, g, n, dtype, seed, device="cuda", strided=False):
+    """x, dt, a, B, C, D and a state: the ranges of ``tests/test_kernels.py``.
+    ``strided``: x, B and C are ``torch.split`` views of one (b, l, h·p +
+    2·g·n) tensor, as ``models/mamba.py`` passes them."""
     gen = torch.Generator(device=device).manual_seed(seed)
 
     def rnd(*shape):
@@ -1603,8 +1616,13 @@ def ssd_inputs(torch, b, l, h, p, g, n, dtype, seed, device="cuda"):
 
     dt = 0.01 + 0.39 * torch.rand(b, l, h, generator=gen, device=device)
     a = -(0.3 + 1.7 * torch.rand(h, generator=gen, device=device))
-    return (rnd(b, l, h, p).to(dtype), dt, a, rnd(b, l, g, n).to(dtype),
-            rnd(b, l, g, n).to(dtype), rnd(h), rnd(b, h, p, n))
+    if strided:
+        xc, bc, cc = torch.split(rnd(b, l, h * p + 2 * g * n).to(dtype), [h * p, g * n, g * n],
+                                 dim=-1)
+        x, bm, cm = xc.reshape(b, l, h, p), bc.reshape(b, l, g, n), cc.reshape(b, l, g, n)
+    else:
+        x, bm, cm = rnd(b, l, h, p).to(dtype), rnd(b, l, g, n).to(dtype), rnd(b, l, g, n).to(dtype)
+    return x, dt, a, bm, cm, rnd(h), rnd(b, h, p, n)
 
 
 def phase_check_lm(torch, device="cuda"):
@@ -1632,19 +1650,23 @@ def phase_check_lm(torch, device="cuda"):
                 "launches bitwise equal")
             if case == ATTN_MAIN:
                 worst["flash_attention"] = max(worst["flash_attention"], err)
-        for case in SSD_CHECK:
+        for case, strided in [(c, False) for c in SSD_CHECK] + [(SSD_STRIDED, True)]:
             b, l, h, p, g, n, chunk = case
             x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, b, l, h, p, g, n, dtype, seed=sum(case),
-                                                 device=device)
+                                                 device=device, strided=strided)
+            if strided and x.is_contiguous():
+                raise AssertionError("[check-lm] ssd_scan: the split views are contiguous")
             for state in (False, True):
                 kw = dict(chunk=chunk, initial_state=h0 if state else None, return_state=state)
                 got = ss.ssd_scan_cuda(x, dt, a, bm, cm, d, **kw)
                 want = ss.ssd_plain(x, dt, a, bm, cm, d, **kw)
                 _sync(torch, device)
                 got, want = (got, want) if state else ((got,), (want,))
-                errs = [lm_close(torch, gv, wv, dname, f"ssd_scan {case} {dname} state={state}",
-                                 scaled=True) for gv, wv in zip(got, want)]
-                log(f"[check-lm] ssd_scan {case} {dname} state={state}: max abs err "
+                what = f"ssd_scan {case}{' split views' if strided else ''} {dname} state={state}"
+                # y at its dtype's bar; the f32 final state at the f32 bar.
+                errs = [lm_close(torch, gv, wv, dname if i == 0 else "float32", what,
+                                 scaled=True) for i, (gv, wv) in enumerate(zip(got, want))]
+                log(f"[check-lm] {what}: max abs err "
                     + ", ".join(f"{e:.3e}" for e in errs) + (" (y, final state)" if state else ""))
                 if case == SSD_MAIN:
                     worst["ssd_scan"] = max(worst["ssd_scan"], *errs)
@@ -1706,17 +1728,20 @@ def profile_serving(torch, fn, kernel, device="cuda"):
         wall_ms = 1e3 * (time.perf_counter() - t0)
     total_us = kernel_us = 0.0
     launches = kernel_launches = 0
+    ops = []
     for evt in prof.key_averages():
         us = _device_us(evt)
         if not (_is_device(evt) and us > 0):
             continue
         total_us += us
         launches += evt.count
+        ops.append((evt.key[:80], us / 1e3, evt.count))
         if kernel in evt.key:
             kernel_us += us
             kernel_launches += evt.count
+    top = [{"name": k, "ms": ms, "calls": n} for k, ms, n in sorted(ops, key=lambda o: -o[1])]
     return {"device_ms": total_us / 1e3, "kernel_ms": kernel_us / 1e3,
-            "kernel_launches": kernel_launches, "launches": launches,
+            "kernel_launches": kernel_launches, "launches": launches, "top_ops": top[:TOP_OPS],
             "wall_ms_profiled": wall_ms,
             "kernel_share_of_device": kernel_us / total_us if total_us else None,
             "device_idle_share": 1.0 - total_us / 1e3 / wall_ms if total_us else None}
@@ -1850,6 +1875,8 @@ def phase_main_lm(torch, key, device="cuda"):
         f"({share(prof_prefill['kernel_share_of_device'])}), {prof_prefill['launches']} device "
         f"launches, wall {prof_prefill['wall_ms_profiled']:.1f} ms under the profiler, device "
         f"idle {share(prof_prefill['device_idle_share'])}")
+    log(f"{tag} profile prefill, top device operations (ms, calls): "
+        + "; ".join(f"{o['name']} {o['ms']:.2f} ms x{o['calls']}" for o in prof_prefill["top_ops"]))
     log(f"{tag} profile 16-token prefill + 8 decode steps: {prof_decode['launches']} device "
         f"launches, device {prof_decode['device_ms']:.1f} ms in {prof_decode['wall_ms_profiled']:.1f} "
         f"ms wall, device idle {share(prof_decode['device_idle_share'])}")
@@ -1869,10 +1896,14 @@ def attn_work(b, h, hkv, sq, sk, dh, causal, itemsize):
 
 def ssd_work(b, l, h, p, g, n, c, itemsize):
     """(bytes, operations): x, B, C, y in the working dtype and dt in f32,
-    once each; 2c²(n + p) + 4c·p·n flops per chunk and head."""
+    once each; the flops the function needs on each chunk of c' rows (the
+    last one ragged): M is lower-triangular, so C Bᵀ, once per group, and
+    (M ⊙ G) X take their causal half, c'(c' + 1)·n and c'(c' + 1)·p, beside
+    C Hᵀ and Xᵀ·bw's 4c'·p·n per head."""
     nbytes = (2 * b * l * h * p + 2 * b * l * g * n) * itemsize + 4 * b * l * h
-    chunks = -(-l // c)
-    return nbytes, b * h * chunks * (2 * c * c * (n + p) + 4 * c * p * n)
+    rows = [min(c, l - t0) for t0 in range(0, l, c)]
+    ops = sum(b * g * r * (r + 1) * n + b * h * (r * (r + 1) * p + 4 * r * p * n) for r in rows)
+    return nbytes, ops
 
 
 def phase_timing_lm(torch, peaks, worst, device="cuda"):
@@ -1938,7 +1969,8 @@ def phase_timing_lm(torch, peaks, worst, device="cuda"):
         x, dt, a, bm, cm, d, chunk=c, initial_state=h0, return_state=True))
     k10["tflop_s"] = ops / k10["ms"] / 1e9
     log(f"[timing] ssd_scan {SSD_MAIN} bf16: kernel {k10['ms']:.3f} ms ({k10['tflop_s']:.1f} "
-        f"TFLOP/s; with state in and out {k10['stateful_ms']:.3f} ms), plain "
+        f"TFLOP/s; with state in and out {k10['stateful_ms']:.3f} ms; the previous design "
+        f"{PREVIOUS_MS['ssd_scan main']} ms), plain "
         f"{k10['plain_ms']:.3f} ms, library null (no PyTorch call computes the scan), bound "
         f"{k10['bound_ms']:.4f} ms ({k10['bound_by']})")
     return {"flash_attention": k9, "ssd_scan": k10}

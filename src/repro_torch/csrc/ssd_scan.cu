@@ -1,300 +1,966 @@
-// Hand-written Hopper (sm_90a) kernel for the Mamba2 SSD chunked scan (K10).
+// Hand-written Hopper (sm_90a) kernels for the Mamba2 SSD chunked scan (K10).
 //
 // ssd_scan_* replaces ssd_scan_pallas (src/repro/kernels/ssd_scan.py:92, body
-// _ssd_kernel :41).  For each (batch, head), chunk by chunk in order, with
-// cs = cumsum(a dt) inside the chunk (f32, one thread, a fixed order):
+// _ssd_kernel :41).  For each (batch, head) and chunk k of c rows, with
+// cs = cumsum(a dt) inside the chunk (f32, a fixed order):
 //
-//   G  = C B^T                                          (c x c)
+//   G  = C B^T                                          (c x c, per group)
 //   M  = exp(cs_t - cs_s) dt_s  for s <= t, else 0      (masked before the exp)
-//   Y  = (M o G) X + exp(cs) (C H0^T)                   (c x p)
-//   H1 = exp(cs_c) H0 + X^T (exp(cs_c - cs) dt o B)     (p x n, f32, carried)
+//   Y  = (M o G) X + exp(cs) (C H_k^T)                  (c x p)
+//   H_{k+1} = exp(cs_c) H_k + X^T (exp(cs_c - cs) dt o B)   (p x n, f32)
 //
-// B and C are read by group (head / (h / g)), never repeated in memory.
-// Beyond the Pallas kernel the state can start from `h0` (b, h, p, n) and the
-// final state can be written to `h_out`: the serving path's prefill.  Rows
-// past l (the padded tail of the last chunk) load dt = 0 and x = B = C = 0,
-// so they leave the state unchanged and the final state is exact.
+// B and C are read by group (head / (h / g)), never repeated in memory.  The
+// state can start from `h0` (b, h, p, n) and the final state can be written
+// to `h_out`: the serving path's prefill.  Rows past l (the padded tail of
+// the last chunk) load dt = 0 and x = B = C = 0, so they leave the state
+// unchanged and the final state is exact.
 //
-// What bounds it: operations.  Per chunk and head it does 2c^2(n + p) +
-// 4c p n flops (C B^T, (M o G) X, C H0^T, X^T bw) on c(p + 2n + 1) inputs:
+// What bounds it: bytes.  x, B, C and dt are read once and y written once:
 // at mamba2-1.3b's prefill (b 4, l 4096, h 64, p 64, g 1, n 128, c 128)
-// 86 GFLOP on 0.2 GB.  This first kernel runs the Pallas body's f32
-// arithmetic on the CUDA cores (no tensor cores).
+// 0.28 GB, 0.084 ms at 3.35 TB/s.  The operations it needs are fewer: M is
+// lower-triangular, so C B^T (once per group and chunk) and (M o G) X take
+// only their causal half, c(c + 1) n and c(c + 1) p flops, beside C H^T and
+// X^T bw's 4c p n per chunk and head: 43 GFLOP there, 0.044 ms at the bf16
+// tensor cores' 989 TFLOP/s.
 //
-// Design (simple and right first):
+// Design: the SSD decomposition of arXiv 2405.21060, section 6, in three
+// launches on the caller's stream, so that every (batch, head, chunk) is an
+// independent item (8 192 at the prefill, not 256 serial walks):
 //
-//   * One 256-thread block per (batch, head): 256 blocks at mamba2's
-//     prefill.  The chunk loop runs inside the block, in order, with the
-//     (p x n) state in shared memory: the Pallas "arbitrary" chunk axis.
-//   * Shared memory holds, in f32, X (c x p), B (c x n+1) and C (c x n+1)
-//     of the chunk and the state H (p x n+1): 198 KB at c = 128, p = 64,
-//     n = 128 (opt-in above 48 KB).  The f32 G tile (64 KB) never exists
-//     at once with C: G is formed in registers (an 8 x 8 tile a thread,
-//     rows ty + 16i, columns tx + 16j), masked and scaled into M o G, and
-//     written over C once every thread has read C.  exp(cs_c - cs) dt o B
-//     is formed in place in B.
-//   * c, p and n are rounded up to 16 in shared memory with zero rows and
-//     columns (rows past c: dt = 0, which changes nothing), so every
-//     thread runs the same register tiles.  c <= 128, p <= 64, n <= 128.
-//   * Each thread owns fixed elements of Y (rows ty + 16i, columns tx +
-//     16j) and of H (rows ty + 16i, columns tx + 16j): nothing is reduced
-//     across threads or blocks, so two launches agree bit for bit.
-//   * The D skip is not here: the wrapper adds y + x d in the reference's
-//     dtype order.
+//   (a) chunk states, one block per (batch, chunk, heads of one group):
+//       cs by a warp scan, w = exp(cs_c - cs) dt, S_k = X^T (w o B) into an
+//       f32 scratch (b, h, chunks, p, n), cs into (b, h, chunks, c) and
+//       exp(cs_c) into (b, h, chunks);
+//   (b) state passing, one thread per (batch, head, state element), the
+//       (batch, head) pairs on grid.x (no 65 535 limit), the blocks of
+//       state elements on grid.y,
+//       chunks in order, in f32, in place: S_k is replaced by H_k, the
+//       state that enters chunk k, while H_{k+1} = exp(cs_c,k) H_k + S_k
+//       runs from h0 (or 0); the last H goes to h_out;
+//   (c) chunk outputs, one block per (batch, chunk, heads of one group):
+//       Y = (M o G) X + exp(cs) (C H_k^T).
 //
-// Plain C interface: the entry point returns cudaGetLastError() (0 = ok) and
-// launches on the stream it is given.  Outputs are allocated by the caller.
+// The scratch is 4 b h chunks (p n + c + 1) bytes (272 MB at the prefill)
+// and costs about 1.1 GB of traffic (S written, read and written again, H
+// read), ~0.32 ms at 3.35 TB/s.  Chaining (b) into (a) instead (each block
+// waiting on its predecessor's H_k through flags) measured no faster on
+// the card: the per-head link latency sat on the chain's critical path.
+//
+// bf16 inputs run on the tensor cores: mma.sync.m16n8k16 bf16 -> f32, with
+// K9's fragment code (csrc/flash_attention.cu).  A factor that is not bf16
+// (X scaled by w in (a); M o G and the f32 state in (c)) is fed as a
+// two-term split v = hi + lo, hi = bf16(v), lo = bf16(v - hi), two MMAs,
+// so its products keep about 16 significant bits and ssd_plain (f32
+// arithmetic) stays the yardstick at the bf16 tolerance.  C B^T has bf16
+// inputs and is exact up to summation order.
+//
+//   * 256 threads (8 warps) a block; each block takes `hpb` heads of one
+//     group (the wrapper's plan: up to 8), so one block forms G = C B^T once
+//     and keeps it in registers for all its heads (at g = 1 that removes
+//     G's c^2 n from 7 of every 8 heads).
+//   * (a): warp w owns S rows 16 (w % 4) .. and 64 columns (w / 4); per
+//     k-step of 16 rows of the chunk it loads X^T by ldmatrix.trans, scales
+//     the fragment by w_t and splits it, and multiplies with B fragments
+//     (ldmatrix.trans): 32 f32 accumulators.  66 KB of shared memory, up
+//     to 3 blocks an SM.
+//   * (c): warp w owns 16 rows t of the chunk (rows 16 w for w < 4, 16 (11 -
+//     w) above, so the two warps of one scheduler share the causal work
+//     evenly); G's row tile stays in 64 accumulators across heads, and only
+//     the column tiles at or below the diagonal are formed.  Per head: H_k
+//     is staged as f32, split into bf16 hi / lo tiles once per block, and
+//     C H_k^T runs as two MMAs per tile; the rows are scaled by exp(cs_t);
+//     then (M o G) is made in registers from G and split, and used as A
+//     fragments as they lie (the m16n8 C layout is the m16k16 A layout), X
+//     by ldmatrix.trans.  M's exponentials (ex2.approx): below the diagonal
+//     tile as a row factor exp(cs_t - cs_r) times a column factor exp(cs_r -
+//     cs_s) dt_s formed once per head (r the column tile's last row, both
+//     exponents <= 0), on the diagonal tile one per element, masked first.
+//     195 KB of shared memory, one block an SM.
+//   * Every per-head input (X, dt, H_k, cs) goes to shared memory by
+//     cp.async, double-buffered: head i + 1 loads while head i computes.
+//     B, C and X rows are 16-byte copies straight from their views when the
+//     wrapper finds them aligned (`vec`: p, n, the strides and the pointers
+//     multiples of 8 elements), element copies otherwise.  Rows of 64 or
+//     128 bf16 are XOR-swizzled in 16-byte chunks (chunk ^ (row & 7)), so
+//     every ldmatrix phase reads 8 rows from 8 distinct bank groups.
+//   * x, B and C are read where they lie: a view whose last dimension is
+//     contiguous, heads packed, with a batch and a row stride of its own
+//     (the torch.split of the Mamba mixer), so the wrapper copies nothing.
+//
+// f32 inputs keep the Pallas body's f32 arithmetic on the CUDA cores (no
+// tensor cores, no TF32) on the same three passes, one 256-thread block per
+// (batch, head, chunk): (a) forms w o B in shared memory and S in 4 x 8
+// register tiles; (c) forms C H_k^T, G in 8 x 8 register tiles, M o G over
+// C, then (M o G) X (198 KB of shared memory, one block an SM).
+//
+// c, p and n are rounded up to 16 in shared memory with zero rows and
+// columns (rows past c: dt = 0, which changes nothing).  c <= 128, p <= 64,
+// n <= 128.  Every output element is written by one thread, sums run in a
+// fixed order and no float atomics are used, so two launches agree bit for
+// bit.  The D skip is not here: the wrapper adds y + x d in the reference's
+// dtype order.
+//
+// Plain C interface: the entry point launches the three passes on the
+// stream and the grids it is given (the wrapper's plan, checked against
+// what the kernels index) and returns the first cudaGetLastError() that is
+// not 0.  Outputs and scratch are allocated by the caller.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
+using bf16 = __nv_bfloat16;
+constexpr int kThreads = 256;  // 8 warps
 constexpr int kMaxC = 128, kMaxP = 64, kMaxN = 128;
-constexpr int kTC = kMaxC / 16, kTP = kMaxP / 16, kTN = kMaxN / 16;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+constexpr unsigned kFull = 0xffffffffu;
 
 template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);
-}
+struct Args {
+  const T* x;           // (b, l, h, p) view: x[bi xb + t xl + head p + col]
+  const float* dt;      // (b, l, h)
+  const float* a;       // (h,)
+  const T* bm;          // (b, l, g, n) view, strides bb, bl
+  const T* cm;          // (b, l, g, n) view, strides cb, cl
+  const float* h0;      // (b, h, p, n) or null
+  T* y;                 // (b, l, h, p), contiguous
+  float* h_out;         // (b, h, p, n) or null
+  float* states;        // (b, h, chunks, p, n): S_k after (a), H_k after (b)
+  float* cs;            // (b, h, chunks, c)
+  float* decay;         // (b, h, chunks): exp(cs_c)
+  long long xb, xl, bb, bl, cb, cl;
+  int L, H, P, G, N, c, nch, hpb, vec;
+};
 
 __host__ __device__ inline int round16(int v) { return (v + 15) / 16 * 16; }
 
-// Shared floats for padded sizes cp, pp, np_ (multiples of 16).
-__host__ __device__ inline size_t smem_floats(int cp, int pp, int np_) {
-  const int ldn = np_ + 1;
-  const int cw = cp * ldn > cp * (cp + 1) ? cp * ldn : cp * (cp + 1);
-  return (size_t)cp * pp + (size_t)cp * ldn + cw + (size_t)pp * ldn + 2 * cp;
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+
+// One warp: cs[r] = sum over rows <= r of a dt (dts holds 128 rows, 0 past
+// the chunk's valid rows).  Each lane sums its four consecutive rows in
+// order, the lane totals are scanned by shuffles and the lane's exclusive
+// prefix is added: a fixed order.  cs_c is the value at row c - 1;
+// w[r] = exp(cs_c - cs[r]) dt[r].  cs (rows < c) and exp(cs_c) also go to
+// global memory for the state and output passes.
+__device__ void chunk_weights(const float* dts, float a_h, float* css, float* ws, float* cs_g,
+                              float* decay, int c) {
+  const int lane = threadIdx.x & 31;
+  float v[4], run = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    run += dts[4 * lane + i] * a_h;
+    v[i] = run;
+  }
+  float incl = run;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const float up = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += up;
+  }
+  float excl = __shfl_up_sync(kFull, incl, 1);
+  if (lane == 0) excl = 0.f;
+  float pick = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[i] += excl;
+    if (i == ((c - 1) & 3)) pick = v[i];
+  }
+  const float tot = __shfl_sync(kFull, pick, (c - 1) >> 2);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = 4 * lane + i;
+    css[r] = v[i];
+    ws[r] = expf(tot - v[i]) * dts[r];
+    if (r < c) cs_g[r] = v[i];
+  }
+  if (lane == 0) *decay = expf(tot);
 }
 
+// ---------------------------------------------------------------------------
+// (b) state passing, shared by both dtypes
+// ---------------------------------------------------------------------------
+
+// Chunks whose loads are issued before their stores.  In place, a store
+// may alias any later load, so each batch's loads wait behind the previous
+// batch's stores: with 8 a batch the pass moved about half the bytes a
+// second of a copy (PERF.md §6); 32 covers the prefill's chunks.  One state
+// element a thread: four (16-byte accesses) with 32 loads in flight needed
+// more than 255 registers.
+constexpr int kPassBatch = 32;
+
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_state_pass(float* __restrict__ states, const float* __restrict__ decay,
+                    const float* __restrict__ h0, float* __restrict__ h_out, int nch, int pn) {
+  const int e = blockIdx.y * kThreads + threadIdx.x;
+  if (e >= pn) return;
+  const size_t bh = blockIdx.x;
+  float* s = states + bh * nch * pn + e;
+  const float* dk = decay + bh * nch;
+  float hcur = h0 != nullptr ? h0[bh * pn + e] : 0.f;
+  for (int k0 = 0; k0 < nch; k0 += kPassBatch) {
+    float v[kPassBatch];
+#pragma unroll
+    for (int j = 0; j < kPassBatch; ++j)
+      if (k0 + j < nch) v[j] = s[(size_t)(k0 + j) * pn];
+#pragma unroll
+    for (int j = 0; j < kPassBatch; ++j) {
+      if (k0 + j < nch) {
+        s[(size_t)(k0 + j) * pn] = hcur;
+        hcur = dk[k0 + j] * hcur + v[j];
+      }
+    }
+  }
+  if (h_out != nullptr) h_out[bh * pn + e] = hcur;
+}
+
+// ---------------------------------------------------------------------------
+// f32 on the CUDA cores
+// ---------------------------------------------------------------------------
+
+namespace simt {
+
+constexpr int kTC = kMaxC / 16, kTP = kMaxP / 16, kTN = kMaxN / 16;
+
+// Shared floats of (a) and (c) for padded sizes cp, pp, np_.
+__host__ __device__ inline size_t state_floats(int cp, int pp, int np_) {
+  return (size_t)cp * pp + (size_t)cp * (np_ + 1) + 3 * kMaxC;
+}
+__host__ __device__ inline size_t out_floats(int cp, int pp, int np_) {
+  const int ldn = np_ + 1;
+  const int cw = cp * ldn > cp * (cp + 1) ? cp * ldn : cp * (cp + 1);
+  return (size_t)cp * pp + (size_t)cp * ldn + cw + (size_t)pp * ldn + 2 * kMaxC;
+}
+
+// Rows [0, cp) of a (rows, cols) block at src (row stride ld) into a
+// shared f32 tile of width w; zeros past `valid` rows and `cols` columns.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 1)
-ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
-                const float* __restrict__ a, const T* __restrict__ bmat,
-                const T* __restrict__ cmat, const float* __restrict__ h0,
-                T* __restrict__ y, float* __restrict__ h_out, int L, int H, int P, int G,
-                int N, int c) {
-  const int cp = round16(c), pp = round16(P), np_ = round16(N);
-  const int ldn = np_ + 1, ldw = cp + 1;
+__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src, long long ld,
+                                          int cp, int w, int valid, int cols) {
+  for (int e = threadIdx.x; e < cp * w; e += kThreads) {
+    const int r = e / w, col = e % w;
+    dst[e] = (r < valid && col < cols) ? to_f32(src[r * ld + col]) : 0.f;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+ssd_scan_chunk_state_simt(const Args<float> A) {
+  const int cp = round16(A.c), pp = round16(A.P), np_ = round16(A.N);
+  const int ldn = np_ + 1;
   extern __shared__ float smem[];
   float* xs = smem;               // cp x pp
   float* bs = xs + cp * pp;       // cp x ldn: B, then exp(cs_c - cs) dt o B
-  float* cw = bs + cp * ldn;      // cp x ldn: C, then cp x ldw: M o G
-  const int cw_size = cp * ldn > cp * ldw ? cp * ldn : cp * ldw;
-  float* hs = cw + cw_size;       // pp x ldn: the state
-  float* cs = hs + pp * ldn;      // cp: cumulative a dt
-  float* dts = cs + cp;           // cp
+  float* dts = bs + cp * ldn;     // kMaxC
+  float* css = dts + kMaxC;
+  float* ws = css + kMaxC;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, warp = tid >> 5;
   const int tx = tid % 16, ty = tid / 16;
-  const int bh = blockIdx.x;
-  const int bi = bh / H, head = bh % H;
-  const int grp = head / (H / G);
-  const float a_h = a[head];
-  const int tc = cp / 16, tp = pp / 16, tn = np_ / 16;
+  const int head = blockIdx.x, k = blockIdx.y, bi = blockIdx.z;
+  const int grp = head / (A.H / A.G);
+  const int t0 = k * A.c;
+  const int valid = min(A.c, A.L - t0);
+  const size_t item = ((size_t)bi * A.H + head) * A.nch + k;
 
-  for (int e = tid; e < pp * ldn; e += kThreads) {
-    const int r = e / ldn, col = e % ldn;
-    hs[e] = (h0 != nullptr && r < P && col < N) ? h0[((size_t)bh * P + r) * N + col] : 0.f;
+  load_rows(xs, A.x + bi * A.xb + t0 * A.xl + head * A.P, A.xl, cp, pp, valid, A.P);
+  load_rows(bs, A.bm + bi * A.bb + t0 * A.bl + grp * A.N, A.bl, cp, ldn, valid, A.N);
+  if (tid < kMaxC)
+    dts[tid] = tid < valid ? A.dt[((size_t)bi * A.L + t0 + tid) * A.H + head] : 0.f;
+  __syncthreads();
+  if (warp == 0)
+    chunk_weights(dts, A.a[head], css, ws, A.cs + item * A.c, A.decay + item, A.c);
+  __syncthreads();
+  for (int e = tid; e < cp * np_; e += kThreads) {
+    const int r = e / np_, col = e % np_;
+    bs[r * ldn + col] *= ws[r];
   }
+  __syncthreads();
 
-  const int n_chunks = (L + c - 1) / c;
-  for (int chunk = 0; chunk < n_chunks; ++chunk) {
-    const int t0 = chunk * c;
-    __syncthreads();  // the previous chunk's buffers are consumed
-    for (int e = tid; e < cp * pp; e += kThreads) {
-      const int r = e / pp, col = e % pp;
-      const int t = t0 + r;
-      xs[e] = (r < c && t < L && col < P)
-                  ? to_f32(x[(((size_t)bi * L + t) * H + head) * P + col]) : 0.f;
-    }
-    for (int e = tid; e < cp * ldn; e += kThreads) {
-      const int r = e / ldn, col = e % ldn;
-      const int t = t0 + r;
-      const bool in = r < c && t < L && col < N;
-      const size_t src = (((size_t)bi * L + t) * G + grp) * N + col;
-      bs[e] = in ? to_f32(bmat[src]) : 0.f;
-      cw[e] = in ? to_f32(cmat[src]) : 0.f;
-    }
-    for (int r = tid; r < cp; r += kThreads) {
-      const int t = t0 + r;
-      dts[r] = (r < c && t < L) ? dt[((size_t)bi * L + t) * H + head] : 0.f;
-    }
-    __syncthreads();
-    if (tid == 0) {
-      float run = 0.f;
-      for (int r = 0; r < cp; ++r) {
-        run += dts[r] * a_h;
-        cs[r] = run;
-      }
-    }
-    __syncthreads();
-    const float cs_tot = cs[cp - 1];
-
-    // Y = exp(cs_t) (C H0^T): rows ty + 16i, columns tx + 16j.
-    float yacc[kTC][kTP];
+  // S = X^T bw: this thread's rows ty + 16i (of p), columns tx + 16j (of n).
+  const int tp = pp / 16, tn = np_ / 16;
+  float acc[kTP][kTN];
 #pragma unroll
-    for (int i = 0; i < kTC; ++i)
+  for (int i = 0; i < kTP; ++i)
 #pragma unroll
-      for (int j = 0; j < kTP; ++j) yacc[i][j] = 0.f;
-    for (int kk = 0; kk < np_; ++kk) {
-      float cv[kTC], hv[kTP];
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
+  for (int s = 0; s < cp; ++s) {
+    float xv[kTP], bv[kTN];
 #pragma unroll
-      for (int i = 0; i < kTC; ++i) cv[i] = i < tc ? cw[(ty + 16 * i) * ldn + kk] : 0.f;
+    for (int i = 0; i < kTP; ++i) xv[i] = i < tp ? xs[s * pp + ty + 16 * i] : 0.f;
 #pragma unroll
-      for (int j = 0; j < kTP; ++j) hv[j] = j < tp ? hs[(tx + 16 * j) * ldn + kk] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kTC; ++i)
-#pragma unroll
-        for (int j = 0; j < kTP; ++j) yacc[i][j] = fmaf(cv[i], hv[j], yacc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kTC; ++i) {
-      if (i >= tc) break;
-      const float e = expf(cs[ty + 16 * i]);
-#pragma unroll
-      for (int j = 0; j < kTP; ++j) yacc[i][j] *= e;
-    }
-
-    // G = C B^T in registers: rows t = ty + 16i, columns s = tx + 16j.
-    float g[kTC][kTC];
-#pragma unroll
-    for (int i = 0; i < kTC; ++i)
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) g[i][j] = 0.f;
-    for (int kk = 0; kk < np_; ++kk) {
-      float cv[kTC], bv[kTC];
-#pragma unroll
-      for (int i = 0; i < kTC; ++i) {
-        cv[i] = i < tc ? cw[(ty + 16 * i) * ldn + kk] : 0.f;
-        bv[i] = i < tc ? bs[(tx + 16 * i) * ldn + kk] : 0.f;
-      }
-#pragma unroll
-      for (int i = 0; i < kTC; ++i)
-#pragma unroll
-        for (int j = 0; j < kTC; ++j) g[i][j] = fmaf(cv[i], bv[j], g[i][j]);
-    }
-    __syncthreads();  // every thread has read C and B
-
-    // M o G over C; exp(cs_c - cs_s) dt_s B_s over B.
-#pragma unroll
-    for (int i = 0; i < kTC; ++i) {
-      if (i >= tc) break;
-      const int t = ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) {
-        if (j >= tc) break;
-        const int s = tx + 16 * j;
-        const float m = s <= t ? expf(cs[t] - cs[s]) * dts[s] : 0.f;
-        cw[t * ldw + s] = m * g[i][j];
-      }
-    }
-    for (int e = tid; e < cp * np_; e += kThreads) {
-      const int r = e / np_, col = e % np_;
-      bs[r * ldn + col] *= expf(cs_tot - cs[r]) * dts[r];
-    }
-    __syncthreads();
-
-    // Y += (M o G) X, written in x's dtype.
-    for (int s = 0; s < cp; ++s) {
-      float wv[kTC], xv[kTP];
-#pragma unroll
-      for (int i = 0; i < kTC; ++i) wv[i] = i < tc ? cw[(ty + 16 * i) * ldw + s] : 0.f;
-#pragma unroll
-      for (int j = 0; j < kTP; ++j) xv[j] = j < tp ? xs[s * pp + tx + 16 * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kTC; ++i)
-#pragma unroll
-        for (int j = 0; j < kTP; ++j) yacc[i][j] = fmaf(wv[i], xv[j], yacc[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < kTC; ++i) {
-      const int r = ty + 16 * i;
-      const int t = t0 + r;
-      if (i >= tc || r >= c || t >= L) continue;
-#pragma unroll
-      for (int j = 0; j < kTP; ++j) {
-        const int col = tx + 16 * j;
-        if (col < P) y[(((size_t)bi * L + t) * H + head) * P + col] = from_f32<T>(yacc[i][j]);
-      }
-    }
-
-    // H1 = exp(cs_c) H0 + X^T bw: this thread's rows ty + 16i, columns tx + 16j.
-    float hacc[kTP][kTN];
+    for (int j = 0; j < kTN; ++j) bv[j] = j < tn ? bs[s * ldn + tx + 16 * j] : 0.f;
 #pragma unroll
     for (int i = 0; i < kTP; ++i)
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) hacc[i][j] = 0.f;
-    for (int s = 0; s < cp; ++s) {
-      float xv[kTP], bv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTP; ++i) xv[i] = i < tp ? xs[s * pp + ty + 16 * i] : 0.f;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = j < tn ? bs[s * ldn + tx + 16 * j] : 0.f;
-#pragma unroll
-      for (int i = 0; i < kTP; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) hacc[i][j] = fmaf(xv[i], bv[j], hacc[i][j]);
-    }
-    const float decay = expf(cs_tot);
-#pragma unroll
-    for (int i = 0; i < kTP; ++i) {
-      if (i >= tp) break;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        if (j >= tn) break;
-        float* hp = hs + (ty + 16 * i) * ldn + tx + 16 * j;
-        *hp = decay * *hp + hacc[i][j];
-      }
-    }
+      for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(xv[i], bv[j], acc[i][j]);
   }
-
-  if (h_out != nullptr) {
-    __syncthreads();
-    for (int e = tid; e < P * N; e += kThreads) {
-      const int r = e / N, col = e % N;
-      h_out[(size_t)bh * P * N + e] = hs[r * ldn + col];
+  float* out = A.states + item * A.P * A.N;
+#pragma unroll
+  for (int i = 0; i < kTP; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= A.P) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int col = tx + 16 * j;
+      if (col < A.N) out[r * A.N + col] = acc[i][j];
     }
   }
 }
 
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_scan_chunk_out_simt(const Args<float> A) {
+  const int cp = round16(A.c), pp = round16(A.P), np_ = round16(A.N);
+  const int ldn = np_ + 1, ldw = cp + 1;
+  extern __shared__ float smem[];
+  float* xs = smem;               // cp x pp
+  float* bs = xs + cp * pp;       // cp x ldn
+  float* cw = bs + cp * ldn;      // cp x ldn: C, then cp x ldw: M o G
+  const int cw_size = cp * ldn > cp * ldw ? cp * ldn : cp * ldw;
+  float* hs = cw + cw_size;       // pp x ldn: H_k
+  float* css = hs + pp * ldn;     // kMaxC
+  float* dts = css + kMaxC;       // kMaxC
+
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int head = blockIdx.x, k = blockIdx.y, bi = blockIdx.z;
+  const int grp = head / (A.H / A.G);
+  const int t0 = k * A.c;
+  const int valid = min(A.c, A.L - t0);
+  const size_t item = ((size_t)bi * A.H + head) * A.nch + k;
+
+  load_rows(xs, A.x + bi * A.xb + t0 * A.xl + head * A.P, A.xl, cp, pp, valid, A.P);
+  load_rows(bs, A.bm + bi * A.bb + t0 * A.bl + grp * A.N, A.bl, cp, ldn, valid, A.N);
+  load_rows(cw, A.cm + bi * A.cb + t0 * A.cl + grp * A.N, A.cl, cp, ldn, valid, A.N);
+  load_rows(hs, A.states + item * A.P * A.N, (long long)A.N, pp, ldn, A.P, A.N);
+  if (tid < kMaxC) {
+    css[tid] = A.cs[item * A.c + min(tid, A.c - 1)];
+    dts[tid] = tid < valid ? A.dt[((size_t)bi * A.L + t0 + tid) * A.H + head] : 0.f;
+  }
+  __syncthreads();
+  const int tc = cp / 16, tp = pp / 16;
+
+  // Y = exp(cs_t) (C H_k^T): rows ty + 16i, columns tx + 16j.
+  float yacc[kTC][kTP];
+#pragma unroll
+  for (int i = 0; i < kTC; ++i)
+#pragma unroll
+    for (int j = 0; j < kTP; ++j) yacc[i][j] = 0.f;
+  for (int kk = 0; kk < np_; ++kk) {
+    float cv[kTC], hv[kTP];
+#pragma unroll
+    for (int i = 0; i < kTC; ++i) cv[i] = i < tc ? cw[(ty + 16 * i) * ldn + kk] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kTP; ++j) hv[j] = j < tp ? hs[(tx + 16 * j) * ldn + kk] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kTC; ++i)
+#pragma unroll
+      for (int j = 0; j < kTP; ++j) yacc[i][j] = fmaf(cv[i], hv[j], yacc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    if (i >= tc) break;
+    const float e = expf(css[ty + 16 * i]);
+#pragma unroll
+    for (int j = 0; j < kTP; ++j) yacc[i][j] *= e;
+  }
+
+  // G = C B^T in registers: rows t = ty + 16i, columns s = tx + 16j.
+  float g[kTC][kTC];
+#pragma unroll
+  for (int i = 0; i < kTC; ++i)
+#pragma unroll
+    for (int j = 0; j < kTC; ++j) g[i][j] = 0.f;
+  for (int kk = 0; kk < np_; ++kk) {
+    float cv[kTC], bv[kTC];
+#pragma unroll
+    for (int i = 0; i < kTC; ++i) {
+      cv[i] = i < tc ? cw[(ty + 16 * i) * ldn + kk] : 0.f;
+      bv[i] = i < tc ? bs[(tx + 16 * i) * ldn + kk] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kTC; ++i)
+#pragma unroll
+      for (int j = 0; j < kTC; ++j) g[i][j] = fmaf(cv[i], bv[j], g[i][j]);
+  }
+  __syncthreads();  // every thread has read C
+
+  // M o G over C.
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    if (i >= tc) break;
+    const int t = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < kTC; ++j) {
+      if (j >= tc) break;
+      const int s = tx + 16 * j;
+      const float m = s <= t ? expf(css[t] - css[s]) * dts[s] : 0.f;
+      cw[t * ldw + s] = m * g[i][j];
+    }
+  }
+  __syncthreads();
+
+  // Y += (M o G) X, written in x's dtype.
+  for (int s = 0; s < cp; ++s) {
+    float wv[kTC], xv[kTP];
+#pragma unroll
+    for (int i = 0; i < kTC; ++i) wv[i] = i < tc ? cw[(ty + 16 * i) * ldw + s] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kTP; ++j) xv[j] = j < tp ? xs[s * pp + tx + 16 * j] : 0.f;
+#pragma unroll
+    for (int i = 0; i < kTC; ++i)
+#pragma unroll
+      for (int j = 0; j < kTP; ++j) yacc[i][j] = fmaf(wv[i], xv[j], yacc[i][j]);
+  }
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    const int r = ty + 16 * i;
+    if (i >= tc || r >= valid) continue;
+    float* yrow = A.y + (((size_t)bi * A.L + t0 + r) * A.H + head) * A.P;
+#pragma unroll
+    for (int j = 0; j < kTP; ++j) {
+      const int col = tx + 16 * j;
+      if (col < A.P) yrow[col] = yacc[i][j];
+    }
+  }
+}
+
+}  // namespace simt
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kXW = kMaxP;  // bf16 row width of the X tiles
+constexpr int kBW = kMaxN;  // ... of the B, C and split-state tiles
+constexpr int kTile = kMaxC * kBW;   // elements of a B or C tile
+constexpr int kXTile = kMaxC * kXW;  // ... of an X tile
+constexpr int kHTile = kMaxP * kBW;  // ... of a state tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+// (a): B, X twice, dt twice, cs, w.
+constexpr size_t kStateSmem = sizeof(bf16) * (kTile + 2 * kXTile) + sizeof(float) * 4 * kMaxC;
+// (c): C, B, X twice, H_k split (hi, lo), H_k staged as f32 twice, cs and
+// dt twice, the column factors of M.
+constexpr size_t kOutSmem = sizeof(bf16) * (2 * kTile + 2 * kXTile + 2 * kHTile) +
+                            sizeof(float) * (2 * kHTile + 5 * kMaxC);
+
+// Element offset of 16-byte chunk `chunk` of row `row` in a tile of W-wide
+// bf16 rows (W = 64 or 128): the chunk is XORed with row % 8, so the 8
+// rows an ldmatrix phase reads fall in 8 distinct 16-byte bank groups.
+template <int W>
+__device__ __forceinline__ int swz(int row, int chunk) {
+  return row * W + ((chunk ^ (row & 7)) << 3);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [0, rows) of a swizzled tile of W-wide bf16 rows from global rows
+// src + r ld (zeros at or past `valid` rows and `cols` columns).  With
+// `vec`, 16-byte cp.async copies (cols a multiple of 8, src and ld 16-byte
+// aligned); else element loads through registers.
+template <int W>
+__device__ __forceinline__ void load_tile(bf16* tile, const bf16* __restrict__ src, long long ld,
+                                          int rows, int valid, int cols, bool vec) {
+  constexpr int kChunks = W / 8;
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * kChunks; e += kThreads) {
+      const int r = e / kChunks, ch = e % kChunks;
+      const bool ok = r < valid && ch * 8 < cols;
+      cp_async16(tile + swz<W>(r, ch), ok ? src + r * ld + ch * 8 : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < rows * W; e += kThreads) {
+      const int r = e / W, col = e % W;
+      tile[swz<W>(r, col >> 3) + (col & 7)] =
+          (r < valid && col < cols) ? src[r * ld + col] : __float2bfloat16(0.f);
+    }
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+
+// d += a b for a 16 x 16 bf16 A (row), a 16 x 8 bf16 B (col), f32 d.
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// (v0, v1) = hi + lo: hi the bf16 pair nearest, lo the bf16 pair nearest
+// the remainder (v0 in the low halves).
+__device__ __forceinline__ void split2(float v0, float v1, unsigned& hi, unsigned& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(v0 - hf.x, v1 - hf.y);
+  hi = *reinterpret_cast<const unsigned*>(&h);
+  lo = *reinterpret_cast<const unsigned*>(&l);
+}
+
+__device__ __forceinline__ float2 unpack(unsigned v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+// 2^x by one MUFU.EX2 (results below 2^-126 flush to zero).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The chunk's rows of head `head`'s x and dt into stage buffers.
+__device__ __forceinline__ void load_x_dt(const Args<bf16>& A, bf16* xt, float* dts, int bi,
+                                          int head, int t0, int cp, int valid) {
+  load_tile<kXW>(xt, A.x + bi * A.xb + t0 * A.xl + head * A.P, A.xl, cp, valid, A.P, A.vec);
+  if (threadIdx.x < kMaxC) {
+    const int r = threadIdx.x;
+    const bool ok = r < valid;
+    cp_async4(dts + r, A.dt + ((size_t)bi * A.L + t0 + (ok ? r : 0)) * A.H + head, ok);
+  }
+}
+
+// Fragment layouts (lane = 4 g + t4): an m16n8 f32 accumulator holds
+// (row g, cols 2t4, 2t4+1) in d[0..1] and (row g + 8, same cols) in d[2..3];
+// an m16k16 A fragment holds (row g, k 2t4..) in a[0], (row g + 8) in a[1],
+// k 8 + 2t4.. in a[2] and a[3]; a k16n8 B fragment holds (k 2t4, 2t4+1;
+// col g) in b0 and k + 8 in b1.  ldmatrix.x4 lane l addresses row l % 8 of
+// matrix l / 8 (mr, mi below).
+
+__global__ void __launch_bounds__(kThreads, 2)
+ssd_scan_chunk_state_tc(const Args<bf16> A) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* bt = reinterpret_cast<bf16*>(smem_raw);        // B: kMaxC x kBW
+  bf16* xt = bt + kTile;                                // X: 2 stages of kMaxC x kXW
+  float* dts = reinterpret_cast<float*>(xt + 2 * kXTile);  // 2 stages of kMaxC
+  float* css = dts + 2 * kMaxC;
+  float* ws = css + kMaxC;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int k = blockIdx.y, bi = blockIdx.z;
+  const int head0 = blockIdx.x * A.hpb;
+  const int grp = head0 / (A.H / A.G);
+  const int t0 = k * A.c;
+  const int valid = min(A.c, A.L - t0);
+  const int cp = round16(A.c), pp = round16(A.P), np_ = round16(A.N);
+  const int mt = warp & 3, nh = warp >> 2;  // S rows 16 mt.., columns 64 nh..
+  const bool active = 16 * mt < pp && 64 * nh < np_;
+
+  load_tile<kBW>(bt, A.bm + bi * A.bb + t0 * A.bl + grp * A.N, A.bl, cp, valid, A.N, A.vec);
+  load_x_dt(A, xt, dts, bi, head0, t0, cp, valid);
+  cp_async_commit();
+  if (A.hpb > 1) load_x_dt(A, xt + kXTile, dts + kMaxC, bi, head0 + 1, t0, cp, valid);
+  cp_async_commit();
+
+  for (int i = 0; i < A.hpb; ++i) {
+    const int st = i & 1, head = head0 + i;
+    const size_t item = ((size_t)bi * A.H + head) * A.nch + k;
+    const bf16* xs = xt + st * kXTile;
+    cp_async_wait<1>();  // everything but head i + 1 has landed
+    __syncthreads();
+    if (warp == 0)
+      chunk_weights(dts + st * kMaxC, A.a[head], css, ws, A.cs + item * A.c, A.decay + item,
+                    A.c);
+    __syncthreads();
+
+    if (active) {
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kMaxC / 16; ++kk) {  // 16 rows of the chunk a step
+        if (16 * kk >= cp) break;
+        unsigned xa[4], ahi[4], alo[4];
+        // A = (X o w)^T: X is stored (time, p), so ldmatrix.trans.
+        ldsm_x4_trans(xa, xs + swz<kXW>(16 * kk + mr + (mi >> 1) * 8, 2 * mt + (mi & 1)));
+        const float2 w0 = *reinterpret_cast<const float2*>(ws + 16 * kk + 2 * t4);
+        const float2 w1 = *reinterpret_cast<const float2*>(ws + 16 * kk + 8 + 2 * t4);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float2 wv = r < 2 ? w0 : w1;
+          const float2 xv = unpack(xa[r]);
+          split2(xv.x * wv.x, xv.y * wv.y, ahi[r], alo[r]);
+        }
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {  // 16 state columns: two tiles
+          if (64 * nh + 16 * jp >= np_) break;
+          unsigned b[4];
+          ldsm_x4_trans(b, bt + swz<kBW>(16 * kk + mr + (mi & 1) * 8, 8 * nh + 2 * jp + (mi >> 1)));
+          mma(acc[2 * jp], ahi, b[0], b[1]);
+          mma(acc[2 * jp], alo, b[0], b[1]);
+          mma(acc[2 * jp + 1], ahi, b[2], b[3]);
+          mma(acc[2 * jp + 1], alo, b[2], b[3]);
+        }
+      }
+      float* out = A.states + item * A.P * A.N;
+      const bool pairs = (A.N & 1) == 0;
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int r = 16 * mt + g + 8 * h2;
+        if (r >= A.P) continue;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 64 * nh + 8 * j + 2 * t4;
+          if (col >= A.N) continue;
+          float* o = out + r * A.N + col;
+          if (pairs) {
+            *reinterpret_cast<float2*>(o) = make_float2(acc[j][2 * h2], acc[j][2 * h2 + 1]);
+          } else {
+            o[0] = acc[j][2 * h2];
+            if (col + 1 < A.N) o[1] = acc[j][2 * h2 + 1];
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage st and w are consumed
+    if (i + 2 < A.hpb)
+      load_x_dt(A, xt + st * kXTile, dts + st * kMaxC, bi, head0 + i + 2, t0, cp, valid);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+// Head `head`'s x, dt, cs and H_k into stage buffers (H_k as f32).
+__device__ __forceinline__ void load_head_out(const Args<bf16>& A, bf16* xt, float* hs,
+                                              float* css, float* dts, int bi, int head, int k,
+                                              int t0, int cp, int pp, int np_, int valid) {
+  load_x_dt(A, xt, dts, bi, head, t0, cp, valid);
+  const size_t item = ((size_t)bi * A.H + head) * A.nch + k;
+  const float* src = A.states + item * A.P * A.N;
+  if ((A.N & 3) == 0) {  // rows of N floats are 16-byte aligned
+    const int q4 = np_ / 4;
+    for (int e = threadIdx.x; e < pp * q4; e += kThreads) {
+      const int r = e / q4, q = e % q4;
+      const bool ok = r < A.P && 4 * q < A.N;
+      cp_async16(hs + r * kMaxN + 4 * q, ok ? src + r * A.N + 4 * q : src, ok);
+    }
+  } else {
+    for (int e = threadIdx.x; e < pp * np_; e += kThreads) {
+      const int r = e / np_, col = e % np_;
+      hs[r * kMaxN + col] = (r < A.P && col < A.N) ? src[r * A.N + col] : 0.f;
+    }
+  }
+  if (threadIdx.x < kMaxC)
+    cp_async4(css + threadIdx.x, A.cs + item * A.c + min((int)threadIdx.x, A.c - 1), true);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+ssd_scan_chunk_out_tc(const Args<bf16> A) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ct = reinterpret_cast<bf16*>(smem_raw);  // C: kMaxC x kBW
+  bf16* bt = ct + kTile;                         // B
+  bf16* xt = bt + kTile;                         // X: 2 stages
+  bf16* hhi = xt + 2 * kXTile;                   // H_k split: kMaxP x kBW each
+  bf16* hlo = hhi + kHTile;
+  float* hs = reinterpret_cast<float*>(hlo + kHTile);  // H_k f32: 2 stages of kMaxP x kMaxN
+  float* css = hs + 2 * kHTile;                        // 2 stages of kMaxC
+  float* dts = css + 2 * kMaxC;                        // 2 stages of kMaxC
+  float* mcol = dts + 2 * kMaxC;                       // kMaxC
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int k = blockIdx.y, bi = blockIdx.z;
+  const int head0 = blockIdx.x * A.hpb;
+  const int grp = head0 / (A.H / A.G);
+  const int t0 = k * A.c;
+  const int valid = min(A.c, A.L - t0);
+  const int cp = round16(A.c), pp = round16(A.P), np_ = round16(A.N);
+  // This warp's 16 rows of the chunk: warps w and w + 4 share a scheduler,
+  // and row tiles rt and 7 - rt carry 9 causal column tiles together.
+  const int rt = warp < 4 ? warp : 11 - warp;
+  const bool active = 16 * rt < cp;
+
+  load_tile<kBW>(ct, A.cm + bi * A.cb + t0 * A.cl + grp * A.N, A.cl, cp, valid, A.N, A.vec);
+  load_tile<kBW>(bt, A.bm + bi * A.bb + t0 * A.bl + grp * A.N, A.bl, cp, valid, A.N, A.vec);
+  load_head_out(A, xt, hs, css, dts, bi, head0, k, t0, cp, pp, np_, valid);
+  cp_async_commit();
+  if (A.hpb > 1)
+    load_head_out(A, xt + kXTile, hs + kHTile, css + kMaxC, dts + kMaxC, bi, head0 + 1, k, t0,
+                  cp, pp, np_, valid);
+  cp_async_commit();
+  cp_async_wait<1>();  // C and B have landed
+  __syncthreads();
+
+  // G = C B^T for this warp's rows, column tiles at or below the diagonal.
+  float gacc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) gacc[j][0] = gacc[j][1] = gacc[j][2] = gacc[j][3] = 0.f;
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < kMaxN / 16; ++kk) {
+      if (16 * kk >= np_) break;
+      unsigned ca[4];
+      ldsm_x4(ca, ct + swz<kBW>(16 * rt + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+#pragma unroll
+      for (int jp = 0; jp < kMaxC / 16; ++jp) {  // 16 columns s: two tiles
+        if (jp > rt) break;
+        unsigned b[4];
+        ldsm_x4(b, bt + swz<kBW>(16 * jp + mr + (mi >> 1) * 8, 2 * kk + (mi & 1)));
+        mma(gacc[2 * jp], ca, b[0], b[1]);
+        mma(gacc[2 * jp + 1], ca, b[2], b[3]);
+      }
+    }
+  }
+
+  const int ta = 16 * rt + g, tb = ta + 8;  // this thread's two rows
+  for (int i = 0; i < A.hpb; ++i) {
+    const int st = i & 1, head = head0 + i;
+    const bf16* xs = xt + st * kXTile;
+    const float* cs_s = css + st * kMaxC;
+    const float* dt_s = dts + st * kMaxC;
+    cp_async_wait<1>();  // everything but head i + 1 has landed
+    __syncthreads();
+    // M's column factors: M_ts = exp(cs_t - cs_r) exp(cs_r - cs_s) dt_s with r
+    // the last row of s's 16-column tile; below the diagonal tile (s <= r <
+    // t) both exponents are <= 0 as cs falls (a <= 0, dt >= 0, as the Mamba
+    // mixer makes them), so neither factor overflows.
+    if (threadIdx.x < kMaxC) {
+      const int s = threadIdx.x;
+      mcol[s] = ex2((cs_s[s | 15] - cs_s[s]) * kLog2e) * dt_s[s];
+    }
+    {  // H_k -> bf16 hi / lo tiles, once for the block
+      const float* hsrc = hs + st * kHTile;
+      const int q4 = np_ / 4;
+      for (int e = threadIdx.x; e < pp * q4; e += kThreads) {
+        const int r = e / q4, q = e % q4;
+        const float4 v = *reinterpret_cast<const float4*>(hsrc + r * kMaxN + 4 * q);
+        unsigned h01, l01, h23, l23;
+        split2(v.x, v.y, h01, l01);
+        split2(v.z, v.w, h23, l23);
+        const int off = swz<kBW>(r, q >> 1) + (q & 1) * 4;
+        *reinterpret_cast<uint2*>(hhi + off) = make_uint2(h01, h23);
+        *reinterpret_cast<uint2*>(hlo + off) = make_uint2(l01, l23);
+      }
+    }
+    __syncthreads();
+
+    if (active) {
+      float y[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+      // C H_k^T: B operand (k = state column, n = p row) from the (p, n) tiles.
+#pragma unroll
+      for (int kk = 0; kk < kMaxN / 16; ++kk) {
+        if (16 * kk >= np_) break;
+        unsigned ca[4];
+        ldsm_x4(ca, ct + swz<kBW>(16 * rt + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+#pragma unroll
+        for (int dp = 0; dp < kMaxP / 16; ++dp) {
+          if (16 * dp >= pp) break;
+          const int off = swz<kBW>(16 * dp + mr + (mi >> 1) * 8, 2 * kk + (mi & 1));
+          unsigned bh[4], bl[4];
+          ldsm_x4(bh, hhi + off);
+          ldsm_x4(bl, hlo + off);
+          mma(y[2 * dp], ca, bh[0], bh[1]);
+          mma(y[2 * dp], ca, bl[0], bl[1]);
+          mma(y[2 * dp + 1], ca, bh[2], bh[3]);
+          mma(y[2 * dp + 1], ca, bl[2], bl[3]);
+        }
+      }
+      const float csa = cs_s[ta], csb = cs_s[tb];
+      const float ea = expf(csa), eb = expf(csb);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[j][0] *= ea;
+        y[j][1] *= ea;
+        y[j][2] *= eb;
+        y[j][3] *= eb;
+      }
+      // (M o G) X, 16 columns s a step, s <= this warp's last row.
+#pragma unroll
+      for (int kk = 0; kk < kMaxC / 16; ++kk) {
+        if (kk > rt) break;
+        const int s0 = 16 * kk + 2 * t4;
+        float w[2][4];
+        if (kk < rt) {  // below the diagonal tile: row factor x column factor
+          const float2 m0 = *reinterpret_cast<const float2*>(mcol + s0);
+          const float2 m1 = *reinterpret_cast<const float2*>(mcol + s0 + 8);
+          const float mc[4] = {m0.x, m0.y, m1.x, m1.y};
+          const float cs_r = cs_s[16 * kk + 15];
+          const float ra = ex2((csa - cs_r) * kLog2e), rb = ex2((csb - cs_r) * kLog2e);
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+              w[jj][e] = gacc[2 * kk + jj][e] * ((e < 2 ? ra : rb) * mc[2 * jj + (e & 1)]);
+        } else {  // the diagonal tile: masked before the exp
+          const float2 c0 = *reinterpret_cast<const float2*>(cs_s + s0);
+          const float2 c1 = *reinterpret_cast<const float2*>(cs_s + s0 + 8);
+          const float2 d0 = *reinterpret_cast<const float2*>(dt_s + s0);
+          const float2 d1 = *reinterpret_cast<const float2*>(dt_s + s0 + 8);
+          const float css4[4] = {c0.x, c0.y, c1.x, c1.y};
+          const float dts4[4] = {d0.x, d0.y, d1.x, d1.y};
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int q = 2 * jj + (e & 1);
+              const int s = s0 + 8 * jj + (e & 1);
+              const int t = e < 2 ? ta : tb;
+              const float cst = e < 2 ? csa : csb;
+              w[jj][e] = s <= t ? gacc[2 * kk + jj][e] * (ex2((cst - css4[q]) * kLog2e) * dts4[q])
+                                : 0.f;
+            }
+          }
+        }
+        unsigned whi[4], wlo[4];
+        split2(w[0][0], w[0][1], whi[0], wlo[0]);
+        split2(w[0][2], w[0][3], whi[1], wlo[1]);
+        split2(w[1][0], w[1][1], whi[2], wlo[2]);
+        split2(w[1][2], w[1][3], whi[3], wlo[3]);
+#pragma unroll
+        for (int dp = 0; dp < kMaxP / 16; ++dp) {
+          if (16 * dp >= pp) break;
+          unsigned b[4];
+          ldsm_x4_trans(b, xs + swz<kXW>(16 * kk + mr + (mi & 1) * 8, 2 * dp + (mi >> 1)));
+          mma(y[2 * dp], whi, b[0], b[1]);
+          mma(y[2 * dp], wlo, b[0], b[1]);
+          mma(y[2 * dp + 1], whi, b[2], b[3]);
+          mma(y[2 * dp + 1], wlo, b[2], b[3]);
+        }
+      }
+      const bool pairs = (A.P & 1) == 0;
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const int t = h2 ? tb : ta;
+        if (t >= valid) continue;
+        bf16* yrow = A.y + (((size_t)bi * A.L + t0 + t) * A.H + head) * A.P;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = 8 * j + 2 * t4;
+          if (col >= A.P) continue;
+          if (pairs) {
+            *reinterpret_cast<__nv_bfloat162*>(yrow + col) =
+                __floats2bfloat162_rn(y[j][2 * h2], y[j][2 * h2 + 1]);
+          } else {
+            yrow[col] = __float2bfloat16(y[j][2 * h2]);
+            if (col + 1 < A.P) yrow[col + 1] = __float2bfloat16(y[j][2 * h2 + 1]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // stage st and the split tiles are consumed
+    if (i + 2 < A.hpb)
+      load_head_out(A, xt + st * kXTile, hs + st * kHTile, css + st * kMaxC, dts + st * kMaxC,
+                    bi, head0 + i + 2, k, t0, cp, pp, np_, valid);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+}  // namespace tc
+
+// Launches on the caller's grids (the wrapper's plan): `grid` for the two
+// chunk passes, `pass_grid` for the state pass.  Refuses sizes past the
+// limits and grids that are not the ones the kernels index.
 template <typename T>
-int launch_ssd(const void* x, const void* dt, const void* a, const void* bmat,
-               const void* cmat, const void* h0, void* y, void* h_out, int b, int L, int H,
-               int P, int G, int N, int c, void* stream) {
-  if (b <= 0 || L <= 0 || H <= 0 || G <= 0 || H % G || P <= 0 || N <= 0 || c <= 0 ||
-      c > kMaxC || P > kMaxP || N > kMaxN)
+int launch_ssd(const Args<T>& A, int b, dim3 grid, dim3 pass_grid, cudaStream_t stream) {
+  if (b <= 0 || A.L <= 0 || A.H <= 0 || A.G <= 0 || A.H % A.G || A.P <= 0 || A.N <= 0 ||
+      A.c <= 0 || A.c > kMaxC || A.P > kMaxP || A.N > kMaxN || A.nch != (A.L + A.c - 1) / A.c ||
+      A.nch > 65535 || b > 65535)
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * smem_floats(round16(c), round16(P), round16(N));
-  cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  ssd_scan_kernel<T><<<b * H, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(x), static_cast<const float*>(dt),
-      static_cast<const float*>(a), static_cast<const T*>(bmat),
-      static_cast<const T*>(cmat), static_cast<const float*>(h0), static_cast<T*>(y),
-      static_cast<float*>(h_out), L, H, P, G, N, c);
+  constexpr bool kTensorCores = std::is_same<T, bf16>::value;
+  const int hpb = kTensorCores ? A.hpb : 1;
+  const int pn = A.P * A.N;
+  if (hpb <= 0 || (A.H / A.G) % hpb || grid.x != (unsigned)(A.H / hpb) ||
+      grid.y != (unsigned)A.nch || grid.z != (unsigned)b || (long long)b * A.H > 0x7fffffff ||
+      pass_grid.x != (unsigned)(b * A.H) ||
+      pass_grid.y != (unsigned)((pn + kThreads - 1) / kThreads) || pass_grid.z != 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err;
+  if constexpr (kTensorCores) {
+    static const cudaError_t opt_in_a = cudaFuncSetAttribute(  // once per process
+        tc::ssd_scan_chunk_state_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tc::kStateSmem);
+    static const cudaError_t opt_in_c = cudaFuncSetAttribute(
+        tc::ssd_scan_chunk_out_tc, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)tc::kOutSmem);
+    if (opt_in_a != cudaSuccess) return (int)opt_in_a;
+    if (opt_in_c != cudaSuccess) return (int)opt_in_c;
+    tc::ssd_scan_chunk_state_tc<<<grid, kThreads, tc::kStateSmem, stream>>>(A);
+  } else {
+    const int cp = round16(A.c), pp = round16(A.P), np_ = round16(A.N);
+    static const cudaError_t opt_in_a = cudaFuncSetAttribute(
+        simt::ssd_scan_chunk_state_simt, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(float) * simt::state_floats(kMaxC, kMaxP, kMaxN)));
+    static const cudaError_t opt_in_c = cudaFuncSetAttribute(
+        simt::ssd_scan_chunk_out_simt, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)(sizeof(float) * simt::out_floats(kMaxC, kMaxP, kMaxN)));
+    if (opt_in_a != cudaSuccess) return (int)opt_in_a;
+    if (opt_in_c != cudaSuccess) return (int)opt_in_c;
+    simt::ssd_scan_chunk_state_simt<<<grid, kThreads,
+                                      sizeof(float) * simt::state_floats(cp, pp, np_), stream>>>(A);
+  }
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_scan_state_pass<<<pass_grid, kThreads, 0, stream>>>(A.states, A.decay, A.h0, A.h_out,
+                                                          A.nch, pn);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  if constexpr (kTensorCores) {
+    tc::ssd_scan_chunk_out_tc<<<grid, kThreads, tc::kOutSmem, stream>>>(A);
+  } else {
+    const int cp = round16(A.c), pp = round16(A.P), np_ = round16(A.N);
+    simt::ssd_scan_chunk_out_simt<<<grid, kThreads,
+                                    sizeof(float) * simt::out_floats(cp, pp, np_), stream>>>(A);
+  }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-#define REPRO_SSD_ENTRY_POINT(T, SUFFIX)                                              \
-  extern "C" int ssd_scan_##SUFFIX(const void* x, const void* dt, const void* a,      \
-                                   const void* bmat, const void* cmat, const void* h0, \
-                                   void* y, void* h_out, int b, int L, int H, int P,  \
-                                   int G, int N, int c, void* stream) {               \
-    return launch_ssd<T>(x, dt, a, bmat, cmat, h0, y, h_out, b, L, H, P, G, N, c,     \
-                         stream);                                                     \
+#define REPRO_SSD_ENTRY_POINT(T, SUFFIX)                                                    \
+  extern "C" int ssd_scan_##SUFFIX(                                                         \
+      const void* x, const void* dt, const void* a, const void* bmat, const void* cmat,     \
+      const void* h0, void* y, void* h_out, void* states, void* cs, void* decay,            \
+      int64_t xb, int64_t xl, int64_t bb, int64_t bl, int64_t cb, int64_t cl, int b, int L, \
+      int H, int P, int G, int N, int c, int hpb, int vec, int gx, int gy, int gz, int sx,  \
+      int sy, void* stream) {                                                               \
+    Args<T> A{static_cast<const T*>(x), static_cast<const float*>(dt),                      \
+              static_cast<const float*>(a), static_cast<const T*>(bmat),                    \
+              static_cast<const T*>(cmat), static_cast<const float*>(h0),                   \
+              static_cast<T*>(y), static_cast<float*>(h_out), static_cast<float*>(states),  \
+              static_cast<float*>(cs), static_cast<float*>(decay), xb, xl, bb, bl, cb, cl,  \
+              L, H, P, G, N, c, (L + c - 1) / c, hpb, vec};                                 \
+    return launch_ssd<T>(A, b, dim3(gx, gy, gz), dim3(sx, sy),                              \
+                         static_cast<cudaStream_t>(stream));                                \
   }
 
 REPRO_SSD_ENTRY_POINT(float, f32)

@@ -370,39 +370,77 @@ def test_flash_attention(device, dtype, case):
     assert torch.equal(got, fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off))
 
 
+def _ssd_inputs(case, dtype, device, state, strided=False):
+    """x, dt, a, B, C, D and the state of ``case``.  ``strided``: x, B and
+    C are the ``torch.split`` views of one (b, l, h·p + 2·g·n) tensor, as
+    the Mamba mixer passes them."""
+    b, l, h, p, g, n, _ = case
+    gen = torch.Generator(device=device).manual_seed(l + h + n)
+    if strided:
+        conv = torch.randn(b, l, h * p + 2 * g * n, generator=gen, device=device).to(dtype)
+        xc, bc, cc = torch.split(conv, [h * p, g * n, g * n], dim=-1)
+        x, bmat, cmat = xc.reshape(b, l, h, p), bc.reshape(b, l, g, n), cc.reshape(b, l, g, n)
+    else:
+        x = torch.randn(b, l, h, p, generator=gen, device=device).to(dtype)
+    dt = 0.01 + 0.39 * torch.rand(b, l, h, generator=gen, device=device)
+    a = -(0.3 + 1.7 * torch.rand(h, generator=gen, device=device))
+    if not strided:
+        bmat, cmat = (torch.randn(b, l, g, n, generator=gen, device=device).to(dtype)
+                      for _ in range(2))
+    d = torch.randn(h, generator=gen, device=device)
+    h0 = torch.randn(b, h, p, n, generator=gen, device=device) if state else None
+    return x, dt, a, bmat, cmat, d, h0
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
     # b, l, h, p, g, n, chunk: tests/test_kernels.py's SSD_CASES, a ragged
-    # l at mamba2-1.3b's head and state widths, and its prefill heads.
+    # l at mamba2-1.3b's head and state widths, and its prefill heads; one
+    # row; one row past a chunk; 65 600 (batch, head) pairs, past a grid's
+    # y limit.
     (1, 64, 2, 16, 1, 16, 32),
     (2, 100, 4, 8, 2, 24, 32),
     (1, 37, 2, 4, 2, 8, 16),
     (2, 128, 8, 32, 1, 64, 64),
     (1, 300, 4, 64, 1, 128, 128),
     (2, 512, 64, 64, 1, 128, 128),
+    (2, 1, 8, 64, 1, 128, 128),
+    (1, 129, 16, 64, 1, 128, 128),
+    (1025, 8, 64, 16, 1, 16, 32),
 ])
 @pytest.mark.parametrize("state", [False, True])
-def test_ssd_scan(device, dtype, case, state):
-    b, l, h, p, g, n, chunk = case
-    gen = torch.Generator(device=device).manual_seed(l + h + n)
-    x = torch.randn(b, l, h, p, generator=gen, device=device).to(dtype)
-    dt = 0.01 + 0.39 * torch.rand(b, l, h, generator=gen, device=device)
-    a = -(0.3 + 1.7 * torch.rand(h, generator=gen, device=device))
-    bmat, cmat = (torch.randn(b, l, g, n, generator=gen, device=device).to(dtype)
-                  for _ in range(2))
-    d = torch.randn(h, generator=gen, device=device)
-    h0 = torch.randn(b, h, p, n, generator=gen, device=device) if state else None
-    kw = dict(chunk=chunk, initial_state=h0, return_state=state)
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssd_scan(device, dtype, case, state, strided):
+    x, dt, a, bmat, cmat, d, h0 = _ssd_inputs(case, dtype, device, state, strided)
+    assert x.is_contiguous() != strided
+    kw = dict(chunk=case[-1], initial_state=h0, return_state=state)
+    before = ss._runtime.LAUNCHES["ssd_scan"]
     got = ss.ssd_scan_cuda(x, dt, a, bmat, cmat, d, **kw)
+    assert ss._runtime.LAUNCHES["ssd_scan"] == before + 1
     want = ss.ssd_plain(x, dt, a, bmat, cmat, d, **kw)
     got, want = (got, want) if state else ((got,), (want,))
-    for gv, wv in zip(got, want):
+    for i, (gv, wv) in enumerate(zip(got, want)):
         assert gv.shape == wv.shape and gv.dtype == wv.dtype
         scale = max(1.0, float(wv.float().abs().max()))
-        torch.testing.assert_close(gv.float() / scale, wv.float() / scale, **LM_TOL[dtype])
+        # y at its dtype's bar; the f32 final state at the f32 bar in both
+        # dtypes (bf16 runs split every non-bf16 factor into hi + lo).
+        tol = LM_TOL[dtype if i == 0 else torch.float32]
+        torch.testing.assert_close(gv.float() / scale, wv.float() / scale, **tol)
     again = ss.ssd_scan_cuda(x, dt, a, bmat, cmat, d, **kw)
     for gv, av in zip(got, again if state else (again,)):
         assert torch.equal(gv, av)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_refuses_a_strided_last_dimension(device, dtype):
+    case = (2, 64, 4, 16, 1, 32, 32)
+    x, dt, a, bmat, cmat, d, _ = _ssd_inputs(case, dtype, device, False)
+    wide = torch.zeros(2, 64, 4, 32, device=device, dtype=dtype)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        ss.ssd_scan_cuda(wide[..., ::2], dt, a, bmat, cmat, d, chunk=32)
+    with pytest.raises(ValueError, match="contiguous last dimension"):
+        ss.ssd_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bmat, cmat, d,
+                         chunk=32)
 
 
 def test_ssd_scan_matches_sequential_oracle(device):

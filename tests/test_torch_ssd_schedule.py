@@ -1,0 +1,326 @@
+"""K10's three-pass schedule, emulated in torch on the CPU.
+
+The CUDA kernels (``csrc/ssd_scan.cu``) run the SSD decomposition of arXiv
+2405.21060 §6: (a) every chunk's state ``S_k = Xᵀ(exp(cs_c − cs)·dt ⊙ B)``
+at once, with ``cs`` from a warp scan (four rows a lane in order, then the
+lane totals); (b) the states passed through the chunks in order in f32,
+``S_k`` replaced by the state ``H_k`` that enters chunk k while
+``H_{k+1} = exp(cs_c)·H_k + S_k`` runs from ``initial_state``; (c) every
+chunk's ``Y = (M ⊙ G) X + exp(cs)·(C H_kᵀ)``.  For bf16 inputs each factor
+that is not bf16 (X scaled by w in (a), ``M ⊙ G`` and ``H_k`` in (c)) goes
+to the tensor cores as a two-term split ``hi = bf16(v)``, ``lo = bf16(v −
+hi)``.  :func:`emulate` runs those passes, scratch layouts and splits, and
+is held to ``ssd_plain`` at the card's bars (``tests/test_torch_cuda.py``)
+and to the reference (``ops.ssd(impl="interpret")``, ``_ssd_chunked`` with
+and without a state) at ``tests/test_torch_models.py``'s; the wrapper's
+plan (chunks, heads per block, grids, scratch bytes) and the strided views
+it reads in place or refuses are checked here too.  These are checks of
+the design, mirrored in Python: the card tests are what hold the kernels
+themselves to the plain version.
+"""
+
+import math
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+F = pytest.importorskip("torch.nn.functional")
+
+from repro.kernels import ops as jops  # noqa: E402
+from repro_torch.kernels import ssd_scan as ss  # noqa: E402
+
+# b, l, h, p, g, n, chunk: tests/test_kernels.py's SSD_CASES, ...
+SSD_CASES = [
+    (1, 64, 2, 16, 1, 16, 32),
+    (2, 100, 4, 8, 2, 24, 32),
+    (1, 37, 2, 4, 2, 8, 16),
+    (2, 128, 8, 32, 1, 64, 64),
+]
+# ... ragged l (37, 100, 300), l below the chunk (one chunk of l rounded up
+# to 8, or of 16 rows in shared memory), g = 2 at the full head width.
+MORE_CASES = [
+    (1, 37, 2, 8, 1, 16, 16),
+    (1, 100, 4, 16, 2, 32, 32),
+    (1, 300, 2, 16, 1, 32, 64),
+    (2, 20, 2, 8, 1, 16, 32),
+    (1, 9, 4, 8, 2, 8, 128),
+    (1, 70, 4, 64, 2, 16, 32),
+]
+CASES = SSD_CASES + MORE_CASES
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+JDT = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+# The card's bars (tests/test_torch_cuda.py) and the reference's
+# (tests/test_torch_models.py's _tol at twice its scale), relative to the
+# output's scale.
+CARD_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (2e-2, 5e-2)}
+REF_TOL = {"float32": (4e-4, 1e-3), "bfloat16": (4e-2, 1e-1)}
+SSD_MAIN = (4, 4096, 64, 64, 1, 128, 128)  # mamba2-1.3b's prefill
+
+
+def _inputs(case, dname):
+    """numpy inputs from a seed, as ``tests/test_torch_models.py`` makes
+    them: (jax arrays, torch tensors)."""
+    b, l, h, p, g, n, _ = case
+    rng = np.random.default_rng(sum(case))
+    x = rng.standard_normal((b, l, h, p)).astype(np.float32)
+    dt = rng.uniform(0.01, 0.4, (b, l, h)).astype(np.float32)
+    a = (-rng.uniform(0.3, 2.0, (h,))).astype(np.float32)
+    bm = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    cm = rng.standard_normal((b, l, g, n)).astype(np.float32)
+    d = rng.standard_normal((h,)).astype(np.float32)
+    h0 = rng.standard_normal((b, h, p, n)).astype(np.float32)
+    low = [jnp.asarray(t, JDT[dname]) for t in (x, bm, cm)]
+    rest = [jnp.asarray(t) for t in (dt, a, d, h0)]
+    tlow = [torch.as_tensor(t).to(DTYPES[dname]) for t in (x, bm, cm)]
+    trest = [torch.as_tensor(t) for t in (dt, a, d, h0)]
+    return ((low[0], rest[0], rest[1], low[1], low[2], rest[2], rest[3]),
+            (tlow[0], trest[0], trest[1], tlow[1], tlow[2], trest[2], trest[3]))
+
+
+def _bf(t):
+    return t.to(torch.bfloat16).float()
+
+
+def split(v):
+    """The kernels' two-term bf16 split: ``v ≈ hi + lo``."""
+    hi = _bf(v)
+    return hi, _bf(v - hi)
+
+
+def warp_cumsum(adt):
+    """``cumsum`` over the last dimension (≤ 128 rows, zero-padded to 128)
+    in ``chunk_weights``' order: each of 32 lanes sums its four rows in
+    order, a Hillis–Steele scan over the lane totals, then the lane's
+    exclusive prefix is added to its running sums."""
+    rows = adt.shape[-1]
+    v = F.pad(adt, (0, 128 - rows)).reshape(*adt.shape[:-1], 32, 4)
+    run = v.clone()
+    for i in range(1, 4):
+        run[..., i] = run[..., i - 1] + v[..., i]
+    incl = run[..., 3].clone()
+    for o in (1, 2, 4, 8, 16):
+        incl = torch.cat([incl[..., :o], incl[..., o:] + incl[..., :-o]], dim=-1)
+    excl = torch.cat([torch.zeros_like(incl[..., :1]), incl[..., :-1]], dim=-1)
+    return (run + excl[..., None]).reshape(*adt.shape[:-1], 128)[..., :rows]
+
+
+def passes(x, dt, a, bm, cm, *, chunk, initial_state=None):
+    """The three passes on the wrapper's plan: returns ``Y`` in f32 (before
+    the cast to x's dtype) and the final state."""
+    b, l, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    plan = ss.plan(b, l, h, p, g, n, chunk, x.dtype)
+    c, nch = plan["chunk"], plan["chunks"]
+    tc = x.dtype == torch.bfloat16
+    def chunks(t):  # (b, l, k, w) -> (b, chunks, c, h, w), groups repeated to heads
+        t = F.pad(t.float(), (0, 0, 0, 0, 0, nch * c - l)).reshape(b, nch, c, *t.shape[2:])
+        return t.repeat_interleave(h // t.shape[3], dim=3)
+
+    xs, bs, cs_ = chunks(x), chunks(bm), chunks(cm)
+    dts = F.pad(dt, (0, 0, 0, nch * c - l)).reshape(b, nch, c, h)
+    cs = warp_cumsum((dts * a).transpose(2, 3)).transpose(2, 3)  # (b, chunks, c, h)
+    tot = cs[:, :, c - 1 : c]
+    w = torch.exp(tot - cs) * dts
+
+    # (a) chunk states, (b, h, chunks, p, n).
+    if tc:
+        hi, lo = split(xs * w[..., None])
+        states = (torch.einsum("bkthp,bkthn->bhkpn", hi, bs)
+                  + torch.einsum("bkthp,bkthn->bhkpn", lo, bs))
+    else:
+        states = torch.einsum("bkthp,bkthn->bhkpn", xs, bs * w[..., None])
+    decay = torch.exp(tot[:, :, 0]).transpose(1, 2)  # (b, h, chunks)
+
+    # (b) state passing in place, in chunk order.
+    hcur = (initial_state.float() if initial_state is not None
+            else torch.zeros(b, h, p, n))
+    for k in range(nch):
+        s_k = states[:, :, k].clone()
+        states[:, :, k] = hcur
+        hcur = decay[:, :, k, None, None] * hcur + s_k
+
+    # (c) chunk outputs.
+    gmat = torch.einsum("bkthn,bkshn->bkhts", cs_, bs)
+    delta = cs.transpose(2, 3)[..., :, None] - cs.transpose(2, 3)[..., None, :]  # (b,k,h,t,s)
+    mask = torch.ones(c, c, dtype=torch.bool).tril()
+    m = torch.where(mask, torch.exp(torch.where(mask, delta, 0.0))
+                    * dts.transpose(2, 3)[..., None, :], 0.0)
+    wmat = gmat * m
+    hk = states.permute(0, 2, 1, 3, 4)  # (b, chunks, h, p, n)
+    if tc:
+        (whi, wlo), (hhi, hlo) = split(wmat), split(hk)
+        z = (torch.einsum("bkthn,bkhpn->bkthp", cs_, hhi)
+             + torch.einsum("bkthn,bkhpn->bkthp", cs_, hlo))
+        yw = (torch.einsum("bkhts,bkshp->bkthp", whi, xs)
+              + torch.einsum("bkhts,bkshp->bkthp", wlo, xs))
+    else:
+        z = torch.einsum("bkthn,bkhpn->bkthp", cs_, hk)
+        yw = torch.einsum("bkhts,bkshp->bkthp", wmat, xs)
+    y = torch.exp(cs)[..., None] * z + yw
+    return y.reshape(b, nch * c, h, p)[:, :l], hcur
+
+
+def emulate(x, dt, a, bm, cm, d=None, *, chunk=128, initial_state=None, return_state=False):
+    """:func:`ssd_scan_cuda`'s function by :func:`passes`: ``y`` in x's
+    dtype plus the D skip as the wrapper adds it."""
+    y, hcur = passes(x, dt, a, bm, cm, chunk=chunk, initial_state=initial_state)
+    y = ss._skip(y.to(x.dtype), x, d)
+    return (y, hcur) if return_state else y
+
+
+def _scaled(got, want, tol):
+    want = (want.float() if isinstance(want, torch.Tensor)
+            else torch.tensor(np.asarray(want, dtype=np.float32)))
+    scale = max(1.0, float(want.abs().max()))
+    rtol, atol = tol
+    torch.testing.assert_close(got.float() / scale, want / scale, rtol=rtol, atol=atol)
+
+
+def test_warp_cumsum_is_a_cumsum():
+    adt = torch.as_tensor(np.random.default_rng(0).uniform(-0.8, 0, (3, 100)), dtype=torch.float32)
+    torch.testing.assert_close(warp_cumsum(adt), torch.cumsum(adt, dim=-1), rtol=1e-6, atol=1e-5)
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_schedule_matches_plain(case, state, dname):
+    _, (x, dt, a, bm, cm, d, h0) = _inputs(case, dname)
+    kw = dict(chunk=case[-1], initial_state=h0 if state else None, return_state=state)
+    got, want = emulate(x, dt, a, bm, cm, d, **kw), ss.ssd_plain(x, dt, a, bm, cm, d, **kw)
+    for gv, wv in zip(*((got, want) if state else ((got,), (want,)))):
+        assert gv.shape == wv.shape and gv.dtype == wv.dtype
+        _scaled(gv, wv, CARD_TOL[dname])
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("case", CASES)
+def test_schedule_matches_reference(case, state, dname):
+    (jx, jdt, ja, jb, jc, jd, jh0), (x, dt, a, bm, cm, d, h0) = _inputs(case, dname)
+    chunk = case[-1]
+    if state:
+        want = jops._ssd_chunked(jx, jdt, ja, jb, jc, jd, chunk, initial_state=jh0,
+                                 return_state=True)
+        got = emulate(x, dt, a, bm, cm, d, chunk=chunk, initial_state=h0, return_state=True)
+    else:
+        impl = "interpret" if case in SSD_CASES else "chunked"
+        want = (jops.ssd(jx, jdt, ja, jb, jc, jd, impl=impl, chunk=chunk),)
+        got = (emulate(x, dt, a, bm, cm, d, chunk=chunk),)
+    for gv, wv in zip(got, want):
+        _scaled(gv, np.asarray(jnp.asarray(wv, jnp.float32)), REF_TOL[dname])
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("case", [SSD_CASES[3], MORE_CASES[2], MORE_CASES[5]])
+def test_split_keeps_the_f32_bar(case, state):
+    """With bf16 inputs the split products hold the f32 arithmetic on the
+    same values to the f32 bar, before y is rounded to bf16 (about 3e-6 of
+    the scale); single bf16 terms would not (about 2e-3)."""
+    _, (x, dt, a, bm, cm, _, h0) = _inputs(case, "bfloat16")
+    kw = dict(chunk=case[-1], initial_state=h0 if state else None)
+    y16, h16 = passes(x, dt, a, bm, cm, **kw)
+    y32, h32 = passes(x.float(), dt, a, bm.float(), cm.float(), **kw)
+    _scaled(y16, y32, CARD_TOL["float32"])
+    _scaled(h16, h32, CARD_TOL["float32"])
+
+
+def _scratch_bytes(plan):
+    return 4 * sum(math.prod(shape) for shape in plan["scratch"].values())
+
+
+def test_plan_at_the_prefill():
+    b, l, h, p, g, n, c = SSD_MAIN
+    plan = ss.plan(b, l, h, p, g, n, c, torch.bfloat16)
+    assert plan["chunk"] == 128 and plan["chunks"] == 32 and plan["heads_per_block"] == 8
+    assert plan["grid_chunks"] == (8, 32, 4)  # 1 024 blocks: ~8 a SM on 132 SMs
+    assert math.prod(plan["grid_chunks"]) * plan["heads_per_block"] == 8192  # (b, h, chunk) items
+    assert plan["grid_states"] == (256, 32)  # a thread per state element
+    assert plan["scratch"] == {"states": (4, 64, 32, 64, 128), "cs": (4, 64, 32, 128),
+                               "decay": (4, 64, 32)}
+    assert _scratch_bytes(plan) == 4 * 4 * 64 * 32 * (64 * 128 + 128 + 1) == 272_662_528
+    f32 = ss.plan(b, l, h, p, g, n, c, torch.float32)
+    assert f32["heads_per_block"] == 1 and f32["grid_chunks"] == (64, 32, 4)
+
+
+def test_plan_puts_batch_heads_on_the_state_pass_x_axis():
+    """b·h past 65 535 (a grid's y limit) stays on the state pass's x axis."""
+    plan = ss.plan(1025, 8, 64, 16, 1, 16, 32, torch.bfloat16)
+    assert plan["grid_states"] == (65_600, 1) and plan["grid_chunks"] == (8, 1, 1025)
+
+
+@pytest.mark.parametrize("heads, groups, per_block", [(64, 1, 8), (24, 2, 6), (14, 2, 7),
+                                                      (9, 1, 3), (4, 4, 1), (2, 1, 2)])
+def test_plan_heads_per_block(heads, groups, per_block):
+    plan = ss.plan(1, 256, heads, 64, groups, 128, 128, torch.bfloat16)
+    assert plan["heads_per_block"] == per_block
+    assert plan["grid_chunks"] == (heads // per_block, 2, 1)
+
+
+@pytest.mark.parametrize("l, chunk, c, chunks", [(1, 128, 8, 1), (37, 16, 16, 3), (9, 128, 16, 1),
+                                                 (129, 128, 128, 2), (4096, 128, 128, 32),
+                                                 (100, 32, 32, 4)])
+def test_plan_chunks(l, chunk, c, chunks):
+    plan = ss.plan(2, l, 4, 16, 2, 32, chunk, torch.bfloat16)
+    assert (plan["chunk"], plan["chunks"]) == (c, chunks)
+    assert _scratch_bytes(plan) == 4 * 2 * 4 * chunks * (16 * 32 + c + 1)
+
+
+
+@pytest.mark.parametrize("args", [(1, 64, 2, 65, 1, 16, 32), (1, 64, 2, 16, 1, 129, 32),
+                                  (1, 300, 2, 16, 1, 16, 256), (1, 0, 2, 16, 1, 16, 32),
+                                  (1, 64, 3, 16, 2, 16, 32), (65_536, 8, 2, 16, 1, 16, 32),
+                                  (1, 65_536 * 8 + 1, 2, 16, 1, 16, 8)])
+def test_plan_refuses_past_the_limits(args):
+    with pytest.raises(ValueError):
+        ss.plan(*args, torch.bfloat16)
+
+
+def _split_views(b, l, h, p, g, n, dtype=torch.bfloat16, extra=0):
+    conv = torch.zeros(b, l, extra + h * p + 2 * g * n, dtype=dtype)[..., extra:]
+    xc, bc, cc = torch.split(conv, [h * p, g * n, g * n], dim=-1)
+    return xc.reshape(b, l, h, p), bc.reshape(b, l, g, n), cc.reshape(b, l, g, n)
+
+
+def test_row_strides_take_the_mixers_split_views():
+    b, l, h, p, g, n = 4, 64, 64, 64, 1, 128
+    x, bm, cm = _split_views(b, l, h, p, g, n)
+    assert not x.is_contiguous()
+    row = h * p + 2 * g * n
+    views = [(t, ss.row_strides(name, t, t.shape)) for name, t in (("x", x), ("b", bm), ("c", cm))]
+    assert [s for _, s in views] == [(l * row, row)] * 3
+    assert ss.vectorized(views)
+
+
+def test_row_strides_read_size_one_dimensions_as_zero():
+    x = torch.zeros(1, 1, 8, 64, dtype=torch.bfloat16)
+    odd = x.as_strided((1, 1, 8, 64), (7, 3, 64, 1))
+    assert ss.row_strides("x", odd, (1, 1, 8, 64)) == (0, 0)
+    assert ss.row_strides("x", x, (1, 1, 8, 64)) == (0, 0)
+    assert ss.row_strides("x", torch.zeros(2, 5, 1, 8)[:, :, :, :], (2, 5, 1, 8)) == (40, 8)
+
+
+@pytest.mark.parametrize("view", ["last_strided", "heads_not_packed", "shape"])
+def test_row_strides_refuse_other_layouts(view):
+    base = torch.zeros(2, 16, 4, 32)
+    t = {"last_strided": base[..., ::2],
+         "heads_not_packed": base[..., :16].transpose(1, 2).contiguous().transpose(1, 2),
+         "shape": base[..., :16]}[view]
+    with pytest.raises(ValueError):
+        ss.row_strides("x", t, (2, 16, 4, 16))
+
+
+def test_vectorized_needs_bf16_and_sixteen_byte_rows():
+    b, l, h, p, g, n = 2, 16, 4, 16, 1, 32
+
+    def vec(views):
+        return ss.vectorized([(t, ss.row_strides("t", t, t.shape)) for t in views])
+
+    assert vec(_split_views(b, l, h, p, g, n))
+    assert not vec(_split_views(b, l, h, p, g, n, extra=4))       # 8-byte aligned views
+    assert not vec(_split_views(b, l, h, 4, g, n))                 # rows of 8 bytes
+    assert not vec(_split_views(b, l, h, p, g, n, torch.float32))  # f32 runs on the CUDA cores
+    assert not vec(_split_views(b, l, h, p, 1, 12))                # state rows of 24 bytes
+

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times of the redesigned kernels on the card: K9, K4, K5, K3 and K8.
+"""Times of the redesigned kernels on the card: K9, K4, K5, K3, K8 and K10.
 
 Times the kernels of the tree this script lives in, at the main paths'
 shapes, beside the one PyTorch call that computes the same function (or
@@ -21,7 +21,13 @@ the plain version where there is none):
   then at the scale phase's n = 131 072, f64 r = 1 (symmetric) and r = 24
   (past the scratch budget, so on the full grid), and r = 24 once more in
   the symmetric mode with the budget lifted (8.6 GB of column scratch);
-* K8 (``rbf_matvec_rect``) at 4 096 × 16 384, f64 and f32, r = 1.
+* K8 (``rbf_matvec_rect``) at 4 096 × 16 384, f64 and f32, r = 1;
+* K10 (``ssd_scan``) at mamba2-1.3b's prefill (``chip_smoke.SSD_MAIN``),
+  bf16 and f32, without and with the state in and out, beside
+  ``ssd_plain``, the D skip as ``y + x·d`` and as one ``addcmul`` (times
+  and their largest gap); with the ptxas registers and spills of each of its
+  kernels (a build of ``csrc/ssd_scan.cu`` with ``-Xptxas -v`` into a
+  temporary directory).
 
 Each time is the median of 25 CUDA-event timings (3 for K3, K8 and K9 at
 32 768 tokens, 1 for K3 at n = 131 072) with the L2 evicted before each call
@@ -35,7 +41,8 @@ To compare two trees on one card, copy this script into the other tree's
     PYTHONPATH=src python tools/kernel_times.py --label change
     python <other tree>/tools/kernel_times.py --label parent
 
-``--only k3 k5`` times those sections alone.  Needs a CUDA card and
+``--only k3 k5`` times those sections alone (``--only k10`` K10 alone, a
+few seconds of card time after the build).  Needs a CUDA card and
 ``nvcc``; takes about two minutes.
 """
 
@@ -48,6 +55,7 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,7 +71,7 @@ from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import rbf_matvec as rbf  # noqa: E402
 
 GRAM_SHAPES = ((112, 16384), (40, 36551))
-SECTIONS = ("k9", "k4", "k5", "k3", "k8")
+SECTIONS = ("k9", "k4", "k5", "k3", "k8", "k10")
 SCALE_RS = (1, 24)
 
 
@@ -86,6 +94,86 @@ def sass_counts(name: str) -> dict:
                 counts.setdefault(fn, {}).setdefault(op, 0)
                 counts[fn][op] += 1
     return counts
+
+
+def ptxas_report(name: str) -> dict:
+    """Registers and spill bytes per kernel of ``csrc/<name>.cu``, from a
+    fresh ``nvcc -Xptxas -v`` build into a temporary directory."""
+    with tempfile.TemporaryDirectory() as tmp:
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(Path(tmp) / "lib.so"),
+               str(_build.CSRC / f"{name}.cu")]
+        run = subprocess.run(cmd, capture_output=True, text=True, check=True)
+        log = run.stdout + run.stderr
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line) or re.search(
+            r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if fn and m:
+            out.setdefault(fn, {})["spill_stores"] = int(m.group(1))
+            out[fn]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if fn and m:
+            out.setdefault(fn, {})["registers"] = int(m.group(1))
+    return out
+
+
+def time_ssd(label: str) -> dict:
+    from repro_torch.kernels import ssd_scan as ss
+
+    out = {}
+    b, l, h, p, g, n, c = cs.SSD_MAIN
+    nbytes, ops = cs.ssd_work(b, l, h, p, g, n, c, 2)
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, a, bm, cm, d, h0 = cs.ssd_inputs(torch, b, l, h, p, g, n, dtype, seed=2)
+        t = {"ms": cs.device_ms(torch, lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, d, chunk=c)),
+             "stateful_ms": cs.device_ms(torch, lambda: ss.ssd_scan_cuda(
+                 x, dt, a, bm, cm, d, chunk=c, initial_state=h0, return_state=True)),
+             "plain_ms": cs.device_ms(torch, lambda: ss.ssd_plain(x, dt, a, bm, cm, d, chunk=c),
+                                      5)}
+        want = ss.ssd_plain(x, dt, a, bm, cm, d, chunk=c, initial_state=h0, return_state=True)
+        got = ss.ssd_scan_cuda(x, dt, a, bm, cm, d, chunk=c, initial_state=h0, return_state=True)
+        t["max_abs_err"] = [float((u.float() - w.float()).abs().max()) for u, w in zip(got, want)]
+        t["tflop_s"] = ops / t["ms"] / 1e9
+        t["profiled_kernels_ms"] = cs.profile_kernels(
+            torch, lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, d, chunk=c))
+        if dtype == torch.bfloat16 and hasattr(ss, "HEADS_PER_BLOCK"):
+            base = ss.HEADS_PER_BLOCK
+            t["heads_per_block_ms"] = {}
+            try:
+                for hpb in (1, 2, 4, 8, 16):
+                    ss.HEADS_PER_BLOCK = hpb
+                    t["heads_per_block_ms"][hpb] = cs.device_ms(
+                        torch, lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, d, chunk=c))
+            finally:
+                ss.HEADS_PER_BLOCK = base
+        if dtype == torch.bfloat16:  # the D skip: _skip's two kernels, the wrapper's addcmul
+            yk = ss.ssd_scan_cuda(x, dt, a, bm, cm, None, chunk=c)
+            t["skip_ms"] = cs.device_ms(torch, lambda: ss._skip(yk, x, d))
+            t["skip_addcmul_ms"] = cs.device_ms(torch, lambda: torch.addcmul(
+                yk, x, d[None, None, :, None]))
+            t["skip_addcmul_max_abs_diff"] = float(
+                (ss._skip(yk, x, d) - torch.addcmul(yk, x, d[None, None, :, None])).abs().max())
+            t["without_skip_ms"] = cs.device_ms(torch, lambda: ss.ssd_scan_cuda(
+                x, dt, a, bm, cm, None, chunk=c))
+        key = f"ssd_scan {str(dtype)[6:]} {cs.SSD_MAIN}"
+        out[key] = t
+        print(f"[{label}] {key}: {t['ms']:.4f} ms ({t['tflop_s']:.1f} TFLOP/s), with state in "
+              f"and out {t['stateful_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms (max abs err "
+              f"y, state {t['max_abs_err'][0]:.2e}, {t['max_abs_err'][1]:.2e}); profiler "
+              f"{t['profiled_kernels_ms']}"
+              + (f"; heads per block: {t['heads_per_block_ms']} ms"
+                 if "heads_per_block_ms" in t else "")
+              + (f"; without the D skip {t['without_skip_ms']:.4f} ms; the skip as y + x·d "
+                 f"{t['skip_ms']:.4f} ms, as addcmul {t['skip_addcmul_ms']:.4f} ms (max abs "
+                 f"gap {t['skip_addcmul_max_abs_diff']:.2e})"
+                 if "skip_ms" in t else ""), flush=True)
+        del x, dt, a, bm, cm, d, h0, got, want
+    out["ptxas"] = ptxas_report("ssd_scan")
+    print(f"[{label}] ssd_scan ptxas: {out['ptxas']}", flush=True)
+    return out
 
 
 def time_recombine(label: str) -> dict:
@@ -202,8 +290,10 @@ def main() -> int:
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    _build.build(["flash_attention", "cg_fused", "rbf_matvec"])
+    _build.build(["flash_attention", "cg_fused", "rbf_matvec", "ssd_scan"])
     out = {"label": args.label, "card": card, "flash_attention": {}, "self_gram": {}}
+    if "k10" in args.only:
+        out["ssd_scan"] = time_ssd(args.label)
     if "k5" in args.only:
         out["recombine_blocks"] = time_recombine(args.label)
     if "k3" in args.only:
@@ -242,7 +332,7 @@ def main() -> int:
                   f"{t['library_ms']:.4f} ms (max abs err against the plain version "
                   f"{err:.2e}); profiler {t['profiled_kernels_ms']}", flush=True)
     out["sass"] = {name: sass_counts(name) for name in ("flash_attention", "cg_fused",
-                                                        "rbf_matvec")}
+                                                        "rbf_matvec", "ssd_scan")}
     print(json.dumps(out))
     return 0
 
