@@ -25,7 +25,16 @@ Phases, each of which fails the script when it fails:
               no-AW arm is timed beside ``torch.dot(r, z)``.  The LSMR
               update (K7) is held at the
               least-squares path's n = 16 384, the Gauss-Newton parameter
-              count 32 768, lsq_bench's 2²⁰ and a ragged n, and the two
+              count 32 768, lsq_bench's 2²⁰ and a ragged n.  K1's and K7's
+              step arms (the def-CG and LSMR iteration tails, one launch
+              each) are held against their plain versions in live, frozen,
+              breakdown and exact-termination states, f64 and f32 (scalars
+              bit for bit, vectors to the bars above, a repeat bit for bit)
+              and timed beside their TPU-function arms, the previous
+              designs' times and their bounds, with the device kernels a
+              call (``torch.profiler``); K1's and K7's entries in the
+              kernels line are their step arms, the arms the main paths
+              run.  The two
               extraction kernels at the least-squares windows' 96, 112 and
               128 stacked rows (timed at 112 rows, n = 16 384; ``self_gram``
               exactly symmetric and repeating bit for bit).  The
@@ -51,6 +60,9 @@ Phases, each of which fails the script when it fails:
               (counted apart) and must agree with Cholesky's log p to 1e-6.
               ``scripts/paper_tol_witness.py`` shows on the CPU that the
               reference has the same gap at tol 1e-5, growing with n.
+              Counted apart, ``torch.profiler`` over 16 deflated def-CG
+              iterations on the dense system gives the launches per
+              iteration (``profile_defcg_steps``).
 6. scale    — one RBF Gram matvec each in f32 and f64 at n = 131 072,
               d = 784, where a dense K would need 69 GB (f32) or 137 GB.
 7. main-mf  — the matrix-free Newton sequence (K never formed; every K
@@ -146,6 +158,10 @@ Phases, each of which fails the script when it fails:
               the prefill shape.  The redesigned kernels' timing lines (K3,
               K4, K5, K8, K9, K10) print the previous designs' times
               (``PREVIOUS_MS``) beside this run's.
+
+A ``[summary]`` line gives the device launches per damped LSMR and
+deflated def-CG iteration, main-lsq's ms per cold LSMR iteration and
+main-gn's device busy share.
 
 Each main path (5, 7, 10, 11, 13, 15 and 16) is driven with the launch
 counters set to 0 just before it and read just after (13: on every rank);
@@ -252,13 +268,17 @@ LONG_REPS = 3
 # 700 W): K9's SIMT kernel in bf16, K4's two-instance partial pass with one
 # reduce block per pair, K5's thread-per-column kernel, K3's SIMT kernel
 # over every 64 × 64 tile and K8 on it, K10's one block per (batch, head)
-# walking its chunks in order on the CUDA cores.
+# walking its chunks in order on the CUDA cores, K1's two launches (partials,
+# then a reduce kernel) and K7's grid capped at 8 blocks an SM.
 PREVIOUS_MS = {"ssd_scan main": 9.389, "flash_attention main": 6.243, "flash_attention 32k": 92.68,
                "self_gram 40x36551": 0.0441, "self_gram 112x16384": 0.1187,
                "recombine_blocks 40x36551": 0.0201, "recombine_blocks 112x16384": 0.0387,
                "rbf_matvec float64 r=1": 262.21, "rbf_matvec float64 r=8": 264.86,
                "rbf_matvec float64 r=24": 274.49, "rbf_matvec float32 r=1": 172.03,
-               "rbf_matvec_rect float64 m=4096 n=16384 r=1": 11.37}
+               "rbf_matvec_rect float64 m=4096 n=16384 r=1": 11.37,
+               "fused_cg_update float64 n=36551": 0.0134, "lsmr_update float64 n=16384": 0.0065,
+               "lsmr_update float64 n=32768": 0.0069, "lsmr_update float64 n=1048576": 0.0281,
+               "lsmr_update float32 n=1048576": 0.0173}
 # K10 (b, l, h, p, g, n, chunk): SSD_CASES and mamba2-1.3b's prefill.
 SSD_MAIN = (4, 4096, 64, 64, 1, 128, 128)
 SSD_CHECK = ((1, 64, 2, 16, 1, 16, 32), (2, 100, 4, 8, 2, 24, 32), (1, 37, 2, 4, 2, 8, 16),
@@ -355,6 +375,25 @@ def profile_kernels(torch, fn, reps=REPS):
         if _is_device(evt) and us > 0 and evt.count >= reps:
             out[evt.key[:60]] = us / reps / 1e3
     return out
+
+
+def kernels_per_call(torch, fn, reps=REPS):
+    """Device kernels launched by one ``fn()``, from a ``torch.profiler``
+    trace of ``reps`` calls; a session that comes back with no device
+    events at all is run again (three at most)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        count = sum(e.count for e in prof.key_averages() if _is_device(e) and _device_us(e) > 0)
+        if count:
+            break
+    return count / reps
 
 
 def compare(torch, got, want, dtype_name, what):
@@ -760,6 +799,169 @@ def laplace_runs(torch, launches, x, y, k_dense, solver_tol, log_prefix,
     return runs
 
 
+def step_states(torch, n, dtype, seed, case, k=K):
+    """Inputs of K1's and K7's step arms on the card: ``case`` is "live",
+    "frozen", "breakdown" (K1: pᵀAp < 0; K7: c̄ = NaN) or "exact" (K7:
+    β⁺ = 0, the exact-termination latch).  Returns ``(cg_args, lsmr_args)``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device="cuda", dtype=dtype)
+
+    def scalar(v):
+        return torch.tensor(v, dtype=dtype, device="cuda")
+
+    js = torch.tensor([2, 0], dtype=torch.int32, device="cuda")
+    active = torch.tensor(case != "frozen", device="cuda")
+    x, r, p, ap = (rnd(n) for _ in range(4))
+    d = torch.dot(p, ap).abs() + 1.0
+    if case == "breakdown":
+        d = -d
+    rs = torch.dot(r, r)
+    cg = (x, r, p, ap, d, rs, torch.sqrt(rs), js, active, scalar(1e-6), scalar(1e8), 100,
+          rnd(k, n), rnd(k, k))
+    w = rnd(n)
+    s = rnd(7).abs() + 0.1
+    if case == "breakdown":
+        s[5] = float("nan")
+    beta = scalar(0.0) if case == "exact" else rnd(()).abs() + 0.1
+    lsmr = (rnd(n), rnd(n), rnd(n), rnd(n), w, torch.dot(w, w), beta, s, js, active,
+            scalar(1e-6), scalar(1e8), 100)
+    return cg, lsmr
+
+
+def _same(torch, a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+def check_cg_step(torch, cf, args, dname, what):
+    """K1's step arm against its plain version: α, j, the status and the
+    flags bit for bit; √rr, β = rr / safe(rs) and μ (its fixed order, from
+    the kernel's own sums) bit for bit; the sums and vectors to the kernel
+    bar; a repeat bit for bit.  Returns the max abs error."""
+    x, r, p, ap, d, rs, rnorm, js, active = args[:9]
+    aw, waw_inv = args[12], args[13]
+    got = cf.fused_cg_step_cuda(*args[:3], ap.clone(), *args[4:])
+    want = cf.fused_cg_step_plain(*args[:3], ap.clone(), *args[4:])
+    again = cf.fused_cg_step_cuda(*args[:3], ap.clone(), *args[4:])
+    torch.cuda.synchronize()
+    so, sw = got[3], want[3]
+    err = compare(torch, got[:3] + (so,), want[:3] + (sw,), dname, what)
+    _, _, rr2, awr = cf.fused_cg_update_cuda(x, r, p, got[2], so[2], aw)
+    mu = torch.zeros_like(so[4:])
+    for j in range(mu.shape[0]):
+        mu = mu + waw_inv[:, j] * awr[j]
+    exact = {
+        "alpha": torch.equal(so[2], sw[2]), "js": torch.equal(got[4], want[4]),
+        "flags": torch.equal(got[5], want[5]), "rr both arms": torch.equal(rr2, so[0]),
+        "rnorm": torch.equal(so[1], torch.where(active, torch.sqrt(so[0]), rnorm)),
+        "beta": torch.equal(so[3], so[0] / torch.where(rs == 0.0, 1.0, rs)),
+        "mu": torch.equal(so[4:], mu),
+        "repeat": all(_same(torch, a, b) for a, b in zip(got, again)),
+    }
+    if not all(exact.values()):
+        raise AssertionError(f"{what}: not bit for bit: {exact}")
+    return err
+
+
+def check_lsmr_step(torch, cf, args, dname, what):
+    """K7's step arm against its plain version: every scalar, j, the
+    status and the active flag bit for bit, the vectors to the kernel bar
+    (NaN where the plain version has NaN), a repeat bit for bit."""
+    got = cf.lsmr_step_cuda(*args)
+    want = cf.lsmr_step_plain(*args)
+    again = cf.lsmr_step_cuda(*args)
+    torch.cuda.synchronize()
+    for g_, w_ in zip(got[:4], want[:4]):
+        if not torch.equal(torch.isfinite(g_), torch.isfinite(w_)):
+            raise AssertionError(f"{what}: non-finite entries differ")
+    err = compare(torch, [torch.nan_to_num(t) for t in got[:4]],
+                  [torch.nan_to_num(t) for t in want[:4]], dname, what)
+    exact = {"scalars": _same(torch, got[4], want[4]), "js": torch.equal(got[5], want[5]),
+             "active": torch.equal(got[6], want[6]),
+             "repeat": all(_same(torch, a, b) for a, b in zip(got, again))}
+    if not all(exact.values()):
+        raise AssertionError(f"{what}: not bit for bit: {exact}")
+    return err
+
+
+def step_work(name, n, itemsize, k=K):
+    """(bytes, operations) of one step-arm call: each vector read and
+    written once, the scalars besides."""
+    if name == "fused_cg_update":  # x, r, p, ap, AW, (AW)ᵀ… in; x', r' out
+        return ((6 + k) * n + k * k + 4 + k + 12) * itemsize, (6 + 2 * k) * n + 2 * k * k
+    # x, h̄, h, v, w in; x', h̄', h', v' out; ~7 flops an element
+    return (9 * n + 16) * itemsize, 7 * n
+
+
+def phase_step_kernels(torch, cf, peaks):
+    """The step arms of K1 (``fused_cg_step``) and K7 (``lsmr_step``)
+    against their plain versions in f64 and f32, live, frozen, breakdown
+    and (K7) exact-termination states: K1 at n = 36 551, 16 384 and a
+    ragged n with k = 8, K7 at K7_NS.  Then each step arm timed beside its
+    TPU-function arm, the previous two-launch design's time, its plain
+    version and its bound, and profiled (device kernels per call)."""
+    report = {"fused_cg_update": {}, "lsmr_update": {}}
+    for dtype in (torch.float64, torch.float32):
+        dname = str(dtype).split(".")[-1]
+        for n in sorted(set((PAPER_N, CUT_N, RAGGED_N) + K7_NS)):
+            for case in ("live", "frozen", "breakdown", "exact"):
+                cg_args, lsmr_args = step_states(torch, n, dtype, n + len(case), case)
+                if case != "exact" and n in (PAPER_N, CUT_N, RAGGED_N):
+                    e = check_cg_step(torch, cf, cg_args, dname, f"fused_cg_step {dname} n={n} {case}")
+                    report["fused_cg_update"][f"err {dname} n={n} {case}"] = e
+                if n in K7_NS:
+                    e = check_lsmr_step(torch, cf, lsmr_args, dname, f"lsmr_step {dname} n={n} {case}")
+                    report["lsmr_update"][f"err {dname} n={n} {case}"] = e
+        log(f"[kernels] step arms {dname}: K1 and K7 scalars bit for bit with their plain "
+            f"versions, vectors within {TOL[dname]}, repeats bit for bit")
+
+    timings = {}
+    for name, n, dname in (("fused_cg_update", PAPER_N, "float64"),
+                           ("lsmr_update", LSQ_MAIN["n"], "float64"),
+                           ("lsmr_update", GN["d"] * GN["out"], "float64"),
+                           ("lsmr_update", 1 << 20, "float64"),
+                           ("lsmr_update", 1 << 20, "float32")):
+        dtype = getattr(torch, dname)
+        cg_args, lsmr_args = step_states(torch, n, dtype, 7, "live")
+        if name == "fused_cg_update":
+            # ap is zeroed in place only on a breakdown: a live state reuses it.
+            kern = lambda: cf.fused_cg_step_cuda(*cg_args)  # noqa: E731
+            plain = lambda: cf.fused_cg_step_plain(*cg_args)  # noqa: E731
+            x, r, p, ap = cg_args[:4]
+            alpha = torch.tensor(0.3, dtype=dtype, device="cuda")
+            tpu = lambda: cf.fused_cg_update_cuda(x, r, p, ap, alpha, cg_args[12])  # noqa: E731
+            previous = PREVIOUS_MS.get(f"fused_cg_update {dname} n={n}")
+        else:
+            kern = lambda: cf.lsmr_step_cuda(*lsmr_args)  # noqa: E731
+            plain = lambda: cf.lsmr_step_plain(*lsmr_args)  # noqa: E731
+            x, hbar, h, v = lsmr_args[:4]
+            c = [torch.tensor(q, dtype=dtype, device="cuda") for q in (0.5, -0.25, 2.0)]
+            tpu = lambda: cf.lsmr_update_cuda(x, hbar, h, v, *c)  # noqa: E731
+            previous = PREVIOUS_MS.get(f"lsmr_update {dname} n={n}")
+        itemsize = 8 if dname == "float64" else 4
+        nbytes, ops = step_work(name, n, itemsize)
+        t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks[dname]
+        tpu_bytes, tpu_ops = work(name, n, itemsize)
+        t = {"n": n, "dtype": dname, "ms": device_ms(torch, kern), "plain_ms": device_ms(torch, plain),
+             "tpu_arm_ms": device_ms(torch, tpu), "previous_design_ms": previous,
+             "bound_ms": 1e3 * max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "tpu_arm_bound_ms": 1e3 * max(tpu_bytes / peaks["bytes"], tpu_ops / peaks[dname]),
+             "kernels_per_call": kernels_per_call(torch, kern),
+             "tpu_arm_kernels_per_call": kernels_per_call(torch, tpu)}
+        timings[f"{name} {dname} n={n}"] = t
+        log(f"[timing] {name} step arm {dname} n={n}: kernel {t['ms']:.4f} ms "
+            f"({t['kernels_per_call']} device kernel a call), plain {t['plain_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.5f} ms ({t['bound_by']}); TPU-function arm {t['tpu_arm_ms']:.4f} ms "
+            f"({t['tpu_arm_kernels_per_call']} device kernel a call, bound "
+            f"{t['tpu_arm_bound_ms']:.5f} ms), previous two-launch / grid-capped design "
+            f"{previous} ms")
+    report["timings"] = timings
+    return report
+
+
 def phase_lsmr_kernels(torch, cf, peaks):
     """K7 (``lsmr_update``) in f64 and f32 against its plain version at
     K7_NS, timed at each in f64 and at 2²⁰ in f32; then the extraction
@@ -1034,6 +1236,51 @@ def profile_lsmr_steps(torch, A, b, W=None, NW=None, steps=16):
             other_us += us
         names[evt.key[:50]] = evt.count
     return {"steps": steps, "launches_per_iteration": launches / steps,
+            "gemv_ms_per_iteration": gemv_us / steps / 1e3,
+            "other_ms_per_iteration": other_us / steps / 1e3,
+            "wall_ms_per_iteration_profiled": 1e3 * wall / steps, "kernels": names}
+
+
+def profile_defcg_steps(torch, k_dense, steps=16):
+    """``torch.profiler`` over ``steps`` deflated def-CG iterations (k = 8,
+    tol 0, so every step is live) on the dense main path's Newton system
+    ``I + H½ K H½`` at H½ = ½·I, with a random orthonormal basis W and its
+    products AW: device kernels launched per iteration, and device time
+    per iteration split into the dense GEMV and everything else."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.core import KernelSystemOperator, defcg
+
+    n = k_dense.shape[0]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    op = KernelSystemOperator(lambda v: k_dense @ v,
+                              torch.full((n,), 0.5, dtype=k_dense.dtype, device="cuda"))
+    b = torch.randn(n, generator=g, device="cuda", dtype=k_dense.dtype)
+    W = torch.linalg.qr(torch.randn(n, K, generator=g, device="cuda",
+                                    dtype=k_dense.dtype)).Q.T.contiguous()
+    AW = op.basis_matvec(W)
+    defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if int(res.info.iterations) != steps:
+        raise AssertionError(f"[profile def-CG] ran {int(res.info.iterations)} of {steps} steps")
+    launches, gemv_us, other_us, names = 0, 0.0, 0.0, {}
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if not (_is_device(evt) and us > 0):
+            continue
+        launches += evt.count
+        key = evt.key.lower()
+        if "gemv" in key or "gemm" in key:
+            gemv_us += us
+        else:
+            other_us += us
+        names[evt.key[:50]] = evt.count
+    return {"n": n, "k": K, "steps": steps, "launches_per_iteration": launches / steps,
             "gemv_ms_per_iteration": gemv_us / steps / 1e3,
             "other_ms_per_iteration": other_us / steps / 1e3,
             "wall_ms_per_iteration_profiled": 1e3 * wall / steps, "kernels": names}
@@ -2061,6 +2308,19 @@ def main(argv) -> int:
     kernels["rbf_matvec"] = rbf_k = phase_rbf(torch, rbf, peaks)
     kernels["lsmr_update"] = phase_lsmr_kernels(torch, cf, peaks)
     kernels["rbf_matvec_rect"] = phase_rect_kernels(torch, rbf, peaks)
+    # K1 and K7 are timed at their step arms, the arms the main paths run
+    # (main-shard alone runs K1's TPU-function arm: reduced across ranks
+    # before its scalars are used); each entry keeps its TPU-function arm.
+    steps = phase_step_kernels(torch, cf, peaks)
+    for name, key in (("fused_cg_update", f"fused_cg_update float64 n={PAPER_N}"),
+                      ("lsmr_update", f"lsmr_update float64 n={LSQ_MAIN['n']}")):
+        entry, t = kernels[name], steps["timings"][key]
+        entry.update(tpu_arm={k: entry[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+                     step_arm=t, ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+                     bound_by=t["bound_by"],
+                     max_abs_err=max([entry["max_abs_err"]] + [
+                         v for k, v in steps[name].items() if "float64" in k]))
+    kernels["step_timings"] = steps["timings"]
 
     # -- 4. small check: card against CPU ------------------------------------
     xs, ys = make_infinite_digits(400, seed=1, noise=0.10)
@@ -2132,6 +2392,14 @@ def main(argv) -> int:
     tight_plain = dict(cf.PLAIN_ON_CUDA)
     log(f"[main tol=1e-10] launches {tight_launches}; plain versions on the card "
         f"{tight_plain}")
+
+    # Launches per deflated def-CG iteration, counted apart from the runs.
+    report["defcg_profile"] = prof = profile_defcg_steps(torch, k_dense)
+    log(f"[main] profile def-CG (deflated, k = {K}, n = {PAPER_N}): "
+        f"{prof['launches_per_iteration']:.1f} launches per iteration; device "
+        f"{prof['gemv_ms_per_iteration']:.4f} ms GEMV + {prof['other_ms_per_iteration']:.4f} ms "
+        f"other per iteration; wall {prof['wall_ms_per_iteration_profiled']:.4f} ms per "
+        f"iteration under the profiler; kernels {prof['kernels']}")
 
     # At the paper's solver tol (1e-5) the iterative Newton sequences drift
     # from Cholesky's by far more than the tolerance, by a gap that grows
@@ -2347,6 +2615,14 @@ def main(argv) -> int:
               + shard_launches[name] + sum(lm[name] for lm in lm_launches.values())
               for name in cf.LAUNCHES}
     report["launch_totals"] = totals
+    lp = report["main_lsq"]["profile"]
+    log(f"[summary] device launches per iteration: damped LSMR (main-lsq) cold "
+        f"{lp['cold']['launches_per_iteration']:.1f}, deflated "
+        f"{lp['deflated']['launches_per_iteration']:.1f}; deflated def-CG (main, n = {PAPER_N}) "
+        f"{report['defcg_profile']['launches_per_iteration']:.1f}; main-lsq "
+        f"{report['main_lsq']['runs']['cold']['ms_per_iteration']:.3f} ms per cold LSMR "
+        f"iteration; main-gn device busy {report['main_gn']['profile']['device_busy_share']:.1%}, "
+        f"{report['main_gn']['recycled']['ms_per_iteration']:.3f} ms per LSMR iteration (recycled)")
     kernel_line = {"kernels": [kernel_entry(name, kernels[name], totals[name])
                                for name in cf.LAUNCHES]}
     report["kernels"] = kernels

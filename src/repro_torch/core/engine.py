@@ -13,6 +13,13 @@ reference's.  The host reads the convergence test once per
 The price: a frozen step still runs its matvec (skipping it would need a
 host read).  A solve therefore computes up to ``CHUNK − 1`` discarded
 products after convergence; they are not counted in ``matvecs``.
+
+On the card the scalar recurrence of a step and its frozen-step mask run
+inside the step's fused kernel: def-CG's from ``pᵀAp`` on is one
+``fused_cg_update`` launch (``kernels.ops.fused_cg_step``), LSMR's after
+``‖w‖²`` one ``lsmr_update`` launch (``kernels.ops.lsmr_step``).  Each
+writes the next step's ``active`` flag, so ``active_fn`` there reads the
+carried flag instead of launching the test.
 """
 
 from __future__ import annotations
@@ -22,6 +29,8 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import pytree as pt
+# The breakdown rule lives beside the kernels whose step tails apply it.
+from repro_torch.kernels.cg_fused import classify_breakdown  # noqa: F401
 
 # Masked steps between two host reads of the convergence test.
 CHUNK = 8
@@ -48,23 +57,6 @@ class SolveInfo(NamedTuple):
     breakdown: torch.Tensor | bool = False
     status: torch.Tensor | int = 0
     guard_fired: torch.Tensor | bool = False
-
-
-def classify_breakdown(d, rnorm, diverged_at):
-    """``(bad, code)`` from the ``pᵀAp`` reduction: non-finite, indefinite,
-    or a residual past the divergence ceiling (classed STAGNATED)."""
-    nonfinite = ~torch.isfinite(d)
-    indefinite = (~nonfinite) & (d <= 0.0)
-    diverging = rnorm > diverged_at
-    bad = nonfinite | indefinite | diverging
-    code = torch.where(
-        nonfinite,
-        SolveStatus.BREAKDOWN_NONFINITE,
-        torch.where(
-            indefinite, SolveStatus.BREAKDOWN_INDEFINITE, SolveStatus.STAGNATED
-        ),
-    )
-    return bad, torch.where(bad, code, 0).to(torch.int32)
 
 
 def exit_status(converged, fail):

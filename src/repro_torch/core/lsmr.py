@@ -25,8 +25,12 @@ products ``NW`` plays the role ``(W, AW)`` plays for def-CG:
 The loop is the port's masked-step harness (:mod:`repro_torch.core.engine`):
 every scalar lives on the device, the host reads the convergence test once
 per ``CHUNK`` steps, and a frozen step's two products are computed and
-discarded (the reference hides them behind ``cond``).  The three vector
-recurrences of an iteration are ONE ``lsmr_update`` kernel launch.
+discarded (the reference hides them behind ``cond``).  Everything of an
+iteration after ``‖w‖²`` — α⁺ and ``v⁺``, both Givens rotations, the three
+vector recurrences, the exact-termination latch, the status, the trace
+slot, j, the next active flag and the frozen-step mask of ``x, h̄, h, v``
+— is ONE ``lsmr_update`` launch (:func:`lsmr_tail`, shared with the
+sharded engine).
 
 Matvec accounting counts ``A`` and ``Aᵀ`` applications each as 1: the
 initial ``Âᵀu₁`` costs 1 (+1 ``A`` with a warm start), every iteration 2.
@@ -40,7 +44,6 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core import operators as ops_mod
-from repro_torch.core.engine import SolveStatus
 from repro_torch.core.recycle import SequenceResult, _stack_infos
 from repro_torch.core.solvers import (
     _NO_STAGNATION,
@@ -49,23 +52,44 @@ from repro_torch.core.solvers import (
     RecycleData,
     SolveInfo,
     _chol_solve,
-    _trace_write,
     factor_waw_gram,
 )
 from repro_torch.core.strategies import extract_next_basis_core
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.cg_fused import safe as _safe
+from repro_torch.kernels.cg_fused import still_active
 
 
-def _sym_ortho(a, b):
-    """Stable Givens pair ``(c, s, r)`` with ``r = √(a² + b²)``; ``r = 0``
-    (exact termination, latched as converged) gives ``(0, 0, 0)``."""
-    r = torch.sqrt(a * a + b * b)
-    safe = torch.where(r == 0.0, 1.0, r)
-    return a / safe, b / safe, r
+def lsmr_initial_state(x, u_m, u_n, v, g, alpha1, normar0, threshold, maxiter, trace):
+    """The LSMR loop's state before its first step:
+    ``(js, s, active, x, u_m, u_n, v, g, h, h̄, trace)`` with ``js = [j,
+    fail]`` and ``s`` the packed scalars of ``kernels.cg_fused.LSMR_SLOTS``
+    (ᾱ = α₁, ζ̄ = ‖Âᵀr̂₀‖, ρ = ρ̄ = c̄ = 1, s̄ = 0)."""
+    one = torch.ones_like(normar0)
+    s = torch.stack([alpha1, normar0, alpha1, one, one, one, torch.zeros_like(one)])
+    js = torch.stack([torch.zeros((), dtype=torch.int32, device=v.device),
+                      engine.initial_fail(normar0)])
+    active = still_active(js[0], torch.abs(normar0), js[1], threshold, maxiter)
+    return (js, s, active, x, u_m, u_n, v, g, v, torch.zeros_like(v), trace)
 
 
-def _safe(v):
-    return torch.where(v == 0.0, 1.0, v)
+def lsmr_tail(state, active, u_m_new, u_n_new, g_new, w_vec, wsq, beta_new, threshold,
+              diverged_at, maxiter):
+    """Everything of an LSMR step after its last reduction (``wsq = ‖w‖²``):
+    one ``lsmr_step`` launch on the card, then the frozen-step selects of
+    ``u_m``, ``u_n`` and ``g``.  The unsharded and the sharded loops both
+    end their step here.  Returns the next state."""
+    js, s, _, x, u_m, u_n, v, g, h, hbar, trace = state
+    x, hbar, h, v, s, js, active_next = kops.lsmr_step(
+        x, hbar, h, v, w_vec, wsq, beta_new, s, js, active, threshold, diverged_at, maxiter,
+        trace,
+    )
+
+    def sel(new, cur):
+        return torch.where(active, new, cur)
+
+    return (js, s, active_next, x, sel(u_m_new, u_m),
+            None if u_n is None else sel(u_n_new, u_n), v, sel(g_new, g), h, hbar, trace)
 
 
 def domain_size(A, x0: Optional[torch.Tensor] = None) -> int:
@@ -168,8 +192,6 @@ def lsmr(
     threshold = torch.clamp(tol * normar0, min=atol)
     diverged_at = 1e8 * normar0
     trace0 = engine.trace_init(normar0, maxiter, record_residuals)
-    fail0 = engine.initial_fail(normar0)
-    one = torch.ones((), dtype=dtype, device=device)
 
     if ell > 0:
         # Row ``ell`` is the spare row frozen recording steps write to, so
@@ -177,14 +199,10 @@ def lsmr(
         v_buf = torch.zeros((ell + 1, n), dtype=dtype, device=device)
         nv_buf = torch.zeros((ell + 1, n), dtype=dtype, device=device)
 
-    def active_fn(state):
-        j, zetabar, fail = state[0], state[7], state[16]
-        return (j < maxiter) & (torch.abs(zetabar) > threshold) & (fail == 0)
-
     def step(state, active, row):
         """One masked LSMR iteration; ``active=False`` freezes the state."""
-        (j, x, u_m, u_n, v, g, alpha, zetabar, alphabar, rho, rhobar,
-         cbar, sbar, h, hbar, trace, fail) = state
+        u_m, u_n, v, g = state[4:8]
+        alpha = state[1][0]
 
         # -- bidiagonalization: β u⁺ = Â(Qv) − α u ---------------------------
         qv = q_apply(v)
@@ -199,14 +217,12 @@ def lsmr(
         if has_shift:
             u_n_new = u_n_new / sb
 
-        # -- α v⁺ = Qᵀ(Âᵀu⁺) − β v -------------------------------------------
+        # -- α v⁺ = Qᵀ(Âᵀu⁺) − β v (α⁺ and v⁺ in the tail) --------------------
         g_new = At(u_m_new)
         if has_shift:
             g_new = g_new + sqrt_damp * u_n_new
         g_new = qt_apply(g_new)
         w_vec = g_new - beta_new * v
-        alpha_new = torch.sqrt(torch.dot(w_vec, w_vec))
-        v_new = w_vec / _safe(alpha_new)
 
         if row is not None:
             # The window row, free from the recurrence:
@@ -215,68 +231,15 @@ def lsmr(
             v_buf.index_copy_(0, slot, v[None])
             nv_buf.index_copy_(0, slot, (alpha * g + beta_new * g_new)[None])
 
-        # -- the two Givens rotations (Fong & Saunders 2011, §2.2; λ lives
-        # in Â itself, so there is no λ-rotation) ----------------------------
-        c, s, rho_new = _sym_ortho(alphabar, beta_new)
-        thetanew = s * alpha_new
-        alphabar_new = c * alpha_new
-        thetabar = sbar * rho_new
-        cbar_new, sbar_new, rhobar_new = _sym_ortho(cbar * rho_new, thetanew)
-        zeta = cbar_new * zetabar
-        zetabar_new = -sbar_new * zetabar
+        return lsmr_tail(state, active, u_m_new, u_n_new if has_shift else None, g_new,
+                         w_vec, torch.dot(w_vec, w_vec), beta_new, threshold, diverged_at,
+                         maxiter)
 
-        # -- the three vector recurrences in one kernel ------------------------
-        c0 = thetabar * rho_new / (rho * rhobar)
-        c1 = zeta / (_safe(rho_new) * _safe(rhobar_new))
-        c2 = thetanew / _safe(rho_new)
-        x_new, hbar_new, h_new = kops.lsmr_update(x, hbar, h, v_new, c0, c1, c2)
-
-        # Exact termination: a zero β or α drives Âᵀr̂ to zero — latch it.
-        exact = (beta_new == 0.0) | (alpha_new == 0.0)
-        zetabar_new = torch.where(exact, 0.0, zetabar_new)
-        normar_new = torch.abs(zetabar_new)
-
-        live = (fail == 0) & active
-        fail = torch.where(
-            live & ~torch.isfinite(normar_new), SolveStatus.BREAKDOWN_NONFINITE, fail
-        ).to(torch.int32)
-        fail = torch.where(
-            (fail == 0) & active & (normar_new > diverged_at), SolveStatus.STAGNATED, fail
-        ).to(torch.int32)
-        if trace is not None:
-            _trace_write(trace, j, normar_new, active)
-
-        def sel(new, cur):
-            return torch.where(active, new, cur)
-
-        return (
-            j + active.to(j.dtype),
-            sel(x_new, x),
-            sel(u_m_new, u_m),
-            sel(u_n_new, u_n) if has_shift else None,
-            sel(v_new, v),
-            sel(g_new, g),
-            sel(alpha_new, alpha),
-            sel(zetabar_new, zetabar),
-            sel(alphabar_new, alphabar),
-            sel(rho_new, rho),
-            sel(rhobar_new, rhobar),
-            sel(cbar_new, cbar),
-            sel(sbar_new, sbar),
-            sel(h_new, h),
-            sel(hbar_new, hbar),
-            trace,
-            fail,
-        )
-
-    j0 = torch.zeros((), dtype=torch.int32, device=device)
-    state = (
-        j0, x_flat, u_m0, u_n0, v0, g0, alpha1, normar0, alpha1, one, one, one,
-        torch.zeros((), dtype=dtype, device=device), v0, torch.zeros_like(v0),
-        trace0, fail0,
-    )
-    state = engine.run_recording_loop(step, active_fn, state, ell=ell)
-    j, x, zetabar, trace, fail = state[0], state[1], state[7], state[15], state[16]
+    state = lsmr_initial_state(x_flat, u_m0, u_n0, v0, g0, alpha1, normar0, threshold,
+                               maxiter, trace0)
+    state = engine.run_recording_loop(step, lambda st: st[2], state, ell=ell)
+    js, s, _, x = state[:4]
+    j, fail, zetabar, trace = js[0], js[1], s[1], state[10]
     normar = torch.abs(zetabar)
     if deflating:
         # The Krylov correction lives in the Q-subspace: one exit-time

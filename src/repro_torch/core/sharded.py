@@ -66,11 +66,12 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core import operators as ops_mod
 from repro_torch.core.engine import SolveStatus
-from repro_torch.core.lsmr import _safe, _sym_ortho
+from repro_torch.core.lsmr import _safe, lsmr_initial_state, lsmr_tail
 from repro_torch.core.recycle import RecycleState
-from repro_torch.core.solvers import _info, _trace_write
+from repro_torch.core.solvers import _info
 from repro_torch.core.strategies import HarmonicRitz, extract_next_basis_core
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.cg_fused import trace_write
 from repro_torch.launch.mesh import COLLECTIVES, SolveMesh
 
 __all__ = ["COLLECTIVES", "shard_recycle_state", "solve_sharded"]
@@ -204,7 +205,7 @@ def _sharded_cg(apply, mesh, b, x0, *, tol, atol, maxiter, record_residuals):
         ).to(torch.int32)
         rnorm = torch.where(active, rnorm_new, rnorm)
         if trace is not None:
-            _trace_write(trace, j, rnorm, active)
+            trace_write(trace, j, rnorm, active)
         return (j + active.to(j.dtype), x, r, p, rnorm, trace, fail)
 
     j0 = torch.zeros((), dtype=torch.int32, device=b.device)
@@ -311,7 +312,7 @@ def _sharded_defcg(
         ).to(torch.int32)
         rnorm = torch.where(active, rnorm_new, rnorm)
         if trace is not None:
-            _trace_write(trace, j, rnorm, active)
+            trace_write(trace, j, rnorm, active)
         return (j + active.to(j.dtype), x, r, p, rnorm, trace, fail)
 
     j0 = torch.zeros((), dtype=torch.int32, device=device)
@@ -384,17 +385,11 @@ def _sharded_lsmr(
     threshold = torch.clamp(tol * normar0, min=atol)
     diverged_at = 1e8 * normar0
     trace0 = engine.trace_init(normar0, maxiter, record_residuals)
-    one = torch.ones((), dtype=b.dtype, device=b.device)
-
-    def active_fn(state):
-        j, zetabar, fail = state[0], state[7], state[16]
-        return (j < maxiter) & (torch.abs(zetabar) > threshold) & (fail == 0)
 
     def step(state, active, row):
         del row  # no window
-        (j, x, u_m, u_n, v, g, alpha, zetabar, alphabar, rho, rhobar,
-         cbar, sbar, h, hbar, trace, fail) = state
-
+        u_m, u_n, v = state[4:7]
+        alpha = state[1][0]
         u_m_new = apply(v) - alpha * u_m
         bs = torch.dot(u_m_new, u_m_new)
         if has_shift:
@@ -408,58 +403,18 @@ def _sharded_lsmr(
             u_n_new = u_n_new / _safe(beta_new)
             g_new = g_new + sqrt_damp * u_n_new
         w_vec = g_new - beta_new * v
+        # The tail is replicated arithmetic on the all-reduced ‖w‖².
         (as_,) = engine.psum_merged([torch.dot(w_vec, w_vec)], mesh)
-        alpha_new = torch.sqrt(as_)
-        v_new = w_vec / _safe(alpha_new)
+        return lsmr_tail(state, active, u_m_new, u_n_new if has_shift else None, g_new,
+                         w_vec, as_, beta_new, threshold, diverged_at, maxiter)
 
-        c, s, rho_new = _sym_ortho(alphabar, beta_new)
-        thetanew = s * alpha_new
-        alphabar_new = c * alpha_new
-        thetabar = sbar * rho_new
-        cbar_new, sbar_new, rhobar_new = _sym_ortho(cbar * rho_new, thetanew)
-        zeta = cbar_new * zetabar
-        zetabar_new = -sbar_new * zetabar
-
-        c0 = thetabar * rho_new / (rho * rhobar)
-        c1 = zeta / (_safe(rho_new) * _safe(rhobar_new))
-        c2 = thetanew / _safe(rho_new)
-        x_new, hbar_new, h_new = kops.lsmr_update(x, hbar, h, v_new, c0, c1, c2)
-
-        exact = (beta_new == 0.0) | (alpha_new == 0.0)
-        zetabar_new = torch.where(exact, 0.0, zetabar_new)
-        normar_new = torch.abs(zetabar_new)
-        live = (fail == 0) & active
-        fail = torch.where(
-            live & ~torch.isfinite(normar_new), SolveStatus.BREAKDOWN_NONFINITE, fail
-        ).to(torch.int32)
-        fail = torch.where(
-            (fail == 0) & active & (normar_new > diverged_at), SolveStatus.STAGNATED, fail
-        ).to(torch.int32)
-        if trace is not None:
-            _trace_write(trace, j, normar_new, active)
-
-        def sel(new, cur):
-            return torch.where(active, new, cur)
-
-        return (
-            j + active.to(j.dtype), sel(x_new, x), sel(u_m_new, u_m),
-            sel(u_n_new, u_n) if has_shift else None, sel(v_new, v), sel(g_new, g),
-            sel(alpha_new, alpha), sel(zetabar_new, zetabar),
-            sel(alphabar_new, alphabar), sel(rho_new, rho), sel(rhobar_new, rhobar),
-            sel(cbar_new, cbar), sel(sbar_new, sbar), sel(h_new, h),
-            sel(hbar_new, hbar), trace, fail,
-        )
-
-    j0 = torch.zeros((), dtype=torch.int32, device=b.device)
-    state = (
-        j0, x0, u_m0, u_n0, v0, g0, alpha1, normar0, alpha1, one, one, one,
-        torch.zeros_like(one), v0, torch.zeros_like(v0), trace0,
-        engine.initial_fail(normar0),
-    )
-    state = engine.run_recording_loop(step, active_fn, state)
-    j, x, zetabar, trace, fail = state[0], state[1], state[7], state[15], state[16]
+    state = lsmr_initial_state(x0, u_m0, u_n0, v0, g0, alpha1, normar0, threshold, maxiter,
+                               trace0)
+    state = engine.run_recording_loop(step, lambda st: st[2], state)
+    js, s, _, x = state[:4]
+    j, fail, trace = js[0], js[1], state[10]
     # matvecs: init_mv + 2 per iteration (one A, one Aᵀ product).
-    return x, _info(j, init_mv + j, torch.abs(zetabar), threshold, trace, fail, maxiter)
+    return x, _info(j, init_mv + j, torch.abs(s[1]), threshold, trace, fail, maxiter)
 
 
 # ---------------------------------------------------------------------------

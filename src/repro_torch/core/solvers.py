@@ -2,12 +2,16 @@
 
 The counterpart of ``repro.core.solvers``: the same iteration, the same
 state, the same accounting, on the masked-step harness of
-:mod:`repro_torch.core.engine`.  The non-matvec vector work of an
-iteration is two fused kernels (:mod:`repro_torch.kernels.ops`), three
-when preconditioned, and the first ``ell`` search directions and their
-products are recorded by the last of them straight into ``(ell + 1, n)``
-buffers: row ``ell`` is the spare row frozen steps write to, so rows past
-``stored`` stay zero as the reference's masked scan outputs do.
+:mod:`repro_torch.core.engine`.  An iteration past its product is ``pᵀAp``,
+ONE ``fused_cg_step`` launch (breakdown test, α, the update, β, μ, the
+residual norm, status, trace, j and the next active flag;
+:mod:`repro_torch.kernels.ops`), the direction update and the ``p``
+select; with a preconditioner, ``z = M⁻¹r`` and one ``fused_rz_reduce``
+pass come between, and β and μ are formed eagerly.  The first ``ell``
+search directions and their products are recorded by the direction
+update straight into ``(ell + 1, n)`` buffers: row ``ell`` is the spare
+row frozen steps write to, so rows past ``stored`` stay zero as the
+reference's masked scan outputs do.
 
 Deflation (Alg. 1 lines 3 and 11):
 
@@ -25,8 +29,9 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core import operators as ops_mod
 from repro_torch.core import pytree as pt
-from repro_torch.core.engine import SolveInfo, SolveStatus
+from repro_torch.core.engine import SolveInfo
 from repro_torch.kernels import ops as kops
+from repro_torch.kernels.cg_fused import still_active
 
 # The one waw_jitter default (the reference's value; see repro.core.solvers).
 DEFAULT_WAW_JITTER = 1e-12
@@ -55,13 +60,6 @@ class CGResult(NamedTuple):
     x: torch.Tensor
     info: SolveInfo
     recycle: Optional[RecycleData] = None
-
-
-def _trace_write(trace, j, rnorm, active):
-    """Slot ``j + 1`` of the residual trace, kept on frozen steps."""
-    slot = (j + 1).reshape(1).to(torch.int64)
-    old = trace.index_select(0, slot)
-    trace.index_copy_(0, slot, torch.where(active, rnorm.reshape(1), old))
 
 
 def _info(j, matvecs, rnorm, threshold, trace, fail, maxiter, guard_fired=False):
@@ -114,45 +112,32 @@ def cg(
     trace0 = engine.trace_init(rnorm0, maxiter, record_residuals)
     diverged_at = 1e8 * torch.maximum(rnorm0, pt.tree_norm(b))
 
-    def active_fn(state):
-        j, rnorm, fail = state[0], state[5], state[7]
-        return (j < maxiter) & (rnorm > threshold) & (fail == 0)
-
     def step(state, active, row):
         del row  # CG records no window
-        j, x, r, p, rz, rnorm, trace, fail = state
+        js, x, r, p, rz, rnorm, _, trace = state
         ap = A(p)
         d = pt.tree_dot(p, ap)
-        bad, code = engine.classify_breakdown(d, rnorm, diverged_at)
-        fail = torch.where(active & (fail == 0), code, fail)
-        ap = torch.where(bad, 0.0, ap)
-        alpha = torch.where(bad | ~active, 0.0, rz / torch.where(bad, 1.0, d))
-        x, r, rr, _ = kops.fused_cg_update(x, r, p, ap, alpha)
+        x, r, ap, so, js, flags = kops.fused_cg_step(
+            x, r, p, ap, d, rz, rnorm, js, active, threshold, diverged_at, maxiter,
+            recurrence=M is None, trace=trace,
+        )
         if M is None:
-            z, rz_new = r, rr
+            z, rz_new, beta = r, so[0], so[3]
         else:
             z = M(r)
             rz_new = pt.tree_dot(r, z)
-        beta = rz_new / torch.where(rz == 0.0, 1.0, rz)
+            beta = rz_new / torch.where(rz == 0.0, 1.0, rz)
         p_new, _, _ = kops.fused_deflate_direction(z, p, beta)
-        p = torch.where(active, p_new, p)
-        rz = torch.where(active, rz_new, rz)
-        rnorm_new = torch.sqrt(rr)
-        fail = torch.where(
-            (fail == 0) & active & ~torch.isfinite(rnorm_new),
-            SolveStatus.BREAKDOWN_NONFINITE,
-            fail,
-        ).to(torch.int32)
-        rnorm = torch.where(active, rnorm_new, rnorm)
-        if trace is not None:
-            _trace_write(trace, j, rnorm, active)
-        j = j + active.to(j.dtype)
-        return (j, x, r, p, rz, rnorm, trace, fail)
+        p = torch.where(flags[1], p_new, p)
+        return (js, x, r, p, rz_new, so[1], flags[0], trace)
 
-    j0 = torch.zeros((), dtype=torch.int32, device=b.device)
-    state = (j0, x, r, p, rz, rnorm0, trace0, engine.initial_fail(rnorm0))
-    state = engine.run_recording_loop(step, active_fn, state, ell=0)
-    j, x, _, _, _, rnorm, trace, fail = state
+    js0 = torch.stack([torch.zeros((), dtype=torch.int32, device=b.device),
+                       engine.initial_fail(rnorm0)])
+    active0 = still_active(js0[0], rnorm0, js0[1], threshold, maxiter)
+    state = (js0, x, r, p, rz, rnorm0, active0, trace0)
+    state = engine.run_recording_loop(step, lambda st: st[6], state, ell=0)
+    js, x, _, _, _, rnorm, _, trace = state
+    j, fail = js[0], js[1]
     return CGResult(x=x, info=_info(j, 1, rnorm, threshold, trace, fail, maxiter))
 
 
@@ -255,7 +240,7 @@ def defcg(
             mu0 = _chol_solve(chol, pt.basis_dot(aw_f, z))
             p0 = z - pt.basis_combine(W, mu0)
             winv = _chol_solve(chol, torch.eye(k, dtype=aw_f.dtype, device=device))
-            return p0, winv
+            return p0, winv.contiguous()  # row-major, as the step kernel reads it
 
         chol = factor_waw_gram(W, aw, waw_jitter)
         x_in = x
@@ -302,33 +287,32 @@ def defcg(
         a_rows = torch.zeros((ell + 1,), dtype=dtype, device=device)
         b_rows = torch.zeros((ell + 1,), dtype=dtype, device=device)
 
-    def active_fn(state):
-        j, rnorm, fail = state[0], state[5], state[7]
-        return (j < maxiter) & (rnorm > threshold) & (fail == 0)
-
     def step(state, active, row):
         """One masked def-CG iteration; ``active=False`` freezes the state."""
-        j, x, r, p, rs, rnorm, trace, fail = state
+        js, x, r, p, rs, rnorm, _, trace = state
         ap = A(p)
         d = pt.tree_dot(p, ap)
-        bad, code = engine.classify_breakdown(d, rnorm, diverged_at)
-        fail = torch.where((fail == 0) & active, code, fail)
-        # Sanitize a poisoned A·p before the fused passes touch it.
-        ap = torch.where(bad, 0.0, ap)
-        alpha = torch.where(bad | ~active, 0.0, rs / torch.where(bad, 1.0, d))
+        rows = {} if row is None else dict(row=row, a_rows=a_rows, b_rows=b_rows)
         if M is None:
-            # rᵀr IS the recurrence scalar, and the deflation GEMV rides
-            # in the update pass.
-            x, r, rs_new, awr = kops.fused_cg_update(x, r, p, ap, alpha, aw)
-            rr, zvec = rs_new, r
+            # rᵀr IS the recurrence scalar: the deflation GEMV, β and μ
+            # ride in the update's launch.
+            x, r, ap, so, js, flags = kops.fused_cg_step(
+                x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
+                aw, waw_inv, trace=trace, **rows,
+            )
+            zvec, rs_new, beta = r, so[0], so[3]
+            mu = so[4:] if deflating else None
         else:
             # z = M⁻¹r exists only after the update: rᵀz and (AW)ᵀz go in
-            # a second fused pass.
-            x, r, rr, _ = kops.fused_cg_update(x, r, p, ap, alpha)
+            # a second fused pass, and β, μ follow eagerly.
+            x, r, ap, so, js, flags = kops.fused_cg_step(
+                x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
+                recurrence=False, trace=trace,
+            )
             zvec = M(r)
             rs_new, awr = kops.fused_rz_reduce(r, zvec, aw)
-        mu = waw_inv @ awr if deflating else None
-        beta = rs_new / torch.where(rs == 0.0, 1.0, rs)
+            mu = waw_inv @ awr if deflating else None
+            beta = rs_new / torch.where(rs == 0.0, 1.0, rs)
         if row is None:
             p_new, _, _ = kops.fused_deflate_direction(zvec, p, beta, W, mu)
         else:
@@ -337,27 +321,21 @@ def defcg(
             p_new, _, _ = kops.fused_deflate_direction(
                 zvec, p, beta, W, mu, ap, slot, p_buf, ap_buf
             )
-            a_rows.index_copy_(0, slot.reshape(1), alpha.reshape(1))
-            b_rows.index_copy_(0, slot.reshape(1), beta.reshape(1))
-        # Freeze p on breakdown too: a poisoned basis can make p_new
-        # non-finite through μ even with a sanitized A·p.
-        p = torch.where(active & ~bad, p_new, p)
-        rnorm_new = torch.sqrt(rr)
-        fail = torch.where(
-            (fail == 0) & active & ~torch.isfinite(rnorm_new),
-            SolveStatus.BREAKDOWN_NONFINITE,
-            fail,
-        ).to(torch.int32)
-        rnorm = torch.where(active, rnorm_new, rnorm)
-        if trace is not None:
-            _trace_write(trace, j, rnorm, active)
-        j = j + active.to(j.dtype)
-        return (j, x, r, p, rs_new, rnorm, trace, fail)
+            if M is not None:
+                a_rows.index_copy_(0, slot.reshape(1), so[2].reshape(1))
+                b_rows.index_copy_(0, slot.reshape(1), beta.reshape(1))
+        # Freeze p on breakdown too (flags[1] = active ∧ ¬bad): a poisoned
+        # basis can make p_new non-finite through μ even with a sanitized A·p.
+        p = torch.where(flags[1], p_new, p)
+        return (js, x, r, p, rs_new, so[1], flags[0], trace)
 
-    j0 = torch.zeros((), dtype=torch.int32, device=device)
-    state = (j0, x, r, p, rs0, rnorm0, trace0, engine.initial_fail(rnorm0))
-    state = engine.run_recording_loop(step, active_fn, state, ell=ell)
-    j, x, _, _, _, rnorm, trace, fail = state
+    js0 = torch.stack([torch.zeros((), dtype=torch.int32, device=device),
+                       engine.initial_fail(rnorm0)])
+    active0 = still_active(js0[0], rnorm0, js0[1], threshold, maxiter)
+    state = (js0, x, r, p, rs0, rnorm0, active0, trace0)
+    state = engine.run_recording_loop(step, lambda st: st[6], state, ell=ell)
+    js, x, _, _, _, rnorm, _, trace = state
+    j, fail = js[0], js[1]
 
     info = _info(j, matvecs, rnorm, threshold, trace, fail, maxiter, guard_fired)
     recycle = None

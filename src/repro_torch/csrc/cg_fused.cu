@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernels for the def-CG hot path.
+// Hand-written Hopper (sm_90a) kernels for the def-CG and LSMR hot paths.
 //
 // Each kernel replaces one Pallas TPU kernel of src/repro/kernels/cg_fused.py:
 //
@@ -12,11 +12,24 @@
 // All six are bound by device-memory bytes on the H100 (a few flops per
 // element read), so each reads every input element once and writes every
 // output element once.  The Pallas kernels carry reductions across a
-// sequential grid in SMEM; here blocks run in no order, so every reduction is
-// two-stage: per-block partials into a scratch buffer, then a second kernel
-// that sums the partials in a fixed order.  No float atomics: runs repeat bit
-// for bit.  Ragged tails are masked in-kernel (the TPU wrappers pad to
+// sequential grid in SMEM; here blocks run in no order, so a reduction sums
+// per-block partials in a fixed order: fused_cg_update in its own launch (the
+// block that draws the last ticket of an integer counter sums them, in block
+// order), the others in a second kernel.  No float atomics: a grid repeats
+// bit for bit.  Ragged tails are masked in-kernel (the TPU wrappers pad to
 // (rows*128) tiles instead).
+//
+// fused_cg_update and lsmr_update each have a second arm, the iteration's
+// TAIL: besides the vector work the launch carries the solver's scalar
+// recurrence (def-CG's breakdown test, alpha, beta, mu, the residual norm,
+// the status, the trace slot, the iteration count and the next step's
+// active flag; LSMR's Givens rotations, its exact-termination latch and the
+// same bookkeeping) and the frozen-step mask, which the solver loops would
+// otherwise run as some eighty small eager launches around the kernel.
+// Every scalar of a tail is rounded as the eager PyTorch op it replaces
+// rounds it (one intrinsic with round-to-nearest per op: nvcc would fuse
+// a*a + b*b into an FMA), so the card's scalars are bit for bit those of the
+// plain versions beside the wrappers.
 //
 // Plain C interface: every entry point returns cudaGetLastError() (0 = ok)
 // and launches on the stream it is given.  Scratch and outputs are allocated
@@ -60,16 +73,17 @@ __device__ __forceinline__ T block_sum(T v) {
 // The k + 1 per-thread sums acc[0..k] of a block, summed over the block in a
 // fixed order and written to row blockIdx.x of a (blocks, k + 1) partials
 // buffer.
-template <typename T>
-__device__ __forceinline__ void store_block_partials(const T (&acc)[kMaxK + 1],
-                                                     int k,
+// ALL_COLUMNS sums all N columns without a branch per column (the columns
+// past k hold zeros), so the N shuffle trees interleave.
+template <typename T, int N, bool ALL_COLUMNS = false>
+__device__ __forceinline__ void store_block_partials(const T (&acc)[N], int k,
                                                      T* __restrict__ partials) {
-  __shared__ T warp_part[kMaxK + 1][kWarps];
+  __shared__ T warp_part[N][kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
-  for (int j = 0; j <= kMaxK; ++j) {
-    if (j <= k) {
+  for (int j = 0; j < N; ++j) {
+    if (ALL_COLUMNS || j <= k) {
       const T v = warp_sum(acc[j]);
       if (lane == 0) warp_part[j][warp] = v;
     }
@@ -82,35 +96,371 @@ __device__ __forceinline__ void store_block_partials(const T (&acc)[kMaxK + 1],
   }
 }
 
+// The codes of repro_torch.core.engine.SolveStatus that the tails write.
+constexpr int kBreakdownNonfinite = 2;
+constexpr int kBreakdownIndefinite = 3;
+constexpr int kStagnated = 4;
+
+// One rounding per operation, as one eager PyTorch op on 0-d tensors.
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double div_rn(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float div_rn(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double sqrt_rn(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float sqrt_rn(float a) { return __fsqrt_rn(a); }
+__device__ __forceinline__ double abs_of(double a) { return fabs(a); }
+__device__ __forceinline__ float abs_of(float a) { return fabsf(a); }
+__device__ __forceinline__ bool finite(double a) { return isfinite(a); }
+__device__ __forceinline__ bool finite(float a) { return isfinite(a); }
+// torch.where(v == 0, 1, v): the guarded divisor of the solver loops.
+template <typename T>
+__device__ __forceinline__ T nonzero(T v) {
+  return v == T(0) ? T(1) : v;
+}
+
+// 16-byte loads and stores: two doubles or four floats.
+template <typename T>
+constexpr int kVec = 16 / (int)sizeof(T);
+
+__device__ __forceinline__ void load16(const double* p, double (&v)[2]) {
+  const double2 q = *reinterpret_cast<const double2*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+}
+__device__ __forceinline__ void load16(const float* p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x;
+  v[1] = q.y;
+  v[2] = q.z;
+  v[3] = q.w;
+}
+__device__ __forceinline__ void store16(double* p, const double (&v)[2]) {
+  *reinterpret_cast<double2*>(p) = make_double2(v[0], v[1]);
+}
+__device__ __forceinline__ void store16(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Blocks of `kernel` (kThreads threads, no dynamic shared memory) that the
+// whole card holds at once, from the occupancy API: the largest grid of a
+// grid-stride kernel whose blocks all start at once.
+template <typename Kernel>
+cudaError_t resident_blocks(Kernel kernel, int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, 0);
+  *out = sms * (per_sm > 0 ? per_sm : 1);
+  return err;
+}
+
+// min(resident, cdiv(units, kThreads), cap), at least 1.
+inline int stride_grid(int resident, int64_t units, int cap) {
+  int64_t g = (units + kThreads - 1) / kThreads;
+  if (g > resident) g = resident;
+  if (g > cap) g = cap;
+  return g < 1 ? 1 : (int)g;
+}
+
 // ---------------------------------------------------------------------------
-// fused_cg_update: x + a p, r - a ap, |r_new|^2, AW r_new
+// fused_cg_update: x + a p, r - a ap, |r_new|^2, AW r_new -- and def-CG's tail
 // ---------------------------------------------------------------------------
+//
+// One launch.  Bound by bytes: (6 + k) n elements move for (6 + 2k) n flops
+// (n = 36 551, k = 8, f64: 4.1 MB, 1.2 us at 3.35 TB/s).  At the main path's
+// n that is a few microseconds of work, so the design is about latency: up
+// to as many blocks as the card holds at once (occupancy API), each thread
+// with four elements (two 16-byte groups where every row is aligned; half
+// that past k = 8) loaded before any is used and before the scalars are
+// formed; each block writes its k + 1 partial sums, takes an integer
+// ticket, and the block that draws the last ticket sums the partials of
+// every block in block order (all its loads in flight at once) and resets
+// the counter.  The last chunk's results are stored after the ticket, so
+// the partials' fence waits on no vector store.  The partials and the
+// counter are allocated once by the wrapper and reused; a grid repeats bit
+// for bit.
+//
+// The TAIL arm is def-CG's iteration around the update (solvers.py, defcg's
+// step).  Prologue, every block alike, from the device scalars d = p^T Ap,
+// rs, rnorm, diverged_at, active and fail: the breakdown code
+// (engine.classify_breakdown) and alpha = (bad | !active) ? 0 : rs / d; a
+// poisoned Ap is read as 0 and, only then, zeroed in place.  Epilogue, in
+// the last block: rr, and with `recurrence` (no preconditioner) beta =
+// rr / safe(rs) and mu = waw_inv (AW r) (lane i sums row i in column order),
+// the recorded alpha / beta rows; then sqrt(rr), the status, rnorm, the
+// trace slot, j, the next step's active flag and keep = active & !bad (the
+// p select).  Outputs go to fresh buffers: so = [rr, rnorm, alpha, beta,
+// mu], jo = [j, fail], bo = [active, keep].
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) cg_update_partial(
-    const T* __restrict__ x, const T* __restrict__ r, const T* __restrict__ p,
-    const T* __restrict__ ap, const T* __restrict__ alpha_ptr,
-    const T* __restrict__ aw, int k, int64_t n, T* __restrict__ xo,
-    T* __restrict__ ro, T* __restrict__ partials) {
-  const T alpha = *alpha_ptr;
-  T acc[kMaxK + 1];
-#pragma unroll
-  for (int j = 0; j <= kMaxK; ++j) acc[j] = T(0);
+struct CgArgs {
+  const T* x;
+  const T* r;
+  const T* p;
+  T* ap;  // zeroed in place by a tail that finds a breakdown
+  const T* aw;
+  int k;
+  int64_t n;
+  T* xo;
+  T* ro;
+  T* partials;
+  unsigned* counter;
+  // the TPU function's arm
+  const T* alpha;
+  T* rr;
+  T* awr;
+  // the tail's arm
+  const T* d;
+  const T* rs;
+  const T* rnorm;
+  const T* threshold;
+  const T* diverged_at;
+  const int* js;  // [j, fail]
+  const bool* active;
+  const T* waw_inv;  // (k, k)
+  int64_t maxiter;
+  int recurrence;
+  T* trace;
+  T* a_rows;
+  T* b_rows;
+  int row;  // < 0: not a recording step
+  int ell;
+  T* so;
+  int* jo;
+  bool* bo;
+};
 
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const T rn = r[i] - alpha * ap[i];
-    xo[i] = x[i] + alpha * p[i];
-    ro[i] = rn;
+// Elements a thread loads at once: two 16-byte groups, or four elements
+// (half that past k = 8 rows of AW, where the registers run out).
+template <typename T, int KMAX, bool VEC>
+struct CgLayout {
+  static constexpr int kWidth = VEC ? kVec<T> : 1;                // elements a slot
+  static constexpr int kSlots = (VEC ? 2 : 4) / (KMAX > 8 ? 2 : 1);  // slots a thread
+};
+
+template <typename T, int W>
+__device__ __forceinline__ void load_slot(const T* p, T (&v)[W]) {
+  if constexpr (W == 1) {
+    v[0] = *p;
+  } else {
+    load16(p, v);
+  }
+}
+
+template <typename T, int W>
+__device__ __forceinline__ void store_slot(T* p, const T (&v)[W]) {
+  if constexpr (W == 1) {
+    *p = v[0];
+  } else {
+    store16(p, v);
+  }
+}
+
+// One thread's share of a grid-stride step: kSlots slots of kWidth
+// elements, slot s at unit base + s * kThreads + threadIdx.x (a unit is a
+// slot's first element / kWidth), every vector and row of AW loaded before
+// any is used.
+template <typename T, int KMAX, bool VEC>
+struct CgChunk {
+  static constexpr int S = CgLayout<T, KMAX, VEC>::kSlots;
+  static constexpr int W = CgLayout<T, KMAX, VEC>::kWidth;
+  T x[S][W], r[S][W], p[S][W], ap[S][W], aw[KMAX > 0 ? KMAX : 1][S][W];
+  bool ok[S];
+
+  __device__ __forceinline__ void load(const CgArgs<T>& a, int64_t base, int64_t units) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int64_t u = base + s * kThreads + threadIdx.x;
+      ok[s] = u < units;
+      const int64_t i = ok[s] ? u * W : 0;
+      load_slot(a.x + i, x[s]);
+      load_slot(a.r + i, r[s]);
+      load_slot(a.p + i, p[s]);
+      load_slot(a.ap + i, ap[s]);
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        if (j < a.k) load_slot(a.aw + (int64_t)j * a.n + i, aw[j][s]);
+      }
+    }
+  }
+};
+
+template <typename T, int KMAX, bool VEC, bool TAIL>
+__global__ void __launch_bounds__(kThreads) cg_update(const CgArgs<T> a) {
+  using L = CgLayout<T, KMAX, VEC>;
+  constexpr int S = L::kSlots, W = L::kWidth;
+  const int k = a.k;
+  const int64_t n = a.n;
+  const int64_t units = n / W;
+  const int64_t stride = (int64_t)gridDim.x * kThreads * S;
+  int64_t base = (int64_t)blockIdx.x * kThreads * S;
+
+  // The first step's vectors are in flight before the scalars are formed.
+  CgChunk<T, KMAX, VEC> c;
+  c.load(a, base, units);
+
+  // Every scalar the launch reads, loaded once, together.
+  T alpha, rs = T(0), rnorm_in = T(0), threshold = T(0);
+  bool bad = false, active = true;
+  int code = 0, j0 = 0, fail0 = 0;
+  if constexpr (TAIL) {
+    const T d = *a.d;
+    const T diverged_at = *a.diverged_at;
+    rs = *a.rs;
+    rnorm_in = *a.rnorm;
+    threshold = *a.threshold;
+    active = *a.active;
+    j0 = a.js[0];
+    fail0 = a.js[1];
+    const bool nonfinite = !finite(d);
+    const bool indefinite = !nonfinite && d <= T(0);
+    bad = nonfinite || indefinite || rnorm_in > diverged_at;
+    code = !bad ? 0 : nonfinite ? kBreakdownNonfinite
+                                : indefinite ? kBreakdownIndefinite : kStagnated;
+    alpha = (bad || !active) ? T(0) : div_rn(rs, d);
+  } else {
+    alpha = *a.alpha;
+  }
+  T acc[KMAX + 1];
+#pragma unroll
+  for (int j = 0; j <= KMAX; ++j) acc[j] = T(0);
+
+  // A step's results wait in registers until the next step's loads are
+  // issued; the last step's, until after the ticket, so the partials'
+  // fence does not wait for them.
+  T xn[S][W], rn[S][W];
+  int64_t done_base = -1;
+  auto store_done = [&]() {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (done_base < 0 || !c.ok[s]) continue;
+      const int64_t i = (done_base + s * kThreads + threadIdx.x) * W;
+      store_slot(a.xo + i, xn[s]);
+      store_slot(a.ro + i, rn[s]);
+      if (bad) store_slot(a.ap + i, c.ap[s]);
+    }
+  };
+  for (bool first = true; base < units; base += stride, first = false) {
+    if (!first) {
+      store_done();
+      c.load(a, base, units);
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (!c.ok[s]) continue;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if (bad) c.ap[s][w] = T(0);
+        rn[s][w] = c.r[s][w] - alpha * c.ap[s][w];
+        xn[s][w] = c.x[s][w] + alpha * c.p[s][w];
+        acc[0] += rn[s][w] * rn[s][w];
+#pragma unroll
+        for (int j = 0; j < KMAX; ++j) {
+          if (j < k) acc[j + 1] += c.aw[j][s][w] * rn[s][w];
+        }
+      }
+    }
+    done_base = base;
+  }
+  // The ragged tail of the 16-byte path: fewer than kWidth elements.
+  const int64_t tail = (int64_t)blockIdx.x * kThreads + threadIdx.x + units * W;
+  if (VEC && tail < n) {
+    T api = a.ap[tail];
+    if (bad) {
+      api = T(0);
+      a.ap[tail] = T(0);
+    }
+    const T rn = a.r[tail] - alpha * api;
+    a.xo[tail] = a.x[tail] + alpha * a.p[tail];
+    a.ro[tail] = rn;
     acc[0] += rn * rn;
 #pragma unroll
-    for (int j = 0; j < kMaxK; ++j) {
-      if (j < k) acc[j + 1] += aw[(int64_t)j * n + i] * rn;
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) acc[j + 1] += a.aw[(int64_t)j * n + tail] * rn;
     }
   }
 
-  store_block_partials(acc, k, partials);
+  // (W^T AW)^-1, which the last block's epilogue reads, in flight before the ticket.
+  T winv = T(0);
+  if (TAIL && a.recurrence && (int)threadIdx.x < k * k) winv = a.waw_inv[threadIdx.x];
+
+  // Partials, then the ticket: the block that draws the last one sums them.
+  store_block_partials<T, KMAX + 1, true>(acc, k, a.partials);
+  __shared__ bool last;
+  if ((int)threadIdx.x <= k) __threadfence();  // the partials' writers
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(a.counter, 1u) == gridDim.x - 1;
+  store_done();
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // Column c: lane l takes blocks l, l + 32, ... in order, kLoads of them in
+  // flight at once, then the shuffle tree.
+  constexpr int kLoads = 8;
+  __shared__ T col[KMAX + 1];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int blocks = (int)gridDim.x;
+  for (int cc = warp; cc <= k; cc += kWarps) {
+    T sum = T(0);
+    for (int b0 = 0; b0 < blocks; b0 += 32 * kLoads) {
+      T v[kLoads];
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int b = b0 + 32 * q + lane;
+        v[q] = b < blocks ? __ldcg(a.partials + (int64_t)b * (k + 1) + cc) : T(0);
+      }
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) sum += v[q];
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) col[cc] = sum;
+  }
+  if constexpr (TAIL) {
+    __shared__ T winv_s[kMaxK * kMaxK];
+    if ((int)threadIdx.x < k * k) winv_s[threadIdx.x] = winv;
+    __syncthreads();
+    if (threadIdx.x == 0) *a.counter = 0u;
+    const T rr = col[0];
+    const T beta = a.recurrence ? div_rn(rr, nonzero(rs)) : T(0);
+    if (a.recurrence && (int)threadIdx.x < k) {
+      T m = T(0);
+      for (int j = 0; j < k; ++j) m = add_rn(m, mul_rn(winv_s[threadIdx.x * k + j], col[j + 1]));
+      a.so[4 + threadIdx.x] = m;
+    }
+    if (threadIdx.x == 0) {
+      int fail = fail0;
+      if (fail == 0 && active) fail = code;
+      const T rnorm_new = sqrt_rn(rr);
+      if (fail == 0 && active && !finite(rnorm_new)) fail = kBreakdownNonfinite;
+      const T rnorm = active ? rnorm_new : rnorm_in;
+      if (a.trace != nullptr && active) a.trace[j0 + 1] = rnorm;
+      const int jn = j0 + (active ? 1 : 0);
+      if (a.recurrence && a.row >= 0) {
+        const int slot = active ? a.row : a.ell;
+        a.a_rows[slot] = alpha;
+        a.b_rows[slot] = beta;
+      }
+      a.so[0] = rr;
+      a.so[1] = rnorm;
+      a.so[2] = alpha;
+      a.so[3] = beta;
+      a.jo[0] = jn;
+      a.jo[1] = fail;
+      a.bo[0] = jn < a.maxiter && rnorm > threshold && fail == 0;
+      a.bo[1] = active && !bad;
+    }
+  } else {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      *a.counter = 0u;
+      *a.rr = col[0];
+    }
+    if ((int)threadIdx.x < k) a.awr[threadIdx.x] = col[threadIdx.x + 1];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -609,34 +959,214 @@ __global__ void __launch_bounds__(kThreads) recombine_blocks(
 }
 
 // ---------------------------------------------------------------------------
-// lsmr_update: hbar' = h - c0 hbar, x' = x + c1 hbar', h' = v - c2 h
+// lsmr_update: hbar' = h - c0 hbar, x' = x + c1 hbar', h' = v - c2 h -- and
+// the rest of LSMR's iteration from the first Givens rotation on
 // ---------------------------------------------------------------------------
+//
+// Bound by bytes: the TPU function reads x, hbar, h, v once and writes x',
+// hbar', h' once (7n elements for 6n flops); one grid-stride pass keeps
+// hbar' in a register between its two uses.  At the least-squares path's
+// n = 16 384 it moves 0.9 MB, so its time is a launch's latency: the grid is
+// what the card holds at once (occupancy API) up to one 16-byte group a
+// thread, and nothing is reduced, so blocks share nothing.
+//
+// The STEP arm is everything of lsmr.py's step after its last reduction.
+// It takes w = g+ - beta+ v (v+ before its normalisation), |w|^2 and beta+
+// from the eager ops before it, and the carried scalars s = [alpha, zetabar,
+// alphabar, rho, rhobar, cbar, sbar], [j, fail] and active.  Every block runs
+// the prologue alike: alpha+ = sqrt(|w|^2), both rotations (_sym_ortho), the
+// coefficients c0, c1, c2; the body forms v+ = w / safe(alpha+) and the
+// three recurrences, each output the new value on a live step and the old
+// one on a frozen step; block 0 writes the exact-termination latch, the two
+// status updates, the trace slot j + 1, the next scalars (fresh buffers:
+// the blocks read s while block 0 writes them), j + active and the next
+// step's active flag.  Each thread's first group of vectors is in flight
+// before the scalars (all loaded once, together) are formed, so the
+// scalar chain overlaps the vectors' latency.
 
-// One LSMR iteration's three vector recurrences (lsmr_update_pallas,
-// cg_fused.py:336).  Bound by bytes: it reads x, hbar, h, v once and writes
-// x', hbar', h' once (7n elements for 6n flops), so one grid-stride pass
-// keeps hbar' in a register between its two uses.  c0, c1, c2 are 0-d device
-// tensors computed by the Givens recurrences on the card: the kernel reads
-// them through pointers and the loop never waits on the host.  No reduction,
-// so blocks share nothing and the grid can fill every SM.
 template <typename T>
-__global__ void __launch_bounds__(kThreads) lsmr_update(
-    const T* __restrict__ x, const T* __restrict__ hbar,
-    const T* __restrict__ h, const T* __restrict__ v,
-    const T* __restrict__ c0_ptr, const T* __restrict__ c1_ptr,
-    const T* __restrict__ c2_ptr, int64_t n, T* __restrict__ xo,
-    T* __restrict__ hbo, T* __restrict__ ho) {
-  const T c0 = *c0_ptr;
-  const T c1 = *c1_ptr;
-  const T c2 = *c2_ptr;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const T hi = h[i];
-    const T hb = hi - c0 * hbar[i];
-    xo[i] = x[i] + c1 * hb;
-    hbo[i] = hb;
-    ho[i] = v[i] - c2 * hi;
+struct LsmrArgs {
+  const T* x;
+  const T* hbar;
+  const T* h;
+  const T* v;
+  const T* w;  // the step arm's g+ - beta+ v
+  int64_t n;
+  T* xo;
+  T* hbo;
+  T* ho;
+  T* vo;  // the step arm's v+
+  // the TPU function's arm
+  const T* c0;
+  const T* c1;
+  const T* c2;
+  // the step arm's scalars
+  const T* wsq;
+  const T* beta;
+  const T* s;
+  const int* js;  // [j, fail]
+  const bool* active;
+  const T* threshold;
+  const T* diverged_at;
+  int64_t maxiter;
+  T* trace;
+  T* so;
+  int* jo;
+  bool* ao;
+};
+
+// The slots of the carried LSMR scalars s.
+enum LsmrSlot { kAlpha, kZetabar, kAlphabar, kRho, kRhobar, kCbar, kSbar, kLsmrSlots };
+
+template <typename T>
+struct Givens {
+  T c, s, r;
+};
+
+// lsmr._sym_ortho: r = sqrt(a^2 + b^2), (a / safe(r), b / safe(r), r).
+template <typename T>
+__device__ __forceinline__ Givens<T> sym_ortho(T a, T b) {
+  const T r = sqrt_rn(add_rn(mul_rn(a, a), mul_rn(b, b)));
+  const T safe = nonzero(r);
+  return {div_rn(a, safe), div_rn(b, safe), r};
+}
+
+template <typename T>
+struct LsmrCoefficients {
+  T c0, c1, c2, safe_alpha;
+  bool active;
+};
+
+// Every scalar the step reads, loaded once, together, at the top.
+template <typename T>
+struct LsmrScalars {
+  T s[kLsmrSlots], beta, wsq, threshold, diverged_at;
+  int j, fail;
+  bool active;
+
+  __device__ __forceinline__ void load(const LsmrArgs<T>& a) {
+#pragma unroll
+    for (int q = 0; q < kLsmrSlots; ++q) s[q] = a.s[q];
+    beta = *a.beta;
+    wsq = *a.wsq;
+    threshold = *a.threshold;
+    diverged_at = *a.diverged_at;
+    j = a.js[0];
+    fail = a.js[1];
+    active = *a.active;
+  }
+};
+
+// The step's scalar recurrence, in the eager loop's order; `store` (one
+// thread of the grid) also writes the next scalar state.
+template <typename T>
+__device__ __forceinline__ LsmrCoefficients<T> lsmr_tail(const LsmrArgs<T>& a, const LsmrScalars<T>& sc,
+                                         bool store) {
+  const T (&s)[kLsmrSlots] = sc.s;
+  const T beta = sc.beta;
+  const bool active = sc.active;
+  const T alpha = sqrt_rn(sc.wsq);
+  const Givens<T> g1 = sym_ortho(s[kAlphabar], beta);
+  const T rho = g1.r;
+  const T thetanew = mul_rn(g1.s, alpha);
+  const T alphabar = mul_rn(g1.c, alpha);
+  const T thetabar = mul_rn(s[kSbar], rho);
+  const Givens<T> g2 = sym_ortho(mul_rn(s[kCbar], rho), thetanew);
+  const T zeta = mul_rn(g2.c, s[kZetabar]);
+  T zetabar = mul_rn(-g2.s, s[kZetabar]);
+  LsmrCoefficients<T> t;
+  t.c0 = div_rn(mul_rn(thetabar, rho), mul_rn(s[kRho], s[kRhobar]));
+  t.c1 = div_rn(zeta, mul_rn(nonzero(rho), nonzero(g2.r)));
+  t.c2 = div_rn(thetanew, nonzero(rho));
+  t.safe_alpha = nonzero(alpha);
+  t.active = active;
+  if (store) {
+    if (beta == T(0) || alpha == T(0)) zetabar = T(0);  // exact termination
+    const T normar = abs_of(zetabar);
+    int fail = sc.fail;
+    if (fail == 0 && active && !finite(normar)) fail = kBreakdownNonfinite;
+    if (fail == 0 && active && normar > sc.diverged_at) fail = kStagnated;
+    if (a.trace != nullptr && active) a.trace[sc.j + 1] = normar;
+    const T next[kLsmrSlots] = {alpha, zetabar, alphabar, rho, g2.r, g2.c, g2.s};
+#pragma unroll
+    for (int q = 0; q < kLsmrSlots; ++q) a.so[q] = active ? next[q] : s[q];
+    const int jn = sc.j + (active ? 1 : 0);
+    a.jo[0] = jn;
+    a.jo[1] = fail;
+    const T zb = active ? zetabar : s[kZetabar];
+    *a.ao = jn < a.maxiter && abs_of(zb) > sc.threshold && fail == 0;
+  }
+  return t;
+}
+
+template <typename T, bool STEP, bool VEC>
+__global__ void __launch_bounds__(kThreads) lsmr_update(const LsmrArgs<T> a) {
+  constexpr int W = VEC ? kVec<T> : 1;
+  const int64_t units = a.n / W;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  // A live step reads w (the step arm) or v (the TPU function's arm).
+  const T* vin = STEP ? a.w : a.v;
+  // The first unit's vectors are in flight before the scalars are formed.
+  T xv[W], hbv[W], hv[W], vv[W];
+  if (first < units) {
+    load_slot(a.x + first * W, xv);
+    load_slot(a.hbar + first * W, hbv);
+    load_slot(a.h + first * W, hv);
+    load_slot(vin + first * W, vv);
+  }
+  T c0, c1, c2, safe_alpha = T(1);
+  if constexpr (STEP) {
+    LsmrScalars<T> sc;
+    sc.load(a);
+    const LsmrCoefficients<T> t = lsmr_tail(a, sc, blockIdx.x == 0 && threadIdx.x == 0);
+    if (!t.active) {  // a frozen step: every vector keeps its value
+      for (int64_t i = first; i < a.n; i += stride) {
+        a.xo[i] = a.x[i];
+        a.hbo[i] = a.hbar[i];
+        a.ho[i] = a.h[i];
+        a.vo[i] = a.v[i];
+      }
+      return;
+    }
+    c0 = t.c0;
+    c1 = t.c1;
+    c2 = t.c2;
+    safe_alpha = t.safe_alpha;
+  } else {
+    c0 = *a.c0;
+    c1 = *a.c1;
+    c2 = *a.c2;
+  }
+  auto update = [&](T xi, T hbi, T hi, T vi, T& xn, T& hbn, T& hn, T& vn) {
+    vn = STEP ? div_rn(vi, safe_alpha) : vi;
+    hbn = fma(-c0, hbi, hi);
+    xn = fma(c1, hbn, xi);
+    hn = fma(-c2, hi, vn);
+  };
+  for (int64_t q = first; q < units; q += stride) {
+    if (q != first) {
+      load_slot(a.x + q * W, xv);
+      load_slot(a.hbar + q * W, hbv);
+      load_slot(a.h + q * W, hv);
+      load_slot(vin + q * W, vv);
+    }
+#pragma unroll
+    for (int u = 0; u < W; ++u) update(xv[u], hbv[u], hv[u], vv[u], xv[u], hbv[u], hv[u], vv[u]);
+    store_slot(a.xo + q * W, xv);
+    store_slot(a.hbo + q * W, hbv);
+    store_slot(a.ho + q * W, hv);
+    if (STEP) store_slot(a.vo + q * W, vv);
+  }
+  // The ragged tail of the 16-byte path: fewer than W elements.
+  const int64_t tail = first + units * W;
+  if (VEC && tail < a.n) {
+    T xn, hbn, hn, vn;
+    update(a.x[tail], a.hbar[tail], a.h[tail], vin[tail], xn, hbn, hn, vn);
+    a.xo[tail] = xn;
+    a.hbo[tail] = hbn;
+    a.ho[tail] = hn;
+    if (STEP) a.vo[tail] = vn;
   }
 }
 
@@ -644,23 +1174,47 @@ __global__ void __launch_bounds__(kThreads) lsmr_update(
 // host launchers
 // ---------------------------------------------------------------------------
 
-template <typename T>
-int launch_cg_update(const void* x, const void* r, const void* p,
-                     const void* ap, const void* alpha, const void* aw, int k,
-                     int64_t n, void* xo, void* ro, void* partials,
-                     int nblocks, void* rr, void* awr, void* stream) {
+inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+template <typename T, int KMAX, bool VEC, bool TAIL>
+cudaError_t launch_cg_kernel(const CgArgs<T>& a, int capacity, cudaStream_t st) {
+  const auto kernel = cg_update<T, KMAX, VEC, TAIL>;
+  static int resident = 0;  // once per instantiation
+  if (resident == 0) {
+    const cudaError_t err = resident_blocks(kernel, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  // Threads the grid needs: one per kSlots slots.
+  constexpr int kSlots = CgLayout<T, KMAX, VEC>::kSlots;
+  const int64_t units = VEC ? a.n / kVec<T> : a.n;
+  kernel<<<stride_grid(resident, (units + kSlots - 1) / kSlots, capacity), kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// 16-byte loads when every vector and every row of AW is 16-byte aligned.
+template <typename T, int KMAX, bool TAIL>
+cudaError_t launch_cg_aligned(const CgArgs<T>& a, int capacity, cudaStream_t st) {
+  const bool vec = aligned16(a.x) && aligned16(a.r) && aligned16(a.p) && aligned16(a.ap) &&
+                   aligned16(a.xo) && aligned16(a.ro) &&
+                   (a.k == 0 || (aligned16(a.aw) && (a.n * (int64_t)sizeof(T)) % 16 == 0));
+  return vec ? launch_cg_kernel<T, KMAX, true, TAIL>(a, capacity, st)
+             : launch_cg_kernel<T, KMAX, false, TAIL>(a, capacity, st);
+}
+
+// `capacity`: the blocks the partials buffer has rows for.
+template <typename T, bool TAIL>
+int launch_cg(const CgArgs<T>& a, int capacity, void* stream) {
+  if (a.k < 0 || a.k > kMaxK || a.n < 1 || capacity < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cg_update_partial<T><<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(r),
-      static_cast<const T*>(p), static_cast<const T*>(ap),
-      static_cast<const T*>(alpha), static_cast<const T*>(aw), k, n,
-      static_cast<T*>(xo), static_cast<T*>(ro), static_cast<T*>(partials));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_columns<T><<<k + 1, kThreads, 0, st>>>(
-      static_cast<const T*>(partials), nblocks, k + 1, static_cast<T*>(rr),
-      static_cast<T*>(awr));
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  if (a.k == 0) {
+    err = launch_cg_aligned<T, 0, TAIL>(a, capacity, st);
+  } else if (a.k <= 8) {
+    err = launch_cg_aligned<T, 8, TAIL>(a, capacity, st);
+  } else {
+    err = launch_cg_aligned<T, kMaxK, TAIL>(a, capacity, st);
+  }
+  return (int)err;
 }
 
 template <typename T>
@@ -772,19 +1326,29 @@ int launch_recombine(const void* s, const void* u, int m, int k, int64_t n,
   return (int)err;
 }
 
-template <typename T>
-int launch_lsmr_update(const void* x, const void* hbar, const void* h,
-                       const void* v, const void* c0, const void* c1,
-                       const void* c2, int64_t n, void* xo, void* hbo,
-                       void* ho, int nblocks, void* stream) {
+template <typename T, bool STEP, bool VEC>
+cudaError_t launch_lsmr_kernel(const LsmrArgs<T>& a, cudaStream_t st) {
+  const auto kernel = lsmr_update<T, STEP, VEC>;
+  static int resident = 0;  // once per instantiation
+  if (resident == 0) {
+    const cudaError_t err = resident_blocks(kernel, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t units = VEC ? a.n / kVec<T> : a.n;
+  kernel<<<stride_grid(resident, units, resident), kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <typename T, bool STEP>
+int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
+  if (a.n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  lsmr_update<T><<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(hbar),
-      static_cast<const T*>(h), static_cast<const T*>(v),
-      static_cast<const T*>(c0), static_cast<const T*>(c1),
-      static_cast<const T*>(c2), n, static_cast<T*>(xo),
-      static_cast<T*>(hbo), static_cast<T*>(ho));
-  return (int)cudaGetLastError();
+  const bool vec = aligned16(a.x) && aligned16(a.hbar) && aligned16(a.h) && aligned16(a.v) &&
+                   aligned16(a.xo) && aligned16(a.hbo) && aligned16(a.ho) &&
+                   (!STEP || (aligned16(a.w) && aligned16(a.vo)));
+  const cudaError_t err = vec ? launch_lsmr_kernel<T, STEP, true>(a, st)
+                              : launch_lsmr_kernel<T, STEP, false>(a, st);
+  return (int)err;
 }
 
 }  // namespace
@@ -793,10 +1357,64 @@ int launch_lsmr_update(const void* x, const void* hbar, const void* h,
   extern "C" int fused_cg_update_##SUFFIX(                                     \
       const void* x, const void* r, const void* p, const void* ap,             \
       const void* alpha, const void* aw, int k, int64_t n, void* xo,           \
-      void* ro, void* partials, int nblocks, void* rr, void* awr,              \
-      void* stream) {                                                          \
-    return launch_cg_update<T>(x, r, p, ap, alpha, aw, k, n, xo, ro,           \
-                               partials, nblocks, rr, awr, stream);            \
+      void* ro, void* partials, int capacity, void* counter, void* rr,         \
+      void* awr, void* stream) {                                               \
+    CgArgs<T> a = {};                                                          \
+    a.x = static_cast<const T*>(x);                                            \
+    a.r = static_cast<const T*>(r);                                            \
+    a.p = static_cast<const T*>(p);                                            \
+    a.ap = const_cast<T*>(static_cast<const T*>(ap));                          \
+    a.aw = static_cast<const T*>(aw);                                          \
+    a.k = k;                                                                   \
+    a.n = n;                                                                   \
+    a.xo = static_cast<T*>(xo);                                                \
+    a.ro = static_cast<T*>(ro);                                                \
+    a.partials = static_cast<T*>(partials);                                    \
+    a.counter = static_cast<unsigned*>(counter);                               \
+    a.alpha = static_cast<const T*>(alpha);                                    \
+    a.rr = static_cast<T*>(rr);                                                \
+    a.awr = static_cast<T*>(awr);                                              \
+    return launch_cg<T, false>(a, capacity, stream);                           \
+  }                                                                            \
+  extern "C" int fused_cg_step_##SUFFIX(                                       \
+      const void* x, const void* r, const void* p, void* ap, const void* aw,   \
+      int k, int64_t n, void* xo, void* ro, void* partials, int capacity,      \
+      void* counter, const void* d, const void* rs, const void* rnorm,         \
+      const void* threshold, const void* diverged_at, const void* js,          \
+      const void* active, const void* waw_inv, int64_t maxiter,                \
+      int recurrence, void* trace, void* a_rows, void* b_rows, int row,        \
+      int ell, void* so, void* jo, void* bo, void* stream) {                   \
+    CgArgs<T> a = {};                                                          \
+    a.x = static_cast<const T*>(x);                                            \
+    a.r = static_cast<const T*>(r);                                            \
+    a.p = static_cast<const T*>(p);                                            \
+    a.ap = static_cast<T*>(ap);                                                \
+    a.aw = static_cast<const T*>(aw);                                          \
+    a.k = k;                                                                   \
+    a.n = n;                                                                   \
+    a.xo = static_cast<T*>(xo);                                                \
+    a.ro = static_cast<T*>(ro);                                                \
+    a.partials = static_cast<T*>(partials);                                    \
+    a.counter = static_cast<unsigned*>(counter);                               \
+    a.d = static_cast<const T*>(d);                                            \
+    a.rs = static_cast<const T*>(rs);                                          \
+    a.rnorm = static_cast<const T*>(rnorm);                                    \
+    a.threshold = static_cast<const T*>(threshold);                            \
+    a.diverged_at = static_cast<const T*>(diverged_at);                        \
+    a.js = static_cast<const int*>(js);                                        \
+    a.active = static_cast<const bool*>(active);                               \
+    a.waw_inv = static_cast<const T*>(waw_inv);                                \
+    a.maxiter = maxiter;                                                       \
+    a.recurrence = recurrence;                                                 \
+    a.trace = static_cast<T*>(trace);                                          \
+    a.a_rows = static_cast<T*>(a_rows);                                        \
+    a.b_rows = static_cast<T*>(b_rows);                                        \
+    a.row = row;                                                               \
+    a.ell = ell;                                                               \
+    a.so = static_cast<T*>(so);                                                \
+    a.jo = static_cast<int*>(jo);                                              \
+    a.bo = static_cast<bool*>(bo);                                             \
+    return launch_cg<T, true>(a, capacity, stream);                            \
   }                                                                            \
   extern "C" int fused_rz_reduce_##SUFFIX(                                     \
       const void* r, const void* z, const void* aw, int k, int64_t n,          \
@@ -826,9 +1444,52 @@ int launch_lsmr_update(const void* x, const void* hbar, const void* h,
   extern "C" int lsmr_update_##SUFFIX(                                         \
       const void* x, const void* hbar, const void* h, const void* v,           \
       const void* c0, const void* c1, const void* c2, int64_t n, void* xo,     \
-      void* hbo, void* ho, int nblocks, void* stream) {                        \
-    return launch_lsmr_update<T>(x, hbar, h, v, c0, c1, c2, n, xo, hbo, ho,    \
-                                 nblocks, stream);                             \
+      void* hbo, void* ho, void* stream) {                                     \
+    LsmrArgs<T> a = {};                                                        \
+    a.x = static_cast<const T*>(x);                                            \
+    a.hbar = static_cast<const T*>(hbar);                                      \
+    a.h = static_cast<const T*>(h);                                            \
+    a.v = static_cast<const T*>(v);                                            \
+    a.n = n;                                                                   \
+    a.xo = static_cast<T*>(xo);                                                \
+    a.hbo = static_cast<T*>(hbo);                                              \
+    a.ho = static_cast<T*>(ho);                                                \
+    a.c0 = static_cast<const T*>(c0);                                          \
+    a.c1 = static_cast<const T*>(c1);                                          \
+    a.c2 = static_cast<const T*>(c2);                                          \
+    return launch_lsmr<T, false>(a, stream);                                   \
+  }                                                                            \
+  extern "C" int lsmr_step_##SUFFIX(                                           \
+      const void* x, const void* hbar, const void* h, const void* v,           \
+      const void* w, int64_t n, const void* wsq, const void* beta,             \
+      const void* s, const void* js, const void* active,                       \
+      const void* threshold, const void* diverged_at, int64_t maxiter,         \
+      void* trace, void* xo, void* hbo, void* ho, void* vo, void* so,          \
+      void* jo, void* ao, void* stream) {                                      \
+    LsmrArgs<T> a = {};                                                        \
+    a.x = static_cast<const T*>(x);                                            \
+    a.hbar = static_cast<const T*>(hbar);                                      \
+    a.h = static_cast<const T*>(h);                                            \
+    a.v = static_cast<const T*>(v);                                            \
+    a.w = static_cast<const T*>(w);                                            \
+    a.n = n;                                                                   \
+    a.xo = static_cast<T*>(xo);                                                \
+    a.hbo = static_cast<T*>(hbo);                                              \
+    a.ho = static_cast<T*>(ho);                                                \
+    a.vo = static_cast<T*>(vo);                                                \
+    a.wsq = static_cast<const T*>(wsq);                                        \
+    a.beta = static_cast<const T*>(beta);                                      \
+    a.s = static_cast<const T*>(s);                                            \
+    a.js = static_cast<const int*>(js);                                        \
+    a.active = static_cast<const bool*>(active);                               \
+    a.threshold = static_cast<const T*>(threshold);                            \
+    a.diverged_at = static_cast<const T*>(diverged_at);                        \
+    a.maxiter = maxiter;                                                       \
+    a.trace = static_cast<T*>(trace);                                          \
+    a.so = static_cast<T*>(so);                                                \
+    a.jo = static_cast<int*>(jo);                                              \
+    a.ao = static_cast<bool*>(ao);                                             \
+    return launch_lsmr<T, true>(a, stream);                                    \
   }
 
 REPRO_CG_FUSED_ENTRY_POINTS(float, f32)

@@ -83,17 +83,20 @@ def scalar(v, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(())
 
 
-def launch(lib: str, name: str, argtypes: Sequence, like: torch.Tensor, *args) -> None:
+def launch(
+    lib: str, name: str, argtypes: Sequence, like: torch.Tensor, *args, key: Optional[str] = None
+) -> None:
     """Call ``<name>_<f32|f64>`` of ``csrc/<lib>.cu`` on ``like``'s device
-    and current stream (the stream is the last argument), count it, and
-    raise on a launch error."""
+    and current stream (the stream is the last argument), count it under
+    ``key`` (default ``name``: an entry point of a kernel's second arm
+    counts as the kernel), and raise on a launch error."""
     fn = _entry(lib, name, like.dtype, (*argtypes, PTR))
     with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream(like.device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[key or name] += 1
 
 
 def note_plain(name: str, t: torch.Tensor) -> None:

@@ -7,9 +7,15 @@ C interface, built by :mod:`repro_torch.kernels._build`):
 * ``fused_cg_update`` replaces ``fused_cg_update_pallas`` (cg_fused.py:122):
   ``x + αp``, ``r − α·ap``, ``‖r_new‖²`` and ``(AW)·r_new`` in one pass.
   Bound on the H100 by bytes: (6 + k)·n elements for ~(6 + 2k)·n flops.
-  One grid-stride pass reads each element once and keeps the k + 1 sums in
-  registers; per-block partials go to a ``(blocks, k + 1)`` scratch that a
-  second one-block-per-column kernel sums in a fixed order.
+  ONE launch: as many blocks as the card holds at once (occupancy API),
+  16-byte loads where every vector is aligned; each block writes its
+  k + 1 partial sums, takes an integer ticket, and the block that draws
+  the last ticket sums every block's partials in block order (the
+  partials and the counter are allocated once per device and dtype).
+  Its second arm, ``fused_cg_step``, is def-CG's iteration tail: the
+  breakdown test and α before the update, and after it β, μ = (WᵀAW)⁻¹·
+  (AW)ᵀr (no preconditioner), √rr, the status, the trace slot, j, the
+  next step's active flag and the ``p`` select's mask, in the same launch.
 * ``fused_rz_reduce`` replaces ``fused_rz_reduce_pallas`` (cg_fused.py:252):
   ``(rᵀz, (AW)·z)`` in one pass, the preconditioned iteration's second
   sweep (``z = M⁻¹r`` exists only after the residual update).
@@ -39,11 +45,18 @@ C interface, built by :mod:`repro_torch.kernels._build`):
   block, so nothing is reduced across blocks.
 * ``lsmr_update`` replaces ``lsmr_update_pallas`` (cg_fused.py:336): one
   LSMR iteration's ``h̄' = h − c0·h̄``, ``x' = x + c1·h̄'``, ``h' = v − c2·h``.
-  Bytes-bound, 7n elements for 6n flops: one grid-stride pass reads
-  ``x, h̄, h, v`` once and writes the three outputs once; ``c0, c1, c2``
-  are 0-d device tensors read through pointers.  Nothing is reduced, so
-  its grid fills every SM.
+  Bytes-bound, 7n elements for 6n flops: one grid-stride pass (16-byte
+  loads where aligned, the grid from the occupancy API) reads ``x, h̄, h,
+  v`` once and writes the three outputs once.  Its second arm,
+  ``lsmr_step``, is everything of the LSMR iteration after its last
+  reduction: α⁺ = ‖w‖, both Givens rotations, c0–c2, ``v⁺ = w / α⁺``, the
+  exact-termination latch, the status, the trace slot, j and the next
+  active flag, every output masked by the step's active flag.
 
+The two step arms carry their scalars on the card: the loop never waits on
+the host, and each scalar is rounded as the eager op it replaces (their
+plain versions, ``*_step_plain``, are the loops' former eager lines in
+their order), so the card's scalars are bit for bit the plain versions'.
 All reductions are deterministic (no float atomics) and accumulate in the
 working dtype: f64 kernels in f64, f32 kernels in f32.  Ragged tails are
 masked in the kernels, not padded.
@@ -60,6 +73,7 @@ device lives in :mod:`repro_torch.kernels.ops`.  The counters
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -76,16 +90,24 @@ MAX_GRAM_ROWS = 128
 GRAM_COLS = 32  # columns of S a shared-memory stage of self_gram holds
 GRAM_GRID = 132  # self_gram's partial pass: one block per SM
 REC_COLS = 32  # columns of S a shared-memory stage of recombine_blocks holds
-LSMR_GRID_CAP = 132 * 8  # eight resident 256-thread blocks per SM
+MAX_BLOCKS_PER_SM = 2048 // THREADS  # the most 256-thread blocks an SM holds
+# The carried LSMR scalars, in the order of the kernel's packed state.
+LSMR_SLOTS = ("alpha", "zetabar", "alphabar", "rho", "rhobar", "cbar", "sbar")
+# engine.SolveStatus's codes that the step tails write.
+BREAKDOWN_NONFINITE, BREAKDOWN_INDEFINITE, STAGNATED = 2, 3, 4
 
 _P, _I, _L = _runtime.PTR, _runtime.INT, _runtime.INT64
 _SIGNATURES = {
-    "fused_cg_update": (_P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P),
+    "fused_cg_update": (_P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _P),
+    "fused_cg_step": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _P, _L, _I, _P, _P, _P, _I, _I, _P, _P, _P),
     "fused_rz_reduce": (_P, _P, _P, _I, _L, _P, _I, _P, _P),
     "fused_deflate_direction": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _I),
     "self_gram": (_P, _I, _L, _L, _I, _P, _P),
     "recombine_blocks": (_P, _P, _I, _I, _L, _P, _I),
-    "lsmr_update": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _I),
+    "lsmr_update": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P),
+    "lsmr_step": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P,
+                  _P, _P, _P),
 }
 _cdiv = _runtime.cdiv
 _ptr = _runtime.ptr
@@ -94,8 +116,70 @@ _scalar = _runtime.scalar
 _note_plain = _runtime.note_plain
 
 
-def _launch(name: str, like: torch.Tensor, *args) -> None:
-    _runtime.launch("cg_fused", name, _SIGNATURES[name], like, *args)
+def _launch(name: str, like: torch.Tensor, *args, key: Optional[str] = None) -> None:
+    _runtime.launch("cg_fused", name, _SIGNATURES[name], like, *args, key=key)
+
+
+def _check_flags(name: str, like: torch.Tensor, js: torch.Tensor, active: torch.Tensor) -> None:
+    """The integer and boolean scalars of a step: ``js = [j, fail]``
+    (int32, (2,)) and ``active`` (bool, 0-d), on ``like``'s device."""
+    for key, t, dtype, shape in (("js", js, torch.int32, (2,)), ("active", active, torch.bool, ())):
+        if t.device != like.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} must be a {dtype} tensor of shape {shape} on "
+                             f"{like.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+
+
+@functools.lru_cache(maxsize=None)
+def _reduce_scratch(device: torch.device, dtype: torch.dtype):
+    """``(partials, counter, rows)`` of ``fused_cg_update``'s one-launch
+    reduction on ``device``: room for the most blocks the card holds at
+    once, allocated once per device and dtype and reused by every call
+    (the last block resets the counter, so calls must follow one another
+    on one stream)."""
+    rows = torch.cuda.get_device_properties(device).multi_processor_count * MAX_BLOCKS_PER_SM
+    partials = torch.empty((rows, MAX_K + 1), dtype=dtype, device=device)
+    counter = torch.zeros((), dtype=torch.int32, device=device)
+    return partials, counter, rows
+
+
+def classify_breakdown(d, rnorm, diverged_at):
+    """``(bad, code)`` from the ``pᵀAp`` reduction: non-finite, indefinite,
+    or a residual past the divergence ceiling (classed STAGNATED)."""
+    nonfinite = ~torch.isfinite(d)
+    indefinite = (~nonfinite) & (d <= 0.0)
+    diverging = rnorm > diverged_at
+    bad = nonfinite | indefinite | diverging
+    code = torch.where(
+        nonfinite, BREAKDOWN_NONFINITE, torch.where(indefinite, BREAKDOWN_INDEFINITE, STAGNATED)
+    )
+    return bad, torch.where(bad, code, 0).to(torch.int32)
+
+
+def trace_write(trace, j, value, active):
+    """Slot ``j + 1`` of a residual trace, kept on frozen steps."""
+    slot = (j + 1).reshape(1).to(torch.int64)
+    old = trace.index_select(0, slot)
+    trace.index_copy_(0, slot, torch.where(active, value.reshape(1), old))
+
+
+def still_active(j, norm, fail, threshold, maxiter):
+    """The masked-step harness's test: another live step follows."""
+    return (j < maxiter) & (norm > threshold) & (fail == 0)
+
+
+def safe(v):
+    """``v`` with zeros replaced by 1: the solver loops' guarded divisor."""
+    return torch.where(v == 0.0, 1.0, v)
+
+
+def sym_ortho(a, b):
+    """Stable Givens pair ``(c, s, r)`` with ``r = √(a² + b²)``; ``r = 0``
+    (exact termination, latched as converged) gives ``(0, 0, 0)``."""
+    r = torch.sqrt(a * a + b * b)
+    safe_r = safe(r)
+    return a / safe_r, b / safe_r, r
 
 
 def _grid(n: int) -> int:
@@ -130,15 +214,14 @@ def fused_cg_update_cuda(x, r, p, ap, alpha, aw=None):
     _check("fused_cg_update", x, **shapes)
     if n == 0 or k > MAX_K:
         raise ValueError(f"fused_cg_update: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}")
-    blocks = _grid(n)
+    partials, counter, rows = _reduce_scratch(x.device, x.dtype)
     xo = torch.empty_like(x)
     ro = torch.empty_like(r)
-    partials = torch.empty((blocks, k + 1), dtype=x.dtype, device=x.device)
     rr = torch.empty((), dtype=x.dtype, device=x.device)
     awr = torch.empty((k,), dtype=x.dtype, device=x.device) if k else None
     _launch("fused_cg_update", x,
             _ptr(x), _ptr(r), _ptr(p), _ptr(ap), _ptr(alpha), _ptr(aw), k, n,
-            _ptr(xo), _ptr(ro), _ptr(partials), blocks, _ptr(rr), _ptr(awr))
+            _ptr(xo), _ptr(ro), _ptr(partials), rows, _ptr(counter), _ptr(rr), _ptr(awr))
     return xo, ro, rr, awr
 
 
@@ -146,6 +229,97 @@ def fused_cg_update_plain(x, r, p, ap, alpha, aw=None):
     """Plain PyTorch version of :func:`fused_cg_update_cuda`."""
     _note_plain("fused_cg_update", x)
     return ref.fused_cg_update(x, r, p, ap, alpha, aw)
+
+
+def fused_cg_step_cuda(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
+                       aw=None, waw_inv=None, *, recurrence=True, trace=None, row=None,
+                       a_rows=None, b_rows=None):
+    """One def-CG iteration from ``d = pᵀAp`` to the next direction's
+    scalars, in ONE launch of ``fused_cg_update``'s kernel.
+
+    In: the iterates ``x, r, p``, the product ``ap``, the device scalars
+    ``d``, ``rs`` (the carried ``rᵀz``), ``rnorm``, ``threshold``,
+    ``diverged_at``, ``js = [j, fail]`` (int32) and ``active`` (bool),
+    the deflation products ``aw`` (k, n) with ``waw_inv = (WᵀAW)⁻¹``.
+    ``recurrence`` (no preconditioner: ``rᵀr`` is the recurrence scalar)
+    forms ``β`` and ``μ`` and, on a recording step (``row`` given), writes
+    ``α, β`` into row ``active ? row : ell`` of ``a_rows, b_rows``
+    (``(ell + 1,)``, in place); ``trace`` takes slot ``j + 1`` in place.
+    Out: ``(x', r', ap, so, js', flags)`` with ``so = [rr, rnorm', α, β,
+    μ…]`` (β = 0 without ``recurrence``), ``flags = [active', keep]``
+    (``keep = active ∧ ¬bad``, the ``p`` select's mask).  A poisoned ``ap``
+    is zeroed in place (a copy first where it aliases ``x``, ``r`` or
+    ``p``), and returned.
+    """
+    n = x.shape[0]
+    k = 0 if aw is None else aw.shape[0]
+    shapes = {"x": (x, (n,)), "r": (r, (n,)), "p": (p, (n,)), "ap": (ap, (n,)),
+              "d": (d, ()), "rs": (rs, ()), "rnorm": (rnorm, ()),
+              "threshold": (threshold, ()), "diverged_at": (diverged_at, ())}
+    if aw is not None:
+        shapes.update(aw=(aw, (k, n)), waw_inv=(waw_inv, (k, k)))
+    if trace is not None:
+        shapes["trace"] = (trace, (maxiter + 2,))
+    recording = recurrence and row is not None
+    if recording:
+        ell = a_rows.shape[0] - 1
+        shapes.update(a_rows=(a_rows, (ell + 1,)), b_rows=(b_rows, (ell + 1,)))
+    _check("fused_cg_update", x, **shapes)
+    _check_flags("fused_cg_update", x, js, active)
+    if n == 0 or k > MAX_K or (aw is not None and not recurrence):
+        raise ValueError(f"fused_cg_step: need n >= 1, k <= {MAX_K} and the deflation GEMV "
+                         f"only with the recurrence; got n={n}, k={k}")
+    if ap.data_ptr() in (x.data_ptr(), r.data_ptr(), p.data_ptr()):
+        ap = ap.clone()
+    partials, counter, rows = _reduce_scratch(x.device, x.dtype)
+    xo = torch.empty_like(x)
+    ro = torch.empty_like(r)
+    so = torch.empty((4 + k,), dtype=x.dtype, device=x.device)
+    jo = torch.empty((2,), dtype=torch.int32, device=x.device)
+    bo = torch.empty((2,), dtype=torch.bool, device=x.device)
+    _launch("fused_cg_step", x,
+            _ptr(x), _ptr(r), _ptr(p), _ptr(ap), _ptr(aw), k, n, _ptr(xo), _ptr(ro),
+            _ptr(partials), rows, _ptr(counter), _ptr(d), _ptr(rs), _ptr(rnorm),
+            _ptr(threshold), _ptr(diverged_at), _ptr(js), _ptr(active), _ptr(waw_inv),
+            maxiter, int(recurrence), _ptr(trace), _ptr(a_rows if recording else None),
+            _ptr(b_rows if recording else None), row if recording else -1,
+            ell if recording else 0, _ptr(so), _ptr(jo), _ptr(bo), key="fused_cg_update")
+    return xo, ro, ap, so, jo, bo
+
+
+def fused_cg_step_plain(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
+                        aw=None, waw_inv=None, *, recurrence=True, trace=None, row=None,
+                        a_rows=None, b_rows=None):
+    """Plain PyTorch version of :func:`fused_cg_step_cuda`: def-CG's
+    former eager lines around the update, in their order."""
+    _note_plain("fused_cg_update", x)
+    j, fail = js[0], js[1]
+    bad, code = classify_breakdown(d, rnorm, diverged_at)
+    fail = torch.where((fail == 0) & active, code, fail)
+    # Sanitize a poisoned A·p before the update touches it.
+    ap = torch.where(bad, 0.0, ap)
+    alpha = torch.where(bad | ~active, 0.0, rs / torch.where(bad, 1.0, d))
+    x, r, rr, awr = ref.fused_cg_update(x, r, p, ap, alpha, aw)
+    beta, mu = torch.zeros_like(rr), rr.new_zeros((0,))
+    if recurrence:
+        if aw is not None:
+            mu = waw_inv @ awr
+        beta = rr / torch.where(rs == 0.0, 1.0, rs)
+        if row is not None:
+            slot = torch.where(active, row, a_rows.shape[0] - 1).to(torch.int64).reshape(1)
+            a_rows.index_copy_(0, slot, alpha.reshape(1))
+            b_rows.index_copy_(0, slot, beta.reshape(1))
+    rnorm_new = torch.sqrt(rr)
+    fail = torch.where(
+        (fail == 0) & active & ~torch.isfinite(rnorm_new), BREAKDOWN_NONFINITE, fail
+    ).to(torch.int32)
+    rnorm = torch.where(active, rnorm_new, rnorm)
+    if trace is not None:
+        trace_write(trace, j, rnorm, active)
+    j = j + active.to(j.dtype)
+    so = torch.cat([torch.stack([rr, rnorm, alpha, beta]), mu])
+    flags = torch.stack([still_active(j, rnorm, fail, threshold, maxiter), active & ~bad])
+    return x, r, ap, so, torch.stack([j, fail]), flags
 
 
 # ---------------------------------------------------------------------------
@@ -305,7 +479,7 @@ def lsmr_update_cuda(x, hbar, h, v, c0, c1, c2):
     xo, hbo, ho = (torch.empty_like(x) for _ in range(3))
     _launch("lsmr_update", x,
             _ptr(x), _ptr(hbar), _ptr(h), _ptr(v), _ptr(c0), _ptr(c1), _ptr(c2), n,
-            _ptr(xo), _ptr(hbo), _ptr(ho), min(_cdiv(n, THREADS), LSMR_GRID_CAP))
+            _ptr(xo), _ptr(hbo), _ptr(ho))
     return xo, hbo, ho
 
 
@@ -313,3 +487,93 @@ def lsmr_update_plain(x, hbar, h, v, c0, c1, c2):
     """Plain PyTorch version of :func:`lsmr_update_cuda`."""
     _note_plain("lsmr_update", x)
     return ref.lsmr_update(x, hbar, h, v, c0, c1, c2)
+
+
+def lsmr_step_cuda(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverged_at,
+                   maxiter, trace=None):
+    """One LSMR iteration after its last reduction, in ONE launch of
+    ``lsmr_update``'s kernel.
+
+    In: the iterates ``x, h̄, h, v``, ``w = g⁺ − β⁺v`` with ``wsq = ‖w‖²``
+    and ``beta = β⁺`` (0-d), the carried scalars ``s`` (``LSMR_SLOTS``),
+    ``js = [j, fail]`` (int32), ``active`` (bool), ``threshold`` and
+    ``diverged_at``; ``trace`` takes slot ``j + 1`` in place.  Out:
+    ``(x', h̄', h', v⁺, s', js', active')``, each the old value on a
+    frozen step.
+    """
+    n = x.shape[0]
+    shapes = {"x": (x, (n,)), "hbar": (hbar, (n,)), "h": (h, (n,)), "v": (v, (n,)),
+              "w": (w, (n,)), "wsq": (wsq, ()), "beta": (beta, ()),
+              "s": (s, (len(LSMR_SLOTS),)), "threshold": (threshold, ()),
+              "diverged_at": (diverged_at, ())}
+    if trace is not None:
+        shapes["trace"] = (trace, (maxiter + 2,))
+    _check("lsmr_update", x, **shapes)
+    _check_flags("lsmr_update", x, js, active)
+    if n == 0:
+        raise ValueError("lsmr_step: need n >= 1")
+    xo, hbo, ho, vo = (torch.empty_like(x) for _ in range(4))
+    so = torch.empty_like(s)
+    jo = torch.empty_like(js)
+    ao = torch.empty_like(active)
+    _launch("lsmr_step", x,
+            _ptr(x), _ptr(hbar), _ptr(h), _ptr(v), _ptr(w), n, _ptr(wsq), _ptr(beta), _ptr(s),
+            _ptr(js), _ptr(active), _ptr(threshold), _ptr(diverged_at), maxiter, _ptr(trace),
+            _ptr(xo), _ptr(hbo), _ptr(ho), _ptr(vo), _ptr(so), _ptr(jo), _ptr(ao),
+            key="lsmr_update")
+    return xo, hbo, ho, vo, so, jo, ao
+
+
+def lsmr_step_plain(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverged_at,
+                    maxiter, trace=None):
+    """Plain PyTorch version of :func:`lsmr_step_cuda`: the LSMR loop's
+    former eager lines from α⁺ on, in their order."""
+    _note_plain("lsmr_update", x)
+    alpha, zetabar, alphabar, rho, rhobar, cbar, sbar = s.unbind()
+    j, fail = js[0], js[1]
+    alpha_new = torch.sqrt(wsq)
+    v_new = w / safe(alpha_new)
+
+    # The two Givens rotations (Fong & Saunders 2011, §2.2; λ lives in Â
+    # itself, so there is no λ-rotation).
+    c, sn, rho_new = sym_ortho(alphabar, beta)
+    thetanew = sn * alpha_new
+    alphabar_new = c * alpha_new
+    thetabar = sbar * rho_new
+    cbar_new, sbar_new, rhobar_new = sym_ortho(cbar * rho_new, thetanew)
+    zeta = cbar_new * zetabar
+    zetabar_new = -sbar_new * zetabar
+
+    c0 = thetabar * rho_new / (rho * rhobar)
+    c1 = zeta / (safe(rho_new) * safe(rhobar_new))
+    c2 = thetanew / safe(rho_new)
+    x_new, hbar_new, h_new = ref.lsmr_update(x, hbar, h, v_new, c0, c1, c2)
+
+    # Exact termination: a zero β or α drives Âᵀr̂ to zero — latch it.
+    exact = (beta == 0.0) | (alpha_new == 0.0)
+    zetabar_new = torch.where(exact, 0.0, zetabar_new)
+    normar_new = torch.abs(zetabar_new)
+
+    live = (fail == 0) & active
+    fail = torch.where(
+        live & ~torch.isfinite(normar_new), BREAKDOWN_NONFINITE, fail
+    ).to(torch.int32)
+    fail = torch.where(
+        (fail == 0) & active & (normar_new > diverged_at), STAGNATED, fail
+    ).to(torch.int32)
+    if trace is not None:
+        trace_write(trace, j, normar_new, active)
+
+    def sel(new, cur):
+        return torch.where(active, new, cur)
+
+    s_new = torch.stack([
+        sel(alpha_new, alpha), sel(zetabar_new, zetabar), sel(alphabar_new, alphabar),
+        sel(rho_new, rho), sel(rhobar_new, rhobar), sel(cbar_new, cbar), sel(sbar_new, sbar),
+    ])
+    j = j + active.to(j.dtype)
+    return (
+        sel(x_new, x), sel(hbar_new, hbar), sel(h_new, h), sel(v_new, v), s_new,
+        torch.stack([j, fail]),
+        still_active(j, torch.abs(s_new[1]), fail, threshold, maxiter),
+    )

@@ -99,6 +99,43 @@ def fused_cg_update(
     return ref.fused_cg_update(x, r, p, ap, alpha, aw)
 
 
+def fused_cg_step(
+    x: torch.Tensor,
+    r: torch.Tensor,
+    p: torch.Tensor,
+    ap: torch.Tensor,
+    d: torch.Tensor,
+    rs: torch.Tensor,
+    rnorm: torch.Tensor,
+    js: torch.Tensor,
+    active: torch.Tensor,
+    threshold: torch.Tensor,
+    diverged_at: torch.Tensor,
+    maxiter: int,
+    aw: Optional[torch.Tensor] = None,
+    waw_inv: Optional[torch.Tensor] = None,
+    *,
+    recurrence: bool = True,
+    trace: Optional[torch.Tensor] = None,
+    row: Optional[int] = None,
+    a_rows: Optional[torch.Tensor] = None,
+    b_rows: Optional[torch.Tensor] = None,
+    backend: str = "auto",
+):
+    """def-CG's iteration from ``d = pᵀAp`` on, around the fused update:
+    breakdown test, α, the update, and (``recurrence``) β and μ, then the
+    residual norm, status, trace, j and the next active flag — one launch
+    on the card.  Returns ``(x, r, ap, so, js, flags)``; see
+    :func:`repro_torch.kernels.cg_fused.fused_cg_step_cuda`.  The step has
+    no oracle of its own: ``reference`` runs its plain version, built on
+    the oracles."""
+    backend = _resolve(backend, x)
+    step = cg_fused.fused_cg_step_cuda if backend == "cuda" else cg_fused.fused_cg_step_plain
+    return step(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter, aw,
+                waw_inv, recurrence=recurrence, trace=trace, row=row, a_rows=a_rows,
+                b_rows=b_rows)
+
+
 def fused_rz_reduce(
     r: torch.Tensor,
     z: torch.Tensor,
@@ -189,6 +226,36 @@ def lsmr_update(
     if backend == "plain":
         return cg_fused.lsmr_update_plain(x, hbar, h, v, c0, c1, c2)
     return ref.lsmr_update(x, hbar, h, v, c0, c1, c2)
+
+
+def lsmr_step(
+    x: torch.Tensor,
+    hbar: torch.Tensor,
+    h: torch.Tensor,
+    v: torch.Tensor,
+    w: torch.Tensor,
+    wsq: torch.Tensor,
+    beta: torch.Tensor,
+    s: torch.Tensor,
+    js: torch.Tensor,
+    active: torch.Tensor,
+    threshold: torch.Tensor,
+    diverged_at: torch.Tensor,
+    maxiter: int,
+    trace: Optional[torch.Tensor] = None,
+    *,
+    backend: str = "auto",
+):
+    """The LSMR iteration after its last reduction (``wsq = ‖w‖²``): α⁺,
+    both Givens rotations, ``v⁺``, the three vector recurrences, the
+    latches, trace, j and the next active flag, every output masked by
+    ``active`` — one launch on the card.  Returns ``(x, h̄, h, v, s, js,
+    active)``; see :func:`repro_torch.kernels.cg_fused.lsmr_step_cuda`.
+    ``reference`` runs the plain version, built on the oracles."""
+    backend = _resolve(backend, x)
+    step = cg_fused.lsmr_step_cuda if backend == "cuda" else cg_fused.lsmr_step_plain
+    return step(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverged_at, maxiter,
+                trace)
 
 
 def attention(

@@ -316,6 +316,187 @@ def test_lsmr_update(device, dtype, n):
     assert cg_fused.LAUNCHES["lsmr_update"] == before + 1
 
 
+def _device_kernels(fn, reps=5):
+    """Device kernels one call of ``fn`` runs, from a ``torch.profiler``
+    trace of ``reps`` calls (after a warm-up call).  A profiler session
+    now and then comes back with no device events at all; such a session
+    is run again (three at most), a session with events is counted."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        count = sum(e.count for e in prof.key_averages()
+                    if "cuda" in str(getattr(e, "device_type", "")).lower())
+        if count:
+            break
+    return count / reps
+
+
+def _lsmr_step_inputs(device, dtype, n, case):
+    rnd = _gen(device, dtype, 17 * n + len(case))
+    x, hbar, h, v, w = (rnd(n) for _ in range(5))
+    s = rnd(len(cg_fused.LSMR_SLOTS)).abs() + 0.1
+    beta = rnd(()).abs() + 0.1
+    js = torch.tensor([3, 0], dtype=torch.int32, device=device)
+    active = torch.tensor(case != "frozen", device=device)
+    threshold = torch.tensor(1e-6, dtype=dtype, device=device)
+    diverged_at = torch.tensor(1e8, dtype=dtype, device=device)
+    if case == "beta0":  # exact termination: the latch zeroes zetabar
+        beta = torch.zeros((), dtype=dtype, device=device)
+    if case == "alpha0":
+        w = torch.zeros_like(w)
+    if case == "nonfinite":  # c̄ poisoned: the rotation and ζ̄ go NaN
+        s[5] = float("nan")
+    if case == "diverging":
+        diverged_at = torch.tensor(1e-30, dtype=dtype, device=device)
+    trace = torch.full((12,), float("nan"), dtype=dtype, device=device)
+    return (x, hbar, h, v, w, torch.dot(w, w), beta, s, js, active, threshold, diverged_at, 10,
+            trace)
+
+
+def _equal_nan(a, b):
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+        torch.nan_to_num(a), torch.nan_to_num(b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 1000, 16384, 16385])
+@pytest.mark.parametrize("case", ["live", "frozen", "beta0", "alpha0", "nonfinite", "diverging"])
+def test_lsmr_step(device, dtype, n, case):
+    """K7's step arm against its plain version (the LSMR loop's former
+    eager lines): every scalar, the status, j, the active flag and the
+    trace slot bit for bit; the vectors to the kernel bar; two launches
+    bit for bit; one counted launch per call."""
+    args = _lsmr_step_inputs(device, dtype, n, case)
+    t_got, t_want = args[-1].clone(), args[-1].clone()
+    got = cg_fused.lsmr_step_cuda(*args[:-1], t_got)
+    want = cg_fused.lsmr_step_plain(*args[:-1], t_want)
+    for g, w in zip(got[:4], want[:4]):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        _assert_close(torch.nan_to_num(g), torch.nan_to_num(w), dtype)
+    for g, w in zip(got[4:], want[4:]):
+        assert _equal_nan(g, w), (g, w)
+    assert _equal_nan(t_got, t_want)
+    again = cg_fused.lsmr_step_cuda(*args[:-1], args[-1].clone())
+    assert all(_equal_nan(a, b) for a, b in zip(got, again))
+    before = cg_fused.LAUNCHES["lsmr_update"]
+    kops.lsmr_step(*args)
+    assert cg_fused.LAUNCHES["lsmr_update"] == before + 1
+
+
+def _cg_step_inputs(device, dtype, n, k, case):
+    rnd = _gen(device, dtype, 19 * n + k + len(case))
+    x, r, p, ap = (rnd(n) for _ in range(4))
+    aw = rnd(k, n) if k else None
+    waw_inv = rnd(k, k) if k else None
+    d = torch.dot(p, ap).abs() + 1.0
+    rs = torch.dot(r, r)
+    rnorm = torch.sqrt(rs)
+    js = torch.tensor([2, 0], dtype=torch.int32, device=device)
+    active = torch.tensor(case != "frozen", device=device)
+    threshold = torch.tensor(1e-6, dtype=dtype, device=device)
+    diverged_at = torch.tensor(1e8, dtype=dtype, device=device)
+    if case == "indefinite":
+        d = -d
+    if case == "nonfinite":
+        d = torch.tensor(float("nan"), dtype=dtype, device=device)
+    if case == "diverging":
+        diverged_at = torch.tensor(1e-30, dtype=dtype, device=device)
+    if case == "rs0":
+        rs = torch.zeros((), dtype=dtype, device=device)
+    return (x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, 10, aw, waw_inv)
+
+
+CG_STEP_CASES = [(k, case) for k in (0, 1, 8, 16)
+                 for case in ("live", "frozen", "indefinite", "nonfinite", "diverging", "rs0",
+                              "recording")] + [(0, "preconditioned")]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 1000, 36551, 36552])
+@pytest.mark.parametrize("k,case", CG_STEP_CASES)
+def test_fused_cg_step(device, dtype, n, k, case):
+    """K1's step arm against its plain version (def-CG's former eager
+    lines).  α, the status, j, the active and keep flags bit for bit; the
+    scalars that follow the kernel's own sums (√rr, β = rr / safe(rs), μ in
+    its fixed order) bit for bit from those sums, and the sums to the
+    kernel bar; vectors to the kernel bar; the recorded α / β rows and the
+    trace slot; a poisoned A·p zeroed; two launches bit for bit; one
+    counted launch per call."""
+    args = _cg_step_inputs(device, dtype, n, k, case)
+    x, r, p, ap, d, rs, rnorm, js, active = args[:9]
+    aw, waw_inv = args[12], args[13]
+    ell = 4
+    kw = {"recurrence": case != "preconditioned"}
+
+    def run(step, ap_in):
+        extra = dict(kw, trace=torch.full((12,), float("nan"), dtype=dtype, device=device))
+        if case == "recording":
+            extra.update(row=1, a_rows=torch.zeros(ell + 1, dtype=dtype, device=device),
+                         b_rows=torch.zeros(ell + 1, dtype=dtype, device=device))
+        out = step(*args[:3], ap_in, *args[4:], **extra)
+        return out, extra
+
+    (xo, ro, apo, so, jo, bo), ek = run(cg_fused.fused_cg_step_cuda, ap.clone())
+    (xw, rw, apw, sw, jw, bw), ew = run(cg_fused.fused_cg_step_plain, ap.clone())
+    for g, w in ((xo, xw), (ro, rw), (apo, apw)):
+        assert torch.equal(torch.isfinite(g), torch.isfinite(w))
+        _assert_close(torch.nan_to_num(g), torch.nan_to_num(w), dtype)
+    if case == "nonfinite":
+        assert not bool(apo.any())
+    assert torch.equal(so[2], sw[2]) and torch.equal(jo, jw) and torch.equal(bo, bw)
+    _assert_close(so[0], sw[0], dtype)
+    rnorm_k = torch.where(active, torch.sqrt(so[0]), rnorm)
+    assert torch.equal(so[1], rnorm_k)
+    if kw["recurrence"]:
+        assert torch.equal(so[3], so[0] / torch.where(rs == 0.0, 1.0, rs))
+        _assert_close(so[3:], sw[3:], dtype)
+        if k:
+            _, _, rr2, awr = cg_fused.fused_cg_update_cuda(x, r, p, apo, so[2], aw)
+            assert torch.equal(rr2, so[0])
+            mu = torch.zeros(k, dtype=dtype, device=device)
+            for j in range(k):
+                mu = mu + waw_inv[:, j] * awr[j]
+            assert torch.equal(so[4:], mu)
+    assert torch.equal(torch.isnan(ek["trace"]), torch.isnan(ew["trace"]))
+    _assert_close(torch.nan_to_num(ek["trace"]), torch.nan_to_num(ew["trace"]), dtype)
+    if bool(active):
+        assert torch.equal(ek["trace"][3], so[1])
+    if case == "recording":
+        assert torch.equal(ek["a_rows"], ew["a_rows"])
+        assert torch.equal(ek["b_rows"][1], so[3])
+    again, _ = run(cg_fused.fused_cg_step_cuda, ap.clone())
+    assert all(_equal_nan(a, b) for a, b in zip((xo, ro, apo, so, jo, bo), again))
+    before = cg_fused.LAUNCHES["fused_cg_update"]
+    kops.fused_cg_step(*args[:3], ap.clone(), *args[4:], **kw)
+    assert cg_fused.LAUNCHES["fused_cg_update"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_step_arms_run_one_device_kernel(device, dtype):
+    """Each arm of K1 and K7 is one device kernel a call, K1's reduction
+    included (``torch.profiler``, at the main paths' shapes: K1 n = 36 551,
+    k = 8 and k = 0, K7 n = 16 384)."""
+    cg = _cg_step_inputs(device, dtype, 36551, 8, "live")
+    ls = _lsmr_step_inputs(device, dtype, 16384, "live")
+    x, r, p, ap = cg[:4]
+    alpha = torch.tensor(0.3, dtype=dtype, device=device)
+    c = [torch.tensor(q, dtype=dtype, device=device) for q in (0.5, -0.25, 2.0)]
+    calls = {
+        "K1 step": lambda: cg_fused.fused_cg_step_cuda(*cg),
+        "K1 step, k = 0": lambda: cg_fused.fused_cg_step_cuda(*cg[:12]),
+        "K1 TPU-function arm": lambda: cg_fused.fused_cg_update_cuda(x, r, p, ap, alpha, cg[12]),
+        "K7 step": lambda: cg_fused.lsmr_step_cuda(*ls),
+        "K7 TPU-function arm": lambda: cg_fused.lsmr_update_cuda(*ls[:4], *c),
+    }
+    assert {name: _device_kernels(fn) for name, fn in calls.items()} == dict.fromkeys(calls, 1)
+
+
 def test_reductions_repeat_exactly(device):
     rnd = _gen(device, torch.float64, 0)
     x, r, p, ap = (rnd(36551) for _ in range(4))

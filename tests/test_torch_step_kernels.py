@@ -1,0 +1,553 @@
+"""The one-launch iteration tails of K1 and K7, on the CPU.
+
+K1 (``fused_cg_update``) and K7 (``lsmr_update``) each have a second arm
+that carries its solver's scalar recurrence and frozen-step mask in the
+same launch: ``fused_cg_step`` (def-CG and cg from ``pᵀAp`` on) and
+``lsmr_step`` (LSMR after ``‖w‖²``).  On the CPU their wrappers run the
+plain versions, ``fused_cg_step_plain`` and ``lsmr_step_plain``.  Here:
+
+1. the plain versions against the loops' former inline arithmetic (the
+   lines the solver loops ran around the kernels before the tails moved
+   into them), bit for bit, over seeded live, frozen, exact-termination,
+   breakdown and already-failed states;
+2. whole ``lsmr``, ``defcg`` and ``cg`` solves against the live JAX
+   reference (``repro.core``, x64) on the same numpy inputs: x to 1e-10
+   (``tests/test_cg_fused.py:316``), iteration counts, statuses and
+   ``SolveInfo.matvecs`` equal;
+3. a torch emulation of K1's one-launch reduction (per-thread sums in
+   grid-stride order, the warp trees, per-block partials, the ticket and
+   the last block's sum in block order) against the plain sums to 1e-13
+   relative, and bit for bit the same for any block completion order;
+4. the sharded LSMR step ends in the same tail function as the unsharded
+   one (one ``lsmr_step`` call a step in each, the same iterates).
+
+The card holds the kernels to these plain versions
+(``tests/test_torch_cuda.py``: scalars bit for bit).
+"""
+
+import importlib
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.core as jc  # noqa: E402
+import repro_torch.core as tc  # noqa: E402
+from repro_torch.core import engine  # noqa: E402
+from repro_torch.kernels import cg_fused as cf  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import ref as tref  # noqa: E402
+from tests.conftest import make_spd  # noqa: E402
+
+tlsmr = importlib.import_module("repro_torch.core.lsmr")
+sharded = importlib.import_module("repro_torch.core.sharded")
+DTYPES = [torch.float64, torch.float32]
+
+
+def _t(a):
+    return torch.as_tensor(np.array(a, dtype=np.float64))
+
+
+def _np(a):
+    return a.detach().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _same(a, b):
+    """Bit for bit, NaN where NaN."""
+    a, b = torch.as_tensor(a), torch.as_tensor(b)
+    if a.dtype.is_floating_point:
+        return torch.equal(torch.isnan(a), torch.isnan(b)) and torch.equal(
+            torch.nan_to_num(a), torch.nan_to_num(b))
+    return torch.equal(a, b)
+
+
+def _assert_info_equal(ji, ti):
+    for field in ("iterations", "matvecs", "status", "converged"):
+        np.testing.assert_array_equal(
+            _np(getattr(ti, field)), np.asarray(getattr(ji, field)), err_msg=field)
+
+
+def _assert_trace_head(ti, ji, head=10):
+    """The first ``head`` entries of the residual history to 1e-8: past
+    about ten iterations a last-digit difference grows in either package
+    (ROADMAP P1 for CG, P5 for LSMR)."""
+    j = min(int(ti.iterations) + 1, head)
+    np.testing.assert_allclose(_np(ti.residual_norms)[:j], np.asarray(ji.residual_norms)[:j],
+                               rtol=1e-8)
+
+
+# ---------------------------------------------------------------------------
+# 1. The plain tails against the loops' former inline arithmetic
+# ---------------------------------------------------------------------------
+
+
+def _former_sym_ortho(a, b):
+    r = torch.sqrt(a * a + b * b)
+    safe = torch.where(r == 0.0, 1.0, r)
+    return a / safe, b / safe, r
+
+
+def _former_safe(v):
+    return torch.where(v == 0.0, 1.0, v)
+
+
+def _former_trace_write(trace, j, rnorm, active):
+    slot = (j + 1).reshape(1).to(torch.int64)
+    old = trace.index_select(0, slot)
+    trace.index_copy_(0, slot, torch.where(active, rnorm.reshape(1), old))
+
+
+def _former_classify_breakdown(d, rnorm, diverged_at):
+    nonfinite = ~torch.isfinite(d)
+    indefinite = (~nonfinite) & (d <= 0.0)
+    diverging = rnorm > diverged_at
+    bad = nonfinite | indefinite | diverging
+    code = torch.where(nonfinite, 2, torch.where(indefinite, 3, 4))
+    return bad, torch.where(bad, code, 0).to(torch.int32)
+
+
+def _former_lsmr_tail(x, hbar, h, v, w_vec, beta_new, scalars, j, fail, active, threshold,
+                      diverged_at, maxiter, trace):
+    """The LSMR loop body from α⁺ on, as the loop ran it inline, and its
+    ``active_fn`` on the new state."""
+    alpha, zetabar, alphabar, rho, rhobar, cbar, sbar = scalars
+    alpha_new = torch.sqrt(torch.dot(w_vec, w_vec))
+    v_new = w_vec / _former_safe(alpha_new)
+    c, s, rho_new = _former_sym_ortho(alphabar, beta_new)
+    thetanew = s * alpha_new
+    alphabar_new = c * alpha_new
+    thetabar = sbar * rho_new
+    cbar_new, sbar_new, rhobar_new = _former_sym_ortho(cbar * rho_new, thetanew)
+    zeta = cbar_new * zetabar
+    zetabar_new = -sbar_new * zetabar
+    c0 = thetabar * rho_new / (rho * rhobar)
+    c1 = zeta / (_former_safe(rho_new) * _former_safe(rhobar_new))
+    c2 = thetanew / _former_safe(rho_new)
+    x_new, hbar_new, h_new = tref.lsmr_update(x, hbar, h, v_new, c0, c1, c2)
+    exact = (beta_new == 0.0) | (alpha_new == 0.0)
+    zetabar_new = torch.where(exact, 0.0, zetabar_new)
+    normar_new = torch.abs(zetabar_new)
+    live = (fail == 0) & active
+    fail = torch.where(live & ~torch.isfinite(normar_new), 2, fail).to(torch.int32)
+    fail = torch.where((fail == 0) & active & (normar_new > diverged_at), 4, fail).to(torch.int32)
+    if trace is not None:
+        _former_trace_write(trace, j, normar_new, active)
+
+    def sel(new, cur):
+        return torch.where(active, new, cur)
+
+    s_new = [sel(alpha_new, alpha), sel(zetabar_new, zetabar), sel(alphabar_new, alphabar),
+             sel(rho_new, rho), sel(rhobar_new, rhobar), sel(cbar_new, cbar),
+             sel(sbar_new, sbar)]
+    j = j + active.to(j.dtype)
+    active_next = (j < maxiter) & (torch.abs(s_new[1]) > threshold) & (fail == 0)
+    return (sel(x_new, x), sel(hbar_new, hbar), sel(h_new, h), sel(v_new, v), s_new, j, fail,
+            active_next)
+
+
+LSMR_CASES = ["live", "frozen", "beta0", "alpha0", "nonfinite", "diverging", "failed", "last"]
+
+
+def _lsmr_state(dtype, n, case, seed):
+    g = torch.Generator().manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, dtype=dtype)
+
+    x, hbar, h, v, w = (rnd(n) for _ in range(5))
+    s = rnd(7).abs() + 0.1
+    beta = rnd(()).abs() + 0.1
+    j, fail = 3, 0
+    threshold, diverged_at = torch.tensor(1e-6, dtype=dtype), torch.tensor(1e8, dtype=dtype)
+    if case == "beta0":
+        beta = torch.zeros((), dtype=dtype)
+    if case == "alpha0":
+        w = torch.zeros_like(w)
+    if case == "nonfinite":
+        s[5] = float("nan")
+    if case == "diverging":
+        diverged_at = torch.tensor(1e-30, dtype=dtype)
+    if case == "failed":
+        fail = 3
+    if case == "last":  # the step that reaches maxiter
+        j = 9
+    js = torch.tensor([j, fail], dtype=torch.int32)
+    active = torch.tensor(case not in ("frozen",))
+    return x, hbar, h, v, w, beta, s, js, active, threshold, diverged_at
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1, 33])
+@pytest.mark.parametrize("case", LSMR_CASES)
+def test_lsmr_step_plain_is_the_former_loop_body(dtype, n, case):
+    x, hbar, h, v, w, beta, s, js, active, thr, div = _lsmr_state(dtype, n, case, n + 7)
+    trace_a = torch.full((12,), float("nan"), dtype=dtype)
+    trace_b = trace_a.clone()
+    got = kops.lsmr_step(x, hbar, h, v, w, torch.dot(w, w), beta, s, js, active, thr, div, 10,
+                         trace_a)
+    want = _former_lsmr_tail(x, hbar, h, v, w, beta, list(s.unbind()), js[0], js[1], active,
+                             thr, div, 10, trace_b)
+    for q in range(4):
+        assert _same(got[q], want[q]), q
+    assert _same(got[4], torch.stack(want[4]))
+    assert _same(got[5], torch.stack([want[5], want[6]]))
+    assert _same(got[6], want[7])
+    assert _same(trace_a, trace_b)
+
+
+def _former_defcg_tail(x, r, p, ap, d, rs, rnorm, j, fail, active, threshold, diverged_at,
+                       maxiter, aw, waw_inv, trace, row, rows, recurrence):
+    """def-CG's loop body around the fused update, as the loop ran it
+    inline (its direction update left out: it stays its own launch), and
+    its ``active_fn`` on the new state.  Returns the values the step arm
+    returns."""
+    bad, code = _former_classify_breakdown(d, rnorm, diverged_at)
+    fail = torch.where((fail == 0) & active, code, fail)
+    ap = torch.where(bad, 0.0, ap)
+    alpha = torch.where(bad | ~active, 0.0, rs / torch.where(bad, 1.0, d))
+    x, r, rr, awr = tref.fused_cg_update(x, r, p, ap, alpha, aw if recurrence else None)
+    beta = mu = None
+    if recurrence:
+        mu = waw_inv @ awr if aw is not None else None
+        beta = rr / torch.where(rs == 0.0, 1.0, rs)
+        if row is not None:
+            slot = torch.where(active, row, rows[0].shape[0] - 1).to(torch.int64)
+            rows[0].index_copy_(0, slot.reshape(1), alpha.reshape(1))
+            rows[1].index_copy_(0, slot.reshape(1), beta.reshape(1))
+    keep = active & ~bad
+    rnorm_new = torch.sqrt(rr)
+    fail = torch.where((fail == 0) & active & ~torch.isfinite(rnorm_new), 2, fail).to(torch.int32)
+    rnorm = torch.where(active, rnorm_new, rnorm)
+    if trace is not None:
+        _former_trace_write(trace, j, rnorm, active)
+    j = j + active.to(j.dtype)
+    active_next = (j < maxiter) & (rnorm > threshold) & (fail == 0)
+    return x, r, ap, rr, rnorm, alpha, beta, mu, j, fail, active_next, keep
+
+
+CG_CASES = ["live", "frozen", "indefinite", "nonfinite", "diverging", "failed", "rs0",
+            "recording", "frozen-recording", "preconditioned"]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [0, 3])
+@pytest.mark.parametrize("case", CG_CASES)
+def test_fused_cg_step_plain_is_the_former_loop_body(dtype, k, case):
+    g = torch.Generator().manual_seed(k + len(case))
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, dtype=dtype)
+
+    n = 29
+    x, r, p, ap = (rnd(n) for _ in range(4))
+    recurrence = case != "preconditioned"
+    aw = rnd(k, n) if k and recurrence else None
+    waw_inv = rnd(k, k) if aw is not None else None
+    d = torch.dot(p, ap).abs() + 1.0
+    rs = torch.dot(r, r)
+    rnorm = torch.sqrt(rs)
+    thr, div = torch.tensor(1e-6, dtype=dtype), torch.tensor(1e8, dtype=dtype)
+    js = torch.tensor([2, 4 if case == "failed" else 0], dtype=torch.int32)
+    active = torch.tensor("frozen" not in case)
+    if case == "indefinite":
+        d = -d
+    if case == "nonfinite":
+        d = torch.tensor(float("inf"), dtype=dtype)
+    if case == "diverging":
+        div = torch.tensor(1e-30, dtype=dtype)
+    if case == "rs0":
+        rs = torch.zeros((), dtype=dtype)
+    row = 1 if "recording" in case else None
+    rows_a = (torch.zeros(5, dtype=dtype), torch.zeros(5, dtype=dtype))
+    rows_b = tuple(t.clone() for t in rows_a)
+    trace_a = torch.full((12,), float("nan"), dtype=dtype)
+    trace_b = trace_a.clone()
+    kw = dict(recurrence=recurrence, trace=trace_a)
+    if row is not None:
+        kw.update(row=row, a_rows=rows_a[0], b_rows=rows_a[1])
+    x1, r1, ap1, so, js1, flags = kops.fused_cg_step(x, r, p, ap, d, rs, rnorm, js, active, thr,
+                                                     div, 10, aw, waw_inv, **kw)
+    want = _former_defcg_tail(x, r, p, ap, d, rs, rnorm, js[0], js[1], active, thr, div, 10,
+                              aw, waw_inv, trace_b, row, rows_b, recurrence)
+    x2, r2, ap2, rr, rnorm2, alpha, beta, mu, j2, fail2, active2, keep = want
+    for a, b in ((x1, x2), (r1, r2), (ap1, ap2), (so[0], rr), (so[1], rnorm2), (so[2], alpha),
+                 (js1[0], j2), (js1[1], fail2), (flags[0], active2), (flags[1], keep)):
+        assert _same(a, b)
+    if recurrence:
+        assert _same(so[3], beta)
+        assert _same(so[4:], mu if mu is not None else so.new_zeros(0))
+    assert _same(trace_a, trace_b)
+    assert _same(rows_a[0], rows_b[0]) and _same(rows_a[1], rows_b[1])
+
+
+def test_status_codes_and_slots_match_the_engine():
+    """The codes the tails write are the engine's, and the packed LSMR
+    scalars start as the loop's initial state."""
+    assert (cf.BREAKDOWN_NONFINITE, cf.BREAKDOWN_INDEFINITE, cf.STAGNATED) == (
+        tc.SolveStatus.BREAKDOWN_NONFINITE, tc.SolveStatus.BREAKDOWN_INDEFINITE,
+        tc.SolveStatus.STAGNATED)
+    assert engine.classify_breakdown is cf.classify_breakdown
+    v = torch.ones(4, dtype=torch.float64)
+    alpha1, normar0 = torch.tensor(2.0, dtype=torch.float64), torch.tensor(3.0, dtype=torch.float64)
+    state = tlsmr.lsmr_initial_state(v, v, None, v, v, alpha1, normar0,
+                                     torch.tensor(1e-6, dtype=torch.float64), 5, None)
+    js, s, active = state[:3]
+    assert dict(zip(cf.LSMR_SLOTS, s.tolist())) == {
+        "alpha": 2.0, "zetabar": 3.0, "alphabar": 2.0, "rho": 1.0, "rhobar": 1.0, "cbar": 1.0,
+        "sbar": 0.0}
+    assert js.tolist() == [0, 0] and bool(active)
+
+
+# ---------------------------------------------------------------------------
+# 2. Whole solves against the JAX reference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["cold", "damped", "warm", "deflated-window", "tight"])
+def test_lsmr_solve_matches_reference(case):
+    rng = np.random.default_rng(len(case))
+    m, n = 40, 25
+    A, b = rng.standard_normal((m, n)), rng.standard_normal(m)
+    damp = 0.0 if case in ("cold", "tight") else 0.1
+    x0 = rng.standard_normal(n) if case == "warm" else None
+    kw = dict(damp=damp, tol=1e-12 if case == "tight" else 1e-10, maxiter=300,
+              record_residuals=True)
+    jargs, targs = [], []
+    if case == "deflated-window":
+        W = np.linalg.qr(rng.standard_normal((n, 4)))[0].T
+        NW = W @ (A.T @ A) + damp * W
+        jargs, targs = [jnp.asarray(W), jnp.asarray(NW)], [_t(W), _t(NW)]
+        kw["ell"] = 6
+    ref = jc.lsmr(jc.DenseMatrixOperator(jnp.asarray(A)), jnp.asarray(b),
+                  None if x0 is None else jnp.asarray(x0), *jargs,
+                  **({"flat_recycle": True} if jargs else {}), **kw)
+    got = tc.lsmr(tc.DenseMatrixOperator(_t(A)), _t(b), None if x0 is None else _t(x0),
+                  *targs, **kw)
+    if jargs:
+        # The deflated solve ends at its threshold: the packages stop one
+        # iteration apart by rounding alone (ROADMAP P5; the same before
+        # the tail moved into the kernel), so the count is held within one
+        # and the charge to the count.
+        assert abs(int(got.info.iterations) - int(ref.info.iterations)) <= 1
+        assert int(got.info.matvecs) == 1 + 2 * int(got.info.iterations)
+        assert bool(got.info.converged) and bool(ref.info.converged)
+    else:
+        _assert_info_equal(ref.info, got.info)
+    np.testing.assert_allclose(_np(got.x), np.asarray(ref.x), atol=1e-10)
+    _assert_trace_head(got.info, ref.info)
+    if jargs:
+        np.testing.assert_allclose(_np(got.recycle.P), np.asarray(ref.recycle.P), atol=1e-10)
+
+
+@pytest.mark.parametrize("case", ["deflated", "window", "preconditioned", "plain"])
+def test_defcg_solve_matches_reference(case):
+    rng = np.random.default_rng(3 + len(case))
+    n, k = 60, 4
+    A, _, _ = make_spd(n, 1e3, rng)
+    b = rng.standard_normal(n)
+    kw = dict(tol=1e-10, maxiter=600, record_residuals=True)
+    jargs = targs = (None, None)
+    if case != "plain":
+        W = np.linalg.qr(rng.standard_normal((n, k)))[0].T
+        jargs, targs = (jnp.asarray(W), jnp.asarray(W @ A)), (_t(W), _t(W @ A))
+    if case == "window":
+        kw["ell"] = 6
+    jkw, tkw = dict(kw), dict(kw)
+    if case == "preconditioned":
+        diag = np.diag(A).copy()
+        jkw["M"] = jc.jacobi(jnp.asarray(diag))
+        tkw["M"] = tc.jacobi(_t(diag))
+    ref = jc.defcg(jc.from_matrix(jnp.asarray(A)), jnp.asarray(b), None, *jargs,
+                   flat_recycle=True, **jkw)
+    got = tc.defcg(tc.from_matrix(_t(A)), _t(b), None, *targs, **tkw)
+    _assert_info_equal(ref.info, got.info)
+    np.testing.assert_allclose(_np(got.x), np.asarray(ref.x), atol=1e-10)
+    _assert_trace_head(got.info, ref.info)
+    if case == "window":
+        for field in ("P", "AP", "alpha", "beta"):
+            np.testing.assert_allclose(_np(getattr(got.recycle, field)),
+                                       np.asarray(getattr(ref.recycle, field)), atol=1e-10,
+                                       err_msg=field)
+
+
+@pytest.mark.parametrize("case", ["plain", "preconditioned", "indefinite"])
+def test_cg_solve_matches_reference(case):
+    rng = np.random.default_rng(11 + len(case))
+    n = 50
+    A, _, _ = make_spd(n, 1e2, rng)
+    if case == "indefinite":  # a negative eigenvalue: pᵀAp ≤ 0 stops the solve
+        q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        A = (q * np.linspace(-1.0, 5.0, n)) @ q.T
+    b = rng.standard_normal(n)
+    jkw, tkw = dict(tol=1e-10, maxiter=400), dict(tol=1e-10, maxiter=400)
+    if case == "preconditioned":
+        diag = np.diag(A).copy()
+        jkw["M"] = jc.jacobi(jnp.asarray(diag))
+        tkw["M"] = tc.jacobi(_t(diag))
+    ref = jc.cg(jc.from_matrix(jnp.asarray(A)), jnp.asarray(b), **jkw)
+    got = tc.cg(tc.from_matrix(_t(A)), _t(b), **tkw)
+    _assert_info_equal(ref.info, got.info)
+    np.testing.assert_allclose(_np(got.x), np.asarray(ref.x), atol=1e-10)
+    if case == "indefinite":
+        assert int(got.info.status) == tc.SolveStatus.BREAKDOWN_INDEFINITE
+
+
+# ---------------------------------------------------------------------------
+# 3. K1's one-launch reduction, emulated
+# ---------------------------------------------------------------------------
+
+THREADS, WARPS = 256, 8
+
+
+def _warp_sum(v):
+    """Lane 0 of ``__shfl_down_sync``'s tree over the last axis (32 lanes):
+    lanes past the end read their own value."""
+    for off in (16, 8, 4, 2, 1):
+        v = v + torch.cat([v[..., off:], v[..., 32 - off:]], dim=-1)
+    return v[..., 0]
+
+
+def _emulate_k1_sums(prods, grid, vec, order):
+    """K1's sums of ``prods`` (columns × n per-element products), as the
+    kernel forms them.  Each thread takes slots of ``vec`` elements (one
+    16-byte group; 1 without ``vec``), two slots a step with ``vec`` and
+    four without, slot s of block b's step at unit ``b·256·S + s·256 + t``
+    (grid-stride), then the ragged tail; per warp the shuffle tree, per
+    block its warps in order; blocks finish in ``order``, each writes its
+    partials and draws a ticket, and the one that draws the last ticket
+    sums the partials in block order (lane l takes blocks l, l + 32, …,
+    then the tree)."""
+    cols, n = prods.shape
+    width, slots = (vec, 2) if vec else (1, 4)
+    units = n // width
+    acc = torch.zeros(cols, grid, THREADS, dtype=prods.dtype)
+    blk = torch.arange(grid)[:, None]
+    thr = torch.arange(THREADS)[None, :]
+    stride = grid * THREADS * slots
+    zero = torch.zeros((), dtype=prods.dtype)
+    for base in range(0, units, stride):
+        for slot in range(slots):
+            u = base + blk * THREADS * slots + slot * THREADS + thr
+            ok = u < units
+            for w in range(width):
+                e = torch.where(ok, u * width + w, 0)
+                acc += torch.where(ok, prods[:, e], zero)
+    if vec:
+        e = units * width + blk * THREADS + thr
+        ok = e < n
+        acc += torch.where(ok, prods[:, torch.where(ok, e, 0)], zero)
+    warp_parts = _warp_sum(acc.reshape(cols, grid, WARPS, 32))  # (cols, grid, warps)
+    partials = torch.full((grid, cols), float("nan"), dtype=prods.dtype)
+    ticket, result = 0, None
+    for b in order:
+        s = torch.zeros(cols, dtype=prods.dtype)
+        for w in range(WARPS):
+            s = s + warp_parts[:, b, w]
+        partials[b] = s
+        if ticket == grid - 1:
+            lanes = torch.zeros(cols, 32, dtype=prods.dtype)
+            for b0 in range(0, grid, 32):
+                chunk = partials[b0:b0 + 32].T  # (cols, ≤ 32)
+                lanes[:, : chunk.shape[1]] = lanes[:, : chunk.shape[1]] + chunk
+            result = _warp_sum(lanes)
+        ticket += 1
+    return result
+
+
+@pytest.mark.parametrize("n", [1, 7, 1000, 36551])
+@pytest.mark.parametrize("grid", [1, 3, 143])
+@pytest.mark.parametrize("vec", [None, 2])
+@pytest.mark.parametrize("k", [0, 8])
+def test_k1_reduction_order(n, grid, vec, k):
+    g = torch.Generator().manual_seed(n + grid + k)
+    rn = torch.randn(n, generator=g, dtype=torch.float64)
+    aw = torch.randn(k, n, generator=g, dtype=torch.float64)
+    prods = torch.cat([(rn * rn)[None], aw * rn[None]])
+    want = torch.cat([torch.dot(rn, rn)[None], aw @ rn])
+    results = []
+    for seed in range(3):
+        order = torch.randperm(grid, generator=torch.Generator().manual_seed(seed)).tolist()
+        results.append(_emulate_k1_sums(prods, grid, vec, order))
+    assert all(torch.equal(results[0], res) for res in results[1:])
+    scale = prods.abs().sum(dim=1)
+    assert bool(((results[0] - want).abs() <= 1e-13 * scale).all())
+
+
+# ---------------------------------------------------------------------------
+# 4. The sharded LSMR step ends in the same tail
+# ---------------------------------------------------------------------------
+
+
+class _OneRank:
+    """A solve mesh of one rank: every collective is the identity."""
+
+    size = 1
+
+    def all_reduce(self, t):
+        return t
+
+
+@pytest.mark.parametrize("damp", [0.0, 0.1])
+def test_sharded_lsmr_shares_the_tail(monkeypatch, damp):
+    assert sharded.lsmr_tail is tlsmr.lsmr_tail
+    assert sharded.lsmr_initial_state is tlsmr.lsmr_initial_state
+    calls = []
+    step = kops.lsmr_step
+
+    def counting(*args, **kwargs):
+        calls.append(1)
+        return step(*args, **kwargs)
+
+    monkeypatch.setattr(kops, "lsmr_step", counting)
+    rng = np.random.default_rng(2)
+    A, b = _t(rng.standard_normal((30, 20))), _t(rng.standard_normal(30))
+    kw = dict(tol=1e-10, atol=0.0, maxiter=200, record_residuals=True)
+    got = tc.lsmr(tc.DenseMatrixOperator(A), b, damp=damp, **kw)
+    unsharded_calls, calls[:] = len(calls), []
+    x, info = sharded._sharded_lsmr(lambda v: A @ v, lambda u: A.T @ u, _OneRank(), b,
+                                    torch.zeros(20, dtype=torch.float64), has_x0=False,
+                                    damp=damp, **kw)
+    # Every step, live or frozen, is one tail call in both loops.
+    steps = engine.CHUNK * -(-int(got.info.iterations) // engine.CHUNK)
+    assert unsharded_calls == len(calls) == steps
+    assert int(info.iterations) == int(got.info.iterations)
+    assert int(info.status) == int(got.info.status)
+    np.testing.assert_allclose(_np(x), _np(got.x), atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# 5. The entry points dispatch by device and never fall back
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("backend", ["auto", "plain", "reference"])
+def test_step_entry_points_run_the_plain_version_on_the_cpu(backend):
+    x, hbar, h, v, w, beta, s, js, active, thr, div = _lsmr_state(torch.float64, 9, "live", 3)
+    got = kops.lsmr_step(x, hbar, h, v, w, torch.dot(w, w), beta, s, js, active, thr, div, 10,
+                         backend=backend)
+    want = cf.lsmr_step_plain(x, hbar, h, v, w, torch.dot(w, w), beta, s, js, active, thr, div, 10)
+    assert all(_same(a, b) for a, b in zip(got, want))
+    d = torch.dot(x, v).abs() + 1.0
+    rs = torch.dot(h, h)
+    args = (x, hbar, h, v, d, rs, rs.sqrt(), js, active, thr, div, 10)
+    got = kops.fused_cg_step(*args, backend=backend)
+    want = cf.fused_cg_step_plain(*args)
+    assert all(_same(a, b) for a, b in zip(got, want))
+
+
+def test_step_entry_points_refuse_cuda_on_cpu_tensors():
+    x, hbar, h, v, w, beta, s, js, active, thr, div = _lsmr_state(torch.float64, 9, "live", 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        kops.lsmr_step(x, hbar, h, v, w, torch.dot(w, w), beta, s, js, active, thr, div, 10,
+                       backend="cuda")
+    with pytest.raises(ValueError, match="CUDA"):
+        kops.fused_cg_step(x, hbar, h, v, torch.dot(x, v), torch.dot(h, h), torch.dot(h, h), js,
+                           active, thr, div, 10, backend="cuda")
+    # The wrappers themselves refuse a CPU tensor: no fallback.
+    with pytest.raises(ValueError, match="CUDA kernel called on a cpu tensor"):
+        cf.lsmr_step_cuda(x, hbar, h, v, w, torch.dot(w, w), beta, s, js, active, thr, div, 10)
+    with pytest.raises(ValueError, match="CUDA kernel called on a cpu tensor"):
+        cf.fused_cg_step_cuda(x, hbar, h, v, torch.dot(x, v), torch.dot(h, h), torch.dot(h, h),
+                              js, active, thr, div, 10)
