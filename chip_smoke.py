@@ -20,9 +20,16 @@ Phases, each of which fails the script when it fails:
               flushed before each) beside its plain version, the one
               PyTorch call that computes the same function where there is
               one, and its bound.  The RBF Gram matvec (K3) must repeat bit
-              for bit at the paper's n.  K6's timed
-              arm is its AW arm (no single PyTorch call: library null); its
-              no-AW arm is timed beside ``torch.dot(r, z)``.  The LSMR
+              for bit at the paper's n.  K6's and K2's entries
+              time their step arms (``fused_rz_step``, the preconditioned
+              def-CG tail; ``fused_direction_step``, the direction update
+              with the ``p`` select: no single PyTorch call, library null),
+              beside every other arm (one device kernel a call each, or the
+              phase fails) and the previous designs' times: K6's no-AW arm
+              beside ``torch.dot(r, z)``, its pair arm (the sharded
+              def-CG's four reductions) at main-shard's per-rank n beside
+              the two one-vector calls it replaces, K2's k = 0 step arm
+              beside ``torch.addcmul(r, β, p)``.  The LSMR
               update (K7) is held at the
               least-squares path's n = 16 384, the Gauss-Newton parameter
               count 32 768, lsq_bench's 2²⁰ and a ragged n.  K1's and K7's
@@ -62,7 +69,8 @@ Phases, each of which fails the script when it fails:
               reference has the same gap at tol 1e-5, growing with n.
               Counted apart, ``torch.profiler`` over 16 deflated def-CG
               iterations on the dense system gives the launches per
-              iteration (``profile_defcg_steps``).
+              iteration (``profile_defcg_steps``), and over 16 with the
+              Jacobi preconditioner (``profile_pdefcg_steps``).
 6. scale    — one RBF Gram matvec each in f32 and f64 at n = 131 072,
               d = 784, where a dense K would need 69 GB (f32) or 137 GB.
 7. main-mf  — the matrix-free Newton sequence (K never formed; every K
@@ -160,8 +168,8 @@ Phases, each of which fails the script when it fails:
               (``PREVIOUS_MS``) beside this run's.
 
 A ``[summary]`` line gives the device launches per damped LSMR and
-deflated def-CG iteration, main-lsq's ms per cold LSMR iteration and
-main-gn's device busy share.
+deflated def-CG iteration (without and with the Jacobi preconditioner),
+main-lsq's ms per cold LSMR iteration and main-gn's device busy share.
 
 Each main path (5, 7, 10, 11, 13, 15 and 16) is driven with the launch
 counters set to 0 just before it and read just after (13: on every rank);
@@ -214,6 +222,9 @@ PEAKS = {
              "float64_tensor": 67e12, "bfloat16_tensor": 989e12},
 }
 GEMM_SHAPED = ("self_gram", "recombine_blocks")
+# The arm each kernel's entry of the kernels line times, where it is not
+# the TPU function's: the arm the main paths run.
+TIMED_ARM = {"fused_rz_reduce": "fused_rz_step", "fused_deflate_direction": "fused_direction_step"}
 
 # benchmarks/lsq_bench.py's drifting ridge sequence (λ = 1e-4, tol 1e-8,
 # deflsmr(8, 48), exact NW refresh, drift 0.02), at its own size for the
@@ -269,8 +280,13 @@ LONG_REPS = 3
 # reduce block per pair, K5's thread-per-column kernel, K3's SIMT kernel
 # over every 64 × 64 tile and K8 on it, K10's one block per (batch, head)
 # walking its chunks in order on the CUDA cores, K1's two launches (partials,
-# then a reduce kernel) and K7's grid capped at 8 blocks an SM.
-PREVIOUS_MS = {"ssd_scan main": 9.389, "flash_attention main": 6.243, "flash_attention 32k": 92.68,
+# then a reduce kernel), K7's grid capped at 8 blocks an SM, K6's two
+# launches and K2's one element a thread on a capped grid.
+PREVIOUS_MS = {"fused_rz_reduce float64 n=36551": 0.0114,
+               "fused_rz_reduce no-aw float64 n=36551": 0.0094,
+               "fused_deflate_direction float64 n=36551": 0.0081,
+               "fused_deflate_direction recording float64 n=36551": 0.0087,
+               "ssd_scan main": 9.389, "flash_attention main": 6.243, "flash_attention 32k": 92.68,
                "self_gram 40x36551": 0.0441, "self_gram 112x16384": 0.1187,
                "recombine_blocks 40x36551": 0.0201, "recombine_blocks 112x16384": 0.0387,
                "rbf_matvec float64 r=1": 262.21, "rbf_matvec float64 r=8": 264.86,
@@ -379,8 +395,9 @@ def profile_kernels(torch, fn, reps=REPS):
 
 def kernels_per_call(torch, fn, reps=REPS):
     """Device kernels launched by one ``fn()``, from a ``torch.profiler``
-    trace of ``reps`` calls; a session that comes back with no device
-    events at all is run again (three at most)."""
+    trace of ``reps`` calls; a session that lost events (none at all, or a
+    count that is not a whole number of kernels a call) is run again
+    (three at most)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -391,7 +408,7 @@ def kernels_per_call(torch, fn, reps=REPS):
                 fn()
             torch.cuda.synchronize()
         count = sum(e.count for e in prof.key_averages() if _is_device(e) and _device_us(e) > 0)
-        if count:
+        if count and count % reps == 0:
             break
     return count / reps
 
@@ -424,19 +441,30 @@ def kernel_inputs(torch, n, dtype, seed):
     def rnd(*shape):
         return torch.randn(*shape, generator=g, device="cuda", dtype=dtype)
 
-    return {
+    t = {
         "x": rnd(n), "r": rnd(n), "p": rnd(n), "ap": rnd(n),
-        "aw": rnd(K, n), "w": rnd(K, n), "mu": rnd(K),
-        "alpha": rnd(()), "beta": rnd(()),
+        "aw": rnd(K, n), "w": rnd(K, n), "mu": rnd(K), "waw_inv": rnd(K, K),
+        "alpha": rnd(()), "beta": rnd(()), "so": rnd(2 + K),
         "p_buf": rnd(ELL + 1, n), "ap_buf": rnd(ELL + 1, n),
-        "idx": torch.tensor(5, device="cuda"),
+        "idx": torch.tensor(5, device="cuda"), "on": torch.tensor(True, device="cuda"),
         "s": rnd(2 * M, n), "u": rnd(M, K),
     }
+    t["rs"] = torch.dot(t["r"], t["r"])
+    return t
 
 
 def kernel_calls(cf, t):
-    """name -> list of (label, kernel call, plain call) on inputs ``t``."""
+    """name -> list of (label, kernel call, plain call) on inputs ``t``.
+    K6's and K2's first arms are their step arms, the arms the main paths
+    run (K2's reads β and μ from a view of a packed ``[rs', β, μ…]``, as
+    the loops hand it K6's or K1's step output)."""
     bufs = lambda: (t["p_buf"].clone(), t["ap_buf"].clone())  # noqa: E731
+    # The step arms' recording targets, allocated here, not in the timed
+    # calls: a copy or fill there is a device kernel of its own.
+    rows = dict(row=3, a_rows=t["p_buf"].new_zeros(ELL + 1), b_rows=t["p_buf"].new_zeros(ELL + 1))
+    rec = dict(ap=t["ap"], active=t["on"], row=3, p_buf=t["p_buf"], ap_buf=t["ap_buf"])
+    beta, mu = t["so"][1], t["so"][2:]
+    rz_step = dict(alpha=t["alpha"], active=t["on"])
     return {
         "fused_cg_update": [
             ("aw", lambda: cf.fused_cg_update_cuda(t["x"], t["r"], t["p"], t["ap"], t["alpha"], t["aw"]),
@@ -445,6 +473,12 @@ def kernel_calls(cf, t):
              lambda: cf.fused_cg_update_plain(t["x"], t["r"], t["p"], t["ap"], t["alpha"])),
         ],
         "fused_deflate_direction": [
+            ("step", lambda: (cf.fused_direction_step_cuda(t["r"], t["p"], beta, t["on"], t["w"], mu),),
+             lambda: (cf.fused_direction_step_plain(t["r"], t["p"], beta, t["on"], t["w"], mu),)),
+            ("step-rec", lambda: (cf.fused_direction_step_cuda(t["r"], t["p"], beta, t["on"], t["w"], mu, **rec),),
+             lambda: (cf.fused_direction_step_plain(t["r"], t["p"], beta, t["on"], t["w"], mu, **rec),)),
+            ("step-k0", lambda: (cf.fused_direction_step_cuda(t["r"], t["p"], beta, t["on"]),),
+             lambda: (cf.fused_direction_step_plain(t["r"], t["p"], beta, t["on"]),)),
             ("direction", lambda: cf.fused_deflate_direction_cuda(t["r"], t["p"], t["beta"], t["w"], t["mu"]),
              lambda: cf.fused_deflate_direction_plain(t["r"], t["p"], t["beta"], t["w"], t["mu"])),
             ("buffered", lambda: cf.fused_deflate_direction_cuda(t["r"], t["p"], t["beta"], t["w"], t["mu"], t["ap"], t["idx"], *bufs()),
@@ -456,6 +490,12 @@ def kernel_calls(cf, t):
             ("S", lambda: (cf.self_gram_cuda(t["s"]),), lambda: (cf.self_gram_plain(t["s"]),)),
         ],
         "fused_rz_reduce": [
+            ("step", lambda: (cf.fused_rz_step_cuda(t["r"], t["p"], t["rs"], t["aw"], t["waw_inv"]),),
+             lambda: (cf.fused_rz_step_plain(t["r"], t["p"], t["rs"], t["aw"], t["waw_inv"]),)),
+            ("step-rec", lambda: (cf.fused_rz_step_cuda(t["r"], t["p"], t["rs"], t["aw"], t["waw_inv"], **rz_step, **rows),),
+             lambda: (cf.fused_rz_step_plain(t["r"], t["p"], t["rs"], t["aw"], t["waw_inv"], **rz_step, **rows),)),
+            ("pair", lambda: cf.fused_rz_pair_cuda(t["r"], t["ap"], t["aw"]),
+             lambda: cf.fused_rz_pair_plain(t["r"], t["ap"], t["aw"])),
             ("aw", lambda: cf.fused_rz_reduce_cuda(t["r"], t["p"], t["aw"]),
              lambda: cf.fused_rz_reduce_plain(t["r"], t["p"], t["aw"])),
             ("no-aw", lambda: cf.fused_rz_reduce_cuda(t["r"], t["p"]),
@@ -482,6 +522,12 @@ def work(name, n, itemsize):
         return (2 * M * n + M * K + 2 * K * n) * itemsize, 4 * K * M * n
     if name == "fused_rz_reduce":
         return ((2 + K) * n + K + 1) * itemsize, 2 * (1 + K) * n
+    if name == "fused_rz_step":  # r, z, AW, (WᵀAW)⁻¹, rs, α in; [rs', β, μ] out
+        return ((2 + K) * n + K * K + 2 + 2 + K) * itemsize, 2 * (1 + K) * n + 2 * K * K + 1
+    if name == "fused_rz_pair":  # r, ap, AW in; both sets of sums out
+        return ((2 + K) * n + 2 * (1 + K)) * itemsize, 4 * (1 + K) * n
+    if name == "fused_direction_step":  # as the TPU arm; the keep flag besides
+        return (3 * n + K * n + K + 1) * itemsize + 1, (2 + 2 * K) * n
     if name == "lsmr_update":  # x, h̄, h, v and c0..c2 in; x', h̄', h' out
         return (7 * n + 3) * itemsize, 6 * n
     raise KeyError(name)
@@ -514,8 +560,9 @@ def phase_kernels(torch, cf, peaks):
     t = kernel_inputs(torch, PAPER_N, f64, seed=1)
     ut = t["u"].T
     # One PyTorch call computing the timed arm's function, where one exists.
-    # K6's timed arm is the AW arm (rᵀz and (AW)ᵀz from unstacked inputs:
-    # no single call); its no-AW arm is timed beside torch.dot below.
+    # K6's and K2's timed arms are their step arms (no single call); K6's
+    # no-AW arm is timed beside torch.dot and K2's k = 0 step arm beside
+    # torch.addcmul below.
     library = {
         "self_gram": lambda: t["s"] @ t["s"].T,
         "recombine_blocks": lambda: torch.matmul(ut, t["s"].view(2, M, PAPER_N)),
@@ -523,7 +570,7 @@ def phase_kernels(torch, cf, peaks):
     calls = kernel_calls(cf, t)
     for name, entry in report.items():
         _, kern, plain = calls[name][0]
-        nbytes, ops = work(name, PAPER_N, 8)
+        nbytes, ops = work(TIMED_ARM.get(name, name), PAPER_N, 8)
         entry["ms"] = device_ms(torch, kern)
         entry["plain_ms"] = device_ms(torch, plain)
         entry["library_ms"] = device_ms(torch, library[name]) if name in library else None
@@ -532,22 +579,58 @@ def phase_kernels(torch, cf, peaks):
         entry["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
         entry["profiled_kernels_ms"] = profile_kernels(torch, kern)
         extra = f" profiler {entry['profiled_kernels_ms']}"
-        if name == "fused_deflate_direction":
-            entry["recording_arm_ms"] = device_ms(torch, lambda: cf.fused_deflate_direction_cuda(
-                t["r"], t["p"], t["beta"], t["w"], t["mu"], t["ap"], t["idx"],
-                t["p_buf"], t["ap_buf"]))
-            extra += f" recording arm {entry['recording_arm_ms']:.4f} ms"
-        if name == "fused_rz_reduce":
-            entry["no_aw_ms"] = device_ms(torch, calls[name][1][1])
-            entry["no_aw_library_ms"] = device_ms(torch, lambda: torch.dot(t["r"], t["p"]))
-            extra += (f" no-AW arm {entry['no_aw_ms']:.4f} ms beside torch.dot(r, z) "
-                      f"{entry['no_aw_library_ms']:.4f} ms")
+        if name in TIMED_ARM:
+            extra += arms_timing(torch, cf, name, entry, t, calls[name], peaks)
         if name in ("self_gram", "recombine_blocks"):
             extra += f" previous design {PREVIOUS_MS.get(f'{name} {2 * M}x{PAPER_N}')} ms"
         log(f"[timing] {name:24s} f64 n={PAPER_N}: kernel {entry['ms']:.4f} ms, plain "
             f"{entry['plain_ms']:.4f} ms, library {entry['library_ms']} ms, bound "
             f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}){extra}")
     return report
+
+
+def arms_timing(torch, cf, name, entry, t, calls, peaks):
+    """K6's and K2's arms at the main path's n (f64, k = 8): each timed, its
+    device kernels a call counted (one each, or the phase fails), beside
+    the previous design's time; K6's no-AW arm beside ``torch.dot(r, z)``,
+    its pair arm at main-shard's per-rank n beside the two one-vector calls
+    it replaces, K2's k = 0 step arm beside ``torch.addcmul(r, β, p)``.
+    Returns the log line's tail."""
+    arms = {label: kern for label, kern, _ in calls}
+    if name == "fused_rz_reduce":
+        n_loc = SHARD_N // SHARD_RANKS
+        r, ap, aw = t["r"][:n_loc], t["ap"][:n_loc], t["aw"][:, :n_loc].contiguous()
+        arms["pair n_loc"] = lambda: cf.fused_rz_pair_cuda(r, ap, aw)
+        two = lambda: (cf.fused_rz_reduce_cuda(r, ap, aw), cf.fused_rz_reduce_cuda(r, r, aw))  # noqa: E731
+        library = {"no-aw": lambda: torch.dot(t["r"], t["p"]), "pair n_loc": two}
+        previous = {"aw": PREVIOUS_MS["fused_rz_reduce float64 n=36551"],
+                    "no-aw": PREVIOUS_MS["fused_rz_reduce no-aw float64 n=36551"]}
+        nbytes, ops = work("fused_rz_pair", n_loc, 8)
+        entry["pair_n"] = n_loc
+        entry["pair_bound_ms"] = 1e3 * max(nbytes / peaks["bytes"], ops / peaks["float64"])
+    else:
+        # The buffered arm's check writes copies of the buffers; timed, it
+        # writes the buffers themselves.
+        arms["buffered"] = lambda: cf.fused_deflate_direction_cuda(
+            t["r"], t["p"], t["beta"], t["w"], t["mu"], t["ap"], t["idx"], t["p_buf"], t["ap_buf"])
+        library = {"step-k0": lambda: torch.addcmul(t["r"], t["so"][1], t["p"])}
+        previous = {"direction": PREVIOUS_MS["fused_deflate_direction float64 n=36551"],
+                    "buffered": PREVIOUS_MS["fused_deflate_direction recording float64 n=36551"]}
+    arms.pop("plain-cg", None)
+    entry["arms"] = out = {}
+    for label, fn in arms.items():
+        out[label] = a = {"ms": device_ms(torch, fn), "kernels_per_call": kernels_per_call(torch, fn),
+                          "previous_design_ms": previous.get(label)}
+        if label in library:
+            a["library_ms"] = device_ms(torch, library[label])
+        if a["kernels_per_call"] != 1:
+            raise AssertionError(f"[timing] {name}[{label}]: {a['kernels_per_call']} device "
+                                 "kernels a call, not one")
+    return "; arms " + ", ".join(
+        f"{label} {a['ms']:.4f} ms" + (f" (previous {a['previous_design_ms']})"
+                                       if a["previous_design_ms"] else "")
+        + (f" beside {a['library_ms']:.4f}" if "library_ms" in a else "")
+        for label, a in out.items()) + ", one device kernel a call each"
 
 
 def rbf_inputs(torch, n, d, r, dtype, seed):
@@ -1241,29 +1324,31 @@ def profile_lsmr_steps(torch, A, b, W=None, NW=None, steps=16):
             "wall_ms_per_iteration_profiled": 1e3 * wall / steps, "kernels": names}
 
 
-def profile_defcg_steps(torch, k_dense, steps=16):
+def profile_defcg_steps(torch, k_dense, steps=16, precond=False):
     """``torch.profiler`` over ``steps`` deflated def-CG iterations (k = 8,
     tol 0, so every step is live) on the dense main path's Newton system
     ``I + H½ K H½`` at H½ = ½·I, with a random orthonormal basis W and its
-    products AW: device kernels launched per iteration, and device time
-    per iteration split into the dense GEMV and everything else."""
+    products AW; ``precond`` adds the Jacobi preconditioner ``diag(A)``:
+    device kernels launched per iteration, and device time per iteration
+    split into the dense GEMV and everything else."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import KernelSystemOperator, defcg
+    from repro_torch.core import KernelSystemOperator, defcg, jacobi
 
     n = k_dense.shape[0]
     g = torch.Generator(device="cuda").manual_seed(5)
-    op = KernelSystemOperator(lambda v: k_dense @ v,
-                              torch.full((n,), 0.5, dtype=k_dense.dtype, device="cuda"))
+    half = torch.full((n,), 0.5, dtype=k_dense.dtype, device="cuda")
+    op = KernelSystemOperator(lambda v: k_dense @ v, half)
+    M = jacobi(1.0 + half * half * torch.diagonal(k_dense)) if precond else None
     b = torch.randn(n, generator=g, device="cuda", dtype=k_dense.dtype)
     W = torch.linalg.qr(torch.randn(n, K, generator=g, device="cuda",
                                     dtype=k_dense.dtype)).Q.T.contiguous()
     AW = op.basis_matvec(W)
-    defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=steps)
+    defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=steps, M=M)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=steps)
+        res = defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=steps, M=M)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     if int(res.info.iterations) != steps:
@@ -1280,10 +1365,18 @@ def profile_defcg_steps(torch, k_dense, steps=16):
         else:
             other_us += us
         names[evt.key[:50]] = evt.count
-    return {"n": n, "k": K, "steps": steps, "launches_per_iteration": launches / steps,
+    return {"n": n, "k": K, "steps": steps, "preconditioner": "jacobi" if precond else None,
+            "launches_per_iteration": launches / steps,
             "gemv_ms_per_iteration": gemv_us / steps / 1e3,
             "other_ms_per_iteration": other_us / steps / 1e3,
             "wall_ms_per_iteration_profiled": 1e3 * wall / steps, "kernels": names}
+
+
+def profile_pdefcg_steps(torch, k_dense, steps=16):
+    """:func:`profile_defcg_steps` with the Jacobi preconditioner: the
+    preconditioned deflated def-CG iteration, which ends in K6's and K2's
+    step arms."""
+    return profile_defcg_steps(torch, k_dense, steps, precond=True)
 
 
 def phase_main_lsq(torch, cf, peaks):
@@ -2393,13 +2486,16 @@ def main(argv) -> int:
     log(f"[main tol=1e-10] launches {tight_launches}; plain versions on the card "
         f"{tight_plain}")
 
-    # Launches per deflated def-CG iteration, counted apart from the runs.
-    report["defcg_profile"] = prof = profile_defcg_steps(torch, k_dense)
-    log(f"[main] profile def-CG (deflated, k = {K}, n = {PAPER_N}): "
-        f"{prof['launches_per_iteration']:.1f} launches per iteration; device "
-        f"{prof['gemv_ms_per_iteration']:.4f} ms GEMV + {prof['other_ms_per_iteration']:.4f} ms "
-        f"other per iteration; wall {prof['wall_ms_per_iteration_profiled']:.4f} ms per "
-        f"iteration under the profiler; kernels {prof['kernels']}")
+    # Launches per deflated def-CG iteration, without and with the Jacobi
+    # preconditioner, counted apart from the runs.
+    report["defcg_profile"] = profile_defcg_steps(torch, k_dense)
+    report["pdefcg_profile"] = profile_pdefcg_steps(torch, k_dense)
+    for what, prof in (("", report["defcg_profile"]), (", Jacobi", report["pdefcg_profile"])):
+        log(f"[main] profile def-CG (deflated{what}, k = {K}, n = {PAPER_N}): "
+            f"{prof['launches_per_iteration']:.1f} launches per iteration; device "
+            f"{prof['gemv_ms_per_iteration']:.4f} ms GEMV + {prof['other_ms_per_iteration']:.4f} ms "
+            f"other per iteration; wall {prof['wall_ms_per_iteration_profiled']:.4f} ms per "
+            f"iteration under the profiler; kernels {prof['kernels']}")
 
     # At the paper's solver tol (1e-5) the iterative Newton sequences drift
     # from Cholesky's by far more than the tolerance, by a gap that grows
@@ -2619,7 +2715,8 @@ def main(argv) -> int:
     log(f"[summary] device launches per iteration: damped LSMR (main-lsq) cold "
         f"{lp['cold']['launches_per_iteration']:.1f}, deflated "
         f"{lp['deflated']['launches_per_iteration']:.1f}; deflated def-CG (main, n = {PAPER_N}) "
-        f"{report['defcg_profile']['launches_per_iteration']:.1f}; main-lsq "
+        f"{report['defcg_profile']['launches_per_iteration']:.1f}, Jacobi-preconditioned "
+        f"{report['pdefcg_profile']['launches_per_iteration']:.1f}; main-lsq "
         f"{report['main_lsq']['runs']['cold']['ms_per_iteration']:.3f} ms per cold LSMR "
         f"iteration; main-gn device busy {report['main_gn']['profile']['device_busy_share']:.1%}, "
         f"{report['main_gn']['recycled']['ms_per_iteration']:.3f} ms per LSMR iteration (recycled)")

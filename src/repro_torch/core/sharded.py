@@ -195,8 +195,7 @@ def _sharded_cg(apply, mesh, b, x0, *, tol, atol, maxiter, record_residuals):
         # convergence the cancellation can go eps-negative).
         rs_new = torch.clamp(rs - 2.0 * alpha * rap + alpha * alpha * apap, min=0.0)
         beta = rs_new / torch.where(rs == 0.0, 1.0, rs)
-        p_new, _, _ = kops.fused_deflate_direction(r, p, beta)
-        p = torch.where(active, p_new, p)
+        p = kops.fused_direction_step(r, p, beta, active)
         rnorm_new = torch.sqrt(rs_new)
         fail = torch.where(
             (fail == 0) & active & ~torch.isfinite(rnorm_new),
@@ -221,10 +220,10 @@ def _sharded_defcg(
     """Deflated CG + harmonic-Ritz extraction on per-rank state.
 
     The iteration's ONE all-reduce merges ``[pᵀAp, rᵀAp, ApᵀAp, (AW)ᵀAp,
-    ‖r‖², (AW)ᵀr]``: fresh reductions of the incoming residual (two K6
-    passes) plus the Ap products; ``‖r₊‖²`` and ``(AW)ᵀr₊`` for β and μ
-    come from the one-step recurrences.  Returns ``(x, info, W', AW',
-    theta)`` with ``theta`` None when ``ell == 0``.
+    ‖r‖², (AW)ᵀr]``: fresh reductions of the incoming residual (one pass
+    of K6's pair arm) plus the Ap products; ``‖r₊‖²`` and ``(AW)ᵀr₊`` for
+    β and μ come from the one-step recurrences.  Returns ``(x, info, W',
+    AW', theta)`` with ``theta`` None when ``ell == 0``.
     """
     dtype, device = b.dtype, b.device
     matvecs = 0
@@ -279,8 +278,7 @@ def _sharded_defcg(
     def step(state, active, row):
         j, x, r, p, rnorm, trace, fail = state
         ap = apply(p)
-        rap_l, awap_l = kops.fused_rz_reduce(r, ap, aw_used)
-        rs_l, awr_l = kops.fused_rz_reduce(r, r, aw_used)
+        rap_l, awap_l, rs_l, awr_l = kops.fused_rz_pair(r, ap, aw_used)
         d, rap, apap, awap, rs, awr = engine.psum_merged(
             [torch.dot(p, ap), rap_l, torch.dot(ap, ap), awap_l, rs_l, awr_l], mesh
         )
@@ -294,16 +292,11 @@ def _sharded_defcg(
         rs_new = torch.clamp(rs - 2.0 * alpha * rap + alpha * alpha * apap, min=0.0)
         mu = winv @ (awr - alpha * awap)
         beta = rs_new / torch.where(rs == 0.0, 1.0, rs)
-        if row is None:
-            p_new, _, _ = kops.fused_deflate_direction(r, p, beta, w, mu)
-        else:
-            # The incoming (p, Ap) go to window row ``row``; frozen steps
-            # write the spare row.
-            slot = torch.where(active, row, ell).to(torch.int64)
-            p_new, _, _ = kops.fused_deflate_direction(
-                r, p, beta, w, mu, ap, slot, p_buf, ap_buf
-            )
-        p = torch.where(active & ~bad, p_new, p)
+        # The incoming (p, Ap) go to window row ``row``; frozen steps write
+        # the spare row.
+        rec = {} if row is None else dict(ap=ap, active=active, row=row, p_buf=p_buf,
+                                          ap_buf=ap_buf)
+        p = kops.fused_direction_step(r, p, beta, active & ~bad, w, mu, **rec)
         rnorm_new = torch.sqrt(rs_new)
         fail = torch.where(
             (fail == 0) & active & ~torch.isfinite(rnorm_new),

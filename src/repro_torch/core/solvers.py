@@ -5,13 +5,14 @@ state, the same accounting, on the masked-step harness of
 :mod:`repro_torch.core.engine`.  An iteration past its product is ``pᵀAp``,
 ONE ``fused_cg_step`` launch (breakdown test, α, the update, β, μ, the
 residual norm, status, trace, j and the next active flag;
-:mod:`repro_torch.kernels.ops`), the direction update and the ``p``
-select; with a preconditioner, ``z = M⁻¹r`` and one ``fused_rz_reduce``
-pass come between, and β and μ are formed eagerly.  The first ``ell``
-search directions and their products are recorded by the direction
-update straight into ``(ell + 1, n)`` buffers: row ``ell`` is the spare
-row frozen steps write to, so rows past ``stored`` stay zero as the
-reference's masked scan outputs do.
+:mod:`repro_torch.kernels.ops`) and ONE ``fused_direction_step`` launch
+(the direction update with the ``p`` select and the recording slot); with
+a preconditioner, ``z = M⁻¹r`` and ONE ``fused_rz_step`` launch come
+between, which forms ``rᵀz``, β, μ and the recorded α / β on the card.
+The first ``ell`` search directions and their products are recorded by
+the direction step straight into ``(ell + 1, n)`` buffers: row ``ell`` is
+the spare row frozen steps write to, so rows past ``stored`` stay zero as
+the reference's masked scan outputs do.
 
 Deflation (Alg. 1 lines 3 and 11):
 
@@ -98,7 +99,7 @@ def cg(
     ``M`` is an SPD preconditioner apply ``r ↦ M⁻¹ r``; ``None`` gives
     plain CG, the paper's baseline.  The loop carries ``rᵀz``: without a
     preconditioner that is the ``‖r‖²`` the fused update pass emits; with
-    one it is a plain dot, as in the reference.
+    one, ``fused_rz_step`` forms it and β after ``z = M(r)``.
     """
     if stagnation_window > 0:
         raise NotImplementedError(_NO_STAGNATION)
@@ -125,10 +126,9 @@ def cg(
             z, rz_new, beta = r, so[0], so[3]
         else:
             z = M(r)
-            rz_new = pt.tree_dot(r, z)
-            beta = rz_new / torch.where(rz == 0.0, 1.0, rz)
-        p_new, _, _ = kops.fused_deflate_direction(z, p, beta)
-        p = torch.where(flags[1], p_new, p)
+            sz = kops.fused_rz_step(r, z, rz)
+            rz_new, beta = sz[0], sz[1]
+        p = kops.fused_direction_step(z, p, beta, flags[1])
         return (js, x, r, p, rz_new, so[1], flags[0], trace)
 
     js0 = torch.stack([torch.zeros((), dtype=torch.int32, device=b.device),
@@ -213,8 +213,9 @@ def defcg(
     def-CG of the reference: the loop carries ``rᵀz`` (``z = M⁻¹r``) and
     deflates in the preconditioned inner product, ``μ = (WᵀAW)⁻¹(AW)ᵀz``.
     The update pass then emits ``‖r‖²`` only, ``z = M(r)`` follows, and
-    ``(rᵀz, (AW)ᵀz)`` come from one ``fused_rz_reduce`` pass; convergence is
-    still tested on the true residual ``‖r‖``.
+    one ``fused_rz_step`` launch forms ``rᵀz``, ``(AW)ᵀz``, β, μ and the
+    recorded α / β on the card; convergence is still tested on the true
+    residual ``‖r‖``.
     """
     if stagnation_window > 0:
         raise NotImplementedError(_NO_STAGNATION)
@@ -303,30 +304,22 @@ def defcg(
             zvec, rs_new, beta = r, so[0], so[3]
             mu = so[4:] if deflating else None
         else:
-            # z = M⁻¹r exists only after the update: rᵀz and (AW)ᵀz go in
-            # a second fused pass, and β, μ follow eagerly.
+            # z = M⁻¹r exists only after the update: rᵀz, (AW)ᵀz, β, μ and
+            # the recorded α / β come from K6's step arm, a second launch.
             x, r, ap, so, js, flags = kops.fused_cg_step(
                 x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
                 recurrence=False, trace=trace,
             )
             zvec = M(r)
-            rs_new, awr = kops.fused_rz_reduce(r, zvec, aw)
-            mu = waw_inv @ awr if deflating else None
-            beta = rs_new / torch.where(rs == 0.0, 1.0, rs)
-        if row is None:
-            p_new, _, _ = kops.fused_deflate_direction(zvec, p, beta, W, mu)
-        else:
-            # Frozen steps record into the spare row ``ell``.
-            slot = torch.where(active, row, ell).to(torch.int64)
-            p_new, _, _ = kops.fused_deflate_direction(
-                zvec, p, beta, W, mu, ap, slot, p_buf, ap_buf
-            )
-            if M is not None:
-                a_rows.index_copy_(0, slot.reshape(1), so[2].reshape(1))
-                b_rows.index_copy_(0, slot.reshape(1), beta.reshape(1))
-        # Freeze p on breakdown too (flags[1] = active ∧ ¬bad): a poisoned
-        # basis can make p_new non-finite through μ even with a sanitized A·p.
-        p = torch.where(flags[1], p_new, p)
+            sz = kops.fused_rz_step(r, zvec, rs, aw, waw_inv, alpha=so[2], active=active, **rows)
+            rs_new, beta = sz[0], sz[1]
+            mu = sz[2:] if deflating else None
+        # Frozen steps record into the spare row ``ell``.  p is frozen on
+        # breakdown too (flags[1] = active ∧ ¬bad): a poisoned basis can
+        # make p_new non-finite through μ even with a sanitized A·p.
+        rec = {} if row is None else dict(ap=ap, active=active, row=row, p_buf=p_buf,
+                                          ap_buf=ap_buf)
+        p = kops.fused_direction_step(zvec, p, beta, flags[1], W, mu, **rec)
         return (js, x, r, p, rs_new, so[1], flags[0], trace)
 
     js0 = torch.stack([torch.zeros((), dtype=torch.int32, device=device),

@@ -13,23 +13,27 @@
 // element read), so each reads every input element once and writes every
 // output element once.  The Pallas kernels carry reductions across a
 // sequential grid in SMEM; here blocks run in no order, so a reduction sums
-// per-block partials in a fixed order: fused_cg_update in its own launch (the
-// block that draws the last ticket of an integer counter sums them, in block
-// order), the others in a second kernel.  No float atomics: a grid repeats
-// bit for bit.  Ragged tails are masked in-kernel (the TPU wrappers pad to
-// (rows*128) tiles instead).
+// per-block partials in a fixed order: fused_cg_update and fused_rz_reduce
+// in their own launch (the block that draws the last ticket of an integer
+// counter sums them, in block order), self_gram in a second kernel.  No
+// float atomics: a grid repeats bit for bit.  Ragged tails are masked
+// in-kernel (the TPU wrappers pad to (rows*128) tiles instead).
 //
-// fused_cg_update and lsmr_update each have a second arm, the iteration's
-// TAIL: besides the vector work the launch carries the solver's scalar
-// recurrence (def-CG's breakdown test, alpha, beta, mu, the residual norm,
-// the status, the trace slot, the iteration count and the next step's
-// active flag; LSMR's Givens rotations, its exact-termination latch and the
-// same bookkeeping) and the frozen-step mask, which the solver loops would
-// otherwise run as some eighty small eager launches around the kernel.
-// Every scalar of a tail is rounded as the eager PyTorch op it replaces
-// rounds it (one intrinsic with round-to-nearest per op: nvcc would fuse
-// a*a + b*b into an FMA), so the card's scalars are bit for bit those of the
-// plain versions beside the wrappers.
+// fused_cg_update, fused_rz_reduce, fused_deflate_direction and lsmr_update
+// each have a second arm, a piece of the iteration's TAIL: besides the
+// vector work the launch carries the solver's scalar recurrence (def-CG's
+// breakdown test, alpha, beta, mu, the residual norm, the status, the trace
+// slot, the iteration count and the next step's active flag; with a
+// preconditioner beta, mu and the recorded alpha / beta after z = M^-1 r;
+// the p select and the recording slot of the direction update; LSMR's
+// Givens rotations, its exact-termination latch and the same bookkeeping)
+// and the frozen-step mask, which the solver loops would otherwise run as
+// small eager launches around the kernels.  Every scalar of a tail is
+// rounded as the eager PyTorch op it replaces rounds it (one intrinsic with
+// round-to-nearest per op: nvcc would fuse a*a + b*b into an FMA), so the
+// card's scalars are bit for bit those of the plain versions beside the
+// wrappers.  fused_rz_reduce has a third arm, the sharded def-CG's pair of
+// reductions in one read.
 //
 // Plain C interface: every entry point returns cudaGetLastError() (0 = ok)
 // and launches on the stream it is given.  Scratch and outputs are allocated
@@ -54,46 +58,80 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
-// Sum over the block in a fixed order; the result is valid in thread 0.
-template <typename T>
-__device__ __forceinline__ T block_sum(T v) {
-  __shared__ T warp_part[kWarps];
-  v = warp_sum(v);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (lane == 0) warp_part[warp] = v;
-  __syncthreads();
-  T s = T(0);
-  if (threadIdx.x == 0) {
-    for (int w = 0; w < kWarps; ++w) s += warp_part[w];
-  }
-  return s;
-}
-
-// The k + 1 per-thread sums acc[0..k] of a block, summed over the block in a
-// fixed order and written to row blockIdx.x of a (blocks, k + 1) partials
-// buffer.
-// ALL_COLUMNS sums all N columns without a branch per column (the columns
-// past k hold zeros), so the N shuffle trees interleave.
-template <typename T, int N, bool ALL_COLUMNS = false>
-__device__ __forceinline__ void store_block_partials(const T (&acc)[N], int k,
+// The per-thread sums acc of a block, summed over the block in a fixed order
+// and written to row blockIdx.x of a (blocks, width) partials buffer.  acc
+// holds Q groups of KMAX + 1 sums of which the first k + 1 are used; the
+// used ones go to columns q (k + 1) + j, so width = Q (k + 1).  Every one
+// of the N shuffle trees runs (the unused columns hold zeros), so they
+// interleave without a branch per column.
+template <typename T, int Q, int KMAX>
+__device__ __forceinline__ void store_block_partials(const T (&acc)[Q * (KMAX + 1)], int k,
                                                      T* __restrict__ partials) {
+  constexpr int N = Q * (KMAX + 1);
   __shared__ T warp_part[N][kWarps];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 #pragma unroll
   for (int j = 0; j < N; ++j) {
-    if (ALL_COLUMNS || j <= k) {
-      const T v = warp_sum(acc[j]);
-      if (lane == 0) warp_part[j][warp] = v;
-    }
+    const T v = warp_sum(acc[j]);
+    if (lane == 0) warp_part[j][warp] = v;
   }
   __syncthreads();
-  if (threadIdx.x <= k) {
+  const int width = Q * (k + 1);
+  if ((int)threadIdx.x < width) {
+    const int q = threadIdx.x / (k + 1);
+    const int j = threadIdx.x - q * (k + 1);
     T s = T(0);
-    for (int w = 0; w < kWarps; ++w) s += warp_part[threadIdx.x][w];
-    partials[(int64_t)blockIdx.x * (k + 1) + threadIdx.x] = s;
+    for (int w = 0; w < kWarps; ++w) s += warp_part[q * (KMAX + 1) + j][w];
+    partials[(int64_t)blockIdx.x * width + threadIdx.x] = s;
   }
+}
+
+// The one-launch reduction of K1 and K6.  Every block writes its partials,
+// then takes an integer ticket; `after_ticket` runs between the ticket and
+// the block's learning whether it drew the last one (K1 stores its last
+// chunk there, so the partials' fence waits on no vector store).  The block
+// that draws the last ticket sums each column over the blocks in block
+// order into col[0 .. Q (k + 1)) (shared memory): lane l takes blocks l,
+// l + 32, ..., kLoads of them in flight at once, then the shuffle tree.
+// Returns true in every thread of that block, with col visible to all of
+// them; the caller resets the counter.  No float atomics: a grid repeats
+// bit for bit.
+template <typename T, int Q, int KMAX, typename AfterTicket>
+__device__ __forceinline__ bool ticket_sums(const T (&acc)[Q * (KMAX + 1)], int k,
+                                            T* __restrict__ partials, unsigned* counter,
+                                            T* col, AfterTicket after_ticket) {
+  store_block_partials<T, Q, KMAX>(acc, k, partials);
+  const int width = Q * (k + 1);
+  __shared__ bool last;
+  if ((int)threadIdx.x < width) __threadfence();  // the partials' writers
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  after_ticket();
+  __syncthreads();
+  if (!last) return false;
+  __threadfence();
+  constexpr int kLoads = 8;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int blocks = (int)gridDim.x;
+  for (int cc = warp; cc < width; cc += kWarps) {
+    T sum = T(0);
+    for (int b0 = 0; b0 < blocks; b0 += 32 * kLoads) {
+      T v[kLoads];
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) {
+        const int b = b0 + 32 * q + lane;
+        v[q] = b < blocks ? __ldcg(partials + (int64_t)b * width + cc) : T(0);
+      }
+#pragma unroll
+      for (int q = 0; q < kLoads; ++q) sum += v[q];
+    }
+    sum = warp_sum(sum);
+    if (lane == 0) col[cc] = sum;
+  }
+  __syncthreads();
+  return true;
 }
 
 // The codes of repro_torch.core.engine.SolveStatus that the tails write.
@@ -388,42 +426,13 @@ __global__ void __launch_bounds__(kThreads) cg_update(const CgArgs<T> a) {
   if (TAIL && a.recurrence && (int)threadIdx.x < k * k) winv = a.waw_inv[threadIdx.x];
 
   // Partials, then the ticket: the block that draws the last one sums them.
-  store_block_partials<T, KMAX + 1, true>(acc, k, a.partials);
-  __shared__ bool last;
-  if ((int)threadIdx.x <= k) __threadfence();  // the partials' writers
-  __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(a.counter, 1u) == gridDim.x - 1;
-  store_done();
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // Column c: lane l takes blocks l, l + 32, ... in order, kLoads of them in
-  // flight at once, then the shuffle tree.
-  constexpr int kLoads = 8;
   __shared__ T col[KMAX + 1];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int blocks = (int)gridDim.x;
-  for (int cc = warp; cc <= k; cc += kWarps) {
-    T sum = T(0);
-    for (int b0 = 0; b0 < blocks; b0 += 32 * kLoads) {
-      T v[kLoads];
-#pragma unroll
-      for (int q = 0; q < kLoads; ++q) {
-        const int b = b0 + 32 * q + lane;
-        v[q] = b < blocks ? __ldcg(a.partials + (int64_t)b * (k + 1) + cc) : T(0);
-      }
-#pragma unroll
-      for (int q = 0; q < kLoads; ++q) sum += v[q];
-    }
-    sum = warp_sum(sum);
-    if (lane == 0) col[cc] = sum;
-  }
+  if (!ticket_sums<T, 1, KMAX>(acc, k, a.partials, a.counter, col, store_done)) return;
+  if (threadIdx.x == 0) *a.counter = 0u;
   if constexpr (TAIL) {
     __shared__ T winv_s[kMaxK * kMaxK];
     if ((int)threadIdx.x < k * k) winv_s[threadIdx.x] = winv;
     __syncthreads();
-    if (threadIdx.x == 0) *a.counter = 0u;
     const T rr = col[0];
     const T beta = a.recurrence ? div_rn(rr, nonzero(rs)) : T(0);
     if (a.recurrence && (int)threadIdx.x < k) {
@@ -454,93 +463,290 @@ __global__ void __launch_bounds__(kThreads) cg_update(const CgArgs<T> a) {
       a.bo[1] = active && !bad;
     }
   } else {
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      *a.counter = 0u;
-      *a.rr = col[0];
-    }
+    if (threadIdx.x == 0) *a.rr = col[0];
     if ((int)threadIdx.x < k) a.awr[threadIdx.x] = col[threadIdx.x + 1];
   }
 }
 
 // ---------------------------------------------------------------------------
-// fused_rz_reduce: r^T z, AW z (the preconditioned def-CG iteration's second
-// pass: z = M^-1 r exists only after the residual update)
+// fused_rz_reduce: r^T z, (AW) z -- and the preconditioned def-CG tail
 // ---------------------------------------------------------------------------
+//
+// The preconditioned iteration's second pass: z = M^-1 r exists only after
+// the residual update, so r^T z and (AW) z cannot ride in K1.  Bound by
+// bytes: (2 + k) n elements for 2 (1 + k) n flops (n = 36 551, k = 8, f64:
+// 2.9 MB, 0.9 us at 3.35 TB/s), so at the main path's n the time is a
+// launch's latency and the design is K1's: ONE launch, up to as many blocks
+// as the card holds at once (occupancy API), four elements a thread (two
+// 16-byte groups where r, z and every row of AW are aligned, element loads
+// otherwise: n is odd on the main path), every vector of a thread's chunk
+// loaded before any is used, per-block partials, an integer ticket, and the
+// block that draws the last ticket sums the partials in block order (the
+// partials and the counter are K1's, allocated once by the wrapper).
+//
+// Three arms, one accumulation:
+//   SUMS  the TPU function: out = [r^T z, (AW) z].
+//   STEP  the preconditioned def-CG and cg tail after z = M^-1 r
+//         (solvers.py): the last block forms rs' = r^T z, beta = rs' /
+//         safe(rs), mu = waw_inv (AW)^T z (lane i sums row i in column
+//         order, as K1's step arm) and, on a recording step, a_rows[slot] =
+//         alpha and b_rows[slot] = beta at slot = active ? row : ell; so =
+//         [rs', beta, mu] (K2's step arm reads beta and mu from it).  Every
+//         scalar rounds as the eager op it replaces.
+//   PAIR  the sharded def-CG's fresh reductions of the incoming residual:
+//         out = [r^T ap, (AW) ap, r^T r, (AW) r] in one read of r, ap and AW.
+//         Each column is summed in the order of the one-vector arm on the
+//         same grid (every arm of a (dtype, KMAX, VEC) takes the PAIR
+//         instantiation's grid), so the pair is two SUMS calls bit for bit.
+
+enum RzMode { kRzSums, kRzStep, kRzPair };
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) rz_reduce_partial(
-    const T* __restrict__ r, const T* __restrict__ z,
-    const T* __restrict__ aw, int k, int64_t n, T* __restrict__ partials) {
-  T acc[kMaxK + 1];
-#pragma unroll
-  for (int j = 0; j <= kMaxK; ++j) acc[j] = T(0);
+struct RzArgs {
+  const T* r;
+  const T* z;  // the pair arm: ap
+  const T* aw;
+  int k;
+  int64_t n;
+  T* partials;
+  unsigned* counter;
+  T* out;  // the sums, [rs', beta, mu] of the step arm, or the pair's sums
+  // the step arm
+  const T* rs;
+  const T* alpha;
+  const bool* active;
+  const T* waw_inv;  // (k, k), row-major
+  T* a_rows;
+  T* b_rows;
+  int row;  // < 0: not a recording step
+  int ell;
+};
 
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const T zi = z[i];
-    acc[0] += r[i] * zi;
+template <typename T, int KMAX, bool VEC, int MODE>
+__global__ void __launch_bounds__(kThreads) rz_reduce(const RzArgs<T> a) {
+  using L = CgLayout<T, KMAX, VEC>;
+  constexpr int S = L::kSlots, W = L::kWidth;
+  constexpr int Q = MODE == kRzPair ? 2 : 1;
+  constexpr int KA = KMAX > 0 ? KMAX : 1;
+  const int k = a.k;
+  const int64_t n = a.n;
+  const int64_t units = n / W;
+  const int64_t stride = (int64_t)gridDim.x * kThreads * S;
+  T acc[Q * (KMAX + 1)];
 #pragma unroll
-    for (int j = 0; j < kMaxK; ++j) {
-      if (j < k) acc[j + 1] += aw[(int64_t)j * n + i] * zi;
+  for (int j = 0; j < Q * (KMAX + 1); ++j) acc[j] = T(0);
+
+  // acc[q (KMAX + 1) + j]: q = 0 against z, q = 1 (the pair) against r.
+  auto add = [&](T ri, T zi, const T* awi) {
+    acc[0] = fma(ri, zi, acc[0]);
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) acc[j + 1] = fma(awi[j], zi, acc[j + 1]);
+    }
+    if constexpr (MODE == kRzPair) {
+      acc[KMAX + 1] = fma(ri, ri, acc[KMAX + 1]);
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        if (j < k) acc[KMAX + 2 + j] = fma(awi[j], ri, acc[KMAX + 2 + j]);
+      }
+    }
+  };
+  for (int64_t base = (int64_t)blockIdx.x * kThreads * S; base < units; base += stride) {
+    T r[S][W], z[S][W], aw[KA][S][W];
+    bool ok[S];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int64_t u = base + s * kThreads + threadIdx.x;
+      ok[s] = u < units;
+      const int64_t i = ok[s] ? u * W : 0;
+      load_slot(a.r + i, r[s]);
+      load_slot(a.z + i, z[s]);
+#pragma unroll
+      for (int j = 0; j < KMAX; ++j) {
+        if (j < k) load_slot(a.aw + (int64_t)j * n + i, aw[j][s]);
+      }
+    }
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (!ok[s]) continue;
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        T awi[KA];
+#pragma unroll
+        for (int j = 0; j < KA; ++j) awi[j] = aw[j][s][w];
+        add(r[s][w], z[s][w], awi);
+      }
     }
   }
-  store_block_partials(acc, k, partials);
+  // The ragged tail of the 16-byte path: fewer than W elements.
+  const int64_t tail = (int64_t)blockIdx.x * kThreads + threadIdx.x + units * W;
+  if (VEC && tail < n) {
+    T awi[KA];
+#pragma unroll
+    for (int j = 0; j < KA; ++j) awi[j] = j < k ? a.aw[(int64_t)j * n + tail] : T(0);
+    add(a.r[tail], a.z[tail], awi);
+  }
+
+  // The step arm's scalars, in flight before the ticket.
+  T winv = T(0), rs = T(0), alpha = T(0);
+  bool active = true;
+  if constexpr (MODE == kRzStep) {
+    if ((int)threadIdx.x < k * k) winv = a.waw_inv[threadIdx.x];
+    if (threadIdx.x == 0) {
+      rs = *a.rs;
+      if (a.row >= 0) {
+        alpha = *a.alpha;
+        active = *a.active;
+      }
+    }
+  }
+
+  __shared__ T col[Q * (KMAX + 1)];
+  if (!ticket_sums<T, Q, KMAX>(acc, k, a.partials, a.counter, col, [] {})) return;
+  if (threadIdx.x == 0) *a.counter = 0u;
+  if constexpr (MODE == kRzStep) {
+    __shared__ T winv_s[kMaxK * kMaxK];
+    if ((int)threadIdx.x < k * k) winv_s[threadIdx.x] = winv;
+    __syncthreads();
+    if ((int)threadIdx.x < k) {
+      T m = T(0);
+      for (int j = 0; j < k; ++j) m = add_rn(m, mul_rn(winv_s[threadIdx.x * k + j], col[j + 1]));
+      a.out[2 + threadIdx.x] = m;
+    }
+    if (threadIdx.x == 0) {
+      const T rz = col[0];
+      const T beta = div_rn(rz, nonzero(rs));
+      a.out[0] = rz;
+      a.out[1] = beta;
+      if (a.row >= 0) {
+        const int slot = active ? a.row : a.ell;
+        a.a_rows[slot] = alpha;
+        a.b_rows[slot] = beta;
+      }
+    }
+  } else {
+    if ((int)threadIdx.x < Q * (k + 1)) a.out[threadIdx.x] = col[threadIdx.x];
+  }
 }
 
-// Column c of a (rows, width) partials buffer, summed in a fixed order.
-// Column 0 goes to *first, column c > 0 to rest[c - 1].
-template <typename T>
-__global__ void __launch_bounds__(kThreads) reduce_columns(
-    const T* __restrict__ partials, int rows, int width, T* __restrict__ first,
-    T* __restrict__ rest) {
-  const int c = blockIdx.x;
-  T s = T(0);
-  for (int i = threadIdx.x; i < rows; i += blockDim.x) {
-    s += partials[(int64_t)i * width + c];
-  }
-  s = block_sum(s);
-  if (threadIdx.x == 0) {
-    if (c == 0) {
-      *first = s;
-    } else {
-      rest[c - 1] = s;
-    }
-  }
-}
-
 // ---------------------------------------------------------------------------
-// fused_deflate_direction: p_new = beta p + r - mu^T W, optional (p, ap) row
+// fused_deflate_direction: p' = beta p + z - mu^T W, the (p, ap) row -- and
+// the direction step of the def-CG and cg loops
 // ---------------------------------------------------------------------------
+//
+// Bound by bytes: (3 + k) n elements (+3n recording) for (2 + 2k) n flops
+// (n = 36 551, k = 8, f64: 3.2 MB, 1.0 us), so again a launch's latency:
+// one grid-stride pass with up to one 16-byte group a thread (where z, p,
+// every row of W and, recording, ap and the buffers' rows are aligned;
+// elements otherwise), as many blocks as the card holds at once (occupancy
+// API), beta and mu in registers, loaded once with the first group's
+// vectors; a warp's stores fill whole 32-byte sectors.  p' takes one fused
+// multiply-add a term (beta p + z, then - mu_j W_j for j in order), the
+// arithmetic of the element-a-thread kernel this layout replaced: the
+// directions, and so the iteration counts, of the unpreconditioned loops
+// do not move with it (the plain version rounds each eager op: the two
+// agree to the kernel bar).
+//
+// The STEP arm is the direction update of the solver loops with the `p`
+// select: po = keep ? p' : p (keep = K1's active & !bad, or the sharded
+// loops' own), beta and mu read from the device (views of K1's or K6's
+// packed step outputs), and while recording the incoming (p, ap) go to row
+// active ? row : ell of the (ell + 1, n) buffers, formed in the kernel.  The
+// TPU function's arm keeps every p' and takes its row from the device.
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) deflate_direction(
-    const T* __restrict__ r, const T* __restrict__ p,
-    const T* __restrict__ beta_ptr, const T* __restrict__ w,
-    const T* __restrict__ mu, int k, int64_t n, T* __restrict__ po,
-    const T* __restrict__ ap, const int64_t* __restrict__ idx_ptr,
-    T* __restrict__ p_buf, T* __restrict__ ap_buf) {
-  __shared__ T mus[kMaxK];
-  if (threadIdx.x < k) mus[threadIdx.x] = mu[threadIdx.x];
-  __syncthreads();
-  const T beta = *beta_ptr;
-  const bool record = p_buf != nullptr;
-  const int64_t row = record ? *idx_ptr : 0;
+struct DirArgs {
+  const T* z;
+  const T* p;
+  const T* beta;
+  const T* w;
+  const T* mu;
+  int k;
+  int64_t n;
+  T* po;
+  const T* ap;  // recording: p_buf != nullptr
+  T* p_buf;
+  T* ap_buf;
+  const int64_t* idx;  // the TPU function's arm: the recording row
+  const bool* keep;    // the step arm
+  const bool* active;  // the step arm, recording: row active ? row : ell
+  int row;
+  int ell;
+};
 
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const T pi = p[i];
-    T acc = beta * pi + r[i];
+template <typename T, int KMAX, bool VEC, bool STEP>
+__global__ void __launch_bounds__(kThreads) deflate_direction(const DirArgs<T> a) {
+  constexpr int W = VEC ? kVec<T> : 1;
+  constexpr int KA = KMAX > 0 ? KMAX : 1;
+  const int k = a.k;
+  const int64_t n = a.n;
+  const int64_t units = n / W;
+  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
+  const bool record = a.p_buf != nullptr;
+
+  T zv[W], pv[W], apv[W], wv[KA][W];
+  auto load = [&](int64_t i) {
+    load_slot(a.z + i, zv);
+    load_slot(a.p + i, pv);
 #pragma unroll
-    for (int j = 0; j < kMaxK; ++j) {
-      if (j < k) acc -= mus[j] * w[(int64_t)j * n + i];
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) load_slot(a.w + (int64_t)j * n + i, wv[j]);
     }
-    po[i] = acc;
+    if (record) load_slot(a.ap + i, apv);
+  };
+  // The first group's vectors go out with the scalars.
+  if (first < units) load(first * W);
+  const T beta = *a.beta;
+  T mu[KA];
+#pragma unroll
+  for (int j = 0; j < KMAX; ++j) mu[j] = j < k ? a.mu[j] : T(0);
+  bool keep = true;
+  int64_t row = 0;
+  if constexpr (STEP) {
+    keep = *a.keep;
+    if (record) row = *a.active ? a.row : a.ell;
+  } else {
+    if (record) row = *a.idx;
+  }
+  T* const pb = record ? a.p_buf + row * n : nullptr;
+  T* const apb = record ? a.ap_buf + row * n : nullptr;
+
+  auto direction = [&](T zi, T pi, const T* wi) {
+    T v = fma(beta, pi, zi);
+#pragma unroll
+    for (int j = 0; j < KMAX; ++j) {
+      if (j < k) v = fma(-mu[j], wi[j], v);
+    }
+    return keep ? v : pi;
+  };
+  for (int64_t q = first; q < units; q += stride) {
+    if (q != first) load(q * W);
+    T out[W];
+#pragma unroll
+    for (int u = 0; u < W; ++u) {
+      T wi[KA];
+#pragma unroll
+      for (int j = 0; j < KA; ++j) wi[j] = wv[j][u];
+      out[u] = direction(zv[u], pv[u], wi);
+    }
+    store_slot(a.po + q * W, out);
     if (record) {
-      p_buf[row * n + i] = pi;
-      ap_buf[row * n + i] = ap[i];
+      store_slot(pb + q * W, pv);
+      store_slot(apb + q * W, apv);
+    }
+  }
+  // The ragged tail of the 16-byte path: fewer than W elements.
+  const int64_t tail = first + units * W;
+  if (VEC && tail < n) {
+    T wi[KA];
+#pragma unroll
+    for (int j = 0; j < KA; ++j) wi[j] = j < k ? a.w[(int64_t)j * n + tail] : T(0);
+    const T pi = a.p[tail];
+    a.po[tail] = direction(a.z[tail], pi, wi);
+    if (record) {
+      pb[tail] = pi;
+      apb[tail] = a.ap[tail];
     }
   }
 }
@@ -1217,35 +1423,87 @@ int launch_cg(const CgArgs<T>& a, int capacity, void* stream) {
   return (int)err;
 }
 
-template <typename T>
-int launch_rz_reduce(const void* r, const void* z, const void* aw, int k,
-                     int64_t n, void* partials, int nblocks, void* rz,
-                     void* awz, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  rz_reduce_partial<T><<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(r), static_cast<const T*>(z),
-      static_cast<const T*>(aw), k, n, static_cast<T*>(partials));
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_columns<T><<<k + 1, kThreads, 0, st>>>(
-      static_cast<const T*>(partials), nblocks, k + 1, static_cast<T*>(rz),
-      static_cast<T*>(awz));
-  return (int)cudaGetLastError();
+template <typename T, int KMAX, bool VEC, int MODE>
+cudaError_t launch_rz_kernel(const RzArgs<T>& a, int capacity, cudaStream_t st) {
+  // Every arm takes the pair arm's grid (the register-hungriest of the
+  // three), so each column is summed in one order whichever arm sums it.
+  static int resident = 0;  // once per instantiation
+  if (resident == 0) {
+    const cudaError_t err = resident_blocks(rz_reduce<T, KMAX, VEC, kRzPair>, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  constexpr int kSlots = CgLayout<T, KMAX, VEC>::kSlots;
+  const int64_t units = VEC ? a.n / kVec<T> : a.n;
+  rz_reduce<T, KMAX, VEC, MODE>
+      <<<stride_grid(resident, (units + kSlots - 1) / kSlots, capacity), kThreads, 0, st>>>(a);
+  return cudaGetLastError();
 }
 
-template <typename T>
-int launch_deflate(const void* r, const void* p, const void* beta,
-                   const void* w, const void* mu, int k, int64_t n, void* po,
-                   const void* ap, const void* idx, void* p_buf, void* ap_buf,
-                   int nblocks, void* stream) {
+// 16-byte loads when r, z and every row of AW are 16-byte aligned.
+template <typename T, int KMAX, int MODE>
+cudaError_t launch_rz_aligned(const RzArgs<T>& a, int capacity, cudaStream_t st) {
+  const bool vec = aligned16(a.r) && aligned16(a.z) &&
+                   (a.k == 0 || (aligned16(a.aw) && (a.n * (int64_t)sizeof(T)) % 16 == 0));
+  return vec ? launch_rz_kernel<T, KMAX, true, MODE>(a, capacity, st)
+             : launch_rz_kernel<T, KMAX, false, MODE>(a, capacity, st);
+}
+
+// `capacity`: the blocks the partials buffer has rows for (2 (kMaxK + 1)
+// columns a row).
+template <typename T, int MODE>
+int launch_rz(const RzArgs<T>& a, int capacity, void* stream) {
+  if (a.k < 0 || a.k > kMaxK || a.n < 1 || capacity < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  deflate_direction<T><<<nblocks, kThreads, 0, st>>>(
-      static_cast<const T*>(r), static_cast<const T*>(p),
-      static_cast<const T*>(beta), static_cast<const T*>(w),
-      static_cast<const T*>(mu), k, n, static_cast<T*>(po),
-      static_cast<const T*>(ap), static_cast<const int64_t*>(idx),
-      static_cast<T*>(p_buf), static_cast<T*>(ap_buf));
-  return (int)cudaGetLastError();
+  cudaError_t err;
+  if (a.k == 0) {
+    err = launch_rz_aligned<T, 0, MODE>(a, capacity, st);
+  } else if (a.k <= 8) {
+    err = launch_rz_aligned<T, 8, MODE>(a, capacity, st);
+  } else {
+    err = launch_rz_aligned<T, kMaxK, MODE>(a, capacity, st);
+  }
+  return (int)err;
+}
+
+template <typename T, int KMAX, bool VEC, bool STEP>
+cudaError_t launch_dir_kernel(const DirArgs<T>& a, cudaStream_t st) {
+  const auto kernel = deflate_direction<T, KMAX, VEC, STEP>;
+  static int resident = 0;  // once per instantiation
+  if (resident == 0) {
+    const cudaError_t err = resident_blocks(kernel, &resident);
+    if (err != cudaSuccess) return err;
+  }
+  const int64_t units = VEC ? a.n / kVec<T> : a.n;
+  kernel<<<stride_grid(resident, units, resident), kThreads, 0, st>>>(a);
+  return cudaGetLastError();
+}
+
+// 16-byte groups when z, p, po, every row of W and, recording, ap and every
+// row of the buffers are 16-byte aligned.
+template <typename T, int KMAX, bool STEP>
+cudaError_t launch_dir_aligned(const DirArgs<T>& a, cudaStream_t st) {
+  const bool rows = (a.n * (int64_t)sizeof(T)) % 16 == 0;
+  const bool vec = aligned16(a.z) && aligned16(a.p) && aligned16(a.po) &&
+                   (a.k == 0 || (aligned16(a.w) && rows)) &&
+                   (a.p_buf == nullptr ||
+                    (aligned16(a.ap) && aligned16(a.p_buf) && aligned16(a.ap_buf) && rows));
+  return vec ? launch_dir_kernel<T, KMAX, true, STEP>(a, st)
+             : launch_dir_kernel<T, KMAX, false, STEP>(a, st);
+}
+
+template <typename T, bool STEP>
+int launch_dir(const DirArgs<T>& a, void* stream) {
+  if (a.k < 0 || a.k > kMaxK || a.n < 1) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (a.k == 0) {
+    err = launch_dir_aligned<T, 0, STEP>(a, st);
+  } else if (a.k <= 8) {
+    err = launch_dir_aligned<T, 8, STEP>(a, st);
+  } else {
+    err = launch_dir_aligned<T, kMaxK, STEP>(a, st);
+  }
+  return (int)err;
 }
 
 template <typename T, int SLOTS>
@@ -1418,17 +1676,97 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
   }                                                                            \
   extern "C" int fused_rz_reduce_##SUFFIX(                                     \
       const void* r, const void* z, const void* aw, int k, int64_t n,          \
-      void* partials, int nblocks, void* rz, void* awz, void* stream) {        \
-    return launch_rz_reduce<T>(r, z, aw, k, n, partials, nblocks, rz, awz,     \
-                               stream);                                        \
+      void* partials, int capacity, void* counter, void* out, void* stream) {  \
+    RzArgs<T> a = {};                                                          \
+    a.r = static_cast<const T*>(r);                                            \
+    a.z = static_cast<const T*>(z);                                            \
+    a.aw = static_cast<const T*>(aw);                                          \
+    a.k = k;                                                                   \
+    a.n = n;                                                                   \
+    a.partials = static_cast<T*>(partials);                                    \
+    a.counter = static_cast<unsigned*>(counter);                               \
+    a.out = static_cast<T*>(out);                                              \
+    return launch_rz<T, kRzSums>(a, capacity, stream);                         \
+  }                                                                            \
+  extern "C" int fused_rz_pair_##SUFFIX(                                       \
+      const void* r, const void* ap, const void* aw, int k, int64_t n,         \
+      void* partials, int capacity, void* counter, void* out, void* stream) {  \
+    RzArgs<T> a = {};                                                          \
+    a.r = static_cast<const T*>(r);                                            \
+    a.z = static_cast<const T*>(ap);                                           \
+    a.aw = static_cast<const T*>(aw);                                          \
+    a.k = k;                                                                   \
+    a.n = n;                                                                   \
+    a.partials = static_cast<T*>(partials);                                    \
+    a.counter = static_cast<unsigned*>(counter);                               \
+    a.out = static_cast<T*>(out);                                              \
+    return launch_rz<T, kRzPair>(a, capacity, stream);                         \
+  }                                                                            \
+  extern "C" int fused_rz_step_##SUFFIX(                                       \
+      const void* r, const void* z, const void* aw, int k, int64_t n,          \
+      void* partials, int capacity, void* counter, const void* rs,             \
+      const void* alpha, const void* active, const void* waw_inv,              \
+      void* a_rows, void* b_rows, int row, int ell, void* so, void* stream) {  \
+    RzArgs<T> a = {};                                                          \
+    a.r = static_cast<const T*>(r);                                            \
+    a.z = static_cast<const T*>(z);                                            \
+    a.aw = static_cast<const T*>(aw);                                          \
+    a.k = k;                                                                   \
+    a.n = n;                                                                   \
+    a.partials = static_cast<T*>(partials);                                    \
+    a.counter = static_cast<unsigned*>(counter);                               \
+    a.rs = static_cast<const T*>(rs);                                          \
+    a.alpha = static_cast<const T*>(alpha);                                    \
+    a.active = static_cast<const bool*>(active);                               \
+    a.waw_inv = static_cast<const T*>(waw_inv);                                \
+    a.a_rows = static_cast<T*>(a_rows);                                        \
+    a.b_rows = static_cast<T*>(b_rows);                                        \
+    a.row = row;                                                               \
+    a.ell = ell;                                                               \
+    a.out = static_cast<T*>(so);                                               \
+    return launch_rz<T, kRzStep>(a, capacity, stream);                         \
   }                                                                            \
   extern "C" int fused_deflate_direction_##SUFFIX(                             \
-      const void* r, const void* p, const void* beta, const void* w,           \
+      const void* z, const void* p, const void* beta, const void* w,           \
       const void* mu, int k, int64_t n, void* po, const void* ap,              \
-      const void* idx, void* p_buf, void* ap_buf, int nblocks,                 \
-      void* stream) {                                                          \
-    return launch_deflate<T>(r, p, beta, w, mu, k, n, po, ap, idx, p_buf,      \
-                             ap_buf, nblocks, stream);                         \
+      const void* idx, void* p_buf, void* ap_buf, void* stream) {              \
+    DirArgs<T> a = {};                                                         \
+    a.z = static_cast<const T*>(z);                                            \
+    a.p = static_cast<const T*>(p);                                            \
+    a.beta = static_cast<const T*>(beta);                                      \
+    a.w = static_cast<const T*>(w);                                            \
+    a.mu = static_cast<const T*>(mu);                                          \
+    a.k = k;                                                                   \
+    a.n = n;                                                                   \
+    a.po = static_cast<T*>(po);                                                \
+    a.ap = static_cast<const T*>(ap);                                          \
+    a.idx = static_cast<const int64_t*>(idx);                                  \
+    a.p_buf = static_cast<T*>(p_buf);                                          \
+    a.ap_buf = static_cast<T*>(ap_buf);                                        \
+    return launch_dir<T, false>(a, stream);                                    \
+  }                                                                            \
+  extern "C" int fused_direction_step_##SUFFIX(                                \
+      const void* z, const void* p, const void* beta, const void* w,           \
+      const void* mu, int k, int64_t n, void* po, const void* keep,            \
+      const void* ap, const void* active, int row, int ell, void* p_buf,       \
+      void* ap_buf, void* stream) {                                            \
+    DirArgs<T> a = {};                                                         \
+    a.z = static_cast<const T*>(z);                                            \
+    a.p = static_cast<const T*>(p);                                            \
+    a.beta = static_cast<const T*>(beta);                                      \
+    a.w = static_cast<const T*>(w);                                            \
+    a.mu = static_cast<const T*>(mu);                                          \
+    a.k = k;                                                                   \
+    a.n = n;                                                                   \
+    a.po = static_cast<T*>(po);                                                \
+    a.keep = static_cast<const bool*>(keep);                                   \
+    a.ap = static_cast<const T*>(ap);                                          \
+    a.active = static_cast<const bool*>(active);                               \
+    a.row = row;                                                               \
+    a.ell = ell;                                                               \
+    a.p_buf = static_cast<T*>(p_buf);                                          \
+    a.ap_buf = static_cast<T*>(ap_buf);                                        \
+    return launch_dir<T, true>(a, stream);                                     \
   }                                                                            \
   extern "C" int self_gram_##SUFFIX(const void* s, int m2, int64_t n,          \
                                     int64_t cols, int nblocks, void* partials, \

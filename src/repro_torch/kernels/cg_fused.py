@@ -19,15 +19,23 @@ C interface, built by :mod:`repro_torch.kernels._build`):
 * ``fused_rz_reduce`` replaces ``fused_rz_reduce_pallas`` (cg_fused.py:252):
   ``(rᵀz, (AW)·z)`` in one pass, the preconditioned iteration's second
   sweep (``z = M⁻¹r`` exists only after the residual update).
-  Bytes-bound, (2 + k)·n elements for 2(1 + k)·n flops; the same
-  grid-stride pass and fixed-order two-stage reduction as the ``(AW)·r``
-  arm of ``fused_cg_update``.
+  Bytes-bound, (2 + k)·n elements for 2(1 + k)·n flops; ONE launch with
+  ``fused_cg_update``'s layout and ticket reduction (and its scratch).
+  Its step arm, ``fused_rz_step``, is the preconditioned def-CG and cg
+  tail: β = rᵀz / safe(rs), μ = (WᵀAW)⁻¹(AW)ᵀz and the recorded α / β,
+  in the same launch.  Its pair arm, ``fused_rz_pair``, sums ``rᵀap,
+  (AW)·ap, rᵀr, (AW)·r`` in one read for the sharded def-CG, each column
+  in the one-vector arm's order (every arm takes the pair arm's grid).
 * ``fused_deflate_direction`` replaces ``fused_deflate_direction_pallas``
   (cg_fused.py:426), both arms: ``p ← βp + r − μᵀW`` and, when buffers are
   given, the incoming ``(p, ap)`` written into row ``idx`` of the
   ``(rows, n)`` recording buffers in place.  Bytes-bound, (3 + k)·n
-  elements (+3n recording); μ sits in shared memory, ``β`` and ``idx`` are
-  read from device memory so the loop never waits on the host.
+  elements (+3n recording); one grid-stride pass (16-byte groups where
+  aligned, the grid from the occupancy API), β and μ in registers, read
+  from device memory so the loop never waits on the host.  Its step arm,
+  ``fused_direction_step``, is the loops' direction step: a fresh
+  ``keep ? p' : p`` (the ``p`` select) and the recording row
+  ``active ? row : ell`` formed in the kernel.
 * ``self_gram`` replaces ``self_gram_pallas`` (cg_fused.py:558): ``S Sᵀ``
   of the stacked window ``S = [Z; AZ]`` (2m ≤ 128 rows).  Bytes-bound: it
   reads 2m·n elements for m(2m+1)·2n flops.  One block per SM streams its
@@ -53,7 +61,7 @@ C interface, built by :mod:`repro_torch.kernels._build`):
   exact-termination latch, the status, the trace slot, j and the next
   active flag, every output masked by the step's active flag.
 
-The two step arms carry their scalars on the card: the loop never waits on
+The step arms carry their scalars on the card: the loop never waits on
 the host, and each scalar is rounded as the eager op it replaces (their
 plain versions, ``*_step_plain``, are the loops' former eager lines in
 their order), so the card's scalars are bit for bit the plain versions'.
@@ -84,7 +92,6 @@ LAUNCHES = _runtime.LAUNCHES
 PLAIN_ON_CUDA = _runtime.PLAIN_ON_CUDA
 
 THREADS = 256
-GRID_CAP = 264  # two resident blocks per SM on a 132-SM H100
 MAX_K = 16
 MAX_GRAM_ROWS = 128
 GRAM_COLS = 32  # columns of S a shared-memory stage of self_gram holds
@@ -102,7 +109,10 @@ _SIGNATURES = {
     "fused_cg_step": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
                       _P, _P, _L, _I, _P, _P, _P, _I, _I, _P, _P, _P),
     "fused_rz_reduce": (_P, _P, _P, _I, _L, _P, _I, _P, _P),
-    "fused_deflate_direction": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _I),
+    "fused_rz_pair": (_P, _P, _P, _I, _L, _P, _I, _P, _P),
+    "fused_rz_step": (_P, _P, _P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "fused_deflate_direction": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P),
+    "fused_direction_step": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _I, _I, _P, _P),
     "self_gram": (_P, _I, _L, _L, _I, _P, _P),
     "recombine_blocks": (_P, _P, _I, _I, _L, _P, _I),
     "lsmr_update": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P),
@@ -120,10 +130,13 @@ def _launch(name: str, like: torch.Tensor, *args, key: Optional[str] = None) -> 
     _runtime.launch("cg_fused", name, _SIGNATURES[name], like, *args, key=key)
 
 
-def _check_flags(name: str, like: torch.Tensor, js: torch.Tensor, active: torch.Tensor) -> None:
+def _check_flags(name: str, like: torch.Tensor, js=None, **flags) -> None:
     """The integer and boolean scalars of a step: ``js = [j, fail]``
-    (int32, (2,)) and ``active`` (bool, 0-d), on ``like``'s device."""
-    for key, t, dtype, shape in (("js", js, torch.int32, (2,)), ("active", active, torch.bool, ())):
+    (int32, (2,)) and each named flag (bool, 0-d), on ``like``'s device."""
+    wanted = [(key, t, torch.bool, ()) for key, t in flags.items()]
+    if js is not None:
+        wanted.insert(0, ("js", js, torch.int32, (2,)))
+    for key, t, dtype, shape in wanted:
         if t.device != like.device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {key} must be a {dtype} tensor of shape {shape} on "
                              f"{like.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
@@ -133,13 +146,14 @@ def _check_flags(name: str, like: torch.Tensor, js: torch.Tensor, active: torch.
 
 @functools.lru_cache(maxsize=None)
 def _reduce_scratch(device: torch.device, dtype: torch.dtype):
-    """``(partials, counter, rows)`` of ``fused_cg_update``'s one-launch
-    reduction on ``device``: room for the most blocks the card holds at
-    once, allocated once per device and dtype and reused by every call
-    (the last block resets the counter, so calls must follow one another
-    on one stream)."""
+    """``(partials, counter, rows)`` of the one-launch reductions of
+    ``fused_cg_update`` and ``fused_rz_reduce`` on ``device``: room for the
+    most blocks the card holds at once, each with the 2(k + 1) columns of
+    K6's pair arm, allocated once per device and dtype and shared by every
+    call (the last block resets the counter, so calls must follow one
+    another on one stream)."""
     rows = torch.cuda.get_device_properties(device).multi_processor_count * MAX_BLOCKS_PER_SM
-    partials = torch.empty((rows, MAX_K + 1), dtype=dtype, device=device)
+    partials = torch.empty((rows, 2 * (MAX_K + 1)), dtype=dtype, device=device)
     counter = torch.zeros((), dtype=torch.int32, device=device)
     return partials, counter, rows
 
@@ -180,10 +194,6 @@ def sym_ortho(a, b):
     r = torch.sqrt(a * a + b * b)
     safe_r = safe(r)
     return a / safe_r, b / safe_r, r
-
-
-def _grid(n: int) -> int:
-    return min(_cdiv(n, THREADS), GRID_CAP)
 
 
 def _gram_grid(n: int):
@@ -265,7 +275,7 @@ def fused_cg_step_cuda(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverge
         ell = a_rows.shape[0] - 1
         shapes.update(a_rows=(a_rows, (ell + 1,)), b_rows=(b_rows, (ell + 1,)))
     _check("fused_cg_update", x, **shapes)
-    _check_flags("fused_cg_update", x, js, active)
+    _check_flags("fused_cg_update", x, js, active=active)
     if n == 0 or k > MAX_K or (aw is not None and not recurrence):
         raise ValueError(f"fused_cg_step: need n >= 1, k <= {MAX_K} and the deflation GEMV "
                          f"only with the recurrence; got n={n}, k={k}")
@@ -327,23 +337,27 @@ def fused_cg_step_plain(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverg
 # ---------------------------------------------------------------------------
 
 
-def fused_rz_reduce_cuda(r, z, aw=None):
-    """``(rᵀz, AW @ z | None)`` on the card, both on the device."""
+def _rz_checks(name, r, z, aw, **more):
     n = r.shape[0]
     k = 0 if aw is None else aw.shape[0]
-    shapes = {"r": (r, (n,)), "z": (z, (n,))}
+    shapes = {"r": (r, (n,)), "z": (z, (n,)), **more}
     if aw is not None:
         shapes["aw"] = (aw, (k, n))
     _check("fused_rz_reduce", r, **shapes)
     if n == 0 or k > MAX_K:
-        raise ValueError(f"fused_rz_reduce: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}")
-    blocks = _grid(n)
-    partials = torch.empty((blocks, k + 1), dtype=r.dtype, device=r.device)
-    rz = torch.empty((), dtype=r.dtype, device=r.device)
-    awz = torch.empty((k,), dtype=r.dtype, device=r.device) if k else None
+        raise ValueError(f"{name}: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}")
+    return n, k
+
+
+def fused_rz_reduce_cuda(r, z, aw=None):
+    """``(rᵀz, AW @ z | None)`` on the card, both on the device: ONE launch
+    (the last block to draw a ticket sums the partials in block order)."""
+    n, k = _rz_checks("fused_rz_reduce", r, z, aw)
+    partials, counter, rows = _reduce_scratch(r.device, r.dtype)
+    out = torch.empty((1 + k,), dtype=r.dtype, device=r.device)
     _launch("fused_rz_reduce", r,
-            _ptr(r), _ptr(z), _ptr(aw), k, n, _ptr(partials), blocks, _ptr(rz), _ptr(awz))
-    return rz, awz
+            _ptr(r), _ptr(z), _ptr(aw), k, n, _ptr(partials), rows, _ptr(counter), _ptr(out))
+    return out[0], (out[1:] if k else None)
 
 
 def fused_rz_reduce_plain(r, z, aw=None):
@@ -352,9 +366,97 @@ def fused_rz_reduce_plain(r, z, aw=None):
     return ref.fused_rz_reduce(r, z, aw)
 
 
+def fused_rz_step_cuda(r, z, rs, aw=None, waw_inv=None, *, alpha=None, active=None, row=None,
+                       a_rows=None, b_rows=None):
+    """The preconditioned def-CG and cg tail after ``z = M⁻¹r``, in ONE
+    launch of ``fused_rz_reduce``'s kernel.
+
+    In: ``r``, ``z``, the carried ``rs`` (the previous ``rᵀz``, 0-d), the
+    deflation products ``aw`` (k, n) with ``waw_inv = (WᵀAW)⁻¹`` (row-major).
+    On a recording step (``row`` given) ``alpha`` (0-d, K1's α) and ``β`` go
+    to row ``active ? row : ell`` of ``a_rows, b_rows`` (``(ell + 1,)``, in
+    place).  Out: ``so = [rs', β, μ…]`` with ``rs' = rᵀz``, ``β = rs' /
+    safe(rs)``, ``μ = waw_inv·(AW)ᵀz`` (fresh; K2's step arm reads β and μ
+    from it).
+    """
+    if row is None:
+        alpha = active = a_rows = b_rows = None
+    ell = -1 if row is None else a_rows.shape[0] - 1
+    more = {"rs": (rs, ())}
+    if aw is not None:
+        more["waw_inv"] = (waw_inv, (aw.shape[0], aw.shape[0]))
+    if row is not None:
+        more.update(alpha=(alpha, ()), a_rows=(a_rows, (ell + 1,)), b_rows=(b_rows, (ell + 1,)))
+    n, k = _rz_checks("fused_rz_step", r, z, aw, **more)
+    if row is not None:
+        _check_flags("fused_rz_reduce", r, active=active)
+    partials, counter, rows = _reduce_scratch(r.device, r.dtype)
+    so = torch.empty((2 + k,), dtype=r.dtype, device=r.device)
+    _launch("fused_rz_step", r,
+            _ptr(r), _ptr(z), _ptr(aw), k, n, _ptr(partials), rows, _ptr(counter), _ptr(rs),
+            _ptr(alpha), _ptr(active), _ptr(waw_inv), _ptr(a_rows), _ptr(b_rows),
+            -1 if row is None else row, ell, _ptr(so), key="fused_rz_reduce")
+    return so
+
+
+def fused_rz_step_plain(r, z, rs, aw=None, waw_inv=None, *, alpha=None, active=None, row=None,
+                        a_rows=None, b_rows=None):
+    """Plain PyTorch version of :func:`fused_rz_step_cuda`: the
+    preconditioned loops' former eager lines after ``z = M⁻¹r``, in their
+    order."""
+    _note_plain("fused_rz_reduce", r)
+    rs_new, awz = ref.fused_rz_reduce(r, z, aw)
+    mu = waw_inv @ awz if aw is not None else rs_new.new_zeros((0,))
+    beta = rs_new / torch.where(rs == 0.0, 1.0, rs)
+    if row is not None:
+        slot = torch.where(active, row, a_rows.shape[0] - 1).to(torch.int64).reshape(1)
+        a_rows.index_copy_(0, slot, alpha.reshape(1))
+        b_rows.index_copy_(0, slot, beta.reshape(1))
+    return torch.cat([torch.stack([rs_new, beta]), mu])
+
+
+def fused_rz_pair_cuda(r, ap, aw=None):
+    """``(rᵀap, AW @ ap, rᵀr, AW @ r)`` on the card in ONE launch (one read
+    of ``r``, ``ap`` and ``aw``): the sharded def-CG's fresh reductions.
+    Each is summed in the order of :func:`fused_rz_reduce_cuda` on the same
+    inputs, so the four are two one-vector calls' bit for bit.  Views of
+    one device buffer (the ``AW`` products None when ``aw`` is None)."""
+    n, k = _rz_checks("fused_rz_pair", r, ap, aw)
+    partials, counter, rows = _reduce_scratch(r.device, r.dtype)
+    out = torch.empty((2 * (1 + k),), dtype=r.dtype, device=r.device)
+    _launch("fused_rz_pair", r,
+            _ptr(r), _ptr(ap), _ptr(aw), k, n, _ptr(partials), rows, _ptr(counter), _ptr(out),
+            key="fused_rz_reduce")
+    return out[0], (out[1:1 + k] if k else None), out[1 + k], (out[2 + k:] if k else None)
+
+
+def fused_rz_pair_plain(r, ap, aw=None):
+    """Plain PyTorch version of :func:`fused_rz_pair_cuda`: the two
+    one-vector reductions it replaces."""
+    _note_plain("fused_rz_reduce", r)
+    rap, awap = ref.fused_rz_reduce(r, ap, aw)
+    rr, awr = ref.fused_rz_reduce(r, r, aw)
+    return rap, awap, rr, awr
+
+
 # ---------------------------------------------------------------------------
 # fused_deflate_direction
 # ---------------------------------------------------------------------------
+
+
+def _dir_checks(name, z, p, beta, w, mu, ap=None, p_buf=None, ap_buf=None):
+    n = z.shape[0]
+    k = 0 if w is None else w.shape[0]
+    shapes = {"z": (z, (n,)), "p": (p, (n,)), "beta": (beta, ())}
+    if w is not None:
+        shapes.update(w=(w, (k, n)), mu=(mu, (k,)))
+    if p_buf is not None:
+        rows = p_buf.shape[0]
+        shapes.update(ap=(ap, (n,)), p_buf=(p_buf, (rows, n)), ap_buf=(ap_buf, (rows, n)))
+    _check("fused_deflate_direction", z, **shapes)
+    if n == 0 or k > MAX_K:
+        raise ValueError(f"{name}: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}")
+    return n, k
 
 
 def fused_deflate_direction_cuda(
@@ -367,27 +469,16 @@ def fused_deflate_direction_cuda(
     of both buffers IN PLACE.  Returns ``(p_new, p_buf, ap_buf)``.
     ``w=None`` is the plain-CG direction update (k = 0).
     """
-    n = r.shape[0]
-    k = 0 if w is None else w.shape[0]
     beta = _scalar(beta, r)
-    shapes = {"r": (r, (n,)), "p": (p, (n,)), "beta": (beta, ())}
-    if w is not None:
-        shapes.update(w=(w, (k, n)), mu=(mu, (k,)))
     record = p_buf is not None
     if record:
-        rows = p_buf.shape[0]
-        shapes.update(ap=(ap, (n,)), p_buf=(p_buf, (rows, n)), ap_buf=(ap_buf, (rows, n)))
         idx = torch.as_tensor(idx, dtype=torch.int64, device=r.device).reshape(())
-    _check("fused_deflate_direction", r, **shapes)
-    if n == 0 or k > MAX_K:
-        raise ValueError(
-            f"fused_deflate_direction: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}"
-        )
+    n, k = _dir_checks("fused_deflate_direction", r, p, beta, w, mu, ap, p_buf, ap_buf)
     po = torch.empty_like(p)
     _launch("fused_deflate_direction", r,
             _ptr(r), _ptr(p), _ptr(beta), _ptr(w), _ptr(mu), k, n, _ptr(po),
             _ptr(ap if record else None), _ptr(idx if record else None),
-            _ptr(p_buf), _ptr(ap_buf), _grid(n))
+            _ptr(p_buf), _ptr(ap_buf))
     return po, p_buf, ap_buf
 
 
@@ -403,6 +494,46 @@ def fused_deflate_direction_plain(
         p_buf.index_copy_(0, row, p[None])
         ap_buf.index_copy_(0, row, ap[None])
     return p_new, p_buf, ap_buf
+
+
+def fused_direction_step_cuda(z, p, beta, keep, w=None, mu=None, *, ap=None, active=None,
+                              row=None, p_buf=None, ap_buf=None):
+    """The solver loops' direction update with the ``p`` select, in ONE
+    launch of ``fused_deflate_direction``'s kernel: a fresh
+    ``keep ? β p + z − μᵀW : p``.
+
+    ``beta`` (0-d), ``mu`` (k,) and ``keep`` (bool, 0-d) stay on the device:
+    views of K1's or K6's packed step outputs (``so[3], so[4:]`` /
+    ``so[1], so[2:]``, K1's ``flags[1]``) or the sharded loops' own.  On a
+    recording step (``row`` given) the incoming ``p`` and ``ap`` go to row
+    ``active ? row : ell`` of the ``(ell + 1, n)`` buffers, in place.
+    """
+    if row is None:
+        ap = active = p_buf = ap_buf = None
+    ell = -1 if row is None else p_buf.shape[0] - 1
+    n, k = _dir_checks("fused_direction_step", z, p, beta, w, mu, ap, p_buf, ap_buf)
+    flags = {"keep": keep} if row is None else {"keep": keep, "active": active}
+    _check_flags("fused_deflate_direction", z, **flags)
+    po = torch.empty_like(p)
+    _launch("fused_direction_step", z,
+            _ptr(z), _ptr(p), _ptr(beta), _ptr(w), _ptr(mu), k, n, _ptr(po), _ptr(keep),
+            _ptr(ap), _ptr(active), -1 if row is None else row, ell, _ptr(p_buf), _ptr(ap_buf),
+            key="fused_deflate_direction")
+    return po
+
+
+def fused_direction_step_plain(z, p, beta, keep, w=None, mu=None, *, ap=None, active=None,
+                               row=None, p_buf=None, ap_buf=None):
+    """Plain PyTorch version of :func:`fused_direction_step_cuda`: the
+    loops' former eager lines (the recording slot, the direction update,
+    the ``p`` select), in their order."""
+    _note_plain("fused_deflate_direction", z)
+    if row is not None:
+        slot = torch.where(active, row, p_buf.shape[0] - 1).to(torch.int64).reshape(1)
+        p_buf.index_copy_(0, slot, p[None])
+        ap_buf.index_copy_(0, slot, ap[None])
+    p_new, _, _ = ref.fused_deflate_direction(z, p, beta, w, mu)
+    return torch.where(keep, p_new, p)
 
 
 # ---------------------------------------------------------------------------
@@ -509,7 +640,7 @@ def lsmr_step_cuda(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverg
     if trace is not None:
         shapes["trace"] = (trace, (maxiter + 2,))
     _check("lsmr_update", x, **shapes)
-    _check_flags("lsmr_update", x, js, active)
+    _check_flags("lsmr_update", x, js, active=active)
     if n == 0:
         raise ValueError("lsmr_step: need n >= 1")
     xo, hbo, ho, vo = (torch.empty_like(x) for _ in range(4))

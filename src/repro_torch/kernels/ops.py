@@ -154,6 +154,51 @@ def fused_rz_reduce(
     return ref.fused_rz_reduce(r, z, aw)
 
 
+def fused_rz_step(
+    r: torch.Tensor,
+    z: torch.Tensor,
+    rs: torch.Tensor,
+    aw: Optional[torch.Tensor] = None,
+    waw_inv: Optional[torch.Tensor] = None,
+    *,
+    alpha: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
+    row: Optional[int] = None,
+    a_rows: Optional[torch.Tensor] = None,
+    b_rows: Optional[torch.Tensor] = None,
+    backend: str = "auto",
+):
+    """The preconditioned def-CG / cg tail after ``z = M⁻¹r``: ``rᵀz``,
+    ``β = rᵀz / safe(rs)``, ``μ = waw_inv·(AW)ᵀz`` and, on a recording step,
+    ``α, β`` into row ``active ? row : ell`` of ``a_rows, b_rows`` — one
+    launch on the card.  Returns ``so = [rᵀz, β, μ…]``; see
+    :func:`repro_torch.kernels.cg_fused.fused_rz_step_cuda`.  ``reference``
+    runs the plain version, built on the oracle."""
+    backend = _resolve(backend, r)
+    step = cg_fused.fused_rz_step_cuda if backend == "cuda" else cg_fused.fused_rz_step_plain
+    return step(r, z, rs, aw, waw_inv, alpha=alpha, active=active, row=row, a_rows=a_rows,
+                b_rows=b_rows)
+
+
+def fused_rz_pair(
+    r: torch.Tensor,
+    ap: torch.Tensor,
+    aw: Optional[torch.Tensor] = None,
+    *,
+    backend: str = "auto",
+):
+    """``(rᵀap, AW @ ap, rᵀr, AW @ r)`` in one pass over ``r``, ``ap`` and
+    ``aw``: the sharded def-CG's fresh reductions, each summed as
+    :func:`fused_rz_reduce` sums it.  ``reference`` runs the two oracle
+    calls it replaces."""
+    backend = _resolve(backend, r)
+    if backend == "cuda":
+        return cg_fused.fused_rz_pair_cuda(r, ap, aw)
+    if backend == "plain":
+        return cg_fused.fused_rz_pair_plain(r, ap, aw)
+    return ref.fused_rz_reduce(r, ap, aw) + ref.fused_rz_reduce(r, r, aw)
+
+
 def fused_deflate_direction(
     r: torch.Tensor,
     p: torch.Tensor,
@@ -182,6 +227,34 @@ def fused_deflate_direction(
     if backend == "plain":
         return cg_fused.fused_deflate_direction_plain(*args)
     return ref.fused_deflate_direction(*args)
+
+
+def fused_direction_step(
+    z: torch.Tensor,
+    p: torch.Tensor,
+    beta: torch.Tensor,
+    keep: torch.Tensor,
+    w: Optional[torch.Tensor] = None,
+    mu: Optional[torch.Tensor] = None,
+    *,
+    ap: Optional[torch.Tensor] = None,
+    active: Optional[torch.Tensor] = None,
+    row: Optional[int] = None,
+    p_buf: Optional[torch.Tensor] = None,
+    ap_buf: Optional[torch.Tensor] = None,
+    backend: str = "auto",
+):
+    """The solver loops' direction step: a fresh ``keep ? β p + z − μᵀW :
+    p`` with ``β``, ``μ`` and ``keep`` on the device, and on a recording
+    step the incoming ``(p, ap)`` written to row ``active ? row : ell`` of
+    the buffers in place — one launch on the card.  See
+    :func:`repro_torch.kernels.cg_fused.fused_direction_step_cuda`;
+    ``reference`` runs the plain version, built on the oracle."""
+    backend = _resolve(backend, z)
+    step = (cg_fused.fused_direction_step_cuda if backend == "cuda"
+            else cg_fused.fused_direction_step_plain)
+    return step(z, p, beta, keep, w, mu, ap=ap, active=active, row=row, p_buf=p_buf,
+                ap_buf=ap_buf)
 
 
 def self_gram(s: torch.Tensor, *, backend: str = "auto") -> torch.Tensor:

@@ -20,7 +20,9 @@ over NCCL against the unsharded solve on the card.  ``flash_attention``
 (2e-4 / 5e-4) and bf16 (2e-2 / 5e-2), the tolerances of
 ``tests/test_kernels.py`` (relative to the output's scale for the SSD
 scan), on GQA, causal decode with ``q_offset``, ragged lengths and the
-serving path's shapes; both must repeat bit for bit.
+serving path's shapes; both must repeat bit for bit.  The step arms of
+K1, K6, K2 and K7 and K6's pair arm are held against their plain versions
+(the scalars bit for bit), and each arm must be one device kernel a call.
 """
 
 import numpy as np
@@ -92,6 +94,90 @@ def test_fused_rz_reduce(device, dtype, n, k):
         _assert_close(got[1], want[1], dtype)
     else:
         assert got[1] is None
+
+
+STEP_SIZES = [1, 1000, 36551, 36552]  # odd n: element loads; 36 552: 16-byte groups
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", STEP_SIZES)
+@pytest.mark.parametrize("k", [0, 1, 8, 16])
+def test_fused_rz_pair(device, dtype, n, k):
+    """K6's pair arm: bit for bit two calls of the one-vector arm (the same
+    grid and order), to the kernel bar against its plain version, two
+    launches bit for bit, one counted launch per call."""
+    rnd = _gen(device, dtype, 5 * n + k)
+    r, ap = rnd(n), rnd(n)
+    aw = rnd(k, n) if k else None
+    got = cg_fused.fused_rz_pair_cuda(r, ap, aw)
+    one_ap = cg_fused.fused_rz_reduce_cuda(r, ap, aw)
+    one_r = cg_fused.fused_rz_reduce_cuda(r, r, aw)
+    want = cg_fused.fused_rz_pair_plain(r, ap, aw)
+    assert torch.equal(got[0], one_ap[0]) and torch.equal(got[2], one_r[0])
+    if k:
+        assert torch.equal(got[1], one_ap[1]) and torch.equal(got[3], one_r[1])
+        _assert_close(got[1], want[1], dtype)
+        _assert_close(got[3], want[3], dtype)
+    else:
+        assert got[1] is None and got[3] is None
+    _assert_close(got[0], want[0], dtype)
+    _assert_close(got[2], want[2], dtype)
+    again = cg_fused.fused_rz_pair_cuda(r, ap, aw)
+    assert all(a is None or torch.equal(a, b) for a, b in zip(got, again))
+    before = cg_fused.LAUNCHES["fused_rz_reduce"]
+    kops.fused_rz_pair(r, ap, aw)
+    assert cg_fused.LAUNCHES["fused_rz_reduce"] == before + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", STEP_SIZES)
+@pytest.mark.parametrize("k", [0, 1, 8, 16])
+@pytest.mark.parametrize("case", ["live", "recording", "frozen-recording", "rs0"])
+def test_fused_rz_step(device, dtype, n, k, case):
+    """K6's step arm against its plain version (the preconditioned loops'
+    former eager lines): rs' bit for bit the one-vector arm's rᵀz, β bit for
+    bit rs' / safe(rs), μ bit for bit in its fixed order from the
+    one-vector arm's sums and to the kernel bar against the plain GEMV,
+    the recorded α / β rows bit for bit, two launches bit for bit, one
+    counted launch per call."""
+    rnd = _gen(device, dtype, 23 * n + k + len(case))
+    r, z = rnd(n), rnd(n)
+    aw = rnd(k, n) if k else None
+    waw_inv = rnd(k, k) if k else None
+    rs = torch.zeros((), dtype=dtype, device=device) if case == "rs0" else torch.dot(r, r)
+    alpha = rnd(())
+    active = torch.tensor(case != "frozen-recording", device=device)
+    ell = 4
+
+    def run(step):
+        rows = {}
+        if "recording" in case:
+            rows = dict(row=1, a_rows=torch.zeros(ell + 1, dtype=dtype, device=device),
+                        b_rows=torch.zeros(ell + 1, dtype=dtype, device=device))
+        return step(r, z, rs, aw, waw_inv, alpha=alpha, active=active, **rows), rows
+
+    so, rows_k = run(cg_fused.fused_rz_step_cuda)
+    sw, rows_p = run(cg_fused.fused_rz_step_plain)
+    rz, awz = cg_fused.fused_rz_reduce_cuda(r, z, aw)
+    assert so.shape == (2 + k,)
+    assert torch.equal(so[0], rz)
+    assert torch.equal(so[1], so[0] / torch.where(rs == 0.0, 1.0, rs))
+    _assert_close(so, sw, dtype)
+    if k:
+        mu = torch.zeros(k, dtype=dtype, device=device)
+        for j in range(k):
+            mu = mu + waw_inv[:, j] * awz[j]
+        assert torch.equal(so[2:], mu)
+    if rows_k:
+        slot = 1 if bool(active) else ell
+        assert torch.equal(rows_k["a_rows"], rows_p["a_rows"])
+        assert torch.equal(rows_k["b_rows"][slot], so[1])
+        assert torch.equal(rows_k["b_rows"] != 0, rows_p["b_rows"] != 0)
+    again, _ = run(cg_fused.fused_rz_step_cuda)
+    assert torch.equal(so, again)
+    before = cg_fused.LAUNCHES["fused_rz_reduce"]
+    kops.fused_rz_step(r, z, rs, aw, waw_inv)
+    assert cg_fused.LAUNCHES["fused_rz_reduce"] == before + 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -250,6 +336,50 @@ def test_fused_deflate_direction(device, dtype, n, k, buffered):
     _assert_close(got[0], want[0], dtype)
     if buffered:
         assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", STEP_SIZES)
+@pytest.mark.parametrize("k", [0, 8, 16])
+@pytest.mark.parametrize("case", ["live", "frozen", "breakdown", "recording", "frozen-recording"])
+def test_fused_direction_step(device, dtype, n, k, case):
+    """K2's step arm against its plain version (the loops' direction
+    update, ``p`` select and recording slot): po bit for bit p where the
+    step keeps p (frozen, breakdown), bit for bit the TPU-function arm's p'
+    on a live step (one fused multiply-add a term) and to the kernel bar
+    against the plain version's eager ops; the buffers bit for bit (the spare row on a frozen recording
+    step); β and μ read from a view of a packed device vector; two
+    launches bit for bit, one counted launch per call."""
+    rnd = _gen(device, dtype, 29 * n + k + len(case))
+    z, p, ap = rnd(n), rnd(n), rnd(n)
+    w = rnd(k, n) if k else None
+    packed = rnd(2 + k)  # [rs', β, μ…], as K6's step arm writes it
+    beta, mu = packed[1], (packed[2:] if k else None)
+    keep = torch.tensor(case in ("live", "recording"), device=device)
+    active = torch.tensor(case != "frozen-recording", device=device)
+
+    def run(step):
+        bufs = {}
+        if "recording" in case:
+            g = _gen(device, dtype, 3)
+            bufs = dict(ap=ap, active=active, row=2, p_buf=g(6, n), ap_buf=g(6, n))
+        return step(z, p, beta, keep, w, mu, **bufs), bufs
+
+    po, bk = run(cg_fused.fused_direction_step_cuda)
+    pw, bp = run(cg_fused.fused_direction_step_plain)
+    if bool(keep):
+        tpu, _, _ = cg_fused.fused_deflate_direction_cuda(z, p, beta, w, mu)
+        assert torch.equal(po, tpu)
+    else:
+        assert torch.equal(po, p) and torch.equal(pw, p)
+    _assert_close(po, pw, dtype)
+    if bk:
+        assert torch.equal(bk["p_buf"], bp["p_buf"]) and torch.equal(bk["ap_buf"], bp["ap_buf"])
+    again, _ = run(cg_fused.fused_direction_step_cuda)
+    assert torch.equal(po, again)
+    before = cg_fused.LAUNCHES["fused_deflate_direction"]
+    kops.fused_direction_step(z, p, beta, keep, w, mu)
+    assert cg_fused.LAUNCHES["fused_deflate_direction"] == before + 1
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -479,15 +609,34 @@ def test_fused_cg_step(device, dtype, n, k, case):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_step_arms_run_one_device_kernel(device, dtype):
-    """Each arm of K1 and K7 is one device kernel a call, K1's reduction
-    included (``torch.profiler``, at the main paths' shapes: K1 n = 36 551,
-    k = 8 and k = 0, K7 n = 16 384)."""
+    """Each arm of K1, K6, K2 and K7 is one device kernel a call, the
+    reductions included (``torch.profiler``, at the main paths' shapes: K1,
+    K6 and K2 n = 36 551, k = 8 and k = 0, K6's pair arm main-shard's
+    per-rank n = 4 096, K7 n = 16 384)."""
     cg = _cg_step_inputs(device, dtype, 36551, 8, "live")
     ls = _lsmr_step_inputs(device, dtype, 16384, "live")
     x, r, p, ap = cg[:4]
+    aw, waw_inv, rs = cg[12], cg[13], cg[5]
     alpha = torch.tensor(0.3, dtype=dtype, device=device)
     c = [torch.tensor(q, dtype=dtype, device=device) for q in (0.5, -0.25, 2.0)]
+    on = torch.tensor(True, device=device)
+    so = cg_fused.fused_rz_step_cuda(r, p, rs, aw, waw_inv)
+    aw4 = aw[:, :4096].contiguous()
+    rec = dict(ap=ap, active=on, row=1, p_buf=torch.zeros(5, 36551, dtype=dtype, device=device),
+               ap_buf=torch.zeros(5, 36551, dtype=dtype, device=device))
+    rows = dict(row=1, a_rows=torch.zeros(5, dtype=dtype, device=device),
+                b_rows=torch.zeros(5, dtype=dtype, device=device))
     calls = {
+        "K6 AW arm": lambda: cg_fused.fused_rz_reduce_cuda(r, p, aw),
+        "K6 no-AW arm": lambda: cg_fused.fused_rz_reduce_cuda(r, p),
+        "K6 step": lambda: cg_fused.fused_rz_step_cuda(r, p, rs, aw, waw_inv, alpha=alpha,
+                                                       active=on, **rows),
+        "K6 pair": lambda: cg_fused.fused_rz_pair_cuda(r[:4096], ap[:4096], aw4),
+        "K2 step": lambda: cg_fused.fused_direction_step_cuda(r, p, so[1], on, aw,
+                                                              so[2:]),
+        "K2 step, recording": lambda: cg_fused.fused_direction_step_cuda(
+            r, p, so[1], on, aw, so[2:], **rec),
+        "K2 step, k = 0": lambda: cg_fused.fused_direction_step_cuda(r, p, so[1], on),
         "K1 step": lambda: cg_fused.fused_cg_step_cuda(*cg),
         "K1 step, k = 0": lambda: cg_fused.fused_cg_step_cuda(*cg[:12]),
         "K1 TPU-function arm": lambda: cg_fused.fused_cg_update_cuda(x, r, p, ap, alpha, cg[12]),

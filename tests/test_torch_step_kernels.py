@@ -39,6 +39,7 @@ from repro_torch.core import engine  # noqa: E402
 from repro_torch.kernels import cg_fused as cf  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import ref as tref  # noqa: E402
+import torch_reduction_order as ro  # noqa: E402
 from tests.conftest import make_spd  # noqa: E402
 
 tlsmr = importlib.import_module("repro_torch.core.lsmr")
@@ -398,64 +399,6 @@ def test_cg_solve_matches_reference(case):
 # 3. K1's one-launch reduction, emulated
 # ---------------------------------------------------------------------------
 
-THREADS, WARPS = 256, 8
-
-
-def _warp_sum(v):
-    """Lane 0 of ``__shfl_down_sync``'s tree over the last axis (32 lanes):
-    lanes past the end read their own value."""
-    for off in (16, 8, 4, 2, 1):
-        v = v + torch.cat([v[..., off:], v[..., 32 - off:]], dim=-1)
-    return v[..., 0]
-
-
-def _emulate_k1_sums(prods, grid, vec, order):
-    """K1's sums of ``prods`` (columns × n per-element products), as the
-    kernel forms them.  Each thread takes slots of ``vec`` elements (one
-    16-byte group; 1 without ``vec``), two slots a step with ``vec`` and
-    four without, slot s of block b's step at unit ``b·256·S + s·256 + t``
-    (grid-stride), then the ragged tail; per warp the shuffle tree, per
-    block its warps in order; blocks finish in ``order``, each writes its
-    partials and draws a ticket, and the one that draws the last ticket
-    sums the partials in block order (lane l takes blocks l, l + 32, …,
-    then the tree)."""
-    cols, n = prods.shape
-    width, slots = (vec, 2) if vec else (1, 4)
-    units = n // width
-    acc = torch.zeros(cols, grid, THREADS, dtype=prods.dtype)
-    blk = torch.arange(grid)[:, None]
-    thr = torch.arange(THREADS)[None, :]
-    stride = grid * THREADS * slots
-    zero = torch.zeros((), dtype=prods.dtype)
-    for base in range(0, units, stride):
-        for slot in range(slots):
-            u = base + blk * THREADS * slots + slot * THREADS + thr
-            ok = u < units
-            for w in range(width):
-                e = torch.where(ok, u * width + w, 0)
-                acc += torch.where(ok, prods[:, e], zero)
-    if vec:
-        e = units * width + blk * THREADS + thr
-        ok = e < n
-        acc += torch.where(ok, prods[:, torch.where(ok, e, 0)], zero)
-    warp_parts = _warp_sum(acc.reshape(cols, grid, WARPS, 32))  # (cols, grid, warps)
-    partials = torch.full((grid, cols), float("nan"), dtype=prods.dtype)
-    ticket, result = 0, None
-    for b in order:
-        s = torch.zeros(cols, dtype=prods.dtype)
-        for w in range(WARPS):
-            s = s + warp_parts[:, b, w]
-        partials[b] = s
-        if ticket == grid - 1:
-            lanes = torch.zeros(cols, 32, dtype=prods.dtype)
-            for b0 in range(0, grid, 32):
-                chunk = partials[b0:b0 + 32].T  # (cols, ≤ 32)
-                lanes[:, : chunk.shape[1]] = lanes[:, : chunk.shape[1]] + chunk
-            result = _warp_sum(lanes)
-        ticket += 1
-    return result
-
-
 @pytest.mark.parametrize("n", [1, 7, 1000, 36551])
 @pytest.mark.parametrize("grid", [1, 3, 143])
 @pytest.mark.parametrize("vec", [None, 2])
@@ -469,7 +412,7 @@ def test_k1_reduction_order(n, grid, vec, k):
     results = []
     for seed in range(3):
         order = torch.randperm(grid, generator=torch.Generator().manual_seed(seed)).tolist()
-        results.append(_emulate_k1_sums(prods, grid, vec, order))
+        results.append(ro.emulate_sums(prods, grid, vec, order))
     assert all(torch.equal(results[0], res) for res in results[1:])
     scale = prods.abs().sum(dim=1)
     assert bool(((results[0] - want).abs() <= 1e-13 * scale).all())

@@ -1,0 +1,71 @@
+"""The one-launch reduction order of K1 and K6, emulated in torch.
+
+``fused_cg_update`` (K1) and ``fused_rz_reduce`` (K6) share one layout
+(slots of one 16-byte group or one element, two or four a thread, grid
+stride) and one reduction (per-block partials, an integer ticket, the
+last block's sum in block order).  :func:`emulate_sums` forms a grid's
+sums the way the kernels do, for any order in which the blocks finish,
+so a test can hold that order on the CPU.  Imported by the test files;
+it imports no JAX.
+"""
+
+import torch
+
+THREADS, WARPS = 256, 8
+
+
+def _warp_sum(v):
+    """Lane 0 of ``__shfl_down_sync``'s tree over the last axis (32 lanes):
+    lanes past the end read their own value."""
+    for off in (16, 8, 4, 2, 1):
+        v = v + torch.cat([v[..., off:], v[..., 32 - off:]], dim=-1)
+    return v[..., 0]
+
+
+def emulate_sums(prods, grid, vec, order, wide=False):
+    """The sums of ``prods`` (columns × n per-element products) as K1 and
+    K6 form them (``csrc/cg_fused.cu``: ``CgLayout``, ``ticket_sums``).
+    Each thread takes slots of ``vec`` elements (one 16-byte group; 1
+    without ``vec``), two slots a step with ``vec`` and four without (half
+    that for ``wide``, past k = 8 rows of AW), slot s of block b's step at
+    unit ``b·256·S + s·256 + t`` (grid-stride), then the ragged tail; per
+    warp the shuffle tree, per block its warps in order; blocks finish in
+    ``order``, each writes its partials and draws a ticket, and the one
+    that draws the last ticket sums the partials in block order (lane l
+    takes blocks l, l + 32, …, then the tree)."""
+    cols, n = prods.shape
+    width, slots = (vec, 2) if vec else (1, 4)
+    slots //= 2 if wide else 1
+    units = n // width
+    acc = torch.zeros(cols, grid, THREADS, dtype=prods.dtype)
+    blk = torch.arange(grid)[:, None]
+    thr = torch.arange(THREADS)[None, :]
+    stride = grid * THREADS * slots
+    zero = torch.zeros((), dtype=prods.dtype)
+    for base in range(0, units, stride):
+        for slot in range(slots):
+            u = base + blk * THREADS * slots + slot * THREADS + thr
+            ok = u < units
+            for w in range(width):
+                e = torch.where(ok, u * width + w, 0)
+                acc += torch.where(ok, prods[:, e], zero)
+    if vec:
+        e = units * width + blk * THREADS + thr
+        ok = e < n
+        acc += torch.where(ok, prods[:, torch.where(ok, e, 0)], zero)
+    warp_parts = _warp_sum(acc.reshape(cols, grid, WARPS, 32))  # (cols, grid, warps)
+    partials = torch.full((grid, cols), float("nan"), dtype=prods.dtype)
+    ticket, result = 0, None
+    for b in order:
+        s = torch.zeros(cols, dtype=prods.dtype)
+        for w in range(WARPS):
+            s = s + warp_parts[:, b, w]
+        partials[b] = s
+        if ticket == grid - 1:
+            lanes = torch.zeros(cols, 32, dtype=prods.dtype)
+            for b0 in range(0, grid, 32):
+                chunk = partials[b0:b0 + 32].T  # (cols, ≤ 32)
+                lanes[:, : chunk.shape[1]] = lanes[:, : chunk.shape[1]] + chunk
+            result = _warp_sum(lanes)
+        ticket += 1
+    return result

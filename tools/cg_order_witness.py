@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""How far K1's summation order alone moves def-CG's counts on the card.
+"""How far the iteration kernels' rounding alone moves def-CG's counts.
 
 Runs the dense and the matrix-free GP Newton sequences of ``chip_smoke.py``'s
 main paths (n = 36 551, the digits data, def-CG(8, 12) through
-``RecycleManager``, solver tol 1e-5) twice on one tree of the port
-(``--src``): with its K1 kernel, and with K1's plain version (PyTorch ops
-on the card: ``torch.dot`` and ``torch.matmul`` sum in their own order).
-Everything else, K2 to K5 included, is the same in both runs.  Prints the
-per-system iterations, the Newton steps and log p of each run; the last
-line is a JSON object.  Run against two trees in one call to set their
-kernels beside one another and beside the one plain order they share:
+``RecycleManager``, solver tol 1e-5) and the matrix-free Jacobi-
+preconditioned front door twice on one tree of the port (``--src``): with
+its kernels, and with the plain versions of the entries its loops call
+for K1, K6 and K2 (PyTorch ops on the card: ``torch.dot`` and
+``torch.matmul`` sum, and ``β·p + z`` rounds, in their own order).  Everything else, K3 to K5 included, is the
+same in both runs.  Prints the per-system iterations, the Newton steps
+and log p of each run; the last line is a JSON object.  Run against two
+trees in one call to set their kernels beside one another and beside the
+one plain order they share:
 
     python tools/cg_order_witness.py --label parent --src build/parent/src
     python tools/cg_order_witness.py --label change
@@ -51,22 +53,30 @@ def main(argv=None) -> int:
     x = torch.as_tensor(xn, dtype=torch.float64, device="cuda")
     y = torch.as_tensor(yn, dtype=torch.float64, device="cuda")
     k_dense = RBFKernel(theta=cs.THETA, lengthscale=cs.LENGTHSCALE).gram(x)
-    # The entry the tree's def-CG loop calls for K1, and K1's plain version.
-    name = "fused_cg_step" if hasattr(cf, "fused_cg_step_cuda") else "fused_cg_update"
-    kernel_entry = getattr(kops, name)
-    plain = getattr(cf, f"{name}_plain")
-    out = {"label": args.label, "entry": name}
+    # The entries the tree's loops call for each kernel (its step arm where
+    # the tree has one), and their plain versions.
+    entries = (("fused_cg_step", "fused_cg_update"), ("fused_rz_step", "fused_rz_reduce"),
+               ("fused_direction_step", "fused_deflate_direction"))
+    swap = {}
+    for names in entries:
+        name = next(n for n in names if hasattr(cf, f"{n}_cuda"))
+        swap[name] = (getattr(kops, name), getattr(cf, f"{name}_plain"))
+    out = {"label": args.label, "swapped": sorted(swap)}
+    paths = (("dense", True, "defcg"), ("matrix-free", False, "defcg"),
+             ("matrix-free", False, "jacobi"))
     for order in ("kernel", "plain"):
-        setattr(kops, name, kernel_entry if order == "kernel" else
-                (lambda *a, backend="auto", **kw: plain(*a, **kw)))
-        for dense in (True, False):
-            path = "dense" if dense else "matrix-free"
+        for name, (kernel_entry, plain) in swap.items():
+            setattr(kops, name, kernel_entry if order == "kernel" else
+                    (lambda *a, _plain=plain, backend="auto", **kw: _plain(*a, **kw)))
+        for path, dense, solver in paths:
             run = cs.laplace_runs(torch, cf.LAUNCHES, x, y, k_dense if dense else None, 1e-5,
-                                  f"[{args.label} {order} {path}]", solvers=("defcg",),
-                                  dense=dense)["defcg"]
-            out[f"{order} {path}"] = {"iterations": run["iterations"],
-                                      "newton_steps": run["newton_steps"], "logp": run["logp"]}
-    setattr(kops, name, kernel_entry)
+                                  f"[{args.label} {order} {path}]", solvers=(solver,),
+                                  dense=dense)[solver]
+            out[f"{order} {path} {solver}"] = {"iterations": run["iterations"],
+                                               "newton_steps": run["newton_steps"],
+                                               "logp": run["logp"]}
+    for name, (kernel_entry, _) in swap.items():
+        setattr(kops, name, kernel_entry)
     print(json.dumps(out))
     return 0
 

@@ -1,20 +1,29 @@
 #!/usr/bin/env python3
-"""K1 and K7 and the two solver loops they end, timed on the card.
+"""The iteration-tail kernels K1, K6, K2, K7 and the loops they end, timed
+on the card.
 
 Measures one tree of the port (``--src``, default this tree's ``src``):
 
 * K1 (``fused_cg_update``) at n = 36 551, k = 8, f64: the TPU-function
   arm and, where the tree has it, the def-CG step arm
-  (``fused_cg_step_cuda``); K7 (``lsmr_update``) at n = 16 384, 32 768
-  and 2²⁰ in f64 and 2²⁰ in f32: the TPU-function arm and the LSMR step
-  arm (``lsmr_step_cuda``).  Each the median of 25 CUDA-event timings
-  with the L2 evicted before each call (``chip_smoke.device_ms``), with
-  the device kernels one call launches (``torch.profiler``);
+  (``fused_cg_step_cuda``); K6 (``fused_rz_reduce``) at the same shape:
+  the AW and no-AW arms and, where the tree has them, the step arm
+  (``fused_rz_step_cuda``) and the pair arm (``fused_rz_pair_cuda``, at
+  main-shard's per-rank n = 4 096; beside it the two one-vector calls it
+  replaces); K2 (``fused_deflate_direction``): the TPU-function arm with
+  and without recording and, where the tree has it, the step arm
+  (``fused_direction_step_cuda``) at k = 8, recording and not, and at
+  k = 0; K7 (``lsmr_update``) at n = 16 384, 32 768 and 2²⁰ in f64 and
+  2²⁰ in f32: the TPU-function arm and the LSMR step arm
+  (``lsmr_step_cuda``).  Each the median of 25 CUDA-event timings with
+  the L2 evicted before each call (``chip_smoke.device_ms``), with the
+  device kernels one call launches (``torch.profiler``);
 * deflated def-CG (k = 8) on the dense main path's Newton system at
-  n = 36 551 (the digits data, K formed on the card):
-  ``chip_smoke.profile_defcg_steps`` (launches and device time per
-  iteration, 16 steps), then the wall time per iteration of 64 live steps
-  (tol 0), unprofiled;
+  n = 36 551 (the digits data, K formed on the card), without and with
+  the Jacobi preconditioner: ``chip_smoke.profile_defcg_steps`` and
+  ``profile_pdefcg_steps`` (launches and device time per iteration, 16
+  steps), then the wall time per iteration of 64 live steps (tol 0),
+  unprofiled;
 * damped LSMR (λ = 1e-4) on the least-squares main path's first system
   (24 576 × 16 384, ``chip_smoke.drifting_lsq``): ``profile_lsmr_steps``
   cold and deflated (a random orthonormal W with NW = (AᵀA + λI)W), then
@@ -63,7 +72,7 @@ def main(argv=None) -> int:
         print("step_times: no CUDA device available", file=sys.stderr)
         return 2
     import repro_torch
-    from repro_torch.core import DenseMatrixOperator, KernelSystemOperator, defcg, lsmr
+    from repro_torch.core import DenseMatrixOperator, KernelSystemOperator, defcg, jacobi, lsmr
     from repro_torch.data import make_infinite_digits
     from repro_torch.gp import RBFKernel
     from repro_torch.kernels import cg_fused as cf
@@ -106,6 +115,35 @@ def main(argv=None) -> int:
         timed(f"K1 step arm f64 n={n} k={k}", lambda: cf.fused_cg_step_cuda(
             x, r, p, ap, d, rs, rnorm, js, on, thr, div, 100, aw, waw_inv))
 
+    # -- K6 and K2 -------------------------------------------------------------
+    g.manual_seed(5)
+    z, p = rnd(n), rnd(n)
+    timed(f"K6 aw arm f64 n={n} k={k}", lambda: cf.fused_rz_reduce_cuda(r, z, aw))
+    timed(f"K6 no-aw arm f64 n={n}", lambda: cf.fused_rz_reduce_cuda(r, z))
+    n_loc = cs.SHARD_N // cs.SHARD_RANKS
+    r4, ap4, aw4 = r[:n_loc], ap[:n_loc], aw[:, :n_loc].contiguous()
+    timed(f"K6 two one-vector calls f64 n={n_loc} k={k}", lambda: (
+        cf.fused_rz_reduce_cuda(r4, ap4, aw4), cf.fused_rz_reduce_cuda(r4, r4, aw4)))
+    if hasattr(cf, "fused_rz_step_cuda"):
+        rs = torch.dot(r, r)
+        timed(f"K6 step arm f64 n={n} k={k}", lambda: cf.fused_rz_step_cuda(r, z, rs, aw, waw_inv))
+        timed(f"K6 pair arm f64 n={n_loc} k={k}", lambda: cf.fused_rz_pair_cuda(r4, ap4, aw4))
+    beta, mu, w = rnd(()), rnd(k), rnd(k, n)
+    bufs = (torch.zeros(13, n, dtype=f64, device="cuda"),
+            torch.zeros(13, n, dtype=f64, device="cuda"))
+    idx = torch.tensor(5, device="cuda")
+    timed(f"K2 tpu arm f64 n={n} k={k}", lambda: cf.fused_deflate_direction_cuda(z, p, beta, w, mu))
+    timed(f"K2 tpu arm recording f64 n={n} k={k}", lambda: cf.fused_deflate_direction_cuda(
+        z, p, beta, w, mu, ap, idx, *bufs))
+    timed(f"K2 k=0 beside torch.addcmul f64 n={n}", lambda: torch.addcmul(z, beta, p))
+    if hasattr(cf, "fused_direction_step_cuda"):
+        on = torch.tensor(True, device="cuda")
+        timed(f"K2 step arm f64 n={n} k={k}", lambda: cf.fused_direction_step_cuda(
+            z, p, beta, on, w, mu))
+        timed(f"K2 step arm recording f64 n={n} k={k}", lambda: cf.fused_direction_step_cuda(
+            z, p, beta, on, w, mu, ap=ap, active=on, row=5, p_buf=bufs[0], ap_buf=bufs[1]))
+        timed(f"K2 step arm f64 n={n} k=0", lambda: cf.fused_direction_step_cuda(z, p, beta, on))
+
     # -- K7 ---------------------------------------------------------------------
     for n, dtype in ((16384, f64), (32768, f64), (1 << 20, f64), (1 << 20, f32)):
         g.manual_seed(n)
@@ -126,23 +164,29 @@ def main(argv=None) -> int:
     xd, _ = make_infinite_digits(cs.PAPER_N, seed=0, noise=0.10)
     xd = torch.as_tensor(xd, dtype=f64, device="cuda")
     k_dense = RBFKernel(theta=cs.THETA, lengthscale=cs.LENGTHSCALE).gram(xd)
-    out["defcg_profile"] = prof = cs.profile_defcg_steps(torch, k_dense)
-    op = KernelSystemOperator(lambda u: k_dense @ u,
-                              torch.full((cs.PAPER_N,), 0.5, dtype=f64, device="cuda"))
+    half = torch.full((cs.PAPER_N,), 0.5, dtype=f64, device="cuda")
+    op = KernelSystemOperator(lambda u: k_dense @ u, half)
     g.manual_seed(2)
     b = rnd(cs.PAPER_N)
     W = torch.linalg.qr(rnd(cs.PAPER_N, cs.K)).Q.T.contiguous()
     AW = op.basis_matvec(W)
-    defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=8)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=64)
-    torch.cuda.synchronize()
-    out["defcg_ms_per_iteration"] = 1e3 * (time.perf_counter() - t0) / int(res.info.iterations)
-    print(f"[{args.label}] def-CG n={cs.PAPER_N}: {prof['launches_per_iteration']:.1f} launches "
-          f"per iteration, device {prof['gemv_ms_per_iteration']:.4f} ms GEMV + "
-          f"{prof['other_ms_per_iteration']:.4f} ms other; {out['defcg_ms_per_iteration']:.4f} "
-          f"ms per iteration unprofiled", flush=True)
+    for key, profiler, M in (
+        ("defcg", cs.profile_defcg_steps, None),
+        ("pdefcg", cs.profile_pdefcg_steps, jacobi(1.0 + half * half * torch.diagonal(k_dense))),
+    ):
+        out[f"{key}_profile"] = prof = profiler(torch, k_dense)
+        defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=8, M=M)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=64, M=M)
+        torch.cuda.synchronize()
+        ms = out[f"{key}_ms_per_iteration"] = (
+            1e3 * (time.perf_counter() - t0) / int(res.info.iterations))
+        print(f"[{args.label}] def-CG n={cs.PAPER_N}{' Jacobi' if M is not None else ''}: "
+              f"{prof['launches_per_iteration']:.1f} launches per iteration, device "
+              f"{prof['gemv_ms_per_iteration']:.4f} ms GEMV + "
+              f"{prof['other_ms_per_iteration']:.4f} ms other; {ms:.4f} ms per iteration "
+              "unprofiled", flush=True)
     del k_dense, op, W, AW
     torch.cuda.empty_cache()
 
@@ -194,7 +238,7 @@ def main(argv=None) -> int:
           f"launches, device busy {gp['device_busy_share']:.1%}, "
           f"{gp['ms_per_lsmr_iteration_profiled']:.3f} ms per LSMR iteration under the profiler",
           flush=True)
-    for pr in (out["defcg_profile"], *out["lsmr_profile"].values()):
+    for pr in (out["defcg_profile"], out["pdefcg_profile"], *out["lsmr_profile"].values()):
         pr.pop("kernels")
     print(json.dumps(out))
     return 0
