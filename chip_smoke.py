@@ -41,7 +41,11 @@ Phases, each of which fails the script when it fails:
               designs' times and their bounds, with the device kernels a
               call (``torch.profiler``); K1's and K7's entries in the
               kernels line are their step arms, the arms the main paths
-              run.  The two
+              run.  Both step arms are also held armed with the stall
+              detector (window 4) in five stall states, f64 and f32: the
+              window-0 outputs bit for bit, the detector's best residual,
+              stall count and status bit for bit (STAGNATED latched on the
+              same step), and timed beside the window-0 arm.  The two
               extraction kernels at the least-squares windows' 96, 112 and
               128 stacked rows (timed at 112 rows, n = 16 384; ``self_gram``
               exactly symmetric and repeating bit for bit).  The
@@ -71,6 +75,17 @@ Phases, each of which fails the script when it fails:
               iterations on the dense system gives the launches per
               iteration (``profile_defcg_steps``), and over 16 with the
               Jacobi preconditioner (``profile_pdefcg_steps``).
+5b. paper   — the paper's experiments on main's data and dense K:
+              Fig. 2 and Table 1 from main's tol 1e-5 runs (per-system
+              counts, totals, the saving after system 1, log p agreement);
+              Fig. 3, CG and def-CG(8, 12) at tol 1e-8 with residual
+              histories (``benchmarks/paper_fig23.py``): def-CG's mean
+              log10-residual slope after system 1 must be steeper; Fig. 4
+              (``paper_fig4.py``): Cholesky at Newton tol 1e-3,
+              ``subset_gpc`` at m = n/16 … n/2 (generator seeded m), CG and
+              def-CG at tol 1e-8: relative errors and seconds, and the
+              precision gap, which must pass 1e2.  K1, K2, K3, K4 and K5
+              must launch (counted apart) and no plain version run.
 6. scale    — one RBF Gram matvec each in f32 and f64 at n = 131 072,
               d = 784, where a dense K would need 69 GB (f32) or 137 GB.
 7. main-mf  — the matrix-free Newton sequence (K never formed; every K
@@ -83,6 +98,20 @@ Phases, each of which fails the script when it fails:
               Every kernel must launch in this run, no plain version may
               run on the card, and every log p must be finite; each is set
               beside a Cholesky log p of the same data.
+7b. chaos   — ``benchmarks/chaos_bench.py``'s 4 drifting H½ systems on
+              the same data over the matrix-free K3 operator, def-CG(8, 12),
+              tol 1e-5: the recovery ladder armed and disarmed (identical
+              iterates, rungs 0); system 1 poisoned with NaN (rungs
+              0/3/0/0, finite x, the neighbours converged; the extra
+              matvecs and the ladder's wall time); the chunked driver
+              checkpointing every 2 systems into a temporary directory, then
+              a resume past a truncated newest checkpoint (both bit for bit
+              the single run; the checkpoint overhead); the stale refresh
+              at tol 1e-10 (the rungs P9's ladder climbs); a
+              Jacobi-preconditioned solve with every product perturbed by
+              1e-3 and the stall detector armed (window 10), which must stop
+              STAGNATED where the stall rule on its history fires.  K1, K2,
+              K3, K4, K5 and K6 must launch and no plain version run.
 8. agree    — at n = 4 000, matrix-free def-CG against dense def-CG, both
               f64: at solver tol 1e-10 iterations within one per system,
               at solver tol 1e-12 log p to 1e-10.
@@ -171,10 +200,11 @@ A ``[summary]`` line gives the device launches per damped LSMR and
 deflated def-CG iteration (without and with the Jacobi preconditioner),
 main-lsq's ms per cold LSMR iteration and main-gn's device busy share.
 
-Each main path (5, 7, 10, 11, 13, 15 and 16) is driven with the launch
-counters set to 0 just before it and read just after (13: on every rank);
-the ``{"kernels": [...]}`` JSON line gives each kernel's launches summed
-over the seven (13: over its ranks).  Last comes the
+Each main path (5, 5b, 7, 7b, 10, 11, 13, 15 and 16) is driven with the
+launch counters set to 0 just before it and read just after (13: on every
+rank); the ``{"kernels": [...]}`` JSON line gives each kernel's launches
+summed over the nine (13: over its ranks).  A second ``[summary]`` line
+gives the paper and chaos phases' results.  Last comes the
 ``{"ok": true, "device": {...}}`` line; the full report also goes to
 ``chiprun_out/chip_smoke.json``.
 ``--lm-only`` runs phases 1, 2 and 14–17 alone and prints no ok line.
@@ -326,6 +356,21 @@ LSQ_PATH_KERNELS = ("lsmr_update", "self_gram", "recombine_blocks")
 GN_PATH_KERNELS = ("lsmr_update",)
 SHARD_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "fused_rz_reduce",
                       "self_gram", "recombine_blocks", "rbf_matvec_rect")
+PAPER_PATH_KERNELS = DENSE_PATH_KERNELS
+CHAOS_PATH_KERNELS = MF_PATH_KERNELS
+# The paper's experiments on the main path's data (benchmarks/paper_fig23.py,
+# paper_fig4.py): Fig. 3's solver tol and maxiter, Fig. 4's Newton and
+# solver tol and its subsets m = n / div.
+FIG3 = {"tol": 1e-8, "maxiter": 800}
+FIG4 = {"newton_tol": 1e-3, "solver_tol": 1e-8, "subset_divs": (16, 8, 4, 2)}
+# benchmarks/chaos_bench.py's sequence: 4 drifting H½ systems over the
+# matrix-free K3 operator, def-CG(8, 12), tol 1e-5, maxiter 400; system 1
+# poisoned with NaN; checkpoints every 2 systems; P9's stale refresh at tol
+# 1e-10; one Jacobi-preconditioned solve with the stall detector armed
+# (window 10) on system 0's operator with every product perturbed by 1e-3
+# (tests/test_faults.py's stagnation case).
+CHAOS = {"num": 4, "tol": 1e-5, "maxiter": 400, "poisoned": 1, "chunk": 2,
+         "stale_tol": 1e-10, "window": 10, "stall_poison": 1e-3, "stall_tol": 1e-12}
 
 
 def log(msg=""):
@@ -969,6 +1014,69 @@ def check_lsmr_step(torch, cf, args, dname, what):
     return err
 
 
+# The stall detector's states against a step's fresh residual r' (best far
+# above it, at it, at r' / 0.99 where the bar's own rounding decides, the
+# latching step, a frozen step), checked with window STALL_WINDOW.
+STALL_CASES = ("improved", "stall", "bar", "latch", "frozen")
+STALL_WINDOW = 4
+
+
+def armed_step_args(torch, cf, cg_args, lsmr_args, case):
+    """K1's and K7's step-arm inputs with the stall detector armed:
+    ``js`` gains the stall count (``window − 1`` on the latching step),
+    and the best residual is set against the window-0 arm's fresh residual
+    as ``case`` says.  Returns ``(cg_args, best, lsmr_args)``."""
+    def best_for(fresh):
+        return {"improved": 1.5 * fresh, "bar": fresh / 0.99}.get(case, fresh).reshape(())
+
+    def js3(js):
+        stall = STALL_WINDOW - 1 if case == "latch" else 1
+        return torch.cat([js, torch.tensor([stall], dtype=torch.int32, device=js.device)])
+
+    base = cf.fused_cg_step_cuda(*cg_args[:3], cg_args[3].clone(), *cg_args[4:])
+    best = best_for(torch.sqrt(base[3][0])).contiguous()
+    cg = cg_args[:7] + (js3(cg_args[7]),) + cg_args[8:]
+    live = lsmr_args[:9] + (torch.ones_like(lsmr_args[9]),) + lsmr_args[10:]
+    normar = cf.lsmr_step_cuda(*live)[4][1].abs()
+    ls = lsmr_args[:7] + (torch.cat([lsmr_args[7], best_for(normar).reshape(1)]),
+                          js3(lsmr_args[8])) + lsmr_args[9:]
+    return cg, best, ls
+
+
+def check_armed_steps(torch, cf, cg_args, lsmr_args, case, what):
+    """The armed step arms in one stall state: every window-0 output bit
+    for bit; K1's ``(best', stall', fail')`` those of
+    ``cg_fused.stagnation_update`` (eager ops on the card) on the kernel's
+    own ``√rr``, K7's scalars, status and flag its plain version's, bit for
+    bit; STAGNATED latched exactly on the latching step."""
+    cg, best, ls = armed_step_args(torch, cf, cg_args, lsmr_args, case)
+    base = cf.fused_cg_step_cuda(*cg_args[:3], cg_args[3].clone(), *cg_args[4:])
+    got = cf.fused_cg_step_cuda(*cg[:3], cg[3].clone(), *cg[4:], window=STALL_WINDOW, best=best)
+    want = cf.stagnation_update(best, cg[7][2], torch.sqrt(base[3][0]), base[4][1], cg[8],
+                                STALL_WINDOW)
+    latched = int(want[2]) == cf.STAGNATED
+    k7_base = cf.lsmr_step_cuda(*lsmr_args)
+    k7 = cf.lsmr_step_cuda(*ls, window=STALL_WINDOW)
+    k7_plain = cf.lsmr_step_plain(*ls, window=STALL_WINDOW)
+    torch.cuda.synchronize()
+    exact = {
+        "K1 window-0 outputs": all(_same(torch, a, b) for a, b in zip(got[:3], base[:3]))
+        and _same(torch, got[3][:-1], base[3]) and bool(got[4][0] == base[4][0])
+        and bool(got[5][1] == base[5][1]),
+        "K1 detector": _same(torch, got[3][-1], want[0]) and bool(got[4][2] == want[1])
+        and bool(got[4][1] == want[2]),
+        "K1 latch": latched == (case == "latch")
+        and bool(got[5][0]) == (bool(base[5][0]) and not latched),
+        "K7 window-0 outputs": all(_same(torch, a, b) for a, b in zip(k7[:4], k7_base[:4]))
+        and _same(torch, k7[4][:-1], k7_base[4]),
+        "K7 plain": _same(torch, k7[4], k7_plain[4]) and torch.equal(k7[5], k7_plain[5])
+        and torch.equal(k7[6], k7_plain[6]),
+        "K7 latch": (int(k7[5][1]) == cf.STAGNATED) == (case == "latch"),
+    }
+    if not all(exact.values()):
+        raise AssertionError(f"{what}: {exact}")
+
+
 def step_work(name, n, itemsize, k=K):
     """(bytes, operations) of one step-arm call: each vector read and
     written once, the scalars besides."""
@@ -999,6 +1107,16 @@ def phase_step_kernels(torch, cf, peaks):
                     report["lsmr_update"][f"err {dname} n={n} {case}"] = e
         log(f"[kernels] step arms {dname}: K1 and K7 scalars bit for bit with their plain "
             f"versions, vectors within {TOL[dname]}, repeats bit for bit")
+        for case in STALL_CASES:
+            cg_args, lsmr_args = step_states(torch, PAPER_N, dtype, 5 + len(case),
+                                             "frozen" if case == "frozen" else "live")
+            lsmr_n = step_states(torch, LSQ_MAIN["n"], dtype, 5 + len(case),
+                                 "frozen" if case == "frozen" else "live")[1]
+            check_armed_steps(torch, cf, cg_args, lsmr_n, case,
+                              f"armed step arms {dname} {case}")
+        log(f"[kernels] armed step arms {dname} (window {STALL_WINDOW}, K1 n={PAPER_N}, K7 "
+            f"n={LSQ_MAIN['n']}; {', '.join(STALL_CASES)}): window-0 outputs unchanged, the "
+            f"detector bit for bit, STAGNATED latched on the same step")
 
     timings = {}
     for name, n, dname in (("fused_cg_update", PAPER_N, "float64"),
@@ -1008,9 +1126,12 @@ def phase_step_kernels(torch, cf, peaks):
                            ("lsmr_update", 1 << 20, "float32")):
         dtype = getattr(torch, dname)
         cg_args, lsmr_args = step_states(torch, n, dtype, 7, "live")
+        armed_cg, best, armed_ls = armed_step_args(torch, cf, cg_args, lsmr_args, "stall")
         if name == "fused_cg_update":
             # ap is zeroed in place only on a breakdown: a live state reuses it.
             kern = lambda: cf.fused_cg_step_cuda(*cg_args)  # noqa: E731
+            armed = lambda: cf.fused_cg_step_cuda(  # noqa: E731
+                *armed_cg, window=STALL_WINDOW, best=best)
             plain = lambda: cf.fused_cg_step_plain(*cg_args)  # noqa: E731
             x, r, p, ap = cg_args[:4]
             alpha = torch.tensor(0.3, dtype=dtype, device="cuda")
@@ -1018,6 +1139,7 @@ def phase_step_kernels(torch, cf, peaks):
             previous = PREVIOUS_MS.get(f"fused_cg_update {dname} n={n}")
         else:
             kern = lambda: cf.lsmr_step_cuda(*lsmr_args)  # noqa: E731
+            armed = lambda: cf.lsmr_step_cuda(*armed_ls, window=STALL_WINDOW)  # noqa: E731
             plain = lambda: cf.lsmr_step_plain(*lsmr_args)  # noqa: E731
             x, hbar, h, v = lsmr_args[:4]
             c = [torch.tensor(q, dtype=dtype, device="cuda") for q in (0.5, -0.25, 2.0)]
@@ -1033,14 +1155,17 @@ def phase_step_kernels(torch, cf, peaks):
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "tpu_arm_bound_ms": 1e3 * max(tpu_bytes / peaks["bytes"], tpu_ops / peaks[dname]),
              "kernels_per_call": kernels_per_call(torch, kern),
-             "tpu_arm_kernels_per_call": kernels_per_call(torch, tpu)}
+             "tpu_arm_kernels_per_call": kernels_per_call(torch, tpu),
+             "armed_ms": device_ms(torch, armed),
+             "armed_kernels_per_call": kernels_per_call(torch, armed)}
         timings[f"{name} {dname} n={n}"] = t
         log(f"[timing] {name} step arm {dname} n={n}: kernel {t['ms']:.4f} ms "
             f"({t['kernels_per_call']} device kernel a call), plain {t['plain_ms']:.4f} ms, bound "
             f"{t['bound_ms']:.5f} ms ({t['bound_by']}); TPU-function arm {t['tpu_arm_ms']:.4f} ms "
             f"({t['tpu_arm_kernels_per_call']} device kernel a call, bound "
             f"{t['tpu_arm_bound_ms']:.5f} ms), previous two-launch / grid-capped design "
-            f"{previous} ms")
+            f"{previous} ms; armed with the stall detector {t['armed_ms']:.4f} ms "
+            f"({t['armed_kernels_per_call']} device kernel a call)")
     report["timings"] = timings
     return report
 
@@ -2335,6 +2460,278 @@ def phase_lm(torch, peaks, report, device="cuda"):
     return phase_timing_lm(torch, peaks, worst, device), launches
 
 
+def fig3_slope(trace) -> float:
+    """``benchmarks/paper_fig23.py``'s mean log10-residual slope per
+    iteration of one recorded residual history."""
+    import numpy as np
+
+    r = np.asarray(trace)
+    r = r[np.isfinite(r)]
+    r = r[r > 0]
+    if len(r) < 3:
+        return 0.0
+    return float((np.log10(r[-1]) - np.log10(r[0])) / (len(r) - 1))
+
+
+def phase_paper(torch, x, y, k_dense, runs, device="cuda"):
+    """The paper's three experiments on the main path's data (n = 36 551,
+    dense K): Fig. 2 and Table 1 from ``runs`` (main's tol 1e-5 Cholesky,
+    CG and def-CG(8, 12) sequences, not solved again), Fig. 3 (CG and
+    def-CG at solver tol 1e-8 with their residual histories; def-CG's mean
+    slope after system 1 must be steeper) and Fig. 4 (Cholesky at Newton
+    tol 1e-3; ``subset_gpc`` at m = n/16 … n/2, each subset drawn by a
+    generator seeded m; CG and def-CG at solver tol 1e-8: the relative
+    log p errors, each run's seconds, and the precision gap, which must
+    pass 1e2)."""
+    from repro_torch.core import RecycleManager
+    from repro_torch.gp import RBFKernel, laplace_gpc, subset_gpc
+
+    kernel = RBFKernel(theta=THETA, lengthscale=LENGTHSCALE)
+    n = x.shape[0]
+    out = {"n": n}
+    cg_its, def_its = runs["cg"]["iterations"], runs["defcg"]["iterations"]
+    chol = runs["cholesky"]["logp"]
+    saving = 1.0 - sum(def_its[1:]) / max(sum(cg_its[1:]), 1)
+    agreement = max(abs(runs[s]["logp"] - chol) / abs(chol) for s in ("cg", "defcg"))
+    out["fig2"] = {"cg": cg_its, "defcg": def_its}
+    out["table1"] = {"cg_total": sum(cg_its), "defcg_total": sum(def_its),
+                     "saving_after_system_1": saving, "agreement": agreement,
+                     "solve_s": {s: runs[s]["cumulative_solve_s"][-1]
+                                 for s in ("cholesky", "cg", "defcg")}}
+    log(f"[paper] n={n} fig2 iterations per system: cg {cg_its}, defcg {def_its}")
+    log(f"[paper] table1: totals cg {sum(cg_its)}, defcg {sum(def_its)}; "
+        f"{saving:.1%} fewer def-CG iterations after system 1; log p agreement with "
+        f"cholesky {agreement:.2e} (P2 at tol 1e-5); solve s {out['table1']['solve_s']}")
+
+    dense = dict(k_dense=k_dense, dense_matvec=True, block=BLOCK)
+    fig3 = {}
+    for solver in ("cg", "defcg"):
+        recycle = (RecycleManager(k=K, ell=ELL, tol=FIG3["tol"], maxiter=FIG3["maxiter"])
+                   if solver == "defcg" else None)
+        t0 = time.perf_counter()
+        res = laplace_gpc(x, y, kernel, solver=solver, recycle=recycle, solver_tol=FIG3["tol"],
+                          newton_tol=1.0, record_residuals=True,
+                          solver_maxiter=FIG3["maxiter"], **dense)
+        _sync(torch, device)
+        slopes = [fig3_slope(t.cpu()) for t in res.trace.residual_traces[1:]]
+        fig3[solver] = {"iterations": res.trace.solver_iterations, "slopes": slopes,
+                        "mean_slope": sum(slopes) / max(len(slopes), 1),
+                        "wall_s": time.perf_counter() - t0}
+    p3 = fig3["defcg"]["mean_slope"] < fig3["cg"]["mean_slope"]
+    out["fig3"] = dict(fig3, P3_pass=p3)
+    log(f"[paper] fig3 (tol {FIG3['tol']:g}): iterations cg {fig3['cg']['iterations']}, defcg "
+        f"{fig3['defcg']['iterations']}; mean log10-residual slope per iteration after system 1: "
+        f"cg {fig3['cg']['mean_slope']:.4f}, defcg {fig3['defcg']['mean_slope']:.4f} "
+        f"(P3 pass={p3})")
+    if not p3:
+        raise AssertionError("[paper] fig3: def-CG's residual slope is not steeper than CG's")
+
+    t0 = time.perf_counter()
+    exact = laplace_gpc(x, y, kernel, solver="cholesky", newton_tol=FIG4["newton_tol"], **dense)
+    _sync(torch, device)
+    rows = {"cholesky": {"seconds": time.perf_counter() - t0, "logp": exact.logp,
+                         "newton_steps": len(exact.trace.logp)}}
+    for div in FIG4["subset_divs"]:
+        m = n // div
+        sub = subset_gpc(x, y, kernel, m, generator=torch.Generator().manual_seed(m))
+        rows[f"subset_m={m}"] = {"seconds": sub.seconds, "logp": sub.logp_full,
+                                 "rel_err": abs(sub.logp_full - exact.logp) / abs(exact.logp)}
+    for solver in ("cg", "defcg"):
+        recycle = RecycleManager(k=K, ell=ELL) if solver == "defcg" else None
+        t0 = time.perf_counter()
+        res = laplace_gpc(x, y, kernel, solver=solver, recycle=recycle,
+                          solver_tol=FIG4["solver_tol"], newton_tol=FIG4["newton_tol"], **dense)
+        _sync(torch, device)
+        rows[solver] = {"seconds": time.perf_counter() - t0, "logp": res.logp,
+                        "rel_err": abs(res.logp - exact.logp) / abs(exact.logp),
+                        "iterations": res.trace.solver_iterations}
+    best_subset = min(r["rel_err"] for k_, r in rows.items() if k_.startswith("subset"))
+    it_err = max(rows[s]["rel_err"] for s in ("cg", "defcg"))
+    gap = best_subset / max(it_err, 1e-16)
+    out["fig4"] = dict(rows, precision_gap=gap, P4_pass=gap > 1e2)
+    for name, r in rows.items():
+        log(f"[paper] fig4 {name:>16s}: {r['seconds']:8.3f} s, "
+            + (f"rel err {r['rel_err']:.3e}" if "rel_err" in r else f"log p {r['logp']:.6f}")
+            + (f", iterations {r['iterations']}" if "iterations" in r else ""))
+    log(f"[paper] fig4 precision gap iterative vs best subset: {gap:.2e} (P4 pass={gap > 1e2})")
+    if not all(math.isfinite(r["logp"]) for r in rows.values()):
+        raise AssertionError(f"[paper] fig4: a non-finite log p: {rows}")
+    if not gap > 1e2:
+        raise AssertionError(f"[paper] fig4: precision gap {gap:.2e} <= 1e2")
+    return out
+
+
+def chaos_trace(torch, x, num, seed=0):
+    """``benchmarks/chaos_bench.py``'s drifting H½ systems on ``x``'s data:
+    per system ``sqrt_h`` from latents ~ N(0, 0.5²) and a right-hand side
+    ~ N(0, 1), both from ``numpy.random.default_rng(seed + 1)``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 1)
+    fs = rng.standard_normal((num, x.shape[0])) * 0.5
+    pis = 1.0 / (1.0 + np.exp(-fs))
+    bs = rng.standard_normal((num, x.shape[0]))
+    return (torch.as_tensor(np.sqrt(pis * (1.0 - pis)), device=x.device),
+            torch.as_tensor(bs, device=x.device))
+
+
+def stall_step(trace, window):
+    """The iteration at which the stall rule (the best residual not down
+    1 % for ``window`` iterations) first fires on a residual history."""
+    best, stall = trace[0], 0
+    for j, r in enumerate(trace[1:], start=1):
+        if not math.isfinite(r):
+            return None
+        stall = 0 if r < 0.99 * best else stall + 1
+        best = min(best, r)
+        if stall >= window:
+            return j
+    return None
+
+
+def phase_chaos(torch, x, device="cuda"):
+    """``benchmarks/chaos_bench.py``'s sequence over the matrix-free K3
+    operator (``RBFKernelSystemOperator``): the clean sequence with the
+    recovery ladder armed and disarmed (the same iterates, rungs 0); system
+    1 poisoned with NaN (rungs 0/3/0/0, finite x, the neighbours
+    converged, the extra matvecs and the ladder's wall time); the chunked,
+    checkpointed driver (every 2 systems, a temporary directory) against
+    the single run, then a resume past a truncated newest checkpoint (the
+    same iterates, bit for bit); ``refresh_aw="stale"`` at tol 1e-10 (the
+    rungs P9's ladder climbs); and one Jacobi-preconditioned solve with the
+    stall detector armed, which must stop STAGNATED where the stall rule on
+    its own residual history fires."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import (
+        FaultInjectingOperator,
+        RBFKernelSystemOperator,
+        SolveSpec,
+        SolveStatus,
+        jacobi,
+        solve,
+        solve_sequence,
+        truncate_latest_checkpoint,
+    )
+
+    num = CHAOS["num"]
+    sqrt_hs, bs = chaos_trace(torch, x, num)
+    spec = SolveSpec(k=K, ell=ELL, tol=CHAOS["tol"], maxiter=CHAOS["maxiter"])
+
+    def make(s):
+        return RBFKernelSystemOperator(x, s["sqrt_h"], THETA, LENGTHSCALE, block=BLOCK)
+
+    def make_faulty(s):
+        return FaultInjectingOperator(make(s), s["poison"])
+
+    def timed(fn):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(torch, device)
+        return res, time.perf_counter() - t0
+
+    def its(res):
+        return [int(v) for v in res.info.iterations.tolist()]
+
+    systems = {"sqrt_h": sqrt_hs}
+    out = {"n": x.shape[0]}
+    clean, t_clean = timed(lambda: solve_sequence(systems, bs, spec, make_operator=make))
+    off, t_off = timed(lambda: solve_sequence(systems, bs, spec, make_operator=make,
+                                              divergence_fallback=False))
+    mv_clean = int(clean.info.matvecs.sum())
+    unchanged = (its(clean) == its(off) and torch.equal(clean.x, off.x)
+                 and not bool(clean.report.rung.any()))
+    out["clean"] = {"iterations": its(clean), "matvecs": clean.info.matvecs.tolist(),
+                    "armed_s": t_clean, "disarmed_s": t_off, "unchanged": unchanged}
+    log(f"[chaos] n={x.shape[0]} clean: iterations {its(clean)}, armed {t_clean:.3f} s, disarmed "
+        f"{t_off:.3f} s (iterates unchanged={unchanged}, rungs {clean.report.rung.tolist()})")
+    if not unchanged or not bool(clean.info.converged.all()):
+        raise AssertionError(f"[chaos] the armed ladder changed a clean sequence: {out['clean']}")
+
+    poison = torch.zeros(num, dtype=bs.dtype, device=x.device)
+    poison[CHAOS["poisoned"]] = float("nan")
+    chaos, t_chaos = timed(lambda: solve_sequence({"sqrt_h": sqrt_hs, "poison": poison}, bs,
+                                                  spec, make_operator=make_faulty))
+    rungs = chaos.report.rung.tolist()
+    status = [SolveStatus.describe(v) for v in chaos.report.status.tolist()]
+    conv = chaos.info.converged.tolist()
+    healthy = all(c for i, c in enumerate(conv) if i != CHAOS["poisoned"])
+    finite = bool(torch.isfinite(chaos.x).all())
+    mv_chaos = int(chaos.info.matvecs.sum())
+    out["recovery"] = {"rungs": rungs, "status": status, "iterations": its(chaos),
+                       "extra_matvecs": mv_chaos - mv_clean, "finite": finite,
+                       "neighbours_converged": healthy, "seconds": t_chaos,
+                       "ladder_s": t_chaos - t_clean}
+    log(f"[chaos] system {CHAOS['poisoned']} poisoned (NaN): statuses {status}, rungs {rungs}; "
+        f"matvecs {mv_clean} -> {mv_chaos} (+{mv_chaos - mv_clean} recovery), "
+        f"{t_chaos:.3f} s (+{t_chaos - t_clean:.3f} s); finite={finite}, neighbours "
+        f"converged={healthy}")
+    want_rungs = [3 if i == CHAOS["poisoned"] else 0 for i in range(num)]
+    if rungs != want_rungs or not finite or not healthy:
+        raise AssertionError(f"[chaos] recovery: {out['recovery']}")
+
+    ckpt = tempfile.mkdtemp(prefix="chaos_ckpt_")
+    try:
+        chunked, t_chunk = timed(lambda: solve_sequence(
+            systems, bs, spec, make_operator=make, checkpoint=CheckpointManager(ckpt),
+            checkpoint_every=CHAOS["chunk"]))
+        torn = truncate_latest_checkpoint(ckpt)
+        mgr = CheckpointManager(ckpt)
+        resumed, t_resume = timed(lambda: solve_sequence(
+            systems, bs, spec, make_operator=make, checkpoint=mgr,
+            checkpoint_every=CHAOS["chunk"], resume=True))
+        skipped = [step for step, _ in mgr.last_skipped]
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    parity = its(chunked) == its(clean) and torch.equal(chunked.x, clean.x)
+    resume_parity = its(resumed) == its(clean) and torch.equal(resumed.x, clean.x)
+    out["checkpoint"] = {"chunk": CHAOS["chunk"], "seconds": t_chunk,
+                         "overhead_s": t_chunk - t_clean, "parity": parity,
+                         "truncated_step": torn, "skipped": skipped,
+                         "resume_s": t_resume, "resume_parity": resume_parity}
+    log(f"[chaos] chunked + checkpointed every {CHAOS['chunk']}: {t_chunk:.3f} s against the "
+        f"single run's {t_clean:.3f} s (overhead {t_chunk - t_clean:+.3f} s), parity={parity}; "
+        f"resume past the truncated step {torn} (skipped {skipped}): {t_resume:.3f} s, "
+        f"parity={resume_parity}")
+    if not (parity and resume_parity and skipped == [torn]):
+        raise AssertionError(f"[chaos] checkpoint: {out['checkpoint']}")
+
+    stale_spec = SolveSpec(k=K, ell=ELL, tol=CHAOS["stale_tol"], maxiter=CHAOS["maxiter"],
+                           refresh_aw="stale")
+    stale, t_stale = timed(lambda: solve_sequence(systems, bs, stale_spec, make_operator=make))
+    out["stale"] = {"tol": CHAOS["stale_tol"], "iterations": its(stale),
+                    "rungs": stale.report.rung.tolist(),
+                    "status": [SolveStatus.describe(v) for v in stale.report.status.tolist()],
+                    "matvecs": stale.info.matvecs.tolist(), "seconds": t_stale}
+    log(f"[chaos] refresh_aw='stale' at tol {CHAOS['stale_tol']:g} (P9): iterations "
+        f"{its(stale)}, rungs {out['stale']['rungs']}, statuses {out['stale']['status']}, "
+        f"matvecs {out['stale']['matvecs']}, {t_stale:.3f} s")
+    if not bool(stale.info.converged.all()):
+        raise AssertionError(f"[chaos] stale refresh: a system did not converge: {out['stale']}")
+
+    sh = sqrt_hs[0]
+    op = FaultInjectingOperator(make({"sqrt_h": sh}), CHAOS["stall_poison"])
+    M = jacobi(1.0 + sh * sh * THETA ** 2)
+    stall_spec = SolveSpec(k=K, ell=ELL, tol=CHAOS["stall_tol"], maxiter=CHAOS["maxiter"],
+                           precond="jacobi", stagnation_window=CHAOS["window"],
+                           recovery_rungs=0)
+    res, t_stall = timed(lambda: solve(op, bs[0], stall_spec, M=M, record_residuals=True))
+    trace = res.info.residual_norms.tolist()
+    status = SolveStatus.describe(res.report.status)
+    fired = stall_step(trace, CHAOS["window"])
+    out["stagnation"] = {"window": CHAOS["window"], "iterations": int(res.info.iterations),
+                         "status": status, "rule_step": fired, "seconds": t_stall}
+    log(f"[chaos] stall detector (window {CHAOS['window']}, Jacobi, every product + "
+        f"{CHAOS['stall_poison']:g}): {status} after {int(res.info.iterations)} iterations "
+        f"(the rule on its history: {fired}), {t_stall:.3f} s")
+    if status != "STAGNATED" or fired != int(res.info.iterations):
+        raise AssertionError(f"[chaos] stagnation: {out['stagnation']}")
+    return out
+
+
 def kernel_entry(name, entry, launches):
     return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
             "launches": launches, "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
@@ -2557,6 +2954,18 @@ def main(argv) -> int:
     log(f"[main] RBF Gram matvec f64 r=1: {rbf_k['ms']:.2f} ms against the dense GEMV "
         f"K @ v {gemv_ms:.4f} ms ({rbf_k['ms'] / gemv_ms:.0f}x)")
     chol_logp = runs["cholesky"]["logp"]
+
+    # -- 5b. paper: the paper's experiments on the main path's data ---------
+    _zero_counts()
+    report["paper"] = phase_paper(torch, x, y, k_dense, runs)
+    paper_launches = dict(cf.LAUNCHES)
+    paper_plain = dict(cf.PLAIN_ON_CUDA)
+    report["paper"].update(launches=paper_launches, plain_on_cuda=paper_plain)
+    log(f"[paper] launches {paper_launches}; plain versions on the card {paper_plain}")
+    if not all(paper_launches[k] for k in PAPER_PATH_KERNELS):
+        raise AssertionError(f"[paper] a kernel never launched: {paper_launches}")
+    if any(paper_plain.values()):
+        raise AssertionError(f"[paper] plain versions ran on the card: {paper_plain}")
     del k_dense
     torch.cuda.empty_cache()
 
@@ -2615,6 +3024,18 @@ def main(argv) -> int:
     report["main_mf"] = {"runs": mf, "launches": mf_launches, "plain_on_cuda": mf_plain,
                          "peak_memory_gb": mf_peak_gb, "preconditioned_n": pre_n,
                          "cut": cut}
+
+    # -- 7b. chaos: failure handling over the matrix-free K3 operator --------
+    _zero_counts()
+    report["chaos"] = phase_chaos(torch, x)
+    chaos_launches = dict(cf.LAUNCHES)
+    chaos_plain = dict(cf.PLAIN_ON_CUDA)
+    report["chaos"].update(launches=chaos_launches, plain_on_cuda=chaos_plain)
+    log(f"[chaos] launches {chaos_launches}; plain versions on the card {chaos_plain}")
+    if not all(chaos_launches[k] for k in CHAOS_PATH_KERNELS):
+        raise AssertionError(f"[chaos] a kernel never launched: {chaos_launches}")
+    if any(chaos_plain.values()):
+        raise AssertionError(f"[chaos] plain versions ran on the card: {chaos_plain}")
 
     # -- 8. agreement: matrix-free against dense where both fit --------------
     # At solver tol 1e-10 the iterations must agree within one per system.
@@ -2707,7 +3128,8 @@ def main(argv) -> int:
     lm_kernels, lm_launches = phase_lm(torch, peaks, report)
     kernels.update(lm_kernels)
 
-    totals = {name: launches[name] + mf_launches[name] + lsq_launches[name] + gn_launches[name]
+    totals = {name: launches[name] + paper_launches[name] + mf_launches[name]
+              + chaos_launches[name] + lsq_launches[name] + gn_launches[name]
               + shard_launches[name] + sum(lm[name] for lm in lm_launches.values())
               for name in cf.LAUNCHES}
     report["launch_totals"] = totals
@@ -2720,6 +3142,12 @@ def main(argv) -> int:
         f"{report['main_lsq']['runs']['cold']['ms_per_iteration']:.3f} ms per cold LSMR "
         f"iteration; main-gn device busy {report['main_gn']['profile']['device_busy_share']:.1%}, "
         f"{report['main_gn']['recycled']['ms_per_iteration']:.3f} ms per LSMR iteration (recycled)")
+    pp, ch = report["paper"], report["chaos"]
+    log(f"[summary] paper (n = {pp['n']}): fig3 slopes cg {pp['fig3']['cg']['mean_slope']:.4f}, "
+        f"defcg {pp['fig3']['defcg']['mean_slope']:.4f}; fig4 gap {pp['fig4']['precision_gap']:.2e}; "
+        f"chaos (n = {ch['n']}): rungs {ch['recovery']['rungs']}, extra matvecs "
+        f"{ch['recovery']['extra_matvecs']}, checkpoint overhead "
+        f"{ch['checkpoint']['overhead_s']:+.3f} s, stale rungs {ch['stale']['rungs']}")
     kernel_line = {"kernels": [kernel_entry(name, kernels[name], totals[name])
                                for name in cf.LAUNCHES]}
     report["kernels"] = kernels

@@ -16,6 +16,7 @@ from repro_torch.core.api import (
     solve_sequence,
 )
 from repro_torch.core.engine import SolveInfo, SolveStatus
+from repro_torch.core.faults import FaultInjectingOperator, truncate_latest_checkpoint
 from repro_torch.core.lsmr import lsmr, solve_sequence_lsmr
 from repro_torch.core.operators import (
     DenseMatrixOperator,
@@ -62,6 +63,7 @@ __all__ = [
     "CGResult",
     "DEFAULT_WAW_JITTER",
     "DenseMatrixOperator",
+    "FaultInjectingOperator",
     "GGNOperator",
     "GaussNewtonOperator",
     "HarmonicRitz",
@@ -100,4 +102,5 @@ __all__ = [
     "solve",
     "solve_sequence",
     "solve_sequence_lsmr",
+    "truncate_latest_checkpoint",
 ]

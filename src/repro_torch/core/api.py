@@ -10,10 +10,13 @@ solvers (``cg``, ``defcg``) or the least-squares ones (``lsmr``,
 
 Preconditioners go in as ``M`` (:func:`solve`) or as a per-system
 factory (:func:`solve_sequence`), built for ``spec.precond`` by
-:func:`make_preconditioner`.  What the port leaves out so far raises,
-naming the ROADMAP item that brings it: ``MGeometryHarmonic`` (queue 1
-item 9), the recovery ladder and stagnation detector (item 10),
-``solve_batch`` (item 12) and checkpointed sequences (item 10).
+:func:`make_preconditioner`.  A failed solve climbs the recovery ladder
+(``spec.recovery_rungs``), ``spec.stagnation_window`` arms the stall
+detector, and ``solve_sequence(..., checkpoint=, checkpoint_every=,
+resume=)`` runs a crash-resumable chunked sequence.  What the port
+leaves out so far raises, naming the ROADMAP item that brings it:
+``MGeometryHarmonic`` (queue 1, the other two strategies).
+``solve_batch`` is absent (queue 1, batched and served solves).
 ``solve(..., mesh=)`` runs the sharded engine
 (:mod:`repro_torch.core.sharded`) over the ranks of a solve mesh.
 """
@@ -45,10 +48,10 @@ _REFRESH_MODES = ("exact", "stale")
 _PRECONDS = ("none", "jacobi", "nystrom", "custom")
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet: ROADMAP queue 1 item {item}"
-    )
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    """The refusal of a path the port leaves out, naming the ROADMAP item
+    that brings it (by name: numbers move at each re-anchor)."""
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,7 +207,7 @@ def _check_m(spec: SolveSpec, M) -> None:
 
 def _check_strategy(spec: SolveSpec) -> None:
     if isinstance(spec.strategy, MGeometryHarmonic):
-        raise _not_ported("strategy=MGeometryHarmonic", 9)
+        raise _not_ported("strategy=MGeometryHarmonic", "queue 1, the other two strategies")
 
 
 def _solve_lsq(A, b, spec: SolveSpec, state, x0, record_residuals) -> SolveResult:
@@ -336,6 +339,7 @@ def solve(
         M=M,
         record_residuals=record_residuals,
         recovery_rungs=spec.recovery_rungs,
+        recovery_shift=spec.recovery_shift,
         stagnation_window=spec.stagnation_window,
     )
     new_state = RecycleState(
@@ -383,32 +387,19 @@ def _finish_sequence(
     )
 
 
-def solve_sequence(
+def _solve_sequence_spec(
     systems: Any,
-    b_seq: torch.Tensor,
-    spec: Optional[SolveSpec] = None,
-    state0: Optional[RecycleState] = None,
+    b_seq,
+    spec: SolveSpec,
+    state0: Optional[RecycleState],
     *,
-    make_operator: Optional[Callable[[Any], Any]] = None,
-    make_preconditioner: Optional[Callable[[Any], Any]] = None,
-    carry_x: bool = False,
-    divergence_fallback: bool = True,
-    checkpoint=None,
-    checkpoint_every: int = 0,
-    resume: bool = False,
+    make_operator: Optional[Callable[[Any], Any]],
+    make_preconditioner: Optional[Callable[[Any], Any]],
+    carry_x: bool,
+    divergence_fallback: bool,
+    x_prev0: Optional[torch.Tensor] = None,
 ) -> SequenceSolveResult:
-    """Solve a sequence of related systems, spec-driven.
-
-    ``systems[i]`` mapped through ``make_operator`` is the i-th operator,
-    ``b_seq[i]`` its right-hand side; the returned ``state`` seeds the
-    next call.  ``spec.method`` is ``"defcg"`` or ``"deflsmr"`` (then
-    ``A`` may be rectangular and the state's ``AW`` slot holds ``NW``).
-    ``make_preconditioner`` maps each operator to its ``M`` apply; a spec
-    with ``precond != "none"`` needs it.
-    """
-    spec = SolveSpec() if spec is None else spec
-    if checkpoint is not None or checkpoint_every or resume:
-        raise _not_ported("checkpointed, resumable sequences", 10)
+    """The whole sequence in one engine call (no checkpoints)."""
     if spec.method not in ("defcg", "deflsmr"):
         raise ValueError(
             "solve_sequence recycles a deflation basis — it needs "
@@ -438,6 +429,7 @@ def solve_sequence(
             refresh_aw=spec.refresh_aw,
             carry_x=carry_x,
             stagnation_window=spec.stagnation_window,
+            x_prev0=x_prev0,
         )
         return _finish_sequence(seq, spec, state0, len(b_seq))
     _check_strategy(spec)
@@ -459,7 +451,180 @@ def solve_sequence(
         carry_x=carry_x,
         strategy=spec.strategy,
         drift0=state0.drift if state0 is not None else None,
+        # divergence_fallback=False disarms the ladder; otherwise the
+        # spec's depth governs.
         recovery_rungs=(spec.recovery_rungs if divergence_fallback else 0),
+        recovery_shift=spec.recovery_shift,
         stagnation_window=spec.stagnation_window,
+        x_prev0=x_prev0,
     )
     return _finish_sequence(seq, spec, state0, len(b_seq))
+
+
+def _solve_sequence_chunked(
+    systems: Any,
+    b_seq,
+    spec: SolveSpec,
+    state0: Optional[RecycleState],
+    *,
+    make_operator: Optional[Callable[[Any], Any]],
+    make_preconditioner: Optional[Callable[[Any], Any]],
+    carry_x: bool,
+    divergence_fallback: bool,
+    checkpoint,
+    checkpoint_every: int,
+    resume: bool,
+) -> SequenceSolveResult:
+    """Crash-resumable sequence driver: chunks of ``checkpoint_every``
+    systems, each one engine call, with the full resume image saved after
+    every chunk (``checkpoint.save(..., blocking=True)``): the per-system
+    outputs so far, the carried :class:`RecycleState`, the warm-start
+    carry, and ``next_index`` in the checkpoint's ``extra``.
+
+    ``resume=True`` continues from the newest restorable checkpoint.  The
+    chunk boundaries are fixed and the image is stored at full precision,
+    so a killed and resumed run reproduces the uninterrupted run's
+    iterates exactly.
+    """
+    num = len(b_seq)
+    b0 = b_seq[0]
+    dtype, device = b0.dtype, b0.device
+    if spec.method == "deflsmr":
+        # Rectangular systems: the basis and the solution live in the
+        # operator's domain.
+        make_op = make_operator if make_operator is not None else (lambda s: s)
+        n = (state0.W.shape[1] if state0 is not None
+             else lsmr_mod.domain_size(make_op(recycle_mod.system_at(systems, 0))))
+    else:
+        n = b0.shape[0]
+    if state0 is None:
+        state0 = RecycleState.zeros(spec.k, n, dtype=dtype, device=device)
+
+    def zeros(shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    # The resume image: everything needed to continue mid-sequence.
+    acc = {
+        "x": zeros((num, n)),
+        "theta": zeros((num, spec.k)),
+        "iterations": zeros((num,), torch.int32),
+        "converged": zeros((num,), torch.bool),
+        "residual_norm": zeros((num,)),
+        "matvecs": zeros((num,), torch.int32),
+        "breakdown": zeros((num,), torch.bool),
+        "status": zeros((num,), torch.int32),
+        "guard_fired": zeros((num,), torch.bool),
+        "rung": zeros((num,), torch.int32),
+        "state": state0,
+        "x_carry": zeros((n,)),
+    }
+    start = 0
+    if resume:
+        restored = checkpoint.restore_latest(acc)
+        if restored is not None:
+            _, acc, extra = restored
+            start = int(extra["next_index"])
+
+    while start < num:
+        stop = min(start + checkpoint_every, num)
+        sl = slice(start, stop)
+        res = _solve_sequence_spec(
+            recycle_mod.system_at(systems, sl),
+            b_seq[sl],
+            spec,
+            acc["state"],
+            make_operator=make_operator,
+            make_preconditioner=make_preconditioner,
+            carry_x=carry_x,
+            divergence_fallback=divergence_fallback,
+            x_prev0=acc["x_carry"] if carry_x else None,
+        )
+        info = res.info
+        acc["x"][sl] = res.x
+        for key in ("iterations", "converged", "residual_norm", "matvecs", "breakdown",
+                    "status", "guard_fired"):
+            acc[key][sl] = torch.as_tensor(getattr(info, key)).to(acc[key].dtype)
+        acc["rung"][sl] = res.report.rung
+        if res.theta is not None:
+            acc["theta"][sl] = res.theta
+        acc["state"] = res.state
+        acc["x_carry"] = res.x[-1]
+        checkpoint.save(acc, step=stop, extra={"next_index": stop}, blocking=True)
+        start = stop
+
+    info = SolveInfo(
+        iterations=acc["iterations"],
+        converged=acc["converged"],
+        residual_norm=acc["residual_norm"],
+        matvecs=acc["matvecs"],
+        breakdown=acc["breakdown"],
+        status=acc["status"],
+        guard_fired=acc["guard_fired"],
+    )
+    return SequenceSolveResult(
+        x=acc["x"],
+        info=info,
+        theta=acc["theta"] if spec.ell > 0 else None,
+        state=acc["state"],
+        report=_make_report(info, acc["rung"]),
+    )
+
+
+def solve_sequence(
+    systems: Any,
+    b_seq: torch.Tensor,
+    spec: Optional[SolveSpec] = None,
+    state0: Optional[RecycleState] = None,
+    *,
+    make_operator: Optional[Callable[[Any], Any]] = None,
+    make_preconditioner: Optional[Callable[[Any], Any]] = None,
+    carry_x: bool = False,
+    divergence_fallback: bool = True,
+    checkpoint=None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+) -> SequenceSolveResult:
+    """Solve a sequence of related systems, spec-driven.
+
+    ``systems[i]`` mapped through ``make_operator`` is the i-th operator,
+    ``b_seq[i]`` its right-hand side; ``systems`` may be a tensor, a list,
+    or a dict of them sliced per system
+    (:func:`repro_torch.core.recycle.system_at`).  The returned ``state``
+    seeds the next call.  ``spec.method`` is ``"defcg"`` or ``"deflsmr"``
+    (then ``A`` may be rectangular and the state's ``AW`` slot holds
+    ``NW``).  ``make_preconditioner`` maps each operator to its ``M``
+    apply; a spec with ``precond != "none"`` needs it.
+
+    Crash resumability: ``checkpoint`` (a
+    :class:`repro_torch.checkpoint.CheckpointManager`) with
+    ``checkpoint_every`` systems per chunk saves the full resume image
+    after each chunk; ``resume=True`` continues from the newest
+    restorable checkpoint, reproducing the uninterrupted run's iterates
+    exactly.
+    """
+    spec = SolveSpec() if spec is None else spec
+    if checkpoint is not None:
+        if checkpoint_every < 1:
+            raise ValueError(
+                "checkpoint= needs checkpoint_every >= 1 (systems per "
+                f"chunk), got {checkpoint_every}"
+            )
+        return _solve_sequence_chunked(
+            systems, b_seq, spec, state0,
+            make_operator=make_operator,
+            make_preconditioner=make_preconditioner,
+            carry_x=carry_x,
+            divergence_fallback=divergence_fallback,
+            checkpoint=checkpoint,
+            checkpoint_every=checkpoint_every,
+            resume=resume,
+        )
+    if resume or checkpoint_every:
+        raise ValueError("resume=/checkpoint_every= need checkpoint=<CheckpointManager>")
+    return _solve_sequence_spec(
+        systems, b_seq, spec, state0,
+        make_operator=make_operator,
+        make_preconditioner=make_preconditioner,
+        carry_x=carry_x,
+        divergence_fallback=divergence_fallback,
+    )

@@ -19,7 +19,11 @@ inside the step's fused kernel: def-CG's from ``pᵀAp`` on is one
 ``fused_cg_update`` launch (``kernels.ops.fused_cg_step``), LSMR's after
 ``‖w‖²`` one ``lsmr_update`` launch (``kernels.ops.lsmr_step``).  Each
 writes the next step's ``active`` flag, so ``active_fn`` there reads the
-carried flag instead of launching the test.
+carried flag instead of launching the test.  The stall detector
+(``stagnation_window > 0``) rides in the same launches: its ``(best,
+stall)`` state is carried beside ``[j, fail]`` (:func:`stagnation_init`);
+the sharded loops, whose tails run as eager ops, step it with
+:func:`stagnation_update`.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ from typing import Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import pytree as pt
-# The breakdown rule lives beside the kernels whose step tails apply it.
-from repro_torch.kernels.cg_fused import classify_breakdown  # noqa: F401
+# The breakdown and stall rules live beside the kernels whose step tails
+# apply them.
+from repro_torch.kernels import cg_fused
+from repro_torch.kernels.cg_fused import STAGNATION_RTOL, classify_breakdown  # noqa: F401
 
 # Masked steps between two host reads of the convergence test.
 CHUNK = 8
@@ -44,6 +50,16 @@ class SolveStatus:
     BREAKDOWN_NONFINITE = 2
     BREAKDOWN_INDEFINITE = 3
     STAGNATED = 4
+
+    @classmethod
+    def describe(cls, code) -> str:
+        """The status name of an int32 code (a Python int or 0-d tensor)."""
+        code = int(code)
+        for name in ("CONVERGED", "MAXITER", "BREAKDOWN_NONFINITE",
+                     "BREAKDOWN_INDEFINITE", "STAGNATED"):
+            if getattr(cls, name) == code:
+                return name
+        return f"UNKNOWN({code})"
 
 
 class SolveInfo(NamedTuple):
@@ -92,6 +108,25 @@ def trace_init(rnorm0, maxiter: int, record: bool):
     )
     trace[0] = rnorm0
     return trace
+
+
+def stagnation_init(norm0, window: int):
+    """The stall detector's ``(best, stall)`` before the first step —
+    ``None`` when disarmed, so the clean path carries no extra state."""
+    if window <= 0:
+        return None
+    return norm0, torch.zeros((), dtype=torch.int32, device=norm0.device)
+
+
+def stagnation_update(stag, norm_new, fail, active, window: int):
+    """One stall-detector step: ``(stag', fail')`` with STAGNATED latched
+    into the sticky ``fail`` when the best residual has not improved by
+    1 % for ``window`` consecutive active iterations (both unchanged when
+    ``stag`` is None, the detector disarmed)."""
+    if stag is None:
+        return None, fail
+    best, stall, fail = cg_fused.stagnation_update(*stag, norm_new, fail, active, window)
+    return (best, stall), fail
 
 
 def run_recording_loop(

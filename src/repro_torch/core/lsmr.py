@@ -30,7 +30,7 @@ iteration after ``‖w‖²`` — α⁺ and ``v⁺``, both Givens rotations, the
 vector recurrences, the exact-termination latch, the status, the trace
 slot, j, the next active flag and the frozen-step mask of ``x, h̄, h, v``
 — is ONE ``lsmr_update`` launch (:func:`lsmr_tail`, shared with the
-sharded engine).
+sharded engine), the stall detector (``stagnation_window > 0``) included.
 
 Matvec accounting counts ``A`` and ``Aᵀ`` applications each as 1: the
 initial ``Âᵀu₁`` costs 1 (+1 ``A`` with a warm start), every iteration 2.
@@ -44,9 +44,8 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core import operators as ops_mod
-from repro_torch.core.recycle import SequenceResult, _stack_infos
+from repro_torch.core.recycle import SequenceResult, _stack_infos, system_at
 from repro_torch.core.solvers import (
-    _NO_STAGNATION,
     DEFAULT_WAW_JITTER,
     CGResult,
     RecycleData,
@@ -60,21 +59,26 @@ from repro_torch.kernels.cg_fused import safe as _safe
 from repro_torch.kernels.cg_fused import still_active
 
 
-def lsmr_initial_state(x, u_m, u_n, v, g, alpha1, normar0, threshold, maxiter, trace):
+def lsmr_initial_state(x, u_m, u_n, v, g, alpha1, normar0, threshold, maxiter, trace,
+                       window=0):
     """The LSMR loop's state before its first step:
     ``(js, s, active, x, u_m, u_n, v, g, h, h̄, trace)`` with ``js = [j,
     fail]`` and ``s`` the packed scalars of ``kernels.cg_fused.LSMR_SLOTS``
-    (ᾱ = α₁, ζ̄ = ‖Âᵀr̂₀‖, ρ = ρ̄ = c̄ = 1, s̄ = 0)."""
+    (ᾱ = α₁, ζ̄ = ‖Âᵀr̂₀‖, ρ = ρ̄ = c̄ = 1, s̄ = 0).  With the stall detector
+    armed (``window > 0``) ``s`` carries its best residual ``‖Âᵀr̂₀‖`` in
+    one more slot and ``js`` its stall count."""
     one = torch.ones_like(normar0)
-    s = torch.stack([alpha1, normar0, alpha1, one, one, one, torch.zeros_like(one)])
+    stag = engine.stagnation_init(normar0, window)
+    s = torch.stack([alpha1, normar0, alpha1, one, one, one, torch.zeros_like(one)]
+                    + ([stag[0]] if stag else []))
     js = torch.stack([torch.zeros((), dtype=torch.int32, device=v.device),
-                      engine.initial_fail(normar0)])
+                      engine.initial_fail(normar0)] + ([stag[1]] if stag else []))
     active = still_active(js[0], torch.abs(normar0), js[1], threshold, maxiter)
     return (js, s, active, x, u_m, u_n, v, g, v, torch.zeros_like(v), trace)
 
 
 def lsmr_tail(state, active, u_m_new, u_n_new, g_new, w_vec, wsq, beta_new, threshold,
-              diverged_at, maxiter):
+              diverged_at, maxiter, window=0):
     """Everything of an LSMR step after its last reduction (``wsq = ‖w‖²``):
     one ``lsmr_step`` launch on the card, then the frozen-step selects of
     ``u_m``, ``u_n`` and ``g``.  The unsharded and the sharded loops both
@@ -82,7 +86,7 @@ def lsmr_tail(state, active, u_m_new, u_n_new, g_new, w_vec, wsq, beta_new, thre
     js, s, _, x, u_m, u_n, v, g, h, hbar, trace = state
     x, hbar, h, v, s, js, active_next = kops.lsmr_step(
         x, hbar, h, v, w_vec, wsq, beta_new, s, js, active, threshold, diverged_at, maxiter,
-        trace,
+        trace, window=window,
     )
 
     def sel(new, cur):
@@ -134,12 +138,11 @@ def lsmr(
     extraction at no extra product.  Convergence is declared on the
     normal residual ``‖Âᵀr̂‖ ≤ max(tol·‖Âᵀr̂₀‖, atol)``, reported as
     ``info.residual_norm``.  Returns a :class:`CGResult` whose ``recycle``
-    holds the flat ``(v, N̂v)`` window.
+    holds the flat ``(v, N̂v)`` window.  ``stagnation_window > 0`` arms
+    the stall detector on ``‖Âᵀr̂‖`` (inside the tail's launch).
     """
     if damp < 0.0:
         raise ValueError(f"damp must be >= 0, got {damp}")
-    if stagnation_window > 0:
-        raise NotImplementedError(_NO_STAGNATION)
     has_shift = damp > 0.0
     sqrt_damp = float(damp) ** 0.5
     At = ops_mod.adjoint_matvec(A)
@@ -233,10 +236,10 @@ def lsmr(
 
         return lsmr_tail(state, active, u_m_new, u_n_new if has_shift else None, g_new,
                          w_vec, torch.dot(w_vec, w_vec), beta_new, threshold, diverged_at,
-                         maxiter)
+                         maxiter, stagnation_window)
 
     state = lsmr_initial_state(x_flat, u_m0, u_n0, v0, g0, alpha1, normar0, threshold,
-                               maxiter, trace0)
+                               maxiter, trace0, stagnation_window)
     state = engine.run_recording_loop(step, lambda st: st[2], state, ell=ell)
     js, s, _, x = state[:4]
     j, fail, zetabar, trace = js[0], js[1], s[1], state[10]
@@ -373,6 +376,7 @@ def solve_sequence_lsmr(
     refresh_aw: str = "exact",
     carry_x: bool = False,
     stagnation_window: int = 0,
+    x_prev0: Optional[torch.Tensor] = None,
 ) -> SequenceResult:
     """Recycled LSMR across a sequence of least-squares problems.
 
@@ -380,13 +384,14 @@ def solve_sequence_lsmr(
     ``make_operator`` is the i-th operator and ``b_seq[i]`` its ``(m,)``
     right-hand side.  The flat ``(W, NW)`` basis (and, with ``carry_x``,
     the solution as the next warm start) is carried from system to
-    system.  Returns a :class:`SequenceResult` whose ``AW`` slot holds
-    the normal-operator products ``NW``.
+    system (``x_prev0`` the first warm start; zeros when None).  Returns
+    a :class:`SequenceResult` whose ``AW`` slot holds the normal-operator
+    products ``NW``.
     """
     if refresh_aw not in ("exact", "stale"):
         raise ValueError(f"unknown refresh_aw={refresh_aw!r}")
     make_op = make_operator if make_operator is not None else (lambda s: s)
-    n = W0.shape[1] if W0 is not None else domain_size(make_op(systems[0]))
+    n = W0.shape[1] if W0 is not None else domain_size(make_op(system_at(systems, 0)))
     dtype, device = b_seq[0].dtype, b_seq[0].device
 
     w = torch.zeros((k, n), dtype=dtype, device=device) if W0 is None else W0.to(dtype)
@@ -394,12 +399,13 @@ def solve_sequence_lsmr(
         torch.zeros((k, n), dtype=dtype, device=device)
         if (NW0 is None or W0 is None) else NW0.to(dtype)
     )
-    x_prev = torch.zeros((n,), dtype=dtype, device=device)
+    x_prev = (torch.zeros((n,), dtype=dtype, device=device) if x_prev0 is None
+              else x_prev0.to(dtype))
 
     xs, infos, thetas, rungs = [], [], [], []
     for i in range(len(b_seq)):
         x, info, w, nw, theta, rung = _one_recycled_lsmr(
-            make_op(systems[i]), b_seq[i], x_prev if carry_x else None, w, nw,
+            make_op(system_at(systems, i)), b_seq[i], x_prev if carry_x else None, w, nw,
             k=k, ell=ell, damp=damp, tol=tol, atol=atol, maxiter=maxiter,
             select=select, waw_jitter=waw_jitter, refresh_aw=refresh_aw,
             stagnation_window=stagnation_window,

@@ -8,7 +8,7 @@ inside; the port's solvers take flat tensors only: a vector is an
 ``jax.flatten_util.ravel_pytree`` does: dict keys in SORTED order, each
 leaf row-major.  So a flat vector, and a recycled basis, mean the same
 coordinates in both packages.  General pytrees beyond dicts come with
-ROADMAP queue 1 item 2.
+ROADMAP queue 1, pytree inputs to the solvers.
 """
 
 from __future__ import annotations

@@ -6,11 +6,11 @@ shared by every front door (:func:`_one_recycled_solve`), the sequence
 engine (:func:`solve_sequence`, a Python loop over systems where the
 reference scans), and the host-driven :class:`RecycleManager`.
 
-The escalating recovery ladder (reference ``recycle.py:420-605``) comes
-with ROADMAP queue 1 item 10.  Until then a solve that ends where the
-reference would climb its first rung raises :class:`NotImplementedError`;
-finding out costs one host read per solve.  A clean solve reports rung 0,
-as the reference does.
+A solve that ends broken, or unconverged with a carried basis, climbs the
+reference's escalating recovery ladder (:func:`_one_recycled_solve`): a
+Python loop over rungs, one host read a rung (the clean path pays the
+one read that finds it clean), never one a step.  A clean solve reports
+rung 0, as the reference does.
 """
 
 from __future__ import annotations
@@ -29,14 +29,8 @@ from repro_torch.core.strategies import (
     harmonic_ritz_flat_core,
 )
 
-# Highest rung the reference's recovery ladder can climb.
+# Highest rung the recovery ladder can climb (see ``_one_recycled_solve``).
 MAX_RECOVERY_RUNGS = 3
-
-_NO_LADDER = (
-    "the solve ended broken or unconverged with a carried basis, where the "
-    "reference climbs its recovery ladder; the ladder is not ported yet: "
-    "ROADMAP queue 1 item 10"
-)
 
 
 @dataclasses.dataclass
@@ -106,6 +100,7 @@ def _one_recycled_solve(
     M=None,
     record_residuals: bool = False,
     recovery_rungs: int = 0,
+    recovery_shift: float = 1e-6,
     stagnation_window: int = 0,
 ):
     """ONE system of the recycled def-CG step, on flat state.
@@ -114,8 +109,29 @@ def _one_recycled_solve(
     its cost; ``strategy.transition`` turns the recorded window into the
     next ``(W, AW, θ, drift)``.  ``M`` preconditions the solve (the
     split-preconditioned def-CG of :func:`repro_torch.core.solvers.defcg`).
-    Returns ``(x, info, w_next, aw_next,
-    theta, drift_next, rung)``; ``theta`` is ``None`` when ``ell == 0``.
+
+    ``recovery_rungs > 0`` arms the reference's recovery ladder.  When the
+    attempt ends broken (``info.breakdown``), or unconverged with a
+    carried basis, up to :data:`MAX_RECOVERY_RUNGS` re-solves follow:
+
+    1. keep ``W``, refresh ``AW = A·W`` exactly (k matvecs, charged) and
+       re-solve: repairs stale or poisoned products;
+    2. re-solve with a zeroed basis (the cold path: the extraction
+       re-seeds the sequence);
+    3. zero basis, the preconditioner gated to the identity and the
+       operator shifted to ``A + σI`` (σ = ``recovery_shift``): only on a
+       breakdown, the last resort against an indefinite or singular
+       operator.
+
+    A basis-less solve that fails without a breakdown never climbs.  Every
+    attempt's matvecs are charged; the adopted ``x`` (and its ``info``) is
+    the attempt with the smallest finite, unbroken residual, while the
+    basis comes from the last rung run.  Then the terminal retirement: a
+    solve still broken returns the finite warm start and a zeroed state.
+
+    Returns ``(x, info, w_next, aw_next, theta, drift_next, rung)``;
+    ``theta`` is ``None`` when ``ell == 0``, and ``rung`` (int32) is the
+    highest rung run (0: clean, or the ladder disarmed).
     """
     aw_used, refresh_matvecs, exact_aw, stale_guard = strategy.prepare(
         lambda ww: ops_mod.apply_to_basis(A, ww),
@@ -157,12 +173,63 @@ def _one_recycled_solve(
     if recovery_rungs <= 0:
         return result.x, info, w_next, aw_next, theta, drift_next, rung0
 
-    had_basis = torch.any(w != 0)
-    bad = info.breakdown | ~info.converged
-    if bool(bad & (had_basis | info.breakdown)):
-        raise NotImplementedError(_NO_LADDER)
-    # The reference's terminal retirement, a no-op on a clean solve.
-    x = result.x
+    rungs = min(int(recovery_rungs), MAX_RECOVERY_RUNGS)
+    x, rung = result.x, 0
+    broken, converged, had_basis = (
+        bool(v) for v in torch.stack([info.breakdown, info.converged, torch.any(w != 0)]).tolist()
+    )
+    for i in range(1, rungs + 1):
+        if not ((broken or not converged) and (had_basis or broken)
+                and (i < MAX_RECOVERY_RUNGS or broken)):
+            break
+        # Rung 1 keeps W with freshly refreshed products; rungs 2-3 zero
+        # the basis; rung 3 also shifts the operator and gates M.
+        w_att = w if i == 1 else torch.zeros_like(w)
+        refresh_charge = k if (i == 1 and had_basis) else 0
+        aw_att = (ops_mod.apply_to_basis(A, w) if refresh_charge
+                  else torch.zeros_like(w))
+        A_att, M_att = A, M
+        if i == MAX_RECOVERY_RUNGS:
+            A_att = _shifted(A, recovery_shift)
+            M_att = None if M is None else _identity
+        res = defcg(
+            A_att, b, x0, W=w_att, AW=aw_att, ell=ell, tol=tol, atol=atol,
+            maxiter=maxiter, record_residuals=record_residuals,
+            waw_jitter=waw_jitter, exact_aw=True, M=M_att, stale_guard=None,
+            stagnation_window=stagnation_window,
+        )
+        i2 = res.info
+        if ell > 0:
+            w_next, aw_next, theta, drift_next = strategy.transition(
+                w_att, aw_att, res.recycle, k=k, select=select
+            )
+        else:
+            w_next, aw_next = w_att, aw_att
+        # Adopt whichever attempt holds the better residual (a broken or
+        # non-finite incumbent loses), and charge every attempt.
+        warm_ok = torch.isfinite(info.residual_norm) & ~info.breakdown
+        take = ~warm_ok | (i2.residual_norm < info.residual_norm)
+
+        def pick(new, cur):
+            return None if new is None else torch.where(take, new, cur)
+
+        x = torch.where(take, res.x, x)
+        info = SolveInfo(
+            iterations=pick(i2.iterations, info.iterations),
+            converged=pick(i2.converged, info.converged),
+            residual_norm=pick(i2.residual_norm, info.residual_norm),
+            matvecs=info.matvecs + i2.matvecs + refresh_charge,
+            residual_norms=pick(i2.residual_norms, info.residual_norms),
+            breakdown=pick(i2.breakdown, info.breakdown),
+            status=pick(i2.status, info.status),
+            guard_fired=info.guard_fired,
+        )
+        rung = i
+        broken, converged = (bool(v) for v in torch.stack([info.breakdown,
+                                                             info.converged]).tolist())
+
+    # The terminal retirement: a solve still broken after the ladder
+    # returns finite coordinates and hands no poisoned subspace on.
     x_safe = torch.zeros_like(x) if x0 is None else x0.to(x.dtype)
     x_safe = torch.where(torch.isfinite(x_safe), x_safe, 0.0)
     x = torch.where(torch.all(torch.isfinite(x)), x, x_safe)
@@ -176,7 +243,22 @@ def _one_recycled_solve(
     if theta is not None:
         theta = torch.where(retire, 0.0, theta)
     drift_next = torch.where(retire, torch.zeros_like(drift_next), drift_next)
-    return x, info, w_next, aw_next, theta, drift_next, rung0
+    return (x, info, w_next, aw_next, theta, drift_next,
+            torch.tensor(rung, dtype=torch.int32, device=b.device))
+
+
+def _identity(v):
+    return v
+
+
+def _shifted(A, sigma: float):
+    """``v ↦ A v + σ v``: rung 3's shifted operator (one eager add a
+    product)."""
+
+    def apply(v):
+        return torch.add(A(v), v, alpha=sigma)
+
+    return apply
 
 
 class SequenceResult(NamedTuple):
@@ -189,6 +271,15 @@ class SequenceResult(NamedTuple):
     AW: torch.Tensor
     drift: Optional[torch.Tensor] = None
     rung: Optional[torch.Tensor] = None
+
+
+def system_at(systems: Any, i):
+    """System ``i`` (an int or a slice) of a sequence: ``systems[i]``, or
+    for a dict (e.g. ``{"mat": mats, "poison": poison}``) the dict of its
+    values' entries ``i``, as the reference's scan slices a pytree."""
+    if isinstance(systems, dict):
+        return {key: system_at(val, i) for key, val in systems.items()}
+    return systems[i]
 
 
 def _stack_infos(infos) -> SolveInfo:
@@ -221,16 +312,21 @@ def solve_sequence(
     strategy: Optional[RecycleStrategy] = None,
     drift0: Optional[torch.Tensor] = None,
     recovery_rungs: int = MAX_RECOVERY_RUNGS,
+    recovery_shift: float = 1e-6,
     stagnation_window: int = 0,
+    x_prev0: Optional[torch.Tensor] = None,
 ) -> SequenceResult:
     """Solve a sequence of related SPD systems, carrying ``(W, AW)``.
 
-    ``systems[i]`` (a tensor with a leading system axis, or a list) is
+    ``systems[i]`` (a tensor with a leading system axis, a list, or a
+    dict of such tensors, each indexed by system: :func:`system_at`) is
     mapped through ``make_operator`` to the i-th operator; ``b_seq`` is
     ``(num_systems, n)``.  ``make_preconditioner`` maps each operator to
     its ``M`` apply (``None``: unpreconditioned).  Per-system semantics are
     :func:`_one_recycled_solve`'s, shared with the single-system front
-    door.  Outputs are stacked as the reference's scan stacks them.
+    door.  ``x_prev0`` is the warm start of the first system under
+    ``carry_x`` (zeros when None).  Outputs are stacked as the reference's
+    scan stacks them.
     """
     if refresh_aw not in ("exact", "stale"):
         raise ValueError(f"unknown refresh_aw={refresh_aw!r}")
@@ -246,12 +342,12 @@ def solve_sequence(
 
     w = zeros(k, n) if W0 is None else W0.to(dtype)
     aw = zeros(k, n) if (AW0 is None or W0 is None) else AW0.to(dtype)
-    x_prev = zeros(n)
+    x_prev = zeros(n) if x_prev0 is None else x_prev0.to(dtype)
     drift = zeros() if drift0 is None else drift0.to(dtype)
 
     xs, infos, thetas, rungs = [], [], [], []
     for i in range(b_seq.shape[0]):
-        A = make_op(systems[i])
+        A = make_op(system_at(systems, i))
         x, info, w, aw, theta, drift, rung = _one_recycled_solve(
             A,
             b_seq[i],
@@ -270,6 +366,7 @@ def solve_sequence(
             strategy=strategy,
             M=make_preconditioner(A) if make_preconditioner is not None else None,
             recovery_rungs=recovery_rungs,
+            recovery_shift=recovery_shift,
             stagnation_window=stagnation_window,
         )
         x_prev = x

@@ -163,7 +163,8 @@ def _zero_on(bad, *ts):
     return [torch.where(bad, 0.0, t) for t in ts]
 
 
-def _sharded_cg(apply, mesh, b, x0, *, tol, atol, maxiter, record_residuals):
+def _sharded_cg(apply, mesh, b, x0, *, tol, atol, maxiter, record_residuals,
+                stagnation_window=0):
     """Plain CG on per-rank state: one merged all-reduce per iteration
     (``[pᵀAp, rᵀAp, ApᵀAp, ‖r‖²]``)."""
     r0 = b - apply(x0)
@@ -180,7 +181,7 @@ def _sharded_cg(apply, mesh, b, x0, *, tol, atol, maxiter, record_residuals):
 
     def step(state, active, row):
         del row  # CG records no window
-        j, x, r, p, rnorm, trace, fail = state
+        j, x, r, p, rnorm, trace, fail, stag = state
         ap = apply(p)
         d, rap, apap, rs = engine.psum_merged(
             [torch.dot(p, ap), torch.dot(r, ap), torch.dot(ap, ap), torch.dot(r, r)],
@@ -203,19 +204,22 @@ def _sharded_cg(apply, mesh, b, x0, *, tol, atol, maxiter, record_residuals):
             fail,
         ).to(torch.int32)
         rnorm = torch.where(active, rnorm_new, rnorm)
+        stag, fail = engine.stagnation_update(stag, rnorm_new, fail, active,
+                                                stagnation_window)
         if trace is not None:
             trace_write(trace, j, rnorm, active)
-        return (j + active.to(j.dtype), x, r, p, rnorm, trace, fail)
+        return (j + active.to(j.dtype), x, r, p, rnorm, trace, fail, stag)
 
     j0 = torch.zeros((), dtype=torch.int32, device=b.device)
-    state = (j0, x0, r0, r0, rnorm0, trace0, engine.initial_fail(rnorm0))
-    j, x, _, _, rnorm, trace, fail = engine.run_recording_loop(step, active_fn, state)
+    state = (j0, x0, r0, r0, rnorm0, trace0, engine.initial_fail(rnorm0),
+             engine.stagnation_init(rnorm0, stagnation_window))
+    j, x, _, _, rnorm, trace, fail, _ = engine.run_recording_loop(step, active_fn, state)
     return x, _info(j, 1, rnorm, threshold, trace, fail, maxiter)
 
 
 def _sharded_defcg(
     apply, basis_apply, mesh, b, x0, w, aw_carry, *, k, ell, tol, atol, maxiter,
-    select, waw_jitter, refresh_aw, record_residuals,
+    select, waw_jitter, refresh_aw, record_residuals, stagnation_window=0,
 ):
     """Deflated CG + harmonic-Ritz extraction on per-rank state.
 
@@ -276,7 +280,7 @@ def _sharded_defcg(
         return (j < maxiter) & (rnorm > threshold) & (fail == 0)
 
     def step(state, active, row):
-        j, x, r, p, rnorm, trace, fail = state
+        j, x, r, p, rnorm, trace, fail, stag = state
         ap = apply(p)
         rap_l, awap_l, rs_l, awr_l = kops.fused_rz_pair(r, ap, aw_used)
         d, rap, apap, awap, rs, awr = engine.psum_merged(
@@ -304,13 +308,16 @@ def _sharded_defcg(
             fail,
         ).to(torch.int32)
         rnorm = torch.where(active, rnorm_new, rnorm)
+        stag, fail = engine.stagnation_update(stag, rnorm_new, fail, active,
+                                                stagnation_window)
         if trace is not None:
             trace_write(trace, j, rnorm, active)
-        return (j + active.to(j.dtype), x, r, p, rnorm, trace, fail)
+        return (j + active.to(j.dtype), x, r, p, rnorm, trace, fail, stag)
 
     j0 = torch.zeros((), dtype=torch.int32, device=device)
-    state = (j0, x, r, p0, rnorm0, trace0, engine.initial_fail(rnorm0))
-    j, x, _, _, rnorm, trace, fail = engine.run_recording_loop(
+    state = (j0, x, r, p0, rnorm0, trace0, engine.initial_fail(rnorm0),
+             engine.stagnation_init(rnorm0, stagnation_window))
+    j, x, _, _, rnorm, trace, fail, _ = engine.run_recording_loop(
         step, active_fn, state, ell=ell
     )
     info = _info(j, matvecs, rnorm, threshold, trace, fail, maxiter)
@@ -345,7 +352,8 @@ def _sharded_defcg(
 
 
 def _sharded_lsmr(
-    apply, rapply, mesh, b, x0, *, has_x0, damp, tol, atol, maxiter, record_residuals
+    apply, rapply, mesh, b, x0, *, has_x0, damp, tol, atol, maxiter, record_residuals,
+    stagnation_window=0,
 ):
     """Plain LSMR on per-rank state: 2 all-reduces per iteration (the
     Golub–Kahan β and α normalizations are serially dependent)."""
@@ -399,10 +407,11 @@ def _sharded_lsmr(
         # The tail is replicated arithmetic on the all-reduced ‖w‖².
         (as_,) = engine.psum_merged([torch.dot(w_vec, w_vec)], mesh)
         return lsmr_tail(state, active, u_m_new, u_n_new if has_shift else None, g_new,
-                         w_vec, as_, beta_new, threshold, diverged_at, maxiter)
+                         w_vec, as_, beta_new, threshold, diverged_at, maxiter,
+                         stagnation_window)
 
     state = lsmr_initial_state(x0, u_m0, u_n0, v0, g0, alpha1, normar0, threshold, maxiter,
-                               trace0)
+                               trace0, stagnation_window)
     state = engine.run_recording_loop(step, lambda st: st[2], state)
     js, s, _, x = state[:4]
     j, fail, trace = js[0], js[1], state[10]
@@ -449,11 +458,6 @@ def _check(spec, mesh) -> None:
         raise ValueError(
             "the sharded def-CG path extracts through the default "
             f"HarmonicRitz strategy only, got {type(spec.strategy).__name__}"
-        )
-    if spec.stagnation_window > 0:
-        raise NotImplementedError(
-            "the stagnation detector (stagnation_window > 0) is not ported "
-            "yet: ROADMAP queue 1 item 10"
         )
 
 
@@ -518,7 +522,8 @@ def solve_sharded(
         if x0 is None else x0[rows_n].to(mesh.device)
     )
     common = dict(tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter,
-                  record_residuals=record_residuals)
+                  record_residuals=record_residuals,
+                  stagnation_window=spec.stagnation_window)
 
     new_state = state
     if spec.method == "cg":

@@ -40,11 +40,6 @@ DEFAULT_WAW_JITTER = 1e-12
 # Noise floor of drift-guard thresholds, in units of the working eps.
 DRIFT_NOISE_FLOOR_EPS = 500.0
 
-_NO_STAGNATION = (
-    "the stagnation detector (stagnation_window > 0) is not ported yet: "
-    "ROADMAP queue 1 item 10"
-)
-
 
 class RecycleData(NamedTuple):
     """Recorded Krylov quantities — the solver→strategy window handoff."""
@@ -100,9 +95,10 @@ def cg(
     plain CG, the paper's baseline.  The loop carries ``rᵀz``: without a
     preconditioner that is the ``‖r‖²`` the fused update pass emits; with
     one, ``fused_rz_step`` forms it and β after ``z = M(r)``.
+    ``stagnation_window > 0`` arms the stall detector inside the update's
+    launch: STAGNATED once the best residual has not improved by 1 % for
+    that many iterations (0 adds no state and no work).
     """
-    if stagnation_window > 0:
-        raise NotImplementedError(_NO_STAGNATION)
     x = torch.zeros_like(b) if x0 is None else x0
     r = b - A(x)
     z = r if M is None else M(r)
@@ -115,12 +111,12 @@ def cg(
 
     def step(state, active, row):
         del row  # CG records no window
-        js, x, r, p, rz, rnorm, _, trace = state
+        js, x, r, p, rz, rnorm, _, trace, best = state
         ap = A(p)
         d = pt.tree_dot(p, ap)
         x, r, ap, so, js, flags = kops.fused_cg_step(
             x, r, p, ap, d, rz, rnorm, js, active, threshold, diverged_at, maxiter,
-            recurrence=M is None, trace=trace,
+            recurrence=M is None, trace=trace, window=stagnation_window, best=best,
         )
         if M is None:
             z, rz_new, beta = r, so[0], so[3]
@@ -129,14 +125,13 @@ def cg(
             sz = kops.fused_rz_step(r, z, rz)
             rz_new, beta = sz[0], sz[1]
         p = kops.fused_direction_step(z, p, beta, flags[1])
-        return (js, x, r, p, rz_new, so[1], flags[0], trace)
+        return (js, x, r, p, rz_new, so[1], flags[0], trace, so[-1] if stagnation_window else None)
 
-    js0 = torch.stack([torch.zeros((), dtype=torch.int32, device=b.device),
-                       engine.initial_fail(rnorm0)])
-    active0 = still_active(js0[0], rnorm0, js0[1], threshold, maxiter)
-    state = (js0, x, r, p, rz, rnorm0, active0, trace0)
+    js0, active0, best0 = _initial_flags(rnorm0, threshold, maxiter,
+                                          stagnation_window)
+    state = (js0, x, r, p, rz, rnorm0, active0, trace0, best0)
     state = engine.run_recording_loop(step, lambda st: st[6], state, ell=0)
-    js, x, _, _, _, rnorm, _, trace = state
+    js, x, _, _, _, rnorm, _, trace, _ = state
     j, fail = js[0], js[1]
     return CGResult(x=x, info=_info(j, 1, rnorm, threshold, trace, fail, maxiter))
 
@@ -144,6 +139,18 @@ def cg(
 # ---------------------------------------------------------------------------
 # Deflated conjugate gradients — paper Algorithm 1
 # ---------------------------------------------------------------------------
+
+
+def _initial_flags(rnorm0, threshold, maxiter: int, window: int):
+    """``(js, active, best)`` before a cg / def-CG loop's first step:
+    ``js = [j, fail]``, with the stall count appended and ``best = ‖r₀‖``
+    when the detector is armed (``best`` None otherwise)."""
+    js = [torch.zeros((), dtype=torch.int32, device=rnorm0.device),
+          engine.initial_fail(rnorm0)]
+    stag = engine.stagnation_init(rnorm0, window)
+    js = torch.stack(js + ([stag[1]] if stag else []))
+    active = still_active(js[0], rnorm0, js[1], threshold, maxiter)
+    return js, active, stag[0] if stag else None
 
 
 def _chol_solve(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -215,10 +222,9 @@ def defcg(
     The update pass then emits ``‖r‖²`` only, ``z = M(r)`` follows, and
     one ``fused_rz_step`` launch forms ``rᵀz``, ``(AW)ᵀz``, β, μ and the
     recorded α / β on the card; convergence is still tested on the true
-    residual ``‖r‖``.
+    residual ``‖r‖``.  ``stagnation_window`` arms the stall detector, as
+    in :func:`cg`.
     """
-    if stagnation_window > 0:
-        raise NotImplementedError(_NO_STAGNATION)
     threshold, _ = engine.tolerances(b, tol, atol)
     matvecs = 0
     guard_fired = False
@@ -290,7 +296,7 @@ def defcg(
 
     def step(state, active, row):
         """One masked def-CG iteration; ``active=False`` freezes the state."""
-        js, x, r, p, rs, rnorm, _, trace = state
+        js, x, r, p, rs, rnorm, _, trace, best = state
         ap = A(p)
         d = pt.tree_dot(p, ap)
         rows = {} if row is None else dict(row=row, a_rows=a_rows, b_rows=b_rows)
@@ -299,16 +305,16 @@ def defcg(
             # ride in the update's launch.
             x, r, ap, so, js, flags = kops.fused_cg_step(
                 x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
-                aw, waw_inv, trace=trace, **rows,
+                aw, waw_inv, trace=trace, window=stagnation_window, best=best, **rows,
             )
             zvec, rs_new, beta = r, so[0], so[3]
-            mu = so[4:] if deflating else None
+            mu = so[4:4 + k] if deflating else None
         else:
             # z = M⁻¹r exists only after the update: rᵀz, (AW)ᵀz, β, μ and
             # the recorded α / β come from K6's step arm, a second launch.
             x, r, ap, so, js, flags = kops.fused_cg_step(
                 x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
-                recurrence=False, trace=trace,
+                recurrence=False, trace=trace, window=stagnation_window, best=best,
             )
             zvec = M(r)
             sz = kops.fused_rz_step(r, zvec, rs, aw, waw_inv, alpha=so[2], active=active, **rows)
@@ -320,14 +326,13 @@ def defcg(
         rec = {} if row is None else dict(ap=ap, active=active, row=row, p_buf=p_buf,
                                           ap_buf=ap_buf)
         p = kops.fused_direction_step(zvec, p, beta, flags[1], W, mu, **rec)
-        return (js, x, r, p, rs_new, so[1], flags[0], trace)
+        return (js, x, r, p, rs_new, so[1], flags[0], trace, so[-1] if stagnation_window else None)
 
-    js0 = torch.stack([torch.zeros((), dtype=torch.int32, device=device),
-                       engine.initial_fail(rnorm0)])
-    active0 = still_active(js0[0], rnorm0, js0[1], threshold, maxiter)
-    state = (js0, x, r, p, rs0, rnorm0, active0, trace0)
+    js0, active0, best0 = _initial_flags(rnorm0, threshold, maxiter,
+                                          stagnation_window)
+    state = (js0, x, r, p, rs0, rnorm0, active0, trace0, best0)
     state = engine.run_recording_loop(step, lambda st: st[6], state, ell=ell)
-    js, x, _, _, _, rnorm, _, trace = state
+    js, x, _, _, _, rnorm, _, trace, _ = state
     j, fail = js[0], js[1]
 
     info = _info(j, matvecs, rnorm, threshold, trace, fail, maxiter, guard_fired)

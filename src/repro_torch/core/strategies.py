@@ -8,8 +8,8 @@ kernel and rebuilds the next ``W`` and ``AW`` through the
 ``recombine_blocks`` kernel; everything between is ``(2m, 2m)`` algebra.
 Under the sharded engine (``psum_axis``, a solve mesh) the n-reductions
 are taken per rank and all-reduced, and the rest stays as it is.
-``WindowedRecombine`` and ``MGeometryHarmonic`` come with ROADMAP queue 1
-item 9; until then :class:`MGeometryHarmonic` exists so that a spec can
+``WindowedRecombine`` and ``MGeometryHarmonic`` come with ROADMAP queue 1,
+the other two strategies; until then :class:`MGeometryHarmonic` exists so that a spec can
 name it, and :func:`repro_torch.core.solve` refuses it.
 """
 
@@ -25,6 +25,18 @@ from repro_torch.core.solvers import RecycleData
 from repro_torch.kernels import ops as kops
 
 FlatApply = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _eigh(mat: torch.Tensor):
+    """``torch.linalg.eigh``, NaN where it fails.  A window poisoned by a
+    broken solve makes the extraction's grams non-finite; the reference's
+    eigh returns NaN there, torch's raises, and the poisoned basis must
+    reach the terminal retirement.  The healthy path runs eigh alone."""
+    try:
+        return torch.linalg.eigh(mat)
+    except torch.linalg.LinAlgError:
+        nan = torch.full_like(mat, float("nan"))
+        return nan[0], nan
 
 
 def _select_positive_ritz(zeta, Wm, k: int, select: str):
@@ -111,14 +123,14 @@ def harmonic_ritz_flat_core(
     F = F * d[:, None] * d[None, :]
 
     # Rank-revealing reduction: project out G's near-null directions.
-    lam, qg = torch.linalg.eigh(G)
+    lam, qg = _eigh(G)
     eps = torch.finfo(G.dtype).eps
     rcond = max(jitter, 100.0 * eps) * m
     good = lam > rcond * lam[-1]
     s = torch.where(good, 1.0 / torch.sqrt(torch.clamp(lam, min=1e-300)), 0.0)
     M = s[:, None] * (qg.T @ F @ qg) * s[None, :]
     M = 0.5 * (M + M.T)
-    zeta, Wm = torch.linalg.eigh(M)
+    zeta, Wm = _eigh(M)
 
     w_sel, theta, slot_ok = _select_positive_ritz(zeta, Wm, k, select)
 
@@ -237,4 +249,4 @@ class HarmonicRitz(RecycleStrategy):
 @dataclasses.dataclass(frozen=True)
 class MGeometryHarmonic(RecycleStrategy):
     """Harmonic extraction in the preconditioner's geometry — not ported
-    yet (ROADMAP queue 1 item 9): the front door refuses it."""
+    yet (ROADMAP queue 1, the other two strategies): the front door refuses it."""

@@ -138,6 +138,8 @@ __device__ __forceinline__ bool ticket_sums(const T (&acc)[Q * (KMAX + 1)], int 
 constexpr int kBreakdownNonfinite = 2;
 constexpr int kBreakdownIndefinite = 3;
 constexpr int kStagnated = 4;
+// The stall detector's bar (kernels/cg_fused.py: STAGNATION_RTOL).
+constexpr double kStagnationRtol = 0.99;
 
 // One rounding per operation, as one eager PyTorch op on 0-d tensors.
 __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
@@ -152,6 +154,27 @@ __device__ __forceinline__ double abs_of(double a) { return fabs(a); }
 __device__ __forceinline__ float abs_of(float a) { return fabsf(a); }
 __device__ __forceinline__ bool finite(double a) { return isfinite(a); }
 __device__ __forceinline__ bool finite(float a) { return isfinite(a); }
+// torch.minimum: a NaN in either operand is the result (fmin would drop it).
+template <typename T>
+__device__ __forceinline__ T minimum_nan(T a, T b) {
+  return a != a ? a : b != b ? b : (b < a ? b : a);
+}
+
+// One step of the stall detector (kernels/cg_fused.py: stagnation_update),
+// on the step's fresh residual norm: the best residual and the stall count
+// move on an active step only, and STAGNATED is latched into the sticky
+// fail once the best has not fallen below kStagnationRtol of itself for
+// `window` active steps.  The bar rounds as the eager 0.99 * best.
+template <typename T>
+__device__ __forceinline__ void stagnation_step(T best, int stall, T norm_new, bool active,
+                                                int window, int* fail, T* best_out,
+                                                int* stall_out) {
+  const bool improved = norm_new < mul_rn(T(kStagnationRtol), best);
+  const int stall_new = improved ? 0 : stall + 1;
+  if (*fail == 0 && active && stall_new >= window) *fail = kStagnated;
+  *best_out = active ? minimum_nan(best, norm_new) : best;
+  *stall_out = active ? stall_new : stall;
+}
 // torch.where(v == 0, 1, v): the guarded divisor of the solver loops.
 template <typename T>
 __device__ __forceinline__ T nonzero(T v) {
@@ -266,6 +289,8 @@ struct CgArgs {
   T* b_rows;
   int row;  // < 0: not a recording step
   int ell;
+  int window;     // > 0: the stall detector is armed (js = [j, fail, stall])
+  const T* best;  // its best residual; best' goes to so[4 + k]
   T* so;
   int* jo;
   bool* bo;
@@ -445,6 +470,10 @@ __global__ void __launch_bounds__(kThreads) cg_update(const CgArgs<T> a) {
       if (fail == 0 && active) fail = code;
       const T rnorm_new = sqrt_rn(rr);
       if (fail == 0 && active && !finite(rnorm_new)) fail = kBreakdownNonfinite;
+      if (a.window > 0) {
+        stagnation_step(*a.best, a.js[2], rnorm_new, active, a.window, &fail, a.so + 4 + k,
+                        a.jo + 2);
+      }
       const T rnorm = active ? rnorm_new : rnorm_in;
       if (a.trace != nullptr && active) a.trace[j0 + 1] = rnorm;
       const int jn = j0 + (active ? 1 : 0);
@@ -1215,6 +1244,8 @@ struct LsmrArgs {
   const T* threshold;
   const T* diverged_at;
   int64_t maxiter;
+  int window;  // > 0: the stall detector is armed (s[kLsmrSlots] = best,
+               // js = [j, fail, stall])
   T* trace;
   T* so;
   int* jo;
@@ -1292,6 +1323,10 @@ __device__ __forceinline__ LsmrCoefficients<T> lsmr_tail(const LsmrArgs<T>& a, c
     int fail = sc.fail;
     if (fail == 0 && active && !finite(normar)) fail = kBreakdownNonfinite;
     if (fail == 0 && active && normar > sc.diverged_at) fail = kStagnated;
+    if (a.window > 0) {
+      stagnation_step(a.s[kLsmrSlots], a.js[2], normar, active, a.window, &fail,
+                      a.so + kLsmrSlots, a.jo + 2);
+    }
     if (a.trace != nullptr && active) a.trace[sc.j + 1] = normar;
     const T next[kLsmrSlots] = {alpha, zetabar, alphabar, rho, g2.r, g2.c, g2.s};
 #pragma unroll
@@ -1641,7 +1676,8 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
       const void* threshold, const void* diverged_at, const void* js,          \
       const void* active, const void* waw_inv, int64_t maxiter,                \
       int recurrence, void* trace, void* a_rows, void* b_rows, int row,        \
-      int ell, void* so, void* jo, void* bo, void* stream) {                   \
+      int ell, int window, const void* best, void* so, void* jo, void* bo,     \
+      void* stream) {                                                          \
     CgArgs<T> a = {};                                                          \
     a.x = static_cast<const T*>(x);                                            \
     a.r = static_cast<const T*>(r);                                            \
@@ -1669,6 +1705,8 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.b_rows = static_cast<T*>(b_rows);                                        \
     a.row = row;                                                               \
     a.ell = ell;                                                               \
+    a.window = window;                                                         \
+    a.best = static_cast<const T*>(best);                                      \
     a.so = static_cast<T*>(so);                                                \
     a.jo = static_cast<int*>(jo);                                              \
     a.bo = static_cast<bool*>(bo);                                             \
@@ -1802,8 +1840,8 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
       const void* w, int64_t n, const void* wsq, const void* beta,             \
       const void* s, const void* js, const void* active,                       \
       const void* threshold, const void* diverged_at, int64_t maxiter,         \
-      void* trace, void* xo, void* hbo, void* ho, void* vo, void* so,          \
-      void* jo, void* ao, void* stream) {                                      \
+      int window, void* trace, void* xo, void* hbo, void* ho, void* vo,        \
+      void* so, void* jo, void* ao, void* stream) {                            \
     LsmrArgs<T> a = {};                                                        \
     a.x = static_cast<const T*>(x);                                            \
     a.hbar = static_cast<const T*>(hbar);                                      \
@@ -1823,6 +1861,7 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.threshold = static_cast<const T*>(threshold);                            \
     a.diverged_at = static_cast<const T*>(diverged_at);                        \
     a.maxiter = maxiter;                                                       \
+    a.window = window;                                                         \
     a.trace = static_cast<T*>(trace);                                          \
     a.so = static_cast<T*>(so);                                                \
     a.jo = static_cast<int*>(jo);                                              \

@@ -102,12 +102,15 @@ MAX_BLOCKS_PER_SM = 2048 // THREADS  # the most 256-thread blocks an SM holds
 LSMR_SLOTS = ("alpha", "zetabar", "alphabar", "rho", "rhobar", "cbar", "sbar")
 # engine.SolveStatus's codes that the step tails write.
 BREAKDOWN_NONFINITE, BREAKDOWN_INDEFINITE, STAGNATED = 2, 3, 4
+# The stall detector's bar: the best residual must fall below this share of
+# itself within the window (1 %), or the solve is STAGNATED.
+STAGNATION_RTOL = 0.99
 
 _P, _I, _L = _runtime.PTR, _runtime.INT, _runtime.INT64
 _SIGNATURES = {
     "fused_cg_update": (_P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _P),
     "fused_cg_step": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _L, _I, _P, _P, _P, _I, _I, _P, _P, _P),
+                      _P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
     "fused_rz_reduce": (_P, _P, _P, _I, _L, _P, _I, _P, _P),
     "fused_rz_pair": (_P, _P, _P, _I, _L, _P, _I, _P, _P),
     "fused_rz_step": (_P, _P, _P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
@@ -116,8 +119,8 @@ _SIGNATURES = {
     "self_gram": (_P, _I, _L, _L, _I, _P, _P),
     "recombine_blocks": (_P, _P, _I, _I, _L, _P, _I),
     "lsmr_update": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P),
-    "lsmr_step": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P,
-                  _P, _P, _P),
+    "lsmr_step": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P,
+                  _P, _P, _P, _P),
 }
 _cdiv = _runtime.cdiv
 _ptr = _runtime.ptr
@@ -130,12 +133,14 @@ def _launch(name: str, like: torch.Tensor, *args, key: Optional[str] = None) -> 
     _runtime.launch("cg_fused", name, _SIGNATURES[name], like, *args, key=key)
 
 
-def _check_flags(name: str, like: torch.Tensor, js=None, **flags) -> None:
+def _check_flags(name: str, like: torch.Tensor, js=None, window: int = 0, **flags) -> None:
     """The integer and boolean scalars of a step: ``js = [j, fail]``
-    (int32, (2,)) and each named flag (bool, 0-d), on ``like``'s device."""
+    (int32, (2,); ``[j, fail, stall]``, (3,), with the stall detector
+    armed, ``window > 0``) and each named flag (bool, 0-d), on ``like``'s
+    device."""
     wanted = [(key, t, torch.bool, ()) for key, t in flags.items()]
     if js is not None:
-        wanted.insert(0, ("js", js, torch.int32, (2,)))
+        wanted.insert(0, ("js", js, torch.int32, (3 if window > 0 else 2,)))
     for key, t, dtype, shape in wanted:
         if t.device != like.device or t.dtype != dtype or tuple(t.shape) != shape:
             raise ValueError(f"{name}: {key} must be a {dtype} tensor of shape {shape} on "
@@ -169,6 +174,22 @@ def classify_breakdown(d, rnorm, diverged_at):
         nonfinite, BREAKDOWN_NONFINITE, torch.where(indefinite, BREAKDOWN_INDEFINITE, STAGNATED)
     )
     return bad, torch.where(bad, code, 0).to(torch.int32)
+
+
+def stagnation_update(best, stall, norm_new, fail, active, window: int):
+    """One step of the stall detector: ``(best', stall', fail')``.
+
+    ``best`` is the best residual so far, ``stall`` (int32) the active
+    iterations since it last fell below ``STAGNATION_RTOL·best``; STAGNATED
+    is latched into the sticky ``fail`` once ``stall`` reaches ``window``.
+    Frozen steps (``active`` false) change nothing."""
+    improved = norm_new < STAGNATION_RTOL * best
+    stall_new = torch.where(improved, 0, stall + 1).to(torch.int32)
+    fail = torch.where(
+        (fail == 0) & active & (stall_new >= window), STAGNATED, fail
+    ).to(torch.int32)
+    return (torch.where(active, torch.minimum(best, norm_new), best),
+            torch.where(active, stall_new, stall), fail)
 
 
 def trace_write(trace, j, value, active):
@@ -243,7 +264,7 @@ def fused_cg_update_plain(x, r, p, ap, alpha, aw=None):
 
 def fused_cg_step_cuda(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
                        aw=None, waw_inv=None, *, recurrence=True, trace=None, row=None,
-                       a_rows=None, b_rows=None):
+                       a_rows=None, b_rows=None, window=0, best=None):
     """One def-CG iteration from ``d = pᵀAp`` to the next direction's
     scalars, in ONE launch of ``fused_cg_update``'s kernel.
 
@@ -260,12 +281,21 @@ def fused_cg_step_cuda(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverge
     (``keep = active ∧ ¬bad``, the ``p`` select's mask).  A poisoned ``ap``
     is zeroed in place (a copy first where it aliases ``x``, ``r`` or
     ``p``), and returned.
+
+    ``window > 0`` arms the stall detector (:func:`stagnation_update` on
+    the fresh ``√rr``): ``js = [j, fail, stall]`` and the best residual
+    ``best`` (0-d) come in, ``js'`` carries the new stall count and
+    ``so`` one more slot, ``best'``, at its end.  Window 0 is the unarmed
+    arm, bit for bit.
     """
     n = x.shape[0]
     k = 0 if aw is None else aw.shape[0]
     shapes = {"x": (x, (n,)), "r": (r, (n,)), "p": (p, (n,)), "ap": (ap, (n,)),
               "d": (d, ()), "rs": (rs, ()), "rnorm": (rnorm, ()),
               "threshold": (threshold, ()), "diverged_at": (diverged_at, ())}
+    armed = window > 0
+    if armed:
+        shapes["best"] = (best, ())
     if aw is not None:
         shapes.update(aw=(aw, (k, n)), waw_inv=(waw_inv, (k, k)))
     if trace is not None:
@@ -275,7 +305,7 @@ def fused_cg_step_cuda(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverge
         ell = a_rows.shape[0] - 1
         shapes.update(a_rows=(a_rows, (ell + 1,)), b_rows=(b_rows, (ell + 1,)))
     _check("fused_cg_update", x, **shapes)
-    _check_flags("fused_cg_update", x, js, active=active)
+    _check_flags("fused_cg_update", x, js, window, active=active)
     if n == 0 or k > MAX_K or (aw is not None and not recurrence):
         raise ValueError(f"fused_cg_step: need n >= 1, k <= {MAX_K} and the deflation GEMV "
                          f"only with the recurrence; got n={n}, k={k}")
@@ -284,8 +314,8 @@ def fused_cg_step_cuda(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverge
     partials, counter, rows = _reduce_scratch(x.device, x.dtype)
     xo = torch.empty_like(x)
     ro = torch.empty_like(r)
-    so = torch.empty((4 + k,), dtype=x.dtype, device=x.device)
-    jo = torch.empty((2,), dtype=torch.int32, device=x.device)
+    so = torch.empty((4 + k + armed,), dtype=x.dtype, device=x.device)
+    jo = torch.empty((2 + armed,), dtype=torch.int32, device=x.device)
     bo = torch.empty((2,), dtype=torch.bool, device=x.device)
     _launch("fused_cg_step", x,
             _ptr(x), _ptr(r), _ptr(p), _ptr(ap), _ptr(aw), k, n, _ptr(xo), _ptr(ro),
@@ -293,13 +323,14 @@ def fused_cg_step_cuda(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverge
             _ptr(threshold), _ptr(diverged_at), _ptr(js), _ptr(active), _ptr(waw_inv),
             maxiter, int(recurrence), _ptr(trace), _ptr(a_rows if recording else None),
             _ptr(b_rows if recording else None), row if recording else -1,
-            ell if recording else 0, _ptr(so), _ptr(jo), _ptr(bo), key="fused_cg_update")
+            ell if recording else 0, window if armed else 0, _ptr(best if armed else None),
+            _ptr(so), _ptr(jo), _ptr(bo), key="fused_cg_update")
     return xo, ro, ap, so, jo, bo
 
 
 def fused_cg_step_plain(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
                         aw=None, waw_inv=None, *, recurrence=True, trace=None, row=None,
-                        a_rows=None, b_rows=None):
+                        a_rows=None, b_rows=None, window=0, best=None):
     """Plain PyTorch version of :func:`fused_cg_step_cuda`: def-CG's
     former eager lines around the update, in their order."""
     _note_plain("fused_cg_update", x)
@@ -324,12 +355,17 @@ def fused_cg_step_plain(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverg
         (fail == 0) & active & ~torch.isfinite(rnorm_new), BREAKDOWN_NONFINITE, fail
     ).to(torch.int32)
     rnorm = torch.where(active, rnorm_new, rnorm)
+    stag = []
+    if window > 0:
+        best, stall, fail = stagnation_update(best, js[2], rnorm_new, fail, active, window)
+        stag = [stall]
     if trace is not None:
         trace_write(trace, j, rnorm, active)
     j = j + active.to(j.dtype)
-    so = torch.cat([torch.stack([rr, rnorm, alpha, beta]), mu])
+    so = torch.cat([torch.stack([rr, rnorm, alpha, beta]), mu]
+                   + ([best.reshape(1)] if window > 0 else []))
     flags = torch.stack([still_active(j, rnorm, fail, threshold, maxiter), active & ~bad])
-    return x, r, ap, so, torch.stack([j, fail]), flags
+    return x, r, ap, so, torch.stack([j, fail] + stag), flags
 
 
 # ---------------------------------------------------------------------------
@@ -621,7 +657,7 @@ def lsmr_update_plain(x, hbar, h, v, c0, c1, c2):
 
 
 def lsmr_step_cuda(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverged_at,
-                   maxiter, trace=None):
+                   maxiter, trace=None, window=0):
     """One LSMR iteration after its last reduction, in ONE launch of
     ``lsmr_update``'s kernel.
 
@@ -630,17 +666,20 @@ def lsmr_step_cuda(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverg
     ``js = [j, fail]`` (int32), ``active`` (bool), ``threshold`` and
     ``diverged_at``; ``trace`` takes slot ``j + 1`` in place.  Out:
     ``(x', h̄', h', v⁺, s', js', active')``, each the old value on a
-    frozen step.
+    frozen step.  ``window > 0`` arms the stall detector on the fresh
+    ``|ζ̄|``: ``s`` carries the best residual in one more slot after
+    ``LSMR_SLOTS`` and ``js = [j, fail, stall]``.
     """
     n = x.shape[0]
+    armed = window > 0
     shapes = {"x": (x, (n,)), "hbar": (hbar, (n,)), "h": (h, (n,)), "v": (v, (n,)),
               "w": (w, (n,)), "wsq": (wsq, ()), "beta": (beta, ()),
-              "s": (s, (len(LSMR_SLOTS),)), "threshold": (threshold, ()),
+              "s": (s, (len(LSMR_SLOTS) + armed,)), "threshold": (threshold, ()),
               "diverged_at": (diverged_at, ())}
     if trace is not None:
         shapes["trace"] = (trace, (maxiter + 2,))
     _check("lsmr_update", x, **shapes)
-    _check_flags("lsmr_update", x, js, active=active)
+    _check_flags("lsmr_update", x, js, window, active=active)
     if n == 0:
         raise ValueError("lsmr_step: need n >= 1")
     xo, hbo, ho, vo = (torch.empty_like(x) for _ in range(4))
@@ -649,18 +688,18 @@ def lsmr_step_cuda(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverg
     ao = torch.empty_like(active)
     _launch("lsmr_step", x,
             _ptr(x), _ptr(hbar), _ptr(h), _ptr(v), _ptr(w), n, _ptr(wsq), _ptr(beta), _ptr(s),
-            _ptr(js), _ptr(active), _ptr(threshold), _ptr(diverged_at), maxiter, _ptr(trace),
-            _ptr(xo), _ptr(hbo), _ptr(ho), _ptr(vo), _ptr(so), _ptr(jo), _ptr(ao),
-            key="lsmr_update")
+            _ptr(js), _ptr(active), _ptr(threshold), _ptr(diverged_at), maxiter,
+            window if armed else 0, _ptr(trace), _ptr(xo), _ptr(hbo), _ptr(ho), _ptr(vo),
+            _ptr(so), _ptr(jo), _ptr(ao), key="lsmr_update")
     return xo, hbo, ho, vo, so, jo, ao
 
 
 def lsmr_step_plain(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverged_at,
-                    maxiter, trace=None):
+                    maxiter, trace=None, window=0):
     """Plain PyTorch version of :func:`lsmr_step_cuda`: the LSMR loop's
     former eager lines from α⁺ on, in their order."""
     _note_plain("lsmr_update", x)
-    alpha, zetabar, alphabar, rho, rhobar, cbar, sbar = s.unbind()
+    alpha, zetabar, alphabar, rho, rhobar, cbar, sbar = s[:len(LSMR_SLOTS)].unbind()
     j, fail = js[0], js[1]
     alpha_new = torch.sqrt(wsq)
     v_new = w / safe(alpha_new)
@@ -692,6 +731,10 @@ def lsmr_step_plain(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diver
     fail = torch.where(
         (fail == 0) & active & (normar_new > diverged_at), STAGNATED, fail
     ).to(torch.int32)
+    stag = []
+    if window > 0:
+        best, stall, fail = stagnation_update(s[-1], js[2], normar_new, fail, active, window)
+        stag = [best, stall]
     if trace is not None:
         trace_write(trace, j, normar_new, active)
 
@@ -701,10 +744,10 @@ def lsmr_step_plain(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diver
     s_new = torch.stack([
         sel(alpha_new, alpha), sel(zetabar_new, zetabar), sel(alphabar_new, alphabar),
         sel(rho_new, rho), sel(rhobar_new, rhobar), sel(cbar_new, cbar), sel(sbar_new, sbar),
-    ])
+    ] + stag[:1])
     j = j + active.to(j.dtype)
     return (
         sel(x_new, x), sel(hbar_new, hbar), sel(h_new, h), sel(v_new, v), s_new,
-        torch.stack([j, fail]),
+        torch.stack([j, fail] + stag[1:]),
         still_active(j, torch.abs(s_new[1]), fail, threshold, maxiter),
     )

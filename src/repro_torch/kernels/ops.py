@@ -120,12 +120,15 @@ def fused_cg_step(
     row: Optional[int] = None,
     a_rows: Optional[torch.Tensor] = None,
     b_rows: Optional[torch.Tensor] = None,
+    window: int = 0,
+    best: Optional[torch.Tensor] = None,
     backend: str = "auto",
 ):
     """def-CG's iteration from ``d = pᵀAp`` on, around the fused update:
     breakdown test, α, the update, and (``recurrence``) β and μ, then the
-    residual norm, status, trace, j and the next active flag — one launch
-    on the card.  Returns ``(x, r, ap, so, js, flags)``; see
+    residual norm, status, trace, j, the next active flag and, with
+    ``window > 0``, the stall detector — one launch on the card.  Returns
+    ``(x, r, ap, so, js, flags)``; see
     :func:`repro_torch.kernels.cg_fused.fused_cg_step_cuda`.  The step has
     no oracle of its own: ``reference`` runs its plain version, built on
     the oracles."""
@@ -133,7 +136,7 @@ def fused_cg_step(
     step = cg_fused.fused_cg_step_cuda if backend == "cuda" else cg_fused.fused_cg_step_plain
     return step(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter, aw,
                 waw_inv, recurrence=recurrence, trace=trace, row=row, a_rows=a_rows,
-                b_rows=b_rows)
+                b_rows=b_rows, window=window, best=best)
 
 
 def fused_rz_reduce(
@@ -317,18 +320,20 @@ def lsmr_step(
     maxiter: int,
     trace: Optional[torch.Tensor] = None,
     *,
+    window: int = 0,
     backend: str = "auto",
 ):
     """The LSMR iteration after its last reduction (``wsq = ‖w‖²``): α⁺,
     both Givens rotations, ``v⁺``, the three vector recurrences, the
-    latches, trace, j and the next active flag, every output masked by
-    ``active`` — one launch on the card.  Returns ``(x, h̄, h, v, s, js,
+    latches, trace, j, the next active flag and, with ``window > 0``, the
+    stall detector, every output masked by ``active`` — one launch on the
+    card.  Returns ``(x, h̄, h, v, s, js,
     active)``; see :func:`repro_torch.kernels.cg_fused.lsmr_step_cuda`.
     ``reference`` runs the plain version, built on the oracles."""
     backend = _resolve(backend, x)
     step = cg_fused.lsmr_step_cuda if backend == "cuda" else cg_fused.lsmr_step_plain
     return step(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverged_at, maxiter,
-                trace)
+                trace, window)
 
 
 def attention(

@@ -22,7 +22,10 @@ over NCCL against the unsharded solve on the card.  ``flash_attention``
 scan), on GQA, causal decode with ``q_offset``, ragged lengths and the
 serving path's shapes; both must repeat bit for bit.  The step arms of
 K1, K6, K2 and K7 and K6's pair arm are held against their plain versions
-(the scalars bit for bit), and each arm must be one device kernel a call.
+(the scalars bit for bit), and each arm must be one device kernel a call;
+K1's and K7's armed with the stall detector (``window > 0``) in stalling
+states too: the window-0 outputs unchanged, STAGNATED latched on the
+plain version's step.
 """
 
 import numpy as np
@@ -626,6 +629,10 @@ def test_step_arms_run_one_device_kernel(device, dtype):
                ap_buf=torch.zeros(5, 36551, dtype=dtype, device=device))
     rows = dict(row=1, a_rows=torch.zeros(5, dtype=dtype, device=device),
                 b_rows=torch.zeros(5, dtype=dtype, device=device))
+    # The armed arms' inputs, made before the profiled calls (an allocation
+    # on the card would count as a kernel).
+    cg_js, ls_js = _armed_js(cg[7]), _armed_js(ls[8])
+    ls_s = torch.cat([ls[7], ls[7][1:2]])
     calls = {
         "K6 AW arm": lambda: cg_fused.fused_rz_reduce_cuda(r, p, aw),
         "K6 no-AW arm": lambda: cg_fused.fused_rz_reduce_cuda(r, p),
@@ -642,8 +649,89 @@ def test_step_arms_run_one_device_kernel(device, dtype):
         "K1 TPU-function arm": lambda: cg_fused.fused_cg_update_cuda(x, r, p, ap, alpha, cg[12]),
         "K7 step": lambda: cg_fused.lsmr_step_cuda(*ls),
         "K7 TPU-function arm": lambda: cg_fused.lsmr_update_cuda(*ls[:4], *c),
+        "K1 step, armed": lambda: cg_fused.fused_cg_step_cuda(
+            *cg[:7], cg_js, *cg[8:], window=4, best=rs),
+        "K7 step, armed": lambda: cg_fused.lsmr_step_cuda(
+            *ls[:7], ls_s, ls_js, *ls[9:], window=4),
     }
     assert {name: _device_kernels(fn) for name, fn in calls.items()} == dict.fromkeys(calls, 1)
+
+
+def _armed_js(js, stall=1):
+    return torch.cat([js, torch.tensor([stall], dtype=torch.int32, device=js.device)])
+
+
+# The stall detector's states against the step's fresh residual r':
+# improved (best far above), a stall (best = r'), the bar's own rounding
+# (best = r' / 0.99), the latching step (stall = window − 1), frozen.
+STALL_CASES = ["improved", "stall", "bar", "latch", "frozen"]
+
+
+def _stall_inputs(case, fresh, window=4):
+    best = {"improved": 1.5 * fresh, "bar": fresh / 0.99}.get(case, fresh)
+    return best.reshape(()).contiguous(), window - 1 if case == "latch" else 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1000, 36551])
+@pytest.mark.parametrize("k", [0, 8])
+@pytest.mark.parametrize("case", STALL_CASES)
+def test_fused_cg_step_armed(device, dtype, n, k, case):
+    """K1's step arm with the stall detector armed (window 4): every
+    output but the detector's the window-0 arm's bit for bit; ``best'``,
+    ``stall'``, the status (STAGNATED latched on the same step) and the
+    next active flag the plain version's bit for bit, from the kernel's
+    own sums."""
+    args = list(_cg_step_inputs(device, dtype, n, k, "frozen" if case == "frozen" else "live"))
+    base = cg_fused.fused_cg_step_cuda(*args[:3], args[3].clone(), *args[4:])
+    best, stall = _stall_inputs(case, torch.sqrt(base[3][0]))
+    args[7] = _armed_js(args[7], stall)
+    got = cg_fused.fused_cg_step_cuda(*args[:3], args[3].clone(), *args[4:], window=4, best=best)
+    for g, w in zip(got[:3], base[:3]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[3][:-1], base[3]) and torch.equal(got[4][0], base[4][0])
+    # The plain version's detector on the kernel's own rr (its sums are the
+    # kernel bar's, not bit for bit).
+    rnorm_new = torch.sqrt(base[3][0])
+    want_best, want_stall, want_fail = cg_fused.stagnation_update(
+        best, args[7][2], rnorm_new, base[4][1], args[8], 4)
+    assert _equal_nan(got[3][-1], want_best)
+    assert torch.equal(got[4][1:], torch.stack([want_fail, want_stall]))
+    latched = int(want_fail) == cg_fused.STAGNATED
+    assert latched == (case == "latch")
+    assert bool(got[5][0]) == (bool(base[5][0]) and not latched)
+    assert torch.equal(got[5][1], base[5][1])
+    again = cg_fused.fused_cg_step_cuda(*args[:3], args[3].clone(), *args[4:], window=4,
+                                        best=best)
+    assert all(_equal_nan(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [1000, 16384])
+@pytest.mark.parametrize("case", STALL_CASES)
+def test_lsmr_step_armed(device, dtype, n, case):
+    """K7's step arm armed (window 4): the window-0 outputs bit for bit,
+    and the scalars, status and detector state the plain version's bit for
+    bit (K7's scalars are its inputs' own: no sums)."""
+    args = list(_lsmr_step_inputs(device, dtype, n, "frozen" if case == "frozen" else "live"))
+    trace = args[-1]
+    base = cg_fused.lsmr_step_cuda(*args[:-1], trace.clone())
+    live = cg_fused.lsmr_step_cuda(*args[:9], torch.tensor(True, device=device), *args[10:-1],
+                                   trace.clone())
+    best, stall = _stall_inputs(case, live[4][1].abs())
+    args[7] = torch.cat([args[7], best.reshape(1)])
+    args[8] = _armed_js(args[8], stall)
+    t_got, t_want = trace.clone(), trace.clone()
+    got = cg_fused.lsmr_step_cuda(*args[:-1], t_got, window=4)
+    want = cg_fused.lsmr_step_plain(*args[:-1], t_want, window=4)
+    for g, w in zip(got[:4], base[:4]):
+        assert torch.equal(g, w)
+    assert torch.equal(got[4][:-1], base[4])
+    for g, w in zip(got[4:], want[4:]):
+        assert _equal_nan(g, w), (g, w)
+    latched = int(got[5][1]) == cg_fused.STAGNATED
+    assert latched == (case == "latch")
+    assert _equal_nan(t_got, t_want)
 
 
 def test_reductions_repeat_exactly(device):

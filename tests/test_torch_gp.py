@@ -165,3 +165,109 @@ def test_matrix_free_and_dense_paths_agree(digits):
                                runs[1].trace.solver_iterations))
     assert len(runs[0].trace.solver_iterations) == len(runs[1].trace.solver_iterations)
     assert diffs.max() <= 1
+
+
+# ---------------------------------------------------------------------------
+# tests/test_gp.py mirrored (N = 220, digits seed 7, K θ = λ = 3) and the
+# Fig. 4 baseline, subset_gpc, on the reference's own subset indices
+# ---------------------------------------------------------------------------
+
+from repro.gp import subset_gpc as j_subset  # noqa: E402
+from repro_torch.gp import subset_gpc as t_subset  # noqa: E402
+from repro_torch.gp.inducing import _subset_gpc_at  # noqa: E402
+
+N_GP = 220
+
+
+@pytest.fixture(scope="module")
+def gp220():
+    """The three Table-1 columns at test_gp.py's size, in both packages:
+    ``(x, y, {solver: (reference, port)})``."""
+    x, y = t_digits(N_GP, seed=7)
+    xj, yj = jnp.asarray(x, jnp.float64), jnp.asarray(y, jnp.float64)
+    xt, yt = torch.as_tensor(x, dtype=torch.float64), torch.as_tensor(y, dtype=torch.float64)
+    runs = {}
+    for solver in ("cholesky", "cg", "defcg"):
+        kw = dict(solver=solver, newton_tol=1e-2)
+        if solver != "cholesky":
+            kw["solver_tol"] = 1e-6
+        jkw, tkw = dict(kw), dict(kw)
+        if solver == "defcg":
+            jkw["recycle"] = JManager(k=8, ell=12, tol=1e-6, maxiter=2000)
+            tkw["recycle"] = TManager(k=8, ell=12, tol=1e-6, maxiter=2000)
+        runs[solver] = (j_laplace(xj, yj, JKernel(3.0, 3.0), **jkw),
+                        t_laplace(xt, yt, TKernel(3.0, 3.0), **tkw))
+    return xt, yt, runs
+
+
+def test_gp_newton_monotone(gp220):
+    _, _, runs = gp220
+    ref, got = runs["cholesky"]
+    psi = got.trace.psi
+    assert all(b >= a - 1e-6 for a, b in zip(psi, psi[1:]))
+    np.testing.assert_allclose(psi, ref.trace.psi, rtol=1e-12)
+
+
+def test_gp_iterative_matches_cholesky(gp220):
+    """Table-1 agreement, and each port column against the reference's:
+    Cholesky's log p to 1e-12, the solver tol 1e-6 columns to 1e-9."""
+    _, _, runs = gp220
+    chol = runs["cholesky"][1]
+    for solver, bar in (("cholesky", 1e-12), ("cg", 1e-9), ("defcg", 1e-9)):
+        ref, got = runs[solver]
+        assert abs(got.logp - ref.logp) / abs(ref.logp) < bar, solver
+        if solver != "cholesky":
+            assert abs(got.logp - chol.logp) / abs(chol.logp) < 1e-4
+    np.testing.assert_allclose(runs["defcg"][1].f.numpy(), chol.f.numpy(), rtol=0, atol=5e-3)
+
+
+def test_gp_defcg_saves_iterations(gp220):
+    """Fig. 2: fewer iterations after the first system, and each count
+    within the reference's ±1 (P1 at solver tol 1e-6)."""
+    _, _, runs = gp220
+    for solver in ("cg", "defcg"):
+        ref, got = runs[solver]
+        assert len(got.trace.solver_iterations) == len(ref.trace.solver_iterations)
+        assert all(abs(a - b) <= 1 for a, b in
+                   zip(got.trace.solver_iterations, ref.trace.solver_iterations))
+    assert sum(runs["defcg"][1].trace.solver_iterations[1:]) < sum(
+        runs["cg"][1].trace.solver_iterations[1:])
+
+
+def test_gp_training_accuracy(gp220):
+    _, y, runs = gp220
+    chol = runs["cholesky"][1]
+    assert float(torch.mean((torch.sign(chol.f) == y).to(torch.float64))) > 0.95
+
+
+def test_gp_classes_separate(gp220):
+    _, y, runs = gp220
+    f = runs["cholesky"][1].f
+    assert float(torch.mean(f[y > 0])) > 0 > float(torch.mean(f[y < 0]))
+
+
+def test_subset_worse_than_full(gp220):
+    """Fig. 4: a small subset leaves a persistent log p gap that a larger
+    one shrinks.  On the reference's own ``jax.random.permutation``
+    indices the port's ``logp_full`` is the reference's to 1e-8."""
+    import jax
+
+    x, y, runs = gp220
+    chol = runs["cholesky"][1]
+    xj, yj = jnp.asarray(x.numpy()), jnp.asarray(y.numpy())
+    errs = []
+    for m in (N_GP // 8, N_GP // 2):
+        key = jax.random.PRNGKey(0)
+        ref = j_subset(xj, yj, JKernel(3.0, 3.0), m=m, key=key)
+        idx = np.array(jax.random.permutation(key, N_GP)[:m])
+        got = _subset_gpc_at(x, y, TKernel(3.0, 3.0), idx)
+        assert got.m == m
+        assert abs(got.logp_full - ref.logp_full) / abs(ref.logp_full) < 1e-8
+        np.testing.assert_allclose(got.subset_result.f.numpy(), np.asarray(ref.subset_result.f),
+                                   rtol=0, atol=1e-8)
+        errs.append(abs(got.logp_full - chol.logp) / abs(chol.logp))
+    assert errs[0] > 1e-4 and errs[1] < errs[0]
+    # The public entry draws its own subset from a torch.Generator.
+    own = t_subset(x, y, TKernel(3.0, 3.0), m=N_GP // 8,
+                   generator=torch.Generator().manual_seed(0))
+    assert own.m == N_GP // 8 and np.isfinite(own.logp_full) and own.seconds > 0

@@ -469,7 +469,7 @@ def _drifting_lsq(num, m, n, decay, drift, seed=0):
 
 @pytest.mark.parametrize("decay", ["logspace", "flat"])
 def test_lsq_bench_acceptance(decay):
-    """ROADMAP item 11's acceptance: lsq_bench's problem (m = 180, n = 120,
+    """ROADMAP's recycled-LSMR acceptance: lsq_bench's problem (m = 180, n = 120,
     12 systems, λ = 1e-4, tol 1e-8, deflsmr(8, 48)) against the reference's
     cold and recycled A/Aᵀ products.  The flat spectrum takes ~45
     iterations a system and must match within one iteration (two products)

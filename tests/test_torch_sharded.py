@@ -94,6 +94,13 @@ def ref():
         A, b, SolveSpec(method="defcg", k=4, ell=6, tol=1e-8, maxiter=200), cold,
         x0=b2, record_residuals=True,
     )
+    # recovery_rungs=0: the sharded engine has no ladder (STAGNATED counts
+    # as a breakdown, which the unsharded ladder would climb).
+    out["stagnation"] = {
+        method: solve(A, b, SolveSpec(method=method, k=4, ell=6, tol=1e-12, maxiter=300,
+                                      stagnation_window=1, recovery_rungs=0), cold)
+        for method in ("cg", "defcg")
+    }
     x, sqrt_h, b_rbf = _rbf_inputs()
     A_rbf = RBFKernelSystemOperator(
         x=jnp.asarray(x), sqrt_h=jnp.asarray(sqrt_h), theta=1.3, lengthscale=1.1,
@@ -167,6 +174,19 @@ def test_sharded_matches_unsharded(world, ref, method):
     got, want = world["dense"]["parity"][method], ref["parity"][method]
     np.testing.assert_allclose(got["x"], np.asarray(want.x), rtol=0, atol=1e-10)
     _counts_close(got, want, 5 if method == "lsmr" else 1)
+
+
+@pytest.mark.parametrize("method", ["cg", "defcg"])
+def test_sharded_stagnation_matches_unsharded(world, ref, method):
+    """The stall detector in the sharded loops: STAGNATED on the
+    reference's iteration (the first, whose residual grows), every rank
+    alike, x to 1e-10."""
+    got, want = world["dense"]["stagnation"][method], ref["stagnation"][method]
+    assert got["status"] == int(want.info.status) == 4
+    assert got["iterations"] == int(want.info.iterations) == 1
+    assert got["matvecs"] == int(want.info.matvecs)
+    assert set(got["rank_iterations"]) == {1}
+    np.testing.assert_allclose(got["x"], np.asarray(want.x), rtol=0, atol=1e-10)
 
 
 def test_sharded_defcg_state_matches_up_to_row_sign(world, ref):

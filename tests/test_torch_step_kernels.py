@@ -19,7 +19,12 @@ plain versions, ``fused_cg_step_plain`` and ``lsmr_step_plain``.  Here:
    the last block's sum in block order) against the plain sums to 1e-13
    relative, and bit for bit the same for any block completion order;
 4. the sharded LSMR step ends in the same tail function as the unsharded
-   one (one ``lsmr_step`` call a step in each, the same iterates).
+   one (one ``lsmr_step`` call a step in each, the same iterates);
+5. the stall detector armed in both step arms (``window > 0``): the
+   window-0 outputs unchanged, ``(best, stall, fail)`` the reference's
+   ``engine.stagnation_update`` bit for bit, and whole solves stopping
+   STAGNATED on the reference's iteration (cg, def-CG, with and without
+   Jacobi) or, for LSMR (P5), where the rule on its own history fires.
 
 The card holds the kernels to these plain versions
 (``tests/test_torch_cuda.py``: scalars bit for bit).
@@ -34,6 +39,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import repro.core as jc  # noqa: E402
+import repro.core.engine as jengine  # noqa: E402
 import repro_torch.core as tc  # noqa: E402
 from repro_torch.core import engine  # noqa: E402
 from repro_torch.kernels import cg_fused as cf  # noqa: E402
@@ -393,6 +399,179 @@ def test_cg_solve_matches_reference(case):
     np.testing.assert_allclose(_np(got.x), np.asarray(ref.x), atol=1e-10)
     if case == "indefinite":
         assert int(got.info.status) == tc.SolveStatus.BREAKDOWN_INDEFINITE
+
+
+# ---------------------------------------------------------------------------
+# 2b. The stall detector in the step arms (stagnation_window > 0)
+# ---------------------------------------------------------------------------
+
+# Where the armed state stands against the step's fresh residual r':
+# best far above it (improved), at it (a stall), at r' / 0.99 (the bar's
+# own rounding decides), the latching step (stall = window − 1), a frozen
+# step, an already failed solve, and a NaN best (torch.minimum keeps NaN).
+STALL_CASES = ["improved", "stall", "bar", "latch", "frozen", "failed", "nan-best"]
+WINDOW = 4
+
+
+def _stall_state(case, rnorm_new, dtype):
+    stall = WINDOW - 1 if case == "latch" else 1
+    best = {"improved": 1.5 * rnorm_new, "bar": rnorm_new / 0.99,
+            "nan-best": torch.tensor(float("nan"), dtype=dtype)}.get(case, rnorm_new)
+    return torch.as_tensor(best, dtype=dtype).reshape(()), stall
+
+
+def _reference_stall(best, stall, norm_new, fail, active):
+    """The reference's ``engine.stagnation_update`` on the same values."""
+    (b, st), f = jengine.stagnation_update(
+        (jnp.asarray(_np(best)), jnp.int32(stall)), jnp.asarray(_np(norm_new)),
+        jnp.int32(int(fail)), jnp.bool_(bool(active)), WINDOW)
+    return np.asarray(b), int(st), int(f)
+
+
+def _assert_stall_equal(best_got, stall_got, fail_got, want):
+    b, st, f = want
+    assert _same(best_got, torch.as_tensor(np.array(b))), (best_got, b)
+    assert int(stall_got) == st and int(fail_got) == f
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("k", [0, 3])
+@pytest.mark.parametrize("case", STALL_CASES)
+def test_fused_cg_step_armed_matches_reference_stall(dtype, k, case):
+    """K1's armed step arm: every output of the window-0 arm unchanged
+    (but ``fail`` and the next active flag where the stall latches), and
+    ``(best', stall', fail')`` the reference's ``stagnation_update``, bit
+    for bit."""
+    g = torch.Generator().manual_seed(k + 3 * len(case))
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, dtype=dtype)
+
+    n = 29
+    x, r, p, ap = (rnd(n) for _ in range(4))
+    aw = rnd(k, n) if k else None
+    waw_inv = rnd(k, k) if k else None
+    d = torch.dot(p, ap).abs() + 1.0
+    rs = torch.dot(r, r)
+    rnorm = torch.sqrt(rs)
+    thr, div = torch.tensor(1e-6, dtype=dtype), torch.tensor(1e8, dtype=dtype)
+    fail0 = 3 if case == "failed" else 0
+    active = torch.tensor(case != "frozen")
+    js2 = torch.tensor([2, fail0], dtype=torch.int32)
+    plain = kops.fused_cg_step(x, r, p, ap, d, rs, rnorm, js2, active, thr, div, 10, aw,
+                               waw_inv)
+    rnorm_new = torch.sqrt(plain[3][0])
+    best, stall = _stall_state(case, rnorm_new, dtype)
+    js3 = torch.tensor([2, fail0, stall], dtype=torch.int32)
+    armed = kops.fused_cg_step(x, r, p, ap, d, rs, rnorm, js3, active, thr, div, 10, aw,
+                               waw_inv, window=WINDOW, best=best)
+    for q in range(3):
+        assert _same(armed[q], plain[q])
+    so, js, flags = armed[3], armed[4], armed[5]
+    assert so.shape == (5 + k,) and js.shape == (3,)
+    assert _same(so[:4 + k], plain[3])
+    assert int(js[0]) == int(plain[4][0])
+    want = _reference_stall(best, stall, rnorm_new, fail0, active)
+    _assert_stall_equal(so[-1], js[2], js[1], want)
+    latched = want[2] == tc.SolveStatus.STAGNATED and fail0 == 0
+    assert latched == (case == "latch")
+    assert bool(flags[0]) == (bool(plain[5][0]) and not latched)
+    assert _same(flags[1], plain[5][1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", STALL_CASES)
+def test_lsmr_step_armed_matches_reference_stall(dtype, case):
+    """K7's armed step arm, as K1's: the window-0 outputs unchanged, the
+    best residual in ``s``'s extra slot and the stall count in ``js[2]``
+    the reference's ``stagnation_update``, bit for bit."""
+    x, hbar, h, v, w, beta, s, js, active, thr, div = _lsmr_state(dtype, 17, "live", len(case))
+    if case == "frozen":
+        active = torch.tensor(False)
+    fail0 = 3 if case == "failed" else 0
+    js = torch.tensor([3, fail0], dtype=torch.int32)
+    wsq = torch.dot(w, w)
+    plain = kops.lsmr_step(x, hbar, h, v, w, wsq, beta, s, js, active, thr, div, 10)
+    normar_new = torch.abs(kops.lsmr_step(x, hbar, h, v, w, wsq, beta, s, js, torch.tensor(True),
+                                          thr, div, 10)[4][1])
+    best, stall = _stall_state(case, normar_new, dtype)
+    s8 = torch.cat([s, best.reshape(1)])
+    js3 = torch.tensor([3, fail0, stall], dtype=torch.int32)
+    armed = kops.lsmr_step(x, hbar, h, v, w, wsq, beta, s8, js3, active, thr, div, 10,
+                           window=WINDOW)
+    for q in range(4):
+        assert _same(armed[q], plain[q])
+    assert _same(armed[4][:7], plain[4])
+    assert int(armed[5][0]) == int(plain[5][0])
+    want = _reference_stall(best, stall, normar_new, fail0, active)
+    _assert_stall_equal(armed[4][7], armed[5][2], armed[5][1], want)
+    latched = want[2] == tc.SolveStatus.STAGNATED and fail0 == 0
+    assert latched == (case == "latch")
+    assert bool(armed[6]) == (bool(plain[6]) and not latched)
+
+
+def _stall_step(trace, window):
+    """The first iteration at which the stall rule, applied to a recorded
+    residual history (slot 0 the initial residual), reaches ``window``."""
+    trace = _np(trace)
+    best, stall = trace[0], 0
+    for j in range(1, trace.shape[0]):
+        if np.isnan(trace[j]):
+            return None
+        stall = 0 if trace[j] < 0.99 * best else stall + 1
+        best = min(best, trace[j])
+        if stall >= window:
+            return j
+    return None
+
+
+@pytest.mark.parametrize("method", ["cg", "defcg", "defcg-jacobi", "cg-jacobi"])
+def test_stagnation_solve_matches_reference(method):
+    """A bounded perturbation of every product floors the residual: both
+    packages stop STAGNATED on the same iteration, with the same matvecs
+    and x to 1e-10."""
+    rng = np.random.default_rng(2)
+    A, _, _ = make_spd(32, 1e2, rng)
+    b = rng.standard_normal(32)
+    base = "cg" if method.startswith("cg") else "defcg"
+    spec_kw = dict(method=base, k=4, ell=6, tol=1e-12, maxiter=400, stagnation_window=10,
+                   recovery_rungs=0)
+    jkw, tkw = {}, {}
+    if method.endswith("jacobi"):
+        spec_kw["precond"] = "jacobi"
+        jkw["M"], tkw["M"] = jc.jacobi(jnp.asarray(np.diag(A).copy())), tc.jacobi(_t(np.diag(A)))
+    ref = jc.solve(jc.FaultInjectingOperator(jc.from_matrix(jnp.asarray(A)), poison=1e-3),
+                   jnp.asarray(b), jc.SolveSpec(**spec_kw), record_residuals=True, **jkw)
+    got = tc.solve(tc.FaultInjectingOperator(tc.from_matrix(_t(A)), poison=1e-3), _t(b),
+                   tc.SolveSpec(**spec_kw), record_residuals=True, **tkw)
+    _assert_info_equal(ref.info, got.info)
+    assert int(got.info.status) == tc.SolveStatus.STAGNATED
+    assert _stall_step(got.info.residual_norms, 10) == int(got.info.iterations)
+    np.testing.assert_allclose(_np(got.x), np.asarray(ref.x), atol=1e-10)
+
+
+@pytest.mark.parametrize("seed,window", [(3, 1), (4, 1), (0, 2)])
+def test_stagnation_lsmr_stops_where_its_trace_stalls(seed, window):
+    """LSMR on a cond-100 system: each package stops STAGNATED exactly where
+    the stall rule on its own ‖Âᵀr̂‖ history fires.  The two histories part
+    after a few iterations by rounding (ROADMAP P5), so the stopping
+    iterations are held within P5's 8 a system, the charge to 2 an
+    iteration."""
+    rng = np.random.default_rng(seed)
+    m, n = 40, 24
+    U = np.linalg.qr(rng.standard_normal((m, n)))[0]
+    V = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    A = U @ np.diag(np.logspace(0, -2, n)) @ V.T
+    b = rng.standard_normal(m)
+    kw = dict(tol=1e-12, maxiter=200, stagnation_window=window, record_residuals=True)
+    ref = jc.lsmr(jc.DenseMatrixOperator(jnp.asarray(A)), jnp.asarray(b), **kw)
+    got = tc.lsmr(tc.DenseMatrixOperator(_t(A)), _t(b), **kw)
+    for info in (ref.info, got.info):
+        assert int(info.status) == tc.SolveStatus.STAGNATED
+        assert _stall_step(info.residual_norms, window) == int(info.iterations)
+    assert abs(int(got.info.iterations) - int(ref.info.iterations)) <= 8
+    assert int(got.info.matvecs) == 1 + 2 * int(got.info.iterations)
+    _assert_trace_head(got.info, ref.info, head=6)
 
 
 # ---------------------------------------------------------------------------

@@ -155,6 +155,14 @@ def dense_cases(a_np, b_np, b2_np, device):
     res = solve(A, b, spec, cold, x0=b2, record_residuals=True, mesh=mesh)
     out["x0_trace"] = dict(_summary(res), trace=_np(res.info.residual_norms))
 
+    # The stall detector (eager in the sharded loops): the first step's
+    # residual grows on this system, so window 1 stops there.
+    out["stagnation"] = {}
+    for method in ("cg", "defcg"):
+        spec = SolveSpec(method=method, k=4, ell=6, tol=1e-12, maxiter=300,
+                         stagnation_window=1)
+        out["stagnation"][method] = _summary(solve(A, b, spec, cold, mesh=mesh))
+
     # The collective contract, by difference: N and N + 8 live iterations.
     contract = {}
     for method in ("cg", "defcg", "lsmr"):

@@ -15,7 +15,9 @@ Measures one tree of the port (``--src``, default this tree's ``src``):
   (``fused_direction_step_cuda``) at k = 8, recording and not, and at
   k = 0; K7 (``lsmr_update``) at n = 16 384, 32 768 and 2²⁰ in f64 and
   2²⁰ in f32: the TPU-function arm and the LSMR step arm
-  (``lsmr_step_cuda``).  Each the median of 25 CUDA-event timings with
+  (``lsmr_step_cuda``); K1's and K7's step arms also armed with the stall
+  detector (``window=4``) where the tree has it.  Each the median of 25
+  CUDA-event timings with
   the L2 evicted before each call (``chip_smoke.device_ms``), with the
   device kernels one call launches (``torch.profiler``);
 * deflated def-CG (k = 8) on the dense main path's Newton system at
@@ -30,7 +32,10 @@ Measures one tree of the port (``--src``, default this tree's ``src``):
   the wall time per iteration of 256 live cold steps, unprofiled;
 * Gauss-Newton training (``chip_smoke.GN``'s residual): three recycled
   ``hf_step``s, then ``chip_smoke.profile_gn_step`` over a fourth (device
-  busy share, launches, ms per LSMR iteration).
+  busy share, launches, ms per LSMR iteration);
+* ``digests``: SHA-256 of the outputs of K1's and K7's window-0 step arms
+  on seeded inputs and of the 64-step def-CG and 256-step LSMR iterates
+  above, so two trees' outputs compare bit for bit.
 
 To compare two trees on one card, run this script from one tree against
 both, in turns (the package is imported from ``--src`` before
@@ -50,6 +55,8 @@ The last line is a JSON object.
 from __future__ import annotations
 
 import argparse
+import hashlib
+import inspect
 import json
 import math
 import os
@@ -93,6 +100,14 @@ def main(argv=None) -> int:
     def rnd(*shape, dtype=f64):
         return torch.randn(*shape, generator=g, device="cuda", dtype=dtype)
 
+    out["digests"] = {}
+
+    def digest(name, tensors):
+        h = hashlib.sha256()
+        for t in tensors:
+            h.update(t.detach().contiguous().cpu().numpy().tobytes())
+        out["digests"][name] = h.hexdigest()[:16]
+
     def timed(name, fn):
         out[name] = {"ms": cs.device_ms(torch, fn), "kernels_per_call": cs.kernels_per_call(torch, fn)}
         print(f"[{args.label}] {name}: {out[name]['ms']:.5f} ms, "
@@ -114,6 +129,13 @@ def main(argv=None) -> int:
         thr, div = (torch.tensor(v, dtype=f64, device="cuda") for v in (1e-6, 1e8))
         timed(f"K1 step arm f64 n={n} k={k}", lambda: cf.fused_cg_step_cuda(
             x, r, p, ap, d, rs, rnorm, js, on, thr, div, 100, aw, waw_inv))
+        digest("K1 step arm", cf.fused_cg_step_cuda(
+            x, r, p, ap.clone(), d, rs, rnorm, js, on, thr, div, 100, aw, waw_inv))
+        if "window" in inspect.signature(cf.fused_cg_step_cuda).parameters:
+            js3 = torch.tensor([2, 0, 1], dtype=torch.int32, device="cuda")
+            timed(f"K1 step arm armed f64 n={n} k={k}", lambda: cf.fused_cg_step_cuda(
+                x, r, p, ap, d, rs, rnorm, js3, on, thr, div, 100, aw, waw_inv, window=4,
+                best=rnorm))
 
     # -- K6 and K2 -------------------------------------------------------------
     g.manual_seed(5)
@@ -159,6 +181,13 @@ def main(argv=None) -> int:
             wsq, beta = torch.dot(w, w), rnd((), dtype=dtype).abs()
             timed(f"K7 step arm {dname} n={n}", lambda: cf.lsmr_step_cuda(
                 x, hbar, h, v, w, wsq, beta, s, js, on, thr, div, 100))
+            digest(f"K7 step arm {dname} n={n}", cf.lsmr_step_cuda(
+                x, hbar, h, v, w, wsq, beta, s, js, on, thr, div, 100))
+            if "window" in inspect.signature(cf.lsmr_step_cuda).parameters:
+                s8 = torch.cat([s, s[1:2]])
+                js3 = torch.tensor([2, 0, 1], dtype=torch.int32, device="cuda")
+                timed(f"K7 step arm armed {dname} n={n}", lambda: cf.lsmr_step_cuda(
+                    x, hbar, h, v, w, wsq, beta, s8, js3, on, thr, div, 100, window=4))
 
     # -- deflated def-CG on the dense GP system ---------------------------------------
     xd, _ = make_infinite_digits(cs.PAPER_N, seed=0, noise=0.10)
@@ -180,6 +209,7 @@ def main(argv=None) -> int:
         t0 = time.perf_counter()
         res = defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=64, M=M)
         torch.cuda.synchronize()
+        digest(f"{key} 64 steps", (res.x,))
         ms = out[f"{key}_ms_per_iteration"] = (
             1e3 * (time.perf_counter() - t0) / int(res.info.iterations))
         print(f"[{args.label}] def-CG n={cs.PAPER_N}{' Jacobi' if M is not None else ''}: "
@@ -205,6 +235,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     res = lsmr(opA, b, damp=cs.LSQ_DAMP, tol=0.0, maxiter=256)
     torch.cuda.synchronize()
+    digest("lsmr 256 steps", (res.x,))
     out["lsmr_ms_per_iteration"] = 1e3 * (time.perf_counter() - t0) / int(res.info.iterations)
     for name, pr in out["lsmr_profile"].items():
         print(f"[{args.label}] LSMR {name}: {pr['launches_per_iteration']:.1f} launches per "
