@@ -53,7 +53,13 @@ Phases, each of which fails the script when it fails:
               on the sharded blocks (m, n) = (4 096, 16 384) and (2 048,
               16 384) of 4 and 8 ranks, (9 138, 36 552) and a ragged
               (1 000, 3 001), and timed beside the dense GEMV over the
-              materialized block.
+              materialized block.  The lane axis of K1's, K6's and K2's
+              step arms (batched solves) at n = 36 551: B = 1, 8, 64
+              lanes, every lane bit for bit the one-lane arm on its data
+              (SHA-256 digests), two launches bit for bit, the plain
+              versions lane by lane to the f64 bar, each lane arm timed at
+              B = 8 and 64; K3 and K8 gated off (every flag false): zeros,
+              timed beside the ungated calls.
 4. check    — small Newton sequences (n = 400) on the card against the same
               sequences run on the CPU through the plain versions: the
               dense-K solvers, and the matrix-free Jacobi-preconditioned
@@ -86,6 +92,24 @@ Phases, each of which fails the script when it fails:
               def-CG at tol 1e-8: relative errors and seconds, and the
               precision gap, which must pass 1e2.  K1, K2, K3, K4 and K5
               must launch (counted apart) and no plain version run.
+5c. strategies — ``benchmarks/seq_bench.py``'s strategy matrix on main's
+              data and dense K: six genuine Newton systems (exact inner
+              solves), def-CG(8, 12), tol 1e-5, for HarmonicRitz,
+              WindowedRecombine and MGeometryHarmonic (Jacobi): iterations,
+              matvecs and time per system; every residual within 10× tol.
+5d. batch   — ``benchmarks/batch_bench.py``'s tenants on main's dense K
+              (shared): B = 1, 8, 64 through ``solve_batch`` (one (n, B)
+              product and the lane-axis step arms an iteration) against B
+              sequential ``solve`` calls (every tenant converged, x within
+              1e-4, the count differences and wall times reported: at
+              ~185 iterations counts move with summation order, ROADMAP
+              P1), device launches per batched iteration at
+              B = 8 (``torch.profiler``), one Jacobi batch at B = 8 (K6's
+              lane arm), one matrix-free batch over K3
+              (B = 8, one call of r = 8 an iteration, gated by the lanes)
+              and one ``solve_pool_step`` with half the slots idle (their
+              states bit-untouched, their info scrubbed).  The lane arms
+              must launch and no plain version run.
 6. scale    — one RBF Gram matvec each in f32 and f64 at n = 131 072,
               d = 784, where a dense K would need 69 GB (f32) or 137 GB.
 7. main-mf  — the matrix-free Newton sequence (K never formed; every K
@@ -97,7 +121,9 @@ Phases, each of which fails the script when it fails:
               when the kernel's measured f64 time passes 0.25 s per call.
               Every kernel must launch in this run, no plain version may
               run on the card, and every log p must be finite; each is set
-              beside a Cholesky log p of the same data.
+              beside a Cholesky log p of the same data.  The K3 calls of
+              frozen steps are gated off on the card (counted apart from
+              the live passes).
 7b. chaos   — ``benchmarks/chaos_bench.py``'s 4 drifting H½ systems on
               the same data over the matrix-free K3 operator, def-CG(8, 12),
               tol 1e-5: the recovery ladder armed and disarmed (identical
@@ -371,6 +397,21 @@ FIG4 = {"newton_tol": 1e-3, "solver_tol": 1e-8, "subset_divs": (16, 8, 4, 2)}
 # (tests/test_faults.py's stagnation case).
 CHAOS = {"num": 4, "tol": 1e-5, "maxiter": 400, "poisoned": 1, "chunk": 2,
          "stale_tol": 1e-10, "window": 10, "stall_poison": 1e-3, "stall_tol": 1e-12}
+# The lane axis of K1's, K6's and K2's step arms: lanes checked against the
+# one-lane arm (main's n, k = 8 and 0) and timed.
+LANE_SIZES = (1, 8, 64)
+# benchmarks/seq_bench.py's strategy_matrix: six genuine Newton systems
+# (exact inner solves), def-CG(8, 12), tol 1e-5, maxiter 2000; harmonic,
+# windowed and M-geometry (Jacobi), on main's data and dense K.
+STRATEGY = {"num": 6, "tol": 1e-5, "maxiter": 2000, "inner_tol": 1e-10}
+STRATEGY_PATH_KERNELS = DENSE_PATH_KERNELS + ("fused_rz_reduce",)
+# benchmarks/batch_bench.py: B tenants sharing main's K (dense), per-tenant
+# H½ and b (_tenants: latents ~ N(0, 0.5²), b ~ N(0, 1), numpy seed 1),
+# def-CG(8, 12), tol 1e-5, maxiter 200, against B sequential solves; one
+# matrix-free batch over K3 (r = 8) and one pool step with half the slots
+# idle.
+BATCH = {"sizes": (1, 8, 64), "tol": 1e-5, "maxiter": 200, "mf_lanes": 8, "pool": 8}
+BATCH_PATH_KERNELS = DENSE_PATH_KERNELS + ("rbf_matvec", "fused_rz_reduce")
 
 
 def log(msg=""):
@@ -438,24 +479,32 @@ def profile_kernels(torch, fn, reps=REPS):
     return out
 
 
-def kernels_per_call(torch, fn, reps=REPS):
-    """Device kernels launched by one ``fn()``, from a ``torch.profiler``
-    trace of ``reps`` calls; a session that lost events (none at all, or a
-    count that is not a whole number of kernels a call) is run again
-    (three at most)."""
+def _profiled_kernels(torch, fn, calls):
+    """Device kernel events a ``torch.profiler`` session of ``calls`` calls
+    of ``fn`` records."""
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages() if _is_device(e) and _device_us(e) > 0)
+
+
+def kernels_per_call(torch, fn, reps=REPS):
+    """Device kernels launched by one ``fn()``: the difference between a
+    ``torch.profiler`` session of ``2 reps`` calls and one of ``reps``,
+    over ``reps``.  Some sessions come back with no device events, others
+    one or a few short (on some machines every session drops one); the
+    difference cancels a constant loss, and a pair that gives no events
+    or not a whole number of kernels a call is run again (three at most)."""
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        count = sum(e.count for e in prof.key_averages() if _is_device(e) and _device_us(e) > 0)
-        if count and count % reps == 0:
+        one, two = _profiled_kernels(torch, fn, reps), _profiled_kernels(torch, fn, 2 * reps)
+        if one and two and (two - one) % reps == 0:
             break
-    return count / reps
+    return (two - one) / reps
 
 
 def compare(torch, got, want, dtype_name, what):
@@ -678,11 +727,11 @@ def arms_timing(torch, cf, name, entry, t, calls, peaks):
         for label, a in out.items()) + ", one device kernel a call each"
 
 
-def rbf_inputs(torch, n, d, r, dtype, seed):
+def rbf_inputs(torch, n, d, r, dtype, seed, device="cuda"):
     """Pixel-like data in [0, 1) (the digits' range) and Gaussian V."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.rand((n, d), generator=g, device="cuda", dtype=dtype)
-    v = torch.randn((n, r), generator=g, device="cuda", dtype=dtype)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((n, d), generator=g, device=device, dtype=dtype)
+    v = torch.randn((n, r), generator=g, device=device, dtype=dtype)
     return x, v
 
 
@@ -1438,7 +1487,8 @@ def profile_lsmr_steps(torch, A, b, W=None, NW=None, steps=16):
             continue
         launches += evt.count
         key = evt.key.lower()
-        if "gemv" in key or "gemm" in key:
+        if any(part in key for part in ("gemv", "gemm", "row_sq_norms", "rbf_tiles",
+                                        "sum_parts")):
             gemv_us += us
         else:
             other_us += us
@@ -1449,25 +1499,31 @@ def profile_lsmr_steps(torch, A, b, W=None, NW=None, steps=16):
             "wall_ms_per_iteration_profiled": 1e3 * wall / steps, "kernels": names}
 
 
-def profile_defcg_steps(torch, k_dense, steps=16, precond=False):
+def profile_defcg_steps(torch, k_dense, steps=16, precond=False, x=None):
     """``torch.profiler`` over ``steps`` deflated def-CG iterations (k = 8,
     tol 0, so every step is live) on the dense main path's Newton system
     ``I + H½ K H½`` at H½ = ½·I, with a random orthonormal basis W and its
-    products AW; ``precond`` adds the Jacobi preconditioner ``diag(A)``:
-    device kernels launched per iteration, and device time per iteration
-    split into the dense GEMV and everything else."""
+    products AW; ``precond`` adds the Jacobi preconditioner ``diag(A)``;
+    ``x`` (the data, ``k_dense`` None) runs the matrix-free operator over
+    K3 instead, its gate in every step: device kernels launched per
+    iteration, and device time per iteration split into the product (the
+    dense GEMV, or K3's three kernels) and everything else."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import KernelSystemOperator, defcg, jacobi
+    from repro_torch.core import KernelSystemOperator, RBFKernelSystemOperator, defcg, jacobi
 
-    n = k_dense.shape[0]
+    dtype = torch.float64 if k_dense is None else k_dense.dtype
+    n = x.shape[0] if k_dense is None else k_dense.shape[0]
     g = torch.Generator(device="cuda").manual_seed(5)
-    half = torch.full((n,), 0.5, dtype=k_dense.dtype, device="cuda")
-    op = KernelSystemOperator(lambda v: k_dense @ v, half)
+    half = torch.full((n,), 0.5, dtype=dtype, device="cuda")
+    if k_dense is None:
+        op = RBFKernelSystemOperator(x, half, THETA, LENGTHSCALE, block=BLOCK)
+    else:
+        op = KernelSystemOperator(lambda v: k_dense @ v, half)
     M = jacobi(1.0 + half * half * torch.diagonal(k_dense)) if precond else None
-    b = torch.randn(n, generator=g, device="cuda", dtype=k_dense.dtype)
+    b = torch.randn(n, generator=g, device="cuda", dtype=dtype)
     W = torch.linalg.qr(torch.randn(n, K, generator=g, device="cuda",
-                                    dtype=k_dense.dtype)).Q.T.contiguous()
+                                    dtype=dtype)).Q.T.contiguous()
     AW = op.basis_matvec(W)
     defcg(op, b, W=W, AW=AW, tol=0.0, maxiter=steps, M=M)
     torch.cuda.synchronize()
@@ -1485,12 +1541,14 @@ def profile_defcg_steps(torch, k_dense, steps=16, precond=False):
             continue
         launches += evt.count
         key = evt.key.lower()
-        if "gemv" in key or "gemm" in key:
+        if any(part in key for part in ("gemv", "gemm", "row_sq_norms", "rbf_tiles",
+                                        "sum_parts")):
             gemv_us += us
         else:
             other_us += us
         names[evt.key[:50]] = evt.count
     return {"n": n, "k": K, "steps": steps, "preconditioner": "jacobi" if precond else None,
+            "operator": "dense" if k_dense is not None else "matrix-free",
             "launches_per_iteration": launches / steps,
             "gemv_ms_per_iteration": gemv_us / steps / 1e3,
             "other_ms_per_iteration": other_us / steps / 1e3,
@@ -1651,6 +1709,14 @@ def _zero_counts():
 
     for key in _runtime.LAUNCHES:
         _runtime.LAUNCHES[key] = _runtime.PLAIN_ON_CUDA[key] = 0
+    _runtime.ARMS.clear()
+
+
+def _arms():
+    """The launches per arm since the counts were zeroed."""
+    from repro_torch.kernels import _runtime
+
+    return dict(_runtime.ARMS)
 
 
 def _every_rank(value):
@@ -2242,10 +2308,12 @@ def phase_main_lm(torch, key, device="cuda"):
     _zero_counts()
     run = lm_serve(torch, model, cfg, tokens, "auto", spec["decode"])
     launches = dict(_runtime.LAUNCHES)
+    arms = _arms()
     plain_on_cuda = dict(_runtime.PLAIN_ON_CUDA)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9 if on_card else float("nan")
     n_tok = tokens.numel()
     report = {
+        "arms": arms,
         "arch": cfg.name, "batch": spec["batch"], "prompt": spec["prompt"],
         "decode_steps": spec["decode"], "layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": sum(p.numel() for p in model.parameters()), "init_s": init_s,
@@ -2729,14 +2797,324 @@ def phase_chaos(torch, x, device="cuda"):
         f"(the rule on its history: {fired}), {t_stall:.3f} s")
     if status != "STAGNATED" or fired != int(res.info.iterations):
         raise AssertionError(f"[chaos] stagnation: {out['stagnation']}")
+    # Frozen steps of the runs over the gated operator (the fault-injecting
+    # wrapper has no gate: its frozen products run in full).
+    from repro_torch.core import engine
+
+    gated = sum(frozen_steps(i, ELL, engine.CHUNK)
+                for run in (clean, off, chunked, resumed, stale) for i in its(run))
+    out["gated_frozen_steps"] = gated
+    log(f"[chaos] K3 calls of frozen steps, gated off on the card: {gated}")
     return out
 
 
-def kernel_entry(name, entry, launches):
-    return {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
-            "launches": launches, "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
-            "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
-            "bound_by": entry["bound_by"], "library_ms": entry["library_ms"]}
+def phase_lane_kernels(torch, cf, rbf, kernels, device="cuda", n=PAPER_N):
+    """The lane axis of K1's, K6's and K2's step arms
+    (``tests/torch_lane_cases.py``: K1's step, K6's step and K2's step
+    chained as the preconditioned def-CG loop runs them, per-lane scalars
+    as strided views, live, frozen, indefinite and diverging lanes) at
+    main's n = 36 551, f64: at B = 1, 8 and 64, k = 8 plain and recording
+    and k = 0, and armed with the stall detector at B = 8, every lane bit
+    for bit the one-lane arm on that lane's data (SHA-256 digests of both),
+    two launches bit for bit, and the lane-by-lane plain versions to the
+    f64 bar (flags, counts and statuses exactly).  Then each lane arm timed
+    at B = 8 and 64 beside B one-lane calls, and the gated K3 / K8 calls
+    with every flag off: zeros, timed beside the ungated calls."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import torch_lane_cases as lc
+
+    out = {"digests": {}, "max_abs_err": 0.0}
+    cases = [(lanes, K, mode) for lanes in LANE_SIZES for mode in ("plain", "recording")]
+    cases += [(lanes, 0, "plain") for lanes in LANE_SIZES] + [(8, K, "armed")]
+    for lanes, k, mode in cases:
+        t = lc.lane_step_inputs(torch, device, torch.float64, lanes, n, k, mode=mode,
+                                seed=lanes + k)
+        full, per_lane = lc.run_lane_arms(torch, cf, t)
+        again = lc.run_steps(torch, cf, t)
+        plain = lc.run_steps(torch, cf, t, arms="plain")
+        what = f"B={lanes} k={k} {mode}"
+        bad = lc.lane_mismatches(torch, full, per_lane) + lc.lane_mismatches(torch, full, again)
+        bad += [key for key in ("jo", "bo", "k1r_js", "k1r_flags")
+                if not torch.equal(full[key], plain[key])]
+        for key, got in full.items():
+            if got.dtype.is_floating_point:
+                want = torch.nan_to_num(plain[key])
+                scale = max(1.0, float(want.abs().max()))
+                err = float((torch.nan_to_num(got) - want).abs().max()) / scale
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                if err > TOL["float64"]:
+                    bad.append(f"{key} {err:.2e}")
+        if bad:
+            raise AssertionError(f"[lanes] {what}: {bad}")
+        out["digests"][what] = [lc.digest(torch, full)[:16], lc.digest(torch, per_lane)[:16]]
+    log(f"[lanes] K1, K6 and K2 lane arms at n={n}, B in {LANE_SIZES}: every lane bit "
+        f"for bit the one-lane arm, repeats bit for bit, plain versions within "
+        f"{out['max_abs_err']:.1e}; digests {out['digests']}")
+
+    timings = {}
+    for lanes in (8, 64):
+        t = lc.lane_step_inputs(torch, device, torch.float64, lanes, n, K, seed=3)
+        ap = t["ap"]
+        so = torch.zeros(lanes, 4 + K, dtype=torch.float64, device=device)
+        on = torch.ones(lanes, dtype=torch.bool, device=device)
+        k1 = lambda: cf.fused_cg_step_cuda(  # noqa: E731
+            t["x"], t["r"], t["p"], ap, t["d"], t["rs"], t["rnorm"], t["js"], t["active"],
+            t["threshold"], t["diverged_at"], 10, t["aw"], t["waw_inv"])
+        k6 = lambda: cf.fused_rz_step_cuda(t["r"], t["z"], t["rs"], t["aw"],  # noqa: E731
+                                           t["waw_inv"])
+        k2 = lambda: cf.fused_direction_step_cuda(t["z"], t["p"], so[:, 1], on,  # noqa: E731
+                                                  t["w"], so[:, 2:2 + K])
+        one1 = lambda: [cf.fused_cg_step_cuda(  # noqa: E731
+            t["x"][i], t["r"][i], t["p"][i], ap[i], t["d"][i], t["rs"][i], t["rnorm"][i],
+            t["js"][i], t["active"][i], t["threshold"][i], t["diverged_at"][i], 10,
+            t["aw"][i], t["waw_inv"][i]) for i in range(lanes)]
+        for name, fn in (("K1 step", k1), ("K6 step", k6), ("K2 step", k2),
+                         ("K1 step, one lane at a time", one1)):
+            timings[f"{name} B={lanes}"] = device_ms(torch, fn)
+    out["timings"] = timings
+    log(f"[lanes] f64 n={n} k={K}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in timings.items()))
+    for name, key in (("fused_cg_update", "K1 step"), ("fused_rz_reduce", "K6 step"),
+                      ("fused_deflate_direction", "K2 step")):
+        kernels[name]["lane_arm_ms"] = {f"B={b}": timings[f"{key} B={b}"] for b in (8, 64)}
+
+    # The gate: every flag off, the product is zeros and skips its tiles.
+    x, v = rbf_inputs(torch, n, D, 1, torch.float64, 7, device)
+    off = torch.zeros(8, 2, dtype=torch.bool, device=device)[:, 0]
+    y = rbf.rbf_matvec_cuda(x, v, THETA, LENGTHSCALE, gate=off)
+    xr = x[:4096].contiguous()
+    yr = rbf.rbf_matvec_rect_cuda(xr, x[:16384], v[:16384], THETA, LENGTHSCALE, gate=off[:1])
+    if bool(y.any()) or bool(yr.any()):
+        raise AssertionError("[lanes] a gated-off K3 / K8 call wrote a nonzero")
+    gate = {"k3_gated_off_ms": device_ms(torch, lambda: rbf.rbf_matvec_cuda(
+                x, v, THETA, LENGTHSCALE, gate=off)),
+            "k3_ungated_ms": kernels["rbf_matvec"]["ms"],
+            "k8_gated_off_ms": device_ms(torch, lambda: rbf.rbf_matvec_rect_cuda(
+                xr, x[:16384], v[:16384], THETA, LENGTHSCALE, gate=off[:1])),
+            "k8_ungated_ms": kernels["rbf_matvec_rect"]["ms"]}
+    out["gate"] = gate
+    kernels["rbf_matvec"]["gated_off_ms"] = gate["k3_gated_off_ms"]
+    kernels["rbf_matvec_rect"]["gated_off_ms"] = gate["k8_gated_off_ms"]
+    log(f"[lanes] gated-off K3 n={n} r=1: zeros, {gate['k3_gated_off_ms']:.4f} ms (ungated "
+        f"{gate['k3_ungated_ms']:.2f} ms); gated-off K8 4096 x 16384: zeros, "
+        f"{gate['k8_gated_off_ms']:.4f} ms (ungated {gate['k8_ungated_ms']:.3f} ms)")
+    return out
+
+
+def newton_systems(torch, k_dense, y, num, inner_tol):
+    """``seq_bench.strategy_matrix_bench``'s genuine Newton sequence: per
+    Newton iterate ``(H½, b)`` of the Laplace mode's Newton system, the
+    iterate advanced by an exact (CG at ``inner_tol``) inner solve."""
+    from repro_torch.core import KernelSystemOperator, cg
+
+    n = y.shape[0]
+    f = torch.zeros(n, dtype=k_dense.dtype, device=k_dense.device)
+    shs, bs = [], []
+    for _ in range(num):
+        pi = torch.sigmoid(f)
+        grad, hdiag = (y + 1.0) / 2.0 - pi, pi * (1.0 - pi)
+        sh = torch.sqrt(hdiag)
+        bg = hdiag * f + grad
+        b = sh * (k_dense @ bg)
+        shs.append(sh)
+        bs.append(b)
+        xs = cg(KernelSystemOperator(lambda v: k_dense @ v, sh), b, tol=inner_tol,
+                maxiter=20 * n).x
+        f = k_dense @ (bg - sh * xs)
+    return torch.stack(shs), torch.stack(bs)
+
+
+def phase_strategies(torch, y, k_dense, device="cuda"):
+    """``benchmarks/seq_bench.py``'s strategy matrix at main's n on main's
+    dense K: six genuine Newton systems, def-CG(8, 12), tol 1e-5, for
+    HarmonicRitz, WindowedRecombine and MGeometryHarmonic (with Jacobi):
+    iterations, matvecs and seconds per system; every system must meet
+    the tolerance's residual."""
+    from repro_torch.core import (
+        KernelSystemOperator,
+        MGeometryHarmonic,
+        SolveSpec,
+        WindowedRecombine,
+        jacobi,
+        solve_sequence,
+    )
+
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    shs, bs = newton_systems(torch, k_dense, y, STRATEGY["num"], STRATEGY["inner_tol"])
+    _sync(torch, device)
+    out = {"n": y.shape[0], "systems": STRATEGY["num"], "setup_s": time.perf_counter() - t0}
+    common = dict(k=K, ell=ELL, tol=STRATEGY["tol"], maxiter=STRATEGY["maxiter"])
+    cases = (("harmonic", SolveSpec(**common), None),
+             ("windowed", SolveSpec(strategy=WindowedRecombine(), **common), None),
+             ("mgeometry", SolveSpec(precond="jacobi", strategy=MGeometryHarmonic(), **common),
+              lambda op: jacobi(1.0 + op.sqrt_h ** 2 * THETA ** 2)))
+
+    def make(sh):
+        return KernelSystemOperator(lambda v: k_dense @ v, sh)
+
+    for name, spec, make_prec in cases:
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        seq = solve_sequence(shs, bs, spec, make_operator=make, make_preconditioner=make_prec)
+        _sync(torch, device)
+        secs = time.perf_counter() - t0
+        res = [float(torch.linalg.norm(bs[i] - make(shs[i])(seq.x[i])) / torch.linalg.norm(bs[i]))
+               for i in range(STRATEGY["num"])]
+        its = [int(v) for v in seq.info.iterations.tolist()]
+        mvs = [int(v) for v in seq.info.matvecs.tolist()]
+        out[name] = {"iterations": its, "matvecs": mvs, "seconds": secs,
+                     "ms_per_system": 1e3 * secs / STRATEGY["num"], "residuals": res,
+                     "total_matvecs": sum(mvs)}
+        log(f"[strategies] {name:9s} n={y.shape[0]}: iterations {its}, matvecs {mvs} (total "
+            f"{sum(mvs)}), {1e3 * secs / STRATEGY['num']:.1f} ms a system, worst relative "
+            f"residual {max(res):.1e}")
+        if not bool(seq.info.converged.all()) or max(res) > 10 * STRATEGY["tol"]:
+            raise AssertionError(f"[strategies] {name}: {out[name]}")
+    return out
+
+
+def phase_batch(torch, x, k_dense, cf, device="cuda"):
+    """``benchmarks/batch_bench.py``'s tenants at main's n on main's dense K:
+    B = 1, 8, 64 tenants through ``solve_batch`` (one (n, B) product an
+    iteration, the lane arms) against B sequential ``solve`` calls:
+    per-tenant iterations, wall time of the batch against the loop, and
+    (B = 8, ``torch.profiler``) device launches per batched iteration.
+    Then one matrix-free batch over K3 (B = 8: one K3 call of r = 8 an
+    iteration), one Jacobi-preconditioned batch (B = 8: K6's lane arm) and
+    one ``solve_pool_step`` with half the slots idle (their states
+    bit-untouched, their info scrubbed)."""
+    from repro_torch.core import (
+        KernelSystemOperator,
+        RBFKernelSystemOperator,
+        SolveSpec,
+        jacobi,
+        solve,
+        solve_batch,
+        solve_pool_step,
+    )
+
+    spec = SolveSpec(k=K, ell=ELL, tol=BATCH["tol"], maxiter=BATCH["maxiter"])
+
+    def kmv(v):
+        return k_dense @ v
+
+    def timed(fn):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(torch, device)
+        return res, time.perf_counter() - t0
+
+    out = {"n": x.shape[0]}
+    for lanes in BATCH["sizes"]:
+        shs, bs = chaos_trace(torch, x, lanes)
+        before = dict(cf.LAUNCHES)
+        batch, t_batch = timed(lambda: solve_batch(KernelSystemOperator(kmv, shs), bs, spec))
+        launched = {k: cf.LAUNCHES[k] - before[k] for k in before}
+        singles, t_loop = timed(lambda: [solve(KernelSystemOperator(kmv, shs[i]), bs[i], spec)
+                                         for i in range(lanes)])
+        its_b = [int(v) for v in batch.info.iterations.tolist()]
+        its_s = [int(r.info.iterations) for r in singles]
+        diff = [a - b for a, b in zip(its_b, its_s)]
+        xerr = max(float(torch.linalg.norm(batch.x[i] - singles[i].x)
+                         / torch.linalg.norm(singles[i].x)) for i in range(lanes))
+        entry = {"iterations": its_b, "sequential_iterations": its_s,
+                 "iteration_differences": diff, "batch_s": t_batch, "loop_s": t_loop,
+                 "speedup": t_loop / t_batch, "x_rel_diff": xerr, "launches": launched,
+                 "step_launches_per_iteration": launched["fused_cg_update"] / max(its_b)}
+        out[f"B={lanes}"] = entry
+        log(f"[batch] B={lanes}: iterations {its_b[:8]}{'…' if lanes > 8 else ''} (sequential "
+            f"differ by {sorted(set(diff))}), batch {t_batch:.3f} s vs loop {t_loop:.3f} s "
+            f"({t_loop / t_batch:.1f}x), x within {xerr:.1e}, K1 launches per batched "
+            f"iteration {entry['step_launches_per_iteration']:.2f}")
+        # A lane's pᵀAp and the (n, B) product sum in another order than a
+        # sequential solve's dot and GEMV; at ~185 iterations that moves a
+        # count by a few (P1), so the counts are reported, the answers held.
+        if not bool(batch.info.converged.all()) or xerr > 1e-4:
+            raise AssertionError(f"[batch] B={lanes}: {entry}")
+        if lanes == BATCH["pool"]:
+            pool_state, pool_data = batch.state, (shs, bs)
+        del singles, batch
+
+    # Device launches per batched iteration at B = 8, counted apart.
+    from torch.profiler import ProfilerActivity, profile
+
+    shs, bs = pool_data
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        prof_run = solve_batch(KernelSystemOperator(kmv, shs), bs, spec)
+        _sync(torch, device)
+    count = sum(e.count for e in prof.key_averages() if _is_device(e) and _device_us(e) > 0)
+    out["profile_B8"] = {"device_launches": count,
+                         "iterations": int(prof_run.info.iterations.max()),
+                         "launches_per_iteration": count / int(prof_run.info.iterations.max())}
+    log(f"[batch] profile B=8: {count} device launches over "
+        f"{out['profile_B8']['iterations']} batched iterations "
+        f"({out['profile_B8']['launches_per_iteration']:.1f} per iteration, setup and "
+        f"extraction included)")
+
+    # Jacobi tenants at B = 8: K6's lane arm after each M⁻¹r.
+    shs, bs = pool_data
+    pspec = SolveSpec(k=K, ell=ELL, tol=BATCH["tol"], maxiter=BATCH["maxiter"],
+                      precond="jacobi")
+    before = cf.LAUNCHES["fused_rz_reduce"]
+    pre, t_pre = timed(lambda: solve_batch(
+        KernelSystemOperator(kmv, shs), bs, pspec,
+        make_preconditioner=lambda op: jacobi(1.0 + op.sqrt_h ** 2 * THETA ** 2)))
+    its_p = [int(v) for v in pre.info.iterations.tolist()]
+    out["jacobi_B8"] = {"iterations": its_p, "seconds": t_pre,
+                        "k6_launches": cf.LAUNCHES["fused_rz_reduce"] - before}
+    log(f"[batch] Jacobi B={BATCH['pool']}: iterations {its_p}, {t_pre:.3f} s, "
+        f"{out['jacobi_B8']['k6_launches']} K6 launches")
+    if not bool(pre.info.converged.all()):
+        raise AssertionError(f"[batch] Jacobi: {out['jacobi_B8']}")
+
+    # One matrix-free batch: K3 with r = 8 an iteration, gated by the lanes.
+    lanes = BATCH["mf_lanes"]
+    shs, bs = chaos_trace(torch, x, lanes)
+    before = cf.LAUNCHES["rbf_matvec"]
+    mf, t_mf = timed(lambda: solve_batch(
+        RBFKernelSystemOperator(x, shs, THETA, LENGTHSCALE, block=BLOCK), bs, spec))
+    k3 = cf.LAUNCHES["rbf_matvec"] - before
+    its_mf = [int(v) for v in mf.info.iterations.tolist()]
+    live = max(its_mf)
+    frozen = frozen_steps(live, ELL, 8)
+    out["matrix_free_B8"] = {"iterations": its_mf, "seconds": t_mf, "k3_calls": k3,
+                             "k3_live_calls": live, "k3_gated_calls": frozen,
+                             "ms_per_live_k3_call": 1e3 * t_mf / live}
+    log(f"[batch] matrix-free B={lanes}: iterations {its_mf}, {t_mf:.2f} s, {k3} K3 calls of "
+        f"r = {lanes} ({live} live steps, {frozen} gated frozen steps, the rest setup)")
+    if not bool(mf.info.converged.all()) or k3 > live + frozen + 2:
+        raise AssertionError(f"[batch] matrix-free: {out['matrix_free_B8']}")
+
+    # One pool step: half the slots idle.
+    shs, bs = pool_data
+    active = torch.arange(BATCH["pool"], device=device) % 2 == 0
+    step = solve_pool_step(KernelSystemOperator(kmv, shs), bs.flip(0).contiguous(), spec,
+                           pool_state, active)
+    idle = ~active
+    untouched = all(torch.equal(getattr(step.state, f)[idle], getattr(pool_state, f)[idle])
+                    for f in ("W", "AW", "theta", "systems_solved", "drift"))
+    scrubbed = not (step.info.iterations[idle].any() or step.info.matvecs[idle].any()
+                    or step.report.status[idle].any() or step.x[idle].any())
+    out["pool_step"] = {"active": active.tolist(), "iterations": step.info.iterations.tolist(),
+                        "idle_untouched": untouched, "idle_scrubbed": scrubbed}
+    log(f"[batch] pool step, slots {active.tolist()}: iterations "
+        f"{step.info.iterations.tolist()}, idle states untouched={untouched}, "
+        f"scrubbed={scrubbed}")
+    if not (untouched and scrubbed and bool(step.info.converged.all())):
+        raise AssertionError(f"[batch] pool step: {out['pool_step']}")
+    return out
+
+
+def kernel_entry(name, entry, launches, arms=None):
+    out = {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+           "launches": launches, "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
+           "plain_ms": entry["plain_ms"], "bound_ms": entry["bound_ms"],
+           "bound_by": entry["bound_by"], "library_ms": entry["library_ms"]}
+    if arms:
+        out["arms"] = {arm.split(":", 1)[1]: count for arm, count in sorted(arms.items())
+                       if arm.split(":", 1)[0] == name}
+    return out
 
 
 def frozen_steps(iterations, ell, chunk):
@@ -2811,6 +3189,7 @@ def main(argv) -> int:
                      max_abs_err=max([entry["max_abs_err"]] + [
                          v for k, v in steps[name].items() if "float64" in k]))
     kernels["step_timings"] = steps["timings"]
+    report["lanes"] = phase_lane_kernels(torch, cf, rbf, kernels)
 
     # -- 4. small check: card against CPU ------------------------------------
     xs, ys = make_infinite_digits(400, seed=1, noise=0.10)
@@ -2870,6 +3249,7 @@ def main(argv) -> int:
     _zero_counts()
     runs = laplace_runs(torch, cf.LAUNCHES, x, y, k_dense, 1e-5, "[main]")
     launches = dict(cf.LAUNCHES)
+    arms = {"main": _arms()}
     plain_on_cuda = dict(cf.PLAIN_ON_CUDA)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main] launches {launches}; plain versions on the card {plain_on_cuda}; "
@@ -2959,6 +3339,7 @@ def main(argv) -> int:
     _zero_counts()
     report["paper"] = phase_paper(torch, x, y, k_dense, runs)
     paper_launches = dict(cf.LAUNCHES)
+    arms["paper"] = _arms()
     paper_plain = dict(cf.PLAIN_ON_CUDA)
     report["paper"].update(launches=paper_launches, plain_on_cuda=paper_plain)
     log(f"[paper] launches {paper_launches}; plain versions on the card {paper_plain}")
@@ -2966,6 +3347,35 @@ def main(argv) -> int:
         raise AssertionError(f"[paper] a kernel never launched: {paper_launches}")
     if any(paper_plain.values()):
         raise AssertionError(f"[paper] plain versions ran on the card: {paper_plain}")
+
+    # -- 5c. strategies: seq_bench's strategy matrix on main's data ---------
+    _zero_counts()
+    report["strategies"] = phase_strategies(torch, y, k_dense)
+    strat_launches, strat_plain = dict(cf.LAUNCHES), dict(cf.PLAIN_ON_CUDA)
+    arms["strategies"] = _arms()
+    report["strategies"].update(launches=strat_launches, plain_on_cuda=strat_plain)
+    log(f"[strategies] launches {strat_launches}; plain versions on the card {strat_plain}")
+    if not all(strat_launches[k] for k in STRATEGY_PATH_KERNELS):
+        raise AssertionError(f"[strategies] a kernel never launched: {strat_launches}")
+    if any(strat_plain.values()):
+        raise AssertionError(f"[strategies] plain versions ran on the card: {strat_plain}")
+
+    # -- 5d. batch: batch_bench's tenants on main's K --------------------------
+    _zero_counts()
+    report["batch"] = phase_batch(torch, x, k_dense, cf)
+    batch_launches, batch_plain = dict(cf.LAUNCHES), dict(cf.PLAIN_ON_CUDA)
+    arms["batch"] = _arms()
+    report["batch"].update(launches=batch_launches, plain_on_cuda=batch_plain,
+                           arms=arms["batch"])
+    log(f"[batch] launches {batch_launches}; arms {arms['batch']}; plain versions on the card "
+        f"{batch_plain}")
+    lane_arms = ("fused_cg_update:fused_cg_step_lanes", "fused_rz_reduce:fused_rz_step_lanes",
+                 "fused_deflate_direction:fused_direction_step_lanes")
+    if not all(batch_launches[k] for k in BATCH_PATH_KERNELS) or not all(
+            arms["batch"].get(a) for a in lane_arms):
+        raise AssertionError(f"[batch] a kernel or lane arm never launched: {arms['batch']}")
+    if any(batch_plain.values()):
+        raise AssertionError(f"[batch] plain versions ran on the card: {batch_plain}")
     del k_dense
     torch.cuda.empty_cache()
 
@@ -2989,6 +3399,7 @@ def main(argv) -> int:
     mf.update(laplace_runs(torch, cf.LAUNCHES, xc, yc, None, 1e-5, f"[main-mf n={pre_n}]",
                            solvers=("jacobi", "nystrom"), dense=False))
     mf_launches = dict(cf.LAUNCHES)
+    arms["main_mf"] = _arms()
     mf_plain = dict(cf.PLAIN_ON_CUDA)
     mf_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     log(f"[main-mf] launches {mf_launches}; plain versions on the card {mf_plain}; "
@@ -3010,25 +3421,39 @@ def main(argv) -> int:
         ref = chol_logp if n_run == PAPER_N else chol_cut["logp"]
         steps = run["newton_steps"]
         # K3 calls inside the timed solves: all but b and f of each step.
+        # A frozen step's call is gated off on the card (its flag is false:
+        # zeros, no Gram tiles), so the live passes carry the time.
         passes = run["launches"]["rbf_matvec"] - 2 * steps
-        run.update(n=n_run, k3_passes=passes,
+        gated = sum(frozen_steps(i, ELL, engine.CHUNK) for i in run["iterations"])
+        run.update(n=n_run, k3_passes=passes, gated_frozen_passes=gated,
+                   live_k3_passes=passes - gated,
                    solve_ms_per_k3_pass=1e3 * run["cumulative_solve_s"][-1] / passes,
+                   solve_ms_per_live_k3_pass=1e3 * run["cumulative_solve_s"][-1]
+                   / (passes - gated),
                    cholesky_logp=ref, delta_vs_cholesky=abs(run["logp"] - ref) / abs(ref),
-                   frozen_steps=sum(frozen_steps(i, ELL, engine.CHUNK)
-                                    for i in run["iterations"]))
+                   frozen_steps=gated)
         log(f"[main-mf] {solver:8s} n={n_run}: newton {steps}, iterations {run['iterations']}, "
             f"matvecs {run['matvecs']}, solve {run['cumulative_solve_s'][-1]:.2f} s, "
-            f"{passes} K3 passes at {run['solve_ms_per_k3_pass']:.1f} ms each "
-            f"({run['frozen_steps']} frozen steps), logp {run['logp']:.10f} vs cholesky "
-            f"{ref:.10f} (δ {run['delta_vs_cholesky']:.2e})")
+            f"{passes} K3 calls: {passes - gated} live at "
+            f"{run['solve_ms_per_live_k3_pass']:.1f} ms each and {gated} gated (frozen steps), "
+            f"logp {run['logp']:.10f} vs cholesky {ref:.10f} "
+            f"(δ {run['delta_vs_cholesky']:.2e})")
+    # Launches per live matrix-free iteration (the gate's `where` and K3's
+    # three kernels in place of the GEMV), beside the dense path's.
+    mf_prof = profile_defcg_steps(torch, None, x=x)
+    log(f"[main-mf] profile: {mf_prof['launches_per_iteration']:.1f} launches per def-CG "
+        f"iteration (dense {report['defcg_profile']['launches_per_iteration']:.1f}); device "
+        f"{mf_prof['gemv_ms_per_iteration']:.3f} ms K3 + {mf_prof['other_ms_per_iteration']:.4f} "
+        f"ms other per iteration")
     report["main_mf"] = {"runs": mf, "launches": mf_launches, "plain_on_cuda": mf_plain,
                          "peak_memory_gb": mf_peak_gb, "preconditioned_n": pre_n,
-                         "cut": cut}
+                         "cut": cut, "profile": mf_prof}
 
     # -- 7b. chaos: failure handling over the matrix-free K3 operator --------
     _zero_counts()
     report["chaos"] = phase_chaos(torch, x)
     chaos_launches = dict(cf.LAUNCHES)
+    arms["chaos"] = _arms()
     chaos_plain = dict(cf.PLAIN_ON_CUDA)
     report["chaos"].update(launches=chaos_launches, plain_on_cuda=chaos_plain)
     log(f"[chaos] launches {chaos_launches}; plain versions on the card {chaos_plain}")
@@ -3074,6 +3499,7 @@ def main(argv) -> int:
     _zero_counts()
     lsq, lsq_systems, lsq_state = phase_main_lsq(torch, cf, peaks)
     lsq_launches = dict(cf.LAUNCHES)
+    arms["main_lsq"] = _arms()
     lsq_plain = dict(cf.PLAIN_ON_CUDA)
     log(f"[main-lsq] launches {lsq_launches}; plain versions on the card {lsq_plain}")
     if not all(lsq_launches[k] for k in LSQ_PATH_KERNELS):
@@ -3099,6 +3525,7 @@ def main(argv) -> int:
     _zero_counts()
     report["main_gn"], gn_batch, gn_residual = phase_main_gn(torch)
     gn_launches = dict(cf.LAUNCHES)
+    arms["main_gn"] = _arms()
     gn_plain = dict(cf.PLAIN_ON_CUDA)
     log(f"[main-gn] launches {gn_launches}; plain versions on the card {gn_plain}")
     if not all(gn_launches[k] for k in GN_PATH_KERNELS):
@@ -3128,27 +3555,44 @@ def main(argv) -> int:
     lm_kernels, lm_launches = phase_lm(torch, peaks, report)
     kernels.update(lm_kernels)
 
-    totals = {name: launches[name] + paper_launches[name] + mf_launches[name]
+    totals = {name: launches[name] + paper_launches[name] + strat_launches[name]
+              + batch_launches[name] + mf_launches[name]
               + chaos_launches[name] + lsq_launches[name] + gn_launches[name]
               + shard_launches[name] + sum(lm[name] for lm in lm_launches.values())
               for name in cf.LAUNCHES}
     report["launch_totals"] = totals
+    # Launches per arm over the paths run in this process (main-shard's
+    # ranks are in the totals, not split by arm).
+    arms.update({key: report[key]["arms"] for key in LM_PATHS})
+    arm_totals = {}
+    for path in arms.values():
+        for arm, count in path.items():
+            arm_totals[arm] = arm_totals.get(arm, 0) + count
+    report["arm_totals"] = arm_totals
     lp = report["main_lsq"]["profile"]
     log(f"[summary] device launches per iteration: damped LSMR (main-lsq) cold "
         f"{lp['cold']['launches_per_iteration']:.1f}, deflated "
         f"{lp['deflated']['launches_per_iteration']:.1f}; deflated def-CG (main, n = {PAPER_N}) "
         f"{report['defcg_profile']['launches_per_iteration']:.1f}, Jacobi-preconditioned "
-        f"{report['pdefcg_profile']['launches_per_iteration']:.1f}; main-lsq "
+        f"{report['pdefcg_profile']['launches_per_iteration']:.1f}, matrix-free (main-mf) "
+        f"{report['main_mf']['profile']['launches_per_iteration']:.1f}; main-lsq "
         f"{report['main_lsq']['runs']['cold']['ms_per_iteration']:.3f} ms per cold LSMR "
         f"iteration; main-gn device busy {report['main_gn']['profile']['device_busy_share']:.1%}, "
         f"{report['main_gn']['recycled']['ms_per_iteration']:.3f} ms per LSMR iteration (recycled)")
+    st, bt = report["strategies"], report["batch"]
+    log(f"[summary] strategies (n = {st['n']}): total matvecs harmonic "
+        f"{st['harmonic']['total_matvecs']}, windowed {st['windowed']['total_matvecs']}, "
+        f"mgeometry {st['mgeometry']['total_matvecs']}; batch B=64 {bt['B=64']['speedup']:.1f}x "
+        f"the loop, {bt['profile_B8']['launches_per_iteration']:.1f} device launches per "
+        f"batched iteration at B=8; gated-off K3 "
+        f"{report['lanes']['gate']['k3_gated_off_ms']:.4f} ms")
     pp, ch = report["paper"], report["chaos"]
     log(f"[summary] paper (n = {pp['n']}): fig3 slopes cg {pp['fig3']['cg']['mean_slope']:.4f}, "
         f"defcg {pp['fig3']['defcg']['mean_slope']:.4f}; fig4 gap {pp['fig4']['precision_gap']:.2e}; "
         f"chaos (n = {ch['n']}): rungs {ch['recovery']['rungs']}, extra matvecs "
         f"{ch['recovery']['extra_matvecs']}, checkpoint overhead "
         f"{ch['checkpoint']['overhead_s']:+.3f} s, stale rungs {ch['stale']['rungs']}")
-    kernel_line = {"kernels": [kernel_entry(name, kernels[name], totals[name])
+    kernel_line = {"kernels": [kernel_entry(name, kernels[name], totals[name], arm_totals)
                                for name in cf.LAUNCHES]}
     report["kernels"] = kernels
     os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)

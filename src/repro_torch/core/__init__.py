@@ -1,18 +1,22 @@
 """repro_torch.core — recycled Krylov solvers on flat PyTorch tensors.
 
-The front doors are ``solve`` / ``solve_sequence`` driven by one
+The front doors are ``solve`` / ``solve_sequence`` / ``solve_batch`` /
+``solve_pool_step`` driven by one
 ``SolveSpec`` and carrying a ``RecycleState`` (``core/api.py``); ``cg``,
 ``defcg``, ``RecycleManager``, ``lsmr`` and ``solve_sequence_lsmr`` are
 the lower-level entry points.
 """
 
 from repro_torch.core.api import (
+    BatchSolveResult,
     SequenceSolveResult,
     SolveReport,
     SolveResult,
     SolveSpec,
     make_preconditioner,
     solve,
+    solve_batch,
+    solve_pool_step,
     solve_sequence,
 )
 from repro_torch.core.engine import SolveInfo, SolveStatus
@@ -57,9 +61,11 @@ from repro_torch.core.strategies import (
     HarmonicRitz,
     MGeometryHarmonic,
     RecycleStrategy,
+    WindowedRecombine,
 )
 
 __all__ = [
+    "BatchSolveResult",
     "CGResult",
     "DEFAULT_WAW_JITTER",
     "DenseMatrixOperator",
@@ -84,6 +90,7 @@ __all__ = [
     "SolveResult",
     "SolveSpec",
     "SolveStatus",
+    "WindowedRecombine",
     "WoodburyKernelPreconditioner",
     "adjoint_matvec",
     "apply_to_basis",
@@ -100,6 +107,8 @@ __all__ = [
     "nystrom_preconditioner",
     "randomized_nystrom",
     "solve",
+    "solve_batch",
+    "solve_pool_step",
     "solve_sequence",
     "solve_sequence_lsmr",
     "truncate_latest_checkpoint",

@@ -15,10 +15,13 @@ factory (:func:`solve_sequence`), built for ``spec.precond`` by
 detector, and ``solve_sequence(..., checkpoint=, checkpoint_every=,
 resume=)`` runs a crash-resumable chunked sequence.  What the port
 leaves out so far raises, naming the ROADMAP item that brings it:
-``MGeometryHarmonic`` (queue 1, the other two strategies).
-``solve_batch`` is absent (queue 1, batched and served solves).
-``solve(..., mesh=)`` runs the sharded engine
-(:mod:`repro_torch.core.sharded`) over the ranks of a solve mesh.
+``solve_batch`` / ``solve_pool_step`` for the least-squares methods
+(queue 1, batched and served solves).  ``solve(..., mesh=)`` runs the
+sharded engine (:mod:`repro_torch.core.sharded`) over the ranks of a
+solve mesh.  :func:`solve_batch` and :func:`solve_pool_step` run B
+tenants' cg / def-CG solves (or sequences) at once, on the lane axis of
+the step kernels.  ``b``, ``x0`` and bases may be pytrees on the single
+and sequence doors.
 """
 
 from __future__ import annotations
@@ -29,7 +32,9 @@ from typing import Any, Callable, NamedTuple, Optional
 import torch
 
 from repro_torch.core import lsmr as lsmr_mod
+from repro_torch.core import operators as ops_mod
 from repro_torch.core import preconditioners as precond_mod
+from repro_torch.core import pytree as pt
 from repro_torch.core import recycle as recycle_mod
 from repro_torch.core import solvers as solvers_mod
 from repro_torch.core.engine import SolveInfo
@@ -37,8 +42,8 @@ from repro_torch.core.recycle import RecycleState, SequenceResult
 from repro_torch.core.solvers import DEFAULT_WAW_JITTER
 from repro_torch.core.strategies import (
     HarmonicRitz,
-    MGeometryHarmonic,
     RecycleStrategy,
+    WindowedRecombine,
 )
 
 _METHODS = ("cg", "defcg", "lsmr", "deflsmr")
@@ -122,6 +127,26 @@ class SolveSpec:
                 "strategy must be a repro_torch.core.strategies.RecycleStrategy "
                 f"instance, got {self.strategy!r}"
             )
+        if self.refresh_aw == "stale" and not isinstance(self.strategy, HarmonicRitz):
+            raise ValueError(
+                f"refresh_aw='stale' conflicts with strategy="
+                f"{type(self.strategy).__name__}: non-default strategies "
+                "own their refresh policy (WindowedRecombine IS the "
+                "guarded stale mode)"
+            )
+        if self.strategy.needs_preconditioner and self.precond == "none":
+            raise ValueError(
+                f"strategy={type(self.strategy).__name__} extracts in the "
+                "preconditioner's geometry — it needs precond != 'none'"
+            )
+        if (isinstance(self.strategy, WindowedRecombine) and self.method == "defcg"
+                and self.ell == 0):
+            # No window, no transition: the carried AW is never re-derived
+            # and the drift never updates.
+            raise ValueError(
+                "strategy=WindowedRecombine needs ell > 0 — its refresh "
+                "recombines the recorded window"
+            )
 
 
 class SolveReport(NamedTuple):
@@ -161,6 +186,18 @@ class SequenceSolveResult(NamedTuple):
     info: SolveInfo
     theta: Optional[torch.Tensor]
     state: RecycleState
+    report: Optional[SolveReport] = None
+
+
+class BatchSolveResult(NamedTuple):
+    """Per-tenant stacked outputs of :func:`solve_batch` (leading axis B;
+    ``(B, N)`` per-system fields with ``sequence=True``).  A broken tenant
+    is retired into its own slot of ``report``, never into its
+    neighbours'."""
+
+    x: torch.Tensor
+    info: SolveInfo
+    state: Optional[RecycleState]
     report: Optional[SolveReport] = None
 
 
@@ -205,11 +242,6 @@ def _check_m(spec: SolveSpec, M) -> None:
         )
 
 
-def _check_strategy(spec: SolveSpec) -> None:
-    if isinstance(spec.strategy, MGeometryHarmonic):
-        raise _not_ported("strategy=MGeometryHarmonic", "queue 1, the other two strategies")
-
-
 def _solve_lsq(A, b, spec: SolveSpec, state, x0, record_residuals) -> SolveResult:
     """``solve`` for ``method="lsmr"``/``"deflsmr"``: ``min ‖Ax − b‖² +
     spec.lsq_shift·‖x‖²``; ``info.residual_norm`` is the normal residual
@@ -250,6 +282,23 @@ def _solve_lsq(A, b, spec: SolveSpec, state, x0, record_residuals) -> SolveResul
     return SolveResult(x=x, info=info, state=new_state, report=_make_report(info, rung))
 
 
+def _solve_pytree(A, b, spec: SolveSpec, state, x0, M, record_residuals) -> SolveResult:
+    """:func:`solve` on pytree ``b`` / ``x0``: the flat solve of their
+    coordinates, ``x`` back in the solution's structure (the range's for
+    the SPD methods, the domain's for the least-squares ones)."""
+    if spec.method in _LSQ_METHODS:
+        op, b_flat, x0_flat, unravel_x = lsmr_mod.flat_lsq_problem(A, b, x0)
+        res = solve(op, b_flat, spec, state, x0=x0_flat, M=M,
+                    record_residuals=record_residuals)
+        return res._replace(x=unravel_x()(res.x))
+    b_flat, unravel = pt.ravel_vector(b)
+    res = solve(pt.flat_operator(A, unravel), b_flat, spec, state,
+                x0=None if x0 is None else pt.ravel(x0),
+                M=None if M is None else pt.flat_operator(M, unravel),
+                record_residuals=record_residuals)
+    return res._replace(x=unravel(res.x))
+
+
 def solve(
     A,
     b: torch.Tensor,
@@ -271,6 +320,9 @@ def solve(
     domain.  ``info.matvecs`` includes the refresh the strategy spent.
     ``M`` is the preconditioner apply for ``spec.precond`` (see
     :func:`make_preconditioner`); the least-squares methods take none.
+    ``b`` and ``x0`` may be pytrees (``A`` and ``M`` then map pytrees):
+    the solve runs on their flat coordinates, the state stays flat, and
+    ``x`` comes back in the solution's structure.
 
     ``mesh`` (a :class:`repro_torch.launch.SolveMesh`, from
     :func:`repro_torch.launch.make_solve_mesh`) runs the solve split by
@@ -294,12 +346,12 @@ def solve(
             A, b, spec, state, mesh=mesh, x0=x0, record_residuals=record_residuals,
         )
     _check_m(spec, M)
+    if not (pt.is_flat(b) and (x0 is None or pt.is_flat(x0))):
+        return _solve_pytree(A, b, spec, state, x0, M, record_residuals)
     if spec.method in _LSQ_METHODS:
         if M is not None:
             raise ValueError(f"method={spec.method!r} takes no preconditioner apply")
         return _solve_lsq(A, b, spec, state, x0, record_residuals)
-    _check_strategy(spec)
-
     if spec.method == "cg":
         res = solvers_mod.cg(
             A, b, x0,
@@ -432,7 +484,6 @@ def _solve_sequence_spec(
             x_prev0=x_prev0,
         )
         return _finish_sequence(seq, spec, state0, len(b_seq))
-    _check_strategy(spec)
     seq = recycle_mod.solve_sequence(
         systems,
         b_seq,
@@ -570,6 +621,18 @@ def _solve_sequence_chunked(
     )
 
 
+class _FlatOperator:
+    """A pytree operator on flat coordinates; ``op`` is the operator itself
+    (what a per-system preconditioner factory is handed)."""
+
+    def __init__(self, op, unravel):
+        self.op = op
+        self._mv = pt.flat_operator(op, unravel)
+
+    def __call__(self, v):
+        return self._mv(v)
+
+
 def solve_sequence(
     systems: Any,
     b_seq: torch.Tensor,
@@ -593,7 +656,10 @@ def solve_sequence(
     seeds the next call.  ``spec.method`` is ``"defcg"`` or ``"deflsmr"``
     (then ``A`` may be rectangular and the state's ``AW`` slot holds
     ``NW``).  ``make_preconditioner`` maps each operator to its ``M``
-    apply; a spec with ``precond != "none"`` needs it.
+    apply; a spec with ``precond != "none"`` needs it.  A dict ``b_seq``
+    is a pytree whose leaves carry the leading system axis (the operators
+    then map pytrees; ``x`` comes back in its structure); a list holds one
+    flat vector per system.
 
     Crash resumability: ``checkpoint`` (a
     :class:`repro_torch.checkpoint.CheckpointManager`) with
@@ -603,6 +669,21 @@ def solve_sequence(
     exactly.
     """
     spec = SolveSpec() if spec is None else spec
+    if isinstance(b_seq, dict):
+        # Pytree right-hand sides (a dict whose leaves carry a leading
+        # system axis; a list holds one flat vector per system): the flat
+        # sequence of their coordinates, x back in their structure.
+        _, unravel = pt.ravel_vector(pt.basis_vector(b_seq, 0))
+        make_op = make_operator if make_operator is not None else (lambda sys: sys)
+        res = solve_sequence(
+            systems, pt.ravel_basis(b_seq), spec, state0,
+            make_operator=lambda sys: _FlatOperator(make_op(sys), unravel),
+            make_preconditioner=None if make_preconditioner is None else (
+                lambda op: pt.flat_operator(make_preconditioner(op.op), unravel)),
+            carry_x=carry_x, divergence_fallback=divergence_fallback, checkpoint=checkpoint,
+            checkpoint_every=checkpoint_every, resume=resume,
+        )
+        return res._replace(x=pt.unravel_basis(res.x, unravel))
     if checkpoint is not None:
         if checkpoint_every < 1:
             raise ValueError(
@@ -628,3 +709,241 @@ def solve_sequence(
         carry_x=carry_x,
         divergence_fallback=divergence_fallback,
     )
+
+
+# ---------------------------------------------------------------------------
+# solve_batch — B independent tenants on the lane axis of the step kernels
+# ---------------------------------------------------------------------------
+
+
+def _tenant_operator(A, i: int):
+    """Tenant ``i``'s own operator of a shared-K batch (``sqrt_h`` (B, n)),
+    as a per-tenant preconditioner factory expects it."""
+    if isinstance(A, ops_mod.RBFKernelSystemOperator):
+        return ops_mod.RBFKernelSystemOperator(A.x, A.sqrt_h[i], A.theta, A.lengthscale,
+                                               A.block, A.backend)
+    return ops_mod.KernelSystemOperator(A.kernel_matvec, A.sqrt_h[i])
+
+
+def _system_lanes(systems: Any, j: int):
+    """System ``j`` of every tenant's sequence: leaves ``(B, N, …)`` →
+    ``(B, …)``; a shared-K batch's ``sqrt_h`` (B, N, n) → (B, n)."""
+    if isinstance(systems, ops_mod.RBFKernelSystemOperator):
+        return ops_mod.RBFKernelSystemOperator(systems.x, systems.sqrt_h[:, j], systems.theta,
+                                               systems.lengthscale, systems.block,
+                                               systems.backend)
+    if isinstance(systems, ops_mod.KernelSystemOperator):
+        return ops_mod.KernelSystemOperator(systems.kernel_matvec, systems.sqrt_h[:, j])
+    if isinstance(systems, dict):
+        return {key: _system_lanes(val, j) for key, val in systems.items()}
+    return systems[:, j]
+
+
+def _lane_problem(systems: Any, B: int, make_operator, make_preconditioner):
+    """``(A, M, m_applies)`` of one system across B tenants: the batched
+    operator (:func:`repro_torch.core.operators.lane_operator`), the
+    batched preconditioner apply, and the tenants' own applies (for the
+    M-geometry's transition)."""
+    if make_operator is None and isinstance(systems, ops_mod.KernelSystemOperator) and (
+            systems.sqrt_h.ndim == 2):
+        A = systems
+        tenants = [_tenant_operator(A, i) for i in range(B)]
+    else:
+        make_op = make_operator if make_operator is not None else (lambda s: s)
+        tenants = [make_op(recycle_mod.system_at(systems, i)) for i in range(B)]
+        A = ops_mod.lane_operator(tenants)
+    if make_preconditioner is None:
+        return A, None, None
+    applies = [make_preconditioner(op) for op in tenants]
+    return A, precond_mod.lane_preconditioner(applies), applies
+
+
+def _batched_zero_state(b_batch: torch.Tensor, spec: SolveSpec) -> RecycleState:
+    """Cold per-tenant states: :meth:`RecycleState.zeros` with a leading B
+    (``b_batch`` is ``(B, n)``, or ``(B, N, n)`` for sequences)."""
+    B, n = b_batch.shape[0], b_batch.shape[-1]
+    dtype, device = b_batch.dtype, b_batch.device
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros(shape, dtype=dt, device=device)
+
+    return RecycleState(W=zeros(B, spec.k, n), AW=zeros(B, spec.k, n), theta=zeros(B, spec.k),
+                        systems_solved=zeros(B, dt=torch.int32), drift=zeros(B))
+
+
+def _solve_lanes(A, b, spec: SolveSpec, state: RecycleState, x0, M, m_applies):
+    """One def-CG system for every tenant: ``(x, info, next state, report)``."""
+    x, info, w2, aw2, theta, drift2, rung = recycle_mod._one_recycled_solve(
+        A, b, x0, state.W, state.AW, state.drift, lanes=True,
+        k=spec.k, ell=spec.ell, tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter,
+        select=spec.select, waw_jitter=spec.waw_jitter, refresh_aw=spec.refresh_aw,
+        strategy=spec.strategy, M=M, m_applies=m_applies,
+        recovery_rungs=spec.recovery_rungs, recovery_shift=spec.recovery_shift,
+        stagnation_window=spec.stagnation_window,
+    )
+    new_state = RecycleState(
+        W=w2, AW=aw2, theta=state.theta if theta is None else theta,
+        systems_solved=state.systems_solved + 1, drift=drift2.to(state.drift.dtype),
+    )
+    return x, info, new_state, _make_report(info, rung)
+
+
+def solve_batch(
+    systems: Any,
+    b_batch: torch.Tensor,
+    spec: Optional[SolveSpec] = None,
+    state: Optional[RecycleState] = None,
+    *,
+    make_operator: Optional[Callable[[Any], Any]] = None,
+    make_preconditioner: Optional[Callable[[Any], Any]] = None,
+    sequence: bool = False,
+    carry_x: bool = False,
+) -> BatchSolveResult:
+    """Solve B independent tenants' systems (or sequences) at once.
+
+    The multi-tenant serving shape: every vector is ``(B, n)``, and one
+    iteration of all B def-CG (or cg) solves is one product of the
+    ``(B, n)`` stack and the lane-axis launches of the step kernels (K1's
+    ``fused_cg_step``, K6's ``fused_rz_step`` for preconditioned tenants,
+    K2's ``fused_direction_step``), each lane with its own scalars, flags,
+    counts and recording slot.  Convergence is per lane; the host reads
+    "any lane active" once per chunk.  Finished lanes freeze, so each
+    tenant's answer is its own solve's.
+
+    ``systems``: a ``KernelSystemOperator`` whose ``sqrt_h`` is ``(B, n)``
+    (B tenants sharing ``K``: ONE ``K`` product of the ``(n, B)`` stack an
+    iteration, one K3 call of r = B matrix-free, skipped on the card once
+    every lane is frozen), or per-tenant data with a leading B mapped
+    through ``make_operator`` (tenants sharing a kernel or holding dense
+    matrices are still batched into one product; others run tenant by
+    tenant).  ``make_preconditioner`` maps each tenant's operator to its
+    ``M``.  ``state`` has a leading B on every leaf (``None``: every
+    tenant cold).  ``sequence=True``: leaves ``(B, N, …)``, ``b_batch``
+    ``(B, N, n)``, each tenant a sequence of N systems (``carry_x`` warm
+    starts within it); ``x`` / ``info`` / ``report`` are then ``(B, N, …)``
+    and ``state`` the tenants' final states.  ``method`` ``"cg"`` passes
+    ``state`` through untouched; the least-squares methods raise.
+    """
+    spec = SolveSpec() if spec is None else spec
+    if spec.method in _LSQ_METHODS:
+        raise _not_ported(f"solve_batch(method={spec.method!r})",
+                          "queue 1, batched and served solves")
+    if spec.precond != "none" and make_preconditioner is None:
+        raise ValueError(
+            f"spec.precond={spec.precond!r} but no make_preconditioner was passed — the "
+            "batch builds each tenant's M from its operator"
+        )
+    B = b_batch.shape[0]
+    if sequence:
+        if spec.method != "defcg":
+            raise ValueError("sequence=True requires spec.method='defcg'")
+        state = _batched_zero_state(b_batch, spec) if state is None else state
+        num = b_batch.shape[1]
+        x_prev = torch.zeros_like(b_batch[:, 0])
+        xs, infos, reports = [], [], []
+        for j in range(num):
+            A, M, applies = _lane_problem(_system_lanes(systems, j), B, make_operator,
+                                          make_preconditioner)
+            x, info, state, report = _solve_lanes(
+                A, b_batch[:, j].contiguous(), spec, state, x_prev if carry_x else None, M,
+                applies)
+            x_prev = x
+            xs.append(x)
+            infos.append(info)
+            reports.append(report)
+
+        def stack(items):
+            cls = type(items[0])
+            return cls(*(None if getattr(items[0], f) is None
+                         else torch.stack([torch.as_tensor(getattr(it, f)) for it in items], 1)
+                         for f in cls._fields))
+
+        return BatchSolveResult(x=torch.stack(xs, 1), info=stack(infos), state=state,
+                                report=stack(reports))
+
+    A, M, applies = _lane_problem(systems, B, make_operator, make_preconditioner)
+    if spec.method == "cg":
+        res = solvers_mod.defcg_lanes(
+            A, b_batch, tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter, M=M,
+            stagnation_window=spec.stagnation_window,
+        )
+        return BatchSolveResult(x=res.x, info=res.info, state=state,
+                                report=_make_report(res.info, torch.zeros_like(res.info.status)))
+    state = _batched_zero_state(b_batch, spec) if state is None else state
+    if state.W.ndim != 3 or tuple(state.W.shape) != (B, spec.k, b_batch.shape[-1]):
+        raise ValueError(
+            f"state.W has shape {tuple(state.W.shape)}; spec(k={spec.k}) over {B} tenants "
+            f"of n={b_batch.shape[-1]} needs ({B}, {spec.k}, {b_batch.shape[-1]})"
+        )
+    x, info, new_state, report = _solve_lanes(A, b_batch, spec, state, None, M, applies)
+    return BatchSolveResult(x=x, info=info, state=new_state, report=report)
+
+
+# ---------------------------------------------------------------------------
+# solve_pool_step — one slot-masked serving step over a fixed slot pool
+# ---------------------------------------------------------------------------
+
+
+def _slot_bcast(active: torch.Tensor, leaf: torch.Tensor) -> torch.Tensor:
+    """A ``(B,)`` slot mask shaped to broadcast against a ``(B, …)`` leaf."""
+    return active.reshape(active.shape + (1,) * (leaf.ndim - 1))
+
+
+def solve_pool_step(
+    systems: Any,
+    b_batch: torch.Tensor,
+    spec: Optional[SolveSpec],
+    state: Optional[RecycleState],
+    active: torch.Tensor,
+    *,
+    make_operator: Optional[Callable[[Any], Any]] = None,
+    make_preconditioner: Optional[Callable[[Any], Any]] = None,
+) -> BatchSolveResult:
+    """One batched serving step over a fixed pool of B slots, mask-aware.
+
+    ``active`` is the ``(B,)`` bool slot mask.  Inactive slots are served
+    a ZERO right-hand side (``‖r₀‖ = 0``: they converge before iteration
+    1 and freeze, so they never hold the batch's loop open), their
+    :class:`RecycleState` passes through bit-untouched (a resident idle
+    tenant keeps its warm basis and counter), and their ``info`` /
+    ``report`` are scrubbed to 0 iterations, 0 matvecs and CONVERGED.  The
+    refresh an idle warm slot's lane rides along in is pool overhead,
+    charged to no tenant.
+    """
+    spec = SolveSpec() if spec is None else spec
+    if spec.method not in ("defcg", "deflsmr"):
+        raise ValueError(
+            "solve_pool_step carries per-slot RecycleState — it needs "
+            f"spec.method='defcg' or 'deflsmr', got {spec.method!r}"
+        )
+    state = _batched_zero_state(b_batch, spec) if state is None else state
+    active = torch.as_tensor(active, dtype=torch.bool, device=b_batch.device)
+    b_masked = torch.where(_slot_bcast(active, b_batch), b_batch, 0.0)
+    res = solve_batch(systems, b_masked, spec, state, make_operator=make_operator,
+                      make_preconditioner=make_preconditioner)
+
+    def keep(new, old):
+        return torch.where(_slot_bcast(active, new), new, old)
+
+    state_out = RecycleState(*(keep(getattr(res.state, f.name), getattr(state, f.name))
+                               for f in dataclasses.fields(RecycleState)))
+    info = res.info
+    zero = torch.zeros((), dtype=torch.int32, device=b_batch.device)
+    masked = SolveInfo(
+        iterations=torch.where(active, info.iterations, zero),
+        converged=torch.where(active, info.converged, True),
+        residual_norm=torch.where(active, info.residual_norm, 0.0),
+        matvecs=torch.where(active, info.matvecs, zero),
+        residual_norms=info.residual_norms,
+        breakdown=active & torch.as_tensor(info.breakdown, dtype=torch.bool),
+        status=torch.where(active, torch.as_tensor(info.status).to(torch.int32), zero),
+        guard_fired=active & torch.as_tensor(info.guard_fired, dtype=torch.bool),
+    )
+    report = SolveReport(
+        status=masked.status,
+        rung=torch.where(active, res.report.rung, zero),
+        guard_firings=masked.guard_fired.to(torch.int32),
+        matvecs=masked.matvecs,
+    )
+    x = torch.where(_slot_bcast(active, res.x), res.x, 0.0)
+    return BatchSolveResult(x=x, info=masked, state=state_out, report=report)

@@ -10,9 +10,14 @@ iterates, iteration counts and matvec counts come out identical to the
 reference's.  The host reads the convergence test once per
 :data:`CHUNK` steps only, and never during the ``ell`` recording steps.
 
-The price: a frozen step still runs its matvec (skipping it would need a
-host read).  A solve therefore computes up to ``CHUNK − 1`` discarded
-products after convergence; they are not counted in ``matvecs``.
+A frozen step still launches its product, and :func:`gated_matvec` hands
+it the step's device ``active`` flag: an operator with a device gate (the
+matrix-free RBF operator, whose K3 / K8 kernels read the flag vector
+themselves) then skips the Gram tiles and returns zeros, as the
+reference's gated ``cond`` does, with no host read.  An operator without
+one (the dense ``torch.mv``, a callable) computes the product anyway and
+the masked step discards it.  Either way a solve launches up to ``CHUNK
+− 1`` products after convergence, none counted in ``matvecs``.
 
 On the card the scalar recurrence of a step and its frozen-step mask run
 inside the step's fused kernel: def-CG's from ``pᵀAp`` on is one
@@ -100,13 +105,14 @@ def trace_init(rnorm0, maxiter: int, record: bool):
 
     One spare slot past ``maxiter + 1`` takes the writes of frozen steps
     at ``j == maxiter`` (the reference drops them); callers slice it off.
+    A lane axis (``rnorm0`` ``(B,)``) gives one trace a lane.
     """
     if not record:
         return None
     trace = torch.full(
-        (maxiter + 2,), float("nan"), dtype=rnorm0.dtype, device=rnorm0.device
+        rnorm0.shape + (maxiter + 2,), float("nan"), dtype=rnorm0.dtype, device=rnorm0.device
     )
-    trace[0] = rnorm0
+    trace[..., 0] = rnorm0
     return trace
 
 
@@ -115,7 +121,7 @@ def stagnation_init(norm0, window: int):
     ``None`` when disarmed, so the clean path carries no extra state."""
     if window <= 0:
         return None
-    return norm0, torch.zeros((), dtype=torch.int32, device=norm0.device)
+    return norm0, torch.zeros(norm0.shape, dtype=torch.int32, device=norm0.device)
 
 
 def stagnation_update(stag, norm_new, fail, active, window: int):
@@ -129,6 +135,21 @@ def stagnation_update(stag, norm_new, fail, active, window: int):
     return (best, stall), fail
 
 
+def gated_matvec(apply, v, active):
+    """A step's product behind its frozen-step gate, with no host read.
+
+    ``active`` is the step's device flag (0-d), or the ``(B,)`` flags of a
+    tenant batch whose ``v`` is ``(B, n)``: the product is skipped only
+    once EVERY lane is frozen (the reference's cross-tenant ``psum``
+    gate).  An operator offering ``gated_matvec(v, gate)`` is handed the
+    flags and returns zeros when none is set; any other runs its product
+    (the masked step discards a frozen one)."""
+    gated = getattr(apply, "gated_matvec", None)
+    if gated is None:
+        return apply(v)
+    return gated(v, active)
+
+
 def run_recording_loop(
     step: Callable, active_fn: Callable, state: Tuple, *, ell: int = 0
 ):
@@ -138,14 +159,20 @@ def run_recording_loop(
     recording slot ``0 … ell−1`` during the first ``ell`` steps and
     ``None`` after.  Phase 1 runs those ``ell`` steps with no host read;
     phase 2 runs chunks of :data:`CHUNK` steps while the host-read
-    ``active_fn(state)`` holds.
+    ``active_fn(state)`` holds (for a batch's ``(B,)`` flags: while any
+    lane is active).
     """
     for row in range(ell):
         state = step(state, active_fn(state), row)
-    while bool(active_fn(state)):
+    while _any_active(active_fn(state)):
         for _ in range(CHUNK):
             state = step(state, active_fn(state), None)
     return state
+
+
+def _any_active(active) -> bool:
+    """The host read of a chunk: the flag, or any lane's of a batch."""
+    return bool(active) if active.ndim == 0 else bool(torch.any(active))
 
 
 def psum_merged(parts, mesh):

@@ -44,6 +44,7 @@ import torch
 
 from repro_torch.core import engine
 from repro_torch.core import operators as ops_mod
+from repro_torch.core import pytree as pt
 from repro_torch.core.recycle import SequenceResult, _stack_infos, system_at
 from repro_torch.core.solvers import (
     DEFAULT_WAW_JITTER,
@@ -111,6 +112,32 @@ def domain_size(A, x0: Optional[torch.Tensor] = None) -> int:
     return n
 
 
+def flat_lsq_problem(A, b, x0=None):
+    """A rectangular problem over pytrees as flat coordinates:
+    ``(op, b_flat, x0_flat, unravel_x)``.  ``op`` maps flat domain vectors
+    to flat range vectors and back; the domain's structure comes from
+    ``x0`` or, at no extra product, from the first adjoint product ``op``
+    computes, and ``unravel_x()`` returns its inverse once known."""
+    b_flat, unravel_b = pt.ravel_vector(b)
+    dom = {}
+    x0_flat = None
+    if x0 is not None:
+        x0_flat, dom["unravel"] = pt.ravel_vector(x0)
+    At = ops_mod.adjoint_matvec(A)
+
+    def rmv(u):
+        g = At(unravel_b(u))
+        if "unravel" not in dom:
+            _, dom["unravel"] = pt.ravel_vector(g)
+        return pt.ravel(g)
+
+    def mv(v):
+        return pt.ravel(A(dom["unravel"](v)))
+
+    op = ops_mod.LinearOperator(mv, rmatvec=rmv)
+    return op, b_flat, x0_flat, lambda: dom["unravel"]
+
+
 def lsmr(
     A,
     b: torch.Tensor,
@@ -140,7 +167,21 @@ def lsmr(
     ``info.residual_norm``.  Returns a :class:`CGResult` whose ``recycle``
     holds the flat ``(v, N̂v)`` window.  ``stagnation_window > 0`` arms
     the stall detector on ``‖Âᵀr̂‖`` (inside the tail's launch).
+
+    ``b`` (range) and ``x0`` (domain) may be pytrees, with ``A`` and its
+    adjoint mapping pytrees: the solve runs on flat coordinates and ``x``
+    comes back in the domain's structure, read off ``x0`` or off the first
+    adjoint product (which the iteration computes anyway).
     """
+    if not all(t is None or pt.is_flat(t) for t in (b, x0, W, NW)):
+        op, b_flat, x0_flat, unravel_x = flat_lsq_problem(A, b, x0)
+        res = lsmr(
+            op, b_flat, x0_flat, None if W is None else pt.ravel_basis(W),
+            None if NW is None else pt.ravel_basis(NW), damp=damp, ell=ell, tol=tol,
+            atol=atol, maxiter=maxiter, record_residuals=record_residuals,
+            waw_jitter=waw_jitter, stagnation_window=stagnation_window,
+        )
+        return res._replace(x=unravel_x()(res.x))
     if damp < 0.0:
         raise ValueError(f"damp must be >= 0, got {damp}")
     has_shift = damp > 0.0

@@ -122,10 +122,20 @@ class KernelSystemOperator:
     matvec_cost_flops: Optional[float] = None
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        """``A v`` for ``v`` (n,); with a tenant batch (``sqrt_h`` (B, n),
+        tenants sharing ``K``) ``v`` is ``(B, n)`` and ``K`` runs ONCE on
+        the ``(n, B)`` stack ``(H½ ⊙ V)ᵀ``."""
+        if v.ndim == 2:
+            return v + self.sqrt_h * self.kernel_matvec((self.sqrt_h * v).T).T
         return v + self.sqrt_h * self.kernel_matvec(self.sqrt_h * v)
 
     def basis_matvec(self, basis: torch.Tensor) -> torch.Tensor:
-        """``A`` on an ``(m, n)`` basis — one multi-RHS kernel product."""
+        """``A`` on an ``(m, n)`` basis — one multi-RHS kernel product; on a
+        tenant batch a ``(B, m, n)`` basis, one product of ``B·m`` columns."""
+        if basis.ndim == 3:
+            h = self.sqrt_h[:, None, :]
+            u = (basis * h).reshape(-1, basis.shape[-1]).T  # (n, B·m)
+            return basis + h * self.kernel_matvec(u).T.reshape(basis.shape)
         v = (basis * self.sqrt_h[None, :]).T  # (n, m) column-stacked
         return basis + self.sqrt_h[None, :] * self.kernel_matvec(v).T
 
@@ -160,12 +170,24 @@ class RBFKernelSystemOperator(KernelSystemOperator):
         self.block, self.backend = block, backend
         super().__init__(self._rbf_matvec, sqrt_h)
 
-    def _rbf_matvec(self, u: torch.Tensor) -> torch.Tensor:
-        """``K(X, X) @ u`` — (n,) or column-stacked (n, r)."""
+    def _rbf_matvec(self, u: torch.Tensor, gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``K(X, X) @ u`` — (n,) or column-stacked (n, r); zeros when
+        ``gate`` (device flags) holds no set flag."""
         return kops.rbf_matvec(
             self.x, u, self.theta, self.lengthscale,
-            backend=self.backend, block=self.block,
+            backend=self.backend, block=self.block, gate=gate,
         )
+
+    def gated_matvec(self, v: torch.Tensor, gate: torch.Tensor) -> torch.Tensor:
+        """:meth:`matvec` behind a device gate: zeros when no flag of
+        ``gate`` (0-d, or a tenant batch's ``(B,)``) is set, the K3 kernel
+        skipping its Gram tiles on the card; bit for bit :meth:`matvec`
+        when one is.  No host read."""
+        on = gate if gate.ndim == 0 else torch.any(gate)
+        v_on = torch.where(on, v, 0.0)
+        if v.ndim == 2:
+            return v_on + self.sqrt_h * self._rbf_matvec((self.sqrt_h * v).T, gate).T
+        return v_on + self.sqrt_h * self._rbf_matvec(self.sqrt_h * v, gate)
 
 
 # ---------------------------------------------------------------------------
@@ -288,3 +310,88 @@ def adjoint_matvec(op) -> Matvec:
     if rmv is not None:
         return rmv
     return op.matvec if hasattr(op, "matvec") else op
+
+
+# ---------------------------------------------------------------------------
+# Tenant batches: B systems' products on (B, n) stacks
+# ---------------------------------------------------------------------------
+
+
+class LaneOperator:
+    """B tenants' operators on ``(B, n)`` stacks, one row a tenant: the
+    operator of :func:`repro_torch.core.solve_batch`.
+
+    ``matvec(V)`` → ``(B, n)``; ``basis_matvec(W)`` on ``(B, k, n)``;
+    ``gated_matvec(V, active)`` behind the tenants' ``(B,)`` device flags.
+    Built by :func:`lane_operator`, which keeps one product per iteration
+    where the tenants share their operator's data (a shared-K Newton
+    batch, a stack of dense matrices) and falls back to one product per
+    tenant otherwise.
+    """
+
+    def __init__(self, ops):
+        self.ops = list(ops)
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.stack([op(v[i]) for i, op in enumerate(self.ops)])
+
+    def basis_matvec(self, basis: torch.Tensor) -> torch.Tensor:
+        return torch.stack([apply_to_basis(op, basis[i]) for i, op in enumerate(self.ops)])
+
+    def gated_matvec(self, v: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
+        rows = []
+        for i, op in enumerate(self.ops):
+            gated = getattr(op, "gated_matvec", None)
+            rows.append(op(v[i]) if gated is None else gated(v[i], active[i]))
+        return torch.stack(rows)
+
+    def __call__(self, v):
+        return self.matvec(v)
+
+
+class LaneDenseOperator(LaneOperator):
+    """B tenants' dense ``(n, n)`` matrices: on the card ONE batched product
+    of the ``(B, n, n)`` stack a call; on the CPU tenant by tenant, so each
+    lane multiplies as its own operator does (a batched product sums in
+    another order than a GEMV)."""
+
+    def __init__(self, ops):
+        super().__init__(ops)
+        self.mats = torch.stack([op.mat for op in self.ops])
+
+    def matvec(self, v: torch.Tensor) -> torch.Tensor:
+        if v.device.type == "cpu":
+            return super().matvec(v)
+        return torch.matmul(self.mats, v[..., None])[..., 0]
+
+    def basis_matvec(self, basis: torch.Tensor) -> torch.Tensor:
+        if basis.device.type == "cpu":
+            return super().basis_matvec(basis)
+        return torch.matmul(basis, self.mats.transpose(-2, -1))
+
+
+def lane_operator(ops):
+    """The batched operator of B tenants' operators ``ops``.
+
+    Tenants sharing a kernel product (``KernelSystemOperator`` with one
+    ``kernel_matvec``; ``RBFKernelSystemOperator`` over one ``x`` and the
+    same hyperparameters) become ONE ``KernelSystemOperator`` whose
+    ``sqrt_h`` is ``(B, n)``: ``K`` runs once per iteration on the
+    ``(n, B)`` stack (one matmul dense, one K3 call of r = B matrix-free,
+    gated by the tenants' flags).  Dense matrices become one batched
+    product.  Anything else runs tenant by tenant."""
+    first = ops[0]
+    if all(type(op) is RBFKernelSystemOperator for op in ops) and all(
+        op.x is first.x and (op.theta, op.lengthscale, op.block, op.backend)
+        == (first.theta, first.lengthscale, first.block, first.backend) for op in ops
+    ):
+        return RBFKernelSystemOperator(first.x, torch.stack([op.sqrt_h for op in ops]),
+                                       first.theta, first.lengthscale, first.block,
+                                       first.backend)
+    if all(type(op) is KernelSystemOperator for op in ops) and all(
+        op.kernel_matvec is first.kernel_matvec for op in ops
+    ):
+        return KernelSystemOperator(first.kernel_matvec, torch.stack([op.sqrt_h for op in ops]))
+    if all(type(op) is DenseMatrixOperator and op.mat.ndim == 2 for op in ops):
+        return LaneDenseOperator(ops)
+    return LaneOperator(ops)

@@ -155,3 +155,21 @@ def nystrom_preconditioner(
     return NystromPreconditioner(
         U, lam, torch.as_tensor(sigma, dtype=lam.dtype, device=lam.device)
     )
+
+
+class LanePreconditioner:
+    """B tenants' preconditioners on ``(B, n)`` stacks, tenant by tenant."""
+
+    def __init__(self, applies):
+        self.applies = list(applies)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return torch.stack([m(r[i]) for i, m in enumerate(self.applies)])
+
+
+def lane_preconditioner(applies):
+    """The batched apply of B tenants' ``M`` applies: one elementwise
+    division for Jacobi tenants, tenant by tenant otherwise."""
+    if all(isinstance(m, JacobiPreconditioner) for m in applies):
+        return JacobiPreconditioner(torch.stack([m.diag for m in applies]))
+    return LanePreconditioner(applies)

@@ -10,7 +10,9 @@ A solve that ends broken, or unconverged with a carried basis, climbs the
 reference's escalating recovery ladder (:func:`_one_recycled_solve`): a
 Python loop over rungs, one host read a rung (the clean path pays the
 one read that finds it clean), never one a step.  A clean solve reports
-rung 0, as the reference does.
+rung 0, as the reference does.  The same system step serves a batch of
+tenants (``solve_batch``, ``lanes=True``): every decision per lane, one
+host read where any lane must act.
 """
 
 from __future__ import annotations
@@ -22,7 +24,13 @@ import torch
 
 from repro_torch.core import operators as ops_mod
 from repro_torch.core.engine import SolveInfo
-from repro_torch.core.solvers import DEFAULT_WAW_JITTER, CGResult, defcg
+from repro_torch.core.solvers import (
+    DEFAULT_WAW_JITTER,
+    CGResult,
+    RecycleData,
+    defcg,
+    defcg_lanes,
+)
 from repro_torch.core.strategies import (
     HarmonicRitz,
     RecycleStrategy,
@@ -80,6 +88,27 @@ def harmonic_ritz_flat(
     return W, AW, theta
 
 
+def _lane_mask(mask: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """A per-system (0-d) or per-lane (``(B,)``) mask shaped to broadcast
+    against ``t``."""
+    return mask.reshape(mask.shape + (1,) * (t.ndim - mask.ndim))
+
+
+def _transition(strategy, w, aw, window, *, k, select, m_apply, lanes):
+    """``strategy.transition`` into ``(W', AW', θ, drift)``; on a lane axis
+    lane by lane (K4 and K5 once a lane), ``m_apply`` then the tenants'
+    own applies, the outputs stacked."""
+    if not lanes:
+        return strategy.transition(w, aw, window, k=k, select=select, m_apply=m_apply)
+    outs = []
+    for i in range(w.shape[0]):
+        win = RecycleData(P=window.P[i], AP=window.AP[i], stored=window.stored[i],
+                          alpha=window.alpha[i], beta=window.beta[i])
+        outs.append(strategy.transition(w[i], aw[i], win, k=k, select=select,
+                                        m_apply=None if m_apply is None else m_apply[i]))
+    return tuple(torch.stack([o[q] for o in outs]) for q in range(4))
+
+
 def _one_recycled_solve(
     A,
     b: torch.Tensor,
@@ -102,6 +131,8 @@ def _one_recycled_solve(
     recovery_rungs: int = 0,
     recovery_shift: float = 1e-6,
     stagnation_window: int = 0,
+    lanes: bool = False,
+    m_applies=None,
 ):
     """ONE system of the recycled def-CG step, on flat state.
 
@@ -109,6 +140,15 @@ def _one_recycled_solve(
     its cost; ``strategy.transition`` turns the recorded window into the
     next ``(W, AW, θ, drift)``.  ``M`` preconditions the solve (the
     split-preconditioned def-CG of :func:`repro_torch.core.solvers.defcg`).
+
+    ``lanes``: the same step for B tenants (``solve_batch``): ``b``
+    ``(B, n)``, state leaves with a leading B, ``A`` / ``M`` batched
+    (:func:`repro_torch.core.solvers.defcg_lanes`), ``m_applies`` the
+    tenants' own ``M`` applies for the transition.  Every decision below
+    is then per lane: the refresh runs when ANY lane needs it (one host
+    read) and each lane keeps its own result; a ladder rung runs when any
+    lane climbs it, the other lanes riding along on a zero right-hand
+    side (converged before iteration 1) and keeping their incumbent.
 
     ``recovery_rungs > 0`` arms the reference's recovery ladder.  When the
     attempt ends broken (``info.breakdown``), or unconverged with a
@@ -126,13 +166,16 @@ def _one_recycled_solve(
     A basis-less solve that fails without a breakdown never climbs.  Every
     attempt's matvecs are charged; the adopted ``x`` (and its ``info``) is
     the attempt with the smallest finite, unbroken residual, while the
-    basis comes from the last rung run.  Then the terminal retirement: a
-    solve still broken returns the finite warm start and a zeroed state.
+    basis comes from the last rung run.  One host read a rung decides
+    whether it runs.  Then the terminal retirement: a solve still broken
+    returns the finite warm start and a zeroed state.
 
     Returns ``(x, info, w_next, aw_next, theta, drift_next, rung)``;
     ``theta`` is ``None`` when ``ell == 0``, and ``rung`` (int32) is the
     highest rung run (0: clean, or the ladder disarmed).
     """
+    solve = defcg_lanes if lanes else defcg
+    m_apply = m_applies if lanes else M
     aw_used, refresh_matvecs, exact_aw, stale_guard = strategy.prepare(
         lambda ww: ops_mod.apply_to_basis(A, ww),
         w,
@@ -142,7 +185,7 @@ def _one_recycled_solve(
         refresh_aw=refresh_aw,
         tol=tol,
     )
-    result = defcg(
+    result = solve(
         A,
         b,
         x0,
@@ -163,88 +206,94 @@ def _one_recycled_solve(
         aw_used = result.recycle.aw_used
     info = result.info._replace(matvecs=result.info.matvecs + refresh_matvecs)
     if ell > 0:
-        w_next, aw_next, theta, drift_next = strategy.transition(
-            w, aw_used, result.recycle, k=k, select=select
-        )
+        w_next, aw_next, theta, drift_next = _transition(
+            strategy, w, aw_used, result.recycle, k=k, select=select, m_apply=m_apply,
+            lanes=lanes)
     else:
         w_next, aw_next, theta, drift_next = w, aw_used, None, drift
 
-    rung0 = torch.zeros((), dtype=torch.int32, device=b.device)
+    rung = torch.zeros(b.shape[:-1], dtype=torch.int32, device=b.device)
     if recovery_rungs <= 0:
-        return result.x, info, w_next, aw_next, theta, drift_next, rung0
+        return result.x, info, w_next, aw_next, theta, drift_next, rung
 
     rungs = min(int(recovery_rungs), MAX_RECOVERY_RUNGS)
-    x, rung = result.x, 0
-    broken, converged, had_basis = (
-        bool(v) for v in torch.stack([info.breakdown, info.converged, torch.any(w != 0)]).tolist()
-    )
+    x = result.x
+    had_basis = torch.any((w != 0).flatten(-2), dim=-1)
     for i in range(1, rungs + 1):
-        if not ((broken or not converged) and (had_basis or broken)
-                and (i < MAX_RECOVERY_RUNGS or broken)):
-            break
+        broken = info.breakdown
+        climb = (broken | ~info.converged) & (had_basis | broken)
+        if i == MAX_RECOVERY_RUNGS:
+            climb = climb & broken
         # Rung 1 keeps W with freshly refreshed products; rungs 2-3 zero
         # the basis; rung 3 also shifts the operator and gates M.
+        refresh = climb & had_basis if i == 1 else torch.zeros_like(climb)
+        any_climb, any_refresh = torch.stack([torch.any(climb), torch.any(refresh)]).tolist()
+        if not any_climb:
+            break
         w_att = w if i == 1 else torch.zeros_like(w)
-        refresh_charge = k if (i == 1 and had_basis) else 0
-        aw_att = (ops_mod.apply_to_basis(A, w) if refresh_charge
-                  else torch.zeros_like(w))
+        aw_att = torch.zeros_like(w)
+        if any_refresh:
+            aw_att = torch.where(_lane_mask(refresh, w), ops_mod.apply_to_basis(A, w), aw_att)
         A_att, M_att = A, M
         if i == MAX_RECOVERY_RUNGS:
             A_att = _shifted(A, recovery_shift)
             M_att = None if M is None else _identity
-        res = defcg(
-            A_att, b, x0, W=w_att, AW=aw_att, ell=ell, tol=tol, atol=atol,
+        res = solve(
+            A_att, torch.where(_lane_mask(climb, b), b, 0.0),
+            None if x0 is None else torch.where(_lane_mask(climb, x0), x0, 0.0),
+            W=w_att, AW=aw_att, ell=ell, tol=tol, atol=atol,
             maxiter=maxiter, record_residuals=record_residuals,
             waw_jitter=waw_jitter, exact_aw=True, M=M_att, stale_guard=None,
             stagnation_window=stagnation_window,
         )
         i2 = res.info
         if ell > 0:
-            w_next, aw_next, theta, drift_next = strategy.transition(
-                w_att, aw_att, res.recycle, k=k, select=select
-            )
+            w2, aw2, th2, d2 = _transition(strategy, w_att, aw_att, res.recycle, k=k,
+                                           select=select, m_apply=m_apply, lanes=lanes)
         else:
-            w_next, aw_next = w_att, aw_att
+            w2, aw2, th2, d2 = w_att, aw_att, None, drift_next
         # Adopt whichever attempt holds the better residual (a broken or
         # non-finite incumbent loses), and charge every attempt.
         warm_ok = torch.isfinite(info.residual_norm) & ~info.breakdown
-        take = ~warm_ok | (i2.residual_norm < info.residual_norm)
+        take = climb & (~warm_ok | (i2.residual_norm < info.residual_norm))
 
-        def pick(new, cur):
-            return None if new is None else torch.where(take, new, cur)
+        def pick(new, cur, sel=take):
+            return None if new is None else torch.where(_lane_mask(sel, new), new, cur)
 
-        x = torch.where(take, res.x, x)
+        x = pick(res.x, x)
         info = SolveInfo(
             iterations=pick(i2.iterations, info.iterations),
             converged=pick(i2.converged, info.converged),
             residual_norm=pick(i2.residual_norm, info.residual_norm),
-            matvecs=info.matvecs + i2.matvecs + refresh_charge,
+            matvecs=info.matvecs + torch.where(climb, i2.matvecs + k * refresh.to(torch.int32),
+                                               0),
             residual_norms=pick(i2.residual_norms, info.residual_norms),
             breakdown=pick(i2.breakdown, info.breakdown),
             status=pick(i2.status, info.status),
             guard_fired=info.guard_fired,
         )
-        rung = i
-        broken, converged = (bool(v) for v in torch.stack([info.breakdown,
-                                                             info.converged]).tolist())
+        # The basis comes from the last rung each lane ran.
+        w_next, aw_next = pick(w2, w_next, climb), pick(aw2, aw_next, climb)
+        theta = None if theta is None else pick(th2, theta, climb)
+        drift_next = pick(d2, drift_next, climb)
+        rung = torch.where(climb, i, rung).to(torch.int32)
 
     # The terminal retirement: a solve still broken after the ladder
     # returns finite coordinates and hands no poisoned subspace on.
     x_safe = torch.zeros_like(x) if x0 is None else x0.to(x.dtype)
     x_safe = torch.where(torch.isfinite(x_safe), x_safe, 0.0)
-    x = torch.where(torch.all(torch.isfinite(x)), x, x_safe)
+    x = torch.where(torch.all(torch.isfinite(x), dim=-1, keepdim=True), x, x_safe)
     retire = (
         info.breakdown
-        | ~torch.all(torch.isfinite(w_next))
-        | ~torch.all(torch.isfinite(aw_next))
+        | ~torch.all(torch.isfinite(w_next).flatten(-2), dim=-1)
+        | ~torch.all(torch.isfinite(aw_next).flatten(-2), dim=-1)
     )
-    w_next = torch.where(retire, 0.0, w_next)
-    aw_next = torch.where(retire, 0.0, aw_next)
+    w_next = torch.where(_lane_mask(retire, w_next), 0.0, w_next)
+    aw_next = torch.where(_lane_mask(retire, aw_next), 0.0, aw_next)
     if theta is not None:
-        theta = torch.where(retire, 0.0, theta)
+        theta = torch.where(_lane_mask(retire, theta), 0.0, theta)
     drift_next = torch.where(retire, torch.zeros_like(drift_next), drift_next)
-    return (x, info, w_next, aw_next, theta, drift_next,
-            torch.tensor(rung, dtype=torch.int32, device=b.device))
+    return x, info, w_next, aw_next, theta, drift_next, rung
 
 
 def _identity(v):
@@ -463,6 +512,11 @@ class RecycleManager:
     ) -> CGResult:
         tol = self.tol if tol is None else tol
         maxiter = self.maxiter if maxiter is None else maxiter
+        if self.strategy.needs_preconditioner and M is None:
+            raise ValueError(
+                f"strategy={type(self.strategy).__name__} extracts in the "
+                "preconditioner's geometry — pass M to every solve()"
+            )
         w_flat = self.W
         aw_flat = self.AW
         drift = self.state.drift if self.state is not None else 0.0
@@ -521,17 +575,17 @@ class RecycleManager:
                 )
             )
         self.systems_solved += 1
-        self._refresh(result, w_flat, aw_flat)
+        self._refresh(result, w_flat, aw_flat, M=M)
         return result
 
-    def _refresh(self, result: CGResult, w_flat, aw_flat) -> None:
+    def _refresh(self, result: CGResult, w_flat, aw_flat, M=None) -> None:
         rec = result.recycle
         if rec is None or int(rec.stored) == 0:
             # Nothing recorded (x0 was already exact): keep the basis.
             return
         k = min(self.k, rec.P.shape[0] + (0 if w_flat is None else w_flat.shape[0]))
         W_new, AW_new, theta, drift = self.strategy.transition(
-            w_flat, aw_flat, rec, k=k, select=self.select
+            w_flat, aw_flat, rec, k=k, select=self.select, m_apply=M
         )
         self.state = RecycleState(
             W=W_new,

@@ -139,13 +139,23 @@ def _make_applies(kind: str, aux, leaves, mesh: SolveMesh):
     x_loc, sh_loc = leaves
     x_full = mesh.all_gather(x_loc)
 
-    def product(u_full):  # this rank's rows of K(X, X) @ u_full
+    def product(u_full, gate=None):  # this rank's rows of K(X, X) @ u_full
         return kops.rbf_matvec_rect(
-            x_loc, x_full, u_full, theta, lengthscale, backend=backend, block=block
+            x_loc, x_full, u_full, theta, lengthscale, backend=backend, block=block,
+            gate=gate,
         )
 
     def apply(v):
         return v + sh_loc * product(mesh.all_gather(sh_loc * v))
+
+    def gated(v, gate):
+        """``apply`` behind the step's active flag (the same on every rank):
+        K8 skips its tiles and a frozen product is zeros."""
+        u_full = mesh.all_gather(sh_loc * v)
+        v_on = torch.where(gate, v, 0.0)
+        return v_on + sh_loc * product(u_full, gate)
+
+    apply.gated_matvec = gated  # engine.gated_matvec's hook
 
     def basis_apply(w):  # (k, n_loc): one multi-RHS pass
         u_full = mesh.all_gather(w * sh_loc[None, :], dim=1)
@@ -182,7 +192,7 @@ def _sharded_cg(apply, mesh, b, x0, *, tol, atol, maxiter, record_residuals,
     def step(state, active, row):
         del row  # CG records no window
         j, x, r, p, rnorm, trace, fail, stag = state
-        ap = apply(p)
+        ap = engine.gated_matvec(apply, p, active)
         d, rap, apap, rs = engine.psum_merged(
             [torch.dot(p, ap), torch.dot(r, ap), torch.dot(ap, ap), torch.dot(r, r)],
             mesh,
@@ -281,7 +291,7 @@ def _sharded_defcg(
 
     def step(state, active, row):
         j, x, r, p, rnorm, trace, fail, stag = state
-        ap = apply(p)
+        ap = engine.gated_matvec(apply, p, active)
         rap_l, awap_l, rs_l, awr_l = kops.fused_rz_pair(r, ap, aw_used)
         d, rap, apap, awap, rs, awr = engine.psum_merged(
             [torch.dot(p, ap), rap_l, torch.dot(ap, ap), awap_l, rs_l, awr_l], mesh

@@ -1,16 +1,29 @@
-"""Recycle strategies: the end-of-solve transition (harmonic Ritz).
+"""Recycle strategies: the end-of-solve transition, a pluggable axis.
 
-The counterpart of ``repro.core.strategies`` for the incumbent strategy,
-:class:`HarmonicRitz`: harmonic-Ritz extraction over ``Z = [W, P]`` in
-the Euclidean geometry, with the refresh policy of ``spec.refresh_aw``.
+The counterpart of ``repro.core.strategies``: a :class:`RecycleStrategy`
+owns the pre-solve refresh policy and the transition ``(recorded window,
+old state) → (next W, next AW, θ, drift)``, selected by
+``SolveSpec.strategy``.
+
+* :class:`HarmonicRitz` — harmonic-Ritz extraction over ``Z = [W, P]`` in
+  the Euclidean geometry, refresh per ``spec.refresh_aw``.
+* :class:`WindowedRecombine` — both ``W'`` and ``AW'`` recombined from the
+  recorded window (zero refresh matvecs), the next solve on the stale
+  products, guarded by the carried drift (the antisymmetry of the
+  extraction gram ``F``, ``fasym``) before the solve and by def-CG's
+  in-solve guard during its setup.
+* :class:`MGeometryHarmonic` — the extraction in the preconditioner's
+  geometry: ``G = (AZ)(M⁻¹AZ)ᵀ`` from one ``self_gram`` over the taller
+  stack ``[Z; AZ; M⁻¹AZ]``, so θ approximate eigenvalues of ``M⁻¹A``.
+
 The extraction reads the recorded window once through the ``self_gram``
 kernel and rebuilds the next ``W`` and ``AW`` through the
 ``recombine_blocks`` kernel; everything between is ``(2m, 2m)`` algebra.
 Under the sharded engine (``psum_axis``, a solve mesh) the n-reductions
-are taken per rank and all-reduced, and the rest stays as it is.
-``WindowedRecombine`` and ``MGeometryHarmonic`` come with ROADMAP queue 1,
-the other two strategies; until then :class:`MGeometryHarmonic` exists so that a spec can
-name it, and :func:`repro_torch.core.solve` refuses it.
+are taken per rank and all-reduced (``HarmonicRitz`` only, as in the
+reference).  A refresh decision is one host read a system; on a batch of
+tenants (``(B, k, n)`` bases) it is one read for "any lane", and each lane
+takes its own result by a ``where``.
 """
 
 from __future__ import annotations
@@ -21,10 +34,40 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from repro_torch.core import engine
-from repro_torch.core.solvers import RecycleData
+from repro_torch.core.solvers import DRIFT_NOISE_FLOOR_EPS, RecycleData
 from repro_torch.kernels import ops as kops
 
 FlatApply = Callable[[torch.Tensor], torch.Tensor]
+
+
+def _drift_threshold(guard: float, tol: float, dtype: torch.dtype) -> float:
+    """``guard × tol`` floored at the working dtype's drift-noise level
+    (``DRIFT_NOISE_FLOOR_EPS`` × eps): the one comparison scale of every
+    guard layer."""
+    return max(guard * tol, DRIFT_NOISE_FLOOR_EPS * torch.finfo(dtype).eps)
+
+
+def _has_basis(w: torch.Tensor) -> torch.Tensor:
+    """Whether a basis holds any nonzero row: 0-d for one ``(k, n)``
+    basis, ``(B,)`` for a batch of ``(B, k, n)``."""
+    return torch.any(w != 0) if w.ndim == 2 else torch.any((w != 0).flatten(1), dim=1)
+
+
+def _gated_basis_apply(apply_basis, pred, w, fallback, k: int):
+    """``(apply_basis(w) where pred else fallback, matvecs charged)``.
+
+    One host read decides whether the operator runs at all: for one
+    system ``pred`` itself (charge ``k`` or 0, a Python int); for a batch
+    whether ANY lane's ``pred`` holds, and then each lane takes its own
+    result by a ``where`` (charge ``k`` on the lanes that wanted it, an
+    int32 ``(B,)`` tensor) — no lane pays the operator unless some lane
+    needs it."""
+    if pred.ndim == 0:
+        return (apply_basis(w), k) if bool(pred) else (fallback, 0)
+    charge = k * pred.to(torch.int32)
+    if not bool(torch.any(pred)):
+        return fallback, charge
+    return torch.where(pred[:, None, None], apply_basis(w), fallback), charge
 
 
 def _eigh(mat: torch.Tensor):
@@ -72,6 +115,7 @@ def harmonic_ritz_flat_core(
     valid: Optional[torch.Tensor] = None,
     select: str = "largest",
     jitter: float = 1e-10,
+    m_apply: Optional[FlatApply] = None,
     psum_axis=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Masked flat harmonic-Ritz extraction over ``(m, n)`` row bases.
@@ -80,7 +124,14 @@ def harmonic_ritz_flat_core(
     needs (column norms, ``F = (AZ)Zᵀ``, ``G = (AZ)(AZ)ᵀ``); one
     ``recombine_blocks`` over the same ``S`` gives ``[W'; AW']``.
     Returns ``(W, AW, theta, fasym)`` of shapes ``(k, n), (k, n), (k,), ()``
-    where ``fasym`` is the relative asymmetry of the equilibrated ``F``.
+    where ``fasym`` is the relative asymmetry of the equilibrated ``F``
+    (with a stale ``AW`` block, a free proxy of ``‖AW − A·W‖``: the
+    :class:`WindowedRecombine` drift).
+
+    ``m_apply`` (a flat ``r ↦ M⁻¹r``) is the M-geometry of
+    :class:`MGeometryHarmonic`: the ``self_gram`` runs over the taller
+    stack ``[Z; AZ; M⁻¹AZ]`` (3m ≤ 128 rows) and ``G`` is its symmetrized
+    ``(AZ, M⁻¹AZ)`` block.
 
     ``psum_axis`` is the solve mesh (:class:`repro_torch.launch.SolveMesh`)
     the n columns are split over: the stacked gram and the row norms of
@@ -98,12 +149,24 @@ def harmonic_ritz_flat_core(
         AZ = AZ * vz
 
     S2 = torch.cat([Z, AZ], dim=0)  # (2m, n): gram + recombination
-    full = kops.self_gram(S2)
-    if psum_axis is not None:
-        (full,) = engine.psum_merged([full], psum_axis)
-    zz = torch.diagonal(full[:m, :m])
-    F_raw = full[m:, :m]
-    G = full[m:, m:]
+    if m_apply is None:
+        full = kops.self_gram(S2)
+        if psum_axis is not None:
+            (full,) = engine.psum_merged([full], psum_axis)
+        zz = torch.diagonal(full[:m, :m])
+        F_raw = full[m:, :m]
+        G = full[m:, m:]
+    else:
+        # One taller stack: the same single self-gram also holds
+        # G = (AZ)(M⁻¹AZ)ᵀ (M⁻¹ symmetric: symmetric to rounding).
+        MAZ = torch.stack([m_apply(row) for row in AZ])
+        full = kops.self_gram(torch.cat([S2, MAZ.to(S2.dtype)], dim=0))
+        if psum_axis is not None:
+            (full,) = engine.psum_merged([full], psum_axis)
+        zz = torch.diagonal(full[:m, :m])
+        F_raw = full[m:2 * m, :m]
+        G = full[m:2 * m, 2 * m:]
+        G = 0.5 * (G + G.T)
 
     dz = torch.where(zz > 0, torch.rsqrt(zz), 0.0)
     G = G * dz[:, None] * dz[None, :]
@@ -160,12 +223,14 @@ def extract_next_basis_core(
     *,
     select: str = "largest",
     jitter: float = 1e-10,
+    m_apply: Optional[FlatApply] = None,
     psum_axis=None,
 ):
     """One cross-system extraction over ``Z = [W, P]`` with a device-side
     validity mask: W rows where nonzero, P rows below ``stored``.
-    ``psum_axis`` (see :func:`harmonic_ritz_flat_core`) all-reduces the W
-    rows' norms with the gram's reductions."""
+    ``m_apply`` extracts in the M-geometry; ``psum_axis`` (see
+    :func:`harmonic_ritz_flat_core`) all-reduces the W rows' norms with
+    the gram's reductions."""
     ell = p_flat.shape[0]
     p_valid = torch.arange(ell, device=p_flat.device) < stored
     if w_flat is None:
@@ -178,7 +243,8 @@ def extract_next_basis_core(
             (wsq,) = engine.psum_merged([wsq], psum_axis)
         valid = torch.cat([wsq > 0, p_valid])
     return harmonic_ritz_flat_core(
-        Z, AZ, k, valid=valid, select=select, jitter=jitter, psum_axis=psum_axis
+        Z, AZ, k, valid=valid, select=select, jitter=jitter, m_apply=m_apply,
+        psum_axis=psum_axis,
     )
 
 
@@ -187,9 +253,13 @@ class RecycleStrategy:
     """Owner of the per-system refresh policy and end-of-solve transition.
 
     * :meth:`prepare` — before the solve: ``(aw_used, refresh_matvecs,
-      exact_aw, stale_guard)``.
+      exact_aw, stale_guard)``; ``exact_aw`` (a Python bool) picks def-CG's
+      setup path, ``stale_guard`` (a float or None) arms its in-solve
+      drift guard.  On a batch (``(B, k, n)`` bases) ``refresh_matvecs``
+      is an int32 ``(B,)`` tensor.
     * :meth:`transition` — after the solve: ``(W', AW', theta, drift)``
-      from the recorded window.
+      from the recorded window; ``m_apply`` is the flat ``M⁻¹`` apply of a
+      preconditioned solve (only the M-geometry reads it).
     * :meth:`manager_wants_refresh` — the host-side mirror of
       :meth:`prepare` for :class:`repro_torch.core.recycle.RecycleManager`.
     """
@@ -199,7 +269,8 @@ class RecycleStrategy:
         raise NotImplementedError
 
     def transition(self, w, aw, window: RecycleData, *, k: int,
-                   select: str = "largest", jitter: float = 1e-10):
+                   select: str = "largest", jitter: float = 1e-10,
+                   m_apply: Optional[FlatApply] = None):
         raise NotImplementedError
 
     def manager_wants_refresh(self, refresh_aw: str, drift, tol: float) -> bool:
@@ -212,7 +283,12 @@ class RecycleStrategy:
 
     @property
     def needs_preconditioner(self) -> bool:
+        """Whether the transition is meaningless without an ``M`` apply."""
         return False
+
+
+def _zero_drift(ref: torch.Tensor) -> torch.Tensor:
+    return torch.zeros((), dtype=ref.dtype, device=ref.device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,16 +306,17 @@ class HarmonicRitz(RecycleStrategy):
         del drift, tol
         if refresh_aw == "stale":
             return aw_carry, 0, False, None
-        if bool(torch.any(w != 0)):
-            return apply_basis(w), k, True, None
-        return torch.zeros_like(w), 0, True, None
+        aw, charge = _gated_basis_apply(apply_basis, _has_basis(w), w, torch.zeros_like(w), k)
+        return aw, charge, True, None
 
-    def transition(self, w, aw, window, *, k, select="largest", jitter=1e-10):
+    def transition(self, w, aw, window, *, k, select="largest", jitter=1e-10,
+                   m_apply=None):
+        del m_apply  # Euclidean geometry
         W, AW, theta, _ = extract_next_basis_core(
             w, aw, window.P, window.AP, window.stored, k,
             select=select, jitter=jitter,
         )
-        return W, AW, theta, torch.zeros((), dtype=W.dtype, device=W.device)
+        return W, AW, theta, _zero_drift(W)
 
     def manager_wants_refresh(self, refresh_aw, drift, tol):
         del drift, tol
@@ -247,6 +324,91 @@ class HarmonicRitz(RecycleStrategy):
 
 
 @dataclasses.dataclass(frozen=True)
+class WindowedRecombine(RecycleStrategy):
+    """Zero-matvec windowed refresh with a drift guard.
+
+    Both ``W'`` and ``AW'`` come from recombining the recorded window (one
+    ``recombine_blocks``), the next solve deflates with the stale
+    products and re-derives ``r₀`` with one true matvec: ``iterations + 2``
+    matvecs a system, no k-matvec refresh.  Two guard layers, neither
+    spending a speculative matvec:
+
+    1. *pre-solve* — when the CARRIED drift (the gram asymmetry ``fasym``
+       the previous transition measured) exceeds ``guard × tol``,
+       :meth:`prepare` refreshes up front (k matvecs);
+    2. *in-solve* — def-CG's ``stale_guard``: ``‖(A·W − AW)c‖``, measured
+       by the stale setup on THIS system, refreshes and redoes the
+       deflated guess before the first iteration.
+
+    Both thresholds are floored at ~500·eps of the working dtype, so an
+    unchanged operator (stale products exact to rounding) never buys a
+    refresh.  ``guard = inf`` never refreshes; ``guard = 0`` refreshes on
+    any drift above that floor.
+    """
+
+    guard: float = 0.1
+
+    def in_solve_guard(self, tol: float) -> float:
+        """The threshold armed as ``defcg(stale_guard=…)`` (def-CG floors
+        it at the dtype's noise level)."""
+        return self.guard * tol
+
+    def prepare(self, apply_basis, w, aw_carry, drift, *, k, refresh_aw,
+                tol=1e-5):
+        del refresh_aw  # the guard is the policy, not the spec flag
+        threshold = _drift_threshold(self.guard, tol, w.dtype)
+        refresh = _has_basis(w) & (torch.as_tensor(drift, device=w.device) > threshold)
+        aw, charge = _gated_basis_apply(apply_basis, refresh, w, aw_carry, k)
+        # exact_aw=False even when the guard just refreshed: the stale
+        # setup's true-matvec r₀ is the one path for every system.
+        return aw, charge, False, self.in_solve_guard(tol)
+
+    def transition(self, w, aw, window, *, k, select="largest", jitter=1e-10,
+                   m_apply=None):
+        del m_apply
+        W, AW, theta, fasym = extract_next_basis_core(
+            w, aw, window.P, window.AP, window.stored, k,
+            select=select, jitter=jitter,
+        )
+        return W, AW, theta, fasym.to(W.dtype)
+
+    def manager_wants_refresh(self, refresh_aw, drift, tol):
+        del refresh_aw
+        d = torch.as_tensor(drift)
+        dtype = d.dtype if d.dtype.is_floating_point else torch.float32
+        return bool(d > _drift_threshold(self.guard, tol, dtype))
+
+
+@dataclasses.dataclass(frozen=True)
 class MGeometryHarmonic(RecycleStrategy):
-    """Harmonic extraction in the preconditioner's geometry — not ported
-    yet (ROADMAP queue 1, the other two strategies): the front door refuses it."""
+    """Harmonic extraction in the preconditioner's geometry.
+
+    The exact refresh of :class:`HarmonicRitz` (whatever ``refresh_aw``
+    says), but the transition passes the ``M⁻¹`` apply into the grams, so
+    θ approximate eigenvalues of the effective operator ``M⁻¹A`` and
+    ``select`` targets what the preconditioner leaves behind.  Needs a
+    preconditioned spec (``SolveSpec`` checks it); with no ``M`` at the
+    transition it is the Euclidean extraction.
+    """
+
+    def prepare(self, apply_basis, w, aw_carry, drift, *, k, refresh_aw,
+                tol=1e-5):
+        del aw_carry, drift, refresh_aw, tol
+        aw, charge = _gated_basis_apply(apply_basis, _has_basis(w), w, torch.zeros_like(w), k)
+        return aw, charge, True, None
+
+    def transition(self, w, aw, window, *, k, select="largest", jitter=1e-10,
+                   m_apply=None):
+        W, AW, theta, _ = extract_next_basis_core(
+            w, aw, window.P, window.AP, window.stored, k,
+            select=select, jitter=jitter, m_apply=m_apply,
+        )
+        return W, AW, theta, _zero_drift(W)
+
+    def manager_wants_refresh(self, refresh_aw, drift, tol):
+        del refresh_aw, drift, tol
+        return True
+
+    @property
+    def needs_preconditioner(self) -> bool:
+        return True

@@ -33,7 +33,19 @@
 // round-to-nearest per op: nvcc would fuse a*a + b*b into an FMA), so the
 // card's scalars are bit for bit those of the plain versions beside the
 // wrappers.  fused_rz_reduce has a third arm, the sharded def-CG's pair of
-// reductions in one read.
+// reductions in one read.  lsmr_update's stall detector is compiled into
+// its armed step arm only (a STALL template argument), so its window 0 runs
+// the code it ran without one; fused_cg_update's is a runtime branch on the
+// window, so both of its arms run the one kernel.
+//
+// The step arms of fused_cg_update, fused_rz_reduce and
+// fused_deflate_direction have a lane axis for batched solves: B
+// independent steps in one launch (gridDim.y = B; the *_lanes kernels).
+// Lane blockIdx.y moves every pointer to its own data (per-lane scalars at
+// any lane stride, passed in a lane-only argument), takes the loads and
+// the block count a one-lane launch on its data would take, and runs the
+// one-lane body, so each lane's sums and scalars are bit for bit a
+// one-lane launch's.
 //
 // Plain C interface: every entry point returns cudaGetLastError() (0 = ok)
 // and launches on the stream it is given.  Scratch and outputs are allocated
@@ -87,7 +99,9 @@ __device__ __forceinline__ void store_block_partials(const T (&acc)[Q * (KMAX + 
   }
 }
 
-// The one-launch reduction of K1 and K6.  Every block writes its partials,
+// The one-launch reduction of K1 and K6 over `blocks` blocks (gridDim.x of
+// a one-lane launch; a lane's own count on the lane axis, whose grid is as
+// wide as its widest lane).  Every block writes its partials,
 // then takes an integer ticket; `after_ticket` runs between the ticket and
 // the block's learning whether it drew the last one (K1 stores its last
 // chunk there, so the partials' fence waits on no vector store).  The block
@@ -100,13 +114,13 @@ __device__ __forceinline__ void store_block_partials(const T (&acc)[Q * (KMAX + 
 template <typename T, int Q, int KMAX, typename AfterTicket>
 __device__ __forceinline__ bool ticket_sums(const T (&acc)[Q * (KMAX + 1)], int k,
                                             T* __restrict__ partials, unsigned* counter,
-                                            T* col, AfterTicket after_ticket) {
+                                            int blocks, T* col, AfterTicket after_ticket) {
   store_block_partials<T, Q, KMAX>(acc, k, partials);
   const int width = Q * (k + 1);
   __shared__ bool last;
   if ((int)threadIdx.x < width) __threadfence();  // the partials' writers
   __syncthreads();
-  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == gridDim.x - 1;
+  if (threadIdx.x == 0) last = atomicAdd(counter, 1u) == (unsigned)blocks - 1;
   after_ticket();
   __syncthreads();
   if (!last) return false;
@@ -114,7 +128,6 @@ __device__ __forceinline__ bool ticket_sums(const T (&acc)[Q * (KMAX + 1)], int 
   constexpr int kLoads = 8;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int blocks = (int)gridDim.x;
   for (int cc = warp; cc < width; cc += kWarps) {
     T sum = T(0);
     for (int b0 = 0; b0 < blocks; b0 += 32 * kLoads) {
@@ -256,6 +269,19 @@ inline int stride_grid(int resident, int64_t units, int cap) {
 // p select).  Outputs go to fresh buffers: so = [rr, rnorm, alpha, beta,
 // mu], jo = [j, fail], bo = [active, keep].
 
+// The step arms' lane axis (gridDim.y lanes, launched by the *_lanes
+// kernels only, so a one-lane launch takes the one-lane arguments alone):
+// elements between two lanes' per-lane scalars (ls, in each arm's order),
+// rows between two lanes' partials, and the block counts of a lane that
+// takes 16-byte or element loads.  Vectors are (lanes, n), bases (lanes, k,
+// n), recording buffers (lanes, ell + 1, n).
+struct Lanes {
+  int64_t ls[8];
+  int64_t partials;
+  int blocks_vec;
+  int blocks_elem;
+};
+
 template <typename T>
 struct CgArgs {
   const T* x;
@@ -295,6 +321,46 @@ struct CgArgs {
   int* jo;
   bool* bo;
 };
+
+enum CgLaneScalar { kLsD, kLsRs, kLsRnorm, kLsThreshold, kLsDiverged, kLsJs, kLsActive, kLsBest };
+
+// Lane blockIdx.y of the step arm's lane axis: every pointer moved to its
+// lane, so a lane's blocks run the one-lane arm on that lane's data (same
+// grid along x, same sums in the same order).
+template <typename T>
+__device__ __forceinline__ CgArgs<T> cg_lane(CgArgs<T> a, const Lanes& l) {
+  const int64_t lane = blockIdx.y;
+  if (lane == 0) return a;
+  const int64_t n = a.n, k = a.k, armed = a.window > 0;
+  const int64_t v = lane * n;
+  a.x += v;
+  a.r += v;
+  a.p += v;
+  a.ap += v;
+  a.xo += v;
+  a.ro += v;
+  if (a.aw != nullptr) a.aw += lane * k * n;
+  if (a.waw_inv != nullptr) a.waw_inv += lane * k * k;
+  a.partials += lane * l.partials;
+  a.counter += lane;
+  a.d += lane * l.ls[kLsD];
+  a.rs += lane * l.ls[kLsRs];
+  a.rnorm += lane * l.ls[kLsRnorm];
+  a.threshold += lane * l.ls[kLsThreshold];
+  a.diverged_at += lane * l.ls[kLsDiverged];
+  a.js += lane * l.ls[kLsJs];
+  a.active += lane * l.ls[kLsActive];
+  if (a.best != nullptr) a.best += lane * l.ls[kLsBest];
+  if (a.trace != nullptr) a.trace += lane * (a.maxiter + 2);
+  if (a.a_rows != nullptr) {
+    a.a_rows += lane * (a.ell + 1);
+    a.b_rows += lane * (a.ell + 1);
+  }
+  a.so += lane * (4 + k + armed);
+  a.jo += lane * (2 + armed);
+  a.bo += lane * 2;
+  return a;
+}
 
 // Elements a thread loads at once: two 16-byte groups, or four elements
 // (half that past k = 8 rows of AW, where the registers run out).
@@ -351,14 +417,17 @@ struct CgChunk {
   }
 };
 
+// `blocks` is unsigned, as gridDim.x is: an int block count, sign-extended
+// into the 64-bit stride, took K1's element-load step kernel from 160 to
+// 171 registers and 0.2-0.4 us on the H100.
 template <typename T, int KMAX, bool VEC, bool TAIL>
-__global__ void __launch_bounds__(kThreads) cg_update(const CgArgs<T> a) {
+__device__ __forceinline__ void cg_update_body(const CgArgs<T>& a, unsigned blocks) {
   using L = CgLayout<T, KMAX, VEC>;
   constexpr int S = L::kSlots, W = L::kWidth;
   const int k = a.k;
   const int64_t n = a.n;
   const int64_t units = n / W;
-  const int64_t stride = (int64_t)gridDim.x * kThreads * S;
+  const int64_t stride = (int64_t)blocks * kThreads * S;
   int64_t base = (int64_t)blockIdx.x * kThreads * S;
 
   // The first step's vectors are in flight before the scalars are formed.
@@ -452,7 +521,9 @@ __global__ void __launch_bounds__(kThreads) cg_update(const CgArgs<T> a) {
 
   // Partials, then the ticket: the block that draws the last one sums them.
   __shared__ T col[KMAX + 1];
-  if (!ticket_sums<T, 1, KMAX>(acc, k, a.partials, a.counter, col, store_done)) return;
+  if (!ticket_sums<T, 1, KMAX>(acc, k, a.partials, a.counter, (int)blocks, col, store_done)) {
+    return;
+  }
   if (threadIdx.x == 0) *a.counter = 0u;
   if constexpr (TAIL) {
     __shared__ T winv_s[kMaxK * kMaxK];
@@ -494,6 +565,42 @@ __global__ void __launch_bounds__(kThreads) cg_update(const CgArgs<T> a) {
   } else {
     if (threadIdx.x == 0) *a.rr = col[0];
     if ((int)threadIdx.x < k) a.awr[threadIdx.x] = col[threadIdx.x + 1];
+  }
+}
+
+inline __host__ __device__ bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// The loads of K1's launch: 16-byte where every vector and every row of AW
+// is 16-byte aligned.  The host applies it to a one-lane launch, a lane of
+// the lane axis to itself, so each lane loads as a one-lane launch on its
+// data would.
+template <typename T>
+__host__ __device__ __forceinline__ bool cg_vec(const CgArgs<T>& a) {
+  const bool rows = (a.n * (int64_t)sizeof(T)) % 16 == 0;
+  return aligned16(a.x) && aligned16(a.r) && aligned16(a.p) && aligned16(a.ap) &&
+         aligned16(a.xo) && aligned16(a.ro) && (a.k == 0 || (aligned16(a.aw) && rows));
+}
+
+// The one-lane kernel reads its arguments where the launch put them.
+template <typename T, int KMAX, bool VEC, bool TAIL>
+__global__ void __launch_bounds__(kThreads) cg_update(const CgArgs<T> a) {
+  cg_update_body<T, KMAX, VEC, TAIL>(a, gridDim.x);
+}
+
+// The step arm's lane axis: lane blockIdx.y moves the arguments to its data,
+// takes the loads and the block count a one-lane launch on that data takes
+// (the grid along x is the wider of the two counts), and runs the one-lane
+// body: its sums in the one-lane order, bit for bit.
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(kThreads) cg_update_lanes(const CgArgs<T> a_in, const Lanes l) {
+  const CgArgs<T> a = cg_lane(a_in, l);
+  const bool vec = cg_vec(a);
+  const int blocks = vec ? l.blocks_vec : l.blocks_elem;
+  if ((int)blockIdx.x >= blocks) return;
+  if (vec) {
+    cg_update_body<T, KMAX, true, true>(a, (unsigned)blocks);
+  } else {
+    cg_update_body<T, KMAX, false, true>(a, (unsigned)blocks);
   }
 }
 
@@ -551,8 +658,30 @@ struct RzArgs {
   int ell;
 };
 
+template <typename T>
+__device__ __forceinline__ RzArgs<T> rz_lane(RzArgs<T> a, const Lanes& l) {
+  const int64_t lane = blockIdx.y;
+  if (lane == 0) return a;
+  const int64_t n = a.n, k = a.k;
+  a.r += lane * n;
+  a.z += lane * n;
+  if (a.aw != nullptr) a.aw += lane * k * n;
+  if (a.waw_inv != nullptr) a.waw_inv += lane * k * k;
+  a.partials += lane * l.partials;
+  a.counter += lane;
+  a.out += lane * (2 + k);
+  a.rs += lane * l.ls[0];
+  if (a.row >= 0) {
+    a.alpha += lane * l.ls[1];
+    a.active += lane * l.ls[2];
+    a.a_rows += lane * (a.ell + 1);
+    a.b_rows += lane * (a.ell + 1);
+  }
+  return a;
+}
+
 template <typename T, int KMAX, bool VEC, int MODE>
-__global__ void __launch_bounds__(kThreads) rz_reduce(const RzArgs<T> a) {
+__device__ __forceinline__ void rz_reduce_body(const RzArgs<T>& a, int blocks) {
   using L = CgLayout<T, KMAX, VEC>;
   constexpr int S = L::kSlots, W = L::kWidth;
   constexpr int Q = MODE == kRzPair ? 2 : 1;
@@ -560,7 +689,7 @@ __global__ void __launch_bounds__(kThreads) rz_reduce(const RzArgs<T> a) {
   const int k = a.k;
   const int64_t n = a.n;
   const int64_t units = n / W;
-  const int64_t stride = (int64_t)gridDim.x * kThreads * S;
+  const int64_t stride = (int64_t)blocks * kThreads * S;
   T acc[Q * (KMAX + 1)];
 #pragma unroll
   for (int j = 0; j < Q * (KMAX + 1); ++j) acc[j] = T(0);
@@ -631,7 +760,7 @@ __global__ void __launch_bounds__(kThreads) rz_reduce(const RzArgs<T> a) {
   }
 
   __shared__ T col[Q * (KMAX + 1)];
-  if (!ticket_sums<T, Q, KMAX>(acc, k, a.partials, a.counter, col, [] {})) return;
+  if (!ticket_sums<T, Q, KMAX>(acc, k, a.partials, a.counter, blocks, col, [] {})) return;
   if (threadIdx.x == 0) *a.counter = 0u;
   if constexpr (MODE == kRzStep) {
     __shared__ T winv_s[kMaxK * kMaxK];
@@ -655,6 +784,32 @@ __global__ void __launch_bounds__(kThreads) rz_reduce(const RzArgs<T> a) {
     }
   } else {
     if ((int)threadIdx.x < Q * (k + 1)) a.out[threadIdx.x] = col[threadIdx.x];
+  }
+}
+
+// K6's loads: 16-byte where r, z and every row of AW are 16-byte aligned.
+template <typename T>
+__host__ __device__ __forceinline__ bool rz_vec(const RzArgs<T>& a) {
+  return aligned16(a.r) && aligned16(a.z) &&
+         (a.k == 0 || (aligned16(a.aw) && (a.n * (int64_t)sizeof(T)) % 16 == 0));
+}
+
+template <typename T, int KMAX, bool VEC, int MODE>
+__global__ void __launch_bounds__(kThreads) rz_reduce(const RzArgs<T> a) {
+  rz_reduce_body<T, KMAX, VEC, MODE>(a, (int)gridDim.x);
+}
+
+// The step arm's lane axis, as K1's (cg_update_lanes).
+template <typename T, int KMAX>
+__global__ void __launch_bounds__(kThreads) rz_reduce_lanes(const RzArgs<T> a_in, const Lanes l) {
+  const RzArgs<T> a = rz_lane(a_in, l);
+  const bool vec = rz_vec(a);
+  const int blocks = vec ? l.blocks_vec : l.blocks_elem;
+  if ((int)blockIdx.x >= blocks) return;
+  if (vec) {
+    rz_reduce_body<T, KMAX, true, kRzStep>(a, blocks);
+  } else {
+    rz_reduce_body<T, KMAX, false, kRzStep>(a, blocks);
   }
 }
 
@@ -703,8 +858,31 @@ struct DirArgs {
   int ell;
 };
 
+template <typename T>
+__device__ __forceinline__ DirArgs<T> dir_lane(DirArgs<T> a, const Lanes& l) {
+  const int64_t lane = blockIdx.y;
+  if (lane == 0) return a;
+  const int64_t n = a.n, k = a.k;
+  a.z += lane * n;
+  a.p += lane * n;
+  a.po += lane * n;
+  if (a.w != nullptr) {
+    a.w += lane * k * n;
+    a.mu += lane * l.ls[1];
+  }
+  a.beta += lane * l.ls[0];
+  a.keep += lane * l.ls[2];
+  if (a.p_buf != nullptr) {
+    a.ap += lane * n;
+    a.p_buf += lane * (a.ell + 1) * n;
+    a.ap_buf += lane * (a.ell + 1) * n;
+    a.active += lane * l.ls[3];
+  }
+  return a;
+}
+
 template <typename T, int KMAX, bool VEC, bool STEP>
-__global__ void __launch_bounds__(kThreads) deflate_direction(const DirArgs<T> a) {
+__device__ __forceinline__ void deflate_direction_body(const DirArgs<T>& a) {
   constexpr int W = VEC ? kVec<T> : 1;
   constexpr int KA = KMAX > 0 ? KMAX : 1;
   const int k = a.k;
@@ -778,6 +956,19 @@ __global__ void __launch_bounds__(kThreads) deflate_direction(const DirArgs<T> a
       apb[tail] = a.ap[tail];
     }
   }
+}
+
+template <typename T, int KMAX, bool VEC, bool STEP>
+__global__ void __launch_bounds__(kThreads) deflate_direction(const DirArgs<T> a) {
+  deflate_direction_body<T, KMAX, VEC, STEP>(a);
+}
+
+// The step arm's lane axis: lane blockIdx.y on its own data.  No reduction,
+// so the loads (one choice for every lane) do not move a bit.
+template <typename T, int KMAX, bool VEC>
+__global__ void __launch_bounds__(kThreads) deflate_direction_lanes(const DirArgs<T> a,
+                                                                    const Lanes l) {
+  deflate_direction_body<T, KMAX, VEC, true>(dir_lane(a, l));
 }
 
 // ---------------------------------------------------------------------------
@@ -1296,7 +1487,7 @@ struct LsmrScalars {
 
 // The step's scalar recurrence, in the eager loop's order; `store` (one
 // thread of the grid) also writes the next scalar state.
-template <typename T>
+template <typename T, bool STALL>
 __device__ __forceinline__ LsmrCoefficients<T> lsmr_tail(const LsmrArgs<T>& a, const LsmrScalars<T>& sc,
                                          bool store) {
   const T (&s)[kLsmrSlots] = sc.s;
@@ -1323,7 +1514,7 @@ __device__ __forceinline__ LsmrCoefficients<T> lsmr_tail(const LsmrArgs<T>& a, c
     int fail = sc.fail;
     if (fail == 0 && active && !finite(normar)) fail = kBreakdownNonfinite;
     if (fail == 0 && active && normar > sc.diverged_at) fail = kStagnated;
-    if (a.window > 0) {
+    if constexpr (STALL) {
       stagnation_step(a.s[kLsmrSlots], a.js[2], normar, active, a.window, &fail,
                       a.so + kLsmrSlots, a.jo + 2);
     }
@@ -1340,7 +1531,7 @@ __device__ __forceinline__ LsmrCoefficients<T> lsmr_tail(const LsmrArgs<T>& a, c
   return t;
 }
 
-template <typename T, bool STEP, bool VEC>
+template <typename T, bool STEP, bool VEC, bool STALL>
 __global__ void __launch_bounds__(kThreads) lsmr_update(const LsmrArgs<T> a) {
   constexpr int W = VEC ? kVec<T> : 1;
   const int64_t units = a.n / W;
@@ -1360,7 +1551,7 @@ __global__ void __launch_bounds__(kThreads) lsmr_update(const LsmrArgs<T> a) {
   if constexpr (STEP) {
     LsmrScalars<T> sc;
     sc.load(a);
-    const LsmrCoefficients<T> t = lsmr_tail(a, sc, blockIdx.x == 0 && threadIdx.x == 0);
+    const LsmrCoefficients<T> t = lsmr_tail<T, STALL>(a, sc, blockIdx.x == 0 && threadIdx.x == 0);
     if (!t.active) {  // a frozen step: every vector keeps its value
       for (int64_t i = first; i < a.n; i += stride) {
         a.xo[i] = a.x[i];
@@ -1415,128 +1606,178 @@ __global__ void __launch_bounds__(kThreads) lsmr_update(const LsmrArgs<T> a) {
 // host launchers
 // ---------------------------------------------------------------------------
 
-inline bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
+// Blocks of a one-lane K1 launch; a lane of the lane axis takes the count
+// a one-lane launch on its data takes, so the lane axis does not move the
+// sums.
 template <typename T, int KMAX, bool VEC, bool TAIL>
-cudaError_t launch_cg_kernel(const CgArgs<T>& a, int capacity, cudaStream_t st) {
-  const auto kernel = cg_update<T, KMAX, VEC, TAIL>;
+cudaError_t cg_blocks(int64_t n, int capacity, int* out) {
   static int resident = 0;  // once per instantiation
   if (resident == 0) {
-    const cudaError_t err = resident_blocks(kernel, &resident);
+    const cudaError_t err = resident_blocks(cg_update<T, KMAX, VEC, TAIL>, &resident);
     if (err != cudaSuccess) return err;
   }
   // Threads the grid needs: one per kSlots slots.
   constexpr int kSlots = CgLayout<T, KMAX, VEC>::kSlots;
-  const int64_t units = VEC ? a.n / kVec<T> : a.n;
-  kernel<<<stride_grid(resident, (units + kSlots - 1) / kSlots, capacity), kThreads, 0, st>>>(a);
+  const int64_t units = VEC ? n / kVec<T> : n;
+  *out = stride_grid(resident, (units + kSlots - 1) / kSlots, capacity);
+  return cudaSuccess;
+}
+
+template <typename T, int KMAX, bool VEC, bool TAIL>
+cudaError_t launch_cg_kernel(const CgArgs<T>& a, int capacity, cudaStream_t st) {
+  int blocks = 0;
+  const cudaError_t err = cg_blocks<T, KMAX, VEC, TAIL>(a.n, capacity, &blocks);
+  if (err != cudaSuccess) return err;
+  cg_update<T, KMAX, VEC, TAIL><<<blocks, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
-// 16-byte loads when every vector and every row of AW is 16-byte aligned.
-template <typename T, int KMAX, bool TAIL>
-cudaError_t launch_cg_aligned(const CgArgs<T>& a, int capacity, cudaStream_t st) {
-  const bool vec = aligned16(a.x) && aligned16(a.r) && aligned16(a.p) && aligned16(a.ap) &&
-                   aligned16(a.xo) && aligned16(a.ro) &&
-                   (a.k == 0 || (aligned16(a.aw) && (a.n * (int64_t)sizeof(T)) % 16 == 0));
-  return vec ? launch_cg_kernel<T, KMAX, true, TAIL>(a, capacity, st)
-             : launch_cg_kernel<T, KMAX, false, TAIL>(a, capacity, st);
+template <typename T, int KMAX>
+cudaError_t launch_cg_lanes(const CgArgs<T>& a, int capacity, int lanes, Lanes l,
+                            cudaStream_t st) {
+  l.partials = (int64_t)capacity * 2 * (kMaxK + 1);
+  cudaError_t err = cg_blocks<T, KMAX, true, true>(a.n, capacity, &l.blocks_vec);
+  if (err == cudaSuccess) err = cg_blocks<T, KMAX, false, true>(a.n, capacity, &l.blocks_elem);
+  if (err != cudaSuccess) return err;
+  const int wide = l.blocks_vec > l.blocks_elem ? l.blocks_vec : l.blocks_elem;
+  cg_update_lanes<T, KMAX><<<dim3(wide, lanes), kThreads, 0, st>>>(a, l);
+  return cudaGetLastError();
 }
 
-// `capacity`: the blocks the partials buffer has rows for.
+template <typename T, int KMAX, bool TAIL>
+cudaError_t launch_cg_arm(const CgArgs<T>& a, int capacity, int lanes, const Lanes& l,
+                          cudaStream_t st) {
+  if (TAIL && lanes > 1) return launch_cg_lanes<T, KMAX>(a, capacity, lanes, l, st);
+  return cg_vec(a) ? launch_cg_kernel<T, KMAX, true, TAIL>(a, capacity, st)
+                   : launch_cg_kernel<T, KMAX, false, TAIL>(a, capacity, st);
+}
+
+// `capacity`: the blocks the partials buffer has rows for (a lane's rows:
+// lane i's partials start at row i * capacity, its counter at counter + i).
 template <typename T, bool TAIL>
-int launch_cg(const CgArgs<T>& a, int capacity, void* stream) {
-  if (a.k < 0 || a.k > kMaxK || a.n < 1 || capacity < 1) return (int)cudaErrorInvalidValue;
+int launch_cg(const CgArgs<T>& a, int capacity, int lanes, const Lanes& l, void* stream) {
+  if (a.k < 0 || a.k > kMaxK || a.n < 1 || capacity < 1 || lanes < 1 || (!TAIL && lanes != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (a.k == 0) {
-    err = launch_cg_aligned<T, 0, TAIL>(a, capacity, st);
+    err = launch_cg_arm<T, 0, TAIL>(a, capacity, lanes, l, st);
   } else if (a.k <= 8) {
-    err = launch_cg_aligned<T, 8, TAIL>(a, capacity, st);
+    err = launch_cg_arm<T, 8, TAIL>(a, capacity, lanes, l, st);
   } else {
-    err = launch_cg_aligned<T, kMaxK, TAIL>(a, capacity, st);
+    err = launch_cg_arm<T, kMaxK, TAIL>(a, capacity, lanes, l, st);
   }
   return (int)err;
 }
 
-template <typename T, int KMAX, bool VEC, int MODE>
-cudaError_t launch_rz_kernel(const RzArgs<T>& a, int capacity, cudaStream_t st) {
-  // Every arm takes the pair arm's grid (the register-hungriest of the
-  // three), so each column is summed in one order whichever arm sums it.
+// Blocks of a one-lane K6 launch: every arm takes the pair arm's grid (the
+// register-hungriest of the three), so each column is summed in one order
+// whichever arm sums it.
+template <typename T, int KMAX, bool VEC>
+cudaError_t rz_blocks(int64_t n, int capacity, int* out) {
   static int resident = 0;  // once per instantiation
   if (resident == 0) {
     const cudaError_t err = resident_blocks(rz_reduce<T, KMAX, VEC, kRzPair>, &resident);
     if (err != cudaSuccess) return err;
   }
   constexpr int kSlots = CgLayout<T, KMAX, VEC>::kSlots;
-  const int64_t units = VEC ? a.n / kVec<T> : a.n;
-  rz_reduce<T, KMAX, VEC, MODE>
-      <<<stride_grid(resident, (units + kSlots - 1) / kSlots, capacity), kThreads, 0, st>>>(a);
+  const int64_t units = VEC ? n / kVec<T> : n;
+  *out = stride_grid(resident, (units + kSlots - 1) / kSlots, capacity);
+  return cudaSuccess;
+}
+
+template <typename T, int KMAX, bool VEC, int MODE>
+cudaError_t launch_rz_kernel(const RzArgs<T>& a, int capacity, cudaStream_t st) {
+  int blocks = 0;
+  const cudaError_t err = rz_blocks<T, KMAX, VEC>(a.n, capacity, &blocks);
+  if (err != cudaSuccess) return err;
+  rz_reduce<T, KMAX, VEC, MODE><<<blocks, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
-// 16-byte loads when r, z and every row of AW are 16-byte aligned.
 template <typename T, int KMAX, int MODE>
-cudaError_t launch_rz_aligned(const RzArgs<T>& a, int capacity, cudaStream_t st) {
-  const bool vec = aligned16(a.r) && aligned16(a.z) &&
-                   (a.k == 0 || (aligned16(a.aw) && (a.n * (int64_t)sizeof(T)) % 16 == 0));
-  return vec ? launch_rz_kernel<T, KMAX, true, MODE>(a, capacity, st)
-             : launch_rz_kernel<T, KMAX, false, MODE>(a, capacity, st);
+cudaError_t launch_rz_arm(const RzArgs<T>& a, int capacity, int lanes, Lanes l,
+                          cudaStream_t st) {
+  if (MODE == kRzStep && lanes > 1) {
+    l.partials = (int64_t)capacity * 2 * (kMaxK + 1);
+    cudaError_t err = rz_blocks<T, KMAX, true>(a.n, capacity, &l.blocks_vec);
+    if (err == cudaSuccess) err = rz_blocks<T, KMAX, false>(a.n, capacity, &l.blocks_elem);
+    if (err != cudaSuccess) return err;
+    const int wide = l.blocks_vec > l.blocks_elem ? l.blocks_vec : l.blocks_elem;
+    rz_reduce_lanes<T, KMAX><<<dim3(wide, lanes), kThreads, 0, st>>>(a, l);
+    return cudaGetLastError();
+  }
+  return rz_vec(a) ? launch_rz_kernel<T, KMAX, true, MODE>(a, capacity, st)
+                   : launch_rz_kernel<T, KMAX, false, MODE>(a, capacity, st);
 }
 
 // `capacity`: the blocks the partials buffer has rows for (2 (kMaxK + 1)
-// columns a row).
+// columns a row; lane i's rows start at row i * capacity).
 template <typename T, int MODE>
-int launch_rz(const RzArgs<T>& a, int capacity, void* stream) {
-  if (a.k < 0 || a.k > kMaxK || a.n < 1 || capacity < 1) return (int)cudaErrorInvalidValue;
+int launch_rz(const RzArgs<T>& a, int capacity, int lanes, const Lanes& l, void* stream) {
+  if (a.k < 0 || a.k > kMaxK || a.n < 1 || capacity < 1 || lanes < 1 ||
+      (MODE != kRzStep && lanes != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (a.k == 0) {
-    err = launch_rz_aligned<T, 0, MODE>(a, capacity, st);
+    err = launch_rz_arm<T, 0, MODE>(a, capacity, lanes, l, st);
   } else if (a.k <= 8) {
-    err = launch_rz_aligned<T, 8, MODE>(a, capacity, st);
+    err = launch_rz_arm<T, 8, MODE>(a, capacity, lanes, l, st);
   } else {
-    err = launch_rz_aligned<T, kMaxK, MODE>(a, capacity, st);
+    err = launch_rz_arm<T, kMaxK, MODE>(a, capacity, lanes, l, st);
   }
   return (int)err;
 }
 
 template <typename T, int KMAX, bool VEC, bool STEP>
-cudaError_t launch_dir_kernel(const DirArgs<T>& a, cudaStream_t st) {
-  const auto kernel = deflate_direction<T, KMAX, VEC, STEP>;
+cudaError_t launch_dir_kernel(const DirArgs<T>& a, int lanes, const Lanes& l, cudaStream_t st) {
   static int resident = 0;  // once per instantiation
   if (resident == 0) {
-    const cudaError_t err = resident_blocks(kernel, &resident);
+    const cudaError_t err = resident_blocks(deflate_direction<T, KMAX, VEC, STEP>, &resident);
     if (err != cudaSuccess) return err;
   }
   const int64_t units = VEC ? a.n / kVec<T> : a.n;
-  kernel<<<stride_grid(resident, units, resident), kThreads, 0, st>>>(a);
+  const int blocks = stride_grid(resident, units, resident);
+  if constexpr (STEP) {
+    if (lanes > 1) {
+      deflate_direction_lanes<T, KMAX, VEC><<<dim3(blocks, lanes), kThreads, 0, st>>>(a, l);
+      return cudaGetLastError();
+    }
+  }
+  deflate_direction<T, KMAX, VEC, STEP><<<blocks, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
 // 16-byte groups when z, p, po, every row of W and, recording, ap and every
-// row of the buffers are 16-byte aligned.
+// row of the buffers are 16-byte aligned (and, on the lane axis, every
+// lane's rows).
 template <typename T, int KMAX, bool STEP>
-cudaError_t launch_dir_aligned(const DirArgs<T>& a, cudaStream_t st) {
+cudaError_t launch_dir_aligned(const DirArgs<T>& a, int lanes, const Lanes& l,
+                               cudaStream_t st) {
   const bool rows = (a.n * (int64_t)sizeof(T)) % 16 == 0;
   const bool vec = aligned16(a.z) && aligned16(a.p) && aligned16(a.po) &&
                    (a.k == 0 || (aligned16(a.w) && rows)) &&
                    (a.p_buf == nullptr ||
-                    (aligned16(a.ap) && aligned16(a.p_buf) && aligned16(a.ap_buf) && rows));
-  return vec ? launch_dir_kernel<T, KMAX, true, STEP>(a, st)
-             : launch_dir_kernel<T, KMAX, false, STEP>(a, st);
+                    (aligned16(a.ap) && aligned16(a.p_buf) && aligned16(a.ap_buf) && rows)) &&
+                   (lanes == 1 || rows);
+  return vec ? launch_dir_kernel<T, KMAX, true, STEP>(a, lanes, l, st)
+             : launch_dir_kernel<T, KMAX, false, STEP>(a, lanes, l, st);
 }
 
 template <typename T, bool STEP>
-int launch_dir(const DirArgs<T>& a, void* stream) {
-  if (a.k < 0 || a.k > kMaxK || a.n < 1) return (int)cudaErrorInvalidValue;
+int launch_dir(const DirArgs<T>& a, int lanes, const Lanes& l, void* stream) {
+  if (a.k < 0 || a.k > kMaxK || a.n < 1 || lanes < 1 || (!STEP && lanes != 1))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (a.k == 0) {
-    err = launch_dir_aligned<T, 0, STEP>(a, st);
+    err = launch_dir_aligned<T, 0, STEP>(a, lanes, l, st);
   } else if (a.k <= 8) {
-    err = launch_dir_aligned<T, 8, STEP>(a, st);
+    err = launch_dir_aligned<T, 8, STEP>(a, lanes, l, st);
   } else {
-    err = launch_dir_aligned<T, kMaxK, STEP>(a, st);
+    err = launch_dir_aligned<T, kMaxK, STEP>(a, lanes, l, st);
   }
   return (int)err;
 }
@@ -1619,9 +1860,9 @@ int launch_recombine(const void* s, const void* u, int m, int k, int64_t n,
   return (int)err;
 }
 
-template <typename T, bool STEP, bool VEC>
+template <typename T, bool STEP, bool VEC, bool STALL>
 cudaError_t launch_lsmr_kernel(const LsmrArgs<T>& a, cudaStream_t st) {
-  const auto kernel = lsmr_update<T, STEP, VEC>;
+  const auto kernel = lsmr_update<T, STEP, VEC, STALL>;
   static int resident = 0;  // once per instantiation
   if (resident == 0) {
     const cudaError_t err = resident_blocks(kernel, &resident);
@@ -1639,8 +1880,13 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
   const bool vec = aligned16(a.x) && aligned16(a.hbar) && aligned16(a.h) && aligned16(a.v) &&
                    aligned16(a.xo) && aligned16(a.hbo) && aligned16(a.ho) &&
                    (!STEP || (aligned16(a.w) && aligned16(a.vo)));
-  const cudaError_t err = vec ? launch_lsmr_kernel<T, STEP, true>(a, st)
-                              : launch_lsmr_kernel<T, STEP, false>(a, st);
+  // The stall detector is compiled into the armed arm only (window > 0).
+  const bool stall = STEP && a.window > 0;
+  const cudaError_t err =
+      vec ? (stall ? launch_lsmr_kernel<T, STEP, true, STEP>(a, st)
+                   : launch_lsmr_kernel<T, STEP, true, false>(a, st))
+          : (stall ? launch_lsmr_kernel<T, STEP, false, STEP>(a, st)
+                   : launch_lsmr_kernel<T, STEP, false, false>(a, st));
   return (int)err;
 }
 
@@ -1667,7 +1913,7 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.alpha = static_cast<const T*>(alpha);                                    \
     a.rr = static_cast<T*>(rr);                                                \
     a.awr = static_cast<T*>(awr);                                              \
-    return launch_cg<T, false>(a, capacity, stream);                           \
+    return launch_cg<T, false>(a, capacity, 1, Lanes{}, stream);               \
   }                                                                            \
   extern "C" int fused_cg_step_##SUFFIX(                                       \
       const void* x, const void* r, const void* p, void* ap, const void* aw,   \
@@ -1677,8 +1923,11 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
       const void* active, const void* waw_inv, int64_t maxiter,                \
       int recurrence, void* trace, void* a_rows, void* b_rows, int row,        \
       int ell, int window, const void* best, void* so, void* jo, void* bo,     \
-      void* stream) {                                                          \
+      int lanes, const int64_t* lane_strides, void* stream) {                  \
     CgArgs<T> a = {};                                                          \
+    Lanes l = {};                                                              \
+    for (int q = 0; q < 8 && lane_strides != nullptr; ++q)                     \
+      l.ls[q] = lane_strides[q];                                               \
     a.x = static_cast<const T*>(x);                                            \
     a.r = static_cast<const T*>(r);                                            \
     a.p = static_cast<const T*>(p);                                            \
@@ -1710,7 +1959,7 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.so = static_cast<T*>(so);                                                \
     a.jo = static_cast<int*>(jo);                                              \
     a.bo = static_cast<bool*>(bo);                                             \
-    return launch_cg<T, true>(a, capacity, stream);                            \
+    return launch_cg<T, true>(a, capacity, lanes, l, stream);                  \
   }                                                                            \
   extern "C" int fused_rz_reduce_##SUFFIX(                                     \
       const void* r, const void* z, const void* aw, int k, int64_t n,          \
@@ -1724,7 +1973,7 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.partials = static_cast<T*>(partials);                                    \
     a.counter = static_cast<unsigned*>(counter);                               \
     a.out = static_cast<T*>(out);                                              \
-    return launch_rz<T, kRzSums>(a, capacity, stream);                         \
+    return launch_rz<T, kRzSums>(a, capacity, 1, Lanes{}, stream);             \
   }                                                                            \
   extern "C" int fused_rz_pair_##SUFFIX(                                       \
       const void* r, const void* ap, const void* aw, int k, int64_t n,         \
@@ -1738,14 +1987,18 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.partials = static_cast<T*>(partials);                                    \
     a.counter = static_cast<unsigned*>(counter);                               \
     a.out = static_cast<T*>(out);                                              \
-    return launch_rz<T, kRzPair>(a, capacity, stream);                         \
+    return launch_rz<T, kRzPair>(a, capacity, 1, Lanes{}, stream);             \
   }                                                                            \
   extern "C" int fused_rz_step_##SUFFIX(                                       \
       const void* r, const void* z, const void* aw, int k, int64_t n,          \
       void* partials, int capacity, void* counter, const void* rs,             \
       const void* alpha, const void* active, const void* waw_inv,              \
-      void* a_rows, void* b_rows, int row, int ell, void* so, void* stream) {  \
+      void* a_rows, void* b_rows, int row, int ell, void* so, int lanes,       \
+      const int64_t* lane_strides, void* stream) {                             \
     RzArgs<T> a = {};                                                          \
+    Lanes l = {};                                                              \
+    for (int q = 0; q < 3 && lane_strides != nullptr; ++q)                     \
+      l.ls[q] = lane_strides[q];                                               \
     a.r = static_cast<const T*>(r);                                            \
     a.z = static_cast<const T*>(z);                                            \
     a.aw = static_cast<const T*>(aw);                                          \
@@ -1762,7 +2015,7 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.row = row;                                                               \
     a.ell = ell;                                                               \
     a.out = static_cast<T*>(so);                                               \
-    return launch_rz<T, kRzStep>(a, capacity, stream);                         \
+    return launch_rz<T, kRzStep>(a, capacity, lanes, l, stream);               \
   }                                                                            \
   extern "C" int fused_deflate_direction_##SUFFIX(                             \
       const void* z, const void* p, const void* beta, const void* w,           \
@@ -1781,14 +2034,17 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.idx = static_cast<const int64_t*>(idx);                                  \
     a.p_buf = static_cast<T*>(p_buf);                                          \
     a.ap_buf = static_cast<T*>(ap_buf);                                        \
-    return launch_dir<T, false>(a, stream);                                    \
+    return launch_dir<T, false>(a, 1, Lanes{}, stream);                        \
   }                                                                            \
   extern "C" int fused_direction_step_##SUFFIX(                                \
       const void* z, const void* p, const void* beta, const void* w,           \
       const void* mu, int k, int64_t n, void* po, const void* keep,            \
       const void* ap, const void* active, int row, int ell, void* p_buf,       \
-      void* ap_buf, void* stream) {                                            \
+      void* ap_buf, int lanes, const int64_t* lane_strides, void* stream) {    \
     DirArgs<T> a = {};                                                         \
+    Lanes l = {};                                                              \
+    for (int q = 0; q < 4 && lane_strides != nullptr; ++q)                     \
+      l.ls[q] = lane_strides[q];                                               \
     a.z = static_cast<const T*>(z);                                            \
     a.p = static_cast<const T*>(p);                                            \
     a.beta = static_cast<const T*>(beta);                                      \
@@ -1804,7 +2060,7 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.ell = ell;                                                               \
     a.p_buf = static_cast<T*>(p_buf);                                          \
     a.ap_buf = static_cast<T*>(ap_buf);                                        \
-    return launch_dir<T, true>(a, stream);                                     \
+    return launch_dir<T, true>(a, lanes, l, stream);                           \
   }                                                                            \
   extern "C" int self_gram_##SUFFIX(const void* s, int m2, int64_t n,          \
                                     int64_t cols, int nblocks, void* partials, \

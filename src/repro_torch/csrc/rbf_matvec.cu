@@ -145,14 +145,36 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The product's gate: a device flag vector of `lanes` bools, `stride`
+// elements apart (the solver's active flags).  Null: ungated.  Gated off
+// (no flag set), every launch of the product writes zeros where it would
+// have written its output and returns, so a frozen solver step costs three
+// near-empty launches instead of the Gram tiles.
+struct Gate {
+  const bool* flags;
+  int lanes;
+  int64_t stride;
+
+  __device__ __forceinline__ bool off() const {
+    if (flags == nullptr) return false;
+    for (int l = 0; l < lanes; ++l)
+      if (flags[l * stride]) return false;
+    return true;
+  }
+};
+
 // sq[row] = |x[row]|^2, one warp per row.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) row_sq_norms(
-    const T* __restrict__ x, int64_t rows, int d, T* __restrict__ sq) {
+    const T* __restrict__ x, int64_t rows, int d, T* __restrict__ sq, Gate gate) {
   const int lane = threadIdx.x & 31;
   const int64_t row =
       (int64_t)blockIdx.x * kNormRowsPerBlock + (threadIdx.x >> 5);
   if (row >= rows) return;  // uniform across the warp
+  if (gate.off()) {
+    if (lane == 0) sq[row] = T(0);
+    return;
+  }
   T s = T(0);
   for (int c = lane; c < d; c += 32) {
     const T v = x[row * d + c];
@@ -371,7 +393,7 @@ __global__ void __launch_bounds__(kThreads, 1) rbf_tiles(
     const T* __restrict__ xr, const T* __restrict__ xc, const T* __restrict__ sq_r,
     const T* __restrict__ sq_c, int64_t m, int64_t n, int d, const T* __restrict__ v,
     int rc, int64_t ldv, T inv_ls2, T theta2, int sym, int nseg, int vec,
-    T* __restrict__ rowpart, T* __restrict__ colpart) {
+    T* __restrict__ rowpart, T* __restrict__ colpart, Gate gate) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int kStageElems = 2 * kTile * Chunk<T>::kLd;
   constexpr int kRing = kStages * kStageElems;
@@ -396,6 +418,16 @@ __global__ void __launch_bounds__(kThreads, 1) rbf_tiles(
   const int len = (int)((int64_t)(seg + 1) * len_i / nseg) - lo;
   const int64_t i0 = (int64_t)ti * kTile;
   const int nk = (d + Chunk<T>::kDepth - 1) / Chunk<T>::kDepth;
+
+  // Gated off: this segment's row parts are zero; the column parts are
+  // left unwritten (sum_parts, gated off too, reads neither).
+  if (gate.off()) {
+    for (int e = tid; e < kTile * rc; e += kThreads) {
+      const int64_t row = i0 + e / rc;
+      if (row < m) rowpart[((int64_t)seg * m + row) * rc + e % rc] = T(0);
+    }
+    return;
+  }
 
   if (sym) stage_v<T, RC>(vs_i, v, i0, n, rc, ldv, theta2);
   for (int e = tid; e < kTile * RC; e += kThreads) ys[e] = T(0);
@@ -484,14 +516,19 @@ __global__ void __launch_bounds__(kThreads, 1) rbf_tiles(
 template <typename T>
 __global__ void __launch_bounds__(kThreads) sum_parts(
     const T* __restrict__ rowpart, int nseg, const T* __restrict__ colpart, int sym,
-    int64_t m, int rc, T* __restrict__ y, int64_t ldy) {
+    int64_t m, int rc, T* __restrict__ y, int64_t ldy, Gate gate) {
   const int64_t total = m * rc;
   const int tc = (int)((m + kTile - 1) / kTile);
   const int lmax = sym ? sym_len(0, tc) : 1;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const bool off = gate.off();
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += stride) {
     const int64_t row = e / rc;
+    if (off) {
+      y[row * ldy + (e - row * rc)] = T(0);
+      continue;
+    }
     T s = T(0);
     for (int sp = 0; sp < nseg; ++sp) s += rowpart[(int64_t)sp * total + e];
     const int tj = (int)(row / kTile);
@@ -507,7 +544,7 @@ template <typename T, int RC>
 cudaError_t launch_tiles(const T* xr, const T* xc, const T* sq_r, const T* sq_c, int64_t m,
                          int64_t n, int d, const T* v, int rc, int64_t ldv, T inv_ls2,
                          T theta2, int sym, int nseg, int vec, T* rowpart, T* colpart,
-                         cudaStream_t st) {
+                         Gate gate, cudaStream_t st) {
   constexpr int smem = tile_smem_bytes<T, RC>();
   static const cudaError_t opt_in = cudaFuncSetAttribute(
       rbf_tiles<T, RC>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -515,7 +552,7 @@ cudaError_t launch_tiles(const T* xr, const T* xc, const T* sq_r, const T* sq_c,
   const int64_t blocks = (m + kTile - 1) / kTile * nseg;
   rbf_tiles<T, RC><<<(unsigned)blocks, kThreads, smem, st>>>(
       xr, xc, sq_r, sq_c, m, n, d, v, rc, ldv, inv_ls2, theta2, sym, nseg, vec, rowpart,
-      colpart);
+      colpart, gate);
   return cudaGetLastError();
 }
 
@@ -523,8 +560,9 @@ template <typename T>
 int launch_rbf_matvec(const void* x_rows, const void* x_cols, void* sq_rows, void* sq_cols,
                       int64_t m, int64_t n, int d, const void* v, int r, double inv_ls,
                       double theta2, int sym, int nseg, void* rowpart, void* colpart, void* y,
-                      void* stream) {
-  if (m < 1 || n < 1 || d < 1 || r < 1 || nseg < 1) return (int)cudaErrorInvalidValue;
+                      Gate gate, void* stream) {
+  if (m < 1 || n < 1 || d < 1 || r < 1 || nseg < 1 || (gate.flags != nullptr && gate.lanes < 1))
+    return (int)cudaErrorInvalidValue;
   if (sym && (m != n || x_rows != x_cols || sq_rows != sq_cols))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -532,13 +570,13 @@ int launch_rbf_matvec(const void* x_rows, const void* x_cols, void* sq_rows, voi
   const T* xc = static_cast<const T*>(x_cols);
   const int64_t norm_blocks = (m + kNormRowsPerBlock - 1) / kNormRowsPerBlock;
   row_sq_norms<T><<<(unsigned)norm_blocks, kThreads, 0, st>>>(xr, m, d,
-                                                             static_cast<T*>(sq_rows));
+                                                             static_cast<T*>(sq_rows), gate);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   if (sq_cols != sq_rows) {
     const int64_t col_blocks = (n + kNormRowsPerBlock - 1) / kNormRowsPerBlock;
     row_sq_norms<T><<<(unsigned)col_blocks, kThreads, 0, st>>>(xc, n, d,
-                                                               static_cast<T*>(sq_cols));
+                                                               static_cast<T*>(sq_cols), gate);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -558,17 +596,17 @@ int launch_rbf_matvec(const void* x_rows, const void* x_cols, void* sq_rows, voi
     T* cp = static_cast<T*>(colpart);
     if (rc == 1) {
       err = launch_tiles<T, 1>(xr, xc, sr, sc, m, n, d, vc, rc, r, inv_ls2, th2, sym, nseg,
-                               vec, rp, cp, st);
+                               vec, rp, cp, gate, st);
     } else if (rc <= 8) {
       err = launch_tiles<T, 8>(xr, xc, sr, sc, m, n, d, vc, rc, r, inv_ls2, th2, sym, nseg,
-                               vec, rp, cp, st);
+                               vec, rp, cp, gate, st);
     } else {
       err = launch_tiles<T, 16>(xr, xc, sr, sc, m, n, d, vc, rc, r, inv_ls2, th2, sym, nseg,
-                                vec, rp, cp, st);
+                                vec, rp, cp, gate, st);
     }
     if (err != cudaSuccess) return (int)err;
     sum_parts<T><<<reduce_blocks, kThreads, 0, st>>>(rp, nseg, cp, sym, m, rc,
-                                                     static_cast<T*>(y) + c0, (int64_t)r);
+                                                     static_cast<T*>(y) + c0, (int64_t)r, gate);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
@@ -584,9 +622,11 @@ int launch_rbf_matvec(const void* x_rows, const void* x_cols, void* sq_rows, voi
                                      const void* v, int r, double inv_ls,          \
                                      double theta2, int sym, int nseg,             \
                                      void* rowpart, void* colpart, void* y,        \
-                                     void* stream) {                               \
+                                     const void* gate, int lanes,                  \
+                                     int64_t gate_stride, void* stream) {          \
+    const Gate g = {static_cast<const bool*>(gate), lanes, gate_stride};           \
     return launch_rbf_matvec<T>(x, x, sq, sq, n, n, d, v, r, inv_ls, theta2,       \
-                                sym != 0, nseg, rowpart, colpart, y, stream);      \
+                                sym != 0, nseg, rowpart, colpart, y, g, stream);   \
   }
 
 REPRO_RBF_MATVEC_ENTRY_POINT(float, f32)
@@ -599,10 +639,12 @@ REPRO_RBF_MATVEC_ENTRY_POINT(double, f64)
   extern "C" int rbf_matvec_rect_##SUFFIX(                                         \
       const void* x_rows, const void* x_cols, void* sq_rows, void* sq_cols,        \
       int64_t m, int64_t n, int d, const void* v, int r, double inv_ls,            \
-      double theta2, int nseg, void* rowpart, void* y, void* stream) {             \
+      double theta2, int nseg, void* rowpart, void* y, const void* gate,           \
+      int lanes, int64_t gate_stride, void* stream) {                              \
     if (sq_rows == sq_cols) return (int)cudaErrorInvalidValue;                     \
+    const Gate g = {static_cast<const bool*>(gate), lanes, gate_stride};           \
     return launch_rbf_matvec<T>(x_rows, x_cols, sq_rows, sq_cols, m, n, d, v, r,   \
-                                inv_ls, theta2, 0, nseg, rowpart, nullptr, y,      \
+                                inv_ls, theta2, 0, nseg, rowpart, nullptr, y, g,   \
                                 stream);                                           \
   }
 

@@ -33,6 +33,9 @@ LAUNCHES = {
     "ssd_scan": 0,
 }
 PLAIN_ON_CUDA = dict.fromkeys(LAUNCHES, 0)
+# Launches per arm, keyed "kernel:entry point" (a lane-axis call's entry
+# point gains "_lanes"), so a run can show which arms of a kernel it took.
+ARMS: dict = {}
 
 SUFFIX = {torch.float32: "f32", torch.float64: "f64", torch.bfloat16: "bf16"}
 KRYLOV_DTYPES = (torch.float32, torch.float64)
@@ -84,12 +87,14 @@ def scalar(v, like: torch.Tensor) -> torch.Tensor:
 
 
 def launch(
-    lib: str, name: str, argtypes: Sequence, like: torch.Tensor, *args, key: Optional[str] = None
+    lib: str, name: str, argtypes: Sequence, like: torch.Tensor, *args, key: Optional[str] = None,
+    arm: Optional[str] = None,
 ) -> None:
     """Call ``<name>_<f32|f64>`` of ``csrc/<lib>.cu`` on ``like``'s device
     and current stream (the stream is the last argument), count it under
     ``key`` (default ``name``: an entry point of a kernel's second arm
-    counts as the kernel), and raise on a launch error."""
+    counts as the kernel) and in :data:`ARMS` under ``key:arm`` (default
+    arm ``name``), and raise on a launch error."""
     fn = _entry(lib, name, like.dtype, (*argtypes, PTR))
     with torch.cuda.device(like.device):
         stream = torch.cuda.current_stream(like.device).cuda_stream
@@ -97,6 +102,8 @@ def launch(
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
     LAUNCHES[key or name] += 1
+    tag = f"{key or name}:{arm or name}"
+    ARMS[tag] = ARMS.get(tag, 0) + 1
 
 
 def note_plain(name: str, t: torch.Tensor) -> None:

@@ -61,7 +61,10 @@ C interface, built by :mod:`repro_torch.kernels._build`):
   exact-termination latch, the status, the trace slot, j and the next
   active flag, every output masked by the step's active flag.
 
-The step arms carry their scalars on the card: the loop never waits on
+The step arms of K1, K6 and K2 take ``(B, n)`` vectors too: B
+independent steps (a batch of tenants) in one launch, each lane bit for
+bit the one-lane arm on its data.  The step
+arms carry their scalars on the card: the loop never waits on
 the host, and each scalar is rounded as the eager op it replaces (their
 plain versions, ``*_step_plain``, are the loops' former eager lines in
 their order), so the card's scalars are bit for bit the plain versions'.
@@ -81,6 +84,7 @@ device lives in :mod:`repro_torch.kernels.ops`.  The counters
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import Optional
 
@@ -110,12 +114,14 @@ _P, _I, _L = _runtime.PTR, _runtime.INT, _runtime.INT64
 _SIGNATURES = {
     "fused_cg_update": (_P, _P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _P),
     "fused_cg_step": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P),
+                      _P, _P, _L, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _I, _P),
     "fused_rz_reduce": (_P, _P, _P, _I, _L, _P, _I, _P, _P),
     "fused_rz_pair": (_P, _P, _P, _I, _L, _P, _I, _P, _P),
-    "fused_rz_step": (_P, _P, _P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "fused_rz_step": (_P, _P, _P, _I, _L, _P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I,
+                      _P),
     "fused_deflate_direction": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _P),
-    "fused_direction_step": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _I, _I, _P, _P),
+    "fused_direction_step": (_P, _P, _P, _P, _P, _I, _L, _P, _P, _P, _P, _I, _I, _P, _P, _I,
+                             _P),
     "self_gram": (_P, _I, _L, _L, _I, _P, _P),
     "recombine_blocks": (_P, _P, _I, _I, _L, _P, _I),
     "lsmr_update": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P),
@@ -129,8 +135,9 @@ _scalar = _runtime.scalar
 _note_plain = _runtime.note_plain
 
 
-def _launch(name: str, like: torch.Tensor, *args, key: Optional[str] = None) -> None:
-    _runtime.launch("cg_fused", name, _SIGNATURES[name], like, *args, key=key)
+def _launch(name: str, like: torch.Tensor, *args, key: Optional[str] = None,
+            arm: Optional[str] = None) -> None:
+    _runtime.launch("cg_fused", name, _SIGNATURES[name], like, *args, key=key, arm=arm)
 
 
 def _check_flags(name: str, like: torch.Tensor, js=None, window: int = 0, **flags) -> None:
@@ -150,17 +157,78 @@ def _check_flags(name: str, like: torch.Tensor, js=None, window: int = 0, **flag
 
 
 @functools.lru_cache(maxsize=None)
-def _reduce_scratch(device: torch.device, dtype: torch.dtype):
+def _reduce_scratch(device: torch.device, dtype: torch.dtype, lanes: int):
     """``(partials, counter, rows)`` of the one-launch reductions of
     ``fused_cg_update`` and ``fused_rz_reduce`` on ``device``: room for the
     most blocks the card holds at once, each with the 2(k + 1) columns of
-    K6's pair arm, allocated once per device and dtype and shared by every
-    call (the last block resets the counter, so calls must follow one
-    another on one stream)."""
+    K6's pair arm, allocated once per device, dtype and lane count and
+    shared by every call (the last block resets the counter, so calls must
+    follow one another on one stream).  The step arms' lane axis widens it
+    by ``lanes``: lane i's partials are rows ``[i·rows, (i + 1)·rows)``, its
+    counter ``counter[i]``."""
     rows = torch.cuda.get_device_properties(device).multi_processor_count * MAX_BLOCKS_PER_SM
-    partials = torch.empty((rows, 2 * (MAX_K + 1)), dtype=dtype, device=device)
-    counter = torch.zeros((), dtype=torch.int32, device=device)
+    partials = torch.empty((lanes * rows, 2 * (MAX_K + 1)), dtype=dtype, device=device)
+    counter = torch.zeros((lanes,) if lanes > 1 else (), dtype=torch.int32, device=device)
     return partials, counter, rows
+
+
+def _lead(v: torch.Tensor):
+    """``(lead, n)`` of a step arm's vector: ``lead`` is ``()`` for one lane
+    and ``(B,)`` on the lane axis."""
+    if v.ndim not in (1, 2):
+        raise ValueError(f"a step arm takes (n,) or (B, n) vectors, got {tuple(v.shape)}")
+    return tuple(v.shape[:-1]), v.shape[-1]
+
+
+def _arm(name: str, lead) -> str:
+    """The entry point's name in :data:`_runtime.ARMS`: ``_lanes`` appended
+    on the lane axis."""
+    return f"{name}_lanes" if lead else name
+
+
+def _step_scalars(name: str, like: torch.Tensor, lead, scalars):
+    """Check a step arm's scalars; return the entry point's last two
+    arguments, ``(lanes, strides)``.
+
+    ``scalars`` is a list of ``(key, tensor, dtype, trailing shape)``, each
+    tensor of shape ``lead + trailing`` on ``like``'s device (None: an
+    absent input).  One lane (``lead`` empty): each contiguous, and the
+    arguments are ``(1, None)``.  The lane axis (``lead = (B,)``): any lane
+    stride (views of packed step outputs, e.g. ``so[:, 0]``), trailing dims
+    contiguous, and the lane strides go to the kernel as a pointer to an
+    ``int64`` host array (which the pointer object keeps alive; an absent
+    input's stride is 0)."""
+    strides = []
+    for key, t, dtype, trail in scalars:
+        if t is None:
+            strides.append(0)
+            continue
+        shape = tuple(lead) + tuple(trail)
+        if t.device != like.device or t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: {key} must be a {dtype} tensor of shape {shape} on "
+                             f"{like.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+        if not lead and not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if lead and trail and t.stride(-1) != 1:
+            raise ValueError(f"{name}: {key} must be contiguous along its last dim")
+        strides.append(t.stride(0) if lead else 0)
+    if not lead:
+        return 1, None
+    return lead[0], ctypes.cast((ctypes.c_int64 * len(strides))(*strides), ctypes.c_void_p)
+
+
+def _per_lane(plain, lanes: int, *args, **kwargs):
+    """A plain step version over a lane axis: the one-lane plain version on
+    each lane's slices (every tensor argument with a leading lane axis,
+    in-place buffers written through views), outputs stacked."""
+    def at(v, i):
+        return v[i] if isinstance(v, torch.Tensor) and v.ndim > 0 else v
+
+    outs = [plain(*(at(a, i) for a in args), **{k: at(v, i) for k, v in kwargs.items()})
+            for i in range(lanes)]
+    if isinstance(outs[0], torch.Tensor):
+        return torch.stack(outs)
+    return tuple(torch.stack([o[q] for o in outs]) for q in range(len(outs[0])))
 
 
 def classify_breakdown(d, rnorm, diverged_at):
@@ -245,7 +313,7 @@ def fused_cg_update_cuda(x, r, p, ap, alpha, aw=None):
     _check("fused_cg_update", x, **shapes)
     if n == 0 or k > MAX_K:
         raise ValueError(f"fused_cg_update: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}")
-    partials, counter, rows = _reduce_scratch(x.device, x.dtype)
+    partials, counter, rows = _reduce_scratch(x.device, x.dtype, 1)
     xo = torch.empty_like(x)
     ro = torch.empty_like(r)
     rr = torch.empty((), dtype=x.dtype, device=x.device)
@@ -287,36 +355,49 @@ def fused_cg_step_cuda(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverge
     ``best`` (0-d) come in, ``js'`` carries the new stall count and
     ``so`` one more slot, ``best'``, at its end.  Window 0 is the unarmed
     arm, bit for bit.
+
+    The lane axis: ``(B, n)`` vectors run B independent steps in ONE
+    launch (``gridDim.y = B``), each lane with its own scalars, flags,
+    trace, recording slot, partials and ticket counter: ``aw`` (B, k, n),
+    ``waw_inv`` (B, k, k), ``trace`` (B, maxiter + 2), ``a_rows``/
+    ``b_rows`` (B, ell + 1), the per-lane scalars ``(B,)`` and ``js``
+    ``(B, 2|3)`` of any lane stride (views of the previous step's packed
+    outputs), and the outputs gain the leading B.  Each lane takes the
+    loads and the grid a one-lane launch on its data takes and sums in its
+    order: lane i is bit for bit a one-lane launch on lane i's data.
     """
-    n = x.shape[0]
-    k = 0 if aw is None else aw.shape[0]
-    shapes = {"x": (x, (n,)), "r": (r, (n,)), "p": (p, (n,)), "ap": (ap, (n,)),
-              "d": (d, ()), "rs": (rs, ()), "rnorm": (rnorm, ()),
-              "threshold": (threshold, ()), "diverged_at": (diverged_at, ())}
+    lead, n = _lead(x)
+    k = 0 if aw is None else aw.shape[-2]
     armed = window > 0
-    if armed:
-        shapes["best"] = (best, ())
+    shapes = {"x": (x, lead + (n,)), "r": (r, lead + (n,)), "p": (p, lead + (n,)),
+              "ap": (ap, lead + (n,))}
     if aw is not None:
-        shapes.update(aw=(aw, (k, n)), waw_inv=(waw_inv, (k, k)))
+        shapes.update(aw=(aw, lead + (k, n)), waw_inv=(waw_inv, lead + (k, k)))
     if trace is not None:
-        shapes["trace"] = (trace, (maxiter + 2,))
+        shapes["trace"] = (trace, lead + (maxiter + 2,))
     recording = recurrence and row is not None
     if recording:
-        ell = a_rows.shape[0] - 1
-        shapes.update(a_rows=(a_rows, (ell + 1,)), b_rows=(b_rows, (ell + 1,)))
+        ell = a_rows.shape[-1] - 1
+        shapes.update(a_rows=(a_rows, lead + (ell + 1,)), b_rows=(b_rows, lead + (ell + 1,)))
     _check("fused_cg_update", x, **shapes)
-    _check_flags("fused_cg_update", x, js, window, active=active)
+    lanes, strides = _step_scalars(
+        "fused_cg_update", x, lead,
+        [(key, t, x.dtype, ()) for key, t in (("d", d), ("rs", rs), ("rnorm", rnorm),
+                                             ("threshold", threshold),
+                                             ("diverged_at", diverged_at))]
+        + [("js", js, torch.int32, (2 + armed,)), ("active", active, torch.bool, ()),
+           ("best", best if armed else None, x.dtype, ())])
     if n == 0 or k > MAX_K or (aw is not None and not recurrence):
         raise ValueError(f"fused_cg_step: need n >= 1, k <= {MAX_K} and the deflation GEMV "
                          f"only with the recurrence; got n={n}, k={k}")
     if ap.data_ptr() in (x.data_ptr(), r.data_ptr(), p.data_ptr()):
         ap = ap.clone()
-    partials, counter, rows = _reduce_scratch(x.device, x.dtype)
+    partials, counter, rows = _reduce_scratch(x.device, x.dtype, lanes)
     xo = torch.empty_like(x)
     ro = torch.empty_like(r)
-    so = torch.empty((4 + k + armed,), dtype=x.dtype, device=x.device)
-    jo = torch.empty((2 + armed,), dtype=torch.int32, device=x.device)
-    bo = torch.empty((2,), dtype=torch.bool, device=x.device)
+    so = torch.empty(lead + (4 + k + armed,), dtype=x.dtype, device=x.device)
+    jo = torch.empty(lead + (2 + armed,), dtype=torch.int32, device=x.device)
+    bo = torch.empty(lead + (2,), dtype=torch.bool, device=x.device)
     _launch("fused_cg_step", x,
             _ptr(x), _ptr(r), _ptr(p), _ptr(ap), _ptr(aw), k, n, _ptr(xo), _ptr(ro),
             _ptr(partials), rows, _ptr(counter), _ptr(d), _ptr(rs), _ptr(rnorm),
@@ -324,7 +405,8 @@ def fused_cg_step_cuda(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverge
             maxiter, int(recurrence), _ptr(trace), _ptr(a_rows if recording else None),
             _ptr(b_rows if recording else None), row if recording else -1,
             ell if recording else 0, window if armed else 0, _ptr(best if armed else None),
-            _ptr(so), _ptr(jo), _ptr(bo), key="fused_cg_update")
+            _ptr(so), _ptr(jo), _ptr(bo), lanes, strides, key="fused_cg_update",
+            arm=_arm("fused_cg_step", lead))
     return xo, ro, ap, so, jo, bo
 
 
@@ -332,7 +414,13 @@ def fused_cg_step_plain(x, r, p, ap, d, rs, rnorm, js, active, threshold, diverg
                         aw=None, waw_inv=None, *, recurrence=True, trace=None, row=None,
                         a_rows=None, b_rows=None, window=0, best=None):
     """Plain PyTorch version of :func:`fused_cg_step_cuda`: def-CG's
-    former eager lines around the update, in their order."""
+    former eager lines around the update, in their order (on the lane
+    axis, lane by lane)."""
+    if x.ndim == 2:
+        return _per_lane(fused_cg_step_plain, x.shape[0], x, r, p, ap, d, rs, rnorm, js, active,
+                         threshold, diverged_at, maxiter, aw, waw_inv, recurrence=recurrence,
+                         trace=trace, row=row, a_rows=a_rows, b_rows=b_rows, window=window,
+                         best=best)
     _note_plain("fused_cg_update", x)
     j, fail = js[0], js[1]
     bad, code = classify_breakdown(d, rnorm, diverged_at)
@@ -389,7 +477,7 @@ def fused_rz_reduce_cuda(r, z, aw=None):
     """``(rᵀz, AW @ z | None)`` on the card, both on the device: ONE launch
     (the last block to draw a ticket sums the partials in block order)."""
     n, k = _rz_checks("fused_rz_reduce", r, z, aw)
-    partials, counter, rows = _reduce_scratch(r.device, r.dtype)
+    partials, counter, rows = _reduce_scratch(r.device, r.dtype, 1)
     out = torch.empty((1 + k,), dtype=r.dtype, device=r.device)
     _launch("fused_rz_reduce", r,
             _ptr(r), _ptr(z), _ptr(aw), k, n, _ptr(partials), rows, _ptr(counter), _ptr(out))
@@ -413,25 +501,33 @@ def fused_rz_step_cuda(r, z, rs, aw=None, waw_inv=None, *, alpha=None, active=No
     to row ``active ? row : ell`` of ``a_rows, b_rows`` (``(ell + 1,)``, in
     place).  Out: ``so = [rs', β, μ…]`` with ``rs' = rᵀz``, ``β = rs' /
     safe(rs)``, ``μ = waw_inv·(AW)ᵀz`` (fresh; K2's step arm reads β and μ
-    from it).
+    from it).  ``(B, n)`` vectors run the lane axis, as
+    :func:`fused_cg_step_cuda`'s: ``rs``, ``alpha`` and ``active`` are
+    ``(B,)`` of any lane stride, ``so`` is ``(B, 2 + k)``.
     """
     if row is None:
         alpha = active = a_rows = b_rows = None
-    ell = -1 if row is None else a_rows.shape[0] - 1
-    more = {"rs": (rs, ())}
+    lead, n = _lead(r)
+    k = 0 if aw is None else aw.shape[-2]
+    ell = -1 if row is None else a_rows.shape[-1] - 1
+    shapes = {"r": (r, lead + (n,)), "z": (z, lead + (n,))}
     if aw is not None:
-        more["waw_inv"] = (waw_inv, (aw.shape[0], aw.shape[0]))
+        shapes.update(aw=(aw, lead + (k, n)), waw_inv=(waw_inv, lead + (k, k)))
     if row is not None:
-        more.update(alpha=(alpha, ()), a_rows=(a_rows, (ell + 1,)), b_rows=(b_rows, (ell + 1,)))
-    n, k = _rz_checks("fused_rz_step", r, z, aw, **more)
-    if row is not None:
-        _check_flags("fused_rz_reduce", r, active=active)
-    partials, counter, rows = _reduce_scratch(r.device, r.dtype)
-    so = torch.empty((2 + k,), dtype=r.dtype, device=r.device)
+        shapes.update(a_rows=(a_rows, lead + (ell + 1,)), b_rows=(b_rows, lead + (ell + 1,)))
+    _check("fused_rz_reduce", r, **shapes)
+    if n == 0 or k > MAX_K:
+        raise ValueError(f"fused_rz_step: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}")
+    lanes, strides = _step_scalars("fused_rz_reduce", r, lead,
+                                   [("rs", rs, r.dtype, ()), ("alpha", alpha, r.dtype, ()),
+                                    ("active", active, torch.bool, ())])
+    partials, counter, rows = _reduce_scratch(r.device, r.dtype, lanes)
+    so = torch.empty(lead + (2 + k,), dtype=r.dtype, device=r.device)
     _launch("fused_rz_step", r,
             _ptr(r), _ptr(z), _ptr(aw), k, n, _ptr(partials), rows, _ptr(counter), _ptr(rs),
             _ptr(alpha), _ptr(active), _ptr(waw_inv), _ptr(a_rows), _ptr(b_rows),
-            -1 if row is None else row, ell, _ptr(so), key="fused_rz_reduce")
+            -1 if row is None else row, ell, _ptr(so), lanes, strides,
+            key="fused_rz_reduce", arm=_arm("fused_rz_step", lead))
     return so
 
 
@@ -439,7 +535,10 @@ def fused_rz_step_plain(r, z, rs, aw=None, waw_inv=None, *, alpha=None, active=N
                         a_rows=None, b_rows=None):
     """Plain PyTorch version of :func:`fused_rz_step_cuda`: the
     preconditioned loops' former eager lines after ``z = M⁻¹r``, in their
-    order."""
+    order (on the lane axis, lane by lane)."""
+    if r.ndim == 2:
+        return _per_lane(fused_rz_step_plain, r.shape[0], r, z, rs, aw, waw_inv, alpha=alpha,
+                         active=active, row=row, a_rows=a_rows, b_rows=b_rows)
     _note_plain("fused_rz_reduce", r)
     rs_new, awz = ref.fused_rz_reduce(r, z, aw)
     mu = waw_inv @ awz if aw is not None else rs_new.new_zeros((0,))
@@ -458,7 +557,7 @@ def fused_rz_pair_cuda(r, ap, aw=None):
     inputs, so the four are two one-vector calls' bit for bit.  Views of
     one device buffer (the ``AW`` products None when ``aw`` is None)."""
     n, k = _rz_checks("fused_rz_pair", r, ap, aw)
-    partials, counter, rows = _reduce_scratch(r.device, r.dtype)
+    partials, counter, rows = _reduce_scratch(r.device, r.dtype, 1)
     out = torch.empty((2 * (1 + k),), dtype=r.dtype, device=r.device)
     _launch("fused_rz_pair", r,
             _ptr(r), _ptr(ap), _ptr(aw), k, n, _ptr(partials), rows, _ptr(counter), _ptr(out),
@@ -543,18 +642,34 @@ def fused_direction_step_cuda(z, p, beta, keep, w=None, mu=None, *, ap=None, act
     ``so[1], so[2:]``, K1's ``flags[1]``) or the sharded loops' own.  On a
     recording step (``row`` given) the incoming ``p`` and ``ap`` go to row
     ``active ? row : ell`` of the ``(ell + 1, n)`` buffers, in place.
+    ``(B, n)`` vectors run the lane axis: ``w`` (B, k, n), the buffers
+    (B, ell + 1, n), ``beta``, ``keep``, ``active`` ``(B,)`` and ``mu``
+    ``(B, k)`` of any lane stride.
     """
     if row is None:
         ap = active = p_buf = ap_buf = None
-    ell = -1 if row is None else p_buf.shape[0] - 1
-    n, k = _dir_checks("fused_direction_step", z, p, beta, w, mu, ap, p_buf, ap_buf)
-    flags = {"keep": keep} if row is None else {"keep": keep, "active": active}
-    _check_flags("fused_deflate_direction", z, **flags)
+    lead, n = _lead(z)
+    k = 0 if w is None else w.shape[-2]
+    ell = -1 if row is None else p_buf.shape[-2] - 1
+    shapes = {"z": (z, lead + (n,)), "p": (p, lead + (n,))}
+    if w is not None:
+        shapes["w"] = (w, lead + (k, n))
+    if p_buf is not None:
+        shapes.update(ap=(ap, lead + (n,)), p_buf=(p_buf, lead + (ell + 1, n)),
+                      ap_buf=(ap_buf, lead + (ell + 1, n)))
+    _check("fused_deflate_direction", z, **shapes)
+    if n == 0 or k > MAX_K:
+        raise ValueError(f"fused_direction_step: need n >= 1 and k <= {MAX_K}, got n={n}, k={k}")
+    lanes, strides = _step_scalars("fused_deflate_direction", z, lead,
+                                   [("beta", beta, z.dtype, ()),
+                                    ("mu", mu if w is not None else None, z.dtype, (k,)),
+                                    ("keep", keep, torch.bool, ()),
+                                    ("active", active, torch.bool, ())])
     po = torch.empty_like(p)
     _launch("fused_direction_step", z,
             _ptr(z), _ptr(p), _ptr(beta), _ptr(w), _ptr(mu), k, n, _ptr(po), _ptr(keep),
             _ptr(ap), _ptr(active), -1 if row is None else row, ell, _ptr(p_buf), _ptr(ap_buf),
-            key="fused_deflate_direction")
+            lanes, strides, key="fused_deflate_direction", arm=_arm("fused_direction_step", lead))
     return po
 
 
@@ -562,7 +677,10 @@ def fused_direction_step_plain(z, p, beta, keep, w=None, mu=None, *, ap=None, ac
                                row=None, p_buf=None, ap_buf=None):
     """Plain PyTorch version of :func:`fused_direction_step_cuda`: the
     loops' former eager lines (the recording slot, the direction update,
-    the ``p`` select), in their order."""
+    the ``p`` select), in their order (on the lane axis, lane by lane)."""
+    if z.ndim == 2:
+        return _per_lane(fused_direction_step_plain, z.shape[0], z, p, beta, keep, w, mu, ap=ap,
+                         active=active, row=row, p_buf=p_buf, ap_buf=ap_buf)
     _note_plain("fused_deflate_direction", z)
     if row is not None:
         slot = torch.where(active, row, p_buf.shape[0] - 1).to(torch.int64).reshape(1)

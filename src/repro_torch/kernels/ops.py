@@ -44,17 +44,21 @@ def rbf_matvec(
     *,
     backend: str = "auto",
     block: int = 1024,
+    gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``K(X, X) @ v`` for the RBF kernel without forming K (except the
     ``reference`` oracle).  ``v`` may be ``(n,)`` or ``(n, r)`` (multi-RHS,
     e.g. the ``A·W`` refresh of a k-vector basis in one pass).  ``block``
-    is the plain version's row block; the kernel's tiles are fixed."""
+    is the plain version's row block; the kernel's tiles are fixed.
+    ``gate`` (a bool device vector or 0-d flag, any stride) makes the
+    product zeros when no flag is set: on the card the kernel reads the
+    flags itself and skips the Gram tiles, with no host read."""
     backend = _resolve(backend, x)
     if backend == "cuda":
-        return rbf_mod.rbf_matvec_cuda(x, v, theta, lengthscale)
+        return rbf_mod.rbf_matvec_cuda(x, v, theta, lengthscale, gate)
     if backend == "plain":
-        return rbf_mod.rbf_matvec_plain(x, v, theta, lengthscale, block)
-    return ref.rbf_matvec(x, v, theta, lengthscale)
+        return rbf_mod.rbf_matvec_plain(x, v, theta, lengthscale, block, gate)
+    return rbf_mod._gated_plain(ref.rbf_matvec(x, v, theta, lengthscale), gate)
 
 
 def rbf_matvec_rect(
@@ -66,18 +70,21 @@ def rbf_matvec_rect(
     *,
     backend: str = "auto",
     block: int = 1024,
+    gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Rectangular Gram matvec ``K(X_rows, X_cols) @ v`` without forming
     the (m, n) block (except the ``reference`` oracle): the per-rank
     product of the sharded RBF operator, this rank's rows against all
     columns.  ``x_rows`` is (m, d), ``x_cols`` (n, d), ``v`` (n,) or
-    (n, r); the result (m,) or (m, r)."""
+    (n, r); the result (m,) or (m, r).  ``gate`` as in :func:`rbf_matvec`."""
     backend = _resolve(backend, x_rows)
     if backend == "cuda":
-        return rbf_mod.rbf_matvec_rect_cuda(x_rows, x_cols, v, theta, lengthscale)
+        return rbf_mod.rbf_matvec_rect_cuda(x_rows, x_cols, v, theta, lengthscale, gate)
     if backend == "plain":
-        return rbf_mod.rbf_matvec_rect_plain(x_rows, x_cols, v, theta, lengthscale, block)
-    return ref.rbf_matvec_rect(x_rows, x_cols, v, theta, lengthscale)
+        return rbf_mod.rbf_matvec_rect_plain(x_rows, x_cols, v, theta, lengthscale, block,
+                                             gate)
+    return rbf_mod._gated_plain(ref.rbf_matvec_rect(x_rows, x_cols, v, theta, lengthscale),
+                                gate)
 
 
 def fused_cg_update(

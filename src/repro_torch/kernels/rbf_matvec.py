@@ -45,6 +45,7 @@ CPU path and the card's yardstick.  The counters are those of
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import torch
 
@@ -61,8 +62,8 @@ BLOCK_OVERHEAD = 0.25  # a block's fixed cost, in tiles, for _split_grid
 
 _P, _I, _L, _D = _runtime.PTR, _runtime.INT, _runtime.INT64, _runtime.DOUBLE
 _SIGNATURES = {
-    "rbf_matvec": (_P, _P, _L, _I, _P, _I, _D, _D, _I, _I, _P, _P, _P),
-    "rbf_matvec_rect": (_P, _P, _P, _P, _L, _L, _I, _P, _I, _D, _D, _I, _P, _P),
+    "rbf_matvec": (_P, _P, _L, _I, _P, _I, _D, _D, _I, _I, _P, _P, _P, _P, _I, _L),
+    "rbf_matvec_rect": (_P, _P, _P, _P, _L, _L, _I, _P, _I, _D, _D, _I, _P, _P, _P, _I, _L),
 }
 
 
@@ -98,15 +99,30 @@ def _sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _gate_args(gate: Optional[torch.Tensor], like: torch.Tensor):
+    """``(pointer, lanes, stride)`` of a product's gate: a bool device
+    vector (or 0-d flag) of any stride, None for an ungated product."""
+    if gate is None:
+        return None, 0, 0
+    if gate.dtype != torch.bool or gate.device != like.device or gate.ndim > 1:
+        raise ValueError(f"rbf_matvec: gate must be a 0-d or 1-d bool tensor on {like.device}, "
+                         f"got {gate.dtype} {tuple(gate.shape)} on {gate.device}")
+    lanes = 1 if gate.ndim == 0 else gate.shape[0]
+    if lanes < 1:
+        raise ValueError("rbf_matvec: the gate needs at least one flag")
+    return gate.data_ptr(), lanes, (gate.stride(0) if gate.ndim else 0)
+
+
 def _launch(
     name: str, x_rows: torch.Tensor, x_cols: torch.Tensor, v: torch.Tensor,
-    theta: float, lengthscale: float,
+    theta: float, lengthscale: float, gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``K(X_rows, X_cols) @ v`` through entry point ``name`` of
     ``csrc/rbf_matvec.cu``.  The square entry (K3) runs the symmetric
     schedule where its scratch fits (:func:`_symmetric`), else the full
     grid, with one norm buffer; K8's the full grid with two, even when
-    handed the same X."""
+    handed the same X.  ``gate`` (bool device flags) zeroes the product
+    on the card, without a host read, when no flag is set."""
     squeeze = v.ndim == 1
     v2 = (v[:, None] if squeeze else v).contiguous()  # (n, r) row-major
     m, d = x_rows.shape
@@ -131,23 +147,26 @@ def _launch(
     y = new((m, r))
     p = _runtime.ptr
     scalars = (1.0 / float(lengthscale), float(theta) ** 2)
+    gated = _gate_args(gate, x_rows)
     if square:
         colpart = new((max(lengths) - 1, n, rc)) if sym and max(lengths) > 1 else None
         args = (p(x_rows), p(sq_rows), n, d, p(v2), r, *scalars, int(sym), nseg, p(rowpart),
-                p(colpart), p(y))
+                p(colpart), p(y), *gated)
     else:
         sq_cols = new((n,))
         args = (p(x_rows), p(x_cols), p(sq_rows), p(sq_cols), m, n, d, p(v2), r, *scalars,
-                nseg, p(rowpart), p(y))
+                nseg, p(rowpart), p(y), *gated)
     _runtime.launch("rbf_matvec", name, _SIGNATURES[name], x_rows, *args)
     return y[:, 0] if squeeze else y
 
 
 def rbf_matvec_cuda(
-    x: torch.Tensor, v: torch.Tensor, theta: float, lengthscale: float
+    x: torch.Tensor, v: torch.Tensor, theta: float, lengthscale: float,
+    gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """``K(X, X) @ v`` on the card for ``v`` of shape (n,) or (n, r)."""
-    return _launch("rbf_matvec", x, x, v, theta, lengthscale)
+    """``K(X, X) @ v`` on the card for ``v`` of shape (n,) or (n, r);
+    zeros when ``gate`` (bool device flags) is given and no flag is set."""
+    return _launch("rbf_matvec", x, x, v, theta, lengthscale, gate)
 
 
 def rbf_matvec_rect_cuda(
@@ -156,10 +175,19 @@ def rbf_matvec_rect_cuda(
     v: torch.Tensor,
     theta: float,
     lengthscale: float,
+    gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """``K(X_rows, X_cols) @ v`` on the card: ``x_rows`` (m, d), ``x_cols``
-    (n, d), ``v`` (n,) or (n, r); the result is (m,) or (m, r)."""
-    return _launch("rbf_matvec_rect", x_rows, x_cols, v, theta, lengthscale)
+    (n, d), ``v`` (n,) or (n, r); the result is (m,) or (m, r).  ``gate``
+    as in :func:`rbf_matvec_cuda`."""
+    return _launch("rbf_matvec_rect", x_rows, x_cols, v, theta, lengthscale, gate)
+
+
+def _gated_plain(y: torch.Tensor, gate: Optional[torch.Tensor]) -> torch.Tensor:
+    """The plain versions' gate: ``y`` where any flag is set, else zeros."""
+    if gate is None:
+        return y
+    return torch.where(torch.any(gate), y, torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 def _gram_matvec_plain(xr, xc, v, theta, lengthscale, block):
@@ -186,11 +214,12 @@ def rbf_matvec_plain(
     theta: float,
     lengthscale: float,
     block: int = 1024,
+    gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`rbf_matvec_cuda`, ``block`` rows of
     the Gram matrix at a time (O(block · n) memory)."""
     _runtime.note_plain("rbf_matvec", x)
-    return _gram_matvec_plain(x, x, v, theta, lengthscale, block)
+    return _gated_plain(_gram_matvec_plain(x, x, v, theta, lengthscale, block), gate)
 
 
 def rbf_matvec_rect_plain(
@@ -200,8 +229,9 @@ def rbf_matvec_rect_plain(
     theta: float,
     lengthscale: float,
     block: int = 1024,
+    gate: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`rbf_matvec_rect_cuda`, ``block``
     rows of the (m, n) Gram block at a time (O(block · n) memory)."""
     _runtime.note_plain("rbf_matvec_rect", x_rows)
-    return _gram_matvec_plain(x_rows, x_cols, v, theta, lengthscale, block)
+    return _gated_plain(_gram_matvec_plain(x_rows, x_cols, v, theta, lengthscale, block), gate)

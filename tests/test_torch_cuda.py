@@ -25,7 +25,12 @@ K1, K6, K2 and K7 and K6's pair arm are held against their plain versions
 (the scalars bit for bit), and each arm must be one device kernel a call;
 K1's and K7's armed with the stall detector (``window > 0``) in stalling
 states too: the window-0 outputs unchanged, STAGNATED latched on the
-plain version's step.
+plain version's step.  The lane axis of K1's, K6's and K2's step arms
+(``tests/torch_lane_cases.py``): at B = 1, 8 and 64 every lane bit for
+bit the one-lane arm on that lane's data, against the lane-by-lane plain
+versions, one device kernel a call; K3 and K8 behind a gate of device
+flags: zeros with every flag off, the ungated product bit for bit with
+any one on.
 """
 
 import numpy as np
@@ -450,24 +455,29 @@ def test_lsmr_update(device, dtype, n):
 
 
 def _device_kernels(fn, reps=5):
-    """Device kernels one call of ``fn`` runs, from a ``torch.profiler``
-    trace of ``reps`` calls (after a warm-up call).  A profiler session
-    now and then comes back with no device events at all; such a session
-    is run again (three at most), a session with events is counted."""
+    """Device kernels one call of ``fn`` runs: the difference between a
+    ``torch.profiler`` trace of ``2 reps`` calls and one of ``reps``, over
+    ``reps`` (after a warm-up call).  Profiler sessions now and then come
+    back with no device events, or a constant few short on some machines;
+    the difference cancels a constant loss, and a pair with no events or
+    not a whole number of kernels a call is run again (three at most)."""
     from torch.profiler import ProfilerActivity, profile
+
+    def count(calls):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.count for e in prof.key_averages()
+                   if "cuda" in str(getattr(e, "device_type", "")).lower())
 
     fn()
     torch.cuda.synchronize()
     for _ in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        count = sum(e.count for e in prof.key_averages()
-                    if "cuda" in str(getattr(e, "device_type", "")).lower())
-        if count:
+        one, two = count(reps), count(2 * reps)
+        if one and two and (two - one) % reps == 0:
             break
-    return count / reps
+    return (two - one) / reps
 
 
 def _lsmr_step_inputs(device, dtype, n, case):
@@ -894,3 +904,111 @@ def test_smoke_model_serving_on_card(device, arch):
         runs[backend] = (hidden, last, step)
     for got, want in zip(runs["cuda"], runs["plain"]):
         torch.testing.assert_close(got, want, rtol=2e-4, atol=5e-4)
+
+
+# ---------------------------------------------------------------------------
+# The lane axis of K1's, K6's and K2's step arms (batched solves)
+# ---------------------------------------------------------------------------
+
+# (n, k): the main path's n (odd: lane i's rows start 8-byte aligned for
+# odd i, so its lanes mix 16-byte and element loads) with and without a
+# basis, an aligned n, a small one and a single element.
+LANE_SHAPES = [(36551, 8), (36551, 0), (36552, 8), (36552, 0), (1000, 8), (1, 1)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes", [1, 8, 64])
+@pytest.mark.parametrize("n,k", LANE_SHAPES)
+@pytest.mark.parametrize("mode", ["plain", "recording", "armed"])
+def test_lane_axis_step_arms(device, dtype, lanes, n, k, mode):
+    """K1's, K6's and K2's step arms on a (B, n) lane axis: every lane bit
+    for bit the one-lane arm on that lane's data (live, frozen, indefinite
+    and diverging lanes; per-lane scalars as strided views), against the
+    lane-by-lane plain versions to the kernel bar (flags, counts and
+    statuses exactly), two launches bit for bit, one counted launch per
+    arm per call."""
+    import torch_lane_cases as lc
+
+    if lanes * n > 64 * 36552 // 2 and mode != "plain":
+        lanes = 8  # the recording buffers at 64 lanes: the plain mode covers 64
+    t = lc.lane_step_inputs(torch, device, dtype, lanes, n, k, mode=mode, seed=lanes + n + k)
+    full, per_lane = lc.run_lane_arms(torch, cg_fused, t)
+    assert lc.lane_mismatches(torch, full, per_lane) == []
+    again = lc.run_steps(torch, cg_fused, t)
+    assert lc.lane_mismatches(torch, full, again) == []
+    plain = lc.run_steps(torch, cg_fused, t, arms="plain")
+    for key in ("jo", "bo", "k1r_js", "k1r_flags"):
+        assert torch.equal(full[key], plain[key]), key
+    for key, got in full.items():
+        if got.dtype.is_floating_point:
+            _assert_close(torch.nan_to_num(got), torch.nan_to_num(plain[key]), dtype)
+    before = dict(cg_fused.LAUNCHES)
+    lc.run_steps(torch, cg_fused, t)
+    assert cg_fused.LAUNCHES["fused_cg_update"] == before["fused_cg_update"] + 2
+    assert cg_fused.LAUNCHES["fused_rz_reduce"] == before["fused_rz_reduce"] + 1
+    assert cg_fused.LAUNCHES["fused_deflate_direction"] == before["fused_deflate_direction"] + 1
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lane_axis_arms_run_one_device_kernel(device, dtype):
+    """Each lane-axis arm is one device kernel a call at B = 8, n = 36 551."""
+    import torch_lane_cases as lc
+
+    t = lc.lane_step_inputs(torch, device, dtype, 8, 36551, 8, mode="recording")
+    so = torch.zeros(8, 10, dtype=dtype, device=device)
+    on = torch.ones(8, dtype=torch.bool, device=device)
+    ap = t["ap"].clone()
+    calls = {
+        "K1 lanes": lambda: cg_fused.fused_cg_step_cuda(
+            t["x"], t["r"], t["p"], ap, t["d"], t["rs"], t["rnorm"], t["js"], t["active"],
+            t["threshold"], t["diverged_at"], 10, t["aw"], t["waw_inv"]),
+        "K6 lanes": lambda: cg_fused.fused_rz_step_cuda(
+            t["r"], t["z"], t["rs"], t["aw"], t["waw_inv"], alpha=so[:, 2], active=on,
+            row=1, a_rows=t["a_rows"], b_rows=t["b_rows"]),
+        "K2 lanes": lambda: cg_fused.fused_direction_step_cuda(
+            t["z"], t["p"], so[:, 1], on, t["w"], so[:, 2:10], ap=t["ap"], active=on, row=1,
+            p_buf=t["p_buf"], ap_buf=t["ap_buf"]),
+    }
+    assert {name: _device_kernels(fn) for name, fn in calls.items()} == dict.fromkeys(calls, 1)
+
+
+# ---------------------------------------------------------------------------
+# The device gate of K3 / K8 (frozen steps skip their product)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ndr", [(4000, 784, 1), (1000, 50, 8), (257, 13, 33)])
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_rbf_matvec_gate(device, dtype, ndr, lanes):
+    """A gated K3 call: zeros when no flag is set (the flags a strided
+    view), bit for bit the ungated call when any one is, and the plain
+    version's gate likewise."""
+    n, d, r = ndr
+    rnd = _gen(device, dtype, n + d + r + lanes)
+    x, v = rnd(n, d) * 0.3, rnd(n, r)
+    flags = torch.zeros(lanes, 2, dtype=torch.bool, device=device)
+    ungated = rbf.rbf_matvec_cuda(x, v, 1.3, 2.0)
+    off = rbf.rbf_matvec_cuda(x, v, 1.3, 2.0, gate=flags[:, 0])
+    assert torch.equal(off, torch.zeros_like(off))
+    flags[lanes - 1, 0] = True
+    on = rbf.rbf_matvec_cuda(x, v, 1.3, 2.0, gate=flags[:, 0])
+    assert torch.equal(on, ungated)
+    plain_off = rbf.rbf_matvec_plain(x, v, 1.3, 2.0, gate=flags[:, 1])
+    assert torch.equal(plain_off, torch.zeros_like(plain_off))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mnd", [(2048, 16384, 784), (1000, 3001, 13)])
+def test_rbf_matvec_rect_gate(device, dtype, mnd):
+    """The same gate on K8: zeros gated off, the ungated product gated on."""
+    m, n, d = mnd
+    rnd = _gen(device, dtype, m + n + d)
+    x = rnd(n, d) * 0.3
+    xr, v = x[:m].contiguous(), rnd(n, 1)
+    ungated = rbf.rbf_matvec_rect_cuda(xr, x, v, 1.0, 2.0)
+    off = rbf.rbf_matvec_rect_cuda(xr, x, v, 1.0, 2.0,
+                                   gate=torch.tensor(False, device=device))
+    assert torch.equal(off, torch.zeros_like(off))
+    on = rbf.rbf_matvec_rect_cuda(xr, x, v, 1.0, 2.0, gate=torch.tensor(True, device=device))
+    assert torch.equal(on, ungated)

@@ -242,12 +242,24 @@ def test_preconditioned_solve_sequence_matches_reference(gp_data):
 
 
 def test_m_geometry_strategy_is_not_ported(gp_data):
-    _, t_op = _rbf_ops(*gp_data[:2])
-    b = _t(gp_data[2])
-    for precond, M in (("jacobi", lambda v: v), ("none", None)):
-        spec = tc.SolveSpec(precond=precond, strategy=tc.MGeometryHarmonic())
-        with pytest.raises(NotImplementedError, match="the other two strategies"):
-            tc.solve(t_op, b, spec, M=M)
+    """MGeometryHarmonic runs now: with Jacobi on the matrix-free operator
+    a warm second solve gives the reference's counts; without a
+    preconditioner the spec and the manager refuse it."""
+    x, sqrt_h, b, bs = gp_data
+    j_op, t_op = _rbf_ops(x, sqrt_h)
+    kw = dict(k=4, ell=8, tol=1e-11, precond="jacobi")
+    j_spec = jc.SolveSpec(strategy=jc.MGeometryHarmonic(), **kw)
+    t_spec = tc.SolveSpec(strategy=tc.MGeometryHarmonic(), **kw)
+    j_m, t_m = jc.jacobi(1.0 + 4.0 * j_op.sqrt_h**2), tc.jacobi(1.0 + 4.0 * t_op.sqrt_h**2)
+    ref = jc.solve(j_op, jnp.asarray(b), j_spec, M=j_m)
+    ref = jc.solve(j_op, jnp.asarray(bs[0]), j_spec, ref.state, M=j_m)
+    got = tc.solve(t_op, _t(b), t_spec, M=t_m)
+    got = tc.solve(t_op, _t(bs[0]), t_spec, got.state, M=t_m)
+    assert int(got.info.iterations) == int(ref.info.iterations)
+    assert int(got.info.matvecs) == int(ref.info.matvecs)
+    _close(got.x, ref.x, 1e-10)
+    with pytest.raises(ValueError, match="precond"):
+        tc.SolveSpec(strategy=tc.MGeometryHarmonic())
     mgr = tc.RecycleManager(k=4, ell=8, strategy=t_strategies.MGeometryHarmonic())
-    with pytest.raises(NotImplementedError):
-        mgr.solve(t_op, b)
+    with pytest.raises(ValueError, match="pass M"):
+        mgr.solve(t_op, _t(b))

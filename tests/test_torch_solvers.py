@@ -269,9 +269,15 @@ def test_state_carries_over_from_reference(fig2_trace):
 def test_unported_paths_raise():
     A = tc.from_matrix(torch.eye(6, dtype=torch.float64))
     b = torch.ones(6, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="the other two strategies"):
-        tc.solve(A, b, tc.SolveSpec(precond="jacobi", strategy=tc.MGeometryHarmonic()),
-                 M=lambda v: v)
+    # MGeometryHarmonic is ported; the batched least-squares doors are not.
+    res = tc.solve(A, b, tc.SolveSpec(precond="jacobi", strategy=tc.MGeometryHarmonic()),
+                   M=lambda v: v)
+    assert bool(res.info.converged)
+    with pytest.raises(NotImplementedError, match="queue 1, batched and served solves"):
+        tc.solve_batch(A, torch.ones(2, 6, dtype=torch.float64), tc.SolveSpec(method="lsmr"))
+    with pytest.raises(NotImplementedError, match="queue 1, batched and served solves"):
+        tc.solve_batch(A, torch.ones(2, 6, dtype=torch.float64),
+                       tc.SolveSpec(method="deflsmr"))
     # mesh= runs the sharded engine now; what is not a solve mesh is refused.
     with pytest.raises(ValueError, match="SolveMesh"):
         tc.solve(A, b, tc.SolveSpec(), mesh=object())

@@ -69,3 +69,55 @@ def emulate_sums(prods, grid, vec, order, wide=False):
             result = _warp_sum(lanes)
         ticket += 1
     return result
+
+
+# ---------------------------------------------------------------------------
+# The step arms' lane axis (batched solves)
+# ---------------------------------------------------------------------------
+
+
+def launch_shape(n, k, itemsize, offset, resident, capacity):
+    """``(vec, blocks)`` of a one-lane K1 / K6 launch on vectors starting
+    ``offset`` bytes past a 16-byte boundary (``csrc/cg_fused.cu``:
+    ``cg_vec`` / ``rz_vec``, ``cg_blocks`` / ``rz_blocks``): 16-byte loads
+    where every vector and every row of AW is 16-byte aligned, and the
+    occupancy grid of that layout."""
+    rows = (n * itemsize) % 16 == 0
+    vec = offset % 16 == 0 and (k == 0 or rows)
+    width = 16 // itemsize if vec else 1
+    slots = (2 if vec else 4) // (2 if k > 8 else 1)
+    units = n // width
+    threads = -(-units // slots)
+    return vec, max(1, min(resident, -(-threads // THREADS), capacity))
+
+
+def _rz_prods(r, z, aw):
+    rows = [r * z] + ([] if aw is None else [aw[j] * z for j in range(aw.shape[0])])
+    return torch.stack(rows)
+
+
+def one_lane_sums(r, z, aw, offset, resident, capacity, order=None):
+    """K6's sums ``[rᵀz, (AW)z]`` of a one-lane launch on ``(r, z, aw)``
+    laid ``offset`` bytes past a 16-byte boundary."""
+    n, k = r.shape[0], 0 if aw is None else aw.shape[0]
+    vec, blocks = launch_shape(n, k, r.element_size(), offset, resident, capacity)
+    order = range(blocks) if order is None else order
+    return emulate_sums(_rz_prods(r, z, aw), blocks, 16 // r.element_size() if vec else 0,
+                        order, wide=k > 8)
+
+
+def lane_sums(r, z, aw, lane, resident, capacity):
+    """Lane ``lane`` of a lane-axis launch over ``(B, n)`` stacks: the grid
+    along x is as wide as the widest lane (``max`` of the two layouts'
+    block counts); the lane takes the layout its own rows' alignment
+    gives, and its blocks past that layout's count return before the
+    ticket, so its sums span its own count.  Its blocks finish in reverse
+    order here (a ticket order the one-lane run does not share)."""
+    n, k = r.shape[1], 0 if aw is None else aw.shape[1]
+    itemsize = r.element_size()
+    offset = lane * n * itemsize
+    vec, blocks = launch_shape(n, k, itemsize, offset, resident, capacity)
+    wide = max(launch_shape(n, k, itemsize, o, resident, capacity)[1] for o in (0, 8))
+    order = [b for b in reversed(range(wide)) if b < blocks]
+    return emulate_sums(_rz_prods(r[lane], z[lane], None if aw is None else aw[lane]), blocks,
+                        16 // itemsize if vec else 0, order, wide=k > 8)

@@ -32,7 +32,8 @@ Measures one tree of the port (``--src``, default this tree's ``src``):
   the wall time per iteration of 256 live cold steps, unprofiled;
 * Gauss-Newton training (``chip_smoke.GN``'s residual): three recycled
   ``hf_step``s, then ``chip_smoke.profile_gn_step`` over a fourth (device
-  busy share, launches, ms per LSMR iteration);
+  busy share, launches, ms per LSMR iteration), then five more unprofiled
+  (``gn_wall``: wall ms per LSMR iteration);
 * ``digests``: SHA-256 of the outputs of K1's and K7's window-0 step arms
   on seeded inputs and of the 64-step def-CG and 256-step LSMR iterates
   above, so two trees' outputs compare bit for bit.
@@ -269,6 +270,17 @@ def main(argv=None) -> int:
           f"launches, device busy {gp['device_busy_share']:.1%}, "
           f"{gp['ms_per_lsmr_iteration_profiled']:.3f} ms per LSMR iteration under the profiler",
           flush=True)
+    # Unprofiled: five more recycled steps, wall time per LSMR iteration.
+    torch.cuda.synchronize()
+    t0, its = time.perf_counter(), 0
+    for _ in range(5):
+        params, state, m = hf_step(params, state, batch, residual_fn=residual_fn, cfg=cfg)
+        its += int(m["cg_iterations"])
+    torch.cuda.synchronize()
+    out["gn_wall"] = {"steps": 5, "iterations": its,
+                      "ms_per_lsmr_iteration": 1e3 * (time.perf_counter() - t0) / max(its, 1)}
+    print(f"[{args.label}] main-gn, 5 steps unprofiled: {its} LSMR iterations, "
+          f"{out['gn_wall']['ms_per_lsmr_iteration']:.3f} ms per LSMR iteration", flush=True)
     for pr in (out["defcg_profile"], out["pdefcg_profile"], *out["lsmr_profile"].values()):
         pr.pop("kernels")
     print(json.dumps(out))
