@@ -58,8 +58,12 @@ Phases, each of which fails the script when it fails:
               lanes, every lane bit for bit the one-lane arm on its data
               (SHA-256 digests), two launches bit for bit, the plain
               versions lane by lane to the f64 bar, each lane arm timed at
-              B = 8 and 64; K3 and K8 gated off (every flag false): zeros,
-              timed beside the ungated calls.
+              B = 8 and 64; the same for K7's step arm at n = 16 384
+              (B = 1, 8, 64, and armed with window 10 at B = 8; live,
+              frozen, converging, diverging and exactly terminating lanes),
+              timed at B = 8 and 64 beside B one-lane calls; K3 and K8 gated
+              off (every flag false): zeros, timed beside the ungated
+              calls.
 4. check    — small Newton sequences (n = 400) on the card against the same
               sequences run on the CPU through the plain versions: the
               dense-K solvers, and the matrix-free Jacobi-preconditioned
@@ -110,6 +114,19 @@ Phases, each of which fails the script when it fails:
               and one ``solve_pool_step`` with half the slots idle (their
               states bit-untouched, their info scrubbed).  The lane arms
               must launch and no plain version run.
+5e. serve   — ``benchmarks/serve_bench.py``'s traffic through
+              ``repro_torch.serve.SolveService`` on main's data and dense K
+              (shared), def-CG(8, 12), tol 1e-5: Poisson arrivals, drifting
+              Newton sequences (drift 0.15); B = 8 slots with 6 systems a
+              tenant beside the sequential ``solve`` loop, B = 64 with 3
+              (the pool alone): µs a system, systems a second, occupancy,
+              ticks, batched and single steps, evictions, every tenant
+              converged; the B = 1 fence (one system through ``solve``
+              against an 8-slot pool step with one slot active); then 6
+              tenants through 4 slots spilling into a temporary directory
+              (the re-admitted tenant's state restored bit for bit, its next
+              solve warm).  K1, K2 (lane arms), K4 and K5 must launch and no
+              plain version run.
 6. scale    — one RBF Gram matvec each in f32 and f64 at n = 131 072,
               d = 784, where a dense K would need 69 GB (f32) or 137 GB.
 7. main-mf  — the matrix-free Newton sequence (K never formed; every K
@@ -156,6 +173,16 @@ Phases, each of which fails the script when it fails:
               to 1e-5, and the LSMR update and both extraction kernels must
               launch.  Then, counted apart, ``torch.profiler`` over 16 LSMR
               iterations gives the launches per iteration.
+10b. batch-lsq — eight tenants, each its own lsq_bench drifting ridge
+              sequence (3 systems, seeds 0–7) at m = 12 288, n = 8 192 (19.3
+              GB in one (8, 3, m, n) tensor), through ``solve_batch(
+              deflsmr(8, 48), sequence=True)`` (batched products read in
+              place, K7's lane arm) beside eight sequential
+              ``solve_sequence`` runs: every system converged, x within
+              1e-6, counts within ROADMAP P5's bars; the wall times; device
+              launches per batched LSMR iteration (``torch.profiler``); one
+              ``solve_pool_step`` with half the slots idle.  K7's lane arm
+              must launch and no plain version run.
 11. main-gn  — Gauss-Newton training: ``hf_step(solver="gauss_newton")`` on
               a teacher-student tanh residual, 65 536 samples, d = 1024, 32
               outputs (32 768 parameters), f64, 10 steps with recycling and
@@ -226,11 +253,13 @@ A ``[summary]`` line gives the device launches per damped LSMR and
 deflated def-CG iteration (without and with the Jacobi preconditioner),
 main-lsq's ms per cold LSMR iteration and main-gn's device busy share.
 
-Each main path (5, 5b, 7, 7b, 10, 11, 13, 15 and 16) is driven with the
-launch counters set to 0 just before it and read just after (13: on every
-rank); the ``{"kernels": [...]}`` JSON line gives each kernel's launches
-summed over the nine (13: over its ranks).  A second ``[summary]`` line
-gives the paper and chaos phases' results.  Last comes the
+Each main path (5, 5b–5e, 7, 7b, 10, 10b, 11, 13, 15 and 16) is driven
+with the launch counters set to 0 just before it and read just after (13:
+on every rank); the ``{"kernels": [...]}`` JSON line gives each kernel's
+launches summed over the fourteen (13: over its ranks), and its launches
+per arm (``arms``; lane-axis arms end in ``_lanes``).  Further
+``[summary]`` lines give the strategies, batch, serve, batch-lsq, paper
+and chaos phases' results.  Last comes the
 ``{"ok": true, "device": {...}}`` line; the full report also goes to
 ``chiprun_out/chip_smoke.json``.
 ``--lm-only`` runs phases 1, 2 and 14–17 alone and prints no ok line.
@@ -239,6 +268,7 @@ gives the paper and chaos phases' results.  Last comes the
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -412,6 +442,25 @@ STRATEGY_PATH_KERNELS = DENSE_PATH_KERNELS + ("fused_rz_reduce",)
 # idle.
 BATCH = {"sizes": (1, 8, 64), "tol": 1e-5, "maxiter": 200, "mf_lanes": 8, "pool": 8}
 BATCH_PATH_KERNELS = DENSE_PATH_KERNELS + ("rbf_matvec", "fused_rz_reduce")
+# K7's step arm on the lane axis: main-lsq's n, B = 1, 8, 64, and armed with
+# the stall detector (this window) at B = 8.
+LSMR_LANE_WINDOW = 10
+# benchmarks/serve_bench.py's traffic on main's dense K (shared): T = B
+# tenants with drifting Newton sequences (latents ~ N(0, 0.5²), drift 0.15,
+# numpy seed B), Poisson arrivals, def-CG(8, 12), tol 1e-5, maxiter 200; B =
+# 8 with 6 systems a tenant beside the sequential loop, B = 64 with 3 (the
+# pool alone); then 6 tenants through 4 slots, spilling into a temporary
+# directory.
+SERVE = {"sizes": (8, 64), "systems": {8: 6, 64: 3}, "loop": (8,), "tol": 1e-5,
+         "maxiter": 200, "drift": 0.15, "evict_slots": 4, "evict_tenants": 6}
+SERVE_PATH_KERNELS = DENSE_PATH_KERNELS
+SERVE_LANE_ARMS = ("fused_cg_update:fused_cg_step_lanes",
+                   "fused_deflate_direction:fused_direction_step_lanes")
+# Batched least squares: B tenants, each its own lsq_bench drifting ridge
+# sequence (logspace, drift 0.02, λ = 1e-4, tol 1e-8, deflsmr(8, 48), numpy
+# and torch seeds 0 … B − 1) at half main-lsq's sides, 805 MB a system.
+LSQ_BATCH = {"lanes": 8, "m": 12288, "n": 8192, "num": 3, "maxiter": 4000}
+LSQ_BATCH_PATH_KERNELS = LSQ_PATH_KERNELS
 
 
 def log(msg=""):
@@ -1467,17 +1516,22 @@ def phase_check_lsq(torch, cf):
 def profile_lsmr_steps(torch, A, b, W=None, NW=None, steps=16):
     """``torch.profiler`` over ``steps`` LSMR iterations (tol 0, so every
     step is live): device kernels launched per iteration, and device time
-    per iteration split into the two GEMVs and everything else."""
+    per iteration split into the two GEMVs and everything else.  ``A`` is a
+    matrix, or a batched operator for ``(B, m)`` right-hand sides (B lanes
+    an iteration)."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.core import DenseMatrixOperator, lsmr
 
-    op = DenseMatrixOperator(A)
-    lsmr(op, b, W=W, NW=NW, damp=LSQ_DAMP, tol=0.0, maxiter=steps)
+    op = DenseMatrixOperator(A) if isinstance(A, torch.Tensor) else A
+    # A one-system call passes no lanes= (tools/step_times.py runs this
+    # against trees whose lsmr has none).
+    lanes = {"lanes": True} if b.ndim == 2 else {}
+    lsmr(op, b, W=W, NW=NW, damp=LSQ_DAMP, tol=0.0, maxiter=steps, **lanes)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        lsmr(op, b, W=W, NW=NW, damp=LSQ_DAMP, tol=0.0, maxiter=steps)
+        lsmr(op, b, W=W, NW=NW, damp=LSQ_DAMP, tol=0.0, maxiter=steps, **lanes)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     launches, gemv_us, other_us, names = 0, 0.0, 0.0, {}
@@ -1702,6 +1756,16 @@ def profile_gn_step(torch, params, state, batch, residual_fn, cfg):
 def _sync(torch, device):
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _timed(torch, device, fn):
+    """``(fn(), seconds)`` on the host clock, the device synchronized
+    before and after."""
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    res = fn()
+    _sync(torch, device)
+    return res, time.perf_counter() - t0
 
 
 def _zero_counts():
@@ -2694,12 +2758,7 @@ def phase_chaos(torch, x, device="cuda"):
     def make_faulty(s):
         return FaultInjectingOperator(make(s), s["poison"])
 
-    def timed(fn):
-        _sync(torch, device)
-        t0 = time.perf_counter()
-        res = fn()
-        _sync(torch, device)
-        return res, time.perf_counter() - t0
+    timed = functools.partial(_timed, torch, device)
 
     def its(res):
         return [int(v) for v in res.info.iterations.tolist()]
@@ -2808,7 +2867,7 @@ def phase_chaos(torch, x, device="cuda"):
     return out
 
 
-def phase_lane_kernels(torch, cf, rbf, kernels, device="cuda", n=PAPER_N):
+def phase_lane_kernels(torch, cf, rbf, kernels, device="cuda", n=PAPER_N, n7=None):
     """The lane axis of K1's, K6's and K2's step arms
     (``tests/torch_lane_cases.py``: K1's step, K6's step and K2's step
     chained as the preconditioned def-CG loop runs them, per-lane scalars
@@ -2819,9 +2878,12 @@ def phase_lane_kernels(torch, cf, rbf, kernels, device="cuda", n=PAPER_N):
     two launches bit for bit, and the lane-by-lane plain versions to the
     f64 bar (flags, counts and statuses exactly).  Then each lane arm timed
     at B = 8 and 64 beside B one-lane calls, and the gated K3 / K8 calls
-    with every flag off: zeros, timed beside the ungated calls."""
+    with every flag off: zeros, timed beside the ungated calls.  K7's step
+    arm likewise at main-lsq's n (``n7``; :func:`lsmr_lane_kernels`)."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import torch_lane_cases as lc
+
+    n7 = LSQ_MAIN["n"] if n7 is None else n7
 
     out = {"digests": {}, "max_abs_err": 0.0}
     cases = [(lanes, K, mode) for lanes in LANE_SIZES for mode in ("plain", "recording")]
@@ -2876,6 +2938,7 @@ def phase_lane_kernels(torch, cf, rbf, kernels, device="cuda", n=PAPER_N):
     for name, key in (("fused_cg_update", "K1 step"), ("fused_rz_reduce", "K6 step"),
                       ("fused_deflate_direction", "K2 step")):
         kernels[name]["lane_arm_ms"] = {f"B={b}": timings[f"{key} B={b}"] for b in (8, 64)}
+    out["k7"] = lsmr_lane_kernels(torch, cf, lc, kernels, device, n7)
 
     # The gate: every flag off, the product is zeros and skips its tiles.
     x, v = rbf_inputs(torch, n, D, 1, torch.float64, 7, device)
@@ -2897,6 +2960,70 @@ def phase_lane_kernels(torch, cf, rbf, kernels, device="cuda", n=PAPER_N):
     log(f"[lanes] gated-off K3 n={n} r=1: zeros, {gate['k3_gated_off_ms']:.4f} ms (ungated "
         f"{gate['k3_ungated_ms']:.2f} ms); gated-off K8 4096 x 16384: zeros, "
         f"{gate['k8_gated_off_ms']:.4f} ms (ungated {gate['k8_ungated_ms']:.3f} ms)")
+    return out
+
+
+def lsmr_lane_kernels(torch, cf, lc, kernels, device, n):
+    """K7's step arm on the lane axis (``tests/torch_lane_cases.py``'s LSMR
+    case: live, frozen, converging, diverging and exactly terminating
+    lanes, ``s`` rows of a wider buffer, the other per-lane scalars strided
+    views) at main-lsq's n, f64: B = 1, 8, 64 unarmed and B = 8 armed
+    (window 10).  Every lane bit for bit the one-lane arm on its data
+    (SHA-256 digests of both), two launches bit for bit, the lane-by-lane
+    plain version to the f64 bar (``s`` and the trace too; flags, counts
+    and statuses exactly).  Then the lane arm timed at B = 8 and 64 beside
+    B one-lane calls, with its bound (B × the one-lane arm's bytes)."""
+    out = {"digests": {}, "max_abs_err": 0.0}
+    cases = [(lanes, 0) for lanes in LANE_SIZES] + [(8, LSMR_LANE_WINDOW)]
+    for lanes, window in cases:
+        t = lc.lsmr_lane_inputs(torch, device, torch.float64, lanes, n, window=window,
+                                seed=lanes + window)
+        full, per_lane = lc.run_lsmr_lane_arms(torch, cf, t)
+        again = lc.run_lsmr_steps(torch, cf, t)
+        plain = lc.run_lsmr_steps(torch, cf, t, arms="plain")
+        what = f"B={lanes} window={window}"
+        bad = lc.lane_mismatches(torch, full, per_lane) + lc.lane_mismatches(torch, full, again)
+        bad += [key for key in ("jo", "ao") if not torch.equal(full[key], plain[key])]
+        for key, got in full.items():
+            if got.dtype.is_floating_point:
+                want = torch.nan_to_num(plain[key])
+                scale = max(1.0, float(want.abs().max()))
+                err = float((torch.nan_to_num(got) - want).abs().max()) / scale
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                if err > TOL["float64"]:
+                    bad.append(f"{key} {err:.2e}")
+        if bad:
+            raise AssertionError(f"[lanes] K7 {what}: {bad}")
+        out["digests"][what] = [lc.digest(torch, full)[:16], lc.digest(torch, per_lane)[:16]]
+    log(f"[lanes] K7 lane arm at n={n}, B in {LANE_SIZES} and armed (window "
+        f"{LSMR_LANE_WINDOW}) at B=8: every lane bit for bit the one-lane arm, repeats bit "
+        f"for bit, plain version within {out['max_abs_err']:.1e}; digests {out['digests']}")
+
+    timings = {}
+    for lanes in (8, 64):
+        t = lc.lsmr_lane_inputs(torch, device, torch.float64, lanes, n, seed=5)
+        args = [t[key] for key in lc.LSMR_ARGS]
+
+        def lane_call(args=args):
+            cf.lsmr_step_cuda(*args)
+
+        def one_lane_calls(args=args, lanes=lanes):
+            for i in range(lanes):
+                cf.lsmr_step_cuda(*(a[i] if isinstance(a, torch.Tensor) else a for a in args))
+
+        timings[f"K7 step B={lanes}"] = device_ms(torch, lane_call)
+        timings[f"K7 step, one lane at a time B={lanes}"] = device_ms(torch, one_lane_calls)
+    out["timings"] = timings
+    one_bound = kernels["lsmr_update"]["bound_ms"]
+    entry = kernels["lsmr_update"]
+    entry["lane_arm_ms"] = {f"B={b}": timings[f"K7 step B={b}"] for b in (8, 64)}
+    entry["lane_one_lane_calls_ms"] = {
+        f"B={b}": timings[f"K7 step, one lane at a time B={b}"] for b in (8, 64)}
+    entry["lane_bound_ms"] = {f"B={b}": b * one_bound for b in (8, 64)}
+    entry["max_abs_err"] = max(entry["max_abs_err"], out["max_abs_err"])
+    log(f"[lanes] K7 f64 n={n}: " + ", ".join(f"{k} {v:.4f} ms" for k, v in timings.items())
+        + f"; bound {entry['lane_bound_ms']['B=8']:.5f} / {entry['lane_bound_ms']['B=64']:.5f}"
+        " ms (B × the one-lane arm's bytes at 3.35 TB/s)")
     return out
 
 
@@ -2998,12 +3125,7 @@ def phase_batch(torch, x, k_dense, cf, device="cuda"):
     def kmv(v):
         return k_dense @ v
 
-    def timed(fn):
-        _sync(torch, device)
-        t0 = time.perf_counter()
-        res = fn()
-        _sync(torch, device)
-        return res, time.perf_counter() - t0
+    timed = functools.partial(_timed, torch, device)
 
     out = {"n": x.shape[0]}
     for lanes in BATCH["sizes"]:
@@ -3103,6 +3225,305 @@ def phase_batch(torch, x, k_dense, cf, device="cuda"):
         f"scrubbed={scrubbed}")
     if not (untouched and scrubbed and bool(step.info.converged.all())):
         raise AssertionError(f"[batch] pool step: {out['pool_step']}")
+    return out
+
+
+def serve_traffic(torch, tenants, num, k_mv, n, device, seed, drift):
+    """``benchmarks/serve_bench.py``'s ``_tenant_traffic``: per tenant a
+    drifting Newton sequence over the shared K (latents ~ N(0, 0.5²), b ~
+    N(0, 1), the latents drifting by ``drift``·N(0, 1) a system; numpy
+    ``default_rng(seed)`` drawn in the bench's order), and the Poisson
+    arrival schedule (≈ tenants / 2 a tick).  Returns ``(ops, rhs,
+    arrivals)`` by tenant key."""
+    import numpy as np
+
+    from repro_torch.core import KernelSystemOperator
+
+    rng = np.random.default_rng(seed)
+    ops, rhs = {}, {}
+    for t in range(tenants):
+        f = rng.standard_normal(n) * 0.5
+        systems, bs = [], []
+        for _ in range(num):
+            pi = 1.0 / (1.0 + np.exp(-f))
+            systems.append(KernelSystemOperator(
+                k_mv, torch.as_tensor(np.sqrt(pi * (1 - pi)), device=device)))
+            bs.append(torch.as_tensor(rng.standard_normal(n), device=device))
+            f = f + drift * rng.standard_normal(n)
+        ops[f"t{t}"], rhs[f"t{t}"] = systems, bs
+    arrivals, remaining = [], [f"t{t}" for t in range(tenants)]
+    while remaining:
+        batch = min(int(rng.poisson(max(tenants / 2, 1))), len(remaining))
+        if batch == 0 and not arrivals:
+            batch = 1  # never start with an empty tick
+        arrivals.append(remaining[:batch])
+        remaining = remaining[batch:]
+    return ops, rhs, arrivals
+
+
+def phase_serve(torch, x, k_dense, device="cuda"):
+    """``benchmarks/serve_bench.py`` on main's data and dense K (shared):
+    tenants arrive over a Poisson schedule, each with a drifting Newton
+    sequence, and ``SolveService`` (B slots) serves every resident tenant's
+    next system with one ``solve_pool_step`` a tick (the lane arms of K1 and
+    K2, one (n, B) product an iteration), K4 and K5 once a lane a system.
+    B = 8 (6 systems a tenant) beside the sequential ``solve`` loop over the
+    same tenants, B = 64 (3 a tenant) the pool alone: µs a system, systems
+    a second, occupancy, ticks, batched and single steps, evictions, every
+    tenant converged.  Then eviction: 6 tenants through 4 slots spilling
+    into a temporary directory; the re-admitted tenant's restored state
+    must equal its spilled one bit for bit, and its next solve take fewer
+    iterations than its cold start.  Between them the B = 1 fence: one
+    system through ``solve`` against a pool step of 8 slots with one
+    active, three pairs alternating which side runs first."""
+    import shutil
+    import tempfile
+
+    from repro_torch.core import SolveSpec, solve
+    from repro_torch.serve import SolveService
+
+    spec = SolveSpec(k=K, ell=ELL, tol=SERVE["tol"], maxiter=SERVE["maxiter"])
+    n = x.shape[0]
+
+    def kmv(v):
+        return k_dense @ v
+
+    timed = functools.partial(_timed, torch, device)
+
+    def run_pool(slots, ops, rhs, arrivals, checkpoint_dir=None):
+        svc = SolveService(spec, slots=slots, checkpoint_dir=checkpoint_dir)
+        tickets = []
+        for arriving in arrivals:
+            for t in arriving:
+                session = svc.session(t)
+                tickets += [session.submit(A, b) for A, b in zip(ops[t], rhs[t])]
+            svc.tick()
+        svc.run_until_idle()
+        return svc, [svc.result(tk, drive=False) for tk in tickets]
+
+    def run_loop(ops, rhs):
+        outs = []
+        for t in ops:
+            state = None
+            for A, b in zip(ops[t], rhs[t]):
+                res = solve(A, b, spec, state)
+                state = res.state
+                outs.append(res)
+        return outs
+
+    out = {"n": n}
+    for slots in SERVE["sizes"]:
+        num = SERVE["systems"][slots]
+        ops, rhs, arrivals = serve_traffic(torch, slots, num, kmv, n, device, slots,
+                                           SERVE["drift"])
+        total = slots * num
+        (svc, results), t_pool = timed(lambda: run_pool(slots, ops, rhs, arrivals))
+        snap = svc.metrics_snapshot()["pool"]
+        converged = all(r.converged for r in results)
+        entry = {"tenants": slots, "systems_per_tenant": num, "systems": total,
+                 "arrival_ticks": len(arrivals), "seconds": t_pool,
+                 "us_per_system": 1e6 * t_pool / total, "systems_per_s": total / t_pool,
+                 "occupancy": snap["mean_serving_occupancy"], "ticks": snap["ticks"],
+                 "batched_steps": snap["batched_steps"], "single_steps": snap["single_steps"],
+                 "evictions": snap["evictions"], "converged": converged,
+                 "iterations": [r.iterations for r in results]}
+        if slots in SERVE["loop"]:
+            loop, t_loop = timed(lambda: run_loop(ops, rhs))
+            xerr = max(float(torch.linalg.norm(r.x - s.x) / torch.linalg.norm(s.x))
+                       for r, s in zip(results, loop))
+            entry.update(loop_seconds=t_loop, loop_us_per_system=1e6 * t_loop / total,
+                         speedup=t_loop / t_pool, loop_converged=all(
+                             bool(s.info.converged) for s in loop), x_rel_diff=xerr,
+                         iteration_differences=sorted({
+                             r.iterations - int(s.info.iterations)
+                             for r, s in zip(results, loop)}))
+            converged = converged and entry["loop_converged"] and xerr <= 1e-4
+        out[f"B={slots}"] = entry
+        loop_txt = (f" | loop {entry['loop_us_per_system']:.0f} us/system "
+                    f"({entry['speedup']:.2f}x), counts differ by "
+                    f"{entry['iteration_differences']}, x within {entry['x_rel_diff']:.1e}"
+                    if "loop_seconds" in entry else "")
+        log(f"[serve] B={slots} n={n} T={slots}x{num}: pool {entry['us_per_system']:.0f} "
+            f"us/system ({entry['systems_per_s']:.1f} sys/s){loop_txt} | occupancy "
+            f"{entry['occupancy']:.2f} ticks {entry['ticks']} batched {entry['batched_steps']} "
+            f"single {entry['single_steps']} evictions {entry['evictions']} "
+            f"converged={converged}")
+        if not converged:
+            raise AssertionError(f"[serve] B={slots}: {entry}")
+        del svc, results, ops, rhs
+
+    # The B = 1 fence: one tenant's system through plain solve against a
+    # pool step of 8 slots with only its slot active, three pairs with
+    # the side that runs first alternating.
+    from repro_torch.core import solve_pool_step
+
+    slots = SERVE["loop"][0]
+    ops, rhs, _ = serve_traffic(torch, slots, 1, kmv, n, device, 2, SERVE["drift"])
+    keys = list(ops)
+    onehot = torch.arange(slots, device=device) == 0
+
+    def fence_solve():
+        return solve(ops[keys[0]][0], rhs[keys[0]][0], spec)
+
+    def fence_pool():
+        return solve_pool_step([ops[t][0] for t in keys], torch.stack([rhs[t][0] for t in keys]),
+                               spec, None, onehot)
+
+    t_one, t_pooled = [], []
+    for pair in range(3):
+        for side in ((fence_solve, fence_pool) if pair % 2 == 0 else (fence_pool, fence_solve)):
+            res, sec = timed(side)
+            if side is fence_solve:
+                one = res
+                t_one.append(sec)
+            else:
+                pooled = res
+                t_pooled.append(sec)
+    ratios = sorted(p / o for o, p in zip(t_one, t_pooled))
+    out["fence"] = {"slots": slots, "solve_s": t_one, "pool_step_s": t_pooled,
+                    "pool_over_solve": ratios, "iterations": int(one.info.iterations),
+                    "pool_iterations": int(pooled.info.iterations[0])}
+    log(f"[serve] B = 1 fence: one system through solve {[f'{t:.3f}' for t in t_one]} s "
+        f"({out['fence']['iterations']} iterations) against a {slots}-slot pool step with "
+        f"one slot active {[f'{t:.3f}' for t in t_pooled]} s "
+        f"({out['fence']['pool_iterations']} iterations), three pairs alternating which runs "
+        f"first: pool / solve {ratios[1]:.2f}x (spread {ratios[0]:.2f}-{ratios[2]:.2f}x)")
+
+    # Eviction: 6 tenants through 4 slots, spilling to disk.
+    tenants = [f"t{i}" for i in range(SERVE["evict_tenants"])]
+    ops, rhs, _ = serve_traffic(torch, len(tenants), 2, kmv, n, device, 1, SERVE["drift"])
+    spill = tempfile.mkdtemp(prefix="serve_spill_")
+    try:
+        svc = SolveService(spec, slots=SERVE["evict_slots"], checkpoint_dir=spill)
+        first = tenants[:SERVE["evict_slots"]]
+        tickets = {t: svc.session(t).submit(ops[t][0], rhs[t][0]) for t in first}
+        svc.run_until_idle()
+        cold = {t: svc.result(tk, drive=False) for t, tk in tickets.items()}
+        kept = svc.pool.slot_state(svc.pool.slot_of(tenants[0]))
+        later = {t: svc.session(t).submit(ops[t][0], rhs[t][0])
+                 for t in tenants[SERVE["evict_slots"]:]}
+        svc.run_until_idle()
+        evicted = [t for t in first if not svc.pool.resident(t)]
+        restored = svc.store.restore(tenants[0], svc.pool.zero_slot_state())
+        bit_for_bit = all(torch.equal(getattr(kept, f), getattr(restored, f))
+                          for f in ("W", "AW", "theta", "systems_solved", "drift"))
+        back = svc.session(tenants[0]).solve(ops[tenants[0]][1], rhs[tenants[0]][1])
+        snap = svc.metrics_snapshot()
+        later_ok = all(svc.result(tk, drive=False).converged for tk in later.values())
+    finally:
+        shutil.rmtree(spill, ignore_errors=True)
+    evict = {"slots": SERVE["evict_slots"], "tenants": len(tenants), "evicted": evicted,
+             "restored_bit_for_bit": bit_for_bit, "cold_iterations": cold[tenants[0]].iterations,
+             "readmitted_iterations": back.iterations, "restores": snap["pool"]["restores"],
+             "evictions": snap["pool"]["evictions"], "single_steps": snap["pool"]["single_steps"],
+             "converged": all(r.converged for r in cold.values()) and later_ok and back.converged}
+    out["eviction"] = evict
+    log(f"[serve] eviction: {len(tenants)} tenants through {SERVE['evict_slots']} slots, "
+        f"evicted {evicted}, {tenants[0]}'s spilled state restored bit for bit: "
+        f"{bit_for_bit}; its re-admitted solve {back.iterations} iterations against "
+        f"{cold[tenants[0]].iterations} cold; evictions {evict['evictions']}, restores "
+        f"{evict['restores']}")
+    if not (bit_for_bit and evict["converged"] and tenants[0] in evicted
+            and back.iterations < cold[tenants[0]].iterations and evict["restores"] >= 1):
+        raise AssertionError(f"[serve] eviction: {evict}")
+    return out
+
+
+def phase_batch_lsq(torch, cf, device="cuda"):
+    """Batched least squares: B = 8 tenants, each its own lsq_bench drifting
+    ridge sequence (logspace, drift 0.02, λ = 1e-4, tol 1e-8, 3 systems,
+    seeds 0–7) at m = 12 288, n = 8 192 (805 MB a system, 19.3 GB for the
+    24), through ``solve_batch(deflsmr(8, 48), sequence=True)`` (one batched
+    product of the stack and one of its adjoint an iteration, read in place
+    from the (B, N, m, n) tensor, and K7's lane arm) beside the eight
+    sequential ``solve_sequence`` runs.  Every system must converge, x
+    within 1e-6 relative of the sequential solve, counts within ROADMAP
+    P5's bars (8 a system, 3 % in total).  The wall times, the device
+    launches per batched LSMR iteration (``torch.profiler``), then one
+    ``solve_pool_step(deflsmr)`` with half the slots idle: their states
+    bit-untouched, their info scrubbed."""
+    from repro_torch.core import (
+        DenseMatrixOperator,
+        SolveSpec,
+        solve_batch,
+        solve_pool_step,
+        solve_sequence,
+    )
+    from repro_torch.core import operators as ops_mod
+
+    cfg = LSQ_BATCH
+    B, N, m, n = cfg["lanes"], cfg["num"], cfg["m"], cfg["n"]
+
+    timed = functools.partial(_timed, torch, device)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mats = torch.empty((B, N, m, n), dtype=torch.float64, device=device)
+    bs = torch.empty((B, N, m), dtype=torch.float64, device=device)
+    for i in range(B):
+        for j, (A, b) in enumerate(drifting_lsq(torch, N, m, n, device, seed=i)):
+            mats[i, j].copy_(A)
+            bs[i, j].copy_(b)
+            del A
+    _sync(torch, device)
+    build_s = time.perf_counter() - t0
+    spec = SolveSpec(method="deflsmr", k=LSQ_K, ell=LSQ_ELL, refresh_aw="exact", tol=LSQ_TOL,
+                     maxiter=cfg["maxiter"], lsq_shift=LSQ_DAMP)
+    batch, t_batch = timed(lambda: solve_batch(mats, bs, spec, make_operator=DenseMatrixOperator,
+                                               sequence=True))
+    seqs, t_loop = timed(lambda: [solve_sequence(mats[i], bs[i], spec,
+                                                 make_operator=DenseMatrixOperator)
+                                  for i in range(B)])
+    its_b = batch.info.iterations.tolist()
+    its_s = [s.info.iterations.tolist() for s in seqs]
+    worst = max(abs(a - b) for rb, rs in zip(its_b, its_s) for a, b in zip(rb, rs))
+    total_b, total_s = sum(map(sum, its_b)), sum(map(sum, its_s))
+    xerr = max(float(torch.linalg.norm(batch.x[i, j] - seqs[i].x[j])
+                     / torch.linalg.norm(seqs[i].x[j])) for i in range(B) for j in range(N))
+    converged = bool(batch.info.converged.all()) and all(
+        bool(s.info.converged.all()) for s in seqs)
+    out = {"lanes": B, "systems": N, "m": m, "n": n, "build_s": build_s,
+           "batch_s": t_batch, "loop_s": t_loop, "speedup": t_loop / t_batch,
+           "iterations": its_b, "sequential_iterations": its_s,
+           "worst_system_difference": worst, "total_iterations": total_b,
+           "sequential_total_iterations": total_s, "x_rel_diff": xerr, "converged": converged,
+           "matvecs": batch.info.matvecs.tolist()}
+    log(f"[batch-lsq] B={B} tenants x {N} systems, {m} x {n} f64 ({B * N} systems built in "
+        f"{build_s:.1f} s): batch {t_batch:.2f} s vs {B} sequential solve_sequence runs "
+        f"{t_loop:.2f} s ({t_loop / t_batch:.2f}x); iterations {its_b} vs {its_s} (worst "
+        f"system {worst}, totals {total_b} / {total_s}); x within {xerr:.1e}")
+    if not converged or xerr > 1e-6 or worst > 8 or abs(total_b - total_s) > max(
+            1, 0.03 * total_s):
+        raise AssertionError(f"[batch-lsq] {out}")
+
+    # Device launches per batched LSMR iteration (one product of the stack
+    # and its adjoint, K7's lane arm, the eager ops between).
+    lane_op = ops_mod.LaneDenseOperator(mats[:, -1])
+    out["profile"] = profile_lsmr_steps(torch, lane_op, bs[:, -1].contiguous(), W=batch.state.W,
+                                        NW=batch.state.AW)
+    prof = out["profile"]
+    log(f"[batch-lsq] profile: {prof['launches_per_iteration']:.1f} device launches per "
+        f"batched LSMR iteration (B = {B}); device {prof['gemv_ms_per_iteration']:.4f} ms "
+        f"products + {prof['other_ms_per_iteration']:.4f} ms other per iteration; kernels "
+        f"{prof['kernels']}")
+
+    # One pool step, half the slots idle.
+    active = torch.arange(B, device=device) % 2 == 0
+    step = solve_pool_step(mats[:, 0], bs[:, 0].flip(0).contiguous(), spec, batch.state,
+                           active, make_operator=DenseMatrixOperator)
+    idle = ~active
+    untouched = all(torch.equal(getattr(step.state, f)[idle], getattr(batch.state, f)[idle])
+                    for f in ("W", "AW", "theta", "systems_solved", "drift"))
+    scrubbed = not (step.info.iterations[idle].any() or step.info.matvecs[idle].any()
+                    or step.report.status[idle].any() or step.x[idle].any())
+    out["pool_step"] = {"active": active.tolist(), "iterations": step.info.iterations.tolist(),
+                        "idle_untouched": untouched, "idle_scrubbed": scrubbed}
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[batch-lsq] pool step, slots {active.tolist()}: iterations "
+        f"{step.info.iterations.tolist()}, idle states untouched={untouched}, "
+        f"scrubbed={scrubbed}; peak memory {out['peak_memory_gb']:.1f} GB")
+    if not (untouched and scrubbed and bool(step.info.converged.all())):
+        raise AssertionError(f"[batch-lsq] pool step: {out['pool_step']}")
     return out
 
 
@@ -3376,6 +3797,21 @@ def main(argv) -> int:
         raise AssertionError(f"[batch] a kernel or lane arm never launched: {arms['batch']}")
     if any(batch_plain.values()):
         raise AssertionError(f"[batch] plain versions ran on the card: {batch_plain}")
+
+    # -- 5e. serve: serve_bench's traffic through SolveService on main's K ----
+    _zero_counts()
+    report["serve"] = phase_serve(torch, x, k_dense)
+    serve_launches, serve_plain = dict(cf.LAUNCHES), dict(cf.PLAIN_ON_CUDA)
+    arms["serve"] = _arms()
+    report["serve"].update(launches=serve_launches, plain_on_cuda=serve_plain,
+                           arms=arms["serve"])
+    log(f"[serve] launches {serve_launches}; arms {arms['serve']}; plain versions on the card "
+        f"{serve_plain}")
+    if not all(serve_launches[k] for k in SERVE_PATH_KERNELS) or not all(
+            arms["serve"].get(a) for a in SERVE_LANE_ARMS):
+        raise AssertionError(f"[serve] a kernel or lane arm never launched: {arms['serve']}")
+    if any(serve_plain.values()):
+        raise AssertionError(f"[serve] plain versions ran on the card: {serve_plain}")
     del k_dense
     torch.cuda.empty_cache()
 
@@ -3521,6 +3957,23 @@ def main(argv) -> int:
     del lsq_systems, lsq_state
     torch.cuda.empty_cache()
 
+    # -- 10b. batch-lsq: eight tenants' drifting ridge sequences at once -------
+    _zero_counts()
+    report["batch_lsq"] = phase_batch_lsq(torch, cf)
+    lsq_batch_launches, lsq_batch_plain = dict(cf.LAUNCHES), dict(cf.PLAIN_ON_CUDA)
+    arms["batch_lsq"] = _arms()
+    report["batch_lsq"].update(launches=lsq_batch_launches, plain_on_cuda=lsq_batch_plain,
+                               arms=arms["batch_lsq"])
+    log(f"[batch-lsq] launches {lsq_batch_launches}; arms {arms['batch_lsq']}; plain versions "
+        f"on the card {lsq_batch_plain}")
+    if not all(lsq_batch_launches[k] for k in LSQ_BATCH_PATH_KERNELS) or not arms[
+            "batch_lsq"].get("lsmr_update:lsmr_step_lanes"):
+        raise AssertionError(f"[batch-lsq] a kernel or K7's lane arm never launched: "
+                             f"{arms['batch_lsq']}")
+    if any(lsq_batch_plain.values()):
+        raise AssertionError(f"[batch-lsq] plain versions ran on the card: {lsq_batch_plain}")
+    torch.cuda.empty_cache()
+
     # -- 11. Gauss-Newton training ---------------------------------------------
     _zero_counts()
     report["main_gn"], gn_batch, gn_residual = phase_main_gn(torch)
@@ -3556,8 +4009,9 @@ def main(argv) -> int:
     kernels.update(lm_kernels)
 
     totals = {name: launches[name] + paper_launches[name] + strat_launches[name]
-              + batch_launches[name] + mf_launches[name]
-              + chaos_launches[name] + lsq_launches[name] + gn_launches[name]
+              + batch_launches[name] + serve_launches[name] + mf_launches[name]
+              + chaos_launches[name] + lsq_launches[name] + lsq_batch_launches[name]
+              + gn_launches[name]
               + shard_launches[name] + sum(lm[name] for lm in lm_launches.values())
               for name in cf.LAUNCHES}
     report["launch_totals"] = totals
@@ -3586,6 +4040,16 @@ def main(argv) -> int:
         f"the loop, {bt['profile_B8']['launches_per_iteration']:.1f} device launches per "
         f"batched iteration at B=8; gated-off K3 "
         f"{report['lanes']['gate']['k3_gated_off_ms']:.4f} ms")
+    sv, bl = report["serve"], report["batch_lsq"]
+    log(f"[summary] serve (n = {sv['n']}): B=8 {sv['B=8']['us_per_system']:.0f} us a system "
+        f"({sv['B=8']['speedup']:.2f}x the loop), B=64 {sv['B=64']['us_per_system']:.0f} us a "
+        f"system, occupancy {sv['B=8']['occupancy']:.2f} / {sv['B=64']['occupancy']:.2f}; "
+        f"eviction restored bit for bit {sv['eviction']['restored_bit_for_bit']}; batch-lsq "
+        f"B={bl['lanes']} {bl['batch_s']:.2f} s vs loop {bl['loop_s']:.2f} s "
+        f"({bl['speedup']:.2f}x), {bl['profile']['launches_per_iteration']:.1f} device launches "
+        f"per batched LSMR iteration; K7 lane arm B=8 "
+        f"{report['lanes']['k7']['timings']['K7 step B=8']:.4f} ms, B=64 "
+        f"{report['lanes']['k7']['timings']['K7 step B=64']:.4f} ms")
     pp, ch = report["paper"], report["chaos"]
     log(f"[summary] paper (n = {pp['n']}): fig3 slopes cg {pp['fig3']['cg']['mean_slope']:.4f}, "
         f"defcg {pp['fig3']['defcg']['mean_slope']:.4f}; fig4 gap {pp['fig4']['precision_gap']:.2e}; "

@@ -8,11 +8,12 @@ run eight hand-written Hopper kernels (``repro_torch.kernels``), built from
 ``repro_torch/csrc`` at first use; ``repro_torch.optim`` is the
 Hessian-free optimizer over them, and ``repro_torch.launch`` runs the
 sharded engine (``solve(..., mesh=)``) on ``torch.distributed`` ranks.
-``repro_torch.models`` serves the model zoo's dense and Mamba2 stacks
-(``repro_torch.configs``) on two more kernels, flash attention and the SSD
-scan.
+``repro_torch.serve`` is the multi-tenant solve service over batched
+solves.  ``repro_torch.models`` serves the model zoo's dense and Mamba2
+stacks (``repro_torch.configs``) on two more kernels, flash attention and
+the SSD scan.
 """
 
-from repro_torch import configs, core, data, gp, kernels, launch, models, optim
+from repro_torch import configs, core, data, gp, kernels, launch, models, optim, serve
 
-__all__ = ["configs", "core", "data", "gp", "kernels", "launch", "models", "optim"]
+__all__ = ["configs", "core", "data", "gp", "kernels", "launch", "models", "optim", "serve"]

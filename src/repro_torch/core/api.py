@@ -13,15 +13,13 @@ factory (:func:`solve_sequence`), built for ``spec.precond`` by
 :func:`make_preconditioner`.  A failed solve climbs the recovery ladder
 (``spec.recovery_rungs``), ``spec.stagnation_window`` arms the stall
 detector, and ``solve_sequence(..., checkpoint=, checkpoint_every=,
-resume=)`` runs a crash-resumable chunked sequence.  What the port
-leaves out so far raises, naming the ROADMAP item that brings it:
-``solve_batch`` / ``solve_pool_step`` for the least-squares methods
-(queue 1, batched and served solves).  ``solve(..., mesh=)`` runs the
-sharded engine (:mod:`repro_torch.core.sharded`) over the ranks of a
-solve mesh.  :func:`solve_batch` and :func:`solve_pool_step` run B
-tenants' cg / def-CG solves (or sequences) at once, on the lane axis of
-the step kernels.  ``b``, ``x0`` and bases may be pytrees on the single
-and sequence doors.
+resume=)`` runs a crash-resumable chunked sequence.  ``solve(...,
+mesh=)`` runs the sharded engine (:mod:`repro_torch.core.sharded`) over
+the ranks of a solve mesh.  :func:`solve_batch` and
+:func:`solve_pool_step` run B tenants' solves (or sequences) of every
+method at once, on the lane axis of the step kernels (K1, K6 and K2 for
+cg / def-CG, K7 for LSMR).  ``b``, ``x0`` and bases may be pytrees on the
+single and sequence doors.
 """
 
 from __future__ import annotations
@@ -51,12 +49,6 @@ _LSQ_METHODS = ("lsmr", "deflsmr")
 _SELECTS = ("largest", "smallest")
 _REFRESH_MODES = ("exact", "stale")
 _PRECONDS = ("none", "jacobi", "nystrom", "custom")
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    """The refusal of a path the port leaves out, naming the ROADMAP item
-    that brings it (by name: numbers move at each re-anchor)."""
-    return NotImplementedError(f"{what} is not ported yet: ROADMAP {item}")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -727,13 +719,16 @@ def _tenant_operator(A, i: int):
 
 def _system_lanes(systems: Any, j: int):
     """System ``j`` of every tenant's sequence: leaves ``(B, N, …)`` →
-    ``(B, …)``; a shared-K batch's ``sqrt_h`` (B, N, n) → (B, n)."""
+    ``(B, …)``; a shared-K batch's ``sqrt_h`` (B, N, n) → (B, n); a dense
+    operator's ``(B, N, m, n)`` matrices → ``(B, m, n)``."""
     if isinstance(systems, ops_mod.RBFKernelSystemOperator):
         return ops_mod.RBFKernelSystemOperator(systems.x, systems.sqrt_h[:, j], systems.theta,
                                                systems.lengthscale, systems.block,
                                                systems.backend)
     if isinstance(systems, ops_mod.KernelSystemOperator):
         return ops_mod.KernelSystemOperator(systems.kernel_matvec, systems.sqrt_h[:, j])
+    if isinstance(systems, ops_mod.DenseMatrixOperator):
+        return ops_mod.DenseMatrixOperator(systems.mat[:, j])
     if isinstance(systems, dict):
         return {key: _system_lanes(val, j) for key, val in systems.items()}
     return systems[:, j]
@@ -743,8 +738,18 @@ def _lane_problem(systems: Any, B: int, make_operator, make_preconditioner):
     """``(A, M, m_applies)`` of one system across B tenants: the batched
     operator (:func:`repro_torch.core.operators.lane_operator`), the
     batched preconditioner apply, and the tenants' own applies (for the
-    M-geometry's transition)."""
-    if make_operator is None and isinstance(systems, ops_mod.KernelSystemOperator) and (
+    M-geometry's transition).  A ``DenseMatrixOperator`` over ``(B, m, n)``
+    matrices, or ``make_operator=DenseMatrixOperator`` (or ``from_matrix``)
+    over a ``(B, m, n)`` tensor, is B dense tenants held as ONE
+    :class:`~repro_torch.core.operators.LaneDenseOperator` (one batched
+    product on the card)."""
+    if make_operator is None and isinstance(systems, ops_mod.DenseMatrixOperator):
+        systems, make_operator = systems.mat, ops_mod.DenseMatrixOperator
+    if make_operator in (ops_mod.DenseMatrixOperator, ops_mod.from_matrix) and isinstance(
+            systems, torch.Tensor):
+        A = ops_mod.LaneDenseOperator(systems)
+        tenants = A.ops
+    elif make_operator is None and isinstance(systems, ops_mod.KernelSystemOperator) and (
             systems.sqrt_h.ndim == 2):
         A = systems
         tenants = [_tenant_operator(A, i) for i in range(B)]
@@ -758,10 +763,13 @@ def _lane_problem(systems: Any, B: int, make_operator, make_preconditioner):
     return A, precond_mod.lane_preconditioner(applies), applies
 
 
-def _batched_zero_state(b_batch: torch.Tensor, spec: SolveSpec) -> RecycleState:
+def _batched_zero_state(b_batch: torch.Tensor, spec: SolveSpec, A=None) -> RecycleState:
     """Cold per-tenant states: :meth:`RecycleState.zeros` with a leading B
-    (``b_batch`` is ``(B, n)``, or ``(B, N, n)`` for sequences)."""
-    B, n = b_batch.shape[0], b_batch.shape[-1]
+    (``b_batch`` is ``(B, n)``, or ``(B, N, n)`` for sequences).  For the
+    least-squares methods the basis lives in the domain of the batched
+    operator ``A``, whose size ``b`` cannot reveal."""
+    B = b_batch.shape[0]
+    n = lsmr_mod.domain_size(A) if spec.method in _LSQ_METHODS else b_batch.shape[-1]
     dtype, device = b_batch.dtype, b_batch.device
 
     def zeros(*shape, dt=dtype):
@@ -771,8 +779,28 @@ def _batched_zero_state(b_batch: torch.Tensor, spec: SolveSpec) -> RecycleState:
                         systems_solved=zeros(B, dt=torch.int32), drift=zeros(B))
 
 
+def _lane_info(info: SolveInfo) -> SolveInfo:
+    """An LSMR batch's info with ``guard_fired`` per lane (LSMR has no
+    guard), as def-CG's batch reports it."""
+    return info._replace(guard_fired=torch.zeros_like(info.converged))
+
+
 def _solve_lanes(A, b, spec: SolveSpec, state: RecycleState, x0, M, m_applies):
-    """One def-CG system for every tenant: ``(x, info, next state, report)``."""
+    """One def-CG (or def-LSMR) system for every tenant: ``(x, info, next
+    state, report)``."""
+    if spec.method == "deflsmr":
+        x, info, w2, nw2, theta, rung = lsmr_mod._one_recycled_lsmr(
+            A, b, x0, state.W, state.AW, lanes=True,
+            k=spec.k, ell=spec.ell, damp=spec.lsq_shift, tol=spec.tol, atol=spec.atol,
+            maxiter=spec.maxiter, select=spec.select, waw_jitter=spec.waw_jitter,
+            refresh_aw=spec.refresh_aw, stagnation_window=spec.stagnation_window,
+        )
+        info = _lane_info(info)
+        new_state = RecycleState(
+            W=w2, AW=nw2, theta=state.theta if theta is None else theta,
+            systems_solved=state.systems_solved + 1, drift=state.drift,
+        )
+        return x, info, new_state, _make_report(info, rung)
     x, info, w2, aw2, theta, drift2, rung = recycle_mod._one_recycled_solve(
         A, b, x0, state.W, state.AW, state.drift, lanes=True,
         k=spec.k, ell=spec.ell, tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter,
@@ -806,28 +834,30 @@ def solve_batch(
     ``(B, n)`` stack and the lane-axis launches of the step kernels (K1's
     ``fused_cg_step``, K6's ``fused_rz_step`` for preconditioned tenants,
     K2's ``fused_direction_step``), each lane with its own scalars, flags,
-    counts and recording slot.  Convergence is per lane; the host reads
+    counts and recording slot.  The least-squares methods run one product
+    of the stack and one of its adjoint an iteration and ONE lane-axis
+    launch of K7's ``lsmr_step``.  Convergence is per lane; the host reads
     "any lane active" once per chunk.  Finished lanes freeze, so each
     tenant's answer is its own solve's.
 
     ``systems``: a ``KernelSystemOperator`` whose ``sqrt_h`` is ``(B, n)``
     (B tenants sharing ``K``: ONE ``K`` product of the ``(n, B)`` stack an
     iteration, one K3 call of r = B matrix-free, skipped on the card once
-    every lane is frozen), or per-tenant data with a leading B mapped
-    through ``make_operator`` (tenants sharing a kernel or holding dense
-    matrices are still batched into one product; others run tenant by
-    tenant).  ``make_preconditioner`` maps each tenant's operator to its
-    ``M``.  ``state`` has a leading B on every leaf (``None``: every
-    tenant cold).  ``sequence=True``: leaves ``(B, N, …)``, ``b_batch``
-    ``(B, N, n)``, each tenant a sequence of N systems (``carry_x`` warm
-    starts within it); ``x`` / ``info`` / ``report`` are then ``(B, N, …)``
-    and ``state`` the tenants' final states.  ``method`` ``"cg"`` passes
-    ``state`` through untouched; the least-squares methods raise.
+    every lane is frozen), a ``DenseMatrixOperator`` over ``(B, m, n)``
+    matrices, or per-tenant data with a leading B mapped through
+    ``make_operator`` (``DenseMatrixOperator`` / ``from_matrix`` over a
+    ``(B, m, n)`` tensor, and tenants sharing a kernel, are still batched
+    into one product; others run tenant by tenant).  ``make_preconditioner`` maps each tenant's
+    operator to its ``M``.  ``state`` has a leading B on every leaf
+    (``None``: every tenant cold; for ``deflsmr`` its basis lives in the
+    operators' domain).  ``sequence=True``: leaves ``(B, N, …)``,
+    ``b_batch`` ``(B, N, m)``, each tenant a sequence of N systems
+    (``carry_x`` warm starts within it; ``defcg`` or ``deflsmr``); ``x`` /
+    ``info`` / ``report`` are then ``(B, N, …)`` and ``state`` the tenants'
+    final states.  ``method`` ``"cg"`` and ``"lsmr"`` pass ``state``
+    through untouched.
     """
     spec = SolveSpec() if spec is None else spec
-    if spec.method in _LSQ_METHODS:
-        raise _not_ported(f"solve_batch(method={spec.method!r})",
-                          "queue 1, batched and served solves")
     if spec.precond != "none" and make_preconditioner is None:
         raise ValueError(
             f"spec.precond={spec.precond!r} but no make_preconditioner was passed — the "
@@ -835,15 +865,17 @@ def solve_batch(
         )
     B = b_batch.shape[0]
     if sequence:
-        if spec.method != "defcg":
-            raise ValueError("sequence=True requires spec.method='defcg'")
-        state = _batched_zero_state(b_batch, spec) if state is None else state
+        if spec.method not in ("defcg", "deflsmr"):
+            raise ValueError("sequence=True requires spec.method='defcg' or 'deflsmr'")
         num = b_batch.shape[1]
-        x_prev = torch.zeros_like(b_batch[:, 0])
+        # def-LSMR's warm start lives in the domain: the first system's is
+        # the zeros its solve starts from.
+        x_prev = None if spec.method == "deflsmr" else torch.zeros_like(b_batch[:, 0])
         xs, infos, reports = [], [], []
         for j in range(num):
             A, M, applies = _lane_problem(_system_lanes(systems, j), B, make_operator,
                                           make_preconditioner)
+            state = _batched_zero_state(b_batch, spec, A) if state is None else state
             x, info, state, report = _solve_lanes(
                 A, b_batch[:, j].contiguous(), spec, state, x_prev if carry_x else None, M,
                 applies)
@@ -862,18 +894,28 @@ def solve_batch(
                                 report=stack(reports))
 
     A, M, applies = _lane_problem(systems, B, make_operator, make_preconditioner)
-    if spec.method == "cg":
-        res = solvers_mod.defcg_lanes(
-            A, b_batch, tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter, M=M,
-            stagnation_window=spec.stagnation_window,
-        )
-        return BatchSolveResult(x=res.x, info=res.info, state=state,
-                                report=_make_report(res.info, torch.zeros_like(res.info.status)))
-    state = _batched_zero_state(b_batch, spec) if state is None else state
-    if state.W.ndim != 3 or tuple(state.W.shape) != (B, spec.k, b_batch.shape[-1]):
+    if spec.method in ("cg", "lsmr"):
+        if spec.method == "cg":
+            res = solvers_mod.defcg_lanes(
+                A, b_batch, tol=spec.tol, atol=spec.atol, maxiter=spec.maxiter, M=M,
+                stagnation_window=spec.stagnation_window,
+            )
+            info = res.info
+        else:
+            res = lsmr_mod.lsmr(
+                A, b_batch, damp=spec.lsq_shift, tol=spec.tol, atol=spec.atol,
+                maxiter=spec.maxiter, stagnation_window=spec.stagnation_window, lanes=True,
+            )
+            info = _lane_info(res.info)
+        return BatchSolveResult(x=res.x, info=info, state=state,
+                                report=_make_report(info, torch.zeros_like(info.status)))
+    state = _batched_zero_state(b_batch, spec, A) if state is None else state
+    n = state.W.shape[-1]
+    if state.W.ndim != 3 or tuple(state.W.shape) != (B, spec.k, n) or (
+            spec.method == "defcg" and n != b_batch.shape[-1]):
         raise ValueError(
             f"state.W has shape {tuple(state.W.shape)}; spec(k={spec.k}) over {B} tenants "
-            f"of n={b_batch.shape[-1]} needs ({B}, {spec.k}, {b_batch.shape[-1]})"
+            f"needs ({B}, {spec.k}, n) with n their systems' (domain) size"
         )
     x, info, new_state, report = _solve_lanes(A, b_batch, spec, state, None, M, applies)
     return BatchSolveResult(x=x, info=info, state=new_state, report=report)
@@ -916,11 +958,13 @@ def solve_pool_step(
             "solve_pool_step carries per-slot RecycleState — it needs "
             f"spec.method='defcg' or 'deflsmr', got {spec.method!r}"
         )
-    state = _batched_zero_state(b_batch, spec) if state is None else state
     active = torch.as_tensor(active, dtype=torch.bool, device=b_batch.device)
     b_masked = torch.where(_slot_bcast(active, b_batch), b_batch, 0.0)
     res = solve_batch(systems, b_masked, spec, state, make_operator=make_operator,
                       make_preconditioner=make_preconditioner)
+    if state is None:  # every slot cold: the zeros the batch started from
+        state = RecycleState(*(torch.zeros_like(getattr(res.state, f.name))
+                               for f in dataclasses.fields(RecycleState)))
 
     def keep(new, old):
         return torch.where(_slot_bcast(active, new), new, old)

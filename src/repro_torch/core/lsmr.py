@@ -32,6 +32,16 @@ slot, j, the next active flag and the frozen-step mask of ``x, h̄, h, v``
 — is ONE ``lsmr_update`` launch (:func:`lsmr_tail`, shared with the
 sharded engine), the stall detector (``stagnation_window > 0``) included.
 
+The same solver runs B tenants' systems at once (``lanes=True``, the
+least-squares half of ``solve_batch``): every vector gains a leading lane
+axis, the operator is a batched one
+(:class:`repro_torch.core.operators.LaneDenseOperator` or
+:func:`~repro_torch.core.operators.lane_operator`: ``(B, n) → (B, m)`` and
+back), the per-lane reductions run through
+:func:`repro_torch.core.operators.over_lanes` (lane by lane on the CPU, so a
+lane is bit for bit its one-system solve there) and the tail is ONE
+lane-axis launch of ``lsmr_step`` for all lanes.
+
 Matvec accounting counts ``A`` and ``Aᵀ`` applications each as 1: the
 initial ``Âᵀu₁`` costs 1 (+1 ``A`` with a warm start), every iteration 2.
 """
@@ -45,13 +55,17 @@ import torch
 from repro_torch.core import engine
 from repro_torch.core import operators as ops_mod
 from repro_torch.core import pytree as pt
-from repro_torch.core.recycle import SequenceResult, _stack_infos, system_at
+from repro_torch.core.recycle import SequenceResult, _lane_mask, _stack_infos, system_at
 from repro_torch.core.solvers import (
     DEFAULT_WAW_JITTER,
     CGResult,
     RecycleData,
     SolveInfo,
+    _basis_dot,
+    _basis_dot_batched,
     _chol_solve,
+    _combine,
+    _dot,
     factor_waw_gram,
 )
 from repro_torch.core.strategies import extract_next_basis_core
@@ -67,14 +81,16 @@ def lsmr_initial_state(x, u_m, u_n, v, g, alpha1, normar0, threshold, maxiter, t
     fail]`` and ``s`` the packed scalars of ``kernels.cg_fused.LSMR_SLOTS``
     (ᾱ = α₁, ζ̄ = ‖Âᵀr̂₀‖, ρ = ρ̄ = c̄ = 1, s̄ = 0).  With the stall detector
     armed (``window > 0``) ``s`` carries its best residual ``‖Âᵀr̂₀‖`` in
-    one more slot and ``js`` its stall count."""
+    one more slot and ``js`` its stall count.  On a lane axis (``normar0``
+    ``(B,)``) ``s`` is ``(B, 7|8)``, ``js`` ``(B, 2|3)`` and ``active``
+    ``(B,)``."""
     one = torch.ones_like(normar0)
     stag = engine.stagnation_init(normar0, window)
     s = torch.stack([alpha1, normar0, alpha1, one, one, one, torch.zeros_like(one)]
-                    + ([stag[0]] if stag else []))
-    js = torch.stack([torch.zeros((), dtype=torch.int32, device=v.device),
-                      engine.initial_fail(normar0)] + ([stag[1]] if stag else []))
-    active = still_active(js[0], torch.abs(normar0), js[1], threshold, maxiter)
+                    + ([stag[0]] if stag else []), dim=-1)
+    js = torch.stack([torch.zeros(normar0.shape, dtype=torch.int32, device=v.device),
+                      engine.initial_fail(normar0)] + ([stag[1]] if stag else []), dim=-1)
+    active = still_active(js[..., 0], torch.abs(normar0), js[..., 1], threshold, maxiter)
     return (js, s, active, x, u_m, u_n, v, g, v, torch.zeros_like(v), trace)
 
 
@@ -83,15 +99,17 @@ def lsmr_tail(state, active, u_m_new, u_n_new, g_new, w_vec, wsq, beta_new, thre
     """Everything of an LSMR step after its last reduction (``wsq = ‖w‖²``):
     one ``lsmr_step`` launch on the card, then the frozen-step selects of
     ``u_m``, ``u_n`` and ``g``.  The unsharded and the sharded loops both
-    end their step here.  Returns the next state."""
+    end their step here (a lane axis's ``(B, n)`` state too: one lane-axis
+    launch for every lane).  Returns the next state."""
     js, s, _, x, u_m, u_n, v, g, h, hbar, trace = state
     x, hbar, h, v, s, js, active_next = kops.lsmr_step(
         x, hbar, h, v, w_vec, wsq, beta_new, s, js, active, threshold, diverged_at, maxiter,
         trace, window=window,
     )
+    mask = active[..., None] if active.ndim else active
 
     def sel(new, cur):
-        return torch.where(active, new, cur)
+        return torch.where(mask, new, cur)
 
     return (js, s, active_next, x, sel(u_m_new, u_m),
             None if u_n is None else sel(u_n_new, u_n), v, sel(g_new, g), h, hbar, trace)
@@ -153,6 +171,7 @@ def lsmr(
     record_residuals: bool = False,
     waw_jitter: float = DEFAULT_WAW_JITTER,
     stagnation_window: int = 0,
+    lanes: bool = False,
 ) -> CGResult:
     """(Deflated) LSMR for ``min ‖Ax − b‖² + damp·‖x‖²`` on flat tensors.
 
@@ -172,6 +191,13 @@ def lsmr(
     adjoint mapping pytrees: the solve runs on flat coordinates and ``x``
     comes back in the domain's structure, read off ``x0`` or off the first
     adjoint product (which the iteration computes anyway).
+
+    ``lanes``: B independent systems at once (flat tensors only): ``b``
+    ``(B, m)``, ``x0`` ``(B, n)``, ``W``/``NW`` ``(B, k, n)``, ``A`` a batched
+    operator (``(B, n) → (B, m)``, its ``rmatvec`` back).  Each lane has
+    its own threshold, flags, counts, trace and window slot; the host reads
+    "any lane active" once per chunk.  The info fields and the window gain
+    the leading B.
     """
     if not all(t is None or pt.is_flat(t) for t in (b, x0, W, NW)):
         op, b_flat, x0_flat, unravel_x = flat_lsq_problem(A, b, x0)
@@ -188,19 +214,27 @@ def lsmr(
     sqrt_damp = float(damp) ** 0.5
     At = ops_mod.adjoint_matvec(A)
     dtype, device = b.dtype, b.device
+    lead = b.shape[:-1]
+
+    def col(t):  # a per-system scalar scaling that system's vector
+        return t[..., None] if lanes else t
 
     deflating = W is not None
     if deflating:
-        k = W.shape[0]
+        k = W.shape[-2]
         nw = NW if NW is not None else torch.zeros_like(W)
-        chol = factor_waw_gram(W, nw, waw_jitter)
-        winv = _chol_solve(chol, torch.eye(k, dtype=W.dtype, device=device))
+        chol = factor_waw_gram(W, nw, waw_jitter, lanes)
+        eye = torch.eye(k, dtype=W.dtype, device=device)
+        winv = _chol_solve(chol, eye.expand(lead + (k, k)) if lanes else eye, lanes)
+
+        def small(c):  # (WᵀNW)⁻¹ c
+            return ops_mod.over_lanes(torch.matmul, _basis_dot_batched, lanes, winv, c)
 
         def q_apply(vv):  # right projection: N-orthogonalize against W
-            return vv - (winv @ (nw @ vv)) @ W
+            return vv - _combine(W, small(_basis_dot(nw, vv, lanes)), lanes)
 
         def qt_apply(gg):  # its transpose, on adjoint products
-            return gg - (winv @ (W @ gg)) @ nw
+            return gg - _combine(nw, small(_basis_dot(W, gg, lanes)), lanes)
     else:
         q_apply = qt_apply = lambda z: z  # noqa: E731
 
@@ -209,28 +243,28 @@ def lsmr(
     if x0 is not None:
         r_m = b - A(x0)
         init_mv += 1
-        beta_sq = torch.dot(r_m, r_m)
+        beta_sq = _dot(r_m, r_m, lanes)
         if has_shift:
             u_n0 = -sqrt_damp * x0
-            beta_sq = beta_sq + torch.dot(u_n0, u_n0)
+            beta_sq = beta_sq + _dot(u_n0, u_n0, lanes)
     else:
         r_m = b
-        beta_sq = torch.dot(r_m, r_m)
+        beta_sq = _dot(r_m, r_m, lanes)
     beta1 = torch.sqrt(beta_sq)
-    u_m0 = r_m / _safe(beta1)
+    u_m0 = r_m / col(_safe(beta1))
     g0 = At(u_m0)
     x_flat = torch.zeros_like(g0) if x0 is None else x0
     if has_shift:
         # A cold start's bottom block is zero: its size is the domain's,
         # which the first adjoint product reveals.
-        u_n0 = torch.zeros_like(g0) if x0 is None else u_n0 / _safe(beta1)
+        u_n0 = torch.zeros_like(g0) if x0 is None else u_n0 / col(_safe(beta1))
         g0 = g0 + sqrt_damp * u_n0
     else:
         u_n0 = None
     g0 = qt_apply(g0)
-    alpha1 = torch.sqrt(torch.dot(g0, g0))
-    v0 = g0 / _safe(alpha1)
-    n = v0.shape[0]
+    alpha1 = torch.sqrt(_dot(g0, g0, lanes))
+    v0 = g0 / col(_safe(alpha1))
+    n = v0.shape[-1]
 
     normar0 = alpha1 * beta1
     threshold = torch.clamp(tol * normar0, min=atol)
@@ -240,23 +274,31 @@ def lsmr(
     if ell > 0:
         # Row ``ell`` is the spare row frozen recording steps write to, so
         # rows past ``stored`` stay zero (the reference zero-masks them).
-        v_buf = torch.zeros((ell + 1, n), dtype=dtype, device=device)
-        nv_buf = torch.zeros((ell + 1, n), dtype=dtype, device=device)
+        v_buf = torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device)
+        nv_buf = torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device)
+        lane_rows = torch.arange(lead[0], device=device) if lanes else None
+
+        def record(buf, vec, active, row):
+            slot = torch.where(active, row, ell).to(torch.int64)
+            if lanes:
+                buf.index_put_((lane_rows, slot), vec)
+            else:
+                buf.index_copy_(0, slot.reshape(1), vec[None])
 
     def step(state, active, row):
         """One masked LSMR iteration; ``active=False`` freezes the state."""
         u_m, u_n, v, g = state[4:8]
-        alpha = state[1][0]
+        alpha = col(state[1][..., 0])
 
         # -- bidiagonalization: β u⁺ = Â(Qv) − α u ---------------------------
         qv = q_apply(v)
         u_m_new = A(qv) - alpha * u_m
-        beta_sq_ = torch.dot(u_m_new, u_m_new)
+        beta_sq_ = _dot(u_m_new, u_m_new, lanes)
         if has_shift:
             u_n_new = sqrt_damp * qv - alpha * u_n
-            beta_sq_ = beta_sq_ + torch.dot(u_n_new, u_n_new)
+            beta_sq_ = beta_sq_ + _dot(u_n_new, u_n_new, lanes)
         beta_new = torch.sqrt(beta_sq_)
-        sb = _safe(beta_new)
+        sb = col(_safe(beta_new))
         u_m_new = u_m_new / sb
         if has_shift:
             u_n_new = u_n_new / sb
@@ -266,24 +308,23 @@ def lsmr(
         if has_shift:
             g_new = g_new + sqrt_damp * u_n_new
         g_new = qt_apply(g_new)
-        w_vec = g_new - beta_new * v
+        w_vec = g_new - col(beta_new) * v
 
         if row is not None:
             # The window row, free from the recurrence:
             #   N̂ v_j = α_j·B̂ᵀu_j + β_{j+1}·B̂ᵀu_{j+1}.
-            slot = torch.where(active, row, ell).to(torch.int64).reshape(1)
-            v_buf.index_copy_(0, slot, v[None])
-            nv_buf.index_copy_(0, slot, (alpha * g + beta_new * g_new)[None])
+            record(v_buf, v, active, row)
+            record(nv_buf, alpha * g + col(beta_new) * g_new, active, row)
 
         return lsmr_tail(state, active, u_m_new, u_n_new if has_shift else None, g_new,
-                         w_vec, torch.dot(w_vec, w_vec), beta_new, threshold, diverged_at,
+                         w_vec, _dot(w_vec, w_vec, lanes), beta_new, threshold, diverged_at,
                          maxiter, stagnation_window)
 
     state = lsmr_initial_state(x_flat, u_m0, u_n0, v0, g0, alpha1, normar0, threshold,
                                maxiter, trace0, stagnation_window)
     state = engine.run_recording_loop(step, lambda st: st[2], state, ell=ell)
     js, s, _, x = state[:4]
-    j, fail, zetabar, trace = js[0], js[1], s[1], state[10]
+    j, fail, zetabar, trace = js[..., 0], js[..., 1], s[..., 1], state[10]
     normar = torch.abs(zetabar)
     if deflating:
         # The Krylov correction lives in the Q-subspace: one exit-time
@@ -296,13 +337,14 @@ def lsmr(
         converged=converged,
         residual_norm=normar,
         matvecs=init_mv + 2 * j,
-        residual_norms=None if trace is None else trace[: maxiter + 1],
+        residual_norms=None if trace is None else trace[..., : maxiter + 1],
         breakdown=fail > 0,
         status=engine.exit_status(converged, fail),
     )
     recycle = None
     if ell > 0:
-        recycle = RecycleData(P=v_buf[:ell], AP=nv_buf[:ell], stored=torch.clamp(j, max=ell))
+        recycle = RecycleData(P=v_buf[..., :ell, :], AP=nv_buf[..., :ell, :],
+                              stored=torch.clamp(j, max=ell))
     return CGResult(x=x, info=info, recycle=recycle)
 
 
@@ -312,8 +354,9 @@ def lsmr(
 
 
 def _normal_basis_flat(A, w: torch.Tensor, damp: float) -> torch.Tensor:
-    """``(AᵀA + damp·I) @ W`` for a flat ``(k, n)`` basis: one multi-RHS
-    forward pass and one adjoint pass (2k accounted matvecs)."""
+    """``(AᵀA + damp·I) @ W`` for a flat ``(k, n)`` basis (or each tenant's
+    on a lane axis, ``(B, k, n)`` and ``A`` batched): one multi-RHS forward
+    pass and one adjoint pass (2k accounted matvecs)."""
     aw = ops_mod.apply_to_basis(A, w)
     adjoint = A.T if hasattr(A, "T") else ops_mod.adjoint_matvec(A)
     nw = ops_mod.apply_to_basis(adjoint, aw)
@@ -340,9 +383,12 @@ def _one_recycled_lsmr(
     refresh_aw: str,
     record_residuals: bool = False,
     stagnation_window: int = 0,
+    lanes: bool = False,
 ):
     """ONE system of the recycled LSMR step, on flat state — shared by
-    :func:`repro_torch.core.solve` and :func:`solve_sequence_lsmr`.
+    :func:`repro_torch.core.solve`, :func:`solve_sequence_lsmr` and, with
+    ``lanes`` (``b`` ``(B, m)``, state leaves with a leading B, ``A``
+    batched), ``solve_batch``.
 
     1. ``refresh_aw="exact"`` re-derives ``NW = (AᵀA + λI)W`` under this
        system's operator (2k matvecs, charged); ``"stale"`` reuses the
@@ -355,7 +401,9 @@ def _one_recycled_lsmr(
     A broken or non-finite outcome retires the basis (zeroed carry: the
     sequence re-bootstraps cold) and falls back to the finite warm start.
     Returns ``(x, info, w_next, nw_next, theta, rung)``; ``theta`` is None
-    when ``ell == 0`` and ``rung`` is always 0 (LSMR has no ladder).
+    when ``ell == 0`` and ``rung`` is always 0 (LSMR has no ladder).  On a
+    lane axis each lane retires its own basis, and the extraction (K4 and
+    K5) runs once a lane.
     """
     refresh_charge = 0
     if refresh_aw == "exact":
@@ -365,37 +413,46 @@ def _one_recycled_lsmr(
         nw_used = nw_carry
 
     # Deflated warm start in x-space (s₀ = Aᵀ(b − A x_prev) − λ x_prev).
-    x_prev = torch.zeros((w.shape[1],), dtype=b.dtype, device=b.device) if x0 is None else x0
+    x_prev = (torch.zeros(w.shape[:-2] + w.shape[-1:], dtype=b.dtype, device=b.device)
+              if x0 is None else x0)
     s0 = ops_mod.adjoint_matvec(A)(b - A(x_prev))
     if damp > 0.0:
         s0 = s0 - damp * x_prev
-    chol = factor_waw_gram(w, nw_used, waw_jitter)
-    x0p = x_prev + _chol_solve(chol, w @ s0) @ w
+    chol = factor_waw_gram(w, nw_used, waw_jitter, lanes)
+    x0p = x_prev + _combine(w, _chol_solve(chol, _basis_dot(w, s0, lanes), lanes), lanes)
 
     result = lsmr(
         A, b, x0p, W=w, NW=nw_used, damp=damp, ell=ell, tol=tol, atol=atol,
         maxiter=maxiter, record_residuals=record_residuals, waw_jitter=waw_jitter,
-        stagnation_window=stagnation_window,
+        stagnation_window=stagnation_window, lanes=lanes,
     )
     info = result.info._replace(matvecs=result.info.matvecs + refresh_charge + 2)
     if ell > 0:
         rec = result.recycle
-        w2, nw2, theta, _ = extract_next_basis_core(
-            w, nw_used, rec.P, rec.AP, rec.stored, k, select=select
-        )
+        if lanes:  # K4 and K5 once a lane
+            outs = [extract_next_basis_core(w[i], nw_used[i], rec.P[i], rec.AP[i],
+                                            rec.stored[i], k, select=select)
+                    for i in range(w.shape[0])]
+            w2, nw2, theta = (torch.stack([o[q] for o in outs]) for q in range(3))
+        else:
+            w2, nw2, theta, _ = extract_next_basis_core(
+                w, nw_used, rec.P, rec.AP, rec.stored, k, select=select
+            )
     else:
         w2, nw2, theta = w, nw_used, None
 
     # Terminal retirement: never hand a poisoned basis (or non-finite
-    # coordinates) to the next system.
+    # coordinates) to the next system (each lane its own).
     x_safe = torch.where(torch.isfinite(x_prev), x_prev, 0.0)
-    x = torch.where(torch.all(torch.isfinite(result.x)), result.x, x_safe)
-    retire = info.breakdown | ~torch.all(torch.isfinite(w2)) | ~torch.all(torch.isfinite(nw2))
-    w2 = torch.where(retire, 0.0, w2)
-    nw2 = torch.where(retire, 0.0, nw2)
+    x = torch.where(torch.all(torch.isfinite(result.x), dim=-1, keepdim=True), result.x, x_safe)
+    retire = (info.breakdown
+              | ~torch.all(torch.isfinite(w2).flatten(-2), dim=-1)
+              | ~torch.all(torch.isfinite(nw2).flatten(-2), dim=-1))
+    w2 = torch.where(_lane_mask(retire, w2), 0.0, w2)
+    nw2 = torch.where(_lane_mask(retire, nw2), 0.0, nw2)
     if theta is not None:
-        theta = torch.where(retire, 0.0, theta)
-    rung = torch.zeros((), dtype=torch.int32, device=b.device)
+        theta = torch.where(_lane_mask(retire, theta), 0.0, theta)
+    rung = torch.zeros(b.shape[:-1], dtype=torch.int32, device=b.device)
     return x, info, w2, nw2, theta, rung
 
 

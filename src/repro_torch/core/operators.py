@@ -317,26 +317,63 @@ def adjoint_matvec(op) -> Matvec:
 # ---------------------------------------------------------------------------
 
 
+def over_lanes(one, batched, lanes: bool, *args):
+    """``one`` (a one-system function) on ``args``, or with ``lanes`` on
+    each lane of their leading axis: lane by lane on the CPU, so a lane
+    computes exactly as its one-system solve does, and as ONE ``batched``
+    call on the card (one launch for all lanes; its order is not cuBLAS's
+    one-system order, so there a lane agrees with its sequential solve to
+    rounding)."""
+    if not lanes:
+        return one(*args)
+    if args[0].device.type == "cpu":
+        return stack_lanes([one(*(a[i] for a in args)) for i in range(args[0].shape[0])])
+    return batched(*args)
+
+
+def stack_lanes(outs):
+    """The lanes' one-system results on a new leading axis, each lane in its
+    result's memory layout: a LAPACK result or a transposed product is
+    column-major, and a product that reads it then takes the one-system
+    BLAS path (and rounding)."""
+    if outs[0].ndim == 2 and not outs[0].is_contiguous() and outs[0].T.is_contiguous():
+        return torch.stack([o.T for o in outs]).transpose(-2, -1)
+    return torch.stack(outs)
+
+
 class LaneOperator:
     """B tenants' operators on ``(B, n)`` stacks, one row a tenant: the
     operator of :func:`repro_torch.core.solve_batch`.
 
-    ``matvec(V)`` → ``(B, n)``; ``basis_matvec(W)`` on ``(B, k, n)``;
-    ``gated_matvec(V, active)`` behind the tenants' ``(B,)`` device flags.
-    Built by :func:`lane_operator`, which keeps one product per iteration
-    where the tenants share their operator's data (a shared-K Newton
-    batch, a stack of dense matrices) and falls back to one product per
-    tenant otherwise.
+    ``matvec(V)`` → ``(B, m)``; ``rmatvec(U)`` → ``(B, n)`` (each tenant's
+    adjoint, :func:`adjoint_matvec`: batched least squares); ``basis_matvec(W)``
+    on ``(B, k, n)``; ``gated_matvec(V, active)`` behind the tenants' ``(B,)``
+    device flags.  One product per tenant; :func:`lane_operator` and
+    :class:`LaneDenseOperator` keep one product per iteration where the
+    tenants share their operator's data.
     """
 
     def __init__(self, ops):
         self.ops = list(ops)
+        n = getattr(self.ops[0], "domain_size", None)
+        if n is not None:
+            self.domain_size = n
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         return torch.stack([op(v[i]) for i, op in enumerate(self.ops)])
 
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        return torch.stack([adjoint_matvec(op)(u[i]) for i, op in enumerate(self.ops)])
+
+    @property
+    def T(self) -> "LaneOperator":
+        """The tenants' adjoints (each tenant's ``T``, or its adjoint
+        closure)."""
+        return LaneOperator([op.T if hasattr(op, "T") else adjoint_matvec(op)
+                             for op in self.ops])
+
     def basis_matvec(self, basis: torch.Tensor) -> torch.Tensor:
-        return torch.stack([apply_to_basis(op, basis[i]) for i, op in enumerate(self.ops)])
+        return stack_lanes([apply_to_basis(op, basis[i]) for i, op in enumerate(self.ops)])
 
     def gated_matvec(self, v: torch.Tensor, active: torch.Tensor) -> torch.Tensor:
         rows = []
@@ -349,25 +386,46 @@ class LaneOperator:
         return self.matvec(v)
 
 
-class LaneDenseOperator(LaneOperator):
-    """B tenants' dense ``(n, n)`` matrices: on the card ONE batched product
-    of the ``(B, n, n)`` stack a call; on the CPU tenant by tenant, so each
-    lane multiplies as its own operator does (a batched product sums in
-    another order than a GEMV)."""
+def _mv(mat, v):
+    return mat @ v
 
-    def __init__(self, ops):
-        super().__init__(ops)
-        self.mats = torch.stack([op.mat for op in self.ops])
+
+def _batched_mv(mats, v):
+    return torch.matmul(mats, v[..., None])[..., 0]
+
+
+def _basis_mv(mat, basis):
+    return (mat @ basis.T).T
+
+
+def _batched_basis_mv(mats, basis):
+    return torch.matmul(basis, mats.transpose(-2, -1))
+
+
+class LaneDenseOperator(LaneOperator):
+    """B tenants' dense matrices, the rows of one ``(B, m, n)`` tensor
+    (square or rectangular; held as given, no copy).
+
+    Through :func:`over_lanes`: ONE batched product of ``Aᵢ vᵢ`` (``Aᵢᵀ uᵢ``
+    for the adjoint) on the card, tenant by tenant on the CPU, where each
+    lane multiplies as its own :class:`DenseMatrixOperator` does."""
+
+    def __init__(self, mats: torch.Tensor):
+        super().__init__([DenseMatrixOperator(mat) for mat in mats.unbind(0)])
+        self.mats = mats
 
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
-        if v.device.type == "cpu":
-            return super().matvec(v)
-        return torch.matmul(self.mats, v[..., None])[..., 0]
+        return over_lanes(_mv, _batched_mv, True, self.mats, v)
+
+    def rmatvec(self, u: torch.Tensor) -> torch.Tensor:
+        return self.T.matvec(u)
+
+    @property
+    def T(self) -> "LaneDenseOperator":
+        return LaneDenseOperator(self.mats.transpose(-2, -1))
 
     def basis_matvec(self, basis: torch.Tensor) -> torch.Tensor:
-        if basis.device.type == "cpu":
-            return super().basis_matvec(basis)
-        return torch.matmul(basis, self.mats.transpose(-2, -1))
+        return over_lanes(_basis_mv, _batched_basis_mv, True, self.mats, basis)
 
 
 def lane_operator(ops):
@@ -378,8 +436,8 @@ def lane_operator(ops):
     same hyperparameters) become ONE ``KernelSystemOperator`` whose
     ``sqrt_h`` is ``(B, n)``: ``K`` runs once per iteration on the
     ``(n, B)`` stack (one matmul dense, one K3 call of r = B matrix-free,
-    gated by the tenants' flags).  Dense matrices become one batched
-    product.  Anything else runs tenant by tenant."""
+    gated by the tenants' flags).  Anything else runs tenant by tenant
+    (stacked dense tenants come as one :class:`LaneDenseOperator`)."""
     first = ops[0]
     if all(type(op) is RBFKernelSystemOperator for op in ops) and all(
         op.x is first.x and (op.theta, op.lengthscale, op.block, op.backend)
@@ -392,6 +450,4 @@ def lane_operator(ops):
         op.kernel_matvec is first.kernel_matvec for op in ops
     ):
         return KernelSystemOperator(first.kernel_matvec, torch.stack([op.sqrt_h for op in ops]))
-    if all(type(op) is DenseMatrixOperator and op.mat.ndim == 2 for op in ops):
-        return LaneDenseOperator(ops)
     return LaneOperator(ops)

@@ -177,23 +177,9 @@ def _initial_flags(rnorm0, threshold, maxiter: int, window: int):
 # ---------------------------------------------------------------------------
 
 
-def _over_lanes(one, batched, lanes: bool, *args):
-    """``one`` (a one-system reduction) on ``args``, or with ``lanes`` on
-    each lane of their leading axis: lane by lane on the CPU, so a lane
-    sums exactly as its one-system solve does, and as ONE ``batched`` call
-    on the card (one launch for all lanes; its order is not cuBLAS's
-    one-system order, so there a lane agrees with its sequential solve to
-    rounding)."""
-    if not lanes:
-        return one(*args)
-    if args[0].device.type == "cpu":
-        return torch.stack([one(*(a[i] for a in args)) for i in range(args[0].shape[0])])
-    return batched(*args)
-
-
 def _dot(a, b, lanes=False):
     """``aᵀb``: 0-d, or ``(B,)`` for ``(B, n)`` stacks."""
-    return _over_lanes(pt.tree_dot, torch.linalg.vecdot, lanes, a, b)
+    return ops_mod.over_lanes(pt.tree_dot, torch.linalg.vecdot, lanes, a, b)
 
 
 def _norm(a, lanes=False):
@@ -202,7 +188,7 @@ def _norm(a, lanes=False):
 
 def _basis_dot(W, v, lanes=False):
     """``W v``: ``(k,)``, or ``(B, k)`` for ``(B, k, n)`` against ``(B, n)``."""
-    return _over_lanes(pt.basis_dot, _basis_dot_batched, lanes, W, v)
+    return ops_mod.over_lanes(pt.basis_dot, _basis_dot_batched, lanes, W, v)
 
 
 def _basis_dot_batched(W, v):
@@ -211,7 +197,7 @@ def _basis_dot_batched(W, v):
 
 def _combine(W, c, lanes=False):
     """``cᵀ W``: ``(n,)``, or ``(B, n)``."""
-    return _over_lanes(pt.basis_combine, _combine_batched, lanes, W, c)
+    return ops_mod.over_lanes(pt.basis_combine, _combine_batched, lanes, W, c)
 
 
 def _combine_batched(W, c):
@@ -221,7 +207,7 @@ def _combine_batched(W, c):
 def _chol_solve(chol: torch.Tensor, rhs: torch.Tensor, lanes=False) -> torch.Tensor:
     """``(L Lᵀ)⁻¹ rhs`` for a vector or matrix ``rhs`` (each lane's with
     ``lanes``)."""
-    return _over_lanes(_chol_solve_batched, _chol_solve_batched, lanes, chol, rhs)
+    return ops_mod.over_lanes(_chol_solve_batched, _chol_solve_batched, lanes, chol, rhs)
 
 
 def _chol_solve_batched(chol: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
@@ -258,7 +244,7 @@ def factor_waw_gram(W: torch.Tensor, AW: torch.Tensor, jitter: float,
     def factor(w, aw):
         return _factor(w, aw, jitter)
 
-    return _over_lanes(factor, factor, lanes, W, AW)
+    return ops_mod.over_lanes(factor, factor, lanes, W, AW)
 
 
 def deflated_initial_guess(x_prev, r_prev, W, AW, waw_chol, lanes: bool = False):

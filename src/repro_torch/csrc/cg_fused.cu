@@ -38,9 +38,10 @@
 // the code it ran without one; fused_cg_update's is a runtime branch on the
 // window, so both of its arms run the one kernel.
 //
-// The step arms of fused_cg_update, fused_rz_reduce and
-// fused_deflate_direction have a lane axis for batched solves: B
-// independent steps in one launch (gridDim.y = B; the *_lanes kernels).
+// The step arms of fused_cg_update, fused_rz_reduce,
+// fused_deflate_direction and lsmr_update have a lane axis for batched
+// solves: B independent steps in one launch (gridDim.y = B; the *_lanes
+// kernels).
 // Lane blockIdx.y moves every pointer to its own data (per-lane scalars at
 // any lane stride, passed in a lane-only argument), takes the loads and
 // the block count a one-lane launch on its data would take, and runs the
@@ -1531,11 +1532,12 @@ __device__ __forceinline__ LsmrCoefficients<T> lsmr_tail(const LsmrArgs<T>& a, c
   return t;
 }
 
+// The kernel's body over a grid of `blocks` blocks along x.
 template <typename T, bool STEP, bool VEC, bool STALL>
-__global__ void __launch_bounds__(kThreads) lsmr_update(const LsmrArgs<T> a) {
+__device__ __forceinline__ void lsmr_update_body(const LsmrArgs<T>& a, unsigned blocks) {
   constexpr int W = VEC ? kVec<T> : 1;
   const int64_t units = a.n / W;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t stride = (int64_t)blocks * kThreads;
   const int64_t first = (int64_t)blockIdx.x * kThreads + threadIdx.x;
   // A live step reads w (the step arm) or v (the TPU function's arm).
   const T* vin = STEP ? a.w : a.v;
@@ -1599,6 +1601,77 @@ __global__ void __launch_bounds__(kThreads) lsmr_update(const LsmrArgs<T> a) {
     a.hbo[tail] = hbn;
     a.ho[tail] = hn;
     if (STEP) a.vo[tail] = vn;
+  }
+}
+
+// The one-lane kernel reads its arguments where the launch put them.
+template <typename T, bool STEP, bool VEC, bool STALL>
+__global__ void __launch_bounds__(kThreads) lsmr_update(const LsmrArgs<T> a) {
+  lsmr_update_body<T, STEP, VEC, STALL>(a, gridDim.x);
+}
+
+// The step arm's per-lane scalars, in the order of Lanes::ls.
+enum LsmrLaneScalar { kLmWsq, kLmBeta, kLmS, kLmJs, kLmActive, kLmThreshold, kLmDiverged,
+                      kLmTrace };
+
+// Lane blockIdx.y of the step arm's lane axis: every pointer moved to its
+// lane (vectors (lanes, n); the per-lane scalars and trace rows at the lane
+// strides of l.ls; the fresh scalar outputs packed), so a lane's blocks run
+// the one-lane arm on that lane's data.
+template <typename T>
+__device__ __forceinline__ LsmrArgs<T> lsmr_lane(LsmrArgs<T> a, const Lanes& l) {
+  const int64_t lane = blockIdx.y;
+  if (lane == 0) return a;
+  const int64_t v = lane * a.n, armed = a.window > 0;
+  a.x += v;
+  a.hbar += v;
+  a.h += v;
+  a.v += v;
+  a.w += v;
+  a.xo += v;
+  a.hbo += v;
+  a.ho += v;
+  a.vo += v;
+  a.wsq += lane * l.ls[kLmWsq];
+  a.beta += lane * l.ls[kLmBeta];
+  a.s += lane * l.ls[kLmS];
+  a.js += lane * l.ls[kLmJs];
+  a.active += lane * l.ls[kLmActive];
+  a.threshold += lane * l.ls[kLmThreshold];
+  a.diverged_at += lane * l.ls[kLmDiverged];
+  if (a.trace != nullptr) a.trace += lane * l.ls[kLmTrace];
+  a.so += lane * (kLsmrSlots + armed);
+  a.jo += lane * (2 + armed);
+  a.ao += lane;
+  return a;
+}
+
+// The loads of the step arm: 16-byte where every vector is 16-byte
+// aligned.  The host applies it to a one-lane launch, a lane of the lane
+// axis to itself.
+template <typename T, bool STEP>
+__host__ __device__ __forceinline__ bool lsmr_vec(const LsmrArgs<T>& a) {
+  return aligned16(a.x) && aligned16(a.hbar) && aligned16(a.h) && aligned16(a.v) &&
+         aligned16(a.xo) && aligned16(a.hbo) && aligned16(a.ho) &&
+         (!STEP || (aligned16(a.w) && aligned16(a.vo)));
+}
+
+// The step arm's lane axis: lane blockIdx.y moves the arguments to its
+// data, takes the loads and the block count a one-lane launch on that data
+// takes (the grid along x is the wider of the two counts; surplus blocks
+// return) and runs the one-lane body.  Nothing is reduced across blocks, so
+// a lane is bit for bit a one-lane launch on its data.
+template <typename T, bool STALL>
+__global__ void __launch_bounds__(kThreads) lsmr_update_lanes(const LsmrArgs<T> a_in,
+                                                              const Lanes l) {
+  const LsmrArgs<T> a = lsmr_lane(a_in, l);
+  const bool vec = lsmr_vec<T, true>(a);
+  const int blocks = vec ? l.blocks_vec : l.blocks_elem;
+  if ((int)blockIdx.x >= blocks) return;
+  if (vec) {
+    lsmr_update_body<T, true, true, STALL>(a, (unsigned)blocks);
+  } else {
+    lsmr_update_body<T, true, false, STALL>(a, (unsigned)blocks);
   }
 }
 
@@ -1860,16 +1933,26 @@ int launch_recombine(const void* s, const void* u, int m, int k, int64_t n,
   return (int)err;
 }
 
+// Blocks of a one-lane K7 launch; a lane of the lane axis takes the count
+// a one-lane launch on its data takes.
 template <typename T, bool STEP, bool VEC, bool STALL>
-cudaError_t launch_lsmr_kernel(const LsmrArgs<T>& a, cudaStream_t st) {
-  const auto kernel = lsmr_update<T, STEP, VEC, STALL>;
+cudaError_t lsmr_blocks(int64_t n, int* out) {
   static int resident = 0;  // once per instantiation
   if (resident == 0) {
-    const cudaError_t err = resident_blocks(kernel, &resident);
+    const cudaError_t err = resident_blocks(lsmr_update<T, STEP, VEC, STALL>, &resident);
     if (err != cudaSuccess) return err;
   }
-  const int64_t units = VEC ? a.n / kVec<T> : a.n;
-  kernel<<<stride_grid(resident, units, resident), kThreads, 0, st>>>(a);
+  const int64_t units = VEC ? n / kVec<T> : n;
+  *out = stride_grid(resident, units, resident);
+  return cudaSuccess;
+}
+
+template <typename T, bool STEP, bool VEC, bool STALL>
+cudaError_t launch_lsmr_kernel(const LsmrArgs<T>& a, cudaStream_t st) {
+  int blocks = 0;
+  const cudaError_t err = lsmr_blocks<T, STEP, VEC, STALL>(a.n, &blocks);
+  if (err != cudaSuccess) return err;
+  lsmr_update<T, STEP, VEC, STALL><<<blocks, kThreads, 0, st>>>(a);
   return cudaGetLastError();
 }
 
@@ -1877,9 +1960,7 @@ template <typename T, bool STEP>
 int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
   if (a.n < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool vec = aligned16(a.x) && aligned16(a.hbar) && aligned16(a.h) && aligned16(a.v) &&
-                   aligned16(a.xo) && aligned16(a.hbo) && aligned16(a.ho) &&
-                   (!STEP || (aligned16(a.w) && aligned16(a.vo)));
+  const bool vec = lsmr_vec<T, STEP>(a);
   // The stall detector is compiled into the armed arm only (window > 0).
   const bool stall = STEP && a.window > 0;
   const cudaError_t err =
@@ -1887,6 +1968,28 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
                    : launch_lsmr_kernel<T, STEP, true, false>(a, st))
           : (stall ? launch_lsmr_kernel<T, STEP, false, STEP>(a, st)
                    : launch_lsmr_kernel<T, STEP, false, false>(a, st));
+  return (int)err;
+}
+
+template <typename T, bool STALL>
+cudaError_t launch_lsmr_lanes_kernel(const LsmrArgs<T>& a, int lanes, Lanes l,
+                                     cudaStream_t st) {
+  cudaError_t err = lsmr_blocks<T, true, true, STALL>(a.n, &l.blocks_vec);
+  if (err == cudaSuccess) err = lsmr_blocks<T, true, false, STALL>(a.n, &l.blocks_elem);
+  if (err != cudaSuccess) return err;
+  const int wide = l.blocks_vec > l.blocks_elem ? l.blocks_vec : l.blocks_elem;
+  lsmr_update_lanes<T, STALL><<<dim3(wide, lanes), kThreads, 0, st>>>(a, l);
+  return cudaGetLastError();
+}
+
+// The step arm on the lane axis: `lanes` independent LSMR tails in one
+// launch, lane i's per-lane scalars at lane strides l.ls.
+template <typename T>
+int launch_lsmr_lanes(const LsmrArgs<T>& a, int lanes, const Lanes& l, void* stream) {
+  if (a.n < 1 || lanes < 1 || lanes > 65535) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = a.window > 0 ? launch_lsmr_lanes_kernel<T, true>(a, lanes, l, st)
+                                       : launch_lsmr_lanes_kernel<T, false>(a, lanes, l, st);
   return (int)err;
 }
 
@@ -2123,6 +2226,43 @@ int launch_lsmr(const LsmrArgs<T>& a, void* stream) {
     a.jo = static_cast<int*>(jo);                                              \
     a.ao = static_cast<bool*>(ao);                                             \
     return launch_lsmr<T, true>(a, stream);                                    \
+  }                                                                            \
+  extern "C" int lsmr_step_lanes_##SUFFIX(                                     \
+      const void* x, const void* hbar, const void* h, const void* v,           \
+      const void* w, int64_t n, const void* wsq, const void* beta,             \
+      const void* s, const void* js, const void* active,                       \
+      const void* threshold, const void* diverged_at, int64_t maxiter,         \
+      int window, void* trace, void* xo, void* hbo, void* ho, void* vo,        \
+      void* so, void* jo, void* ao, int lanes, const int64_t* lane_strides,    \
+      void* stream) {                                                          \
+    LsmrArgs<T> a = {};                                                        \
+    Lanes l = {};                                                              \
+    for (int q = 0; q < 8 && lane_strides != nullptr; ++q)                     \
+      l.ls[q] = lane_strides[q];                                               \
+    a.x = static_cast<const T*>(x);                                            \
+    a.hbar = static_cast<const T*>(hbar);                                      \
+    a.h = static_cast<const T*>(h);                                            \
+    a.v = static_cast<const T*>(v);                                            \
+    a.w = static_cast<const T*>(w);                                            \
+    a.n = n;                                                                   \
+    a.xo = static_cast<T*>(xo);                                                \
+    a.hbo = static_cast<T*>(hbo);                                              \
+    a.ho = static_cast<T*>(ho);                                                \
+    a.vo = static_cast<T*>(vo);                                                \
+    a.wsq = static_cast<const T*>(wsq);                                        \
+    a.beta = static_cast<const T*>(beta);                                      \
+    a.s = static_cast<const T*>(s);                                            \
+    a.js = static_cast<const int*>(js);                                        \
+    a.active = static_cast<const bool*>(active);                               \
+    a.threshold = static_cast<const T*>(threshold);                            \
+    a.diverged_at = static_cast<const T*>(diverged_at);                        \
+    a.maxiter = maxiter;                                                       \
+    a.window = window;                                                         \
+    a.trace = static_cast<T*>(trace);                                          \
+    a.so = static_cast<T*>(so);                                                \
+    a.jo = static_cast<int*>(jo);                                              \
+    a.ao = static_cast<bool*>(ao);                                             \
+    return launch_lsmr_lanes<T>(a, lanes, l, stream);                          \
   }
 
 REPRO_CG_FUSED_ENTRY_POINTS(float, f32)

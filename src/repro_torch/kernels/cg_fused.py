@@ -61,7 +61,7 @@ C interface, built by :mod:`repro_torch.kernels._build`):
   exact-termination latch, the status, the trace slot, j and the next
   active flag, every output masked by the step's active flag.
 
-The step arms of K1, K6 and K2 take ``(B, n)`` vectors too: B
+The step arms of K1, K6, K2 and K7 take ``(B, n)`` vectors too: B
 independent steps (a batch of tenants) in one launch, each lane bit for
 bit the one-lane arm on its data.  The step
 arms carry their scalars on the card: the loop never waits on
@@ -127,6 +127,8 @@ _SIGNATURES = {
     "lsmr_update": (_P, _P, _P, _P, _P, _P, _P, _L, _P, _P, _P),
     "lsmr_step": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P, _P,
                   _P, _P, _P, _P),
+    "lsmr_step_lanes": (_P, _P, _P, _P, _P, _L, _P, _P, _P, _P, _P, _P, _P, _L, _I, _P, _P, _P,
+                        _P, _P, _P, _P, _P, _I, _P),
 }
 _cdiv = _runtime.cdiv
 _ptr = _runtime.ptr
@@ -787,35 +789,61 @@ def lsmr_step_cuda(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverg
     frozen step.  ``window > 0`` arms the stall detector on the fresh
     ``|ζ̄|``: ``s`` carries the best residual in one more slot after
     ``LSMR_SLOTS`` and ``js = [j, fail, stall]``.
+
+    The lane axis: ``(B, n)`` vectors run B independent LSMR tails in ONE
+    launch (``gridDim.y = B``, the ``lsmr_step_lanes`` entry): ``s``
+    ``(B, 7|8)``, ``js`` ``(B, 2|3)``, the per-lane scalars ``(B,)`` and the
+    trace rows ``(B, maxiter + 2)`` at any lane stride (views of the
+    previous step's packed outputs), the outputs with the leading B.  Each
+    lane takes the loads and the grid a one-lane launch on its data takes:
+    lane i is bit for bit a one-lane launch on lane i's data.
     """
-    n = x.shape[0]
+    lead, n = _lead(x)
     armed = window > 0
-    shapes = {"x": (x, (n,)), "hbar": (hbar, (n,)), "h": (h, (n,)), "v": (v, (n,)),
-              "w": (w, (n,)), "wsq": (wsq, ()), "beta": (beta, ()),
-              "s": (s, (len(LSMR_SLOTS) + armed,)), "threshold": (threshold, ()),
-              "diverged_at": (diverged_at, ())}
-    if trace is not None:
-        shapes["trace"] = (trace, (maxiter + 2,))
-    _check("lsmr_update", x, **shapes)
-    _check_flags("lsmr_update", x, js, window, active=active)
+    if not lead:
+        shapes = {"x": (x, (n,)), "hbar": (hbar, (n,)), "h": (h, (n,)), "v": (v, (n,)),
+                  "w": (w, (n,)), "wsq": (wsq, ()), "beta": (beta, ()),
+                  "s": (s, (len(LSMR_SLOTS) + armed,)), "threshold": (threshold, ()),
+                  "diverged_at": (diverged_at, ())}
+        if trace is not None:
+            shapes["trace"] = (trace, (maxiter + 2,))
+        _check("lsmr_update", x, **shapes)
+        _check_flags("lsmr_update", x, js, window, active=active)
+    else:
+        _check("lsmr_update", x, x=(x, lead + (n,)), hbar=(hbar, lead + (n,)),
+               h=(h, lead + (n,)), v=(v, lead + (n,)), w=(w, lead + (n,)))
+        lanes, strides = _step_scalars(
+            "lsmr_update", x, lead,
+            [("wsq", wsq, x.dtype, ()), ("beta", beta, x.dtype, ()),
+             ("s", s, x.dtype, (len(LSMR_SLOTS) + armed,)), ("js", js, torch.int32, (2 + armed,)),
+             ("active", active, torch.bool, ()), ("threshold", threshold, x.dtype, ()),
+             ("diverged_at", diverged_at, x.dtype, ()),
+             ("trace", trace, x.dtype, (maxiter + 2,))])
     if n == 0:
         raise ValueError("lsmr_step: need n >= 1")
     xo, hbo, ho, vo = (torch.empty_like(x) for _ in range(4))
-    so = torch.empty_like(s)
-    jo = torch.empty_like(js)
-    ao = torch.empty_like(active)
-    _launch("lsmr_step", x,
-            _ptr(x), _ptr(hbar), _ptr(h), _ptr(v), _ptr(w), n, _ptr(wsq), _ptr(beta), _ptr(s),
+    so = torch.empty(lead + (len(LSMR_SLOTS) + armed,), dtype=x.dtype, device=x.device)
+    jo = torch.empty(lead + (2 + armed,), dtype=torch.int32, device=x.device)
+    ao = torch.empty(lead, dtype=torch.bool, device=x.device)
+    args = (_ptr(x), _ptr(hbar), _ptr(h), _ptr(v), _ptr(w), n, _ptr(wsq), _ptr(beta), _ptr(s),
             _ptr(js), _ptr(active), _ptr(threshold), _ptr(diverged_at), maxiter,
             window if armed else 0, _ptr(trace), _ptr(xo), _ptr(hbo), _ptr(ho), _ptr(vo),
-            _ptr(so), _ptr(jo), _ptr(ao), key="lsmr_update")
+            _ptr(so), _ptr(jo), _ptr(ao))
+    if lead:
+        _launch("lsmr_step_lanes", x, *args, lanes, strides, key="lsmr_update")
+    else:
+        _launch("lsmr_step", x, *args, key="lsmr_update")
     return xo, hbo, ho, vo, so, jo, ao
 
 
 def lsmr_step_plain(x, hbar, h, v, w, wsq, beta, s, js, active, threshold, diverged_at,
                     maxiter, trace=None, window=0):
     """Plain PyTorch version of :func:`lsmr_step_cuda`: the LSMR loop's
-    former eager lines from α⁺ on, in their order."""
+    former eager lines from α⁺ on, in their order (on the lane axis, lane
+    by lane)."""
+    if x.ndim == 2:
+        return _per_lane(lsmr_step_plain, x.shape[0], x, hbar, h, v, w, wsq, beta, s, js,
+                         active, threshold, diverged_at, maxiter, trace, window)
     _note_plain("lsmr_update", x)
     alpha, zetabar, alphabar, rho, rhobar, cbar, sbar = s[:len(LSMR_SLOTS)].unbind()
     j, fail = js[0], js[1]

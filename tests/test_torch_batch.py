@@ -8,7 +8,7 @@ sequential port ``solve`` calls, iterations and matvecs equal and x to
 per-tenant convergence.  On the CPU a lane IS its sequential solve: the
 step kernels' plain versions, the lanes' scalar reductions and a dense
 tenant's product all run lane by lane in the one-system order
-(``solvers._over_lanes``, ``operators.LaneDenseOperator``).
+(``operators.over_lanes``, ``operators.LaneDenseOperator``).
 
 Against the reference's ``solve_batch`` the lanes hold its convergence,
 status and matvec accounting (matvecs − iterations) exactly, and x to what
@@ -317,10 +317,19 @@ class TestSolveBatch:
         assert not out.state.W[1].any()
 
     def test_least_squares_batches_refuse(self):
+        """The least-squares doors, which refused before batched LSMR was
+        ported, run: each lane of an ``lsmr`` and a ``deflsmr`` batch is its
+        sequential port solve (``tests/test_torch_batch_lsq.py`` holds them
+        against the reference)."""
         mats, bs = _tenants(B=2)
-        with pytest.raises(NotImplementedError, match="queue 1, batched and served solves"):
-            tc.solve_batch(_t(mats), _t(bs), tc.SolveSpec(method="lsmr"),
-                           make_operator=tc.from_matrix)
+        for method in ("lsmr", "deflsmr"):
+            spec = tc.SolveSpec(method=method, k=4, ell=8, tol=1e-10, maxiter=300)
+            batch = tc.solve_batch(_t(mats), _t(bs), spec, make_operator=tc.from_matrix)
+            assert batch.info.converged.all()
+            for i in range(2):
+                one = tc.solve(tc.from_matrix(_t(mats[i])), _t(bs[i]), spec)
+                _same_counts(batch.info, one.info, i)
+                assert torch.equal(batch.x[i], one.x), (method, i)
 
 
 class TestSolvePoolStep:
@@ -383,7 +392,7 @@ class TestSolvePoolStep:
 
 def test_card_forms_of_the_lane_reductions():
     """On the card the solve's lane reductions run as one batched call
-    each (``solvers._over_lanes``'s second form): each agrees with the
+    each (``operators.over_lanes``'s second form): each agrees with the
     one-system reduction lane by lane to rounding."""
     g = torch.Generator().manual_seed(3)
     B, k, n = 4, 5, 37

@@ -25,10 +25,10 @@ K1, K6, K2 and K7 and K6's pair arm are held against their plain versions
 (the scalars bit for bit), and each arm must be one device kernel a call;
 K1's and K7's armed with the stall detector (``window > 0``) in stalling
 states too: the window-0 outputs unchanged, STAGNATED latched on the
-plain version's step.  The lane axis of K1's, K6's and K2's step arms
-(``tests/torch_lane_cases.py``): at B = 1, 8 and 64 every lane bit for
-bit the one-lane arm on that lane's data, against the lane-by-lane plain
-versions, one device kernel a call; K3 and K8 behind a gate of device
+plain version's step.  The lane axis of K1's, K6's, K2's and K7's step
+arms (``tests/torch_lane_cases.py``): at B = 1, 8 and 64 every lane bit
+for bit the one-lane arm on that lane's data, against the lane-by-lane
+plain versions, one device kernel a call; K3 and K8 behind a gate of device
 flags: zeros with every flag off, the ungated product bit for bit with
 any one on.
 """
@@ -970,6 +970,42 @@ def test_lane_axis_arms_run_one_device_kernel(device, dtype):
             p_buf=t["p_buf"], ap_buf=t["ap_buf"]),
     }
     assert {name: _device_kernels(fn) for name, fn in calls.items()} == dict.fromkeys(calls, 1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("lanes", [1, 8, 64])
+@pytest.mark.parametrize("n", [16384, 16385, 1000, 1])
+@pytest.mark.parametrize("window", [0, 10])
+def test_lane_axis_lsmr_step(device, dtype, lanes, n, window):
+    """K7's step arm on a (B, n) lane axis: every lane bit for bit the
+    one-lane arm on that lane's data (live, frozen, converging, diverging
+    and exactly terminating lanes; ``s`` rows of a wider buffer, the other
+    per-lane scalars strided views; odd n mixes 16-byte and element loads
+    across lanes), against the lane-by-lane plain version to the kernel bar
+    (``s``'s slots bit for bit, flags, counts and statuses exactly), two
+    launches bit for bit, one counted launch a call on the lane entry."""
+    import torch_lane_cases as lc
+
+    t = lc.lsmr_lane_inputs(torch, device, dtype, lanes, n, window=window, seed=lanes + n)
+    full, per_lane = lc.run_lsmr_lane_arms(torch, cg_fused, t)
+    assert lc.lane_mismatches(torch, full, per_lane) == []
+    assert lc.lane_mismatches(torch, full, lc.run_lsmr_steps(torch, cg_fused, t)) == []
+    plain = lc.run_lsmr_steps(torch, cg_fused, t, arms="plain")
+    for key in ("so", "jo", "ao", "trace"):
+        assert _equal_nan(full[key], plain[key]), key
+    for key in ("xo", "hbo", "ho", "vo"):
+        _assert_close(full[key], plain[key], dtype)
+    arms = cg_fused._runtime.ARMS
+    key = "lsmr_update:lsmr_step_lanes"
+    before = arms.get(key, 0)
+    lc.run_lsmr_steps(torch, cg_fused, t)
+    assert arms[key] == before + 1
+
+    def call():
+        cg_fused.lsmr_step_cuda(*(t[k] for k in lc.LSMR_ARGS), trace=t["trace"],
+                                window=t["window"])
+
+    assert _device_kernels(call) == 1
 
 
 # ---------------------------------------------------------------------------

@@ -269,15 +269,16 @@ def test_state_carries_over_from_reference(fig2_trace):
 def test_unported_paths_raise():
     A = tc.from_matrix(torch.eye(6, dtype=torch.float64))
     b = torch.ones(6, dtype=torch.float64)
-    # MGeometryHarmonic is ported; the batched least-squares doors are not.
+    # MGeometryHarmonic is ported, and so are the batched least-squares
+    # doors (two tenants of the identity: x = b in one iteration).
     res = tc.solve(A, b, tc.SolveSpec(precond="jacobi", strategy=tc.MGeometryHarmonic()),
                    M=lambda v: v)
     assert bool(res.info.converged)
-    with pytest.raises(NotImplementedError, match="queue 1, batched and served solves"):
-        tc.solve_batch(A, torch.ones(2, 6, dtype=torch.float64), tc.SolveSpec(method="lsmr"))
-    with pytest.raises(NotImplementedError, match="queue 1, batched and served solves"):
-        tc.solve_batch(A, torch.ones(2, 6, dtype=torch.float64),
-                       tc.SolveSpec(method="deflsmr"))
+    tenants = tc.from_matrix(torch.eye(6, dtype=torch.float64).repeat(2, 1, 1))
+    bs = torch.ones(2, 6, dtype=torch.float64)
+    for method in ("lsmr", "deflsmr"):
+        out = tc.solve_batch(tenants, bs, tc.SolveSpec(method=method))
+        assert out.info.converged.all() and torch.allclose(out.x, bs), method
     # mesh= runs the sharded engine now; what is not a solve mesh is refused.
     with pytest.raises(ValueError, match="SolveMesh"):
         tc.solve(A, b, tc.SolveSpec(), mesh=object())

@@ -1,14 +1,17 @@
-"""The lane-axis step arms of K1, K6 and K2 against their one-lane arms.
+"""The lane-axis step arms of K1, K6, K2 and K7 against their one-lane arms.
 
-Shared by ``tests/test_torch_cuda.py`` and ``chip_smoke.py`` (no JAX).
-:func:`lane_step_inputs` builds B lanes of one def-CG iteration's inputs
-in the layout the batched loops hand the kernels: vectors ``(B, n)``,
-bases ``(B, k, n)``, the per-lane scalars as strided views of packed
-buffers (``so[:, 0]``-style, as a previous step's outputs are), a mix of
-live, frozen, indefinite and diverging lanes.  :func:`run_lane_arms`
-runs K1's step, K6's step and K2's step on the lane axis and then each
-lane alone through the one-lane arms on that lane's views;
-:func:`lane_mismatches` names every output that differs in a bit.
+Shared by ``tests/test_torch_cuda.py``, ``tests/test_torch_batch_lsq.py``
+and ``chip_smoke.py`` (no JAX).  :func:`lane_step_inputs` builds B lanes
+of one def-CG iteration's inputs in the layout the batched loops hand the
+kernels: vectors ``(B, n)``, bases ``(B, k, n)``, the per-lane scalars as
+strided views of packed buffers (``so[:, 0]``-style, as a previous step's
+outputs are), a mix of live, frozen, indefinite and diverging lanes.
+:func:`run_lane_arms` runs K1's step, K6's step and K2's step on the lane
+axis and then each lane alone through the one-lane arms on that lane's
+views; :func:`lane_mismatches` names every output that differs in a bit.
+:func:`lsmr_lane_inputs` and :func:`run_lsmr_lane_arms` do the same for
+K7's step arm (one LSMR iteration's tail): live, frozen, converging,
+diverging and exactly terminating lanes.
 """
 
 from __future__ import annotations
@@ -147,3 +150,75 @@ def digest(torch, outs) -> str:
         h.update(key.encode())
         h.update(_bits(torch, outs[key].contiguous()).cpu().numpy().tobytes())
     return h.hexdigest()
+
+
+# ---------------------------------------------------------------------------
+# K7: the LSMR step arm
+# ---------------------------------------------------------------------------
+
+LSMR_CASES = ("live", "frozen", "converging", "diverging", "exact")
+# lsmr_step's positional inputs, in order.
+LSMR_ARGS = ("x", "hbar", "h", "v", "w", "wsq", "beta", "s", "js", "active", "threshold",
+             "diverged_at", "maxiter")
+
+
+def lsmr_lane_inputs(torch, device, dtype, lanes, n, *, window=0, seed=0, maxiter=10):
+    """One LSMR iteration's tail inputs for ``lanes`` lanes, lane i of case
+    ``LSMR_CASES[i % 5]``: live; frozen (``active`` false); converging (its
+    threshold above any |ζ̄|, so the next active flag drops); diverging
+    (``diverged_at`` below it: STAGNATED); exact (β⁺ = 0: the latch).  The
+    carried scalars ``s`` are rows of a wider packed buffer and the other
+    per-lane scalars strided views (lane strides > 1), as the loop hands
+    them; ``window > 0`` arms the stall detector."""
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=device, dtype=dtype)
+
+    x, hbar, h, v, w = (rnd(lanes, n) for _ in range(5))
+    lane = torch.arange(lanes, device=device)
+    case = lane % len(LSMR_CASES)
+    armed = window > 0
+    slots = 7 + armed
+    packed = rnd(lanes, slots + 3).abs() + 0.1
+    s = packed[:, 1:1 + slots]
+    wsq = (w * w).sum(1)
+    beta = torch.where(case == 4, 0.0, rnd(lanes).abs() + 0.1).to(dtype)
+    scal = torch.stack([wsq, beta, torch.where(case == 2, 1e30, 1e-6).to(dtype),
+                        torch.where(case == 3, 1e-30, 1e8).to(dtype)], 1)
+    js = torch.stack([(lane % 5 + 1).to(torch.int32), torch.zeros_like(lane, dtype=torch.int32)]
+                     + ([(lane % 4 + window - 2).to(torch.int32)] if armed else []),
+                     1).contiguous()
+    flags = torch.stack([case != 1, lane % 2 == 0], 1)
+    return dict(x=x, hbar=hbar, h=h, v=v, w=w, wsq=scal[:, 0], beta=scal[:, 1], s=s, js=js,
+                active=flags[:, 0], threshold=scal[:, 2], diverged_at=scal[:, 3],
+                maxiter=maxiter, window=window,
+                trace=torch.full((lanes, maxiter + 2), float("nan"), dtype=dtype,
+                                 device=device))
+
+
+def run_lsmr_steps(torch, cf, t, *, one_lane=None, arms="cuda"):
+    """K7's step arm on all lanes (``one_lane`` None) or on lane
+    ``one_lane`` alone through the one-lane arm, with that lane's views.
+    Returns every output and the trace, by name."""
+    step = {"cuda": cf.lsmr_step_cuda, "plain": cf.lsmr_step_plain}[arms]
+    trace = t["trace"].clone()
+    i = one_lane
+
+    def at(v):
+        return v if i is None else v[i]
+
+    out = step(*(at(t[key]) for key in LSMR_ARGS[:-1]), t["maxiter"], at(trace),
+               window=t["window"])
+    return dict(zip(("xo", "hbo", "ho", "vo", "so", "jo", "ao"), out), trace=trace)
+
+
+def run_lsmr_lane_arms(torch, cf, t, arms="cuda"):
+    """``(lane_out, per_lane_outs)`` of K7's step arm, as
+    :func:`run_lane_arms`."""
+    lanes = t["x"].shape[0]
+    full = run_lsmr_steps(torch, cf, t, arms=arms)
+    singles = [run_lsmr_steps(torch, cf, t, one_lane=i, arms=arms) for i in range(lanes)]
+    stacked = {key: torch.stack([s[key][i] if key == "trace" else s[key]
+                                 for i, s in enumerate(singles)]) for key in full}
+    return full, stacked
