@@ -104,7 +104,8 @@ Phases, each of which fails the script when it fails:
 5d. batch   — ``benchmarks/batch_bench.py``'s tenants on main's dense K
               (shared): B = 1, 8, 64 through ``solve_batch`` (one (n, B)
               product and the lane-axis step arms an iteration) against B
-              sequential ``solve`` calls (every tenant converged, x within
+              sequential ``solve`` calls (at B = 64 its first 16 tenants,
+              the loop's time scaled by 4; every tenant converged, x within
               1e-4, the count differences and wall times reported: at
               ~185 iterations counts move with summation order, ROADMAP
               P1), device launches per batched iteration at
@@ -142,7 +143,8 @@ Phases, each of which fails the script when it fails:
               frozen steps are gated off on the card (counted apart from
               the live passes).
 7b. chaos   — ``benchmarks/chaos_bench.py``'s 4 drifting H½ systems on
-              the same data over the matrix-free K3 operator, def-CG(8, 12),
+              the digits at the cut n = 16 384 (seed 0) over the
+              matrix-free K3 operator, def-CG(8, 12),
               tol 1e-5: the recovery ladder armed and disarmed (identical
               iterates, rungs 0); system 1 poisoned with NaN (rungs
               0/3/0/0, finite x, the neighbours converged; the extra
@@ -233,7 +235,7 @@ Phases, each of which fails the script when it fails:
               bf16 bar relative to the logits' scale; an f32 control of
               both, held element by element at the f32 bar (bf16 rounding
               noise alone moves some logits past the bf16 bar element by
-              element: ROADMAP P7); a teacher-forced decode of the first 64
+              element: ROADMAP P7); a teacher-forced decode of the first 32
               tokens against ``forward_hidden`` at 2e-2, held in f32;
               ``torch.profiler`` over one prefill (with its top device
               operations by time) and over 8 decode steps.
@@ -248,21 +250,59 @@ Phases, each of which fails the script when it fails:
               the prefill shape.  The redesigned kernels' timing lines (K3,
               K4, K5, K8, K9, K10) print the previous designs' times
               (``PREVIOUS_MS``) beside this run's.
+18. check-lm-grad — K9's three differentiated arms (the forward with the
+              row log-sum-exp, the backward, the forward-mode JVP; custom
+              ops inside ``FlashAttention``) against their plain versions
+              at dh 16, 64 and 128, causal and not, GQA (h 8, hkv 2), f32
+              and bf16, qwen1.5-0.5b's training shape (bf16) and the
+              Hessian-free LM's (f32): f32 2e-4 and bf16 5e-2 of the plain
+              version's max abs, the lse arm's output bit for bit the
+              serving arm's, each arm twice bit for bit; timed at the
+              training shape beside the plain versions, SDPA's forward and
+              backward (its forward subtracted) and the bound (2.5 × the
+              forward's flops for the backward and the JVP).
+19. train   — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
+              151 936, tied, f32 parameters, bf16 compute), 4 × 4 096
+              tokens, through ``launch.train.build`` and the ``Trainer``:
+              one step's loss and gradients through the kernels against
+              ``backend="plain"`` on the card (loss 1e-2, each leaf 5e-2 in
+              relative norm) and the same gradients again leaf by leaf; 6
+              AdamW steps with checkpoints every 3 into a temporary
+              directory, then the same with a failure injected at step 4
+              (the replay's final state bit for bit the uninterrupted
+              run's); ms a step, tokens/s, peak memory, K9 launches a step
+              (24 lse, 24 backward), MFU from ``model_flops``; one more
+              step under ``torch.profiler``.
+20. hf-lm   — ``examples/hessian_free_lm.py``'s 10 Hessian-free steps
+              (qwen1.5 SMOKE, batch 4 × 32, ``HFConfig(k=4, ell=8,
+              cg_tol=1e-3, cg_maxiter=50, init_damping=10.0)``), recycled
+              and cold, through the kernels (K9's three arms in the GGN
+              products, ``matvec`` and ``basis_matvec``'s ``linearize``; K1,
+              K2, K4, K5 in def-CG) against the same runs with
+              ``backend="plain"`` on the card (iterations within one a
+              step, loss to 1e-4); one recycled step profiled; one step at
+              qwen1.5-0.5b's full widths with its depth cut to 4 layers
+              (the reckoned parameter-sized vectors and the peak printed).
 
 A ``[summary]`` line gives the device launches per damped LSMR and
 deflated def-CG iteration (without and with the Jacobi preconditioner),
 main-lsq's ms per cold LSMR iteration and main-gn's device busy share.
 
-Each main path (5, 5b–5e, 7, 7b, 10, 10b, 11, 13, 15 and 16) is driven
-with the launch counters set to 0 just before it and read just after (13:
-on every rank); the ``{"kernels": [...]}`` JSON line gives each kernel's
-launches summed over the fourteen (13: over its ranks), and its launches
-per arm (``arms``; lane-axis arms end in ``_lanes``).  Further
+Each main path (5, 5b–5e, 7, 7b, 10, 10b, 11, 13, 15, 16, 19 and 20) is
+driven with the launch counters set to 0 just before it and read just
+after (13: on every rank); the ``{"kernels": [...]}`` JSON line gives each
+kernel's launches summed over the sixteen (13: over its ranks), and its
+launches per arm (``arms``; lane-axis arms end in ``_lanes``).  K9's
+backward and forward-mode arms have entries of their own
+(``flash_attention_bwd``, ``flash_attention_jvp``); K9's entry counts its
+forward arms (serving and lse).  ``[summary] wall s a phase`` gives each
+phase's wall time.  Further
 ``[summary]`` lines give the strategies, batch, serve, batch-lsq, paper
 and chaos phases' results.  Last comes the
 ``{"ok": true, "device": {...}}`` line; the full report also goes to
 ``chiprun_out/chip_smoke.json``.
-``--lm-only`` runs phases 1, 2 and 14–17 alone and prints no ok line.
+``--lm-only`` runs phases 1, 2 and 14–17 alone and prints no ok line;
+``--train-only`` runs phases 1, 2 and 18–20 alone, likewise.
 """
 
 from __future__ import annotations
@@ -339,12 +379,12 @@ K8_SHAPES = ((SHARD_N // 4, SHARD_N), (SHARD_N // 8, SHARD_N), (9138, 36552), (1
 K8_RS = (1, K)
 # The model zoo's serving paths at full width (configs/qwen1_5_0_5b.py,
 # configs/mamba2_1_3b.py): 4 prompts of 4 096 tokens, 32 greedy decode
-# steps, teacher-forced decode of the first 64 tokens.
+# steps, teacher-forced decode of the first 32 tokens.
 LM_PATHS = {
     "main-lm-attn": {"arch": "qwen1.5-0.5b", "batch": 4, "prompt": 4096, "decode": 32,
-                     "teacher": 64, "kernel": "flash_attention_"},
+                     "teacher": 32, "kernel": "flash_attention_"},
     "main-lm-ssm": {"arch": "mamba2-1.3b", "batch": 4, "prompt": 4096, "decode": 32,
-                    "teacher": 64, "kernel": "ssd_scan_"},
+                    "teacher": 32, "kernel": "ssd_scan_"},
 }
 LM_PATH_KERNELS = {"main-lm-attn": ("flash_attention",), "main-lm-ssm": ("ssd_scan",)}
 LM_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (2e-2, 5e-2)}  # tests/test_kernels.py
@@ -381,6 +421,32 @@ PREVIOUS_MS = {"fused_rz_reduce float64 n=36551": 0.0114,
                "fused_cg_update float64 n=36551": 0.0134, "lsmr_update float64 n=16384": 0.0065,
                "lsmr_update float64 n=32768": 0.0069, "lsmr_update float64 n=1048576": 0.0281,
                "lsmr_update float32 n=1048576": 0.0173}
+# K9's differentiated arms (forward with the row log-sum-exp, backward,
+# forward mode; q_offset 0), b, h, hkv, sq, sk, dh, causal: dh 16, 64 and
+# 128, causal and not, GQA (h 8, hkv 2), ragged tiles, in f32 and bf16;
+# qwen1.5-0.5b's training shape in bf16 (timed there) and the Hessian-free
+# LM example's shape (qwen1.5 SMOKE, batch 4 × 32) in f32.
+ATTN_TRAIN = (4, 16, 16, 4096, 4096, 64, True)
+ATTN_HF = (4, 4, 4, 32, 32, 16, True)
+GRAD_CHECK = ((2, 8, 2, 256, 256, 16, False), (1, 8, 2, 300, 300, 64, True),
+              (1, 8, 2, 200, 330, 128, False), (2, 8, 2, 130, 130, 128, True))
+GRAD_BAR = {"float32": 2e-4, "bfloat16": 5e-2}  # of the plain version's max abs
+# train: launch/train.py's build at qwen1.5-0.5b's full width (24 layers,
+# d 1024, vocab 151 936, tied; f32 parameters, bf16 compute), 4 × 4 096
+# tokens, AdamW lr 1e-4; 6 steps with checkpoints every 3, then the same
+# with a failure injected at step 4.
+TRAIN = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 4096, "lr": 1e-4, "steps": 6,
+         "every": 3, "fault_at": 4}
+TRAIN_PATH_ARMS = ("flash_attention:lse", "flash_attention:bwd")
+# hf-lm: examples/hessian_free_lm.py's loop (qwen1.5 SMOKE, batch 4 × 32,
+# HFConfig(k=4, ell=8, cg_tol=1e-3, cg_maxiter=50, init_damping=10.0), 10
+# steps, recycled and cold); then one step at qwen1.5-0.5b's full widths
+# with its depth cut to `full_layers`.
+HF_LM = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 32, "steps": 10, "full_layers": 4,
+         "settings": {"k": 4, "ell": 8, "cg_tol": 1e-3, "cg_maxiter": 50, "init_damping": 10.0}}
+HF_LM_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "self_gram",
+                      "recombine_blocks")
+HF_LM_PATH_ARMS = ("flash_attention:lse", "flash_attention:bwd", "flash_attention:jvp")
 # K10 (b, l, h, p, g, n, chunk): SSD_CASES and mamba2-1.3b's prefill.
 SSD_MAIN = (4, 4096, 64, 64, 1, 128, 128)
 SSD_CHECK = ((1, 64, 2, 16, 1, 16, 32), (2, 100, 4, 8, 2, 24, 32), (1, 37, 2, 4, 2, 8, 16),
@@ -404,6 +470,12 @@ REPLACES = {
 SOURCES = dict.fromkeys(REPLACES, "src/repro_torch/csrc/cg_fused.cu")
 SOURCES["rbf_matvec"] = SOURCES["rbf_matvec_rect"] = "src/repro_torch/csrc/rbf_matvec.cu"
 SOURCES["flash_attention"] = "src/repro_torch/csrc/flash_attention.cu"
+# K9's backward and forward-mode arms: kernels of their own in K9's source,
+# each an arm of the TPU kernel's function (whose derivative the reference
+# takes by autodiff of its chunked lowering).
+for _arm in ("flash_attention_bwd", "flash_attention_jvp"):
+    REPLACES[_arm] = REPLACES["flash_attention"]
+    SOURCES[_arm] = SOURCES["flash_attention"]
 SOURCES["ssd_scan"] = "src/repro_torch/csrc/ssd_scan.cu"
 DENSE_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "self_gram",
                       "recombine_blocks")
@@ -419,13 +491,15 @@ CHAOS_PATH_KERNELS = MF_PATH_KERNELS
 # solver tol and its subsets m = n / div.
 FIG3 = {"tol": 1e-8, "maxiter": 800}
 FIG4 = {"newton_tol": 1e-3, "solver_tol": 1e-8, "subset_divs": (16, 8, 4, 2)}
-# benchmarks/chaos_bench.py's sequence: 4 drifting H½ systems over the
+# benchmarks/chaos_bench.py's sequence at the cut n = 16 384 (the phase runs
+# it five times over K3: 153 s at n = 36 551, so cut to make room for the
+# training phases): 4 drifting H½ systems over the
 # matrix-free K3 operator, def-CG(8, 12), tol 1e-5, maxiter 400; system 1
 # poisoned with NaN; checkpoints every 2 systems; P9's stale refresh at tol
 # 1e-10; one Jacobi-preconditioned solve with the stall detector armed
 # (window 10) on system 0's operator with every product perturbed by 1e-3
 # (tests/test_faults.py's stagnation case).
-CHAOS = {"num": 4, "tol": 1e-5, "maxiter": 400, "poisoned": 1, "chunk": 2,
+CHAOS = {"n": CUT_N, "num": 4, "tol": 1e-5, "maxiter": 400, "poisoned": 1, "chunk": 2,
          "stale_tol": 1e-10, "window": 10, "stall_poison": 1e-3, "stall_tol": 1e-12}
 # The lane axis of K1's, K6's and K2's step arms: lanes checked against the
 # one-lane arm (main's n, k = 8 and 0) and timed.
@@ -440,7 +514,8 @@ STRATEGY_PATH_KERNELS = DENSE_PATH_KERNELS + ("fused_rz_reduce",)
 # def-CG(8, 12), tol 1e-5, maxiter 200, against B sequential solves; one
 # matrix-free batch over K3 (r = 8) and one pool step with half the slots
 # idle.
-BATCH = {"sizes": (1, 8, 64), "tol": 1e-5, "maxiter": 200, "mf_lanes": 8, "pool": 8}
+BATCH = {"sizes": (1, 8, 64), "tol": 1e-5, "maxiter": 200, "mf_lanes": 8, "pool": 8,
+         "loop_lanes": 16}  # B = 64's sequential loop: its first 16 tenants, timed × 4
 BATCH_PATH_KERNELS = DENSE_PATH_KERNELS + ("rbf_matvec", "fused_rz_reduce")
 # K7's step arm on the lane axis: main-lsq's n, B = 1, 8, 64, and armed with
 # the stall detector (this window) at B = 8.
@@ -2592,6 +2667,455 @@ def phase_lm(torch, peaks, report, device="cuda"):
     return phase_timing_lm(torch, peaks, worst, device), launches
 
 
+def _rel_err(torch, got, want):
+    """Max abs error over the plain version's max abs."""
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+def grad_inputs(torch, case, dtype, seed, device="cuda"):
+    """q, k, v and an output cotangent and input tangents for ``case``."""
+    b, h, hkv, sq, sk, dh, _ = case
+    g = torch.Generator(device=device).manual_seed(seed)
+    shapes = ((b, h, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh), (b, h, sq, dh),
+              (b, h, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh))
+    return tuple(torch.randn(*s, generator=g, device=device).to(dtype) for s in shapes)
+
+
+def grad_work(b, h, hkv, sq, sk, dh, causal, itemsize, arm):
+    """(bytes, operations) of one call of K9's ``arm``: every input read once
+    and every output written once (the f32 lse 4 bytes a row); the
+    forward's flops for ``lse``, 2.5 times them (five products of its size)
+    for ``bwd`` and ``jvp``."""
+    q_el, kv_el, rows = b * h * sq * dh, b * hkv * sk * dh, b * h * sq
+    nbytes, ops = attn_work(b, h, hkv, sq, sk, dh, causal, itemsize)
+    if arm == "lse":
+        return nbytes + 4 * rows, ops
+    if arm == "bwd":  # q, k, v, o, dO, lse in; dq, dk, dv out
+        return (3 * q_el + 2 * kv_el) * itemsize * 2 + 4 * rows, 2.5 * ops
+    # jvp: q, k, v, o, q', k', v', lse in; o' out
+    return (5 * q_el + 4 * kv_el) * itemsize + 4 * rows, 2.5 * ops
+
+
+def phase_check_lm_grad(torch, peaks, device="cuda"):
+    """K9's forward-with-lse, backward and forward-mode arms against their
+    plain versions on the card (the lse arm's output bit for bit the serving
+    arm's; each arm twice, bit for bit), then timed at qwen1.5-0.5b's
+    training shape in bf16 beside the plain versions, the library call
+    (SDPA's forward for lse, its backward for bwd, none for jvp) and the
+    bound.  Returns the three arms' kernel entries."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    worst = {"lse": 0.0, "bwd": 0.0, "jvp": 0.0}
+    checks = [(c, d) for c in GRAD_CHECK for d in (torch.float32, torch.bfloat16)]
+    checks += [(ATTN_TRAIN, torch.bfloat16), (ATTN_HF, torch.float32)]
+    for case, dtype in checks:
+        dname = str(dtype).split(".")[-1]
+        bar = GRAD_BAR[dname]
+        causal = case[-1]
+        q, k, v, dout, tq, tk, tv = grad_inputs(torch, case, dtype, seed=sum(case[:6]),
+                                                device=device)
+        out, lse = fa.flash_attention_lse_cuda(q, k, v, causal=causal)
+        out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, causal=causal)
+        grads = fa.flash_attention_bwd_cuda(dout, q, k, v, out_p, lse_p, causal=causal)
+        grads_p = fa.flash_attention_bwd_plain(dout, q, k, v, out_p, lse_p, causal=causal)
+        tout = fa.flash_attention_jvp_cuda(q, k, v, out_p, lse_p, tq, tk, tv, causal=causal)
+        tout_p = fa.flash_attention_jvp_plain(q, k, v, out_p, lse_p, tq, tk, tv, causal=causal)
+        _sync(torch, device)
+        what = f"[check-lm-grad] flash_attention {case} {dname}"
+        errs = {"out": _rel_err(torch, out, out_p), "lse": _rel_err(torch, lse, lse_p),
+                "dq": _rel_err(torch, grads[0], grads_p[0]),
+                "dk": _rel_err(torch, grads[1], grads_p[1]),
+                "dv": _rel_err(torch, grads[2], grads_p[2]), "jvp": _rel_err(torch, tout, tout_p)}
+        bars = dict.fromkeys(errs, bar, ) | {"lse": GRAD_BAR["float32"]}
+        bad = [key for key, e in errs.items() if not e <= bars[key]]
+        if bad or not all(bool(torch.isfinite(t).all()) for t in (*grads, tout, lse)):
+            raise AssertionError(f"{what}: past the bars {bars}: {errs}")
+        same = (torch.equal(out, fa.flash_attention_cuda(q, k, v, causal=causal))
+                and torch.equal(lse, fa.flash_attention_lse_cuda(q, k, v, causal=causal)[1])
+                and all(torch.equal(a, b) for a, b in zip(grads, fa.flash_attention_bwd_cuda(
+                    dout, q, k, v, out_p, lse_p, causal=causal)))
+                and torch.equal(tout, fa.flash_attention_jvp_cuda(q, k, v, out_p, lse_p, tq, tk,
+                                                                  tv, causal=causal)))
+        if not same:
+            raise AssertionError(f"{what}: two launches differ, or the lse arm's output is not "
+                                 "the serving arm's")
+        log(f"{what}: errors / plain max abs " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+            + f" (bar {bar:g}, lse {GRAD_BAR['float32']:g}); serving arm's output bit for bit, "
+            "two launches of each arm bitwise equal")
+        if case == ATTN_TRAIN:
+            worst["lse"] = float((lse - lse_p).abs().max())
+            worst["bwd"] = max(float((g - w).float().abs().max()) for g, w in zip(grads, grads_p))
+            worst["jvp"] = float((tout - tout_p).float().abs().max())
+        del q, k, v, dout, tq, tk, tv, out, lse, out_p, lse_p, grads, grads_p, tout, tout_p
+
+    # Timing at the training shape, bf16.
+    b, h, hkv, sq, sk, dh, causal = ATTN_TRAIN
+    q, k, v, dout, tq, tk, tv = grad_inputs(torch, ATTN_TRAIN, torch.bfloat16, seed=2,
+                                            device=device)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, causal=causal)
+    qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        return torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), dout)
+
+    sdpa_f = device_ms(torch, sdpa_fwd)
+    calls = {
+        "lse": (lambda: fa.flash_attention_lse_cuda(q, k, v, causal=causal),
+                lambda: fa.flash_attention_lse_plain(q, k, v, causal=causal), sdpa_f),
+        "bwd": (lambda: fa.flash_attention_bwd_cuda(dout, q, k, v, out, lse, causal=causal),
+                lambda: fa.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=causal),
+                device_ms(torch, sdpa_fwd_bwd) - sdpa_f),
+        "jvp": (lambda: fa.flash_attention_jvp_cuda(q, k, v, out, lse, tq, tk, tv, causal=causal),
+                lambda: fa.flash_attention_jvp_plain(q, k, v, out, lse, tq, tk, tv,
+                                                     causal=causal), None),
+    }
+    entries = {}
+    for arm, (kernel, plain, library) in calls.items():
+        nbytes, ops = grad_work(b, h, hkv, sq, sk, dh, causal, 2, arm)
+        t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["bfloat16_tensor"]
+        e = entries[arm] = {
+            "shape": ATTN_TRAIN, "max_abs_err": worst[arm], "ms": device_ms(torch, kernel),
+            "plain_ms": device_ms(torch, plain, 5), "library_ms": library,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        }
+        e["tflop_s"] = ops / e["ms"] / 1e9
+        lib = "null (no PyTorch call computes the tangent)" if library is None else (
+            f"{library:.3f} ms (scaled_dot_product_attention's "
+            f"{'forward' if arm == 'lse' else 'backward, its forward subtracted'})")
+        log(f"[timing] flash_attention:{arm} {ATTN_TRAIN} bf16: kernel {e['ms']:.3f} ms "
+            f"({e['tflop_s']:.1f} TFLOP/s), plain {e['plain_ms']:.3f} ms, library {lib}, bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
+    return entries
+
+
+def lm_hf_functions(torch, cfg, backend):
+    """``(model_fn, loss_fn)`` of examples/hessian_free_lm.py over the port:
+    the LM's logits ``hidden @ lm_head_weights`` run on a parameter dict
+    through ``torch.func.functional_call``, and the example's mean
+    cross-entropy."""
+    from repro_torch import models
+    from repro_torch.models.layers import lm_head_weights
+
+    skeleton = models.transformer.Model(None, cfg, "meta")
+
+    def logits(model, batch):
+        hidden, _ = models.forward_hidden(model, batch, cfg, backend=backend)
+        return hidden @ lm_head_weights(model.embed, cfg)
+
+    def model_fn(p, batch):
+        return torch.func.functional_call(skeleton, p, (logits, batch))
+
+    def loss_fn(lg, batch):
+        labels = batch["labels"]
+        lse = torch.logsumexp(lg, dim=-1)
+        return torch.mean(lse - lg.gather(-1, labels[..., None])[..., 0])
+
+    return model_fn, loss_fn
+
+
+def hf_lm_run(torch, cfg, params, steps, recycle, backend, device, tag):
+    """The example's loop: ``steps`` Hessian-free steps from ``params``;
+    per step the loss, CG iterations, damping, accept and seconds."""
+    from repro_torch.convert import train_batch_from_numpy
+    from repro_torch.data import TokenPipeline
+    from repro_torch.optim import HFConfig, hf_init, hf_step, softmax_xent_hvp
+
+    model_fn, loss_fn = lm_hf_functions(torch, cfg, backend)
+    hcfg = HFConfig(**HF_LM["settings"], recycle=recycle)
+    state = hf_init(params, hcfg, torch.Generator(device=device).manual_seed(1))
+    pipe = TokenPipeline(vocab_size=cfg.vocab_size, batch=HF_LM["batch"], seq_len=HF_LM["seq"])
+    rows = []
+    for i in range(steps):
+        batch = train_batch_from_numpy(pipe.make_batch(i), device=device)
+        (params, state, m), sec = _timed(torch, device, lambda: hf_step(
+            params, state, batch, model_fn=model_fn, loss_fn=loss_fn,
+            loss_hvp=softmax_xent_hvp, cfg=hcfg))
+        rows.append({"loss": float(m["loss"]), "cg_iters": int(m["cg_iterations"]),
+                     "damping": float(m["damping"]), "accepted": bool(m["accepted"]), "s": sec})
+        log(f"{tag} step {i:3d} loss {rows[-1]['loss']:.4f} cg_iters {rows[-1]['cg_iters']:3d} "
+            f"damping {rows[-1]['damping']:.2e} accepted {rows[-1]['accepted']} "
+            f"({1e3 * sec:.0f} ms)")
+    return rows, params, state
+
+
+def phase_hf_lm(torch, device="cuda"):
+    """examples/hessian_free_lm.py on the port: its 10 steps, recycled and
+    cold, through the kernels (K9's lse, backward and forward-mode arms
+    inside the GGN products; K1, K2, K4, K5 inside def-CG), held against
+    the same runs with ``backend="plain"`` on the card (iterations within
+    one a step, ROADMAP P1; loss to 1e-4); then one step at qwen1.5-0.5b's
+    full widths, depth cut to ``HF_LM["full_layers"]``.  Returns (report,
+    launches and arms of the kernel runs)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.convert import train_batch_from_numpy
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _runtime
+    from repro_torch.launch import params_dict
+    from repro_torch.optim import HFConfig, hf_init, hf_step, softmax_xent_hvp
+
+    cfg = get_smoke_config(HF_LM["arch"])
+    params = params_dict(models.init(torch.Generator(device=device).manual_seed(0), cfg,
+                                     device=device))
+    report = {"arch": cfg.name, "batch": HF_LM["batch"], "seq": HF_LM["seq"],
+              "settings": HF_LM["settings"]}
+    _zero_counts()
+    for mode, recycle in (("recycled", True), ("cold", False)):
+        report[mode] = {"card": hf_lm_run(torch, cfg, params, HF_LM["steps"], recycle, "auto",
+                                          device, f"[hf-lm {mode}]")[0]}
+    launches, arms = dict(_runtime.LAUNCHES), _arms()
+    plain_on_cuda = dict(_runtime.PLAIN_ON_CUDA)
+    for mode, recycle in (("recycled", True), ("cold", False)):
+        plain = hf_lm_run(torch, cfg, params, HF_LM["steps"], recycle, "plain", device,
+                          f"[hf-lm {mode} plain]")[0]
+        card = report[mode]["card"]
+        report[mode]["plain"] = plain
+        for i, (c, p) in enumerate(zip(card, plain)):
+            if abs(c["cg_iters"] - p["cg_iters"]) > 1 or abs(c["loss"] - p["loss"]) > 1e-4 * abs(
+                    p["loss"]):
+                raise AssertionError(f"[hf-lm {mode}] step {i}: card {c} vs plain {p}")
+        report[mode]["total_cg_iters"] = sum(r["cg_iters"] for r in card)
+        report[mode]["s_per_step"] = statistics.median(r["s"] for r in card[1:])
+    # One more recycled step under the profiler, counted apart: the device
+    # work against the host's (linearize traces the model every step).
+    model_fn, loss_fn = lm_hf_functions(torch, cfg, "auto")
+    hcfg = HFConfig(**HF_LM["settings"])
+    state = hf_init(params, hcfg, torch.Generator(device=device).manual_seed(1))
+    batch = train_batch_from_numpy(TokenPipeline(cfg.vocab_size, HF_LM["batch"], HF_LM["seq"])
+                                   .make_batch(0), device=device)
+    prof = report["profile_recycled_step"] = profile_serving(torch, lambda: hf_step(
+        params, state, batch, model_fn=model_fn, loss_fn=loss_fn, loss_hvp=softmax_xent_hvp,
+        cfg=hcfg), "attn", device)
+    log(f"[hf-lm] profile of one recycled step: device {prof['device_ms']:.1f} ms in "
+        f"{prof['wall_ms_profiled']:.1f} ms wall, {prof['launches']} device launches, K9 "
+        f"{prof['kernel_ms']:.2f} ms")
+    rec, cold = report["recycled"]["total_cg_iters"], report["cold"]["total_cg_iters"]
+    log(f"[hf-lm] CG iterations over {HF_LM['steps']} steps: recycled def-CG {rec}, cold CG "
+        f"{cold} ({1 - rec / cold:.1%} fewer); card against plain: every step within one "
+        f"iteration and 1e-4 in loss; median s a step {report['recycled']['s_per_step']:.3f} / "
+        f"{report['cold']['s_per_step']:.3f}")
+
+    # One step at full widths, depth cut so that the solver's vectors fit.
+    full = dataclasses.replace(get_config(HF_LM["arch"]), n_layers=HF_LM["full_layers"])
+    torch.cuda.reset_peak_memory_stats()
+    fparams = params_dict(models.init(torch.Generator(device=device).manual_seed(0), full,
+                                      device=device))
+    n = sum(t.numel() for t in fparams.values())
+    k, ell = HF_LM["settings"]["k"], HF_LM["settings"]["ell"]
+    # Parameter-sized f32 vectors live at the extraction, the step's peak:
+    # parameters, their flat copies (step, operator), gradients (tree and
+    # flat), b, x0, the previous step (8 with x); W, AW (2k); the window P,
+    # AP (2ell); the stack [W, P; AW, AP] (2(k + ell)); K5's [W'; AW'] and
+    # their rescaled copies (4k); r, p, Ap (3).
+    vectors = 11 + 8 * k + 4 * ell
+    full_n = get_config(HF_LM["arch"]).total_params()
+    rows, _, _ = hf_lm_run(torch, full, fparams, 1, True, "auto", device,
+                           f"[hf-lm full width, {HF_LM['full_layers']} layers]")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    report["full_width"] = {
+        "layers": HF_LM["full_layers"], "params": n, "step": rows[0], "peak_memory_gb": peak,
+        "reckoned_vectors": vectors, "gb_per_vector": 4 * n / 1e9,
+        "reckoned_gb": vectors * 4 * n / 1e9, "full_depth_params": full_n,
+        "full_depth_reckoned_gb": vectors * 4 * full_n / 1e9,
+    }
+    fw = report["full_width"]
+    log(f"[hf-lm full width] {full.name} d {full.d_model}, vocab {full.vocab_size}, "
+        f"{full.dtype} compute, f32 vectors; depth cut 24 -> {fw['layers']} layers: n = {n} "
+        f"parameters, {fw['gb_per_vector']:.2f} GB a vector; reckoned {vectors} vectors x "
+        f"{fw['gb_per_vector']:.2f} GB = {fw['reckoned_gb']:.1f} GB (at 24 layers "
+        f"{fw['full_depth_reckoned_gb']:.1f} GB, past the card's 80); measured peak "
+        f"{peak:.1f} GB; one step {rows[0]['s']:.2f} s, {rows[0]['cg_iters']} CG iterations")
+    del fparams
+    torch.cuda.empty_cache()
+    report.update(launches=launches, arms=arms, plain_on_cuda=plain_on_cuda)
+    return report
+
+
+def phase_train(torch, peaks, device="cuda"):
+    """qwen1.5-0.5b at full width through ``launch.train.build`` and the
+    ``Trainer``: (i) one step's loss and gradients through the kernels
+    against ``backend="plain"`` on the card (loss 1e-2 relative, every
+    leaf's gradient 5e-2 in relative norm); (ii) 6 steps with checkpoints
+    every 3, then the same with a failure injected at step 4: the replay's
+    final state bit for bit the uninterrupted run's; (iii) step time,
+    tokens/s, peak memory, K9 launches a step and MFU.  Returns (report,
+    launches and arms of the uninterrupted run)."""
+    import shutil
+    import tempfile
+
+    from repro_torch.configs.registry import ShapeSpec
+    from repro_torch.core import pytree as pt
+    from repro_torch.kernels import _runtime
+    from repro_torch.launch import loss_and_grads, model_flops
+    from repro_torch.launch import train as train_lib
+    from repro_torch.runtime import Trainer, TrainerConfig
+
+    spec = TRAIN
+    (cfg, mesh, state0, pipe, step_fn), init_s = _timed(torch, device, lambda: train_lib.build(
+        spec["arch"], "full", spec["batch"], spec["seq"], spec["lr"], device))
+    params = state0[0]
+    n_params = sum(t.numel() for t in params.values())
+    report = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size, "params": n_params, "batch": spec["batch"],
+              "seq": spec["seq"], "init_s": init_s}
+    log(f"[train] {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
+        f"{n_params / 1e6:.1f} M parameters ({cfg.param_dtype}), {cfg.dtype} compute; batch "
+        f"{spec['batch']} x {spec['seq']}; mesh {mesh.axes}; built in {init_s:.1f} s")
+
+    # (i) one step's loss and gradients: kernels against plain versions.
+    batch = pipe.make_batch(0)
+    (loss_c, _, grads_c), sec_c = _timed(torch, device, lambda: loss_and_grads(cfg, params, batch))
+    (loss_p, _, grads_p), sec_p = _timed(torch, device, lambda: loss_and_grads(
+        cfg, params, batch, backend="plain"))
+    rel = {name: float(torch.linalg.vector_norm((grads_c[name] - grads_p[name]).float())
+                       / torch.linalg.vector_norm(grads_p[name].float())) for name in grads_p}
+    loss_rel = abs(float(loss_c) - float(loss_p)) / abs(float(loss_p))
+    worst = max(rel, key=rel.get)
+    log(f"[train] (i) loss {float(loss_c):.6f} through the kernels, {float(loss_p):.6f} plain "
+        f"(rel {loss_rel:.2e}, bar 1e-2); gradients: worst leaf {worst} at {rel[worst]:.2e} in "
+        f"relative norm (bar 5e-2), median {statistics.median(rel.values()):.2e}; "
+        f"{sec_c:.2f} s vs {sec_p:.2f} s plain")
+    if not (loss_rel <= 1e-2 and rel[worst] <= 5e-2):
+        raise AssertionError(f"[train] (i) kernels against plain versions past the bars")
+    del grads_p
+    # Determinism: the same step again, leaf by leaf bit for bit.
+    _, _, grads_again = loss_and_grads(cfg, params, batch)
+    moved = sorted(name for name in grads_c if not torch.equal(grads_c[name], grads_again[name]))
+    log(f"[train] the same gradients again: {len(grads_c) - len(moved)} of {len(grads_c)} leaves "
+        f"bit for bit" + (f"; differing: {moved}" if moved else ""))
+    report.update(loss_kernels=float(loss_c), loss_plain=float(loss_p), loss_rel=loss_rel,
+                  grad_rel_norm=rel, grads_nondeterministic=moved, grad_s=sec_c,
+                  grad_plain_s=sec_p)
+    del grads_c, grads_again
+    torch.cuda.empty_cache()
+
+    # (ii) the Trainer, uninterrupted and with a failure at step 4.
+    root = tempfile.mkdtemp(prefix="train_ckpt_")
+    runs = {}
+    try:
+        for label, fault_at in (("uninterrupted", None), ("faulted", spec["fault_at"])):
+            fails = {fault_at} if fault_at is not None else set()
+
+            def fault_hook(step):
+                if step in fails:
+                    fails.discard(step)
+                    raise RuntimeError("injected device failure")
+
+            losses = []
+
+            def logging_step(state, batch):
+                state, metrics = step_fn(state, batch)
+                losses.append(float(metrics["loss"]))
+                return state, metrics
+
+            cfg_t = TrainerConfig(total_steps=spec["steps"], checkpoint_every=spec["every"],
+                                  checkpoint_dir=os.path.join(root, label), keep_checkpoints=1)
+            trainer = Trainer(logging_step, pipe.make_batch, state0, cfg_t, device=device,
+                              fault_hook=fault_hook)
+            torch.cuda.reset_peak_memory_stats()
+            _zero_counts()
+            out, wall = _timed(torch, device, trainer.run)
+            runs[label] = {"out": out, "wall_s": wall, "losses": losses,
+                           "launches": dict(_runtime.LAUNCHES), "arms": _arms(),
+                           "plain_on_cuda": dict(_runtime.PLAIN_ON_CUDA),
+                           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+            ev = out["events"]
+            log(f"[train] (ii) {label}: {out['final_step']} steps in {wall:.1f} s, restarts "
+                f"{ev.restarts}, losses " + " ".join(f"{x:.4f}" for x in losses)
+                + f"; step s " + " ".join(f"{t:.3f}" for t in ev.step_times))
+            shutil.rmtree(os.path.join(root, label), ignore_errors=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ref, rep = runs["uninterrupted"], runs["faulted"]
+    ref_leaves = pt.tree_leaves(ref["out"]["state"])
+    rep_leaves = pt.tree_leaves(rep["out"]["state"])
+    same = len(ref_leaves) == len(rep_leaves) and all(
+        torch.equal(a, b) for a, b in zip(ref_leaves, rep_leaves))
+    final_rel = abs(ref["losses"][-1] - rep["losses"][-1]) / abs(ref["losses"][-1])
+    log(f"[train] (ii) the replay's final parameters and Adam state "
+        + ("equal the uninterrupted run's bit for bit" if same else
+           f"differ from the uninterrupted run's; final loss rel {final_rel:.2e}"))
+    if rep["out"]["events"].restarts != 1 or rep["out"]["final_step"] != spec["steps"]:
+        raise AssertionError("[train] (ii) the faulted run did not restart once and finish")
+    if not same and (moved == [] or final_rel > 1e-3):
+        raise AssertionError("[train] (ii) the replay differs from the uninterrupted run")
+
+    # (iii) step time, tokens/s, memory, launches a step, MFU.
+    times = ref["out"]["events"].step_times
+    step_s = statistics.median(times[1:])
+    tokens = spec["batch"] * spec["seq"]
+    flops = model_flops(cfg, ShapeSpec("train", spec["seq"], spec["batch"], "train"))
+    arms = ref["arms"]
+    per_step = {arm: arms.get(arm, 0) / spec["steps"] for arm in TRAIN_PATH_ARMS}
+    report.update(
+        step_ms=[1e3 * t for t in times], median_step_ms=1e3 * step_s,
+        tokens_per_s=tokens / step_s, peak_memory_gb=ref["peak_memory_gb"],
+        k9_launches_per_step=per_step, model_flops=flops,
+        mfu=flops / step_s / peaks["bfloat16_tensor"], replay_bit_for_bit=same,
+        final_loss_rel=final_rel, losses={k: r["losses"] for k, r in runs.items()},
+        trainer_wall_s={k: r["wall_s"] for k, r in runs.items()},
+        launches=ref["launches"], arms=arms, plain_on_cuda=ref["plain_on_cuda"])
+    log(f"[train] (iii) median step {1e3 * step_s:.1f} ms (steps after the first), "
+        f"{tokens / step_s:.0f} tokens/s, peak memory {ref['peak_memory_gb']:.1f} GB, K9 launches "
+        f"a step {per_step} (24 forward, 24 backward expected), MFU {report['mfu']:.1%} "
+        f"(6·N·tokens = {flops / 1e12:.1f} TFLOP a step against {peaks['bfloat16_tensor'] / 1e12:.0f} "
+        f"TFLOP/s bf16)")
+    if per_step != {"flash_attention:lse": cfg.n_layers, "flash_attention:bwd": cfg.n_layers}:
+        raise AssertionError(f"[train] K9 launches a step {per_step}")
+    # Where a step's time goes: torch.profiler over one more step, counted
+    # apart (K9's kernels carry "attn" or "flash_attention" in their names).
+    prof = profile_serving(torch, lambda: step_fn(state0, batch), "attn", device)
+    report["profile_step"] = prof
+    share = lambda v: "not measured" if v is None else f"{v:.1%}"  # noqa: E731
+    log(f"[train] profile of one step: device {prof['device_ms']:.1f} ms in "
+        f"{prof['wall_ms_profiled']:.1f} ms wall (idle {share(prof['device_idle_share'])}), K9 "
+        f"{prof['kernel_ms']:.1f} ms ({share(prof['kernel_share_of_device'])}), "
+        f"{prof['launches']} device launches; top: "
+        + "; ".join(f"{o['name']} {o['ms']:.2f} ms x{o['calls']}" for o in prof["top_ops"]))
+    return report
+
+
+def phase_training(torch, peaks, report, device="cuda"):
+    """check-lm-grad, train and hf-lm.  Each main path runs with the counts
+    set to 0 just before it and read just after; its kernels and arms must
+    have launched and no plain version may have run on the card.  Returns
+    (the kernel entries of K9's backward and forward-mode arms and of its
+    lse arm, {path: launches}, {path: arms}), with each path's K9 count
+    split: ``flash_attention`` its forward arms, ``flash_attention_bwd`` /
+    ``_jvp`` the other two."""
+    entries = phase_check_lm_grad(torch, peaks, device)
+    report["check_lm_grad"] = entries
+    _lap(report, "check-lm-grad")
+    report["train"] = phase_train(torch, peaks, device)
+    _lap(report, "train")
+    report["hf_lm"] = phase_hf_lm(torch, device)
+    _lap(report, "hf-lm")
+    launches, arms = {}, {}
+    for key, need_k, need_a in (("train", (), TRAIN_PATH_ARMS),
+                                ("hf_lm", HF_LM_PATH_KERNELS, HF_LM_PATH_ARMS)):
+        r = report[key]
+        if not all(r["launches"][k] for k in need_k) or not all(r["arms"].get(a) for a in need_a):
+            raise AssertionError(f"[{key}] a kernel or arm never launched: {r['launches']}, "
+                                 f"{r['arms']}")
+        if any(r["plain_on_cuda"].values()):
+            raise AssertionError(f"[{key}] plain versions ran on the card: {r['plain_on_cuda']}")
+        split = dict(r["launches"])
+        for arm in ("bwd", "jvp"):
+            n = r["arms"].get(f"flash_attention:{arm}", 0)
+            split[f"flash_attention_{arm}"] = n
+            split["flash_attention"] -= n
+        launches[key], arms[key] = split, r["arms"]
+        log(f"[{key}] launches {r['launches']}; arms {r['arms']}; plain versions on the card "
+            f"{r['plain_on_cuda']}")
+    return entries, launches, arms
+
+
 def fig3_slope(trace) -> float:
     """``benchmarks/paper_fig23.py``'s mean log10-residual slope per
     iteration of one recorded residual history."""
@@ -3133,21 +3657,25 @@ def phase_batch(torch, x, k_dense, cf, device="cuda"):
         before = dict(cf.LAUNCHES)
         batch, t_batch = timed(lambda: solve_batch(KernelSystemOperator(kmv, shs), bs, spec))
         launched = {k: cf.LAUNCHES[k] - before[k] for k in before}
-        singles, t_loop = timed(lambda: [solve(KernelSystemOperator(kmv, shs[i]), bs[i], spec)
-                                         for i in range(lanes)])
+        looped = min(lanes, BATCH["loop_lanes"])  # the loop's tenants, timed and scaled
+        singles, t_looped = timed(lambda: [solve(KernelSystemOperator(kmv, shs[i]), bs[i], spec)
+                                           for i in range(looped)])
+        t_loop = t_looped * lanes / looped
         its_b = [int(v) for v in batch.info.iterations.tolist()]
         its_s = [int(r.info.iterations) for r in singles]
         diff = [a - b for a, b in zip(its_b, its_s)]
         xerr = max(float(torch.linalg.norm(batch.x[i] - singles[i].x)
-                         / torch.linalg.norm(singles[i].x)) for i in range(lanes))
+                         / torch.linalg.norm(singles[i].x)) for i in range(looped))
         entry = {"iterations": its_b, "sequential_iterations": its_s,
                  "iteration_differences": diff, "batch_s": t_batch, "loop_s": t_loop,
+                 "looped_tenants": looped, "looped_s": t_looped,
                  "speedup": t_loop / t_batch, "x_rel_diff": xerr, "launches": launched,
                  "step_launches_per_iteration": launched["fused_cg_update"] / max(its_b)}
         out[f"B={lanes}"] = entry
+        scaled = f" (its first {looped} tenants, x{lanes / looped:g})" if looped < lanes else ""
         log(f"[batch] B={lanes}: iterations {its_b[:8]}{'…' if lanes > 8 else ''} (sequential "
-            f"differ by {sorted(set(diff))}), batch {t_batch:.3f} s vs loop {t_loop:.3f} s "
-            f"({t_loop / t_batch:.1f}x), x within {xerr:.1e}, K1 launches per batched "
+            f"differ by {sorted(set(diff))}), batch {t_batch:.3f} s vs loop {t_loop:.3f} s"
+            f"{scaled} ({t_loop / t_batch:.1f}x), x within {xerr:.1e}, K1 launches per batched "
             f"iteration {entry['step_launches_per_iteration']:.2f}")
         # A lane's pᵀAp and the (n, B) product sum in another order than a
         # sequential solve's dot and GEMV; at ~185 iterations that moves a
@@ -3538,6 +4066,23 @@ def kernel_entry(name, entry, launches, arms=None):
     return out
 
 
+_CLOCK = [time.perf_counter()]
+
+
+def _lap(report, name):
+    """Wall seconds since the previous lap, under ``report["phase_s"]``."""
+    now = time.perf_counter()
+    report.setdefault("phase_s", {})[name] = now - _CLOCK[0]
+    _CLOCK[0] = now
+
+
+def _write_report(report):
+    """The full report, ``chiprun_out/chip_smoke.json`` beside the script."""
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
+        json.dump(report, fh, indent=1, default=str)
+
+
 def frozen_steps(iterations, ell, chunk):
     """Masked steps the harness runs past convergence (host reads every
     ``chunk`` steps after the ``ell`` recording steps)."""
@@ -3580,6 +4125,7 @@ def main(argv) -> int:
     logs = _build.build(sources)
     report["build_s"] = time.perf_counter() - t0
     log(f"[build] {sources} in {report['build_s']:.1f} s")
+    _lap(report, "build")
     for src, text in logs.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line and "0 bytes spill" not in line:
@@ -3590,6 +4136,16 @@ def main(argv) -> int:
         totals = {k: sum(launches[k] for launches in lm_launches.values()) for k in lm_kernels}
         log(json.dumps({"kernels": [kernel_entry(k, e, totals[k])
                                     for k, e in lm_kernels.items()]}))
+        return 0
+    if "--train-only" in argv:  # K9's grad arms, train and hf-lm alone: no ok line
+        grad_k, tr_launches, tr_arms = phase_training(torch, peaks, report)
+        names = HF_LM_PATH_KERNELS + ("flash_attention", "flash_attention_bwd",
+                                      "flash_attention_jvp")
+        totals = {k: sum(path[k] for path in tr_launches.values()) for k in names}
+        entries = {"flash_attention": grad_k["lse"], "flash_attention_bwd": grad_k["bwd"],
+                   "flash_attention_jvp": grad_k["jvp"]}
+        _write_report(report)
+        log(json.dumps({"kernels": [kernel_entry(k, e, totals[k]) for k, e in entries.items()]}))
         return 0
 
     # -- 3. kernels ---------------------------------------------------------
@@ -3611,6 +4167,7 @@ def main(argv) -> int:
                          v for k, v in steps[name].items() if "float64" in k]))
     kernels["step_timings"] = steps["timings"]
     report["lanes"] = phase_lane_kernels(torch, cf, rbf, kernels)
+    _lap(report, "kernels")
 
     # -- 4. small check: card against CPU ------------------------------------
     xs, ys = make_infinite_digits(400, seed=1, noise=0.10)
@@ -3647,6 +4204,7 @@ def main(argv) -> int:
     if not (run["launches"]["rbf_matvec"] and run["launches"]["fused_rz_reduce"]):
         raise AssertionError(f"[check-mf] kernels not launched: {run['launches']}")
     report["check_mf"] = small_mf
+    _lap(report, "check")
 
     # -- 5. main path -------------------------------------------------------
     t0 = time.perf_counter()
@@ -3755,6 +4313,7 @@ def main(argv) -> int:
     log(f"[main] RBF Gram matvec f64 r=1: {rbf_k['ms']:.2f} ms against the dense GEMV "
         f"K @ v {gemv_ms:.4f} ms ({rbf_k['ms'] / gemv_ms:.0f}x)")
     chol_logp = runs["cholesky"]["logp"]
+    _lap(report, "main")
 
     # -- 5b. paper: the paper's experiments on the main path's data ---------
     _zero_counts()
@@ -3768,6 +4327,7 @@ def main(argv) -> int:
         raise AssertionError(f"[paper] a kernel never launched: {paper_launches}")
     if any(paper_plain.values()):
         raise AssertionError(f"[paper] plain versions ran on the card: {paper_plain}")
+    _lap(report, "paper")
 
     # -- 5c. strategies: seq_bench's strategy matrix on main's data ---------
     _zero_counts()
@@ -3780,6 +4340,7 @@ def main(argv) -> int:
         raise AssertionError(f"[strategies] a kernel never launched: {strat_launches}")
     if any(strat_plain.values()):
         raise AssertionError(f"[strategies] plain versions ran on the card: {strat_plain}")
+    _lap(report, "strategies")
 
     # -- 5d. batch: batch_bench's tenants on main's K --------------------------
     _zero_counts()
@@ -3797,6 +4358,7 @@ def main(argv) -> int:
         raise AssertionError(f"[batch] a kernel or lane arm never launched: {arms['batch']}")
     if any(batch_plain.values()):
         raise AssertionError(f"[batch] plain versions ran on the card: {batch_plain}")
+    _lap(report, "batch")
 
     # -- 5e. serve: serve_bench's traffic through SolveService on main's K ----
     _zero_counts()
@@ -3814,9 +4376,11 @@ def main(argv) -> int:
         raise AssertionError(f"[serve] plain versions ran on the card: {serve_plain}")
     del k_dense
     torch.cuda.empty_cache()
+    _lap(report, "serve")
 
     # -- 6. scale: past what a dense K allows --------------------------------
     report["scale"] = phase_scale(torch, rbf)
+    _lap(report, "scale")
 
     # -- 7. the matrix-free main path -----------------------------------------
     cut = rbf_k["ms"] > CUT_MS
@@ -3884,10 +4448,16 @@ def main(argv) -> int:
     report["main_mf"] = {"runs": mf, "launches": mf_launches, "plain_on_cuda": mf_plain,
                          "peak_memory_gb": mf_peak_gb, "preconditioned_n": pre_n,
                          "cut": cut, "profile": mf_prof}
+    _lap(report, "main-mf")
 
     # -- 7b. chaos: failure handling over the matrix-free K3 operator --------
+    # At the cut n (its sequence is five passes over the same four systems).
+    xch = xc if xc.shape[0] == CHAOS["n"] else torch.as_tensor(
+        make_infinite_digits(CHAOS["n"], seed=0, noise=0.10)[0], dtype=torch.float64,
+        device="cuda")
     _zero_counts()
-    report["chaos"] = phase_chaos(torch, x)
+    report["chaos"] = phase_chaos(torch, xch)
+    del xch
     chaos_launches = dict(cf.LAUNCHES)
     arms["chaos"] = _arms()
     chaos_plain = dict(cf.PLAIN_ON_CUDA)
@@ -3897,6 +4467,7 @@ def main(argv) -> int:
         raise AssertionError(f"[chaos] a kernel never launched: {chaos_launches}")
     if any(chaos_plain.values()):
         raise AssertionError(f"[chaos] plain versions ran on the card: {chaos_plain}")
+    _lap(report, "chaos")
 
     # -- 8. agreement: matrix-free against dense where both fit --------------
     # At solver tol 1e-10 the iterations must agree within one per system.
@@ -3927,9 +4498,11 @@ def main(argv) -> int:
 
     del ka, xa, ya, x, y, xc, yc
     torch.cuda.empty_cache()
+    _lap(report, "agree")
 
     # -- 9. least squares at lsq_bench's size: card against CPU --------------
     report["check_lsq"] = phase_check_lsq(torch, cf)
+    _lap(report, "check-lsq")
 
     # -- 10. the least-squares main path ----------------------------------------
     _zero_counts()
@@ -3954,6 +4527,7 @@ def main(argv) -> int:
             f"{prof['other_ms_per_iteration']:.4f} ms other per iteration; wall "
             f"{prof['wall_ms_per_iteration_profiled']:.4f} ms per iteration under the profiler")
     report["main_lsq"] = lsq
+    _lap(report, "main-lsq")
     del lsq_systems, lsq_state
     torch.cuda.empty_cache()
 
@@ -3972,6 +4546,7 @@ def main(argv) -> int:
                              f"{arms['batch_lsq']}")
     if any(lsq_batch_plain.values()):
         raise AssertionError(f"[batch-lsq] plain versions ran on the card: {lsq_batch_plain}")
+    _lap(report, "batch-lsq")
     torch.cuda.empty_cache()
 
     # -- 11. Gauss-Newton training ---------------------------------------------
@@ -3995,6 +4570,7 @@ def main(argv) -> int:
         f"{prof['launches']} device launches, device {prof['gemm_ms']:.2f} ms GEMM + "
         f"{prof['other_ms']:.2f} ms other, wall {prof['wall_ms_profiled']:.2f} ms under the "
         f"profiler (device busy {prof['device_busy_share']:.0%})")
+    _lap(report, "main-gn")
 
     torch.cuda.empty_cache()
 
@@ -4003,21 +4579,32 @@ def main(argv) -> int:
     shard_launches = report["main_shard"]["launches_summed"]
     log(f"[main-shard] launches summed over ranks {shard_launches}; K8 alone (kernels "
         f"phase) {kernels['rbf_matvec_rect']['ms']:.2f} ms per call")
+    _lap(report, "shard")
 
     # -- 14.–17. the model zoo's serving paths --------------------------------
     lm_kernels, lm_launches = phase_lm(torch, peaks, report)
     kernels.update(lm_kernels)
+    _lap(report, "lm")
 
-    totals = {name: launches[name] + paper_launches[name] + strat_launches[name]
-              + batch_launches[name] + serve_launches[name] + mf_launches[name]
-              + chaos_launches[name] + lsq_launches[name] + lsq_batch_launches[name]
-              + gn_launches[name]
-              + shard_launches[name] + sum(lm[name] for lm in lm_launches.values())
-              for name in cf.LAUNCHES}
+    # -- 18.–20. K9's differentiated arms, LM training, Hessian-free LM -----
+    grad_k, tr_launches, tr_arms = phase_training(torch, peaks, report)
+    kernels["flash_attention"]["lse_arm"] = grad_k["lse"]
+    kernels["flash_attention_bwd"], kernels["flash_attention_jvp"] = grad_k["bwd"], grad_k["jvp"]
+    lm_launches.update(tr_launches)
+
+    names = list(cf.LAUNCHES) + ["flash_attention_bwd", "flash_attention_jvp"]
+    totals = {name: launches.get(name, 0) + paper_launches.get(name, 0)
+              + strat_launches.get(name, 0) + batch_launches.get(name, 0)
+              + serve_launches.get(name, 0) + mf_launches.get(name, 0)
+              + chaos_launches.get(name, 0) + lsq_launches.get(name, 0)
+              + lsq_batch_launches.get(name, 0) + gn_launches.get(name, 0)
+              + shard_launches.get(name, 0) + sum(lm.get(name, 0) for lm in lm_launches.values())
+              for name in names}
     report["launch_totals"] = totals
     # Launches per arm over the paths run in this process (main-shard's
     # ranks are in the totals, not split by arm).
     arms.update({key: report[key]["arms"] for key in LM_PATHS})
+    arms.update(tr_arms)
     arm_totals = {}
     for path in arms.values():
         for arm, count in path.items():
@@ -4056,12 +4643,21 @@ def main(argv) -> int:
         f"chaos (n = {ch['n']}): rungs {ch['recovery']['rungs']}, extra matvecs "
         f"{ch['recovery']['extra_matvecs']}, checkpoint overhead "
         f"{ch['checkpoint']['overhead_s']:+.3f} s, stale rungs {ch['stale']['rungs']}")
+    tr, hl = report["train"], report["hf_lm"]
+    log(f"[summary] train ({tr['arch']}, {tr['batch']} x {tr['seq']}): "
+        f"{tr['median_step_ms']:.1f} ms a step, {tr['tokens_per_s']:.0f} tokens/s, MFU "
+        f"{tr['mfu']:.1%}, peak {tr['peak_memory_gb']:.1f} GB, replay bit for bit "
+        f"{tr['replay_bit_for_bit']}; hf-lm CG iterations recycled "
+        f"{hl['recycled']['total_cg_iters']}, cold {hl['cold']['total_cg_iters']}; K9 backward "
+        f"{kernels['flash_attention_bwd']['ms']:.3f} ms (SDPA's backward "
+        f"{kernels['flash_attention_bwd']['library_ms']:.3f}), forward mode "
+        f"{kernels['flash_attention_jvp']['ms']:.3f} ms at {ATTN_TRAIN}")
+    log("[summary] wall s a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                 report["phase_s"].items()))
     kernel_line = {"kernels": [kernel_entry(name, kernels[name], totals[name], arm_totals)
-                               for name in cf.LAUNCHES]}
+                               for name in names]}
     report["kernels"] = kernels
-    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(ROOT, "chiprun_out", "chip_smoke.json"), "w") as fh:
-        json.dump(report, fh, indent=1)
+    _write_report(report)
     log(json.dumps(kernel_line))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}))

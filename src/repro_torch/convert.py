@@ -7,13 +7,17 @@ What a solve sequence carries from one solve to the next is its
 helpers a sequence started in ``repro`` continues in ``repro_torch`` (and
 back) and gives the same numbers; a state given whole splits into a
 rank's share for the sharded engine.  The model zoo's parameters cross
-with :func:`model_params_from_numpy` and :func:`model_params_to_numpy`.
+with :func:`model_params_from_numpy` and :func:`model_params_to_numpy`
+(and as the training step's dict with :func:`train_params_from_numpy`);
+a training run's AdamW and PowerSGD states and batches with
+:func:`adam_state_from_numpy`, :func:`powersgd_state_from_numpy` and
+:func:`train_batch_from_numpy`.
 Arrays cross as numpy, so neither package imports the other.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -166,12 +170,13 @@ def _port_leaf(ref_name: str) -> str:
     return ref_name
 
 
-def model_params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Model:
-    """A :class:`repro_torch.models.transformer.Model` on ``device`` holding
-    the reference's parameters: ``tree`` is ``repro.models.init``'s
-    parameter tree as nested dicts and lists of numpy arrays.  The leading
-    period axis of ``tree["periods"]["blocks"][i]`` is unstacked: layer
-    ``j·period + i`` is period ``j``, block ``i``."""
+def model_state_from_numpy(tree: dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """A tree shaped like ``repro.models.init``'s parameters (nested dicts
+    and lists of numpy arrays: the parameters, their gradients, Adam's
+    moments, a flat vector unraveled) as a dict keyed by the port's
+    parameter names.  The leading period axis of
+    ``tree["periods"]["blocks"][i]`` is unstacked: layer ``j·period + i``
+    is period ``j``, block ``i``."""
     period = cfg.period()
     state = {}
     for group in ("embed", "final_norm"):
@@ -183,6 +188,14 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> M
                 arr = np.asarray(arr)
                 for j in range(cfg.n_layers // period):
                     state[f"blocks.{j * period + i}.{sub}.{_port_leaf(leaf)}"] = arr[j]
+    return state
+
+
+def model_params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Model:
+    """A :class:`repro_torch.models.transformer.Model` on ``device`` holding
+    the reference's parameters (``tree`` as :func:`model_state_from_numpy`
+    takes it)."""
+    state = model_state_from_numpy(tree, cfg)
     model = Model(None, cfg, "meta")
     expected = set(model.state_dict())
     if set(state) != expected:
@@ -217,3 +230,50 @@ def model_params_to_numpy(model: Model) -> dict:
         blocks.append(stacked)
     return {"embed": arrays(model.embed), "periods": {"blocks": blocks},
             "final_norm": arrays(model.final_norm)}
+
+
+def _tensors(tree, device, dtype=None):
+    """A tree of numpy arrays (dicts, lists) as the same tree of tensors."""
+    if isinstance(tree, dict):
+        return {key: _tensors(val, device, dtype) for key, val in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_tensors(val, device, dtype) for val in tree)
+    return torch.as_tensor(np.array(tree), dtype=dtype, device=device)
+
+
+def train_params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree as the training step's parameter
+    dict (:func:`repro_torch.launch.params_dict`'s keys)."""
+    return _tensors(model_state_from_numpy(tree, cfg), device)
+
+
+def adam_state_from_numpy(mu, nu, count, *, cfg: Optional[ModelConfig] = None, device="cuda"):
+    """An :class:`repro_torch.optim.AdamState` from the reference's moments
+    and count.  With ``cfg`` the moments are model parameter trees and come
+    keyed by the port's parameter names; without, any tree of arrays keeps
+    its structure."""
+    from repro_torch.optim.adam import AdamState
+
+    def tree(t):
+        return _tensors(model_state_from_numpy(t, cfg) if cfg is not None else t, device,
+                        torch.float32)
+
+    return AdamState(mu=tree(mu), nu=tree(nu),
+                     count=torch.as_tensor(int(np.asarray(count)), dtype=torch.int32, device=device))
+
+
+def powersgd_state_from_numpy(q, error, *, device="cuda"):
+    """A :class:`repro_torch.optim.PowerSGDState` from the reference's
+    per-leaf bases and error memories (trees of arrays, structure kept), so
+    that both packages start from the same ``Q``."""
+    from repro_torch.optim.grad_compress import PowerSGDState
+
+    return PowerSGDState(q=_tensors(q, device, torch.float32),
+                         error=_tensors(error, device, torch.float32))
+
+
+def train_batch_from_numpy(batch: dict, *, device="cuda") -> Dict[str, torch.Tensor]:
+    """The reference's train-step batch (``tokens`` and ``labels`` as int
+    arrays) as int64 tensors on ``device``."""
+    return {key: torch.as_tensor(np.asarray(val).astype(np.int64), device=device)
+            for key, val in batch.items()}

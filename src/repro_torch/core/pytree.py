@@ -38,6 +38,11 @@ def _leaves(tree: Tree):
     return [tree]
 
 
+def tree_leaves(tree: Tree) -> list:
+    """The leaves of ``tree`` in leaf order (dict keys sorted)."""
+    return _leaves(tree)
+
+
 def tree_map(fn: Callable, tree: Tree, *rest: Tree) -> Tree:
     """``fn`` on the leaves of ``tree`` (and the matching leaves of
     ``rest``), rebuilt in ``tree``'s structure.  Leaves are visited in

@@ -29,7 +29,7 @@ takes its own result by a ``where``.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -108,8 +108,8 @@ def _select_positive_ritz(zeta, Wm, k: int, select: str):
 
 
 def harmonic_ritz_flat_core(
-    Z: torch.Tensor,
-    AZ: torch.Tensor,
+    Z: Union[torch.Tensor, Sequence[torch.Tensor]],
+    AZ: Union[torch.Tensor, Sequence[torch.Tensor]],
     k: int,
     *,
     valid: Optional[torch.Tensor] = None,
@@ -139,16 +139,21 @@ def harmonic_ritz_flat_core(
     all-reduced; the ``(2m, 2m)`` eigenproblems run replicated and the
     recombination stays per rank (n is then this rank's columns).
     ``None`` is the unsharded path, unchanged.
+
+    ``Z`` and ``AZ`` may each be given as row blocks (``[W, P]``): the
+    stack ``S`` is then the one copy of the window made here (masked in
+    place), and ``Z`` / ``AZ`` are its halves — at LM scale every row is a
+    parameter-sized vector.
     """
-    m = Z.shape[0]
+    blocks = [*(Z if isinstance(Z, (tuple, list)) else [Z]),
+              *(AZ if isinstance(AZ, (tuple, list)) else [AZ])]
+    S2 = torch.cat(blocks, dim=0)  # (2m, n): gram + recombination
+    m = S2.shape[0] // 2
     if k > m:
         raise ValueError(f"cannot extract k={k} Ritz vectors from m={m} basis")
     if valid is not None:
-        vz = valid.to(Z.dtype)[:, None]
-        Z = Z * vz
-        AZ = AZ * vz
-
-    S2 = torch.cat([Z, AZ], dim=0)  # (2m, n): gram + recombination
+        S2.mul_(torch.cat([valid, valid]).to(S2.dtype)[:, None])
+    Z, AZ = S2[:m], S2[m:]
     if m_apply is None:
         full = kops.self_gram(S2)
         if psum_axis is not None:
@@ -236,8 +241,7 @@ def extract_next_basis_core(
     if w_flat is None:
         Z, AZ, valid = p_flat, ap_flat, p_valid
     else:
-        Z = torch.cat([w_flat, p_flat], dim=0)
-        AZ = torch.cat([aw_flat, ap_flat], dim=0)
+        Z, AZ = (w_flat, p_flat), (aw_flat, ap_flat)
         wsq = torch.sum(w_flat * w_flat, dim=1)
         if psum_axis is not None:
             (wsq,) = engine.psum_merged([wsq], psum_axis)

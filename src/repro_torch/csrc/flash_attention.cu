@@ -122,11 +122,12 @@ constexpr size_t smem_bytes() {
   return sizeof(float) * (2 * kBQ * (DH + 1) + kBK * DH + kBQ * kLDP + 3 * kBQ);
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int h, int group,
-                       int sq, int sk, float scale, int causal, long long q_offset) {
+                       const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                       int h, int group, int sq, int sk, float scale, int causal,
+                       long long q_offset) {
   constexpr int LD = DH + 1;
   constexpr int DSUB = DH / 16;  // output columns per thread
   extern __shared__ float smem[];
@@ -261,6 +262,10 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
   __syncthreads();  // l_s is final
+  if (LSE && tid < kBQ && q0 + tid < sq) {
+    const float l = l_s[tid];  // natural-log units: m + log(l)
+    lse[(size_t)bh * sq + q0 + tid] = l == 0.f ? INFINITY : m_s[tid] + logf(l);
+  }
 
   T* op = o + (size_t)bh * sq * DH;
 #pragma unroll
@@ -275,19 +280,19 @@ flash_attention_simt(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int DH>
-int launch_simt(const void* q, const void* k, const void* v, void* o, int b, int h,
-                int hkv, int sq, int sk, double scale, int causal, int64_t q_offset,
+template <typename T, int DH, bool LSE>
+int launch_simt(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                int h, int hkv, int sq, int sk, double scale, int causal, int64_t q_offset,
                 cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_simt<T, DH>,
+  cudaError_t err = cudaFuncSetAttribute(flash_attention_simt<T, DH, LSE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((sq + kBQ - 1) / kBQ, b * h);
-  flash_attention_simt<T, DH><<<grid, kThreads, smem, stream>>>(
+  flash_attention_simt<T, DH, LSE><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), h, h / hkv, sq, sk, (float)scale, causal, (long long)q_offset);
+      static_cast<T*>(o), lse, h, h / hkv, sq, sk, (float)scale, causal, (long long)q_offset);
   return (int)cudaGetLastError();
 }
 
@@ -304,6 +309,7 @@ constexpr int kBQ = 16 * kWarps;  // query rows per block, 16 per warp
 constexpr int kBK = 64;           // keys per staged tile
 constexpr int kNT = kBK / 8;      // 8-key column tiles of S
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -407,11 +413,12 @@ __device__ __forceinline__ float quad_sum(float v) {
 // an m16k16 A fragment holds (row g, cols 2t..) in a[0], (row g + 8) in
 // a[1], cols 8 + 2t.. in a[2] and a[3]; a k16n8 B fragment holds
 // (k 2t, 2t+1; col g) in b0 and k + 8 in b1.
-template <int DH>
+template <int DH, bool LSE>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                   const bf16* __restrict__ v, bf16* __restrict__ o, int h, int group,
-                   int sq, int sk, float scale_log2, int causal, long long q_offset) {
+                   const bf16* __restrict__ v, bf16* __restrict__ o, float* __restrict__ lse,
+                   int h, int group, int sq, int sk, float scale_log2, int causal,
+                   long long q_offset) {
   constexpr int KS = DH / 16;  // k-steps of Q K^T
   constexpr int NO = DH / 8;   // 8-wide column tiles of O
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -552,8 +559,10 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     float l = quad_sum(l_run[r]);
-    if (l == 0.f) l = 1.f;  // a row with no visited key gives zeros
     const int row = q0 + 16 * warp + g + 8 * r;
+    if (LSE && t4 == 0 && row < sq)  // m is in log2 units: (m + log2 l) ln 2
+      lse[(size_t)bh * sq + row] = l == 0.f ? INFINITY : (m_run[r] + log2f(l)) * kLn2;
+    if (l == 0.f) l = 1.f;  // a row with no visited key gives zeros
     if (row >= sq) continue;
 #pragma unroll
     for (int n = 0; n < NO; ++n)
@@ -562,60 +571,607 @@ flash_attention_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DH>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int h, int hkv,
-           int sq, int sk, double scale, int causal, int64_t q_offset, cudaStream_t stream) {
+template <int DH, bool LSE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int b, int h,
+           int hkv, int sq, int sk, double scale, int causal, int64_t q_offset,
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<DH>();
   static const cudaError_t opt_in = cudaFuncSetAttribute(  // once per process
-      flash_attention_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_attention_tc<DH, LSE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (opt_in != cudaSuccess) return (int)opt_in;
   const dim3 grid(b * h, (sq + kBQ - 1) / kBQ);
-  flash_attention_tc<DH><<<grid, kThreads, smem, stream>>>(
+  flash_attention_tc<DH, LSE><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(o), h, h / hkv, sq, sk, (float)(scale * 1.4426950408889634), causal,
-      (long long)q_offset);
+      static_cast<bf16*>(o), lse, h, h / hkv, sq, sk, (float)(scale * 1.4426950408889634),
+      causal, (long long)q_offset);
   return (int)cudaGetLastError();
 }
 
 }  // namespace tc
 
+
+// ---------------------------------------------------------------------------
+// Backward and forward-mode arms: f32 arithmetic on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// Both take the forward's O and its f32 row log-sum-exp (natural log) and
+// recompute P = exp(scale q k^T - lse) tile by tile, so no score matrix is
+// kept between the passes.  q_offset is 0 (the wrappers refuse any other).
+// The layout is the f32 forward's: 256-thread blocks, 64 x 64 score tiles
+// with a 4 x 4 register tile a thread (rows ty + 16a, columns tx + 16b),
+// operand tiles staged as f32 through shared memory (zeros past sq / sk),
+// every score of a visited tile masked by position.
+//
+// Backward, three launches (FA2's deterministic layout, no float atomics):
+//   rowdot  D_i = sum_c dO_ic O_ic, one thread a row;
+//   dkdv    a block owns a 64-key tile of one KV head and loops over the
+//           query heads of its GQA group and every query tile at or below
+//           the diagonal: S and dP = dO V^T in one pass over dh, then
+//           P = exp(S scale - lse), dS = P (dP - D) scale;
+//           dV += round(P)^T dO (P rounded to the inputs' dtype, as the
+//           forward's P V takes it), dK += dS^T Q;
+//   dq      a block owns a 64-row query tile: the same S, dP and dS over
+//           the key tiles it sees, dQ += dS K.
+//   Every output element is written by one block after a loop in a fixed
+//   order: two launches agree bit for bit.
+//
+// Forward mode (JVP), one launch: a block owns a 64-row query tile and, per
+// key tile, forms S and S' = q' k^T + q k'^T in one pass over dh (K, then
+// K' staged), P = exp(S scale - lse) and T = P (S' scale); then, with V and
+// V' staged in the same buffers, acc += T V + P V'; each row's r = sum_j T
+// is summed over its 16 threads in a fixed order at the end, and
+//   O' = acc - r O.
+// With the forward's lse no running max or rescale is needed: one pass.
+//
+// What bounds them: operations.  The backward and the JVP each do five
+// products of the forward's size (2.5 x its flops): 343.5 GFLOP at
+// qwen1.5-0.5b's training shape (b 4, h 16, s 4096, dh 64, causal), 0.347 ms
+// at 989 TFLOP/s bf16.  These first versions run on the CUDA cores in f32
+// (the backward recomputes S and dP in both of its kernels: seven products);
+// the tensor-core versions (mma.sync / wgmma on bf16 operands) are later work.
+
+namespace grad {
+
+// Rows [r0, r0 + 64) of a (rows, DH) matrix into an f32 tile, zeros past rows.
 template <typename T, int DH>
-int launch_flash(const void* q, const void* k, const void* v, void* o, int b, int h,
-                 int hkv, int sq, int sk, double scale, int causal, int64_t q_offset,
+__device__ __forceinline__ void stage(float* tile, const T* __restrict__ src, int r0, int rows) {
+  constexpr int LD = DH + 1;
+  for (int e = threadIdx.x; e < kBQ * DH; e += kThreads) {
+    const int r = e / DH, c = e % DH;
+    tile[r * LD + c] = r0 + r < rows ? to_f32(src[(size_t)(r0 + r) * DH + c]) : 0.f;
+  }
+}
+
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int r0,
+                                           int rows) {
+  if (threadIdx.x < kBQ) dst[threadIdx.x] = r0 + threadIdx.x < rows ? src[r0 + threadIdx.x] : 0.f;
+}
+
+template <int DH>
+constexpr size_t dkdv_smem() { return sizeof(float) * (4 * 64 * (DH + 1) + 2 * 64 * kLDP + 128); }
+template <int DH>
+constexpr size_t dq_smem() { return sizeof(float) * (4 * 64 * (DH + 1) + 64 * kLDP + 128); }
+template <int DH>
+constexpr size_t jvp_smem() {
+  return sizeof(float) * (4 * 64 * (DH + 1) + 2 * 64 * kLDP + 64 * 17 + 64);
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_rowdot(const T* __restrict__ dout, const T* __restrict__ out, float* __restrict__ dvec,
+                long long rows) {
+  const long long r = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (r >= rows) return;
+  const T* a = dout + r * DH;
+  const T* b = out + r * DH;
+  float acc = 0.f;
+#pragma unroll 8
+  for (int c = 0; c < DH; ++c) acc = fmaf(to_f32(a[c]), to_f32(b[c]), acc);
+  dvec[r] = acc;
+}
+
+// S = Q K^T and X = A B^T for the thread's 4 x 4 tile: rows of (qs, as_),
+// columns of (ks, bs), all four tiles 64 x DH with leading dimension DH + 1.
+template <int DH>
+__device__ __forceinline__ void two_tiles(const float* qs, const float* ks, const float* as_,
+                                          const float* bs, float (&s)[kSub][kSub],
+                                          float (&x)[kSub][kSub], int ty, int tx) {
+  constexpr int LD = DH + 1;
+#pragma unroll
+  for (int a = 0; a < kSub; ++a)
+#pragma unroll
+    for (int b = 0; b < kSub; ++b) s[a][b] = x[a][b] = 0.f;
+#pragma unroll 4
+  for (int d = 0; d < DH; ++d) {
+    float qa[kSub], aa[kSub], kb[kSub], bb[kSub];
+#pragma unroll
+    for (int a = 0; a < kSub; ++a) {
+      qa[a] = qs[(ty + 16 * a) * LD + d];
+      aa[a] = as_[(ty + 16 * a) * LD + d];
+    }
+#pragma unroll
+    for (int b = 0; b < kSub; ++b) {
+      kb[b] = ks[(tx + 16 * b) * LD + d];
+      bb[b] = bs[(tx + 16 * b) * LD + d];
+    }
+#pragma unroll
+    for (int a = 0; a < kSub; ++a)
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) {
+        s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+        x[a][b] = fmaf(aa[a], bb[b], x[a][b]);
+      }
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+              const T* __restrict__ dout, const float* __restrict__ lse,
+              const float* __restrict__ dvec, T* __restrict__ dk, T* __restrict__ dv, int h,
+              int group, int sq, int sk, float scale, int causal) {
+  constexpr int LD = DH + 1;
+  constexpr int DSUB = DH / 16;
+  extern __shared__ float smem[];
+  float* ks = smem;
+  float* vs = ks + kBK * LD;
+  float* qs = vs + kBK * LD;
+  float* dos = qs + kBQ * LD;
+  float* ps = dos + kBQ * LD;   // round(P), kBQ x kLDP
+  float* dss = ps + kBQ * kLDP;  // dS
+  float* lse_s = dss + kBQ * kLDP;
+  float* d_s = lse_s + kBQ;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int kv = blockIdx.y, hkv = h / group;
+  const int bi = kv / hkv, kh = kv % hkv;
+  const int k0 = blockIdx.x * kBK;
+  stage<T, DH>(ks, k + (size_t)kv * sk * DH, k0, sk);
+  stage<T, DH>(vs, v + (size_t)kv * sk * DH, k0, sk);
+
+  float dk_acc[kSub][DSUB], dv_acc[kSub][DSUB];
+#pragma unroll
+  for (int a = 0; a < kSub; ++a)
+#pragma unroll
+    for (int c = 0; c < DSUB; ++c) dk_acc[a][c] = dv_acc[a][c] = 0.f;
+
+  const int n_qt = (sq + kBQ - 1) / kBQ;
+  const int t_first = causal ? k0 / kBQ : 0;  // query tiles with a row at or past k0
+  for (int gi = 0; gi < group; ++gi) {
+    const size_t bh = (size_t)bi * h + kh * group + gi;
+    const T* qp = q + bh * sq * DH;
+    const T* dop = dout + bh * sq * DH;
+    for (int t = t_first; t < n_qt; ++t) {
+      const int q0 = t * kBQ;
+      __syncthreads();  // the previous tile's qs, dos, ps and dss are consumed
+      stage<T, DH>(qs, qp, q0, sq);
+      stage<T, DH>(dos, dop, q0, sq);
+      stage_rows(lse_s, lse + bh * sq, q0, sq);
+      stage_rows(d_s, dvec + bh * sq, q0, sq);
+      __syncthreads();
+
+      float s[kSub][kSub], dp[kSub][kSub];
+      two_tiles<DH>(qs, ks, dos, vs, s, dp, ty, tx);
+#pragma unroll
+      for (int a = 0; a < kSub; ++a) {
+        const int i = ty + 16 * a, qrow = q0 + i;
+#pragma unroll
+        for (int b = 0; b < kSub; ++b) {
+          const int j = tx + 16 * b, kpos = k0 + j;
+          const bool keep = qrow < sq && kpos < sk && (!causal || kpos <= qrow);
+          const float p = keep ? expf(s[a][b] * scale - lse_s[i]) : 0.f;
+          ps[i * kLDP + j] = to_f32(from_f32<T>(p));  // as the forward's P V takes P
+          dss[i * kLDP + j] = p * (dp[a][b] - d_s[i]) * scale;
+        }
+      }
+      __syncthreads();
+
+#pragma unroll 4
+      for (int i = 0; i < kBQ; ++i) {
+        float pa[kSub], sa[kSub], ob[DSUB], qb[DSUB];
+#pragma unroll
+        for (int a = 0; a < kSub; ++a) {
+          pa[a] = ps[i * kLDP + ty + 16 * a];
+          sa[a] = dss[i * kLDP + ty + 16 * a];
+        }
+#pragma unroll
+        for (int c = 0; c < DSUB; ++c) {
+          ob[c] = dos[i * LD + tx + 16 * c];
+          qb[c] = qs[i * LD + tx + 16 * c];
+        }
+#pragma unroll
+        for (int a = 0; a < kSub; ++a)
+#pragma unroll
+          for (int c = 0; c < DSUB; ++c) {
+            dv_acc[a][c] = fmaf(pa[a], ob[c], dv_acc[a][c]);
+            dk_acc[a][c] = fmaf(sa[a], qb[c], dk_acc[a][c]);
+          }
+      }
+    }
+  }
+
+  T* dkp = dk + (size_t)kv * sk * DH;
+  T* dvp = dv + (size_t)kv * sk * DH;
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    const int kpos = k0 + ty + 16 * a;
+    if (kpos >= sk) continue;
+#pragma unroll
+    for (int c = 0; c < DSUB; ++c) {
+      dkp[(size_t)kpos * DH + tx + 16 * c] = from_f32<T>(dk_acc[a][c]);
+      dvp[(size_t)kpos * DH + tx + 16 * c] = from_f32<T>(dv_acc[a][c]);
+    }
+  }
+}
+
+// Key tiles a query tile starting at q0 visits (all of them, or under
+// causal masking those that start at or before its last row).
+__device__ __forceinline__ int key_tiles(int q0, int sq, int sk, int causal) {
+  int n = (sk + kBK - 1) / kBK;
+  if (causal) {
+    const int last = (sq - q0 < kBQ ? sq : q0 + kBQ) - 1;
+    const int visit = last / kBK + 1;
+    if (visit < n) n = visit;
+  }
+  return n;
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_dq(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+            const T* __restrict__ dout, const float* __restrict__ lse,
+            const float* __restrict__ dvec, T* __restrict__ dq, int h, int group, int sq, int sk,
+            float scale, int causal) {
+  constexpr int LD = DH + 1;
+  constexpr int DSUB = DH / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* dos = qs + kBQ * LD;
+  float* ks = dos + kBQ * LD;
+  float* vs = ks + kBK * LD;
+  float* dss = vs + kBK * LD;
+  float* lse_s = dss + kBQ * kLDP;
+  float* d_s = lse_s + kBQ;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bh = blockIdx.y, bi = bh / h, head = bh % h;
+  const int kvh = bi * (h / group) + head / group;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;  // the heaviest tiles first
+  stage<T, DH>(qs, q + (size_t)bh * sq * DH, q0, sq);
+  stage<T, DH>(dos, dout + (size_t)bh * sq * DH, q0, sq);
+  stage_rows(lse_s, lse + (size_t)bh * sq, q0, sq);
+  stage_rows(d_s, dvec + (size_t)bh * sq, q0, sq);
+  const T* kp = k + (size_t)kvh * sk * DH;
+  const T* vp = v + (size_t)kvh * sk * DH;
+
+  float acc[kSub][DSUB];
+#pragma unroll
+  for (int a = 0; a < kSub; ++a)
+#pragma unroll
+    for (int c = 0; c < DSUB; ++c) acc[a][c] = 0.f;
+
+  const int n_tiles = key_tiles(q0, sq, sk, causal);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    __syncthreads();  // the previous tile's ks, vs and dss are consumed
+    stage<T, DH>(ks, kp, k0, sk);
+    stage<T, DH>(vs, vp, k0, sk);
+    __syncthreads();
+
+    float s[kSub][kSub], dp[kSub][kSub];
+    two_tiles<DH>(qs, ks, dos, vs, s, dp, ty, tx);
+#pragma unroll
+    for (int a = 0; a < kSub; ++a) {
+      const int i = ty + 16 * a, qrow = q0 + i;
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) {
+        const int j = tx + 16 * b, kpos = k0 + j;
+        const bool keep = qrow < sq && kpos < sk && (!causal || kpos <= qrow);
+        const float p = keep ? expf(s[a][b] * scale - lse_s[i]) : 0.f;
+        dss[i * kLDP + j] = p * (dp[a][b] - d_s[i]) * scale;
+      }
+    }
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < kBK; ++j) {
+      float sa[kSub], kb[DSUB];
+#pragma unroll
+      for (int a = 0; a < kSub; ++a) sa[a] = dss[(ty + 16 * a) * kLDP + j];
+#pragma unroll
+      for (int c = 0; c < DSUB; ++c) kb[c] = ks[j * LD + tx + 16 * c];
+#pragma unroll
+      for (int a = 0; a < kSub; ++a)
+#pragma unroll
+        for (int c = 0; c < DSUB; ++c) acc[a][c] = fmaf(sa[a], kb[c], acc[a][c]);
+    }
+  }
+
+  T* dqp = dq + (size_t)bh * sq * DH;
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    const int row = q0 + ty + 16 * a;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int c = 0; c < DSUB; ++c) dqp[(size_t)row * DH + tx + 16 * c] = from_f32<T>(acc[a][c]);
+  }
+}
+
+template <typename T, int DH>
+__global__ void __launch_bounds__(kThreads)
+attn_jvp(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+         const T* __restrict__ o, const float* __restrict__ lse, const T* __restrict__ tq,
+         const T* __restrict__ tk, const T* __restrict__ tv, T* __restrict__ to, int h,
+         int group, int sq, int sk, float scale, int causal) {
+  constexpr int LD = DH + 1;
+  constexpr int DSUB = DH / 16;
+  extern __shared__ float smem[];
+  float* qs = smem;
+  float* tqs = qs + kBQ * LD;
+  float* bufa = tqs + kBQ * LD;  // K, then V
+  float* bufb = bufa + kBK * LD;  // K', then V'
+  float* ps = bufb + kBK * LD;   // P
+  float* ts = ps + kBQ * kLDP;   // T = P (S' scale)
+  float* red = ts + kBQ * kLDP;  // kBQ x 17: each row's sum of T over its 16 threads
+  float* lse_s = red + kBQ * 17;
+
+  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
+  const int bh = blockIdx.y, bi = bh / h, head = bh % h;
+  const int kvh = bi * (h / group) + head / group;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
+  stage<T, DH>(qs, q + (size_t)bh * sq * DH, q0, sq);
+  stage<T, DH>(tqs, tq + (size_t)bh * sq * DH, q0, sq);
+  stage_rows(lse_s, lse + (size_t)bh * sq, q0, sq);
+  const size_t kvo = (size_t)kvh * sk * DH;
+
+  float acc[kSub][DSUB], rsum[kSub];
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    rsum[a] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DSUB; ++c) acc[a][c] = 0.f;
+  }
+
+  const int n_tiles = key_tiles(q0, sq, sk, causal);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int k0 = t * kBK;
+    __syncthreads();  // the previous tile's V, V', P and T are consumed
+    stage<T, DH>(bufa, k + kvo, k0, sk);
+    stage<T, DH>(bufb, tk + kvo, k0, sk);
+    __syncthreads();
+
+    float s[kSub][kSub], sd[kSub][kSub];
+#pragma unroll
+    for (int a = 0; a < kSub; ++a)
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) s[a][b] = sd[a][b] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < DH; ++d) {
+      float qa[kSub], tqa[kSub], kb[kSub], tkb[kSub];
+#pragma unroll
+      for (int a = 0; a < kSub; ++a) {
+        qa[a] = qs[(ty + 16 * a) * LD + d];
+        tqa[a] = tqs[(ty + 16 * a) * LD + d];
+      }
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) {
+        kb[b] = bufa[(tx + 16 * b) * LD + d];
+        tkb[b] = bufb[(tx + 16 * b) * LD + d];
+      }
+#pragma unroll
+      for (int a = 0; a < kSub; ++a)
+#pragma unroll
+        for (int b = 0; b < kSub; ++b) {
+          s[a][b] = fmaf(qa[a], kb[b], s[a][b]);
+          sd[a][b] = fmaf(tqa[a], kb[b], sd[a][b]);
+          sd[a][b] = fmaf(qa[a], tkb[b], sd[a][b]);
+        }
+    }
+#pragma unroll
+    for (int a = 0; a < kSub; ++a) {
+      const int i = ty + 16 * a, qrow = q0 + i;
+#pragma unroll
+      for (int b = 0; b < kSub; ++b) {
+        const int j = tx + 16 * b, kpos = k0 + j;
+        const bool keep = qrow < sq && kpos < sk && (!causal || kpos <= qrow);
+        const float p = keep ? expf(s[a][b] * scale - lse_s[i]) : 0.f;
+        const float tt = p * (sd[a][b] * scale);
+        ps[i * kLDP + j] = p;
+        ts[i * kLDP + j] = tt;
+        rsum[a] += tt;
+      }
+    }
+    __syncthreads();  // every thread is done with K and K'
+    stage<T, DH>(bufa, v + kvo, k0, sk);
+    stage<T, DH>(bufb, tv + kvo, k0, sk);
+    __syncthreads();
+
+#pragma unroll 4
+    for (int j = 0; j < kBK; ++j) {
+      float ta[kSub], pa[kSub], vb[DSUB], tvb[DSUB];
+#pragma unroll
+      for (int a = 0; a < kSub; ++a) {
+        ta[a] = ts[(ty + 16 * a) * kLDP + j];
+        pa[a] = ps[(ty + 16 * a) * kLDP + j];
+      }
+#pragma unroll
+      for (int c = 0; c < DSUB; ++c) {
+        vb[c] = bufa[j * LD + tx + 16 * c];
+        tvb[c] = bufb[j * LD + tx + 16 * c];
+      }
+#pragma unroll
+      for (int a = 0; a < kSub; ++a)
+#pragma unroll
+        for (int c = 0; c < DSUB; ++c) {
+          acc[a][c] = fmaf(ta[a], vb[c], acc[a][c]);
+          acc[a][c] = fmaf(pa[a], tvb[c], acc[a][c]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) red[(ty + 16 * a) * 17 + tx] = rsum[a];
+  __syncthreads();
+  const T* op = o + (size_t)bh * sq * DH;
+  T* top = to + (size_t)bh * sq * DH;
+#pragma unroll
+  for (int a = 0; a < kSub; ++a) {
+    const int i = ty + 16 * a, row = q0 + i;
+    if (row >= sq) continue;
+    float r = 0.f;
+    for (int x = 0; x < 16; ++x) r += red[i * 17 + x];  // a fixed order
+#pragma unroll
+    for (int c = 0; c < DSUB; ++c) {
+      const size_t e = (size_t)row * DH + tx + 16 * c;
+      top[e] = from_f32<T>(acc[a][c] - r * to_f32(op[e]));
+    }
+  }
+}
+
+template <typename T, int DH>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const float* lse,
+               const void* dout, void* dq, void* dk, void* dv, float* dvec, int b, int h,
+               int hkv, int sq, int sk, double scale, int causal, cudaStream_t stream) {
+  constexpr size_t s1 = dkdv_smem<DH>(), s2 = dq_smem<DH>();
+  cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv<T, DH>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(attn_bwd_dq<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)s2);
+  if (err != cudaSuccess) return (int)err;
+  const T* qt = static_cast<const T*>(q);
+  const T* kt = static_cast<const T*>(k);
+  const T* vt = static_cast<const T*>(v);
+  const T* dot = static_cast<const T*>(dout);
+  const long long rows = (long long)b * h * sq;
+  attn_bwd_rowdot<T, DH><<<(unsigned)((rows + kThreads - 1) / kThreads), kThreads, 0, stream>>>(
+      dot, static_cast<const T*>(o), dvec, rows);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkdv<T, DH><<<dim3((sk + kBK - 1) / kBK, b * hkv), kThreads, s1, stream>>>(
+      qt, kt, vt, dot, lse, dvec, static_cast<T*>(dk), static_cast<T*>(dv), h, h / hkv, sq, sk,
+      (float)scale, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dq<T, DH><<<dim3((sq + kBQ - 1) / kBQ, b * h), kThreads, s2, stream>>>(
+      qt, kt, vt, dot, lse, dvec, static_cast<T*>(dq), h, h / hkv, sq, sk, (float)scale, causal);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int DH>
+int launch_jvp(const void* q, const void* k, const void* v, const void* o, const float* lse,
+               const void* tq, const void* tk, const void* tv, void* to, int b, int h, int hkv,
+               int sq, int sk, double scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = jvp_smem<DH>();
+  const cudaError_t err = cudaFuncSetAttribute(
+      attn_jvp<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  attn_jvp<T, DH><<<dim3((sq + kBQ - 1) / kBQ, b * h), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(o), lse, static_cast<const T*>(tq), static_cast<const T*>(tk),
+      static_cast<const T*>(tv), static_cast<T*>(to), h, h / hkv, sq, sk, (float)scale, causal);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace grad
+
+template <typename T, int DH, bool LSE>
+int launch_flash(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                 int h, int hkv, int sq, int sk, double scale, int causal, int64_t q_offset,
                  cudaStream_t stream) {
   if constexpr (std::is_same<T, __nv_bfloat16>::value)
-    return tc::launch<DH>(q, k, v, o, b, h, hkv, sq, sk, scale, causal, q_offset, stream);
+    return tc::launch<DH, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal, q_offset,
+                               stream);
   else
-    return launch_simt<T, DH>(q, k, v, o, b, h, hkv, sq, sk, scale, causal, q_offset, stream);
+    return launch_simt<T, DH, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal,
+                                   q_offset, stream);
+}
+
+bool bad_shape(int b, int h, int hkv, int sq, int sk) {
+  return b <= 0 || h <= 0 || hkv <= 0 || h % hkv || sq <= 0 || sk <= 0 || b * h > 65535 ||
+         (sq + kBQ - 1) / kBQ > 65535;
+}
+
+template <typename T, bool LSE>
+int dispatch_flash(const void* q, const void* k, const void* v, void* o, float* lse, int b,
+                   int h, int hkv, int sq, int sk, int dh, double scale, int causal,
+                   int64_t q_offset, void* stream) {
+  if (bad_shape(b, h, hkv, sq, sk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16: return launch_flash<T, 16, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal, q_offset, st);
+    case 32: return launch_flash<T, 32, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal, q_offset, st);
+    case 64: return launch_flash<T, 64, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal, q_offset, st);
+    case 128: return launch_flash<T, 128, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal, q_offset, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T>
-int dispatch_flash(const void* q, const void* k, const void* v, void* o, int b, int h,
-                   int hkv, int sq, int sk, int dh, double scale, int causal,
-                   int64_t q_offset, void* stream) {
-  if (b <= 0 || h <= 0 || hkv <= 0 || h % hkv || sq <= 0 || sk <= 0 || b * h > 65535 ||
-      (sq + kBQ - 1) / kBQ > 65535)
+int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                 const void* dout, void* dq, void* dk, void* dv, float* dvec, int b, int h,
+                 int hkv, int sq, int sk, int dh, double scale, int causal, void* stream) {
+  if (bad_shape(b, h, hkv, sq, sk) || (sk + kBK - 1) / kBK > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dh) {
-    case 16: return launch_flash<T, 16>(q, k, v, o, b, h, hkv, sq, sk, scale, causal, q_offset, st);
-    case 32: return launch_flash<T, 32>(q, k, v, o, b, h, hkv, sq, sk, scale, causal, q_offset, st);
-    case 64: return launch_flash<T, 64>(q, k, v, o, b, h, hkv, sq, sk, scale, causal, q_offset, st);
-    case 128: return launch_flash<T, 128>(q, k, v, o, b, h, hkv, sq, sk, scale, causal, q_offset, st);
+    case 16: return grad::launch_bwd<T, 16>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk, scale, causal, st);
+    case 32: return grad::launch_bwd<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk, scale, causal, st);
+    case 64: return grad::launch_bwd<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk, scale, causal, st);
+    case 128: return grad::launch_bwd<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk, scale, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int dispatch_jvp(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                 const void* tq, const void* tk, const void* tv, void* to, int b, int h,
+                 int hkv, int sq, int sk, int dh, double scale, int causal, void* stream) {
+  if (bad_shape(b, h, hkv, sq, sk)) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dh) {
+    case 16: return grad::launch_jvp<T, 16>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale, causal, st);
+    case 32: return grad::launch_jvp<T, 32>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale, causal, st);
+    case 64: return grad::launch_jvp<T, 64>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale, causal, st);
+    case 128: return grad::launch_jvp<T, 128>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-#define REPRO_FLASH_ENTRY_POINT(T, SUFFIX)                                          \
-  extern "C" int flash_attention_##SUFFIX(                                          \
-      const void* q, const void* k, const void* v, void* o, int b, int h, int hkv,  \
-      int sq, int sk, int dh, double scale, int causal, int64_t q_offset,           \
-      void* stream) {                                                               \
-    return dispatch_flash<T>(q, k, v, o, b, h, hkv, sq, sk, dh, scale, causal,      \
-                             q_offset, stream);                                     \
+// The forward arms: without the row log-sum-exp (serving) and with it (the
+// forward of a differentiated call; lse is (b, h, sq) f32).
+#define REPRO_FLASH_ENTRY_POINTS(T, SUFFIX)                                                 \
+  extern "C" int flash_attention_##SUFFIX(                                                  \
+      const void* q, const void* k, const void* v, void* o, int b, int h, int hkv,          \
+      int sq, int sk, int dh, double scale, int causal, int64_t q_offset,                   \
+      void* stream) {                                                                       \
+    return dispatch_flash<T, false>(q, k, v, o, nullptr, b, h, hkv, sq, sk, dh, scale,      \
+                                    causal, q_offset, stream);                              \
+  }                                                                                         \
+  extern "C" int flash_attention_lse_##SUFFIX(                                              \
+      const void* q, const void* k, const void* v, void* o, void* lse, int b, int h,        \
+      int hkv, int sq, int sk, int dh, double scale, int causal, int64_t q_offset,          \
+      void* stream) {                                                                       \
+    return dispatch_flash<T, true>(q, k, v, o, static_cast<float*>(lse), b, h, hkv, sq, sk, \
+                                   dh, scale, causal, q_offset, stream);                    \
+  }                                                                                         \
+  extern "C" int flash_attention_bwd_##SUFFIX(                                              \
+      const void* q, const void* k, const void* v, const void* o, const void* lse,          \
+      const void* dout, void* dq, void* dk, void* dv, void* dvec, int b, int h, int hkv,    \
+      int sq, int sk, int dh, double scale, int causal, void* stream) {                     \
+    return dispatch_bwd<T>(q, k, v, o, static_cast<const float*>(lse), dout, dq, dk, dv,    \
+                           static_cast<float*>(dvec), b, h, hkv, sq, sk, dh, scale, causal, \
+                           stream);                                                         \
+  }                                                                                         \
+  extern "C" int flash_attention_jvp_##SUFFIX(                                              \
+      const void* q, const void* k, const void* v, const void* o, const void* lse,          \
+      const void* tq, const void* tk, const void* tv, void* to, int b, int h, int hkv,      \
+      int sq, int sk, int dh, double scale, int causal, void* stream) {                     \
+    return dispatch_jvp<T>(q, k, v, o, static_cast<const float*>(lse), tq, tk, tv, to, b,   \
+                           h, hkv, sq, sk, dh, scale, causal, stream);                      \
   }
 
-REPRO_FLASH_ENTRY_POINT(float, f32)
-REPRO_FLASH_ENTRY_POINT(__nv_bfloat16, bf16)
+REPRO_FLASH_ENTRY_POINTS(float, f32)
+REPRO_FLASH_ENTRY_POINTS(__nv_bfloat16, bf16)

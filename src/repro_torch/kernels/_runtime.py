@@ -17,6 +17,7 @@ import functools
 from typing import Optional, Sequence
 
 import torch
+from torch.autograd import forward_ad
 
 from repro_torch.kernels import _build
 
@@ -104,6 +105,18 @@ def launch(
     LAUNCHES[key or name] += 1
     tag = f"{key or name}:{arm or name}"
     ARMS[tag] = ARMS.get(tag, 0) + 1
+
+
+def differentiated(*tensors: Optional[torch.Tensor]) -> bool:
+    """Whether a derivative is being taken through any of ``tensors``:
+    autograd records ops on it, a ``torch.func`` transform wraps it, or it
+    carries a forward-mode tangent (``torch.func.linearize`` traces its
+    tangent map with forward-AD dual tensors).  A kernel launched through
+    raw pointers would drop the derivative there."""
+    wrapped = torch._C._functorch.is_functorch_wrapped_tensor
+    return any(t is not None and ((t.requires_grad and torch.is_grad_enabled()) or wrapped(t)
+                                  or forward_ad.unpack_dual(t).tangent is not None)
+               for t in tensors)
 
 
 def note_plain(name: str, t: torch.Tensor) -> None:

@@ -18,7 +18,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import cg_fused, ref
+from repro_torch.kernels import _runtime, cg_fused, ref
 from repro_torch.kernels import flash_attention as attn_mod
 from repro_torch.kernels import rbf_matvec as rbf_mod
 from repro_torch.kernels import ssd_scan as ssd_mod
@@ -357,8 +357,20 @@ def attention(
 ) -> torch.Tensor:
     """GQA softmax attention (see :func:`ref.mha_attention`): ``q`` (b, h,
     sq, dh) against ``k``/``v`` (b, hkv, sk, dh).  ``block_q``/``block_k``
-    are the plain version's blocks; the kernel's tiles are fixed."""
+    are the plain version's blocks; the kernel's tiles are fixed.
+
+    When autograd or a ``torch.func`` transform tracks an input, the
+    ``cuda`` and ``plain`` backends run through
+    :class:`~repro_torch.kernels.flash_attention.FlashAttention` (its
+    forward with the row log-sum-exp, its backward and forward-mode arms;
+    ``q_offset`` must be 0 there, as in training); otherwise the serving
+    arm runs as it is.  ``reference`` is differentiated by autograd."""
     backend = _resolve(backend, q)
+    if backend != "reference" and _runtime.differentiated(q, k, v):
+        if q_offset:
+            raise ValueError(f"attention: a differentiated call needs q_offset = 0, got {q_offset}")
+        return attn_mod.flash_attention_differentiable(q, k, v, causal=causal, scale=scale,
+                                                       plain=backend == "plain")
     if backend == "cuda":
         return attn_mod.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
                                              q_offset=q_offset)

@@ -150,7 +150,14 @@ def ssd_scan_cuda(
     """The SSD scan on the card: ``x`` (b, l, h, p) and ``bmat``/``cmat``
     (b, l, g, n) in f32 or bf16 (views as :func:`row_strides` takes them),
     ``dt`` (b, l, h), ``a`` (h,) and ``initial_state`` (b, h, p, n) in f32.
-    Returns ``y`` (plus the final f32 state when ``return_state``)."""
+    Returns ``y`` (plus the final f32 state when ``return_state``).
+    Raises ``NotImplementedError`` when a derivative is being taken through
+    an input: the kernel has no backward or forward-mode arm yet, and its
+    output would carry none."""
+    if _runtime.differentiated(x, dt, a, bmat, cmat, d, initial_state):
+        raise NotImplementedError(
+            "ssd_scan: the CUDA kernel has no backward or forward-mode arm yet (ROADMAP queue 1, "
+            "mamba2 training); differentiate the plain version (backend='plain') instead")
     b, l, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     _runtime.check("ssd_scan", x, DTYPES)

@@ -167,3 +167,21 @@ def make_solve_mesh(n_devices: Optional[int] = None, *, device="cuda") -> SolveM
         device=_local_device(device, global_rank),
         backend=str(dist.get_backend()),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainMesh:
+    """The training mesh: ``data`` × ``model`` ranks on ``device``.  One
+    device (1 × 1) until tensor parallelism and ZeRO are ported (ROADMAP
+    queue 1, the sharding layouts)."""
+
+    device: torch.device
+    shape: tuple = (("data", 1), ("model", 1))
+
+    @property
+    def axes(self) -> dict:
+        return dict(self.shape)
+
+
+def make_train_mesh(device="cuda") -> TrainMesh:
+    return TrainMesh(device=torch.device(device))

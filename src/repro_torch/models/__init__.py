@@ -1,5 +1,5 @@
-"""repro_torch.models — the model zoo's serving path (dense GQA and Mamba2
-SSD stacks), the port of ``repro.models`` less training (``lm_loss``)."""
+"""repro_torch.models — the model zoo (dense GQA and Mamba2 SSD stacks):
+serving, and training through ``lm_loss``; the port of ``repro.models``."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (
@@ -8,6 +8,7 @@ from repro_torch.models.transformer import (
     forward_hidden,
     init,
     init_decode_state,
+    lm_loss,
     prefill,
 )
 
@@ -18,5 +19,6 @@ __all__ = [
     "forward_hidden",
     "init",
     "init_decode_state",
+    "lm_loss",
     "prefill",
 ]

@@ -14,8 +14,9 @@ Every entry point takes ``backend`` (``auto`` | ``cuda`` | ``plain`` |
 ``reference``, see :mod:`repro_torch.kernels.ops`) and hands it to the
 kernels: on CUDA tensors ``auto`` runs the flash-attention (K9) and SSD
 scan (K10) kernels, on CPU tensors their plain versions.  MoE FFNs and
-encoder–decoder models raise ``NotImplementedError`` until their slices;
-the loss (``lm_loss``) comes with training.
+encoder–decoder models raise ``NotImplementedError`` until their slices.
+:func:`lm_loss` is the training loss: the reference's chunked
+cross-entropy, whose backward recomputes one chunk of logits at a time.
 """
 
 from __future__ import annotations
@@ -102,6 +103,13 @@ class Model(nn.Module):
         )
         self.final_norm = norm_init(cfg, device=device)
 
+    def forward(self, fn, *args, **kwargs):
+        """``fn(self, *args, **kwargs)``: with
+        ``torch.func.functional_call(model, params, (fn, ...))`` any entry
+        point of this module (:func:`lm_loss`, :func:`forward_hidden`) runs
+        on the parameters ``params`` (a dict keyed by parameter name)."""
+        return fn(self, *args, **kwargs)
+
 
 def init(generator: torch.Generator, cfg: ModelConfig, *, device="cuda") -> Model:
     """The model's parameters in ``cfg.param_dtype`` on ``device``, drawn
@@ -151,6 +159,82 @@ def forward_hidden(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
     x, _ = _stack_apply(params, x, cfg, causal=True, backend=backend)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return norm_apply(params.final_norm, x, cfg), aux
+
+
+def lm_loss(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
+    """Causal-LM loss: chunked cross-entropy plus the MoE aux term.
+
+    ``batch`` holds ``tokens`` (or ``embeds``) and ``labels`` (int, −1 =
+    masked), numpy or tensors.  Returns ``(loss, {"xent", "aux",
+    "tokens"})``, as the reference does."""
+    hidden, aux = forward_hidden(params, batch, cfg, backend=backend)
+    w = lm_head_weights(params.embed, cfg)
+    labels = _tokens(batch["labels"], hidden.device)
+    xent, n_tok = _chunked_xent(hidden, w, labels, cfg)
+    loss = xent + cfg.router_aux_coef * aux
+    return loss, {"xent": xent, "aux": aux, "tokens": n_tok}
+
+
+def _chunk_logits(h, w, vocab_size: int):
+    """One chunk's f32 logits with the padded vocab rows masked to −1e30."""
+    logits = (h @ w).float()
+    if logits.shape[-1] > vocab_size:
+        logits[..., vocab_size:] = -1e30
+    return logits
+
+
+class _ChunkedXent(torch.autograd.Function):
+    """Σ softmax cross-entropy of ``hidden @ w`` over label-valid rows,
+    ``chunk`` sequence rows at a time.  Only ``hidden``, ``w`` and the
+    labels are saved: the backward recomputes each chunk's logits and forms
+    its ``softmax − onehot`` there, so no more than one chunk's (B, chunk,
+    V) logits exists at a time.  The logits' gradient is cast to the
+    products' dtype before the two products, as the reference's cast
+    transposes; ``w``'s is summed over the chunks in f32."""
+
+    @staticmethod
+    def forward(hidden, w, labels, vocab_size, chunk):
+        tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for s0 in range(0, hidden.shape[1], chunk):
+            logits = _chunk_logits(hidden[:, s0 : s0 + chunk], w, vocab_size)
+            lab = labels[:, s0 : s0 + chunk]
+            m = logits.amax(dim=-1, keepdim=True)
+            lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+            ll = logits.gather(-1, lab.clamp(min=0)[..., None])[..., 0]
+            tot = tot + torch.where(lab >= 0, lse - ll, 0.0).sum()
+        return tot
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        hidden, w, labels, vocab_size, chunk = inputs
+        ctx.save_for_backward(hidden, w, labels)
+        ctx.vocab_size, ctx.chunk = vocab_size, chunk
+
+    @staticmethod
+    def backward(ctx, g):
+        hidden, w, labels = ctx.saved_tensors
+        dh = torch.empty_like(hidden)
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        for s0 in range(0, hidden.shape[1], ctx.chunk):
+            h = hidden[:, s0 : s0 + ctx.chunk]
+            lab = labels[:, s0 : s0 + ctx.chunk]
+            dlogits = torch.softmax(_chunk_logits(h, w, ctx.vocab_size), dim=-1)
+            dlogits.scatter_add_(-1, lab.clamp(min=0)[..., None],
+                                 torch.full(lab.shape + (1,), -1.0, device=h.device))
+            dlogits = (dlogits * ((lab >= 0) * g)[..., None]).to(h.dtype)
+            dh[:, s0 : s0 + ctx.chunk] = dlogits @ w.T
+            dw += (h.reshape(-1, h.shape[-1]).T @ dlogits.reshape(-1, w.shape[1])).float()
+        return dh, dw.to(w.dtype), None, None, None
+
+
+def _chunked_xent(hidden, w, labels, cfg: ModelConfig):
+    """Mean softmax cross-entropy over the valid labels, over sequence
+    chunks of ``cfg.logits_chunk`` (see :class:`_ChunkedXent`); returns
+    ``(xent, valid label count)``."""
+    chunk = min(cfg.logits_chunk, hidden.shape[1])
+    cnt = (labels >= 0).sum().to(torch.int32)
+    tot = _ChunkedXent.apply(hidden, w, labels, cfg.vocab_size, chunk)
+    return tot / torch.clamp(cnt, min=1), cnt
 
 
 # ---------------------------------------------------------------------------

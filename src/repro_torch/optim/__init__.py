@@ -1,5 +1,14 @@
-"""repro_torch.optim — the Hessian-free optimizer with Krylov recycling."""
+"""repro_torch.optim — AdamW, PowerSGD gradient compression, and the
+Hessian-free optimizer with Krylov recycling."""
 
+from repro_torch.optim.adam import AdamState, adam_init, adam_update
+from repro_torch.optim.grad_compress import (
+    PowerSGDState,
+    compress,
+    compress_decompress,
+    decompress,
+    powersgd_init,
+)
 from repro_torch.optim.hessian_free import (
     HFConfig,
     HFState,
@@ -10,6 +19,9 @@ from repro_torch.optim.hessian_free import (
 )
 
 __all__ = [
+    "AdamState", "adam_init", "adam_update",
+    "PowerSGDState", "compress", "compress_decompress", "decompress",
+    "powersgd_init",
     "HFConfig", "HFState", "hf_init", "hf_step",
     "softmax_xent_hvp", "squared_loss_hvp",
 ]

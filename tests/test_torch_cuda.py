@@ -39,7 +39,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_sharded_cases as cases  # noqa: E402
-from repro_torch.kernels import cg_fused  # noqa: E402
+from repro_torch.kernels import _runtime, cg_fused  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 from repro_torch.kernels import ops as kops  # noqa: E402
@@ -796,6 +796,82 @@ def test_flash_attention(device, dtype, case):
                             backend="reference")
     torch.testing.assert_close(got.float(), oracle, **LM_TOL[dtype])
     assert torch.equal(got, fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off))
+
+
+GRAD_BAR = {torch.float32: 2e-4, torch.bfloat16: 5e-2}  # of the plain version's max abs
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", [
+    # b, h, hkv, sq, sk, dh, causal (q_offset 0): dh 16, 32, 64, 128; GQA
+    # groups 2 and 4; ragged tiles; sq != sk; qwen1.5-0.5b's heads.
+    (2, 4, 2, 64, 64, 32, False),
+    (1, 8, 2, 96, 96, 64, True),
+    (1, 16, 4, 257, 257, 128, True),
+    (1, 2, 1, 40, 200, 16, False),
+    (2, 4, 2, 130, 70, 16, True),
+    (1, 4, 4, 70, 300, 128, False),
+    (2, 16, 16, 512, 512, 64, True),
+])
+def test_flash_attention_grad_arms(device, dtype, case):
+    b, h, hkv, sq, sk, dh, causal = case
+    rnd = _gen(device, torch.float32, sq + sk + dh + 1)
+    q, k, v = (rnd(b, n, s, dh).to(dtype) for n, s in ((h, sq), (hkv, sk), (hkv, sk)))
+    dout, tq = rnd(b, h, sq, dh).to(dtype), rnd(b, h, sq, dh).to(dtype)
+    tk, tv = rnd(b, hkv, sk, dh).to(dtype), rnd(b, hkv, sk, dh).to(dtype)
+    arms = dict(_runtime.ARMS)
+    out, lse = fa.flash_attention_lse_cuda(q, k, v, causal=causal)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, causal=causal))
+    out_p, lse_p = fa.flash_attention_lse_plain(q, k, v, causal=causal, block_q=32, block_k=48)
+    torch.testing.assert_close(lse, lse_p, **LM_TOL[torch.float32])
+    grads = fa.flash_attention_bwd_cuda(dout, q, k, v, out_p, lse_p, causal=causal)
+    want = fa.flash_attention_bwd_plain(dout, q, k, v, out_p, lse_p, causal=causal, block_q=32,
+                                        block_k=48)
+    for got, w in zip(grads, want):
+        assert got.dtype == dtype and got.shape == w.shape
+        assert _rel(got, w) <= GRAD_BAR[dtype]
+    again = fa.flash_attention_bwd_cuda(dout, q, k, v, out_p, lse_p, causal=causal)
+    assert all(torch.equal(a, g) for a, g in zip(again, grads))
+    tout = fa.flash_attention_jvp_cuda(q, k, v, out_p, lse_p, tq, tk, tv, causal=causal)
+    want = fa.flash_attention_jvp_plain(q, k, v, out_p, lse_p, tq, tk, tv, causal=causal,
+                                        block_q=32, block_k=48)
+    assert _rel(tout, want) <= GRAD_BAR[dtype]
+    assert torch.equal(tout, fa.flash_attention_jvp_cuda(q, k, v, out_p, lse_p, tq, tk, tv,
+                                                         causal=causal))
+    for arm, n in (("lse", 1), ("bwd", 2), ("jvp", 2)):
+        key = f"flash_attention:{arm}"
+        assert _runtime.ARMS.get(key, 0) - arms.get(key, 0) == n
+
+
+def test_attention_autograd_and_func_on_the_card(device):
+    rnd = _gen(device, torch.float32, 7)
+    q, k, v = (rnd(2, n, 96, 64).to(torch.bfloat16) for n in (8, 2, 2))
+    arms = dict(_runtime.ARMS)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    kops.attention(*leaves, causal=True).float().square().sum().backward()
+    assert all(x.grad is not None and bool(torch.isfinite(x.grad).all()) for x in leaves)
+    f = lambda *a: kops.attention(*a, causal=True)  # noqa: E731
+    _, lin = torch.func.linearize(f, q, k, v)
+    t = tuple(torch.ones_like(x) for x in (q, k, v))
+    assert torch.equal(lin(*t), torch.func.jvp(f, (q, k, v), t)[1])
+    got = {a: _runtime.ARMS.get(f"flash_attention:{a}", 0) - arms.get(f"flash_attention:{a}", 0)
+           for a in ("lse", "bwd", "jvp")}
+    assert got["lse"] >= 1 and got["bwd"] == 1 and got["jvp"] >= 2, got
+    with pytest.raises(ValueError, match="q_offset"):
+        kops.attention(leaves[0], k, v, causal=True, q_offset=1)
+
+
+def test_ssd_scan_refuses_a_differentiated_input(device):
+    x, dt, a, bmat, cmat, d, _ = _ssd_inputs((1, 64, 2, 16, 1, 16, 32), torch.float32, device,
+                                             False)
+    with pytest.raises(NotImplementedError, match="mamba2 training"):
+        ss.ssd_scan_cuda(x.requires_grad_(True), dt, a, bmat, cmat, d)
+    with pytest.raises(NotImplementedError, match="mamba2 training"):
+        torch.func.grad(lambda t: ss.ssd_scan_cuda(t, dt, a, bmat, cmat, d).sum())(x.detach())
 
 
 def _ssd_inputs(case, dtype, device, state, strided=False):
