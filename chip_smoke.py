@@ -10,7 +10,11 @@ Phases, each of which fails the script when it fails:
 1. device   — needs ``torch.cuda.is_available()``; prints the card's name
               and power limit (``nvidia-smi``) and compute capability.
 2. build    — builds the port's CUDA sources (``src/repro_torch/csrc``) with
-              ``nvcc``, one process per source, all started together.
+              ``nvcc``, one process per source, all started together; then
+              reads K9's differentiated kernels (``namespace grad``) in the
+              built SASS (``cuobjdump``): each bf16 kernel must run HMMA and
+              none may use an atomic; their registers and local (spill)
+              bytes are printed.
 3. kernels  — holds every kernel of the main paths against its plain PyTorch
               version on the card, in f64 (1e-12 relative) and f32 (2e-4;
               the RBF Gram matvec 2e-4 relative / 5e-4 absolute), at the
@@ -259,8 +263,10 @@ Phases, each of which fails the script when it fails:
               version's max abs, the lse arm's output bit for bit the
               serving arm's, each arm twice bit for bit; timed at the
               training shape beside the plain versions, SDPA's forward and
-              backward (its forward subtracted) and the bound (2.5 × the
-              forward's flops for the backward and the JVP).
+              backward (its forward subtracted), the bound (2.5 × the
+              forward's flops for the backward and the JVP) and, for the
+              backward and the JVP, the CUDA-core design's time
+              (``PREVIOUS_MS``).
 19. train   — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
               151 936, tied, f32 parameters, bf16 compute), 4 × 4 096
               tokens, through ``launch.train.build`` and the ``Trainer``:
@@ -312,6 +318,8 @@ import functools
 import json
 import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -407,7 +415,8 @@ LONG_REPS = 3
 # over every 64 × 64 tile and K8 on it, K10's one block per (batch, head)
 # walking its chunks in order on the CUDA cores, K1's two launches (partials,
 # then a reduce kernel), K7's grid capped at 8 blocks an SM, K6's two
-# launches and K2's one element a thread on a capped grid.
+# launches and K2's one element a thread on a capped grid; K9's backward
+# and forward-mode arms in bf16 on the CUDA cores (at ATTN_TRAIN).
 PREVIOUS_MS = {"fused_rz_reduce float64 n=36551": 0.0114,
                "fused_rz_reduce no-aw float64 n=36551": 0.0094,
                "fused_deflate_direction float64 n=36551": 0.0081,
@@ -420,7 +429,8 @@ PREVIOUS_MS = {"fused_rz_reduce float64 n=36551": 0.0114,
                "rbf_matvec_rect float64 m=4096 n=16384 r=1": 11.37,
                "fused_cg_update float64 n=36551": 0.0134, "lsmr_update float64 n=16384": 0.0065,
                "lsmr_update float64 n=32768": 0.0069, "lsmr_update float64 n=1048576": 0.0281,
-               "lsmr_update float32 n=1048576": 0.0173}
+               "lsmr_update float32 n=1048576": 0.0173,
+               "flash_attention:bwd": 20.509, "flash_attention:jvp": 13.859}
 # K9's differentiated arms (forward with the row log-sum-exp, backward,
 # forward mode; q_offset 0), b, h, hkv, sq, sk, dh, causal: dh 16, 64 and
 # 128, causal and not, GQA (h 8, hkv 2), ragged tiles, in f32 and bf16;
@@ -2696,6 +2706,66 @@ def grad_work(b, h, hkv, sq, sk, dh, causal, itemsize, arm):
     return (5 * q_el + 4 * kv_el) * itemsize + 4 * rows, 2.5 * ops
 
 
+def _sass_name(symbol):
+    """``attn_bwd_dkdv_tc<64>``-style name of a mangled kernel symbol of
+    ``namespace grad`` (``<bf16, 64>`` / ``<f32, 64>`` for the typed ones),
+    or None for any other symbol."""
+    m = re.search(r"4grad(\d+)(?=attn_)", symbol)
+    if m is None:
+        return None
+    name = symbol[m.end():m.end() + int(m.group(1))]
+    rest = symbol[m.end() + int(m.group(1)):]
+    dh = re.search(r"Li(\d+)E", rest).group(1)
+    dtype = "bf16, " if "__nv_bfloat16" in rest[:24] else "f32, " if rest.startswith("If") else ""
+    return f"{name}<{dtype}{dh}>"
+
+
+def grad_sass(build):
+    """K9's differentiated kernels in the built SASS of
+    ``csrc/flash_attention.cu``: HMMA instructions per kernel of ``namespace
+    grad``, atomics (ATOM / RED of any width) and registers, stack (spill)
+    and local bytes (``cuobjdump -res-usage``).  Raises unless every bf16 tensor-core kernel
+    (``*_tc``) runs HMMA and no kernel there has an atomic."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    lib = str(build.library_path("flash_attention"))
+    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
+                         timeout=300, check=True).stdout
+    kernels, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = _sass_name(m.group(1))
+            if fn:
+                kernels[fn] = {"HMMA": 0, "atomics": 0}
+            continue
+        if fn and re.search(r"\bHMMA\b", line):
+            kernels[fn]["HMMA"] += 1
+        if fn and re.search(r"\b(ATOM|ATOMS|ATOMG|RED|REDG)\.", line):
+            kernels[fn]["atomics"] += 1
+    fn = None
+    for line in res.splitlines():
+        m = re.search(r"Function (\S+):", line)
+        if m:
+            fn = _sass_name(m.group(1))
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+).*LOCAL:(\d+)", line)
+        if fn in kernels and m:
+            kernels[fn].update(registers=int(m.group(1)), stack_bytes=int(m.group(2)),
+                               local_bytes=int(m.group(3)))
+    log("[build] flash_attention namespace grad SASS: " + "; ".join(
+        f"{k} HMMA {v['HMMA']}, atomics {v['atomics']}, registers {v.get('registers')}, "
+        f"stack {v.get('stack_bytes')} B, local {v.get('local_bytes')} B"
+        for k, v in sorted(kernels.items())))
+    tc = [k for k in kernels if "_tc<" in k]
+    if len(tc) != 12 or any(kernels[k]["HMMA"] == 0 for k in tc):
+        raise AssertionError(f"[build] the bf16 grad kernels must run HMMA: {kernels}")
+    if any(v["atomics"] for v in kernels.values()):
+        raise AssertionError(f"[build] an atomic in namespace grad: {kernels}")
+    return kernels
+
+
 def phase_check_lm_grad(torch, peaks, device="cuda"):
     """K9's forward-with-lse, backward and forward-mode arms against their
     plain versions on the card (the lse arm's output bit for bit the serving
@@ -2788,8 +2858,10 @@ def phase_check_lm_grad(torch, peaks, device="cuda"):
         lib = "null (no PyTorch call computes the tangent)" if library is None else (
             f"{library:.3f} ms (scaled_dot_product_attention's "
             f"{'forward' if arm == 'lse' else 'backward, its forward subtracted'})")
+        previous = PREVIOUS_MS.get(f"flash_attention:{arm}")
+        prev = "" if previous is None else f", previous design {previous} ms"
         log(f"[timing] flash_attention:{arm} {ATTN_TRAIN} bf16: kernel {e['ms']:.3f} ms "
-            f"({e['tflop_s']:.1f} TFLOP/s), plain {e['plain_ms']:.3f} ms, library {lib}, bound "
+            f"({e['tflop_s']:.1f} TFLOP/s{prev}), plain {e['plain_ms']:.3f} ms, library {lib}, bound "
             f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
     return entries
 
@@ -4130,6 +4202,7 @@ def main(argv) -> int:
         for line in text.splitlines():
             if "registers" in line or "spill" in line and "0 bytes spill" not in line:
                 log(f"[build] {src}: {line.strip()}")
+    report["grad_sass"] = grad_sass(_build)
 
     if "--lm-only" in argv:  # the model zoo's phases alone: no ok line
         lm_kernels, lm_launches = phase_lm(torch, peaks, report)

@@ -112,10 +112,6 @@ template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as a dtype cast does
-}
 
 template <int DH>
 constexpr size_t smem_bytes() {
@@ -332,6 +328,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
                "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+               "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -591,44 +593,75 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 
 // ---------------------------------------------------------------------------
-// Backward and forward-mode arms: f32 arithmetic on the CUDA cores
+// Backward and forward-mode arms
 // ---------------------------------------------------------------------------
 //
 // Both take the forward's O and its f32 row log-sum-exp (natural log) and
 // recompute P = exp(scale q k^T - lse) tile by tile, so no score matrix is
 // kept between the passes.  q_offset is 0 (the wrappers refuse any other).
-// The layout is the f32 forward's: 256-thread blocks, 64 x 64 score tiles
-// with a 4 x 4 register tile a thread (rows ty + 16a, columns tx + 16b),
-// operand tiles staged as f32 through shared memory (zeros past sq / sk),
-// every score of a visited tile masked by position.
 //
 // Backward, three launches (FA2's deterministic layout, no float atomics):
 //   rowdot  D_i = sum_c dO_ic O_ic, one thread a row;
 //   dkdv    a block owns a 64-key tile of one KV head and loops over the
-//           query heads of its GQA group and every query tile at or below
-//           the diagonal: S and dP = dO V^T in one pass over dh, then
-//           P = exp(S scale - lse), dS = P (dP - D) scale;
-//           dV += round(P)^T dO (P rounded to the inputs' dtype, as the
-//           forward's P V takes it), dK += dS^T Q;
-//   dq      a block owns a 64-row query tile: the same S, dP and dS over
-//           the key tiles it sees, dQ += dS K.
+//           query heads of its GQA group, then every query tile with a row
+//           at or past its first key (all of them without causal masking):
+//           S and dP = dO V^T, P = exp(S scale - lse), dS = P (dP - D) scale,
+//           dV += P^T dO, dK += dS^T Q;
+//   dq      a block owns a 64-row query tile (the heaviest first): the same
+//           S, dP and dS over the key tiles it sees, dQ += dS K.
 //   Every output element is written by one block after a loop in a fixed
-//   order: two launches agree bit for bit.
+//   order: two launches agree bit for bit.  Both kernels recompute S and dP
+//   (seven products of the forward's size, not five): dQ partials per key
+//   tile summed in a second pass would cost more in bytes (about 2 GB of f32
+//   scratch at the training shape) than the two products in operations.
 //
 // Forward mode (JVP), one launch: a block owns a 64-row query tile and, per
-// key tile, forms S and S' = q' k^T + q k'^T in one pass over dh (K, then
-// K' staged), P = exp(S scale - lse) and T = P (S' scale); then, with V and
-// V' staged in the same buffers, acc += T V + P V'; each row's r = sum_j T
-// is summed over its 16 threads in a fixed order at the end, and
+// key tile, forms S and S' = q' k^T + q k'^T, P = exp(S scale - lse) and
+// T = P (S' scale), then acc += T V + P V'; each row's r = sum_j T is summed
+// per thread, then over the threads that share the row in a fixed order, and
 //   O' = acc - r O.
 // With the forward's lse no running max or rescale is needed: one pass.
 //
-// What bounds them: operations.  The backward and the JVP each do five
+// What bounds them: operations.  The backward and the JVP each need five
 // products of the forward's size (2.5 x its flops): 343.5 GFLOP at
 // qwen1.5-0.5b's training shape (b 4, h 16, s 4096, dh 64, causal), 0.347 ms
-// at 989 TFLOP/s bf16.  These first versions run on the CUDA cores in f32
-// (the backward recomputes S and dP in both of its kernels: seven products);
-// the tensor-core versions (mma.sync / wgmma on bf16 operands) are later work.
+// at 989 TFLOP/s bf16.
+//
+// bf16: attn_bwd_dkdv_tc, attn_bwd_dq_tc, attn_jvp_tc, on the tensor cores
+//   (mma.sync m16n8k16, f32 accumulators; the forward's swizzled cp.async
+//   tiles, ldmatrix fragments and ex2 exponent):
+//   * 128-thread blocks, 16 rows a warp: keys in dkdv (S^T = K Q^T and
+//     dP^T = V dO^T, so the key-side outputs accumulate in the warp's
+//     registers), queries in dq and jvp.  The warp's own operands (K and V
+//     in dkdv; Q and dO in dq; Q and Q' in jvp) are ldmatrix fragments held
+//     in registers for the whole loop (dkdv at dh 128 reloads K and V from
+//     shared memory each step, to stay within the register file); the
+//     streamed tiles (Q, dO and their lse / D rows in dkdv; K and V in dq;
+//     K, K', V, V' in jvp) are double-buffered by cp.async, zeros past sq /
+//     sk, so ragged edges need no padded copies.
+//   * The second products take the score accumulators packed to bf16 pairs
+//     as their A fragments (the m16n8 C layout is the m16k16 A layout), B
+//     by ldmatrix.trans: P and dS never touch shared memory.
+//   * Positions are masked only on tiles that reach the diagonal or an edge.
+//   * Numerics: operands bf16 as given; S, dP and S' in f32; P = 2^(S c -
+//     lse log2 e) with c = scale log2 e by ex2.approx; D, r and the lse f32.
+//     Rounding to bf16 happens only where a product takes an operand: P for
+//     dV, dS for dQ and dK, P and T for the JVP's two output products.  The
+//     plain versions round at the same points, so kernel and plain differ by
+//     summation order and ex2.approx alone.
+//   * Tiles: the steps that stream 64 rows stream 32 at dh 128 (dkdv's query
+//     tiles, dq's and jvp's key tiles), so that accumulators and fragments
+//     fit without spills (ptxas -v in the build log).
+//   * What still separates them from their bound: mma.sync's rate (about two
+//     thirds of wgmma's), the exponentials between the products of a warp,
+//     cp.async instead of TMA, and the two recomputed products.
+//
+// f32: attn_bwd_dkdv, attn_bwd_dq, attn_jvp, the same schedule in f32
+//   arithmetic on the CUDA cores (no TF32): 256-thread blocks, 64 x 64 score
+//   tiles with a 4 x 4 register tile a thread (rows ty + 16a, columns
+//   tx + 16b), operand tiles staged as f32 through shared memory (zeros past
+//   sq / sk), every score of a visited tile masked by position, P and dS (P
+//   and T in the JVP) passed through shared memory to the second products.
 
 namespace grad {
 
@@ -804,13 +837,13 @@ attn_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k, const T* __restr
   }
 }
 
-// Key tiles a query tile starting at q0 visits (all of them, or under
-// causal masking those that start at or before its last row).
-__device__ __forceinline__ int key_tiles(int q0, int sq, int sk, int causal) {
-  int n = (sk + kBK - 1) / kBK;
+// Key tiles of `bk` keys a 64-row query tile starting at q0 visits (all of
+// them, or under causal masking those that start at or before its last row).
+__device__ __forceinline__ int key_tiles(int q0, int sq, int sk, int causal, int bk = kBK) {
+  int n = (sk + bk - 1) / bk;
   if (causal) {
     const int last = (sq - q0 < kBQ ? sq : q0 + kBQ) - 1;
-    const int visit = last / kBK + 1;
+    const int visit = last / bk + 1;
     if (visit < n) n = visit;
   }
   return n;
@@ -1029,9 +1062,9 @@ attn_jvp(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__
 }
 
 template <typename T, int DH>
-int launch_bwd(const void* q, const void* k, const void* v, const void* o, const float* lse,
-               const void* dout, void* dq, void* dk, void* dv, float* dvec, int b, int h,
-               int hkv, int sq, int sk, double scale, int causal, cudaStream_t stream) {
+int launch_bwd_simt(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                    const void* dout, void* dq, void* dk, void* dv, float* dvec, int b, int h,
+                    int hkv, int sq, int sk, double scale, int causal, cudaStream_t stream) {
   constexpr size_t s1 = dkdv_smem<DH>(), s2 = dq_smem<DH>();
   cudaError_t err = cudaFuncSetAttribute(attn_bwd_dkdv<T, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
@@ -1059,9 +1092,9 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o, const
 }
 
 template <typename T, int DH>
-int launch_jvp(const void* q, const void* k, const void* v, const void* o, const float* lse,
-               const void* tq, const void* tk, const void* tv, void* to, int b, int h, int hkv,
-               int sq, int sk, double scale, int causal, cudaStream_t stream) {
+int launch_jvp_simt(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                    const void* tq, const void* tk, const void* tv, void* to, int b, int h,
+                    int hkv, int sq, int sk, double scale, int causal, cudaStream_t stream) {
   constexpr size_t smem = jvp_smem<DH>();
   const cudaError_t err = cudaFuncSetAttribute(
       attn_jvp<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -1071,6 +1104,522 @@ int launch_jvp(const void* q, const void* k, const void* v, const void* o, const
       static_cast<const T*>(o), lse, static_cast<const T*>(tq), static_cast<const T*>(tk),
       static_cast<const T*>(tv), static_cast<T*>(to), h, h / hkv, sq, sk, (float)scale, causal);
   return (int)cudaGetLastError();
+}
+
+// ---- bf16 on the tensor cores ----------------------------------------------
+
+using tc::bf16;
+
+// Rows a streamed step takes: 64, or 32 at dh 128 (dkdv's query tiles, dq's
+// and jvp's key tiles), so that the f32 accumulators and fragments stay in
+// registers.  dkdv keeps its warp's K and V fragments in registers below dh
+// 128 and reloads them from shared memory each step at dh 128.
+template <int DH>
+struct TcTiles {
+  static constexpr int kStep = DH <= 64 ? 64 : 32;
+  static constexpr bool kKeepKV = DH <= 64;
+};
+
+template <int DH>
+constexpr size_t dkdv_tc_smem() {  // K, V; two stages of Q, dO and their lse, D rows
+  constexpr int n = TcTiles<DH>::kStep;
+  return sizeof(bf16) * DH * (2 * 64 + 2 * 2 * n) + sizeof(float) * 2 * 2 * n;
+}
+template <int DH>
+constexpr size_t dq_tc_smem() {  // Q, dO; two stages of K and V
+  return sizeof(bf16) * DH * (2 * 64 + 2 * 2 * TcTiles<DH>::kStep);
+}
+template <int DH>
+constexpr size_t jvp_tc_smem() {  // Q, Q'; two stages of K, K', V and V'
+  return sizeof(bf16) * DH * (2 * 64 + 2 * 4 * TcTiles<DH>::kStep);
+}
+
+// Entries [r0, r0 + N) of an f32 row vector into shared memory by threads
+// [lo, lo + N), zeros past `rows`.
+template <int N>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src, int r0,
+                                          int rows, int lo) {
+  const int i = (int)threadIdx.x - lo;
+  if (i >= 0 && i < N) {
+    const bool valid = r0 + i < rows;
+    tc::cp_async4(dst + i, src + (valid ? r0 + i : 0), valid);
+  }
+}
+
+// The m16k16 A fragment of rows [r0, r0 + 16) of a swizzled tile, k-step kk.
+template <int DH>
+__device__ __forceinline__ void ldsm_a(unsigned (&a)[4], const bf16* tile, int r0, int kk) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
+  tc::ldsm_x4(a, tile + tc::swz<DH>(r0 + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+}
+
+// acc[n] += A B for the n-th 8-row group of `tile` (N rows of DH): B = the
+// group's rows transposed, k-step kk; A a warp's 16 x 16 fragment.
+template <int DH, int N>
+__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const unsigned (&a)[4],
+                                        const bf16* tile, int kk) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int jp = 0; jp < N / 16; ++jp) {
+    unsigned b[4];
+    tc::ldsm_x4(b, tile + tc::swz<DH>(16 * jp + mr + (mi >> 1) * 8, 2 * kk + (mi & 1)));
+    tc::mma(acc[2 * jp], a, b[0], b[1]);
+    tc::mma(acc[2 * jp + 1], a, b[2], b[3]);
+  }
+}
+
+// acc (16 x DH) += round(X) Y: X the warp's 16 x N f32 accumulators, packed
+// to bf16 pairs as they lie (the A fragments), Y the N x DH tile (B by
+// ldmatrix.trans).
+template <int DH, int N>
+__device__ __forceinline__ void mma_xy(float (&acc)[DH / 8][4], const float (&x)[N / 8][4],
+                                       const bf16* tile) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < N / 16; ++kk) {
+    const unsigned a[4] = {tc::pack(x[2 * kk][0], x[2 * kk][1]),
+                           tc::pack(x[2 * kk][2], x[2 * kk][3]),
+                           tc::pack(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                           tc::pack(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < DH / 16; ++dp) {
+      unsigned b[4];
+      tc::ldsm_x4_trans(b, tile + tc::swz<DH>(16 * kk + mr + (mi & 1) * 8, 2 * dp + (mi >> 1)));
+      tc::mma(acc[2 * dp], a, b[0], b[1]);
+      tc::mma(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&acc)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+}
+
+// Rows r0 + g and r0 + g + 8 (below `rows`) of a warp's 16 x DH f32
+// accumulator to a (rows, DH) bf16 matrix.
+template <int DH>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[DH / 8][4], int r0,
+                                           int rows) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + g + 8 * r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int n = 0; n < DH / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * DH + 8 * n + 2 * t4) =
+          __floats2bfloat162_rn(acc[n][2 * r], acc[n][2 * r + 1]);
+  }
+}
+
+// dK and dV of a 64-key tile (blockIdx.y) of one KV head (blockIdx.x), warp
+// w owning keys k0 + 16 w ...: S^T = K Q^T and dP^T = V dO^T, then P^T and
+// dS^T element-wise (element e of column tile n is key g + 8 (e >> 1),
+// query 8 n + 2 t + (e & 1)), dV += round(P^T) dO, dK += round(dS^T) Q.
+template <int DH>
+__global__ void __launch_bounds__(tc::kThreads)
+attn_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ dvec,
+                 bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int group, int sq, int sk,
+                 float scale, float scale_log2, int causal) {
+  constexpr int KS = DH / 16, NO = DH / 8;
+  constexpr int NQ = TcTiles<DH>::kStep, NT = NQ / 8;
+  constexpr bool KEEP = TcTiles<DH>::kKeepKV;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // 64 x DH
+  bf16* vs = ks + 64 * DH;                       // 64 x DH
+  bf16* qs = vs + 64 * DH;                       // two stages of NQ x DH
+  bf16* dos = qs + 2 * NQ * DH;                  // two stages of NQ x DH
+  float* ls = reinterpret_cast<float*>(dos + 2 * NQ * DH);  // two stages of NQ lse
+  float* ds = ls + 2 * NQ;                                  // two stages of NQ D
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int kv = blockIdx.x, hkv = h / group;
+  const int bi = kv / hkv, kh = kv % hkv;
+  const int k0 = blockIdx.y * 64;
+  const int kw = k0 + 16 * warp;  // this warp's first key
+  const bf16* kp = k + (size_t)kv * sk * DH;
+  const bf16* vp = v + (size_t)kv * sk * DH;
+
+  const int n_qt = (sq + NQ - 1) / NQ;
+  const int t_first = causal ? k0 / NQ : 0;  // query tiles with a row at or past k0
+  const int per_head = n_qt > t_first ? n_qt - t_first : 0;
+  const int n_steps = group * per_head;  // the GQA group's heads, then their tiles
+
+  auto fetch = [&](int i, int st) {  // step i's tiles into stage st
+    const size_t bh = (size_t)bi * h + kh * group + i / per_head;
+    const int q0 = (t_first + i % per_head) * NQ;
+    tc::load_tile<DH, NQ>(qs + st * NQ * DH, q + bh * sq * DH, q0, sq);
+    tc::load_tile<DH, NQ>(dos + st * NQ * DH, dout + bh * sq * DH, q0, sq);
+    load_rows<NQ>(ls + st * NQ, lse + bh * sq, q0, sq, 0);
+    load_rows<NQ>(ds + st * NQ, dvec + bh * sq, q0, sq, NQ);
+  };
+  tc::load_tile<DH, 64>(ks, kp, k0, sk);
+  tc::load_tile<DH, 64>(vs, vp, k0, sk);
+  if (n_steps > 0) fetch(0, 0);
+  tc::cp_async_commit();
+
+  unsigned kf[KEEP ? KS : 1][4], vf[KEEP ? KS : 1][4];
+  float dk_acc[NO][4], dv_acc[NO][4];
+  zero(dk_acc);
+  zero(dv_acc);
+
+  for (int i = 0; i < n_steps; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n_steps) fetch(i + 1, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();  // everything but step i + 1 has landed
+    __syncthreads();
+    if constexpr (KEEP) {
+      if (i == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          ldsm_a<DH>(kf[kk], ks, 16 * warp, kk);
+          ldsm_a<DH>(vf[kk], vs, 16 * warp, kk);
+        }
+      }
+    }
+    const int q0 = (t_first + i % per_head) * NQ;
+    const bf16* qt = qs + st * NQ * DH;
+    const bf16* dot = dos + st * NQ * DH;
+    const float* lt = ls + st * NQ;
+    const float* dt = ds + st * NQ;
+
+    float s[NT][4], dp[NT][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      if constexpr (KEEP) {
+        mma_abt<DH, NQ>(s, kf[kk], qt, kk);
+        mma_abt<DH, NQ>(dp, vf[kk], dot, kk);
+      } else {
+        unsigned a[4];
+        ldsm_a<DH>(a, ks, 16 * warp, kk);
+        mma_abt<DH, NQ>(s, a, qt, kk);
+        ldsm_a<DH>(a, vs, 16 * warp, kk);
+        mma_abt<DH, NQ>(dp, a, dot, kk);
+      }
+    }
+
+    const bool edge = q0 + NQ > sq || k0 + 64 > sk || (causal && kw + 15 > q0);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int j = 8 * n + 2 * t4 + (e & 1);  // the query within the tile
+        float p = tc::ex2(fmaf(s[n][e], scale_log2, -lt[j] * tc::kLog2e));
+        if (edge) {
+          const int kpos = kw + g + 8 * (e >> 1), qpos = q0 + j;
+          if (qpos >= sq || kpos >= sk || (causal && kpos > qpos)) p = 0.f;
+        }
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dt[j]) * scale;
+      }
+    }
+    mma_xy<DH, NQ>(dv_acc, s, dot);  // dV += round(P^T) dO
+    mma_xy<DH, NQ>(dk_acc, dp, qt);  // dK += round(dS^T) Q
+    __syncthreads();  // this stage is consumed before step i + 2 overwrites it
+  }
+  tc::cp_async_wait<0>();
+
+  store_rows<DH>(dk + (size_t)kv * sk * DH, dk_acc, kw, sk);
+  store_rows<DH>(dv + (size_t)kv * sk * DH, dv_acc, kw, sk);
+}
+
+// dQ of a 64-row query tile (the heaviest first) of one head, warp w owning
+// rows q0 + 16 w ...: per key tile S = Q K^T and dP = dO V^T, P and dS
+// element-wise, dQ += round(dS) K.
+template <int DH>
+__global__ void __launch_bounds__(tc::kThreads)
+attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+               const bf16* __restrict__ v, const bf16* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ dvec,
+               bf16* __restrict__ dq, int h, int group, int sq, int sk, float scale,
+               float scale_log2, int causal) {
+  constexpr int KS = DH / 16, NO = DH / 8;
+  constexpr int BK = TcTiles<DH>::kStep, NT = BK / 8;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // 64 x DH
+  bf16* dos = qs + 64 * DH;                      // 64 x DH
+  bf16* ks = dos + 64 * DH;                      // two stages of BK x DH
+  bf16* vs = ks + 2 * BK * DH;                   // two stages of BK x DH
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, bi = bh / h, head = bh % h;
+  const int kvh = bi * (h / group) + head / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * tc::kBQ;
+  const int qw = q0 + 16 * warp;  // this warp's first row
+  const bf16* kp = k + (size_t)kvh * sk * DH;
+  const bf16* vp = v + (size_t)kvh * sk * DH;
+  const int n_tiles = key_tiles(q0, sq, sk, causal, BK);
+
+  tc::load_tile<DH, 64>(qs, q + (size_t)bh * sq * DH, q0, sq);
+  tc::load_tile<DH, 64>(dos, dout + (size_t)bh * sq * DH, q0, sq);
+  if (n_tiles > 0) {
+    tc::load_tile<DH, BK>(ks, kp, 0, sk);
+    tc::load_tile<DH, BK>(vs, vp, 0, sk);
+  }
+  tc::cp_async_commit();
+
+  float lse2[2], dd[2];  // rows g and g + 8: lse in log2 units, D
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    lse2[r] = row < sq ? lse[(size_t)bh * sq + row] * tc::kLog2e : 0.f;
+    dd[r] = row < sq ? dvec[(size_t)bh * sq + row] : 0.f;
+  }
+
+  unsigned qf[KS][4], dof[KS][4];
+  float acc[NO][4];
+  zero(acc);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) {
+      tc::load_tile<DH, BK>(ks + (st ^ 1) * BK * DH, kp, (t + 1) * BK, sk);
+      tc::load_tile<DH, BK>(vs + (st ^ 1) * BK * DH, vp, (t + 1) * BK, sk);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        ldsm_a<DH>(qf[kk], qs, 16 * warp, kk);
+        ldsm_a<DH>(dof[kk], dos, 16 * warp, kk);
+      }
+    }
+    const bf16* kt = ks + st * BK * DH;
+    const bf16* vt = vs + st * BK * DH;
+
+    float s[NT][4], dp[NT][4];
+    zero(s);
+    zero(dp);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      mma_abt<DH, BK>(s, qf[kk], kt, kk);
+      mma_abt<DH, BK>(dp, dof[kk], vt, kk);
+    }
+
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qw);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = tc::ex2(fmaf(s[n][e], scale_log2, -lse2[r]));
+        if (edge) {
+          const int kpos = k0 + 8 * n + 2 * t4 + (e & 1), qpos = qw + g + 8 * r;
+          if (kpos >= sk || (causal && kpos > qpos)) p = 0.f;
+        }
+        dp[n][e] = p * (dp[n][e] - dd[r]) * scale;
+      }
+    }
+    mma_xy<DH, BK>(acc, dp, kt);  // dQ += round(dS) K
+    __syncthreads();
+  }
+  tc::cp_async_wait<0>();
+  store_rows<DH>(dq + (size_t)bh * sq * DH, acc, qw, sq);
+}
+
+// The output tangent of a 64-row query tile (the heaviest first) of one
+// head, warp w owning rows q0 + 16 w ...: per key tile S = Q K^T and
+// S' = Q' K^T + Q K'^T (one accumulator), P, T = P (S' scale) and the
+// thread's share of r = sum T, acc += round(T) V + round(P) V'; at the end
+// r is summed over the quad and O' = acc - r O.
+template <int DH>
+__global__ void __launch_bounds__(tc::kThreads)
+attn_jvp_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+            const bf16* __restrict__ o, const float* __restrict__ lse,
+            const bf16* __restrict__ tq, const bf16* __restrict__ tk,
+            const bf16* __restrict__ tv, bf16* __restrict__ to, int h, int group, int sq, int sk,
+            float scale, float scale_log2, int causal) {
+  constexpr int KS = DH / 16, NO = DH / 8;
+  constexpr int BK = TcTiles<DH>::kStep, NT = BK / 8;
+  constexpr int TILE = BK * DH;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // 64 x DH
+  bf16* tqs = qs + 64 * DH;                      // 64 x DH
+  bf16* kvs = tqs + 64 * DH;                     // two stages of K, K', V, V'
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int bh = blockIdx.x, bi = bh / h, head = bh % h;
+  const int kvh = bi * (h / group) + head / group;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * tc::kBQ;
+  const int qw = q0 + 16 * warp;
+  const size_t kvo = (size_t)kvh * sk * DH;
+  const int n_tiles = key_tiles(q0, sq, sk, causal, BK);
+
+  auto fetch = [&](int t, int st) {  // key tile t's four tiles into stage st
+    bf16* dst = kvs + st * 4 * TILE;
+    tc::load_tile<DH, BK>(dst, k + kvo, t * BK, sk);
+    tc::load_tile<DH, BK>(dst + TILE, tk + kvo, t * BK, sk);
+    tc::load_tile<DH, BK>(dst + 2 * TILE, v + kvo, t * BK, sk);
+    tc::load_tile<DH, BK>(dst + 3 * TILE, tv + kvo, t * BK, sk);
+  };
+  tc::load_tile<DH, 64>(qs, q + (size_t)bh * sq * DH, q0, sq);
+  tc::load_tile<DH, 64>(tqs, tq + (size_t)bh * sq * DH, q0, sq);
+  if (n_tiles > 0) fetch(0, 0);
+  tc::cp_async_commit();
+
+  float lse2[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = qw + g + 8 * r;
+    lse2[r] = row < sq ? lse[(size_t)bh * sq + row] * tc::kLog2e : 0.f;
+  }
+
+  unsigned qf[KS][4], tqf[KS][4];
+  float acc[NO][4];
+  float rsum[2] = {0.f, 0.f};
+  zero(acc);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    if (t + 1 < n_tiles) fetch(t + 1, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        ldsm_a<DH>(qf[kk], qs, 16 * warp, kk);
+        ldsm_a<DH>(tqf[kk], tqs, 16 * warp, kk);
+      }
+    }
+    const bf16* kt = kvs + st * 4 * TILE;
+    const bf16* tkt = kt + TILE;
+    const bf16* vt = kt + 2 * TILE;
+    const bf16* tvt = kt + 3 * TILE;
+
+    float s[NT][4], sd[NT][4];
+    zero(s);
+    zero(sd);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      mma_abt<DH, BK>(s, qf[kk], kt, kk);
+      mma_abt<DH, BK>(sd, tqf[kk], kt, kk);
+      mma_abt<DH, BK>(sd, qf[kk], tkt, kk);
+    }
+
+    const int k0 = t * BK;
+    const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > qw);
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = tc::ex2(fmaf(s[n][e], scale_log2, -lse2[r]));
+        if (edge) {
+          const int kpos = k0 + 8 * n + 2 * t4 + (e & 1), qpos = qw + g + 8 * r;
+          if (kpos >= sk || (causal && kpos > qpos)) p = 0.f;
+        }
+        const float tt = p * (sd[n][e] * scale);
+        s[n][e] = p;
+        sd[n][e] = tt;
+        rsum[r] += tt;
+      }
+    }
+    mma_xy<DH, BK>(acc, sd, vt);   // += round(T) V
+    mma_xy<DH, BK>(acc, s, tvt);   // += round(P) V'
+    __syncthreads();
+  }
+  tc::cp_async_wait<0>();
+
+  const bf16* op = o + (size_t)bh * sq * DH;
+  bf16* top = to + (size_t)bh * sq * DH;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float rr = tc::quad_sum(rsum[r]);  // a fixed order over the quad
+    const int row = qw + g + 8 * r;
+    if (row >= sq) continue;
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      const size_t e = (size_t)row * DH + 8 * n + 2 * t4;
+      const float2 of = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(op + e));
+      *reinterpret_cast<__nv_bfloat162*>(top + e) =
+          __floats2bfloat162_rn(acc[n][2 * r] - rr * of.x, acc[n][2 * r + 1] - rr * of.y);
+    }
+  }
+}
+
+template <int DH>
+int launch_bwd_tc(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                  const void* dout, void* dq, void* dk, void* dv, float* dvec, int b, int h,
+                  int hkv, int sq, int sk, double scale, int causal, cudaStream_t stream) {
+  constexpr size_t s1 = dkdv_tc_smem<DH>(), s2 = dq_tc_smem<DH>();
+  static const cudaError_t opt_in1 = cudaFuncSetAttribute(  // once per process
+      attn_bwd_dkdv_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s1);
+  static const cudaError_t opt_in2 = cudaFuncSetAttribute(
+      attn_bwd_dq_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)s2);
+  if (opt_in1 != cudaSuccess) return (int)opt_in1;
+  if (opt_in2 != cudaSuccess) return (int)opt_in2;
+  const bf16* qt = static_cast<const bf16*>(q);
+  const bf16* kt = static_cast<const bf16*>(k);
+  const bf16* vt = static_cast<const bf16*>(v);
+  const bf16* dot = static_cast<const bf16*>(dout);
+  const float sl = (float)(scale * 1.4426950408889634);
+  const long long rows = (long long)b * h * sq;
+  attn_bwd_rowdot<bf16, DH><<<(unsigned)((rows + kThreads - 1) / kThreads), kThreads, 0,
+                              stream>>>(dot, static_cast<const bf16*>(o), dvec, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dkdv_tc<DH><<<dim3(b * hkv, (sk + 63) / 64), tc::kThreads, s1, stream>>>(
+      qt, kt, vt, dot, lse, dvec, static_cast<bf16*>(dk), static_cast<bf16*>(dv), h, h / hkv,
+      sq, sk, (float)scale, sl, causal);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  attn_bwd_dq_tc<DH><<<dim3(b * h, (sq + tc::kBQ - 1) / tc::kBQ), tc::kThreads, s2, stream>>>(
+      qt, kt, vt, dot, lse, dvec, static_cast<bf16*>(dq), h, h / hkv, sq, sk, (float)scale, sl,
+      causal);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_jvp_tc(const void* q, const void* k, const void* v, const void* o, const float* lse,
+                  const void* tq, const void* tk, const void* tv, void* to, int b, int h, int hkv,
+                  int sq, int sk, double scale, int causal, cudaStream_t stream) {
+  constexpr size_t smem = jvp_tc_smem<DH>();
+  static const cudaError_t opt_in = cudaFuncSetAttribute(
+      attn_jvp_tc<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (opt_in != cudaSuccess) return (int)opt_in;
+  attn_jvp_tc<DH><<<dim3(b * h, (sq + tc::kBQ - 1) / tc::kBQ), tc::kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), lse, static_cast<const bf16*>(tq),
+      static_cast<const bf16*>(tk), static_cast<const bf16*>(tv), static_cast<bf16*>(to), h,
+      h / hkv, sq, sk, (float)scale, (float)(scale * 1.4426950408889634), causal);
+  return (int)cudaGetLastError();
+}
+
+// bf16 on the tensor cores, f32 on the CUDA cores.
+template <typename T, int DH>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o, const float* lse,
+               const void* dout, void* dq, void* dk, void* dv, float* dvec, int b, int h,
+               int hkv, int sq, int sk, double scale, int causal, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_bwd_tc<DH>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk, scale,
+                             causal, stream);
+  else
+    return launch_bwd_simt<T, DH>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk,
+                                  scale, causal, stream);
+}
+
+template <typename T, int DH>
+int launch_jvp(const void* q, const void* k, const void* v, const void* o, const float* lse,
+               const void* tq, const void* tk, const void* tv, void* to, int b, int h, int hkv,
+               int sq, int sk, double scale, int causal, cudaStream_t stream) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return launch_jvp_tc<DH>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale, causal,
+                             stream);
+  else
+    return launch_jvp_simt<T, DH>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale,
+                                  causal, stream);
 }
 
 }  // namespace grad

@@ -39,6 +39,11 @@ kernel of ``csrc/flash_attention.cu`` beside its plain version
   ``P`` (FA2's deterministic two-kernel layout, no float atomics);
 * ``jvp`` — the output tangent for input tangents, in one pass.
 
+As the forward, bf16 arms run on the tensor cores and f32 arms on the CUDA
+cores.  The bf16 arms round to bf16 only where a product takes an operand
+(P for dV, dS for dQ and dK, P and T = P ∘ Ṡ for the tangent's two
+products); the plain versions round at the same points (no-ops in f32).
+
 They run as ``torch.library`` custom ops inside :class:`FlashAttention`,
 an ``autograd.Function`` with a backward and a forward-mode rule, so that
 autograd and every ``torch.func`` transform (``linearize`` included, which
@@ -277,11 +282,19 @@ def flash_attention_bwd_plain(dout, q, k, v, out, lse, *, causal=False, scale=No
                               block_q=512, block_k=1024):
     """Plain version of :func:`flash_attention_bwd_cuda`: the blocked loop
     of :func:`flash_attention_plain` recomputing ``P`` from ``lse``, in f32,
-    with ``D = rowsum(dO ∘ O)``, ``dV += round(P)ᵀ dO`` (``P`` rounded to
-    ``q.dtype`` where the forward rounds it), ``dS = P ∘ (dO Vᵀ − D)·scale``,
-    ``dQ = dS K`` and ``dK = dSᵀ Q``; K and V's gradients summed over each
-    GQA group."""
+    with ``D = rowsum(dO ∘ O)``, ``dV += round(P)ᵀ dO``, ``dS = P ∘ (dO Vᵀ −
+    D)·scale``, ``dQ = round(dS) K`` and ``dK = round(dS)ᵀ Q``; K and V's
+    gradients summed over each GQA group.  ``round`` is the cast to
+    ``q.dtype`` where the bf16 kernels' tensor-core products take an operand
+    (a no-op in f32)."""
     _runtime.note_plain("flash_attention", q)
+    dq, dk, dv = _bwd_sums(dout, q, k, v, out, lse, causal, scale, block_q, block_k)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _bwd_sums(dout, q, k, v, out, lse, causal, scale, block_q, block_k):
+    """:func:`flash_attention_bwd_plain`'s f32 sums, before the cast to the
+    inputs' dtypes."""
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     scale = dh**-0.5 if scale is None else scale
@@ -295,18 +308,26 @@ def flash_attention_bwd_plain(dout, q, k, v, out, lse, *, causal=False, scale=No
         cols = kj.shape[2]
         dv[:, :, k0 : k0 + cols] += torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), doi)
         dp = torch.einsum("bhqd,bhkd->bhqk", doi, vj)
-        ds = p * (dp - d[:, :, q0 : q0 + rows]) * scale
+        ds = (p * (dp - d[:, :, q0 : q0 + rows]) * scale).to(q.dtype).float()
         dq[:, :, q0 : q0 + rows] += torch.einsum("bhqk,bhkd->bhqd", ds, kj)
         dk[:, :, k0 : k0 + cols] += torch.einsum("bhqk,bhqd->bhkd", ds, qi)
-    return dq.to(q.dtype), _group_sum(dk, hkv).to(k.dtype), _group_sum(dv, hkv).to(v.dtype)
+    return dq, _group_sum(dk, hkv), _group_sum(dv, hkv)
 
 
 def flash_attention_jvp_plain(q, k, v, out, lse, tq, tk, tv, *, causal=False, scale=None,
                               block_q=512, block_k=1024):
     """Plain version of :func:`flash_attention_jvp_cuda`, in f32:
-    ``Ȯ = Σⱼ Pᵢⱼ(Ṡᵢⱼ vⱼ + v̇ⱼ) − (Σⱼ Pᵢⱼ Ṡᵢⱼ)·oᵢ`` with
-    ``Ṡ = scale·(q̇ kᵀ + q k̇ᵀ)`` and ``P`` recomputed from ``lse``."""
+    ``Ȯ = Σⱼ (round(Tᵢⱼ) vⱼ + round(Pᵢⱼ) v̇ⱼ) − (Σⱼ Tᵢⱼ)·oᵢ`` with ``T = P ∘
+    Ṡ``, ``Ṡ = scale·(q̇ kᵀ + q k̇ᵀ)`` and ``P`` recomputed from ``lse``;
+    ``round`` is the cast to ``q.dtype`` (a no-op in f32) and ``r = Σⱼ T``
+    sums the unrounded T."""
     _runtime.note_plain("flash_attention", q)
+    return _jvp_sums(q, k, v, out, lse, tq, tk, tv, causal, scale, block_q, block_k).to(q.dtype)
+
+
+def _jvp_sums(q, k, v, out, lse, tq, tk, tv, causal, scale, block_q, block_k):
+    """:func:`flash_attention_jvp_plain`'s f32 result, before the cast to
+    ``q.dtype``."""
     b, h, sq, dh = q.shape
     group = h // k.shape[1]
     scale = dh**-0.5 if scale is None else scale
@@ -322,9 +343,10 @@ def flash_attention_jvp_plain(q, k, v, out, lse, tq, tk, tv, *, causal=False, sc
                 + torch.einsum("bhqd,bhkd->bhqk", qi, tkj)) * scale
         t = p * sdot
         r[:, :, q0 : q0 + rows] += t.sum(dim=-1, keepdim=True)
-        acc[:, :, q0 : q0 + rows] += (torch.einsum("bhqk,bhkd->bhqd", t, vj)
-                                      + torch.einsum("bhqk,bhkd->bhqd", p, tvj))
-    return (acc - r * out.float()).to(q.dtype)
+        acc[:, :, q0 : q0 + rows] += (
+            torch.einsum("bhqk,bhkd->bhqd", t.to(q.dtype).float(), vj)
+            + torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype).float(), tvj))
+    return acc - r * out.float()
 
 
 # The three arms as custom ops, so that autograd, torch.func and make_fx

@@ -8,6 +8,11 @@ versions (the CUDA kernels are held against these on the card by
 
 * the plain backward and JVP against ``torch.autograd`` / ``torch.func``
   of ``flash_attention_plain`` (1e-6 of the output's max abs, f32);
+* in bf16, the plain arms' f32 sums against the same sums rebuilt in f64
+  from the plain pieces with dS (backward) and P and T (JVP) rounded to
+  bf16 where the tensor-core kernels round them (1e-6 of the max abs), and
+  in f32 the plain arms bit for bit the formulas they had before those
+  rounding points were added (a cast to f32 is a no-op);
 * both against ``jax.vjp`` / ``jax.jvp`` of the reference's
   ``ops.attention(impl="chunked")`` (the reference's training attention):
   2e-4 of the max abs in f32, 5e-2 in bf16, GQA, causal and not;
@@ -82,6 +87,134 @@ def test_plain_arms_match_autodiff_of_plain(case):
     _, jv = torch.func.jvp(f, (q, k, v), (tq, tk, tv))
     got = fa.flash_attention_jvp_plain(q, k, v, out, lse, tq, tk, tv, causal=causal, **BLOCKS)
     assert _rel(got, jv) < 1e-6
+
+
+def _rel64(got, want):
+    got, want = got.double(), want.double()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _pieces(case, dtype):
+    q, k, v = _t(_arrays(case, 0), dtype)
+    dout, tq = (torch.as_tensor(np.random.default_rng(s).standard_normal(q.shape)
+                                .astype(np.float32)).to(TDT[dtype]) for s in (3, 5))
+    tk, tv = _t(_arrays(case, 2), dtype)[1:]
+    out, lse = fa.flash_attention_lse_plain(q, k, v, causal=case[-1], **BLOCKS)
+    return q, k, v, dout, tq, tk, tv, out, lse
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[3]])
+def test_plain_bwd_rounds_where_the_kernel_rounds(case):
+    b, h, hkv, sq, sk, dh, causal = case
+    q, k, v, dout, *_, out, lse = _pieces(case, BF16)
+    scale = dh**-0.5
+    dq, dk, dv = fa._bwd_sums(dout, q, k, v, out, lse, causal, scale, BLOCKS["block_q"],
+                              BLOCKS["block_k"])
+    want = fa.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=causal, **BLOCKS)
+    assert all(torch.equal(w, g.to(torch.bfloat16)) for w, g in zip(want, (dq, dk, dv)))
+    # Rebuilt in f64 from the plain pieces: P and dS as the plain arm forms
+    # them in f32, rounded to bf16 where the kernels' products take them.
+    d = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    ref = [torch.zeros(b, h, n, dh, dtype=torch.float64) for n in (sq, sk, sk)]
+    unrounded = torch.zeros(b, h, sq, dh, dtype=torch.float64)
+    for q0, k0, rows, qi, p, kj, vj in fa._score_blocks(q, k, v, lse, causal, scale,
+                                                        BLOCKS["block_q"], BLOCKS["block_k"]):
+        doi = dout[:, :, q0 : q0 + rows].float()
+        cols = kj.shape[2]
+        ds = p * (torch.einsum("bhqd,bhkd->bhqk", doi, vj) - d[:, :, q0 : q0 + rows]) * scale
+        ds_r, p_r = ds.to(torch.bfloat16).double(), p.to(torch.bfloat16).double()
+        ref[0][:, :, q0 : q0 + rows] += torch.einsum("bhqk,bhkd->bhqd", ds_r, kj.double())
+        ref[1][:, :, k0 : k0 + cols] += torch.einsum("bhqk,bhqd->bhkd", ds_r, qi.double())
+        ref[2][:, :, k0 : k0 + cols] += torch.einsum("bhqk,bhqd->bhkd", p_r, doi.double())
+        unrounded[:, :, q0 : q0 + rows] += torch.einsum("bhqk,bhkd->bhqd", ds.double(),
+                                                        kj.double())
+    ref[1], ref[2] = (r.view(b, hkv, h // hkv, sk, dh).sum(dim=2) for r in ref[1:])
+    for got, r in zip((dq, dk, dv), ref):
+        assert _rel64(got, r) < 1e-6
+    assert _rel64(dq, unrounded) > 1e-5  # the rounding point shows
+
+
+@pytest.mark.parametrize("case", [CASES[1], CASES[3]])
+def test_plain_jvp_rounds_where_the_kernel_rounds(case):
+    b, h, hkv, sq, sk, dh, causal = case
+    q, k, v, _, tq, tk, tv, out, lse = _pieces(case, BF16)
+    scale, group = dh**-0.5, h // hkv
+    got = fa._jvp_sums(q, k, v, out, lse, tq, tk, tv, causal, scale, BLOCKS["block_q"],
+                       BLOCKS["block_k"])
+    assert torch.equal(fa.flash_attention_jvp_plain(q, k, v, out, lse, tq, tk, tv,
+                                                    causal=causal, **BLOCKS),
+                       got.to(torch.bfloat16))
+    acc = torch.zeros(b, h, sq, dh, dtype=torch.float64)
+    unrounded = torch.zeros_like(acc)
+    r = torch.zeros(b, h, sq, 1, dtype=torch.float64)
+    for q0, k0, rows, qi, p, kj, vj in fa._score_blocks(q, k, v, lse, causal, scale,
+                                                        BLOCKS["block_q"], BLOCKS["block_k"]):
+        cols = kj.shape[2]
+        tqi = tq[:, :, q0 : q0 + rows].float()
+        tkj, tvj = (x[:, :, k0 : k0 + cols].float().repeat_interleave(group, dim=1)
+                    for x in (tk, tv))
+        t = p * ((torch.einsum("bhqd,bhkd->bhqk", tqi, kj)
+                  + torch.einsum("bhqd,bhkd->bhqk", qi, tkj)) * scale)
+        r[:, :, q0 : q0 + rows] += t.double().sum(dim=-1, keepdim=True)
+        for x, pp in ((acc, torch.bfloat16), (unrounded, torch.float32)):
+            x[:, :, q0 : q0 + rows] += (
+                torch.einsum("bhqk,bhkd->bhqd", t.to(pp).double(), vj.double())
+                + torch.einsum("bhqk,bhkd->bhqd", p.to(pp).double(), tvj.double()))
+    assert _rel64(got, acc - r * out.double()) < 1e-6
+    assert _rel64(got, unrounded - r * out.double()) > 1e-5
+
+
+def _bwd_before(dout, q, k, v, out, lse, causal, scale):
+    """The plain backward's formulas before dS was rounded (f32)."""
+    b, h, sq, dh = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    d = (dout.float() * out.float()).sum(dim=-1, keepdim=True)
+    dq = torch.zeros((b, h, sq, dh), dtype=torch.float32)
+    dk = torch.zeros((b, h, sk, dh), dtype=torch.float32)
+    dv = torch.zeros_like(dk)
+    for q0, k0, rows, qi, p, kj, vj in fa._score_blocks(q, k, v, lse, causal, scale,
+                                                        BLOCKS["block_q"], BLOCKS["block_k"]):
+        doi = dout[:, :, q0 : q0 + rows].float()
+        cols = kj.shape[2]
+        dv[:, :, k0 : k0 + cols] += torch.einsum("bhqk,bhqd->bhkd", p.to(q.dtype).float(), doi)
+        dp = torch.einsum("bhqd,bhkd->bhqk", doi, vj)
+        ds = p * (dp - d[:, :, q0 : q0 + rows]) * scale
+        dq[:, :, q0 : q0 + rows] += torch.einsum("bhqk,bhkd->bhqd", ds, kj)
+        dk[:, :, k0 : k0 + cols] += torch.einsum("bhqk,bhqd->bhkd", ds, qi)
+    return (dq.to(q.dtype), fa._group_sum(dk, hkv).to(k.dtype),
+            fa._group_sum(dv, hkv).to(v.dtype))
+
+
+def _jvp_before(q, k, v, out, lse, tq, tk, tv, causal, scale):
+    """The plain JVP's formulas before P and T were rounded (f32)."""
+    b, h, sq, dh = q.shape
+    group = h // k.shape[1]
+    acc = torch.zeros((b, h, sq, dh), dtype=torch.float32)
+    r = torch.zeros((b, h, sq, 1), dtype=torch.float32)
+    for q0, k0, rows, qi, p, kj, vj in fa._score_blocks(q, k, v, lse, causal, scale,
+                                                        BLOCKS["block_q"], BLOCKS["block_k"]):
+        cols = kj.shape[2]
+        tqi = tq[:, :, q0 : q0 + rows].float()
+        tkj = tk[:, :, k0 : k0 + cols].float().repeat_interleave(group, dim=1)
+        tvj = tv[:, :, k0 : k0 + cols].float().repeat_interleave(group, dim=1)
+        sdot = (torch.einsum("bhqd,bhkd->bhqk", tqi, kj)
+                + torch.einsum("bhqd,bhkd->bhqk", qi, tkj)) * scale
+        t = p * sdot
+        r[:, :, q0 : q0 + rows] += t.sum(dim=-1, keepdim=True)
+        acc[:, :, q0 : q0 + rows] += (torch.einsum("bhqk,bhkd->bhqd", t, vj)
+                                      + torch.einsum("bhqk,bhkd->bhqd", p, tvj))
+    return (acc - r * out.float()).to(q.dtype)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_f32_plain_arms_unchanged(case):
+    causal, scale = case[-1], case[5] ** -0.5
+    q, k, v, dout, tq, tk, tv, out, lse = _pieces(case, F32)
+    got = fa.flash_attention_bwd_plain(dout, q, k, v, out, lse, causal=causal, **BLOCKS)
+    assert all(torch.equal(g, w) for g, w in zip(got, _bwd_before(dout, q, k, v, out, lse,
+                                                                   causal, scale)))
+    got = fa.flash_attention_jvp_plain(q, k, v, out, lse, tq, tk, tv, causal=causal, **BLOCKS)
+    assert torch.equal(got, _jvp_before(q, k, v, out, lse, tq, tk, tv, causal, scale))
 
 
 _REF = {}

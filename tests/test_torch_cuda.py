@@ -808,7 +808,7 @@ def _rel(got, want):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", [
     # b, h, hkv, sq, sk, dh, causal (q_offset 0): dh 16, 32, 64, 128; GQA
-    # groups 2 and 4; ragged tiles; sq != sk; qwen1.5-0.5b's heads.
+    # groups 2, 4 and 8; ragged tiles; sq != sk; qwen1.5-0.5b's heads.
     (2, 4, 2, 64, 64, 32, False),
     (1, 8, 2, 96, 96, 64, True),
     (1, 16, 4, 257, 257, 128, True),
@@ -816,6 +816,7 @@ def _rel(got, want):
     (2, 4, 2, 130, 70, 16, True),
     (1, 4, 4, 70, 300, 128, False),
     (2, 16, 16, 512, 512, 64, True),
+    (1, 16, 2, 260, 150, 128, True),
 ])
 def test_flash_attention_grad_arms(device, dtype, case):
     b, h, hkv, sq, sk, dh, causal = case

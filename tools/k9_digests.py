@@ -1,10 +1,14 @@
 #!/usr/bin/env python3
-"""K9's serving arm (``flash_attention_cuda``) on seeded inputs: SHA-256
-digests of its outputs, so two trees' outputs compare bit for bit.
+"""K9's arms on seeded inputs: SHA-256 digests of their outputs, so two
+trees' outputs compare bit for bit.
 
-The shapes are ``chip_smoke.py``'s prefill shapes: qwen1.5-0.5b's prefill
-(b 4, h 16, s 4 096, dh 64, causal) in bf16 and f32, prefill_32k's length
-(b 1, s 32 768) in bf16, and the GQA check shapes at dh 16, 64 and 128.
+The serving arm (``flash_attention_cuda``) at ``chip_smoke.py``'s prefill
+shapes: qwen1.5-0.5b's prefill (b 4, h 16, s 4 096, dh 64, causal) in bf16
+and f32, prefill_32k's length (b 1, s 32 768) in bf16, and the GQA check
+shapes at dh 16, 64 and 128.  The differentiated arms (the forward with the
+row log-sum-exp, the backward's dq, dk and dv, the forward-mode tangent) at
+qwen1.5-0.5b's training shape and ``chip_smoke.py``'s ``GRAD_CHECK`` shapes,
+in f32 and bf16: the f32 digests show whether the CUDA-core arms changed.
 To compare a change with its parent on one card::
 
     git archive <parent> | tar -x -C build/parent
@@ -34,6 +38,19 @@ SHAPES = (  # b, h, hkv, sq, sk, dh, causal, q_offset, dtype
     (2, 4, 1, 70, 150, 64, True, 80, "bfloat16"),
     (1, 2, 1, 40, 200, 16, False, 0, "float32"),
 )
+GRAD_SHAPES = (  # b, h, hkv, sq, sk, dh, causal (q_offset 0)
+    (4, 16, 16, 4096, 4096, 64, True),
+    (2, 8, 2, 256, 256, 16, False),
+    (1, 8, 2, 300, 300, 64, True),
+    (1, 8, 2, 200, 330, 128, False),
+    (2, 8, 2, 130, 130, 128, True),
+)
+
+
+def _digest(t) -> str:
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def main(argv=None) -> int:
@@ -60,7 +77,22 @@ def main(argv=None) -> int:
         out = fa.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
         torch.cuda.synchronize()
         key = f"{(b, h, hkv, sq, sk, dh, causal, off)} {dname}"
-        digests[key] = hashlib.sha256(out.view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
+        digests[key] = _digest(out)
+    for case in GRAD_SHAPES:
+        b, h, hkv, sq, sk, dh, causal = case
+        for dname in ("float32", "bfloat16"):
+            g = torch.Generator(device="cuda").manual_seed(sq + sk + dh + 1)
+            q, dout, tq = (torch.randn(b, h, sq, dh, generator=g, device="cuda")
+                           .to(getattr(torch, dname)) for _ in range(3))
+            k, v, tk, tv = (torch.randn(b, hkv, sk, dh, generator=g, device="cuda")
+                            .to(getattr(torch, dname)) for _ in range(4))
+            out, lse = fa.flash_attention_lse_cuda(q, k, v, causal=causal)
+            arms = {"lse": lse, **dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd_cuda(
+                dout, q, k, v, out, lse, causal=causal))),
+                "jvp": fa.flash_attention_jvp_cuda(q, k, v, out, lse, tq, tk, tv, causal=causal)}
+            torch.cuda.synchronize()
+            for arm, t in arms.items():
+                digests[f"{arm} {case} {dname}"] = _digest(t)
     print(json.dumps({"label": args.label, "card": card, "src": args.src, "digests": digests}))
     return 0
 
