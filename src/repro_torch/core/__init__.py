@@ -33,6 +33,7 @@ from repro_torch.core.operators import (
     apply_to_basis,
     from_callable,
     from_matrix,
+    materialize,
 )
 from repro_torch.core.preconditioners import (
     JacobiPreconditioner,
@@ -47,7 +48,10 @@ from repro_torch.core.recycle import (
     MAX_RECOVERY_RUNGS,
     RecycleManager,
     RecycleState,
+    SequenceResult,
+    harmonic_ritz,
     harmonic_ritz_flat,
+    random_orthonormal_basis,
 )
 from repro_torch.core.solvers import (
     DEFAULT_WAW_JITTER,
@@ -56,6 +60,7 @@ from repro_torch.core.solvers import (
     cg,
     cholesky_solve,
     defcg,
+    deflated_initial_guess,
 )
 from repro_torch.core.strategies import (
     HarmonicRitz,
@@ -84,6 +89,7 @@ __all__ = [
     "RecycleManager",
     "RecycleState",
     "RecycleStrategy",
+    "SequenceResult",
     "SequenceSolveResult",
     "SolveInfo",
     "SolveReport",
@@ -97,14 +103,18 @@ __all__ = [
     "cg",
     "cholesky_solve",
     "defcg",
+    "deflated_initial_guess",
     "from_callable",
     "from_matrix",
+    "harmonic_ritz",
     "harmonic_ritz_flat",
     "jacobi",
     "kernel_nystrom_preconditioner",
     "lsmr",
     "make_preconditioner",
+    "materialize",
     "nystrom_preconditioner",
+    "random_orthonormal_basis",
     "randomized_nystrom",
     "solve",
     "solve_batch",

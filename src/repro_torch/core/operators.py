@@ -302,6 +302,16 @@ class GaussNewtonOperator:
         return self.matvec(v)
 
 
+def materialize(op, template: Any) -> torch.Tensor:
+    """The dense matrix of a small operator ``op`` (a callable on vectors
+    shaped like ``template``, a tensor or a pytree) in the coordinates of
+    ``template``'s raveled vector: column i is ``op`` of the i-th unit
+    vector.  For tests."""
+    flat, unravel = pt.ravel_vector(template)
+    eye = torch.eye(flat.numel(), dtype=flat.dtype, device=flat.device)
+    return torch.stack([pt.ravel(op(unravel(e))) for e in eye], dim=1)
+
+
 def adjoint_matvec(op) -> Matvec:
     """The ``u ↦ Aᵀ u`` closure of ``op``: its ``rmatvec`` where it has
     one; otherwise the operator is symmetric by this repo's contract and

@@ -23,6 +23,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch.core import operators as ops_mod
+from repro_torch.core import pytree as pt
 from repro_torch.core.engine import SolveInfo
 from repro_torch.core.solvers import (
     DEFAULT_WAW_JITTER,
@@ -70,6 +71,45 @@ class RecycleState:
             systems_solved=torch.zeros((), dtype=torch.int32, device=device),
             drift=torch.zeros((), dtype=dtype, device=device),
         )
+
+
+def harmonic_ritz(
+    Z: Any, AZ: Any, k: int, *, select: str = "largest", jitter: float = 1e-10
+) -> Tuple[Any, Any, torch.Tensor]:
+    """``k`` harmonic Ritz pairs from a stacked basis ``Z`` of m ≥ k
+    vectors (a pytree with a leading basis axis, or an ``(m, n)`` tensor)
+    and its A-products ``AZ``: ``(W, AW, theta)``, ``W`` and ``AW`` shaped
+    like ``Z`` with k vectors.  The extraction is
+    :func:`~repro_torch.core.strategies.harmonic_ritz_flat_core`'s on the
+    raveled rows; slots past the surviving positive Ritz pairs are exact
+    zeros (θ = 0)."""
+    m = pt.basis_size(Z)
+    if k > m:
+        raise ValueError(f"cannot extract k={k} Ritz vectors from m={m} basis")
+    W, AW, theta, _ = harmonic_ritz_flat_core(pt.ravel_basis(Z), pt.ravel_basis(AZ), k,
+                                              select=select, jitter=jitter)
+    if pt.is_flat(Z) and Z.ndim == 2:
+        return W, AW, theta
+    _, unravel = pt.ravel_vector(pt.basis_vector(Z, 0))
+    return pt.unravel_basis(W, unravel), pt.unravel_basis(AW, unravel), theta
+
+
+def random_orthonormal_basis(generator: torch.Generator, template: Any, k: int) -> Any:
+    """``k`` orthonormal standard-normal vectors shaped like ``template`` (a
+    tensor or a pytree), stacked on a leading axis: Gram-Schmidt on the
+    raveled vectors, drawn from ``generator`` one vector at a time (the
+    bootstrap ``W``; a ``torch.Generator`` in place of the reference's
+    key).  A flat ``(n,)`` template gives a ``(k, n)`` tensor."""
+    flat, unravel = pt.ravel_vector(template)
+    vs = []
+    for _ in range(k):
+        v = torch.randn(flat.shape, generator=generator, dtype=flat.dtype, device=flat.device)
+        for u in vs:
+            v = v - torch.dot(u, v) * u
+        vs.append(v / torch.linalg.vector_norm(v))
+    rows = torch.stack(vs)
+    return rows if pt.is_flat(template) and template.ndim == 1 else pt.unravel_basis(rows,
+                                                                                     unravel)
 
 
 def harmonic_ritz_flat(

@@ -103,7 +103,10 @@
 // Plain C interface: the entry point launches the three passes on the
 // stream and the grids it is given (the wrapper's plan, checked against
 // what the kernels index) and returns the first cudaGetLastError() that is
-// not 0.  Outputs and scratch are allocated by the caller.
+// not 0.  Outputs and scratch are allocated by the caller.  Training's
+// backward and forward-mode arms (ssd_scan_bwd_*, ssd_scan_jvp_*) are
+// namespace grad below; the training forward is this entry point with its
+// states scratch and cs kept.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -944,6 +947,888 @@ int launch_ssd(const Args<T>& A, int b, dim3 grid, dim3 pass_grid, cudaStream_t 
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The backward and the tangent map (training), both dtypes on the CUDA cores
+// ---------------------------------------------------------------------------
+//
+// A first version that is right: every product in f32 on the CUDA cores
+// (bf16 operands widened on load), each output rounded once to its input's
+// dtype.  With w_s = exp(cs_c - cs_s) dt_s, G = C B^T, E[t,s] = exp(cs_t -
+// cs_s) [s <= t], M = E dt_s and Gamma_{k+1} the gradient reaching the state
+// that leaves chunk k, the backward mirrors the forward's three passes:
+//
+//   (a') U_k = dY^T diag(exp(cs)) C for every (batch, head, chunk) item;
+//   (b') the state pass run backwards in f32, in place: Gamma_k = U_k +
+//        exp(cs_c,k) Gamma_{k+1} from Gamma_K = dh_out (or 0), slot k left
+//        holding Gamma_{k+1}, Gamma_0 written to dh0, and each warp's partial
+//        sum of <Gamma_{k+1}, H_k> written out (no atomics);
+//   (c') per item, four launches: (1) G and Q = dY X^T, then M o G and dG =
+//        M o Q into a scratch, with the row and column sums of dM o M (dM =
+//        G o Q) and the column sums of dM o E; (2) dX = (M o G)^T dY +
+//        diag(w) B Gamma^T and omega_s = X_s Gamma B_s^T; (3) the per-head dB
+//        partial dG^T C + diag(w) X Gamma; (4) the per-head dC partial dG B +
+//        diag(exp(cs)) dY H_k, psi_t = C_t H_k^T dY_t^T, then dcs, its
+//        reverse cumulative sum dadt, ddt and the item's da partial;
+//   (r)  dB and dC summed over each group's heads in head order and rounded
+//        to the inputs' dtype, da summed over (batch, chunk) in order.
+//
+// The tangent map carries tangent pairs through the same passes: (a'') the
+// tangent chunk state Xdot^T diag(w) B + X^T diag(wdot) B + X^T diag(w) Bdot
+// + csdot_c exp(cs_c) H_k and csdot = cumsum(adot dt + a dtdot); (b'') the
+// forward's own state pass from hdot0 (or 0); (c'') Ydot = (Mdot o G + M o
+// Gdot) X + (M o G) Xdot + diag(exp(cs)) ((csdot o C + Cdot) H_k^T + C
+// Hdot_k^T).  Both read the forward's states H_k and cs.  Every output
+// element is written by one thread and every sum runs in a fixed order, so
+// two launches agree bit for bit.  Each (c) item is one 256-thread block of
+// 16 x 16 threads holding register tiles (rows ty + 16 i, columns tx + 16 j)
+// over shared f32 tiles whose rows are padded to an odd stride.
+
+namespace grad {
+
+template <typename T>
+struct GradArgs {
+  const T* x;        // (b, l, h, p) view, strides xb, xl
+  const T* bm;       // (b, l, g, n) view, strides bb, bl
+  const T* cm;       // (b, l, g, n) view, strides cb, cl
+  const float* dt;   // (b, l, h)
+  const float* a;    // (h,)
+  const float* hs;   // (b, h, chunks, p, n): the forward's H_k
+  const float* cs;   // (b, h, chunks, c): the forward's cs
+  long long xb, xl, bb, bl, cb, cl;
+  int B, L, H, P, G, N, c, nch;
+  int warps;                // the state pass's warps per (batch, head): dots per item
+  // The backward.
+  const T* dy;              // (b, l, h, p), contiguous
+  const float* dh_last;     // (b, h, p, n) or null
+  T* dx;                    // (b, l, h, p)
+  float* ddt;               // (b, l, h)
+  float* da;                // (h,)
+  T* db;                    // (b, l, g, n)
+  T* dc;                    // (b, l, g, n)
+  float* dh0;               // (b, h, p, n)
+  float* grads;             // (b, h, chunks, p, n): U_k, then Gamma_{k+1}
+  float* scores;            // (b, h, chunks, 2, c, c): M o G, dG
+  float* rows;              // (b, h, chunks, 4, c): rowsum, colsum of dM o M, colsum dM o E, omega
+  float* dots;              // (b h, chunks, warps of the state pass)
+  float* dbp;               // (b, h, chunks, c, n)
+  float* dcp;               // (b, h, chunks, c, n)
+  float* dap;               // (b, h, chunks)
+  // The tangent map.
+  const T* tx;              // views like x, bm, cm
+  const T* tbm;
+  const T* tcm;
+  const float* tdt;         // (b, l, h)
+  const float* ta;          // (h,)
+  const float* th0;         // (b, h, p, n) or null
+  long long txb, txl, tbb, tbl, tcb, tcl;
+  T* ty;                    // (b, l, h, p)
+  float* th_last;           // (b, h, p, n)
+  float* tstates;           // (b, h, chunks, p, n): tangent chunk states, then Hdot_k
+  float* dcs;               // (b, h, chunks, c): csdot
+  float* decay;             // (b, h, chunks): exp(cs_c)
+};
+
+constexpr int kTC = kMaxC / 16, kTP = kMaxP / 16, kTN = kMaxN / 16;
+
+__device__ __forceinline__ void from_f32(float v, float* o) { *o = v; }
+__device__ __forceinline__ void from_f32(float v, bf16* o) { *o = __float2bfloat16(v); }
+
+// This block's item: (head, chunk, batch) from the grid, its group, first
+// row, valid rows and index in the (b, h, chunks) scratch layouts.
+struct Item {
+  int head, k, bi, grp, t0, valid;
+  size_t idx, bh;
+};
+
+template <typename T>
+__device__ __forceinline__ Item item_of(const GradArgs<T>& A) {
+  Item it;
+  it.head = blockIdx.x;
+  it.k = blockIdx.y;
+  it.bi = blockIdx.z;
+  it.grp = it.head / (A.H / A.G);
+  it.t0 = it.k * A.c;
+  it.valid = min(A.c, A.L - it.t0);
+  it.bh = (size_t)it.bi * A.H + it.head;
+  it.idx = it.bh * A.nch + it.k;
+  return it;
+}
+
+// Rows [0, rows) x columns [0, width) of a shared f32 tile of row stride
+// ld from src (row stride sld), times scale[r] when given; zeros at or past
+// `valid` rows and `cols` columns.
+template <typename TS>
+__device__ __forceinline__ void load(float* dst, int ld, const TS* __restrict__ src, long long sld,
+                                     int rows, int width, int valid, int cols,
+                                     const float* scale = nullptr) {
+  for (int e = threadIdx.x; e < rows * width; e += kThreads) {
+    const int r = e / width, col = e % width;
+    float v = 0.f;
+    if (r < valid && col < cols) {
+      v = to_f32(src[r * sld + col]);
+      if (scale != nullptr) v *= scale[r];
+    }
+    dst[r * ld + col] = v;
+  }
+}
+
+// acc[i][j] += sum over k < K of A(ty + 16 i, k) B(k, tx + 16 j), with
+// A(r, k) = a[r ar + k ak] and B(k, col) = b[k bk + col bc] in shared
+// memory; tiles i >= ti and j >= tj are left alone.
+template <int TI, int TJ>
+__device__ __forceinline__ void mm(float (&acc)[TI][TJ], const float* a, int ar, int ak,
+                                   const float* b, int bk, int bc, int K, int ti, int tj) {
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  for (int k = 0; k < K; ++k) {
+    float av[TI], bv[TJ];
+#pragma unroll
+    for (int i = 0; i < TI; ++i) av[i] = i < ti ? a[(ty + 16 * i) * ar + k * ak] : 0.f;
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) bv[j] = j < tj ? b[k * bk + (tx + 16 * j) * bc] : 0.f;
+#pragma unroll
+    for (int i = 0; i < TI; ++i)
+#pragma unroll
+      for (int j = 0; j < TJ; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+  }
+}
+
+template <int TI, int TJ>
+__device__ __forceinline__ void zero(float (&acc)[TI][TJ]) {
+#pragma unroll
+  for (int i = 0; i < TI; ++i)
+#pragma unroll
+    for (int j = 0; j < TJ; ++j) acc[i][j] = 0.f;
+}
+
+// The padded sizes and odd row strides of an item's tiles.
+struct Dims {
+  int cp, pp, np_, ldc, ldp, ldn;
+};
+
+__host__ __device__ inline Dims dims_of(int c, int P, int N) {
+  Dims d;
+  d.cp = round16(c);
+  d.pp = round16(P);
+  d.np_ = round16(N);
+  d.ldc = d.cp + 1;
+  d.ldp = d.pp + 1;
+  d.ldn = d.np_ + 1;
+  return d;
+}
+
+// Shared floats of each kernel (the launch's dynamic shared memory).
+__host__ __device__ inline size_t state_floats(const Dims& d) {  // (a')
+  return (size_t)d.cp * d.ldp + (size_t)d.cp * d.ldn + kMaxC;
+}
+__host__ __device__ inline size_t big_tile(const Dims& d) {
+  const size_t a = (size_t)d.cp * d.ldn, b = (size_t)d.cp * d.ldc;
+  return a > b ? a : b;
+}
+__host__ __device__ inline size_t scores_floats(const Dims& d) {  // (c'1)
+  const size_t r1 = 2 * (size_t)d.cp * d.ldn, red = 3 * (size_t)d.cp * 16;
+  return (r1 > red ? r1 : red) + 2 * (size_t)d.cp * d.ldp + 2 * kMaxC;
+}
+__host__ __device__ inline size_t dx_floats(const Dims& d) {  // (c'2)
+  return (size_t)d.cp * d.ldc + (size_t)d.cp * d.ldp + (size_t)d.cp * d.ldn +
+         (size_t)d.pp * d.ldn + kMaxC + (size_t)d.cp * 16;
+}
+__host__ __device__ inline size_t db_floats(const Dims& d) {  // (c'3)
+  return (size_t)d.cp * d.ldc + (size_t)d.cp * d.ldn + (size_t)d.cp * d.ldp +
+         (size_t)d.pp * d.ldn + kMaxC;
+}
+__host__ __device__ inline size_t dc_floats(const Dims& d) {  // (c'4)
+  return (size_t)d.cp * d.ldc + (size_t)d.cp * d.ldn + (size_t)d.cp * d.ldp +
+         (size_t)d.pp * d.ldn + 4 * kMaxC + (size_t)d.cp * 16;
+}
+__host__ __device__ inline size_t jstate_floats(const Dims& d) {  // (a'')
+  return 2 * (size_t)d.cp * d.ldp + 2 * (size_t)d.cp * d.ldn + 6 * kMaxC;
+}
+__host__ __device__ inline size_t small_tile(const Dims& d) {
+  const size_t a = (size_t)d.cp * d.ldp, b = (size_t)d.pp * d.ldn;
+  return a > b ? a : b;
+}
+__host__ __device__ inline size_t jout_floats(const Dims& d) {  // (c'')
+  return 2 * big_tile(d) + 2 * small_tile(d) + 4 * kMaxC;
+}
+
+// cs of the item's rows (the last row's value past the chunk) and dt (0
+// past the valid rows) into shared memory, rows [0, cp).
+template <typename T>
+__device__ __forceinline__ void load_cs_dt(const GradArgs<T>& A, const Item& it, const Dims& d,
+                                           float* css, float* dts, const float* dtsrc) {
+  for (int r = threadIdx.x; r < d.cp; r += kThreads) {
+    css[r] = A.cs[it.idx * A.c + min(r, A.c - 1)];
+    dts[r] = r < it.valid ? dtsrc[((size_t)it.bi * A.L + it.t0 + r) * A.H + it.head] : 0.f;
+  }
+}
+
+// (a') U_k = dY^T diag(exp(cs)) C: rows p, columns n.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_chunk_state(const GradArgs<T> A) {
+  const Item it = item_of(A);
+  const Dims d = dims_of(A.c, A.P, A.N);
+  extern __shared__ float smem[];
+  float* dys = smem;                     // cp x ldp
+  float* cw = dys + d.cp * d.ldp;        // cp x ldn: exp(cs_t) C
+  float* ecs = cw + d.cp * d.ldn;        // kMaxC
+  for (int r = threadIdx.x; r < d.cp; r += kThreads)
+    ecs[r] = r < it.valid ? expf(A.cs[it.idx * A.c + r]) : 0.f;
+  __syncthreads();
+  load(dys, d.ldp, A.dy + ((size_t)it.bi * A.L + it.t0) * A.H * A.P + it.head * A.P,
+       (long long)A.H * A.P, d.cp, d.pp, it.valid, A.P);
+  load(cw, d.ldn, A.cm + it.bi * A.cb + it.t0 * A.cl + it.grp * A.N, A.cl, d.cp, d.np_, it.valid,
+       A.N, ecs);
+  __syncthreads();
+  float acc[kTP][kTN];
+  zero(acc);
+  mm(acc, dys, 1, d.ldp, cw, d.ldn, 1, d.cp, d.pp / 16, d.np_ / 16);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* out = A.grads + it.idx * A.P * A.N;
+#pragma unroll
+  for (int i = 0; i < kTP; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= A.P) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int col = tx + 16 * j;
+      if (col < A.N) out[r * A.N + col] = acc[i][j];
+    }
+  }
+}
+
+// (b') The state pass backwards, in place: one thread per (batch, head,
+// state element), the (batch, head) pairs on grid.x.  Slot k of `grads`
+// holds U_k on entry and Gamma_{k+1} on exit; each warp's sum of Gamma_{k+1}
+// H_k over its 32 elements (a fixed shuffle tree) goes to `dots`.
+__global__ void __launch_bounds__(kThreads)
+ssd_bwd_state_pass(float* __restrict__ grads, const float* __restrict__ hs,
+                   const float* __restrict__ cs, const float* __restrict__ dh_last,
+                   float* __restrict__ dh0, float* __restrict__ dots, int nch, int c, int pn) {
+  const int e = blockIdx.y * kThreads + threadIdx.x;
+  const bool on = e < pn;
+  const size_t bh = blockIdx.x;
+  const int warps = gridDim.y * (kThreads / 32);
+  const int wid = blockIdx.y * (kThreads / 32) + (threadIdx.x >> 5);
+  float g = (on && dh_last != nullptr) ? dh_last[bh * pn + e] : 0.f;
+  for (int k = nch - 1; k >= 0; --k) {
+    const size_t off = (bh * nch + k) * pn + e;
+    float u = 0.f, hv = 0.f;
+    if (on) {
+      u = grads[off];
+      hv = hs[off];
+      grads[off] = g;
+    }
+    float prod = g * hv;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) prod += __shfl_down_sync(kFull, prod, o);
+    if ((threadIdx.x & 31) == 0) dots[(bh * nch + k) * warps + wid] = prod;
+    g = expf(cs[(bh * nch + k) * c + c - 1]) * g + u;
+  }
+  if (on) dh0[bh * pn + e] = g;
+}
+
+// (c'1) G = C B^T and Q = dY X^T over the item's (t, s) tile; M o G and dG =
+// M o Q to the scores scratch; the row and column sums of dM o M and the
+// column sums of dM o E to the rows scratch.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_scores(const GradArgs<T> A) {
+  const Item it = item_of(A);
+  const Dims d = dims_of(A.c, A.P, A.N);
+  extern __shared__ float smem[];
+  const size_t r1 = scores_floats(d) - 2 * (size_t)d.cp * d.ldp - 2 * kMaxC;
+  float* cw = smem;                      // cp x ldn: C
+  float* bw = cw + d.cp * d.ldn;         // cp x ldn: B
+  float* red = smem;                     // after G: 3 x cp x 16 partial sums
+  float* dys = smem + r1;                // cp x ldp
+  float* xs = dys + d.cp * d.ldp;        // cp x ldp
+  float* css = xs + d.cp * d.ldp;        // kMaxC
+  float* dts = css + kMaxC;              // kMaxC
+  load_cs_dt(A, it, d, css, dts, A.dt);
+  load(cw, d.ldn, A.cm + it.bi * A.cb + it.t0 * A.cl + it.grp * A.N, A.cl, d.cp, d.np_, it.valid,
+       A.N);
+  load(bw, d.ldn, A.bm + it.bi * A.bb + it.t0 * A.bl + it.grp * A.N, A.bl, d.cp, d.np_, it.valid,
+       A.N);
+  load(dys, d.ldp, A.dy + ((size_t)it.bi * A.L + it.t0) * A.H * A.P + it.head * A.P,
+       (long long)A.H * A.P, d.cp, d.pp, it.valid, A.P);
+  load(xs, d.ldp, A.x + it.bi * A.xb + it.t0 * A.xl + it.head * A.P, A.xl, d.cp, d.pp, it.valid,
+       A.P);
+  __syncthreads();
+  const int tc = d.cp / 16;
+  float g[kTC][kTC], q[kTC][kTC];
+  zero(g);
+  zero(q);
+  mm(g, cw, d.ldn, 1, bw, 1, d.ldn, d.np_, tc, tc);
+  mm(q, dys, d.ldp, 1, xs, 1, d.ldp, d.pp, tc, tc);
+  __syncthreads();  // C and B are consumed: `red` takes their place
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float* pg = A.scores + it.idx * 2 * A.c * A.c;
+  float* dg = pg + A.c * A.c;
+  float rr[kTC], cc[kTC], ce[kTC];
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) rr[i] = cc[i] = ce[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    if (i >= tc) break;
+    const int t = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < kTC; ++j) {
+      if (j >= tc) break;
+      const int s = tx + 16 * j;
+      const float e = s <= t ? expf(css[t] - css[s]) : 0.f;
+      const float m = e * dts[s];
+      const float dm = g[i][j] * q[i][j];
+      rr[i] += dm * m;
+      cc[j] += dm * m;
+      ce[j] += dm * e;
+      if (t < A.c && s < A.c) {
+        pg[t * A.c + s] = m * g[i][j];
+        dg[t * A.c + s] = m * q[i][j];
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    if (i >= tc) break;
+    red[(ty + 16 * i) * 16 + tx] = rr[i];
+    red[d.cp * 16 + (tx + 16 * i) * 16 + ty] = cc[i];
+    red[2 * d.cp * 16 + (tx + 16 * i) * 16 + ty] = ce[i];
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < A.c; r += kThreads) {
+    float s0 = 0.f, s1 = 0.f, s2 = 0.f;
+    for (int u = 0; u < 16; ++u) {
+      s0 += red[r * 16 + u];
+      s1 += red[d.cp * 16 + r * 16 + u];
+      s2 += red[2 * d.cp * 16 + r * 16 + u];
+    }
+    float* rw = A.rows + it.idx * 4 * A.c;
+    rw[r] = s0;
+    rw[A.c + r] = s1;
+    rw[2 * A.c + r] = s2;
+  }
+}
+
+// w_s = exp(cs_c - cs_s) dt_s for rows [0, cp) (0 past the valid rows).
+template <typename T>
+__device__ __forceinline__ void load_w(const GradArgs<T>& A, const Item& it, const Dims& d,
+                                       float* ws) {
+  const float csc = A.cs[it.idx * A.c + A.c - 1];
+  for (int r = threadIdx.x; r < d.cp; r += kThreads)
+    ws[r] = r < it.valid ? expf(csc - A.cs[it.idx * A.c + r]) *
+                               A.dt[((size_t)it.bi * A.L + it.t0 + r) * A.H + it.head]
+                         : 0.f;
+}
+
+// (c'2) dX = (M o G)^T dY + diag(w) B Gamma^T; omega_s = X_s . (B Gamma^T)_s.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_dx(const GradArgs<T> A) {
+  const Item it = item_of(A);
+  const Dims d = dims_of(A.c, A.P, A.N);
+  extern __shared__ float smem[];
+  float* ps = smem;                      // cp x ldc: M o G
+  float* dys = ps + d.cp * d.ldc;        // cp x ldp
+  float* bw = dys + d.cp * d.ldp;        // cp x ldn
+  float* gam = bw + d.cp * d.ldn;        // pp x ldn: Gamma_{k+1}
+  float* ws = gam + d.pp * d.ldn;        // kMaxC
+  float* red = ws + kMaxC;               // cp x 16
+  load(ps, d.ldc, A.scores + it.idx * 2 * A.c * A.c, (long long)A.c, d.cp, d.cp, A.c, A.c);
+  load(dys, d.ldp, A.dy + ((size_t)it.bi * A.L + it.t0) * A.H * A.P + it.head * A.P,
+       (long long)A.H * A.P, d.cp, d.pp, it.valid, A.P);
+  load(bw, d.ldn, A.bm + it.bi * A.bb + it.t0 * A.bl + it.grp * A.N, A.bl, d.cp, d.np_, it.valid,
+       A.N);
+  load(gam, d.ldn, A.grads + it.idx * A.P * A.N, (long long)A.N, d.pp, d.np_, A.P, A.N);
+  load_w(A, it, d, ws);
+  __syncthreads();
+  const int tc = d.cp / 16, tp = d.pp / 16;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[kTC][kTP];
+  zero(acc);
+  mm(acc, bw, d.ldn, 1, gam, 1, d.ldn, d.np_, tc, tp);  // (B Gamma^T)[s][p]
+  const T* xrow = A.x + it.bi * A.xb + it.t0 * A.xl + it.head * A.P;
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    if (i >= tc) break;
+    const int s = ty + 16 * i;
+    float om = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTP; ++j) {
+      const int p = tx + 16 * j;
+      if (j < tp && s < it.valid && p < A.P) om += to_f32(xrow[s * A.xl + p]) * acc[i][j];
+      acc[i][j] *= ws[s];
+    }
+    red[s * 16 + tx] = om;
+  }
+  mm(acc, ps, 1, d.ldc, dys, d.ldp, 1, d.cp, tc, tp);
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    const int s = ty + 16 * i;
+    if (i >= tc || s >= it.valid) continue;
+    T* out = A.dx + (((size_t)it.bi * A.L + it.t0 + s) * A.H + it.head) * A.P;
+#pragma unroll
+    for (int j = 0; j < kTP; ++j) {
+      const int p = tx + 16 * j;
+      if (j < tp && p < A.P) from_f32(acc[i][j], out + p);
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < A.c; r += kThreads) {
+    float om = 0.f;
+    for (int u = 0; u < 16; ++u) om += red[r * 16 + u];
+    A.rows[it.idx * 4 * A.c + 3 * A.c + r] = om;
+  }
+}
+
+// (c'3) The per-head dB partial dG^T C + diag(w) X Gamma: rows s, columns n.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_db(const GradArgs<T> A) {
+  const Item it = item_of(A);
+  const Dims d = dims_of(A.c, A.P, A.N);
+  extern __shared__ float smem[];
+  float* gs = smem;                      // cp x ldc: dG
+  float* cw = gs + d.cp * d.ldc;         // cp x ldn: C
+  float* xs = cw + d.cp * d.ldn;         // cp x ldp
+  float* gam = xs + d.cp * d.ldp;        // pp x ldn
+  float* ws = gam + d.pp * d.ldn;        // kMaxC
+  load(gs, d.ldc, A.scores + it.idx * 2 * A.c * A.c + A.c * A.c, (long long)A.c, d.cp, d.cp, A.c,
+       A.c);
+  load(cw, d.ldn, A.cm + it.bi * A.cb + it.t0 * A.cl + it.grp * A.N, A.cl, d.cp, d.np_, it.valid,
+       A.N);
+  load(xs, d.ldp, A.x + it.bi * A.xb + it.t0 * A.xl + it.head * A.P, A.xl, d.cp, d.pp, it.valid,
+       A.P);
+  load(gam, d.ldn, A.grads + it.idx * A.P * A.N, (long long)A.N, d.pp, d.np_, A.P, A.N);
+  load_w(A, it, d, ws);
+  __syncthreads();
+  const int tc = d.cp / 16, tn = d.np_ / 16;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[kTC][kTN];
+  zero(acc);
+  mm(acc, xs, d.ldp, 1, gam, d.ldn, 1, d.pp, tc, tn);  // (X Gamma)[s][n]
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    const float w = i < tc ? ws[ty + 16 * i] : 0.f;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] *= w;
+  }
+  mm(acc, gs, 1, d.ldc, cw, d.ldn, 1, d.cp, tc, tn);
+  float* out = A.dbp + it.idx * A.c * A.N;
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    const int s = ty + 16 * i;
+    if (i >= tc || s >= A.c) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int col = tx + 16 * j;
+      if (j < tn && col < A.N) out[s * A.N + col] = acc[i][j];
+    }
+  }
+}
+
+// (c'4) The per-head dC partial dG B + diag(exp(cs)) dY H_k (rows t, columns
+// n) and psi; then the item's dcs, dadt (reverse cumulative sum), ddt and da
+// partial.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_dc(const GradArgs<T> A) {
+  const Item it = item_of(A);
+  const Dims d = dims_of(A.c, A.P, A.N);
+  extern __shared__ float smem[];
+  float* gs = smem;                      // cp x ldc: dG
+  float* bw = gs + d.cp * d.ldc;         // cp x ldn: B
+  float* dys = bw + d.cp * d.ldn;        // cp x ldp
+  float* hsm = dys + d.cp * d.ldp;       // pp x ldn: H_k
+  float* css = hsm + d.pp * d.ldn;       // kMaxC
+  float* dts = css + kMaxC;              // kMaxC
+  float* dcs = dts + kMaxC;              // kMaxC: dcs, then dadt
+  float* wom = dcs + kMaxC;              // kMaxC: w omega
+  float* red = wom + kMaxC;              // cp x 16
+  load(gs, d.ldc, A.scores + it.idx * 2 * A.c * A.c + A.c * A.c, (long long)A.c, d.cp, d.cp, A.c,
+       A.c);
+  load(bw, d.ldn, A.bm + it.bi * A.bb + it.t0 * A.bl + it.grp * A.N, A.bl, d.cp, d.np_, it.valid,
+       A.N);
+  load(dys, d.ldp, A.dy + ((size_t)it.bi * A.L + it.t0) * A.H * A.P + it.head * A.P,
+       (long long)A.H * A.P, d.cp, d.pp, it.valid, A.P);
+  load(hsm, d.ldn, A.hs + it.idx * A.P * A.N, (long long)A.N, d.pp, d.np_, A.P, A.N);
+  load_cs_dt(A, it, d, css, dts, A.dt);
+  __syncthreads();
+  const int tc = d.cp / 16, tn = d.np_ / 16;
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  float acc[kTC][kTN];
+  zero(acc);
+  mm(acc, dys, d.ldp, 1, hsm, d.ldn, 1, d.pp, tc, tn);  // Z = dY H_k: (t, n)
+  const T* crow = A.cm + it.bi * A.cb + it.t0 * A.cl + it.grp * A.N;
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    if (i >= tc) break;
+    const int t = ty + 16 * i;
+    const float e = t < it.valid ? expf(css[t]) : 0.f;
+    float psi = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int col = tx + 16 * j;
+      if (j < tn && t < it.valid && col < A.N) psi += to_f32(crow[t * A.cl + col]) * acc[i][j];
+      acc[i][j] *= e;
+    }
+    red[t * 16 + tx] = psi;
+  }
+  mm(acc, gs, d.ldc, 1, bw, d.ldn, 1, d.cp, tc, tn);
+  float* out = A.dcp + it.idx * A.c * A.N;
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    const int t = ty + 16 * i;
+    if (i >= tc || t >= A.c) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int col = tx + 16 * j;
+      if (j < tn && col < A.N) out[t * A.N + col] = acc[i][j];
+    }
+  }
+  __syncthreads();
+
+  // dcs per row: rowsum - colsum of dM o M + exp(cs) psi - w omega.
+  const float* rw = A.rows + it.idx * 4 * A.c;
+  const float csc = css[A.c - 1];
+  for (int r = threadIdx.x; r < A.c; r += kThreads) {
+    float psi = 0.f;
+    for (int u = 0; u < 16; ++u) psi += red[r * 16 + u];
+    const float w = expf(csc - css[r]) * dts[r];
+    wom[r] = w * rw[3 * A.c + r];
+    dcs[r] = rw[r] - rw[A.c + r] + (r < it.valid ? expf(css[r]) * psi : 0.f) - wom[r];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    // The chunk's last row also carries exp(cs_c)'s and w's cs_c terms.
+    const float* dp = A.dots + it.idx * A.warps;
+    float dot = 0.f;
+    for (int u = 0; u < A.warps; ++u) dot += dp[u];
+    float wo = 0.f;
+    for (int r = 0; r < A.c; ++r) wo += wom[r];
+    dcs[A.c - 1] += wo + expf(csc) * dot;
+    float run = 0.f, dap = 0.f;
+    for (int r = A.c - 1; r >= 0; --r) {
+      run += dcs[r];
+      dcs[r] = run;
+      dap += dts[r] * run;
+    }
+    A.dap[it.idx] = dap;
+  }
+  __syncthreads();
+  const float ah = A.a[it.head];
+  for (int r = threadIdx.x; r < it.valid; r += kThreads)
+    A.ddt[((size_t)it.bi * A.L + it.t0 + r) * A.H + it.head] =
+        rw[2 * A.c + r] + rw[3 * A.c + r] * expf(csc - css[r]) + ah * dcs[r];
+}
+
+// (r) dB and dC: the per-head partials summed over each group's heads in
+// head order, rounded once to the inputs' dtype; one thread per element.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_group_sum(const GradArgs<T> A) {
+  const size_t total = (size_t)A.B * A.L * A.G * A.N;
+  const int hpg = A.H / A.G;
+  for (size_t e = blockIdx.x * (size_t)kThreads + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * kThreads) {
+    const int col = (int)(e % A.N);
+    size_t rest = e / A.N;
+    const int grp = (int)(rest % A.G);
+    rest /= A.G;
+    const int t = (int)(rest % A.L);
+    const size_t bi = rest / A.L;
+    const int k = t / A.c, r = t % A.c;
+    float sb = 0.f, sc = 0.f;
+    for (int hh = 0; hh < hpg; ++hh) {
+      const size_t off = (((bi * A.H + grp * hpg + hh) * A.nch + k) * A.c + r) * A.N + col;
+      sb += A.dbp[off];
+      sc += A.dcp[off];
+    }
+    from_f32(sb, A.db + e);
+    from_f32(sc, A.dc + e);
+  }
+}
+
+// (r) da: each head's partials summed over (batch, chunk) in order.
+template <typename T>
+__global__ void __launch_bounds__(kThreads) ssd_bwd_da(const GradArgs<T> A) {
+  for (int hd = threadIdx.x; hd < A.H; hd += kThreads) {
+    float s = 0.f;
+    for (int bi = 0; bi < A.B; ++bi)
+      for (int k = 0; k < A.nch; ++k) s += A.dap[((size_t)bi * A.H + hd) * A.nch + k];
+    A.da[hd] = s;
+  }
+}
+
+// (a'') The tangent chunk state Xdot^T diag(w) B + X^T diag(wdot) B + X^T
+// diag(w) Bdot + csdot_c exp(cs_c) H_k (rows p, columns n), csdot (one
+// thread, in row order) and exp(cs_c).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ssd_jvp_chunk_state(const GradArgs<T> A) {
+  const Item it = item_of(A);
+  const Dims d = dims_of(A.c, A.P, A.N);
+  extern __shared__ float smem[];
+  float* x1 = smem;                      // cp x ldp: Xdot w + X wdot
+  float* x2 = x1 + d.cp * d.ldp;         // cp x ldp: X w
+  float* bw = x2 + d.cp * d.ldp;         // cp x ldn: B
+  float* tbw = bw + d.cp * d.ldn;        // cp x ldn: Bdot
+  float* css = tbw + d.cp * d.ldn;       // kMaxC each
+  float* dts = css + kMaxC;
+  float* tdts = dts + kMaxC;
+  float* tcs = tdts + kMaxC;
+  float* ws = tcs + kMaxC;
+  float* tws = ws + kMaxC;
+  load_cs_dt(A, it, d, css, dts, A.dt);
+  load_cs_dt(A, it, d, tcs, tdts, A.tdt);  // tcs is overwritten below
+  __syncthreads();
+  const float ah = A.a[it.head], tah = A.ta[it.head];
+  if (threadIdx.x == 0) {
+    float run = 0.f;
+    for (int r = 0; r < d.cp; ++r) {
+      run += tah * dts[r] + ah * tdts[r];
+      tcs[r] = run;
+      if (r < A.c) A.dcs[it.idx * A.c + r] = run;
+    }
+    A.decay[it.idx] = expf(css[A.c - 1]);
+  }
+  __syncthreads();
+  const float csc = css[A.c - 1], tcsc = tcs[A.c - 1];
+  for (int r = threadIdx.x; r < d.cp; r += kThreads) {
+    const float ew = expf(csc - css[r]);
+    ws[r] = ew * dts[r];
+    tws[r] = ws[r] * (tcsc - tcs[r]) + ew * tdts[r];
+  }
+  __syncthreads();
+  const T* xsrc = A.x + it.bi * A.xb + it.t0 * A.xl + it.head * A.P;
+  const T* txsrc = A.tx + it.bi * A.txb + it.t0 * A.txl + it.head * A.P;
+  for (int e = threadIdx.x; e < d.cp * d.pp; e += kThreads) {
+    const int r = e / d.pp, col = e % d.pp;
+    float v1 = 0.f, v2 = 0.f;
+    if (r < it.valid && col < A.P) {
+      const float xv = to_f32(xsrc[r * A.xl + col]);
+      v1 = to_f32(txsrc[r * A.txl + col]) * ws[r] + xv * tws[r];
+      v2 = xv * ws[r];
+    }
+    x1[r * d.ldp + col] = v1;
+    x2[r * d.ldp + col] = v2;
+  }
+  load(bw, d.ldn, A.bm + it.bi * A.bb + it.t0 * A.bl + it.grp * A.N, A.bl, d.cp, d.np_, it.valid,
+       A.N);
+  load(tbw, d.ldn, A.tbm + it.bi * A.tbb + it.t0 * A.tbl + it.grp * A.N, A.tbl, d.cp, d.np_,
+       it.valid, A.N);
+  __syncthreads();
+  float acc[kTP][kTN];
+  zero(acc);
+  mm(acc, x1, 1, d.ldp, bw, d.ldn, 1, d.cp, d.pp / 16, d.np_ / 16);
+  mm(acc, x2, 1, d.ldp, tbw, d.ldn, 1, d.cp, d.pp / 16, d.np_ / 16);
+  const float hfac = tcsc * expf(csc);
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const float* hk = A.hs + it.idx * A.P * A.N;
+  float* out = A.tstates + it.idx * A.P * A.N;
+#pragma unroll
+  for (int i = 0; i < kTP; ++i) {
+    const int r = ty + 16 * i;
+    if (r >= A.P) continue;
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int col = tx + 16 * j;
+      if (col < A.N) out[r * A.N + col] = acc[i][j] + hfac * hk[r * A.N + col];
+    }
+  }
+}
+
+// (c'') Ydot = (Mdot o G + M o Gdot) X + (M o G) Xdot + diag(exp(cs))
+// ((csdot o C + Cdot) H_k^T + C Hdot_k^T), with Gdot = Cdot B^T + C Bdot^T;
+// G and Gdot stay in registers while their factors pass through two shared
+// tiles.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1) ssd_jvp_chunk_out(const GradArgs<T> A) {
+  const Item it = item_of(A);
+  const Dims d = dims_of(A.c, A.P, A.N);
+  extern __shared__ float smem[];
+  const size_t bt = big_tile(d), st = small_tile(d);
+  float* s0 = smem;                      // C, Cdot, C; W1; exp(cs)(csdot C + Cdot)
+  float* s1 = s0 + bt;                   // B, B, Bdot; W0; exp(cs) C
+  float* r2 = s1 + bt;                   // X; H_k
+  float* r3 = r2 + st;                   // Xdot; Hdot_k
+  float* css = r3 + st;                  // kMaxC each
+  float* dts = css + kMaxC;
+  float* tcs = dts + kMaxC;
+  float* tdts = tcs + kMaxC;
+  load_cs_dt(A, it, d, css, dts, A.dt);
+  load_cs_dt(A, it, d, tcs, tdts, A.tdt);
+  for (int r = threadIdx.x; r < d.cp; r += kThreads)
+    tcs[r] = A.dcs[it.idx * A.c + min(r, A.c - 1)];
+  const T* cg = A.cm + it.bi * A.cb + it.t0 * A.cl + it.grp * A.N;
+  const T* bg = A.bm + it.bi * A.bb + it.t0 * A.bl + it.grp * A.N;
+  const T* tcg = A.tcm + it.bi * A.tcb + it.t0 * A.tcl + it.grp * A.N;
+  const T* tbg = A.tbm + it.bi * A.tbb + it.t0 * A.tbl + it.grp * A.N;
+  load(s0, d.ldn, cg, A.cl, d.cp, d.np_, it.valid, A.N);
+  load(s1, d.ldn, bg, A.bl, d.cp, d.np_, it.valid, A.N);
+  __syncthreads();
+  const int tc = d.cp / 16, tp = d.pp / 16;
+  float g[kTC][kTC], gd[kTC][kTC];
+  zero(g);
+  zero(gd);
+  mm(g, s0, d.ldn, 1, s1, 1, d.ldn, d.np_, tc, tc);  // C B^T
+  __syncthreads();
+  load(s0, d.ldn, tcg, A.tcl, d.cp, d.np_, it.valid, A.N);
+  __syncthreads();
+  mm(gd, s0, d.ldn, 1, s1, 1, d.ldn, d.np_, tc, tc);  // Cdot B^T
+  __syncthreads();
+  load(s0, d.ldn, cg, A.cl, d.cp, d.np_, it.valid, A.N);
+  load(s1, d.ldn, tbg, A.tbl, d.cp, d.np_, it.valid, A.N);
+  __syncthreads();
+  mm(gd, s0, d.ldn, 1, s1, 1, d.ldn, d.np_, tc, tc);  // + C Bdot^T
+  __syncthreads();
+
+  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    if (i >= tc) break;
+    const int t = ty + 16 * i;
+#pragma unroll
+    for (int j = 0; j < kTC; ++j) {
+      if (j >= tc) break;
+      const int s = tx + 16 * j;
+      const float e = s <= t ? expf(css[t] - css[s]) : 0.f;
+      const float m = e * dts[s];
+      const float tm = m * (tcs[t] - tcs[s]) + e * tdts[s];
+      s0[t * d.ldc + s] = tm * g[i][j] + m * gd[i][j];
+      s1[t * d.ldc + s] = m * g[i][j];
+    }
+  }
+  load(r2, d.ldp, A.x + it.bi * A.xb + it.t0 * A.xl + it.head * A.P, A.xl, d.cp, d.pp, it.valid,
+       A.P);
+  load(r3, d.ldp, A.tx + it.bi * A.txb + it.t0 * A.txl + it.head * A.P, A.txl, d.cp, d.pp,
+       it.valid, A.P);
+  __syncthreads();
+  float y[kTC][kTP];
+  zero(y);
+  mm(y, s0, d.ldc, 1, r2, d.ldp, 1, d.cp, tc, tp);
+  mm(y, s1, d.ldc, 1, r3, d.ldp, 1, d.cp, tc, tp);
+  __syncthreads();
+  for (int e = threadIdx.x; e < d.cp * d.np_; e += kThreads) {
+    const int r = e / d.np_, col = e % d.np_;
+    float v0 = 0.f, v1 = 0.f;
+    if (r < it.valid && col < A.N) {
+      const float ec = expf(css[r]);
+      const float cv = to_f32(cg[r * A.cl + col]);
+      v0 = ec * (tcs[r] * cv + to_f32(tcg[r * A.tcl + col]));
+      v1 = ec * cv;
+    }
+    s0[r * d.ldn + col] = v0;
+    s1[r * d.ldn + col] = v1;
+  }
+  load(r2, d.ldn, A.hs + it.idx * A.P * A.N, (long long)A.N, d.pp, d.np_, A.P, A.N);
+  load(r3, d.ldn, A.tstates + it.idx * A.P * A.N, (long long)A.N, d.pp, d.np_, A.P, A.N);
+  __syncthreads();
+  mm(y, s0, d.ldn, 1, r2, 1, d.ldn, d.np_, tc, tp);
+  mm(y, s1, d.ldn, 1, r3, 1, d.ldn, d.np_, tc, tp);
+#pragma unroll
+  for (int i = 0; i < kTC; ++i) {
+    const int t = ty + 16 * i;
+    if (i >= tc || t >= it.valid) continue;
+    T* out = A.ty + (((size_t)it.bi * A.L + it.t0 + t) * A.H + it.head) * A.P;
+#pragma unroll
+    for (int j = 0; j < kTP; ++j) {
+      const int p = tx + 16 * j;
+      if (j < tp && p < A.P) from_f32(y[i][j], out + p);
+    }
+  }
+}
+
+// Checks of the sizes and of the caller's grids (the wrapper's grad_plan):
+// `items` (heads, chunks, batch) for the per-item kernels, `pass` ((batch,
+// head) pairs, blocks of state elements) for the state passes.
+template <typename T>
+bool grids_ok(const GradArgs<T>& A, dim3 items, dim3 pass) {
+  const int pn = A.P * A.N;
+  return A.B > 0 && A.L > 0 && A.H > 0 && A.G > 0 && A.H % A.G == 0 && A.P > 0 && A.N > 0 &&
+         A.c > 0 && A.c <= kMaxC && A.P <= kMaxP && A.N <= kMaxN &&
+         A.nch == (A.L + A.c - 1) / A.c && A.nch <= 65535 && A.B <= 65535 &&
+         (long long)A.B * A.H <= 0x7fffffff && items.x == (unsigned)A.H &&
+         items.y == (unsigned)A.nch && items.z == (unsigned)A.B &&
+         pass.x == (unsigned)(A.B * A.H) && pass.y == (unsigned)((pn + kThreads - 1) / kThreads) &&
+         pass.z == 1 && A.warps == (int)pass.y * (kThreads / 32);
+}
+
+template <typename K>
+cudaError_t opt_in(K kernel, size_t floats) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)(sizeof(float) * floats));
+}
+
+template <typename T>
+int launch_bwd(const GradArgs<T>& A, dim3 items, dim3 pass, cudaStream_t st) {
+  if (!grids_ok(A, items, pass)) return (int)cudaErrorInvalidValue;
+  const Dims big = dims_of(kMaxC, kMaxP, kMaxN), d = dims_of(A.c, A.P, A.N);
+  static const cudaError_t opted[] = {  // once per process, at the largest sizes
+      opt_in(ssd_bwd_chunk_state<T>, state_floats(big)), opt_in(ssd_bwd_scores<T>, scores_floats(big)),
+      opt_in(ssd_bwd_dx<T>, dx_floats(big)), opt_in(ssd_bwd_db<T>, db_floats(big)),
+      opt_in(ssd_bwd_dc<T>, dc_floats(big))};
+  for (cudaError_t e : opted)
+    if (e != cudaSuccess) return (int)e;
+  cudaError_t err;
+  ssd_bwd_chunk_state<T><<<items, kThreads, sizeof(float) * state_floats(d), st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_bwd_state_pass<<<pass, kThreads, 0, st>>>(A.grads, A.hs, A.cs, A.dh_last, A.dh0, A.dots,
+                                                A.nch, A.c, A.P * A.N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_bwd_scores<T><<<items, kThreads, sizeof(float) * scores_floats(d), st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_bwd_dx<T><<<items, kThreads, sizeof(float) * dx_floats(d), st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_bwd_db<T><<<items, kThreads, sizeof(float) * db_floats(d), st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_bwd_dc<T><<<items, kThreads, sizeof(float) * dc_floats(d), st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  const size_t total = (size_t)A.B * A.L * A.G * A.N;
+  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads < 4096
+                                         ? (total + kThreads - 1) / kThreads : 4096);
+  ssd_bwd_group_sum<T><<<blocks, kThreads, 0, st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_bwd_da<T><<<1, kThreads, 0, st>>>(A);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_jvp(const GradArgs<T>& A, dim3 items, dim3 pass, cudaStream_t st) {
+  if (!grids_ok(A, items, pass)) return (int)cudaErrorInvalidValue;
+  const Dims big = dims_of(kMaxC, kMaxP, kMaxN), d = dims_of(A.c, A.P, A.N);
+  static const cudaError_t opted[] = {opt_in(ssd_jvp_chunk_state<T>, jstate_floats(big)),
+                                      opt_in(ssd_jvp_chunk_out<T>, jout_floats(big))};
+  for (cudaError_t e : opted)
+    if (e != cudaSuccess) return (int)e;
+  cudaError_t err;
+  ssd_jvp_chunk_state<T><<<items, kThreads, sizeof(float) * jstate_floats(d), st>>>(A);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_scan_state_pass<<<pass, kThreads, 0, st>>>(A.tstates, A.decay, A.th0, A.th_last, A.nch,
+                                                 A.P * A.N);
+  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+  ssd_jvp_chunk_out<T><<<items, kThreads, sizeof(float) * jout_floats(d), st>>>(A);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace grad
+
+// The backward's and the tangent map's entry points: the wrapper allocates
+// outputs and scratch (grad_plan) and passes its grids.
+template <typename T>
+grad::GradArgs<T> grad_args(const void* x, const void* dt, const void* a, const void* bmat,
+                            const void* cmat, const void* hs, const void* cs, int64_t xb,
+                            int64_t xl, int64_t bb, int64_t bl, int64_t cb, int64_t cl, int b,
+                            int L, int H, int P, int G, int N, int c, int sy) {
+  grad::GradArgs<T> A = {};
+  A.x = static_cast<const T*>(x);
+  A.bm = static_cast<const T*>(bmat);
+  A.cm = static_cast<const T*>(cmat);
+  A.dt = static_cast<const float*>(dt);
+  A.a = static_cast<const float*>(a);
+  A.hs = static_cast<const float*>(hs);
+  A.cs = static_cast<const float*>(cs);
+  A.xb = xb, A.xl = xl, A.bb = bb, A.bl = bl, A.cb = cb, A.cl = cl;
+  A.B = b, A.L = L, A.H = H, A.P = P, A.G = G, A.N = N, A.c = c;
+  A.nch = (L + c - 1) / c;
+  A.warps = sy * (kThreads / 32);
+  return A;
+}
+
 }  // namespace
 
 #define REPRO_SSD_ENTRY_POINT(T, SUFFIX)                                                    \
@@ -965,3 +1850,62 @@ int launch_ssd(const Args<T>& A, int b, dim3 grid, dim3 pass_grid, cudaStream_t 
 
 REPRO_SSD_ENTRY_POINT(float, f32)
 REPRO_SSD_ENTRY_POINT(__nv_bfloat16, bf16)
+
+#define REPRO_SSD_GRAD_ENTRY_POINTS(T, SUFFIX)                                                \
+  extern "C" int ssd_scan_bwd_##SUFFIX(                                                       \
+      const void* x, const void* dt, const void* a, const void* bmat, const void* cmat,       \
+      const void* dy, const void* hs, const void* cs, const void* dh_last, void* dx,          \
+      void* ddt, void* da, void* db, void* dc, void* dh0, void* grads, void* scores,          \
+      void* rows, void* dots, void* dbp, void* dcp, void* dap, int64_t xb, int64_t xl,        \
+      int64_t bb, int64_t bl, int64_t cb, int64_t cl, int b, int L, int H, int P, int G,      \
+      int N, int c, int ix, int iy, int iz, int sx, int sy, void* stream) {                   \
+    grad::GradArgs<T> A =                                                                     \
+        grad_args<T>(x, dt, a, bmat, cmat, hs, cs, xb, xl, bb, bl, cb, cl, b, L, H, P, G, N, \
+                     c, sy);                                                                  \
+    A.dy = static_cast<const T*>(dy);                                                         \
+    A.dh_last = static_cast<const float*>(dh_last);                                           \
+    A.dx = static_cast<T*>(dx);                                                               \
+    A.ddt = static_cast<float*>(ddt);                                                         \
+    A.da = static_cast<float*>(da);                                                           \
+    A.db = static_cast<T*>(db);                                                               \
+    A.dc = static_cast<T*>(dc);                                                               \
+    A.dh0 = static_cast<float*>(dh0);                                                         \
+    A.grads = static_cast<float*>(grads);                                                     \
+    A.scores = static_cast<float*>(scores);                                                   \
+    A.rows = static_cast<float*>(rows);                                                       \
+    A.dots = static_cast<float*>(dots);                                                       \
+    A.dbp = static_cast<float*>(dbp);                                                         \
+    A.dcp = static_cast<float*>(dcp);                                                         \
+    A.dap = static_cast<float*>(dap);                                                         \
+    return grad::launch_bwd<T>(A, dim3(ix, iy, iz), dim3(sx, sy),                             \
+                               static_cast<cudaStream_t>(stream));                            \
+  }                                                                                           \
+  extern "C" int ssd_scan_jvp_##SUFFIX(                                                       \
+      const void* x, const void* dt, const void* a, const void* bmat, const void* cmat,       \
+      const void* hs, const void* cs, const void* tx, const void* tdt, const void* ta,        \
+      const void* tbmat, const void* tcmat, const void* th0, void* ty, void* th_last,         \
+      void* tstates, void* dcs, void* decay, int64_t xb, int64_t xl, int64_t bb, int64_t bl,  \
+      int64_t cb, int64_t cl, int64_t txb, int64_t txl, int64_t tbb, int64_t tbl,             \
+      int64_t tcb, int64_t tcl, int b, int L, int H, int P, int G, int N, int c, int ix,      \
+      int iy, int iz, int sx, int sy, void* stream) {                                         \
+    grad::GradArgs<T> A =                                                                     \
+        grad_args<T>(x, dt, a, bmat, cmat, hs, cs, xb, xl, bb, bl, cb, cl, b, L, H, P, G, N, \
+                     c, sy);                                                                  \
+    A.tx = static_cast<const T*>(tx);                                                         \
+    A.tbm = static_cast<const T*>(tbmat);                                                     \
+    A.tcm = static_cast<const T*>(tcmat);                                                     \
+    A.tdt = static_cast<const float*>(tdt);                                                   \
+    A.ta = static_cast<const float*>(ta);                                                     \
+    A.th0 = static_cast<const float*>(th0);                                                   \
+    A.txb = txb, A.txl = txl, A.tbb = tbb, A.tbl = tbl, A.tcb = tcb, A.tcl = tcl;             \
+    A.ty = static_cast<T*>(ty);                                                               \
+    A.th_last = static_cast<float*>(th_last);                                                 \
+    A.tstates = static_cast<float*>(tstates);                                                 \
+    A.dcs = static_cast<float*>(dcs);                                                         \
+    A.decay = static_cast<float*>(decay);                                                     \
+    return grad::launch_jvp<T>(A, dim3(ix, iy, iz), dim3(sx, sy),                             \
+                               static_cast<cudaStream_t>(stream));                            \
+  }
+
+REPRO_SSD_GRAD_ENTRY_POINTS(float, f32)
+REPRO_SSD_GRAD_ENTRY_POINTS(__nv_bfloat16, bf16)

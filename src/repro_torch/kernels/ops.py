@@ -398,8 +398,22 @@ def ssd(
     returning the (b, h, p, n) f32 state (the serving path's prefill).  The
     ``reference`` oracle has no state, so with one it runs the plain
     version, as the reference's own oracle arm falls back to its chunked
-    scan."""
+    scan.
+
+    When autograd or a ``torch.func`` transform tracks an input, the
+    ``cuda`` and ``plain`` backends run through
+    :class:`~repro_torch.kernels.ssd_scan.SSDScan` (its training forward,
+    backward and forward-mode arms), with the D skip ``y + x·d`` added
+    outside it; otherwise the serving arm runs as it is.  ``reference`` is
+    differentiated by autograd."""
     backend = _resolve(backend, x)
+    if backend != "reference" and _runtime.differentiated(x, dt, a, bmat, cmat, d,
+                                                          initial_state):
+        y, h1 = ssd_mod.ssd_differentiable(x, dt, a, bmat, cmat, chunk=chunk,
+                                           initial_state=initial_state,
+                                           plain=backend == "plain")
+        y = ssd_mod._skip(y, x, d)
+        return (y, h1) if return_state else y
     kw = dict(chunk=chunk, initial_state=initial_state, return_state=return_state)
     if backend == "cuda":
         return ssd_mod.ssd_scan_cuda(x, dt, a, bmat, cmat, d, **kw)

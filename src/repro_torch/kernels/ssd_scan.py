@@ -68,6 +68,10 @@ MAX_GRID_X, MAX_GRID_YZ = 2**31 - 1, 65535
 
 _P, _I, _L = _runtime.PTR, _runtime.INT, _runtime.INT64
 _SIGNATURE = (_P,) * 11 + (_L,) * 6 + (_I,) * 14
+# The backward's and the tangent map's entry points: pointers, the (batch,
+# row) strides of the strided views, the sizes and the grids.
+_SIGNATURE_BWD = (_P,) * 22 + (_L,) * 6 + (_I,) * 12
+_SIGNATURE_JVP = (_P,) * 18 + (_L,) * 12 + (_I,) * 12
 
 
 def _chunk(chunk: int, l: int) -> int:
@@ -112,6 +116,30 @@ def plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int,
     }
 
 
+def grad_plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int) -> dict:
+    """How the backward and the tangent map run on the card (both dtypes
+    alike: CUDA cores, f32): one block per (batch, head, chunk) item on
+    ``grid_items`` (heads, chunks, batch), the state passes on
+    :func:`plan`'s ``grid_states``, and the f32 scratch each allocates —
+    the backward: the state gradients ``U_k``/``Γ_{k+1}`` (``grads``), each
+    item's ``M∘G`` and ``dG`` (``scores``), its row vectors (``rows``:
+    the row and column sums of ``dM∘M``, the column sums of ``dM∘E``, ω),
+    the state pass's per-warp partial sums of ``⟨Γ_{k+1}, H_k⟩`` (``dots``),
+    the per-head ``dB``/``dC`` partials and the per-item ``da`` partials,
+    all summed in a fixed order; the tangent map: the tangent states, ``ċs``
+    and ``exp(cs_c)``.  Raises past the kernels' limits."""
+    pl = plan(b, l, h, p, g, n, chunk, torch.float32)
+    c, k = pl["chunk"], pl["chunks"]
+    warps = pl["grid_states"][1] * (THREADS // 32)
+    return {
+        "chunk": c, "chunks": k, "grid_items": (h, k, b), "grid_states": pl["grid_states"],
+        "bwd_scratch": {"grads": (b, h, k, p, n), "scores": (b, h, k, 2, c, c),
+                        "rows": (b, h, k, 4, c), "dots": (b * h, k, warps),
+                        "db": (b, h, k, c, n), "dc": (b, h, k, c, n), "da": (b, h, k)},
+        "jvp_scratch": {"states": (b, h, k, p, n), "dcs": (b, h, k, c), "decay": (b, h, k)},
+    }
+
+
 def row_strides(name: str, t: torch.Tensor, shape: Tuple[int, int, int, int]) -> Tuple[int, int]:
     """``t``'s (batch, row) strides in elements if it is a (b, l, k, w)
     view the kernels read in place — ``shape``, last dimension contiguous,
@@ -135,6 +163,63 @@ def vectorized(views) -> bool:
                and all(s % 8 == 0 for s in strides) for t, strides in views)
 
 
+def _views(x, bmat, cmat, **tangents):
+    """The (batch, row) strides of ``x``, ``bmat``, ``cmat`` (and of the
+    named tangents of the same shapes), checked as :func:`row_strides`
+    takes them, on x's device and in its dtype."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    views = []
+    named = [("x", x, (b, l, h, p)), ("bmat", bmat, (b, l, g, n)), ("cmat", cmat, (b, l, g, n))]
+    for name, t in tangents.items():
+        named.append((name, t, (b, l, h, p) if name == "tx" else (b, l, g, n)))
+    for name, t, shape in named:
+        if t.device != x.device:
+            raise ValueError(f"ssd_scan: {name} on {t.device}, expected {x.device}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"ssd_scan: {name} is {t.dtype}, expected {x.dtype}")
+        views.append((t, row_strides(name, t, shape)))
+    return views
+
+
+def _f32(x, **tensors):
+    """The f32 inputs (dt, a, states, …) made contiguous and checked:
+    ``{name: (tensor, shape)}`` with None entries passed through."""
+    out = {k: (None if t is None else t.contiguous()) for k, (t, _) in tensors.items()}
+    present = {k: (out[k], shape) for k, (t, shape) in tensors.items() if t is not None}
+    name, (first, _) = next(iter(present.items()))
+    _runtime.check("ssd_scan", first, (torch.float32,), **present)
+    if first.device != x.device:
+        raise ValueError(f"ssd_scan: {name} on {first.device}, x on {x.device}")
+    return out
+
+
+def _forward(x, dt, a, bmat, cmat, initial_state, chunk, return_state, arm):
+    """The three launches of the forward: ``(y, final state or None, H,
+    cs)`` with ``H`` the states scratch after the state pass (the f32
+    state entering each chunk) and ``cs`` the chunks' cumulative ``a·dt``."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    _runtime.check("ssd_scan", x, DTYPES)
+    pl = plan(b, l, h, p, g, n, chunk, x.dtype)
+    views = _views(x, bmat, cmat)
+    f = _f32(x, dt=(dt, (b, l, h)), a=(a, (h,)), initial_state=(initial_state, (b, h, p, n)))
+    dt, a, h0 = f["dt"], f["a"], f["initial_state"]
+    f32_on = dict(dtype=torch.float32, device=x.device)
+    states, cs, decay = (torch.empty(pl["scratch"][k], **f32_on) for k in ("states", "cs", "decay"))
+    y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
+    h1 = torch.empty((b, h, p, n), **f32_on) if return_state else None
+    ptr = _runtime.ptr
+    _runtime.launch(
+        "ssd_scan", "ssd_scan", _SIGNATURE, x,
+        ptr(x), ptr(dt), ptr(a), ptr(bmat), ptr(cmat), ptr(h0), ptr(y), ptr(h1),
+        ptr(states), ptr(cs), ptr(decay), *views[0][1], *views[1][1], *views[2][1],
+        b, l, h, p, g, n, pl["chunk"], pl["heads_per_block"], int(vectorized(views)),
+        *pl["grid_chunks"], *pl["grid_states"], arm=arm,
+    )
+    return y, h1, states, cs
+
+
 def ssd_scan_cuda(
     x: torch.Tensor,
     dt: torch.Tensor,
@@ -152,47 +237,101 @@ def ssd_scan_cuda(
     ``dt`` (b, l, h), ``a`` (h,) and ``initial_state`` (b, h, p, n) in f32.
     Returns ``y`` (plus the final f32 state when ``return_state``).
     Raises ``NotImplementedError`` when a derivative is being taken through
-    an input: the kernel has no backward or forward-mode arm yet, and its
-    output would carry none."""
+    an input: this serving arm's output would carry none
+    (:func:`repro_torch.kernels.ops.ssd` routes such a call through
+    :class:`SSDScan`, whose arms carry it)."""
     if _runtime.differentiated(x, dt, a, bmat, cmat, d, initial_state):
         raise NotImplementedError(
-            "ssd_scan: the CUDA kernel has no backward or forward-mode arm yet (ROADMAP queue 1, "
-            "mamba2 training); differentiate the plain version (backend='plain') instead")
-    b, l, h, p = x.shape
-    g, n = bmat.shape[2], bmat.shape[3]
-    _runtime.check("ssd_scan", x, DTYPES)
-    pl = plan(b, l, h, p, g, n, chunk, x.dtype)
-    views = []
-    for name, t, shape in (("x", x, (b, l, h, p)), ("bmat", bmat, (b, l, g, n)),
-                           ("cmat", cmat, (b, l, g, n))):
-        if t.device != x.device:
-            raise ValueError(f"ssd_scan: {name} on {t.device}, expected {x.device}")
-        if t.dtype != x.dtype:
-            raise TypeError(f"ssd_scan: {name} is {t.dtype}, expected {x.dtype}")
-        views.append((t, row_strides(name, t, shape)))
-    dt, a = dt.contiguous(), a.contiguous()
-    h0 = None if initial_state is None else initial_state.contiguous()
-    f32 = {"dt": (dt, (b, l, h)), "a": (a, (h,))}
-    if h0 is not None:
-        f32["initial_state"] = (h0, (b, h, p, n))
-    _runtime.check("ssd_scan", dt, (torch.float32,), **f32)
-    if dt.device != x.device:
-        raise ValueError(f"ssd_scan: dt on {dt.device}, x on {x.device}")
-    f32_on = dict(dtype=torch.float32, device=x.device)
-    states, cs, decay = (torch.empty(pl["scratch"][k], **f32_on) for k in ("states", "cs", "decay"))
-    y = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
-    h1 = torch.empty((b, h, p, n), **f32_on) if return_state else None
-    ptr = _runtime.ptr
-    _runtime.launch(
-        "ssd_scan", "ssd_scan", _SIGNATURE, x,
-        ptr(x), ptr(dt), ptr(a), ptr(bmat), ptr(cmat), ptr(h0), ptr(y), ptr(h1),
-        ptr(states), ptr(cs), ptr(decay), *views[0][1], *views[1][1], *views[2][1],
-        b, l, h, p, g, n, pl["chunk"], pl["heads_per_block"], int(vectorized(views)),
-        *pl["grid_chunks"], *pl["grid_states"],
-    )
+            "ssd_scan: the serving arm drops derivatives; call repro_torch.kernels.ops.ssd, "
+            "which differentiates through SSDScan's backward and forward-mode arms")
+    y, h1, _, _ = _forward(x, dt, a, bmat, cmat, initial_state, chunk, return_state, None)
     if d is not None:  # y + x·d in one pass over y and x, rounded once (module docstring)
         y = torch.addcmul(y, x, d[None, None, :, None])
     return (y, h1) if return_state else y
+
+
+def ssd_scan_fwd_cuda(x, dt, a, bmat, cmat, initial_state=None, *, chunk=128):
+    """The forward of a differentiated call on the card (the arm
+    ``ssd_scan:fwd``): the serving arm's three launches, returning ``(y,
+    final state, H, cs)`` — ``y`` without the D skip, the f32 states
+    entering each chunk (b, h, chunks, p, n) that the state pass leaves in
+    its scratch and ``cs`` (b, h, chunks, c), which the backward and the
+    tangent map read."""
+    return _forward(x, dt, a, bmat, cmat, initial_state, chunk, True, "fwd")
+
+
+def _check_saved(x, hs, cs, gp):
+    b, h, k, p, n = gp["bwd_scratch"]["grads"]
+    f = _f32(x, hs=(hs, (b, h, k, p, n)), cs=(cs, (b, h, k, gp["chunk"])))
+    return f["hs"], f["cs"]
+
+
+def ssd_scan_bwd_cuda(dy, x, dt, a, bmat, cmat, initial_state, hs, cs, dh_last=None, *,
+                      chunk=128):
+    """``(dx, ddt, da, dB, dC, dh0)`` on the card from the forward's ``hs``
+    and ``cs`` (the arm ``ssd_scan:bwd``: eight launches, one count): dx,
+    dB and dC in the inputs' dtype, the rest f32.  ``dh_last`` is the final
+    state's gradient (or None); ``initial_state`` is not read (``hs``
+    holds it), as in the plain version."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    dy = dy.contiguous()
+    _runtime.check("ssd_scan", x, DTYPES, dy=(dy, (b, l, h, p)))
+    gp = grad_plan(b, l, h, p, g, n, chunk)
+    views = _views(x, bmat, cmat)
+    f = _f32(x, dt=(dt, (b, l, h)), a=(a, (h,)), dh_last=(dh_last, (b, h, p, n)))
+    hs, cs = _check_saved(x, hs, cs, gp)
+    f32_on = dict(dtype=torch.float32, device=x.device)
+    dx = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
+    db = torch.empty((b, l, g, n), dtype=x.dtype, device=x.device)
+    dc = torch.empty_like(db)
+    ddt = torch.empty((b, l, h), **f32_on)
+    da = torch.empty((h,), **f32_on)
+    dh0 = torch.empty((b, h, p, n), **f32_on)
+    scr = {k: torch.empty(shape, **f32_on) for k, shape in gp["bwd_scratch"].items()}
+    ptr = _runtime.ptr
+    _runtime.launch(
+        "ssd_scan", "ssd_scan_bwd", _SIGNATURE_BWD, x,
+        ptr(x), ptr(f["dt"]), ptr(f["a"]), ptr(bmat), ptr(cmat), ptr(dy), ptr(hs), ptr(cs),
+        ptr(f["dh_last"]), ptr(dx), ptr(ddt), ptr(da), ptr(db), ptr(dc), ptr(dh0),
+        *(ptr(scr[k]) for k in ("grads", "scores", "rows", "dots", "db", "dc", "da")),
+        *views[0][1], *views[1][1], *views[2][1],
+        b, l, h, p, g, n, gp["chunk"], *gp["grid_items"], *gp["grid_states"],
+        key="ssd_scan", arm="bwd",
+    )
+    return dx, ddt, da, db, dc, dh0
+
+
+def ssd_scan_jvp_cuda(x, dt, a, bmat, cmat, initial_state, hs, cs, tx, tdt, ta, tb, tc,
+                      th0=None, *, chunk=128):
+    """The tangents ``(ẏ, ḣ_last)`` on the card for input tangents ``tx,
+    tdt, ta, tb, tc`` (and ``th0`` or None), from the forward's ``hs`` and
+    ``cs`` (the arm ``ssd_scan:jvp``: three launches, one count): ẏ without
+    the D skip in x's dtype, the final state's tangent f32.
+    ``initial_state`` is not read (``hs`` holds it)."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    _runtime.check("ssd_scan", x, DTYPES)
+    gp = grad_plan(b, l, h, p, g, n, chunk)
+    views = _views(x, bmat, cmat, tx=tx.contiguous(), tb=tb.contiguous(), tc=tc.contiguous())
+    f = _f32(x, dt=(dt, (b, l, h)), a=(a, (h,)), tdt=(tdt, (b, l, h)), ta=(ta, (h,)),
+             th0=(th0, (b, h, p, n)))
+    hs, cs = _check_saved(x, hs, cs, gp)
+    f32_on = dict(dtype=torch.float32, device=x.device)
+    ty = torch.empty((b, l, h, p), dtype=x.dtype, device=x.device)
+    th1 = torch.empty((b, h, p, n), **f32_on)
+    scr = {k: torch.empty(shape, **f32_on) for k, shape in gp["jvp_scratch"].items()}
+    ptr = _runtime.ptr
+    _runtime.launch(
+        "ssd_scan", "ssd_scan_jvp", _SIGNATURE_JVP, x,
+        ptr(x), ptr(f["dt"]), ptr(f["a"]), ptr(bmat), ptr(cmat), ptr(hs), ptr(cs),
+        ptr(views[3][0]), ptr(f["tdt"]), ptr(f["ta"]), ptr(views[4][0]), ptr(views[5][0]),
+        ptr(f["th0"]), ptr(ty), ptr(th1), *(ptr(scr[k]) for k in ("states", "dcs", "decay")),
+        *(s for _, strides in views for s in strides),
+        b, l, h, p, g, n, gp["chunk"], *gp["grid_items"], *gp["grid_states"],
+        key="ssd_scan", arm="jvp",
+    )
+    return ty, th1
 
 
 def ssd_plain(
@@ -210,6 +349,17 @@ def ssd_plain(
     """Plain PyTorch version of :func:`ssd_scan_cuda`: the reference's
     ``_ssd_chunked`` with chunks of ``min(chunk, l)``."""
     _runtime.note_plain("ssd_scan", x)
+    y, hstate, _, _ = _plain_forward(x, dt, a, bmat, cmat, chunk, initial_state, record=False)
+    y = _skip(y, x, d)
+    return (y, hstate) if return_state else y
+
+
+def _plain_forward(x, dt, a, bmat, cmat, chunk, initial_state, record):
+    """The chunk loop of :func:`ssd_plain` (no D skip): ``(y, final state,
+    H, cs)``; with ``record``, ``H`` (b, h, chunks, p, n) holds the f32 state
+    entering each chunk and ``cs`` (b, h, chunks, c) each chunk's cumulative
+    ``a·dt`` in the kernels' layout (``c = _chunk(chunk, l)``, rows past the
+    sequence's end holding its last value), else both are None."""
     b, l, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     hpg = h // g
@@ -219,7 +369,12 @@ def ssd_plain(
               else torch.zeros((b, h, p, n), dtype=f32, device=x.device))
     tri = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
     y = torch.empty_like(x)
-    for t0 in range(0, l, c):
+    chunks = _runtime.cdiv(l, c)
+    hs = css = None
+    if record:
+        hs = torch.empty((b, h, chunks, p, n), dtype=f32, device=x.device)
+        css = torch.empty((b, h, chunks, _chunk(chunk, l)), dtype=f32, device=x.device)
+    for k, t0 in enumerate(range(0, l, c)):
         xi, dti = x[:, t0 : t0 + c], dt[:, t0 : t0 + c]
         bi = bmat[:, t0 : t0 + c].repeat_interleave(hpg, dim=2)  # (b, c', h, n)
         ci = cmat[:, t0 : t0 + c].repeat_interleave(hpg, dim=2)
@@ -227,6 +382,10 @@ def ssd_plain(
         mask = tri[:cc, :cc, None]
         cs = torch.cumsum(dti * a[None, None, :], dim=1)  # (b, c', h)
         cs_tot = cs[:, -1:, :]
+        if record:
+            hs[:, :, k] = hstate
+            css[:, :, k, :cc] = cs.transpose(1, 2)
+            css[:, :, k, cc:] = cs_tot.transpose(1, 2)
         xf, cf, bf = xi.float(), ci.float(), bi.float()
         gmat = torch.einsum("bthn,bshn->bhts", cf, bf)
         delta = cs[:, :, None, :] - cs[:, None, :, :]  # (b, t, s, h)
@@ -239,5 +398,288 @@ def ssd_plain(
         hstate = torch.exp(cs_tot[:, 0, :])[:, :, None, None] * hstate + torch.einsum(
             "bshp,bshn->bhpn", xf, bw)
         y[:, t0 : t0 + c] = yi.to(x.dtype)
-    y = _skip(y, x, d)
-    return (y, hstate) if return_state else y
+    return y, hstate, hs, css
+
+
+# ---------------------------------------------------------------------------
+# The differentiated arms: training forward, backward, forward mode (JVP)
+# ---------------------------------------------------------------------------
+#
+# Per (batch, head) and chunk k, with w_s = exp(cs_c − cs_s)·dt_s,
+# G = C Bᵀ, E[t,s] = exp(cs_t − cs_s)[s ≤ t], M = E·dt_s and Γ the gradient
+# reaching the state that leaves the chunk, the backward is
+#
+#   dX  = (M∘G)ᵀ dY + diag(w) B Γᵀ        dG = (dY Xᵀ)∘M
+#   dB  = dGᵀ C + diag(w) X Γ             dC = dG B + diag(e^cs) dY H_kᵀ... (H_k: p × n)
+#   dcs = rowsum(dM∘M) − colsum(dM∘M) + e^cs·ψ − w·ω
+#         (+ Σ w·ω + e^{cs_c}⟨Γ, H_k⟩ on the chunk's last row)
+#   ddt = colsum(dM∘E) + ω·e^{cs_c − cs} + a·dadt,  dadt = reverse cumsum of dcs
+#   da  = Σ dt·dadt
+#
+# with dM = G∘(dY Xᵀ), ω_s = X_s Γ B_sᵀ and ψ_t = C_t H_kᵀ dY_tᵀ; the
+# gradient reaching the state that enters the chunk is
+# Γ' = e^{cs_c} Γ + dYᵀ diag(e^cs) C, and the last Γ' is the gradient of
+# the initial state.  The tangent map is the same passes carrying pairs:
+# ċs = cumsum(ȧ·dt + a·ḋt), Ġ = Ċ Bᵀ + C Ḃᵀ,
+# Ṁ = M∘(ċs_t − ċs_s) + E·ḋt_s and
+#
+#   Ẏ = (Ṁ∘G + M∘Ġ) X + (M∘G) Ẋ + diag(e^cs)((ċs∘C + Ċ) H_kᵀ + C Ḣ_kᵀ)
+#   Ḣ_{k+1} = e^{cs_c}(ċs_c H_k + Ḣ_k) + Ẋᵀ diag(w) B + Xᵀ diag(ẇ) B + Xᵀ diag(w) Ḃ
+#
+# from ḣ0 (or 0).
+
+
+def ssd_fwd_plain(x, dt, a, bmat, cmat, initial_state=None, *, chunk=128):
+    """Plain version of :func:`ssd_scan_fwd_cuda`: ``(y, final state, H,
+    cs)`` — ``y`` without the D skip, the f32 states entering each chunk
+    (b, h, chunks, p, n) and ``cs`` (b, h, chunks, c) as the kernels lay
+    them out (``c = _chunk(chunk, l)``)."""
+    _runtime.note_plain("ssd_scan", x)
+    return _plain_forward(x, dt, a, bmat, cmat, chunk, initial_state, record=True)
+
+
+def _group_sum(t, g):
+    """(b, rows, h, w) per head → (b, rows, g, w) summed over each group."""
+    b, r, h, w = t.shape
+    return t.reshape(b, r, g, h // g, w).sum(dim=3)
+
+
+def ssd_bwd_plain(dy, x, dt, a, bmat, cmat, initial_state, hs, cs, dh_last=None, *,
+                  chunk=128):
+    """Plain version of :func:`ssd_scan_bwd_cuda`: one chunk at a time in
+    reverse order, in f32 on widened inputs, with the state's gradient
+    carried explicitly (the formulas above).  ``hs`` and ``cs`` are
+    :func:`ssd_fwd_plain`'s; ``dh_last`` the final state's gradient (or
+    None).  Returns ``(dx, ddt, da, dB, dC, dh0)``, each rounded once to its
+    input's dtype (``dh0`` f32)."""
+    _runtime.note_plain("ssd_scan", x)
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    hpg = h // g
+    c = min(chunk, l)
+    f32 = torch.float32
+    gam = (dh_last.to(f32) if dh_last is not None
+           else torch.zeros((b, h, p, n), dtype=f32, device=x.device))
+    tri = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    dx = torch.empty((b, l, h, p), dtype=f32, device=x.device)
+    ddt = torch.empty((b, l, h), dtype=f32, device=x.device)
+    db = torch.empty((b, l, g, n), dtype=f32, device=x.device)
+    dc = torch.empty_like(db)
+    da = torch.zeros((h,), dtype=f32, device=x.device)
+    starts = list(range(0, l, c))
+    for k in reversed(range(len(starts))):
+        t0 = starts[k]
+        xf, dyf = x[:, t0 : t0 + c].float(), dy[:, t0 : t0 + c].float()
+        dti = dt[:, t0 : t0 + c].float()
+        bf = bmat[:, t0 : t0 + c].float().repeat_interleave(hpg, dim=2)  # (b, c', h, n)
+        cf = cmat[:, t0 : t0 + c].float().repeat_interleave(hpg, dim=2)
+        cc = xf.shape[1]
+        csk = cs[:, :, k, :cc].transpose(1, 2)  # (b, c', h)
+        cs_c = csk[:, -1:, :]
+        hk = hs[:, :, k]  # (b, h, p, n)
+        mask = tri[:cc, :cc]
+        delta = (csk[:, :, None, :] - csk[:, None, :, :]).permute(0, 3, 1, 2)  # (b, h, t, s)
+        e = torch.where(mask, torch.exp(torch.where(mask, delta, 0.0)), 0.0)
+        m = e * dti.transpose(1, 2)[:, :, None, :]
+        gmat = torch.einsum("bthn,bshn->bhts", cf, bf)
+        q = torch.einsum("bthp,bshp->bhts", dyf, xf)
+        dg, dm = m * q, gmat * q
+        w = torch.exp(cs_c - csk) * dti  # (b, c', h)
+        ecs = torch.exp(csk)
+        xg = torch.einsum("bshp,bhpn->bshn", xf, gam)
+        z = torch.einsum("bthp,bhpn->bthn", dyf, hk)
+        dx[:, t0 : t0 + c] = (torch.einsum("bhts,bthp->bshp", m * gmat, dyf)
+                              + w[..., None] * torch.einsum("bshn,bhpn->bshp", bf, gam))
+        db[:, t0 : t0 + c] = _group_sum(torch.einsum("bhts,bthn->bshn", dg, cf)
+                                        + w[..., None] * xg, g)
+        dc[:, t0 : t0 + c] = _group_sum(torch.einsum("bhts,bshn->bthn", dg, bf)
+                                        + ecs[..., None] * z, g)
+        omega = (xg * bf).sum(dim=-1)  # (b, s, h)
+        psi = (z * cf).sum(dim=-1)  # (b, t, h)
+        dmm = dm * m
+        dcs = (dmm.sum(dim=3) - dmm.sum(dim=2)).transpose(1, 2) + ecs * psi - w * omega
+        dcs[:, -1] += (w * omega).sum(dim=1) + torch.exp(cs_c[:, 0]) * (gam * hk).sum(dim=(2, 3))
+        dadt = torch.flip(torch.cumsum(torch.flip(dcs, (1,)), dim=1), (1,))
+        ddt[:, t0 : t0 + c] = ((dm * e).sum(dim=2).transpose(1, 2)
+                               + omega * torch.exp(cs_c - csk) + a * dadt)
+        da += (dti * dadt).sum(dim=(0, 1))
+        gam = torch.exp(cs_c[:, 0])[:, :, None, None] * gam + torch.einsum(
+            "bthp,bthn->bhpn", dyf * ecs[..., None], cf)
+    return dx.to(x.dtype), ddt, da, db.to(bmat.dtype), dc.to(cmat.dtype), gam
+
+
+def ssd_jvp_plain(x, dt, a, bmat, cmat, initial_state, hs, cs, tx, tdt, ta, tb, tc,
+                  th0=None, *, chunk=128):
+    """Plain version of :func:`ssd_scan_jvp_cuda`: the tangents of ``y``
+    (without the D skip, in x's dtype) and of the final state (f32) for
+    input tangents ``tx, tdt, ta, tb, tc`` and ``th0`` (or None), one chunk
+    at a time in f32 with the tangent state carried explicitly."""
+    _runtime.note_plain("ssd_scan", x)
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    hpg = h // g
+    c = min(chunk, l)
+    f32 = torch.float32
+    hdot = (th0.to(f32) if th0 is not None
+            else torch.zeros((b, h, p, n), dtype=f32, device=x.device))
+    tri = torch.ones((c, c), dtype=torch.bool, device=x.device).tril()
+    ty = torch.empty_like(x)
+    for k, t0 in enumerate(range(0, l, c)):
+        xf, txf = x[:, t0 : t0 + c].float(), tx[:, t0 : t0 + c].float()
+        dti, tdti = dt[:, t0 : t0 + c].float(), tdt[:, t0 : t0 + c].float()
+        rep = lambda t: t[:, t0 : t0 + c].float().repeat_interleave(hpg, dim=2)  # noqa: E731
+        bf, cf, tbf, tcf = rep(bmat), rep(cmat), rep(tb), rep(tc)
+        cc = xf.shape[1]
+        csk = cs[:, :, k, :cc].transpose(1, 2)  # (b, c', h)
+        cs_c = csk[:, -1:, :]
+        tcs = torch.cumsum(ta * dti + a * tdti, dim=1)
+        tcs_c = tcs[:, -1:, :]
+        hk = hs[:, :, k]
+        mask = tri[:cc, :cc]
+        perm = lambda t: t.transpose(1, 2)  # noqa: E731  (b, c', h) -> (b, h, c')
+        delta = perm(csk)[:, :, :, None] - perm(csk)[:, :, None, :]
+        e = torch.where(mask, torch.exp(torch.where(mask, delta, 0.0)), 0.0)
+        m = e * perm(dti)[:, :, None, :]
+        tm = m * (perm(tcs)[:, :, :, None] - perm(tcs)[:, :, None, :]) + e * perm(tdti)[:, :, None, :]
+        gmat = torch.einsum("bthn,bshn->bhts", cf, bf)
+        tg = torch.einsum("bthn,bshn->bhts", tcf, bf) + torch.einsum("bthn,bshn->bhts", cf, tbf)
+        ecs = torch.exp(csk)
+        yi = (torch.einsum("bhts,bshp->bthp", tm * gmat + m * tg, xf)
+              + torch.einsum("bhts,bshp->bthp", m * gmat, txf)
+              + ecs[..., None] * (torch.einsum("bthn,bhpn->bthp", tcs[..., None] * cf + tcf, hk)
+                                  + torch.einsum("bthn,bhpn->bthp", cf, hdot)))
+        ty[:, t0 : t0 + c] = yi.to(x.dtype)
+        ew = torch.exp(cs_c - csk)
+        w = ew * dti
+        tw = w * (tcs_c - tcs) + ew * tdti
+        dec = torch.exp(cs_c[:, 0])[:, :, None, None]
+        hdot = dec * (tcs_c[:, 0][:, :, None, None] * hk + hdot) + torch.einsum(
+            "bshp,bshn->bhpn", txf * w[..., None] + xf * tw[..., None], bf) + torch.einsum(
+            "bshp,bshn->bhpn", xf * w[..., None], tbf)
+    return ty, hdot
+
+
+# The three arms as custom ops, so that autograd, torch.func and make_fx
+# (``torch.func.linearize``) record them as calls: a kernel launched through
+# raw pointers is invisible to a tracer.  The CUDA implementation launches
+# the kernels (or, with ``plain``, runs the plain versions on the card, the
+# yardstick ``backend="plain"`` asks for); on any other device the plain
+# versions run.
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
+def _fwd_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+            cmat: torch.Tensor, h0: Optional[torch.Tensor], chunk: int,
+            plain: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    return ssd_fwd_plain(x, dt, a, bmat, cmat, h0, chunk=chunk)
+
+
+@_fwd_op.register_kernel("cuda")
+def _fwd_cuda(x, dt, a, bmat, cmat, h0, chunk, plain):
+    fn = ssd_fwd_plain if plain else ssd_scan_fwd_cuda
+    return fn(x, dt, a, bmat, cmat, h0, chunk=chunk)
+
+
+@_fwd_op.register_fake
+def _fwd_fake(x, dt, a, bmat, cmat, h0, chunk, plain):
+    b, l, h, p = x.shape
+    n = bmat.shape[3]
+    c = _chunk(chunk, l)
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty(x.shape), x.new_empty((b, h, p, n), **f32),
+            x.new_empty((b, h, _runtime.cdiv(l, c), p, n), **f32),
+            x.new_empty((b, h, _runtime.cdiv(l, c), c), **f32))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_bwd", mutates_args=())
+def _bwd_op(dy: torch.Tensor, x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            bmat: torch.Tensor, cmat: torch.Tensor, h0: Optional[torch.Tensor],
+            hs: torch.Tensor, cs: torch.Tensor, dh_last: Optional[torch.Tensor], chunk: int,
+            plain: bool) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                  torch.Tensor, torch.Tensor]:
+    return ssd_bwd_plain(dy, x, dt, a, bmat, cmat, h0, hs, cs, dh_last, chunk=chunk)
+
+
+@_bwd_op.register_kernel("cuda")
+def _bwd_cuda(dy, x, dt, a, bmat, cmat, h0, hs, cs, dh_last, chunk, plain):
+    fn = ssd_bwd_plain if plain else ssd_scan_bwd_cuda
+    return fn(dy, x, dt, a, bmat, cmat, h0, hs, cs, dh_last, chunk=chunk)
+
+
+@_bwd_op.register_fake
+def _bwd_fake(dy, x, dt, a, bmat, cmat, h0, hs, cs, dh_last, chunk, plain):
+    b, _, h, p = x.shape
+    f32 = dict(dtype=torch.float32)
+    return (x.new_empty(x.shape), dt.new_empty(dt.shape), a.new_empty(a.shape),
+            bmat.new_empty(bmat.shape), cmat.new_empty(cmat.shape),
+            x.new_empty((b, h, p, bmat.shape[3]), **f32))
+
+
+@torch.library.custom_op("repro_torch::ssd_scan_jvp", mutates_args=())
+def _jvp_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+            cmat: torch.Tensor, h0: Optional[torch.Tensor], hs: torch.Tensor, cs: torch.Tensor,
+            tx: torch.Tensor, tdt: torch.Tensor, ta: torch.Tensor, tb: torch.Tensor,
+            tc: torch.Tensor, th0: Optional[torch.Tensor], chunk: int,
+            plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return ssd_jvp_plain(x, dt, a, bmat, cmat, h0, hs, cs, tx, tdt, ta, tb, tc, th0, chunk=chunk)
+
+
+@_jvp_op.register_kernel("cuda")
+def _jvp_cuda(x, dt, a, bmat, cmat, h0, hs, cs, tx, tdt, ta, tb, tc, th0, chunk, plain):
+    fn = ssd_jvp_plain if plain else ssd_scan_jvp_cuda
+    return fn(x, dt, a, bmat, cmat, h0, hs, cs, tx, tdt, ta, tb, tc, th0, chunk=chunk)
+
+
+@_jvp_op.register_fake
+def _jvp_fake(x, dt, a, bmat, cmat, h0, hs, cs, tx, tdt, ta, tb, tc, th0, chunk, plain):
+    b, _, h, p = x.shape
+    return x.new_empty(x.shape), x.new_empty((b, h, p, bmat.shape[3]), dtype=torch.float32)
+
+
+class SSDScan(torch.autograd.Function):
+    """The SSD scan whose forward saves the chunk-entry states and ``cs``,
+    whose backward is the ``bwd`` arm and whose forward-mode derivative is
+    the ``jvp`` arm (``torch.func.grad``, ``vjp``, ``jvp`` and ``linearize``
+    all go through the arms).  ``apply(x, dt, a, bmat, cmat, h0, chunk,
+    plain)`` returns ``(y, final state, H, cs)``: ``y`` without the D skip,
+    differentiable in every input and ``h0`` (None for a zero state); ``H``
+    and ``cs`` are not differentiable."""
+
+    @staticmethod
+    def forward(x, dt, a, bmat, cmat, h0, chunk, plain):
+        return _fwd_op(x, dt, a, bmat, cmat, h0, chunk, plain)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        x, dt, a, bmat, cmat, h0, chunk, plain = inputs
+        _, _, hs, cs = output
+        ctx.mark_non_differentiable(hs, cs)
+        ctx.save_for_backward(x, dt, a, bmat, cmat, h0, hs, cs)
+        ctx.save_for_forward(x, dt, a, bmat, cmat, h0, hs, cs)
+        ctx.args = (chunk, plain)
+
+    @staticmethod
+    def backward(ctx, dy, dh_last, _dhs, _dcs):
+        x, dt, a, bmat, cmat, h0, hs, cs = ctx.saved_tensors
+        # Under torch.func.grad a custom op called here must not be
+        # recorded again (no double backward is offered).
+        with torch.no_grad():
+            dx, ddt, da, db, dc, dh0 = _bwd_op(dy.to(x.dtype), x, dt, a, bmat, cmat, h0, hs, cs,
+                                               dh_last, *ctx.args)
+        return dx, ddt, da, db, dc, (dh0 if h0 is not None else None), None, None
+
+    @staticmethod
+    def jvp(ctx, tx, tdt, ta, tb, tc, th0, *_):
+        x, dt, a, bmat, cmat, h0, hs, cs = ctx.saved_tensors
+        tx, tdt, ta, tb, tc = (torch.zeros_like(v) if t is None else t
+                               for v, t in ((x, tx), (dt, tdt), (a, ta), (bmat, tb), (cmat, tc)))
+        ty, th1 = _jvp_op(x, dt, a, bmat, cmat, h0, hs, cs, tx, tdt, ta, tb, tc, th0, *ctx.args)
+        return ty, th1, None, None
+
+
+def ssd_differentiable(x, dt, a, bmat, cmat, *, chunk=128, initial_state=None, plain=False):
+    """The scan through :class:`SSDScan`: the kernels on CUDA tensors (their
+    plain versions with ``plain``, or off the card).  Returns ``(y, final
+    state)``, ``y`` without the D skip."""
+    y, h1, _, _ = SSDScan.apply(x, dt, a, bmat, cmat, initial_state, int(chunk), bool(plain))
+    return y, h1

@@ -26,7 +26,7 @@ import torch
 from repro_torch.core import pytree as pt
 from repro_torch.core.api import SolveSpec, solve
 from repro_torch.core.operators import GaussNewtonOperator, GGNOperator, LinearOperator
-from repro_torch.core.recycle import RecycleState
+from repro_torch.core.recycle import RecycleState, random_orthonormal_basis
 from repro_torch.core.solvers import defcg
 from repro_torch.core.strategies import HarmonicRitz, RecycleStrategy
 
@@ -85,24 +85,12 @@ class HFState(NamedTuple):
     last_cg_iters: torch.Tensor  # int32 0-d
 
 
-def _random_orthonormal_basis(generator: torch.Generator, like: torch.Tensor, k: int) -> torch.Tensor:
-    """``k`` orthonormal Gaussian rows shaped ``(k, n)`` like the flat
-    ``(n,)`` tensor ``like`` (Gram-Schmidt, as the reference's bootstrap)."""
-    vs = []
-    for _ in range(k):
-        v = torch.randn(like.shape, generator=generator, dtype=like.dtype, device=like.device)
-        for u in vs:
-            v = v - torch.dot(u, v) * u
-        vs.append(v / torch.linalg.vector_norm(v))
-    return torch.stack(vs)
-
-
 def hf_init(params: Any, cfg: HFConfig, generator: torch.Generator) -> HFState:
     """A fresh state: a random orthonormal basis from ``generator`` (a
     valid, merely unhelpful deflation space; its ``AW`` placeholder is
     zeros, which the exact per-step refresh overwrites before use)."""
     flat = pt.ravel(params)
-    w = _random_orthonormal_basis(generator, flat, cfg.k)
+    w = random_orthonormal_basis(generator, flat, cfg.k)
     device = flat.device
     return HFState(
         recycle=RecycleState(

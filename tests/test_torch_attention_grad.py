@@ -312,7 +312,7 @@ def test_ssd_kernel_refuses_a_differentiated_input():
     assert seen == [True, True, False, True]
     dt, a = torch.ones(1, 8, 2), -torch.ones(2)
     bm = cm = torch.zeros(1, 8, 1, 4)
-    with pytest.raises(NotImplementedError, match="mamba2 training"):
+    with pytest.raises(NotImplementedError, match="ops.ssd"):
         ss.ssd_scan_cuda(x.clone().requires_grad_(True), dt, a, bm, cm)
     with pytest.raises(ValueError, match="CUDA kernel called on a cpu tensor"):
         ss.ssd_scan_cuda(x, dt, a, bm, cm)

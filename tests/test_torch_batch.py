@@ -31,7 +31,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
-import torch
+
+torch = pytest.importorskip("torch")
 
 jax.config.update("jax_enable_x64", True)
 

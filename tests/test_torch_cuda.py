@@ -869,9 +869,9 @@ def test_attention_autograd_and_func_on_the_card(device):
 def test_ssd_scan_refuses_a_differentiated_input(device):
     x, dt, a, bmat, cmat, d, _ = _ssd_inputs((1, 64, 2, 16, 1, 16, 32), torch.float32, device,
                                              False)
-    with pytest.raises(NotImplementedError, match="mamba2 training"):
+    with pytest.raises(NotImplementedError, match="ops.ssd"):
         ss.ssd_scan_cuda(x.requires_grad_(True), dt, a, bmat, cmat, d)
-    with pytest.raises(NotImplementedError, match="mamba2 training"):
+    with pytest.raises(NotImplementedError, match="ops.ssd"):
         torch.func.grad(lambda t: ss.ssd_scan_cuda(t, dt, a, bmat, cmat, d).sum())(x.detach())
 
 
@@ -946,6 +946,79 @@ def test_ssd_scan_refuses_a_strided_last_dimension(device, dtype):
     with pytest.raises(ValueError, match="contiguous last dimension"):
         ss.ssd_scan_cuda(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a, bmat, cmat, d,
                          chunk=32)
+
+
+# K10's differentiated arms (training forward, backward, tangent map):
+# the cases of test_ssd_scan that stay small, mamba2-1.3b's training shape
+# (b 2, l 1 024) and a ragged l past a chunk; held at GRAD_BAR of the plain
+# version's max abs (f32 2e-4, bf16 5e-2: chip_smoke.py's check-lm-grad).
+SSD_GRAD_CASES = [(1, 64, 2, 16, 1, 16, 32), (2, 100, 4, 8, 2, 24, 32), (1, 37, 2, 4, 2, 8, 16),
+                  (2, 128, 8, 32, 1, 64, 64), (1, 300, 4, 64, 1, 128, 128),
+                  (2, 1, 8, 64, 1, 128, 128), (2, 1024, 64, 64, 1, 128, 128)]
+GRAD_BAR = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+
+
+def _rel(got, want):
+    return float((got.float() - want.float()).abs().max() / want.float().abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_GRAD_CASES)
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("strided", [False, True])
+def test_ssd_scan_grad_arms(device, dtype, case, state, strided):
+    x, dt, a, bmat, cmat, _, h0 = _ssd_inputs(case, dtype, device, state, strided)
+    chunk = case[-1]
+    rnd = _gen(device, torch.float32, sum(case))
+    dy, tx = rnd(*x.shape).to(dtype), rnd(*x.shape).to(dtype)
+    tb, tc = rnd(*bmat.shape).to(dtype), rnd(*cmat.shape).to(dtype)
+    tdt, ta = 0.1 * rnd(*dt.shape), 0.1 * rnd(*a.shape)
+    dh, th0 = (rnd(*h0.shape) if state else None for _ in range(2))
+    arms = dict(_runtime.ARMS)
+    y, h1, hs, cs = ss.ssd_scan_fwd_cuda(x, dt, a, bmat, cmat, h0, chunk=chunk)
+    want = ss.ssd_fwd_plain(x, dt, a, bmat, cmat, h0, chunk=chunk)
+    assert [t.shape for t in (y, h1, hs, cs)] == [t.shape for t in want]
+    # The training forward is the serving arm's launches: y bit for bit.
+    assert torch.equal(y, ss.ssd_scan_cuda(x, dt, a, bmat, cmat, chunk=chunk, initial_state=h0))
+    assert _rel(hs, want[2]) <= 2e-4 and _rel(cs, want[3]) <= 1e-5
+    _, _, hs_p, cs_p = want
+    got = ss.ssd_scan_bwd_cuda(dy, x, dt, a, bmat, cmat, h0, hs_p, cs_p, dh, chunk=chunk)
+    ref = ss.ssd_bwd_plain(dy, x, dt, a, bmat, cmat, h0, hs_p, cs_p, dh, chunk=chunk)
+    tgot = ss.ssd_scan_jvp_cuda(x, dt, a, bmat, cmat, h0, hs_p, cs_p, tx, tdt, ta, tb, tc, th0,
+                                chunk=chunk)
+    tref = ss.ssd_jvp_plain(x, dt, a, bmat, cmat, h0, hs_p, cs_p, tx, tdt, ta, tb, tc, th0,
+                            chunk=chunk)
+    for name, g, w in zip(("dx", "ddt", "da", "dB", "dC", "dh0", "ty", "th"), (*got, *tgot),
+                          (*ref, *tref)):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        bar = GRAD_BAR[dtype if g.dtype == dtype else torch.float32]
+        assert _rel(g, w) <= bar, (name, _rel(g, w))
+    again = ss.ssd_scan_bwd_cuda(dy, x, dt, a, bmat, cmat, h0, hs_p, cs_p, dh, chunk=chunk)
+    tagain = ss.ssd_scan_jvp_cuda(x, dt, a, bmat, cmat, h0, hs_p, cs_p, tx, tdt, ta, tb, tc,
+                                  th0, chunk=chunk)
+    assert all(torch.equal(u, v) for u, v in zip((*got, *tgot), (*again, *tagain)))
+    counts = {arm: _runtime.ARMS.get(f"ssd_scan:{arm}", 0) - arms.get(f"ssd_scan:{arm}", 0)
+              for arm in ("fwd", "bwd", "jvp")}
+    assert counts == {"fwd": 1, "bwd": 2, "jvp": 2}, counts
+
+
+def test_ssd_autograd_and_func_on_the_card(device):
+    x, dt, a, bmat, cmat, d, h0 = _ssd_inputs((2, 100, 4, 8, 2, 24, 32), torch.bfloat16, device,
+                                              True, strided=True)
+    arms = dict(_runtime.ARMS)
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, dt, a, bmat, cmat, h0)]
+    y, h1 = kops.ssd(*leaves[:5], d, chunk=32, initial_state=leaves[5], return_state=True)
+    (y.float().square().sum() + h1.sum()).backward()
+    assert all(t.grad is not None and bool(torch.isfinite(t.grad).all()) for t in leaves)
+    f = lambda *t: kops.ssd(*t, d, chunk=32)  # noqa: E731
+    ins = (x, dt, a, bmat, cmat)
+    _, lin = torch.func.linearize(f, *ins)
+    tans = tuple(torch.ones_like(t) for t in ins)
+    assert torch.equal(lin(*tans), torch.func.jvp(f, ins, tans)[1])
+    got = {arm: _runtime.ARMS.get(f"ssd_scan:{arm}", 0) - arms.get(f"ssd_scan:{arm}", 0)
+           for arm in ("fwd", "bwd", "jvp")}
+    assert got["fwd"] >= 2 and got["bwd"] == 1 and got["jvp"] >= 2, got
 
 
 def test_ssd_scan_matches_sequential_oracle(device):

@@ -227,6 +227,127 @@ def test_split_keeps_the_f32_bar(case, state):
     _scaled(h16, h32, CARD_TOL["float32"])
 
 
+def backward_passes(dy, x, dt, a, bm, cm, hs, cs, dh_last, *, chunk):
+    """The backward's schedule on :func:`ss.grad_plan`'s layout (``namespace
+    grad`` of ``csrc/ssd_scan.cu``), in f32: (a') every item's ``U_k = dYᵀ
+    diag(e^cs) C``; (b') the state pass backwards in place (slot k left
+    holding ``Γ_{k+1}``), each warp's 32-element partial of ``⟨Γ_{k+1},
+    H_k⟩`` written out and summed in warp order by the item; (c') per item
+    ``M∘G`` and ``dG``, the row and column sums of ``dM∘M`` and of ``dM∘E``,
+    ω, ψ, the per-head ``dX`` and ``dB`` / ``dC`` partials, ``dcs``, its
+    reverse cumulative sum, ``ddt`` and the per-item ``da`` partial; (r)
+    ``dB`` / ``dC`` summed over each group's heads in head order and ``da``
+    over (batch, chunk) in order.  Returns the six gradients in f32 and,
+    per head, the sum of the magnitudes of ``da``'s terms."""
+    b, l, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    gp = ss.grad_plan(b, l, h, p, g, n, chunk)
+    c, nch = gp["chunk"], gp["chunks"]
+    hpg = h // g
+
+    def items(t):  # (b, l, k, w) -> (b, h, chunks, c, w), padded rows 0, groups to heads
+        t = F.pad(t.float(), (0, 0, 0, 0, 0, nch * c - l)).reshape(b, nch, c, *t.shape[2:])
+        return t.repeat_interleave(h // t.shape[3], dim=3).permute(0, 3, 1, 2, 4)
+
+    xs, dys, bs, cs_ = items(x), items(dy), items(bm), items(cm)
+    dts = F.pad(dt, (0, 0, 0, nch * c - l)).reshape(b, nch, c, h).permute(0, 3, 1, 2)
+    csc = cs[..., c - 1 :]  # (b, h, chunks, 1)
+    ecs = torch.exp(cs) * (dts != 0)  # the kernels' e^cs is 0 past the valid rows
+    w = torch.exp(csc - cs) * dts
+    # (a') and (b').
+    grads = torch.einsum("bhktp,bhktn->bhkpn", dys * ecs[..., None], cs_)
+    warps = gp["grid_states"][1] * 8
+    gam = dh_last.float() if dh_last is not None else torch.zeros(b, h, p, n)
+    dots = torch.zeros(b, h, nch)
+    for k in reversed(range(nch)):
+        u = grads[:, :, k].clone()
+        grads[:, :, k] = gam
+        prod = F.pad((gam * hs[:, :, k]).reshape(b, h, p * n), (0, warps * 32 - p * n))
+        dots[:, :, k] = prod.reshape(b, h, warps, 32).sum(-1).sum(-1)
+        gam = torch.exp(csc[:, :, k, 0])[..., None, None] * gam + u
+    dh0 = gam
+    # (c').
+    tri = torch.ones(c, c, dtype=torch.bool).tril()
+    e = torch.where(tri, torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :], 0.0)), 0.0)
+    m = e * dts[..., None, :]
+    gmat = torch.einsum("bhktn,bhksn->bhkts", cs_, bs)
+    q = torch.einsum("bhktp,bhksp->bhkts", dys, xs)
+    pg, dg, dm = m * gmat, m * q, gmat * q
+    rows = torch.stack([(dm * m).sum(-1), (dm * m).sum(-2), (dm * e).sum(-2)])
+    bg = torch.einsum("bhksn,bhkpn->bhksp", bs, grads)
+    omega = (xs * bg).sum(-1)
+    dx = torch.einsum("bhkts,bhktp->bhksp", pg, dys) + w[..., None] * bg
+    dbp = torch.einsum("bhkts,bhktn->bhksn", dg, cs_) + w[..., None] * torch.einsum(
+        "bhksp,bhkpn->bhksn", xs, grads)
+    z = torch.einsum("bhktp,bhkpn->bhktn", dys, hs)
+    psi = (cs_ * z).sum(-1)
+    dcp = torch.einsum("bhkts,bhksn->bhktn", dg, bs) + ecs[..., None] * z
+    dcs = rows[0] - rows[1] + ecs * psi - w * omega
+    dcs[..., c - 1] += (w * omega).sum(-1) + torch.exp(csc[..., 0]) * dots
+    dadt = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+    ddt = rows[2] + omega * torch.exp(csc - cs) + a[None, :, None, None] * dadt
+    dap = (dts * dadt).sum(-1)  # (b, h, chunks)
+    # (r): group sums in head order; da over (batch, chunk) in order.
+    def rows_out(t):  # (b, h, chunks, c, w) -> (b, l, h, w)
+        return t.permute(0, 2, 3, 1, 4).reshape(b, nch * c, h, -1)[:, :l]
+
+    def group(t):
+        t = rows_out(t).reshape(b, l, g, hpg, n)
+        out = t[:, :, :, 0]
+        for j in range(1, hpg):
+            out = out + t[:, :, :, j]
+        return out
+
+    da = torch.zeros(h)
+    for bi in range(b):
+        for k in range(nch):
+            da = da + dap[bi, :, k]
+    da_terms = (dts * dadt).abs().sum((0, 2, 3))  # Σ|dt·dadt|, da's cancelling terms
+    return (rows_out(dx), rows_out(ddt[..., None])[..., 0], da, group(dbp), group(dcp),
+            dh0), da_terms
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("case", [SSD_CASES[1], SSD_CASES[2], MORE_CASES[3], MORE_CASES[4]])
+def test_backward_schedule_matches_plain(case, state):
+    """The kernels' backward schedule (:func:`backward_passes`) against
+    ``ssd_bwd_plain`` at 1e-6 of each output's max abs (``da``: of the sum
+    of its terms' magnitudes), f32."""
+    _, (x, dt, a, bm, cm, _, h0) = _inputs(case, "float32")
+    chunk = case[-1]
+    h0 = h0 if state else None
+    rng = np.random.default_rng(7)
+    dy = torch.as_tensor(rng.standard_normal(x.shape).astype(np.float32))
+    dh = torch.as_tensor(rng.standard_normal(h0.shape).astype(np.float32)) if state else None
+    _, _, hs, cs = ss.ssd_fwd_plain(x, dt, a, bm, cm, h0, chunk=chunk)
+    got, da_terms = backward_passes(dy, x, dt, a, bm, cm, hs, cs, dh, chunk=chunk)
+    want = ss.ssd_bwd_plain(dy, x, dt, a, bm, cm, h0, hs, cs, dh, chunk=chunk)
+    for name, gv, wv in zip(("dx", "ddt", "da", "dB", "dC", "dh0"), got, want):
+        assert gv.shape == wv.shape, name
+        # da sums terms of both signs in another order: held per head
+        # against the sum of its terms' magnitudes.
+        scale = da_terms if name == "da" else wv.float().abs().max()
+        err = float(((gv - wv.float()).abs() / scale).max())
+        assert err <= 1e-6, (name, err)
+
+
+def test_grad_plan_at_the_training_shape():
+    """mamba2-1.3b's training shape: 1 024 items on (heads, chunks, batch),
+    the state pass's grid and its 256 warps a (batch, head), and the f32
+    scratch the backward and the tangent map allocate."""
+    gp = ss.grad_plan(2, 1024, 64, 64, 1, 128, 128)
+    assert gp["chunk"] == 128 and gp["chunks"] == 8 and gp["grid_items"] == (64, 8, 2)
+    assert gp["grid_states"] == (128, 32)
+    assert gp["bwd_scratch"]["dots"] == (128, 8, 256)
+    assert _scratch_bytes({"scratch": gp["bwd_scratch"]}) == 4 * (
+        2 * 64 * 8 * (64 * 128 + 2 * 128 * 128 + 4 * 128 + 2 * 128 * 128 + 1) + 128 * 8 * 256)
+    assert gp["jvp_scratch"] == {"states": (2, 64, 8, 64, 128), "dcs": (2, 64, 8, 128),
+                                 "decay": (2, 64, 8)}
+    assert ss.grad_plan(1, 37, 2, 4, 2, 8, 16)["grid_items"] == (2, 3, 1)
+    with pytest.raises(ValueError):
+        ss.grad_plan(1, 64, 2, 65, 1, 16, 32)
+
+
 def _scratch_bytes(plan):
     return 4 * sum(math.prod(shape) for shape in plan["scratch"].values())
 

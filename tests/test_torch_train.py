@@ -88,6 +88,27 @@ def test_lm_loss_and_gradients_match_reference():
         assert np.abs(g.numpy() - want[name]).max() <= 2e-4 * scale, name
 
 
+def test_mamba2_gradients_match_reference():
+    """``test_grad_step[mamba2-1.3b]``'s path (K10 through ``SSDScan``'s
+    plain arms on the CPU) against ``jax.value_and_grad`` of the reference's
+    ``lm_loss`` (its chunked SSD scan) at SMOKE, to the qwen case's bars."""
+    jcfg, tcfg = _cfgs("mamba2-1.3b", logits_chunk=CHUNK)
+    ref_params = jmodels.init(jax.random.PRNGKey(0), jcfg)
+    batch = _batch(jcfg)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(
+        lambda p, b: jmodels.lm_loss(p, b, jcfg), has_aux=True))(ref_params, jb)
+    params = convert.train_params_from_numpy(_np_tree(ref_params), tcfg, device="cpu")
+    loss, _, grads = loss_and_grads(tcfg, params, batch)
+    assert abs(float(loss) - float(jloss)) <= 1e-5 * abs(float(jloss))
+    want = convert.model_state_from_numpy(_np_tree(jgrads), tcfg)
+    assert set(want) == set(grads) and any(".ssm." in name for name in grads)
+    for name, g in grads.items():
+        scale = np.abs(want[name]).max()
+        assert scale > 0, name
+        assert np.abs(g.numpy() - want[name]).max() <= 2e-4 * scale, name
+
+
 def test_adam_update_matches_reference():
     rng = np.random.default_rng(0)
     shapes = {"w": (5, 7), "b": (7,), "nested": {"m": (3, 2, 4)}}
