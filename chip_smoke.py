@@ -14,8 +14,9 @@ Phases, each of which fails the script when it fails:
               reads K9's differentiated kernels (``namespace grad``) in the
               built SASS (``cuobjdump``): each bf16 kernel must run HMMA and
               none may use an atomic; their registers and local (spill)
-              bytes are printed; likewise K10's (``ssd_grad_sass``: no
-              atomic in its ``namespace grad``).
+              bytes are printed; likewise K10's (``ssd_grad_sass``: each
+              bf16 tensor-core kernel runs HMMA, no atomic in its
+              ``namespace grad``).
 3. kernels  — holds every kernel of the main paths against its plain PyTorch
               version on the card, in f64 (1e-12 relative) and f32 (2e-4;
               the RBF Gram matvec 2e-4 relative / 5e-4 absolute), at the
@@ -277,8 +278,9 @@ Phases, each of which fails the script when it fails:
               inputs' dtype at ``GRAD_BAR``, the f32 ones (dt's, a's and
               the states' gradients and tangents) at its f32 bar, each arm
               twice bit for bit; timed at the training shape in bf16 beside
-              the plain versions and the bound (``ssd_grad_work``; no
-              PyTorch call computes the scan's derivative).
+              the plain versions, the bound (``ssd_grad_work``; no PyTorch
+              call computes the scan's derivative) and the CUDA-core
+              design's time (``PREVIOUS_MS``).
 19. train   — qwen1.5-0.5b at full width (24 layers, d 1024, vocab
               151 936, tied, f32 parameters, bf16 compute), 4 × 4 096
               tokens, through ``launch.train.build`` and the ``Trainer``:
@@ -442,7 +444,9 @@ LONG_REPS = 3
 # walking its chunks in order on the CUDA cores, K1's two launches (partials,
 # then a reduce kernel), K7's grid capped at 8 blocks an SM, K6's two
 # launches and K2's one element a thread on a capped grid; K9's backward
-# and forward-mode arms in bf16 on the CUDA cores (at ATTN_TRAIN).
+# and forward-mode arms in bf16 on the CUDA cores (at ATTN_TRAIN); K10's
+# backward and forward-mode arms in bf16 on the CUDA cores (at SSD_TRAIN,
+# check-lm-grad's timing).
 PREVIOUS_MS = {"fused_rz_reduce float64 n=36551": 0.0114,
                "fused_rz_reduce no-aw float64 n=36551": 0.0094,
                "fused_deflate_direction float64 n=36551": 0.0081,
@@ -456,7 +460,8 @@ PREVIOUS_MS = {"fused_rz_reduce float64 n=36551": 0.0114,
                "fused_cg_update float64 n=36551": 0.0134, "lsmr_update float64 n=16384": 0.0065,
                "lsmr_update float64 n=32768": 0.0069, "lsmr_update float64 n=1048576": 0.0281,
                "lsmr_update float32 n=1048576": 0.0173,
-               "flash_attention:bwd": 20.509, "flash_attention:jvp": 13.859}
+               "flash_attention:bwd": 20.509, "flash_attention:jvp": 13.859,
+               "ssd_scan:bwd": 3.481, "ssd_scan:jvp": 2.984}
 # K9's differentiated arms (forward with the row log-sum-exp, backward,
 # forward mode; q_offset 0), b, h, hkv, sq, sk, dh, causal: dh 16, 64 and
 # 128, causal and not, GQA (h 8, hkv 2), ragged tiles, in f32 and bf16;
@@ -2880,8 +2885,9 @@ def check_ssd_grad(torch, peaks, device="cuda"):
             "gflop": ops / 1e9, "fp32_simt_bound_ms": 1e3 * ops / peaks["float32"],
         }
         e["tflop_s"] = ops / e["ms"] / 1e9
-        log(f"[timing] ssd_scan:{arm} {SSD_TRAIN} bf16: kernel {e['ms']:.3f} ms "
-            f"({e['tflop_s']:.1f} TFLOP/s, {e['gflop']:.1f} GFLOP; the f32 CUDA-core rate's bound "
+        log(f"[timing] ssd_scan:{arm} {SSD_TRAIN} bf16: kernel {e['ms']:.3f} ms (previous "
+            f"design {PREVIOUS_MS[f'ssd_scan:{arm}']} ms; "
+            f"{e['tflop_s']:.1f} TFLOP/s, {e['gflop']:.1f} GFLOP; the f32 CUDA-core rate's bound "
             f"{e['fp32_simt_bound_ms']:.3f} ms), plain {e['plain_ms']:.3f} ms, library null (no "
             f"PyTorch call computes the scan's derivative), bound {e['bound_ms']:.4f} ms "
             f"({e['bound_by']}); training forward {fwd_ms:.3f} ms")
@@ -2903,14 +2909,13 @@ def _sass_name(symbol):
     return f"{name}<{dtype}{dh}>"
 
 
-def grad_sass(build):
-    """K9's differentiated kernels in the built SASS of
-    ``csrc/flash_attention.cu``: HMMA instructions per kernel of ``namespace
-    grad``, atomics (ATOM / RED of any width) and registers, stack (spill)
-    and local bytes (``cuobjdump -res-usage``).  Raises unless every bf16 tensor-core kernel
-    (``*_tc``) runs HMMA and no kernel there has an atomic."""
+def _sass_report(build, source, name, label):
+    """HMMA instructions and atomics (ATOM / RED of any width) per kernel
+    of ``csrc/<source>.cu`` in the built SASS, and registers, stack (spill)
+    and local bytes (``cuobjdump -res-usage``), for the kernels ``name``
+    maps a mangled symbol to (None for the others); logged as ``label``."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = str(build.library_path("flash_attention"))
+    lib = str(build.library_path(source))
     sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300,
                           check=True).stdout
     res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True,
@@ -2919,7 +2924,7 @@ def grad_sass(build):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            fn = _sass_name(m.group(1))
+            fn = name(m.group(1))
             if fn:
                 kernels[fn] = {"HMMA": 0, "atomics": 0}
             continue
@@ -2931,16 +2936,26 @@ def grad_sass(build):
     for line in res.splitlines():
         m = re.search(r"Function (\S+):", line)
         if m:
-            fn = _sass_name(m.group(1))
+            fn = name(m.group(1))
             continue
         m = re.search(r"REG:(\d+) STACK:(\d+).*LOCAL:(\d+)", line)
         if fn in kernels and m:
             kernels[fn].update(registers=int(m.group(1)), stack_bytes=int(m.group(2)),
                                local_bytes=int(m.group(3)))
-    log("[build] flash_attention namespace grad SASS: " + "; ".join(
+    log(f"[build] {label} SASS: " + "; ".join(
         f"{k} HMMA {v['HMMA']}, atomics {v['atomics']}, registers {v.get('registers')}, "
         f"stack {v.get('stack_bytes')} B, local {v.get('local_bytes')} B"
         for k, v in sorted(kernels.items())))
+    return kernels
+
+
+def grad_sass(build):
+    """K9's differentiated kernels in the built SASS of
+    ``csrc/flash_attention.cu`` (:func:`_sass_report`).  Raises unless
+    every bf16 tensor-core kernel (``*_tc``) runs HMMA and no kernel of
+    ``namespace grad`` has an atomic."""
+    kernels = _sass_report(build, "flash_attention", _sass_name,
+                           "flash_attention namespace grad")
     tc = [k for k in kernels if "_tc<" in k]
     if len(tc) != 12 or any(kernels[k]["HMMA"] == 0 for k in tc):
         raise AssertionError(f"[build] the bf16 grad kernels must run HMMA: {kernels}")
@@ -2951,12 +2966,12 @@ def grad_sass(build):
 
 def ssd_grad_sass(build):
     """K10's differentiated kernels (``namespace grad`` of
-    ``csrc/ssd_scan.cu``) in the built SASS: atomics (ATOM / RED of any
-    width) per kernel.  Raises unless all nineteen are there and none has
-    an atomic (their sums run in a fixed order)."""
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    lib = str(build.library_path("ssd_scan"))
-    def name(symbol):  # "ssd_bwd_dx<bf16>" from the mangled name, or None
+    ``csrc/ssd_scan.cu``) in the built SASS (:func:`_sass_report`).
+    Raises unless all fifteen are there (the f32 arms' nine CUDA-core
+    kernels, the shared backward state pass, and bf16's four tensor-core
+    kernels and its reduction), every tensor-core kernel (``*_tc``) runs
+    HMMA and none has an atomic (their sums run in a fixed order)."""
+    def name(symbol):  # "ssd_bwd_dx<f32>" / "ssd_bwd_chunk_tc" from the mangled name, or None
         m = re.search(r"4grad(\d+)(?=ssd_)", symbol)
         if m is None:
             return None
@@ -2965,23 +2980,13 @@ def ssd_grad_sass(build):
         dtype = "<bf16>" if "__nv_bfloat16" in rest else "<f32>" if rest.startswith("If") else ""
         return symbol[m.end():end] + dtype
 
-    kernels, fn = {}, None
-    sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True, timeout=300,
-                          check=True).stdout
-    for line in sass.splitlines():
-        m = re.search(r"Function : (\S+)", line)
-        if m:
-            fn = name(m.group(1))
-            if fn:
-                kernels[fn] = {"atomics": 0}
-            continue
-        if fn and re.search(r"\b(ATOM|ATOMS|ATOMG|RED|REDG)\.", line):
-            kernels[fn]["atomics"] += 1
-    log("[build] ssd_scan namespace grad SASS: " + "; ".join(
-        f"{k} atomics {v['atomics']}" for k, v in sorted(kernels.items())))
-    # Nine kernels in two dtypes and the untyped backward state pass.
-    if len(kernels) != 19 or any(v["atomics"] for v in kernels.values()):
-        raise AssertionError(f"[build] K10's grad kernels missing or with an atomic: {kernels}")
+    kernels = _sass_report(build, "ssd_scan", name, "ssd_scan namespace grad")
+    tc = [k for k in kernels if k.endswith("_tc")]
+    if len(kernels) != 15 or len(tc) != 4 or any(kernels[k]["HMMA"] == 0 for k in tc):
+        raise AssertionError(f"[build] K10's grad kernels missing, or a tensor-core one without "
+                             f"HMMA: {kernels}")
+    if any(v["atomics"] for v in kernels.values()):
+        raise AssertionError(f"[build] an atomic in K10's namespace grad: {kernels}")
     return kernels
 
 

@@ -568,6 +568,129 @@ __device__ __forceinline__ void load_x_dt(const Args<bf16>& A, bf16* xt, float* 
 // col g) in b0 and k + 8 in b1.  ldmatrix.x4 lane l addresses row l % 8 of
 // matrix l / 8 (mr, mi below).
 
+// acc += (X o w)^T B over the chunk's cp rows for the warp's 16 rows mt..
+// of p and 64 columns nh.. of n: X (time, p) by ldmatrix.trans, scaled by
+// w_t and split, B (time, n) by ldmatrix.trans.  Pass (a), and with dY,
+// e^cs and C in the places of X, w and B the backward's (a').
+__device__ __forceinline__ void state_mma(float (&acc)[8][4], const bf16* xs, const float* ws,
+                                          const bf16* bt, int cp, int np_, int mt, int nh) {
+  const int lane = threadIdx.x & 31;
+  const int t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
+#pragma unroll
+  for (int kk = 0; kk < kMaxC / 16; ++kk) {  // 16 rows of the chunk a step
+    if (16 * kk >= cp) break;
+    unsigned xa[4], ahi[4], alo[4];
+    // A = (X o w)^T: X is stored (time, p), so ldmatrix.trans.
+    ldsm_x4_trans(xa, xs + swz<kXW>(16 * kk + mr + (mi >> 1) * 8, 2 * mt + (mi & 1)));
+    const float2 w0 = *reinterpret_cast<const float2*>(ws + 16 * kk + 2 * t4);
+    const float2 w1 = *reinterpret_cast<const float2*>(ws + 16 * kk + 8 + 2 * t4);
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const float2 wv = r < 2 ? w0 : w1;
+      const float2 xv = unpack(xa[r]);
+      split2(xv.x * wv.x, xv.y * wv.y, ahi[r], alo[r]);
+    }
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {  // 16 state columns: two tiles
+      if (64 * nh + 16 * jp >= np_) break;
+      unsigned b[4];
+      ldsm_x4_trans(b, bt + swz<kBW>(16 * kk + mr + (mi & 1) * 8, 8 * nh + 2 * jp + (mi >> 1)));
+      mma(acc[2 * jp], ahi, b[0], b[1]);
+      mma(acc[2 * jp], alo, b[0], b[1]);
+      mma(acc[2 * jp + 1], ahi, b[2], b[3]);
+      mma(acc[2 * jp + 1], alo, b[2], b[3]);
+    }
+  }
+}
+
+// The warp's (16 x 64) tile of a (P x N) f32 state at `out` (rows mt, nh as
+// in state_mma), plus `hfac` times the same elements of `add` when given.
+__device__ __forceinline__ void store_state(const float (&acc)[8][4], float* out, int P, int N,
+                                            int mt, int nh, const float* add = nullptr,
+                                            float hfac = 0.f) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const bool pairs = (N & 1) == 0;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = 16 * mt + g + 8 * h2;
+    if (r >= P) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 64 * nh + 8 * j + 2 * t4;
+      if (col >= N) continue;
+      float v0 = acc[j][2 * h2], v1 = acc[j][2 * h2 + 1];
+      if (add != nullptr) {
+        v0 += hfac * add[r * N + col];
+        if (col + 1 < N) v1 += hfac * add[r * N + col + 1];
+      }
+      float* o = out + r * N + col;
+      if (pairs) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        o[0] = v0;
+        if (col + 1 < N) o[1] = v1;
+      }
+    }
+  }
+}
+
+// The warp's two rows ra, rb (< valid) of a (b, l, h, p) bf16 output from
+// an m16n8 accumulator tile set over p: `row0` is the chunk's first row of
+// the head, rows `ld` apart.
+__device__ __forceinline__ void store_rows(const float (&acc)[8][4], bf16* row0, long long ld,
+                                           int ra, int rb, int valid, int P) {
+  const int t4 = threadIdx.x & 3;
+  const bool pairs = (P & 1) == 0;
+#pragma unroll
+  for (int h2 = 0; h2 < 2; ++h2) {
+    const int r = h2 ? rb : ra;
+    if (r >= valid) continue;
+    bf16* row = row0 + r * ld;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int col = 8 * j + 2 * t4;
+      if (col >= P) continue;
+      if (pairs) {
+        *reinterpret_cast<__nv_bfloat162*>(row + col) =
+            __floats2bfloat162_rn(acc[j][2 * h2], acc[j][2 * h2 + 1]);
+      } else {
+        row[col] = __float2bfloat16(acc[j][2 * h2]);
+        if (col + 1 < P) row[col + 1] = __float2bfloat16(acc[j][2 * h2 + 1]);
+      }
+    }
+  }
+}
+
+// The (P x N) f32 state at src (rows of N floats) split into bf16 hi / lo
+// tiles of kBW-wide swizzled rows, rows [0, pp) x columns [0, np_), zeros
+// past P and N.  16-byte loads when N is a multiple of 4.
+__device__ __forceinline__ void split_state(bf16* hi, bf16* lo, const float* __restrict__ src,
+                                            int P, int N, int pp, int np_) {
+  const int q4 = np_ / 4;
+  for (int e = threadIdx.x; e < pp * q4; e += kThreads) {
+    const int r = e / q4, q = e % q4, col = 4 * q;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (r < P) {
+      const float* row = src + (size_t)r * N;
+      if ((N & 3) == 0) {
+        if (col < N) v = *reinterpret_cast<const float4*>(row + col);
+      } else {
+        v.x = col < N ? row[col] : 0.f;
+        v.y = col + 1 < N ? row[col + 1] : 0.f;
+        v.z = col + 2 < N ? row[col + 2] : 0.f;
+        v.w = col + 3 < N ? row[col + 3] : 0.f;
+      }
+    }
+    unsigned h01, l01, h23, l23;
+    split2(v.x, v.y, h01, l01);
+    split2(v.z, v.w, h23, l23);
+    const int off = swz<kBW>(r, q >> 1) + (q & 1) * 4;
+    *reinterpret_cast<uint2*>(hi + off) = make_uint2(h01, h23);
+    *reinterpret_cast<uint2*>(lo + off) = make_uint2(l01, l23);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
 ssd_scan_chunk_state_tc(const Args<bf16> A) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
@@ -577,8 +700,7 @@ ssd_scan_chunk_state_tc(const Args<bf16> A) {
   float* css = dts + 2 * kMaxC;
   float* ws = css + kMaxC;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int warp = threadIdx.x >> 5;
   const int k = blockIdx.y, bi = blockIdx.z;
   const int head0 = blockIdx.x * A.hpb;
   const int grp = head0 / (A.H / A.G);
@@ -609,50 +731,8 @@ ssd_scan_chunk_state_tc(const Args<bf16> A) {
       float acc[8][4];
 #pragma unroll
       for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kMaxC / 16; ++kk) {  // 16 rows of the chunk a step
-        if (16 * kk >= cp) break;
-        unsigned xa[4], ahi[4], alo[4];
-        // A = (X o w)^T: X is stored (time, p), so ldmatrix.trans.
-        ldsm_x4_trans(xa, xs + swz<kXW>(16 * kk + mr + (mi >> 1) * 8, 2 * mt + (mi & 1)));
-        const float2 w0 = *reinterpret_cast<const float2*>(ws + 16 * kk + 2 * t4);
-        const float2 w1 = *reinterpret_cast<const float2*>(ws + 16 * kk + 8 + 2 * t4);
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float2 wv = r < 2 ? w0 : w1;
-          const float2 xv = unpack(xa[r]);
-          split2(xv.x * wv.x, xv.y * wv.y, ahi[r], alo[r]);
-        }
-#pragma unroll
-        for (int jp = 0; jp < 4; ++jp) {  // 16 state columns: two tiles
-          if (64 * nh + 16 * jp >= np_) break;
-          unsigned b[4];
-          ldsm_x4_trans(b, bt + swz<kBW>(16 * kk + mr + (mi & 1) * 8, 8 * nh + 2 * jp + (mi >> 1)));
-          mma(acc[2 * jp], ahi, b[0], b[1]);
-          mma(acc[2 * jp], alo, b[0], b[1]);
-          mma(acc[2 * jp + 1], ahi, b[2], b[3]);
-          mma(acc[2 * jp + 1], alo, b[2], b[3]);
-        }
-      }
-      float* out = A.states + item * A.P * A.N;
-      const bool pairs = (A.N & 1) == 0;
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int r = 16 * mt + g + 8 * h2;
-        if (r >= A.P) continue;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = 64 * nh + 8 * j + 2 * t4;
-          if (col >= A.N) continue;
-          float* o = out + r * A.N + col;
-          if (pairs) {
-            *reinterpret_cast<float2*>(o) = make_float2(acc[j][2 * h2], acc[j][2 * h2 + 1]);
-          } else {
-            o[0] = acc[j][2 * h2];
-            if (col + 1 < A.N) o[1] = acc[j][2 * h2 + 1];
-          }
-        }
-      }
+      state_mma(acc, xs, ws, bt, cp, np_, mt, nh);
+      store_state(acc, A.states + item * A.P * A.N, A.P, A.N, mt, nh);
     }
     __syncthreads();  // stage st and w are consumed
     if (i + 2 < A.hpb)
@@ -861,25 +941,8 @@ ssd_scan_chunk_out_tc(const Args<bf16> A) {
           mma(y[2 * dp + 1], wlo, b[2], b[3]);
         }
       }
-      const bool pairs = (A.P & 1) == 0;
-#pragma unroll
-      for (int h2 = 0; h2 < 2; ++h2) {
-        const int t = h2 ? tb : ta;
-        if (t >= valid) continue;
-        bf16* yrow = A.y + (((size_t)bi * A.L + t0 + t) * A.H + head) * A.P;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const int col = 8 * j + 2 * t4;
-          if (col >= A.P) continue;
-          if (pairs) {
-            *reinterpret_cast<__nv_bfloat162*>(yrow + col) =
-                __floats2bfloat162_rn(y[j][2 * h2], y[j][2 * h2 + 1]);
-          } else {
-            yrow[col] = __float2bfloat16(y[j][2 * h2]);
-            if (col + 1 < A.P) yrow[col + 1] = __float2bfloat16(y[j][2 * h2 + 1]);
-          }
-        }
-      }
+      store_rows(y, A.y + (((size_t)bi * A.L + t0) * A.H + head) * A.P, (long long)A.H * A.P,
+                 ta, tb, valid, A.P);
     }
     __syncthreads();  // stage st and the split tiles are consumed
     if (i + 2 < A.hpb)
@@ -948,29 +1011,28 @@ int launch_ssd(const Args<T>& A, int b, dim3 grid, dim3 pass_grid, cudaStream_t 
 }
 
 // ---------------------------------------------------------------------------
-// The backward and the tangent map (training), both dtypes on the CUDA cores
+// The backward and the tangent map (training)
 // ---------------------------------------------------------------------------
 //
-// A first version that is right: every product in f32 on the CUDA cores
-// (bf16 operands widened on load), each output rounded once to its input's
-// dtype.  With w_s = exp(cs_c - cs_s) dt_s, G = C B^T, E[t,s] = exp(cs_t -
-// cs_s) [s <= t], M = E dt_s and Gamma_{k+1} the gradient reaching the state
-// that leaves chunk k, the backward mirrors the forward's three passes:
+// With w_s = exp(cs_c - cs_s) dt_s, G = C B^T, E[t,s] = exp(cs_t - cs_s)
+// [s <= t], M = E dt_s and Gamma_{k+1} the gradient reaching the state that
+// leaves chunk k, the backward mirrors the forward's three passes:
 //
 //   (a') U_k = dY^T diag(exp(cs)) C for every (batch, head, chunk) item;
 //   (b') the state pass run backwards in f32, in place: Gamma_k = U_k +
 //        exp(cs_c,k) Gamma_{k+1} from Gamma_K = dh_out (or 0), slot k left
 //        holding Gamma_{k+1}, Gamma_0 written to dh0, and each warp's partial
-//        sum of <Gamma_{k+1}, H_k> written out (no atomics);
-//   (c') per item, four launches: (1) G and Q = dY X^T, then M o G and dG =
-//        M o Q into a scratch, with the row and column sums of dM o M (dM =
-//        G o Q) and the column sums of dM o E; (2) dX = (M o G)^T dY +
-//        diag(w) B Gamma^T and omega_s = X_s Gamma B_s^T; (3) the per-head dB
-//        partial dG^T C + diag(w) X Gamma; (4) the per-head dC partial dG B +
-//        diag(exp(cs)) dY H_k, psi_t = C_t H_k^T dY_t^T, then dcs, its
-//        reverse cumulative sum dadt, ddt and the item's da partial;
-//   (r)  dB and dC summed over each group's heads in head order and rounded
-//        to the inputs' dtype, da summed over (batch, chunk) in order.
+//        sum of <Gamma_{k+1}, H_k> written out (no atomics); up to
+//        kPassBatch chunks' loads are issued before their stores, as in the
+//        forward's pass;
+//   (c') per item: G and Q = dY X^T; the row and column sums of dM o M (dM
+//        = G o Q) and the column sums of dM o E; dX = (M o G)^T dY + diag(w)
+//        B Gamma^T and omega_s = X_s Gamma B_s^T; dB = dG^T C + diag(w) X
+//        Gamma and dC = dG B + diag(exp(cs)) dY H_k with dG = M o Q; psi_t =
+//        C_t H_k^T dY_t^T; then dcs, its reverse cumulative sum dadt, ddt and
+//        the item's da partial;
+//   (r)  the dB and dC partials summed over each group in a fixed order and
+//        rounded to the inputs' dtype, da summed over (batch, chunk) in order.
 //
 // The tangent map carries tangent pairs through the same passes: (a'') the
 // tangent chunk state Xdot^T diag(w) B + X^T diag(wdot) B + X^T diag(w) Bdot
@@ -979,9 +1041,61 @@ int launch_ssd(const Args<T>& A, int b, dim3 grid, dim3 pass_grid, cudaStream_t 
 // Gdot) X + (M o G) Xdot + diag(exp(cs)) ((csdot o C + Cdot) H_k^T + C
 // Hdot_k^T).  Both read the forward's states H_k and cs.  Every output
 // element is written by one thread and every sum runs in a fixed order, so
-// two launches agree bit for bit.  Each (c) item is one 256-thread block of
-// 16 x 16 threads holding register tiles (rows ty + 16 i, columns tx + 16 j)
-// over shared f32 tiles whose rows are padded to an odd stride.
+// two launches agree bit for bit; no float atomics.
+//
+// What bounds them: bytes (x, B, C, dY or the tangents and the f32 states
+// read once, the gradients written once: 22 us for the backward at
+// mamba2-1.3b's training shape, b 2, l 1 024, h 64, p 64, n 128, c 128),
+// against 15.1 GFLOP (backward) and 10.9 (tangent map) the function needs.
+//
+// f32 inputs: a first version that is right, on the CUDA cores (every
+// product in f32, no TF32), one 256-thread block of 16 x 16 threads per
+// item holding register tiles (rows ty + 16 i, columns tx + 16 j) over
+// shared f32 tiles whose rows are padded to an odd stride; (c') in four
+// launches through an (M o G, dG) scratch, the dB / dC partials one a head.
+//
+// bf16 inputs run on the tensor cores (the *_tc kernels), on the forward's
+// layouts: one 256-thread block per (batch, chunk, heads of one group), up
+// to 8 heads (the wrapper's plan), x, B, C and the tangents read in place
+// from their views, rows of 64 / 128 bf16 XOR-swizzled for ldmatrix.  As in
+// the forward, operands that are bf16 (x, B, C, dY, the tangents) go to
+// mma.sync as they lie and every other factor (M o G, dG and its sum, Gamma,
+// H_k, Hdot_k, the e^cs-, w- and wdot-scaled rows, Mdot o G + M o Gdot) as a
+// two-term split hi + lo; f32 accumulators, each output rounded once.
+//
+//   * (a') is the forward's (a) with dY, e^cs and C for X, w and B.
+//   * (c') is one kernel; the scores never leave the SM.  The warps own
+//     rows s (16 a warp, paired as the forward pairs rows t) and form the
+//     transposed scores G^T = B C^T and Q^T = X dY^T, only their causal
+//     tiles (t >= s), so M o G and dG = M o Q land in registers as A
+//     fragments with rows s: dX = (M o G)^T dY and dB's products take them as
+//     they lie.  G^T is formed once a block into shared memory in fragment
+//     order (each lane's four floats of an m16n8 tile contiguous: one
+//     16-byte load a tile), since the dB and dC partials hold the
+//     registers: each warp keeps its 16 rows of the block's dB (rows s) and
+//     of its dC (rows t) in 64 + 64 accumulators across the heads (255
+//     registers and 32 bytes of spill; a partial in shared memory, 64 KB,
+//     would take the kernel's 214 KB past the 227 a block may use).  dG enters
+//     both products linearly and B, C are the group's, so dG is summed over
+//     the block's heads (in head order, in shared memory in fragment order)
+//     and multiplied once a block: at the end the sum is split into (s, t)
+//     hi / lo tiles (over the per-head tiles), read with ldmatrix for dG^T C
+//     and with ldmatrix.trans (the dG side transposed) for dG B.  Per head:
+//     B Gamma^T (omega), the causal tiles of Q^T with M by the forward's row
+//     x column factor (ex2; masked on the diagonal tile), the dM sums, dX,
+//     then diag(w) X Gamma into dB and diag(e^cs) dY H_k into dC (psi), with
+//     Gamma, then H_k, split into one pair of tiles; dcs / dadt by warp 0
+//     (a reverse warp scan).  214 KB of shared memory, one block an SM.
+//   * (r) sums each group's block partials in block order (8 where f32 has
+//     64 at the training shape) and, in its first block, da.
+//   * (a'') is the forward's (a) with two split A operands, (Xdot o w + X o
+//     wdot) against B and (X o w) against Bdot, plus csdot_c e^{cs_c} H_k;
+//     csdot by the forward's warp scan.  (c'') is the forward's (c): rows t a
+//     warp, G kept in registers and Gdot = Cdot B^T + C Bdot^T in shared
+//     memory in fragment order across the heads (both in registers spilled;
+//     B and Bdot's tiles then take H_k's and Hdot_k's splits), Mdot o G + M
+//     o Gdot and M o G split as A fragments against X and Xdot, and csdot (C
+//     H_k^T) + Cdot H_k^T + C Hdot_k^T for the state term.
 
 namespace grad {
 
@@ -997,6 +1111,7 @@ struct GradArgs {
   long long xb, xl, bb, bl, cb, cl;
   int B, L, H, P, G, N, c, nch;
   int warps;                // the state pass's warps per (batch, head): dots per item
+  int hpb, vec;             // bf16: heads a block; whether the views take 16-byte copies
   // The backward.
   const T* dy;              // (b, l, h, p), contiguous
   const float* dh_last;     // (b, h, p, n) or null
@@ -1007,11 +1122,11 @@ struct GradArgs {
   T* dc;                    // (b, l, g, n)
   float* dh0;               // (b, h, p, n)
   float* grads;             // (b, h, chunks, p, n): U_k, then Gamma_{k+1}
-  float* scores;            // (b, h, chunks, 2, c, c): M o G, dG
-  float* rows;              // (b, h, chunks, 4, c): rowsum, colsum of dM o M, colsum dM o E, omega
+  float* scores;            // f32: (b, h, chunks, 2, c, c): M o G, dG
+  float* rows;              // f32: (b, h, chunks, 4, c): rowsum, colsum of dM o M, colsum dM o E, omega
   float* dots;              // (b h, chunks, warps of the state pass)
-  float* dbp;               // (b, h, chunks, c, n)
-  float* dcp;               // (b, h, chunks, c, n)
+  float* dbp;               // (b, h / hpb, chunks, c, n): a head's (f32) or a block's (bf16)
+  float* dcp;               // (b, h / hpb, chunks, c, n)
   float* dap;               // (b, h, chunks)
   // The tangent map.
   const T* tx;              // views like x, bm, cm
@@ -1199,8 +1314,12 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_chunk_state(const GradArgs<T
 // (b') The state pass backwards, in place: one thread per (batch, head,
 // state element), the (batch, head) pairs on grid.x.  Slot k of `grads`
 // holds U_k on entry and Gamma_{k+1} on exit; each warp's sum of Gamma_{k+1}
-// H_k over its 32 elements (a fixed shuffle tree) goes to `dots`.
-__global__ void __launch_bounds__(kThreads)
+// H_k over its 32 elements (a fixed shuffle tree) goes to `dots`.  Chunks
+// are taken kPassBatch at a time from the last: their U_k, H_k and cs_c
+// loads are all issued before the batch's stores (as in the forward's pass;
+// the arithmetic and its order are the one-chunk-a-step loop's).  Two
+// blocks an SM: left to itself the compiler took 168 registers, one block.
+__global__ void __launch_bounds__(kThreads, 2)
 ssd_bwd_state_pass(float* __restrict__ grads, const float* __restrict__ hs,
                    const float* __restrict__ cs, const float* __restrict__ dh_last,
                    float* __restrict__ dh0, float* __restrict__ dots, int nch, int c, int pn) {
@@ -1210,19 +1329,32 @@ ssd_bwd_state_pass(float* __restrict__ grads, const float* __restrict__ hs,
   const int warps = gridDim.y * (kThreads / 32);
   const int wid = blockIdx.y * (kThreads / 32) + (threadIdx.x >> 5);
   float g = (on && dh_last != nullptr) ? dh_last[bh * pn + e] : 0.f;
-  for (int k = nch - 1; k >= 0; --k) {
-    const size_t off = (bh * nch + k) * pn + e;
-    float u = 0.f, hv = 0.f;
-    if (on) {
-      u = grads[off];
-      hv = hs[off];
-      grads[off] = g;
-    }
-    float prod = g * hv;
+  for (int k1 = nch; k1 > 0; k1 -= kPassBatch) {  // chunks k1 - 1, k1 - 2, ...
+    float u[kPassBatch], hv[kPassBatch], csc[kPassBatch];
 #pragma unroll
-    for (int o = 16; o > 0; o >>= 1) prod += __shfl_down_sync(kFull, prod, o);
-    if ((threadIdx.x & 31) == 0) dots[(bh * nch + k) * warps + wid] = prod;
-    g = expf(cs[(bh * nch + k) * c + c - 1]) * g + u;
+    for (int j = 0; j < kPassBatch; ++j) {
+      const int k = k1 - 1 - j;
+      u[j] = hv[j] = csc[j] = 0.f;
+      if (k >= 0) {
+        const size_t off = (bh * nch + k) * pn + e;
+        if (on) {
+          u[j] = grads[off];
+          hv[j] = hs[off];
+        }
+        csc[j] = cs[(bh * nch + k) * c + c - 1];
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kPassBatch; ++j) {
+      const int k = k1 - 1 - j;
+      if (k < 0) break;
+      if (on) grads[(bh * nch + k) * pn + e] = g;
+      float prod = g * hv[j];
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) prod += __shfl_down_sync(kFull, prod, o);
+      if ((threadIdx.x & 31) == 0) dots[(bh * nch + k) * warps + wid] = prod;
+      g = expf(csc[j]) * g + u[j];
+    }
   }
   if (on) dh0[bh * pn + e] = g;
 }
@@ -1518,12 +1650,24 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_bwd_dc(const GradArgs<T> A) {
         rw[2 * A.c + r] + rw[3 * A.c + r] * expf(csc - css[r]) + ah * dcs[r];
 }
 
-// (r) dB and dC: the per-head partials summed over each group's heads in
-// head order, rounded once to the inputs' dtype; one thread per element.
+// (r) dB and dC: the partials of each group (one a head in f32, one a
+// block of hpb heads in bf16) summed in order, rounded once to the inputs'
+// dtype; one thread per element.  In bf16 the first block then sums da as
+// ssd_bwd_da does (f32 launches that kernel).
+__device__ __forceinline__ void sum_da(const float* __restrict__ dap, float* da, int B, int H,
+                                       int nch) {
+  for (int hd = threadIdx.x; hd < H; hd += kThreads) {
+    float s = 0.f;
+    for (int bi = 0; bi < B; ++bi)
+      for (int k = 0; k < nch; ++k) s += dap[((size_t)bi * H + hd) * nch + k];
+    da[hd] = s;
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_bwd_group_sum(const GradArgs<T> A) {
   const size_t total = (size_t)A.B * A.L * A.G * A.N;
-  const int hpg = A.H / A.G;
+  const int parts = A.H / A.G / A.hpb, hb = A.H / A.hpb;  // partials a group, in all
   for (size_t e = blockIdx.x * (size_t)kThreads + threadIdx.x; e < total;
        e += (size_t)gridDim.x * kThreads) {
     const int col = (int)(e % A.N);
@@ -1534,25 +1678,23 @@ __global__ void __launch_bounds__(kThreads) ssd_bwd_group_sum(const GradArgs<T> 
     const size_t bi = rest / A.L;
     const int k = t / A.c, r = t % A.c;
     float sb = 0.f, sc = 0.f;
-    for (int hh = 0; hh < hpg; ++hh) {
-      const size_t off = (((bi * A.H + grp * hpg + hh) * A.nch + k) * A.c + r) * A.N + col;
+    for (int hh = 0; hh < parts; ++hh) {
+      const size_t off = (((bi * hb + grp * parts + hh) * A.nch + k) * A.c + r) * A.N + col;
       sb += A.dbp[off];
       sc += A.dcp[off];
     }
     from_f32(sb, A.db + e);
     from_f32(sc, A.dc + e);
   }
+  if constexpr (std::is_same<T, bf16>::value) {
+    if (blockIdx.x == 0) sum_da(A.dap, A.da, A.B, A.H, A.nch);
+  }
 }
 
 // (r) da: each head's partials summed over (batch, chunk) in order.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) ssd_bwd_da(const GradArgs<T> A) {
-  for (int hd = threadIdx.x; hd < A.H; hd += kThreads) {
-    float s = 0.f;
-    for (int bi = 0; bi < A.B; ++bi)
-      for (int k = 0; k < A.nch; ++k) s += A.dap[((size_t)bi * A.H + hd) * A.nch + k];
-    A.da[hd] = s;
-  }
+  sum_da(A.dap, A.da, A.B, A.H, A.nch);
 }
 
 // (a'') The tangent chunk state Xdot^T diag(w) B + X^T diag(wdot) B + X^T
@@ -1733,75 +1875,1087 @@ __global__ void __launch_bounds__(kThreads, 1) ssd_jvp_chunk_out(const GradArgs<
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+
+using tc::kBW;
+using tc::kHTile;
+using tc::kLog2e;
+using tc::kTile;
+using tc::kXTile;
+using tc::kXW;
+using tc::cp_async4;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::ex2;
+using tc::ldsm_x4;
+using tc::ldsm_x4_trans;
+using tc::load_tile;
+using tc::mma;
+using tc::split2;
+using tc::split_state;
+using tc::swz;
+using tc::unpack;
+
+// A block of the tensor-core passes: (heads of one group, chunk, batch).
+struct Block {
+  int k, bi, head0, grp, t0, valid, cp, pp, np_;
+};
+
+__device__ __forceinline__ Block block_of(const GradArgs<bf16>& A) {
+  Block b;
+  b.k = blockIdx.y;
+  b.bi = blockIdx.z;
+  b.head0 = blockIdx.x * A.hpb;
+  b.grp = b.head0 / (A.H / A.G);
+  b.t0 = b.k * A.c;
+  b.valid = min(A.c, A.L - b.t0);
+  b.cp = round16(A.c);
+  b.pp = round16(A.P);
+  b.np_ = round16(A.N);
+  return b;
+}
+
+__device__ __forceinline__ size_t item_idx(const GradArgs<bf16>& A, const Block& b, int head) {
+  return ((size_t)b.bi * A.H + head) * A.nch + b.k;
+}
+
+// The block's first rows of the (b, l, k, w) views it reads: x-like rows
+// of `head`, B-like rows of the block's group.
+__device__ __forceinline__ const bf16* head_rows(const bf16* v, long long sb, long long sl,
+                                                 const GradArgs<bf16>& A, const Block& b,
+                                                 int head) {
+  return v + b.bi * sb + b.t0 * sl + head * A.P;
+}
+__device__ __forceinline__ const bf16* group_rows(const bf16* v, long long sb, long long sl,
+                                                  const GradArgs<bf16>& A, const Block& b) {
+  return v + b.bi * sb + b.t0 * sl + b.grp * A.N;
+}
+__device__ __forceinline__ const bf16* dy_rows(const GradArgs<bf16>& A, const Block& b,
+                                               int head) {
+  return A.dy + ((size_t)b.bi * A.L + b.t0) * A.H * A.P + head * A.P;
+}
+
+// Warp sums in a fixed butterfly order.
+__device__ __forceinline__ float quad_sum(float v) {  // over the 4 lanes of a row
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) v += __shfl_xor_sync(kFull, v, o);
+  return v;
+}
+
+// (a') U_k = (diag(e^cs) dY)^T C: the forward's pass (a) with dY, e^cs and C
+// in the places of X, w and B.  Per head dY and cs are double-buffered by
+// cp.async; C is loaded once for the block's heads.  67 KB of shared memory.
+constexpr size_t kBwdStateSmem = sizeof(bf16) * (kTile + 2 * kXTile) + sizeof(float) * 3 * kMaxC;
+
+__device__ __forceinline__ void load_dy_cs(const GradArgs<bf16>& A, const Block& b, bf16* yt,
+                                           float* css, int head) {
+  load_tile<kXW>(yt, dy_rows(A, b, head), (long long)A.H * A.P, b.cp, b.valid, A.P, A.vec);
+  if (threadIdx.x < kMaxC)
+    cp_async4(css + threadIdx.x,
+              A.cs + item_idx(A, b, head) * A.c + min((int)threadIdx.x, A.c - 1), true);
+}
+
+__global__ void __launch_bounds__(kThreads, 2) ssd_bwd_chunk_state_tc(const GradArgs<bf16> A) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ct = reinterpret_cast<bf16*>(smem_raw);            // C: kMaxC x kBW
+  bf16* yt = ct + kTile;                                    // dY: 2 stages of kMaxC x kXW
+  float* css = reinterpret_cast<float*>(yt + 2 * kXTile);  // cs: 2 stages of kMaxC
+  float* ecs = css + 2 * kMaxC;                             // e^cs, 0 past the valid rows
+  const Block b = block_of(A);
+  const int warp = threadIdx.x >> 5;
+  const int mt = warp & 3, nh = warp >> 2;  // U rows 16 mt.. (of p), columns 64 nh.. (of n)
+  const bool active = 16 * mt < b.pp && 64 * nh < b.np_;
+  load_tile<kBW>(ct, group_rows(A.cm, A.cb, A.cl, A, b), A.cl, b.cp, b.valid, A.N, A.vec);
+  load_dy_cs(A, b, yt, css, b.head0);
+  cp_async_commit();
+  if (A.hpb > 1) load_dy_cs(A, b, yt + kXTile, css + kMaxC, b.head0 + 1);
+  cp_async_commit();
+  for (int i = 0; i < A.hpb; ++i) {
+    const int st = i & 1, head = b.head0 + i;
+    cp_async_wait<1>();  // everything but head i + 1 has landed
+    __syncthreads();
+    if (threadIdx.x < kMaxC) {
+      const int r = threadIdx.x;
+      ecs[r] = r < b.valid ? expf(css[st * kMaxC + r]) : 0.f;
+    }
+    __syncthreads();
+    if (active) {
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+      tc::state_mma(acc, yt + st * kXTile, ecs, ct, b.cp, b.np_, mt, nh);
+      tc::store_state(acc, A.grads + item_idx(A, b, head) * A.P * A.N, A.P, A.N, mt, nh);
+    }
+    __syncthreads();  // stage st and e^cs are consumed
+    if (i + 2 < A.hpb) load_dy_cs(A, b, yt + st * kXTile, css + st * kMaxC, head + 2);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+// (c'), one kernel.  The warp's 16 rows (s for dX and dB, t for dC) are
+// rs = warp for warps 0-3 and 11 - warp above, as the forward pairs them.
+// G^T and the summed dG^T live in shared memory in fragment order: slot
+// frag_slot(rs, jt) (+1) holds the m16n8 tiles of the warp's rows and
+// columns 16 jt.. (+8) for jt >= rs, 32 lanes x 4 floats each.
+constexpr int kFragSlots = 2 * (kMaxC / 16) * (kMaxC / 16 + 1) / 2;  // 72: the causal tiles
+
+__device__ __forceinline__ int frag_slot(int rs, int jt) {
+  return 2 * (8 * rs - rs * (rs - 1) / 2 + jt - rs);
+}
+
+// B, C, X, dY, a pair of split state tiles (Gamma, then H_k), G^T and the
+// dG sum in fragment order, ten row vectors and the per-warp row sums.
+constexpr size_t kBwdChunkSmem = sizeof(bf16) * (2 * kTile + 2 * kXTile + 2 * kHTile) +
+                                 sizeof(float4) * 2 * kFragSlots * 32 +
+                                 sizeof(float) * (10 + 8) * kMaxC;
+
+__global__ void __launch_bounds__(kThreads, 1) ssd_bwd_chunk_tc(const GradArgs<bf16> A) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* bt = reinterpret_cast<bf16*>(smem_raw);  // B: kMaxC x kBW
+  bf16* ct = bt + kTile;                         // C
+  bf16* xt = ct + kTile;                         // X: kMaxC x kXW
+  bf16* yt = xt + kXTile;                        // dY
+  bf16* shi = yt + kXTile;                       // Gamma_{k+1}, then H_k, split: kMaxP x kBW
+  bf16* slo = shi + kHTile;
+  bf16* dghi = xt;                               // at the end: the dG sum's (s, t) tiles, split
+  bf16* dglo = xt + kTile;
+  float4* gsm = reinterpret_cast<float4*>(slo + kHTile);  // G^T, fragment order
+  float4* dgs = gsm + kFragSlots * 32;                    // the dG^T sum, fragment order
+  float* css = reinterpret_cast<float*>(dgs + kFragSlots * 32);  // kMaxC each:
+  float* dts = css + kMaxC;
+  float* ws = dts + kMaxC;    // w
+  float* ecs = ws + kMaxC;    // e^cs, 0 past the valid rows
+  float* sfs = ecs + kMaxC;   // exp(cs_{s|15} - cs_s): M's column factor
+  float* cmm = sfs + kMaxC;   // colsum dM o M
+  float* cme = cmm + kMaxC;   // colsum dM o E
+  float* om = cme + kMaxC;    // omega
+  float* psi = om + kMaxC;
+  float* dcs = psi + kMaxC;
+  float* red = dcs + kMaxC;   // 8 x kMaxC: each row tile's partial of rowsum dM o M
+
+  const Block b = block_of(A);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int rs = warp < 4 ? warp : 11 - warp;
+  const int nt = b.cp / 16;
+  const bool active = rs < nt;
+  const int sa = 16 * rs + g, sb = sa + 8;  // this thread's two rows
+
+  load_tile<kBW>(bt, group_rows(A.bm, A.bb, A.bl, A, b), A.bl, b.cp, b.valid, A.N, A.vec);
+  load_tile<kBW>(ct, group_rows(A.cm, A.cb, A.cl, A, b), A.cl, b.cp, b.valid, A.N, A.vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // G^T = B C^T over the causal tiles; the dG sum starts at 0.
+  if (active) {
+    for (int jt = rs; jt < nt; ++jt) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kMaxN / 16; ++kk) {
+        if (16 * kk >= b.np_) break;
+        unsigned ba[4], cb[4];
+        ldsm_x4(ba, bt + swz<kBW>(16 * rs + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+        ldsm_x4(cb, ct + swz<kBW>(16 * jt + mr + (mi >> 1) * 8, 2 * kk + (mi & 1)));
+        mma(acc[0], ba, cb[0], cb[1]);
+        mma(acc[1], ba, cb[2], cb[3]);
+      }
+      const int sl = frag_slot(rs, jt);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        gsm[(sl + h2) * 32 + lane] = make_float4(acc[h2][0], acc[h2][1], acc[h2][2], acc[h2][3]);
+        dgs[(sl + h2) * 32 + lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+
+  // The block's dB (rows s) and dC (rows t) partials: 16 columns n a pair.
+  float db[16][4], dc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) db[j][e] = dc[j][e] = 0.f;
+
+  for (int i = 0; i < A.hpb; ++i) {
+    const int head = b.head0 + i;
+    const size_t item = item_idx(A, b, head);
+    __syncthreads();  // the previous head's tiles and vectors are consumed
+    load_tile<kXW>(xt, head_rows(A.x, A.xb, A.xl, A, b, head), A.xl, b.cp, b.valid, A.P, A.vec);
+    load_tile<kXW>(yt, dy_rows(A, b, head), (long long)A.H * A.P, b.cp, b.valid, A.P, A.vec);
+    cp_async_commit();
+    if (threadIdx.x < kMaxC) {
+      const int r = threadIdx.x;
+      css[r] = A.cs[item * A.c + min(r, A.c - 1)];
+      dts[r] = r < b.valid ? A.dt[((size_t)b.bi * A.L + b.t0 + r) * A.H + head] : 0.f;
+    }
+    split_state(shi, slo, A.grads + item * A.P * A.N, A.P, A.N, b.pp, b.np_);  // Gamma_{k+1}
+    cp_async_wait<0>();
+    __syncthreads();
+    const float csc = css[A.c - 1];
+    if (threadIdx.x < kMaxC) {
+      const int r = threadIdx.x;
+      ws[r] = expf(csc - css[r]) * dts[r];
+      ecs[r] = r < b.valid ? expf(css[r]) : 0.f;
+      sfs[r] = ex2((css[r | 15] - css[r]) * kLog2e);
+    }
+    __syncthreads();
+
+    if (active) {
+      // dX = diag(w) B Gamma^T + (M o G)^T dY, rows s; omega from B Gamma^T.
+      float dx[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) dx[j][0] = dx[j][1] = dx[j][2] = dx[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kMaxN / 16; ++kk) {
+        if (16 * kk >= b.np_) break;
+        unsigned ba[4];
+        ldsm_x4(ba, bt + swz<kBW>(16 * rs + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+#pragma unroll
+        for (int dp = 0; dp < kMaxP / 16; ++dp) {
+          if (16 * dp >= b.pp) break;
+          const int off = swz<kBW>(16 * dp + mr + (mi >> 1) * 8, 2 * kk + (mi & 1));
+          unsigned gh[4], gl[4];
+          ldsm_x4(gh, shi + off);
+          ldsm_x4(gl, slo + off);
+          mma(dx[2 * dp], ba, gh[0], gh[1]);
+          mma(dx[2 * dp], ba, gl[0], gl[1]);
+          mma(dx[2 * dp + 1], ba, gh[2], gh[3]);
+          mma(dx[2 * dp + 1], ba, gl[2], gl[3]);
+        }
+      }
+      float oa = 0.f, ob = 0.f;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (8 * j >= b.pp) break;
+        const float2 xa = unpack(*reinterpret_cast<const unsigned*>(xt + swz<kXW>(sa, j) + 2 * t4));
+        const float2 xb = unpack(*reinterpret_cast<const unsigned*>(xt + swz<kXW>(sb, j) + 2 * t4));
+        oa += xa.x * dx[j][0] + xa.y * dx[j][1];
+        ob += xb.x * dx[j][2] + xb.y * dx[j][3];
+      }
+      oa = quad_sum(oa);
+      ob = quad_sum(ob);
+      if (t4 == 0) {
+        om[sa] = oa;
+        om[sb] = ob;
+      }
+      const float wa = ws[sa], wb = ws[sb];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        dx[j][0] *= wa;
+        dx[j][1] *= wa;
+        dx[j][2] *= wb;
+        dx[j][3] *= wb;
+      }
+
+      // The causal tiles t >= s of Q^T, M and the sums; dX += (M o G)^T dY.
+      // Below the diagonal tile E = exp(cs_t - cs_r) exp(cs_r - cs_s), r the
+      // warp's last row: both exponents <= 0 (cs falls).
+      const float csr = css[16 * rs + 15];
+      const int s2[2] = {sa, sb};
+      float mm2[2] = {0.f, 0.f}, me2[2] = {0.f, 0.f};
+      for (int jt = rs; jt < nt; ++jt) {
+        float q[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kMaxP / 16; ++kk) {
+          if (16 * kk >= b.pp) break;
+          unsigned xa[4], yb[4];
+          ldsm_x4(xa, xt + swz<kXW>(16 * rs + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+          ldsm_x4(yb, yt + swz<kXW>(16 * jt + mr + (mi >> 1) * 8, 2 * kk + (mi & 1)));
+          mma(q[0], xa, yb[0], yb[1]);
+          mma(q[1], xa, yb[2], yb[3]);
+        }
+        const int sl = frag_slot(rs, jt);
+        float pv[2][4], colp[2][2];
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const float4 g4 = gsm[(sl + h2) * 32 + lane];
+          const float gv[4] = {g4.x, g4.y, g4.z, g4.w};
+          const float4 d4 = dgs[(sl + h2) * 32 + lane];
+          float dg[4] = {d4.x, d4.y, d4.z, d4.w};
+          colp[h2][0] = colp[h2][1] = 0.f;
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            const int t = 16 * jt + 8 * h2 + 2 * t4 + c2;
+            const float tf = jt > rs ? ex2((css[t] - csr) * kLog2e) : 0.f;
+#pragma unroll
+            for (int r2 = 0; r2 < 2; ++r2) {
+              const int e = 2 * r2 + c2;
+              const int s = s2[r2];
+              const float ev = jt > rs ? tf * sfs[s]
+                               : (t >= s ? ex2((css[t] - css[s]) * kLog2e) : 0.f);
+              const float mv = ev * dts[s];
+              const float dm = gv[e] * q[h2][e];
+              mm2[r2] += dm * mv;
+              me2[r2] += dm * ev;
+              colp[h2][c2] += dm * mv;
+              pv[h2][e] = mv * gv[e];
+              dg[e] += mv * q[h2][e];
+            }
+          }
+          dgs[(sl + h2) * 32 + lane] = make_float4(dg[0], dg[1], dg[2], dg[3]);
+        }
+        // rowsum over this warp's rows s of each column t, to `red`.
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2)
+#pragma unroll
+          for (int c2 = 0; c2 < 2; ++c2) {
+            float v = colp[h2][c2];
+            v += __shfl_xor_sync(kFull, v, 4);
+            v += __shfl_xor_sync(kFull, v, 8);
+            v += __shfl_xor_sync(kFull, v, 16);
+            if (g == 0) red[rs * kMaxC + 16 * jt + 8 * h2 + 2 * t4 + c2] = v;
+          }
+        unsigned phi[4], plo[4];
+        split2(pv[0][0], pv[0][1], phi[0], plo[0]);
+        split2(pv[0][2], pv[0][3], phi[1], plo[1]);
+        split2(pv[1][0], pv[1][1], phi[2], plo[2]);
+        split2(pv[1][2], pv[1][3], phi[3], plo[3]);
+#pragma unroll
+        for (int dp = 0; dp < kMaxP / 16; ++dp) {
+          if (16 * dp >= b.pp) break;
+          unsigned yb[4];
+          ldsm_x4_trans(yb, yt + swz<kXW>(16 * jt + mr + (mi & 1) * 8, 2 * dp + (mi >> 1)));
+          mma(dx[2 * dp], phi, yb[0], yb[1]);
+          mma(dx[2 * dp], plo, yb[0], yb[1]);
+          mma(dx[2 * dp + 1], phi, yb[2], yb[3]);
+          mma(dx[2 * dp + 1], plo, yb[2], yb[3]);
+        }
+      }
+#pragma unroll
+      for (int r2 = 0; r2 < 2; ++r2) {
+        const float mm = quad_sum(mm2[r2]), me = quad_sum(me2[r2]);
+        if (t4 == 0) {
+          cmm[s2[r2]] = mm;
+          cme[s2[r2]] = me;
+        }
+      }
+      tc::store_rows(dx, A.dx + (((size_t)b.bi * A.L + b.t0) * A.H + head) * A.P,
+                     (long long)A.H * A.P, sa, sb, b.valid, A.P);
+
+      // dB += diag(w) X Gamma, rows s.
+      unsigned xa[kMaxP / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kMaxP / 16; ++kk)
+        if (16 * kk < b.pp)
+          ldsm_x4(xa[kk], xt + swz<kXW>(16 * rs + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+#pragma unroll
+      for (int jp = 0; jp < kMaxN / 16; ++jp) {
+        if (16 * jp >= b.np_) break;
+        float z[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kMaxP / 16; ++kk) {
+          if (16 * kk >= b.pp) break;
+          const int off = swz<kBW>(16 * kk + mr + (mi & 1) * 8, 2 * jp + (mi >> 1));
+          unsigned gh[4], gl[4];
+          ldsm_x4_trans(gh, shi + off);
+          ldsm_x4_trans(gl, slo + off);
+          mma(z[0], xa[kk], gh[0], gh[1]);
+          mma(z[0], xa[kk], gl[0], gl[1]);
+          mma(z[1], xa[kk], gh[2], gh[3]);
+          mma(z[1], xa[kk], gl[2], gl[3]);
+        }
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          db[2 * jp + h2][0] += wa * z[h2][0];
+          db[2 * jp + h2][1] += wa * z[h2][1];
+          db[2 * jp + h2][2] += wb * z[h2][2];
+          db[2 * jp + h2][3] += wb * z[h2][3];
+        }
+      }
+    }
+    __syncthreads();  // Gamma is consumed
+    split_state(shi, slo, A.hs + item * A.P * A.N, A.P, A.N, b.pp, b.np_);  // H_k
+    __syncthreads();
+
+    if (active) {
+      // dC += diag(e^cs) dY H_k, rows t; psi_t = C_t . (dY H_k)_t.
+      unsigned ya[kMaxP / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kMaxP / 16; ++kk)
+        if (16 * kk < b.pp)
+          ldsm_x4(ya[kk], yt + swz<kXW>(16 * rs + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+      const float ea = ecs[sa], eb = ecs[sb];
+      float pa = 0.f, pb = 0.f;
+#pragma unroll
+      for (int jp = 0; jp < kMaxN / 16; ++jp) {
+        if (16 * jp >= b.np_) break;
+        float z[2][4] = {};
+#pragma unroll
+        for (int kk = 0; kk < kMaxP / 16; ++kk) {
+          if (16 * kk >= b.pp) break;
+          const int off = swz<kBW>(16 * kk + mr + (mi & 1) * 8, 2 * jp + (mi >> 1));
+          unsigned hh[4], hl[4];
+          ldsm_x4_trans(hh, shi + off);
+          ldsm_x4_trans(hl, slo + off);
+          mma(z[0], ya[kk], hh[0], hh[1]);
+          mma(z[0], ya[kk], hl[0], hl[1]);
+          mma(z[1], ya[kk], hh[2], hh[3]);
+          mma(z[1], ya[kk], hl[2], hl[3]);
+        }
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          const float2 ca =
+              unpack(*reinterpret_cast<const unsigned*>(ct + swz<kBW>(sa, 2 * jp + h2) + 2 * t4));
+          const float2 cb =
+              unpack(*reinterpret_cast<const unsigned*>(ct + swz<kBW>(sb, 2 * jp + h2) + 2 * t4));
+          pa += ca.x * z[h2][0] + ca.y * z[h2][1];
+          pb += cb.x * z[h2][2] + cb.y * z[h2][3];
+          dc[2 * jp + h2][0] += ea * z[h2][0];
+          dc[2 * jp + h2][1] += ea * z[h2][1];
+          dc[2 * jp + h2][2] += eb * z[h2][2];
+          dc[2 * jp + h2][3] += eb * z[h2][3];
+        }
+      }
+      pa = quad_sum(pa);
+      pb = quad_sum(pb);
+      if (t4 == 0) {
+        psi[sa] = pa;
+        psi[sb] = pb;
+      }
+    }
+    __syncthreads();
+
+    // dcs per row: rowsum - colsum of dM o M + e^cs psi - w omega.
+    if (threadIdx.x < A.c) {
+      const int r = threadIdx.x;
+      float rowsum = 0.f;
+      for (int u = 0; u <= r / 16; ++u) rowsum += red[u * kMaxC + r];
+      dcs[r] = rowsum - cmm[r] + ecs[r] * psi[r] - ws[r] * om[r];
+    }
+    __syncthreads();
+    if (warp == 0) {
+      // The chunk's last row also carries exp(cs_c)'s and w's cs_c terms;
+      // then dadt, the reverse cumulative sum (lane l rows 4l..4l+3, a
+      // reverse warp scan), and the item's da partial.
+      const float* dp = A.dots + item * A.warps;
+      float dot = 0.f, wo = 0.f;
+      for (int u = lane; u < A.warps; u += 32) dot += dp[u];
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 4 * lane + j;
+        v[j] = r < A.c ? dcs[r] : 0.f;
+        if (r < A.c) wo += ws[r] * om[r];
+      }
+      dot = warp_sum(dot);
+      wo = warp_sum(wo);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * lane + j == A.c - 1) v[j] += wo + expf(csc) * dot;
+      float run = 0.f;
+#pragma unroll
+      for (int j = 3; j >= 0; --j) {
+        run += v[j];
+        v[j] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float dn = __shfl_down_sync(kFull, incl, o);
+        if (lane + o < 32) incl += dn;
+      }
+      float excl = __shfl_down_sync(kFull, incl, 1);
+      if (lane == 31) excl = 0.f;
+      float dap = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 4 * lane + j;
+        v[j] += excl;
+        if (r < A.c) {
+          dcs[r] = v[j];
+          dap += dts[r] * v[j];
+        }
+      }
+      dap = warp_sum(dap);
+      if (lane == 0) A.dap[item] = dap;
+    }
+    __syncthreads();
+    if (threadIdx.x < b.valid) {
+      const int r = threadIdx.x;
+      A.ddt[((size_t)b.bi * A.L + b.t0 + r) * A.H + head] =
+          cme[r] + om[r] * expf(csc - css[r]) + A.a[head] * dcs[r];
+    }
+  }
+
+  // The dG sum's products, once a block: dB += dG^T C (rows s, k = t >= s),
+  // dC += dG B (rows t, k = s <= t, the (s, t) tiles read transposed).
+  __syncthreads();  // the last head's tiles are consumed
+  if (active) {
+    for (int jt = rs; jt < nt; ++jt) {
+      const int sl = frag_slot(rs, jt);
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2) {
+        const float4 v = dgs[(sl + h2) * 32 + lane];
+        unsigned h01, l01, h23, l23;
+        split2(v.x, v.y, h01, l01);
+        split2(v.z, v.w, h23, l23);
+        const int oa = swz<kBW>(sa, 2 * jt + h2) + 2 * t4, ob = swz<kBW>(sb, 2 * jt + h2) + 2 * t4;
+        *reinterpret_cast<unsigned*>(dghi + oa) = h01;
+        *reinterpret_cast<unsigned*>(dglo + oa) = l01;
+        *reinterpret_cast<unsigned*>(dghi + ob) = h23;
+        *reinterpret_cast<unsigned*>(dglo + ob) = l23;
+      }
+    }
+  }
+  __syncthreads();
+  if (active) {
+    for (int jt = rs; jt < nt; ++jt) {
+      unsigned ah[4], al[4];
+      const int off = swz<kBW>(16 * rs + mr + (mi & 1) * 8, 2 * jt + (mi >> 1));
+      ldsm_x4(ah, dghi + off);
+      ldsm_x4(al, dglo + off);
+#pragma unroll
+      for (int jp = 0; jp < kMaxN / 16; ++jp) {
+        if (16 * jp >= b.np_) break;
+        unsigned cb[4];
+        ldsm_x4_trans(cb, ct + swz<kBW>(16 * jt + mr + (mi & 1) * 8, 2 * jp + (mi >> 1)));
+        mma(db[2 * jp], ah, cb[0], cb[1]);
+        mma(db[2 * jp], al, cb[0], cb[1]);
+        mma(db[2 * jp + 1], ah, cb[2], cb[3]);
+        mma(db[2 * jp + 1], al, cb[2], cb[3]);
+      }
+    }
+    for (int ks = 0; ks <= rs; ++ks) {
+      unsigned ah[4], al[4];
+      const int off = swz<kBW>(16 * ks + mr + (mi >> 1) * 8, 2 * rs + (mi & 1));
+      ldsm_x4_trans(ah, dghi + off);
+      ldsm_x4_trans(al, dglo + off);
+#pragma unroll
+      for (int jp = 0; jp < kMaxN / 16; ++jp) {
+        if (16 * jp >= b.np_) break;
+        unsigned bb[4];
+        ldsm_x4_trans(bb, bt + swz<kBW>(16 * ks + mr + (mi & 1) * 8, 2 * jp + (mi >> 1)));
+        mma(dc[2 * jp], ah, bb[0], bb[1]);
+        mma(dc[2 * jp], al, bb[0], bb[1]);
+        mma(dc[2 * jp + 1], ah, bb[2], bb[3]);
+        mma(dc[2 * jp + 1], al, bb[2], bb[3]);
+      }
+    }
+    const size_t part = (((size_t)b.bi * gridDim.x + blockIdx.x) * A.nch + b.k) * A.c;
+    const bool pairs = (A.N & 1) == 0;
+#pragma unroll
+    for (int r2 = 0; r2 < 2; ++r2) {
+      const int r = r2 ? sb : sa;
+      if (r >= A.c) continue;
+      float* ob = A.dbp + (part + r) * A.N;
+      float* oc = A.dcp + (part + r) * A.N;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * t4;
+        if (col >= A.N) continue;
+        if (pairs) {
+          *reinterpret_cast<float2*>(ob + col) = make_float2(db[j][2 * r2], db[j][2 * r2 + 1]);
+          *reinterpret_cast<float2*>(oc + col) = make_float2(dc[j][2 * r2], dc[j][2 * r2 + 1]);
+        } else {
+          ob[col] = db[j][2 * r2];
+          oc[col] = dc[j][2 * r2];
+          if (col + 1 < A.N) {
+            ob[col + 1] = db[j][2 * r2 + 1];
+            oc[col + 1] = dc[j][2 * r2 + 1];
+          }
+        }
+      }
+    }
+  }
+}
+
+// (a'') The tangent chunk state on the tensor cores: the forward's pass (a)
+// with two split A operands, (Xdot o w + X o wdot)^T against B and (X o w)^T
+// against Bdot, plus csdot_c exp(cs_c) H_k; csdot by the forward's warp
+// scan (written out with exp(cs_c) for the state pass and (c'')).  Per head
+// X, Xdot, dt, dtdot and cs double-buffered; B and Bdot once a block.
+constexpr size_t kJvpStateSmem =
+    sizeof(bf16) * (2 * kTile + 4 * kXTile) + sizeof(float) * 9 * kMaxC;
+
+__device__ __forceinline__ void load_jvp_head(const GradArgs<bf16>& A, const Block& b, bf16* xt,
+                                              bf16* txt, float* dts, float* tdts, float* css,
+                                              int head) {
+  load_tile<kXW>(xt, head_rows(A.x, A.xb, A.xl, A, b, head), A.xl, b.cp, b.valid, A.P, A.vec);
+  load_tile<kXW>(txt, head_rows(A.tx, A.txb, A.txl, A, b, head), A.txl, b.cp, b.valid, A.P,
+                 A.vec);
+  if (threadIdx.x < kMaxC) {
+    const int r = threadIdx.x;
+    const bool ok = r < b.valid;
+    const size_t at = ((size_t)b.bi * A.L + b.t0 + (ok ? r : 0)) * A.H + head;
+    cp_async4(dts + r, A.dt + at, ok);
+    cp_async4(tdts + r, A.tdt + at, ok);
+    cp_async4(css + r, A.cs + item_idx(A, b, head) * A.c + min(r, A.c - 1), true);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads, 1) ssd_jvp_chunk_state_tc(const GradArgs<bf16> A) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* bt = reinterpret_cast<bf16*>(smem_raw);  // B
+  bf16* tbt = bt + kTile;                        // Bdot
+  bf16* xt = tbt + kTile;                        // X: 2 stages
+  bf16* txt = xt + 2 * kXTile;                   // Xdot: 2 stages
+  float* dts = reinterpret_cast<float*>(txt + 2 * kXTile);  // 2 stages each of dt, dtdot, cs
+  float* tdts = dts + 2 * kMaxC;
+  float* css = tdts + 2 * kMaxC;
+  float* ws = css + 2 * kMaxC;  // w
+  float* tws = ws + kMaxC;      // wdot
+  float* tcs = tws + kMaxC;     // csdot
+  const Block b = block_of(A);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int mt = warp & 3, nh = warp >> 2;
+  const bool active = 16 * mt < b.pp && 64 * nh < b.np_;
+  load_tile<kBW>(bt, group_rows(A.bm, A.bb, A.bl, A, b), A.bl, b.cp, b.valid, A.N, A.vec);
+  load_tile<kBW>(tbt, group_rows(A.tbm, A.tbb, A.tbl, A, b), A.tbl, b.cp, b.valid, A.N, A.vec);
+  load_jvp_head(A, b, xt, txt, dts, tdts, css, b.head0);
+  cp_async_commit();
+  if (A.hpb > 1)
+    load_jvp_head(A, b, xt + kXTile, txt + kXTile, dts + kMaxC, tdts + kMaxC, css + kMaxC,
+                  b.head0 + 1);
+  cp_async_commit();
+  for (int i = 0; i < A.hpb; ++i) {
+    const int st = i & 1, head = b.head0 + i;
+    const size_t item = item_idx(A, b, head);
+    const float* dt_s = dts + st * kMaxC;
+    const float* tdt_s = tdts + st * kMaxC;
+    const float* cs_s = css + st * kMaxC;
+    cp_async_wait<1>();
+    __syncthreads();
+    if (warp == 0) {
+      // csdot = cumsum(adot dt + a dtdot): the forward's scan (four rows a
+      // lane in order, the lane totals by shuffles, then the lane's
+      // exclusive prefix).
+      const float ah = A.a[head], tah = A.ta[head];
+      float v[4], run = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        run += tah * dt_s[4 * lane + j] + ah * tdt_s[4 * lane + j];
+        v[j] = run;
+      }
+      float incl = run;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const float up = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += up;
+      }
+      float excl = __shfl_up_sync(kFull, incl, 1);
+      if (lane == 0) excl = 0.f;
+      float pick = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        v[j] += excl;
+        if (j == ((A.c - 1) & 3)) pick = v[j];
+      }
+      const float tot = __shfl_sync(kFull, pick, (A.c - 1) >> 2);
+      const float csc = cs_s[A.c - 1];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int r = 4 * lane + j;
+        const float ew = expf(csc - cs_s[r]);
+        tcs[r] = v[j];
+        ws[r] = ew * dt_s[r];
+        tws[r] = ws[r] * (tot - v[j]) + ew * tdt_s[r];
+        if (r < A.c) A.dcs[item * A.c + r] = v[j];
+      }
+      if (lane == 0) A.decay[item] = expf(csc);
+    }
+    __syncthreads();
+    if (active) {
+      const bf16* xs = xt + st * kXTile;
+      const bf16* txs = txt + st * kXTile;
+      float acc[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kMaxC / 16; ++kk) {
+        if (16 * kk >= b.cp) break;
+        unsigned xa[4], txa[4], a1h[4], a1l[4], a2h[4], a2l[4];
+        const int off = swz<kXW>(16 * kk + mr + (mi >> 1) * 8, 2 * mt + (mi & 1));
+        ldsm_x4_trans(xa, xs + off);
+        ldsm_x4_trans(txa, txs + off);
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int t = 16 * kk + 8 * (r >> 1) + 2 * t4;
+          const float2 wv = *reinterpret_cast<const float2*>(ws + t);
+          const float2 twv = *reinterpret_cast<const float2*>(tws + t);
+          const float2 xv = unpack(xa[r]), txv = unpack(txa[r]);
+          split2(txv.x * wv.x + xv.x * twv.x, txv.y * wv.y + xv.y * twv.y, a1h[r], a1l[r]);
+          split2(xv.x * wv.x, xv.y * wv.y, a2h[r], a2l[r]);
+        }
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          if (64 * nh + 16 * jp >= b.np_) break;
+          const int boff = swz<kBW>(16 * kk + mr + (mi & 1) * 8, 8 * nh + 2 * jp + (mi >> 1));
+          unsigned bb[4], tb[4];
+          ldsm_x4_trans(bb, bt + boff);
+          ldsm_x4_trans(tb, tbt + boff);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            mma(acc[2 * jp + h2], a1h, bb[2 * h2], bb[2 * h2 + 1]);
+            mma(acc[2 * jp + h2], a1l, bb[2 * h2], bb[2 * h2 + 1]);
+            mma(acc[2 * jp + h2], a2h, tb[2 * h2], tb[2 * h2 + 1]);
+            mma(acc[2 * jp + h2], a2l, tb[2 * h2], tb[2 * h2 + 1]);
+          }
+        }
+      }
+      const size_t pn = (size_t)A.P * A.N;
+      tc::store_state(acc, A.tstates + item * pn, A.P, A.N, mt, nh, A.hs + item * pn,
+                      tcs[A.c - 1] * expf(cs_s[A.c - 1]));
+    }
+    __syncthreads();  // stage st and the weights are consumed
+    if (i + 2 < A.hpb)
+      load_jvp_head(A, b, xt + st * kXTile, txt + st * kXTile, dts + st * kMaxC,
+                    tdts + st * kMaxC, css + st * kMaxC, head + 2);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+}
+
+// (c'') Ydot on the tensor cores: the forward's pass (c) carrying tangent
+// pairs.  The warp's 16 rows t: rt = warp for warps 0-3, 11 - warp above.
+// G stays in registers across the heads; Gdot, formed once a block too, in
+// shared memory in fragment order (slot 2 (rt (rt + 1) / 2 + jp) (+1) for
+// column tiles jp <= rt), since both in registers spilled.  C, Cdot, X,
+// Xdot, and B and Bdot for G and Gdot, whose tiles then take H_k's and
+// Hdot_k's splits; cs, dt, dtdot, csdot and M's column factor.
+constexpr size_t kJvpOutSmem = sizeof(bf16) * (4 * kTile + 2 * kXTile) +
+                               sizeof(float4) * kFragSlots * 32 + sizeof(float) * 5 * kMaxC;
+
+__global__ void __launch_bounds__(kThreads, 1) ssd_jvp_chunk_out_tc(const GradArgs<bf16> A) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ct = reinterpret_cast<bf16*>(smem_raw);  // C
+  bf16* tct = ct + kTile;                        // Cdot
+  bf16* bt = tct + kTile;                        // B, then H_k hi | lo
+  bf16* tbt = bt + kTile;                        // Bdot, then Hdot_k hi | lo
+  bf16* hhi = bt, *hlo = bt + kHTile, *thi = tbt, *tlo = tbt + kHTile;
+  bf16* xt = tbt + kTile;                        // X
+  bf16* txt = xt + kXTile;                       // Xdot
+  float4* tgs = reinterpret_cast<float4*>(txt + kXTile);  // Gdot, fragment order
+  float* css = reinterpret_cast<float*>(tgs + kFragSlots * 32);  // kMaxC each
+  float* dts = css + kMaxC;
+  float* tdts = dts + kMaxC;
+  float* tcs = tdts + kMaxC;
+  float* ecol = tcs + kMaxC;  // exp(cs_{s|15} - cs_s)
+
+  const Block b = block_of(A);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t4 = lane & 3, mi = lane >> 3, mr = lane & 7;
+  const int rt = warp < 4 ? warp : 11 - warp;
+  const bool active = 16 * rt < b.cp;
+  load_tile<kBW>(ct, group_rows(A.cm, A.cb, A.cl, A, b), A.cl, b.cp, b.valid, A.N, A.vec);
+  load_tile<kBW>(tct, group_rows(A.tcm, A.tcb, A.tcl, A, b), A.tcl, b.cp, b.valid, A.N, A.vec);
+  load_tile<kBW>(bt, group_rows(A.bm, A.bb, A.bl, A, b), A.bl, b.cp, b.valid, A.N, A.vec);
+  load_tile<kBW>(tbt, group_rows(A.tbm, A.tbb, A.tbl, A, b), A.tbl, b.cp, b.valid, A.N, A.vec);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // G = C B^T (registers) and Gdot = Cdot B^T + C Bdot^T (fragment order)
+  // for this warp's rows, column tiles at or below the diagonal.
+  const int gbase = 2 * (rt * (rt + 1) / 2);
+  float gacc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j) gacc[j][0] = gacc[j][1] = gacc[j][2] = gacc[j][3] = 0.f;
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < kMaxN / 16; ++kk) {
+      if (16 * kk >= b.np_) break;
+      unsigned ca[4];
+      ldsm_x4(ca, ct + swz<kBW>(16 * rt + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+#pragma unroll
+      for (int jp = 0; jp < kMaxC / 16; ++jp) {
+        if (jp > rt) break;
+        unsigned bb[4];
+        ldsm_x4(bb, bt + swz<kBW>(16 * jp + mr + (mi >> 1) * 8, 2 * kk + (mi & 1)));
+        mma(gacc[2 * jp], ca, bb[0], bb[1]);
+        mma(gacc[2 * jp + 1], ca, bb[2], bb[3]);
+      }
+    }
+    for (int jp = 0; jp <= rt; ++jp) {
+      float acc[2][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kMaxN / 16; ++kk) {
+        if (16 * kk >= b.np_) break;
+        unsigned ca[4], tca[4], bb[4], tb[4];
+        const int aoff = swz<kBW>(16 * rt + mr + (mi & 1) * 8, 2 * kk + (mi >> 1));
+        const int boff = swz<kBW>(16 * jp + mr + (mi >> 1) * 8, 2 * kk + (mi & 1));
+        ldsm_x4(ca, ct + aoff);
+        ldsm_x4(tca, tct + aoff);
+        ldsm_x4(bb, bt + boff);
+        ldsm_x4(tb, tbt + boff);
+#pragma unroll
+        for (int h2 = 0; h2 < 2; ++h2) {
+          mma(acc[h2], tca, bb[2 * h2], bb[2 * h2 + 1]);
+          mma(acc[h2], ca, tb[2 * h2], tb[2 * h2 + 1]);
+        }
+      }
+#pragma unroll
+      for (int h2 = 0; h2 < 2; ++h2)
+        tgs[(gbase + 2 * jp + h2) * 32 + lane] =
+            make_float4(acc[h2][0], acc[h2][1], acc[h2][2], acc[h2][3]);
+    }
+  }
+
+  const int ta = 16 * rt + g, tb_ = ta + 8;  // this thread's two rows
+  for (int i = 0; i < A.hpb; ++i) {
+    const int head = b.head0 + i;
+    const size_t item = item_idx(A, b, head);
+    __syncthreads();  // B and Bdot, or the previous head's tiles, are consumed
+    load_tile<kXW>(xt, head_rows(A.x, A.xb, A.xl, A, b, head), A.xl, b.cp, b.valid, A.P, A.vec);
+    load_tile<kXW>(txt, head_rows(A.tx, A.txb, A.txl, A, b, head), A.txl, b.cp, b.valid, A.P,
+                   A.vec);
+    cp_async_commit();
+    if (threadIdx.x < kMaxC) {
+      const int r = threadIdx.x;
+      const bool ok = r < b.valid;
+      const size_t at = ((size_t)b.bi * A.L + b.t0 + r) * A.H + head;
+      css[r] = A.cs[item * A.c + min(r, A.c - 1)];
+      tcs[r] = A.dcs[item * A.c + min(r, A.c - 1)];
+      dts[r] = ok ? A.dt[at] : 0.f;
+      tdts[r] = ok ? A.tdt[at] : 0.f;
+    }
+    split_state(hhi, hlo, A.hs + item * A.P * A.N, A.P, A.N, b.pp, b.np_);
+    split_state(thi, tlo, A.tstates + item * A.P * A.N, A.P, A.N, b.pp, b.np_);
+    cp_async_wait<0>();
+    __syncthreads();
+    if (threadIdx.x < kMaxC) {
+      const int s = threadIdx.x;
+      ecol[s] = ex2((css[s | 15] - css[s]) * kLog2e);
+    }
+    __syncthreads();
+
+    if (active) {
+      float y[8][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) y[j][0] = y[j][1] = y[j][2] = y[j][3] = 0.f;
+      // The state term: e^cs o (csdot o (C H_k^T) + Cdot H_k^T + C Hdot_k^T).
+#pragma unroll
+      for (int kk = 0; kk < kMaxN / 16; ++kk) {
+        if (16 * kk >= b.np_) break;
+        unsigned ca[4];
+        ldsm_x4(ca, ct + swz<kBW>(16 * rt + mr + (mi & 1) * 8, 2 * kk + (mi >> 1)));
+#pragma unroll
+        for (int dp = 0; dp < kMaxP / 16; ++dp) {
+          if (16 * dp >= b.pp) break;
+          const int off = swz<kBW>(16 * dp + mr + (mi >> 1) * 8, 2 * kk + (mi & 1));
+          unsigned bh[4], bl[4];
+          ldsm_x4(bh, hhi + off);
+          ldsm_x4(bl, hlo + off);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            mma(y[2 * dp + h2], ca, bh[2 * h2], bh[2 * h2 + 1]);
+            mma(y[2 * dp + h2], ca, bl[2 * h2], bl[2 * h2 + 1]);
+          }
+        }
+      }
+      const float csa = css[ta], csb = css[tb_];
+      const float tca_ = tcs[ta], tcb_ = tcs[tb_];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[j][0] *= tca_;
+        y[j][1] *= tca_;
+        y[j][2] *= tcb_;
+        y[j][3] *= tcb_;
+      }
+#pragma unroll
+      for (int kk = 0; kk < kMaxN / 16; ++kk) {
+        if (16 * kk >= b.np_) break;
+        unsigned ca[4], tca[4];
+        const int aoff = swz<kBW>(16 * rt + mr + (mi & 1) * 8, 2 * kk + (mi >> 1));
+        ldsm_x4(ca, ct + aoff);
+        ldsm_x4(tca, tct + aoff);
+#pragma unroll
+        for (int dp = 0; dp < kMaxP / 16; ++dp) {
+          if (16 * dp >= b.pp) break;
+          const int off = swz<kBW>(16 * dp + mr + (mi >> 1) * 8, 2 * kk + (mi & 1));
+          unsigned bh[4], bl[4], th[4], tl[4];
+          ldsm_x4(bh, hhi + off);
+          ldsm_x4(bl, hlo + off);
+          ldsm_x4(th, thi + off);
+          ldsm_x4(tl, tlo + off);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            mma(y[2 * dp + h2], tca, bh[2 * h2], bh[2 * h2 + 1]);
+            mma(y[2 * dp + h2], tca, bl[2 * h2], bl[2 * h2 + 1]);
+            mma(y[2 * dp + h2], ca, th[2 * h2], th[2 * h2 + 1]);
+            mma(y[2 * dp + h2], ca, tl[2 * h2], tl[2 * h2 + 1]);
+          }
+        }
+      }
+      const float ea = expf(csa), eb = expf(csb);
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        y[j][0] *= ea;
+        y[j][1] *= ea;
+        y[j][2] *= eb;
+        y[j][3] *= eb;
+      }
+      // (Mdot o G + M o Gdot) X + (M o G) Xdot, 16 columns s a step.
+#pragma unroll
+      for (int kk = 0; kk < kMaxC / 16; ++kk) {
+        if (kk > rt) break;
+        const float cs_r = css[16 * kk + 15];
+        const float ra = ex2((csa - cs_r) * kLog2e), rb = ex2((csb - cs_r) * kLog2e);
+        float w1[2][4], w0[2][4];
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const float4 t4g = tgs[(gbase + 2 * kk + jj) * 32 + lane];
+          const float tg4[4] = {t4g.x, t4g.y, t4g.z, t4g.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int s = 16 * kk + 8 * jj + 2 * t4 + (e & 1);
+            const int t = e < 2 ? ta : tb_;
+            float ev;
+            if (kk < rt) {  // below the diagonal tile: row factor x column factor
+              ev = (e < 2 ? ra : rb) * ecol[s];
+            } else {        // the diagonal tile: masked before the exp
+              ev = s <= t ? ex2(((e < 2 ? csa : csb) - css[s]) * kLog2e) : 0.f;
+            }
+            const float mv = ev * dts[s];
+            const float tmv = mv * ((e < 2 ? tca_ : tcb_) - tcs[s]) + ev * tdts[s];
+            const float gv = gacc[2 * kk + jj][e], tgv = tg4[e];
+            w1[jj][e] = tmv * gv + mv * tgv;
+            w0[jj][e] = mv * gv;
+          }
+        }
+        unsigned w1h[4], w1l[4], w0h[4], w0l[4];
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          split2(w1[r >> 1][2 * (r & 1)], w1[r >> 1][2 * (r & 1) + 1], w1h[r], w1l[r]);
+          split2(w0[r >> 1][2 * (r & 1)], w0[r >> 1][2 * (r & 1) + 1], w0h[r], w0l[r]);
+        }
+#pragma unroll
+        for (int dp = 0; dp < kMaxP / 16; ++dp) {
+          if (16 * dp >= b.pp) break;
+          const int off = swz<kXW>(16 * kk + mr + (mi & 1) * 8, 2 * dp + (mi >> 1));
+          unsigned bx[4], tbx[4];
+          ldsm_x4_trans(bx, xt + off);
+          ldsm_x4_trans(tbx, txt + off);
+#pragma unroll
+          for (int h2 = 0; h2 < 2; ++h2) {
+            mma(y[2 * dp + h2], w1h, bx[2 * h2], bx[2 * h2 + 1]);
+            mma(y[2 * dp + h2], w1l, bx[2 * h2], bx[2 * h2 + 1]);
+            mma(y[2 * dp + h2], w0h, tbx[2 * h2], tbx[2 * h2 + 1]);
+            mma(y[2 * dp + h2], w0l, tbx[2 * h2], tbx[2 * h2 + 1]);
+          }
+        }
+      }
+      tc::store_rows(y, A.ty + (((size_t)b.bi * A.L + b.t0) * A.H + head) * A.P,
+                     (long long)A.H * A.P, ta, tb_, b.valid, A.P);
+    }
+  }
+}
+
 // Checks of the sizes and of the caller's grids (the wrapper's grad_plan):
-// `items` (heads, chunks, batch) for the per-item kernels, `pass` ((batch,
-// head) pairs, blocks of state elements) for the state passes.
+// `items` (heads / heads a block, chunks, batch) for the chunk passes,
+// `pass` ((batch, head) pairs, blocks of state elements) for the state
+// passes; f32 takes one head a block.
 template <typename T>
 bool grids_ok(const GradArgs<T>& A, dim3 items, dim3 pass) {
   const int pn = A.P * A.N;
+  constexpr bool kTensorCores = std::is_same<T, bf16>::value;
   return A.B > 0 && A.L > 0 && A.H > 0 && A.G > 0 && A.H % A.G == 0 && A.P > 0 && A.N > 0 &&
          A.c > 0 && A.c <= kMaxC && A.P <= kMaxP && A.N <= kMaxN &&
          A.nch == (A.L + A.c - 1) / A.c && A.nch <= 65535 && A.B <= 65535 &&
-         (long long)A.B * A.H <= 0x7fffffff && items.x == (unsigned)A.H &&
+         (long long)A.B * A.H <= 0x7fffffff && A.hpb > 0 && (kTensorCores || A.hpb == 1) &&
+         (A.H / A.G) % A.hpb == 0 && items.x == (unsigned)(A.H / A.hpb) &&
          items.y == (unsigned)A.nch && items.z == (unsigned)A.B &&
          pass.x == (unsigned)(A.B * A.H) && pass.y == (unsigned)((pn + kThreads - 1) / kThreads) &&
          pass.z == 1 && A.warps == (int)pass.y * (kThreads / 32);
 }
 
 template <typename K>
-cudaError_t opt_in(K kernel, size_t floats) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)(sizeof(float) * floats));
+cudaError_t opt_in(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
+// (r)'s grid: one thread per dB / dC element, at most 4 096 blocks.
+template <typename T>
+unsigned group_sum_blocks(const GradArgs<T>& A) {
+  const size_t total = (size_t)A.B * A.L * A.G * A.N;
+  return (unsigned)((total + kThreads - 1) / kThreads < 4096 ? (total + kThreads - 1) / kThreads
+                                                            : 4096);
 }
 
 template <typename T>
 int launch_bwd(const GradArgs<T>& A, dim3 items, dim3 pass, cudaStream_t st) {
   if (!grids_ok(A, items, pass)) return (int)cudaErrorInvalidValue;
-  const Dims big = dims_of(kMaxC, kMaxP, kMaxN), d = dims_of(A.c, A.P, A.N);
-  static const cudaError_t opted[] = {  // once per process, at the largest sizes
-      opt_in(ssd_bwd_chunk_state<T>, state_floats(big)), opt_in(ssd_bwd_scores<T>, scores_floats(big)),
-      opt_in(ssd_bwd_dx<T>, dx_floats(big)), opt_in(ssd_bwd_db<T>, db_floats(big)),
-      opt_in(ssd_bwd_dc<T>, dc_floats(big))};
-  for (cudaError_t e : opted)
-    if (e != cudaSuccess) return (int)e;
   cudaError_t err;
-  ssd_bwd_chunk_state<T><<<items, kThreads, sizeof(float) * state_floats(d), st>>>(A);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_state_pass<<<pass, kThreads, 0, st>>>(A.grads, A.hs, A.cs, A.dh_last, A.dh0, A.dots,
-                                                A.nch, A.c, A.P * A.N);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_scores<T><<<items, kThreads, sizeof(float) * scores_floats(d), st>>>(A);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_dx<T><<<items, kThreads, sizeof(float) * dx_floats(d), st>>>(A);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_db<T><<<items, kThreads, sizeof(float) * db_floats(d), st>>>(A);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_dc<T><<<items, kThreads, sizeof(float) * dc_floats(d), st>>>(A);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  const size_t total = (size_t)A.B * A.L * A.G * A.N;
-  const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads < 4096
-                                         ? (total + kThreads - 1) / kThreads : 4096);
-  ssd_bwd_group_sum<T><<<blocks, kThreads, 0, st>>>(A);
-  if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_bwd_da<T><<<1, kThreads, 0, st>>>(A);
-  return (int)cudaGetLastError();
+  if constexpr (std::is_same<T, bf16>::value) {  // four launches on the tensor cores
+    static const cudaError_t opted[] = {opt_in(ssd_bwd_chunk_state_tc, kBwdStateSmem),
+                                        opt_in(ssd_bwd_chunk_tc, kBwdChunkSmem)};
+    for (cudaError_t e : opted)
+      if (e != cudaSuccess) return (int)e;
+    ssd_bwd_chunk_state_tc<<<items, kThreads, kBwdStateSmem, st>>>(A);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_state_pass<<<pass, kThreads, 0, st>>>(A.grads, A.hs, A.cs, A.dh_last, A.dh0, A.dots,
+                                                  A.nch, A.c, A.P * A.N);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_chunk_tc<<<items, kThreads, kBwdChunkSmem, st>>>(A);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_group_sum<T><<<group_sum_blocks(A), kThreads, 0, st>>>(A);
+    return (int)cudaGetLastError();
+  } else {
+    const Dims big = dims_of(kMaxC, kMaxP, kMaxN), d = dims_of(A.c, A.P, A.N);
+    static const cudaError_t opted[] = {  // once per process, at the largest sizes
+        opt_in(ssd_bwd_chunk_state<T>, sizeof(float) * state_floats(big)),
+        opt_in(ssd_bwd_scores<T>, sizeof(float) * scores_floats(big)),
+        opt_in(ssd_bwd_dx<T>, sizeof(float) * dx_floats(big)),
+        opt_in(ssd_bwd_db<T>, sizeof(float) * db_floats(big)),
+        opt_in(ssd_bwd_dc<T>, sizeof(float) * dc_floats(big))};
+    for (cudaError_t e : opted)
+      if (e != cudaSuccess) return (int)e;
+    ssd_bwd_chunk_state<T><<<items, kThreads, sizeof(float) * state_floats(d), st>>>(A);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_state_pass<<<pass, kThreads, 0, st>>>(A.grads, A.hs, A.cs, A.dh_last, A.dh0, A.dots,
+                                                  A.nch, A.c, A.P * A.N);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_scores<T><<<items, kThreads, sizeof(float) * scores_floats(d), st>>>(A);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_dx<T><<<items, kThreads, sizeof(float) * dx_floats(d), st>>>(A);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_db<T><<<items, kThreads, sizeof(float) * db_floats(d), st>>>(A);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_dc<T><<<items, kThreads, sizeof(float) * dc_floats(d), st>>>(A);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_group_sum<T><<<group_sum_blocks(A), kThreads, 0, st>>>(A);
+    if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+    ssd_bwd_da<T><<<1, kThreads, 0, st>>>(A);
+    return (int)cudaGetLastError();
+  }
 }
 
 template <typename T>
 int launch_jvp(const GradArgs<T>& A, dim3 items, dim3 pass, cudaStream_t st) {
   if (!grids_ok(A, items, pass)) return (int)cudaErrorInvalidValue;
-  const Dims big = dims_of(kMaxC, kMaxP, kMaxN), d = dims_of(A.c, A.P, A.N);
-  static const cudaError_t opted[] = {opt_in(ssd_jvp_chunk_state<T>, jstate_floats(big)),
-                                      opt_in(ssd_jvp_chunk_out<T>, jout_floats(big))};
-  for (cudaError_t e : opted)
-    if (e != cudaSuccess) return (int)e;
   cudaError_t err;
-  ssd_jvp_chunk_state<T><<<items, kThreads, sizeof(float) * jstate_floats(d), st>>>(A);
+  if constexpr (std::is_same<T, bf16>::value) {
+    static const cudaError_t opted[] = {opt_in(ssd_jvp_chunk_state_tc, kJvpStateSmem),
+                                        opt_in(ssd_jvp_chunk_out_tc, kJvpOutSmem)};
+    for (cudaError_t e : opted)
+      if (e != cudaSuccess) return (int)e;
+    ssd_jvp_chunk_state_tc<<<items, kThreads, kJvpStateSmem, st>>>(A);
+  } else {
+    const Dims big = dims_of(kMaxC, kMaxP, kMaxN), d = dims_of(A.c, A.P, A.N);
+    static const cudaError_t opted[] = {
+        opt_in(ssd_jvp_chunk_state<T>, sizeof(float) * jstate_floats(big)),
+        opt_in(ssd_jvp_chunk_out<T>, sizeof(float) * jout_floats(big))};
+    for (cudaError_t e : opted)
+      if (e != cudaSuccess) return (int)e;
+    ssd_jvp_chunk_state<T><<<items, kThreads, sizeof(float) * jstate_floats(d), st>>>(A);
+  }
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   ssd_scan_state_pass<<<pass, kThreads, 0, st>>>(A.tstates, A.decay, A.th0, A.th_last, A.nch,
                                                  A.P * A.N);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
-  ssd_jvp_chunk_out<T><<<items, kThreads, sizeof(float) * jout_floats(d), st>>>(A);
+  if constexpr (std::is_same<T, bf16>::value) {
+    ssd_jvp_chunk_out_tc<<<items, kThreads, kJvpOutSmem, st>>>(A);
+  } else {
+    const Dims d = dims_of(A.c, A.P, A.N);
+    ssd_jvp_chunk_out<T><<<items, kThreads, sizeof(float) * jout_floats(d), st>>>(A);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -1813,7 +2967,8 @@ template <typename T>
 grad::GradArgs<T> grad_args(const void* x, const void* dt, const void* a, const void* bmat,
                             const void* cmat, const void* hs, const void* cs, int64_t xb,
                             int64_t xl, int64_t bb, int64_t bl, int64_t cb, int64_t cl, int b,
-                            int L, int H, int P, int G, int N, int c, int sy) {
+                            int L, int H, int P, int G, int N, int c, int hpb, int vec,
+                            int sy) {
   grad::GradArgs<T> A = {};
   A.x = static_cast<const T*>(x);
   A.bm = static_cast<const T*>(bmat);
@@ -1825,6 +2980,7 @@ grad::GradArgs<T> grad_args(const void* x, const void* dt, const void* a, const 
   A.xb = xb, A.xl = xl, A.bb = bb, A.bl = bl, A.cb = cb, A.cl = cl;
   A.B = b, A.L = L, A.H = H, A.P = P, A.G = G, A.N = N, A.c = c;
   A.nch = (L + c - 1) / c;
+  A.hpb = hpb, A.vec = vec;
   A.warps = sy * (kThreads / 32);
   return A;
 }
@@ -1858,10 +3014,10 @@ REPRO_SSD_ENTRY_POINT(__nv_bfloat16, bf16)
       void* ddt, void* da, void* db, void* dc, void* dh0, void* grads, void* scores,          \
       void* rows, void* dots, void* dbp, void* dcp, void* dap, int64_t xb, int64_t xl,        \
       int64_t bb, int64_t bl, int64_t cb, int64_t cl, int b, int L, int H, int P, int G,      \
-      int N, int c, int ix, int iy, int iz, int sx, int sy, void* stream) {                   \
-    grad::GradArgs<T> A =                                                                     \
-        grad_args<T>(x, dt, a, bmat, cmat, hs, cs, xb, xl, bb, bl, cb, cl, b, L, H, P, G, N, \
-                     c, sy);                                                                  \
+      int N, int c, int hpb, int vec, int ix, int iy, int iz, int sx, int sy,                 \
+      void* stream) {                                                                         \
+    grad::GradArgs<T> A = grad_args<T>(x, dt, a, bmat, cmat, hs, cs, xb, xl, bb, bl, cb, cl, \
+                                       b, L, H, P, G, N, c, hpb, vec, sy);                    \
     A.dy = static_cast<const T*>(dy);                                                         \
     A.dh_last = static_cast<const float*>(dh_last);                                           \
     A.dx = static_cast<T*>(dx);                                                               \
@@ -1886,11 +3042,10 @@ REPRO_SSD_ENTRY_POINT(__nv_bfloat16, bf16)
       const void* tbmat, const void* tcmat, const void* th0, void* ty, void* th_last,         \
       void* tstates, void* dcs, void* decay, int64_t xb, int64_t xl, int64_t bb, int64_t bl,  \
       int64_t cb, int64_t cl, int64_t txb, int64_t txl, int64_t tbb, int64_t tbl,             \
-      int64_t tcb, int64_t tcl, int b, int L, int H, int P, int G, int N, int c, int ix,      \
-      int iy, int iz, int sx, int sy, void* stream) {                                         \
-    grad::GradArgs<T> A =                                                                     \
-        grad_args<T>(x, dt, a, bmat, cmat, hs, cs, xb, xl, bb, bl, cb, cl, b, L, H, P, G, N, \
-                     c, sy);                                                                  \
+      int64_t tcb, int64_t tcl, int b, int L, int H, int P, int G, int N, int c, int hpb,     \
+      int vec, int ix, int iy, int iz, int sx, int sy, void* stream) {                        \
+    grad::GradArgs<T> A = grad_args<T>(x, dt, a, bmat, cmat, hs, cs, xb, xl, bb, bl, cb, cl, \
+                                       b, L, H, P, G, N, c, hpb, vec, sy);                    \
     A.tx = static_cast<const T*>(tx);                                                         \
     A.tbm = static_cast<const T*>(tbmat);                                                     \
     A.tcm = static_cast<const T*>(tcmat);                                                     \

@@ -69,9 +69,10 @@ MAX_GRID_X, MAX_GRID_YZ = 2**31 - 1, 65535
 _P, _I, _L = _runtime.PTR, _runtime.INT, _runtime.INT64
 _SIGNATURE = (_P,) * 11 + (_L,) * 6 + (_I,) * 14
 # The backward's and the tangent map's entry points: pointers, the (batch,
-# row) strides of the strided views, the sizes and the grids.
-_SIGNATURE_BWD = (_P,) * 22 + (_L,) * 6 + (_I,) * 12
-_SIGNATURE_JVP = (_P,) * 18 + (_L,) * 12 + (_I,) * 12
+# row) strides of the strided views, the sizes, heads per block, whether
+# the views take 16-byte copies, and the grids.
+_SIGNATURE_BWD = (_P,) * 22 + (_L,) * 6 + (_I,) * 14
+_SIGNATURE_JVP = (_P,) * 18 + (_L,) * 12 + (_I,) * 14
 
 
 def _chunk(chunk: int, l: int) -> int:
@@ -116,26 +117,36 @@ def plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int,
     }
 
 
-def grad_plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int) -> dict:
-    """How the backward and the tangent map run on the card (both dtypes
-    alike: CUDA cores, f32): one block per (batch, head, chunk) item on
-    ``grid_items`` (heads, chunks, batch), the state passes on
-    :func:`plan`'s ``grid_states``, and the f32 scratch each allocates —
-    the backward: the state gradients ``U_k``/``Γ_{k+1}`` (``grads``), each
-    item's ``M∘G`` and ``dG`` (``scores``), its row vectors (``rows``:
+def grad_plan(b: int, l: int, h: int, p: int, g: int, n: int, chunk: int,
+              dtype: torch.dtype = torch.float32) -> dict:
+    """How the backward and the tangent map run on the card.  f32 (CUDA
+    cores): one block per (batch, head, chunk) item on ``grid_items``
+    (heads, chunks, batch).  bf16 (tensor cores): one block per (batch,
+    chunk, heads of one group) as :func:`plan` forms them
+    (``heads_per_block``), ``grid_items`` (heads / per block, chunks,
+    batch).  Both run the state passes on :func:`plan`'s ``grid_states``.
+    The f32 scratch each allocates — the backward: the state gradients
+    ``U_k``/``Γ_{k+1}`` (``grads``), the state pass's per-warp partial sums
+    of ``⟨Γ_{k+1}, H_k⟩`` (``dots``), the ``dB``/``dC`` partials (f32: one
+    a head; bf16: one a block, its heads summed in order) and the per-item
+    ``da`` partials, all summed in a fixed order; f32 also keeps each
+    item's ``M∘G`` and ``dG`` (``scores``) and its row vectors (``rows``:
     the row and column sums of ``dM∘M``, the column sums of ``dM∘E``, ω),
-    the state pass's per-warp partial sums of ``⟨Γ_{k+1}, H_k⟩`` (``dots``),
-    the per-head ``dB``/``dC`` partials and the per-item ``da`` partials,
-    all summed in a fixed order; the tangent map: the tangent states, ``ċs``
-    and ``exp(cs_c)``.  Raises past the kernels' limits."""
-    pl = plan(b, l, h, p, g, n, chunk, torch.float32)
-    c, k = pl["chunk"], pl["chunks"]
+    which the bf16 kernel keeps on chip; the tangent map: the tangent
+    states, ``ċs`` and ``exp(cs_c)``.  Raises past the kernels' limits."""
+    pl = plan(b, l, h, p, g, n, chunk, dtype)
+    c, k, hpb = pl["chunk"], pl["chunks"], pl["heads_per_block"]
     warps = pl["grid_states"][1] * (THREADS // 32)
+    if dtype == torch.bfloat16:
+        bwd = {"grads": (b, h, k, p, n), "dots": (b * h, k, warps),
+               "db": (b, h // hpb, k, c, n), "dc": (b, h // hpb, k, c, n), "da": (b, h, k)}
+    else:
+        bwd = {"grads": (b, h, k, p, n), "scores": (b, h, k, 2, c, c),
+               "rows": (b, h, k, 4, c), "dots": (b * h, k, warps),
+               "db": (b, h, k, c, n), "dc": (b, h, k, c, n), "da": (b, h, k)}
     return {
-        "chunk": c, "chunks": k, "grid_items": (h, k, b), "grid_states": pl["grid_states"],
-        "bwd_scratch": {"grads": (b, h, k, p, n), "scores": (b, h, k, 2, c, c),
-                        "rows": (b, h, k, 4, c), "dots": (b * h, k, warps),
-                        "db": (b, h, k, c, n), "dc": (b, h, k, c, n), "da": (b, h, k)},
+        "chunk": c, "chunks": k, "heads_per_block": hpb, "grid_items": (h // hpb, k, b),
+        "grid_states": pl["grid_states"], "bwd_scratch": bwd,
         "jvp_scratch": {"states": (b, h, k, p, n), "dcs": (b, h, k, c), "decay": (b, h, k)},
     }
 
@@ -269,15 +280,16 @@ def _check_saved(x, hs, cs, gp):
 def ssd_scan_bwd_cuda(dy, x, dt, a, bmat, cmat, initial_state, hs, cs, dh_last=None, *,
                       chunk=128):
     """``(dx, ddt, da, dB, dC, dh0)`` on the card from the forward's ``hs``
-    and ``cs`` (the arm ``ssd_scan:bwd``: eight launches, one count): dx,
-    dB and dC in the inputs' dtype, the rest f32.  ``dh_last`` is the final
-    state's gradient (or None); ``initial_state`` is not read (``hs``
-    holds it), as in the plain version."""
+    and ``cs`` (the arm ``ssd_scan:bwd``, one count: four launches on the
+    tensor cores in bf16, eight on the CUDA cores in f32): dx, dB and dC in
+    the inputs' dtype, the rest f32.  ``dh_last`` is the final state's
+    gradient (or None); ``initial_state`` is not read (``hs`` holds it), as
+    in the plain version."""
     b, l, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     dy = dy.contiguous()
     _runtime.check("ssd_scan", x, DTYPES, dy=(dy, (b, l, h, p)))
-    gp = grad_plan(b, l, h, p, g, n, chunk)
+    gp = grad_plan(b, l, h, p, g, n, chunk, x.dtype)
     views = _views(x, bmat, cmat)
     f = _f32(x, dt=(dt, (b, l, h)), a=(a, (h,)), dh_last=(dh_last, (b, h, p, n)))
     hs, cs = _check_saved(x, hs, cs, gp)
@@ -294,10 +306,11 @@ def ssd_scan_bwd_cuda(dy, x, dt, a, bmat, cmat, initial_state, hs, cs, dh_last=N
         "ssd_scan", "ssd_scan_bwd", _SIGNATURE_BWD, x,
         ptr(x), ptr(f["dt"]), ptr(f["a"]), ptr(bmat), ptr(cmat), ptr(dy), ptr(hs), ptr(cs),
         ptr(f["dh_last"]), ptr(dx), ptr(ddt), ptr(da), ptr(db), ptr(dc), ptr(dh0),
-        *(ptr(scr[k]) for k in ("grads", "scores", "rows", "dots", "db", "dc", "da")),
+        *(ptr(scr.get(k)) for k in ("grads", "scores", "rows", "dots", "db", "dc", "da")),
         *views[0][1], *views[1][1], *views[2][1],
-        b, l, h, p, g, n, gp["chunk"], *gp["grid_items"], *gp["grid_states"],
-        key="ssd_scan", arm="bwd",
+        b, l, h, p, g, n, gp["chunk"], gp["heads_per_block"],
+        int(vectorized(views + [(dy, (l * h * p, h * p))])), *gp["grid_items"],
+        *gp["grid_states"], key="ssd_scan", arm="bwd",
     )
     return dx, ddt, da, db, dc, dh0
 
@@ -306,13 +319,13 @@ def ssd_scan_jvp_cuda(x, dt, a, bmat, cmat, initial_state, hs, cs, tx, tdt, ta, 
                       th0=None, *, chunk=128):
     """The tangents ``(ẏ, ḣ_last)`` on the card for input tangents ``tx,
     tdt, ta, tb, tc`` (and ``th0`` or None), from the forward's ``hs`` and
-    ``cs`` (the arm ``ssd_scan:jvp``: three launches, one count): ẏ without
-    the D skip in x's dtype, the final state's tangent f32.
-    ``initial_state`` is not read (``hs`` holds it)."""
+    ``cs`` (the arm ``ssd_scan:jvp``: three launches, one count; bf16 on
+    the tensor cores): ẏ without the D skip in x's dtype, the final state's
+    tangent f32.  ``initial_state`` is not read (``hs`` holds it)."""
     b, l, h, p = x.shape
     g, n = bmat.shape[2], bmat.shape[3]
     _runtime.check("ssd_scan", x, DTYPES)
-    gp = grad_plan(b, l, h, p, g, n, chunk)
+    gp = grad_plan(b, l, h, p, g, n, chunk, x.dtype)
     views = _views(x, bmat, cmat, tx=tx.contiguous(), tb=tb.contiguous(), tc=tc.contiguous())
     f = _f32(x, dt=(dt, (b, l, h)), a=(a, (h,)), tdt=(tdt, (b, l, h)), ta=(ta, (h,)),
              th0=(th0, (b, h, p, n)))
@@ -328,8 +341,8 @@ def ssd_scan_jvp_cuda(x, dt, a, bmat, cmat, initial_state, hs, cs, tx, tdt, ta, 
         ptr(views[3][0]), ptr(f["tdt"]), ptr(f["ta"]), ptr(views[4][0]), ptr(views[5][0]),
         ptr(f["th0"]), ptr(ty), ptr(th1), *(ptr(scr[k]) for k in ("states", "dcs", "decay")),
         *(s for _, strides in views for s in strides),
-        b, l, h, p, g, n, gp["chunk"], *gp["grid_items"], *gp["grid_states"],
-        key="ssd_scan", arm="jvp",
+        b, l, h, p, g, n, gp["chunk"], gp["heads_per_block"], int(vectorized(views)),
+        *gp["grid_items"], *gp["grid_states"], key="ssd_scan", arm="jvp",
     )
     return ty, th1
 

@@ -950,11 +950,15 @@ def test_ssd_scan_refuses_a_strided_last_dimension(device, dtype):
 
 # K10's differentiated arms (training forward, backward, tangent map):
 # the cases of test_ssd_scan that stay small, mamba2-1.3b's training shape
-# (b 2, l 1 024) and a ragged l past a chunk; held at GRAD_BAR of the plain
-# version's max abs (f32 2e-4, bf16 5e-2: chip_smoke.py's check-lm-grad).
+# (b 2, l 1 024) and a ragged l past a chunk; g = 2 with 16 heads a group
+# over two bf16 blocks of 8 (the backward's block partials summed in block
+# order), and 65 600 (batch, head) pairs on the state passes' grid.x; held
+# at GRAD_BAR of the plain version's max abs (f32 2e-4, bf16 5e-2:
+# chip_smoke.py's check-lm-grad).
 SSD_GRAD_CASES = [(1, 64, 2, 16, 1, 16, 32), (2, 100, 4, 8, 2, 24, 32), (1, 37, 2, 4, 2, 8, 16),
                   (2, 128, 8, 32, 1, 64, 64), (1, 300, 4, 64, 1, 128, 128),
-                  (2, 1, 8, 64, 1, 128, 128), (2, 1024, 64, 64, 1, 128, 128)]
+                  (2, 1, 8, 64, 1, 128, 128), (2, 1024, 64, 64, 1, 128, 128),
+                  (1, 70, 32, 16, 2, 16, 32), (1025, 8, 64, 16, 1, 16, 32)]
 GRAD_BAR = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
 
 

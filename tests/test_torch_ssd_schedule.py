@@ -14,8 +14,13 @@ is held to ``ssd_plain`` at the card's bars (``tests/test_torch_cuda.py``)
 and to the reference (``ops.ssd(impl="interpret")``, ``_ssd_chunked`` with
 and without a state) at ``tests/test_torch_models.py``'s; the wrapper's
 plan (chunks, heads per block, grids, scratch bytes) and the strided views
-it reads in place or refuses are checked here too.  These are checks of
-the design, mirrored in Python: the card tests are what hold the kernels
+it reads in place or refuses are checked here too.  The training arms'
+schedules are emulated the same way: the f32 backward on the CUDA cores
+(:func:`backward_passes`), and the bf16 backward and tangent map on the
+tensor cores with their splits, block-of-heads sums and block-order
+reduction (:func:`backward_passes_tc`, :func:`jvp_passes_tc`), held to
+``ssd_bwd_plain`` / ``ssd_jvp_plain`` at the card's bars.  These are checks
+of the design, mirrored in Python: the card tests are what hold the kernels
 themselves to the plain version.
 """
 
@@ -227,6 +232,66 @@ def test_split_keeps_the_f32_bar(case, state):
     _scaled(h16, h32, CARD_TOL["float32"])
 
 
+def _state_pass_back(grads, hs, csc, dh_last, warps):
+    """(b') in place: slot k of ``grads`` (b, h, chunks, p, n) takes
+    ``Γ_{k+1}``; returns ``dh0`` and the per-item sums of the per-warp
+    partials of ``⟨Γ_{k+1}, H_k⟩`` (b, h, chunks), in warp order."""
+    b, h, nch, p, n = grads.shape
+    gam = dh_last.float() if dh_last is not None else torch.zeros(b, h, p, n)
+    dots = torch.zeros(b, h, nch)
+    for k in reversed(range(nch)):
+        u = grads[:, :, k].clone()
+        grads[:, :, k] = gam
+        prod = F.pad((gam * hs[:, :, k]).reshape(b, h, p * n), (0, warps * 32 - p * n))
+        dots[:, :, k] = prod.reshape(b, h, warps, 32).sum(-1).sum(-1)
+        gam = torch.exp(csc[:, :, k, 0])[..., None, None] * gam + u
+    return gam, dots
+
+
+def _items(t, b, l, h, c, nch):
+    """(b, l, k, w) → (b, h, chunks, c, w) in f32: rows past l zero, groups
+    repeated to their heads."""
+    t = F.pad(t.float(), (0, 0, 0, 0, 0, nch * c - l)).reshape(b, nch, c, *t.shape[2:])
+    return t.repeat_interleave(h // t.shape[3], dim=3).permute(0, 3, 1, 2, 4)
+
+
+def _rows_out(t, b, l, nch, c):
+    """(b, k, chunks, c, w) → (b, l, k, w)."""
+    return t.permute(0, 2, 3, 1, 4).reshape(b, nch * c, t.shape[1], -1)[:, :l]
+
+
+def _causal(cs, c):
+    """E[t, s] = exp(cs_t − cs_s) for s ≤ t, else 0 (masked before the exp)."""
+    tri = torch.ones(c, c, dtype=torch.bool).tril()
+    return torch.where(tri, torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :], 0.0)),
+                       0.0)
+
+
+def _mm_split(a, b, eq):
+    """``einsum(eq, a, b)`` with ``b`` (not bf16) fed as its two-term split,
+    as the tensor-core kernels feed it: one product per term, summed."""
+    hi, lo = split(b)
+    return torch.einsum(eq, a, hi) + torch.einsum(eq, a, lo)
+
+
+def _block_sum(t, hpb):
+    """(b, h, …) → (b, h / hpb, …): the block's heads summed in head order."""
+    t = t.reshape(t.shape[0], -1, hpb, *t.shape[2:])
+    out = t[:, :, 0]
+    for j in range(1, hpb):
+        out = out + t[:, :, j]
+    return out
+
+
+def _group_blocks(t, g):
+    """(b, blocks, …) → (b, g, …): each group's blocks summed in block order."""
+    t = t.reshape(t.shape[0], g, -1, *t.shape[2:])
+    out = t[:, :, 0]
+    for j in range(1, t.shape[2]):
+        out = out + t[:, :, j]
+    return out
+
+
 def backward_passes(dy, x, dt, a, bm, cm, hs, cs, dh_last, *, chunk):
     """The backward's schedule on :func:`ss.grad_plan`'s layout (``namespace
     grad`` of ``csrc/ssd_scan.cu``), in f32: (a') every item's ``U_k = dYᵀ
@@ -244,31 +309,16 @@ def backward_passes(dy, x, dt, a, bm, cm, hs, cs, dh_last, *, chunk):
     gp = ss.grad_plan(b, l, h, p, g, n, chunk)
     c, nch = gp["chunk"], gp["chunks"]
     hpg = h // g
-
-    def items(t):  # (b, l, k, w) -> (b, h, chunks, c, w), padded rows 0, groups to heads
-        t = F.pad(t.float(), (0, 0, 0, 0, 0, nch * c - l)).reshape(b, nch, c, *t.shape[2:])
-        return t.repeat_interleave(h // t.shape[3], dim=3).permute(0, 3, 1, 2, 4)
-
-    xs, dys, bs, cs_ = items(x), items(dy), items(bm), items(cm)
+    xs, dys, bs, cs_ = (_items(t, b, l, h, c, nch) for t in (x, dy, bm, cm))
     dts = F.pad(dt, (0, 0, 0, nch * c - l)).reshape(b, nch, c, h).permute(0, 3, 1, 2)
     csc = cs[..., c - 1 :]  # (b, h, chunks, 1)
     ecs = torch.exp(cs) * (dts != 0)  # the kernels' e^cs is 0 past the valid rows
     w = torch.exp(csc - cs) * dts
     # (a') and (b').
     grads = torch.einsum("bhktp,bhktn->bhkpn", dys * ecs[..., None], cs_)
-    warps = gp["grid_states"][1] * 8
-    gam = dh_last.float() if dh_last is not None else torch.zeros(b, h, p, n)
-    dots = torch.zeros(b, h, nch)
-    for k in reversed(range(nch)):
-        u = grads[:, :, k].clone()
-        grads[:, :, k] = gam
-        prod = F.pad((gam * hs[:, :, k]).reshape(b, h, p * n), (0, warps * 32 - p * n))
-        dots[:, :, k] = prod.reshape(b, h, warps, 32).sum(-1).sum(-1)
-        gam = torch.exp(csc[:, :, k, 0])[..., None, None] * gam + u
-    dh0 = gam
+    dh0, dots = _state_pass_back(grads, hs, csc, dh_last, gp["grid_states"][1] * 8)
     # (c').
-    tri = torch.ones(c, c, dtype=torch.bool).tril()
-    e = torch.where(tri, torch.exp(torch.where(tri, cs[..., :, None] - cs[..., None, :], 0.0)), 0.0)
+    e = _causal(cs, c)
     m = e * dts[..., None, :]
     gmat = torch.einsum("bhktn,bhksn->bhkts", cs_, bs)
     q = torch.einsum("bhktp,bhksp->bhkts", dys, xs)
@@ -289,7 +339,7 @@ def backward_passes(dy, x, dt, a, bm, cm, hs, cs, dh_last, *, chunk):
     dap = (dts * dadt).sum(-1)  # (b, h, chunks)
     # (r): group sums in head order; da over (batch, chunk) in order.
     def rows_out(t):  # (b, h, chunks, c, w) -> (b, l, h, w)
-        return t.permute(0, 2, 3, 1, 4).reshape(b, nch * c, h, -1)[:, :l]
+        return _rows_out(t, b, l, nch, c)
 
     def group(t):
         t = rows_out(t).reshape(b, l, g, hpg, n)
@@ -331,10 +381,181 @@ def test_backward_schedule_matches_plain(case, state):
         assert err <= 1e-6, (name, err)
 
 
+def backward_passes_tc(dy, x, dt, a, bm, cm, hs, cs, dh_last, *, chunk):
+    """The bf16 backward's schedule on :func:`ss.grad_plan`'s bf16 layout
+    (``namespace grad``'s tensor-core kernels): every non-bf16 factor split
+    into hi + lo where the kernel splits it.  (a') ``U_k = split(dY∘e^cs)ᵀ
+    C``; (b') the state pass; (c') per block of ``hpb`` heads of one group:
+    per head ``dX = w∘(B split(Γ)ᵀ) + split(M∘G)ᵀ dY`` (ω from the first
+    product), the sums of ``dM∘M`` and ``dM∘E``, ``dG = M∘Q`` summed over
+    the block's heads in head order, ``w∘(X split(Γ))`` and ``e^cs∘(dY
+    split(H_k))`` (ψ from the latter) accumulated in head order; then the
+    block's partials ``dB += split(ΣdG)ᵀ C``, ``dC += split(ΣdG) B``; (r)
+    the partials summed over each group's blocks in block order, ``da`` over
+    (batch, chunk) in order.  Returns the six gradients (dx, dB, dC rounded
+    to bf16) and, per head, the sum of the magnitudes of ``da``'s terms."""
+    b, l, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    gp = ss.grad_plan(b, l, h, p, g, n, chunk, torch.bfloat16)
+    c, nch, hpb = gp["chunk"], gp["chunks"], gp["heads_per_block"]
+    xs, dys, bs, cs_ = (_items(t, b, l, h, c, nch) for t in (x, dy, bm, cm))
+    dts = F.pad(dt, (0, 0, 0, nch * c - l)).reshape(b, nch, c, h).permute(0, 3, 1, 2)
+    valid = (torch.arange(nch * c) < l).reshape(nch, c).float()
+    csc = cs[..., c - 1 :]
+    ecs = torch.exp(cs) * valid  # 0 past the valid rows
+    w = torch.exp(csc - cs) * dts
+    # (a') and (b').
+    hi, lo = split(dys * ecs[..., None])
+    grads = (torch.einsum("bhktp,bhktn->bhkpn", hi, cs_)
+             + torch.einsum("bhktp,bhktn->bhkpn", lo, cs_))
+    dh0, dots = _state_pass_back(grads, hs, csc, dh_last, gp["grid_states"][1] * 8)
+    # (c'), per head.
+    e = _causal(cs, c)
+    m = e * dts[..., None, :]
+    gmat = torch.einsum("bhktn,bhksn->bhkts", cs_, bs)
+    q = torch.einsum("bhktp,bhksp->bhkts", dys, xs)
+    dm = gmat * q
+    rows = torch.stack([(dm * m).sum(-1), (dm * m).sum(-2), (dm * e).sum(-2)])
+    bg = _mm_split(bs, grads, "bhksn,bhkpn->bhksp")
+    omega = (xs * bg).sum(-1)
+    dx = w[..., None] * bg + _mm_split(dys, m * gmat, "bhktp,bhkts->bhksp")
+    z = _mm_split(dys, hs, "bhktp,bhkpn->bhktn")
+    psi = (cs_ * z).sum(-1)
+    # (c'), per block: the heads in order, then the summed dG's products.
+    dbp = _block_sum(w[..., None] * _mm_split(xs, grads, "bhksp,bhkpn->bhksn"), hpb)
+    dcp = _block_sum(ecs[..., None] * z, hpb)
+    dgs = _block_sum(m * q, hpb)
+    bsb, csb = bs[:, ::hpb], cs_[:, ::hpb]  # the block's group's B and C
+    dbp = dbp + _mm_split(csb, dgs, "bhktn,bhkts->bhksn")
+    dcp = dcp + _mm_split(bsb, dgs, "bhksn,bhkts->bhktn")
+    dcs = rows[0] - rows[1] + ecs * psi - w * omega
+    dcs[..., c - 1] += (w * omega).sum(-1) + torch.exp(csc[..., 0]) * dots
+    dadt = torch.flip(torch.cumsum(torch.flip(dcs, (-1,)), -1), (-1,))
+    ddt = rows[2] + omega * torch.exp(csc - cs) + a[None, :, None, None] * dadt
+    dap = (dts * dadt).sum(-1)
+    # (r).
+    da = torch.zeros(h)
+    for bi in range(b):
+        for k in range(nch):
+            da = da + dap[bi, :, k]
+    da_terms = (dts * dadt).abs().sum((0, 2, 3))
+
+    def out(t):
+        return _rows_out(t, b, l, nch, c)
+
+    return (out(dx).to(x.dtype), out(ddt[..., None])[..., 0], da,
+            _group_blocks(out(dbp).transpose(1, 2), g).transpose(1, 2).to(bm.dtype),
+            _group_blocks(out(dcp).transpose(1, 2), g).transpose(1, 2).to(cm.dtype),
+            dh0), da_terms
+
+
+def jvp_passes_tc(x, dt, a, bm, cm, hs, cs, tx, tdt, ta, tb, tc, th0, *, chunk):
+    """The bf16 tangent map's schedule (the forward's two tensor-core
+    passes carrying tangent pairs): (a'') ``ċs`` by the warp scan, the
+    tangent chunk state ``split(Ẋ∘w + X∘ẇ)ᵀ B + split(X∘w)ᵀ Ḃ + ċs_c
+    e^{cs_c} H_k``; (b'') the forward's state pass; (c'') ``Ẏ = split(Ṁ∘G +
+    M∘Ġ) X + split(M∘G) Ẋ + e^cs ∘ (ċs ∘ (C split(H_k)ᵀ) + Ċ split(H_k)ᵀ +
+    C split(Ḣ_k)ᵀ)``.  Returns ``(ẏ in bf16, ḣ_last)``."""
+    b, l, h, p = x.shape
+    g, n = bm.shape[2], bm.shape[3]
+    gp = ss.grad_plan(b, l, h, p, g, n, chunk, torch.bfloat16)
+    c, nch = gp["chunk"], gp["chunks"]
+    xs, txs, bs, cs_, tbs, tcs_ = (_items(t, b, l, h, c, nch) for t in (x, tx, bm, cm, tb, tc))
+    dts, tdts = (F.pad(t, (0, 0, 0, nch * c - l)).reshape(b, nch, c, h).permute(0, 3, 1, 2)
+                 for t in (dt, tdt))
+    csc = cs[..., c - 1 :]
+    tcs = warp_cumsum(ta[None, :, None, None] * dts + a[None, :, None, None] * tdts)
+    tcsc = tcs[..., c - 1 :]
+    ew = torch.exp(csc - cs)
+    w = ew * dts
+    tw = w * (tcsc - tcs) + ew * tdts
+    # (a'').
+    tst = (_mm_split(bs, txs * w[..., None] + xs * tw[..., None], "bhktn,bhktp->bhkpn")
+           + _mm_split(tbs, xs * w[..., None], "bhktn,bhktp->bhkpn")
+           + (tcsc * torch.exp(csc))[..., None] * hs)
+    # (b'').
+    hdot = th0.float() if th0 is not None else torch.zeros(b, h, p, n)
+    decay = torch.exp(csc[..., 0])
+    for k in range(nch):
+        s_k = tst[:, :, k].clone()
+        tst[:, :, k] = hdot
+        hdot = decay[:, :, k, None, None] * hdot + s_k
+    # (c'').
+    e = _causal(cs, c)
+    m = e * dts[..., None, :]
+    tm = m * (tcs[..., :, None] - tcs[..., None, :]) + e * tdts[..., None, :]
+    gmat = torch.einsum("bhktn,bhksn->bhkts", cs_, bs)
+    tg = (torch.einsum("bhktn,bhksn->bhkts", tcs_, bs)
+          + torch.einsum("bhktn,bhksn->bhkts", cs_, tbs))
+    y = (_mm_split(xs, tm * gmat + m * tg, "bhksp,bhkts->bhktp")
+         + _mm_split(txs, m * gmat, "bhksp,bhkts->bhktp"))
+    ch = _mm_split(cs_, hs, "bhktn,bhkpn->bhktp") * tcs[..., None]
+    ch = ch + _mm_split(tcs_, hs, "bhktn,bhkpn->bhktp") + _mm_split(cs_, tst, "bhktn,bhkpn->bhktp")
+    y = y + torch.exp(cs)[..., None] * ch
+    return _rows_out(y, b, l, nch, c).to(x.dtype), hdot
+
+
+# bf16 at the full widths (p 64, n 128, c 128) with few heads and rows; a
+# g = 2 ragged case whose groups span two blocks (hpb 5 of 10 heads a group).
+TC_CASES = [(1, 300, 4, 64, 1, 128, 128), (1, 70, 20, 16, 2, 24, 32)]
+GRAD_BAR = {"bfloat16": 5e-2, "float32": 2e-4}  # chip_smoke.py's, of the plain max abs
+
+
+def _grad_inputs(case, state):
+    _, (x, dt, a, bm, cm, _, h0) = _inputs(case, "bfloat16")
+    rng = np.random.default_rng(sum(case) + 1)
+    def rnd(shape, scale=1.0):
+        return torch.as_tensor(scale * rng.standard_normal(shape).astype(np.float32))
+    dy, tx = rnd(x.shape).to(x.dtype), rnd(x.shape).to(x.dtype)
+    tb, tc = rnd(bm.shape).to(x.dtype), rnd(cm.shape).to(x.dtype)
+    tdt, ta = rnd(dt.shape, 0.1), rnd(a.shape, 0.1)
+    dh, th0 = (rnd(h0.shape), rnd(h0.shape)) if state else (None, None)
+    return x, dt, a, bm, cm, (h0 if state else None), dy, tx, tdt, ta, tb, tc, dh, th0
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_backward_tc_schedule_matches_plain(case, state):
+    """The bf16 backward's tensor-core schedule with its splits against
+    ``ssd_bwd_plain`` at the card's bars: 5e-2 of the max abs on dx, dB
+    and dC; 2e-4 on ddt and dh0, and on da of the sum of its terms'
+    magnitudes (da's terms cancel)."""
+    x, dt, a, bm, cm, h0, dy, *_, dh, _ = _grad_inputs(case, state)
+    chunk = case[-1]
+    _, _, hs, cs = ss.ssd_fwd_plain(x, dt, a, bm, cm, h0, chunk=chunk)
+    got, da_terms = backward_passes_tc(dy, x, dt, a, bm, cm, hs, cs, dh, chunk=chunk)
+    want = ss.ssd_bwd_plain(dy, x, dt, a, bm, cm, h0, hs, cs, dh, chunk=chunk)
+    for name, gv, wv in zip(("dx", "ddt", "da", "dB", "dC", "dh0"), got, want):
+        assert gv.shape == wv.shape and gv.dtype == wv.dtype, name
+        scale = da_terms if name == "da" else wv.float().abs().max()
+        bar = GRAD_BAR["bfloat16" if wv.dtype == torch.bfloat16 else "float32"]
+        err = float(((gv.float() - wv.float()).abs() / scale).max())
+        assert err <= bar, (name, err)
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("case", TC_CASES)
+def test_jvp_tc_schedule_matches_plain(case, state):
+    """The bf16 tangent map's tensor-core schedule against
+    ``ssd_jvp_plain``: ẏ at 5e-2 of its max abs, the final state's tangent
+    at 2e-4."""
+    x, dt, a, bm, cm, h0, _, tx, tdt, ta, tb, tc, _, th0 = _grad_inputs(case, state)
+    chunk = case[-1]
+    _, _, hs, cs = ss.ssd_fwd_plain(x, dt, a, bm, cm, h0, chunk=chunk)
+    got = jvp_passes_tc(x, dt, a, bm, cm, hs, cs, tx, tdt, ta, tb, tc, th0, chunk=chunk)
+    want = ss.ssd_jvp_plain(x, dt, a, bm, cm, h0, hs, cs, tx, tdt, ta, tb, tc, th0, chunk=chunk)
+    for name, gv, wv, bar in zip(("ty", "th"), got, want, (5e-2, 2e-4)):
+        assert gv.shape == wv.shape and gv.dtype == wv.dtype, name
+        err = float((gv.float() - wv.float()).abs().max() / wv.float().abs().max())
+        assert err <= bar, (name, err)
+
+
 def test_grad_plan_at_the_training_shape():
     """mamba2-1.3b's training shape: 1 024 items on (heads, chunks, batch),
     the state pass's grid and its 256 warps a (batch, head), and the f32
-    scratch the backward and the tangent map allocate."""
+    scratch the backward and the tangent map allocate; in bf16, blocks of 8
+    heads (128 of them), no scores or row scratch, and one dB / dC partial a
+    block (8 where f32 has 64)."""
     gp = ss.grad_plan(2, 1024, 64, 64, 1, 128, 128)
     assert gp["chunk"] == 128 and gp["chunks"] == 8 and gp["grid_items"] == (64, 8, 2)
     assert gp["grid_states"] == (128, 32)
@@ -346,6 +567,15 @@ def test_grad_plan_at_the_training_shape():
     assert ss.grad_plan(1, 37, 2, 4, 2, 8, 16)["grid_items"] == (2, 3, 1)
     with pytest.raises(ValueError):
         ss.grad_plan(1, 64, 2, 65, 1, 16, 32)
+    tc = ss.grad_plan(2, 1024, 64, 64, 1, 128, 128, torch.bfloat16)
+    assert tc["heads_per_block"] == 8 and tc["grid_items"] == (8, 8, 2)
+    assert tc["grid_states"] == gp["grid_states"] and tc["jvp_scratch"] == gp["jvp_scratch"]
+    assert tc["bwd_scratch"] == {"grads": (2, 64, 8, 64, 128), "dots": (128, 8, 256),
+                                 "db": (2, 8, 8, 128, 128), "dc": (2, 8, 8, 128, 128),
+                                 "da": (2, 64, 8)}
+    assert _scratch_bytes({"scratch": tc["bwd_scratch"]}) == 4 * (
+        2 * 64 * 8 * (64 * 128 + 1) + 128 * 8 * 256 + 2 * 2 * 8 * 8 * 128 * 128) == 51_384_320
+    assert ss.grad_plan(1, 70, 20, 16, 2, 24, 32, torch.bfloat16)["grid_items"] == (4, 3, 1)
 
 
 def _scratch_bytes(plan):

@@ -27,7 +27,9 @@ the plain version where there is none):
   ``ssd_plain``, the D skip as ``y + x·d`` and as one ``addcmul`` (times
   and their largest gap); with the ptxas registers and spills of each of its
   kernels (a build of ``csrc/ssd_scan.cu`` with ``-Xptxas -v`` into a
-  temporary directory).
+  temporary directory); and its training arms (backward, forward-mode
+  tangent) at mamba2-1.3b's training shape (``chip_smoke.SSD_TRAIN``),
+  bf16 and f32, with each of their kernels' times from the profiler.
 
 Each time is the median of 25 CUDA-event timings (3 for K3, K8 and K9 at
 32 768 tokens, 1 for K3 at n = 131 072) with the L2 evicted before each call
@@ -171,6 +173,27 @@ def time_ssd(label: str) -> dict:
                  f"gap {t['skip_addcmul_max_abs_diff']:.2e})"
                  if "skip_ms" in t else ""), flush=True)
         del x, dt, a, bm, cm, d, h0, got, want
+    # The training arms at mamba2-1.3b's training shape: each arm's time and
+    # each of its kernels' (profiler), bf16 and f32.
+    b, l, h, p, g, n, c = cs.SSD_TRAIN
+    for dtype in (torch.bfloat16, torch.float32):
+        x, dt, a, bm, cm, _, _ = cs.ssd_inputs(torch, b, l, h, p, g, n, dtype, seed=2)
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        rnd = lambda *shape: torch.randn(*shape, generator=gen, device="cuda")  # noqa: E731
+        dy, tx = rnd(b, l, h, p).to(dtype), rnd(b, l, h, p).to(dtype)
+        tb, tc = rnd(b, l, g, n).to(dtype), rnd(b, l, g, n).to(dtype)
+        tdt, ta = 0.1 * rnd(b, l, h), 0.1 * rnd(h)
+        _, _, hs, css = ss.ssd_scan_fwd_cuda(x, dt, a, bm, cm, chunk=c)
+        arms = {"bwd": lambda: ss.ssd_scan_bwd_cuda(dy, x, dt, a, bm, cm, None, hs, css, chunk=c),
+                "jvp": lambda: ss.ssd_scan_jvp_cuda(x, dt, a, bm, cm, None, hs, css, tx, tdt, ta,
+                                                    tb, tc, chunk=c)}
+        for arm, fn in arms.items():
+            t = {"ms": cs.device_ms(torch, fn), "profiled_kernels_ms": cs.profile_kernels(torch, fn)}
+            key = f"ssd_scan:{arm} {str(dtype)[6:]} {cs.SSD_TRAIN}"
+            out[key] = t
+            print(f"[{label}] {key}: {t['ms']:.4f} ms; profiler {t['profiled_kernels_ms']}",
+                  flush=True)
+        del x, dt, a, bm, cm, dy, tx, tb, tc, tdt, ta, hs, css
     out["ptxas"] = ptxas_report("ssd_scan")
     print(f"[{label}] ssd_scan ptxas: {out['ptxas']}", flush=True)
     return out
