@@ -231,7 +231,10 @@ Phases, each of which fails the script when it fails:
               final state is held at the f32 bar in both dtypes (bf16 runs
               feed the kernel's non-bf16 factors as hi + lo pairs, which
               keep f32 accuracy); two launches of each must agree bit for
-              bit.
+              bit.  Also at stablelm-12b's attention (``ATTN_160``: h 32 over
+              hkv 8, dh 160, 2 × 2 048, causal; and a ragged block) and
+              jamba-v0.1-52b's SSD layers (``SSD_JAMBA``: 128 heads × 64,
+              state 16, one group, 2 × 2 048).
 15. main-lm-attn — qwen1.5-0.5b serves at full width (24 layers, d 1024,
               vocab 151 936; f32 weights from a generator seeded 0, bf16
               compute): 4 prompts of 4 096 tokens from ``TokenPipeline``,
@@ -247,8 +250,25 @@ Phases, each of which fails the script when it fails:
               operations by time) and over 8 decode steps.
 16. main-lm-ssm — the same for mamba2-1.3b (48 layers, d 2048, 64 SSD
               heads × 64, state 128, vocab 50 280).
-17. timing  — K9 at qwen1.5's prefill shape and at prefill_32k's 32 768
-              tokens (b 1), K10 at mamba2's: kernel, plain version,
+16b. main-lm-moe — the same for olmoe-1b-7b at full width and depth (16
+              layers, d 2048, 64 experts top-8, capacity factor 1.25, vocab
+              50 304): the held plain and f32-control runs replay the kernel
+              runs' routing (``models.moe.replay_routing``); a free plain
+              run gives the share of (token, layer) expert sets the two
+              runs agree on, and the prefill's dropped assignments per
+              layer are printed; the teacher-forced decode runs a dropless
+              copy (capacity factor E / k).
+16c. zoo    — qwen3-8b (36 layers), starcoder2-3b (30), stablelm-12b (40),
+              chameleon-34b cut to 16 of 48 layers, jamba-v0.1-52b cut to one
+              period (8 of 32) at full width, arctic-480b at SMOKE (one
+              full-width layer's f32 experts alone hold 53.6 GB): a prefill
+              of 2 × 2 048 tokens and 4 decode steps through the kernels and
+              through the plain versions (MoE routing replayed), the logits
+              held at the model's dtype's bar; wall s, peak memory, K9 / K10
+              launches and the routing agreement per model.
+17. timing  — K9 at qwen1.5's prefill shape, at prefill_32k's 32 768
+              tokens (b 1) and at ``ATTN_160``, K10 at mamba2's and at
+              ``SSD_JAMBA``: kernel, plain version,
               ``scaled_dot_product_attention`` as K9's yardstick (never on
               the path), and the bound (bf16 operations at 989 TFLOP/s
               against bytes read once at 3.35 TB/s; K10's operations are
@@ -291,7 +311,8 @@ Phases, each of which fails the script when it fails:
               directory, then the same with a failure injected at step 4
               (the replay's final state bit for bit the uninterrupted
               run's); ms a step, tokens/s, peak memory, K9 launches a step
-              (24 lse, 24 backward), MFU from ``model_flops``; one more
+              (48 lse under ``cfg.remat``, 24 backward), MFU from
+              ``model_flops``; one more
               step under ``torch.profiler``.  Then mamba2-1.3b at full
               width (48 layers, d 2048, 64 SSD heads × 64, state 128, vocab
               50 280, f32 parameters, bf16 compute), 2 × 1 024 tokens, the
@@ -301,7 +322,17 @@ Phases, each of which fails the script when it fails:
               alone moves a 48-layer model's gradients, ROADMAP P7) and,
               in an f32-compute control at full width cut to 12 layers,
               within 5e-2; 4 AdamW steps (no fault replay); K10 launches a
-              step (48 training forward, 48 backward).
+              step (96 training forward under ``cfg.remat``, 48 backward).
+              Every train cell runs with ``cfg.remat`` (each block
+              checkpointed) and also takes the step's gradients with it off:
+              bit for bit, with both times and peak memories.  Then
+              olmoe-1b-7b at full width cut to 4 of 16 layers (``TRAIN_MOE``,
+              2 × 2 048 tokens; the plain run replays the kernel run's
+              routing): loss 1e-2, each leaf 5e-2, the gradients twice bit
+              for bit, 2 AdamW steps (the step function alone, no Trainer)
+              with a finite positive aux loss.  Then
+              one mamba2-1.3b step at 4 × 4 096 tokens with ``cfg.remat``
+              (``TRAIN_SSM_BIG``): its time and peak memory.
 20. hf-lm   — ``examples/hessian_free_lm.py``'s 10 Hessian-free steps
               (qwen1.5 SMOKE, batch 4 × 32, ``HFConfig(k=4, ell=8,
               cg_tol=1e-3, cg_maxiter=50, init_damping=10.0)``), recycled
@@ -321,8 +352,8 @@ A ``[summary]`` line gives the device launches per damped LSMR and
 deflated def-CG iteration (without and with the Jacobi preconditioner),
 main-lsq's ms per cold LSMR iteration and main-gn's device busy share.
 
-Each main path (5, 5b–5e, 7, 7b, 10, 10b, 11, 13, 15, 16, and 19 and 20
-for each model) is driven with the launch counters set to 0 just before
+Each main path (5, 5b–5e, 7, 7b, 10, 10b, 11, 13, 15, 16, 16b, each
+model of 16c, and 19 and 20 for each model) is driven with the launch counters set to 0 just before
 it and read just after (13: on every rank); the ``{"kernels": [...]}`` JSON line gives each
 kernel's launches summed over the paths (13: over its ranks), and its
 launches per arm (``arms``; lane-axis arms end in ``_lanes``).  K9's and
@@ -336,7 +367,11 @@ and chaos phases' results.  Last comes the
 ``{"ok": true, "device": {...}}`` line; the full report also goes to
 ``chiprun_out/chip_smoke.json``.
 ``--lm-only`` runs phases 1, 2 and 14–17 alone and prints no ok line;
-``--train-only`` runs phases 1, 2 and 18–20 alone, likewise.
+``--train-only`` runs phases 1, 2 and 18–20 alone, likewise;
+``--zoo-only`` runs phases 1, 2 and this slice's: check-lm and
+check-lm-grad at ATTN_160 and SSD_JAMBA (each arm held and timed),
+main-lm-moe, zoo, and train's mamba2 (remat on against off), olmoe and
+mamba2 4 x 4 096 cells, likewise.
 """
 
 from __future__ import annotations
@@ -416,13 +451,27 @@ K8_RS = (1, K)
 # The model zoo's serving paths at full width (configs/qwen1_5_0_5b.py,
 # configs/mamba2_1_3b.py): 4 prompts of 4 096 tokens, 32 greedy decode
 # steps, teacher-forced decode of the first 32 tokens.
+# main-lm-moe: olmoe-1b-7b (configs/olmoe_1b_7b.py) the same way, at full
+# width and depth (16 layers, d 2048, 64 experts top-8, capacity factor
+# 1.25, vocab 50 304).
 LM_PATHS = {
     "main-lm-attn": {"arch": "qwen1.5-0.5b", "batch": 4, "prompt": 4096, "decode": 32,
                      "teacher": 32, "kernel": "flash_attention_"},
     "main-lm-ssm": {"arch": "mamba2-1.3b", "batch": 4, "prompt": 4096, "decode": 32,
                     "teacher": 32, "kernel": "ssd_scan_"},
+    "main-lm-moe": {"arch": "olmoe-1b-7b", "batch": 4, "prompt": 4096, "decode": 32,
+                    "teacher": 32, "kernel": "flash_attention_"},
 }
-LM_PATH_KERNELS = {"main-lm-attn": ("flash_attention",), "main-lm-ssm": ("ssd_scan",)}
+LM_PATH_KERNELS = {"main-lm-attn": ("flash_attention",), "main-lm-ssm": ("ssd_scan",),
+                   "main-lm-moe": ("flash_attention",)}
+# zoo: every other decoder-only architecture at full width (arctic-480b at
+# SMOKE: one layer's f32 experts alone hold 53.6 GB), a prefill of 2 x 2 048
+# tokens and 4 greedy decode steps through the kernels and through the plain
+# versions; depth cut where the f32 parameters would not fit beside the run
+# (chameleon-34b to 16 of 48 layers, jamba-v0.1-52b to one period, 8 of 32).
+ZOO = (("qwen3-8b", None), ("starcoder2-3b", None), ("stablelm-12b", None),
+       ("chameleon-34b", 16), ("jamba-v0.1-52b", 8), ("arctic-480b", "smoke"))
+ZOO_RUN = {"batch": 2, "prompt": 2048, "decode": 4}
 LM_TOL = {"float32": (2e-4, 5e-4), "bfloat16": (2e-2, 5e-2)}  # tests/test_kernels.py
 TOP_OPS = 12  # device operations listed from each profiled prefill
 # K9 (b, h, hkv, sq, sk, dh, causal, q_offset): tests/test_kernels.py's
@@ -435,6 +484,12 @@ ATTN_CHECK = ((2, 4, 2, 64, 64, 32, False, 0), (1, 8, 2, 96, 96, 64, True, 0),
               (2, 4, 4, 1, 133, 64, True, 132), (1, 2, 1, 40, 200, 16, False, 0),
               (1, 16, 2, 33, 33, 128, True, 0), ATTN_MAIN, (1, 32, 8, 2048, 2048, 128, True, 0),
               (2, 4, 1, 70, 150, 64, True, 80))
+# stablelm-12b's attention (h 32 over hkv 8, dh 160: 5120 / 32) at the
+# zoo's prefill of 2 x 2 048 tokens, and a ragged causal block with an
+# offset: K9's four arms at dh 160, timed at ATTN_160.
+ATTN_160 = (2, 32, 8, 2048, 2048, 160, True, 0)
+ATTN_160_CHECK = (ATTN_160, (1, 32, 8, 300, 333, 160, True, 33))
+ATTN_CHECK += ATTN_160_CHECK
 LONG_REPS = 3
 # The times of the designs the redesigned kernels replaced, printed beside
 # this run's (PERF.md §6: chip_smoke.py on an NVIDIA H100 80GB HBM3 at
@@ -471,6 +526,8 @@ ATTN_TRAIN = (4, 16, 16, 4096, 4096, 64, True)
 ATTN_HF = (4, 4, 4, 32, 32, 16, True)
 GRAD_CHECK = ((2, 8, 2, 256, 256, 16, False), (1, 8, 2, 300, 300, 64, True),
               (1, 8, 2, 200, 330, 128, False), (2, 8, 2, 130, 130, 128, True))
+GRAD_160_CHECK = (ATTN_160[:7], (1, 32, 8, 300, 333, 160, False))
+GRAD_CHECK += GRAD_160_CHECK
 GRAD_BAR = {"float32": 2e-4, "bfloat16": 5e-2}  # of the plain version's max abs
 # train: launch/train.py's build at qwen1.5-0.5b's full width (24 layers,
 # d 1024, vocab 151 936, tied; f32 parameters, bf16 compute), 4 × 4 096
@@ -480,10 +537,12 @@ TRAIN = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 4096, "lr": 1e-4, "steps": 6
          "every": 3, "fault_at": 4, "arms": ("flash_attention:lse", "flash_attention:bwd"),
          "kernel": "attn", "tag": "[train]"}
 # mamba2-1.3b at full width (48 layers, d 2048, 64 SSD heads x 64, state
-# 128, vocab 50 280; f32 parameters, bf16 compute), 2 x 1 024 tokens: the
-# port keeps every block's activations (no cfg.remat), about 16 MB a token,
-# beside 21.5 GB of parameters, gradients and AdamW moments; 4 AdamW steps,
-# no checkpoints.
+# 128, vocab 50 280; f32 parameters, bf16 compute), 2 x 1 024 tokens, beside
+# 21.5 GB of parameters, gradients and AdamW moments; 4 AdamW steps, no
+# checkpoints.  Every train cell runs with cfg.remat (each block
+# checkpointed: its forward arm launches twice a step, once recomputed) and
+# compares one step's gradients with remat off, bit for bit, with both
+# step times and peak memories.
 TRAIN_SSM = {"arch": "mamba2-1.3b", "batch": 2, "seq": 1024, "lr": 1e-4, "steps": 4,
              "every": 1000, "fault_at": None, "arms": ("ssd_scan:fwd", "ssd_scan:bwd"),
              "kernel": "ssd_", "tag": "[train mamba2]", "floor_chunk": 64,
@@ -492,6 +551,20 @@ TRAIN_SSM = {"arch": "mamba2-1.3b", "batch": 2, "seq": 1024, "lr": 1e-4, "steps"
 # HFConfig(k=4, ell=8, cg_tol=1e-3, cg_maxiter=50, init_damping=10.0), 10
 # steps, recycled and cold); then one step at qwen1.5-0.5b's full widths
 # with its depth cut to `full_layers`.
+# olmoe-1b-7b at full width (d 2048, 64 experts top-8, capacity factor 1.25,
+# vocab 50 304; f32 parameters, bf16 compute) cut to 4 of its 16 layers (at
+# 16, its 6.92 B parameters need about 110 GB for parameters, gradients and
+# AdamW's moments), 2 x 2 048 tokens; the plain run replays the kernel run's
+# routing (models/moe.py: replay_routing), 2 AdamW steps through the step
+# function alone (no Trainer: its closing checkpoint of 22.6 GB takes ≈ 29 s
+# and this cell replays no fault).
+TRAIN_MOE = {"arch": "olmoe-1b-7b", "layers": 4, "batch": 2, "seq": 2048, "lr": 1e-4,
+             "steps": 2, "every": 1000, "fault_at": None, "trainer": False,
+             "arms": ("flash_attention:lse", "flash_attention:bwd"), "kernel": "attn",
+             "tag": "[train olmoe]"}
+# One mamba2-1.3b step (AdamW included) at 4 x 4 096 tokens, where the
+# activations of 48 blocks need cfg.remat.
+TRAIN_SSM_BIG = {"arch": "mamba2-1.3b", "batch": 4, "seq": 4096, "lr": 1e-4}
 HF_LM = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 32, "steps": 10, "full_layers": 4,
          "settings": {"k": 4, "ell": 8, "cg_tol": 1e-3, "cg_maxiter": 50, "init_damping": 10.0}}
 HF_LM_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "self_gram",
@@ -504,8 +577,12 @@ HF_LM_SSM = {"arch": "mamba2-1.3b", "steps": 3}
 HF_LM_SSM_PATH_ARMS = ("ssd_scan:fwd", "ssd_scan:bwd", "ssd_scan:jvp")
 # K10 (b, l, h, p, g, n, chunk): SSD_CASES and mamba2-1.3b's prefill.
 SSD_MAIN = (4, 4096, 64, 64, 1, 128, 128)
+# jamba-v0.1-52b's SSD layers (d_inner 8192: 128 heads x 64, state 16, one
+# group, chunk 128) at the zoo's prefill of 2 x 2 048 tokens: every K10 arm
+# held and timed there too.
+SSD_JAMBA = (2, 2048, 128, 64, 1, 16, 128)
 SSD_CHECK = ((1, 64, 2, 16, 1, 16, 32), (2, 100, 4, 8, 2, 24, 32), (1, 37, 2, 4, 2, 8, 16),
-             (2, 128, 8, 32, 1, 64, 64), SSD_MAIN)
+             (2, 128, 8, 32, 1, 64, 64), SSD_MAIN, SSD_JAMBA)
 # K10 on the views models/mamba.py hands it (x, B, C split from one tensor).
 SSD_STRIDED = (2, 1000, 64, 64, 1, 128, 128)
 # K10's differentiated arms (training forward, backward, tangent map) are
@@ -2363,17 +2440,21 @@ def ssd_inputs(torch, b, l, h, p, g, n, dtype, seed, device="cuda", strided=Fals
     return x, dt, a, bm, cm, rnd(h), rnd(b, h, p, n)
 
 
-def phase_check_lm(torch, device="cuda"):
+def phase_check_lm(torch, device="cuda", attn_cases=ATTN_CHECK, ssd_cases=SSD_CHECK,
+                   strided=True):
     """K9 and K10 against their plain versions on the card, at the kernel
-    tests' shapes and the serving paths' own, f32 and bf16, plus a
-    bit-for-bit repeat; returns the worst abs error at the main shapes."""
+    tests' shapes and the serving paths' own (``attn_cases``,
+    ``ssd_cases``; with ``strided`` the split views too), f32 and bf16,
+    plus a bit-for-bit repeat; returns the worst abs error at the main
+    shapes (and at ATTN_160 and SSD_JAMBA)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
 
-    worst = {"flash_attention": 0.0, "ssd_scan": 0.0}
+    worst = {"flash_attention": 0.0, "ssd_scan": 0.0, "flash_attention dh160": 0.0,
+             "ssd_scan jamba": 0.0}
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
-        for case in ATTN_CHECK:
+        for case in attn_cases:
             b, h, hkv, sq, sk, dh, causal, off = case
             q, k, v = attn_inputs(torch, b, h, hkv, sq, sk, dh, dtype, seed=sum(case[:6]),
                                   device=device)
@@ -2388,7 +2469,10 @@ def phase_check_lm(torch, device="cuda"):
                 "launches bitwise equal")
             if case == ATTN_MAIN:
                 worst["flash_attention"] = max(worst["flash_attention"], err)
-        for case, strided in [(c, False) for c in SSD_CHECK] + [(SSD_STRIDED, True)]:
+            if case == ATTN_160:
+                worst["flash_attention dh160"] = max(worst["flash_attention dh160"], err)
+        views = [(SSD_STRIDED, True)] if strided else []
+        for case, strided in [(c, False) for c in ssd_cases] + views:
             b, l, h, p, g, n, chunk = case
             x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, b, l, h, p, g, n, dtype, seed=sum(case),
                                                  device=device, strided=strided)
@@ -2408,6 +2492,8 @@ def phase_check_lm(torch, device="cuda"):
                     + ", ".join(f"{e:.3e}" for e in errs) + (" (y, final state)" if state else ""))
                 if case == SSD_MAIN:
                     worst["ssd_scan"] = max(worst["ssd_scan"], *errs)
+                if case == SSD_JAMBA:
+                    worst["ssd_scan jamba"] = max(worst["ssd_scan jamba"], *errs)
     # Two launches on the same inputs agree bit for bit (no atomics).
     x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, *SSD_MAIN[:6], torch.bfloat16, seed=1,
                                          device=device)
@@ -2419,19 +2505,23 @@ def phase_check_lm(torch, device="cuda"):
     return worst
 
 
-def lm_serve(torch, model, cfg, tokens, backend, decode_steps, feed=None):
+def lm_serve(torch, model, cfg, tokens, backend, decode_steps, feed=None, max_len=None):
     """Prefill ``tokens`` (b, s) and take ``decode_steps`` greedy decode
     steps through the serving entry points; host clock around each part,
     ended by a synchronize.  With ``feed`` (b, decode_steps + 1) the decode
     steps take its tokens instead of their own argmax (which is still
-    recorded in ``greedy``), so two runs can be compared step for step."""
+    recorded in ``greedy``), so two runs can be compared step for step.
+    The caches hold ``max_len`` positions (default ``s + decode_steps``: a
+    decode step's reductions run over them, so two runs compared bit for
+    bit need the same)."""
     from repro_torch import models
     from repro_torch.launch import make_prefill_step, make_serve_step
 
     b, s = tokens.shape
-    prefill = make_prefill_step(cfg, s + decode_steps, backend=backend)
+    max_len = s + decode_steps if max_len is None else max_len
+    prefill = make_prefill_step(cfg, max_len, backend=backend)
     serve = make_serve_step(cfg, backend=backend)
-    state = models.init_decode_state(cfg, b, s + decode_steps, device=tokens.device)
+    state = models.init_decode_state(cfg, b, max_len, device=tokens.device)
     _sync(torch, tokens.device)
     t0 = time.perf_counter()
     state, last = prefill(model, {"tokens": tokens}, state)
@@ -2483,6 +2573,59 @@ def profile_serving(torch, fn, kernel, device="cuda"):
             "wall_ms_profiled": wall_ms,
             "kernel_share_of_device": kernel_us / total_us if total_us else None,
             "device_idle_share": 1.0 - total_us / 1e3 / wall_ms if total_us else None}
+
+
+def routing_report(cfg, kernel, other):
+    """Two runs' routing records (``models.moe.record_routing``, the same
+    calls in the same order): the share of (token, MoE layer) decisions
+    whose set of k experts agree, and the kernel run's tokens dropped per
+    layer in its first (prefill) call of each layer."""
+    agree = total = 0
+    for a, b in zip(kernel, other, strict=True):
+        same = (a.experts.sort(dim=-1).values == b.experts.sort(dim=-1).values).all(dim=-1)
+        agree += int(same.sum())
+        total += same.numel()
+    layers = sum(kind.startswith("moe") for kind in cfg.ffn_kinds())
+    dropped = [int((~r.kept).sum()) for r in kernel[:layers]]
+    return {"agree": agree, "decisions": total, "agree_share": agree / total,
+            "dropped_per_layer": dropped,
+            "dropped_share": sum(dropped) / sum(r.kept.numel() for r in kernel[:layers])}
+
+
+def moe_pairs(torch, model, cfg, cfg32, tokens, run, tag):
+    """A MoE model's comparison runs beside the kernels' ``run``, each
+    through the prefill and one decode step: the kernels again with the
+    routing recorded (bit for bit ``run``), the plain versions free
+    (recorded, for the routing agreement) and replaying the kernels'
+    routing, and the f32 control (kernels recorded, plain replaying them).
+    Returns (plain replayed, f32 kernels, f32 plain replayed, plain free,
+    routing report)."""
+    from repro_torch.models import moe
+
+    # The held logits are the prefill's and the first decode step's: the
+    # comparison runs stop after one decode step, with ``run``'s caches.
+    serve = functools.partial(lm_serve, torch, model, feed=run["greedy"],
+                              max_len=tokens.shape[1] + run["greedy"].shape[1] - 1)
+    with moe.record_routing() as rec_k:
+        again = serve(cfg, tokens, "auto", 1)
+    if not (torch.equal(again["last"], run["last"]) and torch.equal(again["first"], run["first"])):
+        raise AssertionError(f"{tag} two kernel runs differ")
+    with moe.record_routing() as rec_p:
+        free = serve(cfg, tokens, "plain", 1)
+    with moe.replay_routing(rec_k):
+        plain = serve(cfg, tokens, "plain", 1)
+    with moe.record_routing() as rec_k32:
+        k32 = serve(cfg32, tokens, "auto", 1)
+    with moe.replay_routing(rec_k32):
+        p32 = serve(cfg32, tokens, "plain", 1)
+    routing = routing_report(cfg, rec_k, rec_p)
+    log(f"{tag} routing, kernels against plain (free): {routing['agree']} of "
+        f"{routing['decisions']} (token, layer) expert sets agree ({routing['agree_share']:.4%}); "
+        f"the kernel run's prefill drops "
+        f"{routing['dropped_share']:.2%} of its assignments, per layer "
+        f"{routing['dropped_per_layer']} (capacity factor {cfg.capacity_factor}); the held pairs "
+        "replay the kernel runs' routing")
+    return plain, k32, p32, free, routing
 
 
 def phase_main_lm(torch, key, device="cuda"):
@@ -2542,15 +2685,24 @@ def phase_main_lm(torch, key, device="cuda"):
     # kernels' greedy tokens so that every decode step reads the same
     # token: near-tied logits of random weights flip an argmax now and then.
     # The f32 control: the same weights and tokens at dtype float32, where
-    # bf16 rounding cannot hide a kernel fault.
-    plain = lm_serve(torch, model, cfg, tokens, "plain", spec["decode"], feed=run["greedy"])
+    # bf16 rounding cannot hide a kernel fault.  A MoE model's plain runs
+    # replay the kernel runs' routing (held), and run free once (reported:
+    # rounding flips a near-tied top-k choice, ROADMAP P7).
     cfg32 = dataclasses.replace(cfg, dtype="float32")
-    k32 = lm_serve(torch, model, cfg32, tokens, "auto", 1, feed=run["greedy"])
-    p32 = lm_serve(torch, model, cfg32, tokens, "plain", 1, feed=run["greedy"])
-    same = int((run["greedy"] == plain["greedy"]).sum())
+    pairs = ()
+    if cfg.n_experts:
+        plain, k32, p32, free, report["routing"] = moe_pairs(torch, model, cfg, cfg32, tokens,
+                                                             run, tag)
+        pairs = (("bf16 kernels vs plain, free routing", run, free, "bfloat16", None),)
+    else:
+        plain = lm_serve(torch, model, cfg, tokens, "plain", spec["decode"], feed=run["greedy"])
+        k32 = lm_serve(torch, model, cfg32, tokens, "auto", 1, feed=run["greedy"])
+        p32 = lm_serve(torch, model, cfg32, tokens, "plain", 1, feed=run["greedy"])
+    n_same = plain["greedy"].shape[1]  # a MoE model's plain run takes one decode step
+    same = int((run["greedy"][:, :n_same] == plain["greedy"]).sum())
     report.update(plain_prefill_ms=1e3 * plain["prefill_s"],
-                  plain_decode_ms_per_step=1e3 * plain["decode_s"] / spec["decode"],
-                  greedy_tokens_equal=f"{same} of {run['greedy'].numel()}",
+                  plain_decode_ms_per_step=1e3 * plain["decode_s"] / (n_same - 1),
+                  greedy_tokens_equal=f"{same} of {plain['greedy'].numel()}",
                   max_abs_logit=float(p32["last"].abs().max()))
     # What is held: in f32 the kernels against the plain versions element
     # by element at the f32 bar; in bf16 at the bf16 bar on logits divided
@@ -2561,7 +2713,7 @@ def phase_main_lm(torch, key, device="cuda"):
     pairs = (("bf16 kernels vs plain", run, plain, "bfloat16", "outside_scaled"),
              ("f32 kernels vs plain", k32, p32, "float32", "outside"),
              ("bf16 kernels vs f32 plain", run, p32, "bfloat16", None),
-             ("bf16 plain vs f32 plain", plain, p32, "bfloat16", None))
+             ("bf16 plain vs f32 plain", plain, p32, "bfloat16", None)) + pairs
     for label, got, want, dname, held in pairs:
         for name in ("last", "first"):
             gap = logit_gap(got[name], want[name], LM_TOL[dname])
@@ -2574,15 +2726,19 @@ def phase_main_lm(torch, key, device="cuda"):
             if held and gap[held] > 0:
                 failures.append(f"{label}, {name}")
     log(f"{tag} max |logit| {report['max_abs_logit']:.3f}; greedy tokens equal {same} of "
-        f"{run['greedy'].numel()}; plain prefill {report['plain_prefill_ms']:.1f} ms")
+        f"{plain['greedy'].numel()}; plain prefill {report['plain_prefill_ms']:.1f} ms")
     del plain, k32, p32
 
     # Teacher-forced decode of the first tokens against forward_hidden:
     # the cache / state invariant of tests/test_archs_smoke.py at its
     # 2e-2, held in f32; in bf16 reported (the forward's f32 scores and
     # the decode read's bf16 ones round apart by the bf16 noise above).
+    # A MoE model runs it dropless (capacity factor E / k, as the
+    # reference's SMOKE configs are): the prefill drops tokens that one-
+    # token decode steps never drop.
     head = tokens[:, : spec["teacher"]]
-    for c in (cfg, cfg32):
+    dropless = {"capacity_factor": cfg.n_experts / cfg.experts_per_token} if cfg.n_experts else {}
+    for c in (dataclasses.replace(cfg, **dropless), dataclasses.replace(cfg32, **dropless)):
         hidden, _ = models.forward_hidden(model, {"tokens": head}, c)
         full = (hidden @ lm_head_weights(model.embed, c)).float()
         state = models.init_decode_state(c, head.shape[0], head.shape[1], device=device)
@@ -2626,6 +2782,103 @@ def phase_main_lm(torch, key, device="cuda"):
     return report, launches
 
 
+def phase_zoo(torch, device="cuda"):
+    """Every other decoder-only architecture (``ZOO``) at full width, depth
+    cut where noted: random f32 weights from a generator seeded 0, the
+    prompts of ``TokenPipeline(vocab, 2, 2 048, seed=0)``, a prefill and 4
+    greedy decode steps through the kernels (counted and timed; a MoE
+    model's run again with its routing recorded, bit for bit the same),
+    then through the plain versions fed the same tokens (a MoE model's
+    plain run replaying the kernels' routing, and once free for the routing
+    agreement): the
+    prefill and first decode logits held at the model's dtype's bar (bf16
+    relative to the logits' scale, f32 element by element).  Returns
+    (report, launches summed over the models)."""
+    from repro_torch import models
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import _runtime
+    from repro_torch.models import moe
+
+    report, launches = {}, {}
+    b, s, steps = ZOO_RUN["batch"], ZOO_RUN["prompt"], ZOO_RUN["decode"]
+    for arch, cut in ZOO:
+        tag = f"[zoo {arch}]"
+        t_model = time.perf_counter()
+        full = get_config(arch)
+        if cut == "smoke":
+            cfg = get_smoke_config(arch)
+        else:
+            cfg = full if cut is None else dataclasses.replace(full, n_layers=cut)
+        reckoned_gb = 4 * cfg.total_params() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        model = models.init(torch.Generator(device=device).manual_seed(0), cfg, device=device)
+        batch = TokenPipeline(cfg.vocab_size, b, s, seed=0).make_batch(0)
+        tokens = torch.as_tensor(batch["tokens"].astype("int64"), device=device)
+        lm_serve(torch, model, cfg, tokens[:, :64], "auto", 1)  # warm-up
+        _zero_counts()
+        run = lm_serve(torch, model, cfg, tokens, "auto", steps)
+        counts = {k: v for k, v in _runtime.LAUNCHES.items() if v}
+        plain_on_cuda = {k: v for k, v in _runtime.PLAIN_ON_CUDA.items() if v}
+        rec_k = []
+        if cfg.n_experts:
+            # The routing is read in a repeat of the timed run (recording
+            # copies each layer's ids to the host), bit for bit the same.
+            with moe.record_routing() as rec_k:
+                again = lm_serve(torch, model, cfg, tokens, "auto", steps)
+            if not (torch.equal(again["last"], run["last"])
+                    and torch.equal(again["first"], run["first"])):
+                raise AssertionError(f"{tag} two kernel runs differ")
+            del again
+        with moe.replay_routing(rec_k):
+            plain = lm_serve(torch, model, cfg, tokens, "plain", steps, feed=run["greedy"])
+        entry = {"layers": cfg.n_layers, "full_layers": full.n_layers, "d_model": cfg.d_model,
+                 "dtype": cfg.dtype, "params": sum(p.numel() for p in model.parameters()),
+                 "reckoned_f32_gb": reckoned_gb, "full_depth_f32_gb": 4 * full.total_params() / 1e9,
+                 "prefill_ms": 1e3 * run["prefill_s"],
+                 "decode_ms_per_step": 1e3 * run["decode_s"] / steps, "launches": counts,
+                 "plain_on_cuda": plain_on_cuda}
+        if cfg.n_experts:
+            with moe.record_routing() as rec_p:
+                lm_serve(torch, model, cfg, tokens, "plain", steps, feed=run["greedy"])
+            entry["routing"] = routing_report(cfg, rec_k, rec_p)
+        dname = cfg.dtype
+        held = "outside_scaled" if dname == "bfloat16" else "outside"
+        bad = []
+        for name in ("last", "first"):
+            gap = logit_gap(run[name], plain[name], LM_TOL[dname])
+            entry[f"gap_{name}"] = gap
+            if not bool(torch.isfinite(run[name]).all()) or gap[held] > 0:
+                bad.append(name)
+        entry["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del model, run, plain
+        torch.cuda.empty_cache()
+        entry["wall_s"] = time.perf_counter() - t_model
+        report[arch] = entry
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        depth = ("SMOKE (full width does not fit)" if cut == "smoke" else
+                 f"{cfg.n_layers} of {full.n_layers} layers (cut: "
+                 f"{entry['full_depth_f32_gb']:.1f} GB of f32 parameters at full depth)"
+                 if cut else f"{cfg.n_layers} layers")
+        routing = entry.get("routing")
+        log(f"{tag} {depth}, d {cfg.d_model}, {entry['params'] / 1e9:.3f} B parameters "
+            f"({reckoned_gb:.1f} GB f32), {dname} compute; prefill {b} x {s} "
+            f"{entry['prefill_ms']:.1f} ms, decode {entry['decode_ms_per_step']:.2f} ms a step; "
+            f"launches {counts}; prefill / first decode logits against plain: max abs "
+            f"{entry['gap_last']['max_abs']:.3e} / {entry['gap_first']['max_abs']:.3e}, past "
+            f"{LM_TOL[dname]} ({held}): {entry['gap_last'][held]:.2e} / "
+            f"{entry['gap_first'][held]:.2e}"
+            + (f"; routing agreement (free plain run) {routing['agree_share']:.4%}, prefill "
+               f"drops {routing['dropped_share']:.2%}" if routing else "")
+            + f"; peak memory {entry['peak_memory_gb']:.1f} GB; wall {entry['wall_s']:.1f} s")
+        need = ["flash_attention"] + (["ssd_scan"] if "ssm" in cfg.layer_kinds() else [])
+        if bad or plain_on_cuda or not all(counts.get(k) for k in need):
+            raise AssertionError(f"{tag} failed: logits past the bar {bad}, launches {counts}, "
+                                 f"plain on the card {plain_on_cuda}")
+    return report, launches
+
+
 def attn_work(b, h, hkv, sq, sk, dh, causal, itemsize):
     """(bytes, operations): q, k, v read once and o written once;
     4·b·h·sq·sk·dh flops, halved under causal masking."""
@@ -2646,39 +2899,87 @@ def ssd_work(b, l, h, p, g, n, c, itemsize):
     return nbytes, ops
 
 
-def phase_timing_lm(torch, peaks, worst, device="cuda"):
-    """K9 at qwen1.5-0.5b's prefill shape and at prefill_32k's length (b 1),
-    K10 at mamba2-1.3b's: kernel, plain version, the library yardstick
-    (``scaled_dot_product_attention`` for K9; none computes the SSD scan)
-    and the bound, bf16."""
+def attn_timing(torch, peaks, case, reps, device="cuda"):
+    """K9's serving arm at ``case`` in bf16: kernel, plain version,
+    ``scaled_dot_product_attention`` (GQA through ``enable_gqa``) and the
+    bound."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
+
+    b, h, hkv, sq, sk, dh, causal, _ = case
+    q, k, v = attn_inputs(torch, b, h, hkv, sq, sk, dh, torch.bfloat16, seed=2, device=device)
+    nbytes, ops = attn_work(b, h, hkv, sq, sk, dh, causal, 2)
+    t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["bfloat16_tensor"]
+    t = {
+        "shape": case,
+        "ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=causal), reps),
+        "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=causal),
+                              reps),
+        "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=h != hkv), reps),
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    t["tflop_s"] = ops / t["ms"] / 1e9
+    return t
+
+
+def ssd_timing(torch, peaks, case, worst, device="cuda"):
+    """K10's serving arm at ``case`` in bf16: kernel (without and with the
+    state in and out), plain version and bound (no PyTorch call computes
+    the scan)."""
     from repro_torch.kernels import ssd_scan as ss
 
+    b, l, h, p, g, n, c = case
+    x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, b, l, h, p, g, n, torch.bfloat16, seed=2,
+                                         device=device)
+    nbytes, ops = ssd_work(b, l, h, p, g, n, c, 2)
+    t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["bfloat16_tensor"]
+    k10 = {
+        "shape": case, "max_abs_err": worst,
+        "ms": device_ms(torch, lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, d, chunk=c)),
+        "plain_ms": device_ms(torch, lambda: ss.ssd_plain(x, dt, a, bm, cm, d, chunk=c), 5),
+        "library_ms": None,
+        "bound_ms": 1e3 * max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+    k10["stateful_ms"] = device_ms(torch, lambda: ss.ssd_scan_cuda(
+        x, dt, a, bm, cm, d, chunk=c, initial_state=h0, return_state=True))
+    k10["tflop_s"] = ops / k10["ms"] / 1e9
+    return k10
+
+
+def phase_timing_lm(torch, peaks, worst, device="cuda", main=True):
+    """K9 at qwen1.5-0.5b's prefill shape, at prefill_32k's length (b 1)
+    and at stablelm-12b's (ATTN_160), K10 at mamba2-1.3b's and at
+    jamba-v0.1-52b's (SSD_JAMBA): kernel, plain version, the library
+    yardstick (``scaled_dot_product_attention`` for K9; none computes the
+    SSD scan) and the bound, bf16.  Without ``main`` only this slice's
+    shapes (ATTN_160, SSD_JAMBA) are timed."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
     out = {}
-    for label, case, reps in (("main", ATTN_MAIN, REPS), ("32k", ATTN_LONG, LONG_REPS)):
-        b, h, hkv, sq, sk, dh, causal, _ = case
-        q, k, v = attn_inputs(torch, b, h, hkv, sq, sk, dh, torch.bfloat16, seed=2,
-                              device=device)
-        nbytes, ops = attn_work(b, h, hkv, sq, sk, dh, causal, 2)
-        t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["bfloat16_tensor"]
-        out[label] = t = {
-            "shape": case,
-            "ms": device_ms(torch, lambda: fa.flash_attention_cuda(q, k, v, causal=causal), reps),
-            "plain_ms": device_ms(torch, lambda: fa.flash_attention_plain(q, k, v, causal=causal),
-                                  reps),
-            "library_ms": device_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal), reps),
-            "bound_ms": 1e3 * max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        }
-        t["tflop_s"] = ops / t["ms"] / 1e9
+    shapes = (("main", ATTN_MAIN, REPS), ("32k", ATTN_LONG, LONG_REPS)) if main else ()
+    for label, case, reps in shapes + (("dh160", ATTN_160, REPS),):
+        out[label] = t = attn_timing(torch, peaks, case, reps, device)
+        previous = PREVIOUS_MS.get("flash_attention " + label)
+        prev = "" if previous is None else f"; the previous SIMT kernel {previous} ms"
         log(f"[timing] flash_attention {case} bf16: kernel {t['ms']:.3f} ms "
-            f"({t['tflop_s']:.1f} TFLOP/s; the previous SIMT kernel "
-            f"{PREVIOUS_MS.get('flash_attention ' + label)} ms), plain {t['plain_ms']:.3f} ms, "
+            f"({t['tflop_s']:.1f} TFLOP/s{prev}), plain {t['plain_ms']:.3f} ms, "
             f"scaled_dot_product_attention {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']})")
+    out["dh160"]["max_abs_err"] = worst["flash_attention dh160"]
+    jamba = ssd_timing(torch, peaks, SSD_JAMBA, worst["ssd_scan jamba"], device)
+    log(f"[timing] ssd_scan {SSD_JAMBA} bf16 (jamba's SSD layers): kernel {jamba['ms']:.3f} ms "
+        f"({jamba['tflop_s']:.1f} TFLOP/s; with state in and out {jamba['stateful_ms']:.3f} ms), "
+        f"plain {jamba['plain_ms']:.3f} ms, library null, bound {jamba['bound_ms']:.4f} ms "
+        f"({jamba['bound_by']})")
+    if not main:
+        return {"flash_attention": dict(out["dh160"], dh160=out["dh160"]),
+                "ssd_scan": dict(jamba, jamba=jamba)}
     # The f32 arithmetic (CUDA cores, the f32 control runs) at the prefill shape.
     b, h, hkv, sq, sk, dh, causal, _ = ATTN_MAIN
     q, k, v = attn_inputs(torch, b, h, hkv, sq, sk, dh, torch.float32, seed=2, device=device)
@@ -2690,49 +2991,39 @@ def phase_timing_lm(torch, peaks, worst, device="cuda"):
         f"scaled_dot_product_attention {t['library_ms']:.3f} ms")
     del q, k, v
     k9 = dict(out["main"], max_abs_err=worst["flash_attention"], at_32k=out["32k"],
-              f32=out["f32"])
+              f32=out["f32"], dh160=out["dh160"])
 
-    b, l, h, p, g, n, c = SSD_MAIN
-    x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, b, l, h, p, g, n, torch.bfloat16, seed=2,
-                                         device=device)
-    nbytes, ops = ssd_work(b, l, h, p, g, n, c, 2)
-    t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["bfloat16_tensor"]
-    k10 = {
-        "shape": SSD_MAIN, "max_abs_err": worst["ssd_scan"],
-        "ms": device_ms(torch, lambda: ss.ssd_scan_cuda(x, dt, a, bm, cm, d, chunk=c)),
-        "plain_ms": device_ms(torch, lambda: ss.ssd_plain(x, dt, a, bm, cm, d, chunk=c), 5),
-        "library_ms": None,
-        "bound_ms": 1e3 * max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-    }
-    k10["stateful_ms"] = device_ms(torch, lambda: ss.ssd_scan_cuda(
-        x, dt, a, bm, cm, d, chunk=c, initial_state=h0, return_state=True))
-    k10["tflop_s"] = ops / k10["ms"] / 1e9
+    k10 = ssd_timing(torch, peaks, SSD_MAIN, worst["ssd_scan"], device)
     log(f"[timing] ssd_scan {SSD_MAIN} bf16: kernel {k10['ms']:.3f} ms ({k10['tflop_s']:.1f} "
         f"TFLOP/s; with state in and out {k10['stateful_ms']:.3f} ms; the previous design "
         f"{PREVIOUS_MS['ssd_scan main']} ms), plain "
         f"{k10['plain_ms']:.3f} ms, library null (no PyTorch call computes the scan), bound "
         f"{k10['bound_ms']:.4f} ms ({k10['bound_by']})")
+    k10["jamba"] = jamba
     return {"flash_attention": k9, "ssd_scan": k10}
 
 
-def phase_lm(torch, peaks, report, device="cuda"):
-    """check-lm, main-lm-attn, main-lm-ssm and the timing of K9 and K10.
-    Each main path runs with the counters set to 0 just before it and read
-    just after; its kernel must have launched and no plain version may
-    have run on the card.  Returns (K9/K10 kernel entries, launches per
-    path)."""
-    worst = phase_check_lm(torch, device)
+def phase_lm(torch, peaks, report, device="cuda", zoo_only=False):
+    """check-lm, main-lm-attn, main-lm-ssm, main-lm-moe and the timing of K9
+    and K10 (with ``zoo_only``: check-lm at this slice's shapes, main-lm-moe
+    and their timing alone).  Each main path runs with the counters set to
+    0 just before it and read just after; its kernel must have launched and
+    no plain version may have run on the card.  Returns (K9/K10 kernel
+    entries, launches per path)."""
+    if zoo_only:
+        worst = phase_check_lm(torch, device, ATTN_160_CHECK, (SSD_JAMBA,), strided=False)
+    else:
+        worst = phase_check_lm(torch, device)
     report["check_lm"] = worst
     launches = {}
-    for key in LM_PATHS:
+    for key in (("main-lm-moe",) if zoo_only else LM_PATHS):
         report[key], launches[key] = phase_main_lm(torch, key, device)
         if not all(launches[key][k] for k in LM_PATH_KERNELS[key]):
             raise AssertionError(f"[{key}] a kernel never launched: {launches[key]}")
         if any(report[key]["plain_on_cuda"].values()):
             raise AssertionError(f"[{key}] plain versions ran on the card: "
                                  f"{report[key]['plain_on_cuda']}")
-    return phase_timing_lm(torch, peaks, worst, device), launches
+    return phase_timing_lm(torch, peaks, worst, device, main=not zoo_only), launches
 
 
 def _rel_err(torch, got, want):
@@ -2790,20 +3081,23 @@ def ssd_grad_work(b, l, h, p, g, n, c, itemsize, arm):
     return nbytes, b * h * per_head + b * g * per_group
 
 
-def check_ssd_grad(torch, peaks, device="cuda"):
+def check_ssd_grad(torch, peaks, device="cuda", cases=SSD_CHECK + (SSD_TRAIN,),
+                   timed=(SSD_TRAIN, SSD_JAMBA)):
     """K10's training forward, backward and forward-mode arms against their
     plain versions on the card at SSD_CHECK's cases and at mamba2-1.3b's
     training shape (SSD_TRAIN), f32 and bf16, without and with a state in
     and out: GRAD_BAR of each output's plain max abs (the f32 outputs, dt's
     and a's gradients and the states', at the f32 bar), the training
     forward's y bit for bit the serving arm's, each arm twice bit for bit;
-    then timed at SSD_TRAIN in bf16 beside the plain versions and the bound
-    (no PyTorch call computes the scan's derivative).  Returns the bwd and
-    jvp arms' kernel entries."""
+    then timed at each shape of ``timed`` (SSD_TRAIN and jamba's SSD_JAMBA)
+    in bf16 beside the plain versions and the bound (no PyTorch call
+    computes the scan's derivative).  Returns the bwd and jvp arms' kernel
+    entries at ``timed[0]``, each with the others' under their shapes, and
+    the training forward's times (``fwd_ms``, ``fwd_ms_at``)."""
     from repro_torch.kernels import ssd_scan as ss
 
-    worst = {"bwd": 0.0, "jvp": 0.0}
-    checks = [(c, d, st) for c in SSD_CHECK + (SSD_TRAIN,)
+    worst = {case: {"bwd": 0.0, "jvp": 0.0} for case in timed}
+    checks = [(c, d, st) for c in cases
               for d in (torch.float32, torch.bfloat16) for st in (False, True)]
     for case, dtype, state in checks:
         dname = str(dtype).split(".")[-1]
@@ -2846,16 +3140,33 @@ def check_ssd_grad(torch, peaks, device="cuda"):
         log(f"{what}: errors / plain max abs " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
             + f" (bar {GRAD_BAR[dname]:g} on dx, dB, dC, ty; {GRAD_BAR['float32']:g} on the f32 "
             "outputs); y bit for bit the serving arm's, two launches of each arm bitwise equal")
-        if case == SSD_TRAIN and dtype == torch.bfloat16:
-            worst["bwd"] = max(worst["bwd"], max(float((u - w).float().abs().max())
-                                                 for u, w in zip(grads, grads_p)))
-            worst["jvp"] = max(worst["jvp"], max(float((u - w).float().abs().max())
-                                                 for u, w in zip(tang, tang_p)))
+        if case in worst and dtype == torch.bfloat16:
+            w = worst[case]
+            w["bwd"] = max(w["bwd"], max(float((u - v).float().abs().max())
+                                         for u, v in zip(grads, grads_p)))
+            w["jvp"] = max(w["jvp"], max(float((u - v).float().abs().max())
+                                         for u, v in zip(tang, tang_p)))
         del x, dt, a, bm, cm, dy, tx, tb, tc, y, h1, hs, cs, hs_p, cs_p, grads, grads_p
         del tang, tang_p
 
-    # Timing at the training shape, bf16, no state (the training path).
-    b, l, h, p, g, n, c = SSD_TRAIN
+    entries = {"bwd": {}, "jvp": {}, "fwd_ms_at": {}}
+    for case in timed:
+        timing = ssd_grad_timing(torch, peaks, case, worst[case], device)
+        entries["fwd_ms_at"][str(case)] = timing.pop("fwd_ms")
+        for arm, e in timing.items():
+            if case == timed[0]:
+                entries[arm].update(e)
+            entries[arm][str(case)] = e
+    entries["fwd_ms"] = entries["fwd_ms_at"][str(timed[0])]
+    return entries
+
+
+def ssd_grad_timing(torch, peaks, case, worst, device="cuda"):
+    """K10's bwd and jvp arms (and the training forward) at ``case``, bf16,
+    no state (the training path): kernel, plain version and bound."""
+    from repro_torch.kernels import ssd_scan as ss
+
+    b, l, h, p, g, n, c = case
     x, dt, a, bm, cm, _, _ = ssd_inputs(torch, b, l, h, p, g, n, torch.bfloat16, seed=2,
                                         device=device)
     gen = torch.Generator(device=device).manual_seed(3)
@@ -2878,15 +3189,16 @@ def check_ssd_grad(torch, peaks, device="cuda"):
         nbytes, ops = ssd_grad_work(b, l, h, p, g, n, c, 2, arm)
         t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["bfloat16_tensor"]
         e = entries[arm] = {
-            "shape": SSD_TRAIN, "max_abs_err": worst[arm], "ms": device_ms(torch, kernel),
+            "shape": case, "max_abs_err": worst[arm], "ms": device_ms(torch, kernel),
             "plain_ms": device_ms(torch, plain, 5), "library_ms": None,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "gflop": ops / 1e9, "fp32_simt_bound_ms": 1e3 * ops / peaks["float32"],
         }
         e["tflop_s"] = ops / e["ms"] / 1e9
-        log(f"[timing] ssd_scan:{arm} {SSD_TRAIN} bf16: kernel {e['ms']:.3f} ms (previous "
-            f"design {PREVIOUS_MS[f'ssd_scan:{arm}']} ms; "
+        prev = (f"previous design {PREVIOUS_MS[f'ssd_scan:{arm}']} ms; " if case == SSD_TRAIN
+                else "")
+        log(f"[timing] ssd_scan:{arm} {case} bf16: kernel {e['ms']:.3f} ms ({prev}"
             f"{e['tflop_s']:.1f} TFLOP/s, {e['gflop']:.1f} GFLOP; the f32 CUDA-core rate's bound "
             f"{e['fp32_simt_bound_ms']:.3f} ms), plain {e['plain_ms']:.3f} ms, library null (no "
             f"PyTorch call computes the scan's derivative), bound {e['bound_ms']:.4f} ms "
@@ -2957,7 +3269,9 @@ def grad_sass(build):
     kernels = _sass_report(build, "flash_attention", _sass_name,
                            "flash_attention namespace grad")
     tc = [k for k in kernels if "_tc<" in k]
-    if len(tc) != 12 or any(kernels[k]["HMMA"] == 0 for k in tc):
+    # three tensor-core kernels (dkdv, dq, jvp) at each of the five head
+    # dims 16, 32, 64, 128, 160
+    if len(tc) != 15 or any(kernels[k]["HMMA"] == 0 for k in tc):
         raise AssertionError(f"[build] the bf16 grad kernels must run HMMA: {kernels}")
     if any(v["atomics"] for v in kernels.values()):
         raise AssertionError(f"[build] an atomic in namespace grad: {kernels}")
@@ -2990,20 +3304,22 @@ def ssd_grad_sass(build):
     return kernels
 
 
-def phase_check_lm_grad(torch, peaks, device="cuda"):
+def phase_check_lm_grad(torch, peaks, device="cuda", cases=GRAD_CHECK,
+                        timed=(ATTN_TRAIN, ATTN_160[:7])):
     """K9's forward-with-lse, backward and forward-mode arms against their
-    plain versions on the card (the lse arm's output bit for bit the serving
-    arm's; each arm twice, bit for bit), then timed at qwen1.5-0.5b's
-    training shape in bf16 beside the plain versions, the library call
-    (SDPA's forward for lse, its backward for bwd, none for jvp) and the
-    bound.  Returns the three arms' kernel entries."""
-    import torch.nn.functional as F
-
+    plain versions on the card at ``cases`` (and qwen1.5-0.5b's training
+    shape and the Hessian-free LM's when ``cases`` is GRAD_CHECK; the lse
+    arm's output bit for bit the serving arm's; each arm twice, bit for
+    bit), then timed at each shape of ``timed`` in bf16 beside the plain
+    versions, the library call (SDPA's forward for lse, its backward for
+    bwd, none for jvp) and the bound.  Returns the three arms' kernel
+    entries at ``timed[0]``, each with the others' under their shapes."""
     from repro_torch.kernels import flash_attention as fa
 
-    worst = {"lse": 0.0, "bwd": 0.0, "jvp": 0.0}
-    checks = [(c, d) for c in GRAD_CHECK for d in (torch.float32, torch.bfloat16)]
-    checks += [(ATTN_TRAIN, torch.bfloat16), (ATTN_HF, torch.float32)]
+    worst = {case: {"lse": 0.0, "bwd": 0.0, "jvp": 0.0} for case in timed}
+    checks = [(c, d) for c in cases for d in (torch.float32, torch.bfloat16)]
+    if cases is GRAD_CHECK:
+        checks += [(ATTN_TRAIN, torch.bfloat16), (ATTN_HF, torch.float32)]
     for case, dtype in checks:
         dname = str(dtype).split(".")[-1]
         bar = GRAD_BAR[dname]
@@ -3038,21 +3354,36 @@ def phase_check_lm_grad(torch, peaks, device="cuda"):
         log(f"{what}: errors / plain max abs " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
             + f" (bar {bar:g}, lse {GRAD_BAR['float32']:g}); serving arm's output bit for bit, "
             "two launches of each arm bitwise equal")
-        if case == ATTN_TRAIN:
-            worst["lse"] = float((lse - lse_p).abs().max())
-            worst["bwd"] = max(float((g - w).float().abs().max()) for g, w in zip(grads, grads_p))
-            worst["jvp"] = float((tout - tout_p).float().abs().max())
+        if case in worst and dtype == torch.bfloat16:
+            w = worst[case]
+            w["lse"] = float((lse - lse_p).abs().max())
+            w["bwd"] = max(float((g - w_).float().abs().max()) for g, w_ in zip(grads, grads_p))
+            w["jvp"] = float((tout - tout_p).float().abs().max())
         del q, k, v, dout, tq, tk, tv, out, lse, out_p, lse_p, grads, grads_p, tout, tout_p
 
-    # Timing at the training shape, bf16.
-    b, h, hkv, sq, sk, dh, causal = ATTN_TRAIN
-    q, k, v, dout, tq, tk, tv = grad_inputs(torch, ATTN_TRAIN, torch.bfloat16, seed=2,
-                                            device=device)
+    entries = {arm: {} for arm in ("lse", "bwd", "jvp")}
+    for case in timed:
+        for arm, e in attn_grad_timing(torch, peaks, case, worst[case], device).items():
+            if case == timed[0]:
+                entries[arm].update(e)
+            entries[arm][str(case)] = e
+    return entries
+
+
+def attn_grad_timing(torch, peaks, case, worst, device="cuda"):
+    """K9's lse, bwd and jvp arms at ``case`` in bf16: kernel, plain
+    version, SDPA (GQA through ``enable_gqa``; none for jvp) and bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    b, h, hkv, sq, sk, dh, causal = case
+    q, k, v, dout, tq, tk, tv = grad_inputs(torch, case, torch.bfloat16, seed=2, device=device)
     out, lse = fa.flash_attention_lse_cuda(q, k, v, causal=causal)
     qr, kr, vr = (t.detach().requires_grad_(True) for t in (q, k, v))
 
     def sdpa_fwd():
-        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+        return F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal, enable_gqa=h != hkv)
 
     def sdpa_fwd_bwd():
         return torch.autograd.grad(sdpa_fwd(), (qr, kr, vr), dout)
@@ -3073,7 +3404,7 @@ def phase_check_lm_grad(torch, peaks, device="cuda"):
         nbytes, ops = grad_work(b, h, hkv, sq, sk, dh, causal, 2, arm)
         t_bytes, t_ops = nbytes / peaks["bytes"], ops / peaks["bfloat16_tensor"]
         e = entries[arm] = {
-            "shape": ATTN_TRAIN, "max_abs_err": worst[arm], "ms": device_ms(torch, kernel),
+            "shape": case, "max_abs_err": worst[arm], "ms": device_ms(torch, kernel),
             "plain_ms": device_ms(torch, plain, 5), "library_ms": library,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -3082,9 +3413,9 @@ def phase_check_lm_grad(torch, peaks, device="cuda"):
         lib = "null (no PyTorch call computes the tangent)" if library is None else (
             f"{library:.3f} ms (scaled_dot_product_attention's "
             f"{'forward' if arm == 'lse' else 'backward, its forward subtracted'})")
-        previous = PREVIOUS_MS.get(f"flash_attention:{arm}")
+        previous = PREVIOUS_MS.get(f"flash_attention:{arm}") if case == ATTN_TRAIN else None
         prev = "" if previous is None else f", previous design {previous} ms"
-        log(f"[timing] flash_attention:{arm} {ATTN_TRAIN} bf16: kernel {e['ms']:.3f} ms "
+        log(f"[timing] flash_attention:{arm} {case} bf16: kernel {e['ms']:.3f} ms "
             f"({e['tflop_s']:.1f} TFLOP/s{prev}), plain {e['plain_ms']:.3f} ms, library {lib}, bound "
             f"{e['bound_ms']:.4f} ms ({e['bound_by']})")
     return entries
@@ -3141,7 +3472,7 @@ def hf_lm_run(torch, cfg, params, steps, recycle, backend, device, tag):
 
 
 def phase_hf_lm(torch, device="cuda"):
-    """examples/hessian_free_lm.py on the port: its 10 steps, recycled and
+    """examples/hessian_free_lm.py on the port: its first HF_LM["steps"] steps, recycled and
     cold, through the kernels (K9's lse, backward and forward-mode arms
     inside the GGN products; K1, K2, K4, K5 inside def-CG), held against
     the same runs with ``backend="plain"`` on the card (iterations within
@@ -3308,9 +3639,17 @@ def phase_train(torch, peaks, spec, device="cuda"):
     (ii) ``spec["steps"]`` steps, with checkpoints every ``spec["every"]``
     and, where ``spec["fault_at"]`` names a step, the same again with a
     failure injected there: the replay's final state bit for bit the
-    uninterrupted run's; (iii) step time, tokens/s, peak memory, the
-    path's kernel arms a step (one launch a layer each) and MFU.  Returns
-    the report, with the launches and arms of the uninterrupted run."""
+    uninterrupted run's (with ``spec["trainer"]`` False, the steps through
+    the step function alone); (iii) step time, tokens/s, peak memory, the
+    path's kernel arms a step (the backward arm once a layer, the forward
+    arm twice under ``cfg.remat``: forward and recompute) and MFU.  Before
+    (ii), the same step's gradients again (bit for bit where no fault
+    replay follows) and with ``cfg.remat`` off (bit for bit), each with its
+    time and peak memory.  A MoE model's
+    plain run replays the kernel run's routing
+    (``models.moe.replay_routing``) and its steps' aux losses must be
+    finite and positive.  Returns the report, with the launches and arms of
+    the uninterrupted run."""
     import shutil
     import tempfile
 
@@ -3319,12 +3658,14 @@ def phase_train(torch, peaks, spec, device="cuda"):
     from repro_torch.kernels import _runtime
     from repro_torch.launch import loss_and_grads, model_flops
     from repro_torch.launch import train as train_lib
-    from repro_torch.runtime import Trainer, TrainerConfig
+    from repro_torch.models import moe
+    from repro_torch.runtime import Trainer, TrainerConfig, TrainerEvents
 
     tag = spec["tag"]
     torch.cuda.reset_peak_memory_stats()
     (cfg, mesh, state0, pipe, step_fn), init_s = _timed(torch, device, lambda: train_lib.build(
-        spec["arch"], "full", spec["batch"], spec["seq"], spec["lr"], device))
+        spec["arch"], "full", spec["batch"], spec["seq"], spec["lr"], device,
+        n_layers=spec.get("layers")))
     params = state0[0]
     n_params = sum(t.numel() for t in params.values())
     report = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
@@ -3336,10 +3677,20 @@ def phase_train(torch, peaks, spec, device="cuda"):
 
     # (i) one step's loss and gradients: kernels against plain versions.
     batch = pipe.make_batch(0)
-    (loss_c, _, grads_c), sec_c = _timed(torch, device, lambda: loss_and_grads(cfg, params, batch))
+    with moe.record_routing() as routing:
+        (loss_c, met_c, grads_c), sec_c = _timed(torch, device,
+                                                 lambda: loss_and_grads(cfg, params, batch))
     grad_peak = torch.cuda.max_memory_allocated() / 1e9
-    (loss_p, _, grads_p), sec_p = _timed(torch, device, lambda: loss_and_grads(
-        cfg, params, batch, backend="plain"))
+    with moe.replay_routing(routing):
+        (loss_p, _, grads_p), sec_p = _timed(torch, device, lambda: loss_and_grads(
+            cfg, params, batch, backend="plain"))
+    if cfg.n_experts:
+        layers = sum(kind.startswith("moe") for kind in cfg.ffn_kinds())
+        dropped = [int((~r.kept).sum()) for r in routing[:layers]]
+        report["routing"] = {"dropped_per_layer": dropped, "aux": float(met_c["aux"])}
+        log(f"{tag} (i) aux {float(met_c['aux']):.4f}; the kernel run drops {dropped} of "
+            f"{routing[0].kept.numel()} assignments a layer; the plain run replays its routing")
+    del routing
     rel = _leaf_rel(torch, grads_c, grads_p)
     loss_rel = abs(float(loss_c) - float(loss_p)) / abs(float(loss_p))
     worst = max(rel, key=rel.get)
@@ -3371,24 +3722,44 @@ def phase_train(torch, peaks, spec, device="cuda"):
     del grads_p
     if "f32_control_layers" in spec:
         report["f32_control"] = f32_control(torch, cfg, params, batch, spec, tag)
-    # Determinism: the same step again, leaf by leaf bit for bit.
-    _, _, grads_again = loss_and_grads(cfg, params, batch)
-    moved = sorted(name for name in grads_c if not torch.equal(grads_c[name], grads_again[name]))
+    # Determinism: the same step again, leaf by leaf bit for bit (held
+    # where no fault replay follows, which tolerates an order-dependent
+    # leaf); then with cfg.remat off, every leaf bit for bit the first
+    # gradients (held).  Each is timed, its peak memory taken with the same
+    # tensors live (parameters, AdamW state, the first gradients).
+    remat = {}
+    for label, c in (("on", cfg), ("off", dataclasses.replace(cfg, remat=False))):
+        torch.cuda.reset_peak_memory_stats()
+        (_, _, grads_again), sec = _timed(torch, device, lambda: loss_and_grads(c, params, batch))
+        remat[label] = {"grad_s": sec, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "leaves_differing": sorted(name for name in grads_c if not torch.equal(
+                            grads_c[name], grads_again[name]))}
+        del grads_again
+    moved = remat["on"]["leaves_differing"]
     log(f"{tag} the same gradients again: {len(grads_c) - len(moved)} of {len(grads_c)} leaves "
         f"bit for bit" + (f"; differing: {moved}" if moved else ""))
+    log(f"{tag} cfg.remat on / off: gradient step {remat['on']['grad_s']:.3f} / "
+        f"{remat['off']['grad_s']:.3f} s, peak memory {remat['on']['peak_memory_gb']:.2f} / "
+        f"{remat['off']['peak_memory_gb']:.2f} GB; leaves differing with remat off "
+        f"{remat['off']['leaves_differing']}")
+    if moved and spec["fault_at"] is None:
+        raise AssertionError(f"{tag} the same step's gradients differ between two runs: {moved}")
+    if remat["off"]["leaves_differing"]:
+        raise AssertionError(f"{tag} cfg.remat changed gradients")
     report.update(loss_kernels=float(loss_c), loss_plain=float(loss_p), loss_rel=loss_rel,
                   grad_rel_norm=rel, grads_nondeterministic=moved, grad_s=sec_c,
-                  grad_plain_s=sec_p, grad_step_peak_gb=grad_peak)
-    del grads_c, grads_again
+                  grad_plain_s=sec_p, grad_step_peak_gb=grad_peak, remat=remat)
+    del grads_c
     torch.cuda.empty_cache()
 
-    # (ii) the Trainer, uninterrupted and, with a fault step, with a failure there.
+    # (ii) the Trainer, uninterrupted and, with a fault step, with a failure
+    # there; or (spec["trainer"] False) the step function alone.
     root = tempfile.mkdtemp(prefix="train_ckpt_")
     runs = {}
     labels = (("uninterrupted", None),) + (
         (("faulted", spec["fault_at"]),) if spec["fault_at"] is not None else ())
     try:
-        for label, fault_at in labels:
+        for label, fault_at in labels if spec.get("trainer", True) else ():
             fails = {fault_at} if fault_at is not None else set()
 
             def fault_hook(step):
@@ -3396,21 +3767,27 @@ def phase_train(torch, peaks, spec, device="cuda"):
                     fails.discard(step)
                     raise RuntimeError("injected device failure")
 
-            losses = []
+            losses, auxes = [], []
 
             def logging_step(state, batch):
                 state, metrics = step_fn(state, batch)
                 losses.append(float(metrics["loss"]))
+                auxes.append(float(metrics["aux"]))
                 return state, metrics
 
             cfg_t = TrainerConfig(total_steps=spec["steps"], checkpoint_every=spec["every"],
                                   checkpoint_dir=os.path.join(root, label), keep_checkpoints=1)
             trainer = Trainer(logging_step, pipe.make_batch, state0, cfg_t, device=device,
                               fault_hook=fault_hook)
+            if label == labels[-1][0]:
+                # The last run's Trainer holds the only reference to the
+                # initial state, so a step holds two states, not three
+                # (olmoe's 4 layers: 22.6 GB each with AdamW's moments).
+                state0 = params = None
             torch.cuda.reset_peak_memory_stats()
             _zero_counts()
             out, wall = _timed(torch, device, trainer.run)
-            runs[label] = {"out": out, "wall_s": wall, "losses": losses,
+            runs[label] = {"out": out, "wall_s": wall, "losses": losses, "auxes": auxes,
                            "launches": dict(_runtime.LAUNCHES), "arms": _arms(),
                            "plain_on_cuda": dict(_runtime.PLAIN_ON_CUDA),
                            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -3421,6 +3798,28 @@ def phase_train(torch, peaks, spec, device="cuda"):
             shutil.rmtree(os.path.join(root, label), ignore_errors=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    if not spec.get("trainer", True):
+        state, events, losses, auxes = state0, TrainerEvents(), [], []
+        state0 = params = None
+        torch.cuda.reset_peak_memory_stats()
+        _zero_counts()
+        t_run = time.perf_counter()
+        for step in range(spec["steps"]):
+            (state, metrics), sec = _timed(torch, device,
+                                           lambda: step_fn(state, pipe.make_batch(step)))
+            events.step_times.append(sec)
+            losses.append(float(metrics["loss"]))
+            auxes.append(float(metrics["aux"]))
+        runs["uninterrupted"] = {
+            "out": {"final_step": spec["steps"], "state": state, "events": events},
+            "wall_s": time.perf_counter() - t_run, "losses": losses, "auxes": auxes,
+            "launches": dict(_runtime.LAUNCHES), "arms": _arms(),
+            "plain_on_cuda": dict(_runtime.PLAIN_ON_CUDA),
+            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state
+        log(f"{tag} (ii) the step function alone: {spec['steps']} steps, losses "
+            + " ".join(f"{x:.4f}" for x in losses)
+            + f"; step s " + " ".join(f"{t:.3f}" for t in events.step_times))
     ref = runs["uninterrupted"]
     same, final_rel = None, None
     if "faulted" in runs:
@@ -3439,6 +3838,8 @@ def phase_train(torch, peaks, spec, device="cuda"):
             raise AssertionError(f"{tag} (ii) the replay differs from the uninterrupted run")
     if not all(math.isfinite(x) for x in ref["losses"]):
         raise AssertionError(f"{tag} (ii) non-finite losses {ref['losses']}")
+    if cfg.n_experts and not all(math.isfinite(x) and x > 0 for x in ref["auxes"]):
+        raise AssertionError(f"{tag} (ii) aux losses {ref['auxes']}: not finite and positive")
 
     # (iii) step time, tokens/s, memory, launches a step, MFU.
     times = ref["out"]["events"].step_times
@@ -3447,24 +3848,30 @@ def phase_train(torch, peaks, spec, device="cuda"):
     flops = model_flops(cfg, ShapeSpec("train", spec["seq"], spec["batch"], "train"))
     arms = ref["arms"]
     per_step = {arm: arms.get(arm, 0) / spec["steps"] for arm in spec["arms"]}
+    kind = "attn" if spec["arms"][0].startswith("flash") else "ssm"
+    n_kind = sum(k == kind for k in cfg.layer_kinds())
+    expected = {spec["arms"][0]: n_kind * (2 if cfg.remat else 1), spec["arms"][1]: n_kind}
     report.update(
         step_ms=[1e3 * t for t in times], median_step_ms=1e3 * step_s,
         tokens_per_s=tokens / step_s, peak_memory_gb=ref["peak_memory_gb"],
         launches_per_step=per_step, model_flops=flops,
         mfu=flops / step_s / peaks["bfloat16_tensor"], replay_bit_for_bit=same,
         final_loss_rel=final_rel, losses={k: r["losses"] for k, r in runs.items()},
+        auxes=ref["auxes"],
         trainer_wall_s={k: r["wall_s"] for k, r in runs.items()},
         launches=ref["launches"], arms=arms, plain_on_cuda=ref["plain_on_cuda"])
     log(f"{tag} (iii) median step {1e3 * step_s:.1f} ms (steps after the first), "
         f"{tokens / step_s:.0f} tokens/s, peak memory {ref['peak_memory_gb']:.1f} GB, kernel "
-        f"launches a step {per_step} ({cfg.n_layers} each expected), MFU {report['mfu']:.1%} "
+        f"launches a step {per_step} ({expected} expected: cfg.remat recomputes the forward), "
+        f"aux {ref['auxes']}, MFU {report['mfu']:.1%} "
         f"(6·N·tokens = {flops / 1e12:.1f} TFLOP a step against {peaks['bfloat16_tensor'] / 1e12:.0f} "
         f"TFLOP/s bf16)")
-    if per_step != dict.fromkeys(spec["arms"], cfg.n_layers):
+    if per_step != expected:
         raise AssertionError(f"{tag} kernel launches a step {per_step}")
     # Where a step's time goes: torch.profiler over one more step, counted
     # apart (the path's kernels carry spec["kernel"] in their names).
-    prof = profile_serving(torch, lambda: step_fn(state0, batch), spec["kernel"], device)
+    final = ref["out"]["state"]
+    prof = profile_serving(torch, lambda: step_fn(final, batch), spec["kernel"], device)
     report["profile_step"] = prof
     share = lambda v: "not measured" if v is None else f"{v:.1%}"  # noqa: E731
     log(f"{tag} profile of one step: device {prof['device_ms']:.1f} ms in "
@@ -3472,37 +3879,81 @@ def phase_train(torch, peaks, spec, device="cuda"):
         f"{spec['kernel']} kernels {prof['kernel_ms']:.1f} ms "
         f"({share(prof['kernel_share_of_device'])}), {prof['launches']} device launches; top: "
         + "; ".join(f"{o['name']} {o['ms']:.2f} ms x{o['calls']}" for o in prof["top_ops"]))
-    del state0, params, step_fn
+    del runs, ref, final, step_fn
     torch.cuda.empty_cache()
     return report
 
 
-def phase_training(torch, peaks, report, device="cuda"):
-    """check-lm-grad, train (qwen1.5-0.5b, then mamba2-1.3b) and hf-lm
-    (qwen1.5 SMOKE, then mamba2 SMOKE).  Each main path runs with the
+def phase_train_big(torch, spec=TRAIN_SSM_BIG, device="cuda"):
+    """One training step (gradients and AdamW) of ``spec``'s model at full
+    width and depth under ``cfg.remat``, at a batch whose activations would
+    not fit without it: its time, peak memory and the reckoned size of the
+    activations remat keeps (each block's input)."""
+    from repro_torch.launch import train as train_lib
+
+    torch.cuda.reset_peak_memory_stats()
+    cfg, _, state, pipe, step_fn = train_lib.build(spec["arch"], "full", spec["batch"],
+                                                   spec["seq"], spec["lr"], device)
+    batch = pipe.make_batch(0)
+    (state, metrics), sec = _timed(torch, device, lambda: step_fn(state, batch))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    n_params = sum(t.numel() for t in state[0].values())
+    tokens = spec["batch"] * spec["seq"]
+    kept_gb = cfg.n_layers * tokens * cfg.d_model * 2 / 1e9
+    out = {"arch": cfg.name, "batch": spec["batch"], "seq": spec["seq"], "remat": cfg.remat,
+           "step_s": sec, "peak_memory_gb": peak, "loss": float(metrics["loss"]),
+           "params": n_params, "block_inputs_gb": kept_gb,
+           "params_grads_adam_gb": 16 * n_params / 1e9}
+    log(f"[train mamba2 4x4096] {cfg.name} one step at {spec['batch']} x {spec['seq']} tokens "
+        f"with cfg.remat: {sec:.2f} s (first step, allocator cold), loss {out['loss']:.4f}, peak "
+        f"memory {peak:.1f} GB ({out['params_grads_adam_gb']:.1f} GB of parameters, gradients "
+        f"and AdamW moments; the kept block inputs {kept_gb:.2f} GB)")
+    if not math.isfinite(out["loss"]):
+        raise AssertionError(f"[train mamba2 4x4096] non-finite loss {out['loss']}")
+    del state, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_training(torch, peaks, report, device="cuda", zoo_only=False):
+    """check-lm-grad, train (qwen1.5-0.5b, mamba2-1.3b, olmoe-1b-7b cut to 4
+    layers, one mamba2 step at 4 x 4 096) and hf-lm (qwen1.5 SMOKE, then
+    mamba2 SMOKE); with ``zoo_only`` check-lm-grad at this slice's shapes
+    and the train cells after qwen1.5's alone.  Each main path runs with the
     counts set to 0 just before it and read just after; its kernels and
     arms must have launched and no plain version may have run on the card.
     Returns (the kernel entries of K9's and K10's differentiated arms,
     {path: launches}, {path: arms}), with each path's K9 and K10 counts
     split: ``flash_attention`` / ``ssd_scan`` their forward arms,
     ``*_bwd`` / ``*_jvp`` the other two (``SPLIT_ARMS``)."""
-    entries = phase_check_lm_grad(torch, peaks, device)
-    entries["ssd"] = check_ssd_grad(torch, peaks, device)
+    if zoo_only:
+        entries = phase_check_lm_grad(torch, peaks, device, GRAD_160_CHECK, (ATTN_160[:7],))
+        entries["ssd"] = check_ssd_grad(torch, peaks, device, (SSD_JAMBA,), (SSD_JAMBA,))
+    else:
+        entries = phase_check_lm_grad(torch, peaks, device)
+        entries["ssd"] = check_ssd_grad(torch, peaks, device)
     report["check_lm_grad"] = entries
     _lap(report, "check-lm-grad")
-    report["train"] = phase_train(torch, peaks, TRAIN, device)
-    _lap(report, "train")
+    paths = [("train_ssm", (), TRAIN_SSM["arms"]), ("train_moe", (), TRAIN_MOE["arms"])]
+    if not zoo_only:
+        report["train"] = phase_train(torch, peaks, TRAIN, device)
+        _lap(report, "train")
+        paths.insert(0, ("train", (), TRAIN["arms"]))
     report["train_ssm"] = phase_train(torch, peaks, TRAIN_SSM, device)
     _lap(report, "train-mamba2")
-    report["hf_lm"] = phase_hf_lm(torch, device)
-    _lap(report, "hf-lm")
-    report["hf_lm_ssm"] = phase_hf_lm_ssm(torch, device)
-    _lap(report, "hf-lm-mamba2")
+    report["train_moe"] = phase_train(torch, peaks, TRAIN_MOE, device)
+    _lap(report, "train-olmoe")
+    report["train_ssm_big"] = phase_train_big(torch, TRAIN_SSM_BIG, device)
+    _lap(report, "train-mamba2-4x4096")
+    if not zoo_only:
+        report["hf_lm"] = phase_hf_lm(torch, device)
+        _lap(report, "hf-lm")
+        report["hf_lm_ssm"] = phase_hf_lm_ssm(torch, device)
+        _lap(report, "hf-lm-mamba2")
+        paths += [("hf_lm", HF_LM_PATH_KERNELS, HF_LM_PATH_ARMS),
+                  ("hf_lm_ssm", HF_LM_PATH_KERNELS, HF_LM_SSM_PATH_ARMS)]
     launches, arms = {}, {}
-    for key, need_k, need_a in (("train", (), TRAIN["arms"]),
-                                ("train_ssm", (), TRAIN_SSM["arms"]),
-                                ("hf_lm", HF_LM_PATH_KERNELS, HF_LM_PATH_ARMS),
-                                ("hf_lm_ssm", HF_LM_PATH_KERNELS, HF_LM_SSM_PATH_ARMS)):
+    for key, need_k, need_a in paths:
         r = report[key]
         if not all(r["launches"][k] for k in need_k) or not all(r["arms"].get(a) for a in need_a):
             raise AssertionError(f"[{key}] a kernel or arm never launched: {r['launches']}, "
@@ -4459,6 +4910,27 @@ def phase_batch_lsq(torch, cf, device="cuda"):
     return out
 
 
+def zoo_summary(report):
+    """``[summary]`` lines of this slice's cells: main-lm-moe, the zoo, and
+    the train cells' remat comparison."""
+    mo = report["main-lm-moe"]
+    log(f"[summary] main-lm-moe ({mo['arch']}, {mo['batch']} x {mo['prompt']}): prefill "
+        f"{mo['prefill_ms']:.1f} ms ({mo['prefill_tokens_per_s']:.0f} tokens/s), decode "
+        f"{mo['decode_ms_per_step']:.2f} ms a step, peak {mo['peak_memory_gb']:.1f} GB, routing "
+        f"agreement {mo['routing']['agree_share']:.4%}, prefill drops "
+        f"{mo['routing']['dropped_share']:.2%}")
+    log("[summary] zoo: " + "; ".join(
+        f"{arch} {e['layers']} layers: wall {e['wall_s']:.1f} s, peak {e['peak_memory_gb']:.1f} "
+        f"GB, launches {e['launches']}" for arch, e in report["zoo"].items()))
+    log("[summary] cfg.remat on / off, gradient step s and peak GB: " + "; ".join(
+        f"{report[key]['arch']} {r['on']['grad_s']:.3f} / {r['off']['grad_s']:.3f} s, "
+        f"{r['on']['peak_memory_gb']:.1f} / {r['off']['peak_memory_gb']:.1f} GB"
+        for key in ("train", "train_ssm", "train_moe") if key in report
+        for r in [report[key]["remat"]])
+        + f"; mamba2 at 4 x 4 096 with remat {report['train_ssm_big']['step_s']:.2f} s, "
+        f"{report['train_ssm_big']['peak_memory_gb']:.1f} GB")
+
+
 def kernel_entry(name, entry, launches, arms=None):
     out = {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
            "launches": launches, "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
@@ -4542,6 +5014,23 @@ def main(argv) -> int:
         totals = {k: sum(launches[k] for launches in lm_launches.values()) for k in lm_kernels}
         log(json.dumps({"kernels": [kernel_entry(k, e, totals[k])
                                     for k, e in lm_kernels.items()]}))
+        return 0
+    if "--zoo-only" in argv:  # this slice's phases alone: no ok line
+        lm_kernels, lm_launches = phase_lm(torch, peaks, report, zoo_only=True)
+        _lap(report, "lm")
+        report["zoo"], lm_launches["zoo"] = phase_zoo(torch)
+        _lap(report, "zoo")
+        grad_k, tr_launches, _ = phase_training(torch, peaks, report, zoo_only=True)
+        lm_launches.update(tr_launches)
+        entries = dict(lm_kernels, flash_attention_bwd=grad_k["bwd"],
+                       flash_attention_jvp=grad_k["jvp"], ssd_scan_bwd=grad_k["ssd"]["bwd"],
+                       ssd_scan_jvp=grad_k["ssd"]["jvp"])
+        totals = {k: sum(path.get(k, 0) for path in lm_launches.values()) for k in entries}
+        zoo_summary(report)
+        log("[summary] wall s a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                     report["phase_s"].items()))
+        _write_report(report)
+        log(json.dumps({"kernels": [kernel_entry(k, e, totals[k]) for k, e in entries.items()]}))
         return 0
     if "--train-only" in argv:  # K9's grad arms, train and hf-lm alone: no ok line
         grad_k, tr_launches, tr_arms = phase_training(torch, peaks, report)
@@ -4990,6 +5479,8 @@ def main(argv) -> int:
     lm_kernels, lm_launches = phase_lm(torch, peaks, report)
     kernels.update(lm_kernels)
     _lap(report, "lm")
+    report["zoo"], lm_launches["zoo"] = phase_zoo(torch)
+    _lap(report, "zoo")
 
     # -- 18.–20. K9's differentiated arms, LM training, Hessian-free LM -----
     grad_k, tr_launches, tr_arms = phase_training(torch, peaks, report)
@@ -5066,6 +5557,7 @@ def main(argv) -> int:
         f"{[r['cg_iters'] for r in hs['card']]}; K10 backward "
         f"{kernels['ssd_scan_bwd']['ms']:.3f} ms, forward mode "
         f"{kernels['ssd_scan_jvp']['ms']:.3f} ms at {SSD_TRAIN}")
+    zoo_summary(report)
     log("[summary] wall s a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                  report["phase_s"].items()))
     kernel_line = {"kernels": [kernel_entry(name, kernels[name], totals[name], arm_totals)

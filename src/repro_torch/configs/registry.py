@@ -1,10 +1,11 @@
 """Architecture registry: ``arch id`` resolution and the shape grid.
 
 The port's copy of ``repro.configs.registry`` for the architectures it
-builds so far: the dense GQA family (qwen1.5-0.5b, attention on the
-flash-attention kernel) and the pure-SSD family (mamba2-1.3b, the SSD scan
-kernel).  The reference's other eight architectures register here with
-their families (MoE, hybrid, encoder–decoder; ROADMAP queue 1).
+builds: every decoder-only one of the reference's, dense GQA (qwen1.5,
+qwen3, starcoder2, stablelm, chameleon; attention on the flash-attention
+kernel), pure SSD (mamba2, the SSD scan kernel), MoE (olmoe, arctic) and
+the hybrid (jamba: SSD and attention layers, MoE every other layer).
+The encoder–decoder (seamless-m4t-large-v2) is not registered yet.
 """
 
 from __future__ import annotations
@@ -17,7 +18,14 @@ from repro_torch.models.config import ModelConfig
 
 _ARCH_MODULES = {
     "mamba2-1.3b": "repro_torch.configs.mamba2_1_3b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
+    "arctic-480b": "repro_torch.configs.arctic_480b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
+    "stablelm-12b": "repro_torch.configs.stablelm_12b",
+    "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
+    "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

@@ -148,10 +148,13 @@ def hf_state_to_numpy(state: HFState) -> dict:
 
 
 # The reference's leaf names carry a sharding suffix (``_cs`` column-,
-# ``_rs`` row-, ``_hs`` head-, ``_vs`` vocab-sharded); the port's are the
-# names without it.  Leaves absent here (``wk``, ``wv``, ``bk``, ``bv`` at
-# tensor-parallel degree 1, the norms' ``scale``/``bias``, ``q_norm``,
-# ``k_norm``, ``down_bias``) have the same name in both.
+# ``_rs`` row-, ``_hs`` head-, ``_vs`` vocab-, ``_es`` expert-sharded); the
+# port's are the names without it.  Leaves absent here (``wk``, ``wv``,
+# ``bk``, ``bv`` at tensor-parallel degree 1, the norms' ``scale``/``bias``,
+# ``q_norm``, ``k_norm``, ``down_bias``, the MoE ``router``) have the same
+# name in both.  The MoE block's expert stacks (``gate_es``, ``up_es``,
+# ``down_es``) share their port names with the MLP's leaves, so the suffix
+# is looked up per sub-module.
 _LEAF_SUFFIX = {
     "wq": "_cs", "wo": "_rs", "bq": "_hs",
     "gate": "_cs", "up": "_cs", "down": "_rs", "up_bias": "_hs",
@@ -159,15 +162,27 @@ _LEAF_SUFFIX = {
     "dt_bias": "_hs", "d_skip": "_hs", "gate_norm": "_hs", "out_proj": "_rs",
     "table": "_vs", "lm_head": "_cs",
 }
-_PORT_NAME = {name + sfx: name for name, sfx in _LEAF_SUFFIX.items()}
+_SUB_SUFFIX = {"moe": {"gate": "_es", "up": "_es", "down": "_es"}}
+_SUFFIXES = ("_cs", "_rs", "_hs", "_vs", "_es")
 
 
-def _port_leaf(ref_name: str) -> str:
-    if ref_name in _PORT_NAME:
-        return _PORT_NAME[ref_name]
-    if ref_name in _LEAF_SUFFIX or ref_name[-3:] in ("_cs", "_rs", "_hs", "_vs"):
+def _suffixes(sub: Optional[str]) -> dict:
+    return _SUB_SUFFIX.get(sub, _LEAF_SUFFIX)
+
+
+def _port_leaf(ref_name: str, sub: Optional[str] = None) -> str:
+    """The port's name of the reference leaf ``ref_name`` of sub-module
+    ``sub`` (``attn``, ``mlp``, ``moe``, ...)."""
+    for name, sfx in _suffixes(sub).items():
+        if ref_name == name + sfx:
+            return name
+    if ref_name in _suffixes(sub) or ref_name[-3:] in _SUFFIXES:
         raise KeyError(f"unknown reference parameter {ref_name!r}")
     return ref_name
+
+
+def _ref_leaf(name: str, sub: Optional[str] = None) -> str:
+    return name + _suffixes(sub).get(name, "")
 
 
 def model_state_from_numpy(tree: dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
@@ -187,7 +202,7 @@ def model_state_from_numpy(tree: dict, cfg: ModelConfig) -> Dict[str, np.ndarray
             for leaf, arr in leaves.items():
                 arr = np.asarray(arr)
                 for j in range(cfg.n_layers // period):
-                    state[f"blocks.{j * period + i}.{sub}.{_port_leaf(leaf)}"] = arr[j]
+                    state[f"blocks.{j * period + i}.{sub}.{_port_leaf(leaf, sub)}"] = arr[j]
     return state
 
 
@@ -212,11 +227,9 @@ def model_params_to_numpy(model: Model) -> dict:
     """The inverse: the reference's parameter tree (nested dicts and lists
     of numpy arrays, blocks stacked over periods) from a port model."""
 
-    def ref_leaf(name):
-        return name + _LEAF_SUFFIX.get(name, "")
-
-    def arrays(module):
-        return {ref_leaf(k): v.detach().cpu().numpy() for k, v in module.named_parameters()}
+    def arrays(module, sub=None):
+        return {_ref_leaf(k, sub): v.detach().cpu().numpy()
+                for k, v in module.named_parameters()}
 
     cfg = model.cfg
     period = cfg.period()
@@ -225,7 +238,7 @@ def model_params_to_numpy(model: Model) -> dict:
         layers = [model.blocks[j * period + i] for j in range(cfg.n_layers // period)]
         stacked = {}
         for sub, first in layers[0].named_children():
-            per_layer = [arrays(getattr(layer, sub)) for layer in layers]
+            per_layer = [arrays(getattr(layer, sub), sub) for layer in layers]
             stacked[sub] = {k: np.stack([p[k] for p in per_layer]) for k in per_layer[0]}
         blocks.append(stacked)
     return {"embed": arrays(model.embed), "periods": {"blocks": blocks},

@@ -30,8 +30,8 @@
 //     cp.async (16 bytes a copy, zeros past sq / sk, so ragged edges need
 //     no padded copies); K/V are double-buffered: tile t + 1 loads while
 //     tile t computes.  Rows of dh bf16 are XOR-swizzled in 16-byte chunks
-//     (chunk ^ row-group) so that every ldmatrix phase reads 8 rows from 8
-//     distinct bank groups.
+//     (chunk ^ row-group, within each group of 8 chunks; swz below) so
+//     that every ldmatrix phase reads 8 rows from 8 distinct bank groups.
 //   * Each warp loads its Q fragments once (ldmatrix.x4) and keeps them in
 //     registers.  Per KV tile: S = Q K^T by
 //     mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (K fragments by
@@ -51,8 +51,8 @@
 //     flash_attention_plain rounds P the same way for bf16 inputs, so the
 //     two differ by summation order (and ex2.approx against exp) alone.
 //   * Budget per block: shared memory 640 dh bytes (Q + 2 x (K + V)):
-//     10 KB at dh 16, 20 KB at 32, 40 KB at 64, 80 KB at 128 (opt-in above
-//     48 KB).  Registers per thread: 32 scores, dh/2 output accumulators,
+//     10 KB at dh 16, 20 KB at 32, 40 KB at 64, 80 KB at 128, 100 KB at 160
+//     (opt-in above 48 KB).  Registers per thread: 32 scores, dh/2 output accumulators,
 //     dh/4 Q fragment words (build log: ptxas -v).
 //   * What still separates it from its bound: mma.sync reaches about two
 //     thirds of the wgmma rate, and the exponentials (one MUFU op per
@@ -81,8 +81,9 @@
 //     xor shuffles), update m and l, and leave exp(m_prev - m_new) per row;
 //     then each thread rescales and adds P V to its rows ty + 16a and
 //     columns tx + 16c of the f32 accumulator held in registers.
-//   * dh is a template parameter (16, 32, 64, 128).  At dh = 128 a block
-//     holds 115 KB of shared memory (opt-in above 48 KB).
+//   * dh is a template parameter (16, 32, 64, 128, 160: stablelm-12b's
+//     5120 / 32).  A block holds 115 KB of shared memory at dh 128 and
+//     140 KB at 160 (opt-in above 48 KB).
 //
 // Both kernels visit the KV tiles in a fixed order and write each output
 // tile from one block: two launches agree bit for bit.
@@ -314,14 +315,26 @@ constexpr size_t smem_bytes() {
 
 // Element offset of 16-byte chunk `chunk` of row `row` in a tile of DH-wide
 // rows: the chunk index is XORed with the row's group, so the 8 rows an
-// ldmatrix phase reads (8 consecutive rows, one chunk each) fall in 8
-// distinct 16-byte bank groups whatever DH.
+// ldmatrix phase reads (8 consecutive rows from a multiple of 8, one chunk
+// each) fall in 8 distinct 16-byte bank groups.  The XOR stays within the
+// chunk's group of 8, so the map is a bijection within each row.  At dh 160
+// a row is 20 chunks (320 bytes: rows of one parity start on the same half
+// of a 128-byte bank line): the two whole groups of 8 take row & 7 (bank
+// group (chunk ^ row ^ 4 (row & 1)) & 7, distinct over 8 rows), the tail
+// group of 4 takes (row >> 1) & 3 (the 4 rows of each parity on 4 distinct
+// bank groups of their half line).
 template <int DH>
 __device__ __forceinline__ int swz(int row, int chunk) {
   constexpr int kChunks = DH / 8;
-  constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;  // rows per 128 bytes
-  constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
-  return row * DH + ((chunk ^ ((row / kRowsPerLine) & kMask)) << 3);
+  if constexpr (kChunks % 8 == 0 || kChunks < 8) {
+    constexpr int kRowsPerLine = kChunks >= 8 ? 1 : 8 / kChunks;  // rows per 128 bytes
+    constexpr int kMask = (kChunks >= 8 ? 8 : kChunks) - 1;
+    return row * DH + ((chunk ^ ((row / kRowsPerLine) & kMask)) << 3);
+  } else {
+    static_assert(kChunks % 8 == 4, "a row must be whole groups of 8 chunks and one of 4");
+    const int sw = chunk < kChunks - 4 ? chunk ^ (row & 7) : chunk ^ ((row >> 1) & 3);
+    return row * DH + (sw << 3);
+  }
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -634,8 +647,9 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 //     dP^T = V dO^T, so the key-side outputs accumulate in the warp's
 //     registers), queries in dq and jvp.  The warp's own operands (K and V
 //     in dkdv; Q and dO in dq; Q and Q' in jvp) are ldmatrix fragments held
-//     in registers for the whole loop (dkdv at dh 128 reloads K and V from
-//     shared memory each step, to stay within the register file); the
+//     in registers for the whole loop (dkdv from dh 128 reloads K and V from
+//     shared memory each step, dq and jvp at dh 160 their Q, dO and Q', to
+//     stay within the register file); the
 //     streamed tiles (Q, dO and their lse / D rows in dkdv; K and V in dq;
 //     K, K', V, V' in jvp) are double-buffered by cp.async, zeros past sq /
 //     sk, so ragged edges need no padded copies.
@@ -650,8 +664,10 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 //     plain versions round at the same points, so kernel and plain differ by
 //     summation order and ex2.approx alone.
 //   * Tiles: the steps that stream 64 rows stream 32 at dh 128 (dkdv's query
-//     tiles, dq's and jvp's key tiles), so that accumulators and fragments
-//     fit without spills (ptxas -v in the build log).
+//     tiles, dq's and jvp's key tiles), and at dh 160 dkdv's query tiles
+//     16 (its dK and dV accumulators alone take 160 registers a thread),
+//     so that accumulators and fragments fit without spills (ptxas -v in
+//     the build log).
 //   * What still separates them from their bound: mma.sync's rate (about two
 //     thirds of wgmma's), the exponentials between the products of a warp,
 //     cp.async instead of TMA, and the two recomputed products.
@@ -1110,28 +1126,32 @@ int launch_jvp_simt(const void* q, const void* k, const void* v, const void* o, 
 
 using tc::bf16;
 
-// Rows a streamed step takes: 64, or 32 at dh 128 (dkdv's query tiles, dq's
-// and jvp's key tiles), so that the f32 accumulators and fragments stay in
-// registers.  dkdv keeps its warp's K and V fragments in registers below dh
-// 128 and reloads them from shared memory each step at dh 128.
+// Rows a streamed step takes, so that the f32 accumulators and fragments
+// stay in registers: dkdv's query tiles (kStepQ) 64, 32 at dh 128, 16 at
+// 160; dq's and jvp's key tiles (kStepK) 64, 32 from dh 128.  dkdv keeps
+// its warp's K and V fragments in registers below dh 128 and reloads them
+// from shared memory each step from 128; dq and jvp hold their warp's row
+// fragments (Q and dO; Q and Q') up to dh 128 and reload them at 160.
 template <int DH>
 struct TcTiles {
-  static constexpr int kStep = DH <= 64 ? 64 : 32;
+  static constexpr int kStepQ = DH <= 64 ? 64 : DH <= 128 ? 32 : 16;
+  static constexpr int kStepK = DH <= 64 ? 64 : 32;
   static constexpr bool kKeepKV = DH <= 64;
+  static constexpr bool kHoldRows = DH <= 128;
 };
 
 template <int DH>
 constexpr size_t dkdv_tc_smem() {  // K, V; two stages of Q, dO and their lse, D rows
-  constexpr int n = TcTiles<DH>::kStep;
+  constexpr int n = TcTiles<DH>::kStepQ;
   return sizeof(bf16) * DH * (2 * 64 + 2 * 2 * n) + sizeof(float) * 2 * 2 * n;
 }
 template <int DH>
 constexpr size_t dq_tc_smem() {  // Q, dO; two stages of K and V
-  return sizeof(bf16) * DH * (2 * 64 + 2 * 2 * TcTiles<DH>::kStep);
+  return sizeof(bf16) * DH * (2 * 64 + 2 * 2 * TcTiles<DH>::kStepK);
 }
 template <int DH>
 constexpr size_t jvp_tc_smem() {  // Q, Q'; two stages of K, K', V and V'
-  return sizeof(bf16) * DH * (2 * 64 + 2 * 4 * TcTiles<DH>::kStep);
+  return sizeof(bf16) * DH * (2 * 64 + 2 * 4 * TcTiles<DH>::kStepK);
 }
 
 // Entries [r0, r0 + N) of an f32 row vector into shared memory by threads
@@ -1226,7 +1246,7 @@ attn_bwd_dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  bf16* __restrict__ dk, bf16* __restrict__ dv, int h, int group, int sq, int sk,
                  float scale, float scale_log2, int causal) {
   constexpr int KS = DH / 16, NO = DH / 8;
-  constexpr int NQ = TcTiles<DH>::kStep, NT = NQ / 8;
+  constexpr int NQ = TcTiles<DH>::kStepQ, NT = NQ / 8;
   constexpr bool KEEP = TcTiles<DH>::kKeepKV;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* ks = reinterpret_cast<bf16*>(smem_raw);  // 64 x DH
@@ -1342,7 +1362,8 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                bf16* __restrict__ dq, int h, int group, int sq, int sk, float scale,
                float scale_log2, int causal) {
   constexpr int KS = DH / 16, NO = DH / 8;
-  constexpr int BK = TcTiles<DH>::kStep, NT = BK / 8;
+  constexpr int BK = TcTiles<DH>::kStepK, NT = BK / 8;
+  constexpr bool HOLD = TcTiles<DH>::kHoldRows;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // 64 x DH
   bf16* dos = qs + 64 * DH;                      // 64 x DH
@@ -1375,7 +1396,7 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     dd[r] = row < sq ? dvec[(size_t)bh * sq + row] : 0.f;
   }
 
-  unsigned qf[KS][4], dof[KS][4];
+  unsigned qf[HOLD ? KS : 1][4], dof[HOLD ? KS : 1][4];
   float acc[NO][4];
   zero(acc);
   for (int t = 0; t < n_tiles; ++t) {
@@ -1387,11 +1408,13 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     tc::cp_async_commit();
     tc::cp_async_wait<1>();
     __syncthreads();
-    if (t == 0) {
+    if constexpr (HOLD) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        ldsm_a<DH>(qf[kk], qs, 16 * warp, kk);
-        ldsm_a<DH>(dof[kk], dos, 16 * warp, kk);
+        for (int kk = 0; kk < KS; ++kk) {
+          ldsm_a<DH>(qf[kk], qs, 16 * warp, kk);
+          ldsm_a<DH>(dof[kk], dos, 16 * warp, kk);
+        }
       }
     }
     const bf16* kt = ks + st * BK * DH;
@@ -1402,8 +1425,16 @@ attn_bwd_dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     zero(dp);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      mma_abt<DH, BK>(s, qf[kk], kt, kk);
-      mma_abt<DH, BK>(dp, dof[kk], vt, kk);
+      if constexpr (HOLD) {
+        mma_abt<DH, BK>(s, qf[kk], kt, kk);
+        mma_abt<DH, BK>(dp, dof[kk], vt, kk);
+      } else {
+        unsigned a[4];
+        ldsm_a<DH>(a, qs, 16 * warp, kk);
+        mma_abt<DH, BK>(s, a, kt, kk);
+        ldsm_a<DH>(a, dos, 16 * warp, kk);
+        mma_abt<DH, BK>(dp, a, vt, kk);
+      }
     }
 
     const int k0 = t * BK;
@@ -1441,7 +1472,8 @@ attn_jvp_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
             const bf16* __restrict__ tv, bf16* __restrict__ to, int h, int group, int sq, int sk,
             float scale, float scale_log2, int causal) {
   constexpr int KS = DH / 16, NO = DH / 8;
-  constexpr int BK = TcTiles<DH>::kStep, NT = BK / 8;
+  constexpr int BK = TcTiles<DH>::kStepK, NT = BK / 8;
+  constexpr bool HOLD = TcTiles<DH>::kHoldRows;
   constexpr int TILE = BK * DH;
   extern __shared__ __align__(128) unsigned char smem_raw[];
   bf16* qs = reinterpret_cast<bf16*>(smem_raw);  // 64 x DH
@@ -1476,7 +1508,7 @@ attn_jvp_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     lse2[r] = row < sq ? lse[(size_t)bh * sq + row] * tc::kLog2e : 0.f;
   }
 
-  unsigned qf[KS][4], tqf[KS][4];
+  unsigned qf[HOLD ? KS : 1][4], tqf[HOLD ? KS : 1][4];
   float acc[NO][4];
   float rsum[2] = {0.f, 0.f};
   zero(acc);
@@ -1486,11 +1518,13 @@ attn_jvp_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     tc::cp_async_commit();
     tc::cp_async_wait<1>();
     __syncthreads();
-    if (t == 0) {
+    if constexpr (HOLD) {
+      if (t == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        ldsm_a<DH>(qf[kk], qs, 16 * warp, kk);
-        ldsm_a<DH>(tqf[kk], tqs, 16 * warp, kk);
+        for (int kk = 0; kk < KS; ++kk) {
+          ldsm_a<DH>(qf[kk], qs, 16 * warp, kk);
+          ldsm_a<DH>(tqf[kk], tqs, 16 * warp, kk);
+        }
       }
     }
     const bf16* kt = kvs + st * 4 * TILE;
@@ -1503,9 +1537,18 @@ attn_jvp_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* 
     zero(sd);
 #pragma unroll
     for (int kk = 0; kk < KS; ++kk) {
-      mma_abt<DH, BK>(s, qf[kk], kt, kk);
-      mma_abt<DH, BK>(sd, tqf[kk], kt, kk);
-      mma_abt<DH, BK>(sd, qf[kk], tkt, kk);
+      if constexpr (HOLD) {
+        mma_abt<DH, BK>(s, qf[kk], kt, kk);
+        mma_abt<DH, BK>(sd, tqf[kk], kt, kk);
+        mma_abt<DH, BK>(sd, qf[kk], tkt, kk);
+      } else {
+        unsigned a[4], ta[4];
+        ldsm_a<DH>(a, qs, 16 * warp, kk);
+        ldsm_a<DH>(ta, tqs, 16 * warp, kk);
+        mma_abt<DH, BK>(s, a, kt, kk);
+        mma_abt<DH, BK>(sd, ta, kt, kk);
+        mma_abt<DH, BK>(sd, a, tkt, kk);
+      }
     }
 
     const int k0 = t * BK;
@@ -1652,6 +1695,7 @@ int dispatch_flash(const void* q, const void* k, const void* v, void* o, float* 
     case 32: return launch_flash<T, 32, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal, q_offset, st);
     case 64: return launch_flash<T, 64, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal, q_offset, st);
     case 128: return launch_flash<T, 128, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal, q_offset, st);
+    case 160: return launch_flash<T, 160, LSE>(q, k, v, o, lse, b, h, hkv, sq, sk, scale, causal, q_offset, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1668,6 +1712,7 @@ int dispatch_bwd(const void* q, const void* k, const void* v, const void* o, con
     case 32: return grad::launch_bwd<T, 32>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk, scale, causal, st);
     case 64: return grad::launch_bwd<T, 64>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk, scale, causal, st);
     case 128: return grad::launch_bwd<T, 128>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk, scale, causal, st);
+    case 160: return grad::launch_bwd<T, 160>(q, k, v, o, lse, dout, dq, dk, dv, dvec, b, h, hkv, sq, sk, scale, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -1683,6 +1728,7 @@ int dispatch_jvp(const void* q, const void* k, const void* v, const void* o, con
     case 32: return grad::launch_jvp<T, 32>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale, causal, st);
     case 64: return grad::launch_jvp<T, 64>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale, causal, st);
     case 128: return grad::launch_jvp<T, 128>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale, causal, st);
+    case 160: return grad::launch_jvp<T, 160>(q, k, v, o, lse, tq, tk, tv, to, b, h, hkv, sq, sk, scale, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -9,7 +9,8 @@ masked and whole key tiles above a query tile's last row skipped.  The
 running max starts at the reference's finite sentinel ``-1e30``, the max,
 normaliser and accumulator are f32, a row whose normaliser ends at 0
 gives zeros, and the output is in ``q.dtype``.  The CUDA source is
-``csrc/flash_attention.cu`` (f32 and bf16, ``dh`` in {16, 32, 64, 128}),
+``csrc/flash_attention.cu`` (f32 and bf16, ``dh`` in {16, 32, 64, 128,
+160}, 160 being stablelm-12b's 5120 / 32, a native instantiation),
 whose header says what bounds it and how its tiles are laid out; the
 kernel masks ragged edges instead of padding copies, and each output tile
 is written by one block, so two launches agree bit for bit.
@@ -60,7 +61,7 @@ import torch
 from repro_torch.kernels import _runtime
 
 NEG_INF = -1e30  # the reference's finite mask sentinel
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 160)
 DTYPES = (torch.float32, torch.bfloat16)
 
 _P, _I, _L, _D = _runtime.PTR, _runtime.INT, _runtime.INT64, _runtime.DOUBLE

@@ -4,7 +4,8 @@
     python -m repro_torch.launch.train --arch qwen1.5-0.5b --preset full \\
         --batch 4 --seq 4096 --steps 6
 
-runs on the card (``--device cpu`` for the CPU).  Parameters are f32,
+runs on the card (``--device cpu`` for the CPU); ``--arch`` takes every id
+of :data:`repro_torch.configs.ARCH_IDS`.  Parameters are f32,
 drawn from a generator seeded 0, and the model computes in ``cfg.dtype``;
 batches come from :class:`repro_torch.data.TokenPipeline`; the
 :class:`repro_torch.runtime.Trainer` checkpoints, restarts and tracks
@@ -15,14 +16,16 @@ sharding layouts (ROADMAP queue 1).
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
+from typing import Optional
 
 import numpy as np
 import torch
 
 from repro_torch import models
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
 from repro_torch.data import TokenPipeline
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.launch import steps as steps_lib
@@ -30,10 +33,16 @@ from repro_torch.runtime import Trainer, TrainerConfig
 
 
 def build(arch: str, preset: str, batch: int, seq: int, lr: float, device="cuda", *,
-          backend: str = "auto"):
+          backend: str = "auto", n_layers: Optional[int] = None):
     """``(cfg, mesh, (params, opt_state), pipeline, step_fn)``; ``step_fn(state,
-    batch) -> (state, metrics)`` is what :class:`Trainer` drives."""
+    batch) -> (state, metrics)`` is what :class:`Trainer` drives.  ``n_layers``
+    cuts the configuration's depth (a multiple of its period)."""
     cfg = get_config(arch) if preset == "full" else get_smoke_config(arch)
+    if n_layers is not None:
+        if n_layers % cfg.period():
+            raise ValueError(f"{arch}: {n_layers} layers is not a multiple of the period "
+                             f"{cfg.period()}")
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     mesh = mesh_lib.make_train_mesh(device)
     model = models.init(torch.Generator(device=device).manual_seed(0), cfg, device=device)
     params = steps_lib.params_dict(model)
@@ -51,7 +60,7 @@ def build(arch: str, preset: str, batch: int, seq: int, lr: float, device="cuda"
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--arch", default="qwen1.5-0.5b", choices=ARCH_IDS)
     ap.add_argument("--preset", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
@@ -76,8 +85,8 @@ def main(argv=None):
         losses.append(float(metrics["loss"]))
         if len(losses) % 20 == 0:
             first = np.mean(losses[:10])
-            print(f"step {len(losses):5d} loss {losses[-1]:.4f} (first10 {first:.4f})",
-                  flush=True)
+            print(f"step {len(losses):5d} loss {losses[-1]:.4f} (first10 {first:.4f}) "
+                  f"aux {float(metrics['aux']):.4f}", flush=True)
         return state, metrics
 
     trainer = Trainer(

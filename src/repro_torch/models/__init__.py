@@ -1,5 +1,6 @@
-"""repro_torch.models — the model zoo (dense GQA and Mamba2 SSD stacks):
-serving, and training through ``lm_loss``; the port of ``repro.models``."""
+"""repro_torch.models — the decoder-only model zoo (dense GQA, Mamba2 SSD,
+MoE and hybrid stacks): serving, and training through ``lm_loss``; the
+port of ``repro.models``."""
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (

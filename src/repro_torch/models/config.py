@@ -2,18 +2,18 @@
 
 One frozen dataclass describes every architecture of the zoo, with the
 reference's fields, defaults and properties, so that a configuration reads
-the same in both packages.  The port builds the dense GQA and pure-SSD
-families so far (``repro_torch.configs`` registers qwen1.5-0.5b and
-mamba2-1.3b); MoE, hybrid and encoder–decoder configurations describe
-models whose blocks raise ``NotImplementedError`` until their slices.
+the same in both packages.  The port builds every decoder-only family
+(dense GQA, pure SSD, MoE and the SSD/attention/MoE hybrid;
+``repro_torch.configs`` registers them); encoder–decoder configurations
+describe models that raise ``NotImplementedError`` until their slice.
 
 ``attn_impl`` names the reference's lowerings ("chunked", "pallas",
 "interpret"), which have no meaning here: the port runs its attention and
 SSD kernels (or, on CPU tensors, their plain versions) whatever it says,
 except that ``"reference"`` selects the materializing oracles of
 :mod:`repro_torch.kernels.ref`.  ``logits_chunk`` sets the training
-loss's sequence chunk; ``remat`` is not applied (at qwen1.5-0.5b's full
-width the activations of a 4 × 4 096 batch fit the card without it).
+loss's sequence chunk; ``remat`` checkpoints each block of a recorded
+full-sequence pass (see :mod:`repro_torch.models.transformer`).
 """
 
 from __future__ import annotations

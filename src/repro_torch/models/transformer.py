@@ -1,10 +1,12 @@
-"""Model assembly: decoder-only LMs over attention and SSD blocks.
+"""Model assembly: decoder-only LMs over attention, SSD and MoE blocks.
 
-The port of ``repro.models.transformer``'s serving path.  The stack is a
-``ModuleList`` of ``n_layers`` blocks, each run in turn (the reference
+The port of ``repro.models.transformer``'s decoder-only path.  The stack is
+a ``ModuleList`` of ``n_layers`` blocks, each run in turn (the reference
 stacks its parameters per period and scans them; layer ``j·period + i``
-here is period ``j``, block ``i`` there).  Three modes share the block
-code:
+here is period ``j``, block ``i`` there): dense and hybrid mixers
+(``cfg.layer_kinds()``) and FFNs ``mlp``, ``moe`` or ``moe+mlp``
+(``cfg.ffn_kinds()``; arctic's dense residual adds the MLP to the MoE
+output).  Three modes share the block code:
 
 * :func:`forward_hidden` — full sequence, no cache;
 * :func:`prefill` — full sequence with cache write-back (serving);
@@ -13,8 +15,18 @@ code:
 Every entry point takes ``backend`` (``auto`` | ``cuda`` | ``plain`` |
 ``reference``, see :mod:`repro_torch.kernels.ops`) and hands it to the
 kernels: on CUDA tensors ``auto`` runs the flash-attention (K9) and SSD
-scan (K10) kernels, on CPU tensors their plain versions.  MoE FFNs and
-encoder–decoder models raise ``NotImplementedError`` until their slices.
+scan (K10) kernels, on CPU tensors their plain versions.  MoE layers sum
+their auxiliary losses into :func:`forward_hidden`'s second output.
+Encoder–decoder models raise ``NotImplementedError`` until their slice.
+
+With ``cfg.remat``, a full-sequence pass that autograd records (no caches,
+as the reference's ``jax.checkpoint`` of each period) runs each block
+under non-reentrant ``torch.utils.checkpoint``: its activations are
+recomputed in the backward, the kernels through their custom ops, the MoE
+layers on the forward's expert ids (``moe.remat_contexts``).  Inside
+a ``torch.func`` transform or under forward-mode AD (the Hessian-free
+LM's GGN products) blocks are not checkpointed: saved-tensor hooks do not
+compose with them, and forward mode saves nothing for a backward.
 :func:`lm_loss` is the training loss: the reference's chunked
 cross-entropy, whose backward recomputes one chunk of logits at a time.
 """
@@ -26,9 +38,12 @@ from typing import List, NamedTuple, Optional, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.autograd import forward_ad
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as ssm
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
     compute_dtype,
@@ -48,9 +63,6 @@ Cache = Union[attn.KVCache, ssm.SSMState]
 def _check_supported(cfg: ModelConfig) -> None:
     if cfg.is_encdec:
         raise NotImplementedError(f"{cfg.name}: encoder-decoder models come with their slice")
-    moe = [k for k in cfg.ffn_kinds() if k.startswith("moe")]
-    if moe:
-        raise NotImplementedError(f"{cfg.name}: MoE FFNs come with their slice")
 
 
 # ---------------------------------------------------------------------------
@@ -59,7 +71,8 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 class Block(nn.Module):
-    """``mixer_norm`` + ``attn`` or ``ssm``, then ``ffn_norm`` + ``mlp``."""
+    """``mixer_norm`` + ``attn`` or ``ssm``, then ``ffn_norm`` + ``mlp``,
+    ``moe`` or both (``moe+mlp``)."""
 
     def __init__(self, generator, cfg: ModelConfig, mixer: str, ffn: str, device):
         super().__init__()
@@ -70,12 +83,21 @@ class Block(nn.Module):
             self.ssm = ssm.mamba_init(generator, cfg, device=device)
         if ffn != "none":
             self.ffn_norm = norm_init(cfg, device=device)
+        if ffn in ("mlp", "moe+mlp"):
             self.mlp = mlp_init(generator, cfg, device=device)
+        if ffn in ("moe", "moe+mlp"):
+            self.moe = moe_mod.moe_init(generator, cfg, device=device)
+
+    def forward(self, x, cfg: ModelConfig, **kw):
+        """:func:`_block_apply` on this block (so that
+        ``torch.func.functional_call`` can run it on given parameters)."""
+        return _block_apply(self, x, cfg, **kw)
 
 
 def _block_apply(block: Block, x, cfg: ModelConfig, *, causal=True, cache=None,
                  positions=None, backend="auto"):
-    """One residual block; returns ``(x, new_cache)``."""
+    """One residual block; returns ``(x, new_cache, aux)``, ``aux`` the MoE
+    loss (None without a MoE FFN)."""
     h = norm_apply(block.mixer_norm, x, cfg)
     if hasattr(block, "attn"):
         out, new_cache = attn.attn_apply(block.attn, h, cfg, causal=causal, cache=cache,
@@ -83,9 +105,17 @@ def _block_apply(block: Block, x, cfg: ModelConfig, *, causal=True, cache=None,
     else:
         out, new_cache = ssm.mamba_apply(block.ssm, h, cfg, state=cache, backend=backend)
     x = x + out
-    if hasattr(block, "mlp"):
-        x = x + mlp_apply(block.mlp, norm_apply(block.ffn_norm, x, cfg), cfg)
-    return x, new_cache
+    aux = None
+    if hasattr(block, "ffn_norm"):
+        h = norm_apply(block.ffn_norm, x, cfg)
+        y = None
+        if hasattr(block, "moe"):
+            y, aux = moe_mod.moe_apply(block.moe, h, cfg)
+        if hasattr(block, "mlp"):
+            ym = mlp_apply(block.mlp, h, cfg)
+            y = ym if y is None else y + ym
+        x = x + y
+    return x, new_cache, aux
 
 
 class Model(nn.Module):
@@ -119,14 +149,42 @@ def init(generator: torch.Generator, cfg: ModelConfig, *, device="cuda") -> Mode
     return Model(generator, cfg, device)
 
 
+def _remat(x: torch.Tensor, cfg: ModelConfig, caches) -> bool:
+    """Whether the blocks run checkpointed: ``cfg.remat``, no caches, and a
+    pass that autograd records outside any ``torch.func`` transform or
+    forward-mode AD (see the module's docstring)."""
+    return (cfg.remat and caches is None and torch.is_grad_enabled() and x.requires_grad
+            and not torch._C._functorch.is_functorch_wrapped_tensor(x)
+            and forward_ad.unpack_dual(x).tangent is None)
+
+
+def _block_rerun(block: Block, x, cfg: ModelConfig, kw, *named):
+    return torch.func.functional_call(block, dict(named), (x, cfg), kw)
+
+
 def _stack_apply(params: Model, x, cfg: ModelConfig, *, causal=True, caches=None,
                  backend="auto"):
+    """Every block in turn; returns ``(x, new caches | None, aux)``, ``aux``
+    the f32 sum of the MoE layers' losses (0 without any)."""
+    remat = _remat(x, cfg, caches)
     new_caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, block in enumerate(params.blocks):
-        x, nc = _block_apply(block, x, cfg, causal=causal,
-                             cache=None if caches is None else caches[i], backend=backend)
+        kw = dict(causal=causal, cache=None if caches is None else caches[i], backend=backend)
+        if remat:
+            # The block's parameters go in as inputs: the recompute runs
+            # after a functional_call that supplied them has restored the
+            # module's own.  Its MoE layers reuse the forward's expert ids.
+            x, nc, a = checkpoint(_block_rerun, block, x, cfg, kw,
+                                  *(dict(block.named_parameters()).items()),
+                                  use_reentrant=False, preserve_rng_state=False,
+                                  context_fn=moe_mod.remat_contexts)
+        else:
+            x, nc, a = _block_apply(block, x, cfg, **kw)
         new_caches.append(nc)
-    return x, (new_caches if caches is not None else None)
+        if a is not None:
+            aux = aux + a
+    return x, (new_caches if caches is not None else None), aux
 
 
 def _tokens(tokens, device) -> torch.Tensor:
@@ -154,10 +212,10 @@ def _add_positions(x, cfg: ModelConfig, start: int = 0):
 
 def forward_hidden(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
     """Full-sequence decoder forward; returns ``(hidden (B, S, D), aux)``
-    with ``aux`` the (zero) MoE loss, as the reference returns it."""
+    with ``aux`` the f32 sum of the MoE layers' losses (0 without any), as
+    the reference returns it."""
     x = _add_positions(_decoder_inputs(params, batch, cfg), cfg)
-    x, _ = _stack_apply(params, x, cfg, causal=True, backend=backend)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    x, _, aux = _stack_apply(params, x, cfg, causal=True, backend=backend)
     return norm_apply(params.final_norm, x, cfg), aux
 
 
@@ -267,8 +325,8 @@ def prefill(params: Model, batch, state: DecodeState, cfg: ModelConfig, *, backe
     """Consume the prompt, filling the caches; returns ``(state,
     last_logits (B, 1, padded vocab))``."""
     x = _add_positions(_decoder_inputs(params, batch, cfg), cfg)
-    x, caches = _stack_apply(params, x, cfg, causal=True, caches=state.caches,
-                             backend=backend)
+    x, caches, _ = _stack_apply(params, x, cfg, causal=True, caches=state.caches,
+                                backend=backend)
     logits = _logits(params, x[:, -1:, :], cfg)
     return DecodeState(caches=caches, memory=state.memory,
                        length=state.length + x.shape[1]), logits
@@ -279,8 +337,8 @@ def decode_step(params: Model, tokens, state: DecodeState, cfg: ModelConfig, *, 
     the caches advance in place and the state's length by ``s``."""
     x = embed_apply(params.embed, _tokens(tokens, params.embed.table.device), cfg)
     x = _add_positions(x, cfg, start=state.length)
-    x, caches = _stack_apply(params, x, cfg, causal=True, caches=state.caches,
-                             backend=backend)
+    x, caches, _ = _stack_apply(params, x, cfg, causal=True, caches=state.caches,
+                                backend=backend)
     logits = _logits(params, x, cfg)
     return logits, DecodeState(caches=caches, memory=state.memory,
                                length=state.length + x.shape[1])

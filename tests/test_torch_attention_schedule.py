@@ -19,15 +19,26 @@ as below; :func:`dkdv`, :func:`dq` and :func:`jvp` walk the same split:
   ``T = P ∘ Ṡ·scale``, ``r += Σ T`` and ``acc += round(T) V + round(P) V̇``;
   ``Ȯ = acc − r·O``.
 
-``step`` is 64 rows, 32 at dh 128 (``TcTiles<DH>::kStep``).  Tiles past
+``step`` is 64 rows, 32 at dh 128; at dh 160 dK / dV stream 16 query rows
+a step and dQ / the JVP 32 keys (``TcTiles<DH>::kStepQ`` / ``kStepK``).
+Tiles past
 ``sq`` / ``sk`` are zero-filled, as ``cp.async`` fills them; the lse and
 D of rows past ``sq`` are zeros.  ``round`` is the cast to the inputs'
 dtype.  These are checks of the design, mirrored in Python: the card tests
 (``tests/test_torch_cuda.py``) hold the kernels themselves to the plain
 versions.
+
+The shared-memory swizzle ``tc::swz<DH>`` is compiled from the CUDA source
+with the host's C++ compiler and checked for every head dim: a bijection of
+each row's 16-byte chunks, and 8 distinct bank groups for every ldmatrix
+phase (8 consecutive rows from a multiple of 8, one chunk each).
 """
 
 import math
+import os
+import re
+import shutil
+import subprocess
 
 import numpy as np
 import pytest
@@ -41,7 +52,9 @@ BLOCK = 64  # rows a block owns (keys in dK / dV, queries in dQ and the JVP)
 WARP = 16  # rows a warp owns
 # b, h, hkv, sq, sk, dh, causal: ragged tiles, GQA groups 2, 4 and 8,
 # sq != sk both ways under causal masking (key tiles past every query row
-# under causal masking run no step), dh 128 on 32-row steps.
+# under causal masking run no step), dh 128 on 32-row steps, dh 160
+# (stablelm-12b: h 32 over hkv 8) on 16-row dK / dV and 32-key dQ / JVP
+# steps, ragged and not.
 CASES = [
     (1, 4, 2, 96, 96, 64, True),
     (2, 4, 1, 130, 70, 16, True),
@@ -49,12 +62,18 @@ CASES = [
     (1, 4, 4, 70, 150, 128, False),
     (1, 16, 2, 100, 70, 128, True),
     (1, 8, 2, 150, 150, 64, False),
+    (1, 32, 8, 70, 70, 160, True),
+    (1, 4, 1, 100, 130, 160, False),
 ]
 BAR = {torch.float32: 1e-6, torch.bfloat16: 1e-2}  # of the plain version's max abs
 
 
-def step(dh):
-    return 64 if dh <= 64 else 32
+def step(dh, arm="dkdv"):
+    """Rows a streamed step takes: ``TcTiles<DH>::kStepQ`` (dK / dV's query
+    tiles) or ``kStepK`` (dQ's and the JVP's key tiles)."""
+    if dh <= 64:
+        return 64
+    return 16 if dh > 128 and arm == "dkdv" else 32
 
 
 def _rows(x, r0, n):
@@ -130,7 +149,7 @@ def _query_loop(q, k, lse, causal, scale):
     past sk, repeated over the GQA group."""
     b, h, sq, dh = q.shape
     hkv, sk = k.shape[1], k.shape[2]
-    bk = step(dh)
+    bk = step(dh, "dq")
     for q0 in range(0, sq, BLOCK):
         qw = _warp_edges(q0, BLOCK)[:, None]
         qpos = q0 + torch.arange(BLOCK)[:, None]
@@ -225,3 +244,51 @@ def test_edge_masking_is_needed_where_the_schedule_applies_it():
     assert all(torch.equal(a, b_) for a, b_ in zip(base, every))
     none = dkdv(q, k, v, dout, lse, d, causal, scale, mask="none")
     assert all(_rel(a, b_) > 1e-2 for a, b_ in zip(none, base))
+
+
+SOURCE = os.path.join(os.path.dirname(__file__), os.pardir, "src", "repro_torch", "csrc",
+                      "flash_attention.cu")
+SWZ_MAIN = r"""
+#include <cstdio>
+template <int DH>
+void dump() {
+  for (int row = 0; row < 64; ++row)
+    for (int c = 0; c < DH / 8; ++c) std::printf("%d %d %d %d\n", DH, row, c, swz<DH>(row, c));
+}
+int main() { dump<16>(); dump<32>(); dump<64>(); dump<128>(); dump<160>(); }
+"""
+
+
+def test_swizzle_is_a_bank_conflict_free_bijection_per_row(tmp_path):
+    """``tc::swz<DH>`` as the source has it, for the head dims the kernels
+    take, over the 64 rows of the largest tile they load."""
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("no host C++ compiler")
+    text = open(SOURCE).read()
+    m = re.search(r"template <int DH>\n__device__ __forceinline__ int swz\(.*?\n}\n", text,
+                  re.S)
+    assert m, "swz not found in the CUDA source"
+    src = tmp_path / "swz.cpp"
+    src.write_text("#define __device__\n#define __forceinline__ inline\n" + m.group(0)
+                   + SWZ_MAIN)
+    exe = tmp_path / "swz"
+    subprocess.run([cxx, "-std=c++17", "-O1", "-o", str(exe), str(src)], check=True,
+                   capture_output=True, timeout=120)
+    rows = np.loadtxt(subprocess.run([str(exe)], check=True, capture_output=True,
+                                     text=True, timeout=60).stdout.splitlines(), dtype=np.int64)
+    assert set(rows[:, 0]) == set(fa.HEAD_DIMS)
+    for dh in fa.HEAD_DIMS:
+        part = rows[rows[:, 0] == dh]
+        chunks = dh // 8
+        off = part[:, 3].reshape(64, chunks)
+        row = np.arange(64)[:, None]
+        # a bijection of each row's chunks, 16-byte aligned
+        assert (off % 8 == 0).all()
+        assert (np.sort(off - row * dh, axis=1) == 8 * np.arange(chunks)).all(), dh
+        # every ldmatrix phase: 8 rows from a multiple of 8, one chunk each,
+        # on 8 distinct 16-byte bank groups (2-byte elements)
+        group = (off * 2 // 16) % 8
+        for r0 in range(0, 64, 8):
+            for c in range(chunks):
+                assert len(set(group[r0 : r0 + 8, c])) == 8, (dh, r0, c)

@@ -20,7 +20,10 @@ over NCCL against the unsharded solve on the card.  ``flash_attention``
 (2e-4 / 5e-4) and bf16 (2e-2 / 5e-2), the tolerances of
 ``tests/test_kernels.py`` (relative to the output's scale for the SSD
 scan), on GQA, causal decode with ``q_offset``, ragged lengths and the
-serving path's shapes; both must repeat bit for bit.  The step arms of
+serving path's shapes, K9 at head dims 16 to 160 (stablelm-12b's);
+both must repeat bit for bit.  The MoE layer's dispatch and combine
+(``models/moe.py``, gathers both ways) give the same gradients bit for bit
+on two backward passes on the card.  The step arms of
 K1, K6, K2 and K7 and K6's pair arm are held against their plain versions
 (the scalars bit for bit), and each arm must be one device kernel a call;
 K1's and K7's armed with the stall detector (``window > 0``) in stalling
@@ -781,6 +784,12 @@ LM_TOL = {torch.float32: dict(rtol=2e-4, atol=5e-4), torch.bfloat16: dict(rtol=2
     (2, 8, 2, 130, 130, 16, True, 0),
     (1, 16, 4, 257, 257, 128, True, 0),
     (8, 32, 8, 1024, 1024, 64, True, 0),
+    # dh 160 (stablelm-12b: h 32 over hkv 8): causal, ragged, plain GQA
+    # group 4, one decode query, a causal block with an offset.
+    (1, 32, 8, 300, 300, 160, True, 0),
+    (1, 4, 1, 100, 130, 160, False, 0),
+    (2, 8, 2, 1, 257, 160, True, 256),
+    (2, 4, 1, 70, 150, 160, True, 80),
 ])
 def test_flash_attention(device, dtype, case):
     b, h, hkv, sq, sk, dh, causal, off = case
@@ -817,6 +826,10 @@ def _rel(got, want):
     (1, 4, 4, 70, 300, 128, False),
     (2, 16, 16, 512, 512, 64, True),
     (1, 16, 2, 260, 150, 128, True),
+    # dh 160 (stablelm-12b: h 32 over hkv 8), ragged, sq != sk both ways.
+    (1, 32, 8, 260, 260, 160, True),
+    (1, 4, 1, 70, 150, 160, False),
+    (2, 8, 2, 130, 70, 160, True),
 ])
 def test_flash_attention_grad_arms(device, dtype, case):
     b, h, hkv, sq, sk, dh, causal = case
@@ -1202,3 +1215,34 @@ def test_rbf_matvec_rect_gate(device, dtype, mnd):
     assert torch.equal(off, torch.zeros_like(off))
     on = rbf.rbf_matvec_rect_cuda(xr, x, v, 1.0, 2.0, gate=torch.tensor(True, device=device))
     assert torch.equal(on, ungated)
+
+
+@pytest.mark.parametrize("dispatch", ["grouped", "global"])
+def test_moe_backward_repeats_bit_for_bit(device, dispatch):
+    """olmoe's SMOKE MoE layer widened to 64 experts top-8 (capacity factor
+    1.25, so tokens drop) in bf16 on the card: output, aux and every
+    gradient equal on two backward passes (no float atomics)."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_smoke_config("olmoe-1b-7b"), n_experts=64,
+                              experts_per_token=8, capacity_factor=1.25, dtype="bfloat16",
+                              moe_dispatch=dispatch)
+    layer = moe.moe_init(torch.Generator(device=device).manual_seed(0), cfg,
+                         device=device).requires_grad_(True)
+    x = _gen(device, torch.float32, 5)(4, 256, cfg.d_model).to(torch.bfloat16)
+
+    def run():
+        xr = x.detach().requires_grad_(True)
+        with moe.record_routing() as routing:
+            out, aux = moe.moe_apply(layer, xr, cfg)
+        grads = torch.autograd.grad(out.float().square().sum() + aux, [xr, *layer.parameters()])
+        return out, aux, grads, routing[0]
+
+    first, second = run(), run()
+    assert not bool(first[3].kept.all())  # some assignments dropped
+    assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+    assert all(torch.equal(a, b) for a, b in zip(first[2], second[2]))
+    assert all(bool(torch.isfinite(g).all()) for g in first[2])
