@@ -124,7 +124,7 @@ Phases, each of which fails the script when it fails:
 5e. serve   — ``benchmarks/serve_bench.py``'s traffic through
               ``repro_torch.serve.SolveService`` on main's data and dense K
               (shared), def-CG(8, 12), tol 1e-5: Poisson arrivals, drifting
-              Newton sequences (drift 0.15); B = 8 slots with 6 systems a
+              Newton sequences (drift 0.15); B = 8 slots with 3 systems a
               tenant beside the sequential ``solve`` loop, B = 64 with 3
               (the pool alone): µs a system, systems a second, occupancy,
               ticks, batched and single steps, evictions, every tenant
@@ -176,14 +176,14 @@ Phases, each of which fails the script when it fails:
 10. main-lsq — the least-squares main path: lsq_bench's drifting ridge
               sequence at m = 24 576, n = 16 384 (f64, 3.2 GB a system, A_0
               built on the card), cold LSMR per system and deflsmr(8, 48)
-              through the front door, over 12 systems.  Every system must
+              through the front door, over 8 systems.  Every system must
               converge, the last x must match a Cholesky solve of AᵀA + λI
               to 1e-5, and the LSMR update and both extraction kernels must
               launch.  Then, counted apart, ``torch.profiler`` over 16 LSMR
               iterations gives the launches per iteration.
 10b. batch-lsq — eight tenants, each its own lsq_bench drifting ridge
-              sequence (3 systems, seeds 0–7) at m = 12 288, n = 8 192 (19.3
-              GB in one (8, 3, m, n) tensor), through ``solve_batch(
+              sequence (2 systems, seeds 0–7) at m = 12 288, n = 8 192 (12.9
+              GB in one (8, 2, m, n) tensor), through ``solve_batch(
               deflsmr(8, 48), sequence=True)`` (batched products read in
               place, K7's lane arm) beside eight sequential
               ``solve_sequence`` runs: every system converged, x within
@@ -234,17 +234,21 @@ Phases, each of which fails the script when it fails:
               bit.  Also at stablelm-12b's attention (``ATTN_160``: h 32 over
               hkv 8, dh 160, 2 × 2 048, causal; and a ragged block) and
               jamba-v0.1-52b's SSD layers (``SSD_JAMBA``: 128 heads × 64,
-              state 16, one group, 2 × 2 048).
+              state 16, one group, 2 × 2 048).  Also at seamless-m4t-large-v2's
+              non-causal dh 64 (``ATTN_ENCDEC_CHECK``): the encoder's 4 × 16
+              heads × 4 096, the prefill's cross call (1 024 queries against
+              4 096 keys), decode's one-row cross call, a ragged one-row
+              call against 333 keys.
 15. main-lm-attn — qwen1.5-0.5b serves at full width (24 layers, d 1024,
               vocab 151 936; f32 weights from a generator seeded 0, bf16
               compute): 4 prompts of 4 096 tokens from ``TokenPipeline``,
-              ``prefill`` and 32 greedy ``decode_step``s.  Then, counted
+              ``prefill`` and 16 greedy ``decode_step``s.  Then, counted
               apart: the same through the plain versions (fed the same
               tokens), held on the prefill and first decode logits at the
               bf16 bar relative to the logits' scale; an f32 control of
               both, held element by element at the f32 bar (bf16 rounding
               noise alone moves some logits past the bf16 bar element by
-              element: ROADMAP P7); a teacher-forced decode of the first 32
+              element: ROADMAP P7); a teacher-forced decode of the first 16
               tokens against ``forward_hidden`` at 2e-2, held in f32;
               ``torch.profiler`` over one prefill (with its top device
               operations by time) and over 8 decode steps.
@@ -258,6 +262,15 @@ Phases, each of which fails the script when it fails:
               runs agree on, and the prefill's dropped assignments per
               layer are printed; the teacher-forced decode runs a dropless
               copy (capacity factor E / k).
+16d. main-lm-encdec — the same for seamless-m4t-large-v2 at full width and
+              depth (24 encoder and 24 decoder layers, d 1024, 16 heads of
+              64, GELU d_ff 8 192, vocab 256 206): 4 × 4 096 source frames
+              (normal, seeded 0) and 4 × 1 024 prompt tokens (the
+              reference's prefill shape); K9 must launch exactly 72 times in
+              the prefill (encoder, self and cross calls) and 24 times a
+              decode step (the one-row cross call); the teacher-forced
+              decode reads the encoded source's memory; the decode profile
+              covers 8 steps alone.
 16c. zoo    — qwen3-8b (36 layers), starcoder2-3b (30), stablelm-12b (40),
               chameleon-34b cut to 16 of 48 layers, jamba-v0.1-52b cut to one
               period (8 of 32) at full width, arctic-480b at SMOKE (one
@@ -267,7 +280,8 @@ Phases, each of which fails the script when it fails:
               held at the model's dtype's bar; wall s, peak memory, K9 / K10
               launches and the routing agreement per model.
 17. timing  — K9 at qwen1.5's prefill shape, at prefill_32k's 32 768
-              tokens (b 1) and at ``ATTN_160``, K10 at mamba2's and at
+              tokens (b 1), at ``ATTN_160`` and at seamless's encoder, cross
+              and one-row decode shapes (non-causal), K10 at mamba2's and at
               ``SSD_JAMBA``: kernel, plain version,
               ``scaled_dot_product_attention`` as K9's yardstick (never on
               the path), and the bound (bf16 operations at 989 TFLOP/s
@@ -281,7 +295,8 @@ Phases, each of which fails the script when it fails:
               ops inside ``FlashAttention``) against their plain versions
               at dh 16, 64 and 128, causal and not, GQA (h 8, hkv 2), f32
               and bf16, qwen1.5-0.5b's training shape (bf16) and the
-              Hessian-free LM's (f32): f32 2e-4 and bf16 5e-2 of the plain
+              Hessian-free LM's (f32), seamless's non-causal encoder at 2 ×
+              2 048 and a ragged cross shape: f32 2e-4 and bf16 5e-2 of the plain
               version's max abs, the lse arm's output bit for bit the
               serving arm's, each arm twice bit for bit; timed at the
               training shape beside the plain versions, SDPA's forward and
@@ -321,7 +336,8 @@ Phases, each of which fails the script when it fails:
               plain versions at chunk 64 against chunk 128: bf16 rounding
               alone moves a 48-layer model's gradients, ROADMAP P7) and,
               in an f32-compute control at full width cut to 12 layers,
-              within 5e-2; 4 AdamW steps (no fault replay); K10 launches a
+              within 5e-2; 4 AdamW steps through the step function (no
+              Trainer, no fault replay); K10 launches a
               step (96 training forward under ``cfg.remat``, 48 backward).
               Every train cell runs with ``cfg.remat`` (each block
               checkpointed) and also takes the step's gradients with it off:
@@ -332,7 +348,13 @@ Phases, each of which fails the script when it fails:
               for bit, 2 AdamW steps (the step function alone, no Trainer)
               with a finite positive aux loss.  Then
               one mamba2-1.3b step at 4 × 4 096 tokens with ``cfg.remat``
-              (``TRAIN_SSM_BIG``): its time and peak memory.
+              (``TRAIN_SSM_BIG``): its time and peak memory.  Then
+              seamless-m4t-large-v2 at full width and depth
+              (``TRAIN_ENCDEC``: 2 × 2 048 seeded source frames and 2 × 2 048
+              tokens): loss 1e-2, each leaf 5e-2, the gradients twice and
+              with remat off bit for bit, 2 AdamW steps through the step
+              function (no Trainer); K9's lse arm 144 and backward 72
+              launches a step.
 20. hf-lm   — ``examples/hessian_free_lm.py``'s 10 Hessian-free steps
               (qwen1.5 SMOKE, batch 4 × 32, ``HFConfig(k=4, ell=8,
               cg_tol=1e-3, cg_maxiter=50, init_damping=10.0)``), recycled
@@ -341,7 +363,7 @@ Phases, each of which fails the script when it fails:
               K2, K4, K5 in def-CG) against the same runs with
               ``backend="plain"`` on the card (iterations within one a
               step, loss to 1e-4); one recycled step profiled; one step at
-              qwen1.5-0.5b's full widths with its depth cut to 4 layers
+              qwen1.5-0.5b's full widths with its depth cut to 2 layers
               (the reckoned parameter-sized vectors and the peak printed).
               Then mamba2's SMOKE model (f32), 3 recycled steps through the
               kernels (K10's training forward and backward in the
@@ -352,7 +374,7 @@ A ``[summary]`` line gives the device launches per damped LSMR and
 deflated def-CG iteration (without and with the Jacobi preconditioner),
 main-lsq's ms per cold LSMR iteration and main-gn's device busy share.
 
-Each main path (5, 5b–5e, 7, 7b, 10, 10b, 11, 13, 15, 16, 16b, each
+Each main path (5, 5b–5e, 7, 7b, 10, 10b, 11, 13, 15, 16, 16b, 16d, each
 model of 16c, and 19 and 20 for each model) is driven with the launch counters set to 0 just before
 it and read just after (13: on every rank); the ``{"kernels": [...]}`` JSON line gives each
 kernel's launches summed over the paths (13: over its ranks), and its
@@ -371,11 +393,14 @@ and chaos phases' results.  Last comes the
 ``--zoo-only`` runs phases 1, 2 and this slice's: check-lm and
 check-lm-grad at ATTN_160 and SSD_JAMBA (each arm held and timed),
 main-lm-moe, zoo, and train's mamba2 (remat on against off), olmoe and
-mamba2 4 x 4 096 cells, likewise.
+mamba2 4 x 4 096 cells, likewise; ``--encdec-only`` runs phases 1, 2 and
+the encoder–decoder's: check-lm and check-lm-grad at its shapes (held and
+timed), main-lm-encdec and train's seamless cell, likewise.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -430,7 +455,7 @@ TIMED_ARM = {"fused_rz_reduce": "fused_rz_step", "fused_deflate_direction": "fus
 # n = 120).
 LSQ_DAMP, LSQ_TOL, LSQ_K, LSQ_ELL, LSQ_DRIFT = 1e-4, 1e-8, 8, 48, 0.02
 LSQ_BENCH = {"m": 180, "n": 120, "num": 12, "maxiter": 600}
-LSQ_MAIN = {"m": 24576, "n": 16384, "num": 12, "maxiter": 4000}
+LSQ_MAIN = {"m": 24576, "n": 16384, "num": 8, "maxiter": 4000}
 # Gauss-Newton training: tests/test_optim.py's teacher-student residual
 # tanh(x @ w) − y widened to 65 536 samples, d = 1024, 32 outputs, f64.
 GN = {"samples": 65536, "d": 1024, "out": 32, "steps": 10}
@@ -449,21 +474,30 @@ SHARD_N, SHARD_RANKS, SHARD_TOL, SHARD_TIMEOUT_S = CUT_N, 4, 1e-5, 300.0
 K8_SHAPES = ((SHARD_N // 4, SHARD_N), (SHARD_N // 8, SHARD_N), (9138, 36552), (1000, 3001))
 K8_RS = (1, K)
 # The model zoo's serving paths at full width (configs/qwen1_5_0_5b.py,
-# configs/mamba2_1_3b.py): 4 prompts of 4 096 tokens, 32 greedy decode
-# steps, teacher-forced decode of the first 32 tokens.
+# configs/mamba2_1_3b.py): 4 prompts of 4 096 tokens, 16 greedy decode
+# steps, teacher-forced decode of the first 16 tokens (32 and 32 until the
+# script's time limit asked for room: decode is host-bound, its ms a step
+# steady after a few steps).
 # main-lm-moe: olmoe-1b-7b (configs/olmoe_1b_7b.py) the same way, at full
 # width and depth (16 layers, d 2048, 64 experts top-8, capacity factor
-# 1.25, vocab 50 304).
+# 1.25, vocab 50 304).  main-lm-encdec: seamless-m4t-large-v2
+# (configs/seamless_m4t_large_v2.py: 24 encoder and 24 decoder layers, d
+# 1024, 16 heads of 64, GELU d_ff 8 192, vocab 256 206) at full width and
+# depth on 4 x 4 096 seeded normal source frames and 4 x 1 024 prompt tokens
+# (launch/steps.py's prefill shape, max(source_len / 4, 64)), 32 greedy
+# decode steps and a teacher-forced decode of the first 32 tokens.
 LM_PATHS = {
-    "main-lm-attn": {"arch": "qwen1.5-0.5b", "batch": 4, "prompt": 4096, "decode": 32,
-                     "teacher": 32, "kernel": "flash_attention_"},
-    "main-lm-ssm": {"arch": "mamba2-1.3b", "batch": 4, "prompt": 4096, "decode": 32,
-                    "teacher": 32, "kernel": "ssd_scan_"},
-    "main-lm-moe": {"arch": "olmoe-1b-7b", "batch": 4, "prompt": 4096, "decode": 32,
-                    "teacher": 32, "kernel": "flash_attention_"},
+    "main-lm-attn": {"arch": "qwen1.5-0.5b", "batch": 4, "prompt": 4096, "decode": 16,
+                     "teacher": 16, "kernel": "flash_attention_"},
+    "main-lm-ssm": {"arch": "mamba2-1.3b", "batch": 4, "prompt": 4096, "decode": 16,
+                    "teacher": 16, "kernel": "ssd_scan_"},
+    "main-lm-moe": {"arch": "olmoe-1b-7b", "batch": 4, "prompt": 4096, "decode": 16,
+                    "teacher": 16, "kernel": "flash_attention_"},
+    "main-lm-encdec": {"arch": "seamless-m4t-large-v2", "batch": 4, "prompt": 1024,
+                       "source": 4096, "decode": 32, "teacher": 32, "kernel": "flash_attention_"},
 }
 LM_PATH_KERNELS = {"main-lm-attn": ("flash_attention",), "main-lm-ssm": ("ssd_scan",),
-                   "main-lm-moe": ("flash_attention",)}
+                   "main-lm-moe": ("flash_attention",), "main-lm-encdec": ("flash_attention",)}
 # zoo: every other decoder-only architecture at full width (arctic-480b at
 # SMOKE: one layer's f32 experts alone hold 53.6 GB), a prefill of 2 x 2 048
 # tokens and 4 greedy decode steps through the kernels and through the plain
@@ -490,6 +524,18 @@ ATTN_CHECK = ((2, 4, 2, 64, 64, 32, False, 0), (1, 8, 2, 96, 96, 64, True, 0),
 ATTN_160 = (2, 32, 8, 2048, 2048, 160, True, 0)
 ATTN_160_CHECK = (ATTN_160, (1, 32, 8, 300, 333, 160, True, 33))
 ATTN_CHECK += ATTN_160_CHECK
+# seamless-m4t-large-v2's attention (16 heads, dh 64, non-causal): the
+# encoder's self-attention over 4 x 4 096 frames, prefill's cross-attention
+# (1 024 queries against 4 096 keys), decode's one-row cross call, and a
+# ragged one-row call; each timed but the last.  K9 launches 72 times in a
+# prefill (24 encoder, 24 self, 24 cross) and 24 times a decode step.
+ATTN_ENC = (4, 16, 16, 4096, 4096, 64, False, 0)
+ATTN_CROSS = (4, 16, 16, 1024, 4096, 64, False, 0)
+ATTN_CROSS_DECODE = (4, 16, 16, 1, 4096, 64, False, 0)
+ATTN_ENCDEC_CHECK = (ATTN_ENC, ATTN_CROSS, ATTN_CROSS_DECODE, (1, 16, 16, 1, 333, 64, False, 0))
+ATTN_ENCDEC_TIMED = (("encoder", ATTN_ENC), ("cross", ATTN_CROSS),
+                     ("decode_cross", ATTN_CROSS_DECODE))
+ATTN_CHECK += ATTN_ENCDEC_CHECK
 LONG_REPS = 3
 # The times of the designs the redesigned kernels replaced, printed beside
 # this run's (PERF.md §6: chip_smoke.py on an NVIDIA H100 80GB HBM3 at
@@ -528,6 +574,11 @@ GRAD_CHECK = ((2, 8, 2, 256, 256, 16, False), (1, 8, 2, 300, 300, 64, True),
               (1, 8, 2, 200, 330, 128, False), (2, 8, 2, 130, 130, 128, True))
 GRAD_160_CHECK = (ATTN_160[:7], (1, 32, 8, 300, 333, 160, False))
 GRAD_CHECK += GRAD_160_CHECK
+# seamless-m4t-large-v2's training shape (the encoder at 2 x 2 048 frames,
+# non-causal; timed there) and a ragged cross shape with sq < sk.
+ATTN_ENC_TRAIN = (2, 16, 16, 2048, 2048, 64, False)
+GRAD_ENCDEC_CHECK = (ATTN_ENC_TRAIN, (1, 16, 16, 100, 333, 64, False))
+GRAD_CHECK += GRAD_ENCDEC_CHECK
 GRAD_BAR = {"float32": 2e-4, "bfloat16": 5e-2}  # of the plain version's max abs
 # train: launch/train.py's build at qwen1.5-0.5b's full width (24 layers,
 # d 1024, vocab 151 936, tied; f32 parameters, bf16 compute), 4 × 4 096
@@ -538,13 +589,16 @@ TRAIN = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 4096, "lr": 1e-4, "steps": 6
          "kernel": "attn", "tag": "[train]"}
 # mamba2-1.3b at full width (48 layers, d 2048, 64 SSD heads x 64, state
 # 128, vocab 50 280; f32 parameters, bf16 compute), 2 x 1 024 tokens, beside
-# 21.5 GB of parameters, gradients and AdamW moments; 4 AdamW steps, no
-# checkpoints.  Every train cell runs with cfg.remat (each block
+# 21.5 GB of parameters, gradients and AdamW moments; 4 AdamW steps through
+# the step function alone (the Trainer's closing checkpoint of 15.7 GB took
+# ≈ 28 s; qwen1.5's cell drives the Trainer and its fault replay).  Every
+# train cell runs with cfg.remat (each block
 # checkpointed: its forward arm launches twice a step, once recomputed) and
 # compares one step's gradients with remat off, bit for bit, with both
 # step times and peak memories.
 TRAIN_SSM = {"arch": "mamba2-1.3b", "batch": 2, "seq": 1024, "lr": 1e-4, "steps": 4,
-             "every": 1000, "fault_at": None, "arms": ("ssd_scan:fwd", "ssd_scan:bwd"),
+             "every": 1000, "fault_at": None, "trainer": False,
+             "arms": ("ssd_scan:fwd", "ssd_scan:bwd"),
              "kernel": "ssd_", "tag": "[train mamba2]", "floor_chunk": 64,
              "f32_control_layers": 12}
 # hf-lm: examples/hessian_free_lm.py's loop (qwen1.5 SMOKE, batch 4 × 32,
@@ -562,10 +616,24 @@ TRAIN_MOE = {"arch": "olmoe-1b-7b", "layers": 4, "batch": 2, "seq": 2048, "lr": 
              "steps": 2, "every": 1000, "fault_at": None, "trainer": False,
              "arms": ("flash_attention:lse", "flash_attention:bwd"), "kernel": "attn",
              "tag": "[train olmoe]"}
+# seamless-m4t-large-v2 at full width and depth (24 + 24 layers, d 1024,
+# vocab 256 206; f32 parameters, bf16 compute), 2 x 2 048 seeded normal
+# source frames and 2 x 2 048 tokens with labels (launch/steps.py's train
+# batch: one s for both), cfg.remat on; 2 AdamW steps through the step
+# function alone (the reference's TokenPipeline makes no source frames, so
+# no Trainer).  K9's lse arm launches 144 times a step (72 calls, each
+# recomputed) and its backward 72.  bf16 rounding alone moves the decoder's
+# query and key gradients past 5e-2 (ROADMAP P7): each leaf is held to twice
+# the plain versions' own floor (K9's plain key block 512 against 1 024) and,
+# in an f32-compute control with the decoder cut to 12 layers, to 5e-2.
+TRAIN_ENCDEC = {"arch": "seamless-m4t-large-v2", "batch": 2, "seq": 2048, "source": 2048,
+                "lr": 1e-4, "steps": 2, "every": 1000, "fault_at": None, "trainer": False,
+                "arms": ("flash_attention:lse", "flash_attention:bwd"), "kernel": "attn",
+                "tag": "[train encdec]", "floor_block_k": 512, "f32_control_layers": 12}
 # One mamba2-1.3b step (AdamW included) at 4 x 4 096 tokens, where the
 # activations of 48 blocks need cfg.remat.
 TRAIN_SSM_BIG = {"arch": "mamba2-1.3b", "batch": 4, "seq": 4096, "lr": 1e-4}
-HF_LM = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 32, "steps": 10, "full_layers": 4,
+HF_LM = {"arch": "qwen1.5-0.5b", "batch": 4, "seq": 32, "steps": 10, "full_layers": 2,
          "settings": {"k": 4, "ell": 8, "cg_tol": 1e-3, "cg_maxiter": 50, "init_damping": 10.0}}
 HF_LM_PATH_KERNELS = ("fused_cg_update", "fused_deflate_direction", "self_gram",
                       "recombine_blocks")
@@ -668,10 +736,10 @@ LSMR_LANE_WINDOW = 10
 # benchmarks/serve_bench.py's traffic on main's dense K (shared): T = B
 # tenants with drifting Newton sequences (latents ~ N(0, 0.5²), drift 0.15,
 # numpy seed B), Poisson arrivals, def-CG(8, 12), tol 1e-5, maxiter 200; B =
-# 8 with 6 systems a tenant beside the sequential loop, B = 64 with 3 (the
+# 8 with 3 systems a tenant beside the sequential loop, B = 64 with 3 (the
 # pool alone); then 6 tenants through 4 slots, spilling into a temporary
 # directory.
-SERVE = {"sizes": (8, 64), "systems": {8: 6, 64: 3}, "loop": (8,), "tol": 1e-5,
+SERVE = {"sizes": (8, 64), "systems": {8: 3, 64: 3}, "loop": (8,), "tol": 1e-5,
          "maxiter": 200, "drift": 0.15, "evict_slots": 4, "evict_tenants": 6}
 SERVE_PATH_KERNELS = DENSE_PATH_KERNELS
 SERVE_LANE_ARMS = ("fused_cg_update:fused_cg_step_lanes",
@@ -679,7 +747,7 @@ SERVE_LANE_ARMS = ("fused_cg_update:fused_cg_step_lanes",
 # Batched least squares: B tenants, each its own lsq_bench drifting ridge
 # sequence (logspace, drift 0.02, λ = 1e-4, tol 1e-8, deflsmr(8, 48), numpy
 # and torch seeds 0 … B − 1) at half main-lsq's sides, 805 MB a system.
-LSQ_BATCH = {"lanes": 8, "m": 12288, "n": 8192, "num": 3, "maxiter": 4000}
+LSQ_BATCH = {"lanes": 8, "m": 12288, "n": 8192, "num": 2, "maxiter": 4000}
 LSQ_BATCH_PATH_KERNELS = LSQ_PATH_KERNELS
 
 
@@ -2446,12 +2514,14 @@ def phase_check_lm(torch, device="cuda", attn_cases=ATTN_CHECK, ssd_cases=SSD_CH
     tests' shapes and the serving paths' own (``attn_cases``,
     ``ssd_cases``; with ``strided`` the split views too), f32 and bf16,
     plus a bit-for-bit repeat; returns the worst abs error at the main
-    shapes (and at ATTN_160 and SSD_JAMBA)."""
+    shapes (and at ATTN_160, ATTN_ENCDEC_TIMED's and SSD_JAMBA)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ssd_scan as ss
 
     worst = {"flash_attention": 0.0, "ssd_scan": 0.0, "flash_attention dh160": 0.0,
              "ssd_scan jamba": 0.0}
+    encdec = {case: f"flash_attention {label}" for label, case in ATTN_ENCDEC_TIMED}
+    worst.update(dict.fromkeys(encdec.values(), 0.0))
     for dtype in (torch.float32, torch.bfloat16):
         dname = str(dtype).split(".")[-1]
         for case in attn_cases:
@@ -2471,6 +2541,8 @@ def phase_check_lm(torch, device="cuda", attn_cases=ATTN_CHECK, ssd_cases=SSD_CH
                 worst["flash_attention"] = max(worst["flash_attention"], err)
             if case == ATTN_160:
                 worst["flash_attention dh160"] = max(worst["flash_attention dh160"], err)
+            if case in encdec:
+                worst[encdec[case]] = max(worst[encdec[case]], err)
         views = [(SSD_STRIDED, True)] if strided else []
         for case, strided in [(c, False) for c in ssd_cases] + views:
             b, l, h, p, g, n, chunk = case
@@ -2494,6 +2566,8 @@ def phase_check_lm(torch, device="cuda", attn_cases=ATTN_CHECK, ssd_cases=SSD_CH
                     worst["ssd_scan"] = max(worst["ssd_scan"], *errs)
                 if case == SSD_JAMBA:
                     worst["ssd_scan jamba"] = max(worst["ssd_scan jamba"], *errs)
+    if not ssd_cases:
+        return worst
     # Two launches on the same inputs agree bit for bit (no atomics).
     x, dt, a, bm, cm, d, h0 = ssd_inputs(torch, *SSD_MAIN[:6], torch.bfloat16, seed=1,
                                          device=device)
@@ -2505,7 +2579,8 @@ def phase_check_lm(torch, device="cuda", attn_cases=ATTN_CHECK, ssd_cases=SSD_CH
     return worst
 
 
-def lm_serve(torch, model, cfg, tokens, backend, decode_steps, feed=None, max_len=None):
+def lm_serve(torch, model, cfg, tokens, backend, decode_steps, feed=None, max_len=None,
+             src=None):
     """Prefill ``tokens`` (b, s) and take ``decode_steps`` greedy decode
     steps through the serving entry points; host clock around each part,
     ended by a synchronize.  With ``feed`` (b, decode_steps + 1) the decode
@@ -2513,7 +2588,8 @@ def lm_serve(torch, model, cfg, tokens, backend, decode_steps, feed=None, max_le
     recorded in ``greedy``), so two runs can be compared step for step.
     The caches hold ``max_len`` positions (default ``s + decode_steps``: a
     decode step's reductions run over them, so two runs compared bit for
-    bit need the same)."""
+    bit need the same).  An encoder–decoder's prefill encodes ``src``
+    (its ``src_embeds``, b × frames × d)."""
     from repro_torch import models
     from repro_torch.launch import make_prefill_step, make_serve_step
 
@@ -2522,9 +2598,10 @@ def lm_serve(torch, model, cfg, tokens, backend, decode_steps, feed=None, max_le
     prefill = make_prefill_step(cfg, max_len, backend=backend)
     serve = make_serve_step(cfg, backend=backend)
     state = models.init_decode_state(cfg, b, max_len, device=tokens.device)
+    batch = {"tokens": tokens} if src is None else {"tokens": tokens, "src_embeds": src}
     _sync(torch, tokens.device)
     t0 = time.perf_counter()
-    state, last = prefill(model, {"tokens": tokens}, state)
+    state, last = prefill(model, batch, state)
     _sync(torch, tokens.device)
     prefill_s = time.perf_counter() - t0
     tok = last[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
@@ -2634,11 +2711,15 @@ def phase_main_lm(torch, key, device="cuda"):
     ``TokenPipeline(vocab, batch, prompt, seed=0)``, prefill and greedy
     decode through the kernels; then the same through the plain versions
     and a teacher-forced decode against ``forward_hidden``, counted apart.
-    Returns (report, launches of the main run)."""
+    An encoder–decoder (``spec["source"]``) also takes ``batch`` x
+    ``source`` normal source frames from a generator seeded 0, and K9 must
+    launch exactly once a layer call (prefill: encoder, self and cross;
+    decode: cross).  Returns (report, launches of the main run)."""
     from repro_torch import models
     from repro_torch.configs import get_config
     from repro_torch.data import TokenPipeline
     from repro_torch.kernels import _runtime
+    from repro_torch.models import transformer
     from repro_torch.models.layers import lm_head_weights
 
     spec = LM_PATHS[key]
@@ -2650,13 +2731,18 @@ def phase_main_lm(torch, key, device="cuda"):
     init_s = time.perf_counter() - t0
     batch = TokenPipeline(cfg.vocab_size, spec["batch"], spec["prompt"], seed=0).make_batch(0)
     tokens = torch.as_tensor(batch["tokens"].astype("int64"), device=device)
-    lm_serve(torch, model, cfg, tokens[:, :256], "auto", 2)  # warm-up (cuBLAS, module loads)
+    src = None
+    if "source" in spec:
+        src = torch.randn(spec["batch"], spec["source"], cfg.d_model, device=device,
+                          generator=torch.Generator(device=device).manual_seed(0))
+    # warm-up (cuBLAS, module loads)
+    lm_serve(torch, model, cfg, tokens[:, :256], "auto", 2, src=None if src is None else src[:, :256])
 
     on_card = torch.device(device).type == "cuda"
     if on_card:
         torch.cuda.reset_peak_memory_stats()
     _zero_counts()
-    run = lm_serve(torch, model, cfg, tokens, "auto", spec["decode"])
+    run = lm_serve(torch, model, cfg, tokens, "auto", spec["decode"], src=src)
     launches = dict(_runtime.LAUNCHES)
     arms = _arms()
     plain_on_cuda = dict(_runtime.PLAIN_ON_CUDA)
@@ -2665,6 +2751,7 @@ def phase_main_lm(torch, key, device="cuda"):
     report = {
         "arms": arms,
         "arch": cfg.name, "batch": spec["batch"], "prompt": spec["prompt"],
+        "source": spec.get("source"), "encoder_layers": cfg.encoder_layers,
         "decode_steps": spec["decode"], "layers": cfg.n_layers, "d_model": cfg.d_model,
         "params": sum(p.numel() for p in model.parameters()), "init_s": init_s,
         "prefill_ms": 1e3 * run["prefill_s"], "prefill_tokens_per_s": n_tok / run["prefill_s"],
@@ -2674,12 +2761,23 @@ def phase_main_lm(torch, key, device="cuda"):
     for name, val in (("last", run["last"]), ("first", run["first"])):
         if not bool(torch.isfinite(val).all()):
             raise AssertionError(f"{tag} non-finite {name} logits")
+    source = ""
+    if src is not None:
+        report["prefill_source_frames_per_s"] = src.shape[0] * src.shape[1] / run["prefill_s"]
+        source = (f"{cfg.encoder_layers} encoder layers over {spec['batch']} x {spec['source']} "
+                  f"source frames ({report['prefill_source_frames_per_s']:.0f} frames/s in "
+                  "prefill); ")
     log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{report['params'] / 1e9:.3f} B params ({cfg.param_dtype}), {cfg.dtype} compute; prompts "
-        f"{spec['batch']} x {spec['prompt']}: prefill {report['prefill_ms']:.1f} ms "
+        f"{report['params'] / 1e9:.3f} B params ({cfg.param_dtype}), {cfg.dtype} compute; {source}"
+        f"prompts {spec['batch']} x {spec['prompt']}: prefill {report['prefill_ms']:.1f} ms "
         f"({report['prefill_tokens_per_s']:.0f} tokens/s), decode "
         f"{report['decode_ms_per_step']:.2f} ms per step ({spec['batch']} tokens), peak "
         f"memory {peak_gb:.2f} GB; launches {launches}; plain on the card {plain_on_cuda}")
+    if cfg.is_encdec:
+        calls = cfg.encoder_layers + 2 * cfg.n_layers + cfg.n_layers * spec["decode"]
+        if launches["flash_attention"] != calls:
+            raise AssertionError(f"{tag} K9 launched {launches['flash_attention']} times, not "
+                                 f"once a layer call ({calls})")
 
     # The same run through the plain versions, counted apart, fed the
     # kernels' greedy tokens so that every decode step reads the same
@@ -2695,9 +2793,10 @@ def phase_main_lm(torch, key, device="cuda"):
                                                              run, tag)
         pairs = (("bf16 kernels vs plain, free routing", run, free, "bfloat16", None),)
     else:
-        plain = lm_serve(torch, model, cfg, tokens, "plain", spec["decode"], feed=run["greedy"])
-        k32 = lm_serve(torch, model, cfg32, tokens, "auto", 1, feed=run["greedy"])
-        p32 = lm_serve(torch, model, cfg32, tokens, "plain", 1, feed=run["greedy"])
+        plain = lm_serve(torch, model, cfg, tokens, "plain", spec["decode"], feed=run["greedy"],
+                         src=src)
+        k32 = lm_serve(torch, model, cfg32, tokens, "auto", 1, feed=run["greedy"], src=src)
+        p32 = lm_serve(torch, model, cfg32, tokens, "plain", 1, feed=run["greedy"], src=src)
     n_same = plain["greedy"].shape[1]  # a MoE model's plain run takes one decode step
     same = int((run["greedy"][:, :n_same] == plain["greedy"]).sum())
     report.update(plain_prefill_ms=1e3 * plain["prefill_s"],
@@ -2736,12 +2835,17 @@ def phase_main_lm(torch, key, device="cuda"):
     # A MoE model runs it dropless (capacity factor E / k, as the
     # reference's SMOKE configs are): the prefill drops tokens that one-
     # token decode steps never drop.
+    # An encoder–decoder's steps read the memory of the encoded source.
     head = tokens[:, : spec["teacher"]]
+    inputs = {"tokens": head} if src is None else {"tokens": head, "src_embeds": src}
     dropless = {"capacity_factor": cfg.n_experts / cfg.experts_per_token} if cfg.n_experts else {}
     for c in (dataclasses.replace(cfg, **dropless), dataclasses.replace(cfg32, **dropless)):
-        hidden, _ = models.forward_hidden(model, {"tokens": head}, c)
+        hidden, _ = models.forward_hidden(model, inputs, c)
         full = (hidden @ lm_head_weights(model.embed, c)).float()
         state = models.init_decode_state(c, head.shape[0], head.shape[1], device=device)
+        if c.is_encdec:
+            state = state._replace(memory=transformer._cross_memory(
+                model, transformer._encode(model, inputs, c), c))
         steps = []
         for t in range(head.shape[1]):
             logits, state = models.decode_step(model, head[:, t : t + 1], state, c)
@@ -2760,10 +2864,24 @@ def phase_main_lm(torch, key, device="cuda"):
 
     # Profiles of one prefill and of decode steps, counted apart.
     prof_prefill = profile_serving(
-        torch, lambda: lm_serve(torch, model, cfg, tokens, "auto", 0), spec["kernel"], device)
-    prof_decode = profile_serving(
-        torch, lambda: lm_serve(torch, model, cfg, tokens[:, :16], "auto", 8), spec["kernel"],
+        torch, lambda: lm_serve(torch, model, cfg, tokens, "auto", 0, src=src), spec["kernel"],
         device)
+    if src is None:
+        decode_what = "16-token prefill + 8 decode steps"
+        prof_decode = profile_serving(
+            torch, lambda: lm_serve(torch, model, cfg, tokens[:, :16], "auto", 8),
+            spec["kernel"], device)
+    else:  # the decode steps alone: the encoder's prefill would fill the profile
+        decode_what = f"8 decode steps (cross-attending to {spec['source']} frames)"
+        primed = lm_serve(torch, model, cfg, tokens[:, :16], "auto", 0, max_len=24, src=src)
+
+        def decode_steps():
+            state, tok = primed["state"], primed["greedy"]
+            for _ in range(8):
+                logits, state = models.decode_step(model, tok, state, cfg)
+                tok = logits[:, -1, : cfg.vocab_size].argmax(-1, keepdim=True)
+
+        prof_decode = profile_serving(torch, decode_steps, spec["kernel"], device)
     report["profile_prefill"], report["profile_decode_8"] = prof_prefill, prof_decode
     share = lambda v: "not measured" if v is None else f"{v:.1%}"  # noqa: E731
     log(f"{tag} profile prefill: {prof_prefill['kernel_launches']} {spec['kernel']} launches, "
@@ -2773,7 +2891,7 @@ def phase_main_lm(torch, key, device="cuda"):
         f"idle {share(prof_prefill['device_idle_share'])}")
     log(f"{tag} profile prefill, top device operations (ms, calls): "
         + "; ".join(f"{o['name']} {o['ms']:.2f} ms x{o['calls']}" for o in prof_prefill["top_ops"]))
-    log(f"{tag} profile 16-token prefill + 8 decode steps: {prof_decode['launches']} device "
+    log(f"{tag} profile {decode_what}: {prof_decode['launches']} device "
         f"launches, device {prof_decode['device_ms']:.1f} ms in {prof_decode['wall_ms_profiled']:.1f} "
         f"ms wall, device idle {share(prof_decode['device_idle_share'])}")
     del model, run
@@ -2950,34 +3068,43 @@ def ssd_timing(torch, peaks, case, worst, device="cuda"):
     return k10
 
 
-def phase_timing_lm(torch, peaks, worst, device="cuda", main=True):
-    """K9 at qwen1.5-0.5b's prefill shape, at prefill_32k's length (b 1)
-    and at stablelm-12b's (ATTN_160), K10 at mamba2-1.3b's and at
+def phase_timing_lm(torch, peaks, worst, device="cuda", only=None):
+    """K9 at qwen1.5-0.5b's prefill shape, at prefill_32k's length (b 1),
+    at stablelm-12b's (ATTN_160) and at seamless-m4t-large-v2's three
+    non-causal ones (ATTN_ENCDEC_TIMED), K10 at mamba2-1.3b's and at
     jamba-v0.1-52b's (SSD_JAMBA): kernel, plain version, the library
-    yardstick (``scaled_dot_product_attention`` for K9; none computes the
-    SSD scan) and the bound, bf16.  Without ``main`` only this slice's
-    shapes (ATTN_160, SSD_JAMBA) are timed."""
+    yardstick (``scaled_dot_product_attention`` for K9, causal as the case
+    is; none computes the SSD scan) and the bound, bf16.  ``only="zoo"``
+    times ATTN_160 and SSD_JAMBA alone, ``only="encdec"``
+    ATTN_ENCDEC_TIMED's shapes alone."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
 
     out = {}
-    shapes = (("main", ATTN_MAIN, REPS), ("32k", ATTN_LONG, LONG_REPS)) if main else ()
-    for label, case, reps in shapes + (("dh160", ATTN_160, REPS),):
+    encdec = tuple((label, case, REPS) for label, case in ATTN_ENCDEC_TIMED)
+    shapes = {None: (("main", ATTN_MAIN, REPS), ("32k", ATTN_LONG, LONG_REPS),
+                     ("dh160", ATTN_160, REPS)) + encdec,
+              "zoo": (("dh160", ATTN_160, REPS),), "encdec": encdec}[only]
+    for label, case, reps in shapes:
         out[label] = t = attn_timing(torch, peaks, case, reps, device)
+        if f"flash_attention {label}" in worst:
+            t["max_abs_err"] = worst[f"flash_attention {label}"]
         previous = PREVIOUS_MS.get("flash_attention " + label)
         prev = "" if previous is None else f"; the previous SIMT kernel {previous} ms"
         log(f"[timing] flash_attention {case} bf16: kernel {t['ms']:.3f} ms "
             f"({t['tflop_s']:.1f} TFLOP/s{prev}), plain {t['plain_ms']:.3f} ms, "
             f"scaled_dot_product_attention {t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
             f"({t['bound_by']})")
-    out["dh160"]["max_abs_err"] = worst["flash_attention dh160"]
+    encdec_out = {label: out[label] for label, _ in ATTN_ENCDEC_TIMED if label in out}
+    if only == "encdec":
+        return {"flash_attention": dict(out["encoder"], **encdec_out)}
     jamba = ssd_timing(torch, peaks, SSD_JAMBA, worst["ssd_scan jamba"], device)
     log(f"[timing] ssd_scan {SSD_JAMBA} bf16 (jamba's SSD layers): kernel {jamba['ms']:.3f} ms "
         f"({jamba['tflop_s']:.1f} TFLOP/s; with state in and out {jamba['stateful_ms']:.3f} ms), "
         f"plain {jamba['plain_ms']:.3f} ms, library null, bound {jamba['bound_ms']:.4f} ms "
         f"({jamba['bound_by']})")
-    if not main:
+    if only == "zoo":
         return {"flash_attention": dict(out["dh160"], dh160=out["dh160"]),
                 "ssd_scan": dict(jamba, jamba=jamba)}
     # The f32 arithmetic (CUDA cores, the f32 control runs) at the prefill shape.
@@ -2991,7 +3118,7 @@ def phase_timing_lm(torch, peaks, worst, device="cuda", main=True):
         f"scaled_dot_product_attention {t['library_ms']:.3f} ms")
     del q, k, v
     k9 = dict(out["main"], max_abs_err=worst["flash_attention"], at_32k=out["32k"],
-              f32=out["f32"], dh160=out["dh160"])
+              f32=out["f32"], dh160=out["dh160"], **encdec_out)
 
     k10 = ssd_timing(torch, peaks, SSD_MAIN, worst["ssd_scan"], device)
     log(f"[timing] ssd_scan {SSD_MAIN} bf16: kernel {k10['ms']:.3f} ms ({k10['tflop_s']:.1f} "
@@ -3003,27 +3130,31 @@ def phase_timing_lm(torch, peaks, worst, device="cuda", main=True):
     return {"flash_attention": k9, "ssd_scan": k10}
 
 
-def phase_lm(torch, peaks, report, device="cuda", zoo_only=False):
-    """check-lm, main-lm-attn, main-lm-ssm, main-lm-moe and the timing of K9
-    and K10 (with ``zoo_only``: check-lm at this slice's shapes, main-lm-moe
-    and their timing alone).  Each main path runs with the counters set to
-    0 just before it and read just after; its kernel must have launched and
-    no plain version may have run on the card.  Returns (K9/K10 kernel
-    entries, launches per path)."""
-    if zoo_only:
+def phase_lm(torch, peaks, report, device="cuda", only=None):
+    """check-lm, main-lm-attn, main-lm-ssm, main-lm-moe, main-lm-encdec and
+    the timing of K9 and K10 (``only="zoo"``: check-lm at ATTN_160_CHECK and
+    SSD_JAMBA, main-lm-moe and their timing alone; ``only="encdec"``: at
+    ATTN_ENCDEC_CHECK, main-lm-encdec and its timing).  Each main path runs
+    with the counters set to 0 just before it and read just after; its
+    kernel must have launched and no plain version may have run on the
+    card.  Returns (K9/K10 kernel entries, launches per path)."""
+    if only == "zoo":
         worst = phase_check_lm(torch, device, ATTN_160_CHECK, (SSD_JAMBA,), strided=False)
+    elif only == "encdec":
+        worst = phase_check_lm(torch, device, ATTN_ENCDEC_CHECK, (), strided=False)
     else:
         worst = phase_check_lm(torch, device)
     report["check_lm"] = worst
     launches = {}
-    for key in (("main-lm-moe",) if zoo_only else LM_PATHS):
+    keys = {None: tuple(LM_PATHS), "zoo": ("main-lm-moe",), "encdec": ("main-lm-encdec",)}[only]
+    for key in keys:
         report[key], launches[key] = phase_main_lm(torch, key, device)
         if not all(launches[key][k] for k in LM_PATH_KERNELS[key]):
             raise AssertionError(f"[{key}] a kernel never launched: {launches[key]}")
         if any(report[key]["plain_on_cuda"].values()):
             raise AssertionError(f"[{key}] plain versions ran on the card: "
                                  f"{report[key]['plain_on_cuda']}")
-    return phase_timing_lm(torch, peaks, worst, device, main=not zoo_only), launches
+    return phase_timing_lm(torch, peaks, worst, device, only=only), launches
 
 
 def _rel_err(torch, got, want):
@@ -3305,7 +3436,7 @@ def ssd_grad_sass(build):
 
 
 def phase_check_lm_grad(torch, peaks, device="cuda", cases=GRAD_CHECK,
-                        timed=(ATTN_TRAIN, ATTN_160[:7])):
+                        timed=(ATTN_TRAIN, ATTN_160[:7], ATTN_ENC_TRAIN)):
     """K9's forward-with-lse, backward and forward-mode arms against their
     plain versions on the card at ``cases`` (and qwen1.5-0.5b's training
     shape and the Hessian-free LM's when ``cases`` is GRAD_CHECK; the lse
@@ -3606,7 +3737,8 @@ def _leaf_rel(torch, got, want):
 def f32_control(torch, cfg, params, batch, spec, tag):
     """The same step's loss and gradients at full width in f32 compute,
     depth cut to ``spec["f32_control_layers"]`` (f32 activations of every
-    layer would not fit beside the bf16 run's state), through the kernels
+    layer would not fit beside the bf16 run's state; an encoder–decoder's
+    decoder is cut, its encoder kept whole), through the kernels
     against the plain versions: loss 1e-2, each leaf 5e-2 in relative norm
     (it is ≈ 1e-5: summation order alone)."""
     from repro_torch.launch import loss_and_grads
@@ -3631,6 +3763,37 @@ def f32_control(torch, cfg, params, batch, spec, tag):
     return {"layers": layers, "loss_rel": loss_rel, "grad_rel_norm": rel}
 
 
+@contextlib.contextmanager
+def _plain_attention_block_k(block_k):
+    """K9's differentiated plain arms (forward with lse, backward) on key
+    blocks of ``block_k`` instead of their default 1 024, for the length
+    of the block."""
+    from repro_torch.kernels import flash_attention as fa
+
+    saved = fa.flash_attention_lse_plain, fa.flash_attention_bwd_plain
+    fa.flash_attention_lse_plain = functools.partial(saved[0], block_k=block_k)
+    fa.flash_attention_bwd_plain = functools.partial(saved[1], block_k=block_k)
+    try:
+        yield
+    finally:
+        fa.flash_attention_lse_plain, fa.flash_attention_bwd_plain = saved
+
+
+def _with_source(torch, pipe, batch, frames, d, device):
+    """``pipe`` with each step's batch given ``src_embeds``: ``batch`` x
+    ``frames`` x ``d`` normal frames on ``device`` from a generator seeded
+    with the step (the reference's TokenPipeline makes none)."""
+
+    class Sourced:
+        @staticmethod
+        def make_batch(step):
+            gen = torch.Generator(device=device).manual_seed(step)
+            return dict(pipe.make_batch(step), src_embeds=torch.randn(
+                batch, frames, d, generator=gen, device=device))
+
+    return Sourced
+
+
 def phase_train(torch, peaks, spec, device="cuda"):
     """One LM at full width through ``launch.train.build`` and the
     ``Trainer`` (``spec``: ``TRAIN`` or ``TRAIN_SSM``): (i) one step's loss
@@ -3641,8 +3804,11 @@ def phase_train(torch, peaks, spec, device="cuda"):
     failure injected there: the replay's final state bit for bit the
     uninterrupted run's (with ``spec["trainer"]`` False, the steps through
     the step function alone); (iii) step time, tokens/s, peak memory, the
-    path's kernel arms a step (the backward arm once a layer, the forward
-    arm twice under ``cfg.remat``: forward and recompute) and MFU.  Before
+    path's kernel arms a step (the backward arm once a layer call, the
+    forward arm twice under ``cfg.remat``: forward and recompute; an
+    encoder–decoder's attention calls are its encoder's, its decoder's and
+    their cross-attention) and MFU.  With ``spec["source"]`` each batch
+    also takes ``source`` seeded normal frames a sequence.  Before
     (ii), the same step's gradients again (bit for bit where no fault
     replay follows) and with ``cfg.remat`` off (bit for bit), each with its
     time and peak memory.  A MoE model's
@@ -3667,6 +3833,8 @@ def phase_train(torch, peaks, spec, device="cuda"):
         spec["arch"], "full", spec["batch"], spec["seq"], spec["lr"], device,
         n_layers=spec.get("layers")))
     params = state0[0]
+    if spec.get("source"):
+        pipe = _with_source(torch, pipe, spec["batch"], spec["source"], cfg.d_model, device)
     n_params = sum(t.numel() for t in params.values())
     report = {"arch": cfg.name, "layers": cfg.n_layers, "d_model": cfg.d_model,
               "vocab": cfg.vocab_size, "params": n_params, "batch": spec["batch"],
@@ -3698,19 +3866,26 @@ def phase_train(torch, peaks, spec, device="cuda"):
         f"(rel {loss_rel:.2e}, bar 1e-2); gradients: worst leaf {worst} at {rel[worst]:.2e} in "
         f"relative norm, median {statistics.median(rel.values()):.2e}; "
         f"{sec_c:.2f} s vs {sec_p:.2f} s plain; peak memory of the step {grad_peak:.1f} GB")
-    if "floor_chunk" in spec:
+    if "floor_chunk" in spec or "floor_block_k" in spec:
         # bf16 rounding alone moves a deep model's gradients (ROADMAP P7):
-        # the plain versions at another chunk length compute the same
-        # function in another summation order; the kernels' distance from
-        # the plain run is held to that floor's, leaf by leaf.
-        floor_cfg = dataclasses.replace(cfg, ssm_chunk=spec["floor_chunk"])
-        _, _, grads_f = loss_and_grads(floor_cfg, params, batch, backend="plain")
+        # the plain versions at another chunk length (K10) or key block (K9:
+        # another running max, so other bf16 roundings of P) compute the
+        # same function in another summation order; the kernels' distance
+        # from the plain run is held to that floor's, leaf by leaf.
+        if "floor_chunk" in spec:
+            floor_what = f"chunk {spec['floor_chunk']} against {cfg.ssm_chunk}"
+            floor_cfg = dataclasses.replace(cfg, ssm_chunk=spec["floor_chunk"])
+            _, _, grads_f = loss_and_grads(floor_cfg, params, batch, backend="plain")
+        else:
+            floor_what = f"K9's key block {spec['floor_block_k']} against 1024"
+            with _plain_attention_block_k(spec["floor_block_k"]):
+                _, _, grads_f = loss_and_grads(cfg, params, batch, backend="plain")
         floor = _leaf_rel(torch, grads_f, grads_p)
         del grads_f
         bars = {name: max(5e-2, 2.0 * floor[name]) for name in rel}
-        log(f"{tag} (i) the rounding floor (plain, chunk {spec['floor_chunk']} against "
-            f"{cfg.ssm_chunk}): worst leaf {max(floor, key=floor.get)} at {max(floor.values()):.2e}, "
-            f"median {statistics.median(floor.values()):.2e}; bar a leaf max(5e-2, 2 x its floor)")
+        log(f"{tag} (i) the rounding floor (plain, {floor_what}): worst leaf "
+            f"{max(floor, key=floor.get)} at {max(floor.values()):.2e}, median "
+            f"{statistics.median(floor.values()):.2e}; bar a leaf max(5e-2, 2 x its floor)")
         report["rounding_floor_rel_norm"] = floor
     else:
         bars = dict.fromkeys(rel, 5e-2)
@@ -3850,6 +4025,8 @@ def phase_train(torch, peaks, spec, device="cuda"):
     per_step = {arm: arms.get(arm, 0) / spec["steps"] for arm in spec["arms"]}
     kind = "attn" if spec["arms"][0].startswith("flash") else "ssm"
     n_kind = sum(k == kind for k in cfg.layer_kinds())
+    if kind == "attn":  # an encoder–decoder's encoder and cross calls
+        n_kind += cfg.encoder_layers + (cfg.n_layers if cfg.cross_attention else 0)
     expected = {spec["arms"][0]: n_kind * (2 if cfg.remat else 1), spec["arms"][1]: n_kind}
     report.update(
         step_ms=[1e3 * t for t in times], median_step_ms=1e3 * step_s,
@@ -3915,37 +4092,47 @@ def phase_train_big(torch, spec=TRAIN_SSM_BIG, device="cuda"):
     return out
 
 
-def phase_training(torch, peaks, report, device="cuda", zoo_only=False):
+def phase_training(torch, peaks, report, device="cuda", only=None):
     """check-lm-grad, train (qwen1.5-0.5b, mamba2-1.3b, olmoe-1b-7b cut to 4
-    layers, one mamba2 step at 4 x 4 096) and hf-lm (qwen1.5 SMOKE, then
-    mamba2 SMOKE); with ``zoo_only`` check-lm-grad at this slice's shapes
-    and the train cells after qwen1.5's alone.  Each main path runs with the
+    layers, one mamba2 step at 4 x 4 096, seamless-m4t-large-v2) and hf-lm
+    (qwen1.5 SMOKE, then mamba2 SMOKE); with ``only="zoo"`` check-lm-grad
+    at GRAD_160_CHECK and SSD_JAMBA and the mamba2, olmoe and mamba2 4 x
+    4 096 cells alone; with ``only="encdec"`` check-lm-grad at
+    GRAD_ENCDEC_CHECK and the seamless cell alone.  Each main path runs with the
     counts set to 0 just before it and read just after; its kernels and
     arms must have launched and no plain version may have run on the card.
     Returns (the kernel entries of K9's and K10's differentiated arms,
     {path: launches}, {path: arms}), with each path's K9 and K10 counts
     split: ``flash_attention`` / ``ssd_scan`` their forward arms,
     ``*_bwd`` / ``*_jvp`` the other two (``SPLIT_ARMS``)."""
-    if zoo_only:
+    if only == "zoo":
         entries = phase_check_lm_grad(torch, peaks, device, GRAD_160_CHECK, (ATTN_160[:7],))
         entries["ssd"] = check_ssd_grad(torch, peaks, device, (SSD_JAMBA,), (SSD_JAMBA,))
+    elif only == "encdec":
+        entries = phase_check_lm_grad(torch, peaks, device, GRAD_ENCDEC_CHECK, (ATTN_ENC_TRAIN,))
     else:
         entries = phase_check_lm_grad(torch, peaks, device)
         entries["ssd"] = check_ssd_grad(torch, peaks, device)
     report["check_lm_grad"] = entries
     _lap(report, "check-lm-grad")
-    paths = [("train_ssm", (), TRAIN_SSM["arms"]), ("train_moe", (), TRAIN_MOE["arms"])]
-    if not zoo_only:
+    paths = []
+    if only is None:
         report["train"] = phase_train(torch, peaks, TRAIN, device)
         _lap(report, "train")
-        paths.insert(0, ("train", (), TRAIN["arms"]))
-    report["train_ssm"] = phase_train(torch, peaks, TRAIN_SSM, device)
-    _lap(report, "train-mamba2")
-    report["train_moe"] = phase_train(torch, peaks, TRAIN_MOE, device)
-    _lap(report, "train-olmoe")
-    report["train_ssm_big"] = phase_train_big(torch, TRAIN_SSM_BIG, device)
-    _lap(report, "train-mamba2-4x4096")
-    if not zoo_only:
+        paths.append(("train", (), TRAIN["arms"]))
+    if only in (None, "zoo"):
+        report["train_ssm"] = phase_train(torch, peaks, TRAIN_SSM, device)
+        _lap(report, "train-mamba2")
+        report["train_moe"] = phase_train(torch, peaks, TRAIN_MOE, device)
+        _lap(report, "train-olmoe")
+        report["train_ssm_big"] = phase_train_big(torch, TRAIN_SSM_BIG, device)
+        _lap(report, "train-mamba2-4x4096")
+        paths += [("train_ssm", (), TRAIN_SSM["arms"]), ("train_moe", (), TRAIN_MOE["arms"])]
+    if only in (None, "encdec"):
+        report["train_encdec"] = phase_train(torch, peaks, TRAIN_ENCDEC, device)
+        _lap(report, "train-encdec")
+        paths.append(("train_encdec", (), TRAIN_ENCDEC["arms"]))
+    if only is None:
         report["hf_lm"] = phase_hf_lm(torch, device)
         _lap(report, "hf-lm")
         report["hf_lm_ssm"] = phase_hf_lm_ssm(torch, device)
@@ -4650,7 +4837,7 @@ def phase_serve(torch, x, k_dense, device="cuda"):
     sequence, and ``SolveService`` (B slots) serves every resident tenant's
     next system with one ``solve_pool_step`` a tick (the lane arms of K1 and
     K2, one (n, B) product an iteration), K4 and K5 once a lane a system.
-    B = 8 (6 systems a tenant) beside the sequential ``solve`` loop over the
+    B = 8 (3 systems a tenant) beside the sequential ``solve`` loop over the
     same tenants, B = 64 (3 a tenant) the pool alone: µs a system, systems
     a second, occupancy, ticks, batched and single steps, evictions, every
     tenant converged.  Then eviction: 6 tenants through 4 slots spilling
@@ -4931,6 +5118,25 @@ def zoo_summary(report):
         f"{report['train_ssm_big']['peak_memory_gb']:.1f} GB")
 
 
+def encdec_summary(report):
+    """``[summary]`` line of the encoder–decoder's cells: main-lm-encdec and
+    train encdec, with K9 at their shapes."""
+    se, te = report["main-lm-encdec"], report["train_encdec"]
+    share = lambda v: "not measured" if v is None else f"{v:.1%}"  # noqa: E731
+    rm = te["remat"]
+    log(f"[summary] main-lm-encdec ({se['arch']}, {se['batch']} x {se['source']} frames, "
+        f"{se['batch']} x {se['prompt']} tokens): prefill {se['prefill_ms']:.1f} ms "
+        f"({se['prefill_tokens_per_s']:.0f} tokens/s), device idle "
+        f"{share(se['profile_prefill']['device_idle_share'])}; decode "
+        f"{se['decode_ms_per_step']:.2f} ms a step, device idle "
+        f"{share(se['profile_decode_8']['device_idle_share'])}; peak {se['peak_memory_gb']:.1f} "
+        f"GB; train encdec ({te['batch']} x {te['seq']}): {te['median_step_ms']:.1f} ms a step, "
+        f"{te['tokens_per_s']:.0f} tokens/s, MFU {te['mfu']:.1%}, peak "
+        f"{te['peak_memory_gb']:.1f} GB; remat on / off {rm['on']['grad_s']:.3f} / "
+        f"{rm['off']['grad_s']:.3f} s, {rm['on']['peak_memory_gb']:.1f} / "
+        f"{rm['off']['peak_memory_gb']:.1f} GB")
+
+
 def kernel_entry(name, entry, launches, arms=None):
     out = {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
            "launches": launches, "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
@@ -5016,17 +5222,31 @@ def main(argv) -> int:
                                     for k, e in lm_kernels.items()]}))
         return 0
     if "--zoo-only" in argv:  # this slice's phases alone: no ok line
-        lm_kernels, lm_launches = phase_lm(torch, peaks, report, zoo_only=True)
+        lm_kernels, lm_launches = phase_lm(torch, peaks, report, only="zoo")
         _lap(report, "lm")
         report["zoo"], lm_launches["zoo"] = phase_zoo(torch)
         _lap(report, "zoo")
-        grad_k, tr_launches, _ = phase_training(torch, peaks, report, zoo_only=True)
+        grad_k, tr_launches, _ = phase_training(torch, peaks, report, only="zoo")
         lm_launches.update(tr_launches)
         entries = dict(lm_kernels, flash_attention_bwd=grad_k["bwd"],
                        flash_attention_jvp=grad_k["jvp"], ssd_scan_bwd=grad_k["ssd"]["bwd"],
                        ssd_scan_jvp=grad_k["ssd"]["jvp"])
         totals = {k: sum(path.get(k, 0) for path in lm_launches.values()) for k in entries}
         zoo_summary(report)
+        log("[summary] wall s a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                     report["phase_s"].items()))
+        _write_report(report)
+        log(json.dumps({"kernels": [kernel_entry(k, e, totals[k]) for k, e in entries.items()]}))
+        return 0
+    if "--encdec-only" in argv:  # this slice's phases alone: no ok line
+        lm_kernels, lm_launches = phase_lm(torch, peaks, report, only="encdec")
+        _lap(report, "lm")
+        grad_k, tr_launches, _ = phase_training(torch, peaks, report, only="encdec")
+        lm_launches.update(tr_launches)
+        entries = dict(lm_kernels, flash_attention_bwd=grad_k["bwd"],
+                       flash_attention_jvp=grad_k["jvp"])
+        totals = {k: sum(path.get(k, 0) for path in lm_launches.values()) for k in entries}
+        encdec_summary(report)
         log("[summary] wall s a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                      report["phase_s"].items()))
         _write_report(report)
@@ -5558,6 +5778,7 @@ def main(argv) -> int:
         f"{kernels['ssd_scan_bwd']['ms']:.3f} ms, forward mode "
         f"{kernels['ssd_scan_jvp']['ms']:.3f} ms at {SSD_TRAIN}")
     zoo_summary(report)
+    encdec_summary(report)
     log("[summary] wall s a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                  report["phase_s"].items()))
     kernel_line = {"kernels": [kernel_entry(name, kernels[name], totals[name], arm_totals)

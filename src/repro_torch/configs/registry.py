@@ -1,11 +1,12 @@
 """Architecture registry: ``arch id`` resolution and the shape grid.
 
-The port's copy of ``repro.configs.registry`` for the architectures it
-builds: every decoder-only one of the reference's, dense GQA (qwen1.5,
-qwen3, starcoder2, stablelm, chameleon; attention on the flash-attention
-kernel), pure SSD (mamba2, the SSD scan kernel), MoE (olmoe, arctic) and
-the hybrid (jamba: SSD and attention layers, MoE every other layer).
-The encoder–decoder (seamless-m4t-large-v2) is not registered yet.
+The port's copy of ``repro.configs.registry``, every architecture of the
+reference's: dense GQA (qwen1.5, qwen3, starcoder2, stablelm, chameleon;
+attention on the flash-attention kernel), pure SSD (mamba2, the SSD scan
+kernel), MoE (olmoe, arctic), the hybrid (jamba: SSD and attention
+layers, MoE every other layer) and the encoder–decoder
+(seamless-m4t-large-v2: a non-causal encoder stack, and decoder layers
+that cross-attend to its output, on the same kernel).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ _ARCH_MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen1_5_0_5b",
     "jamba-v0.1-52b": "repro_torch.configs.jamba_v0_1_52b",
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
 
 ARCH_IDS = tuple(_ARCH_MODULES)

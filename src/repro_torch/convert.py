@@ -185,24 +185,37 @@ def _ref_leaf(name: str, sub: Optional[str] = None) -> str:
     return name + _suffixes(sub).get(name, "")
 
 
+def _unstack(blocks: list, n_layers: int, prefix: str, state: dict) -> None:
+    """``blocks`` (a period's block trees, leaves stacked over periods) into
+    ``state`` as ``{prefix}blocks.{layer}.{sub}.{leaf}``."""
+    period = len(blocks)
+    for i, block in enumerate(blocks):
+        for sub, leaves in block.items():
+            for leaf, arr in leaves.items():
+                arr = np.asarray(arr)
+                for j in range(n_layers // period):
+                    state[f"{prefix}blocks.{j * period + i}.{sub}.{_port_leaf(leaf, sub)}"] = arr[j]
+
+
 def model_state_from_numpy(tree: dict, cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """A tree shaped like ``repro.models.init``'s parameters (nested dicts
     and lists of numpy arrays: the parameters, their gradients, Adam's
     moments, a flat vector unraveled) as a dict keyed by the port's
     parameter names.  The leading period axis of
     ``tree["periods"]["blocks"][i]`` is unstacked: layer ``j·period + i``
-    is period ``j``, block ``i``."""
-    period = cfg.period()
+    is period ``j``, block ``i``; an encoder–decoder's
+    ``tree["encoder"]["periods"]["blocks"][0]`` (period 1, stacked over
+    ``encoder_layers``) becomes ``encoder.blocks.{layer}`` and its
+    ``final_norm`` ``encoder.final_norm``."""
     state = {}
-    for group in ("embed", "final_norm"):
-        for leaf, arr in tree[group].items():
+    groups = [("embed", tree["embed"]), ("final_norm", tree["final_norm"])]
+    if cfg.is_encdec:
+        groups.append(("encoder.final_norm", tree["encoder"]["final_norm"]))
+        _unstack(tree["encoder"]["periods"]["blocks"], cfg.encoder_layers, "encoder.", state)
+    for group, leaves in groups:
+        for leaf, arr in leaves.items():
             state[f"{group}.{_port_leaf(leaf)}"] = np.asarray(arr)
-    for i, block in enumerate(tree["periods"]["blocks"]):
-        for sub, leaves in block.items():
-            for leaf, arr in leaves.items():
-                arr = np.asarray(arr)
-                for j in range(cfg.n_layers // period):
-                    state[f"blocks.{j * period + i}.{sub}.{_port_leaf(leaf, sub)}"] = arr[j]
+    _unstack(tree["periods"]["blocks"], cfg.n_layers, "", state)
     return state
 
 
@@ -223,26 +236,34 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> M
     return model.requires_grad_(False)
 
 
+def _arrays(module, sub=None) -> dict:
+    return {_ref_leaf(k, sub): v.detach().cpu().numpy() for k, v in module.named_parameters()}
+
+
+def _stack(blocks, period: int) -> list:
+    """``blocks`` (one module a layer) as the reference's period blocks,
+    each leaf stacked over the periods."""
+    out = []
+    for i in range(period):
+        layers = blocks[i::period]
+        stacked = {}
+        for sub, _ in layers[0].named_children():
+            per_layer = [_arrays(getattr(layer, sub), sub) for layer in layers]
+            stacked[sub] = {k: np.stack([p[k] for p in per_layer]) for k in per_layer[0]}
+        out.append(stacked)
+    return out
+
+
 def model_params_to_numpy(model: Model) -> dict:
     """The inverse: the reference's parameter tree (nested dicts and lists
     of numpy arrays, blocks stacked over periods) from a port model."""
-
-    def arrays(module, sub=None):
-        return {_ref_leaf(k, sub): v.detach().cpu().numpy()
-                for k, v in module.named_parameters()}
-
-    cfg = model.cfg
-    period = cfg.period()
-    blocks = []
-    for i in range(period):
-        layers = [model.blocks[j * period + i] for j in range(cfg.n_layers // period)]
-        stacked = {}
-        for sub, first in layers[0].named_children():
-            per_layer = [arrays(getattr(layer, sub), sub) for layer in layers]
-            stacked[sub] = {k: np.stack([p[k] for p in per_layer]) for k in per_layer[0]}
-        blocks.append(stacked)
-    return {"embed": arrays(model.embed), "periods": {"blocks": blocks},
-            "final_norm": arrays(model.final_norm)}
+    tree = {"embed": _arrays(model.embed),
+            "periods": {"blocks": _stack(model.blocks, model.cfg.period())},
+            "final_norm": _arrays(model.final_norm)}
+    if model.cfg.is_encdec:
+        tree["encoder"] = {"periods": {"blocks": _stack(model.encoder.blocks, 1)},
+                           "final_norm": _arrays(model.encoder.final_norm)}
+    return tree
 
 
 def _tensors(tree, device, dtype=None):
@@ -285,8 +306,21 @@ def powersgd_state_from_numpy(q, error, *, device="cuda"):
                          error=_tensors(error, device, torch.float32))
 
 
-def train_batch_from_numpy(batch: dict, *, device="cuda") -> Dict[str, torch.Tensor]:
-    """The reference's train-step batch (``tokens`` and ``labels`` as int
-    arrays) as int64 tensors on ``device``."""
-    return {key: torch.as_tensor(np.asarray(val).astype(np.int64), device=device)
-            for key, val in batch.items()}
+def train_batch_from_numpy(batch: dict, *, dtype: Optional[torch.dtype] = None,
+                           device="cuda") -> Dict[str, torch.Tensor]:
+    """The reference's train-step batch as tensors on ``device``: integer
+    arrays (``tokens``, ``labels``, ``src_tokens``) as int64, float arrays
+    (an encoder–decoder's ``src_embeds``, ``embeds``) as floats, in
+    ``dtype`` or, without one, their own (bf16 included)."""
+
+    def tensor(val):
+        arr = np.asarray(val)
+        if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: exact through f32
+            return torch.as_tensor(arr.astype(np.float32), device=device).to(
+                dtype or torch.bfloat16)
+        if arr.dtype.kind == "f":
+            t = torch.as_tensor(arr, device=device)
+            return t if dtype is None else t.to(dtype)
+        return torch.as_tensor(arr.astype(np.int64), device=device)
+
+    return {key: tensor(val) for key, val in batch.items()}

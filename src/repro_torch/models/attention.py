@@ -7,8 +7,11 @@ on CUDA tensors and its plain version on CPU tensors; one-token decode
 reads the cache with the reference's grouped einsum, plain PyTorch as the
 reference's is plain jnp.  The KV cache is written in place (the
 reference returns an updated copy); its ``length`` is a host int, so a
-decode step needs no device read.  Cross-attention (``memory=``) comes
-with the encoder–decoder slice.
+decode step needs no device read.  Cross-attention (``memory=``, the
+encoder–decoder's decoder) attends to K/V that :func:`encode_memory`
+projects once from the encoder's output, non-causally on the kernel: in
+prefill a rectangular call, in decode a one-row one (as the reference
+calls its kernel there, not the grouped einsum).
 """
 
 from __future__ import annotations
@@ -105,20 +108,20 @@ def attn_apply(
     memory=None,
     backend: str = "auto",
 ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Self-attention with an optional KV cache.
+    """Self- or cross-attention with an optional KV cache.
 
     * ``cache=None``: attends within ``x`` (causal optional);
     * cache prefill (``s > 1``): writes K/V at ``cache.length`` and attends
       causally within ``x`` (a fresh cache starts at length 0);
-    * cache decode (``s == 1``): writes, then reads the valid prefix.
+    * cache decode (``s == 1``): writes, then reads the valid prefix;
+    * ``memory=(k, v)`` (B, Hkv, S_mem, dh) from :func:`encode_memory`:
+      queries from ``x`` attend to all of it, no cache.
 
     Writing past the cache's ``max_len`` raises ``ValueError`` (the
     reference clamps the write and overwrites its last slot).
     ``cfg.attn_impl == "reference"`` runs the materializing oracle in place
     of the kernel; otherwise ``backend`` selects (see ``kernels.ops``).
     """
-    if memory is not None:
-        raise NotImplementedError("cross-attention comes with the encoder-decoder slice")
     b, s, _ = x.shape
     backend = "reference" if cfg.attn_impl == "reference" else backend
     blocks = dict(block_q=cfg.attn_block_q, block_k=cfg.attn_block_k, backend=backend)
@@ -127,6 +130,9 @@ def attn_apply(
         positions = base + torch.arange(s, device=x.device)[None, :]
 
     q = _project_q(p, x, cfg, positions).transpose(1, 2)  # (B, H, S, dh)
+    if memory is not None:
+        ctx = kops.attention(q, *memory, causal=False, **blocks)
+        return ctx.transpose(1, 2).reshape(b, s, -1) @ p.wo.to(x.dtype), None
     k, v = _project_kv(p, x, cfg, positions)
     k, v = k.transpose(1, 2), v.transpose(1, 2)
     new_cache = None
@@ -173,3 +179,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, *, dtype=None, device
         v=torch.zeros(shape, dtype=dt, device=device),
         length=0,
     )
+
+
+def encode_memory(p: Attention, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V ``(B, Hkv, S, dh)`` from the encoder's output
+    ``(B, S, D)``: its ``wk`` / ``wv`` products alone (no bias and no
+    k-norm, even where the config has them, as the reference's), laid out
+    contiguously once, so no decode step copies them."""
+    b, s, _ = enc_out.shape
+    dt = enc_out.dtype
+    k = (enc_out @ p.wk.to(dt)).reshape(b, s, -1, cfg.head_dim)
+    v = (enc_out @ p.wv.to(dt)).reshape(b, s, -1, cfg.head_dim)
+    return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()

@@ -2,10 +2,9 @@
 
 One frozen dataclass describes every architecture of the zoo, with the
 reference's fields, defaults and properties, so that a configuration reads
-the same in both packages.  The port builds every decoder-only family
-(dense GQA, pure SSD, MoE and the SSD/attention/MoE hybrid;
-``repro_torch.configs`` registers them); encoder–decoder configurations
-describe models that raise ``NotImplementedError`` until their slice.
+the same in both packages.  The port builds every family (dense GQA, pure
+SSD, MoE, the SSD/attention/MoE hybrid and the encoder–decoder;
+``repro_torch.configs`` registers them).
 
 ``attn_impl`` names the reference's lowerings ("chunked", "pallas",
 "interpret"), which have no meaning here: the port runs its attention and

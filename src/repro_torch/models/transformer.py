@@ -1,27 +1,36 @@
-"""Model assembly: decoder-only LMs over attention, SSD and MoE blocks.
+"""Model assembly: decoder-only LMs, hybrid stacks and the encoder–decoder.
 
-The port of ``repro.models.transformer``'s decoder-only path.  The stack is
-a ``ModuleList`` of ``n_layers`` blocks, each run in turn (the reference
-stacks its parameters per period and scans them; layer ``j·period + i``
-here is period ``j``, block ``i`` there): dense and hybrid mixers
-(``cfg.layer_kinds()``) and FFNs ``mlp``, ``moe`` or ``moe+mlp``
-(``cfg.ffn_kinds()``; arctic's dense residual adds the MLP to the MoE
-output).  Three modes share the block code:
+The port of ``repro.models.transformer``.  The stack is a ``ModuleList`` of
+``n_layers`` blocks, each run in turn (the reference stacks its parameters
+per period and scans them; layer ``j·period + i`` here is period ``j``,
+block ``i`` there): dense and hybrid mixers (``cfg.layer_kinds()``) and
+FFNs ``mlp``, ``moe`` or ``moe+mlp`` (``cfg.ffn_kinds()``; arctic's dense
+residual adds the MLP to the MoE output).  An encoder–decoder
+(``cfg.is_encdec``, seamless) adds ``encoder``: ``encoder_layers``
+attention + MLP blocks run non-causally over the source (``src_embeds``,
+or ``src_tokens`` through the embedding) with sinusoidal positions from 0,
+then its own final norm; every decoder block then cross-attends
+(``cross_norm``, ``cross_attn``) to K/V projected once per layer from the
+encoder's output (:func:`_cross_memory`), and the decoder takes no
+positions of its own, as the reference's.  Three modes share the block
+code:
 
 * :func:`forward_hidden` — full sequence, no cache;
-* :func:`prefill` — full sequence with cache write-back (serving);
-* :func:`decode_step` — one token against the carried caches.
+* :func:`prefill` — full sequence with cache write-back (serving; an
+  encoder–decoder encodes here and carries the cross K/V in
+  ``DecodeState.memory``);
+* :func:`decode_step` — one token against the carried caches (and memory).
 
 Every entry point takes ``backend`` (``auto`` | ``cuda`` | ``plain`` |
 ``reference``, see :mod:`repro_torch.kernels.ops`) and hands it to the
 kernels: on CUDA tensors ``auto`` runs the flash-attention (K9) and SSD
 scan (K10) kernels, on CPU tensors their plain versions.  MoE layers sum
 their auxiliary losses into :func:`forward_hidden`'s second output.
-Encoder–decoder models raise ``NotImplementedError`` until their slice.
 
 With ``cfg.remat``, a full-sequence pass that autograd records (no caches,
-as the reference's ``jax.checkpoint`` of each period) runs each block
-under non-reentrant ``torch.utils.checkpoint``: its activations are
+as the reference's ``jax.checkpoint`` of each period; the encoder's stack
+too) runs each block under non-reentrant ``torch.utils.checkpoint``, a
+decoder block with its layer's cross K/V as an input: its activations are
 recomputed in the backward, the kernels through their custom ops, the MoE
 layers on the forward's expert ids (``moe.remat_contexts``).  Inside
 a ``torch.func`` transform or under forward-mode AD (the Hessian-free
@@ -60,27 +69,27 @@ from repro_torch.models.layers import (
 Cache = Union[attn.KVCache, ssm.SSMState]
 
 
-def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.is_encdec:
-        raise NotImplementedError(f"{cfg.name}: encoder-decoder models come with their slice")
-
-
 # ---------------------------------------------------------------------------
 # Blocks
 # ---------------------------------------------------------------------------
 
 
 class Block(nn.Module):
-    """``mixer_norm`` + ``attn`` or ``ssm``, then ``ffn_norm`` + ``mlp``,
-    ``moe`` or both (``moe+mlp``)."""
+    """``mixer_norm`` + ``attn`` or ``ssm``, with ``cross`` then
+    ``cross_norm`` + ``cross_attn``, then ``ffn_norm`` + ``mlp``, ``moe`` or
+    both (``moe+mlp``)."""
 
-    def __init__(self, generator, cfg: ModelConfig, mixer: str, ffn: str, device):
+    def __init__(self, generator, cfg: ModelConfig, mixer: str, ffn: str, device,
+                 cross: bool = False):
         super().__init__()
         self.mixer_norm = norm_init(cfg, device=device)
         if mixer == "attn":
             self.attn = attn.attn_init(generator, cfg, device=device)
         else:
             self.ssm = ssm.mamba_init(generator, cfg, device=device)
+        if cross:
+            self.cross_norm = norm_init(cfg, device=device)
+            self.cross_attn = attn.attn_init(generator, cfg, device=device)
         if ffn != "none":
             self.ffn_norm = norm_init(cfg, device=device)
         if ffn in ("mlp", "moe+mlp"):
@@ -95,9 +104,10 @@ class Block(nn.Module):
 
 
 def _block_apply(block: Block, x, cfg: ModelConfig, *, causal=True, cache=None,
-                 positions=None, backend="auto"):
+                 memory=None, positions=None, backend="auto"):
     """One residual block; returns ``(x, new_cache, aux)``, ``aux`` the MoE
-    loss (None without a MoE FFN)."""
+    loss (None without a MoE FFN).  A cross block attends to ``memory``,
+    its layer's ``(k, v)``."""
     h = norm_apply(block.mixer_norm, x, cfg)
     if hasattr(block, "attn"):
         out, new_cache = attn.attn_apply(block.attn, h, cfg, causal=causal, cache=cache,
@@ -105,6 +115,11 @@ def _block_apply(block: Block, x, cfg: ModelConfig, *, causal=True, cache=None,
     else:
         out, new_cache = ssm.mamba_apply(block.ssm, h, cfg, state=cache, backend=backend)
     x = x + out
+    if hasattr(block, "cross_attn"):
+        h = norm_apply(block.cross_norm, x, cfg)
+        out, _ = attn.attn_apply(block.cross_attn, h, cfg, causal=False, memory=memory,
+                                 backend=backend)
+        x = x + out
     aux = None
     if hasattr(block, "ffn_norm"):
         h = norm_apply(block.ffn_norm, x, cfg)
@@ -118,20 +133,33 @@ def _block_apply(block: Block, x, cfg: ModelConfig, *, causal=True, cache=None,
     return x, new_cache, aux
 
 
-class Model(nn.Module):
-    """``embed``, ``blocks`` (one per layer) and ``final_norm``, built for
-    ``cfg`` (kept as ``self.cfg``)."""
+class Encoder(nn.Module):
+    """An encoder–decoder's ``blocks`` (``encoder_layers`` attention + MLP
+    blocks) and ``final_norm``."""
 
     def __init__(self, generator, cfg: ModelConfig, device):
         super().__init__()
-        _check_supported(cfg)
+        self.blocks = nn.ModuleList(Block(generator, cfg, "attn", "mlp", device)
+                                    for _ in range(cfg.encoder_layers))
+        self.final_norm = norm_init(cfg, device=device)
+
+
+class Model(nn.Module):
+    """``embed``, ``blocks`` (one per layer), ``final_norm`` and, for an
+    encoder–decoder, ``encoder``; built for ``cfg`` (kept as
+    ``self.cfg``)."""
+
+    def __init__(self, generator, cfg: ModelConfig, device):
+        super().__init__()
         self.cfg = cfg
         self.embed = embed_init(generator, cfg, device=device)
         self.blocks = nn.ModuleList(
-            Block(generator, cfg, mixer, ffn, device)
+            Block(generator, cfg, mixer, ffn, device, cross=cfg.cross_attention)
             for mixer, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds())
         )
         self.final_norm = norm_init(cfg, device=device)
+        if cfg.is_encdec:
+            self.encoder = Encoder(generator, cfg, device)
 
     def forward(self, fn, *args, **kwargs):
         """``fn(self, *args, **kwargs)``: with
@@ -149,32 +177,40 @@ def init(generator: torch.Generator, cfg: ModelConfig, *, device="cuda") -> Mode
     return Model(generator, cfg, device)
 
 
-def _remat(x: torch.Tensor, cfg: ModelConfig, caches) -> bool:
+def _remat(x: torch.Tensor, cfg: ModelConfig, caches, blocks) -> bool:
     """Whether the blocks run checkpointed: ``cfg.remat``, no caches, and a
-    pass that autograd records outside any ``torch.func`` transform or
-    forward-mode AD (see the module's docstring)."""
-    return (cfg.remat and caches is None and torch.is_grad_enabled() and x.requires_grad
-            and not torch._C._functorch.is_functorch_wrapped_tensor(x)
-            and forward_ad.unpack_dual(x).tangent is None)
+    pass that autograd records (through ``x`` or the first block's
+    parameters: an encoder's input is data) outside any ``torch.func``
+    transform or forward-mode AD (see the module's docstring)."""
+    if not (cfg.remat and caches is None and torch.is_grad_enabled()):
+        return False
+    probes = (x, next(blocks[0].parameters()))
+    return any(t.requires_grad for t in probes) and not any(
+        torch._C._functorch.is_functorch_wrapped_tensor(t)
+        or forward_ad.unpack_dual(t).tangent is not None for t in probes)
 
 
 def _block_rerun(block: Block, x, cfg: ModelConfig, kw, *named):
     return torch.func.functional_call(block, dict(named), (x, cfg), kw)
 
 
-def _stack_apply(params: Model, x, cfg: ModelConfig, *, causal=True, caches=None,
+def _stack_apply(blocks, x, cfg: ModelConfig, *, causal=True, caches=None, memory=None,
                  backend="auto"):
-    """Every block in turn; returns ``(x, new caches | None, aux)``, ``aux``
-    the f32 sum of the MoE layers' losses (0 without any)."""
-    remat = _remat(x, cfg, caches)
+    """Every block of ``blocks`` in turn, block ``i`` with ``caches[i]`` and
+    ``memory[i]`` where given; returns ``(x, new caches | None, aux)``,
+    ``aux`` the f32 sum of the MoE layers' losses (0 without any)."""
+    remat = _remat(x, cfg, caches, blocks)
     new_caches = []
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i, block in enumerate(params.blocks):
-        kw = dict(causal=causal, cache=None if caches is None else caches[i], backend=backend)
+    for i, block in enumerate(blocks):
+        kw = dict(causal=causal, cache=None if caches is None else caches[i],
+                  memory=None if memory is None else memory[i], backend=backend)
         if remat:
             # The block's parameters go in as inputs: the recompute runs
             # after a functional_call that supplied them has restored the
-            # module's own.  Its MoE layers reuse the forward's expert ids.
+            # module's own.  Its MoE layers reuse the forward's expert ids;
+            # its cross K/V (in kw) are inputs too, so their gradients
+            # reach the encoder.
             x, nc, a = checkpoint(_block_rerun, block, x, cfg, kw,
                                   *(dict(block.named_parameters()).items()),
                                   use_reentrant=False, preserve_rng_state=False,
@@ -203,27 +239,60 @@ def _decoder_inputs(params: Model, batch, cfg: ModelConfig):
 
 
 def _add_positions(x, cfg: ModelConfig, start: int = 0):
-    """Absolute sinusoidal positions for models without RoPE."""
+    """Absolute sinusoidal positions for a decoder-only model without RoPE
+    (callers skip an encoder–decoder's decoder: the reference adds it
+    none)."""
     if cfg.rope:
         return x
     return x + sinusoidal_positions(x.shape[1], x.shape[2], x.dtype, start=start,
                                     device=x.device)[None]
 
 
+def _encode(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
+    """The encoder over ``batch["src_embeds"]`` (``input_mode ==
+    "embeddings"``) or ``batch["src_tokens"]``: sinusoidal positions from 0,
+    the non-causal stack, its final norm; ``(B, S_src, D)``."""
+    device = params.embed.table.device
+    if cfg.input_mode == "embeddings":
+        x = torch.as_tensor(batch["src_embeds"], device=device).to(compute_dtype(cfg))
+    else:
+        x = embed_apply(params.embed, _tokens(batch["src_tokens"], device), cfg)
+    x = x + sinusoidal_positions(x.shape[1], x.shape[2], x.dtype, device=device)[None]
+    x, _, _ = _stack_apply(params.encoder.blocks, x, cfg, causal=False, backend=backend)
+    return norm_apply(params.encoder.final_norm, x, cfg)
+
+
+def _cross_memory(params: Model, enc_out, cfg: ModelConfig):
+    """Each decoder layer's cross-attention ``(k, v)``, a list."""
+    return [attn.encode_memory(block.cross_attn, enc_out, cfg) for block in params.blocks]
+
+
+def _decoder_start(params: Model, batch, cfg: ModelConfig, backend):
+    """The decoder's input and, for an encoder–decoder, the memory of the
+    encoded source (None otherwise)."""
+    x = _decoder_inputs(params, batch, cfg)
+    if not cfg.is_encdec:
+        return _add_positions(x, cfg), None
+    return x, _cross_memory(params, _encode(params, batch, cfg, backend=backend), cfg)
+
+
 def forward_hidden(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
     """Full-sequence decoder forward; returns ``(hidden (B, S, D), aux)``
     with ``aux`` the f32 sum of the MoE layers' losses (0 without any), as
-    the reference returns it."""
-    x = _add_positions(_decoder_inputs(params, batch, cfg), cfg)
-    x, _, aux = _stack_apply(params, x, cfg, causal=True, backend=backend)
+    the reference returns it.  An encoder–decoder's ``batch`` also holds
+    its source (:func:`_encode`)."""
+    x, memory = _decoder_start(params, batch, cfg, backend)
+    x, _, aux = _stack_apply(params.blocks, x, cfg, causal=True, memory=memory,
+                             backend=backend)
     return norm_apply(params.final_norm, x, cfg), aux
 
 
 def lm_loss(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
     """Causal-LM loss: chunked cross-entropy plus the MoE aux term.
 
-    ``batch`` holds ``tokens`` (or ``embeds``) and ``labels`` (int, −1 =
-    masked), numpy or tensors.  Returns ``(loss, {"xent", "aux",
+    ``batch`` holds ``tokens`` (or ``embeds``), an encoder–decoder's source
+    (``src_embeds`` or ``src_tokens``) and ``labels`` (int, −1 = masked),
+    numpy or tensors.  Returns ``(loss, {"xent", "aux",
     "tokens"})``, as the reference does."""
     hidden, aux = forward_hidden(params, batch, cfg, backend=backend)
     w = lm_head_weights(params.embed, cfg)
@@ -302,12 +371,11 @@ def _chunked_xent(hidden, w, labels, cfg: ModelConfig):
 
 class DecodeState(NamedTuple):
     caches: List[Cache]  # one KVCache or SSMState per layer
-    memory: Optional[object]  # cross-attention K/V (encoder-decoder only)
+    memory: Optional[list]  # cross-attention (k, v) per layer (encoder-decoder only)
     length: int
 
 
 def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> DecodeState:
-    _check_supported(cfg)
     caches = [
         attn.init_cache(cfg, batch, max_len, device=device) if kind == "attn"
         else ssm.init_ssm_state(cfg, batch, device=device)
@@ -323,22 +391,27 @@ def _logits(params: Model, x, cfg: ModelConfig):
 
 def prefill(params: Model, batch, state: DecodeState, cfg: ModelConfig, *, backend="auto"):
     """Consume the prompt, filling the caches; returns ``(state,
-    last_logits (B, 1, padded vocab))``."""
-    x = _add_positions(_decoder_inputs(params, batch, cfg), cfg)
-    x, caches, _ = _stack_apply(params, x, cfg, causal=True, caches=state.caches,
-                                backend=backend)
+    last_logits (B, 1, padded vocab))``.  An encoder–decoder encodes the
+    batch's source here and carries its cross K/V in the state's
+    ``memory``."""
+    x, memory = _decoder_start(params, batch, cfg, backend)
+    memory = state.memory if memory is None else memory
+    x, caches, _ = _stack_apply(params.blocks, x, cfg, causal=True, caches=state.caches,
+                                memory=memory, backend=backend)
     logits = _logits(params, x[:, -1:, :], cfg)
-    return DecodeState(caches=caches, memory=state.memory,
+    return DecodeState(caches=caches, memory=memory,
                        length=state.length + x.shape[1]), logits
 
 
 def decode_step(params: Model, tokens, state: DecodeState, cfg: ModelConfig, *, backend="auto"):
     """One serving step: new token(s) (B, s) → logits (B, s, padded vocab);
-    the caches advance in place and the state's length by ``s``."""
+    the caches advance in place and the state's length by ``s``; an
+    encoder–decoder's layers cross-attend to the state's ``memory``."""
     x = embed_apply(params.embed, _tokens(tokens, params.embed.table.device), cfg)
-    x = _add_positions(x, cfg, start=state.length)
-    x, caches, _ = _stack_apply(params, x, cfg, causal=True, caches=state.caches,
-                                backend=backend)
+    if not cfg.is_encdec:
+        x = _add_positions(x, cfg, start=state.length)
+    x, caches, _ = _stack_apply(params.blocks, x, cfg, causal=True, caches=state.caches,
+                                memory=state.memory, backend=backend)
     logits = _logits(params, x, cfg)
     return logits, DecodeState(caches=caches, memory=state.memory,
                                length=state.length + x.shape[1])

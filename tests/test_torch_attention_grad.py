@@ -37,12 +37,16 @@ from repro_torch.kernels import ops as tops  # noqa: E402
 from repro_torch.kernels import ssd_scan as ss  # noqa: E402
 
 # b, h, hkv, sq, sk, dh, causal: GQA with and without causal masking, a
-# ragged causal block at dh = 128, a cross-attention shape.
+# ragged causal block at dh = 128, a cross-attention shape; the encoder–
+# decoder's (dh 64, non-causal): one query row against a ragged 333 keys,
+# a rectangular cross call.
 CASES = [
     (2, 4, 2, 64, 64, 32, False),
     (1, 8, 2, 96, 96, 64, True),
     (1, 4, 1, 33, 33, 128, True),
     (1, 2, 1, 40, 72, 16, False),
+    (1, 4, 4, 1, 333, 64, False),
+    (2, 4, 4, 30, 100, 64, False),
 ]
 F32, BF16 = "float32", "bfloat16"
 TDT = {F32: torch.float32, BF16: torch.bfloat16}
@@ -239,7 +243,7 @@ def _reference(case, dtype):
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
-@pytest.mark.parametrize("case", [CASES[0], CASES[1], CASES[3]])
+@pytest.mark.parametrize("case", [CASES[0], CASES[1], CASES[3], CASES[4], CASES[5]])
 def test_plain_arms_match_reference(case, dtype):
     causal = case[-1]
     arrays = _arrays(case, 0) + [np.random.default_rng(3).standard_normal(

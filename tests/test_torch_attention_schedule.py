@@ -54,7 +54,8 @@ WARP = 16  # rows a warp owns
 # sq != sk both ways under causal masking (key tiles past every query row
 # under causal masking run no step), dh 128 on 32-row steps, dh 160
 # (stablelm-12b: h 32 over hkv 8) on 16-row dK / dV and 32-key dQ / JVP
-# steps, ragged and not.
+# steps, ragged and not; seamless-m4t-large-v2's non-causal dh 64: one query
+# row against a ragged 333 keys, a rectangular sq < sk.
 CASES = [
     (1, 4, 2, 96, 96, 64, True),
     (2, 4, 1, 130, 70, 16, True),
@@ -64,6 +65,8 @@ CASES = [
     (1, 8, 2, 150, 150, 64, False),
     (1, 32, 8, 70, 70, 160, True),
     (1, 4, 1, 100, 130, 160, False),
+    (1, 4, 4, 1, 333, 64, False),
+    (1, 4, 2, 100, 333, 64, False),
 ]
 BAR = {torch.float32: 1e-6, torch.bfloat16: 1e-2}  # of the plain version's max abs
 

@@ -790,6 +790,13 @@ LM_TOL = {torch.float32: dict(rtol=2e-4, atol=5e-4), torch.bfloat16: dict(rtol=2
     (1, 4, 1, 100, 130, 160, False, 0),
     (2, 8, 2, 1, 257, 160, True, 256),
     (2, 4, 1, 70, 150, 160, True, 80),
+    # seamless-m4t-large-v2 (16 heads, dh 64, non-causal): the encoder's
+    # self-attention, prefill's cross-attention (1 024 queries against 4 096
+    # source keys), decode's one-row cross call, and a ragged one-row call.
+    (1, 16, 16, 4096, 4096, 64, False, 0),
+    (1, 16, 16, 1024, 4096, 64, False, 0),
+    (4, 16, 16, 1, 4096, 64, False, 0),
+    (1, 16, 16, 1, 333, 64, False, 0),
 ])
 def test_flash_attention(device, dtype, case):
     b, h, hkv, sq, sk, dh, causal, off = case
@@ -830,6 +837,10 @@ def _rel(got, want):
     (1, 32, 8, 260, 260, 160, True),
     (1, 4, 1, 70, 150, 160, False),
     (2, 8, 2, 130, 70, 160, True),
+    # seamless-m4t-large-v2's training (non-causal, dh 64): the encoder at
+    # 2 048 frames, a ragged cross shape with sq < sk.
+    (1, 16, 16, 2048, 2048, 64, False),
+    (1, 16, 16, 100, 333, 64, False),
 ])
 def test_flash_attention_grad_arms(device, dtype, case):
     b, h, hkv, sq, sk, dh, causal = case
@@ -1051,22 +1062,27 @@ def test_ssd_scan_matches_sequential_oracle(device):
     torch.testing.assert_close(got / scale, want / scale, rtol=4e-4, atol=1e-3)
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-1.3b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mamba2-1.3b", "seamless-m4t-large-v2"])
 def test_smoke_model_serving_on_card(device, arch):
     """A SMOKE model's forward, prefill and decode through the kernels
-    against the same model run through the plain versions on the card."""
+    against the same model run through the plain versions on the card (the
+    encoder–decoder on seeded source frames)."""
     from repro_torch import models
     from repro_torch.configs import get_smoke_config
 
     cfg = get_smoke_config(arch)
     model = models.init(torch.Generator(device=device).manual_seed(0), cfg, device=device)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=device,
-                           generator=torch.Generator(device=device).manual_seed(1))
+    gen = torch.Generator(device=device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40), device=device, generator=gen)
+    batch = {"tokens": tokens}
+    if cfg.is_encdec:
+        batch["src_embeds"] = torch.randn(2, cfg.source_len, cfg.d_model, device=device,
+                                          generator=gen)
     runs = {}
     for backend in ("cuda", "plain"):
-        hidden, _ = models.forward_hidden(model, {"tokens": tokens}, cfg, backend=backend)
+        hidden, _ = models.forward_hidden(model, batch, cfg, backend=backend)
         state = models.init_decode_state(cfg, 2, 48, device=device)
-        state, last = models.prefill(model, {"tokens": tokens}, state, cfg, backend=backend)
+        state, last = models.prefill(model, batch, state, cfg, backend=backend)
         step, state = models.decode_step(model, tokens[:, :1], state, cfg, backend=backend)
         runs[backend] = (hidden, last, step)
     for got, want in zip(runs["cuda"], runs["plain"]):

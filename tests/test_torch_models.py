@@ -549,13 +549,27 @@ def test_bf16_serving_matches_reference(runs, arch):
 
 
 def test_unported_families_raise():
-    """Only the encoder-decoder family is refused; a MoE configuration
-    builds (the zoo's MoE models: ``tests/test_torch_zoo.py``)."""
+    """No family is refused any more: a MoE configuration builds (the zoo's
+    MoE models: ``tests/test_torch_zoo.py``), and an encoder–decoder one
+    builds an encoder and cross blocks and serves a step
+    (``tests/test_torch_encdec.py`` holds it to the reference)."""
     moe = ModelConfig(name="moe", family="moe", n_layers=2, d_model=64, n_heads=4,
                       n_kv_heads=4, d_ff=128, vocab_size=256, n_experts=4,
                       experts_per_token=2, dtype=F32)
     model = tmodels.init(torch.Generator().manual_seed(0), moe, device="cpu")
     assert all(hasattr(block, "moe") for block in model.blocks)
-    encdec = dataclasses.replace(moe, family="audio", n_experts=0, encoder_layers=2)
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tmodels.init_decode_state(encdec, 1, 8, device="cpu")
+    assert not hasattr(model, "encoder")
+    encdec = dataclasses.replace(moe, family="audio", n_experts=0, encoder_layers=3,
+                                 cross_attention=True, rope=False, input_mode="embeddings")
+    model = tmodels.init(torch.Generator().manual_seed(0), encdec, device="cpu")
+    assert len(model.encoder.blocks) == 3
+    assert all(hasattr(b, "mlp") and not hasattr(b, "cross_attn") for b in model.encoder.blocks)
+    assert all(hasattr(b, "cross_norm") and hasattr(b, "cross_attn") for b in model.blocks)
+    batch = {"src_embeds": torch.randn(1, 10, 64, generator=torch.Generator().manual_seed(1)),
+             "tokens": torch.tensor([[3, 4, 5]])}
+    state = tmodels.init_decode_state(encdec, 1, 8, device="cpu")
+    state, last = tmodels.prefill(model, batch, state, encdec)
+    assert len(state.memory) == 2 and state.memory[0][0].shape == (1, 4, 10, 16)
+    logits, state = tmodels.decode_step(model, last[:, -1, :256].argmax(-1, keepdim=True), state,
+                                        encdec)
+    assert state.length == 4 and bool(torch.isfinite(logits).all())

@@ -9,7 +9,8 @@ MoE olmoe (top-2 of 8, dropless at SMOKE) and arctic (MoE plus a dense
 residual MLP); the hybrid jamba (SSD layers, one attention layer and MoE
 every other layer in its period of 8).
 
-* configurations, layer kinds, periods and parameter counts equal;
+* configurations, layer kinds, periods and parameter counts equal (the
+  encoder–decoder seamless too; its runs are ``test_torch_encdec.py``'s);
 * ``forward_hidden`` (its aux loss too), ``prefill`` (last logits, cache
   and state contents) and four ``decode_step`` logits against the
   reference run with ``attn_impl="interpret"`` and ``"chunked"`` at 2e-4 /
@@ -55,7 +56,8 @@ from repro_torch.models import moe as tmoe  # noqa: E402
 from repro_torch.models import transformer  # noqa: E402
 
 ARCHS = ("qwen3-8b", "starcoder2-3b", "stablelm-12b", "chameleon-34b", "olmoe-1b-7b",
-         "arctic-480b", "jamba-v0.1-52b")
+         "arctic-480b", "jamba-v0.1-52b", "seamless-m4t-large-v2")
+DECODER_ONLY = ARCHS[:-1]  # run on tokens alone below
 MOE = ("olmoe-1b-7b", "arctic-480b", "jamba-v0.1-52b")
 B, S, MAX_LEN, DECODE = 2, 24, 32, 4
 TIGHT = dict(rtol=2e-4, atol=5e-4)
@@ -72,11 +74,18 @@ def _close(got, want, **tol):
 
 
 def test_registry_holds_every_decoder_only_arch():
-    assert set(tregistry.ARCH_IDS) == set(jregistry.ARCH_IDS) - {"seamless-m4t-large-v2"}
-    encdec = jregistry.get_smoke_config("seamless-m4t-large-v2")
-    with pytest.raises(NotImplementedError, match="encoder-decoder"):
-        tmodels.init(torch.Generator().manual_seed(0),
-                     tmodels.ModelConfig(**dataclasses.asdict(encdec)), device="cpu")
+    """The registry holds every arch of the reference, the encoder–decoder
+    included, and seamless builds (an encoder, cross blocks, the
+    reference's parameter count)."""
+    assert tregistry.ARCH_IDS == jregistry.ARCH_IDS
+    arch = "seamless-m4t-large-v2"
+    cfg = tregistry.get_smoke_config(arch)
+    model = tmodels.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert len(model.encoder.blocks) == cfg.encoder_layers
+    assert all(hasattr(block, "cross_attn") for block in model.blocks)
+    jparams = jmodels.init(jax.random.PRNGKey(0), jregistry.get_smoke_config(arch))
+    assert sum(p.numel() for p in model.parameters()) == sum(
+        leaf.size for leaf in jax.tree_util.tree_leaves(jparams))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -136,7 +145,7 @@ def runs():
     """Both packages on every SMOKE model, the reference under both of its
     lowerings (one reference init and one port model per arch)."""
     out = {}
-    for arch in ARCHS:
+    for arch in DECODER_ONLY:
         base = jregistry.get_smoke_config(arch)
         params = jmodels.init(jax.random.PRNGKey(0), base)
         tree = jax.tree_util.tree_map(np.asarray, params)
@@ -152,7 +161,7 @@ def runs():
 
 
 @pytest.mark.parametrize("impl", ["interpret", "chunked"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODER_ONLY)
 def test_forward_hidden_matches_reference(runs, arch, impl):
     got, want = runs[arch]["port"], runs[arch][impl]
     assert got["hidden"].shape == (B, S, runs[arch]["cfg"].d_model)
@@ -164,7 +173,7 @@ def test_forward_hidden_matches_reference(runs, arch, impl):
 
 
 @pytest.mark.parametrize("impl", ["interpret", "chunked"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODER_ONLY)
 def test_prefill_matches_reference(runs, arch, impl):
     run, ref = runs[arch]["port"], runs[arch][impl]
     cfg = runs[arch]["cfg"]
@@ -187,7 +196,7 @@ def test_prefill_matches_reference(runs, arch, impl):
 
 
 @pytest.mark.parametrize("impl", ["interpret", "chunked"])
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODER_ONLY)
 def test_decode_steps_match_reference(runs, arch, impl):
     run, ref = runs[arch]["port"], runs[arch][impl]
     assert run["length"] == S + DECODE
@@ -226,7 +235,7 @@ def test_lm_loss_and_gradients_match_reference(runs, arch):
         assert np.abs(g.numpy() - want[name]).max() <= 2e-4 * scale, name
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", DECODER_ONLY)
 def test_grad_step(runs, arch):
     cfg = runs[arch]["cfg"]
     params = params_dict(tmodels.init(torch.Generator().manual_seed(0), cfg, device="cpu"))
