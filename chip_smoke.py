@@ -369,6 +369,23 @@ Phases, each of which fails the script when it fails:
               kernels (K10's training forward and backward in the
               gradients, its tangent map in ``linearize``) against the
               plain runs: iterations within one a step, loss to 1e-4.
+21. dryrun  — the dry-run (``repro_torch.launch.dryrun``'s trace on the
+              meta device, ``launch.trace_stats``) of shapes the script ran
+              at full width, each predicted peak held within
+              ``DRYRUN_TOL`` (15 %) of the ``max_memory_allocated()`` its
+              phase measured (``report``): qwen1.5-0.5b's gradient step
+              with ``cfg.remat`` on and off (parameters,
+              AdamW state and the first gradients held, as the train
+              phase holds them), main-lm-encdec's and main-lm-moe's
+              prefill and decode; the traced FLOPs beside ``model_flops``
+              and the roofline bound beside the measured time.  Then the
+              GPC cell (``launch.gpc_dryrun``: one def-CG(8) iteration over
+              K3 on pre-scaled digits) at n = 4 096 in f64 against the same
+              iteration on the plain versions (1e-12 relative, K3
+              launched), and at n = 131 072 in f32, its predicted peak
+              (X, the vectors, K3's scratch) held against the measured one
+              and its time beside its bound.  The paper's n = 2²⁰ cell is
+              traced, not run.
 
 A ``[summary]`` line gives the device launches per damped LSMR and
 deflated def-CG iteration (without and with the Jacobi preconditioner),
@@ -395,7 +412,9 @@ check-lm-grad at ATTN_160 and SSD_JAMBA (each arm held and timed),
 main-lm-moe, zoo, and train's mamba2 (remat on against off), olmoe and
 mamba2 4 x 4 096 cells, likewise; ``--encdec-only`` runs phases 1, 2 and
 the encoder–decoder's: check-lm and check-lm-grad at its shapes (held and
-timed), main-lm-encdec and train's seamless cell, likewise.
+timed), main-lm-encdec and train's seamless cell, likewise;
+``--dryrun-only`` runs phases 1, 2, main-lm-encdec, train's qwen1.5 cell
+and the dry-run's phase 21 on their peaks, likewise.
 """
 
 from __future__ import annotations
@@ -416,6 +435,17 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
+from repro_torch.configs.gpc_mnist import CONFIG as GPC  # noqa: E402
+from repro_torch.kernels.work import (  # noqa: E402
+    attn_work,
+    grad_work,
+    rbf_work,
+    rect_work,
+    ssd_grad_work,
+    ssd_work,
+)
+from repro_torch.launch.roofline import PEAKS  # noqa: E402  (card peaks, keyed by name)
+
 PAPER_N = 36551  # benchmarks/paper_table1.py: the paper's Table 1 n
 RAGGED_N = 1000
 K, ELL = 8, 12
@@ -427,22 +457,18 @@ RBF_REPS = 3  # one f64 call at the paper's n takes a quarter second
 
 # configs/gpc_mnist.py's widths: d = 784, θ = λ = 3, block 1024; the
 # Nyström sketch of SolveSpec's default rank.
-D, THETA, LENGTHSCALE, BLOCK, PRECOND_RANK = 784, 3.0, 3.0, 1024, 16
+D, THETA, LENGTHSCALE, BLOCK = GPC.d, GPC.theta, GPC.lengthscale, GPC.block
+PRECOND_RANK = 16
 RBF_RS = (1, K, PRECOND_RANK + 8)  # a CG step, the A·W refresh, the sketch
 SCALE_N = 131072
 AGREE_N = 4000
 CUT_N = 16384  # the preconditioned sequences' n when the kernel is slow
 CUT_MS = 250.0
 
-# Card peaks (NVIDIA data sheets; dense).  "float64"/"float32" are the
-# CUDA-core rates the SIMT kernels run at; "float64_tensor" is the FP64
-# tensor-core rate, the least time of f64 GEMM-shaped work (the RBF Gram
-# matvec, the extraction's S Sᵀ and uᵀS).  Keyed by a substring of the
-# card name.
-PEAKS = {
-    "H100": {"bytes": 3.35e12, "float64": 34e12, "float32": 67e12,
-             "float64_tensor": 67e12, "bfloat16_tensor": 989e12},
-}
+# Card peaks: launch/roofline.py's PEAKS (NVIDIA data sheets; dense).
+# "float64"/"float32" are the CUDA-core rates the SIMT kernels run at;
+# "float64_tensor" is the FP64 tensor-core rate, the least time of f64
+# GEMM-shaped work (the RBF Gram matvec, the extraction's S Sᵀ and uᵀS).
 GEMM_SHAPED = ("self_gram", "recombine_blocks")
 # The arm each kernel's entry of the kernels line times, where it is not
 # the TPU function's: the arm the main paths run.
@@ -1072,18 +1098,6 @@ def rbf_inputs(torch, n, d, r, dtype, seed, device="cuda"):
     return x, v
 
 
-def rbf_work(n, d, r, itemsize):
-    """(bytes moved, operations) of one RBF Gram matvec: X and V read once,
-    Y written once.  K(X, X) is symmetric, so the least work forms each
-    pair once: the cross term X·Xᵀ is a SYRK of n(n+1)·d flops, and the
-    distances and exp (about 8 operations a pair) come to ~4n²; K·V still
-    takes 2n²r, since a tile K_ij feeds both Y_i += K_ij·V_j and
-    Y_j += K_ijᵀ·V_i.  The kernel forms each unordered pair of 128-row
-    tiles once, so its cross term is n(n + 128)·d, within 0.4 % of this
-    at the paper's n."""
-    return (n * d + 2 * n * r) * itemsize, n * (n + 1) * d + 2 * n * n * r + 4 * n * n
-
-
 def phase_rbf(torch, rbf, peaks):
     """The RBF Gram matvec against its plain version in f64 and f32 at the
     paper's n, the cut n of the preconditioned sequences and a ragged n,
@@ -1173,14 +1187,6 @@ def phase_scale(torch, rbf):
             f"(a dense K would need {out[dname]['dense_k_gb']:.0f} GB)")
         del x, v, y
     return out
-
-
-def rect_work(m, n, d, r, itemsize):
-    """(bytes moved, operations) of one K8 call: X_rows, X_cols and V read
-    once, Y written once; the rectangular block has no symmetry, so every
-    pair counts: 2mn·d for the cross term, 2mn·r for K·V, ~8mn for the
-    distances and exp."""
-    return ((m + n) * d + n * r + m * r) * itemsize, 2 * m * n * d + 2 * m * n * r + 8 * m * n
 
 
 def phase_rect_kernels(torch, rbf, peaks):
@@ -2739,8 +2745,10 @@ def phase_main_lm(torch, key, device="cuda"):
     lm_serve(torch, model, cfg, tokens[:, :256], "auto", 2, src=None if src is None else src[:, :256])
 
     on_card = torch.device(device).type == "cuda"
+    held_gb = float("nan")
     if on_card:
         torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
     _zero_counts()
     run = lm_serve(torch, model, cfg, tokens, "auto", spec["decode"], src=src)
     launches = dict(_runtime.LAUNCHES)
@@ -2756,7 +2764,8 @@ def phase_main_lm(torch, key, device="cuda"):
         "params": sum(p.numel() for p in model.parameters()), "init_s": init_s,
         "prefill_ms": 1e3 * run["prefill_s"], "prefill_tokens_per_s": n_tok / run["prefill_s"],
         "decode_ms_per_step": 1e3 * run["decode_s"] / spec["decode"],
-        "peak_memory_gb": peak_gb, "launches": launches, "plain_on_cuda": plain_on_cuda,
+        "peak_memory_gb": peak_gb, "held_gb": held_gb, "launches": launches,
+        "plain_on_cuda": plain_on_cuda,
     }
     for name, val in (("last", run["last"]), ("first", run["first"])):
         if not bool(torch.isfinite(val).all()):
@@ -2997,26 +3006,6 @@ def phase_zoo(torch, device="cuda"):
     return report, launches
 
 
-def attn_work(b, h, hkv, sq, sk, dh, causal, itemsize):
-    """(bytes, operations): q, k, v read once and o written once;
-    4·b·h·sq·sk·dh flops, halved under causal masking."""
-    nbytes = (2 * b * h * sq * dh + 2 * b * hkv * sk * dh) * itemsize
-    ops = 4 * b * h * sq * sk * dh
-    return nbytes, ops / 2 if causal else ops
-
-
-def ssd_work(b, l, h, p, g, n, c, itemsize):
-    """(bytes, operations): x, B, C, y in the working dtype and dt in f32,
-    once each; the flops the function needs on each chunk of c' rows (the
-    last one ragged): M is lower-triangular, so C Bᵀ, once per group, and
-    (M ⊙ G) X take their causal half, c'(c' + 1)·n and c'(c' + 1)·p, beside
-    C Hᵀ and Xᵀ·bw's 4c'·p·n per head."""
-    nbytes = (2 * b * l * h * p + 2 * b * l * g * n) * itemsize + 4 * b * l * h
-    rows = [min(c, l - t0) for t0 in range(0, l, c)]
-    ops = sum(b * g * r * (r + 1) * n + b * h * (r * (r + 1) * p + 4 * r * p * n) for r in rows)
-    return nbytes, ops
-
-
 def attn_timing(torch, peaks, case, reps, device="cuda"):
     """K9's serving arm at ``case`` in bf16: kernel, plain version,
     ``scaled_dot_product_attention`` (GQA through ``enable_gqa``) and the
@@ -3169,47 +3158,6 @@ def grad_inputs(torch, case, dtype, seed, device="cuda"):
     shapes = ((b, h, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh), (b, h, sq, dh),
               (b, h, sq, dh), (b, hkv, sk, dh), (b, hkv, sk, dh))
     return tuple(torch.randn(*s, generator=g, device=device).to(dtype) for s in shapes)
-
-
-def grad_work(b, h, hkv, sq, sk, dh, causal, itemsize, arm):
-    """(bytes, operations) of one call of K9's ``arm``: every input read once
-    and every output written once (the f32 lse 4 bytes a row); the
-    forward's flops for ``lse``, 2.5 times them (five products of its size)
-    for ``bwd`` and ``jvp``."""
-    q_el, kv_el, rows = b * h * sq * dh, b * hkv * sk * dh, b * h * sq
-    nbytes, ops = attn_work(b, h, hkv, sq, sk, dh, causal, itemsize)
-    if arm == "lse":
-        return nbytes + 4 * rows, ops
-    if arm == "bwd":  # q, k, v, o, dO, lse in; dq, dk, dv out
-        return (3 * q_el + 2 * kv_el) * itemsize * 2 + 4 * rows, 2.5 * ops
-    # jvp: q, k, v, o, q', k', v', lse in; o' out
-    return (5 * q_el + 4 * kv_el) * itemsize + 4 * rows, 2.5 * ops
-
-
-def ssd_grad_work(b, l, h, p, g, n, c, itemsize, arm):
-    """(bytes, operations) of one call of K10's ``arm``: every input read
-    once and every output written once (the f32 chunk states H and cs, dt
-    and its gradient or tangent, da and the state's gradient or tangent 4
-    bytes an element); the flops the function needs on each chunk of c'
-    rows, causal products at their half (c'(c' + 1) per column).  bwd, per
-    head: Q = dY Xᵀ and (M∘G)ᵀ dY (p wide), dGᵀ C and dG B (n wide), and
-    dYᵀ C, B Γᵀ, X Γ and dY H_kᵀ (2c'·p·n each); per group G = C Bᵀ.  jvp,
-    per head: Ẏ's two c' × c' products, its two state products and the
-    tangent state's two (2c'·p·n each); per group G and Ġ's two
-    products."""
-    chunks = math.ceil(l / c)
-    rows = [min(c, l - t0) for t0 in range(0, l, c)]
-    xs, bc = b * l * h * p * itemsize, b * l * g * n * itemsize
-    saved = 4 * (b * h * chunks * p * n + b * h * chunks * c) + 4 * b * l * h
-    if arm == "bwd":  # x, B, C, dY, dt, H, cs in; dx, dB, dC, ddt, da, dh0 out
-        nbytes = 2 * (xs + 2 * bc) + saved + 4 * b * l * h + 4 * h + 4 * b * h * p * n
-        per_head = sum(r * (r + 1) * (2 * p + 2 * n) + 8 * r * p * n for r in rows)
-        per_group = sum(r * (r + 1) * n for r in rows)
-    else:  # x, B, C, their tangents, dt, ḋt, ȧ, H, cs in; ẏ, ḣ out
-        nbytes = 3 * xs + 4 * bc + saved + 4 * b * l * h + 4 * h + 4 * b * h * p * n
-        per_head = sum(2 * r * (r + 1) * p + 8 * r * p * n for r in rows)
-        per_group = sum(3 * r * (r + 1) * n for r in rows)
-    return nbytes, b * h * per_head + b * g * per_group
 
 
 def check_ssd_grad(torch, peaks, device="cuda", cases=SSD_CHECK + (SSD_TRAIN,),
@@ -3905,8 +3853,10 @@ def phase_train(torch, peaks, spec, device="cuda"):
     remat = {}
     for label, c in (("on", cfg), ("off", dataclasses.replace(cfg, remat=False))):
         torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
         (_, _, grads_again), sec = _timed(torch, device, lambda: loss_and_grads(c, params, batch))
         remat[label] = {"grad_s": sec, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "held_gb": held_gb,
                         "leaves_differing": sorted(name for name in grads_c if not torch.equal(
                             grads_c[name], grads_again[name]))}
         del grads_again
@@ -4156,6 +4106,208 @@ def phase_training(torch, peaks, report, device="cuda", only=None):
         log(f"[{key}] launches {r['launches']}; arms {r['arms']}; plain versions on the card "
             f"{r['plain_on_cuda']}")
     return entries, launches, arms
+
+
+# The dry-run's phase (21): shapes the script ran at full width traced on the
+# meta device (launch/trace_stats.py), each predicted peak held within
+# DRYRUN_TOL of the max_memory_allocated() its phase measured.  The training
+# cells' gradient steps hold what phase_train holds (parameters, AdamW state,
+# the first gradients); the serving cells' prefill and one decode step what
+# phase_main_lm holds (parameters, caches, prompts and frames).
+DRYRUN_TOL = 0.15
+DRYRUN_TRAIN = (("train", TRAIN),)
+DRYRUN_SERVE = ("main-lm-encdec", "main-lm-moe")
+# The GPC cell: held against its plain run at DRYRUN_GPC_N in f64, run once
+# at SCALE_N in f32 for its peak and time.
+DRYRUN_GPC_N = 4096
+
+
+def dryrun_train(torch, spec, remat):
+    """``(counts, model_flops)`` of ``spec``'s gradient step traced on the
+    meta device with ``cfg.remat`` as given."""
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import (init_opt_state, input_specs, loss_and_grads, model_flops,
+                                    params_dict, trace_stats)
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_config(spec["arch"]), remat=remat)
+    shape = ShapeSpec("train", spec["seq"], spec["batch"], "train")
+    skeleton = transformer.Model(None, cfg, "meta")
+    params = params_dict(skeleton)
+    grads = {name: torch.empty_like(t) for name, t in params.items()}
+    batch = input_specs(cfg, shape)
+    _, counts = trace_stats.trace(lambda: loss_and_grads(cfg, params, batch, skeleton=skeleton),
+                                  live=[params, init_opt_state(params), grads, batch])
+    return counts, model_flops(cfg, shape)
+
+
+def dryrun_serve(torch, key):
+    """``(prefill counts, decode-step counts, model_flops of the prefill)``
+    of ``LM_PATHS[key]`` traced on the meta device: its prompts (and
+    frames) into caches ``prompt + decode`` deep, then one decode step."""
+    from repro_torch import models
+    from repro_torch.configs import ShapeSpec, get_config
+    from repro_torch.launch import make_prefill_step, make_serve_step, model_flops, trace_stats
+
+    spec = LM_PATHS[key]
+    cfg = get_config(spec["arch"])
+    skeleton = models.transformer.Model(None, cfg, "meta")
+    params = list(skeleton.parameters())
+    b, s = spec["batch"], spec["prompt"]
+    max_len = s + spec["decode"]
+    meta = dict(device="meta")
+    batch = {"tokens": torch.empty((b, s), dtype=torch.int64, **meta)}
+    if "source" in spec:
+        batch["src_embeds"] = torch.empty((b, spec["source"], cfg.d_model), **meta)
+    state = models.init_decode_state(cfg, b, max_len, device="meta")
+    (state, _), pre = trace_stats.trace(make_prefill_step(cfg, max_len), skeleton, batch, state,
+                                        live=[params])
+    tok = torch.empty((b, 1), dtype=torch.int64, **meta)
+    _, dec = trace_stats.trace(make_serve_step(cfg), skeleton, tok, state, live=[params, batch])
+    shape = ShapeSpec("prefill", spec.get("source", s), b, "prefill")
+    return pre, dec, model_flops(cfg, shape)
+
+
+def gpc_inputs(torch, n, dtype, device="cuda", seed=0):
+    """The GPC iteration's inputs: pixel-like X in [0, 1) pre-scaled by λ,
+    √h of Laplace weights in [0.05, 0.25], random x, r, p, an orthonormal W
+    with AW near it and (W AWᵀ)⁻¹."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    kw = dict(generator=g, device=device, dtype=dtype)
+    x = torch.rand((n, D), **kw).div_(LENGTHSCALE)
+    sqrt_h = (0.05 + 0.2 * torch.rand(n, **kw)).sqrt_()
+    xv, r, p = (torch.randn(n, **kw) for _ in range(3))
+    w = torch.linalg.qr(torch.randn((n, K), **kw))[0].T.contiguous()
+    aw = w + 0.1 * torch.randn((K, n), **kw)
+    return x, sqrt_h, (xv, r, p, r @ r, w, aw, torch.linalg.inv(w @ aw.T))
+
+
+def _bound_ms(peaks, counts, unit):
+    return 1e3 * max(counts["flops"] / peaks[unit], counts["bytes"] / peaks["bytes"])
+
+
+def _held(checks, label, predicted, measured_gb, held_gb, held_pred):
+    """Hold ``predicted`` bytes within DRYRUN_TOL of the measured peak and
+    record the check."""
+    rel = predicted / 1e9 / measured_gb - 1.0
+    checks[label] = {"predicted_gb": predicted / 1e9, "measured_gb": measured_gb,
+                     "rel": rel, "held_predicted_gb": held_pred / 1e9, "held_measured_gb": held_gb}
+    log(f"[dryrun] {label}: predicted peak {predicted / 1e9:.2f} GB, measured "
+        f"{measured_gb:.2f} GB ({rel:+.1%}; held before the step: predicted "
+        f"{held_pred / 1e9:.2f}, measured {held_gb:.2f} GB)")
+    if not abs(rel) <= DRYRUN_TOL:
+        raise AssertionError(f"[dryrun] {label}: predicted peak {predicted / 1e9:.2f} GB is "
+                             f"{rel:+.1%} from the measured {measured_gb:.2f} GB")
+
+
+def phase_dryrun(torch, peaks, report, device="cuda"):
+    """Phase 21 (see the module docstring).  Returns the checks, the FLOPs
+    and bounds beside the measured times, and the GPC cells."""
+    from dataclasses import replace
+
+    from repro_torch.kernels import _runtime
+    from repro_torch.launch import gpc_dryrun
+
+    t_phase = time.perf_counter()
+    checks, flops = {}, {}
+    for key, spec in DRYRUN_TRAIN:
+        if key not in report:
+            continue
+        for label, remat in (("on", True), ("off", False)):
+            t0 = time.perf_counter()
+            counts, mf = dryrun_train(torch, spec, remat)
+            got = report[key]["remat"][label]
+            tag = f"{spec['arch']} {spec['batch']} x {spec['seq']} gradient step, remat {label}"
+            _held(checks, tag, counts["peak_bytes"], got["peak_memory_gb"],
+                  got["held_gb"], counts["held_bytes"])
+            flops[tag] = {"traced_tflop": counts["flops"] / 1e12, "model_tflop": mf / 1e12,
+                          "bound_ms": _bound_ms(peaks, counts, "bfloat16_tensor"),
+                          "measured_ms": 1e3 * got["grad_s"], "launches": counts["launches"],
+                          "trace_s": time.perf_counter() - t0}
+    for key in DRYRUN_SERVE:
+        if key not in report:
+            continue
+        t0 = time.perf_counter()
+        pre, dec, mf = dryrun_serve(torch, key)
+        got = report[key]
+        tag = f"{key} ({got['arch']}) prefill and decode"
+        _held(checks, tag, max(pre["peak_bytes"], dec["peak_bytes"]),
+              got["peak_memory_gb"], got["held_gb"], pre["held_bytes"])
+        flops[f"{key} prefill"] = {
+            "traced_tflop": pre["flops"] / 1e12, "model_tflop": mf / 1e12,
+            "bound_ms": _bound_ms(peaks, pre, "bfloat16_tensor"),
+            "measured_ms": got["prefill_ms"], "launches": pre["launches"],
+            "trace_s": time.perf_counter() - t0}
+        flops[f"{key} decode step"] = {
+            "traced_tflop": dec["flops"] / 1e12, "bound_ms": _bound_ms(peaks, dec,
+                                                                       "bfloat16_tensor"),
+            "measured_ms": got["decode_ms_per_step"], "launches": dec["launches"]}
+    for tag, f in flops.items():
+        mf = f" against model_flops {f['model_tflop']:.2f}" if "model_tflop" in f else ""
+        log(f"[dryrun] {tag}: traced {f['traced_tflop']:.3f} TFLOP{mf}, {f['launches']} "
+            f"launches; roofline bound {f['bound_ms']:.3f} ms against {f['measured_ms']:.1f} ms "
+            f"measured")
+    if len(checks) < 3 or not any("remat on" in k for k in checks) or not any(
+            "prefill" in k for k in checks):
+        raise AssertionError(f"[dryrun] too few peaks held: {sorted(checks)}")
+
+    # The GPC cell on K3: against the plain versions in f64, then once at
+    # SCALE_N in f32 for its peak and time.
+    gpc = {}
+    cfg = replace(GPC, n=DRYRUN_GPC_N, dtype="float64")
+    x, sqrt_h, state = gpc_inputs(torch, cfg.n, torch.float64, device)
+    before = _runtime.LAUNCHES["rbf_matvec"]
+    got = gpc_dryrun.make_defcg_iteration(cfg)(x, sqrt_h, state)
+    launched = _runtime.LAUNCHES["rbf_matvec"] - before
+    want = gpc_dryrun.make_defcg_iteration(cfg, backend="plain")(x, sqrt_h, state)
+    rel = max(float((a - b).abs().max() / b.abs().max().clamp_min(1e-300))
+              for a, b in zip(got, want))
+    gpc["check"] = {"n": cfg.n, "dtype": "float64", "max_rel_err": rel, "k3_launches": launched}
+    log(f"[dryrun] GPC iteration n={cfg.n} f64 on K3 ({launched} launch) against the plain "
+        f"versions: max relative error {rel:.2e} over the seven outputs")
+    if not (rel <= TOL["float64"] and launched == 1):
+        raise AssertionError(f"[dryrun] GPC iteration: error {rel:.2e}, K3 launches {launched}")
+    del x, sqrt_h, state, got, want
+
+    cfg = replace(GPC, n=SCALE_N)
+    predicted = gpc_dryrun.trace_cell(cfg)
+    torch.cuda.empty_cache()
+    before_gb = torch.cuda.memory_allocated() / 1e9
+    x, sqrt_h, state = gpc_inputs(torch, cfg.n, torch.float32, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9 - before_gb
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = gpc_dryrun.make_defcg_iteration(cfg)(x, sqrt_h, state)
+    end.record()
+    torch.cuda.synchronize()
+    if not all(bool(torch.isfinite(t).all()) for t in out):
+        raise AssertionError("[dryrun] GPC iteration at SCALE_N: non-finite outputs")
+    measured_gb = torch.cuda.max_memory_allocated() / 1e9 - before_gb
+    _held(checks, f"GPC iteration n={cfg.n} f32 (K3)", predicted["peak_bytes"],
+          measured_gb, held_gb, predicted["held_bytes"])
+    ms = start.elapsed_time(end)
+    gpc["scale"] = {"n": cfg.n, "ms": ms, "bound_ms": _bound_ms(peaks, predicted, "float32"),
+                    "traced_tflop": predicted["flops"] / 1e12,
+                    "model_tflop": gpc_dryrun.model_flops(cfg) / 1e12}
+    log(f"[dryrun] GPC iteration n={cfg.n} f32: {ms:.1f} ms against a {gpc['scale']['bound_ms']:.1f}"
+        f" ms bound (f32 CUDA cores; {gpc['scale']['traced_tflop']:.2f} TFLOP traced, "
+        f"model_flops {gpc['scale']['model_tflop']:.2f})")
+    del x, sqrt_h, state, out
+    torch.cuda.empty_cache()
+    paper = gpc_dryrun.trace_cell(GPC)
+    gpc["paper"] = {"n": GPC.n, "peak_gb": paper["peak_bytes"] / 1e9,
+                    "traced_tflop": paper["flops"] / 1e12,
+                    "model_tflop": gpc_dryrun.model_flops(GPC) / 1e12,
+                    "bound_ms": _bound_ms(peaks, paper, "float32")}
+    log(f"[dryrun] GPC iteration n={GPC.n} f32, dry-run only: peak "
+        f"{gpc['paper']['peak_gb']:.2f} GB, {gpc['paper']['traced_tflop']:.1f} TFLOP traced "
+        f"(model_flops {gpc['paper']['model_tflop']:.1f}), bound {gpc['paper']['bound_ms']:.1f} ms")
+    phase_s = time.perf_counter() - t_phase
+    log(f"[dryrun] {len(checks)} predicted peaks held within {DRYRUN_TOL:.0%}; phase "
+        f"{phase_s:.1f} s")
+    return {"checks": checks, "flops": flops, "gpc": gpc, "phase_s": phase_s}
 
 
 def fig3_slope(trace) -> float:
@@ -5252,6 +5404,17 @@ def main(argv) -> int:
         _write_report(report)
         log(json.dumps({"kernels": [kernel_entry(k, e, totals[k]) for k, e in entries.items()]}))
         return 0
+    if "--dryrun-only" in argv:  # the dry-run on its phases' peaks alone: no ok line
+        report["main-lm-encdec"], _ = phase_main_lm(torch, "main-lm-encdec")
+        _lap(report, "lm")
+        report["train"] = phase_train(torch, peaks, TRAIN)
+        _lap(report, "train")
+        report["dryrun"] = phase_dryrun(torch, peaks, report)
+        _lap(report, "dryrun")
+        log("[summary] wall s a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                                     report["phase_s"].items()))
+        _write_report(report)
+        return 0
     if "--train-only" in argv:  # K9's grad arms, train and hf-lm alone: no ok line
         grad_k, tr_launches, tr_arms = phase_training(torch, peaks, report)
         entries = {"flash_attention": grad_k["lse"], "flash_attention_bwd": grad_k["bwd"],
@@ -5710,6 +5873,10 @@ def main(argv) -> int:
     kernels["ssd_scan"]["training_fwd_ms"] = grad_k["ssd"]["fwd_ms"]
     lm_launches.update(tr_launches)
 
+    # -- 21. the dry-run against the peaks measured above ---------------------
+    report["dryrun"] = phase_dryrun(torch, peaks, report)
+    _lap(report, "dryrun")
+
     names = list(cf.LAUNCHES) + list(SPLIT_ARMS)
     totals = {name: launches.get(name, 0) + paper_launches.get(name, 0)
               + strat_launches.get(name, 0) + batch_launches.get(name, 0)
@@ -5779,6 +5946,13 @@ def main(argv) -> int:
         f"{kernels['ssd_scan_jvp']['ms']:.3f} ms at {SSD_TRAIN}")
     zoo_summary(report)
     encdec_summary(report)
+    dr = report["dryrun"]
+    worst = max(dr["checks"], key=lambda k: abs(dr["checks"][k]["rel"]))
+    log(f"[summary] dryrun: {len(dr['checks'])} predicted peaks within {DRYRUN_TOL:.0%} of the "
+        f"measured (worst {worst}: {dr['checks'][worst]['rel']:+.1%}); GPC iteration n="
+        f"{dr['gpc']['scale']['n']} f32 {dr['gpc']['scale']['ms']:.1f} ms (bound "
+        f"{dr['gpc']['scale']['bound_ms']:.1f}), n={dr['gpc']['paper']['n']} dry-run peak "
+        f"{dr['gpc']['paper']['peak_gb']:.2f} GB")
     log("[summary] wall s a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                  report["phase_s"].items()))
     kernel_line = {"kernels": [kernel_entry(name, kernels[name], totals[name], arm_totals)

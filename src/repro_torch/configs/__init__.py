@@ -7,6 +7,8 @@ from repro_torch.configs.registry import (
     ShapeSpec,
     get_config,
     get_smoke_config,
+    shape_applicable,
 )
 
-__all__ = ["ARCH_IDS", "SHAPES", "ShapeSpec", "get_config", "get_smoke_config"]
+__all__ = ["ARCH_IDS", "SHAPES", "ShapeSpec", "get_config", "get_smoke_config",
+           "shape_applicable"]

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Dict
+from typing import Dict, Tuple
 
 from repro_torch.models.config import ModelConfig
 
@@ -55,3 +55,15 @@ def get_config(arch: str) -> ModelConfig:
 
 def get_smoke_config(arch: str) -> ModelConfig:
     return importlib.import_module(_ARCH_MODULES[arch]).SMOKE
+
+
+def is_subquadratic(cfg: ModelConfig) -> bool:
+    """SSM / hybrid stacks handle 512k decode; pure attention does not."""
+    return cfg.family in ("ssm", "hybrid")
+
+
+def shape_applicable(cfg: ModelConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """The reference's skip rule: long_500k only for sub-quadratic mixers."""
+    if shape.name == "long_500k" and not is_subquadratic(cfg):
+        return False, "pure full-attention arch — 512k decode skipped (DESIGN.md §4)"
+    return True, ""

@@ -49,7 +49,12 @@ They run as ``torch.library`` custom ops inside :class:`FlashAttention`,
 an ``autograd.Function`` with a backward and a forward-mode rule, so that
 autograd and every ``torch.func`` transform (``linearize`` included, which
 traces the tangent map) record them as calls.  :func:`kernels.ops.attention`
-takes that route whenever a derivative is being taken through its inputs.
+takes that route whenever a derivative is being taken through its inputs,
+and the serving arm's op (:func:`flash_attention_op`) otherwise.  On meta
+tensors each op's fake gives the outputs' shapes and its count (the
+operations and bytes of :mod:`repro_torch.kernels.work`, the wrapper's
+scratch), so a dry-run traced on the meta device sees the kernel's work,
+not its plain version's.
 """
 
 from __future__ import annotations
@@ -58,7 +63,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _runtime
+from repro_torch.kernels import _runtime, work
 
 NEG_INF = -1e30  # the reference's finite mask sentinel
 HEAD_DIMS = (16, 32, 64, 128, 160)
@@ -350,12 +355,39 @@ def _jvp_sums(q, k, v, out, lse, tq, tk, tv, causal, scale, block_q, block_k):
     return acc - r * out.float()
 
 
-# The three arms as custom ops, so that autograd, torch.func and make_fx
-# (``torch.func.linearize``) record them as calls: a kernel launched through
+# The serving arm and the three differentiated arms as custom ops, so that
+# autograd, torch.func, make_fx (``torch.func.linearize``) and the dry-run's
+# trace on the meta device record them as calls: a kernel launched through
 # raw pointers is invisible to a tracer.  The CUDA implementation launches
 # the kernel (or, with ``plain``, runs the plain version on the card, the
-# yardstick ``backend="plain"`` asks for); on any other device the plain
-# version runs.
+# yardstick ``backend="plain"`` asks for); on the meta device the fake gives
+# the output's shape and ``work`` the kernel's count; on any other device
+# the plain version runs.
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _serve_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool, scale: float,
+              q_offset: int) -> torch.Tensor:
+    return flash_attention_plain(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+
+
+@_serve_op.register_kernel("cuda")
+def _serve_cuda(q, k, v, causal, scale, q_offset):
+    return flash_attention_cuda(q, k, v, causal=causal, scale=scale, q_offset=q_offset)
+
+
+@_serve_op.register_fake
+def _serve_fake(q, k, v, causal, scale, q_offset):
+    _shapes(q, k)
+    return q.new_empty(q.shape)
+
+
+def flash_attention_op(q, k, v, *, causal=False, scale=None, q_offset=0):
+    """The serving arm through its op ``repro_torch::flash_attention``:
+    :func:`flash_attention_cuda` on CUDA tensors, the fake on meta
+    tensors."""
+    scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
+    return _serve_op(q, k, v, bool(causal), scale, int(q_offset))
 
 
 def _lse_plain_contiguous(q, k, v, causal, scale):
@@ -460,3 +492,24 @@ def flash_attention_differentiable(q, k, v, *, causal=False, scale=None, plain=F
     ``q_offset`` 0."""
     scale = q.shape[-1] ** -0.5 if scale is None else float(scale)
     return FlashAttention.apply(q, k, v, causal, scale, plain)[0]
+
+
+def _count(q, k, causal, arm, *copied, scratch=0):
+    b, h, hkv, sq, sk, dh = _shapes(q, k)
+    if arm is None:
+        nbytes, ops = work.attn_work(b, h, hkv, sq, sk, dh, causal, q.element_size())
+    else:
+        nbytes, ops = work.grad_work(b, h, hkv, sq, sk, dh, causal, q.element_size(), arm)
+    return ops, nbytes, work.copies(*copied) + scratch
+
+
+work.count_op(torch.ops.repro_torch.flash_attention,
+              lambda q, k, v, causal, *_: _count(q, k, causal, None, q, k, v))
+work.count_op(torch.ops.repro_torch.flash_attention_lse,
+              lambda q, k, v, causal, *_: _count(q, k, causal, "lse", q, k, v))
+work.count_op(torch.ops.repro_torch.flash_attention_bwd,
+              lambda dout, q, k, v, out, lse, causal, *_: _count(
+                  q, k, causal, "bwd", q, k, v, out, dout, scratch=4 * lse.numel()))
+work.count_op(torch.ops.repro_torch.flash_attention_jvp,
+              lambda q, k, v, out, lse, tq, tk, tv, causal, *_: _count(
+                  q, k, causal, "jvp", q, k, v, out, tq, tk, tv))

@@ -8,6 +8,12 @@ Every op takes a keyword-only ``backend ∈ {"auto", "cuda", "plain",
 * ``reference`` — the oracle in :mod:`repro_torch.kernels.ref`;
 * ``auto``      — ``cuda`` for CUDA tensors, ``plain`` for CPU tensors.
 
+K3, K8, K9 and K10 (``rbf_matvec``, ``rbf_matvec_rect``, ``attention``,
+``ssd``) run as ``torch.library`` custom ops, so a dry-run traced on the
+meta device sees each call: there ``auto`` and ``cuda`` take the op, whose
+fake gives the outputs' shapes and :mod:`repro_torch.kernels.work` the
+kernel's operations, bytes and scratch.
+
 Nothing falls back: a CUDA tensor under ``auto`` launches the kernel or
 the call raises.
 """
@@ -26,12 +32,16 @@ from repro_torch.kernels import ssd_scan as ssd_mod
 _BACKENDS = ("auto", "cuda", "plain", "reference")
 
 
-def _resolve(backend: str, t: torch.Tensor) -> str:
+def _resolve(backend: str, t: torch.Tensor, *, traced: bool = False) -> str:
+    """The backend to run: ``auto`` is ``cuda`` on CUDA tensors and, for the
+    kernels a dry-run traces (``traced``: K3, K8, K9, K10, each a custom op
+    whose fake the meta device runs), on meta tensors; ``plain`` else."""
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend={backend!r}; expected one of {_BACKENDS}")
+    kernel_device = t.device.type == "cuda" or (traced and t.device.type == "meta")
     if backend == "auto":
-        return "cuda" if t.device.type == "cuda" else "plain"
-    if backend == "cuda" and t.device.type != "cuda":
+        return "cuda" if kernel_device else "plain"
+    if backend == "cuda" and not kernel_device:
         raise ValueError(f"backend='cuda' needs CUDA tensors, got a {t.device} tensor")
     return backend
 
@@ -53,9 +63,9 @@ def rbf_matvec(
     ``gate`` (a bool device vector or 0-d flag, any stride) makes the
     product zeros when no flag is set: on the card the kernel reads the
     flags itself and skips the Gram tiles, with no host read."""
-    backend = _resolve(backend, x)
+    backend = _resolve(backend, x, traced=True)
     if backend == "cuda":
-        return rbf_mod.rbf_matvec_cuda(x, v, theta, lengthscale, gate)
+        return rbf_mod.rbf_matvec_op(x, v, theta, lengthscale, gate)
     if backend == "plain":
         return rbf_mod.rbf_matvec_plain(x, v, theta, lengthscale, block, gate)
     return rbf_mod._gated_plain(ref.rbf_matvec(x, v, theta, lengthscale), gate)
@@ -77,9 +87,9 @@ def rbf_matvec_rect(
     product of the sharded RBF operator, this rank's rows against all
     columns.  ``x_rows`` is (m, d), ``x_cols`` (n, d), ``v`` (n,) or
     (n, r); the result (m,) or (m, r).  ``gate`` as in :func:`rbf_matvec`."""
-    backend = _resolve(backend, x_rows)
+    backend = _resolve(backend, x_rows, traced=True)
     if backend == "cuda":
-        return rbf_mod.rbf_matvec_rect_cuda(x_rows, x_cols, v, theta, lengthscale, gate)
+        return rbf_mod.rbf_matvec_rect_op(x_rows, x_cols, v, theta, lengthscale, gate)
     if backend == "plain":
         return rbf_mod.rbf_matvec_rect_plain(x_rows, x_cols, v, theta, lengthscale, block,
                                              gate)
@@ -365,15 +375,15 @@ def attention(
     forward with the row log-sum-exp, its backward and forward-mode arms;
     ``q_offset`` must be 0 there, as in training); otherwise the serving
     arm runs as it is.  ``reference`` is differentiated by autograd."""
-    backend = _resolve(backend, q)
+    backend = _resolve(backend, q, traced=True)
     if backend != "reference" and _runtime.differentiated(q, k, v):
         if q_offset:
             raise ValueError(f"attention: a differentiated call needs q_offset = 0, got {q_offset}")
         return attn_mod.flash_attention_differentiable(q, k, v, causal=causal, scale=scale,
                                                        plain=backend == "plain")
     if backend == "cuda":
-        return attn_mod.flash_attention_cuda(q, k, v, causal=causal, scale=scale,
-                                             q_offset=q_offset)
+        return attn_mod.flash_attention_op(q, k, v, causal=causal, scale=scale,
+                                           q_offset=q_offset)
     if backend == "plain":
         return attn_mod.flash_attention_plain(q, k, v, causal=causal, scale=scale,
                                               q_offset=q_offset, block_q=block_q,
@@ -406,7 +416,7 @@ def ssd(
     backward and forward-mode arms), with the D skip ``y + x·d`` added
     outside it; otherwise the serving arm runs as it is.  ``reference`` is
     differentiated by autograd."""
-    backend = _resolve(backend, x)
+    backend = _resolve(backend, x, traced=True)
     if backend != "reference" and _runtime.differentiated(x, dt, a, bmat, cmat, d,
                                                           initial_state):
         y, h1 = ssd_mod.ssd_differentiable(x, dt, a, bmat, cmat, chunk=chunk,
@@ -416,7 +426,7 @@ def ssd(
         return (y, h1) if return_state else y
     kw = dict(chunk=chunk, initial_state=initial_state, return_state=return_state)
     if backend == "cuda":
-        return ssd_mod.ssd_scan_cuda(x, dt, a, bmat, cmat, d, **kw)
+        return ssd_mod.ssd_scan_op(x, dt, a, bmat, cmat, d, **kw)
     if backend == "plain" or return_state or initial_state is not None:
         return ssd_mod.ssd_plain(x, dt, a, bmat, cmat, d, **kw)
     return ref.ssd_reference(x, dt, a, bmat, cmat, d)

@@ -33,6 +33,12 @@ product on the full grid, the rectangular mode, which needs none.
 :func:`_split_grid` picks ``nseg`` (the rectangular mode's splits of the
 column tiles) for the fewest waves of equal blocks on the card's SMs.
 
+Both run as ``torch.library`` custom ops (:func:`rbf_matvec_op`,
+:func:`rbf_matvec_rect_op`), whose fakes on meta tensors give the output's
+shape and the count of :mod:`repro_torch.kernels.work`, with the scratch
+:func:`plan` gives the wrapper (for one H100's SMs off the card): what the
+dry-run's GP cell reads.
+
 Beside each wrapper sits its plain PyTorch version, ``rbf_matvec_plain``
 and ``rbf_matvec_rect_plain``: the row-blocked products of
 ``repro/kernels/ops.py:_rbf_matvec_chunked`` and
@@ -45,11 +51,12 @@ CPU path and the card's yardstick.  The counters are those of
 from __future__ import annotations
 
 import functools
+import math
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _runtime
+from repro_torch.kernels import _runtime, work
 
 LAUNCHES = _runtime.LAUNCHES
 PLAIN_ON_CUDA = _runtime.PLAIN_ON_CUDA
@@ -58,6 +65,7 @@ TILE = 128  # rows and columns of the kernel's Gram tile
 ROW_GROUP = 16  # row tiles of consecutive blocks
 MAX_R = 16  # right-hand sides per kernel pass (kMaxR); wider V runs in chunks
 SCRATCH_BYTES = 10**9  # the symmetric mode's column scratch, at most
+H100_SMS = 132  # the SMs a plan assumes off the card (the dry-run's card)
 BLOCK_OVERHEAD = 0.25  # a block's fixed cost, in tiles, for _split_grid
 
 _P, _I, _L, _D = _runtime.PTR, _runtime.INT, _runtime.INT64, _runtime.DOUBLE
@@ -113,6 +121,29 @@ def _gate_args(gate: Optional[torch.Tensor], like: torch.Tensor):
     return gate.data_ptr(), lanes, (gate.stride(0) if gate.ndim else 0)
 
 
+def plan(square: bool, m: int, n: int, r: int, itemsize: int, sms: int) -> dict:
+    """How one product of ``m`` rows against ``n`` columns and ``r``
+    right-hand sides runs on a card of ``sms`` SMs: the symmetric schedule
+    or the full grid (``sym``; the square entry only), the segments per row
+    tile (``nseg``) and the shapes of the scratch the wrapper allocates (row
+    norms, the row parts, and the column parts of the symmetric mode or the
+    column norms of the rectangular)."""
+    cdiv = _runtime.cdiv
+    row_tiles, col_tiles = cdiv(m, TILE), cdiv(n, TILE)
+    lengths = sym_lengths(col_tiles)
+    sym = square and _symmetric(n, lengths, r, itemsize)
+    if not sym:
+        lengths = [col_tiles]
+    nseg = _split_grid(row_tiles, lengths, sms)
+    rc = min(r, MAX_R)
+    scratch = {"sq_rows": (m,), "rowpart": (nseg, m, rc)}
+    if not square:
+        scratch["sq_cols"] = (n,)
+    elif sym and max(lengths) > 1:
+        scratch["colpart"] = (max(lengths) - 1, n, rc)
+    return {"sym": sym, "nseg": nseg, "scratch": scratch}
+
+
 def _launch(
     name: str, x_rows: torch.Tensor, x_cols: torch.Tensor, v: torch.Tensor,
     theta: float, lengthscale: float, gate: Optional[torch.Tensor] = None,
@@ -121,8 +152,8 @@ def _launch(
     ``csrc/rbf_matvec.cu``.  The square entry (K3) runs the symmetric
     schedule where its scratch fits (:func:`_symmetric`), else the full
     grid, with one norm buffer; K8's the full grid with two, even when
-    handed the same X.  ``gate`` (bool device flags) zeroes the product
-    on the card, without a host read, when no flag is set."""
+    handed the same X (:func:`plan`).  ``gate`` (bool device flags) zeroes
+    the product on the card, without a host read, when no flag is set."""
     squeeze = v.ndim == 1
     v2 = (v[:, None] if squeeze else v).contiguous()  # (n, r) row-major
     m, d = x_rows.shape
@@ -133,29 +164,19 @@ def _launch(
     if m == 0 or n == 0 or d == 0 or r == 0:
         raise ValueError(f"{name}: need m, n, d, r >= 1, got m={m}, n={n}, d={d}, r={r}")
     square = name == "rbf_matvec"
-    cdiv = _runtime.cdiv
-    row_tiles, col_tiles = cdiv(m, TILE), cdiv(n, TILE)
-    lengths = sym_lengths(col_tiles)
-    sym = square and _symmetric(n, lengths, r, x_rows.element_size())
-    if not sym:
-        lengths = [col_tiles]
-    nseg = _split_grid(row_tiles, lengths, _sms(x_rows.device.index or 0))
-    rc = min(r, MAX_R)
+    pl = plan(square, m, n, r, x_rows.element_size(), _sms(x_rows.device.index or 0))
     new = functools.partial(torch.empty, dtype=x_rows.dtype, device=x_rows.device)
-    sq_rows = new((m,))
-    rowpart = new((nseg, m, rc))
+    scr = {key: new(shape) for key, shape in pl["scratch"].items()}
     y = new((m, r))
     p = _runtime.ptr
     scalars = (1.0 / float(lengthscale), float(theta) ** 2)
     gated = _gate_args(gate, x_rows)
     if square:
-        colpart = new((max(lengths) - 1, n, rc)) if sym and max(lengths) > 1 else None
-        args = (p(x_rows), p(sq_rows), n, d, p(v2), r, *scalars, int(sym), nseg, p(rowpart),
-                p(colpart), p(y), *gated)
+        args = (p(x_rows), p(scr["sq_rows"]), n, d, p(v2), r, *scalars, int(pl["sym"]),
+                pl["nseg"], p(scr["rowpart"]), p(scr.get("colpart")), p(y), *gated)
     else:
-        sq_cols = new((n,))
-        args = (p(x_rows), p(x_cols), p(sq_rows), p(sq_cols), m, n, d, p(v2), r, *scalars,
-                nseg, p(rowpart), p(y), *gated)
+        args = (p(x_rows), p(x_cols), p(scr["sq_rows"]), p(scr["sq_cols"]), m, n, d, p(v2), r,
+                *scalars, pl["nseg"], p(scr["rowpart"]), p(y), *gated)
     _runtime.launch("rbf_matvec", name, _SIGNATURES[name], x_rows, *args)
     return y[:, 0] if squeeze else y
 
@@ -235,3 +256,73 @@ def rbf_matvec_rect_plain(
     rows of the (m, n) Gram block at a time (O(block · n) memory)."""
     _runtime.note_plain("rbf_matvec_rect", x_rows)
     return _gated_plain(_gram_matvec_plain(x_rows, x_cols, v, theta, lengthscale, block), gate)
+
+
+# K3 and K8 as custom ops, so that the dry-run's trace on the meta device
+# records them as calls (a kernel launched through raw pointers is invisible
+# to a tracer): the CUDA implementation launches the kernel, the fake gives
+# the output's shape on the meta device and ``work`` the kernel's count, and
+# on any other device the plain version runs.
+
+
+@torch.library.custom_op("repro_torch::rbf_matvec", mutates_args=())
+def _square_op(x: torch.Tensor, v: torch.Tensor, theta: float, lengthscale: float,
+               gate: Optional[torch.Tensor]) -> torch.Tensor:
+    return rbf_matvec_plain(x, v, theta, lengthscale, gate=gate)
+
+
+@_square_op.register_kernel("cuda")
+def _square_cuda(x, v, theta, lengthscale, gate):
+    return rbf_matvec_cuda(x, v, theta, lengthscale, gate)
+
+
+@_square_op.register_fake
+def _square_fake(x, v, theta, lengthscale, gate):
+    return x.new_empty(x.shape[:1] + v.shape[1:])
+
+
+@torch.library.custom_op("repro_torch::rbf_matvec_rect", mutates_args=())
+def _rect_op(x_rows: torch.Tensor, x_cols: torch.Tensor, v: torch.Tensor, theta: float,
+             lengthscale: float, gate: Optional[torch.Tensor]) -> torch.Tensor:
+    return rbf_matvec_rect_plain(x_rows, x_cols, v, theta, lengthscale, gate=gate)
+
+
+@_rect_op.register_kernel("cuda")
+def _rect_cuda(x_rows, x_cols, v, theta, lengthscale, gate):
+    return rbf_matvec_rect_cuda(x_rows, x_cols, v, theta, lengthscale, gate)
+
+
+@_rect_op.register_fake
+def _rect_fake(x_rows, x_cols, v, theta, lengthscale, gate):
+    return x_rows.new_empty(x_rows.shape[:1] + v.shape[1:])
+
+
+def rbf_matvec_op(x, v, theta, lengthscale, gate=None):
+    """K3 through its op ``repro_torch::rbf_matvec``: :func:`rbf_matvec_cuda`
+    on CUDA tensors, the fake on meta tensors."""
+    return _square_op(x, v, float(theta), float(lengthscale), gate)
+
+
+def rbf_matvec_rect_op(x_rows, x_cols, v, theta, lengthscale, gate=None):
+    """K8 through its op ``repro_torch::rbf_matvec_rect``."""
+    return _rect_op(x_rows, x_cols, v, float(theta), float(lengthscale), gate)
+
+
+def _count(square, x_rows, x_cols, v):
+    m, d = x_rows.shape
+    n = x_cols.shape[0]
+    r = 1 if v.ndim == 1 else v.shape[1]
+    sms = _sms(x_rows.device.index or 0) if x_rows.device.type == "cuda" else H100_SMS
+    pl = plan(square, m, n, r, x_rows.element_size(), sms)
+    scratch = sum(x_rows.element_size() * math.prod(s) for s in pl["scratch"].values())
+    if square:
+        nbytes, ops = work.rbf_work(n, d, r, x_rows.element_size())
+    else:
+        nbytes, ops = work.rect_work(m, n, d, r, x_rows.element_size())
+    return ops, nbytes, scratch + work.copies(v)
+
+
+work.count_op(torch.ops.repro_torch.rbf_matvec,
+              lambda x, v, *_: _count(True, x, x, v))
+work.count_op(torch.ops.repro_torch.rbf_matvec_rect,
+              lambda x_rows, x_cols, v, *_: _count(False, x_rows, x_cols, v))

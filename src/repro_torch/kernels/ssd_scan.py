@@ -42,6 +42,12 @@ rounds once where ``_skip`` rounds the product and then the sum, so the two
 differ in the last f32 bits (by up to 3.8e-6 at mamba2-1.3b's prefill on an
 H100, ``tools/kernel_times.py --only k10``).
 
+The serving arm and the training arms (:class:`SSDScan`) run as
+``torch.library`` custom ops (:func:`ssd_scan_op` for the serving arm), so
+a trace records each call; on meta tensors the fakes give the outputs'
+shapes and the counts of :mod:`repro_torch.kernels.work` (with the scratch
+:func:`plan` and :func:`grad_plan` allocate), what the dry-run reads.
+
 Beside it sits its plain PyTorch version, ``ssd_plain``: ``_ssd_chunked``
 in torch (one chunk at a time, the state carried in f32) with the Pallas
 kernel's arithmetic, all of it in f32 on inputs widened from their dtype
@@ -51,11 +57,12 @@ instead): the CPU path and the card's yardstick.
 
 from __future__ import annotations
 
+import math
 from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import _runtime
+from repro_torch.kernels import _runtime, work
 
 MAX_CHUNK, MAX_HEAD_DIM, MAX_STATE = 128, 64, 128
 DTYPES = (torch.float32, torch.bfloat16)
@@ -572,12 +579,49 @@ def ssd_jvp_plain(x, dt, a, bmat, cmat, initial_state, hs, cs, tx, tdt, ta, tb, 
     return ty, hdot
 
 
-# The three arms as custom ops, so that autograd, torch.func and make_fx
-# (``torch.func.linearize``) record them as calls: a kernel launched through
+# The serving arm and the three training arms as custom ops, so that
+# autograd, torch.func, make_fx (``torch.func.linearize``) and the dry-run's
+# trace on the meta device record them as calls: a kernel launched through
 # raw pointers is invisible to a tracer.  The CUDA implementation launches
 # the kernels (or, with ``plain``, runs the plain versions on the card, the
-# yardstick ``backend="plain"`` asks for); on any other device the plain
-# versions run.
+# yardstick ``backend="plain"`` asks for); on the meta device the fake gives
+# the outputs' shapes and ``work`` the kernels' count; on any other device
+# the plain versions run.
+
+
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _serve_op(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor, bmat: torch.Tensor,
+              cmat: torch.Tensor, d: Optional[torch.Tensor], h0: Optional[torch.Tensor],
+              chunk: int, return_state: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    return _with_state(ssd_plain, x, dt, a, bmat, cmat, d, h0, chunk, return_state)
+
+
+@_serve_op.register_kernel("cuda")
+def _serve_cuda(x, dt, a, bmat, cmat, d, h0, chunk, return_state):
+    return _with_state(ssd_scan_cuda, x, dt, a, bmat, cmat, d, h0, chunk, return_state)
+
+
+def _with_state(fn, x, dt, a, bmat, cmat, d, h0, chunk, return_state):
+    """``(y, final state)``, the state empty unless ``return_state``."""
+    out = fn(x, dt, a, bmat, cmat, d, chunk=chunk, initial_state=h0, return_state=return_state)
+    return out if return_state else (out, x.new_empty((0,), dtype=torch.float32))
+
+
+@_serve_op.register_fake
+def _serve_fake(x, dt, a, bmat, cmat, d, h0, chunk, return_state):
+    b, l, h, p = x.shape
+    n = bmat.shape[3]
+    plan(b, l, h, p, bmat.shape[2], n, chunk, x.dtype)
+    y = x.new_empty(x.shape, dtype=x.dtype if d is None else torch.promote_types(x.dtype, d.dtype))
+    return y, x.new_empty((b, h, p, n) if return_state else (0,), dtype=torch.float32)
+
+
+def ssd_scan_op(x, dt, a, bmat, cmat, d=None, *, chunk=128, initial_state=None,
+                return_state=False):
+    """The serving arm through its op ``repro_torch::ssd_scan``:
+    :func:`ssd_scan_cuda` on CUDA tensors, the fake on meta tensors."""
+    y, h1 = _serve_op(x, dt, a, bmat, cmat, d, initial_state, int(chunk), bool(return_state))
+    return (y, h1) if return_state else y
 
 
 @torch.library.custom_op("repro_torch::ssd_scan_fwd", mutates_args=())
@@ -696,3 +740,40 @@ def ssd_differentiable(x, dt, a, bmat, cmat, *, chunk=128, initial_state=None, p
     state)``, ``y`` without the D skip."""
     y, h1, _, _ = SSDScan.apply(x, dt, a, bmat, cmat, initial_state, int(chunk), bool(plain))
     return y, h1
+
+
+def _scratch(shapes: dict) -> int:
+    """Bytes of the f32 scratch ``shapes`` (a plan's) name."""
+    return sum(4 * math.prod(shape) for shape in shapes.values())
+
+
+def _count(x, bmat, chunk, arm, scratch):
+    """``(operations, bytes, scratch bytes)`` of one call of ``arm`` (None:
+    the forward) on ``x`` and ``bmat``'s shapes, ``scratch(plan, grad
+    plan)`` the bytes the wrapper allocates around the launch."""
+    b, l, h, p = x.shape
+    g, n = bmat.shape[2], bmat.shape[3]
+    pl, gp = plan(b, l, h, p, g, n, chunk, x.dtype), grad_plan(b, l, h, p, g, n, chunk, x.dtype)
+    if arm is None:
+        nbytes, ops = work.ssd_work(b, l, h, p, g, n, pl["chunk"], x.element_size())
+    else:
+        nbytes, ops = work.ssd_grad_work(b, l, h, p, g, n, pl["chunk"], x.element_size(), arm)
+    return ops, nbytes, scratch(pl, gp)
+
+
+work.count_op(torch.ops.repro_torch.ssd_scan,
+              lambda x, dt, a, bmat, cmat, d, h0, chunk, rs: _count(
+                  x, bmat, chunk, None, lambda pl, gp: _scratch(pl["scratch"])
+                  + (0 if d is None else work.nbytes(x)) + work.copies(dt, a, h0)))
+work.count_op(torch.ops.repro_torch.ssd_scan_fwd,
+              lambda x, dt, a, bmat, cmat, h0, chunk, plain: _count(
+                  x, bmat, chunk, None, lambda pl, gp: 4 * math.prod(pl["scratch"]["decay"])
+                  + work.copies(dt, a, h0)))
+work.count_op(torch.ops.repro_torch.ssd_scan_bwd,
+              lambda dy, x, dt, a, bmat, cmat, h0, hs, cs, dh_last, chunk, plain: _count(
+                  x, bmat, chunk, "bwd", lambda pl, gp: _scratch(gp["bwd_scratch"])
+                  + work.copies(dy, dt, a, dh_last)))
+work.count_op(torch.ops.repro_torch.ssd_scan_jvp,
+              lambda x, dt, a, bmat, cmat, h0, hs, cs, tx, tdt, ta, tb, tc, th0, chunk, plain:
+              _count(x, bmat, chunk, "jvp", lambda pl, gp: _scratch(gp["jvp_scratch"])
+                     + work.copies(tx, tb, tc, dt, a, tdt, ta, th0)))

@@ -6,11 +6,18 @@
   configuration (and the kernel ``backend``) over
   :func:`repro_torch.models.prefill` / :func:`decode_step`.
 
+* :func:`input_specs` / :func:`decode_state_specs` — every input of a
+  cell as empty tensors (on the meta device by default: nothing is
+  allocated), with the reference's shapes and dtypes; what the dry-run
+  (:mod:`repro_torch.launch.dryrun`) traces against.
+
 Training parameters are a dict keyed by the model's parameter names
 (``dict(model.named_parameters())``); the step runs the model on them with
-``torch.func.functional_call``.  The reference's abstract input specs
-(``input_specs``, ``decode_state_specs``) serve its XLA dry-run, which is
-re-targeted to meta-device tensors later (ROADMAP queue 1, the dry-run).
+``torch.func.functional_call``.
+
+Modality-frontend stubs, as the reference's: seamless feeds precomputed
+audio frame embeddings ``(B, S_src, d_model)``; chameleon feeds VQ token
+ids (its frontend emits ids into the shared vocabulary).
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 from repro_torch import models
 from repro_torch.configs.registry import ShapeSpec
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import compute_dtype
 from repro_torch.optim import adam_init, adam_update
 
 
@@ -86,6 +94,45 @@ def make_serve_step(cfg: ModelConfig, *, backend: str = "auto"):
         return models.decode_step(params, tokens, state, cfg, backend=backend)
 
     return serve_step
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeSpec, device="meta") -> dict:
+    """The batch of one cell: int32 ``tokens`` (and ``labels`` to train),
+    an encoder–decoder's ``src_embeds`` ``(B, S, d_model)`` in the compute
+    dtype; a prefill's decoder prompt is ``max(source_len // 4, 64)``
+    tokens there, a decode cell's one new token (the cache depth is the
+    decode state's)."""
+    b, s = shape.global_batch, shape.seq_len
+    act = compute_dtype(cfg)
+
+    def empty(dims, dtype=torch.int32):
+        return torch.empty(dims, dtype=dtype, device=device)
+
+    if shape.kind == "train":
+        batch = {"tokens": empty((b, s)), "labels": empty((b, s))}
+    elif shape.kind == "prefill":
+        s_dec = max(cfg.source_len // 4, 64) if cfg.is_encdec else s
+        batch = {"tokens": empty((b, s_dec))}
+    else:
+        return {"tokens": empty((b, 1))}
+    if cfg.is_encdec:
+        batch = {"src_embeds": empty((b, s, cfg.d_model), act), **batch}
+    return batch
+
+
+def decode_state_specs(cfg: ModelConfig, shape: ShapeSpec, device="meta",
+                       skeleton=None) -> models.DecodeState:
+    """The decode state of a decode cell, its caches ``seq_len`` deep; an
+    encoder–decoder's also holds the cross-attention memory a prefill of
+    ``source_len`` frames leaves (``_cross_memory`` on ``skeleton``, by
+    default a model of ``cfg`` on ``device``: the reference's ``build2``)."""
+    b, s = shape.global_batch, shape.seq_len
+    state = models.init_decode_state(cfg, b, max_len=s, device=device)
+    if not cfg.is_encdec:
+        return state
+    skeleton = models.transformer.Model(None, cfg, device) if skeleton is None else skeleton
+    src = torch.zeros((b, cfg.source_len, cfg.d_model), dtype=compute_dtype(cfg), device=device)
+    return state._replace(memory=models.transformer._cross_memory(skeleton, src, cfg))
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:

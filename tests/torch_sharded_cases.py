@@ -9,6 +9,8 @@ what the test sees).
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -21,7 +23,8 @@ from repro_torch.core import (
     SolveSpec,
     solve,
 )
-from repro_torch.launch import COLLECTIVES, make_solve_mesh
+from repro_torch.configs import gpc_mnist
+from repro_torch.launch import COLLECTIVES, gpc_dryrun, make_solve_mesh
 
 F64 = torch.float64
 CONTRACT_ITERS = 8  # the contract runs N and N + 8 iterations at tol 0
@@ -239,3 +242,22 @@ def damped_lsmr_case(a_np, b_np, tols):
                     "unsharded": (_np(alone.x), int(alone.info.iterations))}
     return out
 
+
+
+def gpc_iteration_case(x_np, sqrt_h_np, state_np):
+    """One GPC def-CG iteration (``launch.gpc_dryrun``) with this rank's
+    block of rows against the whole X: the outputs gathered (vectors, W,
+    AW) and the collectives the iteration issued."""
+    mesh = make_solve_mesh(device="cpu")
+    n = x_np.shape[0]
+    cfg = dataclasses.replace(gpc_mnist.SMOKE, n=n)
+    blk = mesh.block(n)
+    xv, r, p, rs, w, aw, waw_inv = (torch.as_tensor(a) for a in state_np)
+    state = (xv[blk], r[blk], p[blk], rs, w[:, blk].contiguous(), aw[:, blk].contiguous(),
+             waw_inv)
+    before = dict(COLLECTIVES)
+    out = gpc_dryrun.make_defcg_iteration(cfg, mesh)(torch.as_tensor(x_np),
+                                                     torch.as_tensor(sqrt_h_np)[blk], state)
+    issued = {k: COLLECTIVES[k] - before[k] for k in COLLECTIVES}
+    sharded = (0, 1, 2, 4, 5)  # x, r, p, W, AW: blocks of rows (columns of W, AW)
+    return [_np(mesh.gather(o) if i in sharded else o) for i, o in enumerate(out)], issued
