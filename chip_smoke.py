@@ -134,6 +134,28 @@ Phases, each of which fails the script when it fails:
               (the re-admitted tenant's state restored bit for bit, its next
               solve warm).  K1, K2 (lane arms), K4 and K5 must launch and no
               plain version run.
+5f. graphs  — the compiled doors (``*_jit``: each masked loop captured as
+              CUDA graphs once a shape and replayed, ``core/engine.py``)
+              against the eager doors, on main's data and K: the def-CG(8,
+              12) Newton sequence through ``RecycleManager(use_jit=True)``
+              and ``use_jit=False``, CG through ``cg_jit`` and ``cg``, at n =
+              36 551 and n = 4 096, eager / captured / captured / eager:
+              per system iterations, matvecs and status equal, SHA-256 of x
+              and of the next basis equal, a handful of graphs for the
+              sequence and replays above 0, solve seconds (the extraction
+              timed apart), the port's kernels per iteration from the
+              counters (which add each replay's launches); serve's B = 8
+              pool, two steps through ``solve_pool_step_jit`` against
+              ``solve_pool_step`` bit for bit; ``lsmr_jit``,
+              ``solve_sequence_lsmr_jit``, ``solve_batch_jit``,
+              ``solve_sequence_jit``, ``recycled_solve_jit`` and ``solve_jit``
+              once each at n = 2 048 (eager, capture, replay, bit for bit);
+              the device's busy share of one def-CG system captured and
+              eager (``torch.profiler``) at both n, and the profiler's
+              device kernels and copies per iteration of 16 live captured
+              def-CG steps.  Main, paper, check and serve already run
+              through the compiled doors (``laplace_gpc``,
+              ``SolveService``).
 6. scale    — one RBF Gram matvec each in f32 and f64 at n = 131 072,
               d = 784, where a dense K would need 69 GB (f32) or 137 GB.
 7. main-mf  — the matrix-free Newton sequence (K never formed; every K
@@ -401,7 +423,7 @@ K10's backward and forward-mode arms have entries of their own
 ``ssd_scan_jvp``); K9's and K10's entries count their forward arms
 (serving, and lse or the training forward).  ``[summary] wall s a phase`` gives each
 phase's wall time.  Further
-``[summary]`` lines give the strategies, batch, serve, batch-lsq, paper
+``[summary]`` lines give the graphs, strategies, batch, serve, batch-lsq, paper
 and chaos phases' results.  Last comes the
 ``{"ok": true, "device": {...}}`` line; the full report also goes to
 ``chiprun_out/chip_smoke.json``.
@@ -414,7 +436,8 @@ mamba2 4 x 4 096 cells, likewise; ``--encdec-only`` runs phases 1, 2 and
 the encoder–decoder's: check-lm and check-lm-grad at its shapes (held and
 timed), main-lm-encdec and train's seamless cell, likewise;
 ``--dryrun-only`` runs phases 1, 2, main-lm-encdec, train's qwen1.5 cell
-and the dry-run's phase 21 on their peaks, likewise.
+and the dry-run's phase 21 on their peaks, likewise; ``--graphs-only``
+runs phases 1, 2 and 5f on main's data, likewise.
 """
 
 from __future__ import annotations
@@ -1847,7 +1870,7 @@ def profile_lsmr_steps(torch, A, b, W=None, NW=None, steps=16):
             "wall_ms_per_iteration_profiled": 1e3 * wall / steps, "kernels": names}
 
 
-def profile_defcg_steps(torch, k_dense, steps=16, precond=False, x=None):
+def profile_defcg_steps(torch, k_dense, steps=16, precond=False, x=None, door="eager"):
     """``torch.profiler`` over ``steps`` deflated def-CG iterations (k = 8,
     tol 0, so every step is live) on the dense main path's Newton system
     ``I + H½ K H½`` at H½ = ½·I, with a random orthonormal basis W and its
@@ -1855,10 +1878,17 @@ def profile_defcg_steps(torch, k_dense, steps=16, precond=False, x=None):
     ``x`` (the data, ``k_dense`` None) runs the matrix-free operator over
     K3 instead, its gate in every step: device kernels launched per
     iteration, and device time per iteration split into the product (the
-    dense GEMV, or K3's three kernels) and everything else."""
+    dense GEMV, or K3's three kernels) and everything else.  ``door``
+    ``"captured"`` runs ``defcg_jit``: the warm-up call captures the loop,
+    the profiled one replays it, and the count then includes the copies
+    of the state into the program's buffers."""
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.core import KernelSystemOperator, RBFKernelSystemOperator, defcg, jacobi
+    from repro_torch.core import KernelSystemOperator, RBFKernelSystemOperator, jacobi
+    from repro_torch.core.solvers import defcg, defcg_jit
+
+    if door == "captured":
+        defcg = defcg_jit  # noqa: F811
 
     dtype = torch.float64 if k_dense is None else k_dense.dtype
     n = x.shape[0] if k_dense is None else k_dense.shape[0]
@@ -1896,7 +1926,7 @@ def profile_defcg_steps(torch, k_dense, steps=16, precond=False, x=None):
             other_us += us
         names[evt.key[:50]] = evt.count
     return {"n": n, "k": K, "steps": steps, "preconditioner": "jacobi" if precond else None,
-            "operator": "dense" if k_dense is not None else "matrix-free",
+            "operator": "dense" if k_dense is not None else "matrix-free", "door": door,
             "launches_per_iteration": launches / steps,
             "gemv_ms_per_iteration": gemv_us / steps / 1e3,
             "other_ms_per_iteration": other_us / steps / 1e3,
@@ -5289,6 +5319,344 @@ def encdec_summary(report):
         f"{rm['off']['peak_memory_gb']:.1f} GB")
 
 
+GRAPHS_SMALL_N = 4096
+GRAPHS_SERVE = {"slots": 8, "systems": 2}
+GRAPHS_DOORS_N = 2048
+
+
+def _sha(torch, t):
+    """SHA-256 of a tensor's bytes (on the host)."""
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def _tree_sha(torch, tree):
+    """SHA-256 over every tensor of a result (NamedTuples, dataclasses,
+    tuples, None), in field order."""
+    import dataclasses
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(t):
+        if isinstance(t, torch.Tensor):
+            h.update(_sha(torch, t).encode())
+        elif dataclasses.is_dataclass(t):
+            for f in dataclasses.fields(t):
+                walk(getattr(t, f.name))
+        elif isinstance(t, (tuple, list)):
+            for item in t:
+                walk(item)
+        else:
+            h.update(repr(t).encode())
+
+    walk(tree)
+    return h.hexdigest()
+
+
+def _busy_share(torch, fn):
+    """``(device busy share, wall s, device kernels)`` of one call of ``fn``
+    under ``torch.profiler``: the device's kernel time over the host wall
+    time of the call, both from one profile."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy, kernels = 0.0, 0
+    for evt in prof.key_averages():
+        us = _device_us(evt)
+        if _is_device(evt) and us > 0:
+            busy += us
+            kernels += evt.count
+    return busy / 1e6 / wall, wall, kernels
+
+
+def graphs_newton(torch, x, y, k_dense, solver, jit, tol=1e-5):
+    """One ``laplace_gpc`` Newton sequence at the main path's settings with
+    every system's solve recorded: ``defcg`` through ``RecycleManager(k=8,
+    ell=12, use_jit=jit)``, ``cg`` through ``cg_jit`` (``jit``) or ``cg``.
+    Per system: iterations, matvecs, SHA-256 of ``x`` (and, def-CG, of the
+    next basis W), host seconds of the solve; and the launches and graph
+    counts of the whole sequence."""
+    from repro_torch.core import RecycleManager, engine
+    from repro_torch.core.solvers import cg, cg_jit
+    from repro_torch.gp import RBFKernel, laplace_gpc
+    from repro_torch.gp import laplace as laplace_mod
+    from repro_torch.kernels import _runtime
+
+    systems = []
+
+    def record(res, t0, basis=None):
+        _sync(torch, x.device)
+        systems.append({"iterations": int(res.info.iterations),
+                        "matvecs": int(res.info.matvecs), "status": int(res.info.status),
+                        "x": _sha(torch, res.x), "s": time.perf_counter() - t0,
+                        "W": None if basis is None else _sha(torch, basis)})
+
+    class Recorded:
+        """The manager as ``laplace_gpc`` calls it, each solve recorded, its
+        extraction (``_refresh``, eager between the graphs) timed apart."""
+
+        def __init__(self, mgr):
+            self.mgr, self.extract_s = mgr, 0.0
+            refresh = mgr._refresh
+
+            def timed_refresh(*args, **kwargs):
+                _sync(torch, x.device)
+                t0 = time.perf_counter()
+                refresh(*args, **kwargs)
+                _sync(torch, x.device)
+                self.extract_s = time.perf_counter() - t0
+
+            mgr._refresh = timed_refresh
+
+        def solve(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            res = self.mgr.solve(*args, **kwargs)
+            record(res, t0, self.mgr.W)
+            systems[-1]["extract_s"] = self.extract_s
+            return res
+
+    def cg_door(*args, **kwargs):
+        t0 = time.perf_counter()
+        res = (cg_jit if jit else cg)(*args, **kwargs)
+        record(res, t0)
+        return res
+
+    before = dict(_runtime.LAUNCHES)
+    g0 = dict(engine.GRAPHS)
+    kw = {"solver": solver}
+    if solver == "defcg":
+        kw["recycle"] = Recorded(RecycleManager(k=K, ell=ELL, tol=tol, use_jit=jit))
+    saved = laplace_mod.cg_jit
+    laplace_mod.cg_jit = cg_door
+    try:
+        res, wall = _timed(torch, x.device, lambda: laplace_gpc(
+            x, y, RBFKernel(theta=THETA, lengthscale=LENGTHSCALE), solver_tol=tol,
+            newton_tol=1.0, k_dense=k_dense, dense_matvec=True, **kw))
+    finally:
+        laplace_mod.cg_jit = saved
+    launches = sum(_runtime.LAUNCHES[k] - before[k] for k in before)
+    iterations = sum(s["iterations"] for s in systems)
+    return {"logp": res.logp, "systems": systems, "wall_s": wall,
+            "solve_s": sum(s["s"] for s in systems),
+            "extract_s": sum(s.get("extract_s", 0.0) for s in systems), "launches": launches,
+            "launches_per_iteration": launches / max(iterations, 1),
+            "graphs": {k: engine.GRAPHS[k] - g0[k] for k in g0}}
+
+
+def _replayed(graphs, device) -> int:
+    """Programs run: graph replays on the card, buffered runs on the CPU
+    (a rehearsal)."""
+    return graphs["replays"] if str(device).startswith("cuda") else graphs["buffered"]
+
+
+def _compare_newton(tag, got, want, device, captured=True):
+    """A sequence against the eager one, system by system; a ``captured``
+    one must have replayed its graphs, a handful for the sequence."""
+    if len(got["systems"]) != len(want["systems"]):
+        raise AssertionError(f"[graphs] {tag}: {len(got['systems'])} systems vs "
+                             f"{len(want['systems'])}")
+    for i, (g, w) in enumerate(zip(got["systems"], want["systems"])):
+        for key in ("iterations", "matvecs", "status", "x", "W"):
+            if g[key] != w[key]:
+                raise AssertionError(f"[graphs] {tag} system {i}: {key} {g[key]} vs {w[key]}")
+    if not captured:
+        return
+    if _replayed(got["graphs"], device) <= 0:
+        raise AssertionError(f"[graphs] {tag}: no replay {got['graphs']}")
+    if got["graphs"]["captured"] > 4:
+        raise AssertionError(f"[graphs] {tag}: {got['graphs']['captured']} graphs captured for "
+                             f"{len(got['systems'])} systems of one shape")
+
+
+def phase_graphs(torch, x, y, k_dense, device="cuda"):
+    """The compiled doors against the eager doors on the card (the ``*_jit``
+    names: each masked loop captured as CUDA graphs once a shape, replayed
+    by every later system).
+
+    * The main path at n = 36 551 (main's data and K): the def-CG(8, 12)
+      Newton sequence through ``RecycleManager(use_jit=True)`` against
+      ``use_jit=False``, and CG through ``cg_jit`` against ``cg``: per
+      system iterations, matvecs and status equal, SHA-256 of ``x`` and of
+      the next basis equal; graphs captured (a handful for the sequence),
+      replays, wall and solve seconds, launches per iteration (the
+      kernels' counters, which count each replay's launches);
+    * the same at n = 4 096 (the first rows of main's data, its K),
+      where a step's kernels take tens of µs and the host sets the pace;
+    * the service: serve's B = 8 pool over main's K, two pool steps of
+      new tenants' systems through ``solve_pool_step_jit`` against
+      ``solve_pool_step`` (x, state, info bit for bit);
+    * each remaining door once at n = 2 048 against its eager door:
+      ``lsmr_jit``, ``solve_sequence_lsmr_jit``, ``solve_batch_jit``,
+      ``solve_sequence_jit``, ``recycled_solve_jit`` and ``solve_jit``;
+    * the device's busy share under ``torch.profiler``: one deflated
+      def-CG system at n = 4 096 and at n = 36 551, captured (replayed)
+      and eager, and the profiler's kernels per iteration of 16 live
+      captured def-CG steps at n = 36 551 beside the eager count.
+
+    Fails on any mismatch, on a door that never replayed, and on any
+    error."""
+    import importlib
+
+    from repro_torch import core
+    from repro_torch.core import RecycleManager, engine
+    from repro_torch.gp import RBFKernel
+
+    lsmr_mod = importlib.import_module("repro_torch.core.lsmr")
+    out = {}
+    t_phase = time.perf_counter()
+    engine.reset_graph_stats()
+
+    # -- the main path and the small n ------------------------------------
+    small = slice(0, GRAPHS_SMALL_N)
+    k_small = RBFKernel(theta=THETA, lengthscale=LENGTHSCALE).gram(x[small])
+    for tag, (xs, ys, kd) in ((f"n={x.shape[0]}", (x, y, k_dense)),
+                              (f"n={GRAPHS_SMALL_N}", (x[small], y[small], k_small))):
+        for solver in ("defcg", "cg"):
+            # Eager, captured, captured, eager: each laplace_gpc call makes
+            # its own K closure, so each captured run captures its programs.
+            runs = [graphs_newton(torch, xs, ys, kd, solver, jit=jit)
+                    for jit in (False, True, True, False)]
+            eager, captured = (runs[0], runs[3]), (runs[1], runs[2])
+            for i, run in enumerate(runs[1:], 1):
+                _compare_newton(f"{tag} {solver}", run, runs[0], device, captured=i < 3)
+            out[f"{tag} {solver}"] = {"captured": captured, "eager": eager}
+            warm = [sum(s["s"] for s in run["systems"][2:]) for run in runs]
+            log(f"[graphs] {tag} {solver}: {len(runs[1]['systems'])} systems, iterations "
+                f"{[s['iterations'] for s in runs[1]['systems']]} equal, x and W SHA-256 "
+                f"equal in all four runs; solve s eager / captured / captured / eager "
+                f"{' / '.join(f'{r['solve_s']:.4f}' for r in runs)}, systems 3 on "
+                f"{' / '.join(f'{w:.4f}' for w in warm)}, the extraction of every system "
+                f"{' / '.join(f'{r['extract_s']:.4f}' for r in runs)}; the port's kernels per "
+                f"iteration "
+                f"(counters) {runs[1]['launches_per_iteration']:.2f} captured, "
+                f"{runs[0]['launches_per_iteration']:.2f} eager; graphs {runs[1]['graphs']}")
+
+    # -- the service --------------------------------------------------------
+    spec = core.SolveSpec(k=K, ell=ELL, tol=SERVE["tol"], maxiter=SERVE["maxiter"])
+    slots, num = GRAPHS_SERVE["slots"], GRAPHS_SERVE["systems"]
+
+    def kmv(v):
+        return k_dense @ v
+
+    ops, rhs, _ = serve_traffic(torch, slots, num, kmv, x.shape[0], device, 3, SERVE["drift"])
+    keys = list(ops)
+    active = torch.ones(slots, dtype=torch.bool, device=device)
+    serve = {}
+    for name, door in (("eager", core.solve_pool_step), ("captured", core.solve_pool_step_jit)):
+        g0, state, steps = dict(engine.GRAPHS), None, []
+        for j in range(num):
+            res, sec = _timed(torch, device, lambda: door(
+                [ops[t][j] for t in keys], torch.stack([rhs[t][j] for t in keys]), spec, state,
+                active))
+            state = res.state
+            steps.append({"sha": _tree_sha(torch, (res.x, res.info, res.state)), "s": sec,
+                          "iterations": res.info.iterations.tolist()})
+        serve[name] = {"steps": steps,
+                       "graphs": {k: engine.GRAPHS[k] - g0[k] for k in g0}}
+    for j, (g, w) in enumerate(zip(serve["captured"]["steps"], serve["eager"]["steps"])):
+        if g["sha"] != w["sha"]:
+            raise AssertionError(f"[graphs] serve step {j}: captured and eager differ")
+    if _replayed(serve["captured"]["graphs"], device) <= 0:
+        raise AssertionError(f"[graphs] serve: no replay {serve['captured']['graphs']}")
+    out["serve"] = serve
+    log(f"[graphs] serve B={slots}: {num} pool steps bit for bit; seconds a step captured "
+        f"{[round(s['s'], 4) for s in serve['captured']['steps']]} vs eager "
+        f"{[round(s['s'], 4) for s in serve['eager']['steps']]}; graphs "
+        f"{serve['captured']['graphs']}")
+    del ops, rhs
+
+    # -- the remaining doors at a small n -----------------------------------
+    n = GRAPHS_DOORS_N
+    kd = k_small[:n, :n]
+    g = torch.Generator(device=device).manual_seed(11)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=device, dtype=torch.float64)
+
+    hs = [0.2 + 0.3 * torch.rand(n, generator=g, device=device, dtype=torch.float64)
+          for _ in range(3)]
+    mats = torch.stack([torch.eye(n, dtype=torch.float64, device=device)
+                        + h[:, None] * kd * h[None, :] for h in hs])
+    bs = randn(3, n)
+    w0 = torch.linalg.qr(randn(n, K)).Q.T.contiguous()
+    rect = torch.eye(2 * n, n, dtype=torch.float64, device=device) + 0.3 * randn(3, 2 * n, n) / (
+        2 * n) ** 0.5
+    brect = randn(3, 2 * n)
+    A0 = core.from_matrix(mats[0])
+    seq_kw = dict(k=K, ell=ELL, make_operator=core.from_matrix, tol=1e-8, maxiter=500)
+    lsq_kw = dict(k=K, ell=ELL, damp=0.1, make_operator=core.from_matrix, tol=1e-8,
+                  maxiter=500)
+    doors = {
+        "lsmr_jit": (lsmr_mod.lsmr_jit, lsmr_mod.lsmr,
+                     (core.from_matrix(rect[0]), brect[0]),
+                     dict(damp=0.1, ell=ELL, tol=1e-8, maxiter=500)),
+        "solve_sequence_lsmr_jit": (lsmr_mod.solve_sequence_lsmr_jit,
+                                    lsmr_mod.solve_sequence_lsmr, (rect, brect), lsq_kw),
+        "solve_batch_jit": (core.solve_batch_jit, core.solve_batch, (mats, bs, spec, None),
+                            dict(make_operator=core.from_matrix)),
+        "solve_sequence_jit": (core.solve_sequence_jit, core.recycle.solve_sequence,
+                               (mats, bs), seq_kw),
+        "recycled_solve_jit": (core.recycled_solve_jit, core.recycle._recycled_solve,
+                               (A0, bs[1], None, w0), dict(k=K, ell=ELL, tol=1e-8,
+                                                           maxiter=500)),
+        "solve_jit": (core.solve_jit, core.solve, (A0, bs[2], spec, None), {}),
+    }
+    out["doors"] = {}
+    for name, (door, eager, args, kw) in doors.items():
+        g0 = dict(engine.GRAPHS)
+        want, t_eager = _timed(torch, device, lambda: eager(*args, **kw))
+        got, t_door = _timed(torch, device, lambda: door(*args, **kw))
+        again, t_again = _timed(torch, device, lambda: door(*args, **kw))
+        used = {k: engine.GRAPHS[k] - g0[k] for k in g0}
+        same = _tree_sha(torch, got) == _tree_sha(torch, want) == _tree_sha(torch, again)
+        out["doors"][name] = {"bitwise": same, "eager_s": t_eager, "first_s": t_door,
+                              "replayed_s": t_again, "graphs": used}
+        log(f"[graphs] {name}: bit for bit {same}; eager {t_eager:.4f} s, first (capture) "
+            f"{t_door:.4f} s, again {t_again:.4f} s; graphs {used}")
+        if not same or _replayed(used, device) <= 0:
+            raise AssertionError(f"[graphs] {name}: bitwise {same}, graphs {used}")
+    del mats, rect
+
+    # -- the device's busy share and the kernels per iteration -------------
+    busy = {}
+    for tag, kd_ in ((f"n={GRAPHS_SMALL_N}", k_small), ("n=36551", k_dense)):
+        nn = kd_.shape[0]
+        half = torch.full((nn,), 0.5, dtype=torch.float64, device=device)
+        op = core.KernelSystemOperator(lambda v, kk=kd_: kk @ v, half)
+        b = torch.randn(nn, generator=g, device=device, dtype=torch.float64)
+        W = torch.linalg.qr(torch.randn(nn, K, generator=g, device=device,
+                                        dtype=torch.float64)).Q.T.contiguous()
+        AW = op.basis_matvec(W)
+        for name, door in (("eager", core.defcg), ("captured", core.solvers.defcg_jit)):
+            door(op, b, W=W, AW=AW, ell=ELL, tol=1e-5, maxiter=2000)  # capture / warm
+            share, wall, kernels = _busy_share(torch, lambda: door(
+                op, b, W=W, AW=AW, ell=ELL, tol=1e-5, maxiter=2000))
+            busy[f"{tag} {name}"] = {"busy_share": share, "wall_s": wall, "kernels": kernels}
+        log(f"[graphs] {tag} one deflated def-CG system: device busy "
+            f"{busy[f'{tag} captured']['busy_share']:.1%} captured "
+            f"({busy[f'{tag} captured']['wall_s'] * 1e3:.2f} ms) vs "
+            f"{busy[f'{tag} eager']['busy_share']:.1%} eager "
+            f"({busy[f'{tag} eager']['wall_s'] * 1e3:.2f} ms)")
+        del op
+    out["busy"] = busy
+    prof = profile_defcg_steps(torch, k_dense, door="captured")
+    out["profile_captured_defcg"] = prof
+    log(f"[graphs] profile def-CG captured (deflated, k = {K}, n = {PAPER_N}, 16 live steps): "
+        f"{prof['launches_per_iteration']:.1f} device kernels and copies per iteration; "
+        f"kernels {prof['kernels']}")
+    out["graphs_total"] = dict(engine.GRAPHS)
+    out["seconds"] = time.perf_counter() - t_phase
+    del k_small
+    return out
+
+
 def kernel_entry(name, entry, launches, arms=None):
     out = {"name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
            "launches": launches, "max_abs_err": entry["max_abs_err"], "ms": entry["ms"],
@@ -5413,6 +5781,15 @@ def main(argv) -> int:
         _lap(report, "dryrun")
         log("[summary] wall s a phase: " + ", ".join(f"{k} {v:.1f}" for k, v in
                                                      report["phase_s"].items()))
+        _write_report(report)
+        return 0
+    if "--graphs-only" in argv:  # the compiled doors' phase on main's data: no ok line
+        xn, yn = make_infinite_digits(PAPER_N, seed=0, noise=0.10)
+        x = torch.as_tensor(xn, dtype=torch.float64, device="cuda")
+        y = torch.as_tensor(yn, dtype=torch.float64, device="cuda")
+        k_dense = RBFKernel(theta=THETA, lengthscale=LENGTHSCALE).gram(x)
+        report["graphs"] = phase_graphs(torch, x, y, k_dense)
+        _lap(report, "graphs")
         _write_report(report)
         return 0
     if "--train-only" in argv:  # K9's grad arms, train and hf-lm alone: no ok line
@@ -5651,9 +6028,13 @@ def main(argv) -> int:
         raise AssertionError(f"[serve] a kernel or lane arm never launched: {arms['serve']}")
     if any(serve_plain.values()):
         raise AssertionError(f"[serve] plain versions ran on the card: {serve_plain}")
+    _lap(report, "serve")
+
+    # -- 5f. graphs: the compiled doors against the eager doors ------------
+    report["graphs"] = phase_graphs(torch, x, y, k_dense)
     del k_dense
     torch.cuda.empty_cache()
-    _lap(report, "serve")
+    _lap(report, "graphs")
 
     # -- 6. scale: past what a dense K allows --------------------------------
     report["scale"] = phase_scale(torch, rbf)
@@ -5725,6 +6106,10 @@ def main(argv) -> int:
     report["main_mf"] = {"runs": mf, "launches": mf_launches, "plain_on_cuda": mf_plain,
                          "peak_memory_gb": mf_peak_gb, "preconditioned_n": pre_n,
                          "cut": cut, "profile": mf_prof}
+    # The GP phases' compiled programs (their buffers and graphs) are done:
+    # the later phases' memory checks count what their own steps hold.
+    engine.clear_programs()
+    torch.cuda.empty_cache()
     _lap(report, "main-mf")
 
     # -- 7b. chaos: failure handling over the matrix-free K3 operator --------
@@ -5905,6 +6290,17 @@ def main(argv) -> int:
         f"{report['main_lsq']['runs']['cold']['ms_per_iteration']:.3f} ms per cold LSMR "
         f"iteration; main-gn device busy {report['main_gn']['profile']['device_busy_share']:.1%}, "
         f"{report['main_gn']['recycled']['ms_per_iteration']:.3f} ms per LSMR iteration (recycled)")
+    gr = report["graphs"]
+    gm, gs = gr[f"n={PAPER_N} defcg"], gr[f"n={GRAPHS_SMALL_N} defcg"]
+    log(f"[summary] graphs: every door bit for bit its eager door; def-CG Newton sequence "
+        f"solve s captured / eager n = {PAPER_N} "
+        f"{' / '.join(f'{r['solve_s']:.4f}' for r in gm['captured'] + gm['eager'])}, n = "
+        f"{GRAPHS_SMALL_N} {' / '.join(f'{r['solve_s']:.4f}' for r in gs['captured'] + gs['eager'])}; "
+        f"one def-CG system's device busy share at n = {GRAPHS_SMALL_N} "
+        f"{gr['busy'][f'n={GRAPHS_SMALL_N} captured']['busy_share']:.1%} captured, "
+        f"{gr['busy'][f'n={GRAPHS_SMALL_N} eager']['busy_share']:.1%} eager; profiler kernels "
+        f"and copies per captured def-CG iteration "
+        f"{gr['profile_captured_defcg']['launches_per_iteration']:.1f}; graphs {gr['graphs_total']}")
     st, bt = report["strategies"], report["batch"]
     log(f"[summary] strategies (n = {st['n']}): total matvecs harmonic "
         f"{st['harmonic']['total_matvecs']}, windowed {st['windowed']['total_matvecs']}, "

@@ -4,7 +4,8 @@ The front doors are ``solve`` / ``solve_sequence`` / ``solve_batch`` /
 ``solve_pool_step`` driven by one
 ``SolveSpec`` and carrying a ``RecycleState`` (``core/api.py``); ``cg``,
 ``defcg``, ``RecycleManager``, ``lsmr`` and ``solve_sequence_lsmr`` are
-the lower-level entry points.
+the lower-level entry points.  Each ``*_jit`` name is its door run as one
+compiled program (``core/engine.py``: CUDA graphs on the card).
 """
 
 from repro_torch.core.api import (
@@ -16,12 +17,20 @@ from repro_torch.core.api import (
     make_preconditioner,
     solve,
     solve_batch,
+    solve_batch_jit,
+    solve_jit,
     solve_pool_step,
+    solve_pool_step_jit,
     solve_sequence,
 )
 from repro_torch.core.engine import SolveInfo, SolveStatus
 from repro_torch.core.faults import FaultInjectingOperator, truncate_latest_checkpoint
-from repro_torch.core.lsmr import lsmr, solve_sequence_lsmr
+from repro_torch.core.lsmr import (
+    lsmr,
+    lsmr_jit,
+    solve_sequence_lsmr,
+    solve_sequence_lsmr_jit,
+)
 from repro_torch.core.operators import (
     DenseMatrixOperator,
     GaussNewtonOperator,
@@ -52,6 +61,8 @@ from repro_torch.core.recycle import (
     harmonic_ritz,
     harmonic_ritz_flat,
     random_orthonormal_basis,
+    recycled_solve_jit,
+    solve_sequence_jit,
 )
 from repro_torch.core.solvers import (
     DEFAULT_WAW_JITTER,
@@ -111,15 +122,22 @@ __all__ = [
     "jacobi",
     "kernel_nystrom_preconditioner",
     "lsmr",
+    "lsmr_jit",
     "make_preconditioner",
     "materialize",
     "nystrom_preconditioner",
     "random_orthonormal_basis",
     "randomized_nystrom",
+    "recycled_solve_jit",
     "solve",
     "solve_batch",
+    "solve_batch_jit",
+    "solve_jit",
     "solve_pool_step",
+    "solve_pool_step_jit",
     "solve_sequence",
+    "solve_sequence_jit",
     "solve_sequence_lsmr",
+    "solve_sequence_lsmr_jit",
     "truncate_latest_checkpoint",
 ]

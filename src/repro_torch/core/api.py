@@ -19,7 +19,10 @@ the ranks of a solve mesh.  :func:`solve_batch` and
 :func:`solve_pool_step` run B tenants' solves (or sequences) of every
 method at once, on the lane axis of the step kernels (K1, K6 and K2 for
 cg / def-CG, K7 for LSMR).  ``b``, ``x0`` and bases may be pytrees on the
-single and sequence doors.
+single and sequence doors.  :func:`solve_jit`, :func:`solve_batch_jit`
+and :func:`solve_pool_step_jit` are the same doors with every masked loop
+run as one compiled program (:mod:`repro_torch.core.engine`: CUDA graphs
+on the card, captured once a shape).
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import engine
 from repro_torch.core import lsmr as lsmr_mod
 from repro_torch.core import operators as ops_mod
 from repro_torch.core import preconditioners as precond_mod
@@ -396,6 +400,26 @@ def solve(
     return SolveResult(
         x=x, info=info, state=new_state, report=_make_report(info, rung)
     )
+
+
+def solve_jit(A, b, spec: Optional[SolveSpec] = None, state: Optional[RecycleState] = None, *,
+              x0=None, M=None, record_residuals: bool = False, mesh=None) -> SolveResult:
+    """:func:`solve` as one compiled program: its def-CG / cg / LSMR loop
+    (and every re-solve of the recovery ladder) captured once a shape and
+    replayed (:mod:`repro_torch.core.engine`), the setup, the ladder's host
+    reads and the extraction eager between the graphs.  Same arguments and
+    results as :func:`solve`, bit for bit.
+
+    ``mesh=`` runs the sharded loop as :func:`solve` does: its collectives
+    (``engine.psum_merged`` → ``SolveMesh.all_reduce``) run on the host
+    between the step's kernels, where a graph cannot hold them, so each
+    rank's loop stays eager (K8 still runs on the card).
+    """
+    if mesh is not None:
+        return solve(A, b, spec, state, x0=x0, M=M, record_residuals=record_residuals,
+                     mesh=mesh)
+    with engine.compiled():
+        return solve(A, b, spec, state, x0=x0, M=M, record_residuals=record_residuals)
 
 
 def _finish_sequence(
@@ -991,3 +1015,14 @@ def solve_pool_step(
     )
     x = torch.where(_slot_bcast(active, res.x), res.x, 0.0)
     return BatchSolveResult(x=x, info=masked, state=state_out, report=report)
+
+
+solve_batch_jit = engine.compiled_door(
+    solve_batch, """:func:`solve_batch` as one compiled program: the lane loop (its
+``(B,)`` flags read by the host once a chunk, as ``torch.any``) captured
+once a shape and replayed.  Same arguments and results, bit for bit.""")
+
+solve_pool_step_jit = engine.compiled_door(
+    solve_pool_step, """:func:`solve_pool_step` as one compiled program: a pool of
+one shape captures its lane loop once, and every later serving step with
+new tenants' data replays it.  Same arguments and results, bit for bit.""")

@@ -15,6 +15,13 @@
     counted by a plain Python counter in ``__call__`` across every
     application of this instance (basis refreshes included).
 
+  That counter lives on the host, where a replayed CUDA graph never
+  reaches it: the operator declares ``host_state``, and a compiled door
+  (``solve_jit``, ``defcg_jit``, …) runs a loop that takes it as an input
+  with its eager steps (``engine.GRAPHS["host_state"]`` counts them).
+  Hidden inside a closure the door cannot see it, and a capture that
+  calls it raises.
+
 * :func:`truncate_latest_checkpoint` damages the newest checkpoint on
   disk as a torn write would (manifest intact, arrays unreadable), to
   prove that ``CheckpointManager.restore_latest`` falls back and records
@@ -50,6 +57,8 @@ class FaultInjectingOperator:
     poison: Union[torch.Tensor, float] = 0.0
     at_matvec: Optional[int] = None
     count: int = 0
+    # A compiled program runs this operator's loops eagerly (engine.flatten).
+    host_state = True
 
     def reset(self) -> None:
         """Re-arm the ``at_matvec`` trigger."""
@@ -61,6 +70,9 @@ class FaultInjectingOperator:
         return self.count if self.at_matvec is not None else 0
 
     def __call__(self, v: torch.Tensor) -> torch.Tensor:
+        if v.is_cuda and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("FaultInjectingOperator counts its products on the host and "
+                               "cannot be captured into a CUDA graph")
         out = self.base(v)
         bad = torch.as_tensor(self.poison, dtype=out.dtype, device=out.device)
         if self.at_matvec is not None:

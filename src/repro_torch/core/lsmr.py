@@ -220,23 +220,15 @@ def lsmr(
         return t[..., None] if lanes else t
 
     deflating = W is not None
+    proj = None
     if deflating:
         k = W.shape[-2]
         nw = NW if NW is not None else torch.zeros_like(W)
         chol = factor_waw_gram(W, nw, waw_jitter, lanes)
         eye = torch.eye(k, dtype=W.dtype, device=device)
         winv = _chol_solve(chol, eye.expand(lead + (k, k)) if lanes else eye, lanes)
-
-        def small(c):  # (WᵀNW)⁻¹ c
-            return ops_mod.over_lanes(torch.matmul, _basis_dot_batched, lanes, winv, c)
-
-        def q_apply(vv):  # right projection: N-orthogonalize against W
-            return vv - _combine(W, small(_basis_dot(nw, vv, lanes)), lanes)
-
-        def qt_apply(gg):  # its transpose, on adjoint products
-            return gg - _combine(nw, small(_basis_dot(W, gg, lanes)), lanes)
-    else:
-        q_apply = qt_apply = lambda z: z  # noqa: E731
+        proj = (W, nw, winv)
+    consts = dict(A=A, proj=proj, lanes=lanes, sqrt_damp=sqrt_damp if has_shift else None)
 
     # -- initial augmented residual r̂₀ = [b − A x₀; −√λ x₀] ----------------
     init_mv = 1  # the Âᵀu₁ below
@@ -261,7 +253,7 @@ def lsmr(
         g0 = g0 + sqrt_damp * u_n0
     else:
         u_n0 = None
-    g0 = qt_apply(g0)
+    g0 = _qt_apply(consts, g0)
     alpha1 = torch.sqrt(_dot(g0, g0, lanes))
     v0 = g0 / col(_safe(alpha1))
     n = v0.shape[-1]
@@ -271,65 +263,27 @@ def lsmr(
     diverged_at = 1e8 * normar0
     trace0 = engine.trace_init(normar0, maxiter, record_residuals)
 
+    consts.update(threshold=threshold, diverged_at=diverged_at, maxiter=maxiter,
+                  window=stagnation_window,
+                  lane_rows=torch.arange(lead[0], device=device) if lanes else None)
+    # The window's buffers ride in the state (the steps write them in
+    # place); row ``ell`` is the spare row frozen recording steps write to,
+    # so rows past ``stored`` stay zero (the reference zero-masks them).
+    bufs = None
     if ell > 0:
-        # Row ``ell`` is the spare row frozen recording steps write to, so
-        # rows past ``stored`` stay zero (the reference zero-masks them).
-        v_buf = torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device)
-        nv_buf = torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device)
-        lane_rows = torch.arange(lead[0], device=device) if lanes else None
-
-        def record(buf, vec, active, row):
-            slot = torch.where(active, row, ell).to(torch.int64)
-            if lanes:
-                buf.index_put_((lane_rows, slot), vec)
-            else:
-                buf.index_copy_(0, slot.reshape(1), vec[None])
-
-    def step(state, active, row):
-        """One masked LSMR iteration; ``active=False`` freezes the state."""
-        u_m, u_n, v, g = state[4:8]
-        alpha = col(state[1][..., 0])
-
-        # -- bidiagonalization: β u⁺ = Â(Qv) − α u ---------------------------
-        qv = q_apply(v)
-        u_m_new = A(qv) - alpha * u_m
-        beta_sq_ = _dot(u_m_new, u_m_new, lanes)
-        if has_shift:
-            u_n_new = sqrt_damp * qv - alpha * u_n
-            beta_sq_ = beta_sq_ + _dot(u_n_new, u_n_new, lanes)
-        beta_new = torch.sqrt(beta_sq_)
-        sb = col(_safe(beta_new))
-        u_m_new = u_m_new / sb
-        if has_shift:
-            u_n_new = u_n_new / sb
-
-        # -- α v⁺ = Qᵀ(Âᵀu⁺) − β v (α⁺ and v⁺ in the tail) --------------------
-        g_new = At(u_m_new)
-        if has_shift:
-            g_new = g_new + sqrt_damp * u_n_new
-        g_new = qt_apply(g_new)
-        w_vec = g_new - col(beta_new) * v
-
-        if row is not None:
-            # The window row, free from the recurrence:
-            #   N̂ v_j = α_j·B̂ᵀu_j + β_{j+1}·B̂ᵀu_{j+1}.
-            record(v_buf, v, active, row)
-            record(nv_buf, alpha * g + col(beta_new) * g_new, active, row)
-
-        return lsmr_tail(state, active, u_m_new, u_n_new if has_shift else None, g_new,
-                         w_vec, _dot(w_vec, w_vec, lanes), beta_new, threshold, diverged_at,
-                         maxiter, stagnation_window)
-
+        bufs = (torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device),
+                torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device))
     state = lsmr_initial_state(x_flat, u_m0, u_n0, v0, g0, alpha1, normar0, threshold,
                                maxiter, trace0, stagnation_window)
-    state = engine.run_recording_loop(step, lambda st: st[2], state, ell=ell)
+    state, bufs = engine.run_recording_loop(_lsmr_step, _lsmr_active, (state, bufs), ell=ell,
+                                            consts=consts)
     js, s, _, x = state[:4]
     j, fail, zetabar, trace = js[..., 0], js[..., 1], s[..., 1], state[10]
     normar = torch.abs(zetabar)
     if deflating:
         # The Krylov correction lives in the Q-subspace: one exit-time
         # projection of the accumulated update.
-        x = x_flat + q_apply(x - x_flat)
+        x = x_flat + _q_apply(consts, x - x_flat)
 
     converged = normar <= threshold
     info = SolveInfo(
@@ -343,9 +297,91 @@ def lsmr(
     )
     recycle = None
     if ell > 0:
-        recycle = RecycleData(P=v_buf[..., :ell, :], AP=nv_buf[..., :ell, :],
+        recycle = RecycleData(P=bufs[0][..., :ell, :], AP=bufs[1][..., :ell, :],
                               stored=torch.clamp(j, max=ell))
     return CGResult(x=x, info=info, recycle=recycle)
+
+
+def _small(c, vec):
+    """``(WᵀNW)⁻¹ vec`` of the deflation ``c["proj"] = (W, NW, (WᵀNW)⁻¹)``."""
+    winv = c["proj"][2]
+    return ops_mod.over_lanes(torch.matmul, _basis_dot_batched, c["lanes"], winv, vec)
+
+
+def _q_apply(c, vv):
+    """The right projection: ``vv`` N-orthogonalized against ``W`` (``vv``
+    itself without a deflation basis)."""
+    if c["proj"] is None:
+        return vv
+    W, nw, _ = c["proj"]
+    return vv - _combine(W, _small(c, _basis_dot(nw, vv, c["lanes"])), c["lanes"])
+
+
+def _qt_apply(c, gg):
+    """The projection's transpose, on adjoint products."""
+    if c["proj"] is None:
+        return gg
+    W, nw, _ = c["proj"]
+    return gg - _combine(nw, _small(c, _basis_dot(W, gg, c["lanes"])), c["lanes"])
+
+
+def _record(c, buf, vec, active, row):
+    """``vec`` into row ``active ? row : ell`` of a window buffer, in place."""
+    slot = torch.where(active, row, buf.shape[-2] - 1).to(torch.int64)
+    if c["lanes"]:
+        buf.index_put_((c["lane_rows"], slot), vec)
+    else:
+        buf.index_copy_(0, slot.reshape(1), vec[None])
+
+
+def _lsmr_active(state):
+    """The LSMR loop's carried active flag."""
+    return state[0][2]
+
+
+def _lsmr_step(c, state, active, row):
+    """One masked LSMR iteration of :func:`lsmr` (``c``: its consts; the
+    state the :func:`lsmr_tail` state and the window's buffers);
+    ``active=False`` freezes the state."""
+    core, bufs = state
+    A, lanes, sqrt_damp = c["A"], c["lanes"], c["sqrt_damp"]
+
+    def col(t):  # a per-system scalar scaling that system's vector
+        return t[..., None] if lanes else t
+
+    u_m, u_n, v, g = core[4:8]
+    alpha = col(core[1][..., 0])
+
+    # -- bidiagonalization: β u⁺ = Â(Qv) − α u -------------------------------
+    qv = _q_apply(c, v)
+    u_m_new = A(qv) - alpha * u_m
+    beta_sq_ = _dot(u_m_new, u_m_new, lanes)
+    if sqrt_damp is not None:
+        u_n_new = sqrt_damp * qv - alpha * u_n
+        beta_sq_ = beta_sq_ + _dot(u_n_new, u_n_new, lanes)
+    beta_new = torch.sqrt(beta_sq_)
+    sb = col(_safe(beta_new))
+    u_m_new = u_m_new / sb
+    if sqrt_damp is not None:
+        u_n_new = u_n_new / sb
+
+    # -- α v⁺ = Qᵀ(Âᵀu⁺) − β v (α⁺ and v⁺ in the tail) ------------------------
+    g_new = ops_mod.adjoint_matvec(A)(u_m_new)
+    if sqrt_damp is not None:
+        g_new = g_new + sqrt_damp * u_n_new
+    g_new = _qt_apply(c, g_new)
+    w_vec = g_new - col(beta_new) * v
+
+    if row is not None:
+        # The window row, free from the recurrence:
+        #   N̂ v_j = α_j·B̂ᵀu_j + β_{j+1}·B̂ᵀu_{j+1}.
+        _record(c, bufs[0], v, active, row)
+        _record(c, bufs[1], alpha * g + col(beta_new) * g_new, active, row)
+
+    core = lsmr_tail(core, active, u_m_new, u_n_new if sqrt_damp is not None else None, g_new,
+                     w_vec, _dot(w_vec, w_vec, lanes), beta_new, c["threshold"],
+                     c["diverged_at"], c["maxiter"], c["window"])
+    return core, bufs
 
 
 # ---------------------------------------------------------------------------
@@ -522,3 +558,19 @@ def solve_sequence_lsmr(
         drift=torch.zeros((), dtype=dtype, device=device),
         rung=torch.stack(rungs),
     )
+
+
+# ---------------------------------------------------------------------------
+# Compiled entry points (the reference's jitted doors)
+# ---------------------------------------------------------------------------
+
+lsmr_jit = engine.compiled_door(lsmr, """:func:`lsmr` as one compiled program
+(:mod:`repro_torch.core.engine`): on the card the loop's recording steps
+and its chunks of steps, K7's step arm inside them, are captured once a
+shape and replayed.  Same arguments and results as :func:`lsmr`, bit for
+bit.""")
+
+solve_sequence_lsmr_jit = engine.compiled_door(
+    solve_sequence_lsmr, """:func:`solve_sequence_lsmr` with every system's
+LSMR loop a compiled program: the systems of one shape share its graphs.
+Same arguments and results, bit for bit.""")

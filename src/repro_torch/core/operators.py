@@ -17,6 +17,7 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.core import engine
 from repro_torch.core import pytree as pt
 from repro_torch.kernels import ops as kops
 
@@ -461,3 +462,32 @@ def lane_operator(ops):
     ):
         return KernelSystemOperator(first.kernel_matvec, torch.stack([op.sqrt_h for op in ops]))
     return LaneOperator(ops)
+
+
+# ---------------------------------------------------------------------------
+# The operators as loop inputs of a compiled program (engine.register_node)
+# ---------------------------------------------------------------------------
+#
+# The reference's pytree split: the tensors are children (copied into a
+# program's buffers, so a new system's data replays the same graphs), the
+# rest is static aux data (a callable by its identity: a new closure is a
+# new program).
+
+engine.register_node(
+    LinearOperator,
+    lambda op: ((), (op.matvec, op.matvec_cost_flops, op.matmat, op.rmatvec)),
+    lambda aux, _: LinearOperator(*aux))
+engine.register_node(DenseMatrixOperator, lambda op: ((op.mat,), ()),
+                     lambda _, ch: DenseMatrixOperator(*ch))
+engine.register_node(
+    KernelSystemOperator,
+    lambda op: ((op.sqrt_h,), (op.kernel_matvec, op.matvec_cost_flops)),
+    lambda aux, ch: KernelSystemOperator(aux[0], ch[0], aux[1]))
+engine.register_node(
+    RBFKernelSystemOperator,
+    lambda op: ((op.x, op.sqrt_h), (float(op.theta), float(op.lengthscale), op.block,
+                                    op.backend)),
+    lambda aux, ch: RBFKernelSystemOperator(*ch, *aux))
+engine.register_node(LaneOperator, lambda op: ((op.ops,), ()), lambda _, ch: LaneOperator(*ch))
+engine.register_node(LaneDenseOperator, lambda op: ((op.mats,), ()),
+                     lambda _, ch: LaneDenseOperator(*ch))

@@ -20,6 +20,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import engine
 from repro_torch.core import operators as ops_mod
 from repro_torch.core import pytree as pt
 
@@ -173,3 +174,15 @@ def lane_preconditioner(applies):
     if all(isinstance(m, JacobiPreconditioner) for m in applies):
         return JacobiPreconditioner(torch.stack([m.diag for m in applies]))
     return LanePreconditioner(applies)
+
+
+# The preconditioners as loop inputs of a compiled program: every field a
+# child (engine.register_node; see repro_torch.core.operators).
+engine.register_node(JacobiPreconditioner, lambda m: ((m.diag,), ()),
+                     lambda _, ch: JacobiPreconditioner(*ch))
+engine.register_node(NystromPreconditioner, lambda m: ((m.U, m.lam, m.sigma), ()),
+                     lambda _, ch: NystromPreconditioner(*ch))
+engine.register_node(WoodburyKernelPreconditioner, lambda m: ((m.sqrt_h, m.U, m.chol_c), ()),
+                     lambda _, ch: WoodburyKernelPreconditioner(*ch))
+engine.register_node(LanePreconditioner, lambda m: ((m.applies,), ()),
+                     lambda _, ch: LanePreconditioner(*ch))

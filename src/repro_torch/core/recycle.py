@@ -22,6 +22,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core import engine
 from repro_torch.core import operators as ops_mod
 from repro_torch.core import pytree as pt
 from repro_torch.core.engine import SolveInfo
@@ -30,11 +31,13 @@ from repro_torch.core.solvers import (
     CGResult,
     RecycleData,
     defcg,
+    defcg_jit,
     defcg_lanes,
 )
 from repro_torch.core.strategies import (
     HarmonicRitz,
     RecycleStrategy,
+    extract_next_basis_core,
     harmonic_ritz_flat_core,
 )
 
@@ -485,7 +488,10 @@ class RecycleManager:
     charged); ``"stale"`` reuses the extraction's products.  A solve that
     ends broken or unconverged with a carried basis is re-solved clean,
     and the failed attempt's matvecs are charged, as in the reference.
-    ``solve(..., M=...)`` preconditions both attempts.
+    ``solve(..., M=...)`` preconditions both attempts.  ``use_jit``
+    (the default, as in the reference) solves through
+    :func:`~repro_torch.core.solvers.defcg_jit`: the first system of a
+    shape captures the loop, every later one replays it.
     """
 
     k: int
@@ -496,6 +502,7 @@ class RecycleManager:
     waw_jitter: float = DEFAULT_WAW_JITTER
     refresh_aw: str = "exact"
     strategy: RecycleStrategy = HarmonicRitz()
+    use_jit: bool = True
     state: Optional[RecycleState] = None
     systems_solved: int = 0
     _has_aw: bool = False
@@ -567,8 +574,9 @@ class RecycleManager:
         if needs_fresh:
             aw_flat = ops_mod.apply_to_basis(A, w_flat)
 
+        solve_fn = defcg_jit if self.use_jit else defcg
         exact_aw = needs_fresh or w_flat is None
-        result = defcg(
+        result = solve_fn(
             A,
             b,
             x0,
@@ -598,7 +606,7 @@ class RecycleManager:
             self.state = None
             self._has_aw = False
             w_flat = aw_flat = None
-            result = defcg(
+            result = solve_fn(
                 A, b, x0,
                 ell=self.ell, tol=tol, maxiter=maxiter,
                 record_residuals=record_residuals, M=M,
@@ -637,3 +645,34 @@ class RecycleManager:
             drift=drift,
         )
         self._has_aw = True
+
+
+solve_sequence_jit = engine.compiled_door(
+    solve_sequence, """:func:`solve_sequence` with every system's def-CG loop a
+compiled program (:mod:`repro_torch.core.engine`): the systems of one
+shape share its graphs, the setup, the ladder's reads and the extraction
+run eagerly between them.  Same arguments and results, bit for bit.""")
+
+
+def _recycled_solve(A, b, x0, W, *, k: int, ell: int, tol: float, maxiter: int,
+                    select: str = "largest"):
+    _, unravel = pt.ravel_vector(b)
+    w_flat = pt.ravel_basis(W)
+    flat_a = A if pt.is_flat(b) and b.ndim == 1 else pt.flat_operator(A, unravel)
+    aw_flat = ops_mod.apply_to_basis(flat_a, w_flat)
+    result = defcg(A, b, x0, W=W, AW=pt.unravel_basis(aw_flat, unravel), ell=ell, tol=tol,
+                   maxiter=maxiter, flat_recycle=True)
+    rec = result.recycle
+    w_next, _, _, _ = extract_next_basis_core(w_flat, aw_flat, rec.P, rec.AP, rec.stored, k,
+                                              select=select)
+    result = result._replace(info=result.info._replace(
+        matvecs=result.info.matvecs + w_flat.shape[0]))
+    return pt.unravel_basis(w_next, unravel), result.x, result
+
+
+recycled_solve_jit = engine.compiled_door(
+    _recycled_solve, """Single-shot solve and extract for outer loops that carry ``W``
+in their own state: one multi-RHS ``AW`` refresh (charged), a flat def-CG
+solve as a compiled program, and the masked extraction of the next basis.
+``b``/``x0``/``W`` may be pytrees (``W`` a basis with a leading axis).
+Returns ``(W_next, x, result)``, as the reference's.""")

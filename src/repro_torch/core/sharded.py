@@ -189,7 +189,7 @@ def _sharded_cg(apply, mesh, b, x0, *, tol, atol, maxiter, record_residuals,
         j, rnorm, fail = state[0], state[4], state[6]
         return (j < maxiter) & (rnorm > threshold) & (fail == 0)
 
-    def step(state, active, row):
+    def step(_, state, active, row):
         del row  # CG records no window
         j, x, r, p, rnorm, trace, fail, stag = state
         ap = engine.gated_matvec(apply, p, active)
@@ -289,7 +289,7 @@ def _sharded_defcg(
         j, rnorm, fail = state[0], state[4], state[6]
         return (j < maxiter) & (rnorm > threshold) & (fail == 0)
 
-    def step(state, active, row):
+    def step(_, state, active, row):
         j, x, r, p, rnorm, trace, fail, stag = state
         ap = engine.gated_matvec(apply, p, active)
         rap_l, awap_l, rs_l, awr_l = kops.fused_rz_pair(r, ap, aw_used)
@@ -397,7 +397,7 @@ def _sharded_lsmr(
     diverged_at = 1e8 * normar0
     trace0 = engine.trace_init(normar0, maxiter, record_residuals)
 
-    def step(state, active, row):
+    def step(_, state, active, row):
         del row  # no window
         u_m, u_n, v = state[4:7]
         alpha = state[1][0]

@@ -126,32 +126,41 @@ def cg(
     threshold, _ = engine.tolerances(b, tol, atol)
     trace0 = engine.trace_init(rnorm0, maxiter, record_residuals)
     diverged_at = 1e8 * torch.maximum(rnorm0, pt.tree_norm(b))
-
-    def step(state, active, row):
-        del row  # CG records no window
-        js, x, r, p, rz, rnorm, _, trace, best = state
-        ap = engine.gated_matvec(A, p, active)
-        d = pt.tree_dot(p, ap)
-        x, r, ap, so, js, flags = kops.fused_cg_step(
-            x, r, p, ap, d, rz, rnorm, js, active, threshold, diverged_at, maxiter,
-            recurrence=M is None, trace=trace, window=stagnation_window, best=best,
-        )
-        if M is None:
-            z, rz_new, beta = r, so[0], so[3]
-        else:
-            z = M(r)
-            sz = kops.fused_rz_step(r, z, rz)
-            rz_new, beta = sz[0], sz[1]
-        p = kops.fused_direction_step(z, p, beta, flags[1])
-        return (js, x, r, p, rz_new, so[1], flags[0], trace, so[-1] if stagnation_window else None)
-
+    consts = dict(A=A, M=M, threshold=threshold, diverged_at=diverged_at, maxiter=maxiter,
+                  window=stagnation_window)
     js0, active0, best0 = _initial_flags(rnorm0, threshold, maxiter,
                                           stagnation_window)
     state = (js0, x, r, p, rz, rnorm0, active0, trace0, best0)
-    state = engine.run_recording_loop(step, lambda st: st[6], state, ell=0)
+    state = engine.run_recording_loop(_cg_step, _active, state, ell=0, consts=consts)
     js, x, _, _, _, rnorm, _, trace, _ = state
     j, fail = js[0], js[1]
     return CGResult(x=x, info=_info(j, 1, rnorm, threshold, trace, fail, maxiter))
+
+
+def _active(state):
+    """The cg / def-CG loop's carried active flag."""
+    return state[6]
+
+
+def _cg_step(c, state, active, row):
+    """One masked CG iteration of :func:`cg` (``c``: its consts)."""
+    del row  # CG records no window
+    js, x, r, p, rz, rnorm, _, trace, best = state
+    A, M, window = c["A"], c["M"], c["window"]
+    ap = engine.gated_matvec(A, p, active)
+    d = pt.tree_dot(p, ap)
+    x, r, ap, so, js, flags = kops.fused_cg_step(
+        x, r, p, ap, d, rz, rnorm, js, active, c["threshold"], c["diverged_at"], c["maxiter"],
+        recurrence=M is None, trace=trace, window=window, best=best,
+    )
+    if M is None:
+        z, rz_new, beta = r, so[0], so[3]
+    else:
+        z = M(r)
+        sz = kops.fused_rz_step(r, z, rz)
+        rz_new, beta = sz[0], sz[1]
+    p = kops.fused_direction_step(z, p, beta, flags[1])
+    return (js, x, r, p, rz_new, so[1], flags[0], trace, so[-1] if window else None)
 
 
 # ---------------------------------------------------------------------------
@@ -429,58 +438,28 @@ def _defcg(A, b, x0, W, AW, *, lanes: bool, ell: int = 0, tol: float = 1e-5,
     trace0 = engine.trace_init(rnorm0, maxiter, record_residuals)
     diverged_at = 1e8 * torch.maximum(rnorm0, _norm(b, lanes))
 
+    # What the steps write in place rides in the state: the recording
+    # buffers, row ``ell`` the spare row frozen steps write to.
+    bufs = None
     if ell > 0:
-        p_buf = torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device)
-        ap_buf = torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device)
-        a_rows = torch.zeros(lead + (ell + 1,), dtype=dtype, device=device)
-        b_rows = torch.zeros(lead + (ell + 1,), dtype=dtype, device=device)
-
-    def step(state, active, row):
-        """One masked def-CG iteration; ``active=False`` freezes the state."""
-        js, x, r, p, rs, rnorm, _, trace, best = state
-        ap = engine.gated_matvec(A, p, active).contiguous()
-        d = _dot(p, ap, lanes)
-        rows = {} if row is None else dict(row=row, a_rows=a_rows, b_rows=b_rows)
-        if M is None:
-            # rᵀr IS the recurrence scalar: the deflation GEMV, β and μ
-            # ride in the update's launch.
-            x, r, ap, so, js, flags = kops.fused_cg_step(
-                x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
-                aw, waw_inv, trace=trace, window=stagnation_window, best=best, **rows,
-            )
-            zvec, rs_new, beta = r, so[..., 0], so[..., 3]
-            mu = so[..., 4:4 + k] if deflating else None
-        else:
-            # z = M⁻¹r exists only after the update: rᵀz, (AW)ᵀz, β, μ and
-            # the recorded α / β come from K6's step arm, a second launch.
-            x, r, ap, so, js, flags = kops.fused_cg_step(
-                x, r, p, ap, d, rs, rnorm, js, active, threshold, diverged_at, maxiter,
-                recurrence=False, trace=trace, window=stagnation_window, best=best,
-            )
-            zvec = M(r).contiguous()
-            sz = kops.fused_rz_step(r, zvec, rs, aw, waw_inv, alpha=so[..., 2], active=active,
-                                    **rows)
-            rs_new, beta = sz[..., 0], sz[..., 1]
-            mu = sz[..., 2:] if deflating else None
-        # Frozen steps record into the spare row ``ell``.  p is frozen on
-        # breakdown too (flags[1] = active ∧ ¬bad): a poisoned basis can
-        # make p_new non-finite through μ even with a sanitized A·p.
-        rec = {} if row is None else dict(ap=ap, active=active, row=row, p_buf=p_buf,
-                                          ap_buf=ap_buf)
-        p = kops.fused_direction_step(zvec, p, beta, flags[..., 1], W, mu, **rec)
-        return (js, x, r, p, rs_new, so[..., 1], flags[..., 0], trace,
-                so[..., -1] if stagnation_window else None)
-
+        bufs = (torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device),
+                torch.zeros(lead + (ell + 1, n), dtype=dtype, device=device),
+                torch.zeros(lead + (ell + 1,), dtype=dtype, device=device),
+                torch.zeros(lead + (ell + 1,), dtype=dtype, device=device))
+    consts = dict(A=A, M=M, W=W, aw=aw, waw_inv=waw_inv, threshold=threshold,
+                  diverged_at=diverged_at, maxiter=maxiter, window=stagnation_window,
+                  lanes=lanes)
     js0, active0, best0 = _initial_flags(rnorm0, threshold, maxiter,
                                           stagnation_window)
-    state = (js0, x, r, p, rs0, rnorm0, active0, trace0, best0)
-    state = engine.run_recording_loop(step, lambda st: st[6], state, ell=ell)
-    js, x, _, _, _, rnorm, _, trace, _ = state
+    state = (js0, x, r, p, rs0, rnorm0, active0, trace0, best0, bufs)
+    state = engine.run_recording_loop(_defcg_step, _active, state, ell=ell, consts=consts)
+    js, x, _, _, _, rnorm, _, trace, _, bufs = state
     j, fail = js[..., 0], js[..., 1]
 
     info = _info(j, matvecs, rnorm, threshold, trace, fail, maxiter, guard_fired)
     recycle = None
     if ell > 0:
+        p_buf, ap_buf, a_rows, b_rows = bufs
         recycle = RecycleData(
             P=p_buf[..., :ell, :],
             AP=ap_buf[..., :ell, :],
@@ -495,6 +474,46 @@ def _defcg(A, b, x0, W, AW, *, lanes: bool, ell: int = 0, tol: float = 1e-5,
     return CGResult(x=x, info=info, recycle=recycle)
 
 
+def _defcg_step(c, state, active, row):
+    """One masked def-CG iteration of :func:`defcg` / :func:`defcg_lanes`
+    (``c``: its consts); ``active=False`` freezes the state."""
+    js, x, r, p, rs, rnorm, _, trace, best, bufs = state
+    A, M, W, aw, waw_inv = c["A"], c["M"], c["W"], c["aw"], c["waw_inv"]
+    lanes, window = c["lanes"], c["window"]
+    ap = engine.gated_matvec(A, p, active).contiguous()
+    d = _dot(p, ap, lanes)
+    rows = {} if row is None else dict(row=row, a_rows=bufs[2], b_rows=bufs[3])
+    if M is None:
+        # rᵀr IS the recurrence scalar: the deflation GEMV, β and μ ride
+        # in the update's launch.
+        x, r, ap, so, js, flags = kops.fused_cg_step(
+            x, r, p, ap, d, rs, rnorm, js, active, c["threshold"], c["diverged_at"],
+            c["maxiter"], aw, waw_inv, trace=trace, window=window, best=best, **rows,
+        )
+        zvec, rs_new, beta = r, so[..., 0], so[..., 3]
+        mu = so[..., 4:4 + W.shape[-2]] if W is not None else None
+    else:
+        # z = M⁻¹r exists only after the update: rᵀz, (AW)ᵀz, β, μ and the
+        # recorded α / β come from K6's step arm, a second launch.
+        x, r, ap, so, js, flags = kops.fused_cg_step(
+            x, r, p, ap, d, rs, rnorm, js, active, c["threshold"], c["diverged_at"],
+            c["maxiter"], recurrence=False, trace=trace, window=window, best=best,
+        )
+        zvec = M(r).contiguous()
+        sz = kops.fused_rz_step(r, zvec, rs, aw, waw_inv, alpha=so[..., 2], active=active,
+                                **rows)
+        rs_new, beta = sz[..., 0], sz[..., 1]
+        mu = sz[..., 2:] if W is not None else None
+    # Frozen steps record into the spare row ``ell``.  p is frozen on
+    # breakdown too (flags[1] = active ∧ ¬bad): a poisoned basis can make
+    # p_new non-finite through μ even with a sanitized A·p.
+    rec = {} if row is None else dict(ap=ap, active=active, row=row, p_buf=bufs[0],
+                                      ap_buf=bufs[1])
+    p = kops.fused_direction_step(zvec, p, beta, flags[..., 1], W, mu, **rec)
+    return (js, x, r, p, rs_new, so[..., 1], flags[..., 0], trace,
+            so[..., -1] if window else None, bufs)
+
+
 # ---------------------------------------------------------------------------
 # Dense baseline (paper Table 1's Cholesky column)
 # ---------------------------------------------------------------------------
@@ -503,3 +522,29 @@ def _defcg(A, b, x0, W, AW, *, lanes: bool, ell: int = 0, tol: float = 1e-5,
 def cholesky_solve(mat: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Exact SPD solve via Cholesky — the paper's cubic-cost baseline."""
     return _chol_solve(torch.linalg.cholesky(mat), b)
+
+
+# ---------------------------------------------------------------------------
+# Compiled entry points (the reference's jitted doors)
+# ---------------------------------------------------------------------------
+#
+# One program per loop shape (repro_torch.core.engine.Program): on the card
+# the masked loop's two phases are CUDA graphs, captured by the first solve
+# of a shape and replayed by every later one.  Tensors (``b``, ``x0``, the
+# bases, an operator's or a preconditioner's tensors) are copied into the
+# program's buffers; shapes, dtypes, the keyword settings and each callable
+# by its identity select the program, so a Newton loop that reuses one
+# ``kernel_matvec`` closure captures each solver variant once.
+
+cg_jit = engine.compiled_door(cg, """:func:`cg` as one compiled program.
+
+``M`` may be None, a registered preconditioner (its tensors copied in:
+rebuild it freely) or a bare callable (static by identity, as in the
+reference's static-``M`` jit).  Same arguments and results as :func:`cg`,
+bit for bit.""")
+
+defcg_jit = engine.compiled_door(defcg, """:func:`defcg` as one compiled program.
+
+Same arguments and results as :func:`defcg`, bit for bit; the setup (the
+deflated initial guess, the stale guard's host read) and the window's
+hand-off run eagerly around the captured loop.""")

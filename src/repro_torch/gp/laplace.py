@@ -8,6 +8,9 @@ The counterpart of ``repro.gp.laplace``: Newton's method on
 by ``cholesky``, ``cg``, ``defcg`` (a :class:`RecycleManager` carrying the
 deflation basis across Newton steps) or the ``spec`` front door, which
 also preconditions (``spec.precond`` = ``"jacobi"`` or ``"nystrom"``).
+As in the reference, the iterative solves go through the compiled doors
+(``cg_jit``, ``solve_jit``, the manager's ``defcg_jit``): on the card the
+first Newton system captures each loop, the later ones replay it.
 ``K`` is applied either as the paper's dense ``K @ v`` over a materialized
 K (``dense_matvec=True``) or matrix-free through the fused RBF Gram
 matvec (the default; K is never formed).
@@ -28,14 +31,14 @@ from repro_torch.core import (
     RecycleManager,
     SolveSpec,
 )
-from repro_torch.core.api import solve
+from repro_torch.core.api import solve_jit
 from repro_torch.core.operators import LinearOperator
 from repro_torch.core.preconditioners import (
     jacobi,
     kernel_nystrom_preconditioner,
     randomized_nystrom,
 )
-from repro_torch.core.solvers import cg, cholesky_solve
+from repro_torch.core.solvers import cg_jit, cholesky_solve
 from repro_torch.gp.kernels import RBFKernel
 
 
@@ -196,13 +199,13 @@ def laplace_gpc(
                     M = kernel_nystrom_preconditioner(
                         k_sketch[0], k_sketch[1], sqrt_h
                     )
-                res = solve(
+                res = solve_jit(
                     a_op, b, spec, solve_state, x0=x_prev, M=M,
                     record_residuals=record_residuals,
                 )
                 solve_state = res.state
             elif solver == "cg":
-                res = cg(
+                res = cg_jit(
                     a_op, b, x_prev,
                     tol=solver_tol, maxiter=solver_maxiter,
                     record_residuals=record_residuals,

@@ -15,12 +15,14 @@ The event loop is synchronous and deterministic — a *tick* is one call to
    re-admits from its spilled state (bit for bit), not cold.
 2. **Serve**: every resident tenant with pending work contributes its
    next request.  With two or more active slots the whole pool runs ONE
-   :func:`repro_torch.core.solve_pool_step` (idle and empty slots masked
-   inactive — zero rhs, state passed through untouched; the lane axis of
-   the step kernels carries every slot); with exactly one active slot the
-   scheduler gathers that slot and dispatches through plain
-   :func:`repro_torch.core.solve` instead (the reference's B = 1 fence,
-   counted in ``metrics.single_steps``).
+   :func:`repro_torch.core.solve_pool_step_jit` (idle and empty slots
+   masked inactive — zero rhs, state passed through untouched; the lane
+   axis of the step kernels carries every slot); with exactly one active
+   slot the scheduler gathers that slot and dispatches through
+   :func:`repro_torch.core.solve_jit` instead (the reference's B = 1
+   fence, counted in ``metrics.single_steps``).  Both are the compiled
+   doors, as in the reference: on the card the pool's loop is captured
+   once a shape and every later tick replays it.
 3. **Scatter**: per-tenant solutions and masked
    :class:`repro_torch.core.SolveReport` diagnostics land in the ticket
    table (:meth:`result` collects them), slot last-served ticks and the
@@ -53,8 +55,8 @@ from repro_torch.core import (
     RBFKernelSystemOperator,
     SolveReport,
     SolveSpec,
-    solve,
-    solve_pool_step,
+    solve_jit,
+    solve_pool_step_jit,
 )
 from repro_torch.serve.metrics import ServeMetrics
 from repro_torch.serve.pool import PoolFullError, StatePool, TenantStateStore
@@ -264,14 +266,14 @@ class SolveService:
             # The B = 1 fence: one active slot runs the plain front door on
             # its gathered state.
             slot, req = serving[0]
-            res = solve(req.A, req.b, self.spec, self.pool.slot_state(slot))
+            res = solve_jit(req.A, req.b, self.spec, self.pool.slot_state(slot))
             self.pool.write_slot(slot, res.state)
             self.metrics.single_steps += 1
             host = _host_diagnostics(res.info, res.report)
             self._scatter(req, res.x, {k: v[0] for k, v in host.items()}, tick)
         else:
             systems, b_batch, active = self._build_batch(serving)
-            res = solve_pool_step(systems, b_batch, self.spec, self.pool.state, active)
+            res = solve_pool_step_jit(systems, b_batch, self.spec, self.pool.state, active)
             self.pool.write_all(res.state)
             self.metrics.batched_steps += 1
             host = _host_diagnostics(res.info, res.report)

@@ -10,8 +10,10 @@ its projector to 1e-10), ``materialize`` (the dense matrix exactly) and
 ``random_orthonormal_basis`` (orthonormal to 1e-12, the same for the same
 seed).
 
-``__all__`` is the reference's list with two differences, both named in
-``NOT_PORTED`` / ``PORT_ONLY``.
+``__all__`` is the reference's list plus ``PORT_ONLY``; ``NOT_PORTED``
+is empty since the compiled doors (the ``*_jit`` names) are in.
+``RecycleManager``'s fields are the reference's, ``use_jit=True`` among
+them.
 """
 
 import dataclasses
@@ -33,11 +35,9 @@ from repro_torch.core import pytree as tpt  # noqa: E402
 from repro_torch.core import recycle as trecycle  # noqa: E402
 from repro_torch.core.solvers import DEFAULT_WAW_JITTER  # noqa: E402
 
-# The reference's compiled entry points: ROADMAP queue 1's "one compiled
-# program" item ports them (or says why not); until then the port has no
-# such names.
-NOT_PORTED = ("lsmr_jit", "recycled_solve_jit", "solve_batch_jit", "solve_jit",
-              "solve_pool_step_jit", "solve_sequence_jit", "solve_sequence_lsmr_jit")
+# Names of the reference's surface the port lacks: none (the compiled
+# entry points run each masked loop as CUDA graphs, core/engine.py).
+NOT_PORTED = ()
 # The matrix-free RBF system operator: the reference builds it inside
 # repro.gp; the port exports it beside the other operators.
 PORT_ONLY = ("RBFKernelSystemOperator",)
@@ -65,6 +65,22 @@ def test_core_all_snapshot():
 def test_core_all_resolves():
     for name in tcore.__all__:
         assert getattr(tcore, name) is not None, name
+
+
+EXPECTED_MANAGER_FIELDS = {
+    "k": dataclasses.MISSING, "ell": dataclasses.MISSING, "select": "largest", "tol": 1e-5,
+    "maxiter": 1000, "waw_jitter": DEFAULT_WAW_JITTER, "refresh_aw": "exact",
+    "strategy": tcore.HarmonicRitz(), "use_jit": True, "state": None, "systems_solved": 0,
+    "_has_aw": False,
+}
+
+
+def test_recycle_manager_field_schema():
+    fields = {f.name: f.default for f in dataclasses.fields(tcore.RecycleManager)}
+    assert fields == EXPECTED_MANAGER_FIELDS
+    ref = [f.name for f in dataclasses.fields(jcore.RecycleManager)]
+    assert [f.name for f in dataclasses.fields(tcore.RecycleManager)] == ref
+    assert tcore.RecycleManager(k=2, ell=4).use_jit is True
 
 
 def test_solvespec_field_schema():

@@ -1262,3 +1262,173 @@ def test_moe_backward_repeats_bit_for_bit(device, dispatch):
     assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
     assert all(torch.equal(a, b) for a, b in zip(first[2], second[2]))
     assert all(bool(torch.isfinite(g).all()) for g in first[2])
+
+
+# ---------------------------------------------------------------------------
+# The compiled doors: each masked loop captured as CUDA graphs and replayed
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def hopper():
+    if not torch.cuda.is_available() or torch.cuda.get_device_capability(0) != (9, 0):
+        pytest.skip("needs a compute capability 9.0 card")
+    from repro_torch.core import engine
+
+    engine.clear_programs()
+    engine.reset_graph_stats()
+    return torch.device("cuda")
+
+
+def _bits(t):
+    t = t.contiguous()
+    return t.view(torch.int64) if t.dtype == torch.float64 else t
+
+
+def _same_result(got, want):
+    """Two results (tensors, tuples, NamedTuples, dataclasses) bit for bit."""
+    import dataclasses
+
+    if isinstance(want, torch.Tensor):
+        return got.shape == want.shape and torch.equal(_bits(got), _bits(want))
+    if dataclasses.is_dataclass(want):
+        return all(_same_result(getattr(got, f.name), getattr(want, f.name))
+                   for f in dataclasses.fields(want))
+    if isinstance(want, tuple):
+        return len(got) == len(want) and all(_same_result(g, w) for g, w in zip(got, want))
+    return got == want
+
+
+def _door_cases(device, n=1536):
+    """``{door: (compiled, eager, args, kwargs)}`` on f64 systems of order n
+    (drifting SPD ``I + H K H``, rectangular ``[I; 0] + noise``)."""
+    import importlib
+
+    from repro_torch import core
+
+    lsmr_mod = importlib.import_module("repro_torch.core.lsmr")
+    rnd = _gen(device, torch.float64, 21)
+    x = rnd(n, 8)
+    kmat = torch.exp(-0.5 * torch.cdist(x, x) ** 2 / 4.0)
+    hs = [0.2 + 0.3 * torch.rand(n, generator=torch.Generator(device=device).manual_seed(i),
+                                 device=device, dtype=torch.float64) for i in range(3)]
+    mats = torch.stack([torch.eye(n, dtype=torch.float64, device=device)
+                        + h[:, None] * kmat * h[None, :] for h in hs])
+    bs = rnd(3, n)
+    w0 = torch.linalg.qr(rnd(n, 8)).Q.T.contiguous()
+    aw0 = (mats[0] @ w0.T).T.contiguous()
+    rect = torch.eye(2 * n, n, dtype=torch.float64, device=device) + 0.3 * rnd(3, 2 * n, n) / (
+        2 * n) ** 0.5
+    brect = rnd(3, 2 * n)
+    A0 = core.from_matrix(mats[0])
+    spec = core.SolveSpec(k=8, ell=12, tol=1e-8, maxiter=500)
+    seq = dict(k=8, ell=12, make_operator=core.from_matrix, tol=1e-8, maxiter=500)
+    return {
+        "cg_jit": (core.solvers.cg_jit, core.cg, (A0, bs[0]),
+                   dict(tol=1e-8, maxiter=500, M=core.jacobi(torch.diagonal(mats[0])),
+                        record_residuals=True)),
+        "defcg_jit": (core.solvers.defcg_jit, core.defcg, (A0, bs[0], None, w0, aw0),
+                      dict(ell=12, tol=1e-8, maxiter=500)),
+        "solve_jit": (core.solve_jit, core.solve, (A0, bs[1], spec, None), {}),
+        "solve_sequence_jit": (core.solve_sequence_jit, core.recycle.solve_sequence,
+                               (mats, bs), seq),
+        "recycled_solve_jit": (core.recycled_solve_jit, core.recycle._recycled_solve,
+                               (A0, bs[2], None, w0), dict(k=8, ell=12, tol=1e-8, maxiter=500)),
+        "lsmr_jit": (lsmr_mod.lsmr_jit, lsmr_mod.lsmr, (core.from_matrix(rect[0]), brect[0]),
+                     dict(damp=0.1, ell=12, tol=1e-8, maxiter=500)),
+        "solve_sequence_lsmr_jit": (lsmr_mod.solve_sequence_lsmr_jit,
+                                    lsmr_mod.solve_sequence_lsmr, (rect, brect),
+                                    dict(seq, damp=0.1)),
+        "solve_batch_jit": (core.solve_batch_jit, core.solve_batch, (mats, bs, spec, None),
+                            dict(make_operator=core.from_matrix)),
+        "solve_pool_step_jit": (core.solve_pool_step_jit, core.solve_pool_step,
+                                (mats, bs, spec, None, torch.tensor([True, False, True],
+                                                                    device=device)),
+                                dict(make_operator=core.from_matrix)),
+    }
+
+
+DOORS = ("cg_jit", "defcg_jit", "solve_jit", "solve_sequence_jit", "recycled_solve_jit",
+         "lsmr_jit", "solve_sequence_lsmr_jit", "solve_batch_jit", "solve_pool_step_jit")
+
+
+@pytest.mark.parametrize("door", DOORS)
+def test_compiled_door_matches_eager_bit_for_bit(hopper, door):
+    """The first call captures, the second replays; both give the eager
+    door's result bit for bit, and the replay launches exactly the eager
+    door's kernels (the counters add each replay's launches)."""
+    from repro_torch.core import engine
+
+    compiled, eager, args, kw = _door_cases(hopper)[door]
+    before = dict(_runtime.LAUNCHES)
+    want = eager(*args, **kw)
+    eager_launches = {k: _runtime.LAUNCHES[k] - before[k] for k in before}
+    first = compiled(*args, **kw)
+    captured = engine.GRAPHS["captured"]
+    before = dict(_runtime.LAUNCHES)
+    again = compiled(*args, **kw)
+    replay_launches = {k: _runtime.LAUNCHES[k] - before[k] for k in before}
+    assert _same_result(first, want) and _same_result(again, want)
+    assert captured > 0 and engine.GRAPHS["replays"] > 0
+    assert engine.GRAPHS["captured"] == captured  # the second call captured nothing
+    assert replay_launches == eager_launches
+
+
+def test_newton_systems_reuse_the_captured_graphs(hopper):
+    """A Newton sequence through ``RecycleManager`` (``use_jit``): the cold
+    system and the first warm one capture, every later system replays;
+    x and the basis bit for bit the eager manager's."""
+    from repro_torch.core import KernelSystemOperator, RecycleManager, engine
+
+    n = 4096
+    rnd = _gen(hopper, torch.float64, 3)
+    x = rnd(n, 8)
+    kmat = torch.exp(-0.5 * torch.cdist(x, x) ** 2 / 4.0)
+
+    def kmv(v):
+        return kmat @ v
+
+    mgrs = [RecycleManager(k=8, ell=12, tol=1e-8, use_jit=flag) for flag in (True, False)]
+    captured = []
+    for i in range(5):
+        sqrt_h = 0.1 + 0.4 * torch.rand(n, generator=torch.Generator(device=hopper).manual_seed(i),
+                                        device=hopper, dtype=torch.float64)
+        b = rnd(n)
+        got, want = (m.solve(KernelSystemOperator(kmv, sqrt_h), b) for m in mgrs)
+        assert _same_result(got, want)
+        assert torch.equal(mgrs[0].W, mgrs[1].W)
+        captured.append(engine.GRAPHS["captured"])
+    assert captured[1] == captured[-1] <= 4
+    assert engine.GRAPHS["reused"] == 3 and engine.GRAPHS["replays"] > 5
+
+
+def _host_read_step(c, state, active, row):
+    (v,) = state
+    if bool(active):  # a host read: refused under capture
+        v = c["mat"] @ v
+    return (v,)
+
+
+def _toy_active(state):
+    return torch.ones((), dtype=torch.bool, device=state[0].device)
+
+
+def test_capture_that_reads_the_host_raises(hopper):
+    """A step that reads a device value on the host cannot be captured: the
+    door raises, keeps no program, and the card stays usable."""
+    from repro_torch import core
+    from repro_torch.core import engine
+
+    consts = {"mat": torch.eye(64, dtype=torch.float64, device=hopper)}
+    with engine.compiled(), pytest.raises(RuntimeError):
+        engine.run_recording_loop(_host_read_step, _toy_active,
+                                  (torch.ones(64, dtype=torch.float64, device=hopper),),
+                                  consts=consts)
+    assert len(engine._PROGRAMS) == 0
+    # A fault-injecting operator hidden in a closure cannot be captured either.
+    op = core.FaultInjectingOperator(core.from_matrix(consts["mat"] * 2), at_matvec=5)
+    b = torch.ones(64, dtype=torch.float64, device=hopper)
+    with pytest.raises(RuntimeError, match="host"):
+        core.solvers.cg_jit(lambda v: op(v), b, tol=1e-8, maxiter=50)
+    res = core.solvers.cg_jit(core.from_matrix(consts["mat"] * 2), b, tol=1e-8, maxiter=50)
+    assert bool(res.info.converged)

@@ -467,8 +467,20 @@ def _drifting_lsq(num, m, n, decay, drift, seed=0):
     return np.stack(mats), np.stack(bs)
 
 
+@pytest.fixture
+def one_thread():
+    """torch on one CPU thread for the test: its small products and
+    eigensolves gain nothing from a thread pool, and beside the suite's
+    other workers a pool of all cores waits on every parallel region (this
+    test took 20x longer so)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.mark.parametrize("decay", ["logspace", "flat"])
-def test_lsq_bench_acceptance(decay):
+def test_lsq_bench_acceptance(decay, one_thread):
     """ROADMAP's recycled-LSMR acceptance: lsq_bench's problem (m = 180, n = 120,
     12 systems, λ = 1e-4, tol 1e-8, deflsmr(8, 48)) against the reference's
     cold and recycled A/Aᵀ products.  The flat spectrum takes ~45
