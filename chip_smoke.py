@@ -221,7 +221,8 @@ Phases, each of which fails the script when it fails:
 
 12. check-shard — the sharded engine (``solve(..., mesh=)``) on small
               systems against the unsharded port, both on the card, on one
-              NCCL rank and on 4 gloo ranks: the dense n = 64 system of
+              NCCL rank (this process: a one-rank group needs no spawn) and
+              on 4 gloo ranks: the dense n = 64 system of
               ``tests/test_sharded_engine.py`` (cg, def-CG(4, 6), LSMR), the
               RBF operator at n = 256 (def-CG, K8 products) and lsq_bench's
               flat 180 × 120 (LSMR); the bars of ``tests/test_torch_sharded.py``
@@ -237,8 +238,32 @@ Phases, each of which fails the script when it fails:
               2·tol·‖b‖ + 1e-10·‖b‖ of it, fewer iterations after system 1,
               K8 launched on every rank while K3 and every plain version stay
               at 0.  Four ranks share one card: this is no scaling number.
-              The 4-rank cases of 12 and the replay of 13 run in one spawn
-              (starting ranks on the card takes tens of seconds).
+              The 4-rank cases of 12, the replay of 13 and 13b run in one
+              spawn (starting ranks on the card takes tens of seconds).
+13b. tp     — the sharding layouts (``launch/mesh.py``, DTensor
+              placements) on a 2 × 2 ("data", "model") mesh of those 4
+              ranks, ZeRO over "data", tensor parallelism over "model",
+              every functional collective staged through host memory
+              (``launch/spawn.stage_cuda_collectives``), against the same
+              weights run unsharded on the card: qwen1.5-0.5b at full width
+              and depth in bf16 and an f32 control (prefill 4 × 4 096, two
+              prompts a data rank, then 4 decode steps fed the unsharded
+              run's greedy tokens; f32 logits within 2e-4 of their scale
+              and its greedy tokens equal, bf16 within max(5e-2, twice the
+              plain-vs-plain floor), P7), mamba2-1.3b at full width cut to
+              2 layers (prefill 2 × 1 024, K10 on 32 of 64 heads a rank;
+              its last logits and the SSD states it leaves, as above), one
+              f32 AdamW step of qwen1.5 cut to 2 layers (K9's backward on
+              sharded heads; against rank 0's unsharded step: the loss to
+              1e-5, each gradient to 2e-4 of its leaf's largest, each
+              parameter to 0.1 lr past lr |g - g'| / eps, the bound Adam's
+              first step puts on two gradients' steps); each rank's K9,
+              K10 and K9-backward on its captured local tensors against
+              their plain versions; the counts zeroed before and read after
+              the runs (K9, K10, K9-bwd must launch on every rank); one
+              decode step's and mamba2's prefill's collectives a layer; the
+              peak GB a rank; sharded and unsharded times (gloo through the
+              host on one card: not targets).
 
 14. check-lm — flash attention (K9) and the SSD scan (K10) against their
               plain versions on the card, f32 (2e-4 / 5e-4) and bf16 (2e-2 /
@@ -437,7 +462,8 @@ the encoder–decoder's: check-lm and check-lm-grad at its shapes (held and
 timed), main-lm-encdec and train's seamless cell, likewise;
 ``--dryrun-only`` runs phases 1, 2, main-lm-encdec, train's qwen1.5 cell
 and the dry-run's phase 21 on their peaks, likewise; ``--graphs-only``
-runs phases 1, 2 and 5f on main's data, likewise.
+runs phases 1, 2 and 5f on main's data, likewise; ``--tp-only`` runs
+phases 1, 2 and 13b (its own spawn), likewise.
 """
 
 from __future__ import annotations
@@ -652,8 +678,8 @@ TRAIN_SSM = {"arch": "mamba2-1.3b", "batch": 2, "seq": 1024, "lr": 1e-4, "steps"
              "f32_control_layers": 12}
 # hf-lm: examples/hessian_free_lm.py's loop (qwen1.5 SMOKE, batch 4 × 32,
 # HFConfig(k=4, ell=8, cg_tol=1e-3, cg_maxiter=50, init_damping=10.0), 10
-# steps, recycled and cold); then one step at qwen1.5-0.5b's full widths
-# with its depth cut to `full_layers`.
+# steps, recycled and cold; then one step at
+# qwen1.5-0.5b's full widths with its depth cut to `full_layers`.
 # olmoe-1b-7b at full width (d 2048, 64 experts top-8, capacity factor 1.25,
 # vocab 50 304; f32 parameters, bf16 compute) cut to 4 of its 16 layers (at
 # 16, its 6.92 B parameters need about 110 GB for parameters, gradients and
@@ -2258,13 +2284,15 @@ def judge_check_shard(torch, tag, out, lsq_bound, device):
     return out
 
 
-def shard_world_rank(check_args, main_args=None):
+def shard_world_rank(check_args, main_args=None, tp_args=None):
     """One rank of a shard world: check-shard's cases, then, when given,
-    main-shard's replay (one spawn for both: starting ranks on the card
-    takes tens of seconds)."""
+    main-shard's replay and [tp] (``tp_rank``; one spawn for all three:
+    starting ranks on the card takes tens of seconds)."""
     out = {"check": shard_check_rank(*check_args)}
     if main_args is not None:
         out["main"] = shard_main_rank(*main_args)
+    if tp_args is not None:
+        out["tp"] = tp_rank(*tp_args)
     return out
 
 
@@ -2441,10 +2469,33 @@ def judge_main_shard(torch, out, control, device, n, ranks):
     return out
 
 
-def phase_shard(torch, device="cuda", n=SHARD_N, ranks=SHARD_RANKS, nccl=True):
-    """check-shard on one NCCL rank, then main-shard's control, then one
-    spawn of ``ranks`` gloo ranks that runs check-shard's cases and
-    main-shard's replay.  Returns ``{"check_shard": ..., "main_shard": ...}``."""
+def in_process_rank(fn, backend, args, device="cuda"):
+    """``fn(*args)`` in this process as the one rank of a ``backend``
+    process group (rendezvous in a fresh temporary directory), the group
+    destroyed after: a one-rank world without a spawn's start-up."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_rank_")
+    os.environ["LOCAL_RANK"] = "0"
+    dist.init_process_group(backend, init_method="file://" + os.path.join(workdir, "rdv"),
+                            rank=0, world_size=1,
+                            timeout=datetime.timedelta(seconds=SHARD_TIMEOUT_S))
+    try:
+        return fn(*args)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
+def phase_shard(torch, device="cuda", n=SHARD_N, ranks=SHARD_RANKS, nccl=True, tp=True):
+    """check-shard on one NCCL rank (this process), then main-shard's
+    control and [tp]'s unsharded runs, then one spawn of ``ranks`` ranks
+    (gloo, functional collectives staged through the host) that runs
+    check-shard's cases, main-shard's replay and [tp].  Returns
+    ``{"check_shard": ..., "main_shard": ..., "tp": ...}``."""
     import shutil
     import tempfile
 
@@ -2457,22 +2508,24 @@ def phase_shard(torch, device="cuda", n=SHARD_N, ranks=SHARD_RANKS, nccl=True):
     report = {"check_shard": {}}
     if nccl:
         t0 = time.perf_counter()
-        out = run_ranks(shard_world_rank, 1, backend="nccl", device=device,
-                        args=(check_args,), timeout_s=SHARD_TIMEOUT_S)
+        out = in_process_rank(shard_world_rank, "nccl", (check_args,), device)
         tag = "[check-shard nccl x1]"
         report["check_shard"]["nccl1"] = judge_check_shard(torch, tag, out["check"], lsq_bound,
                                                            device)
-        log(f"{tag} spawn and cases {time.perf_counter() - t0:.1f} s")
+        log(f"{tag} cases in this process {time.perf_counter() - t0:.1f} s")
 
     xs_np, control = shard_control(torch, device, n)
+    tp_in = tp_prepare(torch, device) if tp else None
     workdir = tempfile.mkdtemp(prefix="chip_smoke_shard_")
     try:
         x_path = os.path.join(workdir, "x.npy")
         np.save(x_path, xs_np.astype(np.float64))
         systems = [{k: c[k] for k in ("sqrt_h", "b", "x0")} for c in control]
         t0 = time.perf_counter()
-        out = run_ranks(shard_world_rank, ranks, backend="gloo", device=device,
-                        args=(check_args, (x_path, systems, device)), timeout_s=SHARD_TIMEOUT_S)
+        out = run_ranks(shard_world_rank, ranks, backend="staged", device=device,
+                        args=(check_args, (x_path, systems, device),
+                              None if tp_in is None else tp_in["args"]),
+                        timeout_s=SHARD_TIMEOUT_S)
         spawn_s = time.perf_counter() - t0
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -2481,7 +2534,485 @@ def phase_shard(torch, device="cuda", n=SHARD_N, ranks=SHARD_RANKS, nccl=True):
                                                               lsq_bound, device)
     report["main_shard"] = judge_main_shard(torch, out["main"], control, device, n, ranks)
     report["main_shard"]["spawn_wall_s"] = spawn_s
-    log(f"[main-shard] one spawn of {ranks} gloo ranks for both phases: {spawn_s:.1f} s")
+    log(f"[main-shard] one spawn of {ranks} gloo ranks for check-shard, main-shard and [tp]: "
+        f"{spawn_s:.1f} s")
+    if tp_in is not None:
+        report["tp"] = tp_judge(torch, out["tp"], tp_in, spawn_s)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# [tp]: the sharding layouts on a 2 x 2 ("data", "model") mesh
+# ---------------------------------------------------------------------------
+
+# Four gloo ranks sharing the card (NCCL refuses two ranks on one GPU), every
+# functional collective staged through host memory (launch/spawn.py:
+# stage_cuda_collectives: gloo's own CUDA all-gather crashed there), ZeRO over
+# "data", tensor parallelism over "model".  Against the same weights run
+# unsharded on the card: qwen1.5-0.5b at full width and depth (16 query and
+# 16 KV heads, KV sharded) served in an f32 control and in bf16 (prefill
+# 4 x 4 096, two prompts a data rank, then 4 decode steps fed the unsharded
+# run's greedy tokens: every step runs the same layout, and one takes seconds
+# through the host), mamba2-1.3b at full width cut to 2 layers (64 SSD heads,
+# 32 a model rank; prefill 2 x 1 024, its last logits and the SSD states it
+# leaves, as above), and one f32 AdamW step of qwen1.5 at full width cut to 2
+# layers (K9's backward on sharded heads).  f32 is held to 2e-4 of the
+# logits' (states') scale and its greedy tokens must be equal; bf16 to P7's
+# max(5e-2, twice the plain-vs-plain floor).  The step: the loss to 1e-5,
+# each gradient to 2e-4 of its leaf's largest (tests/test_torch_sharding.py's
+# bars), and each parameter to 0.1 lr past what the gradients' gap allows.
+# Adam's first step moves an element by lr (g / (|g| + eps) + wd p) (the
+# bias corrections cancel), and g -> g / (|g| + eps) has slope at most
+# 1 / eps, so two steps from gradients g and g' differ by at most
+# lr |g - g'| / eps: on an element with |g| near eps (a row of the tied
+# table whose token the batch lacks gets only the head's gradient) a gap
+# of 1e-6 of the leaf's scale moves the step by a sizeable part of lr.
+TP = {"mesh": (2, 2), "timeout_s": 900.0,
+      "serve": {"arch": "qwen1.5-0.5b", "batch": 4, "prompt": 4096, "decode": 4},
+      "ssm": {"arch": "mamba2-1.3b", "layers": 2, "batch": 2, "prompt": 1024},
+      "train": {"arch": "qwen1.5-0.5b", "layers": 2, "batch": 4, "seq": 1024, "lr": 1e-4}}
+TP_F32_REL = 2e-4
+TP_GRAD_REL = 2e-4
+TP_STEP_ABS = 0.1 * TP["train"]["lr"]
+TP_PATH_KERNELS = ("flash_attention", "ssd_scan", "flash_attention_bwd")
+
+
+def tp_config(spec, dtype):
+    """``spec``'s full-width configuration in ``dtype`` (its depth cut to
+    ``spec["layers"]`` where given)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(spec["arch"]), dtype=dtype)
+    return dataclasses.replace(cfg, n_layers=spec["layers"]) if "layers" in spec else cfg
+
+
+def tp_tokens(cfg, batch, length, seed):
+    import numpy as np
+
+    return np.random.default_rng(seed).integers(0, cfg.vocab_size, (batch, length))
+
+
+def tp_serve(torch, model, cfg, tokens, feed, decode, backend="auto", layout=None):
+    """Prefill ``tokens`` and take ``decode`` steps fed ``feed``'s tokens
+    (teacher-forced on the unsharded run's greedy ones; ``None``: its own),
+    unsharded or on ``layout = (mesh, env)``.  Returns the logits (last of
+    the prefill, then each step; whole, f32, host), the run's own greedy
+    tokens and the host times, each ended by a synchronize."""
+    from repro_torch import models
+    from repro_torch.launch import mesh as mesh_lib
+
+    dev = next(model.parameters()).device
+    b, s = tokens.shape
+    tp = 1 if layout is None else mesh_lib.mesh_axes(layout[0])["model"]
+    # One spare position: [tp] traces one more decode step for its collectives.
+    state = models.init_decode_state(cfg, b, s + decode + 1, tp, device=dev)
+
+    def place(name, t):
+        t = torch.as_tensor(t, device=dev)
+        return t if layout is None else mesh_lib.distribute_batch(layout[0], {name: t},
+                                                                  layout[1])[name]
+
+    def whole(t):
+        return (t if layout is None else t.full_tensor()).float()
+
+    if layout is not None:
+        state = mesh_lib.distribute_decode_state(layout[0], state, layout[1])
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    state, last = models.prefill(model, {"tokens": place("tokens", tokens)}, state, cfg,
+                                 backend=backend)
+    logits = [whole(last)[:, -1]]
+    _sync(torch, dev)
+    prefill_s = time.perf_counter() - t0
+    greedy = [logits[-1][:, : cfg.vocab_size].argmax(-1)]
+    t0 = time.perf_counter()
+    for i in range(decode):
+        tok = greedy[-1][:, None] if feed is None else torch.as_tensor(feed[:, i : i + 1])
+        out, state = models.decode_step(model, place("tok", tok), state, cfg, backend=backend)
+        logits.append(whole(out)[:, -1])
+        greedy.append(logits[-1][:, : cfg.vocab_size].argmax(-1))
+    _sync(torch, dev)
+    return {"logits": torch.stack(logits, 1).cpu(), "greedy": torch.stack(greedy, 1).cpu(),
+            "prefill_s": prefill_s, "decode_s": time.perf_counter() - t0, "state": state}
+
+
+def tp_ssd_states(torch, state):
+    """The SSD states a prefill left in ``state``'s caches, stacked (layers,
+    B, H, P, N), f32, on the host (gathered from the ranks when sharded)."""
+    from repro_torch.models.sharding import is_distributed
+
+    return torch.stack([(c.ssd.full_tensor() if is_distributed(c.ssd) else c.ssd).float()
+                        for c in state.caches]).cpu()
+
+
+def tp_step_gaps(torch, got, want, got_g, want_g, lr, eps):
+    """For each leaf of an AdamW step sharded (``got``, gradients
+    ``got_g``, whole) and unsharded (``want``, ``want_g``): the gradients'
+    largest gap and scale; the parameters' largest gap, and their largest
+    excess over ``lr |g - g'| / eps`` (the first step's Lipschitz bound);
+    both gradients at the element of the largest parameter gap."""
+    out = {}
+    for k in want:
+        dp, dg = (got[k] - want[k]).abs(), (got_g[k] - want_g[k]).abs()
+        i = int(dp.argmax())
+        out[k] = {"grad_gap": float(dg.max()), "grad_scale": float(want_g[k].abs().max()),
+                  "param_gap": float(dp.max()), "excess": float((dp - lr / eps * dg).max()),
+                  "g_at_worst": (float(got_g[k].flatten()[i]), float(want_g[k].flatten()[i]))}
+    return out
+
+
+def _first_call(module, name, store):
+    """Wrap ``module.name`` so that its first call's arguments (on this
+    rank's local tensors) land in ``store[name]``; returns the original."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        if name not in store:
+            store[name] = (tuple(a.detach().clone() if hasattr(a, "detach") else a
+                                 for a in args), dict(kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    return fn
+
+
+def tp_local_checks(torch, calls):
+    """K9's and K10's kernels on one rank's captured local tensors (its
+    heads) against their plain versions on the same tensors, as
+    check-lm holds them: the serving arms elementwise (K10 on values over
+    its scale), K9's backward to GRAD_BAR of the plain version's max."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ssd_scan as ss
+
+    out = {}
+    (q, k, v), kw = calls["attention"]
+    dname = str(q.dtype).split(".")[-1]
+    causal = kw.get("causal", False)
+    out["flash_attention"] = {
+        "shape": [list(q.shape), list(k.shape)],
+        "max_abs_err": lm_close(torch, fa.flash_attention_cuda(q, k, v, causal=causal),
+                                fa.flash_attention_plain(q, k, v, causal=causal), dname,
+                                "[tp] K9 on a rank's heads")}
+    (x, dt, a, bm, cm, d), kw = calls["ssd"]
+    dname = str(x.dtype).split(".")[-1]
+    same = dict(chunk=kw["chunk"], initial_state=kw.get("initial_state"))
+    out["ssd_scan"] = {"shape": list(x.shape), "max_abs_err": lm_close(
+        torch, ss.ssd_scan_cuda(x, dt, a, bm, cm, d, **same),
+        ss.ssd_plain(x, dt, a, bm, cm, d, **same), dname, "[tp] K10 on a rank's heads",
+        scaled=True)}
+    (q, k, v), kw = calls["train_attention"]
+    q, k, v = (t.detach() for t in (q, k, v))
+    g = torch.Generator(device=q.device).manual_seed(5)
+    dout = torch.randn(q.shape, generator=g, device=q.device, dtype=q.dtype)
+    o, lse = fa.flash_attention_lse_cuda(q, k, v, causal=True)
+    got = fa.flash_attention_bwd_cuda(dout, q, k, v, o, lse, causal=True)
+    want = fa.flash_attention_bwd_plain(dout, q, k, v, o, lse, causal=True)
+    dname = str(q.dtype).split(".")[-1]
+    errs = [float((a - b).abs().max()) for a, b in zip(got, want)]
+    bars = [GRAD_BAR[dname] * float(b.abs().max()) for b in want]
+    if any(e > bar for e, bar in zip(errs, bars)):
+        raise AssertionError(f"[tp] K9's backward on a rank's heads: {errs} past {bars}")
+    out["flash_attention_bwd"] = {"shape": list(q.shape), "max_abs_err": max(errs)}
+    return out
+
+
+def tp_rank(feeds, train_batch, device="cuda"):
+    """One rank of [tp]: the serving runs (f32, bf16), mamba2's prefill and
+    the AdamW step on the (2, 2) mesh, counts zeroed just before and read
+    just after; then (uncounted) one decode step and mamba2's prefill
+    traced for their collectives, rank 0's unsharded AdamW step, and the
+    kernels on this rank's captured local tensors."""
+    import inspect
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import convert, models
+    from repro_torch.kernels import _runtime
+    from repro_torch.kernels import ops as kops
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps, trace_stats
+    from repro_torch.models import sharding as shd
+    from repro_torch.optim import adam
+
+    dev = torch.device("cuda", torch.cuda.current_device()) if device == "cuda" else \
+        torch.device(device)
+    mesh = mesh_lib.make_model_mesh(TP["mesh"], device_type=dev.type)
+    env = mesh_lib.bind(mesh)
+    tp = TP["mesh"][1]
+    out = {"rank": dist.get_rank(), "coords": mesh.get_coordinate()}
+
+    def build(spec, dtype):
+        cfg = tp_config(spec, dtype)
+        model = models.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev, tp=tp)
+        return cfg, convert.distribute(model, mesh, env)
+
+    calls = {}  # each kernel's first call on this rank's local tensors
+    originals = {name: _first_call(kops, name, calls) for name in ("attention", "ssd")}
+    torch.cuda.reset_peak_memory_stats(dev)
+    _zero_counts()  # the path's counts: zeroed just before it
+    runs = {}
+    t_all = time.perf_counter()
+    for dtype in ("bfloat16", "float32"):  # the kernels' local checks take bf16's calls
+        spec = TP["serve"]
+        cfg, model = build(spec, dtype)
+        tokens = tp_tokens(cfg, spec["batch"], spec["prompt"], 0)
+        runs[f"serve {dtype}"] = tp_serve(torch, model, cfg, tokens, feeds[dtype],
+                                          spec["decode"], layout=(mesh, env))
+        if dtype == "bfloat16":
+            served = (cfg, model, runs[f"serve {dtype}"].pop("state"))
+        else:
+            runs[f"serve {dtype}"].pop("state")
+            del model
+    for dtype in ("bfloat16", "float32"):
+        spec = TP["ssm"]
+        cfg, ssm_model = build(spec, dtype)
+        tokens = tp_tokens(cfg, spec["batch"], spec["prompt"], 1)
+        runs[f"ssm {dtype}"] = tp_serve(torch, ssm_model, cfg, tokens, None, 0,
+                                        layout=(mesh, env))
+        runs[f"ssm {dtype}"]["ssd"] = tp_ssd_states(torch, runs[f"ssm {dtype}"].pop("state"))
+    spec = TP["train"]
+    tcfg, tmodel = build(spec, "float32")
+    params = steps.params_dict(tmodel)
+    batch = mesh_lib.distribute_batch(mesh, {k: torch.as_tensor(v, device=dev)
+                                             for k, v in train_batch.items()}, env)
+    train_calls = {}
+    kops.attention = originals["attention"]
+    _first_call(kops, "attention", train_calls)
+    step = steps.make_train_step(tcfg, lr=spec["lr"], tp=tp)
+    _sync(torch, dev)
+    t0 = time.perf_counter()
+    new_params, _, metrics = step(params, steps.init_opt_state(params), batch)
+    _sync(torch, dev)
+    train_s = time.perf_counter() - t0
+    wall = time.perf_counter() - t_all
+    launches, plain, arms = dict(_runtime.LAUNCHES), dict(_runtime.PLAIN_ON_CUDA), _arms()
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    for name, fn in originals.items():
+        setattr(kops, name, fn)
+    calls["train_attention"] = train_calls["attention"]
+
+    # Apart from the counts: collectives of one decode step and of a prefill.
+    cfg, model, state = served
+    tok = mesh_lib.distribute_batch(mesh, {"t": torch.zeros((TP["serve"]["batch"], 1),
+                                                            dtype=torch.long, device=dev)},
+                                    env)["t"]
+    _, counts = trace_stats.trace(lambda: models.decode_step(model, tok, state, cfg))
+    coll = {"serve decode step": (counts["collectives"], cfg.n_layers)}
+    scfg = tp_config(TP["ssm"], "bfloat16")
+    stok = mesh_lib.distribute_batch(mesh, {"tokens": torch.as_tensor(
+        tp_tokens(scfg, TP["ssm"]["batch"], TP["ssm"]["prompt"], 1), device=dev)}, env)
+    sstate = mesh_lib.distribute_decode_state(mesh, models.init_decode_state(
+        scfg, TP["ssm"]["batch"], TP["ssm"]["prompt"], tp, device=dev), env)
+    _, counts = trace_stats.trace(lambda: models.prefill(ssm_model, stok, sstate, scfg))
+    coll["ssm prefill"] = (counts["collectives"], scfg.n_layers)
+    del served, model, state, ssm_model
+
+    # The step's gradients (computed again), and rank 0's
+    # unsharded step and gradients from the same weights and batch.
+    skeleton = models.transformer.Model(None, tcfg, "meta", tp)
+    got_g = {k: v.full_tensor() for k, v in
+             steps.loss_and_grads(tcfg, params, batch, skeleton=skeleton)[2].items()}
+    got = {k: v.full_tensor() for k, v in new_params.items()}
+    train = {"loss": float(metrics["loss"].full_tensor()), "train_s": train_s}
+    if out["rank"] == 0:
+        whole = models.init(torch.Generator(device=dev).manual_seed(0), tcfg, device=dev, tp=tp)
+        wparams = steps.params_dict(whole)
+        plain_batch = {k: torch.as_tensor(v, device=dev) for k, v in train_batch.items()}
+        shd.set_axis_env(None)
+        want, _, wm = steps.make_train_step(tcfg, lr=spec["lr"], tp=tp)(
+            wparams, steps.init_opt_state(wparams), plain_batch)
+        want_g = steps.loss_and_grads(tcfg, wparams, plain_batch, skeleton=skeleton)[2]
+        eps = inspect.signature(adam.adam_update).parameters["eps"].default
+        train.update(want_loss=float(wm["loss"]), eps=eps,
+                     leaves=tp_step_gaps(torch, got, want, got_g, want_g, spec["lr"], eps))
+    del got, got_g, new_params
+    out.update(launches=launches, plain_on_cuda=plain, arms=arms, peak_gb=peak_gb,
+               wall_s=wall, train=train, collectives=coll,
+               local=tp_local_checks(torch, calls),
+               times={k: {"prefill_s": r["prefill_s"], "decode_s": r["decode_s"]}
+                      for k, r in runs.items()})
+    if out["rank"] == 0:
+        out["runs"] = {k: {f: r[f].numpy() for f in ("logits", "greedy", "ssd") if f in r}
+                       for k, r in runs.items()}
+    shd.set_axis_env(None)
+    everyone = _every_rank({k: v for k, v in out.items() if k != "runs"})
+    return {"ranks": everyone, "runs": out.get("runs")}
+
+
+def tp_unsharded(torch, device="cuda"):
+    """The same runs unsharded on the card: the kernel runs (their greedy
+    tokens feed the sharded decode), and in bf16 the plain versions' runs
+    (the rounding floor)."""
+    from repro_torch import models
+
+    dev = torch.device(device)
+    out, feeds = {}, {}
+    for key, spec, seed in (("serve", TP["serve"], 0), ("ssm", TP["ssm"], 1)):
+        for dtype in ("float32", "bfloat16"):
+            cfg = tp_config(spec, dtype)
+            model = models.init(torch.Generator(device=dev).manual_seed(0), cfg, device=dev,
+                                tp=TP["mesh"][1])
+            tokens = tp_tokens(cfg, spec["batch"], spec["prompt"], seed)
+            decode = spec.get("decode", 0)
+            run = tp_serve(torch, model, cfg, tokens, None, decode)
+            state = run.pop("state")
+            if key == "ssm":
+                run["ssd"] = tp_ssd_states(torch, state)
+            out[f"{key} {dtype}"] = run
+            if key == "serve":
+                feeds[dtype] = run["greedy"][:, :decode].numpy()
+            if dtype == "bfloat16":
+                plain = tp_serve(torch, model, cfg, tokens, feeds.get(dtype) if key == "serve"
+                                 else None, decode, backend="plain")
+                state = plain.pop("state")
+                if key == "ssm":
+                    plain["ssd"] = tp_ssd_states(torch, state)
+                out[f"{key} {dtype} plain"] = plain
+            del model, state
+            torch.cuda.empty_cache()
+    return out, feeds
+
+
+def tp_prepare(torch, device="cuda"):
+    """[tp]'s unsharded runs in this process and the ranks' arguments."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    unsharded, feeds = tp_unsharded(torch, device)
+    cfg = tp_config(TP["train"], "float32")
+    rng = np.random.default_rng(2)
+    train_batch = {k: rng.integers(0, cfg.vocab_size, (TP["train"]["batch"],
+                                                       TP["train"]["seq"]))
+                   for k in ("tokens", "labels")}
+    torch.cuda.empty_cache()
+    return {"unsharded": unsharded, "args": (feeds, train_batch, device),
+            "unsharded_s": time.perf_counter() - t0}
+
+
+def phase_tp(torch, device="cuda"):
+    """[tp] alone: the unsharded runs, one spawn of 4 ranks (``tp_rank``)
+    on the (2, 2) mesh, the judgement (``tp_judge``)."""
+    import numpy as np
+
+    from repro_torch.launch import run_ranks
+
+    tp_in = tp_prepare(torch, device)
+    t0 = time.perf_counter()
+    res = run_ranks(tp_rank, int(np.prod(TP["mesh"])), backend="staged", device=device,
+                    args=tp_in["args"], timeout_s=TP["timeout_s"])
+    return tp_judge(torch, res, tp_in, time.perf_counter() - t0)
+
+
+def tp_judge(torch, res, tp_in, spawn_s):
+    """Holds the ranks' results (``tp_rank``'s) against the unsharded runs;
+    returns the report with the launches summed over the ranks (split arms
+    apart)."""
+    import numpy as np
+
+    unsharded = tp_in["unsharded"]
+    ranks, runs = res["ranks"], res["runs"]
+    report = {"mesh": TP["mesh"], "spawn_s": spawn_s, "unsharded_s": tp_in["unsharded_s"],
+              "ranks": ranks, "checks": {}}
+    for r in ranks:
+        if not all(r["launches"][k] for k in TP_PATH_KERNELS if k in r["launches"]) or not \
+                r["arms"].get("flash_attention:bwd"):
+            raise AssertionError(f"[tp] rank {r['rank']}: a kernel never launched: "
+                                 f"{r['launches']}, {r['arms']}")
+        if any(r["plain_on_cuda"].values()):
+            raise AssertionError(f"[tp] rank {r['rank']}: plain versions ran on the card: "
+                                 f"{r['plain_on_cuda']}")
+        log(f"[tp] rank {r['rank']} {r['coords']}: launches "
+            f"{ {k: v for k, v in r['launches'].items() if v} }; arms {r['arms']}; peak "
+            f"{r['peak_gb']:.2f} GB; local kernels {r['local']}")
+    for key, run in runs.items():
+        for field in ("logits", "ssd"):
+            if field not in run:
+                continue
+            want = unsharded[key][field].float()
+            got = torch.as_tensor(run[field])
+            scale = float(want.abs().max())
+            rel = float((got - want).abs().max()) / scale
+            check = {"rel": rel, "scale": scale}
+            if "float32" in key:
+                bar = TP_F32_REL
+            else:
+                plain = unsharded[f"{key} plain"][field].float()
+                check["floor"] = float((plain - want).abs().max()) / scale
+                bar = max(5e-2, 2.0 * check["floor"])
+            if "float32" in key and field == "logits":
+                same = bool((torch.as_tensor(run["greedy"]) == unsharded[key]["greedy"]).all())
+                check["tokens_equal"] = same
+                if not same:
+                    raise AssertionError(f"[tp] {key}: greedy tokens differ from the unsharded run")
+            check["bar"] = bar
+            report["checks"][f"{key} {field}"] = check
+            log(f"[tp] {key}: {field} {tuple(got.shape)} against unsharded: rel {rel:.3e} of "
+                f"scale {scale:.3e} (bar {bar:.1e}"
+                + (f", plain-vs-plain floor {check['floor']:.3e}" if "floor" in check else "")
+                + (f"; greedy tokens equal {check['tokens_equal']}" if "tokens_equal" in check
+                   else "") + ")")
+            if not (np.isfinite(run[field]).all() and rel <= bar):
+                raise AssertionError(f"[tp] {key} {field}: rel {rel:.3e} past {bar:.1e}")
+    tr = ranks[0]["train"]
+    leaves = tr["leaves"]
+    worst_g = max(leaves, key=lambda k: leaves[k]["grad_gap"] / leaves[k]["grad_scale"])
+    worst_p = max(leaves, key=lambda k: leaves[k]["param_gap"])
+    worst_x = max(leaves, key=lambda k: leaves[k]["excess"])
+    loss_rel = abs(tr["loss"] - tr["want_loss"]) / abs(tr["want_loss"])
+    wp = leaves[worst_p]
+    log(f"[tp] AdamW step ({TP['train']['arch']}, {TP['train']['layers']} layers, f32): loss "
+        f"{tr['loss']:.6f} vs unsharded {tr['want_loss']:.6f} (rel {loss_rel:.2e}); gradients: "
+        f"worst {worst_g} {leaves[worst_g]['grad_gap']:.3e} of its scale "
+        f"{leaves[worst_g]['grad_scale']:.3e} (bar {TP_GRAD_REL:.0e} of it); parameters: "
+        f"largest gap {worst_p} {wp['param_gap']:.3e} where the gradients are "
+        f"{wp['g_at_worst'][0]:.3e} and {wp['g_at_worst'][1]:.3e} (eps {tr['eps']:.0e}); "
+        f"largest excess over lr |dg| / eps {worst_x} {leaves[worst_x]['excess']:.3e} "
+        f"(bar {TP_STEP_ABS:.0e})")
+    report["train"] = {k: v for k, v in tr.items() if k != "leaves"}
+    report["train"].update(loss_rel=loss_rel, worst_grad=worst_g, worst_param=worst_p,
+                           worst_excess=worst_x, leaves=leaves)
+    bad = [k for k, v in leaves.items()
+           if not (v["grad_scale"] > 0 and v["grad_gap"] <= TP_GRAD_REL * v["grad_scale"])
+           or v["excess"] > TP_STEP_ABS]
+    if loss_rel > 1e-5 or bad:
+        raise AssertionError(f"[tp] the sharded AdamW step disagrees with the unsharded one: "
+                             f"loss rel {loss_rel:.2e}, leaves {bad}")
+    for what, (coll, layers) in ranks[0]["collectives"].items():
+        per = {k: {"count": v["count"] / layers, "MB": v["bytes"] / layers / 1e6}
+               for k, v in coll.items()}
+        log(f"[tp] collectives a layer, rank 0, {what}: " + ", ".join(
+            f"{k} {v['count']:.1f} x, {v['MB']:.2f} MB" for k, v in sorted(per.items())))
+        report.setdefault("collectives_per_layer", {})[what] = per
+    for key in runs:
+        t = ranks[0]["times"][key]
+        u = unsharded[key]
+        log(f"[tp] {key}: sharded prefill {1e3 * t['prefill_s']:.1f} ms, decode "
+            f"{1e3 * t['decode_s']:.1f} ms; unsharded {1e3 * u['prefill_s']:.1f} ms, "
+            f"{1e3 * u['decode_s']:.1f} ms (host clock; the sharded ones gloo through the "
+            f"host on one card: not targets)")
+    report["times"] = {"sharded": ranks[0]["times"],
+                       "unsharded": {k: {"prefill_s": u["prefill_s"], "decode_s": u["decode_s"]}
+                                     for k, u in unsharded.items()},
+                       "train_s": tr["train_s"]}
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        for name, arm in SPLIT_ARMS.items():
+            n = r["arms"].get(arm, 0)
+            launches[name] = launches.get(name, 0) + n
+            launches[arm.split(":")[0]] -= n
+    report["launches_summed"] = launches
+    report["peak_gb_a_rank"] = max(r["peak_gb"] for r in ranks)
+    report["ranks_wall_s"] = max(r["wall_s"] for r in ranks)
+    report["wall_s"] = report["ranks_wall_s"] + tp_in["unsharded_s"]
+    log(f"[tp] peak {report['peak_gb_a_rank']:.2f} GB a rank; launches summed over the ranks "
+        f"{ {k: v for k, v in launches.items() if v} }; phase wall {report['wall_s']:.1f} s "
+        f"(the ranks' counted runs {report['ranks_wall_s']:.1f} s, the unsharded runs "
+        f"{tp_in['unsharded_s']:.1f} s; the spawn it shares {spawn_s:.1f} s)")
     return report
 
 
@@ -3819,7 +4350,8 @@ def phase_train(torch, peaks, spec, device="cuda"):
               "seq": spec["seq"], "init_s": init_s}
     log(f"{tag} {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, vocab {cfg.vocab_size}, "
         f"{n_params / 1e6:.1f} M parameters ({cfg.param_dtype}), {cfg.dtype} compute; batch "
-        f"{spec['batch']} x {spec['seq']}; mesh {mesh.axes}; built in {init_s:.1f} s")
+        f"{spec['batch']} x {spec['seq']}; mesh {train_lib.mesh_lib.mesh_axes(mesh)}; "
+        f"built in {init_s:.1f} s")
 
     # (i) one step's loss and gradients: kernels against plain versions.
     batch = pipe.make_batch(0)
@@ -5675,6 +6207,7 @@ def _lap(report, name):
     """Wall seconds since the previous lap, under ``report["phase_s"]``."""
     now = time.perf_counter()
     report.setdefault("phase_s", {})[name] = now - _CLOCK[0]
+    log(f"[lap] {name} {now - _CLOCK[0]:.1f} s")
     _CLOCK[0] = now
 
 
@@ -5771,6 +6304,11 @@ def main(argv) -> int:
                                                      report["phase_s"].items()))
         _write_report(report)
         log(json.dumps({"kernels": [kernel_entry(k, e, totals[k]) for k, e in entries.items()]}))
+        return 0
+    if "--tp-only" in argv:  # [tp] alone: no ok line
+        report["tp"] = phase_tp(torch)
+        _lap(report, "tp")
+        _write_report(report)
         return 0
     if "--dryrun-only" in argv:  # the dry-run on its phases' peaks alone: no ok line
         report["main-lm-encdec"], _ = phase_main_lm(torch, "main-lm-encdec")
@@ -6236,9 +6774,10 @@ def main(argv) -> int:
 
     torch.cuda.empty_cache()
 
-    # -- 12./13. the sharded engine: check-shard and main-shard ---------------
+    # -- 12./13./13b. the sharded engine (check-shard, main-shard) and [tp] ---
     report.update(phase_shard(torch))
     shard_launches = report["main_shard"]["launches_summed"]
+    tp_launches = report["tp"]["launches_summed"]
     log(f"[main-shard] launches summed over ranks {shard_launches}; K8 alone (kernels "
         f"phase) {kernels['rbf_matvec_rect']['ms']:.2f} ms per call")
     _lap(report, "shard")
@@ -6268,7 +6807,8 @@ def main(argv) -> int:
               + serve_launches.get(name, 0) + mf_launches.get(name, 0)
               + chaos_launches.get(name, 0) + lsq_launches.get(name, 0)
               + lsq_batch_launches.get(name, 0) + gn_launches.get(name, 0)
-              + shard_launches.get(name, 0) + sum(lm.get(name, 0) for lm in lm_launches.values())
+              + shard_launches.get(name, 0) + tp_launches.get(name, 0)
+              + sum(lm.get(name, 0) for lm in lm_launches.values())
               for name in names}
     report["launch_totals"] = totals
     # Launches per arm over the paths run in this process (main-shard's

@@ -24,6 +24,8 @@ import torch
 
 from repro_torch.core.api import SolveSpec
 from repro_torch.core.recycle import RecycleState
+from repro_torch.models import sharding as shd
+from repro_torch.models.attention import kv_sharded
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Model
 from repro_torch.optim.hessian_free import HFState
@@ -149,40 +151,27 @@ def hf_state_to_numpy(state: HFState) -> dict:
 
 # The reference's leaf names carry a sharding suffix (``_cs`` column-,
 # ``_rs`` row-, ``_hs`` head-, ``_vs`` vocab-, ``_es`` expert-sharded); the
-# port's are the names without it.  Leaves absent here (``wk``, ``wv``,
-# ``bk``, ``bv`` at tensor-parallel degree 1, the norms' ``scale``/``bias``,
-# ``q_norm``, ``k_norm``, ``down_bias``, the MoE ``router``) have the same
-# name in both.  The MoE block's expert stacks (``gate_es``, ``up_es``,
-# ``down_es``) share their port names with the MLP's leaves, so the suffix
-# is looked up per sub-module.
-_LEAF_SUFFIX = {
-    "wq": "_cs", "wo": "_rs", "bq": "_hs",
-    "gate": "_cs", "up": "_cs", "down": "_rs", "up_bias": "_hs",
-    "in_proj": "_cs", "conv_w": "_rs", "conv_b": "_hs", "a_log": "_hs",
-    "dt_bias": "_hs", "d_skip": "_hs", "gate_norm": "_hs", "out_proj": "_rs",
-    "table": "_vs", "lm_head": "_cs",
-}
-_SUB_SUFFIX = {"moe": {"gate": "_es", "up": "_es", "down": "_es"}}
+# port's are the names without it, and ``models.sharding`` holds the one
+# table of suffixes (``leaf_suffix``): leaves absent there (``wk``, ``wv``,
+# ``bk``, ``bv`` where the KV heads are replicated, the norms'
+# ``scale``/``bias``, ``q_norm``, ``k_norm``, ``down_bias``, the MoE
+# ``router``) have the same name in both.
 _SUFFIXES = ("_cs", "_rs", "_hs", "_vs", "_es")
-
-
-def _suffixes(sub: Optional[str]) -> dict:
-    return _SUB_SUFFIX.get(sub, _LEAF_SUFFIX)
 
 
 def _port_leaf(ref_name: str, sub: Optional[str] = None) -> str:
     """The port's name of the reference leaf ``ref_name`` of sub-module
     ``sub`` (``attn``, ``mlp``, ``moe``, ...)."""
-    for name, sfx in _suffixes(sub).items():
-        if ref_name == name + sfx:
-            return name
-    if ref_name in _suffixes(sub) or ref_name[-3:] in _SUFFIXES:
+    name, sfx = ref_name[:-3], ref_name[-3:]
+    if sfx in _SUFFIXES and sfx in (shd.leaf_suffix(name, sub), shd.leaf_suffix(name, sub, True)):
+        return name
+    if sfx in _SUFFIXES or shd.leaf_suffix(ref_name, sub):
         raise KeyError(f"unknown reference parameter {ref_name!r}")
     return ref_name
 
 
-def _ref_leaf(name: str, sub: Optional[str] = None) -> str:
-    return name + _suffixes(sub).get(name, "")
+def _ref_leaf(name: str, sub: Optional[str] = None, kv: bool = False) -> str:
+    return name + shd.leaf_suffix(name, sub, kv)
 
 
 def _unstack(blocks: list, n_layers: int, prefix: str, state: dict) -> None:
@@ -219,12 +208,15 @@ def model_state_from_numpy(tree: dict, cfg: ModelConfig) -> Dict[str, np.ndarray
     return state
 
 
-def model_params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> Model:
+def model_params_from_numpy(tree: dict, cfg: ModelConfig, *, tp: int = 1,
+                            device="cuda") -> Model:
     """A :class:`repro_torch.models.transformer.Model` on ``device`` holding
     the reference's parameters (``tree`` as :func:`model_state_from_numpy`
-    takes it)."""
+    takes it), built at tensor-parallel degree ``tp`` (the reference's
+    ``init(..., tp=tp)``: padded query heads, ``wk_cs``/``bk_hs`` names
+    where the KV heads shard)."""
     state = model_state_from_numpy(tree, cfg)
-    model = Model(None, cfg, "meta")
+    model = Model(None, cfg, "meta", tp)
     expected = set(model.state_dict())
     if set(state) != expected:
         raise KeyError(f"parameter trees differ: missing {sorted(expected - set(state))}, "
@@ -236,11 +228,28 @@ def model_params_from_numpy(tree: dict, cfg: ModelConfig, *, device="cuda") -> M
     return model.requires_grad_(False)
 
 
-def _arrays(module, sub=None) -> dict:
-    return {_ref_leaf(k, sub): v.detach().cpu().numpy() for k, v in module.named_parameters()}
+def distribute(model: Model, mesh, env) -> Model:
+    """``model`` with each parameter a DTensor laid out by
+    ``launch.mesh.param_shardings`` on ``mesh`` under ``env``: every rank
+    holds the same full parameters (the same seed, or the same tree) and
+    keeps its own shards (no communication)."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    shardings = mesh_lib.param_shardings(mesh, model, env)
+    for name, p in list(model.named_parameters()):
+        module_name, _, leaf = name.rpartition(".")
+        module = model.get_submodule(module_name)
+        dt = mesh_lib.place(p.detach(), mesh, shardings[name])
+        setattr(module, leaf, torch.nn.Parameter(dt, requires_grad=p.requires_grad))
+    return model
 
 
-def _stack(blocks, period: int) -> list:
+def _arrays(module, sub=None, kv=False) -> dict:
+    return {_ref_leaf(k, sub, kv): v.detach().cpu().numpy()
+            for k, v in module.named_parameters()}
+
+
+def _stack(blocks, period: int, kv: bool = False) -> list:
     """``blocks`` (one module a layer) as the reference's period blocks,
     each leaf stacked over the periods."""
     out = []
@@ -248,7 +257,7 @@ def _stack(blocks, period: int) -> list:
         layers = blocks[i::period]
         stacked = {}
         for sub, _ in layers[0].named_children():
-            per_layer = [_arrays(getattr(layer, sub), sub) for layer in layers]
+            per_layer = [_arrays(getattr(layer, sub), sub, kv) for layer in layers]
             stacked[sub] = {k: np.stack([p[k] for p in per_layer]) for k in per_layer[0]}
         out.append(stacked)
     return out
@@ -257,11 +266,12 @@ def _stack(blocks, period: int) -> list:
 def model_params_to_numpy(model: Model) -> dict:
     """The inverse: the reference's parameter tree (nested dicts and lists
     of numpy arrays, blocks stacked over periods) from a port model."""
+    kv = kv_sharded(model.cfg, model.tp)
     tree = {"embed": _arrays(model.embed),
-            "periods": {"blocks": _stack(model.blocks, model.cfg.period())},
+            "periods": {"blocks": _stack(model.blocks, model.cfg.period(), kv)},
             "final_norm": _arrays(model.final_norm)}
     if model.cfg.is_encdec:
-        tree["encoder"] = {"periods": {"blocks": _stack(model.encoder.blocks, 1)},
+        tree["encoder"] = {"periods": {"blocks": _stack(model.encoder.blocks, 1, kv)},
                            "final_norm": _arrays(model.encoder.final_norm)}
     return tree
 

@@ -123,3 +123,16 @@ def note_plain(name: str, t: torch.Tensor) -> None:
     """Count a plain version run on a CUDA tensor."""
     if t.device.type == "cuda":
         PLAIN_ON_CUDA[name] += 1
+
+
+def sharding_rule(op):
+    """``torch.distributed.tensor.experimental.register_sharding(op)``: a
+    decorator registering a DTensor sharding rule for the custom op
+    ``op`` (one mesh dim's acceptable ``(output placements, input
+    placements)``; DTensor expands them over the mesh).  On a build
+    without ``torch.distributed`` it registers nothing."""
+    if not torch.distributed.is_available():
+        return lambda fn: fn
+    from torch.distributed.tensor.experimental import register_sharding
+
+    return register_sharding(op)

@@ -513,3 +513,41 @@ work.count_op(torch.ops.repro_torch.flash_attention_bwd,
 work.count_op(torch.ops.repro_torch.flash_attention_jvp,
               lambda q, k, v, out, lse, tq, tk, tv, causal, *_: _count(
                   q, k, causal, "jvp", q, k, v, out, tq, tk, tv))
+
+
+# Sharding rules: on a mesh the ops run on each rank's shards, split by
+# batch or by heads (query and KV heads together), or replicated; each rank
+# launches the kernel on its own shard.  Heads split only where the mesh's
+# size divides the KV heads: a rank's query heads then meet the KV heads of
+# their groups, with the same group size.  Elsewhere (arctic-480b's 8 KV
+# heads at tp 16) the rule offers no head split; the models instead give
+# each rank the KV heads its query heads read (``models.attention._rank_kv``).
+
+
+def _attention_rule(n_in, n_out, q_at=0):
+    """The rule of an op whose first ``n_in`` arguments are (B, H, S, dh)
+    tensors (the rest not tensors), the query and key at ``q_at`` and
+    ``q_at + 1``, and whose ``n_out`` outputs are (B, H, S, dh) or (B, H,
+    S) (the row log-sum-exp)."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    def rule(*args):
+        q, k = args[q_at], args[q_at + 1]
+        dims = (0, 1) if k.shape[1] % q.mesh.size() == 0 else (0,)
+        strategies = [([Replicate()] * n_out, [Replicate()] * n_in + [None] * (len(args) - n_in))]
+        for dim in dims:
+            strategies.append(([Shard(dim)] * n_out,
+                               [Shard(dim)] * n_in + [None] * (len(args) - n_in)))
+        return strategies
+
+    return rule
+
+
+if torch.distributed.is_available():
+    _runtime.sharding_rule(torch.ops.repro_torch.flash_attention.default)(_attention_rule(3, 1))
+    _runtime.sharding_rule(torch.ops.repro_torch.flash_attention_lse.default)(
+        _attention_rule(3, 2))
+    _runtime.sharding_rule(torch.ops.repro_torch.flash_attention_bwd.default)(
+        _attention_rule(6, 3, q_at=1))
+    _runtime.sharding_rule(torch.ops.repro_torch.flash_attention_jvp.default)(
+        _attention_rule(8, 1))

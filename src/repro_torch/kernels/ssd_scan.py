@@ -777,3 +777,60 @@ work.count_op(torch.ops.repro_torch.ssd_scan_jvp,
               lambda x, dt, a, bmat, cmat, h0, hs, cs, tx, tdt, ta, tb, tc, th0, chunk, plain:
               _count(x, bmat, chunk, "jvp", lambda pl, gp: _scratch(gp["jvp_scratch"])
                      + work.copies(tx, tb, tc, dt, a, tdt, ta, th0)))
+
+
+# Sharding rules: on a mesh the ops run on each rank's shards, split by
+# batch or by heads, or replicated; each rank launches the kernels on its
+# own shard.  Split by heads, B and C go whole to every rank when there is
+# one group (every head reads it) and split with the heads otherwise
+# (heads are grouped in order: the split is offered only where the mesh's
+# size divides the heads and the groups); the gradients of what every rank
+# reads whole (a, and B/C with one group; a split by batch) are partial sums.
+# Roles of an argument or output: "x" (B, L, H, …), "h" (H,), "bc" (B, L,
+# G, N), "s" (B, H, …) states, "dh"/"dbc" the gradients of "h"/"bc".
+
+
+def _ssd_rule(ins, outs, state_flag=None):
+    """The rule of an op whose tensor arguments and outputs have the roles
+    ``ins`` and ``outs``; ``state_flag``: the index of a bool argument
+    that, False, leaves the state output empty (replicated)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    def placement(role, split, groups):
+        if split == "batch":
+            return {"x": Shard(0), "h": Replicate(), "bc": Shard(0), "s": Shard(0),
+                    "dh": Partial(), "dbc": Shard(0)}[role]
+        whole = groups == 1
+        return {"x": Shard(2), "h": Shard(0), "bc": Replicate() if whole else Shard(2),
+                "s": Shard(1), "dh": Shard(0), "dbc": Partial() if whole else Shard(2)}[role]
+
+    def rule(*args):
+        x, groups = args[ins.index("x")], args[ins.index("bc")].shape[2]
+        n = x.mesh.size()
+        state_out = state_flag is None or args[state_flag]
+        strategies = [([Replicate()] * len(outs),
+                       [None if a is None or r is None else Replicate()
+                        for a, r in zip(args, ins + (None,) * len(args))])]
+        heads = x.shape[2] % n == 0 and (groups == 1 or groups % n == 0)
+        for split in ("batch", "heads") if heads else ("batch",):
+            out = [placement(r, split, groups) if (r != "s" or state_out or i == 0)
+                   else Replicate() for i, r in enumerate(outs)]
+            inp = [None if a is None or r is None else placement(r, split, groups)
+                   for a, r in zip(args, ins + (None,) * len(args))]
+            strategies.append((out, inp))
+        return strategies
+
+    return rule
+
+
+if torch.distributed.is_available():
+    _runtime.sharding_rule(torch.ops.repro_torch.ssd_scan.default)(
+        _ssd_rule(("x", "x", "h", "bc", "bc", "h", "s"), ("x", "s"), state_flag=8))
+    _runtime.sharding_rule(torch.ops.repro_torch.ssd_scan_fwd.default)(
+        _ssd_rule(("x", "x", "h", "bc", "bc", "s"), ("x", "s", "s", "s")))
+    _runtime.sharding_rule(torch.ops.repro_torch.ssd_scan_bwd.default)(
+        _ssd_rule(("x", "x", "x", "h", "bc", "bc", "s", "s", "s", "s"),
+                  ("x", "x", "dh", "dbc", "dbc", "s")))
+    _runtime.sharding_rule(torch.ops.repro_torch.ssd_scan_jvp.default)(
+        _ssd_rule(("x", "x", "h", "bc", "bc", "s", "s", "s", "x", "x", "h", "bc", "bc", "s"),
+                  ("x", "s")))

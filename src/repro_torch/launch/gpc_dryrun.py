@@ -66,17 +66,18 @@ def make_defcg_iteration(cfg: GPCConfig, mesh=None, backend: str = "auto"):
     return defcg_iteration
 
 
-def input_specs(cfg: GPCConfig, device="meta"):
-    """``(x_data, sqrt_h, state)`` of one card as empty tensors on
-    ``device``."""
-    n, d, k = cfg.n, cfg.d, cfg.k
+def input_specs(cfg: GPCConfig, device="meta", ranks: int = 1):
+    """``(x_data, sqrt_h, state)`` of one card, or of one of ``ranks``
+    ranks (its rows of every vector and basis, X whole), as empty tensors
+    on ``device``."""
+    n, d, k = cfg.n // ranks, cfg.d, cfg.k
     dtype = torch.float32 if cfg.dtype == "float32" else torch.float64
 
     def empty(*shape):
         return torch.empty(shape, dtype=dtype, device=device)
 
     state = (empty(n), empty(n), empty(n), empty(), empty(k, n), empty(k, n), empty(k, k))
-    return empty(n, d), empty(n), state
+    return empty(cfg.n, d), empty(n), state
 
 
 def model_flops(cfg: GPCConfig) -> float:
@@ -84,8 +85,12 @@ def model_flops(cfg: GPCConfig) -> float:
     return 2.0 * cfg.n * cfg.n * cfg.d + 6.0 * cfg.n * cfg.n
 
 
-def trace_cell(cfg: GPCConfig) -> dict:
-    """The counts of one iteration on one card traced on the meta device
+def trace_cell(cfg: GPCConfig, mesh=None) -> dict:
+    """The counts of one iteration on one card, or on one rank of ``mesh``
+    (a :class:`~repro_torch.launch.mesh.SolveMesh`, e.g. over a fake
+    process group), traced on the meta device
     (:func:`repro_torch.launch.trace_stats.trace`), its inputs held."""
-    _, counts = trace_stats.trace(make_defcg_iteration(cfg), *input_specs(cfg))
+    ranks = 1 if mesh is None else mesh.size
+    _, counts = trace_stats.trace(make_defcg_iteration(cfg, mesh),
+                                  *input_specs(cfg, ranks=ranks))
     return counts

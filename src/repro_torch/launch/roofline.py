@@ -15,7 +15,10 @@ unit and dtype the cell's work runs on, named in the record (``peak``):
 bf16 on the tensor cores for the models, f32 on the CUDA cores for the GP
 cell's RBF kernel (``H100``).  The collective model is the reference's:
 per-card op bytes ``s`` move α·s bytes over one link, α(all-reduce) = 2,
-α(others) = 1.  At one card there are no collectives and the term is 0.
+α(others) = 1.  At one card there are no collectives and the term is 0;
+on a mesh the record's collectives are one rank's (``launch.dryrun``).
+A ``model`` axis of 16 spans two 8-card NVLink domains, so the 450 GB/s
+link flatters its collectives there.
 
 The dominant term is the bottleneck; MODEL_FLOPS / traced FLOPs is the
 useful-compute ratio (it catches remat's recompute and MoE capacity
@@ -25,7 +28,7 @@ counts stand where its HLO counts stood, so one roofline reads both.
 
 Usage::
 
-    python -m repro_torch.launch.roofline [--artifacts DIR] [--mesh single]
+    python -m repro_torch.launch.roofline [--artifacts DIR] [--mesh single|pod|multi|four|all]
 """
 
 from __future__ import annotations
@@ -168,10 +171,10 @@ def main(argv=None):
 
     ap = argparse.ArgumentParser()
     ap.add_argument("--artifacts", default=os.path.abspath(ARTIFACT_DIR))
-    ap.add_argument("--mesh", default="single", choices=["single", "multi", "all"])
+    ap.add_argument("--mesh", default="single", choices=["single", "pod", "multi", "four", "all"])
     args = ap.parse_args(argv)
     mesh = None if args.mesh == "all" else args.mesh
-    print(f"Dry-run bounds for one {CARD}")
+    print(f"Dry-run bounds a card, {CARD} (a many-card row: one rank's)")
     print(table(args.artifacts, mesh))
     print()
     for rec in load_artifacts(args.artifacts):

@@ -28,6 +28,7 @@ from repro_torch import models
 from repro_torch.configs.registry import ShapeSpec
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import compute_dtype
+from repro_torch.models.sharding import is_distributed, plain_replicated
 from repro_torch.optim import adam_init, adam_update
 
 
@@ -44,26 +45,35 @@ def loss_and_grads(cfg: ModelConfig, params: dict, batch, *, backend: str = "aut
     ``skeleton`` (a model of ``cfg``, by default one on the meta device)."""
     skeleton = models.transformer.Model(None, cfg, "meta") if skeleton is None else skeleton
     leaves = {name: p.detach().requires_grad_(True) for name, p in params.items()}
-    with torch.enable_grad():
+    with torch.enable_grad(), plain_replicated():
         loss, metrics = torch.func.functional_call(
             skeleton, leaves, (models.lm_loss, batch, cfg), {"backend": backend})
         grads = torch.autograd.grad(loss, list(leaves.values()))
     metrics = {key: val.detach() for key, val in metrics.items()}
-    return loss.detach(), metrics, dict(zip(leaves, grads))
+    grads = dict(zip(leaves, grads))
+    if any(is_distributed(g) for g in grads.values()):
+        # Each gradient laid out as its parameter: a ZeRO shard's sum over
+        # the batch axes is a reduce-scatter.
+        grads = {name: g.redistribute(params[name].device_mesh, params[name].placements)
+                 for name, g in grads.items()}
+    return loss.detach(), metrics, grads
 
 
 def make_train_step(cfg: ModelConfig, *, lr: float = 1e-4, moment_dtype=torch.float32,
-                    backend: str = "auto"):
+                    backend: str = "auto", tp: int = 1):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``:
     :func:`loss_and_grads`, then AdamW with weight decay 0.1; metrics
     ``loss``, ``xent`` and ``aux`` (0-d tensors).  ``params`` is a dict as
-    :func:`params_dict` gives it."""
-    skeleton = models.transformer.Model(None, cfg, "meta")
+    :func:`params_dict` gives it, of a model built at tensor-parallel
+    degree ``tp`` (DTensors on a mesh: the update then runs on each rank's
+    shards)."""
+    skeleton = models.transformer.Model(None, cfg, "meta", tp)
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = loss_and_grads(cfg, params, batch, backend=backend,
                                               skeleton=skeleton)
-        new_params, new_opt = adam_update(grads, opt_state, params, lr=lr, weight_decay=0.1)
+        with plain_replicated():
+            new_params, new_opt = adam_update(grads, opt_state, params, lr=lr, weight_decay=0.1)
         return new_params, new_opt, {"loss": loss, "xent": metrics["xent"], "aux": metrics["aux"]}
 
     return train_step
@@ -121,18 +131,19 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec, device="meta") -> dict:
 
 
 def decode_state_specs(cfg: ModelConfig, shape: ShapeSpec, device="meta",
-                       skeleton=None) -> models.DecodeState:
+                       skeleton=None, tp: int = 1) -> models.DecodeState:
     """The decode state of a decode cell, its caches ``seq_len`` deep; an
     encoder–decoder's also holds the cross-attention memory a prefill of
     ``source_len`` frames leaves (``_cross_memory`` on ``skeleton``, by
     default a model of ``cfg`` on ``device``: the reference's ``build2``)."""
     b, s = shape.global_batch, shape.seq_len
-    state = models.init_decode_state(cfg, b, max_len=s, device=device)
+    state = models.init_decode_state(cfg, b, max_len=s, tp=tp, device=device)
     if not cfg.is_encdec:
         return state
-    skeleton = models.transformer.Model(None, cfg, device) if skeleton is None else skeleton
+    skeleton = models.transformer.Model(None, cfg, device, tp) if skeleton is None else skeleton
     src = torch.zeros((b, cfg.source_len, cfg.d_model), dtype=compute_dtype(cfg), device=device)
-    return state._replace(memory=models.transformer._cross_memory(skeleton, src, cfg))
+    with plain_replicated():  # a distributed skeleton: the source is the same on every rank
+        return state._replace(memory=models.transformer._cross_memory(skeleton, src, cfg))
 
 
 def model_flops(cfg: ModelConfig, shape: ShapeSpec) -> float:

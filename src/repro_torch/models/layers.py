@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.sharding import gathered, is_distributed, shard
 
 DTYPES = {
     "float32": torch.float32,
@@ -41,6 +42,13 @@ def param_dtype(cfg: ModelConfig) -> torch.dtype:
 
 def _param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def weight(w: torch.Tensor, dtype) -> torch.Tensor:
+    """A parameter in the compute dtype ``dtype``, ready for a product: on
+    a mesh cast on its shards, then its ZeRO shards gathered
+    (``sharding.gathered``)."""
+    return gathered(w.to(dtype))
 
 
 def dense_init(generator, d_in: int, d_out: int, dtype, device, scale: Optional[float] = None):
@@ -152,13 +160,15 @@ def mlp_init(generator, cfg: ModelConfig, d_ff: Optional[int] = None, *, device=
 def mlp_apply(mlp: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     dt = compute_dtype(cfg)
     if cfg.mlp_type == "swiglu":
-        g = x @ mlp.gate.to(dt)
-        u = x @ mlp.up.to(dt)
+        g = x @ weight(mlp.gate, dt)
+        u = x @ weight(mlp.up, dt)
         h = F.silu(g.float()).to(dt) * u
-        return h @ mlp.down.to(dt)
-    h = x @ mlp.up.to(dt) + mlp.up_bias.to(dt)
+        h = shard(h, "batch", None, "model")
+        return h @ weight(mlp.down, dt)
+    h = x @ weight(mlp.up, dt) + mlp.up_bias.to(dt)
     h = F.gelu(h.float(), approximate="tanh").to(dt)  # jax.nn.gelu's default
-    return h @ mlp.down.to(dt) + mlp.down_bias.to(dt)
+    h = shard(h, "batch", None, "model")
+    return h @ weight(mlp.down, dt) + mlp.down_bias.to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -194,10 +204,38 @@ def embed_init(generator, cfg: ModelConfig, *, device="cuda") -> Embed:
 def embed_apply(embed: Embed, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     # Gather, then cast: the same values as the reference's cast-then-take,
     # without casting the whole table each step.
+    if is_distributed(embed.table):
+        return shard(_sharded_lookup(gathered(embed.table), tokens), "batch", None, None).to(
+            compute_dtype(cfg))
     return embed.table[tokens].to(compute_dtype(cfg))
+
+
+def _sharded_lookup(table, tokens):
+    """``table[tokens]`` for a vocab-sharded DTensor ``table``: each model
+    rank looks up the tokens in its rows (zeros for the others), so the
+    rows come out partial over ``model``, batch-sharded as ``tokens``."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = table.device_mesh
+    names = mesh.mesh_dim_names
+    model = names.index("model")
+    rows = -(-table.shape[0] // mesh.size(model))
+    first = mesh.get_local_rank("model") * rows
+    tok = tokens.placements
+    out = [Partial() if i == model else p for i, p in enumerate(tok)]
+    grad = [p if i == model else Partial() if t.is_shard() else Replicate()
+            for i, (p, t) in enumerate(zip(table.placements, tok))]
+
+    def lookup(t, ids):
+        own = (ids >= first) & (ids < first + t.shape[0])
+        return torch.where(own[..., None], t[(ids - first).clamp(0, t.shape[0] - 1)], 0)
+
+    return local_map(lookup, out_placements=out, in_placements=(table.placements, tok),
+                     in_grad_placements=(grad, tok), device_mesh=mesh)(table, tokens)
 
 
 def lm_head_weights(embed: Embed, cfg: ModelConfig) -> torch.Tensor:
     if cfg.tie_embeddings:
-        return embed.table.T.to(compute_dtype(cfg))
-    return embed.lm_head.to(compute_dtype(cfg))
+        return weight(embed.table, compute_dtype(cfg)).T
+    return weight(embed.lm_head, compute_dtype(cfg))

@@ -24,6 +24,13 @@ float atomics run and two backward passes agree bit for bit (autograd's
 backward of an index would scatter-add).  No ``(B, E, S, d)`` tensor is
 formed: the ``(B·S, d)`` rows are indexed directly.
 
+On a mesh the expert stacks are sharded over ``model`` (``_es``): the
+routing runs whole on every rank (f32, replicated, as P12 needs), each
+rank dispatches and combines its own experts' assignments on its local
+tensors, and the output, partial over ``model``, is summed by the
+``shard`` after it.  The grouped dispatcher keeps the batch sharded; the
+global one gathers it (its capacity pools every token).
+
 :func:`record_routing` lets a caller read each layer's routing decisions
 (expert ids and kept masks), e.g. to compare two runs; under
 :func:`replay_routing` the layers take a recorded run's expert ids instead
@@ -37,6 +44,7 @@ runs in: remat never routes again.
 from __future__ import annotations
 
 import contextlib
+from types import SimpleNamespace
 from typing import Iterator, List, NamedTuple, Optional, Tuple
 
 import torch
@@ -44,7 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import _param, dense_init, param_dtype
+from repro_torch.models.layers import _param, dense_init, param_dtype, weight
+from repro_torch.models.sharding import _axes, get_axis_env, is_distributed, shard
 
 
 class MoE(nn.Module):
@@ -118,7 +127,7 @@ def replay_routing(records):
 
 
 class _RematRouting:
-    """Sets what :func:`_route` does inside ``torch.utils.checkpoint``:
+    """Sets what :func:`_choose` does inside ``torch.utils.checkpoint``:
     ``keep`` appends each layer's expert ids to ``kept``, ``reuse`` takes
     them back in order.  Re-enterable: each entry reads ``kept`` afresh."""
 
@@ -199,12 +208,14 @@ def _slot_maps(flat_e, keep, pos, e: int, cap: int):
     return slot.reshape(-1), asg[:n_slots]
 
 
-def _route(p: MoE, x2, cfg: ModelConfig):
-    """f32 softmax router over the rows of ``x2`` (…, d): ``(probs, gates,
-    expert ids)``, the top-k gates renormalised."""
-    dt = x2.dtype
-    logits = (x2 @ p.router.to(dt)).float()
-    probs = torch.softmax(logits, dim=-1)
+def _probs(p: MoE, x2):
+    """The f32 softmax router over the rows of ``x2`` (…, d)."""
+    return torch.softmax((x2 @ weight(p.router, x2.dtype)).float(), dim=-1)
+
+
+def _choose(probs, cfg: ModelConfig):
+    """``(gates, expert ids)`` of router probabilities ``probs``: the top-k
+    (or the replayed or remat-kept ids), the gates renormalised."""
     # The gates are gathered at the ids on every path, so that a recompute
     # on kept ids runs (and saves for the backward) what its forward did.
     mode, kept = _REMAT[0] or (None, None)
@@ -218,7 +229,7 @@ def _route(p: MoE, x2, cfg: ModelConfig):
         kept.append(eidx)
     gates = torch.gather(probs, -1, eidx)
     gates = gates / torch.clamp(gates.sum(dim=-1, keepdim=True), min=1e-9)
-    return probs, gates, eidx
+    return gates, eidx
 
 
 def _positions(flat_e, e: int):
@@ -251,10 +262,11 @@ def _experts(p: MoE, xg, cfg: ModelConfig):
 
 
 def _dispatch_run(p: MoE, x2, flat_e, keep, pos, cap: int, cfg: ModelConfig):
-    """Gather each group's kept rows of ``x2`` (G·S, d) into its expert
-    slots, run the experts, and return their outputs per slot
-    ``(G·E·cap, d)`` with the slot and assignment maps."""
-    k, e = cfg.experts_per_token, cfg.n_experts
+    """Gather each group's kept rows of ``x2`` (G·S, d) into the expert
+    slots of ``p``'s experts (``flat_e`` counts from its first), run them,
+    and return their outputs per slot ``(G·E·cap, d)`` with the slot and
+    assignment maps."""
+    k, e = cfg.experts_per_token, p.up.shape[0]
     g = flat_e.shape[0]
     slot, asg = _slot_maps(flat_e, keep, pos, e, cap)
     tok = torch.where(asg >= 0, asg // k, -1)
@@ -262,6 +274,17 @@ def _dispatch_run(p: MoE, x2, flat_e, keep, pos, cap: int, cfg: ModelConfig):
     xg = xg.view(g, e, cap, -1).transpose(0, 1).reshape(e, g * cap, -1)
     yo = _experts(p, xg, cfg).view(e, g, cap, -1).transpose(0, 1).reshape(g * e * cap, -1)
     return yo, slot, asg
+
+
+def _own(p: MoE, flat_e, keep, first: int, cfg: ModelConfig):
+    """The assignments of ``p``'s experts ``[first, first + E_p)``: their
+    ids counted from ``first`` and their kept mask (all of them when ``p``
+    holds every expert)."""
+    e = p.up.shape[0]
+    if e == cfg.n_experts:
+        return flat_e, keep
+    local = flat_e - first
+    return local, keep & (local >= 0) & (local < e)
 
 
 def moe_apply(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -276,42 +299,98 @@ def moe_apply_grouped(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     """Each batch row its own dispatch group, capacity per (row, expert):
     the gate-weighted expert outputs of a token's kept assignments summed
     in its order of choice; aux ``E · mean_b Σ_e frac_be · mean_s probs``."""
+    probs = _probs(p, x)  # (B, S, E)
+    y, frac = _on_expert_ranks(_grouped_rank, p, x, probs, cfg, pooled=False)
+    aux = cfg.n_experts * torch.mean(torch.sum(frac * probs.mean(dim=1), dim=-1))
+    return shard(y, "batch", None, None), aux.float()
+
+
+def _grouped_rank(p: MoE, x, probs, cfg: ModelConfig, first: int):
+    """:func:`moe_apply_grouped`'s routing and dispatch over ``p``'s experts
+    (from ``first``): ``(output, frac (B, E))``."""
     b, s, d = x.shape
     k, e = cfg.experts_per_token, cfg.n_experts
     cap = max(int(s * k / e * cfg.capacity_factor), k)
-    probs, gates, eidx = _route(p, x, cfg)  # (B, S, E), (B, S, k)
+    gates, eidx = _choose(probs, cfg)  # (B, S, k)
     flat_e = eidx.reshape(b, s * k)
     pos, counts = _positions(flat_e, e)
     keep = pos < cap
     _note(eidx, keep.view(b, s, k))
-    frac = counts.float() / (s * k)
-    aux = e * torch.mean(torch.sum(frac * probs.mean(dim=1), dim=-1))
-
+    flat_e, keep = _own(p, flat_e, keep, first, cfg)
     yo, slot, asg = _dispatch_run(p, x.reshape(b * s, d), flat_e, keep, pos, cap, cfg)
     vals = GatherRows.apply(yo, slot, asg.view(-1, 1)).view(b, s, k, d)
     w = gates.to(x.dtype) * keep.view(b, s, k).to(x.dtype)
-    return (vals * w[..., None]).sum(dim=2), aux.float()
+    return (vals * w[..., None]).sum(dim=2), counts.float() / (s * k)
 
 
 def moe_apply_global(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     """One capacity pool of :func:`capacity` over all ``b·s`` tokens: each
     slot's expert output weighted by its gate, a token's kept slots summed
     in its order of choice; aux ``E · Σ_e frac_e · mean_t probs``."""
+    probs = _probs(p, x)  # (B, S, E)
+    y, frac = _on_expert_ranks(_global_rank, p, x, probs, cfg, pooled=True)
+    aux = cfg.n_experts * torch.sum(frac * probs.reshape(-1, cfg.n_experts).mean(dim=0))
+    return shard(y, "batch", None, None), aux.float()
+
+
+def _global_rank(p: MoE, x, probs, cfg: ModelConfig, first: int):
+    """:func:`moe_apply_global`'s routing and dispatch over ``p``'s experts
+    (from ``first``), its ``b·s`` tokens pooled: ``(output, frac (E,))``."""
     b, s, d = x.shape
     t = b * s
     k, e = cfg.experts_per_token, cfg.n_experts
     cap = capacity(cfg, t)
     x2 = x.reshape(t, d)
-    probs, gates, eidx = _route(p, x2, cfg)  # (T, E), (T, k)
+    gates, eidx = _choose(probs.reshape(t, e), cfg)  # (T, k)
     flat_e = eidx.reshape(1, t * k)
     pos, counts = _positions(flat_e, e)
     keep = pos < cap
     _note(eidx.view(b, s, k), keep.view(b, s, k))
-    frac = counts[0].float() / (t * k)
-    aux = e * torch.sum(frac * probs.mean(dim=0))
-
+    flat_e, keep = _own(p, flat_e, keep, first, cfg)
     yo, slot, asg = _dispatch_run(p, x2, flat_e, keep, pos, cap, cfg)
     gate_slot = GatherRows.apply(gates.reshape(-1).to(x.dtype), asg, slot.view(-1, 1))
     yo = yo * gate_slot[:, None]
     vals = GatherRows.apply(yo, slot, asg.view(-1, 1)).view(t, k, d)
-    return vals.sum(dim=1).view(b, s, d), aux.float()
+    return vals.sum(dim=1).view(b, s, d), counts[0].float() / (t * k)
+
+
+def _on_expert_ranks(fn, p: MoE, x, probs, cfg: ModelConfig, *, pooled: bool):
+    """``fn(p, x, probs, cfg, 0)``; on DTensors, on each rank's local
+    tensors with its own experts (the ``_es`` stacks sharded over
+    ``model``): the routing runs on every rank (f32, replicated), each
+    rank combines its experts' outputs and the output stays partial over
+    ``model`` until the caller's ``shard`` sums it.  A grouped dispatch
+    keeps the batch sharded; a pooled one gathers it, since its capacity
+    pools every token."""
+    if not is_distributed(x):
+        return fn(p, x, probs, cfg, 0)
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    names = mesh.mesh_dim_names
+    batch = set(_axes(get_axis_env().get("batch"))) if not pooled else set()
+    tp = mesh.size(names.index("model")) if "model" in names else 1
+    first = (mesh.get_local_rank("model") if "model" in names else 0) * (cfg.n_experts // tp)
+
+    def each(model, data):
+        return tuple(model if n == "model" else data if n in batch else Replicate()
+                     for n in names)
+
+    rows, part = each(Replicate(), Shard(0)), each(Partial(), Shard(0))
+    stacks = tuple(getattr(p, n) for n in ("gate", "up", "down") if hasattr(p, n))
+    weight = each(Shard(0), Replicate())
+    weight_grad = each(Shard(0), Partial())
+
+    def run(x, probs, *local):
+        experts = SimpleNamespace(**dict(zip(("gate", "up", "down")[-len(local):], local)))
+        return fn(experts, x, probs, cfg, first)
+
+    return local_map(
+        run,
+        out_placements=(part, rows),
+        in_placements=(rows, rows) + (weight,) * len(stacks),
+        in_grad_placements=(part, part) + (weight_grad,) * len(stacks),
+        device_mesh=mesh,
+        redistribute_inputs=True,
+    )(x, probs, *stacks)

@@ -38,6 +38,15 @@ LM's GGN products) blocks are not checkpointed: saved-tensor hooks do not
 compose with them, and forward mode saves nothing for a backward.
 :func:`lm_loss` is the training loss: the reference's chunked
 cross-entropy, whose backward recomputes one chunk of logits at a time.
+
+Built at tensor-parallel degree ``tp`` (:func:`init`), a model has the
+reference's padded attention heads; with DTensor parameters
+(``convert.distribute``) and an axis environment bound
+(``launch.mesh.bind``) every entry point runs on the mesh: residuals are
+constrained to the batch layout after each block (``sharding.shard``, as
+the reference's), plain tensors count as replicated
+(``sharding.on_mesh``), and the loss reduces the vocab-sharded logits
+over ``model`` (:class:`_VocabShards`), so it is the unsharded loss.
 """
 
 from __future__ import annotations
@@ -65,6 +74,7 @@ from repro_torch.models.layers import (
     norm_init,
     sinusoidal_positions,
 )
+from repro_torch.models.sharding import is_distributed, on_mesh, shard
 
 Cache = Union[attn.KVCache, ssm.SSMState]
 
@@ -80,16 +90,16 @@ class Block(nn.Module):
     both (``moe+mlp``)."""
 
     def __init__(self, generator, cfg: ModelConfig, mixer: str, ffn: str, device,
-                 cross: bool = False):
+                 cross: bool = False, tp: int = 1):
         super().__init__()
         self.mixer_norm = norm_init(cfg, device=device)
         if mixer == "attn":
-            self.attn = attn.attn_init(generator, cfg, device=device)
+            self.attn = attn.attn_init(generator, cfg, device=device, tp=tp)
         else:
             self.ssm = ssm.mamba_init(generator, cfg, device=device)
         if cross:
             self.cross_norm = norm_init(cfg, device=device)
-            self.cross_attn = attn.attn_init(generator, cfg, device=device)
+            self.cross_attn = attn.attn_init(generator, cfg, device=device, tp=tp)
         if ffn != "none":
             self.ffn_norm = norm_init(cfg, device=device)
         if ffn in ("mlp", "moe+mlp"):
@@ -114,7 +124,7 @@ def _block_apply(block: Block, x, cfg: ModelConfig, *, causal=True, cache=None,
                                          positions=positions, backend=backend)
     else:
         out, new_cache = ssm.mamba_apply(block.ssm, h, cfg, state=cache, backend=backend)
-    x = x + out
+    x = shard(x + out, "batch", None, None)
     if hasattr(block, "cross_attn"):
         h = norm_apply(block.cross_norm, x, cfg)
         out, _ = attn.attn_apply(block.cross_attn, h, cfg, causal=False, memory=memory,
@@ -129,7 +139,7 @@ def _block_apply(block: Block, x, cfg: ModelConfig, *, causal=True, cache=None,
         if hasattr(block, "mlp"):
             ym = mlp_apply(block.mlp, h, cfg)
             y = ym if y is None else y + ym
-        x = x + y
+        x = shard(x + y, "batch", None, None)
     return x, new_cache, aux
 
 
@@ -137,29 +147,29 @@ class Encoder(nn.Module):
     """An encoder–decoder's ``blocks`` (``encoder_layers`` attention + MLP
     blocks) and ``final_norm``."""
 
-    def __init__(self, generator, cfg: ModelConfig, device):
+    def __init__(self, generator, cfg: ModelConfig, device, tp: int = 1):
         super().__init__()
-        self.blocks = nn.ModuleList(Block(generator, cfg, "attn", "mlp", device)
+        self.blocks = nn.ModuleList(Block(generator, cfg, "attn", "mlp", device, tp=tp)
                                     for _ in range(cfg.encoder_layers))
         self.final_norm = norm_init(cfg, device=device)
 
 
 class Model(nn.Module):
     """``embed``, ``blocks`` (one per layer), ``final_norm`` and, for an
-    encoder–decoder, ``encoder``; built for ``cfg`` (kept as
-    ``self.cfg``)."""
+    encoder–decoder, ``encoder``; built for ``cfg`` at tensor-parallel
+    degree ``tp`` (kept as ``self.cfg``, ``self.tp``)."""
 
-    def __init__(self, generator, cfg: ModelConfig, device):
+    def __init__(self, generator, cfg: ModelConfig, device, tp: int = 1):
         super().__init__()
-        self.cfg = cfg
+        self.cfg, self.tp = cfg, tp
         self.embed = embed_init(generator, cfg, device=device)
         self.blocks = nn.ModuleList(
-            Block(generator, cfg, mixer, ffn, device, cross=cfg.cross_attention)
+            Block(generator, cfg, mixer, ffn, device, cross=cfg.cross_attention, tp=tp)
             for mixer, ffn in zip(cfg.layer_kinds(), cfg.ffn_kinds())
         )
         self.final_norm = norm_init(cfg, device=device)
         if cfg.is_encdec:
-            self.encoder = Encoder(generator, cfg, device)
+            self.encoder = Encoder(generator, cfg, device, tp)
 
     def forward(self, fn, *args, **kwargs):
         """``fn(self, *args, **kwargs)``: with
@@ -169,12 +179,13 @@ class Model(nn.Module):
         return fn(self, *args, **kwargs)
 
 
-def init(generator: torch.Generator, cfg: ModelConfig, *, device="cuda") -> Model:
+def init(generator: torch.Generator, cfg: ModelConfig, *, device="cuda", tp: int = 1) -> Model:
     """The model's parameters in ``cfg.param_dtype`` on ``device``, drawn
     from ``generator`` (a generator on that device) with the reference's
     distributions (its numbers differ: see :mod:`repro_torch.convert` to
-    carry the reference's parameters over)."""
-    return Model(generator, cfg, device)
+    carry the reference's parameters over), its attention laid out for a
+    ``tp``-way ``model`` axis (``attention.padded_q_heads``)."""
+    return Model(generator, cfg, device, tp)
 
 
 def _remat(x: torch.Tensor, cfg: ModelConfig, caches, blocks) -> bool:
@@ -276,6 +287,7 @@ def _decoder_start(params: Model, batch, cfg: ModelConfig, backend):
     return x, _cross_memory(params, _encode(params, batch, cfg, backend=backend), cfg)
 
 
+@on_mesh
 def forward_hidden(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
     """Full-sequence decoder forward; returns ``(hidden (B, S, D), aux)``
     with ``aux`` the f32 sum of the MoE layers' losses (0 without any), as
@@ -287,6 +299,7 @@ def forward_hidden(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
     return norm_apply(params.final_norm, x, cfg), aux
 
 
+@on_mesh
 def lm_loss(params: Model, batch, cfg: ModelConfig, *, backend="auto"):
     """Causal-LM loss: chunked cross-entropy plus the MoE aux term.
 
@@ -321,6 +334,8 @@ class _ChunkedXent(torch.autograd.Function):
 
     @staticmethod
     def forward(hidden, w, labels, vocab_size, chunk):
+        if is_distributed(hidden):
+            return _VocabShards(hidden, w, labels).loss(vocab_size, chunk)
         tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
         for s0 in range(0, hidden.shape[1], chunk):
             logits = _chunk_logits(hidden[:, s0 : s0 + chunk], w, vocab_size)
@@ -340,6 +355,9 @@ class _ChunkedXent(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         hidden, w, labels = ctx.saved_tensors
+        if is_distributed(hidden):
+            return _VocabShards(hidden, w, labels).grads(g, ctx.vocab_size, ctx.chunk) + (
+                None, None, None)
         dh = torch.empty_like(hidden)
         dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
         for s0 in range(0, hidden.shape[1], ctx.chunk):
@@ -352,6 +370,92 @@ class _ChunkedXent(torch.autograd.Function):
             dh[:, s0 : s0 + ctx.chunk] = dlogits @ w.T
             dw += (h.reshape(-1, h.shape[-1]).T @ dlogits.reshape(-1, w.shape[1])).float()
         return dh, dw.to(w.dtype), None, None, None
+
+
+class _VocabShards:
+    """:class:`_ChunkedXent` on a mesh: the logits sharded over ``model`` by
+    vocabulary (the reference's ``shard(logits, "batch", None, "model")``),
+    each rank holding its batch rows and its columns of ``w``.  The
+    softmax's max, its sum and the label's logit are reduced over
+    ``model`` (``funcol.all_reduce``), so the loss is the unsharded one,
+    partial over the batch axes; the backward forms each rank's columns of
+    ``softmax − onehot`` and returns ``dhidden`` partial over ``model`` and
+    ``dw`` partial over the batch axes."""
+
+    def __init__(self, hidden, w, labels):
+        from torch.distributed.tensor import Partial, Replicate, Shard
+
+        from repro_torch.models.sharding import get_axis_env, placements
+
+        self.mesh = mesh = hidden.device_mesh
+        names = mesh.mesh_dim_names
+        self.model = names.index("model")
+        batch = placements((get_axis_env().get("batch"),), names)
+        self.rows = tuple(Replicate() if i == self.model else p for i, p in enumerate(batch))
+        self.h = shard(hidden, "batch", None, None).to_local()
+        self.lab = shard(labels, "batch", None).to_local()
+        self.w = w.redistribute(mesh, placements((None, "model"), names)).to_local()
+        tp = mesh.size(self.model)
+        self.offset = mesh.get_local_rank("model") * -(-w.shape[1] // tp)
+        self.hidden, self.full_w = hidden, w
+        self.partial_rows = tuple(Partial() if isinstance(p, Shard) else p for p in self.rows)
+        self.Partial, self.Shard = Partial, Shard
+
+    def _reduce(self, t, op):
+        from torch.distributed import _functional_collectives as funcol
+
+        return funcol.all_reduce(t, op, (self.mesh, self.model))
+
+    def _chunk(self, s0, chunk, vocab_size):
+        """A chunk's local f32 logits (the padded vocab masked), ``lse``,
+        labels and the mask of labels in this rank's columns."""
+        h = self.h[:, s0 : s0 + chunk]
+        lab = self.lab[:, s0 : s0 + chunk]
+        logits = (h @ self.w).float()
+        cols = self.offset + torch.arange(logits.shape[-1], device=logits.device)
+        logits = torch.where(cols < vocab_size, logits, -1e30)
+        m = self._reduce(logits.amax(dim=-1, keepdim=True), "max")
+        lse = m[..., 0] + torch.log(self._reduce(torch.exp(logits - m).sum(dim=-1), "sum"))
+        own = (lab >= self.offset) & (lab < self.offset + logits.shape[-1])
+        return h, lab, logits, lse, own
+
+    def _local_label(self, lab, own, width):
+        return torch.where(own, lab - self.offset, 0).clamp(max=width - 1)[..., None]
+
+    def loss(self, vocab_size, chunk):
+        from torch.distributed.tensor import DTensor
+
+        tot = torch.zeros((), dtype=torch.float32, device=self.h.device)
+        for s0 in range(0, self.h.shape[1], chunk):
+            _, lab, logits, lse, own = self._chunk(s0, chunk, vocab_size)
+            ll = logits.gather(-1, self._local_label(lab, own, logits.shape[-1]))[..., 0]
+            ll = self._reduce(torch.where(own, ll, 0.0), "sum")
+            tot = tot + torch.where(lab >= 0, lse - ll, 0.0).sum()
+        return DTensor.from_local(tot, self.mesh, self.partial_rows, run_check=False)
+
+    def grads(self, g, vocab_size, chunk):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        if is_distributed(g):
+            g = g.redistribute(self.mesh, (Replicate(),) * self.mesh.ndim).to_local()
+        dh = torch.empty_like(self.h)
+        dw = torch.zeros(self.w.shape, dtype=torch.float32, device=self.w.device)
+        for s0 in range(0, self.h.shape[1], chunk):
+            h, lab, logits, lse, own = self._chunk(s0, chunk, vocab_size)
+            dlogits = torch.exp(logits - lse[..., None])
+            dlogits.scatter_add_(-1, self._local_label(lab, own, logits.shape[-1]),
+                                 torch.where(own, -1.0, 0.0)[..., None])
+            dlogits = (dlogits * ((lab >= 0) * g)[..., None]).to(h.dtype)
+            dh[:, s0 : s0 + chunk] = dlogits @ self.w.T
+            dw += (h.reshape(-1, h.shape[-1]).T @ dlogits.reshape(-1, self.w.shape[1])).float()
+        model_partial = tuple(self.Partial() if i == self.model else p
+                              for i, p in enumerate(self.rows))
+        w_grad = tuple(self.Shard(1) if i == self.model else p
+                       for i, p in enumerate(self.partial_rows))
+        return (DTensor.from_local(dh, self.mesh, model_partial, run_check=False,
+                                   shape=self.hidden.shape, stride=self.hidden.stride()),
+                DTensor.from_local(dw.to(self.w.dtype), self.mesh, w_grad, run_check=False,
+                                   shape=self.full_w.shape, stride=self.full_w.stride()))
 
 
 def _chunked_xent(hidden, w, labels, cfg: ModelConfig):
@@ -375,9 +479,10 @@ class DecodeState(NamedTuple):
     length: int
 
 
-def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, *, device="cuda") -> DecodeState:
+def init_decode_state(cfg: ModelConfig, batch: int, max_len: int, tp: int = 1, *,
+                      device="cuda") -> DecodeState:
     caches = [
-        attn.init_cache(cfg, batch, max_len, device=device) if kind == "attn"
+        attn.init_cache(cfg, batch, max_len, tp, device=device) if kind == "attn"
         else ssm.init_ssm_state(cfg, batch, device=device)
         for kind in cfg.layer_kinds()
     ]
@@ -389,6 +494,7 @@ def _logits(params: Model, x, cfg: ModelConfig):
     return (h @ lm_head_weights(params.embed, cfg)).float()
 
 
+@on_mesh
 def prefill(params: Model, batch, state: DecodeState, cfg: ModelConfig, *, backend="auto"):
     """Consume the prompt, filling the caches; returns ``(state,
     last_logits (B, 1, padded vocab))``.  An encoder–decoder encodes the
@@ -403,6 +509,7 @@ def prefill(params: Model, batch, state: DecodeState, cfg: ModelConfig, *, backe
                        length=state.length + x.shape[1]), logits
 
 
+@on_mesh
 def decode_step(params: Model, tokens, state: DecodeState, cfg: ModelConfig, *, backend="auto"):
     """One serving step: new token(s) (B, s) → logits (B, s, padded vocab);
     the caches advance in place and the state's length by ``s``; an

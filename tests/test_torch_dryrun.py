@@ -357,6 +357,6 @@ def test_smoke_dryrun_every_cell(tmp_path):
     for arch in ("gpc-mnist", "gpc-mnist-optx"):
         rec = dryrun.run_cell(arch, "", str(tmp_path))
         assert rec["status"] == "ok" and rec["fits"]
-    assert "sharding layouts" in rec["note"]
+    assert rec["note"].endswith(dryrun.NOTE) and rec["chips"] == 1
     table = roofline.table(str(tmp_path))
     assert "gpc-mnist" in table and "skipped" in table

@@ -77,6 +77,17 @@ SSD_CASES = [
 ]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one CPU thread for the module: its products are small (SMOKE
+    widths), and beside the suite's other workers (six, of eight threads each,
+    on eight cores) a pool of all cores waits on every parallel region."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tol(dtype, scale=1.0):
     """``tests/test_kernels.py``'s tolerances."""
     return dict(rtol=scale * (2e-2 if dtype == BF16 else 2e-4),

@@ -53,6 +53,17 @@ DTYPES = [torch.float64, torch.float32]
 ELL = 4
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one CPU thread for the module: its products are vector
+    reductions, and beside the suite's other workers (six, of eight threads
+    each, on eight cores) a pool of all cores waits on every parallel region."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.as_tensor(np.array(a, dtype=np.float64))
 

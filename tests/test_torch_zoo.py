@@ -63,6 +63,17 @@ B, S, MAX_LEN, DECODE = 2, 24, 32, 4
 TIGHT = dict(rtol=2e-4, atol=5e-4)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """torch on one CPU thread for the module: its products are small (SMOKE
+    widths), and beside the suite's other workers (six, of eight threads each,
+    on eight cores) a pool of all cores waits on every parallel region."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _np(t):
     if isinstance(t, torch.Tensor):
         return t.detach().float().numpy()

@@ -221,6 +221,10 @@ def rbf_case(x_np, sqrt_h_np, b_np, device):
 
 
 def all_cases(dense_args, rbf_args, device="cpu"):
+    # One torch thread a rank: the systems are small (n ≤ 256), and a
+    # pool of threads per rank waits on every parallel region beside the
+    # other ranks and the suite's other workers.
+    torch.set_num_threads(1)
     return {
         "mesh": mesh_cases(device),
         "dense": dense_cases(*dense_args, device=device),
